@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Marked `cuda`: each test skips without an NVIDIA GPU (decided inside the
+fixture, never at import). Run them on the card with
+`python -m pytest --noconftest tests/test_torch_cuda.py` (tests/conftest.py
+imports jax, which the card's machine lacks); chip_smoke.py runs the same
+comparisons at the main path's shapes."""
+
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from vk_gltf_renderer_tpu_torch.convert import bvh_to_device
+from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import build_world_bvh
+from vk_gltf_renderer_tpu_torch.ops.flat import build_scene_flat
+from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _helmet_bvh():
+    from vk_gltf_renderer_tpu.models import Scene
+
+    with tempfile.TemporaryDirectory() as d:
+        sc = Scene()
+        sc.load(make_helmet_standin(d))
+        return build_world_bvh(build_scene_flat(sc))
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_traversal_kernel_matches_plain(cuda, anyhit):
+    wb = _helmet_bvh()
+    bvh = bvh_to_device(wb, cuda)
+    rng = np.random.default_rng(31)
+    n = 20000
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    ro = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.full(n, 3.0 if anyhit else 1e32, np.float32)
+    tmax[::101] = -1.0
+    comps = [torch.tensor(np.ascontiguousarray(a), device=cuda) for a in (*ro.T, *rd.T)]
+    args = (*comps, torch.zeros(n, device=cuda), torch.tensor(tmax, device=cuda))
+    launches = tb4.COUNTER.launches
+    tb4.reset_stack_overflows()
+    k = tb4.intersect_rays_soa(bvh, *args, anyhit=anyhit)
+    torch.cuda.synchronize()
+    assert tb4.COUNTER.launches == launches + 1
+    from vk_gltf_renderer_tpu_torch.ops.traverse import traverse_bvh4_plain
+
+    t, rn, tri, u, v, dropped = traverse_bvh4_plain(bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *args,
+                                                    anyhit=anyhit)
+    assert dropped == 0 and tb4.stack_overflows() == 0
+    hit = tri >= 0
+    assert torch.equal(k["tri"] >= 0, hit)
+    if not anyhit:
+        same = (k["tri"] == tri) & (k["rnode"] == rn)
+        tie = torch.isclose(k["t"], torch.where(hit, t, k["t"]), rtol=1e-6, atol=0)
+        assert bool((same | tie).all())
+        torch.testing.assert_close(k["t"][hit], t[hit], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(k["u"][same & hit], u[same & hit], rtol=0, atol=1e-5)
+
+
+def test_gather_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(32)
+    tab = torch.tensor(rng.normal(size=(4, 8192)).astype(np.float32), device=cuda)
+    idx = torch.tensor(rng.integers(0, 8192, 100_003).astype(np.int32), device=cuda)
+    launches = tgather.COUNTER.launches
+    out = tgather.gather_channels(tab, idx)
+    assert tgather.COUNTER.launches == launches + 1
+    assert torch.equal(out, tgather.gather_channels_plain(tab, idx))
+    assert torch.equal(tgather.gather_channels(tab[2:4], idx), tab[2:4][:, idx.long()])

@@ -1,0 +1,406 @@
+"""World-space BVH4 tables for the traversal kernel (numpy host builder).
+
+jax-free copy of the default path of vk_gltf_renderer_tpu/ops/bvh_flatten.py
+build_world_bvh: instances baked into world triangles, binned SAH over them
+(the native C++ builder of vk_gltf_renderer_tpu.native, with the numpy
+oracle as fallback), collapsed to BVH4, and emitted as the two tables the
+kernel reads:
+
+  nodes4_fi [M,32] f32  4 child AABBs (cols 0:24, lo3 hi3 each), 4 child
+                        codes (24:28: >= 0 BVH4 node id, < 0 leaf code
+                        -(leafrow*16+count)-1, missing child 0 with the
+                        always-miss point box lo=hi=+3e38) and 3 near-order
+                        split axes (28:31)
+  tris128   [L,128] f32 one row per leaf: 8 triangles x 16 floats
+                        (v0 v1 v2, pad, render node id at col 9, global
+                        tri id at col 10; padding slots are zero triangles
+                        with ids -1)
+
+plus the fused hit-state rows (ops/hitstate.bake_hit_attrs_np). Only the
+tables the slice reads are built; the binary/BVH16/lane-page tables, the
+SBVH and LBVH branches, alpha culling and the refit maps of the reference
+are not ported yet (ROADMAP.md). tests/test_torch_host.py holds every field
+equal to the reference's.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+
+from .hitstate import bake_hit_attrs_np, narrow_attr_ok
+
+LEAF_SIZE = 8
+_SAH_BINS = 16
+_SAH_NUMPY_MAX_TRIS = 300_000  # the numpy oracle is a Python loop
+_B4_EMPTY_LO = 3e38
+_B4_EMPTY_HI = -3e38
+
+
+@dataclass
+class WorldBvh:
+    nodes_self: np.ndarray  # [Nn,8] f32 binary nodes' own AABBs (row 0 = scene bounds)
+    nodes4_fi: np.ndarray  # [M,32] f32 fused BVH4 rows
+    tris128: np.ndarray  # [L,128] f32 leaf-aligned triangle blocks
+    # fused hit-state rows: row = rn_attr_base[rnode] + tri
+    hit_attr: np.ndarray  # [Ta,64] (or [Ta,32] narrow) f32
+    rn_attr_base: np.ndarray  # [N] i32
+    attr_alpha_class: np.ndarray  # [Ta] i8 (1 = mixed: no classification)
+    num_world_tris: int
+    root4_code: int = 0
+
+
+def _build_sah(tlo, thi, cen):
+    """Top-down binned SAH build, 16 bins per axis (reference
+    ops/bvh_flatten.py:264). Returns (order, nodes_i, nodes_f, nodes_self):
+    leaves of <= LEAF_SIZE tris over the reordered triangle array, left
+    child = smaller centroid on nodes_i[:,5], parents in nodes_i[:,4]."""
+    nt = tlo.shape[0]
+    perm = np.arange(nt, dtype=np.int64)
+    t_left, t_right, t_first, t_count, t_axis = [], [], [], [], []
+    t_lo, t_hi = [], []
+
+    def new_node():
+        t_left.append(-1)
+        t_right.append(-1)
+        t_first.append(-1)
+        t_count.append(0)
+        t_axis.append(0)
+        t_lo.append(None)
+        t_hi.append(None)
+        return len(t_left) - 1
+
+    root = new_node()
+    stack = [(root, 0, nt)]
+    while stack:
+        nid, s, e = stack.pop()
+        ids = perm[s:e]
+        n = e - s
+        t_lo[nid] = tlo[ids].min(axis=0)
+        t_hi[nid] = thi[ids].max(axis=0)
+        if n <= LEAF_SIZE:
+            t_first[nid] = s
+            t_count[nid] = n
+            continue
+        c = cen[ids]
+        clo = c.min(axis=0)
+        chi = c.max(axis=0)
+        ext = chi - clo
+        best_cost = np.inf
+        best_axis = -1
+        best_split = -1
+        best_bins = None
+        for axis in range(3):
+            if ext[axis] <= 1e-12:
+                continue
+            b = np.minimum(
+                ((c[:, axis] - clo[axis]) * (_SAH_BINS / ext[axis])).astype(np.int64),
+                _SAH_BINS - 1,
+            )
+            cnt = np.bincount(b, minlength=_SAH_BINS)
+            blo = np.full((_SAH_BINS, 3), np.inf)
+            bhi = np.full((_SAH_BINS, 3), -np.inf)
+            np.minimum.at(blo, b, tlo[ids])
+            np.maximum.at(bhi, b, thi[ids])
+            llo = np.minimum.accumulate(blo, axis=0)
+            lhi = np.maximum.accumulate(bhi, axis=0)
+            rlo = np.minimum.accumulate(blo[::-1], axis=0)[::-1]
+            rhi = np.maximum.accumulate(bhi[::-1], axis=0)[::-1]
+            lcnt = np.cumsum(cnt)
+
+            def area(alo, ahi):
+                d = np.maximum(ahi - alo, 0.0)
+                return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+            # split after bin k: left = bins [0,k], right = [k+1, NB)
+            la = area(llo[:-1], lhi[:-1])
+            ra = area(rlo[1:], rhi[1:])
+            lc = lcnt[:-1]
+            rc = n - lc
+            cost = la * lc + ra * rc
+            cost[(lc == 0) | (rc == 0)] = np.inf
+            k = int(np.argmin(cost))
+            if cost[k] < best_cost:
+                best_cost = cost[k]
+                best_axis = axis
+                best_split = k
+                best_bins = b
+        if best_axis < 0:
+            mid = s + n // 2  # all centroids equal: median split
+        else:
+            mask = best_bins <= best_split
+            mid = s + int(mask.sum())
+            perm[s:e] = np.concatenate([ids[mask], ids[~mask]])
+            t_axis[nid] = best_axis
+        if mid == s or mid == e:  # SAH refused; force median
+            mid = s + n // 2
+        l_id = new_node()
+        r_id = new_node()
+        t_left[nid] = l_id
+        t_right[nid] = r_id
+        stack.append((r_id, mid, e))
+        stack.append((l_id, s, mid))
+
+    nn = len(t_left)
+    nodes_i = np.zeros((nn, 8), np.int32)
+    nodes_f = np.zeros((nn, 16), np.float32)
+    nodes_self = np.zeros((nn, 8), np.float32)
+    parent = np.full(nn, -1, np.int32)
+    for nid in range(nn):
+        nodes_self[nid, 0:3] = t_lo[nid]
+        nodes_self[nid, 3:6] = t_hi[nid]
+        if t_count[nid] > 0:
+            nodes_i[nid, 2] = t_first[nid]
+            nodes_i[nid, 3] = t_count[nid]
+            continue
+        l_id, r_id, axis = t_left[nid], t_right[nid], t_axis[nid]
+        cl = (t_lo[l_id][axis] + t_hi[l_id][axis]) * 0.5
+        cr = (t_lo[r_id][axis] + t_hi[r_id][axis]) * 0.5
+        if cr < cl:
+            l_id, r_id = r_id, l_id
+        nodes_i[nid, 0] = l_id
+        nodes_i[nid, 1] = r_id
+        nodes_i[nid, 5] = axis
+        nodes_f[nid, 0:3] = t_lo[l_id]
+        nodes_f[nid, 3:6] = t_hi[l_id]
+        nodes_f[nid, 6:9] = t_lo[r_id]
+        nodes_f[nid, 9:12] = t_hi[r_id]
+        parent[l_id] = nid
+        parent[r_id] = nid
+    nodes_i[:, 4] = parent
+    return perm, nodes_i, nodes_f, nodes_self
+
+
+def _expand_bits_10(v: np.ndarray) -> np.ndarray:
+    v = v.astype(np.uint64)
+    v = (v * np.uint64(0x00010001)) & np.uint64(0xFF0000FF)
+    v = (v * np.uint64(0x00000101)) & np.uint64(0x0F00F00F)
+    v = (v * np.uint64(0x00000011)) & np.uint64(0xC30C30C3)
+    v = (v * np.uint64(0x00000005)) & np.uint64(0x49249249)
+    return v
+
+
+def _morton_order(tlo, thi, cen) -> np.ndarray:
+    """Triangle order of a scene small enough to be one leaf: the Morton
+    order the reference's radix-tree path stores it in (its native sort,
+    else the numpy morton3d + stable argsort of ops/bvh.py)."""
+    from vk_gltf_renderer_tpu.native import build_radix_tree_native
+
+    native = build_radix_tree_native(tlo, thi, cen)
+    if native is not None:
+        return native[0]
+    lo, hi = tlo.min(axis=0), thi.max(axis=0)
+    q = np.clip((cen - lo) / np.maximum(hi - lo, 1e-12) * 1024.0, 0, 1023).astype(np.uint32)
+    codes = ((_expand_bits_10(q[:, 0]) << np.uint64(2))
+             | (_expand_bits_10(q[:, 1]) << np.uint64(1))
+             | _expand_bits_10(q[:, 2]))
+    return np.argsort(codes, kind="stable")
+
+
+def _tris128(nodes_i, tris16, wtri_rnode, wtri_tri):
+    """Leaf-aligned triangle blocks (the tris128 half of the reference's
+    _packet2_tables, ops/bvh_flatten.py:48): one [128] row per binary leaf,
+    in leaf-id order, 8 slots of 16 floats with the ids at cols 9/10."""
+    count = nodes_i[:, 3].astype(np.int64)
+    first = nodes_i[:, 2].astype(np.int64)
+    leaf_ids = np.nonzero(count > 0)[0]
+    n_leaves = max(leaf_ids.size, 1)
+    if leaf_ids.size >= 1 << 20:
+        raise ValueError("leaf codes cap at 2^20 leaves (exact in f32)")
+    tris128 = np.zeros((n_leaves, 8, 16), np.float32)
+    tris128[:, :, 9:11] = -1.0
+    if leaf_ids.size:
+        c = count[leaf_ids]
+        reps = np.repeat(np.arange(leaf_ids.size), c)
+        k = np.arange(reps.size) - np.repeat(np.cumsum(c) - c, c)
+        rows = first[leaf_ids][reps] + k
+        tris128[reps, k] = tris16[rows]
+        tris128[reps, k, 9] = wtri_rnode[rows].astype(np.float32)
+        tris128[reps, k, 10] = wtri_tri[rows].astype(np.float32)
+    return tris128.reshape(n_leaves, 128)
+
+
+def _leaf_code(first, count):
+    return -(int(first) * 16 + int(count)) - 1
+
+
+def build_bvh4(nodes_i, nodes_self):
+    """Collapse the binary tree into BVH4 (reference ops/bvh_flatten.py:1270).
+    Returns (nodes4_i [M,8] i32: 4 child slots + 3 axes, nodes4_f [M,32]
+    f32: 4 child boxes; missing children carry inverted boxes)."""
+    n4_i, n4_f = [], []
+    if nodes_i[0, 3] > 0:  # root is a leaf: one BVH4 node with 1 child
+        n4_i.append([_leaf_code(nodes_i[0, 2], nodes_i[0, 3]), -1, -1, -1, 0, 0, 0, 0])
+        f = np.full(32, 0.0, np.float32)
+        f[0:3] = nodes_self[0, 0:3]
+        f[3:6] = nodes_self[0, 3:6]
+        for s in range(1, 4):
+            f[6 * s : 6 * s + 3] = _B4_EMPTY_LO
+            f[6 * s + 3 : 6 * s + 6] = _B4_EMPTY_HI
+        n4_f.append(f)
+        return np.asarray(n4_i, np.int32), np.stack(n4_f).astype(np.float32)
+
+    id_of = {0: 0}
+    work = deque([0])
+    n4_i.append(None)
+    n4_f.append(None)
+    while work:
+        b = work.popleft()
+        nid = id_of[b]
+        l, r = int(nodes_i[b, 0]), int(nodes_i[b, 1])
+        slots = []
+        axes = [int(nodes_i[b, 5]), 0, 0]
+        for side, c in ((1, l), (2, r)):
+            if nodes_i[c, 3] > 0:  # leaf child occupies one slot, pad one
+                slots.append(c)
+                slots.append(None)
+            else:
+                axes[side] = int(nodes_i[c, 5])
+                slots.append(int(nodes_i[c, 0]))
+                slots.append(int(nodes_i[c, 1]))
+        row_i = [0, 0, 0, 0, axes[0], axes[1], axes[2], 0]
+        row_f = np.empty(32, np.float32)
+        row_f[24:] = 0.0
+        for s, c in enumerate(slots):
+            if c is None:
+                row_i[s] = -1
+                row_f[6 * s : 6 * s + 3] = _B4_EMPTY_LO
+                row_f[6 * s + 3 : 6 * s + 6] = _B4_EMPTY_HI
+                continue
+            row_f[6 * s : 6 * s + 3] = nodes_self[c, 0:3]
+            row_f[6 * s + 3 : 6 * s + 6] = nodes_self[c, 3:6]
+            if nodes_i[c, 3] > 0:
+                row_i[s] = _leaf_code(nodes_i[c, 2], nodes_i[c, 3])
+            else:
+                if c not in id_of:
+                    id_of[c] = len(n4_i)
+                    n4_i.append(None)
+                    n4_f.append(None)
+                    work.append(c)
+                row_i[s] = id_of[c]
+        n4_i[nid] = row_i
+        n4_f[nid] = row_f
+    return np.asarray(n4_i, np.int32), np.stack(n4_f).astype(np.float32)
+
+
+def _nodes4_fi(nodes_i, nodes4_i, nodes4_f):
+    """Fused BVH4 rows (reference _packet3_tables, ops/bvh_flatten.py:1208).
+    Missing children get code 0 and the point box lo=hi=+3e38: the slab
+    test (tnear = max of mins, tfar = min of maxes) would accept an
+    inverted box, and traversal would then loop forever."""
+    count = nodes_i[:, 3].astype(np.int64)
+    leaf_ids = np.nonzero(count > 0)[0]
+    # binary leaf 'first' -> tris128 row (leaf-id order, as _tris128)
+    first2row = np.full(int(nodes_i[:, 2].max()) + 2, -1, np.int64)
+    first2row[nodes_i[leaf_ids, 2].astype(np.int64)] = np.arange(leaf_ids.size)
+
+    n4i = nodes4_i.astype(np.int64)
+    fi = nodes4_f.astype(np.float32).copy()
+    slots = n4i[:, 0:4]
+    is_leafslot = slots < 0
+    is_missing = slots == -1
+    v1c = np.where(is_leafslot & ~is_missing, -slots - 1, 0)
+    vfirst, vcnt = v1c // 16, v1c % 16
+    v2c = -(first2row[vfirst] * 16 + vcnt) - 1
+    code = np.where(is_missing, 0, np.where(is_leafslot, v2c, slots)).astype(np.float64)
+    fi[:, 24:28] = code
+    fi[:, 28:31] = n4i[:, 4:7]
+    fi[:, 31] = 0.0
+    for s in range(4):
+        fi[is_missing[:, s], 6 * s : 6 * s + 6] = 3e38
+    return fi
+
+
+def build_world_bvh(flat) -> WorldBvh:
+    """Bake instances to world space + SAH BVH4 over all world triangles
+    (reference build_world_bvh with tri_class=None, VKGR_BVH=sah)."""
+    vtx = np.asarray(flat.vtx_pos, np.float64)
+    tri_idx = np.asarray(flat.tri_idx)
+    rn_o2w = np.asarray(flat.rn_o2w, np.float64)
+    rn_prim = np.asarray(flat.rn_prim)
+    rn_visible = np.asarray(flat.rn_visible)
+    pft = np.asarray(flat.prim_first_tri)
+    ptc = np.asarray(flat.prim_tri_count)
+
+    v_chunks, rnode_chunks, tri_chunks = [], [], []
+    attr_rnode_chunks, attr_tri_chunks = [], []
+    rn_attr_base = np.zeros(rn_o2w.shape[0], np.int32)
+    attr_off = 0
+    for i in range(rn_o2w.shape[0]):
+        if not rn_visible[i]:
+            continue
+        p = rn_prim[i]
+        f, c = int(pft[p]), int(ptc[p])
+        ids = np.arange(f, f + c)
+        attr_rnode_chunks.append(np.full(c, i, np.int32))
+        attr_tri_chunks.append(ids.astype(np.int32))
+        idx = tri_idx[ids]
+        m = rn_o2w[i]
+        w0 = vtx[idx[:, 0]] @ m[:3, :3].T + m[:3, 3]
+        w1 = vtx[idx[:, 1]] @ m[:3, :3].T + m[:3, 3]
+        w2 = vtx[idx[:, 2]] @ m[:3, :3].T + m[:3, 3]
+        v_chunks.append(np.concatenate([w0, w1, w2], axis=1).astype(np.float32))
+        rnode_chunks.append(np.full(c, i, np.int32))
+        tri_chunks.append(ids.astype(np.int32))
+        # this node's world tris occupy emit rows [attr_off, attr_off + c)
+        rn_attr_base[i] = attr_off - f
+        attr_off += c
+
+    attr_rnode = np.concatenate(attr_rnode_chunks) if attr_rnode_chunks else np.zeros(0, np.int32)
+    attr_tri = np.concatenate(attr_tri_chunks) if attr_tri_chunks else np.zeros(0, np.int32)
+    wv = np.concatenate(v_chunks) if v_chunks else np.zeros((0, 9), np.float32)
+    wtri_rnode = np.concatenate(rnode_chunks) if rnode_chunks else np.zeros(0, np.int32)
+    wtri_tri = np.concatenate(tri_chunks) if tri_chunks else np.zeros(0, np.int32)
+    if wv.shape[0] == 0:  # empty scene: one degenerate far-away tri
+        wv = np.full((1, 9), 3e37, np.float32)
+        wtri_rnode = np.zeros(1, np.int32)
+        wtri_tri = np.zeros(1, np.int32)
+    nt = wv.shape[0]
+
+    hit_attr, _ = bake_hit_attrs_np(flat, attr_rnode, attr_tri, narrow=narrow_attr_ok(flat))
+    attr_alpha_class = np.ones(attr_rnode.shape[0], np.int8)  # unclassified = mixed
+
+    v0, v1, v2 = wv[:, 0:3], wv[:, 3:6], wv[:, 6:9]
+    tlo = np.minimum(np.minimum(v0, v1), v2)
+    thi = np.maximum(np.maximum(v0, v1), v2)
+    cen = (tlo + thi) * 0.5
+
+    if nt <= LEAF_SIZE:
+        # the whole scene is one leaf, stored in Morton order
+        order = _morton_order(tlo, thi, cen) if nt > 1 else np.zeros(1, np.int64)
+        nodes_i = np.zeros((1, 8), np.int32)
+        nodes_i[0] = [0, 0, 0, nt, -1, 0, 0, 0]
+        nodes_self = np.zeros((1, 8), np.float32)
+        nodes_self[0, 0:3] = tlo.min(axis=0)
+        nodes_self[0, 3:6] = thi.max(axis=0)
+    else:
+        from vk_gltf_renderer_tpu.native import build_sah_native
+
+        built = build_sah_native(tlo, thi, cen, LEAF_SIZE)
+        if built is None:
+            if nt > _SAH_NUMPY_MAX_TRIS:
+                raise NotImplementedError(
+                    f"{nt} world triangles need the native SAH builder (g++); the "
+                    "reference's LBVH fallback for large scenes is not ported yet")
+            built = _build_sah(tlo, thi, cen)
+        order, nodes_i, _, nodes_self = built
+    wv = wv[order]
+    wtri_rnode = wtri_rnode[order]
+    wtri_tri = wtri_tri[order]
+    tris16 = np.zeros((nt + LEAF_SIZE, 16), np.float32)
+    tris16[:nt, :9] = wv
+    wtri_rnode = np.concatenate([wtri_rnode, np.zeros(LEAF_SIZE, np.int32)])
+    wtri_tri = np.concatenate([wtri_tri, np.zeros(LEAF_SIZE, np.int32)])
+
+    n4i, n4f = build_bvh4(nodes_i, nodes_self)
+    return WorldBvh(
+        nodes_self=nodes_self,
+        nodes4_fi=_nodes4_fi(nodes_i, n4i, n4f),
+        tris128=_tris128(nodes_i, tris16, wtri_rnode, wtri_tri),
+        hit_attr=hit_attr,
+        rn_attr_base=rn_attr_base,
+        attr_alpha_class=attr_alpha_class,
+        num_world_tris=nt,
+    )

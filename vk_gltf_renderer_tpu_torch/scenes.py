@@ -1,0 +1,95 @@
+"""In-repo scenes for the port's runs and tests.
+
+make_helmet_standin writes the same glTF as the reference's
+tools/baseline_standins.make_helmet (a checker-textured PBR sphere on a
+rough plate, the DamagedHelmet feature role), but writes its checker
+texture with utils/png.py, so it needs no Pillow.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from vk_gltf_renderer_tpu.models import Scene
+from vk_gltf_renderer_tpu.models.editor import SceneEditor
+from vk_gltf_renderer_tpu.models.gltf import load_model_from_json
+
+from .utils.png import write_png
+
+
+def _empty_scene():
+    sc = Scene()
+    sc.load_from_model(load_model_from_json(
+        {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": []}]}, []))
+    return sc
+
+
+def checker_image(n=128, c0=(200, 60, 40), c1=(240, 230, 210)) -> np.ndarray:
+    y, x = np.mgrid[0:n, 0:n]
+    m = ((x // 16 + y // 16) % 2).astype(bool)
+    return np.where(m[..., None], np.array(c1, np.uint8), np.array(c0, np.uint8)).astype(np.uint8)
+
+
+def synthetic_sky(h=256, w=512, seed=0) -> np.ndarray:
+    """Procedural lat-long HDR [h,w,3]: a horizon-to-zenith gradient over a
+    darker ground, mild per-texel noise and a bright sun disk, all from a
+    fixed numpy seed."""
+    rng = np.random.default_rng(seed)
+    v = (np.arange(h) + 0.5) / h  # 0 = zenith, 1 = nadir
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[:, None, None]
+    zenith = np.array([0.25, 0.45, 0.9])
+    horizon = np.array([0.9, 0.85, 0.8])
+    ground = np.array([0.25, 0.22, 0.2])
+    rgb = np.where((v < 0.5)[:, None, None], horizon * (1 - up) + zenith * up, ground)
+    rgb = np.broadcast_to(rgb, (h, w, 3)) * (1.0 + 0.05 * rng.standard_normal((h, w, 1)))
+    sy, sx = int(0.3 * h), int(0.6 * w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    rgb = np.where(((yy - sy) ** 2 + (xx - sx) ** 2 <= (h // 64 + 1) ** 2)[..., None],
+                   np.array([800.0, 760.0, 700.0]), rgb)
+    return np.maximum(rgb, 0.0).astype(np.float32)
+
+
+def write_synthetic_hdr(path, h=256, w=512, seed=0) -> str:
+    """synthetic_sky written as a Radiance .hdr with flat RGBE scanlines."""
+    from .ops.hdr import write_hdr
+
+    write_hdr(path, synthetic_sky(h, w, seed))
+    return str(path)
+
+
+def make_helmet_standin(out_dir) -> str:
+    """Write helmet.gltf (+ .bin and helmet_baseColor.png) into out_dir;
+    returns the .gltf path."""
+    sc = _empty_scene()
+    ed = SceneEditor(sc)
+    ball = ed.add_primitive("sphere", segments=48, name="helmet")
+    plate = ed.add_primitive("plane", name="plate")
+    ed.set_translation(plate, [0.0, -1.1, 0.0])
+    ed.set_scale(plate, [4.0, 1.0, 4.0])
+    tex = os.path.join(out_dir, "helmet_baseColor.png")
+    write_png(tex, checker_image())
+    m = sc.model
+    m.images.append({"uri": os.path.basename(tex)})
+    m.gltf.setdefault("samplers", []).append({"wrapS": 10497, "wrapT": 10497})
+    m.gltf.setdefault("textures", []).append({"source": 0, "sampler": 0})
+    m.materials.append({
+        "name": "helmet_pbr",
+        "pbrMetallicRoughness": {
+            "baseColorTexture": {"index": 0},
+            "metallicFactor": 0.6,
+            "roughnessFactor": 0.35,
+        },
+    })
+    m.materials.append({
+        "name": "plate",
+        "pbrMetallicRoughness": {"baseColorFactor": [0.3, 0.3, 0.32, 1.0],
+                                 "roughnessFactor": 0.9, "metallicFactor": 0.0},
+    })
+    ed.set_material(ball, 0, 0)
+    ed.set_material(plate, 0, 1)
+    sc.parse_scene()
+    p = os.path.join(out_dir, "helmet.gltf")
+    sc.save(p)
+    return p
