@@ -14,10 +14,15 @@ import torch
 
 from vk_gltf_renderer_tpu_torch.convert import bvh_to_device
 from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane
+from vk_gltf_renderer_tpu_torch.ops import traverse as ttrav
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
-from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import build_world_bvh
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16
+from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from vk_gltf_renderer_tpu_torch.ops.flat import build_scene_flat
-from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin
+from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_soa
+from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb
 
 pytestmark = pytest.mark.cuda
 
@@ -53,15 +58,15 @@ def test_traversal_kernel_matches_plain(cuda, anyhit):
     comps = [torch.tensor(np.ascontiguousarray(a), device=cuda) for a in (*ro.T, *rd.T)]
     args = (*comps, torch.zeros(n, device=cuda), torch.tensor(tmax, device=cuda))
     launches = tb4.COUNTER.launches
-    tb4.reset_stack_overflows()
-    k = tb4.intersect_rays_soa(bvh, *args, anyhit=anyhit)
+    tb4.OVERFLOW.reset()
+    k = intersect_rays_soa(bvh, *args, anyhit=anyhit, kernel="v3")
     torch.cuda.synchronize()
     assert tb4.COUNTER.launches == launches + 1
     from vk_gltf_renderer_tpu_torch.ops.traverse import traverse_bvh4_plain
 
     t, rn, tri, u, v, dropped = traverse_bvh4_plain(bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *args,
                                                     anyhit=anyhit)
-    assert dropped == 0 and tb4.stack_overflows() == 0
+    assert dropped == 0 and tb4.OVERFLOW.total() == 0
     hit = tri >= 0
     assert torch.equal(k["tri"] >= 0, hit)
     if not anyhit:
@@ -70,6 +75,66 @@ def test_traversal_kernel_matches_plain(cuda, anyhit):
         assert bool((same | tie).all())
         torch.testing.assert_close(k["t"][hit], t[hit], rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(k["u"][same & hit], u[same & hit], rtol=0, atol=1e-5)
+
+
+def _terrain_bvh():
+    from vk_gltf_renderer_tpu.models import Scene
+
+    with tempfile.TemporaryDirectory() as d:
+        write_large_glb(d + "/terrain.glb", target_tris=40_000, grid=4)
+        sc = Scene()
+        sc.load(d + "/terrain.glb")
+        return build_world_bvh(build_scene_flat(sc))
+
+
+# kernel value -> (wrapper module, plain version, DeviceBvh table, root code attribute)
+NEW = {
+    "v2": (tb2, ttrav.traverse_bvh2_plain, "nodes_fi", "root_code"),
+    "v6": (tb16, ttrav.traverse_bvh16_plain, "nodes16_fi", None),
+    "lane": (tlane, ttrav.traverse_lanes_plain, "lane_entries", None),
+}
+
+
+@pytest.mark.parametrize("scene", ["helmet", "terrain"])
+@pytest.mark.parametrize("kernel", sorted(NEW))
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_new_traversal_kernels_match_plain(cuda, scene, kernel, anyhit):
+    """BVH2, BVH16 and the lane walk against their plain versions on the
+    card: ids equal except on equal-t ties, t/u/v within 1e-5, occlusion
+    equal, nothing dropped, one launch counted."""
+    wb = _helmet_bvh() if scene == "helmet" else _terrain_bvh()
+    bvh = bvh_to_device(add_kernel_tables(wb, {"bvh2", "bvh16", "lane"}), cuda)
+    mod, plain, table, root = NEW[kernel]
+    rng = np.random.default_rng(33)
+    n = 20000
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    ro = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.full(n, 1.0 if anyhit else 1e32, np.float32)
+    tmax[::101] = -1.0
+    comps = [torch.tensor(np.ascontiguousarray(a), device=cuda) for a in (*ro.T, *rd.T)]
+    args = (*comps, torch.zeros(n, device=cuda), torch.tensor(tmax, device=cuda))
+    launches = mod.COUNTER.launches
+    mod.OVERFLOW.reset()
+    k = intersect_rays_soa(bvh, *args, anyhit=anyhit, kernel=kernel)
+    torch.cuda.synchronize()
+    assert mod.COUNTER.launches == launches + 1
+    tables = [getattr(bvh, table)] + ([bvh.tris128] if kernel != "lane" else [])
+    if kernel != "lane":
+        tables.append(getattr(bvh, root) if root else 0)
+    t, rn, tri, u, v, dropped = plain(*tables, *args, anyhit=anyhit)
+    assert dropped == 0 and mod.OVERFLOW.total() == 0
+    hit = tri >= 0
+    assert int(hit.sum()) > 100
+    assert torch.equal(k["tri"] >= 0, hit)
+    if not anyhit:
+        same = (k["tri"] == tri) & (k["rnode"] == rn)
+        tie = torch.isclose(k["t"], torch.where(hit, t, k["t"]), rtol=1e-6, atol=0)
+        assert bool((same | tie).all())
+        torch.testing.assert_close(k["t"][hit], t[hit], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(k["u"][same & hit], u[same & hit], rtol=0, atol=1e-5)
+        torch.testing.assert_close(k["v"][same & hit], v[same & hit], rtol=0, atol=1e-5)
 
 
 def test_gather_kernel_matches_plain(cuda):

@@ -9,7 +9,13 @@ difference flips a discrete decision (a triangle edge, an equal-t tie, a
 lobe or roulette threshold) — rare, and then that pixel differs wholesale.
 So: first-hit ids equal on >= 99.9% of pixels, >= 99% of pixels within
 1e-3 * (1 + |ref|) in every channel, each channel's image mean within 1e-3
-relative, and the ray counts equal."""
+relative, and the ray counts equal.
+
+The terrain test renders the 8,192-triangle terrain grid
+(scenes.write_large_glb, grid=2) under each traversal-kernel selection of
+the port (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) against one JAX
+reference render (its CPU path traverses without kernels), at the same
+thresholds."""
 
 import sys
 from pathlib import Path
@@ -23,7 +29,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 import baseline_standins  # noqa: E402
 from vk_gltf_renderer_tpu.renderer import GltfRenderer as JaxRenderer  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
-from vk_gltf_renderer_tpu_torch.scenes import write_synthetic_hdr  # noqa: E402
+from vk_gltf_renderer_tpu_torch.scenes import write_large_glb, write_synthetic_hdr  # noqa: E402
 
 W, H, DEPTH, FRAMES = 48, 32, 5, 2
 
@@ -52,13 +58,8 @@ def _helmet_path(tmp_path):
     return baseline_standins.make_helmet(str(tmp_path))
 
 
-@pytest.mark.parametrize("scene,env", [("helmet", "hdr"), ("tiny", "sky")])
-def test_frame_matches_jax_renderer(scene, env, tmp_path):
-    path = (_helmet_path if scene == "helmet" else _tiny_path)(tmp_path)
-    hdr = write_synthetic_hdr(tmp_path / "env.hdr", 64, 128) if env == "hdr" else None
-    ref = _render(JaxRenderer(W, H, spp=1, max_depth=DEPTH), path, hdr)
-    port = _render(GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu"), path, hdr)
-    for frame, ((img_r, aux_r), (img_p, aux_p)) in enumerate(zip(ref, port)):
+def _assert_frames_agree(ref, port):
+    for frame, ((img_r, aux_r), (img_p, aux_p)) in enumerate(zip(ref, port, strict=True)):
         assert img_p.shape == (H, W, 3) and np.isfinite(img_p).all()
         assert img_p.mean() > 0.01, "black frame"
         ids_equal = (aux_p["first_rnode"] == aux_r["first_rnode"]) & (aux_p["first_tri"] == aux_r["first_tri"])
@@ -68,6 +69,57 @@ def test_frame_matches_jax_renderer(scene, env, tmp_path):
         m_p, m_r = img_p.mean(axis=(0, 1)), img_r.mean(axis=(0, 1))
         np.testing.assert_allclose(m_p, m_r, rtol=1e-3, err_msg=f"frame {frame} channel means")
         assert float(aux_p["rays"]) == float(aux_r["rays"]) > W * H
+
+
+@pytest.mark.parametrize("scene,env", [("helmet", "hdr"), ("tiny", "sky")])
+def test_frame_matches_jax_renderer(scene, env, tmp_path):
+    path = (_helmet_path if scene == "helmet" else _tiny_path)(tmp_path)
+    hdr = write_synthetic_hdr(tmp_path / "env.hdr", 64, 128) if env == "hdr" else None
+    ref = _render(JaxRenderer(W, H, spp=1, max_depth=DEPTH), path, hdr)
+    port = _render(GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu"), path, hdr)
+    _assert_frames_agree(ref, port)
+
+
+@pytest.fixture(scope="module")
+def terrain_ref(tmp_path_factory):
+    d = tmp_path_factory.mktemp("terrain")
+    path = str(d / "terrain.glb")
+    write_large_glb(path, target_tris=8000, grid=2)
+    hdr = write_synthetic_hdr(d / "env.hdr", 64, 128)
+    return path, hdr, _render(JaxRenderer(W, H, spp=1, max_depth=DEPTH), path, hdr)
+
+
+@pytest.mark.parametrize("primary,packet", [("v3", "v9"), ("v2", "v2"), ("v6", "v6"),
+                                            ("lane", "lane_stream")])
+def test_terrain_frame_matches_jax_renderer_per_kernel(primary, packet, terrain_ref, monkeypatch):
+    path, hdr, ref = terrain_ref
+    monkeypatch.setenv("VKGR_PRIMARY_KERNEL", primary)
+    monkeypatch.setenv("VKGR_PACKET_KERNEL", packet)
+    r = GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu")
+    port = _render(r, path, hdr)
+    cfg = r._config()
+    assert (cfg.primary_kernel, cfg.packet_kernel) == (primary, packet)
+    # exactly the tables the selection reads were built
+    families = cfg.kernel_tables()
+    assert (r.dev_bvh.nodes_fi is not None) == ("bvh2" in families)
+    assert (r.dev_bvh.nodes16_fi is not None) == ("bvh16" in families)
+    assert (r.dev_bvh.lane_entries is not None) == ("lane" in families)
+    _assert_frames_agree(ref, port)
+
+
+def test_selection_change_builds_tables_and_unported_names_raise(tmp_path, monkeypatch):
+    r = GltfRenderer(16, 12, spp=1, max_depth=2, device="cpu")
+    r.create_scene(_tiny_path(tmp_path))
+    assert r.dev_bvh.nodes16_fi is None
+    monkeypatch.setenv("VKGR_PACKET_KERNEL", "v6")
+    r.on_render()
+    assert r.dev_bvh.nodes16_fi is not None and r.dev_bvh.nodes_fi is None
+    for var, value in (("VKGR_PACKET_KERNEL", "v8"), ("VKGR_PRIMARY_KERNEL", "v5"),
+                       ("VKGR_TRAVERSAL", "packet4")):
+        with monkeypatch.context() as m:
+            m.setenv(var, value)
+            with pytest.raises(NotImplementedError):
+                r.on_render()
 
 
 def test_save_image_writes_png(tmp_path):

@@ -1,6 +1,8 @@
 """Port host layer: the numpy builders of vk_gltf_renderer_tpu_torch against
-the JAX package's, the PNG reader/writer against Pillow, and the port's
-helmet stand-in against tools/baseline_standins.make_helmet.
+the JAX package's (the BVH4 tables, and the BVH2 / BVH16 / lane-page tables
+of add_kernel_tables), the PNG reader/writer against Pillow, and the port's
+helmet stand-in and terrain scene against tools/baseline_standins.make_helmet
+and tools/large_scene_demo.write_large_glb.
 
 Every builder comparison is exact (np.array_equal, same dtype): the port's
 builders are copies of the reference's numpy code, so any difference is a
@@ -28,7 +30,11 @@ from vk_gltf_renderer_tpu.ops import hdr as jhdr  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import bvh_flatten as tbvh  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import flat as tflat  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import hdr as thdr  # noqa: E402
-from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_synthetic_hdr  # noqa: E402
+from vk_gltf_renderer_tpu_torch.scenes import (  # noqa: E402
+    make_helmet_standin,
+    write_large_glb,
+    write_synthetic_hdr,
+)
 from vk_gltf_renderer_tpu_torch.utils.png import encode_png, read_png  # noqa: E402
 
 
@@ -55,7 +61,24 @@ def _editor(tmp_path):
     return sc
 
 
-SCENES = {"tiny": _tiny, "helmet": _helmet, "editor": _editor}
+def _terrain(tmp_path):
+    """2x2 grid of the terrain patches: 8,192 triangles."""
+    p = str(tmp_path / "terrain.glb")
+    write_large_glb(p, target_tris=8000, grid=2)
+    sc = Scene()
+    sc.load(p)
+    return sc
+
+
+def _few(tmp_path):
+    """One plane, 2 triangles: every builder's root-is-leaf branch."""
+    sc = baseline_standins._empty_scene()
+    SceneEditor(sc).add_primitive("plane")
+    sc.parse_scene()
+    return sc
+
+
+SCENES = {"tiny": _tiny, "helmet": _helmet, "editor": _editor, "terrain": _terrain, "few": _few}
 
 
 def _assert_same(a, b, what):
@@ -90,10 +113,76 @@ def test_world_bvh_equals_reference(name, tmp_path):
     port = tbvh.build_world_bvh(tflat.build_scene_flat(sc))
     # nodes_self cols 6:8 are never written by the native builder (np.empty)
     _assert_same(ref.nodes_self[:, :6], port.nodes_self[:, :6], "nodes_self")
-    for k in ("nodes4_fi", "tris128", "hit_attr", "rn_attr_base", "attr_alpha_class"):
+    for k in ("nodes4_fi", "tris128", "hit_attr", "rn_attr_base", "attr_alpha_class",
+              "nodes_f", "tris", "wtri_rnode", "wtri_tri"):
         _assert_same(getattr(ref, k), getattr(port, k), k)
+    # nodes_i: a leaf's child slots and cols 6:8 are never written by the
+    # native builder (np.empty); the port zeroes them
+    inner = ref.nodes_i[:, 3] == 0
+    _assert_same(ref.nodes_i[:, 2:6], port.nodes_i[:, 2:6], "nodes_i")
+    _assert_same(ref.nodes_i[inner, 0:2], port.nodes_i[inner, 0:2], "nodes_i children")
+    assert (port.nodes_i[~inner, 0:2] == 0).all() and (port.nodes_i[:, 6:8] == 0).all()
     assert port.num_world_tris == ref.num_world_tris
     assert port.root4_code == ref.root4_code
+    # the other kernels' tables are built only on request
+    assert port.nodes_fi is None and port.nodes16_fi is None and port.lane_pages is None
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_kernel_tables_equal_reference(name, tmp_path):
+    """nodes_fi/root_code (_packet2_tables), nodes16_fi (_packet6_tables)
+    and lane_pages (build_lane_tree) of add_kernel_tables equal the
+    reference's fields."""
+    sc = SCENES[name](tmp_path)
+    ref = jbvh.build_world_bvh(jflat.build_scene_flat(sc))
+    port = tbvh.add_kernel_tables(tbvh.build_world_bvh(tflat.build_scene_flat(sc)),
+                                  {"bvh2", "bvh16", "lane"})
+    _assert_same(ref.nodes16_fi, port.nodes16_fi, "nodes16_fi")
+    _assert_same(ref.lane_pages, port.lane_pages, "lane_pages")
+    assert port.root_code == ref.root_code
+    # nodes_fi of a leaf row reads its (unwritten) child slots: compare the
+    # reference's builder on the same tree, and the internal rows directly
+    nodes_fi, *_, root_code = jbvh._packet2_tables(port.nodes_i, port.nodes_f, port.tris,
+                                                   port.wtri_rnode, port.wtri_tri)
+    _assert_same(nodes_fi, port.nodes_fi, "nodes_fi")
+    assert root_code == port.root_code
+    inner = ref.nodes_i[:, 3] == 0
+    _assert_same(ref.nodes_fi[inner], port.nodes_fi[inner], "nodes_fi internal rows")
+    if name == "few":
+        assert port.root_code < 0 and port.nodes16_fi.shape == (1, 128)
+
+
+def test_stack_need_bounds_the_walk(tmp_path):
+    """stack_need is the exact worst case of a push-every-child walk: a
+    plain walk that pushes every real child never exceeds it, and reaches
+    it on some path."""
+    wb = tbvh.add_kernel_tables(tbvh.build_world_bvh(tflat.build_scene_flat(_editor(tmp_path))),
+                                {"bvh2", "bvh16"})
+    for table, levels, root in ((wb.nodes_fi, 1, wb.root_code), (wb.nodes4_fi, 2, wb.root4_code),
+                                (wb.nodes16_fi, 4, 0)):
+        arity = 1 << levels
+        deepest, stack = 0, [root]
+        while stack:
+            e = stack.pop()
+            if e < 0:
+                continue
+            row = table[e]
+            for s in range(arity):
+                if row[6 * s] < 1e38:
+                    stack.append(int(row[6 * arity + s]))
+            deepest = max(deepest, len(stack))
+        assert tbvh.stack_need(table, levels, root) == deepest, levels
+
+
+@pytest.mark.parametrize("target,grid", [(8000, 2), (40_000, 4), (1_050_000, 8)])
+def test_write_large_glb_equals_tools_version(target, grid, tmp_path):
+    from large_scene_demo import write_large_glb as tools_write_large_glb
+
+    a, b = tmp_path / "tools.glb", tmp_path / "port.glb"
+    assert tools_write_large_glb(str(a), target, grid) == write_large_glb(str(b), target, grid)
+    assert a.read_bytes() == b.read_bytes()
+    if target == 1_050_000:
+        assert write_large_glb(str(b)) == 1_059_968
 
 
 def test_helmet_tables_have_the_slice_shapes(tmp_path):

@@ -1,6 +1,8 @@
 """The port runs where there is no JAX: a subprocess blocks `import jax`,
-builds the helmet stand-in with the port's own writer and renders a frame
-on the CPU; and no source file of the port imports jax."""
+imports every module of the port, builds the helmet stand-in with the
+port's own writer and renders a frame on the CPU, then renders the terrain
+grid under every traversal-kernel selection; and no source file of the
+port imports jax."""
 
 import os
 import re
@@ -11,11 +13,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 _SCRIPT = r"""
-import sys, tempfile
+import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np
+import vk_gltf_renderer_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
-from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_synthetic_hdr
+from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb, write_synthetic_hdr
 with tempfile.TemporaryDirectory() as d:
     r = GltfRenderer(32, 24, spp=1, max_depth=3, device="cpu")
     r.create_scene(make_helmet_standin(d))
@@ -25,6 +30,16 @@ with tempfile.TemporaryDirectory() as d:
     assert img.shape == (24, 32, 3) and np.isfinite(img).all() and img.mean() > 0.01
     assert float(aux["rays"]) > 0
     r.save_image(d + "/out.png")
+    write_large_glb(d + "/terrain.glb", target_tris=8000, grid=2)
+    images = []
+    for primary, packet in (("v3", "v9"), ("v2", "v2"), ("v6", "v6"), ("lane", "lane_stream")):
+        os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = primary, packet
+        r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
+        r.create_scene(d + "/terrain.glb")
+        r.on_render()
+        images.append(r.image_linear())
+    assert all(np.isfinite(i).all() and i.mean() > 0.01 for i in images)
+    assert all(np.allclose(i, images[0], rtol=1e-3, atol=1e-3) for i in images)
 assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
 print("NOJAX_OK")
 """

@@ -1,14 +1,21 @@
-"""Port traversal: the plain BVH4 traversal (the CUDA kernel's plain torch
-version) against the reference's packet kernels in Pallas interpret mode
-(v3 = traverse_packets3, v9 = traverse_packets9) and against both
-brute-force oracles, closest hit and any hit (as tests/test_bvh.py does
-for the reference's own kernels).
+"""Port traversal: the plain traversals (the CUDA kernels' plain torch
+versions) against the reference's Pallas kernels in interpret mode (v3 =
+traverse_packets3, v9 = traverse_packets9, v2 = traverse_packets2, v6 =
+traverse_packets6, lane / lane_stream = traverse_lanes / _stream) and
+against both brute-force oracles, closest hit and any hit (as
+tests/test_bvh.py does for the reference's own kernels).
 
 Tolerances: the kernels share the arithmetic exactly, so t/u/v agree to
 float32 rounding (1e-5); ids agree except where two triangles hit at the
-same t, which any traversal order may resolve either way. Against the
-brute oracles, which intersect in object space, t agrees to 1e-4 as in
-tests/test_bvh.py."""
+same t, which any traversal order may resolve either way. The lane kernels
+test triangles against edges precomputed on the host (the stack kernels
+subtract v1 - v0 in the kernel), an ulp-level difference that the same
+1e-5 and the equal-t allowance cover. Against the brute oracles, which
+intersect in object space, t agrees to 1e-4 as in tests/test_bvh.py.
+
+Scenes: the editor scene, the helmet stand-in, a 2x2 grid of the terrain
+patches of scenes.write_large_glb (8,192 triangles) and a 2-triangle scene
+whose BVH root is a leaf (the root-is-leaf branches of every builder)."""
 
 import sys
 from pathlib import Path
@@ -29,10 +36,19 @@ from vk_gltf_renderer_tpu.ops.flat import build_scene_flat  # noqa: E402
 from vk_gltf_renderer_tpu.ops.pallas_traverse import intersect_rays_packet_soa  # noqa: E402
 from vk_gltf_renderer_tpu.ops.traverse import as_device, intersect_brute  # noqa: E402
 from vk_gltf_renderer_tpu_torch.convert import from_reference  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import bvh_flatten as tbvh  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse as ttrav  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig  # noqa: E402
+from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_soa  # noqa: E402
 
 INF = 1e30
+NEW_KERNELS = ["v2", "v6", "lane", "lane_stream"]
+WRAPPERS = {"v2": tb2, "v3": tb4, "v6": tb16, "lane": tlane}
 
 
 def _editor_scene():
@@ -68,6 +84,19 @@ def _rays(wb, n, seed):
     return ro, rd, tmax
 
 
+def _aimed_rays(wb, n, seed):
+    """As _rays, but the outer half aims at random points of the scene box
+    instead of its centre (which on the plane and the terrain lies on a
+    triangle edge or in a gap between patches)."""
+    ro, rd, tmax = _rays(wb, n, seed)
+    rng = np.random.default_rng(seed + 1000)
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    target = lo + rng.random((n // 2, 3)) * (hi - lo)
+    d = target - ro[: n // 2]
+    rd[: n // 2] = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return ro, rd, tmax
+
+
 @pytest.fixture(scope="module")
 def editor():
     sc = _editor_scene()
@@ -75,6 +104,32 @@ def editor():
     wb = build_world_bvh(flat)
     assert wb.nodes4_fi.shape[0] > 2  # a real multi-level BVH4
     _, bvh_t, _ = from_reference(None, wb, None, "cpu")
+    return flat, wb, bvh_t
+
+
+def _build(sc):
+    flat = build_scene_flat(sc)
+    wb = build_world_bvh(flat)
+    _, bvh_t, _ = from_reference(None, wb, None, "cpu")
+    return flat, wb, bvh_t
+
+
+@pytest.fixture(scope="module")
+def terrain(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("terrain") / "terrain.glb")
+    assert write_large_glb(p, target_tris=8000, grid=2) == 8192
+    sc = Scene()
+    sc.load(p)
+    return _build(sc)
+
+
+@pytest.fixture(scope="module")
+def few():
+    sc = baseline_standins._empty_scene()
+    SceneEditor(sc).add_primitive("plane")
+    sc.parse_scene()
+    flat, wb, bvh_t = _build(sc)
+    assert wb.num_world_tris <= 8 and wb.nodes_i[0, 3] > 0  # the root is a leaf
     return flat, wb, bvh_t
 
 
@@ -88,10 +143,11 @@ def helmet(tmp_path_factory):
     return flat, wb, bvh_t
 
 
-def _port(bvh_t, ro, rd, tmax, anyhit=False):
+def _port(bvh_t, ro, rd, tmax, anyhit=False, kernel="v3"):
     c = [torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)]
     n = ro.shape[0]
-    out = tb4.intersect_rays_soa(bvh_t, *c, torch.zeros(n), torch.tensor(tmax), anyhit=anyhit)
+    out = intersect_rays_soa(bvh_t, *c, torch.zeros(n), torch.tensor(tmax), anyhit=anyhit,
+                             kernel=kernel)
     return {k: v.numpy() for k, v in out.items()}
 
 
@@ -104,7 +160,7 @@ def _ref_packet(wb, ro, rd, tmax, kernel, anyhit=False):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def _assert_closest_equal(port, ref, wb, ro, rd):
+def _assert_closest_equal(port, ref, wb, ro, rd, uv_atol=1e-5):
     hit = ref["tri"] >= 0
     assert ((port["tri"] >= 0) == hit).all()
     np.testing.assert_allclose(port["t"], ref["t"], rtol=1e-5, atol=1e-5)
@@ -112,27 +168,27 @@ def _assert_closest_equal(port, ref, wb, ro, rd):
     # ids may differ only on equal-t ties
     tie = np.isclose(port["t"], ref["t"], rtol=1e-6, atol=0)
     assert (same | tie).all()
-    np.testing.assert_allclose(port["u"][same & hit], ref["u"][same & hit], atol=1e-5)
-    np.testing.assert_allclose(port["v"][same & hit], ref["v"][same & hit], atol=1e-5)
+    np.testing.assert_allclose(port["u"][same & hit], ref["u"][same & hit], atol=uv_atol)
+    np.testing.assert_allclose(port["v"][same & hit], ref["v"][same & hit], atol=uv_atol)
 
 
-@pytest.mark.parametrize("kernel", ["v3", "v9"])
+@pytest.mark.parametrize("kernel", ["v3", "v9"] + NEW_KERNELS)
 def test_plain_closest_hit_matches_packet_kernel(editor, kernel):
     _, wb, bvh_t = editor
     ro, rd, tmax = _rays(wb, 1024, seed=11)
-    port = _port(bvh_t, ro, rd, tmax)
+    port = _port(bvh_t, ro, rd, tmax, kernel=kernel)
     ref = _ref_packet(wb, ro, rd, tmax, kernel)
     assert (ref["tri"] >= 0).sum() > 300
     _assert_closest_equal(port, ref, wb, ro, rd)
     assert (port["t"][tmax < 0] == 1e32).all() and (port["tri"][tmax < 0] == -1).all()
 
 
-@pytest.mark.parametrize("kernel", ["v3", "v9"])
+@pytest.mark.parametrize("kernel", ["v3", "v9"] + NEW_KERNELS)
 def test_plain_any_hit_matches_packet_kernel(editor, kernel):
     _, wb, bvh_t = editor
     ro, rd, tmax = _rays(wb, 1024, seed=12)
     tmax = np.where(tmax > 0, np.float32(2.5), tmax)  # finite shadow segments
-    port = _port(bvh_t, ro, rd, tmax, anyhit=True)
+    port = _port(bvh_t, ro, rd, tmax, anyhit=True, kernel=kernel)
     ref = _ref_packet(wb, ro, rd, tmax, kernel, anyhit=True)
     occ = ref["tri"] >= 0
     assert 100 < occ.sum() < 1000
@@ -166,11 +222,11 @@ def test_plain_matches_brute_oracles(scene, request):
 
 def test_no_stack_overflow(helmet):
     _, wb, bvh_t = helmet
-    tb4.reset_stack_overflows()
+    tb4.OVERFLOW.reset()
     ro, rd, tmax = _rays(wb, 2048, seed=14)
     _port(bvh_t, ro, rd, tmax)
     _port(bvh_t, ro, rd, tmax, anyhit=True)
-    assert tb4.stack_overflows() == 0
+    assert tb4.OVERFLOW.total() == 0
 
 
 def test_stack_overflow_is_counted(editor):
@@ -196,3 +252,141 @@ def test_wrapper_refuses_other_devices(editor):
     rays = [torch.zeros(8, device="meta") for _ in range(8)]
     with pytest.raises(ValueError):
         tb4.traverse_bvh4(bvh_t.nodes4_fi, bvh_t.tris128, 0, *rays)
+
+
+@pytest.mark.parametrize("scene", ["terrain", "few"])
+@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"])
+def test_new_kernels_match_packet_kernel_on_terrain_and_leaf_root(scene, kernel, request):
+    """Closest and any hit of BVH2, BVH16 and the lane walk against the
+    reference's kernel of the same name on the terrain grid and on the
+    root-is-leaf scene.
+
+    u/v tolerance 3e-5 on the terrain: its triangles are ~0.011 units
+    across, so u and v (ratios of products of edge components) carry ~100x
+    the absolute rounding of the editor's unit-size triangles, and the
+    reference's interpret-mode arithmetic on XLA:CPU rounds differently
+    from torch's (measured max 1.06e-5 on these rays, the same for the BVH4
+    kernel v3). t keeps 1e-5."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    ro, rd, tmax = _aimed_rays(wb, 512, seed=16)
+    port = _port(bvh_t, ro, rd, tmax, kernel=kernel)
+    ref = _ref_packet(wb, ro, rd, tmax, kernel)
+    assert (ref["tri"] >= 0).sum() > 50
+    _assert_closest_equal(port, ref, wb, ro, rd, uv_atol=3e-5 if scene == "terrain" else 1e-5)
+    tmax = np.where(tmax > 0, np.float32(0.3), tmax)
+    port = _port(bvh_t, ro, rd, tmax, anyhit=True, kernel=kernel)
+    ref = _ref_packet(wb, ro, rd, tmax, kernel, anyhit=True)
+    assert ((port["tri"] >= 0) == (ref["tri"] >= 0)).all()
+    assert ((port["t"] == 0.0) == (ref["tri"] >= 0)).all()
+
+
+@pytest.mark.parametrize("scene", ["editor", "terrain", "few"])
+@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"])
+def test_new_kernels_match_brute_oracle(scene, kernel, request):
+    flat, wb, bvh_t = request.getfixturevalue(scene)
+    ro, rd, tmax = _aimed_rays(wb, 256, seed=17)
+    tmax[:] = 1e32
+    port = _port(bvh_t, ro, rd, tmax, kernel=kernel)
+    ref = ttrav.intersect_brute(flat, torch.tensor(ro), torch.tensor(rd))
+    ref = {k: v.numpy() for k, v in ref.items()}
+    hit = ref["t"] < INF
+    assert hit.sum() > 20
+    assert ((port["t"] < INF) == hit).all()
+    np.testing.assert_allclose(port["t"][hit], ref["t"][hit], rtol=1e-4, atol=1e-4)
+    same = port["tri"] == ref["tri"]
+    tie = np.isclose(port["t"], ref["t"], rtol=1e-5, atol=0)
+    assert (same | tie).all()
+
+
+@pytest.mark.parametrize("scene", ["helmet", "terrain", "few"])
+def test_no_overflow_in_any_kernel(scene, request):
+    """Every plain version counts dropped work; none drops any on these
+    scenes, and every tree fits its kernel's stack."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    from vk_gltf_renderer_tpu_torch.ops.intersect import STACK_CAPACITY
+
+    assert set(bvh_t.stack_need) == {"bvh2", "bvh4", "bvh16"}
+    for family, need in bvh_t.stack_need.items():
+        assert 1 <= need <= STACK_CAPACITY[family], (family, need)
+    ro, rd, tmax = _aimed_rays(wb, 1024, seed=18)
+    for mod in WRAPPERS.values():
+        mod.OVERFLOW.reset()
+    for kernel in ("v2", "v3", "v6", "lane"):
+        _port(bvh_t, ro, rd, tmax, kernel=kernel)
+        _port(bvh_t, ro, rd, np.where(tmax > 0, np.float32(1.0), tmax), anyhit=True, kernel=kernel)
+    assert {k: m.OVERFLOW.total() for k, m in WRAPPERS.items()} == {k: 0 for k in WRAPPERS}
+
+
+@pytest.mark.parametrize("kernel", ["v2", "v6"])
+def test_stack_overflow_is_counted_per_arity(editor, kernel):
+    """A stack too shallow for the tree drops pushes and counts them."""
+    _, wb, bvh_t = editor
+    ro, rd, tmax = _rays(wb, 256, seed=15)
+    name = {"v2": "STACK_DEPTH2", "v6": "STACK_DEPTH16"}[kernel]
+    full = getattr(ttrav, name)
+    table = bvh_t.nodes_fi if kernel == "v2" else bvh_t.nodes16_fi
+    root = bvh_t.root_code if kernel == "v2" else 0
+    plain = ttrav.traverse_bvh2_plain if kernel == "v2" else ttrav.traverse_bvh16_plain
+    try:
+        setattr(ttrav, name, 2)
+        *_, dropped = plain(table, bvh_t.tris128, root,
+                            *(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)),
+                            torch.zeros(256), torch.tensor(tmax))
+    finally:
+        setattr(ttrav, name, full)
+    assert dropped > 0
+
+
+def test_lane_walk_counts_links_that_do_not_advance(editor):
+    """A malformed lane table (a link pointing back) ends the ray and is
+    counted instead of looping."""
+    _, wb, bvh_t = editor
+    entries = bvh_t.lane_entries.clone()
+    entries[1:, 9] = 0.0  # every skip / next pointer back to the root
+    ro, rd, tmax = _rays(wb, 64, seed=19)
+    *_, bad = ttrav.traverse_lanes_plain(
+        entries, *(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)),
+        torch.zeros(64), torch.tensor(tmax))
+    assert bad > 0
+
+
+@pytest.mark.parametrize("kernel", ["v5", "v7", "v8"])
+def test_unported_kernels_raise(editor, kernel):
+    _, wb, bvh_t = editor
+    ro, rd, tmax = _rays(wb, 8, seed=20)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(bvh_t, ro, rd, tmax, kernel=kernel)
+    for cfg in (RenderConfig(primary_kernel=kernel), RenderConfig(packet_kernel=kernel)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cfg.check_supported()
+
+
+@pytest.mark.parametrize("traversal", ["packet4", "wavefront"])
+def test_unported_traversals_raise(traversal):
+    with pytest.raises(NotImplementedError, match=traversal):
+        RenderConfig(traversal=traversal).check_supported()
+
+
+def test_unknown_kernel_and_missing_table_raise(editor, few):
+    _, wb, bvh_t = editor
+    ro, rd, tmax = _rays(wb, 8, seed=21)
+    with pytest.raises(ValueError, match="unknown traversal kernel"):
+        _port(bvh_t, ro, rd, tmax, kernel="v4")
+    _, bare, _ = from_reference(None, tbvh.build_world_bvh(few[0]), None, "cpu")
+    assert bare.nodes_fi is None and bare.nodes16_fi is None and bare.lane_entries is None
+    for kernel in ("v2", "v6", "lane"):
+        with pytest.raises(ValueError, match="add_kernel_tables"):
+            _port(bare, ro, rd, tmax, kernel=kernel)
+
+
+@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"])
+def test_new_wrappers_refuse_other_devices(editor, kernel):
+    _, _, bvh_t = editor
+    rays = [torch.zeros(8, device="meta") for _ in range(8)]
+    with pytest.raises(ValueError):
+        if kernel == "v2":
+            tb2.traverse_bvh2(bvh_t.nodes_fi, bvh_t.tris128, 0, *rays)
+        elif kernel == "v6":
+            tb16.traverse_bvh16(bvh_t.nodes16_fi, bvh_t.tris128, *rays)
+        else:
+            tlane.traverse_lanes(bvh_t.lane_entries, *rays)

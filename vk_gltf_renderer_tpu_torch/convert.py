@@ -9,12 +9,14 @@ it to hand both packages the same tables.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from .ops.bvh_flatten import stack_need
 from .ops.hdr import HdrEnv
+from .ops.lane_traverse import lane_entries
 from .ops.sky import SkyEnv
 
 
@@ -47,6 +49,14 @@ class DeviceBvh:
     scene_hi: torch.Tensor  # [3] f32
     root4_code: int
     num_world_tris: int
+    # the other kernels' tables, present only where the host BVH has them
+    nodes_fi: torch.Tensor | None = None  # [Nn,16] f32 binary rows (BVH2)
+    root_code: int = 0  # binary root code
+    nodes16_fi: torch.Tensor | None = None  # [M,128] f32 BVH16 rows
+    lane_entries: torch.Tensor | None = None  # [E,16] f32 entry-major lane entries
+    # deepest traversal stack each present row table can need
+    # (bvh_flatten.stack_need), checked against the kernels' capacity
+    stack_need: dict = field(default_factory=dict)
 
 
 def _t(a, dtype, device):
@@ -72,7 +82,7 @@ def scene_to_device(flat, device) -> DeviceScene:
 def bvh_to_device(bvh, device) -> DeviceBvh:
     f32, i32 = np.float32, np.int32
     root = np.asarray(bvh.nodes_self)[0]
-    return DeviceBvh(
+    dev = DeviceBvh(
         nodes4_fi=_t(bvh.nodes4_fi, f32, device),
         tris128=_t(bvh.tris128, f32, device),
         hit_attr=_t(bvh.hit_attr, f32, device),
@@ -82,7 +92,26 @@ def bvh_to_device(bvh, device) -> DeviceBvh:
         scene_hi=_t(root[3:6], f32, device),
         root4_code=int(bvh.root4_code),
         num_world_tris=int(bvh.num_world_tris),
+        stack_need={"bvh4": stack_need(bvh.nodes4_fi, 2, int(bvh.root4_code))},
     )
+    return add_kernel_tables_to_device(dev, bvh, device)
+
+
+def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device) -> DeviceBvh:
+    """Copy to the device every optional kernel table the host BVH has and
+    dev lacks (nodes_fi + root_code, nodes16_fi, lane_pages as entry-major
+    lane_entries). Returns dev."""
+    f32 = np.float32
+    if getattr(bvh, "nodes_fi", None) is not None and dev.nodes_fi is None:
+        dev.nodes_fi = _t(bvh.nodes_fi, f32, device)
+        dev.root_code = int(bvh.root_code)
+        dev.stack_need["bvh2"] = stack_need(bvh.nodes_fi, 1, dev.root_code)
+    if getattr(bvh, "nodes16_fi", None) is not None and dev.nodes16_fi is None:
+        dev.nodes16_fi = _t(bvh.nodes16_fi, f32, device)
+        dev.stack_need["bvh16"] = stack_need(bvh.nodes16_fi, 4, 0)
+    if getattr(bvh, "lane_pages", None) is not None and dev.lane_entries is None:
+        dev.lane_entries = _t(lane_entries(bvh.lane_pages), f32, device)
+    return dev
 
 
 def env_to_device(env, device):

@@ -1,0 +1,249 @@
+// Per-ray traversal of the fused BVH row tables, one ray per thread: the
+// arity-templated walk behind traverse_bvh2.cu, traverse_bvh4.cu and
+// traverse_bvh16.cu, plus the ray/box and ray/triangle tests that
+// traverse_lanes.cu shares.
+//
+// Row layout of an arity-A table (A = 2^L children per node, 8*A floats
+// per row; nodes_fi L=1, nodes4_fi L=2, nodes16_fi L=4):
+//   cols 0 : 6A      A child boxes, lo.xyz hi.xyz each; a missing child is
+//                    the point box lo = hi = +3e38, which the slab test
+//                    below never accepts
+//   cols 6A : 7A     A child codes: >= 0 row of an internal child,
+//                    < 0 leaf code -(leafrow*16 + count) - 1 into tris128,
+//                    missing child 0
+//   cols 7A : 8A-1   the A-1 split axes of the collapsed binary subtree in
+//                    level order (index (1 << depth) - 1 + path)
+//   col  8A-1        pad
+// tris128 [L,128]: 8 triangles x 16 floats per leaf row (v0 v1 v2, pad,
+// render node id at col 9, global triangle id at col 10).
+//
+// Near-first order is the reference's: per level of the collapsed
+// subtree, the child on the side of the ray's direction sign along the
+// stored axis is visited first (the binary builder puts the smaller
+// centroid on the left). Children are pushed in the reverse of that order
+// so the nearest is popped next. The Pallas kernels take the sign from a
+// vote over a 1024-ray packet; here each ray uses its own, which changes
+// nothing but the resolution of equal-t ties.
+//
+// Arithmetic carried over exactly from the Pallas bodies (and from the
+// plain torch versions in ops/traverse.py): the inv() clamp, the slab test
+// with tnear floored at 0 and tfar capped at t_best, Moller-Trumbore with
+// the 1e-12 determinant guard and tt > tmin && tt < t_best, ids read from
+// tris128 columns 9 and 10. min/max propagate NaN like torch.minimum/
+// maximum. Built with -fmad=false, so no multiply-add is contracted.
+//
+// A push onto a full stack is dropped and counted in *overflow; a nonzero
+// count is an error that the wrapper exposes, never a silent truncation.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace vkgr {
+
+constexpr int kLeafSlots = 8;
+constexpr int kBlock = 128;
+
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a != a || b != b) ? nan_f() : fminf(a, b);
+}
+
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a != a || b != b) ? nan_f() : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float inv_dir(float d) {
+  return fabsf(d) < 1e-20f ? (d >= 0.0f ? 1e30f : -1e30f) : 1.0f / d;
+}
+
+__device__ __forceinline__ bool axis_sign(float axis, bool sx, bool sy, bool sz) {
+  const int a = static_cast<int>(axis);
+  return a == 0 ? sx : (a == 1 ? sy : sz);
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
+  bool sx, sy, sz;
+};
+
+__device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ rox,
+                                        const float* __restrict__ roy,
+                                        const float* __restrict__ roz,
+                                        const float* __restrict__ rdx,
+                                        const float* __restrict__ rdy,
+                                        const float* __restrict__ rdz,
+                                        const float* __restrict__ tmin) {
+  Ray r;
+  r.ox = rox[i];
+  r.oy = roy[i];
+  r.oz = roz[i];
+  r.dx = rdx[i];
+  r.dy = rdy[i];
+  r.dz = rdz[i];
+  r.ix = inv_dir(r.dx);
+  r.iy = inv_dir(r.dy);
+  r.iz = inv_dir(r.dz);
+  r.sx = r.dx >= 0.0f;
+  r.sy = r.dy >= 0.0f;
+  r.sz = r.dz >= 0.0f;
+  r.tmin = tmin[i];
+  return r;
+}
+
+// Best hit so far. t is the best t (tmax while nothing is accepted, -1
+// after an any-hit in the stack kernels); rn/tri stay f32 until stored.
+struct Hit {
+  float t, rn, tri, u, v;
+};
+
+// Slab test of the box lo = (x0, y0, z0), hi = (x1, y1, z1).
+__device__ __forceinline__ bool slab(float x0, float y0, float z0, float x1, float y1, float z1,
+                                     const Ray& r, float t_best) {
+  const float t0x = (x0 - r.ox) * r.ix;
+  const float t1x = (x1 - r.ox) * r.ix;
+  const float t0y = (y0 - r.oy) * r.iy;
+  const float t1y = (y1 - r.oy) * r.iy;
+  const float t0z = (z0 - r.oz) * r.iz;
+  const float t1z = (z1 - r.oz) * r.iz;
+  const float tnear = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)), jmax(jmin(t0z, t1z), 0.0f));
+  const float tfar = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)), jmin(jmax(t0z, t1z), t_best));
+  return tnear <= tfar;
+}
+
+// Moller-Trumbore against the triangle v0 + edges e1, e2. Writes u, v, t;
+// returns whether the hit is accepted (inside, tmin < t < t_best).
+__device__ __forceinline__ bool triangle(float v0x, float v0y, float v0z, float e1x, float e1y,
+                                         float e1z, float e2x, float e2y, float e2z, const Ray& r,
+                                         float t_best, float& uu, float& vv, float& tt) {
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok = fabsf(det) >= 1e-12f;
+  const float inv_det = 1.0f / (ok ? det : 1.0f);
+  const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
+  uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > r.tmin && tt < t_best;
+}
+
+// The triangles of one leaf code, in slot order (strict '<': the first of
+// equal t wins). Returns true when an any-hit ray was accepted.
+__device__ __forceinline__ bool test_leaf(const float* __restrict__ tris128, int e, const Ray& r,
+                                          bool anyhit, Hit& h) {
+  const int code = -e - 1;
+  const int row = code / 16;
+  const int cnt = code - row * 16;
+  const float4* tr = reinterpret_cast<const float4*>(tris128 + static_cast<size_t>(row) * 128);
+  for (int c = 0; c < kLeafSlots && c < cnt; ++c) {
+    // slot layout: v0.xyz v1.xyz v2.xyz rnode tri pad5
+    const float4 a = __ldg(tr + 4 * c);
+    const float4 b = __ldg(tr + 4 * c + 1);
+    const float4 d = __ldg(tr + 4 * c + 2);
+    float uu, vv, tt;
+    if (triangle(a.x, a.y, a.z, a.w - a.x, b.x - a.y, b.y - a.z, b.z - a.x, b.w - a.y,
+                 d.x - a.z, r, h.t, uu, vv, tt)) {
+      h.t = anyhit ? -1.0f : tt;
+      h.rn = d.y;
+      h.tri = d.z;
+      h.u = uu;
+      h.v = vv;
+      if (anyhit) return true;
+    }
+  }
+  return false;
+}
+
+template <int kLevels, int kStack>
+__global__ void __launch_bounds__(kBlock)
+traverse_bvh_kernel(const float* __restrict__ nodes, const float* __restrict__ tris128,
+                    int root_code, const float* __restrict__ rox, const float* __restrict__ roy,
+                    const float* __restrict__ roz, const float* __restrict__ rdx,
+                    const float* __restrict__ rdy, const float* __restrict__ rdz,
+                    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+                    int anyhit, float* __restrict__ out_t, int* __restrict__ out_rnode,
+                    int* __restrict__ out_tri, float* __restrict__ out_u,
+                    float* __restrict__ out_v, unsigned int* __restrict__ overflow) {
+  constexpr int kArity = 1 << kLevels;
+  constexpr int kRow = 8 * kArity;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+  Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
+  unsigned int dropped = 0;
+
+  int stack[kStack];
+  stack[0] = root_code;
+  int sp = 1;
+
+  while (sp > 0) {
+    const int e = stack[--sp];
+    if (e < 0) {
+      if (test_leaf(tris128, e, r, anyhit, h)) break;
+      continue;
+    }
+    const float* row = nodes + static_cast<size_t>(e) * kRow;
+    unsigned int hitmask = 0;
+#pragma unroll
+    for (int s = 0; s < kArity; ++s) {
+      // a box starts at 6*s floats: 8-byte aligned, three 8-byte loads
+      const float2* bp = reinterpret_cast<const float2*>(row + 6 * s);
+      const float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+      if (slab(b0.x, b0.y, b1.x, b1.y, b2.x, b2.y, r, h.t)) hitmask |= 1u << s;
+    }
+    if (!hitmask) continue;
+    unsigned int flip = 0;  // bit k: the right side of split k is nearer
+#pragma unroll
+    for (int k = 0; k < kArity - 1; ++k) {
+      if (!axis_sign(__ldg(row + 7 * kArity + k), r.sx, r.sy, r.sz)) flip |= 1u << k;
+    }
+    // visit position p -> child slot, level by level; push far first
+#pragma unroll
+    for (int p = kArity - 1; p >= 0; --p) {
+      int path = 0;
+#pragma unroll
+      for (int d = 0; d < kLevels; ++d) {
+        const int bit = (p >> (kLevels - 1 - d)) & 1;
+        path = path * 2 + (bit ^ static_cast<int>((flip >> ((1 << d) - 1 + path)) & 1u));
+      }
+      if ((hitmask >> path) & 1u) {
+        if (sp < kStack) {
+          stack[sp++] = static_cast<int>(__ldg(row + 6 * kArity + path));
+        } else {
+          ++dropped;
+        }
+      }
+    }
+  }
+
+  out_t[i] = h.t;
+  out_rnode[i] = static_cast<int>(h.rn);
+  out_tri[i] = static_cast<int>(h.tri);
+  out_u[i] = h.u;
+  out_v[i] = h.v;
+  if (dropped) atomicAdd(overflow, dropped);
+}
+
+template <int kLevels, int kStack>
+int launch_traverse_bvh(const float* nodes, const float* tris128, int root_code, const float* rox,
+                        const float* roy, const float* roz, const float* rdx, const float* rdy,
+                        const float* rdz, const float* tmin, const float* tmax, int n, int anyhit,
+                        float* out_t, int* out_rnode, int* out_tri, float* out_u, float* out_v,
+                        unsigned int* overflow, void* stream) {
+  if (n <= 0) return 0;
+  const int grid = (n + kBlock - 1) / kBlock;
+  traverse_bvh_kernel<kLevels, kStack><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes, tris128, root_code, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t,
+      out_rnode, out_tri, out_u, out_v, overflow);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace vkgr

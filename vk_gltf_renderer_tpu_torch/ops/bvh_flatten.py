@@ -1,10 +1,10 @@
-"""World-space BVH4 tables for the traversal kernel (numpy host builder).
+"""World-space BVH tables for the traversal kernels (numpy host builder).
 
 jax-free copy of the default path of vk_gltf_renderer_tpu/ops/bvh_flatten.py
 build_world_bvh: instances baked into world triangles, binned SAH over them
 (the native C++ builder of vk_gltf_renderer_tpu.native, with the numpy
 oracle as fallback), collapsed to BVH4, and emitted as the two tables the
-kernel reads:
+default kernel reads:
 
   nodes4_fi [M,32] f32  4 child AABBs (cols 0:24, lo3 hi3 each), 4 child
                         codes (24:28: >= 0 BVH4 node id, < 0 leaf code
@@ -16,11 +16,23 @@ kernel reads:
                         tri id at col 10; padding slots are zero triangles
                         with ids -1)
 
-plus the fused hit-state rows (ops/hitstate.bake_hit_attrs_np). Only the
-tables the slice reads are built; the binary/BVH16/lane-page tables, the
-SBVH and LBVH branches, alpha culling and the refit maps of the reference
-are not ported yet (ROADMAP.md). tests/test_torch_host.py holds every field
-equal to the reference's.
+plus the fused hit-state rows (ops/hitstate.bake_hit_attrs_np) and the
+binary tree they come from (nodes_i, nodes_f, nodes_self, tris, wtri_*,
+under the reference's field names). The tables of the other traversal
+kernels are built from that tree only when a selected kernel reads them
+(add_kernel_tables): they cost Python-loop seconds on a 1M-triangle scene.
+
+  nodes_fi   [Nn,16] f32  binary rows (reference _packet2_tables): both
+                          child boxes (0:12), child codes (12:14), the
+                          split axis (14); root_code is the root's code
+  nodes16_fi [M,128] f32  dense BVH16 rows (reference _packet6_tables):
+                          16 child boxes (0:96), 16 codes (96:112), the 15
+                          axes of the collapsed binary subtree (112:127)
+  lane_pages [P*16,128] f32 skip-pointer DFS pages (ops/lane_traverse.py)
+
+The SBVH and LBVH branches, alpha culling and the refit maps (map4,
+map16, lane geo_idx) of the reference are not ported yet (ROADMAP.md).
+tests/test_torch_host.py holds every field equal to the reference's.
 """
 
 from __future__ import annotations
@@ -41,7 +53,12 @@ _B4_EMPTY_HI = -3e38
 
 @dataclass
 class WorldBvh:
+    nodes_i: np.ndarray  # [Nn,8] i32 binary tree: left, right, first, count, parent, axis
+    nodes_f: np.ndarray  # [Nn,16] f32 binary nodes' child boxes
     nodes_self: np.ndarray  # [Nn,8] f32 binary nodes' own AABBs (row 0 = scene bounds)
+    tris: np.ndarray  # [T+8,16] f32 world triangles in BVH order (v0 v1 v2, pad)
+    wtri_rnode: np.ndarray  # [T+8] i32 render node per tris row
+    wtri_tri: np.ndarray  # [T+8] i32 global tri id per tris row
     nodes4_fi: np.ndarray  # [M,32] f32 fused BVH4 rows
     tris128: np.ndarray  # [L,128] f32 leaf-aligned triangle blocks
     # fused hit-state rows: row = rn_attr_base[rnode] + tri
@@ -50,6 +67,11 @@ class WorldBvh:
     attr_alpha_class: np.ndarray  # [Ta] i8 (1 = mixed: no classification)
     num_world_tris: int
     root4_code: int = 0
+    # built on demand by add_kernel_tables (None until a kernel reads them)
+    nodes_fi: np.ndarray | None = None  # [Nn,16] f32 binary rows
+    root_code: int = 0  # code of the binary root (< 0 when it is a leaf)
+    nodes16_fi: np.ndarray | None = None  # [M,128] f32 BVH16 rows
+    lane_pages: np.ndarray | None = None  # [P*16,128] f32 skip-pointer pages
 
 
 def _build_sah(tlo, thi, cen):
@@ -372,6 +394,7 @@ def build_world_bvh(flat) -> WorldBvh:
         order = _morton_order(tlo, thi, cen) if nt > 1 else np.zeros(1, np.int64)
         nodes_i = np.zeros((1, 8), np.int32)
         nodes_i[0] = [0, 0, 0, nt, -1, 0, 0, 0]
+        nodes_f = np.zeros((1, 16), np.float32)
         nodes_self = np.zeros((1, 8), np.float32)
         nodes_self[0, 0:3] = tlo.min(axis=0)
         nodes_self[0, 3:6] = thi.max(axis=0)
@@ -385,7 +408,11 @@ def build_world_bvh(flat) -> WorldBvh:
                     f"{nt} world triangles need the native SAH builder (g++); the "
                     "reference's LBVH fallback for large scenes is not ported yet")
             built = _build_sah(tlo, thi, cen)
-        order, nodes_i, _, nodes_self = built
+        order, nodes_i, nodes_f, nodes_self = built
+        # the native builder leaves a leaf's child slots and cols 6:8
+        # unwritten (np.empty); zero them as the numpy oracle does
+        nodes_i[nodes_i[:, 3] > 0, 0:2] = 0
+        nodes_i[:, 6:8] = 0
     wv = wv[order]
     wtri_rnode = wtri_rnode[order]
     wtri_tri = wtri_tri[order]
@@ -396,7 +423,12 @@ def build_world_bvh(flat) -> WorldBvh:
 
     n4i, n4f = build_bvh4(nodes_i, nodes_self)
     return WorldBvh(
+        nodes_i=nodes_i,
+        nodes_f=nodes_f,
         nodes_self=nodes_self,
+        tris=tris16,
+        wtri_rnode=wtri_rnode,
+        wtri_tri=wtri_tri,
         nodes4_fi=_nodes4_fi(nodes_i, n4i, n4f),
         tris128=_tris128(nodes_i, tris16, wtri_rnode, wtri_tri),
         hit_attr=hit_attr,
@@ -404,3 +436,149 @@ def build_world_bvh(flat) -> WorldBvh:
         attr_alpha_class=attr_alpha_class,
         num_world_tris=nt,
     )
+
+
+# ---------------------------------------------------------------- kernel tables
+# The tables of the BVH2, BVH16 and lane kernels, built only on request.
+
+
+def _packet2_nodes(nodes_i, nodes_f):
+    """Fused binary rows (the nodes_fi / root_code half of the reference's
+    _packet2_tables, ops/bvh_flatten.py:48).
+
+      nodes_fi [Nn,16] f32: l_lo(3) l_hi(3) r_lo(3) r_hi(3) code_l code_r
+                            axis pad.  code >= 0: internal child id;
+                            code < 0: leaf, -(code+1) = leafrow*16 + count.
+    Returns (nodes_fi, root_code)."""
+    nodes_i = np.asarray(nodes_i)
+    nn = nodes_i.shape[0]
+    count = nodes_i[:, 3].astype(np.int64)
+    is_leaf = count > 0
+    leaf_ids = np.nonzero(is_leaf)[0]
+    leafrow = np.full(nn, -1, np.int64)
+    leafrow[leaf_ids] = np.arange(leaf_ids.size)
+    if leaf_ids.size >= 1 << 20:
+        raise ValueError("packet2 kernel caps at 2^20 leaves")
+
+    code = np.where(is_leaf, -(leafrow * 16 + count) - 1, np.arange(nn)).astype(np.float64)
+    nodes_fi = np.zeros((nn, 16), np.float32)
+    nodes_fi[:, 0:12] = np.asarray(nodes_f)[:, 0:12]
+    l = nodes_i[:, 0].astype(np.int64)
+    r = nodes_i[:, 1].astype(np.int64)
+    nodes_fi[:, 12] = code[l]
+    nodes_fi[:, 13] = code[r]
+    nodes_fi[:, 14] = nodes_i[:, 5]
+    return nodes_fi, int(code[0])
+
+
+def _axis_idx(depth, path):
+    """Level-order index of a collapsed-subtree position into cols 112+."""
+    return (1 << depth) - 1 + path
+
+
+def _packet6_tables(nodes_i, nodes_self):
+    """nodes16_fi [M,128] f32 from the binary tree (reference
+    ops/bvh_flatten.py:1381, without the refit map16). Root BVH16 node is
+    id 0. Layout: cols 0:96 16 child boxes (lo3 hi3; missing = the +3e38
+    point box), 96:112 16 child codes (as nodes_fi; missing 0), 112:127
+    the 15 near-order axes of the collapsed binary subtree in level order
+    (slot index = 4-bit root-to-leaf path, MSB = top split)."""
+    nodes_i = np.asarray(nodes_i)
+    nodes_self = np.asarray(nodes_self, np.float32)
+    count = nodes_i[:, 3].astype(np.int64)
+    leaf_ids = np.nonzero(count > 0)[0]
+    first2row = np.full(int(nodes_i[:, 2].max()) + 2, -1, np.int64)
+    first2row[nodes_i[leaf_ids, 2].astype(np.int64)] = np.arange(leaf_ids.size)
+
+    def leaf_code(b):
+        return -(int(first2row[nodes_i[b, 2]]) * 16 + int(nodes_i[b, 3])) - 1
+
+    if nodes_i[0, 3] > 0:  # root is a leaf: single row, one child slot
+        f = np.full(128, 0.0, np.float32)
+        for s in range(16):
+            f[6 * s : 6 * s + 6] = 3e38
+        f[0:3] = nodes_self[0, 0:3]
+        f[3:6] = nodes_self[0, 3:6]
+        f[96] = leaf_code(0)
+        return f[None, :].copy()
+
+    rows_f = [None]
+    id_of = {0: 0}
+    work = deque([0])
+    while work:
+        b = work.popleft()
+        nid = id_of[b]
+        f = np.zeros(128, np.float32)
+        for s in range(16):
+            f[6 * s : 6 * s + 6] = 3e38  # missing = point box
+        # expand the binary subtree at b up to 4 levels
+        stack = [(b, 0, 0)]  # (internal binary id, path, depth)
+        while stack:
+            nb, path, depth = stack.pop()
+            f[112 + _axis_idx(depth, path)] = float(nodes_i[nb, 5])
+            for side, child in ((0, int(nodes_i[nb, 0])), (1, int(nodes_i[nb, 1]))):
+                cpath = path * 2 + side
+                cdepth = depth + 1
+                if nodes_i[child, 3] > 0 or cdepth == 4:  # terminal slot
+                    slot = cpath << (4 - cdepth)
+                    f[6 * slot : 6 * slot + 3] = nodes_self[child, 0:3]
+                    f[6 * slot + 3 : 6 * slot + 6] = nodes_self[child, 3:6]
+                    if nodes_i[child, 3] > 0:
+                        f[96 + slot] = leaf_code(child)
+                    else:
+                        if child not in id_of:
+                            id_of[child] = len(rows_f)
+                            rows_f.append(None)
+                            work.append(child)
+                        f[96 + slot] = id_of[child]
+                else:
+                    stack.append((child, cpath, cdepth))
+        rows_f[nid] = f
+    return np.stack(rows_f).astype(np.float32)
+
+
+KERNEL_TABLES = ("bvh2", "bvh16", "lane")  # what add_kernel_tables can build
+
+
+def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:
+    """Build the named kernel tables ("bvh2" -> nodes_fi + root_code,
+    "bvh16" -> nodes16_fi, "lane" -> lane_pages) into wb, skipping those
+    already there. Returns wb."""
+    unknown = set(tables) - set(KERNEL_TABLES)
+    if unknown:
+        raise ValueError(f"unknown kernel tables {sorted(unknown)}; known: {KERNEL_TABLES}")
+    if "bvh2" in tables and wb.nodes_fi is None:
+        wb.nodes_fi, wb.root_code = _packet2_nodes(wb.nodes_i, wb.nodes_f)
+    if "bvh16" in tables and wb.nodes16_fi is None:
+        wb.nodes16_fi = _packet6_tables(wb.nodes_i, wb.nodes_self)
+    if "lane" in tables and wb.lane_pages is None:
+        from .lane_traverse import build_lane_tree
+
+        wb.lane_pages = build_lane_tree(wb.nodes_i, wb.nodes_self, wb.tris,
+                                        wtri_rnode=wb.wtri_rnode, wtri_tri=wb.wtri_tri)
+    return wb
+
+
+def stack_need(nodes, levels: int, root_code: int) -> int:
+    """Deepest traversal stack a per-ray walk of a fused row table
+    (nodes_fi: levels=1, nodes4_fi: 2, nodes16_fi: 4) can need: popping a
+    node pushes all of its real children, so a node reached with p entries
+    below it needs p + its child count, and its nearest child is reached
+    with p + count - 1. Missing children carry the +3e38 point box."""
+    if root_code < 0:
+        return 1
+    arity = 1 << levels
+    nodes = np.asarray(nodes)
+    codes = nodes[:, 6 * arity : 7 * arity].astype(np.int64)
+    real = nodes[:, 0 : 6 * arity : 6] < 1e38  # lo.x of every child slot
+    nreal = real.sum(axis=1)
+    need = 1
+    frontier = np.array([root_code], np.int64)
+    below = np.zeros(1, np.int64)
+    while frontier.size:
+        k = nreal[frontier]
+        need = max(need, int((below + k).max()))
+        inner = real[frontier] & (codes[frontier] >= 0)
+        below = np.repeat(below + k - 1, inner.sum(axis=1))
+        frontier = codes[frontier][inner]
+    return need

@@ -16,10 +16,17 @@ roughness regularisation, NaN sanitising, the firefly clamp on mean
 luminance, running-mean accumulation and the directly visible HDR
 background at full resolution.
 
+Traversal kernels (the reference's switch): bounce 0's closest-hit trace
+uses RenderConfig.primary_kernel; every later bounce and every shadow ray,
+bounce 0's included, uses packet_kernel (the reference's mapping under its
+default VKGR_PEEL_SORT_SHADOW=1, ops/pathtrace.py:780 and :1130-1134).
+ops/intersect.py routes each name to its CUDA kernel.
+
 Not ported yet (RenderConfig.check_supported raises NotImplementedError):
 punctual lights, stochastic alpha, transmission / volume and the other
 material extensions, the infinite plane, denoiser guides, TAA jitter,
-batched spp and primary-hit seeding.
+batched spp, primary-hit seeding, the traversal kernels v5, v7 and v8, and
+every traversal other than "packet" (packet4, the XLA wavefront).
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ from .hdr import eval_hdr, sample_hdr
 from .hitstate import get_hit_state_fused, safe_offset_ray
 from .materials_eval import evaluate_material, unsupported_features
 from .sky import eval_sky, pdf_sky, sample_sky
+from .intersect import intersect_rays_soa, route
 from .traverse import INFINITE, dot3
-from .traverse_bvh4 import intersect_rays_soa
 
 ANTIALIASING_STD = 0.4246609
 RR_MIN_DEPTH = 3
@@ -65,6 +72,11 @@ class RenderConfig:
     taa_jitter: bool = False
     spp_batch: bool = False
     primary_seed: bool = False
+    # traversal switch (VKGR_TRAVERSAL, VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL);
+    # the defaults are the reference renderer's (renderer.py:487-488)
+    traversal: str = "packet"
+    primary_kernel: str = "v3"
+    packet_kernel: str = "v9"
 
     def check_supported(self) -> None:
         """Raise NotImplementedError for anything the port cannot render
@@ -81,15 +93,23 @@ class RenderConfig:
         missing += unsupported_features(self.features)
         if self.env_kind not in ("sky", "hdr"):
             missing.append(f"environment kind {self.env_kind!r}")
+        if self.traversal != "packet":
+            missing.append(f"traversal {self.traversal!r} (only the kernel traversal 'packet' is "
+                           "ported; packet4 is ROADMAP.md B, traverse_packets4)")
         if missing:
             raise NotImplementedError(
                 "not ported to the torch path tracer yet: " + ", ".join(missing))
+        self.kernel_tables()  # raises for kernel names not ported
+
+    def kernel_tables(self) -> set:
+        """Table families (ops/intersect.ROUTES) the selected kernels read."""
+        return {route(self.primary_kernel), route(self.packet_kernel)}
 
 
-def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False):
-    """Closest (or any) hit of [N,3] rays, in lane order; tmax is None
-    (unbounded) or [N]. Dead lanes trace with tmax = -1 and miss at the
-    root."""
+def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False, kernel="v3"):
+    """Closest (or any) hit of [N,3] rays through the named traversal
+    kernel, in lane order; tmax is None (unbounded) or [N]. Dead lanes trace
+    with tmax = -1 and miss at the root."""
     n = ro.shape[0]
     dev = ro.device
     if tmax is None:
@@ -98,7 +118,7 @@ def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False):
         tmax = torch.where(alive, tmax, -1.0)
     tmin_b = torch.full((n,), float(tmin), device=dev)
     c = [x.contiguous() for x in (ro[:, 0], ro[:, 1], ro[:, 2], rd[:, 0], rd[:, 1], rd[:, 2])]
-    return intersect_rays_soa(bvh, *c, tmin_b, tmax.contiguous(), anyhit=anyhit)
+    return intersect_rays_soa(bvh, *c, tmin_b, tmax.contiguous(), anyhit=anyhit, kernel=kernel)
 
 
 def sample_environment(env, d, cfg: RenderConfig):
@@ -140,9 +160,9 @@ def _sample_lights(env, pos, seed, cfg: RenderConfig):
             "pdf": pdf_sum}, seed
 
 
-def _trace_shadow(bvh, ro, rd, dist, alive):
+def _trace_shadow(bvh, ro, rd, dist, alive, kernel):
     """Opaque shadow factor [N,1]: one any-hit occlusion test."""
-    hits = trace_closest(bvh, ro, rd, tmin=0.0, tmax=dist, alive=alive, anyhit=True)
+    hits = trace_closest(bvh, ro, rd, tmin=0.0, tmax=dist, alive=alive, anyhit=True, kernel=kernel)
     return torch.where((hits["tri"] >= 0)[..., None], 0.0, 1.0)
 
 
@@ -197,7 +217,8 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         first = depth == 0
 
         state["rays"] = state["rays"] + torch.sum(alive.to(torch.float32))
-        hits = trace_closest(bvh, ro, rd, alive=alive)
+        hits = trace_closest(bvh, ro, rd, alive=alive,
+                             kernel=cfg.primary_kernel if first else cfg.packet_kernel)
         miss = hits["tri"] < 0
 
         # environment hit
@@ -271,7 +292,8 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         sh_base = torch.where(sh_fwd, hs["shadow_pos"], hs["pos"])
         sh_off = torch.where(sh_fwd, hs["geonrm"], -hs["geonrm"])
         sh_org = safe_offset_ray(sh_base, sh_off)
-        shadow = _trace_shadow(bvh, sh_org, dl["direction"], dl["distance"], next_event)
+        shadow = _trace_shadow(bvh, sh_org, dl["direction"], dl["distance"], next_event,
+                               cfg.packet_kernel)
         radiance = radiance + torch.where(next_event[..., None], contrib * shadow, 0.0)
 
         alive = alive & ~absorbed

@@ -1,16 +1,21 @@
-"""Small-vector helpers, the plain BVH4 traversal and the brute-force oracle.
+"""Small-vector helpers, the plain traversals and the brute-force oracle.
 
-traverse_bvh4_plain is the plain PyTorch version of the traversal kernel
-(csrc/traverse_bvh4.cu, wrapped by ops/traverse_bvh4.py): a per-ray stack
-traversal over the fused BVH4 rows, vectorised over rays (stack tensor
-[N, STACK_DEPTH], one loop iteration pops one entry of every ray whose
-stack is non-empty). It carries over exactly the arithmetic of the
-reference kernel body (vk_gltf_renderer_tpu/ops/pallas_traverse.py
-_traverse3_core): the inv() clamp, the slab test with tnear floored at 0
-and tfar capped at t_best, the leaf decoding and Moller-Trumbore with the
-1e-12 determinant guard. It differs from the packet kernels only in order
-(near-first by each ray's own direction signs, not a packet vote), which
-changes nothing but equal-t ties.
+The plain traversals are the plain PyTorch versions of the traversal
+kernels (csrc/traverse_bvh{2,4,16}.cu and csrc/traverse_lanes.cu, wrapped
+by ops/traverse_bvh{2,4,16}.py and ops/lane_traverse.py). Each is
+vectorised over rays: one loop iteration advances every ray that is still
+walking by one step. They carry over exactly the arithmetic of the
+reference kernel bodies (vk_gltf_renderer_tpu/ops/pallas_traverse.py
+_traverse2_body, _traverse3_core, _traverse6_body and
+ops/lane_traverse.py _make_step): the inv() clamp, the slab test with tnear
+floored at 0 and tfar capped at t_best, the leaf decoding and
+Moller-Trumbore with the 1e-12 determinant guard.
+
+traverse_bvh{2,4,16}_plain walk the fused row tables of arity 2, 4 and 16
+with a per-ray stack ([N, depth] tensor). They differ from the packet
+kernels only in order (near-first by each ray's own direction signs, not a
+packet vote), which changes nothing but equal-t ties. traverse_lanes_plain
+walks the skip-pointer entries (entry-major [E,16]) without a stack.
 
 intersect_brute is the test oracle (reference ops/traverse.py:222).
 """
@@ -20,7 +25,9 @@ from __future__ import annotations
 import torch
 
 INFINITE = 1e32
-STACK_DEPTH = 64
+STACK_DEPTH = 64  # BVH4 (csrc/traverse_bvh4.cu)
+STACK_DEPTH2 = 128  # BVH2 (csrc/traverse_bvh2.cu)
+STACK_DEPTH16 = 256  # BVH16 (csrc/traverse_bvh16.cu)
 LEAF_SLOTS = 8  # triangles per tris128 row
 
 
@@ -45,7 +52,8 @@ def _inv(d):
 
 
 def _slab(f, o, ro, inv_d, t_best):
-    """Child box `o` of the fetched rows f [K,32] against the rays."""
+    """Box at columns o:o+6 (lo3 hi3) of the fetched rows f [K,*] against
+    the rays."""
     rox, roy, roz = ro
     ix, iy, iz = inv_d
     t0x = (f[:, o + 0] - rox) * ix
@@ -65,16 +73,51 @@ def _slab(f, o, ro, inv_d, t_best):
     return tnear <= tfar
 
 
-def traverse_bvh4_plain(nodes4_fi, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,
-                        tmin, tmax, anyhit=False):
-    """Plain per-ray BVH4 traversal.
+def _moller_trumbore(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx, dy, dz):
+    """(ok, u, v, t) of rays against triangles v0 + edges e1, e2
+    (broadcasting); ok is the determinant guard."""
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok = torch.abs(det) >= 1e-12
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    uu = (tvx * px + tvy * py + tvz * pz) * inv_det
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    vv = (dx * qx + dy * qy + dz * qz) * inv_det
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    return ok, uu, vv, tt
+
+
+def _visit_slots(flip, levels):
+    """Child slot of every near-first visit position: [K, 2^levels] from
+    flip [K, 2^levels - 1] (True where the right side of a split of the
+    collapsed binary subtree, in level order, is nearer)."""
+    k = flip.shape[0]
+    pos = torch.arange(1 << levels, device=flip.device)
+    path = torch.zeros((k, 1 << levels), dtype=torch.long, device=flip.device)
+    for d in range(levels):
+        bit = (pos >> (levels - 1 - d)) & 1
+        fl = torch.gather(flip, 1, (1 << d) - 1 + path).long()
+        path = path * 2 + (bit[None, :] ^ fl)
+    return path
+
+
+def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,
+                        tmin, tmax, anyhit=False, stack_depth=64):
+    """Plain per-ray traversal of a fused row table of arity 2^levels
+    (layout in csrc/traverse_bvh.cuh: child boxes, child codes, split axes).
 
     All ray inputs are [N] f32. Returns (t, rnode, tri, u, v, overflow):
     t [N] f32 is the best t (tmax where nothing was accepted, -1 after an
     any-hit), rnode/tri [N] i32 (-1 = no hit), u/v [N] f32, and overflow
     the number of stack pushes dropped because a stack was full (0 unless
-    a tree is deeper than STACK_DEPTH allows). Any-hit stops a ray at its
+    a tree is deeper than stack_depth allows). Any-hit stops a ray at its
     first accepted hit. Rays with tmax < 0 miss at the root."""
+    arity = 1 << levels
     dev = rox.device
     n = rox.shape[0]
     ix, iy, iz = _inv(rdx), _inv(rdy), _inv(rdz)
@@ -85,7 +128,7 @@ def traverse_bvh4_plain(nodes4_fi, tris128, root_code, rox, roy, roz, rdx, rdy, 
     tri_best = torch.full((n,), -1.0, device=dev)
     u_best = torch.zeros(n, device=dev)
     v_best = torch.zeros(n, device=dev)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     stack[:, 0] = int(root_code)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -105,24 +148,13 @@ def traverse_bvh4_plain(nodes4_fi, tris128, root_code, rox, roy, roz, rdx, rdy, 
             row = torch.div(code, 16, rounding_mode="floor")
             cnt = code - row * 16
             tv = tris128[row].reshape(-1, LEAF_SLOTS, 16)
-            ox, oy, oz = rox[li, None], roy[li, None], roz[li, None]
-            dx, dy, dz = rdx[li, None], rdy[li, None], rdz[li, None]
             v0x, v0y, v0z = tv[..., 0], tv[..., 1], tv[..., 2]
-            e1x, e1y, e1z = tv[..., 3] - v0x, tv[..., 4] - v0y, tv[..., 5] - v0z
-            e2x, e2y, e2z = tv[..., 6] - v0x, tv[..., 7] - v0y, tv[..., 8] - v0z
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            ok = (arange8[None, :] < cnt[:, None]) & (torch.abs(det) >= 1e-12)
-            inv_det = 1.0 / torch.where(torch.abs(det) >= 1e-12, det, 1.0)
-            tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-            uu = (tvx * px + tvy * py + tvz * pz) * inv_det
-            qx = tvy * e1z - tvz * e1y
-            qy = tvz * e1x - tvx * e1z
-            qz = tvx * e1y - tvy * e1x
-            vv = (dx * qx + dy * qy + dz * qz) * inv_det
-            tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+            ok, uu, vv, tt = _moller_trumbore(
+                v0x, v0y, v0z, tv[..., 3] - v0x, tv[..., 4] - v0y, tv[..., 5] - v0z,
+                tv[..., 6] - v0x, tv[..., 7] - v0y, tv[..., 8] - v0z,
+                rox[li, None], roy[li, None], roz[li, None], rdx[li, None], rdy[li, None],
+                rdz[li, None])
+            ok = ok & (arange8[None, :] < cnt[:, None])
             cand = ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > tmin[li, None])
             tb, rb, trb = t_best[li], rn_best[li], tri_best[li]
             ub, vb = u_best[li], v_best[li]
@@ -140,35 +172,97 @@ def traverse_bvh4_plain(nodes4_fi, tris128, root_code, rox, roy, roz, rdx, rdy, 
 
         ii = act[~leaf]
         if ii.numel():
-            f = nodes4_fi[e[~leaf]]  # [K,32]
+            f = nodes[e[~leaf]]  # [K, 8*arity]
             ro = (rox[ii], roy[ii], roz[ii])
             inv_d = (ix[ii], iy[ii], iz[ii])
             tb = t_best[ii]
-            a0, a1, a2, a3 = (_slab(f, o, ro, inv_d, tb) for o in (0, 6, 12, 18))
-            c0, c1, c2, c3 = (f[:, 24 + j].long() for j in range(4))
-            s = torch.gather(sgn[ii], 1, f[:, 28:31].long())  # sign of each near-order axis
-            s0, s1, s2 = s[:, 0], s[:, 1], s[:, 2]
-            ln_id, lf_id = torch.where(s1, c0, c1), torch.where(s1, c1, c0)
-            ln_a, lf_a = torch.where(s1, a0, a1), torch.where(s1, a1, a0)
-            rn_id, rf_id = torch.where(s2, c2, c3), torch.where(s2, c3, c2)
-            rn_a, rf_a = torch.where(s2, a2, a3), torch.where(s2, a3, a2)
-            pushes = (
-                (torch.where(s0, rf_id, lf_id), torch.where(s0, rf_a, lf_a)),
-                (torch.where(s0, rn_id, ln_id), torch.where(s0, rn_a, ln_a)),
-                (torch.where(s0, lf_id, rf_id), torch.where(s0, lf_a, rf_a)),
-                (torch.where(s0, ln_id, rn_id), torch.where(s0, ln_a, rn_a)),
-            )
+            hits = torch.stack([_slab(f, 6 * s, ro, inv_d, tb) for s in range(arity)], dim=1)
+            codes = f[:, 6 * arity : 7 * arity].long()
+            axes = f[:, 7 * arity : 8 * arity - 1].long()
+            flip = ~torch.gather(sgn[ii], 1, axes)  # the right side is nearer
+            slots = _visit_slots(flip, levels)
             spi = sp[ii]
-            for pid, pa in pushes:  # far first: the nearest child is popped next
-                full = pa & (spi >= STACK_DEPTH)
+            for p in reversed(range(arity)):  # far first: the nearest child is popped next
+                s = slots[:, p : p + 1]
+                pa = torch.gather(hits, 1, s)[:, 0]
+                full = pa & (spi >= stack_depth)
                 overflow += full.sum()
                 push = pa & ~full
-                stack[ii[push], spi[push]] = pid[push]
+                stack[ii[push], spi[push]] = torch.gather(codes, 1, s)[:, 0][push]
                 spi = spi + push.long()
             sp[ii] = spi
 
     return (t_best, rn_best.to(torch.int32), tri_best.to(torch.int32), u_best, v_best,
             int(overflow))
+
+
+def traverse_bvh2_plain(nodes_fi, tris128, root_code, *rays, anyhit=False):
+    """Plain BVH2 traversal over nodes_fi [N,16] (csrc/traverse_bvh2.cu)."""
+    return traverse_rows_plain(1, nodes_fi, tris128, root_code, *rays, anyhit=anyhit,
+                               stack_depth=STACK_DEPTH2)
+
+
+def traverse_bvh4_plain(nodes4_fi, tris128, root_code, *rays, anyhit=False):
+    """Plain BVH4 traversal over nodes4_fi [M,32] (csrc/traverse_bvh4.cu)."""
+    return traverse_rows_plain(2, nodes4_fi, tris128, root_code, *rays, anyhit=anyhit,
+                               stack_depth=STACK_DEPTH)
+
+
+def traverse_bvh16_plain(nodes16_fi, tris128, root_code, *rays, anyhit=False):
+    """Plain BVH16 traversal over nodes16_fi [M,128] (csrc/traverse_bvh16.cu)."""
+    return traverse_rows_plain(4, nodes16_fi, tris128, root_code, *rays, anyhit=anyhit,
+                               stack_depth=STACK_DEPTH16)
+
+
+def traverse_lanes_plain(entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, anyhit=False):
+    """Plain stackless skip-pointer walk over entry-major lane entries
+    [E,16] (csrc/traverse_lanes.cu; fields in ops/lane_traverse.py).
+
+    Returns (t, rnode, tri, u, v, bad) like traverse_rows_plain, except that
+    an any-hit keeps its t (the reference's lane kernels do not poison it)
+    and `bad` counts links that did not advance (0 on a well-formed table).
+    Rays with tmax < 0 start at the end."""
+    dev = rox.device
+    n = rox.shape[0]
+    end = entries.shape[0]
+    ix, iy, iz = _inv(rdx), _inv(rdy), _inv(rdz)
+    t_best = tmax.clone()
+    rn_best = torch.full((n,), -1.0, device=dev)
+    tri_best = torch.full((n,), -1.0, device=dev)
+    u_best = torch.zeros(n, device=dev)
+    v_best = torch.zeros(n, device=dev)
+    cur = torch.where(tmax < 0, end, 0).to(torch.int64)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    while True:
+        act = torch.nonzero(cur < end).squeeze(1)
+        if act.numel() == 0:
+            break
+        c = cur[act]
+        f = entries[c]  # [K,16]
+        tb = t_best[act]
+        leaf = f[:, 11] > 0.5
+        ro = (rox[act], roy[act], roz[act])
+        bhit = _slab(f, 0, ro, (ix[act], iy[act], iz[act]), tb)
+        ok, uu, vv, tt = _moller_trumbore(f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4], f[:, 5],
+                                          f[:, 6], f[:, 7], f[:, 8], *ro,
+                                          rdx[act], rdy[act], rdz[act])
+        thit = (leaf & ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                & (tt > tmin[act]) & (tt < tb))
+        t_best[act] = torch.where(thit, tt, tb)
+        rn_best[act] = torch.where(thit, f[:, 12], rn_best[act])
+        tri_best[act] = torch.where(thit, f[:, 13], tri_best[act])
+        u_best[act] = torch.where(thit, uu, u_best[act])
+        v_best[act] = torch.where(thit, vv, v_best[act])
+        link = f[:, 9].long()
+        nxt = torch.where(leaf, link, torch.where(bhit, c + 1, link))
+        if anyhit:
+            nxt = torch.where(thit, end, nxt)
+        stuck = nxt <= c
+        bad += stuck.sum()
+        cur[act] = torch.where(stuck, end, nxt)
+
+    return (t_best, rn_best.to(torch.int32), tri_best.to(torch.int32), u_best, v_best, int(bad))
 
 
 def _tri_intersect(v0, v1, v2, ro, rd, tmin, tmax):

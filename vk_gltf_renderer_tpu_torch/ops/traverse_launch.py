@@ -1,0 +1,57 @@
+"""The shared body of the traversal kernel wrappers (ops/traverse_bvh2.py,
+traverse_bvh4.py, traverse_bvh16.py, lane_traverse.py).
+
+run_traversal takes CPU rays to the kernel's plain torch version and CUDA
+rays to the kernel; any other device raises, and nothing falls back from
+one to the other. On the card it checks every table and ray component
+(dtype, shape, device, contiguity, 16-byte alignment), allocates the five
+outputs, launches on the current stream, raises if the launch failed, and
+counts the launch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..cuda_lib import check_launch, check_tensor, library
+
+RAY_NAMES = ("rox", "roy", "roz", "rdx", "rdy", "rdz", "tmin", "tmax")
+
+
+def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit):
+    """(t, rnode, tri, u, v) of the [N] f32 ray components `rays`.
+
+    plain: zero-argument call of the plain version, returning the five
+    outputs and a dropped-work count (CPU rays). tables: (name, tensor,
+    expected shape) of every table argument; scalars: the int arguments
+    between the tables and the rays of the C entry point vkgr_<name>."""
+    rox = rays[0]
+    if rox.device.type == "cpu":
+        *out, dropped = plain()
+        overflow.cpu += dropped
+        return tuple(out)
+    if rox.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {rox.device}")
+    dev = rox.device
+    n = rox.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"{name}: at most 2**31-1 rays per launch")
+    for tname, t, shape in tables:
+        check_tensor(tname, t, torch.float32, shape, dev)
+    for rname, c in zip(RAY_NAMES, rays, strict=True):
+        check_tensor(rname, c, torch.float32, (n,), dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    rnode = torch.empty(n, dtype=torch.int32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, rnode, tri, u, v
+    fn = getattr(library().lib, f"vkgr_{name}")
+    rc = fn(*(tt.data_ptr() for _, tt, _ in tables), *(int(s) for s in scalars),
+            *(c.data_ptr() for c in rays), n, int(bool(anyhit)),
+            t.data_ptr(), rnode.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+            overflow.buffer(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, name)
+    counter.launches += 1
+    return t, rnode, tri, u, v

@@ -7,14 +7,23 @@ HDR), the camera and the progressive accumulation buffer, which lives on
 the renderer's device. Each on_render() path-traces one frame of spp
 samples and folds it into the running mean.
 
+Traversal kernels are picked as in the reference: at every frame _config
+reads VKGR_PRIMARY_KERNEL (default v3), VKGR_PACKET_KERNEL (default v9)
+and VKGR_TRAVERSAL (default packet, the only value ported), and on_render
+builds any table the selection reads that the scene does not have yet
+(binary rows for v2, BVH16 rows for v6, lane pages for lane/lane_stream).
+A kernel runs only because the selection names it.
+
 Not ported yet: animation, scene-change sync (dirty flags, refit), the
 preview renderer, denoising, TAA upscaling, the silhouette overlay,
 picking and the adaptive sampler (ROADMAP.md). The TPU fallback ladder
-(VMEM kernel rungs, cache rotation, wavefront downgrade) has no role here.
+(VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation, wavefront downgrade)
+has no role here.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,9 +33,9 @@ from vk_gltf_renderer_tpu.models import Scene
 from vk_gltf_renderer_tpu.models.materials import detect_scene_features
 from vk_gltf_renderer_tpu.utils import mathutil as mu
 
-from .convert import bvh_to_device, scene_to_device
+from .convert import add_kernel_tables_to_device, bvh_to_device, scene_to_device
 from .device import resolve_device
-from .ops.bvh_flatten import build_world_bvh
+from .ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from .ops.camera import pixel_angle
 from .ops.flat import build_scene_flat
 from .ops.hdr import load_hdr_environment
@@ -123,8 +132,17 @@ class GltfRenderer:
         self.bvh = build_world_bvh(self.flat)
         self.dev_scene = scene_to_device(self.flat, self.device)
         self.dev_bvh = bvh_to_device(self.bvh, self.device)
+        self._sync_kernel_tables(self._config())
         self.scene.clear_dirty_flags()
         self.reset_frame()
+
+    def _sync_kernel_tables(self, cfg: RenderConfig) -> None:
+        """Build (host) and upload (device) the tables the selected kernels
+        read and the scene lacks; tables of an earlier selection stay."""
+        need = cfg.kernel_tables() - {"bvh4"}  # nodes4_fi is always built
+        if need:
+            add_kernel_tables(self.bvh, need)
+            add_kernel_tables_to_device(self.dev_bvh, self.bvh, self.device)
 
     # -------------------------------------------------------------- frames
     def reset_frame(self) -> None:
@@ -153,6 +171,9 @@ class GltfRenderer:
             focal_distance=(self.focal_distance or float(np.linalg.norm(
                 np.asarray(cam.center) - np.asarray(cam.eye)))) if self.aperture > 0 else 0.0,
             background=self.background,
+            traversal=os.environ.get("VKGR_TRAVERSAL", "packet"),
+            primary_kernel=os.environ.get("VKGR_PRIMARY_KERNEL", "v3"),
+            packet_kernel=os.environ.get("VKGR_PACKET_KERNEL", "v9"),
         )
 
     def _frame_inputs(self) -> dict:
@@ -186,6 +207,8 @@ class GltfRenderer:
     def on_render(self) -> dict:
         """Render one frame; returns aux (first-hit captures, ray count)."""
         cfg = self._config()
+        cfg.check_supported()
+        self._sync_kernel_tables(cfg)
         accum, aux = render_frame_flat(self.dev_scene, self.dev_bvh, self._env(), self._frame_inputs(), cfg)
         self.accum = accum
         self.total_samples += self.spp

@@ -4,11 +4,18 @@ make_helmet_standin writes the same glTF as the reference's
 tools/baseline_standins.make_helmet (a checker-textured PBR sphere on a
 rough plate, the DamagedHelmet feature role), but writes its checker
 texture with utils/png.py, so it needs no Pillow.
+
+write_large_glb writes the same bytes as tools/large_scene_demo.write_large_glb:
+an instanced grid of displaced terrain patches with one untextured
+metallic-roughness material (1,059,968 world triangles at the default
+target_tris=1_050_000, grid=8), the scene whose BVH outgrows the H100's L2.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import struct
 
 import numpy as np
 
@@ -93,3 +100,77 @@ def make_helmet_standin(out_dir) -> str:
     p = os.path.join(out_dir, "helmet.gltf")
     sc.save(p)
     return p
+
+
+def _patch_mesh(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """One displaced-terrain patch: (n x n) quad grid -> 2*(n-1)^2 triangles."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-0.5, 0.5, n, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    # a few random sinusoids -> non-degenerate, BVH-unfriendly-enough terrain
+    gy = np.zeros_like(gx)
+    for _ in range(4):
+        fx, fz = rng.uniform(2.0, 9.0, size=2)
+        ph = rng.uniform(0, 2 * np.pi, size=2)
+        gy += rng.uniform(0.02, 0.08) * np.sin(fx * gx * 2 * np.pi + ph[0]) * np.cos(
+            fz * gz * 2 * np.pi + ph[1]
+        )
+    pos = np.stack([gx, gy.astype(np.float32), gz], axis=-1).reshape(-1, 3)
+    i = np.arange(n * n, dtype=np.uint32).reshape(n, n)
+    a, b, c, d = i[:-1, :-1], i[1:, :-1], i[:-1, 1:], i[1:, 1:]
+    tris = np.concatenate(
+        [np.stack([a, b, d], -1).reshape(-1, 3), np.stack([a, d, c], -1).reshape(-1, 3)]
+    )
+    return pos, tris.astype(np.uint32).reshape(-1)
+
+
+def write_large_glb(path: str, target_tris: int = 1_050_000, grid: int = 8) -> int:
+    """Grid of grid x grid instances of one patch mesh; returns world tris."""
+    per_inst = target_tris // (grid * grid)
+    n = int(np.sqrt(per_inst / 2)) + 2  # 2*(n-1)^2 >= per_inst approx
+    pos, idx = _patch_mesh(n)
+    tris_per = len(idx) // 3
+    world_tris = tris_per * grid * grid
+
+    pos_b = pos.tobytes()
+    idx_b = idx.tobytes()
+    bin_chunk = pos_b + idx_b
+    nodes = []
+    for gi in range(grid):
+        for gj in range(grid):
+            nodes.append(
+                {
+                    "mesh": 0,
+                    "translation": [float(gi - grid / 2 + 0.5) * 1.1, 0.0,
+                                    float(gj - grid / 2 + 0.5) * 1.1],
+                }
+            )
+    gltf = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "nodes": nodes,
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1,
+                                    "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [0.7, 0.68, 0.62, 1.0], "roughnessFactor": 0.8}}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(pos), "type": "VEC3",
+             "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5125, "count": len(idx), "type": "SCALAR"},
+        ],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": len(pos_b)},
+            {"buffer": 0, "byteOffset": len(pos_b), "byteLength": len(idx_b)},
+        ],
+        "buffers": [{"byteLength": len(bin_chunk)}],
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    bin_chunk += b"\0" * (-len(bin_chunk) % 4)
+    total = 12 + 8 + len(js) + 8 + len(bin_chunk)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, total))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(bin_chunk), 0x004E4942) + bin_chunk)
+    return world_tris
