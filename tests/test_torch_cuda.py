@@ -12,12 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from vk_gltf_renderer_tpu_torch.convert import bvh_to_device
+from vk_gltf_renderer_tpu_torch.convert import add_kernel_tables_to_device, bvh_to_device
+from vk_gltf_renderer_tpu_torch.models import Scene
 from vk_gltf_renderer_tpu_torch.ops import gather as tgather
 from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane
+from vk_gltf_renderer_tpu_torch.ops import megakernel as tmega
 from vk_gltf_renderer_tpu_torch.ops import traverse as ttrav
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_leafqueue as tblq
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_sidecar as tbsc
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16
 from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from vk_gltf_renderer_tpu_torch.ops.flat import build_scene_flat
@@ -35,8 +40,6 @@ def cuda():
 
 
 def _helmet_bvh():
-    from vk_gltf_renderer_tpu.models import Scene
-
     with tempfile.TemporaryDirectory() as d:
         sc = Scene()
         sc.load(make_helmet_standin(d))
@@ -78,8 +81,6 @@ def test_traversal_kernel_matches_plain(cuda, anyhit):
 
 
 def _terrain_bvh():
-    from vk_gltf_renderer_tpu.models import Scene
-
     with tempfile.TemporaryDirectory() as d:
         write_large_glb(d + "/terrain.glb", target_tris=40_000, grid=4)
         sc = Scene()
@@ -87,24 +88,30 @@ def _terrain_bvh():
         return build_world_bvh(build_scene_flat(sc))
 
 
-# kernel value -> (wrapper module, plain version, DeviceBvh table, root code attribute)
+# kernel value -> (wrapper module, plain version, DeviceBvh tables, root code attribute)
 NEW = {
-    "v2": (tb2, ttrav.traverse_bvh2_plain, "nodes_fi", "root_code"),
-    "v6": (tb16, ttrav.traverse_bvh16_plain, "nodes16_fi", None),
-    "lane": (tlane, ttrav.traverse_lanes_plain, "lane_entries", None),
+    "v2": (tb2, ttrav.traverse_bvh2_plain, ("nodes_fi", "tris128"), "root_code"),
+    "v6": (tb16, ttrav.traverse_bvh16_plain, ("nodes16_fi", "tris128"), None),
+    "lane": (tlane, ttrav.traverse_lanes_plain, ("lane_entries",), None),
+    "v5": (tbmp, ttrav.traverse_bvh4_multipop_plain, ("nodes4_fi", "tris128"), "root4_code"),
+    "v7": (tbsc, ttrav.traverse_bvh4_sidecar_plain, ("nodes4_fi", "nodes4_sc", "tris128"),
+           "root4_code"),
+    "v8": (tblq, ttrav.traverse_bvh4_leafqueue_plain, ("nodes4_fi", "tris128"), "root4_code"),
 }
+TABLES = {"bvh2", "bvh16", "lane", "bvh4_sidecar", "bvh4_multipop"}
 
 
 @pytest.mark.parametrize("scene", ["helmet", "terrain"])
 @pytest.mark.parametrize("kernel", sorted(NEW))
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_new_traversal_kernels_match_plain(cuda, scene, kernel, anyhit):
-    """BVH2, BVH16 and the lane walk against their plain versions on the
-    card: ids equal except on equal-t ties, t/u/v within 1e-5, occlusion
-    equal, nothing dropped, one launch counted."""
-    wb = _helmet_bvh() if scene == "helmet" else _terrain_bvh()
-    bvh = bvh_to_device(add_kernel_tables(wb, {"bvh2", "bvh16", "lane"}), cuda)
-    mod, plain, table, root = NEW[kernel]
+    """BVH2, BVH16, the lane walk and the BVH4 variants v5, v7 and v8
+    against their plain versions on the card: ids equal except on equal-t
+    ties, t/u/v within 1e-5, occlusion equal, nothing dropped, one launch
+    counted."""
+    wb = add_kernel_tables(_helmet_bvh() if scene == "helmet" else _terrain_bvh(), TABLES)
+    bvh = add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, TABLES)
+    mod, plain, tables, root = NEW[kernel]
     rng = np.random.default_rng(33)
     n = 20000
     lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
@@ -120,7 +127,7 @@ def test_new_traversal_kernels_match_plain(cuda, scene, kernel, anyhit):
     k = intersect_rays_soa(bvh, *args, anyhit=anyhit, kernel=kernel)
     torch.cuda.synchronize()
     assert mod.COUNTER.launches == launches + 1
-    tables = [getattr(bvh, table)] + ([bvh.tris128] if kernel != "lane" else [])
+    tables = [getattr(bvh, name) for name in tables]
     if kernel != "lane":
         tables.append(getattr(bvh, root) if root else 0)
     t, rn, tri, u, v, dropped = plain(*tables, *args, anyhit=anyhit)
@@ -146,3 +153,32 @@ def test_gather_kernel_matches_plain(cuda):
     assert tgather.COUNTER.launches == launches + 1
     assert torch.equal(out, tgather.gather_channels_plain(tab, idx))
     assert torch.equal(tgather.gather_channels(tab[2:4], idx), tab[2:4][:, idx.long()])
+
+
+@pytest.mark.parametrize("scene", ["helmet", "terrain"])
+def test_megakernel_matches_wavefront_and_plain(cuda, scene):
+    """render_mega (csrc/megakernel.cu) against render_wavefront (one
+    traverse_bvh4 launch per bounce) and against its plain version, depth
+    3: the same arithmetic in the same order, so radiance and t are equal
+    except on equal-t ties (which change neither); nothing dropped."""
+    wb = _helmet_bvh() if scene == "helmet" else _terrain_bvh()
+    rng = np.random.default_rng(34)
+    n = 20000
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    ro = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    seeds = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    packed = tmega.pack_rays(ro, rd, seeds, device=cuda)[:3]
+    tables = (torch.tensor(wb.nodes4_fi, device=cuda), torch.tensor(wb.tris128, device=cuda))
+    launches = tmega.COUNTER.launches
+    tmega.OVERFLOW.reset()
+    mega = tmega.render_mega(*tables, *packed, depth=3, root_code=wb.root4_code)
+    torch.cuda.synchronize()
+    assert tmega.COUNTER.launches == launches + 1
+    wave = tmega.render_wavefront(*tables, *packed, depth=3, root_code=wb.root4_code)
+    plain = tmega.render_mega_plain(*tables, *packed, depth=3, root_code=wb.root4_code)
+    assert tmega.OVERFLOW.total() == 0
+    assert torch.equal(mega, wave) and torch.equal(mega, plain)
+    rad = mega[:, 0].reshape(-1)[:n]
+    assert bool((rad > 0).any()) and bool((rad == 0).any())

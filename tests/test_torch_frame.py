@@ -90,7 +90,8 @@ def terrain_ref(tmp_path_factory):
 
 
 @pytest.mark.parametrize("primary,packet", [("v3", "v9"), ("v2", "v2"), ("v6", "v6"),
-                                            ("lane", "lane_stream")])
+                                            ("lane", "lane_stream"), ("v5", "v5"), ("v7", "v7"),
+                                            ("v3", "v8")])
 def test_terrain_frame_matches_jax_renderer_per_kernel(primary, packet, terrain_ref, monkeypatch):
     path, hdr, ref = terrain_ref
     monkeypatch.setenv("VKGR_PRIMARY_KERNEL", primary)
@@ -104,6 +105,8 @@ def test_terrain_frame_matches_jax_renderer_per_kernel(primary, packet, terrain_
     assert (r.dev_bvh.nodes_fi is not None) == ("bvh2" in families)
     assert (r.dev_bvh.nodes16_fi is not None) == ("bvh16" in families)
     assert (r.dev_bvh.lane_entries is not None) == ("lane" in families)
+    assert (r.dev_bvh.nodes4_sc is not None) == ("bvh4_sidecar" in families)
+    assert ("bvh4_multipop" in r.dev_bvh.stack_need) == ("bvh4_multipop" in families)
     _assert_frames_agree(ref, port)
 
 
@@ -114,8 +117,14 @@ def test_selection_change_builds_tables_and_unported_names_raise(tmp_path, monke
     monkeypatch.setenv("VKGR_PACKET_KERNEL", "v6")
     r.on_render()
     assert r.dev_bvh.nodes16_fi is not None and r.dev_bvh.nodes_fi is None
+    assert r.dev_bvh.nodes4_sc is None
     for var, value in (("VKGR_PACKET_KERNEL", "v8"), ("VKGR_PRIMARY_KERNEL", "v5"),
-                       ("VKGR_TRAVERSAL", "packet4")):
+                       ("VKGR_PRIMARY_KERNEL", "v7")):
+        with monkeypatch.context() as m:
+            m.setenv(var, value)
+            r.on_render()
+    assert r.dev_bvh.nodes4_sc is not None and "bvh4_multipop" in r.dev_bvh.stack_need
+    for var, value in (("VKGR_TRAVERSAL", "packet4"), ("VKGR_TRAVERSAL", "wavefront")):
         with monkeypatch.context() as m:
             m.setenv(var, value)
             with pytest.raises(NotImplementedError):

@@ -1,8 +1,11 @@
 """Port host layer: the numpy builders of vk_gltf_renderer_tpu_torch against
-the JAX package's (the BVH4 tables, and the BVH2 / BVH16 / lane-page tables
-of add_kernel_tables), the PNG reader/writer against Pillow, and the port's
-helmet stand-in and terrain scene against tools/baseline_standins.make_helmet
-and tools/large_scene_demo.write_large_glb.
+the JAX package's (the BVH4 tables, and the BVH2 / BVH16 / lane-page /
+sidecar tables of add_kernel_tables), the port's copies of the JAX
+package's models/, utils/mathutil.py and native/ against their originals
+(parsed scenes, material features, editor operations, matrix helpers, the
+native SAH and radix builders), the PNG reader/writer against Pillow, and
+the port's helmet stand-in and terrain scene against
+tools/baseline_standins.make_helmet and tools/large_scene_demo.write_large_glb.
 
 Every builder comparison is exact (np.array_equal, same dtype): the port's
 builders are copies of the reference's numpy code, so any difference is a
@@ -27,6 +30,14 @@ from vk_gltf_renderer_tpu.models.editor import SceneEditor  # noqa: E402
 from vk_gltf_renderer_tpu.ops import bvh_flatten as jbvh  # noqa: E402
 from vk_gltf_renderer_tpu.ops import flat as jflat  # noqa: E402
 from vk_gltf_renderer_tpu.ops import hdr as jhdr  # noqa: E402
+from vk_gltf_renderer_tpu.models import materials as jmaterials  # noqa: E402
+from vk_gltf_renderer_tpu import native as jnative  # noqa: E402
+from vk_gltf_renderer_tpu.utils import mathutil as jmu  # noqa: E402
+from vk_gltf_renderer_tpu_torch import models as tmodels  # noqa: E402
+from vk_gltf_renderer_tpu_torch import native as tnative  # noqa: E402
+from vk_gltf_renderer_tpu_torch.models import editor as teditor  # noqa: E402
+from vk_gltf_renderer_tpu_torch.models import materials as tmaterials  # noqa: E402
+from vk_gltf_renderer_tpu_torch.utils import mathutil as tmu  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import bvh_flatten as tbvh  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import flat as tflat  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import hdr as thdr  # noqa: E402
@@ -137,6 +148,8 @@ def test_kernel_tables_equal_reference(name, tmp_path):
     ref = jbvh.build_world_bvh(jflat.build_scene_flat(sc))
     port = tbvh.add_kernel_tables(tbvh.build_world_bvh(tflat.build_scene_flat(sc)),
                                   {"bvh2", "bvh16", "lane"})
+    _assert_same(ref.nodes4_sc, tbvh.add_kernel_tables(port, {"bvh4_sidecar"}).nodes4_sc,
+                 "nodes4_sc")
     _assert_same(ref.nodes16_fi, port.nodes16_fi, "nodes16_fi")
     _assert_same(ref.lane_pages, port.lane_pages, "lane_pages")
     assert port.root_code == ref.root_code
@@ -172,6 +185,18 @@ def test_stack_need_bounds_the_walk(tmp_path):
                     stack.append(int(row[6 * arity + s]))
             deepest = max(deepest, len(stack))
         assert tbvh.stack_need(table, levels, root) == deepest, levels
+    # v8's stack: the same walk with leaf children sent elsewhere
+    deepest, stack = 0, [wb.root4_code]
+    while stack:
+        row = wb.nodes4_fi[stack.pop()]
+        stack += [int(row[24 + s]) for s in range(4) if row[6 * s] < 1e38 and row[24 + s] >= 0]
+        deepest = max(deepest, len(stack))
+    assert tbvh.stack_need(wb.nodes4_fi, 2, wb.root4_code, internal_only=True) == deepest
+    # v5's pop groups of 1 are the single-pop walk
+    assert tbvh.multipop_stack_need(wb.nodes4_fi, wb.root4_code, 1) == tbvh.stack_need(
+        wb.nodes4_fi, 2, wb.root4_code)
+    assert tbvh.multipop_stack_need(wb.nodes4_fi, wb.root4_code, 4) >= tbvh.stack_need(
+        wb.nodes4_fi, 2, wb.root4_code)
 
 
 @pytest.mark.parametrize("target,grid", [(8000, 2), (40_000, 4), (1_050_000, 8)])
@@ -267,3 +292,126 @@ def test_make_helmet_standin_equals_tools_version(tmp_path):
     tb = pb.parent / "helmet_baseColor.png"
     assert np.array_equal(np.asarray(Image.open(ta)), np.asarray(Image.open(tb)))
     assert np.array_equal(read_png(ta.read_bytes()), read_png(tb.read_bytes()))
+
+
+# ------------------------------------------------- copies of the JAX package
+
+
+def _editor_ops(editor_cls, scene):
+    """The editor operations the port's scenes use (scenes.make_helmet_standin
+    and the tests' editor scene), through the given SceneEditor class."""
+    ed = editor_cls(scene)
+    ball = ed.add_primitive("sphere", segments=12, name="ball")
+    cube = ed.add_primitive("cube")
+    ed.set_translation(cube, [2.0, 0.5, -1.0])
+    ed.set_scale(cube, [0.5, 1.5, 0.5])
+    plate = ed.add_primitive("plane", name="plate")
+    ed.set_translation(plate, [0.0, -1.1, 0.0])
+    scene.model.materials.append({"pbrMetallicRoughness": {"metallicFactor": 0.6}})
+    ed.set_material(ball, 0, 0)
+    scene.parse_scene()
+    return scene
+
+
+def _scene_file(name, d):
+    if name == "helmet":
+        return make_helmet_standin(str(d))
+    if name == "terrain":
+        p = str(d / "terrain.glb")
+        write_large_glb(p, target_tris=8000, grid=2)
+        return p
+    sc = _editor(d)
+    p = str(d / "editor.gltf")
+    sc.save(p)
+    return p
+
+
+@pytest.mark.parametrize("name", ["helmet", "terrain", "editor"])
+def test_copied_models_parse_like_the_originals(name, tmp_path):
+    """One glTF file through both packages' loaders: the same JSON, buffers,
+    render nodes, render primitives, materials and scene features."""
+    path = _scene_file(name, tmp_path)
+    ref, port = Scene(), tmodels.Scene()
+    ref.load(path)
+    port.load(path)
+    assert port.model.gltf == ref.model.gltf
+    assert [bytes(b) for b in port.model.buffers] == [bytes(b) for b in ref.model.buffers]
+    assert len(port.render_nodes) == len(ref.render_nodes) > 0
+    for a, b in zip(ref.render_nodes, port.render_nodes):
+        assert (a.material_id, a.render_prim_id, a.ref_node_id, a.skin_id, a.visible) == (
+            b.material_id, b.render_prim_id, b.ref_node_id, b.skin_id, b.visible)
+        _assert_same(a.world_matrix, b.world_matrix, "world_matrix")
+    assert [(p.mesh_id, p.prim_index, p.vertex_count, p.index_count) for p in ref.render_primitives] == [
+        (p.mesh_id, p.prim_index, p.vertex_count, p.index_count) for p in port.render_primitives]
+    lo_r, hi_r = ref.scene_bounds()
+    lo_p, hi_p = port.scene_bounds()
+    _assert_same(lo_r, lo_p, "bounds lo")
+    _assert_same(hi_r, hi_p, "bounds hi")
+    assert tmaterials.detect_scene_features(port.model) == jmaterials.detect_scene_features(ref.model)
+    for a, b in zip(jmaterials.MaterialConverter(ref.model).convert_all(),
+                    tmaterials.MaterialConverter(port.model).convert_all()):
+        for f in dataclasses.fields(a):
+            _assert_same(np.asarray(getattr(a, f.name)), np.asarray(getattr(b, f.name)), f.name)
+
+
+def test_copied_editor_matches_the_original(tmp_path):
+    ref = _editor_ops(SceneEditor, baseline_standins._empty_scene())
+    port = tmodels.Scene()
+    port.load_from_model(tmodels.gltf.load_model_from_json(
+        {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": []}]}, []))
+    port = _editor_ops(teditor.SceneEditor, port)
+    assert port.model.gltf == ref.model.gltf
+    assert [bytes(b) for b in port.model.buffers] == [bytes(b) for b in ref.model.buffers]
+    ref.save(tmp_path / "ref.gltf")
+    port.save(tmp_path / "port.gltf")
+    assert (tmp_path / "ref.gltf").read_text() == (tmp_path / "port.gltf").read_text()
+
+
+def test_copied_mathutil_matches_the_original():
+    rng = np.random.default_rng(3)
+    for _ in range(20):
+        t = rng.normal(size=3).astype(np.float32)
+        q = rng.normal(size=4)
+        q = (q / np.linalg.norm(q)).astype(np.float32)
+        sc = rng.uniform(0.1, 3.0, size=3).astype(np.float32)
+        node = {"translation": t.tolist(), "rotation": q.tolist(), "scale": sc.tolist()}
+        m = jmu.trs_matrix(t, q, sc)
+        pts = rng.normal(size=(7, 3)).astype(np.float32)
+        eye, center = rng.normal(size=3), rng.normal(size=3)
+        fov, aspect = rng.uniform(0.2, 2.0), rng.uniform(0.5, 2.5)
+        for fn, args in (("trs_matrix", (t, q, sc)), ("quat_to_matrix", (q,)),
+                         ("matrix_to_trs", (m,)), ("rotmat_to_quat", (m[:3, :3],)),
+                         ("node_local_matrix", (node,)), ("node_local_matrix", ({"matrix": m.T.reshape(-1).tolist()},)),
+                         ("perspective", (fov, aspect, 0.01, 100.0)),
+                         ("orthographic", (aspect, 1.0, 0.01, 100.0)),
+                         ("look_at", (eye, center, np.array([0.0, 1.0, 0.0]))),
+                         ("transform_points", (m, pts)), ("transform_dirs", (m, pts))):
+            a, b = getattr(jmu, fn)(*args), getattr(tmu, fn)(*args)
+            for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+                _assert_same(np.asarray(x), np.asarray(y), fn)
+
+
+@pytest.mark.parametrize("name", ["helmet", "terrain", "editor"])
+def test_copied_native_builders_match_the_originals(name, tmp_path):
+    """The port's native/ (built into the repository's build/native/) gives
+    the original's SAH tree and Morton radix tree exactly."""
+    sc = SCENES[name](tmp_path)
+    flat = tflat.build_scene_flat(sc)
+    v, tri = flat.vtx_pos, flat.tri_idx
+    tlo = np.minimum(np.minimum(v[tri[:, 0]], v[tri[:, 1]]), v[tri[:, 2]])
+    thi = np.maximum(np.maximum(v[tri[:, 0]], v[tri[:, 1]]), v[tri[:, 2]])
+    cen = (tlo + thi) * 0.5
+    ref_sah = jnative.build_sah_native(tlo, thi, cen, 8)
+    port_sah = tnative.build_sah_native(tlo, thi, cen, 8)
+    assert ref_sah is not None and port_sah is not None
+    perm, nodes_i, nodes_f, nodes_self = port_sah
+    _assert_same(ref_sah[0], perm, "perm")
+    inner = ref_sah[1][:, 3] == 0  # a leaf's child slots are never written
+    _assert_same(ref_sah[1][:, 2:6], nodes_i[:, 2:6], "nodes_i")
+    _assert_same(ref_sah[1][inner, 0:2], nodes_i[inner, 0:2], "nodes_i children")
+    _assert_same(ref_sah[2], nodes_f, "nodes_f")
+    _assert_same(ref_sah[3][:, :6], nodes_self[:, :6], "nodes_self")
+    for a, b in zip(jnative.build_radix_tree_native(tlo, thi, cen),
+                    tnative.build_radix_tree_native(tlo, thi, cen)):
+        _assert_same(a, b, "radix tree")
+    assert tnative._CACHE == ROOT / "build" / "native"

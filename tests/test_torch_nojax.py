@@ -1,8 +1,9 @@
-"""The port runs where there is no JAX: a subprocess blocks `import jax`,
-imports every module of the port, builds the helmet stand-in with the
-port's own writer and renders a frame on the CPU, then renders the terrain
-grid under every traversal-kernel selection; and no source file of the
-port imports jax."""
+"""The port runs where there is neither JAX nor the JAX package: a
+subprocess blocks `import jax` and `import vk_gltf_renderer_tpu`, imports
+every module of the port, builds the helmet stand-in with the port's own
+writer and renders a frame on the CPU, renders the terrain grid under
+every traversal-kernel selection and runs a small megakernel render; and
+no source file of the port or chip_smoke.py imports either."""
 
 import os
 import re
@@ -15,7 +16,9 @@ ROOT = Path(__file__).resolve().parent.parent
 _SCRIPT = r"""
 import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["vk_gltf_renderer_tpu"] = None  # and so does the JAX package
 import numpy as np
+import torch
 import vk_gltf_renderer_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
@@ -32,7 +35,8 @@ with tempfile.TemporaryDirectory() as d:
     r.save_image(d + "/out.png")
     write_large_glb(d + "/terrain.glb", target_tris=8000, grid=2)
     images = []
-    for primary, packet in (("v3", "v9"), ("v2", "v2"), ("v6", "v6"), ("lane", "lane_stream")):
+    for primary, packet in (("v3", "v9"), ("v2", "v2"), ("v6", "v6"), ("lane", "lane_stream"),
+                            ("v5", "v8"), ("v7", "v7")):
         os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = primary, packet
         r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
         r.create_scene(d + "/terrain.glb")
@@ -40,13 +44,27 @@ with tempfile.TemporaryDirectory() as d:
         images.append(r.image_linear())
     assert all(np.isfinite(i).all() and i.mean() > 0.01 for i in images)
     assert all(np.allclose(i, images[0], rtol=1e-3, atol=1e-3) for i in images)
-assert not any(m == "jax" or m.startswith("jax.") for m, v in sys.modules.items() if v is not None)
+    from vk_gltf_renderer_tpu_torch.ops.megakernel import pack_rays, render_mega
+    rng = np.random.default_rng(0)
+    lo, hi = r.bvh.nodes_self[0, 0:3], r.bvh.nodes_self[0, 3:6]
+    ro = lo + rng.random((300, 3)) * (hi - lo)
+    rd = rng.normal(size=(300, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    ro_p, rd_p, seeds, n = pack_rays(ro, rd, rng.integers(0, 2**32, 300, dtype=np.uint64))
+    out = render_mega(r.dev_bvh.nodes4_fi, r.dev_bvh.tris128, ro_p, rd_p, seeds, 3,
+                      r.dev_bvh.root4_code)
+    assert out.shape == (1, 2, 8, 128) and bool(torch.isfinite(out).all())
+    assert bool((out[:, 0].reshape(-1)[:n] > 0).any())
+blocked = ("jax", "vk_gltf_renderer_tpu")
+assert not any(m.split(".")[0] in blocked for m, v in sys.modules.items() if v is not None)
 print("NOJAX_OK")
 """
 
 
 def test_port_renders_with_jax_blocked():
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    # JAX_PLATFORMS stays set: it made the JAX package import jax, which the
+    # port no longer reaches
+    env = dict(os.environ, JAX_PLATFORMS=os.environ.get("JAX_PLATFORMS", "cpu"))
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=str(ROOT), env=env,
                           capture_output=True, text=True, timeout=300)
@@ -55,7 +73,11 @@ def test_port_renders_with_jax_blocked():
 
 
 def test_no_port_source_imports_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu)\b(?!_torch)", re.M)
     files = list((ROOT / "vk_gltf_renderer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
+    # the scan itself sees both kinds of import
+    assert pattern.search("import jax.numpy as jnp") and pattern.search(
+        "    from vk_gltf_renderer_tpu.models import Scene")
+    assert not pattern.search("from vk_gltf_renderer_tpu_torch.models import Scene")

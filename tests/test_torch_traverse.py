@@ -1,9 +1,12 @@
 """Port traversal: the plain traversals (the CUDA kernels' plain torch
 versions) against the reference's Pallas kernels in interpret mode (v3 =
 traverse_packets3, v9 = traverse_packets9, v2 = traverse_packets2, v6 =
-traverse_packets6, lane / lane_stream = traverse_lanes / _stream) and
-against both brute-force oracles, closest hit and any hit (as
-tests/test_bvh.py does for the reference's own kernels).
+traverse_packets6, lane / lane_stream = traverse_lanes / _stream, v5 =
+traverse_packets5, v7 = traverse_packets3 with its sidecar, v8 =
+traverse_packets8) and against both brute-force oracles, closest hit and
+any hit (as tests/test_bvh.py does for the reference's own kernels). The
+v5 and v8 plain versions follow their kernels' schedules (pop groups; the
+leaf queue and its gate), so these cases run that control flow.
 
 Tolerances: the kernels share the arithmetic exactly, so t/u/v agree to
 float32 rounding (1e-5); ids agree except where two triangles hit at the
@@ -35,20 +38,24 @@ from vk_gltf_renderer_tpu.ops.bvh_flatten import build_world_bvh  # noqa: E402
 from vk_gltf_renderer_tpu.ops.flat import build_scene_flat  # noqa: E402
 from vk_gltf_renderer_tpu.ops.pallas_traverse import intersect_rays_packet_soa  # noqa: E402
 from vk_gltf_renderer_tpu.ops.traverse import as_device, intersect_brute  # noqa: E402
-from vk_gltf_renderer_tpu_torch.convert import from_reference  # noqa: E402
+from vk_gltf_renderer_tpu_torch.convert import add_kernel_tables_to_device, from_reference  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import bvh_flatten as tbvh  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse as ttrav  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_leafqueue as tblq  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_sidecar as tbsc  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_soa  # noqa: E402
 
 INF = 1e30
-NEW_KERNELS = ["v2", "v6", "lane", "lane_stream"]
-WRAPPERS = {"v2": tb2, "v3": tb4, "v6": tb16, "lane": tlane}
+BVH4_VARIANTS = ["v5", "v7", "v8"]
+NEW_KERNELS = ["v2", "v6", "lane", "lane_stream"] + BVH4_VARIANTS
+WRAPPERS = {"v2": tb2, "v3": tb4, "v6": tb16, "lane": tlane, "v5": tbmp, "v7": tbsc, "v8": tblq}
 
 
 def _editor_scene():
@@ -100,18 +107,22 @@ def _aimed_rays(wb, n, seed):
 @pytest.fixture(scope="module")
 def editor():
     sc = _editor_scene()
-    flat = build_scene_flat(sc)
-    wb = build_world_bvh(flat)
+    flat, wb, bvh_t = _build(sc)
     assert wb.nodes4_fi.shape[0] > 2  # a real multi-level BVH4
-    _, bvh_t, _ = from_reference(None, wb, None, "cpu")
     return flat, wb, bvh_t
+
+
+def _to_port(wb):
+    """The reference's WorldBvh on the port's CPU device, with the v5
+    walk's stack need (the reference's tables already carry nodes4_sc)."""
+    _, bvh_t, _ = from_reference(None, wb, None, "cpu")
+    return add_kernel_tables_to_device(bvh_t, wb, "cpu", {"bvh4_multipop"})
 
 
 def _build(sc):
     flat = build_scene_flat(sc)
     wb = build_world_bvh(flat)
-    _, bvh_t, _ = from_reference(None, wb, None, "cpu")
-    return flat, wb, bvh_t
+    return flat, wb, _to_port(wb)
 
 
 @pytest.fixture(scope="module")
@@ -137,10 +148,7 @@ def few():
 def helmet(tmp_path_factory):
     sc = Scene()
     sc.load(baseline_standins.make_helmet(str(tmp_path_factory.mktemp("helmet"))))
-    flat = build_scene_flat(sc)
-    wb = build_world_bvh(flat)
-    _, bvh_t, _ = from_reference(None, wb, None, "cpu")
-    return flat, wb, bvh_t
+    return _build(sc)
 
 
 def _port(bvh_t, ro, rd, tmax, anyhit=False, kernel="v3"):
@@ -255,11 +263,11 @@ def test_wrapper_refuses_other_devices(editor):
 
 
 @pytest.mark.parametrize("scene", ["terrain", "few"])
-@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"])
+@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"] + BVH4_VARIANTS)
 def test_new_kernels_match_packet_kernel_on_terrain_and_leaf_root(scene, kernel, request):
-    """Closest and any hit of BVH2, BVH16 and the lane walk against the
-    reference's kernel of the same name on the terrain grid and on the
-    root-is-leaf scene.
+    """Closest and any hit of BVH2, BVH16, the lane walk and the BVH4
+    variants v5, v7 and v8 against the reference's kernel of the same name
+    on the terrain grid and on the root-is-leaf scene.
 
     u/v tolerance 3e-5 on the terrain: its triangles are ~0.011 units
     across, so u and v (ratios of products of edge components) carry ~100x
@@ -281,7 +289,7 @@ def test_new_kernels_match_packet_kernel_on_terrain_and_leaf_root(scene, kernel,
 
 
 @pytest.mark.parametrize("scene", ["editor", "terrain", "few"])
-@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"])
+@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"] + BVH4_VARIANTS)
 def test_new_kernels_match_brute_oracle(scene, kernel, request):
     flat, wb, bvh_t = request.getfixturevalue(scene)
     ro, rd, tmax = _aimed_rays(wb, 256, seed=17)
@@ -305,31 +313,40 @@ def test_no_overflow_in_any_kernel(scene, request):
     _, wb, bvh_t = request.getfixturevalue(scene)
     from vk_gltf_renderer_tpu_torch.ops.intersect import STACK_CAPACITY
 
-    assert set(bvh_t.stack_need) == {"bvh2", "bvh4", "bvh16"}
+    assert set(bvh_t.stack_need) == set(STACK_CAPACITY)
     for family, need in bvh_t.stack_need.items():
         assert 1 <= need <= STACK_CAPACITY[family], (family, need)
+    # v8's stack holds internal codes only; v5's pop groups need more
+    assert bvh_t.stack_need["bvh4_leafqueue"] <= bvh_t.stack_need["bvh4"]
+    assert bvh_t.stack_need["bvh4_multipop"] >= bvh_t.stack_need["bvh4"]
     ro, rd, tmax = _aimed_rays(wb, 1024, seed=18)
     for mod in WRAPPERS.values():
         mod.OVERFLOW.reset()
-    for kernel in ("v2", "v3", "v6", "lane"):
+    for kernel in WRAPPERS:
         _port(bvh_t, ro, rd, tmax, kernel=kernel)
         _port(bvh_t, ro, rd, np.where(tmax > 0, np.float32(1.0), tmax), anyhit=True, kernel=kernel)
     assert {k: m.OVERFLOW.total() for k, m in WRAPPERS.items()} == {k: 0 for k in WRAPPERS}
 
 
-@pytest.mark.parametrize("kernel", ["v2", "v6"])
+@pytest.mark.parametrize("kernel", ["v2", "v6", "v5", "v7", "v8"])
 def test_stack_overflow_is_counted_per_arity(editor, kernel):
     """A stack too shallow for the tree drops pushes and counts them."""
     _, wb, bvh_t = editor
     ro, rd, tmax = _rays(wb, 256, seed=15)
-    name = {"v2": "STACK_DEPTH2", "v6": "STACK_DEPTH16"}[kernel]
+    name = {"v2": "STACK_DEPTH2", "v6": "STACK_DEPTH16", "v5": "STACK_DEPTH_MULTIPOP",
+            "v7": "STACK_DEPTH", "v8": "STACK_DEPTH"}[kernel]
     full = getattr(ttrav, name)
-    table = bvh_t.nodes_fi if kernel == "v2" else bvh_t.nodes16_fi
-    root = bvh_t.root_code if kernel == "v2" else 0
-    plain = ttrav.traverse_bvh2_plain if kernel == "v2" else ttrav.traverse_bvh16_plain
+    tables = {"v2": (bvh_t.nodes_fi, bvh_t.tris128, bvh_t.root_code),
+              "v6": (bvh_t.nodes16_fi, bvh_t.tris128, 0),
+              "v5": (bvh_t.nodes4_fi, bvh_t.tris128, bvh_t.root4_code),
+              "v7": (bvh_t.nodes4_fi, bvh_t.nodes4_sc, bvh_t.tris128, bvh_t.root4_code),
+              "v8": (bvh_t.nodes4_fi, bvh_t.tris128, bvh_t.root4_code)}[kernel]
+    plain = {"v2": ttrav.traverse_bvh2_plain, "v6": ttrav.traverse_bvh16_plain,
+             "v5": ttrav.traverse_bvh4_multipop_plain, "v7": ttrav.traverse_bvh4_sidecar_plain,
+             "v8": ttrav.traverse_bvh4_leafqueue_plain}[kernel]
     try:
         setattr(ttrav, name, 2)
-        *_, dropped = plain(table, bvh_t.tris128, root,
+        *_, dropped = plain(*tables,
                             *(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)),
                             torch.zeros(256), torch.tensor(tmax))
     finally:
@@ -350,15 +367,67 @@ def test_lane_walk_counts_links_that_do_not_advance(editor):
     assert bad > 0
 
 
-@pytest.mark.parametrize("kernel", ["v5", "v7", "v8"])
-def test_unported_kernels_raise(editor, kernel):
-    _, wb, bvh_t = editor
-    ro, rd, tmax = _rays(wb, 8, seed=20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(bvh_t, ro, rd, tmax, kernel=kernel)
+@pytest.mark.parametrize("scene", ["editor", "terrain"])
+def test_leaf_queue_gate_engages_and_drops_nothing(scene, request):
+    """A v8 queue shrunk to 5 entries makes the producer gate pause the
+    internal pops; nothing is dropped and every hit equals the BVH4
+    walk's. A queue of 4 could not take one internal visit and is refused."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    ro, rd, tmax = _aimed_rays(wb, 512, seed=22)
+    rays = (*(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)), torch.zeros(512),
+            torch.tensor(tmax))
+    tables = (bvh_t.nodes4_fi, bvh_t.tris128, bvh_t.root4_code)
+    ref = ttrav.traverse_bvh4_plain(*tables, *rays)
+    full = ttrav.LEAF_QUEUE
+    stats = {}
+    try:
+        ttrav.LEAF_QUEUE = 5
+        out = ttrav.traverse_bvh4_leafqueue_plain(*tables, *rays, stats=stats)
+        ttrav.LEAF_QUEUE = 4
+        with pytest.raises(ValueError, match="leaf queue"):
+            ttrav.traverse_bvh4_leafqueue_plain(*tables, *rays)
+    finally:
+        ttrav.LEAF_QUEUE = full
+    assert stats["gated"] > 0 and out[5] == 0
+    assert int((ref[2] >= 0).sum()) > 50
+    assert torch.equal(out[2], ref[2]) and torch.equal(out[0], ref[0])
+
+
+@pytest.mark.parametrize("kernel", BVH4_VARIANTS)
+def test_bvh4_variants_are_routed(editor, kernel):
+    """v5, v7 and v8 pass the renderer's check and read their own family."""
+    from vk_gltf_renderer_tpu_torch.ops.intersect import ROUTES
+
     for cfg in (RenderConfig(primary_kernel=kernel), RenderConfig(packet_kernel=kernel)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cfg.check_supported()
+        cfg.check_supported()
+        assert ROUTES[kernel] in cfg.kernel_tables()
+    assert len({ROUTES[k] for k in ("v3", *BVH4_VARIANTS)}) == 4
+
+
+def test_visit_counts(editor):
+    """The plain walks' visit counters: every walk of one tree touches
+    rows of it, v5 and v8 visit what the BVH4 walk visits or more, and
+    the counts add up over calls."""
+    _, wb, bvh_t = editor
+    ro, rd, tmax = _aimed_rays(wb, 256, seed=23)
+    rays = (*(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)), torch.zeros(256),
+            torch.tensor(tmax))
+    tables = (bvh_t.nodes4_fi, bvh_t.tris128, bvh_t.root4_code)
+    counts = {}
+    for name, plain in (("v3", ttrav.traverse_bvh4_plain), ("v5", ttrav.traverse_bvh4_multipop_plain),
+                        ("v8", ttrav.traverse_bvh4_leafqueue_plain)):
+        stats = {}
+        plain(*tables, *rays, stats=stats)
+        assert 0 < int(stats["node_rows"].sum()) <= bvh_t.nodes4_fi.shape[0]
+        assert 0 < int(stats["leaf_rows"].sum()) <= bvh_t.tris128.shape[0]
+        assert stats["tris"] >= stats["leaf"] > 0
+        counts[name] = stats["internal"] + stats["leaf"]
+        plain(*tables, *rays, stats=stats)
+        assert stats["internal"] + stats["leaf"] == 2 * counts[name]
+    assert counts["v5"] >= counts["v3"] and counts["v8"] >= counts["v3"]
+    lanes = {}
+    ttrav.traverse_lanes_plain(bvh_t.lane_entries, *rays, stats=lanes)
+    assert lanes["entries"] >= int(lanes["entry_rows"].sum()) > 0
 
 
 @pytest.mark.parametrize("traversal", ["packet4", "wavefront"])
@@ -374,17 +443,24 @@ def test_unknown_kernel_and_missing_table_raise(editor, few):
         _port(bvh_t, ro, rd, tmax, kernel="v4")
     _, bare, _ = from_reference(None, tbvh.build_world_bvh(few[0]), None, "cpu")
     assert bare.nodes_fi is None and bare.nodes16_fi is None and bare.lane_entries is None
-    for kernel in ("v2", "v6", "lane"):
+    assert bare.nodes4_sc is None and "bvh4_multipop" not in bare.stack_need
+    for kernel in ("v2", "v6", "lane", "v5", "v7"):
         with pytest.raises(ValueError, match="add_kernel_tables"):
             _port(bare, ro, rd, tmax, kernel=kernel)
 
 
-@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"])
+@pytest.mark.parametrize("kernel", ["v2", "v6", "lane"] + BVH4_VARIANTS)
 def test_new_wrappers_refuse_other_devices(editor, kernel):
     _, _, bvh_t = editor
     rays = [torch.zeros(8, device="meta") for _ in range(8)]
     with pytest.raises(ValueError):
-        if kernel == "v2":
+        if kernel == "v5":
+            tbmp.traverse_bvh4_multipop(bvh_t.nodes4_fi, bvh_t.tris128, 0, *rays)
+        elif kernel == "v7":
+            tbsc.traverse_bvh4_sidecar(bvh_t.nodes4_fi, bvh_t.nodes4_sc, bvh_t.tris128, 0, *rays)
+        elif kernel == "v8":
+            tblq.traverse_bvh4_leafqueue(bvh_t.nodes4_fi, bvh_t.tris128, 0, *rays)
+        elif kernel == "v2":
             tb2.traverse_bvh2(bvh_t.nodes_fi, bvh_t.tris128, 0, *rays)
         elif kernel == "v6":
             tb16.traverse_bvh16(bvh_t.nodes16_fi, bvh_t.tris128, *rays)

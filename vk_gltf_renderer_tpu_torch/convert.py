@@ -14,10 +14,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .ops.bvh_flatten import stack_need
+from .ops.bvh_flatten import multipop_stack_need, stack_need
 from .ops.hdr import HdrEnv
 from .ops.lane_traverse import lane_entries
 from .ops.sky import SkyEnv
+from .ops.traverse import MULTIPOP
 
 
 @dataclass
@@ -54,8 +55,10 @@ class DeviceBvh:
     root_code: int = 0  # binary root code
     nodes16_fi: torch.Tensor | None = None  # [M,128] f32 BVH16 rows
     lane_entries: torch.Tensor | None = None  # [E,16] f32 entry-major lane entries
-    # deepest traversal stack each present row table can need
-    # (bvh_flatten.stack_need), checked against the kernels' capacity
+    nodes4_sc: torch.Tensor | None = None  # [M,8] i32 BVH4 codes + axes (v7)
+    # deepest traversal stack each walk over a present table can need, by
+    # table family (ops/intersect.ROUTES; bvh_flatten.stack_need and
+    # multipop_stack_need), checked against the kernels' capacity
     stack_need: dict = field(default_factory=dict)
 
 
@@ -92,16 +95,26 @@ def bvh_to_device(bvh, device) -> DeviceBvh:
         scene_hi=_t(root[3:6], f32, device),
         root4_code=int(bvh.root4_code),
         num_world_tris=int(bvh.num_world_tris),
-        stack_need={"bvh4": stack_need(bvh.nodes4_fi, 2, int(bvh.root4_code))},
+        stack_need={"bvh4": stack_need(bvh.nodes4_fi, 2, int(bvh.root4_code)),
+                    "bvh4_leafqueue": stack_need(bvh.nodes4_fi, 2, int(bvh.root4_code),
+                                                 internal_only=True)},
     )
     return add_kernel_tables_to_device(dev, bvh, device)
 
 
-def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device) -> DeviceBvh:
+def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> DeviceBvh:
     """Copy to the device every optional kernel table the host BVH has and
     dev lacks (nodes_fi + root_code, nodes16_fi, lane_pages as entry-major
-    lane_entries). Returns dev."""
+    lane_entries, nodes4_sc), and work out the v5 walk's stack need when
+    `families` names "bvh4_multipop" (a Python walk of the whole tree, so
+    only on request). Returns dev."""
     f32 = np.float32
+    if getattr(bvh, "nodes4_sc", None) is not None and dev.nodes4_sc is None:
+        dev.nodes4_sc = _t(bvh.nodes4_sc, np.int32, device)
+        dev.stack_need["bvh4_sidecar"] = dev.stack_need["bvh4"]
+    if "bvh4_multipop" in families and "bvh4_multipop" not in dev.stack_need:
+        dev.stack_need["bvh4_multipop"] = multipop_stack_need(bvh.nodes4_fi, dev.root4_code,
+                                                              MULTIPOP)
     if getattr(bvh, "nodes_fi", None) is not None and dev.nodes_fi is None:
         dev.nodes_fi = _t(bvh.nodes_fi, f32, device)
         dev.root_code = int(bvh.root_code)

@@ -1,7 +1,8 @@
 // Per-ray traversal of the fused BVH row tables, one ray per thread: the
-// arity-templated walk behind traverse_bvh2.cu, traverse_bvh4.cu and
-// traverse_bvh16.cu, plus the ray/box and ray/triangle tests that
-// traverse_lanes.cu shares.
+// arity-templated walk behind traverse_bvh2.cu, traverse_bvh4.cu,
+// traverse_bvh16.cu and traverse_bvh4_sidecar.cu (walk), the node
+// expansion the v5 and v8 schedules reuse (expand_node), plus the ray/box
+// and ray/triangle tests that traverse_lanes.cu and megakernel.cu share.
 //
 // Row layout of an arity-A table (A = 2^L children per node, 8*A floats
 // per row; nodes_fi L=1, nodes4_fi L=2, nodes16_fi L=4):
@@ -14,6 +15,8 @@
 //   cols 7A : 8A-1   the A-1 split axes of the collapsed binary subtree in
 //                    level order (index (1 << depth) - 1 + path)
 //   col  8A-1        pad
+// nodes4_sc [M,8] i32 (v7 only): cols 0:4 the BVH4 row's child codes, 4:7
+// its split axes, as int32; the walk then reads only the boxes of the row.
 // tris128 [L,128]: 8 triangles x 16 floats per leaf row (v0 v1 v2, pad,
 // render node id at col 9, global triangle id at col 10).
 //
@@ -69,6 +72,25 @@ struct Ray {
   bool sx, sy, sz;
 };
 
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, float dy, float dz,
+                                        float tmin) {
+  Ray r;
+  r.ox = ox;
+  r.oy = oy;
+  r.oz = oz;
+  r.dx = dx;
+  r.dy = dy;
+  r.dz = dz;
+  r.ix = inv_dir(dx);
+  r.iy = inv_dir(dy);
+  r.iz = inv_dir(dz);
+  r.sx = dx >= 0.0f;
+  r.sy = dy >= 0.0f;
+  r.sz = dz >= 0.0f;
+  r.tmin = tmin;
+  return r;
+}
+
 __device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ rox,
                                         const float* __restrict__ roy,
                                         const float* __restrict__ roz,
@@ -76,21 +98,7 @@ __device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ rox,
                                         const float* __restrict__ rdy,
                                         const float* __restrict__ rdz,
                                         const float* __restrict__ tmin) {
-  Ray r;
-  r.ox = rox[i];
-  r.oy = roy[i];
-  r.oz = roz[i];
-  r.dx = rdx[i];
-  r.dy = rdy[i];
-  r.dz = rdz[i];
-  r.ix = inv_dir(r.dx);
-  r.iy = inv_dir(r.dy);
-  r.iz = inv_dir(r.dz);
-  r.sx = r.dx >= 0.0f;
-  r.sy = r.dy >= 0.0f;
-  r.sz = r.dz >= 0.0f;
-  r.tmin = tmin[i];
-  return r;
+  return make_ray(rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i], tmin[i]);
 }
 
 // Best hit so far. t is the best t (tmax while nothing is accepted, -1
@@ -161,88 +169,150 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ tris128, int
   return false;
 }
 
-template <int kLevels, int kStack>
-__global__ void __launch_bounds__(kBlock)
-traverse_bvh_kernel(const float* __restrict__ nodes, const float* __restrict__ tris128,
-                    int root_code, const float* __restrict__ rox, const float* __restrict__ roy,
-                    const float* __restrict__ roz, const float* __restrict__ rdx,
-                    const float* __restrict__ rdy, const float* __restrict__ rdz,
-                    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
-                    int anyhit, float* __restrict__ out_t, int* __restrict__ out_rnode,
-                    int* __restrict__ out_tri, float* __restrict__ out_u,
-                    float* __restrict__ out_v, unsigned int* __restrict__ overflow) {
+// Hint that a row will be read soon: one prefetch per 128-byte line into
+// L1, no register written, nothing waited on (the v5 and v8 schedules).
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+// Prefetch the lines of a leaf row that its triangle count will read
+// (2 triangles of 64 bytes per line).
+__device__ __forceinline__ void prefetch_leaf(const float* __restrict__ tris128, int e) {
+  const int code = -e - 1;
+  const int row = code / 16;
+  const int cnt = code - row * 16;
+  const float* base = tris128 + static_cast<size_t>(row) * 128;
+  for (int l = 0; l < (cnt + 1) / 2; ++l) prefetch_l1(base + 32 * l);
+}
+
+// One visit of the internal row e: the slab tests of its children against
+// t_best and, far first, push(code) for each child whose box the ray
+// enters (so the nearest is pushed last and popped next). With kSidecar
+// the child codes and split axes come from nodes4_sc instead of the row.
+template <int kLevels, bool kSidecar, typename Push>
+__device__ __forceinline__ void expand_node(const float* __restrict__ nodes,
+                                            const int* __restrict__ sidecar, int e, const Ray& r,
+                                            float t_best, Push&& push) {
   constexpr int kArity = 1 << kLevels;
   constexpr int kRow = 8 * kArity;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  static_assert(!kSidecar || kLevels == 2, "the sidecar describes BVH4 rows");
+  const float* row = nodes + static_cast<size_t>(e) * kRow;
+  unsigned int hitmask = 0;
+#pragma unroll
+  for (int s = 0; s < kArity; ++s) {
+    // a box starts at 6*s floats: 8-byte aligned, three 8-byte loads
+    const float2* bp = reinterpret_cast<const float2*>(row + 6 * s);
+    const float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+    if (slab(b0.x, b0.y, b1.x, b1.y, b2.x, b2.y, r, t_best)) hitmask |= 1u << s;
+  }
+  if (!hitmask) return;
+  unsigned int flip = 0;  // bit k: the right side of split k is nearer
+  int4 sc_codes = make_int4(0, 0, 0, 0);
+  if constexpr (kSidecar) {
+    const int4* sc = reinterpret_cast<const int4*>(sidecar + static_cast<size_t>(e) * 8);
+    sc_codes = __ldg(sc);
+    const int4 a = __ldg(sc + 1);
+    if (!axis_sign(static_cast<float>(a.x), r.sx, r.sy, r.sz)) flip |= 1u;
+    if (!axis_sign(static_cast<float>(a.y), r.sx, r.sy, r.sz)) flip |= 2u;
+    if (!axis_sign(static_cast<float>(a.z), r.sx, r.sy, r.sz)) flip |= 4u;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kArity - 1; ++k) {
+      if (!axis_sign(__ldg(row + 7 * kArity + k), r.sx, r.sy, r.sz)) flip |= 1u << k;
+    }
+  }
+  // visit position p -> child slot, level by level; push far first
+#pragma unroll
+  for (int p = kArity - 1; p >= 0; --p) {
+    int path = 0;
+#pragma unroll
+    for (int d = 0; d < kLevels; ++d) {
+      const int bit = (p >> (kLevels - 1 - d)) & 1;
+      path = path * 2 + (bit ^ static_cast<int>((flip >> ((1 << d) - 1 + path)) & 1u));
+    }
+    if ((hitmask >> path) & 1u) {
+      if constexpr (kSidecar) {
+        push(path == 0 ? sc_codes.x : path == 1 ? sc_codes.y : path == 2 ? sc_codes.z : sc_codes.w);
+      } else {
+        push(static_cast<int>(__ldg(row + 6 * kArity + path)));
+      }
+    }
+  }
+}
 
-  const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
-  Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
-  unsigned int dropped = 0;
-
+// The whole walk of one ray from root_code with a kStack-entry stack;
+// returns the best hit (t = tmax where nothing was accepted, -1 after an
+// any-hit). Dropped pushes are added to `dropped`.
+template <int kLevels, int kStack, bool kSidecar>
+__device__ __forceinline__ Hit walk(const float* __restrict__ nodes,
+                                    const int* __restrict__ sidecar,
+                                    const float* __restrict__ tris128, int root_code, const Ray& r,
+                                    float tmax, bool anyhit, unsigned int& dropped) {
+  Hit h{tmax, -1.0f, -1.0f, 0.0f, 0.0f};
   int stack[kStack];
   stack[0] = root_code;
   int sp = 1;
-
   while (sp > 0) {
     const int e = stack[--sp];
     if (e < 0) {
       if (test_leaf(tris128, e, r, anyhit, h)) break;
       continue;
     }
-    const float* row = nodes + static_cast<size_t>(e) * kRow;
-    unsigned int hitmask = 0;
-#pragma unroll
-    for (int s = 0; s < kArity; ++s) {
-      // a box starts at 6*s floats: 8-byte aligned, three 8-byte loads
-      const float2* bp = reinterpret_cast<const float2*>(row + 6 * s);
-      const float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
-      if (slab(b0.x, b0.y, b1.x, b1.y, b2.x, b2.y, r, h.t)) hitmask |= 1u << s;
-    }
-    if (!hitmask) continue;
-    unsigned int flip = 0;  // bit k: the right side of split k is nearer
-#pragma unroll
-    for (int k = 0; k < kArity - 1; ++k) {
-      if (!axis_sign(__ldg(row + 7 * kArity + k), r.sx, r.sy, r.sz)) flip |= 1u << k;
-    }
-    // visit position p -> child slot, level by level; push far first
-#pragma unroll
-    for (int p = kArity - 1; p >= 0; --p) {
-      int path = 0;
-#pragma unroll
-      for (int d = 0; d < kLevels; ++d) {
-        const int bit = (p >> (kLevels - 1 - d)) & 1;
-        path = path * 2 + (bit ^ static_cast<int>((flip >> ((1 << d) - 1 + path)) & 1u));
+    expand_node<kLevels, kSidecar>(nodes, sidecar, e, r, h.t, [&](int code) {
+      if (sp < kStack) {
+        stack[sp++] = code;
+      } else {
+        ++dropped;
       }
-      if ((hitmask >> path) & 1u) {
-        if (sp < kStack) {
-          stack[sp++] = static_cast<int>(__ldg(row + 6 * kArity + path));
-        } else {
-          ++dropped;
-        }
-      }
-    }
+    });
   }
+  return h;
+}
 
+__device__ __forceinline__ void store_hit(int i, const Hit& h, float* __restrict__ out_t,
+                                          int* __restrict__ out_rnode, int* __restrict__ out_tri,
+                                          float* __restrict__ out_u, float* __restrict__ out_v) {
   out_t[i] = h.t;
   out_rnode[i] = static_cast<int>(h.rn);
   out_tri[i] = static_cast<int>(h.tri);
   out_u[i] = h.u;
   out_v[i] = h.v;
+}
+
+template <int kLevels, int kStack, bool kSidecar>
+__global__ void __launch_bounds__(kBlock)
+traverse_bvh_kernel(const float* __restrict__ nodes, const int* __restrict__ sidecar,
+                    const float* __restrict__ tris128, int root_code,
+                    const float* __restrict__ rox, const float* __restrict__ roy,
+                    const float* __restrict__ roz, const float* __restrict__ rdx,
+                    const float* __restrict__ rdy, const float* __restrict__ rdz,
+                    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+                    int anyhit, float* __restrict__ out_t, int* __restrict__ out_rnode,
+                    int* __restrict__ out_tri, float* __restrict__ out_u,
+                    float* __restrict__ out_v, unsigned int* __restrict__ overflow) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+  unsigned int dropped = 0;
+  const Hit h = walk<kLevels, kStack, kSidecar>(nodes, sidecar, tris128, root_code, r, tmax[i],
+                                                anyhit != 0, dropped);
+  store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
   if (dropped) atomicAdd(overflow, dropped);
 }
 
-template <int kLevels, int kStack>
-int launch_traverse_bvh(const float* nodes, const float* tris128, int root_code, const float* rox,
-                        const float* roy, const float* roz, const float* rdx, const float* rdy,
-                        const float* rdz, const float* tmin, const float* tmax, int n, int anyhit,
-                        float* out_t, int* out_rnode, int* out_tri, float* out_u, float* out_v,
-                        unsigned int* overflow, void* stream) {
+template <int kLevels, int kStack, bool kSidecar = false>
+int launch_traverse_bvh(const float* nodes, const int* sidecar, const float* tris128,
+                        int root_code, const float* rox, const float* roy, const float* roz,
+                        const float* rdx, const float* rdy, const float* rdz, const float* tmin,
+                        const float* tmax, int n, int anyhit, float* out_t, int* out_rnode,
+                        int* out_tri, float* out_u, float* out_v, unsigned int* overflow,
+                        void* stream) {
   if (n <= 0) return 0;
   const int grid = (n + kBlock - 1) / kBlock;
-  traverse_bvh_kernel<kLevels, kStack><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, tris128, root_code, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t,
-      out_rnode, out_tri, out_u, out_v, overflow);
+  traverse_bvh_kernel<kLevels, kStack, kSidecar>
+      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          nodes, sidecar, tris128, root_code, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit,
+          out_t, out_rnode, out_tri, out_u, out_v, overflow);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,7 @@ extern "C" int vkgr_traverse_bvh16(const float* nodes16_fi, const float* tris128
                                    const float* tmin, const float* tmax, int n, int anyhit,
                                    float* out_t, int* out_rnode, int* out_tri, float* out_u,
                                    float* out_v, unsigned int* overflow, void* stream) {
-  return vkgr::launch_traverse_bvh<4, 256>(nodes16_fi, tris128, root_code, rox, roy, roz, rdx,
+  return vkgr::launch_traverse_bvh<4, 256>(nodes16_fi, nullptr, tris128, root_code, rox, roy, roz, rdx,
                                            rdy, rdz, tmin, tmax, n, anyhit, out_t, out_rnode,
                                            out_tri, out_u, out_v, overflow, stream);
 }

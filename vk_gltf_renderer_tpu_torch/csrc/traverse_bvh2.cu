@@ -25,7 +25,7 @@ extern "C" int vkgr_traverse_bvh2(const float* nodes_fi, const float* tris128, i
                                   const float* tmin, const float* tmax, int n, int anyhit,
                                   float* out_t, int* out_rnode, int* out_tri, float* out_u,
                                   float* out_v, unsigned int* overflow, void* stream) {
-  return vkgr::launch_traverse_bvh<1, 128>(nodes_fi, tris128, root_code, rox, roy, roz, rdx, rdy,
+  return vkgr::launch_traverse_bvh<1, 128>(nodes_fi, nullptr, tris128, root_code, rox, roy, roz, rdx, rdy,
                                            rdz, tmin, tmax, n, anyhit, out_t, out_rnode, out_tri,
                                            out_u, out_v, overflow, stream);
 }

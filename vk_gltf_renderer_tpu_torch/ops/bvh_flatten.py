@@ -2,8 +2,8 @@
 
 jax-free copy of the default path of vk_gltf_renderer_tpu/ops/bvh_flatten.py
 build_world_bvh: instances baked into world triangles, binned SAH over them
-(the native C++ builder of vk_gltf_renderer_tpu.native, with the numpy
-oracle as fallback), collapsed to BVH4, and emitted as the two tables the
+(the native C++ builder of the port's native/, with the numpy oracle as
+fallback), collapsed to BVH4, and emitted as the two tables the
 default kernel reads:
 
   nodes4_fi [M,32] f32  4 child AABBs (cols 0:24, lo3 hi3 each), 4 child
@@ -29,6 +29,9 @@ kernels are built from that tree only when a selected kernel reads them
                           16 child boxes (0:96), 16 codes (96:112), the 15
                           axes of the collapsed binary subtree (112:127)
   lane_pages [P*16,128] f32 skip-pointer DFS pages (ops/lane_traverse.py)
+  nodes4_sc  [M,8] i32    the v7 sidecar of nodes4_fi (reference
+                          _packet3_sidecar): the 4 child codes and 3 split
+                          axes of every BVH4 row as int32
 
 The SBVH and LBVH branches, alpha culling and the refit maps (map4,
 map16, lane geo_idx) of the reference are not ported yet (ROADMAP.md).
@@ -72,6 +75,7 @@ class WorldBvh:
     root_code: int = 0  # code of the binary root (< 0 when it is a leaf)
     nodes16_fi: np.ndarray | None = None  # [M,128] f32 BVH16 rows
     lane_pages: np.ndarray | None = None  # [P*16,128] f32 skip-pointer pages
+    nodes4_sc: np.ndarray | None = None  # [M,8] i32 BVH4 codes + axes (v7)
 
 
 def _build_sah(tlo, thi, cen):
@@ -208,7 +212,7 @@ def _morton_order(tlo, thi, cen) -> np.ndarray:
     """Triangle order of a scene small enough to be one leaf: the Morton
     order the reference's radix-tree path stores it in (its native sort,
     else the numpy morton3d + stable argsort of ops/bvh.py)."""
-    from vk_gltf_renderer_tpu.native import build_radix_tree_native
+    from ..native import build_radix_tree_native
 
     native = build_radix_tree_native(tlo, thi, cen)
     if native is not None:
@@ -399,7 +403,7 @@ def build_world_bvh(flat) -> WorldBvh:
         nodes_self[0, 0:3] = tlo.min(axis=0)
         nodes_self[0, 3:6] = thi.max(axis=0)
     else:
-        from vk_gltf_renderer_tpu.native import build_sah_native
+        from ..native import build_sah_native
 
         built = build_sah_native(tlo, thi, cen, LEAF_SIZE)
         if built is None:
@@ -537,13 +541,26 @@ def _packet6_tables(nodes_i, nodes_self):
     return np.stack(rows_f).astype(np.float32)
 
 
-KERNEL_TABLES = ("bvh2", "bvh16", "lane")  # what add_kernel_tables can build
+def _packet3_sidecar(nodes4_fi):
+    """int32 [M,8] sidecar of the BVH4 rows (reference ops/bvh_flatten.py:1248):
+    cols 0:4 child codes, 4:7 near-order axes, 7 pad (codes are exact in
+    f32: |code| < 2^24)."""
+    sc = np.zeros((nodes4_fi.shape[0], 8), np.int32)
+    sc[:, 0:7] = nodes4_fi[:, 24:31].astype(np.int32)
+    return sc
+
+
+# what add_kernel_tables accepts: the table families of ops/intersect.ROUTES;
+# the BVH4 walks other than v7 read only nodes4_fi + tris128
+KERNEL_TABLES = ("bvh2", "bvh16", "lane", "bvh4", "bvh4_multipop", "bvh4_leafqueue",
+                 "bvh4_sidecar")
 
 
 def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:
     """Build the named kernel tables ("bvh2" -> nodes_fi + root_code,
-    "bvh16" -> nodes16_fi, "lane" -> lane_pages) into wb, skipping those
-    already there. Returns wb."""
+    "bvh16" -> nodes16_fi, "lane" -> lane_pages, "bvh4_sidecar" ->
+    nodes4_sc) into wb, skipping those already there; the other BVH4
+    families need no table of their own. Returns wb."""
     unknown = set(tables) - set(KERNEL_TABLES)
     if unknown:
         raise ValueError(f"unknown kernel tables {sorted(unknown)}; known: {KERNEL_TABLES}")
@@ -551,6 +568,8 @@ def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:
         wb.nodes_fi, wb.root_code = _packet2_nodes(wb.nodes_i, wb.nodes_f)
     if "bvh16" in tables and wb.nodes16_fi is None:
         wb.nodes16_fi = _packet6_tables(wb.nodes_i, wb.nodes_self)
+    if "bvh4_sidecar" in tables and wb.nodes4_sc is None:
+        wb.nodes4_sc = _packet3_sidecar(wb.nodes4_fi)
     if "lane" in tables and wb.lane_pages is None:
         from .lane_traverse import build_lane_tree
 
@@ -559,18 +578,22 @@ def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:
     return wb
 
 
-def stack_need(nodes, levels: int, root_code: int) -> int:
+def stack_need(nodes, levels: int, root_code: int, internal_only: bool = False) -> int:
     """Deepest traversal stack a per-ray walk of a fused row table
     (nodes_fi: levels=1, nodes4_fi: 2, nodes16_fi: 4) can need: popping a
     node pushes all of its real children, so a node reached with p entries
     below it needs p + its child count, and its nearest child is reached
-    with p + count - 1. Missing children carry the +3e38 point box."""
+    with p + count - 1. Missing children carry the +3e38 point box.
+    internal_only: the stack of the v8 walk, which holds internal codes
+    only (leaf children go to its queue)."""
     if root_code < 0:
         return 1
     arity = 1 << levels
     nodes = np.asarray(nodes)
     codes = nodes[:, 6 * arity : 7 * arity].astype(np.int64)
     real = nodes[:, 0 : 6 * arity : 6] < 1e38  # lo.x of every child slot
+    if internal_only:
+        real = real & (codes >= 0)
     nreal = real.sum(axis=1)
     need = 1
     frontier = np.array([root_code], np.int64)
@@ -581,4 +604,27 @@ def stack_need(nodes, levels: int, root_code: int) -> int:
         inner = real[frontier] & (codes[frontier] >= 0)
         below = np.repeat(below + k - 1, inner.sum(axis=1))
         frontier = codes[frontier][inner]
+    return need
+
+
+def multipop_stack_need(nodes4_fi, root_code: int, multipop: int) -> int:
+    """Deepest stack of the v5 walk (ops/traverse.traverse_rows_plain with
+    multipop > 1) when every box is entered: each step pops up to
+    `multipop` entries and pushes the real children of each internal one,
+    in slot order. A walk that prunes pushes a subset, and in the trees the
+    builder emits stays below this; the kernels still count any push
+    dropped on a full stack."""
+    if root_code < 0:
+        return 1
+    nodes = np.asarray(nodes4_fi)
+    real = nodes[:, 0:24:6] < 1e38
+    children = [row[ok].tolist() for row, ok in zip(nodes[:, 24:28].astype(np.int64), real)]
+    stack, need = [int(root_code)], 1
+    while stack:
+        group = stack[-multipop:]
+        del stack[-multipop:]
+        for e in reversed(group):  # pop order: top of the stack first
+            if e >= 0:
+                stack.extend(children[e])
+        need = max(need, len(stack))
     return need

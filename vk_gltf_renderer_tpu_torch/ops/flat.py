@@ -13,8 +13,8 @@ from dataclasses import dataclass, fields as dc_fields
 
 import numpy as np
 
-from vk_gltf_renderer_tpu.models import materials as mats
-from vk_gltf_renderer_tpu.models.geometry import (
+from ..models import materials as mats
+from ..models.geometry import (
     PrimitiveData,
     _make_fast_tangent,
     compute_smooth_normals,
@@ -199,7 +199,7 @@ def build_scene_flat(scene, *, with_textures: bool = True) -> SceneFlat:
 
     # skinning/morph deformation at build time (CPU oracle path of the
     # reference; the device animation path is not ported yet)
-    from vk_gltf_renderer_tpu.models.animation import compute_joint_matrices, cpu_morph, cpu_skin
+    from ..models.animation import compute_joint_matrices, cpu_morph, cpu_skin
 
     for rn in (scene.render_nodes or []):
         rp = scene.render_primitives[rn.render_prim_id]

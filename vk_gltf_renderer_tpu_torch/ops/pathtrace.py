@@ -25,8 +25,8 @@ ops/intersect.py routes each name to its CUDA kernel.
 Not ported yet (RenderConfig.check_supported raises NotImplementedError):
 punctual lights, stochastic alpha, transmission / volume and the other
 material extensions, the infinite plane, denoiser guides, TAA jitter,
-batched spp, primary-hit seeding, the traversal kernels v5, v7 and v8, and
-every traversal other than "packet" (packet4, the XLA wavefront).
+batched spp, primary-hit seeding, and every traversal other than "packet"
+(packet4, the XLA wavefront).
 """
 
 from __future__ import annotations

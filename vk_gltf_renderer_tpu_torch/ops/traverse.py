@@ -6,7 +6,8 @@ by ops/traverse_bvh{2,4,16}.py and ops/lane_traverse.py). Each is
 vectorised over rays: one loop iteration advances every ray that is still
 walking by one step. They carry over exactly the arithmetic of the
 reference kernel bodies (vk_gltf_renderer_tpu/ops/pallas_traverse.py
-_traverse2_body, _traverse3_core, _traverse6_body and
+_traverse2_body, _traverse3_core, _traverse5_body, _traverse8_body,
+_traverse6_body and
 ops/lane_traverse.py _make_step): the inv() clamp, the slab test with tnear
 floored at 0 and tfar capped at t_best, the leaf decoding and
 Moller-Trumbore with the 1e-12 determinant guard.
@@ -14,8 +15,12 @@ Moller-Trumbore with the 1e-12 determinant guard.
 traverse_bvh{2,4,16}_plain walk the fused row tables of arity 2, 4 and 16
 with a per-ray stack ([N, depth] tensor). They differ from the packet
 kernels only in order (near-first by each ray's own direction signs, not a
-packet vote), which changes nothing but equal-t ties. traverse_lanes_plain
-walks the skip-pointer entries (entry-major [E,16]) without a stack.
+packet vote), which changes nothing but equal-t ties. The BVH4 variants
+follow their kernels' own schedules: traverse_bvh4_multipop_plain (v5,
+several pops per step), traverse_bvh4_leafqueue_plain (v8, internal stack
+plus leaf queue with its gate) and traverse_bvh4_sidecar_plain (v7, codes
+and axes from nodes4_sc). traverse_lanes_plain walks the skip-pointer
+entries (entry-major [E,16]) without a stack.
 
 intersect_brute is the test oracle (reference ops/traverse.py:222).
 """
@@ -25,9 +30,12 @@ from __future__ import annotations
 import torch
 
 INFINITE = 1e32
-STACK_DEPTH = 64  # BVH4 (csrc/traverse_bvh4.cu)
+STACK_DEPTH = 64  # BVH4 (csrc/traverse_bvh4.cu; also v7, and v8's internal stack)
 STACK_DEPTH2 = 128  # BVH2 (csrc/traverse_bvh2.cu)
 STACK_DEPTH16 = 256  # BVH16 (csrc/traverse_bvh16.cu)
+STACK_DEPTH_MULTIPOP = 256  # v5 (csrc/traverse_bvh4_multipop.cu)
+MULTIPOP = 4  # entries the v5 walk pops per step
+LEAF_QUEUE = 16  # v8's leaf queue (csrc/traverse_bvh4_leafqueue.cu)
 LEAF_SLOTS = 8  # triangles per tris128 row
 
 
@@ -106,8 +114,118 @@ def _visit_slots(flip, levels):
     return path
 
 
+def _new_stats(stats, nodes, tris128):
+    """Start (or, for a dict that has them, go on adding to) the visit
+    counters of a plain walk (see traverse_rows_plain)."""
+    if stats is None:
+        return None
+    for key in ("internal", "leaf", "tris"):
+        stats.setdefault(key, 0)
+    stats.setdefault("node_rows", torch.zeros(nodes.shape[0], dtype=torch.bool, device=nodes.device))
+    stats.setdefault("leaf_rows", torch.zeros(tris128.shape[0], dtype=torch.bool, device=nodes.device))
+    return stats
+
+
+class _Walk:
+    """Rays and best-hit state shared by the plain stack walks."""
+
+    def __init__(self, tris128, rays, anyhit, stats):
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax = rays
+        self.tris128 = tris128
+        self.ro = (rox, roy, roz)
+        self.rd = (rdx, rdy, rdz)
+        self.tmin = tmin
+        self.inv_d = (_inv(rdx), _inv(rdy), _inv(rdz))
+        self.sgn = torch.stack([rdx >= 0, rdy >= 0, rdz >= 0], dim=1)  # [N,3]
+        self.anyhit = anyhit
+        self.stats = stats
+        n, dev = rox.shape[0], rox.device
+        self.t = tmax.clone()
+        self.rn = torch.full((n,), -1.0, device=dev)
+        self.tri = torch.full((n,), -1.0, device=dev)
+        self.u = torch.zeros(n, device=dev)
+        self.v = torch.zeros(n, device=dev)
+
+    def result(self, dropped):
+        return (self.t, self.rn.to(torch.int32), self.tri.to(torch.int32), self.u, self.v,
+                int(dropped))
+
+    def test_leaves(self, li, e):
+        """Triangle tests of leaf codes e [K] for rays li [K], in slot order
+        (strict '<': the first of equal t wins). Returns the rays whose any
+        hit was accepted (empty for closest hit)."""
+        code = -e - 1
+        row = torch.div(code, 16, rounding_mode="floor")
+        cnt = code - row * 16
+        tv = self.tris128[row].reshape(-1, LEAF_SLOTS, 16)
+        if self.stats is not None:
+            self.stats["leaf"] += li.numel()
+            self.stats["tris"] += int(cnt.sum())
+            self.stats["leaf_rows"][row] = True
+        rox, roy, roz = (c[li, None] for c in self.ro)
+        rdx, rdy, rdz = (c[li, None] for c in self.rd)
+        v0x, v0y, v0z = tv[..., 0], tv[..., 1], tv[..., 2]
+        ok, uu, vv, tt = _moller_trumbore(
+            v0x, v0y, v0z, tv[..., 3] - v0x, tv[..., 4] - v0y, tv[..., 5] - v0z,
+            tv[..., 6] - v0x, tv[..., 7] - v0y, tv[..., 8] - v0z, rox, roy, roz, rdx, rdy, rdz)
+        ok = ok & (torch.arange(LEAF_SLOTS, device=li.device)[None, :] < cnt[:, None])
+        cand = ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > self.tmin[li, None])
+        tb, rb, trb = self.t[li], self.rn[li], self.tri[li]
+        ub, vb = self.u[li], self.v[li]
+        for c in range(LEAF_SLOTS):
+            hit = cand[:, c] & (tt[:, c] < tb)
+            tb = torch.where(hit, -1.0 if self.anyhit else tt[:, c], tb)
+            rb = torch.where(hit, tv[:, c, 9], rb)
+            trb = torch.where(hit, tv[:, c, 10], trb)
+            ub = torch.where(hit, uu[:, c], ub)
+            vb = torch.where(hit, vv[:, c], vb)
+        self.t[li], self.rn[li], self.tri[li] = tb, rb, trb
+        self.u[li], self.v[li] = ub, vb
+        return li[trb >= 0] if self.anyhit else li[:0]
+
+    def expand(self, levels, nodes, ii, e, t_best, sidecar=None):
+        """Slab tests of the children of internal rows e [K] for rays ii
+        against t_best [K]. Returns (codes, enter) [K, arity] in push order
+        (far first: the nearest child is pushed last and popped next).
+        sidecar: the v7 walk's [M,8] int table, read for the child codes and
+        split axes instead of the row's float columns."""
+        arity = 1 << levels
+        f = nodes[e]  # [K, 8*arity]
+        if self.stats is not None:
+            self.stats["internal"] += ii.numel()
+            self.stats["node_rows"][e] = True
+        ro = tuple(c[ii] for c in self.ro)
+        inv_d = tuple(c[ii] for c in self.inv_d)
+        hits = torch.stack([_slab(f, 6 * s, ro, inv_d, t_best) for s in range(arity)], dim=1)
+        if sidecar is None:
+            codes = f[:, 6 * arity : 7 * arity].long()
+            axes = f[:, 7 * arity : 8 * arity - 1].long()
+        else:
+            sc = sidecar[e].long()
+            codes, axes = sc[:, 0:4], sc[:, 4:7]
+        flip = ~torch.gather(self.sgn[ii], 1, axes)  # the right side is nearer
+        slots = _visit_slots(flip, levels).flip(1)
+        return torch.gather(codes, 1, slots), torch.gather(hits, 1, slots)
+
+
+def _push(stack, sp, rows, codes, enter, depth):
+    """Push codes [K,A] where enter, column by column, onto the per-ray
+    stacks of rows [K]; returns the pushes dropped on a full stack."""
+    spi = sp[rows]
+    dropped = 0
+    for p in range(codes.shape[1]):
+        full = enter[:, p] & (spi >= depth)
+        dropped += int(full.sum())
+        push = enter[:, p] & ~full
+        stack[rows[push], spi[push]] = codes[push, p]
+        spi = spi + push.long()
+    sp[rows] = spi
+    return dropped
+
+
 def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,
-                        tmin, tmax, anyhit=False, stack_depth=64):
+                        tmin, tmax, anyhit=False, stack_depth=64, multipop=1, sidecar=None,
+                        stats=None):
     """Plain per-ray traversal of a fused row table of arity 2^levels
     (layout in csrc/traverse_bvh.cuh: child boxes, child codes, split axes).
 
@@ -116,112 +234,148 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
     any-hit), rnode/tri [N] i32 (-1 = no hit), u/v [N] f32, and overflow
     the number of stack pushes dropped because a stack was full (0 unless
     a tree is deeper than stack_depth allows). Any-hit stops a ray at its
-    first accepted hit. Rays with tmax < 0 miss at the root."""
-    arity = 1 << levels
+    first accepted hit. Rays with tmax < 0 miss at the root.
+
+    multipop > 1 is the v5 schedule (csrc/traverse_bvh4_multipop.cu): each
+    step pops up to `multipop` entries and processes them in pop order,
+    t_best chained through the group, each internal entry pushing its
+    children as it is processed. sidecar is the v7 walk (nodes4_sc).
+
+    stats, a dict, receives the visit counts the card's bounds are made of:
+    internal / leaf visits, triangles tested, and boolean masks of the
+    node and leaf rows touched (node_rows, leaf_rows); a dict that already
+    holds them goes on adding (several calls, one count)."""
     dev = rox.device
     n = rox.shape[0]
-    ix, iy, iz = _inv(rdx), _inv(rdy), _inv(rdz)
-    sgn = torch.stack([rdx >= 0, rdy >= 0, rdz >= 0], dim=1)  # [N,3]
-
-    t_best = tmax.clone()
-    rn_best = torch.full((n,), -1.0, device=dev)
-    tri_best = torch.full((n,), -1.0, device=dev)
-    u_best = torch.zeros(n, device=dev)
-    v_best = torch.zeros(n, device=dev)
+    w = _Walk(tris128, (rox, roy, roz, rdx, rdy, rdz, tmin, tmax), anyhit,
+              _new_stats(stats, nodes, tris128))
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     stack[:, 0] = int(root_code)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    arange8 = torch.arange(LEAF_SLOTS, device=dev)
+    overflow = 0
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
         if act.numel() == 0:
             break
-        sp[act] -= 1
-        e = stack[act, sp[act]]
-
-        leaf = e < 0
-        li = act[leaf]
-        if li.numel():
-            code = -e[leaf] - 1
-            row = torch.div(code, 16, rounding_mode="floor")
-            cnt = code - row * 16
-            tv = tris128[row].reshape(-1, LEAF_SLOTS, 16)
-            v0x, v0y, v0z = tv[..., 0], tv[..., 1], tv[..., 2]
-            ok, uu, vv, tt = _moller_trumbore(
-                v0x, v0y, v0z, tv[..., 3] - v0x, tv[..., 4] - v0y, tv[..., 5] - v0z,
-                tv[..., 6] - v0x, tv[..., 7] - v0y, tv[..., 8] - v0z,
-                rox[li, None], roy[li, None], roz[li, None], rdx[li, None], rdy[li, None],
-                rdz[li, None])
-            ok = ok & (arange8[None, :] < cnt[:, None])
-            cand = ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > tmin[li, None])
-            tb, rb, trb = t_best[li], rn_best[li], tri_best[li]
-            ub, vb = u_best[li], v_best[li]
-            for c in range(LEAF_SLOTS):  # in slot order, strict '<': first wins ties
-                hit = cand[:, c] & (tt[:, c] < tb)
-                tb = torch.where(hit, -1.0 if anyhit else tt[:, c], tb)
-                rb = torch.where(hit, tv[:, c, 9], rb)
-                trb = torch.where(hit, tv[:, c, 10], trb)
-                ub = torch.where(hit, uu[:, c], ub)
-                vb = torch.where(hit, vv[:, c], vb)
-            t_best[li], rn_best[li], tri_best[li] = tb, rb, trb
-            u_best[li], v_best[li] = ub, vb
-            if anyhit:
-                sp[li[trb >= 0]] = 0
-
-        ii = act[~leaf]
-        if ii.numel():
-            f = nodes[e[~leaf]]  # [K, 8*arity]
-            ro = (rox[ii], roy[ii], roz[ii])
-            inv_d = (ix[ii], iy[ii], iz[ii])
-            tb = t_best[ii]
-            hits = torch.stack([_slab(f, 6 * s, ro, inv_d, tb) for s in range(arity)], dim=1)
-            codes = f[:, 6 * arity : 7 * arity].long()
-            axes = f[:, 7 * arity : 8 * arity - 1].long()
-            flip = ~torch.gather(sgn[ii], 1, axes)  # the right side is nearer
-            slots = _visit_slots(flip, levels)
-            spi = sp[ii]
-            for p in reversed(range(arity)):  # far first: the nearest child is popped next
-                s = slots[:, p : p + 1]
-                pa = torch.gather(hits, 1, s)[:, 0]
-                full = pa & (spi >= stack_depth)
-                overflow += full.sum()
-                push = pa & ~full
-                stack[ii[push], spi[push]] = torch.gather(codes, 1, s)[:, 0][push]
-                spi = spi + push.long()
-            sp[ii] = spi
-
-    return (t_best, rn_best.to(torch.int32), tri_best.to(torch.int32), u_best, v_best,
-            int(overflow))
+        top = sp[act]
+        k = torch.clamp(top, max=multipop)
+        sp[act] = top - k
+        group = []  # (rays, codes) of each pop position, top of stack first
+        for j in range(multipop):
+            has = k > j
+            group.append((act[has], stack[act[has], top[has] - 1 - j]))
+        ended = []
+        for rays, e in group:
+            leaf = e < 0
+            if leaf.any():
+                ended.append(w.test_leaves(rays[leaf], e[leaf]))
+            ii = rays[~leaf]
+            if ii.numel():
+                codes, enter = w.expand(levels, nodes, ii, e[~leaf], w.t[ii], sidecar)
+                overflow += _push(stack, sp, ii, codes, enter, stack_depth)
+        if anyhit and ended:
+            sp[torch.cat(ended)] = 0
+    return w.result(overflow)
 
 
-def traverse_bvh2_plain(nodes_fi, tris128, root_code, *rays, anyhit=False):
+def traverse_bvh2_plain(nodes_fi, tris128, root_code, *rays, anyhit=False, stats=None):
     """Plain BVH2 traversal over nodes_fi [N,16] (csrc/traverse_bvh2.cu)."""
     return traverse_rows_plain(1, nodes_fi, tris128, root_code, *rays, anyhit=anyhit,
-                               stack_depth=STACK_DEPTH2)
+                               stack_depth=STACK_DEPTH2, stats=stats)
 
 
-def traverse_bvh4_plain(nodes4_fi, tris128, root_code, *rays, anyhit=False):
+def traverse_bvh4_plain(nodes4_fi, tris128, root_code, *rays, anyhit=False, stats=None):
     """Plain BVH4 traversal over nodes4_fi [M,32] (csrc/traverse_bvh4.cu)."""
     return traverse_rows_plain(2, nodes4_fi, tris128, root_code, *rays, anyhit=anyhit,
-                               stack_depth=STACK_DEPTH)
+                               stack_depth=STACK_DEPTH, stats=stats)
 
 
-def traverse_bvh16_plain(nodes16_fi, tris128, root_code, *rays, anyhit=False):
+def traverse_bvh16_plain(nodes16_fi, tris128, root_code, *rays, anyhit=False, stats=None):
     """Plain BVH16 traversal over nodes16_fi [M,128] (csrc/traverse_bvh16.cu)."""
     return traverse_rows_plain(4, nodes16_fi, tris128, root_code, *rays, anyhit=anyhit,
-                               stack_depth=STACK_DEPTH16)
+                               stack_depth=STACK_DEPTH16, stats=stats)
 
 
-def traverse_lanes_plain(entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, anyhit=False):
+def traverse_bvh4_multipop_plain(nodes4_fi, tris128, root_code, *rays, anyhit=False, stats=None):
+    """Plain v5 walk: BVH4 popping MULTIPOP entries per step
+    (csrc/traverse_bvh4_multipop.cu)."""
+    return traverse_rows_plain(2, nodes4_fi, tris128, root_code, *rays, anyhit=anyhit,
+                               stack_depth=STACK_DEPTH_MULTIPOP, multipop=MULTIPOP, stats=stats)
+
+
+def traverse_bvh4_sidecar_plain(nodes4_fi, nodes4_sc, tris128, root_code, *rays, anyhit=False,
+                                stats=None):
+    """Plain v7 walk: BVH4 with child codes and split axes read from the
+    nodes4_sc [M,8] int32 sidecar (csrc/traverse_bvh4_sidecar.cu)."""
+    return traverse_rows_plain(2, nodes4_fi, tris128, root_code, *rays, anyhit=anyhit,
+                               stack_depth=STACK_DEPTH, sidecar=nodes4_sc, stats=stats)
+
+
+def traverse_bvh4_leafqueue_plain(nodes4_fi, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,
+                                  tmin, tmax, anyhit=False, stats=None):
+    """Plain v8 walk (csrc/traverse_bvh4_leafqueue.cu): the stack holds only
+    internal codes and leaf children go to a per-ray queue of LEAF_QUEUE
+    entries (last in, first out, as the reference's). Each step pops one
+    internal code and one queued leaf; the internal visit's slab tests see
+    t_best from before the step's leaf. A producer gate pauses internal pops
+    while the queue holds more than LEAF_QUEUE - 4 entries (an internal
+    visit adds at most 4), so the queue never overflows, and a ray ends only
+    when both are empty. Returns what traverse_rows_plain returns; stats
+    also counts the steps whose internal pop the gate paused ("gated")."""
+    cap = LEAF_QUEUE
+    if cap < 5:
+        raise ValueError(f"a leaf queue of {cap} entries cannot take one internal visit")
+    dev = rox.device
+    n = rox.shape[0]
+    w = _Walk(tris128, (rox, roy, roz, rdx, rdy, rdz, tmin, tmax), anyhit,
+              _new_stats(stats, nodes4_fi, tris128))
+    if w.stats is not None:
+        w.stats.setdefault("gated", 0)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    queue = torch.zeros((n, cap), dtype=torch.int64, device=dev)
+    root = int(root_code)
+    sp = torch.full((n,), int(root >= 0), dtype=torch.int64, device=dev)
+    lq = torch.full((n,), int(root < 0), dtype=torch.int64, device=dev)
+    (stack if root >= 0 else queue)[:, 0] = root
+    overflow = 0
+
+    while True:
+        act = torch.nonzero((sp > 0) | (lq > 0)).squeeze(1)
+        if act.numel() == 0:
+            break
+        waiting = sp[act] > 0
+        take_i = waiting & (lq[act] < cap - 4)
+        if w.stats is not None:
+            w.stats["gated"] += int((waiting & ~take_i).sum())
+        ii = act[take_i]
+        sp[ii] -= 1
+        e = stack[ii, sp[ii]]
+        li = act[lq[act] > 0]
+        lq[li] -= 1
+        le = queue[li, lq[li]]
+        t_before = w.t[ii]  # the internal half sees t_best from before the leaf
+        ended = w.test_leaves(li, le) if li.numel() else li
+        if ii.numel():
+            codes, enter = w.expand(2, nodes4_fi, ii, e, t_before)
+            overflow += _push(stack, sp, ii, codes, enter & (codes >= 0), STACK_DEPTH)
+            overflow += _push(queue, lq, ii, codes, enter & (codes < 0), cap)
+        if anyhit and ended.numel():
+            sp[ended] = 0
+            lq[ended] = 0
+    return w.result(overflow)
+
+
+def traverse_lanes_plain(entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, anyhit=False,
+                         stats=None):
     """Plain stackless skip-pointer walk over entry-major lane entries
     [E,16] (csrc/traverse_lanes.cu; fields in ops/lane_traverse.py).
 
     Returns (t, rnode, tri, u, v, bad) like traverse_rows_plain, except that
     an any-hit keeps its t (the reference's lane kernels do not poison it)
     and `bad` counts links that did not advance (0 on a well-formed table).
-    Rays with tmax < 0 start at the end."""
+    Rays with tmax < 0 start at the end. stats, a dict, receives the entry
+    visits ("entries") and a mask of the entries touched ("entry_rows")."""
     dev = rox.device
     n = rox.shape[0]
     end = entries.shape[0]
@@ -233,12 +387,18 @@ def traverse_lanes_plain(entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, anyh
     v_best = torch.zeros(n, device=dev)
     cur = torch.where(tmax < 0, end, 0).to(torch.int64)
     bad = torch.zeros((), dtype=torch.int64, device=dev)
+    if stats is not None:
+        stats.setdefault("entries", 0)
+        stats.setdefault("entry_rows", torch.zeros(end, dtype=torch.bool, device=dev))
 
     while True:
         act = torch.nonzero(cur < end).squeeze(1)
         if act.numel() == 0:
             break
         c = cur[act]
+        if stats is not None:
+            stats["entries"] += act.numel()
+            stats["entry_rows"][c] = True
         f = entries[c]  # [K,16]
         tb = t_best[act]
         leaf = f[:, 11] > 0.5

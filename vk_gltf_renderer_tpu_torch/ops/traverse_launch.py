@@ -1,5 +1,5 @@
 """The shared body of the traversal kernel wrappers (ops/traverse_bvh2.py,
-traverse_bvh4.py, traverse_bvh16.py, lane_traverse.py).
+traverse_bvh4*.py, traverse_bvh16.py, lane_traverse.py).
 
 run_traversal takes CPU rays to the kernel's plain torch version and CUDA
 rays to the kernel; any other device raises, and nothing falls back from
@@ -23,7 +23,8 @@ def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit)
 
     plain: zero-argument call of the plain version, returning the five
     outputs and a dropped-work count (CPU rays). tables: (name, tensor,
-    expected shape) of every table argument; scalars: the int arguments
+    expected shape[, dtype, default float32]) of every table argument, in
+    the C entry point's order; scalars: the int arguments
     between the tables and the rays of the C entry point vkgr_<name>."""
     rox = rays[0]
     if rox.device.type == "cpu":
@@ -36,8 +37,8 @@ def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit)
     n = rox.shape[0]
     if n >= 2**31:
         raise ValueError(f"{name}: at most 2**31-1 rays per launch")
-    for tname, t, shape in tables:
-        check_tensor(tname, t, torch.float32, shape, dev)
+    for tname, t, shape, *dtype in tables:
+        check_tensor(tname, t, dtype[0] if dtype else torch.float32, shape, dev)
     for rname, c in zip(RAY_NAMES, rays, strict=True):
         check_tensor(rname, c, torch.float32, (n,), dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -48,7 +49,7 @@ def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit)
     if n == 0:
         return t, rnode, tri, u, v
     fn = getattr(library().lib, f"vkgr_{name}")
-    rc = fn(*(tt.data_ptr() for _, tt, _ in tables), *(int(s) for s in scalars),
+    rc = fn(*(tab[1].data_ptr() for tab in tables), *(int(s) for s in scalars),
             *(c.data_ptr() for c in rays), n, int(bool(anyhit)),
             t.data_ptr(), rnode.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             overflow.buffer(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

@@ -1,8 +1,8 @@
 """GltfRenderer: the frame-loop orchestrator of the port (reference
 vk_gltf_renderer_tpu/renderer.py).
 
-Owns the host Scene (the reference's jax-free models package), the numpy
-scene/BVH builders' output, their device mirrors, the environment (sky or
+Owns the host Scene (the port's copy of the reference's models package),
+the numpy scene/BVH builders' output, their device mirrors, the environment (sky or
 HDR), the camera and the progressive accumulation buffer, which lives on
 the renderer's device. Each on_render() path-traces one frame of spp
 samples and folds it into the running mean.
@@ -11,7 +11,8 @@ Traversal kernels are picked as in the reference: at every frame _config
 reads VKGR_PRIMARY_KERNEL (default v3), VKGR_PACKET_KERNEL (default v9)
 and VKGR_TRAVERSAL (default packet, the only value ported), and on_render
 builds any table the selection reads that the scene does not have yet
-(binary rows for v2, BVH16 rows for v6, lane pages for lane/lane_stream).
+(binary rows for v2, BVH16 rows for v6, lane pages for lane/lane_stream,
+the int32 sidecar for v7, the v5 walk's stack need for v5).
 A kernel runs only because the selection names it.
 
 Not ported yet: animation, scene-change sync (dirty flags, refit), the
@@ -29,12 +30,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vk_gltf_renderer_tpu.models import Scene
-from vk_gltf_renderer_tpu.models.materials import detect_scene_features
-from vk_gltf_renderer_tpu.utils import mathutil as mu
-
 from .convert import add_kernel_tables_to_device, bvh_to_device, scene_to_device
 from .device import resolve_device
+from .models import Scene
+from .models.materials import detect_scene_features
 from .ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from .ops.camera import pixel_angle
 from .ops.flat import build_scene_flat
@@ -42,6 +41,7 @@ from .ops.hdr import load_hdr_environment
 from .ops.pathtrace import RenderConfig, render_frame_flat
 from .ops.sky import SkyEnv, SkyParams
 from .ops.tonemap import tonemap
+from .utils import mathutil as mu
 from .utils.png import write_png
 
 
@@ -142,7 +142,7 @@ class GltfRenderer:
         need = cfg.kernel_tables() - {"bvh4"}  # nodes4_fi is always built
         if need:
             add_kernel_tables(self.bvh, need)
-            add_kernel_tables_to_device(self.dev_bvh, self.bvh, self.device)
+            add_kernel_tables_to_device(self.dev_bvh, self.bvh, self.device, need)
 
     # -------------------------------------------------------------- frames
     def reset_frame(self) -> None:

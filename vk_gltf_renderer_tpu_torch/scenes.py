@@ -19,10 +19,9 @@ import struct
 
 import numpy as np
 
-from vk_gltf_renderer_tpu.models import Scene
-from vk_gltf_renderer_tpu.models.editor import SceneEditor
-from vk_gltf_renderer_tpu.models.gltf import load_model_from_json
-
+from .models import Scene
+from .models.editor import SceneEditor
+from .models.gltf import load_model_from_json
 from .utils.png import write_png
 
 
