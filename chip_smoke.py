@@ -46,7 +46,32 @@ Phases (each raises on failure; nothing is caught):
      bounce + torch glue) timed with CUDA events, ms and Mrays/s (rays x
      depth / ms) printed; the counters are zeroed before the timed runs and
      read after them; mega is held against wavefront on every ray and
-     against its plain version on a fixed subset of 65,536 rays.
+     against its plain version on a fixed subset of 65,536 rays;
+  9. split-table kernels (the packet4 kernel traverse_bvh4_split and the v1
+     kernel traverse_bvh2_split) through ops/intersect.intersect_rays_packet
+     (wide=True, v2=False) on the probe rays of phases 3 and 6, on the
+     helmet and on the terrain: closest hit timed (kernel alone and through
+     the entry point), anyhit=True timed and equal to the closest hit on
+     every ray, and each kernel held against its plain version on a fixed
+     subset of 65,536 rays as in phase 6; visits, bound, stack need, table
+     bytes and upload seconds printed;
+ 10. VKGR_TRAVERSAL=packet4 through the entry points at the bench recipe on
+     the terrain and on the helmet (2 warm-up and 10 timed frames each):
+     only traverse_bvh4_split's counter may move among the traversal
+     kernels, and frame 0 must agree with the (v3, v9) frame 0 of phases 7
+     and 4 at tests/test_torch_frame.py's thresholds with the same ray count;
+ 11. VKGR_TRAVERSAL=wavefront (the stackless walk in plain torch) on the
+     helmet: a 960x540 frame 0 sizes the run (time scaled by pixel count),
+     then 1 warm-up and 1 timed frame at the largest of 1920x1080, 960x540
+     and 480x270 predicted under 30 s (the sizing frame is the warm-up when
+     960x540 is chosen); no traversal kernel may launch, and frame 0 must
+     agree with a (v3, v9) frame 0 of the same size;
+ 12. probes (vk_gltf_renderer_tpu_torch/probes): probe_nodefetch at the TPU
+     probe's sizes under all four variant names, then on random-cycle
+     tables of the terrain's nodes4_fi size (11 MB, in L2) and of 268 MB
+     (past L2), then each table with one warp per block and SM (the
+     chain's latency alone); probe_visit variants a, b, c, d, e and q at the TPU probe's
+     sizes; each run equal to its plain version, ns per visit printed.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -54,7 +79,11 @@ cores): bytes = the distinct table rows the plain version touched on the
 rays it walked (a lower bound for the full ray set) times their row bytes,
 plus every ray's inputs and outputs; FLOPs = the plain version's visits
 scaled to the full ray count, 24 per box test and 55 per triangle test
-(plus 20 per ray and bounce of megakernel shading). Plain times include
+(plus 20 per ray and bounce of megakernel shading). The split kernels'
+leaf rows are the 64-byte rows of tris; a v1 leaf node reads only its
+32-byte nodes_i row. The probes: the distinct rows
+their chains read plus their inputs and outputs, and 8 FLOPs per lane and
+step (node fetch) or 24 per lane and box test (visit). Plain times include
 that visit counting.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
@@ -77,6 +106,8 @@ sys.path.insert(0, str(ROOT))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 
 FRAME_W, FRAME_H, SPP, DEPTH = 1920, 1080, 1, 5
 WARMUP, TIMED = 2, 10
@@ -101,18 +132,33 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BOX_FLOPS, TRI_FLOPS, SHADE_FLOPS = 24, 55, 20
 RAY_BYTES = (8 + 5) * 4  # 8 f32 ray components in, 5 outputs of 4 bytes out
+PT = REF + "ops/pallas_traverse.py:"
 # wrapper -> (source, file:line of the TPU kernel it replaces, also replaces)
 SOURCES = {
-    "traverse_bvh4": ("traverse_bvh4.cu", "ops/pallas_traverse.py:951", "ops/pallas_traverse.py:1450"),
-    "gather_channels": ("gather.cu", "ops/pallas_gather.py:44", None),
-    "traverse_bvh2": ("traverse_bvh2.cu", "ops/pallas_traverse.py:1669", None),
-    "traverse_bvh16": ("traverse_bvh16.cu", "ops/pallas_traverse.py:1640", None),
-    "traverse_lanes": ("traverse_lanes.cu", "ops/lane_traverse.py:407", "ops/lane_traverse.py:376"),
-    "traverse_bvh4_multipop": ("traverse_bvh4_multipop.cu", "ops/pallas_traverse.py:913", None),
-    "traverse_bvh4_sidecar": ("traverse_bvh4_sidecar.cu", "ops/pallas_traverse.py:951", None),
-    "traverse_bvh4_leafqueue": ("traverse_bvh4_leafqueue.cu", "ops/pallas_traverse.py:1209", None),
-    "render_mega": ("megakernel.cu", "ops/megakernel.py:140", None),
+    "traverse_bvh4": ("traverse_bvh4.cu", PT + "951", PT + "1450"),
+    "gather_channels": ("gather.cu", REF + "ops/pallas_gather.py:44", None),
+    "traverse_bvh2": ("traverse_bvh2.cu", PT + "1669", None),
+    "traverse_bvh16": ("traverse_bvh16.cu", PT + "1640", None),
+    "traverse_lanes": ("traverse_lanes.cu", REF + "ops/lane_traverse.py:407",
+                       REF + "ops/lane_traverse.py:376"),
+    "traverse_bvh4_multipop": ("traverse_bvh4_multipop.cu", PT + "913", None),
+    "traverse_bvh4_sidecar": ("traverse_bvh4_sidecar.cu", PT + "951", None),
+    "traverse_bvh4_leafqueue": ("traverse_bvh4_leafqueue.cu", PT + "1209", None),
+    "render_mega": ("megakernel.cu", REF + "ops/megakernel.py:140", None),
+    "traverse_bvh4_split": ("traverse_bvh4_split.cu", PT + "1895", None),
+    "traverse_bvh2_split": ("traverse_bvh2_split.cu", PT + "1921", None),
+    "probe_nodefetch": ("probe_nodefetch.cu", "tools/exp_nodefetch.py:90", None),
+    "probe_visit": ("probe_visit.cu", "tools/exp_visit.py:190", None),
 }
+# split kernel -> (table family, intersect_rays_packet keywords, arity, bytes read of an
+# internal node: packet4 96 box bytes of nodes4_f + 32 of nodes4_i, v1 48 of nodes_f + 32 of
+# nodes_i; a v1 leaf node reads only its 32-byte nodes_i row, LEAF_NODE_BYTES)
+SPLIT = {"traverse_bvh4_split": ("bvh4_split", {"wide": True}, 4, 128),
+         "traverse_bvh2_split": ("bvh2_split", {"v2": False}, 2, 80)}
+SPLIT_LEAF_BYTES = 64  # one tris row per triangle
+LEAF_NODE_BYTES = 32
+WAVEFRONT_SIZES = ((1920, 1080), (960, 540), (480, 270))
+WAVEFRONT_FRAME_S = 30.0  # the longest wavefront frame the run takes
 
 
 def log(msg):
@@ -123,19 +169,6 @@ def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps launches (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def require(cond, msg):
@@ -194,15 +227,18 @@ def _probe_rays(r, device):
 
 
 def _traversal_modules():
-    from vk_gltf_renderer_tpu_torch.ops import (lane_traverse, traverse_bvh2, traverse_bvh4,
-                                                traverse_bvh4_leafqueue, traverse_bvh4_multipop,
-                                                traverse_bvh4_sidecar, traverse_bvh16)
+    from vk_gltf_renderer_tpu_torch.ops import (lane_traverse, traverse_bvh2, traverse_bvh2_split,
+                                                traverse_bvh4, traverse_bvh4_leafqueue,
+                                                traverse_bvh4_multipop, traverse_bvh4_sidecar,
+                                                traverse_bvh4_split, traverse_bvh16)
 
     return {"traverse_bvh2": traverse_bvh2, "traverse_bvh4": traverse_bvh4,
             "traverse_bvh16": traverse_bvh16, "traverse_lanes": lane_traverse,
             "traverse_bvh4_multipop": traverse_bvh4_multipop,
             "traverse_bvh4_sidecar": traverse_bvh4_sidecar,
-            "traverse_bvh4_leafqueue": traverse_bvh4_leafqueue}
+            "traverse_bvh4_leafqueue": traverse_bvh4_leafqueue,
+            "traverse_bvh4_split": traverse_bvh4_split,
+            "traverse_bvh2_split": traverse_bvh2_split}
 
 
 def _traversal_runs(bvh):
@@ -253,23 +289,27 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _visits(stats, arity, row_bytes):
-    """(table bytes touched, FLOPs, description) of a plain walk's counts."""
+def _visits(stats, arity, row_bytes, leaf_bytes=512):
+    """(table bytes touched, FLOPs, description) of a plain walk's counts;
+    leaf_bytes: bytes of one leaf row (a tris128 row, or a tris row)."""
     if "entries" in stats:  # the lane walk: one box and one triangle per entry
         rows = int(stats["entry_rows"].sum())
         return (rows * 64, stats["entries"] * (BOX_FLOPS + TRI_FLOPS),
                 f"{stats['entries']} entry visits, {rows} distinct entries")
     nodes, leaves = int(stats["node_rows"].sum()), int(stats["leaf_rows"].sum())
-    return (nodes * row_bytes + leaves * 512,
+    # the v1 walk's leaf nodes: their nodes_i rows (the other walks code leaves in the parent)
+    metas = int(stats["leaf_node_rows"].sum()) if "leaf_node_rows" in stats else 0
+    return (nodes * row_bytes + metas * LEAF_NODE_BYTES + leaves * leaf_bytes,
             stats["internal"] * arity * BOX_FLOPS + stats["tris"] * TRI_FLOPS,
             f"{stats['internal']} internal + {stats['leaf']} leaf visits, {stats['tris']} "
-            f"triangle tests, {nodes} node rows + {leaves} leaf rows touched")
+            f"triangle tests, {nodes} node rows + {metas} leaf node rows + {leaves} leaf rows "
+            "touched")
 
 
-def traversal_bound(stats, arity, row_bytes, n_rays, n_walked):
+def traversal_bound(stats, arity, row_bytes, n_rays, n_walked, leaf_bytes=512):
     """Bound of one launch on n_rays from the plain version's counts on
     n_walked of them: distinct rows as counted, visits scaled."""
-    table_bytes, flops, desc = _visits(stats, arity, row_bytes)
+    table_bytes, flops, desc = _visits(stats, arity, row_bytes, leaf_bytes)
     ms, by = bound(table_bytes + n_rays * RAY_BYTES, flops * n_rays / n_walked)
     return ms, by, f"{desc} on {n_walked} rays"
 
@@ -315,7 +355,7 @@ def _run_kernels(tag, names, runs, comps, tmin, far, shadow_tmax, sub):
         res = {"rays": n, "plain_rays": n_plain}
         for anyhit, tmax in ((False, far), (True, shadow_tmax)):
             args = (*comps, tmin, tmax)
-            ms = cuda_ms(lambda: kern(*args, anyhit=anyhit), 10)
+            ms = device_ms(lambda: kern(*args, anyhit=anyhit), 10)
             sargs = args if sub is None else tuple(a[sub].contiguous() for a in args)
             k = kern(*sargs, anyhit=anyhit)
             stats = None if anyhit else {}
@@ -349,10 +389,12 @@ def _all_tables(r, device):
     from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import add_kernel_tables
 
     secs = {}
-    for family in ("bvh2", "bvh16", "lane", "bvh4_sidecar", "bvh4_multipop"):
+    for family in ("bvh2", "bvh16", "lane", "bvh4_sidecar", "bvh4_multipop", "bvh4_split",
+                   "bvh2_split", "wavefront"):
         t0 = time.perf_counter()
         add_kernel_tables(r.bvh, {family})
         add_kernel_tables_to_device(r.dev_bvh, r.bvh, device, {family})
+        torch.cuda.synchronize()
         secs[family] = time.perf_counter() - t0
     return secs
 
@@ -388,15 +430,15 @@ def phase_kernels(device):
     ref = tab[:, idx.long()]
     require(torch.equal(out, ref), "gather kernel differs from tab[:, idx]")
     require(torch.equal(torch.index_select(tab, 1, idx), ref), "index_select differs from tab[:, idx]")
-    g_ms = cuda_ms(lambda: tgather.gather_channels(tab, idx), 50)
-    g_plain = cuda_ms(lambda: tgather.gather_channels_plain(tab, idx), 50)
-    g_lib = cuda_ms(lambda: torch.index_select(tab, 1, idx), 50)
+    g_ms = device_ms(lambda: tgather.gather_channels(tab, idx), 50)
+    g_plain = device_ms(lambda: tgather.gather_channels_plain(tab, idx), 50)
+    g_lib = device_ms(lambda: torch.index_select(tab, 1, idx), 50)
     g_bound, g_by = bound(tab.numel() * 4 + idx.numel() * 4 + out.numel() * 4, 0)
     log(f"[kernels] gather_channels [4,8192] x 2M: kernel {g_ms:.4f} ms, plain torch {g_plain:.4f} ms, "
         f"torch.index_select {g_lib:.4f} ms, bound {g_bound:.4f} ms ({g_by}), exact")
     results["gather_channels"] = dict(max_abs_err=float((out - ref).abs().max()), ms=g_ms, plain_ms=g_plain,
                                       library_ms=g_lib, bound_ms=g_bound, bound_by=g_by)
-    return results
+    return results, r, (ro, rd)
 
 
 def phase_main_path(device, tmp, smi):
@@ -411,16 +453,7 @@ def phase_main_path(device, tmp, smi):
     r.create_hdr(hdr)
     cfg = r._config()
     log(f"[main] {FRAME_W}x{FRAME_H} spp {SPP} depth {DEPTH}, features {sorted(cfg.features)}, env {cfg.env_kind}")
-    times, rays = [], []
-    for i in range(WARMUP + TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        aux = r.on_render()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if i >= WARMUP:
-            times.append(dt)
-            rays.append(float(aux["rays"]))
+    times, rays, first = _render_frames(r, WARMUP, TIMED)
     launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
     overflow = tb4.OVERFLOW.total()
     img = r.image_linear()
@@ -438,7 +471,41 @@ def phase_main_path(device, tmp, smi):
         f"{np.mean(rays):.0f} rays/frame, {mrays:.3f} Mrays/s on {smi}; "
         f"image mean {img.mean(axis=(0, 1)).round(4).tolist()}")
     log(f"[main] kernel launches over {WARMUP + TIMED} frames: {launches}")
-    return launches, ms, mrays
+    return launches, ms, mrays, first
+
+
+def _render_frames(r, warmup, timed):
+    """warmup + timed frames of renderer r, each between two synchronises;
+    returns (seconds and rays of the timed frames, frame 0 as (linear
+    image, first-hit rnode, first-hit tri, rays))."""
+    times, rays, first = [], [], None
+    for i in range(warmup + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = r.on_render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i == 0:
+            first = (r.image_linear(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy(),
+                     float(aux["rays"]))
+        if i >= warmup:
+            times.append(dt)
+            rays.append(float(aux["rays"]))
+    return times, rays, first
+
+
+def _require_agree(tag, first, ref):
+    """Frame 0 against a reference frame 0 at tests/test_torch_frame.py's
+    thresholds, with the same ray count."""
+    img, rn, tri, rays = first
+    img_r, rn_r, tri_r, rays_r = ref
+    ids = ((rn == rn_r) & (tri == tri_r)).mean()
+    close = (np.abs(img - img_r) <= 1e-3 * (1 + np.abs(img_r))).all(-1).mean()
+    rel = np.abs(img.mean((0, 1)) - img_r.mean((0, 1))) / np.abs(img_r.mean((0, 1)))
+    log(f"{tag}: first-hit ids equal {ids:.6f}, pixels within 1e-3 {close:.6f}, channel-mean rel "
+        f"diff {rel.max():.2e}, rays {rays:.0f} vs {rays_r:.0f}")
+    require(ids >= 0.999 and close >= 0.99 and rel.max() <= 1e-3 and rays == rays_r,
+            f"{tag}: frame 0 disagrees")
 
 
 def phase_correctness(device, tmp):
@@ -485,7 +552,8 @@ def phase_large_kernels(device, glb, hdr):
     for family, t in _all_tables(r, device).items():
         log(f"[large] {family} table (host build + upload) in {t:.1f} s")
     bvh = r.dev_bvh
-    for name in ("nodes4_fi", "tris128", "nodes_fi", "nodes16_fi", "lane_pages", "nodes4_sc", "hit_attr"):
+    for name in ("nodes4_fi", "tris128", "nodes_fi", "nodes16_fi", "lane_pages", "nodes4_sc", "hit_attr",
+                 "nodes4_f", "nodes4_i", "nodes_f", "nodes_i", "nodes_self", "tris"):
         a = getattr(wb, name)
         log(f"[large] {name} {tuple(a.shape)} {a.nbytes / 1e6:.1f} MB")
     log(f"[large] root codes: binary {bvh.root_code}, BVH4 {bvh.root4_code}; stack need "
@@ -506,7 +574,8 @@ def phase_large_kernels(device, glb, hdr):
     log(f"[large] {n} rays ({n // 2} camera rays at stride 2, {n - n // 2} incoherent); plain "
         f"versions on a fixed subset of {SUBSET}")
     names = ("traverse_bvh2", "traverse_bvh16", "traverse_lanes", "traverse_bvh4") + BVH4_VARIANTS
-    return _run_kernels("large", names, _traversal_runs(bvh), comps, tmin, far, shadow_tmax, sub)
+    return (_run_kernels("large", names, _traversal_runs(bvh), comps, tmin, far, shadow_tmax, sub), r,
+            (ro, rd))
 
 
 def phase_terrain_frames(device, glb, hdr, smi, tmp):
@@ -521,20 +590,7 @@ def phase_terrain_frames(device, glb, hdr, smi, tmp):
             m.COUNTER.launches = 0
             m.OVERFLOW.reset()
         tgather.COUNTER.launches = 0
-        times, rays = [], []
-        first = None
-        for i in range(WARMUP + TIMED):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            aux = r.on_render()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            if i == 0:
-                first = (r.image_linear(), aux["first_rnode"].cpu().numpy(),
-                         aux["first_tri"].cpu().numpy(), float(aux["rays"]))
-            if i >= WARMUP:
-                times.append(dt)
-                rays.append(float(aux["rays"]))
+        times, rays, first = _render_frames(r, WARMUP, TIMED)
         launches = {name: m.COUNTER.launches for name, m in mods.items()}
         dropped = {name: m.OVERFLOW.total() for name, m in mods.items()}
         img = r.image_linear()
@@ -553,17 +609,9 @@ def phase_terrain_frames(device, glb, hdr, smi, tmp):
             f"{np.mean(rays):.0f} rays/frame, {mrays:.3f} Mrays/s on {smi}; launches {launches}")
         runs[selection] = dict(ms=ms, mrays=mrays, launches=launches, first=first)
 
-    img_r, rn_r, tri_r, rays_r = runs[SELECTIONS[0]]["first"]
     for selection in SELECTIONS[1:]:
-        img, rn, tri, rays = runs[selection]["first"]
-        ids = ((rn == rn_r) & (tri == tri_r)).mean()
-        close = (np.abs(img - img_r) <= 1e-3 * (1 + np.abs(img_r))).all(-1).mean()
-        rel = np.abs(img.mean((0, 1)) - img_r.mean((0, 1))) / np.abs(img_r.mean((0, 1)))
-        log(f"[terrain] frame 0 {selection} vs {SELECTIONS[0]}: first-hit ids equal {ids:.6f}, pixels "
-            f"within 1e-3 {close:.6f}, channel-mean rel diff {rel.max():.2e}, rays {rays:.0f} vs "
-            f"{rays_r:.0f}")
-        require(ids >= 0.999 and close >= 0.99 and rel.max() <= 1e-3 and rays == rays_r,
-                f"{selection}: frame 0 disagrees with {SELECTIONS[0]}")
+        _require_agree(f"[terrain] frame 0 {selection} vs {SELECTIONS[0]}", runs[selection]["first"],
+                       runs[SELECTIONS[0]]["first"])
     for k in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL"):
         os.environ.pop(k, None)
     return runs
@@ -608,8 +656,8 @@ def phase_megakernel(device, scenes, smi):
             tb4.COUNTER.launches = 0
             mk.OVERFLOW.reset()
             tb4.OVERFLOW.reset()
-            mega_ms = cuda_ms(mega, 5)
-            wave_ms = cuda_ms(wave, 5)
+            mega_ms = device_ms(mega, 5)
+            wave_ms = device_ms(wave, 5)
             launches = {"render_mega": mk.COUNTER.launches, "traverse_bvh4": tb4.COUNTER.launches}
             require(launches["render_mega"] == 6 and launches["traverse_bvh4"] == 6 * depth,
                     f"{label} depth {depth}: launches {launches}")
@@ -648,12 +696,220 @@ def phase_megakernel(device, scenes, smi):
     return results
 
 
+def phase_split_kernels(device, label, r, ro, rd):
+    """The packet4 and v1 kernels on renderer r's scene (its split tables
+    uploaded by _all_tables) and probe rays ro, rd."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse as tt
+    from vk_gltf_renderer_tpu_torch.ops.intersect import STACK_CAPACITY, intersect_rays_packet
+
+    bvh = r.dev_bvh
+    mods = _traversal_modules()
+    n = ro.shape[0]
+    comps = [ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
+    tmin = torch.zeros(n, device=device)
+    far = torch.full((n,), 1e32, device=device)
+    g = torch.Generator(device="cpu").manual_seed(99)
+    shadow_tmax = (torch.rand(n, generator=g) * float((bvh.scene_hi - bvh.scene_lo).norm())).to(device)
+    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(5))[:SUBSET].to(device)
+    log(f"[split] {label}: {n} rays, plain versions on a fixed subset of {SUBSET}; tables "
+        + ", ".join(f"{k} {tuple(getattr(bvh, k).shape)} {getattr(bvh, k).numel() * 4 / 1e6:.1f} MB"
+                    for k in ("nodes4_f", "nodes4_i", "nodes_f", "nodes_i", "tris", "wtri_rnode")))
+    kernels = {"traverse_bvh4_split": (tt.traverse_bvh4_split_plain, (bvh.nodes4_f, bvh.nodes4_i, bvh.tris)),
+               "traverse_bvh2_split": (tt.traverse_bvh2_split_plain, (bvh.nodes_f, bvh.nodes_i, bvh.tris))}
+    results = {}
+    for name, (plain, tables) in kernels.items():
+        family, kw, arity, row_bytes = SPLIT[name]
+        mod = mods[name]
+        need, cap = bvh.stack_need[family], STACK_CAPACITY[family]
+        require(need <= cap, f"{name}: the tree needs a {need}-entry stack of {cap}")
+        mod.OVERFLOW.reset()
+        args = (*comps, tmin, far)
+        fn = getattr(mod, name)
+        ms = device_ms(lambda: fn(*tables, *args), 10)
+        entry_ms = device_ms(lambda: intersect_rays_packet(bvh, ro, rd, tmin, far, **kw), 10)
+        any_ms = device_ms(lambda: intersect_rays_packet(bvh, ro, rd, tmin, shadow_tmax, anyhit=True, **kw), 10)
+        # the entry point's run: one closest-hit and one anyhit=True call
+        mod.COUNTER.launches = 0
+        closest = intersect_rays_packet(bvh, ro, rd, tmin, shadow_tmax, **kw)
+        anyhit = intersect_rays_packet(bvh, ro, rd, tmin, shadow_tmax, anyhit=True, **kw)
+        launches = mod.COUNTER.launches
+        require(launches == 2, f"{name}: {launches} launches for two intersect_rays_packet calls")
+        require(all(torch.equal(closest[k], anyhit[k]) for k in closest),
+                f"{name}: anyhit=True differs from the closest hit")
+        sargs = tuple(a[sub].contiguous() for a in args)
+        k = fn(*tables, *sargs)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = plain(*tables, *sargs, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _check_against_plain(name, k, p, SUBSET, False)  # ids: tris rows
+        require(mod.OVERFLOW.total() == 0, f"{name}: the kernel dropped {mod.OVERFLOW.total()} pushes")
+        b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, SUBSET, SPLIT_LEAF_BYTES)
+        hits = int((closest["tri"] >= 0).sum())
+        log(f"[split] {label} {name}: kernel {ms:.3f} ms closest hit for {n} rays ({n / ms / 1e3:.1f} "
+            f"Mrays/s), through intersect_rays_packet {entry_ms:.3f} ms, anyhit=True {any_ms:.3f} ms and "
+            f"equal to the closest hit on every ray ({hits} hits within the shadow segments); plain "
+            f"{plain_ms:.1f} ms for {SUBSET} rays; stack need {need} of {cap}; visits {visits}; bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        results[name] = dict(ms=ms, entry_ms=entry_ms, anyhit_ms=any_ms, plain_ms=plain_ms,
+                             max_abs_err=err, bound_ms=b_ms, bound_by=b_by, rays=n, plain_rays=SUBSET,
+                             stack_need=need, launches=launches)
+    return results
+
+
+def phase_packet4_frames(device, scenes, smi):
+    """VKGR_TRAVERSAL=packet4 at the bench recipe; scenes: (label, scene
+    path, hdr path, the (v3, v9) frame 0)."""
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    mods = _traversal_modules()
+    runs = {}
+    os.environ["VKGR_TRAVERSAL"] = "packet4"
+    for label, path, hdr, ref in scenes:
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        t0 = time.perf_counter()
+        r.create_scene(path)
+        r.create_hdr(hdr)
+        secs = time.perf_counter() - t0
+        for m in mods.values():
+            m.COUNTER.launches = 0
+            m.OVERFLOW.reset()
+        tgather.COUNTER.launches = 0
+        times, rays, first = _render_frames(r, WARMUP, TIMED)
+        launches = {name: m.COUNTER.launches for name, m in mods.items()}
+        dropped = {name: m.OVERFLOW.total() for name, m in mods.items()}
+        require(all((v > 0) == (k == "traverse_bvh4_split") for k, v in launches.items()),
+                f"packet4 {label}: traversal launches {launches}, expected only traverse_bvh4_split")
+        require(tgather.COUNTER.launches > 0, "the HDR gather never launched")
+        require(not any(dropped.values()), f"packet4 {label}: dropped work {dropped}")
+        img = r.image_linear()
+        require(np.isfinite(img).all() and img.mean() > 0.01, f"packet4 {label}: image not finite or black")
+        ms = 1e3 * float(np.mean(times))
+        mrays = float(np.mean(rays)) / float(np.mean(times)) / 1e6
+        log(f"[packet4] {label}: create_scene+create_hdr {secs:.1f} s; {TIMED} frames {ms:.2f} ms/frame "
+            f"(min {1e3 * min(times):.2f}, max {1e3 * max(times):.2f}), {np.mean(rays):.0f} rays/frame, "
+            f"{mrays:.3f} Mrays/s on {smi}; launches {launches['traverse_bvh4_split']} of "
+            f"traverse_bvh4_split, {tgather.COUNTER.launches} of gather_channels")
+        _require_agree(f"[packet4] {label} frame 0 vs (v3, v9)", first, ref)
+        runs[label] = dict(ms=ms, mrays=mrays, launches=launches["traverse_bvh4_split"])
+    os.environ.pop("VKGR_TRAVERSAL")
+    return runs
+
+
+def phase_wavefront_frame(device, path, hdr, smi):
+    """VKGR_TRAVERSAL=wavefront on the helmet at the largest size whose
+    frame is predicted under WAVEFRONT_FRAME_S from a 960x540 frame (its
+    time scaled by pixel count)."""
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    def renderer(w, h):
+        r = GltfRenderer(w, h, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(path)
+        r.create_hdr(hdr)
+        return r
+
+    mods = _traversal_modules()
+    for m in mods.values():
+        m.COUNTER.launches = 0
+    os.environ["VKGR_TRAVERSAL"] = "wavefront"
+    w0, h0 = WAVEFRONT_SIZES[1]
+    r = renderer(w0, h0)
+    (t_size,), _, first = _render_frames(r, 0, 1)
+    w, h = next(((w, h) for w, h in WAVEFRONT_SIZES if t_size * w * h / (w0 * h0) <= WAVEFRONT_FRAME_S),
+                WAVEFRONT_SIZES[-1])
+    log(f"[wavefront] helmet {w0}x{h0} sizing frame {t_size:.2f} s: rendering at {w}x{h}")
+    if (w, h) == (w0, h0):  # the sizing frame was the warm-up
+        times, rays, _ = _render_frames(r, 0, 1)
+    else:
+        r = renderer(w, h)
+        times, rays, first = _render_frames(r, 1, 1)
+    launches = {name: m.COUNTER.launches for name, m in mods.items()}
+    os.environ.pop("VKGR_TRAVERSAL")
+    require(not any(launches.values()), f"wavefront: traversal kernels launched {launches}")
+    img = r.image_linear()
+    require(np.isfinite(img).all() and img.mean() > 0.01, "wavefront: image not finite or black")
+    log(f"[wavefront] helmet {w}x{h} spp {SPP} depth {DEPTH}: 1 frame {times[0]:.2f} s, {rays[0]:.0f} rays, "
+        f"{rays[0] / times[0] / 1e6:.3f} Mrays/s on {smi}; no traversal kernel launched")
+    _, _, ref = _render_frames(renderer(w, h), 1, 0)
+    _require_agree(f"[wavefront] helmet {w}x{h} frame 0 vs (v3, v9)", first, ref)
+    return dict(ms=1e3 * times[0], size=f"{w}x{h}", sizing_s=t_size, mrays=rays[0] / times[0] / 1e6)
+
+
+def _plain_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_probes(device):
+    """The node-fetch and visit probes through their run() entries, then
+    every run against its plain version."""
+    from vk_gltf_renderer_tpu_torch.probes import nodefetch as nf
+    from vk_gltf_renderer_tpu_torch.probes import visit as vs
+
+    nf.COUNTER.launches = 0
+    vs.COUNTER.launches = 0
+    nf_runs = nf.run(device)
+    vs_runs = vs.run(device)
+    launches = {"probe_nodefetch": nf.COUNTER.launches, "probe_visit": vs.COUNTER.launches}
+    require(all(v > 0 for v in launches.values()), f"a probe never launched: {launches}")
+    results = {"probe_nodefetch": {"runs": {}}, "probe_visit": {"runs": {}}}
+    for run in nf_runs:
+        tab, start, rox = run["inputs"]
+        stats = {}
+        plain, plain_ms = _plain_ms(lambda: nf.probe_nodefetch_plain(*run["inputs"], run["visits"], stats=stats))
+        require(torch.equal(run["out"], plain), f"probe_nodefetch {run['label']}: kernel and plain differ")
+        err = float((run["out"].double() - plain.double()).abs().max())
+        n = rox.numel()
+        rows = int(stats["rows"].sum())
+        b_ms, b_by = bound(rows * nf.ROW_BYTES + n * 4 * 2 + start.numel() * 4, n * run["visits"] * 8)
+        log(f"[probe] nodefetch {run['label']}: table {tuple(tab.shape)} ({tab.numel() * 4 / 1e6:.1f} MB), "
+            f"{start.numel()} chains x {run['visits']} visits in blocks of {run['block']} threads, {rows} "
+            f"distinct rows: {run['ms']:.3f} ms, "
+            f"{run['ns']:.1f} ns per dependent visit; equal to plain ({plain_ms:.1f} ms); bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        results["probe_nodefetch"]["runs"][run["label"]] = dict(ms=run["ms"], ns_per_visit=run["ns"],
+                                                                plain_ms=plain_ms, max_abs_err=err,
+                                                                bound_ms=b_ms, bound_by=b_by)
+    for run in vs_runs:
+        fi, sc, ro = run["inputs"]
+        stats = {}
+        plain, plain_ms = _plain_ms(lambda: vs.probe_visit_plain(*run["inputs"], run["visits"], run["variant"],
+                                                                 stats=stats))
+        require(torch.equal(run["out"], plain), f"probe_visit {run['variant']}: kernel and plain differ")
+        err = float((run["out"].double() - plain.double()).abs().max())
+        ways = vs.VARIANTS[run["variant"]]
+        rows = int(stats["rows"].sum())
+        lanes = ro.shape[0] * vs.SUB * vs.LANE
+        b_ms, b_by = bound(rows * (128 + 32) + lanes * 4 * (3 + 1),
+                           lanes * (run["visits"] // ways) * 4 * BOX_FLOPS)
+        log(f"[probe] visit {run['variant']} ({ways} chain(s) per packet, {ro.shape[0]} packets, "
+            f"{run['visits']} visits, {rows} distinct rows): {run['ms']:.3f} ms, {run['ns']:.1f} ns per visit, "
+            f"{run['ns_step']:.1f} ns per dependent step; equal to plain ({plain_ms:.1f} ms); bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        results["probe_visit"]["runs"][run["variant"]] = dict(ms=run["ms"], ns_per_visit=run["ns"],
+                                                              ns_per_step=run["ns_step"], plain_ms=plain_ms,
+                                                              max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+    for name, first in (("probe_nodefetch", "variant a"), ("probe_visit", "a")):
+        runs = results[name]["runs"]
+        head = runs[first]
+        results[name].update(launches=launches[name], library_ms=None,
+                             max_abs_err=max(v["max_abs_err"] for v in runs.values()),
+                             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return results
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
-    e = {"name": name, "route": "cuda", "source": SRC + src, "replaces": REF + replaces}
+    e = {"name": name, "route": "cuda", "source": SRC + src, "replaces": replaces}
     if also:
-        e["also_replaces"] = REF + also
+        e["also_replaces"] = also
     e["launches"] = launches
     for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
         e[key] = nums[key]
@@ -667,9 +923,9 @@ def main():
     t_start = time.perf_counter()
     device, smi = phase_device()
     phase_build()
-    kern = phase_kernels(device)
+    kern, helmet_r, helmet_rays = phase_kernels(device)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, ms, mrays = phase_main_path(device, tmp, smi)
+        launches, ms, mrays, helmet_first = phase_main_path(device, tmp, smi)
         phase_correctness(device, tmp)
         log(f"[time] helmet phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -679,7 +935,7 @@ def main():
         hdr = write_synthetic_hdr(os.path.join(tmp, "sky.hdr"), 256, 512, seed=0)
         world = write_large_glb(glb, LARGE_TRIS)
         require(world == LARGE_WORLD_TRIS, f"terrain has {world} world triangles")
-        large = phase_large_kernels(device, glb, hdr)
+        large, terrain_r, terrain_rays = phase_large_kernels(device, glb, hdr)
         log(f"[time] large-scene kernels done at {time.perf_counter() - t_start:.1f} s")
         frames = phase_terrain_frames(device, glb, hdr, smi, tmp)
         log(f"[time] terrain frames done at {time.perf_counter() - t_start:.1f} s")
@@ -688,6 +944,18 @@ def main():
         terrain, _ = _terrain_renderer(glb, hdr, device, SELECTIONS[0])
         mega = phase_megakernel(device, (("helmet", helmet), ("terrain", terrain)), smi)
         log(f"[time] megakernel A/B done at {time.perf_counter() - t_start:.1f} s")
+        split = {"helmet": phase_split_kernels(device, "helmet", helmet_r, *helmet_rays),
+                 "terrain": phase_split_kernels(device, "terrain", terrain_r, *terrain_rays)}
+        del helmet, terrain, helmet_r, terrain_r
+        log(f"[time] split-table kernels done at {time.perf_counter() - t_start:.1f} s")
+        helmet_path = os.path.join(tmp, "helmet.gltf")
+        packet4 = phase_packet4_frames(device, (("terrain", glb, hdr, frames[SELECTIONS[0]]["first"]),
+                                                ("helmet", helmet_path, hdr, helmet_first)), smi)
+        log(f"[time] packet4 frames done at {time.perf_counter() - t_start:.1f} s")
+        wave = phase_wavefront_frame(device, helmet_path, hdr, smi)
+        log(f"[time] wavefront frame done at {time.perf_counter() - t_start:.1f} s")
+    probes = phase_probes(device)
+    log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         _entry("traverse_bvh4", launches["traverse_bvh4"], kern["traverse_bvh4"],
@@ -703,12 +971,26 @@ def main():
         kernels.append(_entry(name, frames[sel]["launches"][name], large[name], **extra))
     kernels.append(_entry("render_mega", mega[("terrain", 5)]["launches"], mega[("terrain", 5)],
                           runs={f"{label},depth{depth}": v for (label, depth), v in mega.items()}))
+    kernels.append(_entry("traverse_bvh4_split", packet4["terrain"]["launches"],
+                          split["terrain"]["traverse_bvh4_split"], helmet=split["helmet"]["traverse_bvh4_split"],
+                          helmet_launches=packet4["helmet"]["launches"]))
+    # v1 has no renderer path: its launches are those of phase 9's two intersect_rays_packet
+    # calls on the terrain
+    kernels.append(_entry("traverse_bvh2_split", split["terrain"]["traverse_bvh2_split"]["launches"],
+                          split["terrain"]["traverse_bvh2_split"], helmet=split["helmet"]["traverse_bvh2_split"],
+                          launches_of="phase 9: intersect_rays_packet(v2=False), closest hit and "
+                                      "anyhit=True, on the terrain's probe rays"))
+    for name in ("probe_nodefetch", "probe_visit"):
+        kernels.append(_entry(name, probes[name]["launches"], probes[name]))
     terrain = {f"{p},{q}": {"ms_per_frame": frames[(p, q)]["ms"], "mrays_per_s": frames[(p, q)]["mrays"]}
                for p, q in SELECTIONS}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "frame_ms": ms, "mrays_per_s": mrays,
                       "frame": f"{FRAME_W}x{FRAME_H} spp{SPP} depth{DEPTH} helmet stand-in + HDR",
                       "terrain_frames": terrain,
+                      "packet4_frames": {k: {"ms_per_frame": v["ms"], "mrays_per_s": v["mrays"]}
+                                         for k, v in packet4.items()},
+                      "wavefront_frame": wave,
                       "terrain_frame": f"{FRAME_W}x{FRAME_H} spp{SPP} depth{DEPTH} terrain "
                                        f"{LARGE_WORLD_TRIS} tris + HDR"}))
     print(smi)

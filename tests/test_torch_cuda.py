@@ -26,7 +26,11 @@ from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_sidecar as tbsc
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16
 from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from vk_gltf_renderer_tpu_torch.ops.flat import build_scene_flat
-from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_soa
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2_split as tb2s
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_split as tb4s
+from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_packet, intersect_rays_soa
+from vk_gltf_renderer_tpu_torch.probes import nodefetch as tnf
+from vk_gltf_renderer_tpu_torch.probes import visit as tvis
 from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb
 
 pytestmark = pytest.mark.cuda
@@ -182,3 +186,79 @@ def test_megakernel_matches_wavefront_and_plain(cuda, scene):
     assert torch.equal(mega, wave) and torch.equal(mega, plain)
     rad = mega[:, 0].reshape(-1)[:n]
     assert bool((rad > 0).any()) and bool((rad == 0).any())
+
+
+# split kernel -> (wrapper module, plain version, DeviceBvh tables, table family)
+SPLIT = {
+    "packet4": (tb4s, ttrav.traverse_bvh4_split_plain, ("nodes4_f", "nodes4_i", "tris"),
+                "bvh4_split"),
+    "v1": (tb2s, ttrav.traverse_bvh2_split_plain, ("nodes_f", "nodes_i", "tris"), "bvh2_split"),
+}
+
+
+@pytest.mark.parametrize("scene", ["helmet", "terrain"])
+@pytest.mark.parametrize("kernel", sorted(SPLIT))
+def test_split_traversal_kernels_match_plain(cuda, scene, kernel):
+    """The packet4 and v1 kernels through intersect_rays_packet against
+    their plain versions on the card: ids equal except on equal-t ties,
+    t/u/v within 1e-5, nothing dropped, one launch counted; anyhit=True
+    returns the closest hit (neither kernel has an any-hit mode)."""
+    mod, plain, tables, family = SPLIT[kernel]
+    wb = _helmet_bvh() if scene == "helmet" else _terrain_bvh()
+    bvh = add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, {family})
+    rng = np.random.default_rng(35)
+    n = 20000
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    ro = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.full(n, 1e32, np.float32)
+    tmax[::101] = -1.0
+    ro_t, rd_t, tmax_t = (torch.tensor(a, device=cuda) for a in (ro, rd, tmax))
+    kw = {"wide": True} if kernel == "packet4" else {"v2": False}
+    launches = mod.COUNTER.launches
+    mod.OVERFLOW.reset()
+    k = intersect_rays_packet(bvh, ro_t, rd_t, 0.0, tmax_t, **kw)
+    torch.cuda.synchronize()
+    assert mod.COUNTER.launches == launches + 1
+    k_any = intersect_rays_packet(bvh, ro_t, rd_t, 0.0, tmax_t, anyhit=True, **kw)
+    assert all(torch.equal(k[f], k_any[f]) for f in k)
+    comps = [ro_t[:, c].contiguous() for c in range(3)] + [rd_t[:, c].contiguous() for c in range(3)]
+    t, _, row, u, v, dropped = plain(*(getattr(bvh, name) for name in tables), *comps,
+                                     torch.zeros(n, device=cuda), tmax_t)
+    assert dropped == 0 and mod.OVERFLOW.total() == 0
+    hit = row >= 0
+    assert int(hit.sum()) > 100 and torch.equal(k["tri"] >= 0, hit)
+    safe = row.clamp(min=0).long()
+    same = (k["tri"] == bvh.wtri_tri[safe]) & (k["rnode"] == bvh.wtri_rnode[safe])
+    tie = torch.isclose(k["t"], torch.where(hit, t, k["t"]), rtol=1e-6, atol=0)
+    assert bool((same | tie | ~hit).all())
+    torch.testing.assert_close(k["t"][hit], t[hit], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k["u"][same & hit], u[same & hit], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k["v"][same & hit], v[same & hit], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", tnf.VARIANTS)
+def test_probe_nodefetch_matches_plain(cuda, variant):
+    """The node-fetch kernel computes the plain version's float32 ops in
+    the same order (no contraction: -fmad=false): equal, for every variant
+    name and on a random-cycle table."""
+    tab, start, rox = tnf.tpu_inputs(cuda)
+    launches = tnf.COUNTER.launches
+    out = tnf.probe_nodefetch(tnf.variant_table(tab, variant), start, rox, 256)
+    assert tnf.COUNTER.launches == launches + 1
+    assert torch.equal(out, tnf.probe_nodefetch_plain(tab, start, rox, 256))
+    tab, start, rox = tnf.chain_inputs(100_003, cuda, seed=3)
+    plain = tnf.probe_nodefetch_plain(tab, start, rox, 256)
+    assert torch.equal(tnf.probe_nodefetch(tab, start, rox, 256), plain)
+    assert torch.equal(tnf.probe_nodefetch(tab, start, rox, 256, block=32), plain)
+
+
+@pytest.mark.parametrize("variant", sorted(tvis.VARIANTS))
+def test_probe_visit_matches_plain(cuda, variant):
+    fi, sc = (torch.tensor(a, device=cuda) for a in tvis.make_tables())
+    ro = torch.tensor(tvis.make_rays(), device=cuda)
+    launches = tvis.COUNTER.launches
+    out = tvis.probe_visit(fi, sc, ro, 512, variant)
+    assert tvis.COUNTER.launches == launches + 1
+    assert torch.equal(out, tvis.probe_visit_plain(fi, sc, ro, 512, variant))

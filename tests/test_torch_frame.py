@@ -11,17 +11,19 @@ So: first-hit ids equal on >= 99.9% of pixels, >= 99% of pixels within
 1e-3 * (1 + |ref|) in every channel, each channel's image mean within 1e-3
 relative, and the ray counts equal.
 
-The terrain test renders the 8,192-triangle terrain grid
+The terrain tests render the 8,192-triangle terrain grid
 (scenes.write_large_glb, grid=2) under each traversal-kernel selection of
-the port (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) against one JAX
-reference render (its CPU path traverses without kernels), at the same
-thresholds."""
+the port (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) and under
+VKGR_TRAVERSAL=packet4 and wavefront against one JAX reference render (its
+CPU path traverses without kernels, through the wavefront walk), at the
+same thresholds; the helmet + HDR frame is also rendered under packet4."""
 
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
@@ -30,6 +32,7 @@ import baseline_standins  # noqa: E402
 from vk_gltf_renderer_tpu.renderer import GltfRenderer as JaxRenderer  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb, write_synthetic_hdr  # noqa: E402
+from torch_test_helpers import one_torch_thread  # noqa: E402, F401 (a fixture)
 
 W, H, DEPTH, FRAMES = 48, 32, 5, 2
 
@@ -110,6 +113,51 @@ def test_terrain_frame_matches_jax_renderer_per_kernel(primary, packet, terrain_
     _assert_frames_agree(ref, port)
 
 
+SPLIT_TABLES = ("nodes_i", "nodes_f", "nodes_self", "nodes4_i", "nodes4_f")
+
+
+@pytest.mark.parametrize("traversal,tables", [("packet4", {"nodes4_i", "nodes4_f"}),
+                                              ("wavefront", {"nodes_i", "nodes_self"})])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_terrain_frame_matches_jax_renderer_per_traversal(traversal, tables, terrain_ref, monkeypatch):
+    """VKGR_TRAVERSAL=packet4 (the split BVH4 kernel for every trace) and
+    wavefront (the stackless walk) against the same JAX frames, whose CPU
+    path is itself the wavefront walk; each builds only its own tables."""
+    path, hdr, ref = terrain_ref
+    monkeypatch.setenv("VKGR_TRAVERSAL", traversal)
+    monkeypatch.setenv("VKGR_PRIMARY_KERNEL", "v6")  # not read by either traversal
+    r = GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu")
+    port = _render(r, path, hdr)
+    assert r._config().traversal == traversal
+    assert {k for k in SPLIT_TABLES if getattr(r.dev_bvh, k) is not None} == tables
+    assert r.dev_bvh.tris is not None and r.dev_bvh.wtri_rnode is not None
+    assert r.dev_bvh.nodes16_fi is None and r.dev_bvh.nodes_fi is None
+    _assert_frames_agree(ref, port)
+
+
+def test_helmet_hdr_frame_matches_jax_renderer_under_packet4(tmp_path, monkeypatch):
+    path = _helmet_path(tmp_path)
+    hdr = write_synthetic_hdr(tmp_path / "env.hdr", 64, 128)
+    ref = _render(JaxRenderer(W, H, spp=1, max_depth=DEPTH), path, hdr)
+    monkeypatch.setenv("VKGR_TRAVERSAL", "packet4")
+    r = GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu")
+    port = _render(r, path, hdr)
+    assert r.dev_bvh.nodes4_i is not None and r.dev_bvh.nodes_self is None
+    _assert_frames_agree(ref, port)
+
+
+def test_entry_points_default_to_the_card():
+    """The renderer and the megakernel's ray packing run on the card unless
+    the caller asks for the CPU."""
+    import inspect
+
+    from vk_gltf_renderer_tpu_torch.ops.megakernel import pack_rays
+
+    assert inspect.signature(GltfRenderer).parameters["device"].default == "cuda"
+    assert inspect.signature(pack_rays).parameters["device"].default == "cuda"
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_selection_change_builds_tables_and_unported_names_raise(tmp_path, monkeypatch):
     r = GltfRenderer(16, 12, spp=1, max_depth=2, device="cpu")
     r.create_scene(_tiny_path(tmp_path))
@@ -124,10 +172,18 @@ def test_selection_change_builds_tables_and_unported_names_raise(tmp_path, monke
             m.setenv(var, value)
             r.on_render()
     assert r.dev_bvh.nodes4_sc is not None and "bvh4_multipop" in r.dev_bvh.stack_need
-    for var, value in (("VKGR_TRAVERSAL", "packet4"), ("VKGR_TRAVERSAL", "wavefront")):
+    # the split traversals render and add their own tables; a traversal
+    # that is not ported (no such value in the reference) raises
+    for value, tables in (("packet4", ("nodes4_i", "nodes4_f")), ("wavefront", ("nodes_self",))):
+        assert all(getattr(r.dev_bvh, k) is None for k in tables)
         with monkeypatch.context() as m:
-            m.setenv(var, value)
-            with pytest.raises(NotImplementedError):
+            m.setenv("VKGR_TRAVERSAL", value)
+            r.on_render()
+        assert all(getattr(r.dev_bvh, k) is not None for k in tables)
+    for value in ("packet2", "Wavefront"):
+        with monkeypatch.context() as m:
+            m.setenv("VKGR_TRAVERSAL", value)
+            with pytest.raises(ValueError, match="unknown traversal"):
                 r.on_render()
 
 

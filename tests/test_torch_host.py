@@ -199,6 +199,56 @@ def test_stack_need_bounds_the_walk(tmp_path):
         wb.nodes4_fi, 2, wb.root4_code)
 
 
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_split_tables_equal_reference(name, tmp_path):
+    """nodes4_i and nodes4_f, the split BVH4 tables of the packet4
+    traversal, equal the reference's byte for byte."""
+    sc = SCENES[name](tmp_path)
+    ref = jbvh.build_world_bvh(jflat.build_scene_flat(sc))
+    port = tbvh.build_world_bvh(tflat.build_scene_flat(sc))
+    for k in ("nodes4_i", "nodes4_f"):
+        _assert_same(getattr(ref, k), getattr(port, k), k)
+    assert ((port.nodes4_i[:, 0:4] == -1) == (port.nodes4_f[:, 0:24:6] > 1e38)).all()
+
+
+@pytest.mark.parametrize("name", ["editor", "terrain", "few"])
+def test_split_stack_need_bounds_the_walk(name, tmp_path):
+    """split_stack_need is the deepest stack of the split walks when every
+    box is entered, over every order a ray's near-first pushes can take:
+    the packet4 walk pushes every child code but the missing ones (-1),
+    the v1 walk both children of an internal node. Checked against a
+    recursive worst case (any pushed child may be popped first, its
+    siblings below it) and against walks in random push orders, none of
+    which goes deeper."""
+    wb = tbvh.build_world_bvh(tflat.build_scene_flat(SCENES[name](tmp_path)))
+
+    def children4(e):
+        return [int(c) for c in wb.nodes4_i[e, 0:4] if c != -1] if e >= 0 else []
+
+    def children2(node):
+        left, right, _, count = (int(x) for x in wb.nodes_i[node, 0:4])
+        return [] if count else [left, right]
+
+    rng = np.random.default_rng(0)
+    for levels, children in ((2, children4), (1, children2)):
+        def worst(node, below):
+            kids = children(node)
+            return max([below + len(kids)] + [worst(c, below + len(kids) - 1) for c in kids])
+
+        need = tbvh.split_stack_need(wb, levels)
+        assert need == max(1, worst(0, 0)), levels
+        for _ in range(20):
+            deepest, stack = 1, [0]
+            while stack:
+                stack += list(rng.permutation(children(stack.pop())))
+                deepest = max(deepest, len(stack))
+            assert deepest <= need, levels
+        if name == "few":
+            assert need == (1 if levels == 1 else len(children4(0)))
+    with pytest.raises(ValueError):
+        tbvh.split_stack_need(wb, 4)
+
+
 @pytest.mark.parametrize("target,grid", [(8000, 2), (40_000, 4), (1_050_000, 8)])
 def test_write_large_glb_equals_tools_version(target, grid, tmp_path):
     from large_scene_demo import write_large_glb as tools_write_large_glb

@@ -92,7 +92,7 @@ def _rays(port, n, seed):
 
 
 def _port_inputs(port, ro, rd, seeds):
-    ro_p, rd_p, seeds_p, n = tmega.pack_rays(ro, rd, seeds)
+    ro_p, rd_p, seeds_p, n = tmega.pack_rays(ro, rd, seeds, device="cpu")
     return (torch.tensor(port.nodes4_fi), torch.tensor(port.tris128), ro_p, rd_p, seeds_p), n
 
 

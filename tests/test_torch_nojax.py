@@ -2,8 +2,9 @@
 subprocess blocks `import jax` and `import vk_gltf_renderer_tpu`, imports
 every module of the port, builds the helmet stand-in with the port's own
 writer and renders a frame on the CPU, renders the terrain grid under
-every traversal-kernel selection and runs a small megakernel render; and
-no source file of the port or chip_smoke.py imports either."""
+every traversal-kernel selection and under VKGR_TRAVERSAL=packet4 and
+wavefront, and runs a small megakernel render; and no source file of the
+port or chip_smoke.py imports either, or the reference's tools/."""
 
 import os
 import re
@@ -19,6 +20,7 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["vk_gltf_renderer_tpu"] = None  # and so does the JAX package
 import numpy as np
 import torch
+torch.set_num_threads(1)  # tiny tensors: a thread pool only adds contention beside other workers
 import vk_gltf_renderer_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
@@ -42,6 +44,15 @@ with tempfile.TemporaryDirectory() as d:
         r.create_scene(d + "/terrain.glb")
         r.on_render()
         images.append(r.image_linear())
+    os.environ.pop("VKGR_PRIMARY_KERNEL")
+    os.environ.pop("VKGR_PACKET_KERNEL")
+    for traversal in ("packet4", "wavefront"):
+        os.environ["VKGR_TRAVERSAL"] = traversal
+        r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
+        r.create_scene(d + "/terrain.glb")
+        r.on_render()
+        images.append(r.image_linear())
+    os.environ.pop("VKGR_TRAVERSAL")
     assert all(np.isfinite(i).all() and i.mean() > 0.01 for i in images)
     assert all(np.allclose(i, images[0], rtol=1e-3, atol=1e-3) for i in images)
     from vk_gltf_renderer_tpu_torch.ops.megakernel import pack_rays, render_mega
@@ -50,7 +61,8 @@ with tempfile.TemporaryDirectory() as d:
     ro = lo + rng.random((300, 3)) * (hi - lo)
     rd = rng.normal(size=(300, 3))
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    ro_p, rd_p, seeds, n = pack_rays(ro, rd, rng.integers(0, 2**32, 300, dtype=np.uint64))
+    ro_p, rd_p, seeds, n = pack_rays(ro, rd, rng.integers(0, 2**32, 300, dtype=np.uint64),
+                                     device="cpu")
     out = render_mega(r.dev_bvh.nodes4_fi, r.dev_bvh.tris128, ro_p, rd_p, seeds, 3,
                       r.dev_bvh.root4_code)
     assert out.shape == (1, 2, 8, 128) and bool(torch.isfinite(out).all())
@@ -73,7 +85,7 @@ def test_port_renders_with_jax_blocked():
 
 
 def test_no_port_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu)\b(?!_torch)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu|tools)\b(?!_torch)", re.M)
     files = list((ROOT / "vk_gltf_renderer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders

@@ -1,0 +1,363 @@
+"""Port split-table traversals: the packet4 walk (traverse_bvh4_split_plain,
+the plain version of csrc/traverse_bvh4_split.cu) and the v1 walk
+(traverse_bvh2_split_plain, csrc/traverse_bvh2_split.cu) through the port's
+intersect_rays_packet, against the reference's intersect_rays_packet in
+interpret mode (wide=True: traverse_packets4; v2=False: traverse_packets),
+as tests/test_bvh.py runs it; and the port's wavefront walk against the
+reference's intersect_rays_wavefront, which runs as it is on the CPU. Both
+are also held against the brute-force oracle.
+
+Tolerances (as tests/test_torch_traverse.py): t and u/v within 1e-5; u/v
+within 1e-4 on the terrain and the helmet, whose small triangles carry
+~100x the absolute rounding of unit-size ones and where XLA:CPU rounds u
+and v otherwise than torch (see test_torch_traverse.py's terrain test).
+Measured on these rays: up to 4.9e-5 on the terrain, and the port's
+fused BVH4 walk (v3) shows the same 4.9e-5 on the same ray against the
+reference's v3, while the split walks' u/v equal the port's own fused
+walks' bit for bit wherever the ids agree (asserted below). Ids equal except on
+equal-t ties, which the reference's packet-majority near order and the
+port's per-ray order may resolve differently. Neither split kernel has an
+any-hit mode: with anyhit=True both sides return the closest hit with its
+real t.
+
+Scenes: the editor scene, the helmet stand-in, a 2x2 grid of the terrain
+patches (8,192 triangles) and a 2-triangle scene whose root is a leaf."""
+
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+import baseline_standins  # noqa: E402
+from vk_gltf_renderer_tpu.models import Scene  # noqa: E402
+from vk_gltf_renderer_tpu.models.editor import SceneEditor  # noqa: E402
+from vk_gltf_renderer_tpu.ops.bvh_flatten import build_world_bvh  # noqa: E402
+from vk_gltf_renderer_tpu.ops.flat import build_scene_flat  # noqa: E402
+from vk_gltf_renderer_tpu.ops.pallas_traverse import intersect_rays_packet as ref_packet  # noqa: E402
+from vk_gltf_renderer_tpu.ops.traverse_wavefront import (  # noqa: E402
+    intersect_rays_wavefront as ref_wavefront,
+    traverse_wavefront as ref_traverse_wavefront,
+)
+from vk_gltf_renderer_tpu_torch.convert import (  # noqa: E402
+    SPLIT_FAMILIES,
+    add_kernel_tables_to_device,
+    bvh_to_device,
+    from_reference,
+)
+from vk_gltf_renderer_tpu_torch.ops import bvh_flatten as tbvh  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import flat as tflat  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse as ttrav  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2_split as tb2s  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_split as tb4s  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_wavefront as twave  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops.intersect import (  # noqa: E402
+    STACK_CAPACITY,
+    intersect_rays_packet,
+    intersect_rays_soa,
+    intersect_rays_wavefront,
+)
+from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
+from torch_test_helpers import one_torch_thread  # noqa: E402, F401 (a fixture)
+
+INF = 1e30
+SCENES = ["editor", "helmet", "terrain", "few"]
+
+
+def _editor_scene():
+    sc = baseline_standins._empty_scene()
+    ed = SceneEditor(sc)
+    ed.add_primitive("sphere", segments=12)
+    cube = ed.add_primitive("cube")
+    ed.set_translation(cube, [2.0, 0.5, -1.0])
+    plate = ed.add_primitive("plane")
+    ed.set_translation(plate, [0.0, -1.2, 0.0])
+    ed.set_scale(plate, [3.0, 1.0, 3.0])
+    sc.parse_scene()
+    return sc
+
+
+def _build(sc):
+    flat = build_scene_flat(sc)
+    wb = build_world_bvh(flat)
+    _, bvh_t, _ = from_reference(None, wb, None, "cpu")
+    return flat, wb, bvh_t
+
+
+@pytest.fixture(scope="module")
+def editor():
+    return _build(_editor_scene())
+
+
+@pytest.fixture(scope="module")
+def helmet(tmp_path_factory):
+    sc = Scene()
+    sc.load(baseline_standins.make_helmet(str(tmp_path_factory.mktemp("helmet"))))
+    return _build(sc)
+
+
+@pytest.fixture(scope="module")
+def terrain(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("terrain") / "terrain.glb")
+    assert write_large_glb(p, target_tris=8000, grid=2) == 8192
+    sc = Scene()
+    sc.load(p)
+    return _build(sc)
+
+
+@pytest.fixture(scope="module")
+def few():
+    sc = baseline_standins._empty_scene()
+    SceneEditor(sc).add_primitive("plane")
+    sc.parse_scene()
+    flat, wb, bvh_t = _build(sc)
+    assert wb.num_world_tris <= 8 and wb.nodes_i[0, 3] > 0  # the root is a leaf
+    return flat, wb, bvh_t
+
+
+def _aimed_rays(wb, n, seed):
+    """Half the rays from a sphere around the scene aimed at random points
+    of its box, half incoherent rays from inside it; a few dead lanes
+    (tmax = -1)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    c = (lo + hi) / 2
+    r = float(np.linalg.norm(hi - lo))
+    d = rng.normal(size=(n // 2, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ro1 = c + d * r
+    rd1 = lo + rng.random((n // 2, 3)) * (hi - lo) - ro1
+    rd1 /= np.linalg.norm(rd1, axis=1, keepdims=True)
+    ro2 = lo + rng.random((n - n // 2, 3)) * (hi - lo)
+    rd2 = rng.normal(size=(n - n // 2, 3))
+    rd2 /= np.linalg.norm(rd2, axis=1, keepdims=True)
+    ro = np.concatenate([ro1, ro2]).astype(np.float32)
+    rd = np.concatenate([rd1, rd2]).astype(np.float32)
+    tmax = np.full(n, 1e32, np.float32)
+    tmax[::97] = -1.0
+    return ro, rd, tmax
+
+
+def _port(fn, bvh_t, ro, rd, tmax, **kw):
+    out = fn(bvh_t, torch.tensor(ro), torch.tensor(rd), 0.0, torch.tensor(tmax), **kw)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _port_soa(bvh_t, ro, rd, tmax, kernel):
+    c = [torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)]
+    out = intersect_rays_soa(bvh_t, *c, torch.zeros(ro.shape[0]), torch.tensor(tmax), kernel=kernel)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _ref(fn, wb, ro, rd, tmax, **kw):
+    n = ro.shape[0]
+    out = fn(wb, jnp.asarray(ro), jnp.asarray(rd), jnp.zeros(n), jnp.asarray(tmax), **kw)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _assert_closest_equal(port, ref, uv_atol=1e-5):
+    hit = ref["tri"] >= 0
+    assert ((port["tri"] >= 0) == hit).all()
+    np.testing.assert_allclose(port["t"], ref["t"], rtol=1e-5, atol=1e-5)
+    same = (port["tri"] == ref["tri"]) & (port["rnode"] == ref["rnode"])
+    # ids may differ only on equal-t ties
+    tie = np.isclose(port["t"], ref["t"], rtol=1e-6, atol=0)
+    assert (same | tie).all()
+    np.testing.assert_allclose(port["u"][same & hit], ref["u"][same & hit], atol=uv_atol)
+    np.testing.assert_allclose(port["v"][same & hit], ref["v"][same & hit], atol=uv_atol)
+
+
+def _split_kw(wide):
+    return {"wide": True} if wide else {"v2": False}
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["packet4", "v1"])
+@pytest.mark.parametrize("scene", SCENES)
+def test_split_kernels_match_reference_kernel(scene, wide, request):
+    """Closest hit, then anyhit=True on finite segments: both sides trace
+    closest hit with the real t (neither kernel has an any-hit mode)."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    n = 256 if scene == "helmet" else 512
+    ro, rd, tmax = _aimed_rays(wb, n, seed=41)
+    uv_atol = 1e-5 if scene in ("editor", "few") else 1e-4
+    port = _port(intersect_rays_packet, bvh_t, ro, rd, tmax, **_split_kw(wide))
+    ref = _ref(ref_packet, wb, ro, rd, tmax, interpret=True, **_split_kw(wide))
+    assert (ref["tri"] >= 0).sum() > n // 10
+    _assert_closest_equal(port, ref, uv_atol)
+    assert (port["t"][tmax < 0] == 1e32).all() and (port["tri"][tmax < 0] == -1).all()
+    # the same triangle test as the port's fused walk of the same arity
+    fused = _port_soa(bvh_t, ro, rd, tmax, "v3" if wide else "v2")
+    same = (fused["tri"] == port["tri"]) & (fused["rnode"] == port["rnode"]) & (port["tri"] >= 0)
+    assert same.mean() > 0.9 * (port["tri"] >= 0).mean()
+    for k in ("t", "u", "v"):
+        assert np.array_equal(fused[k][same], port[k][same]), k
+
+    # shadow-like segments of random length, up to twice the scene's diagonal
+    diag = float(np.linalg.norm(wb.nodes_self[0, 3:6] - wb.nodes_self[0, 0:3]))
+    seg = np.where(tmax > 0, np.random.default_rng(40).uniform(0.05, 2.0, n) * diag,
+                   tmax).astype(np.float32)
+    port_a = _port(intersect_rays_packet, bvh_t, ro, rd, seg, anyhit=True, **_split_kw(wide))
+    ref_a = _ref(ref_packet, wb, ro, rd, seg, interpret=True, anyhit=True, **_split_kw(wide))
+    closest = _port(intersect_rays_packet, bvh_t, ro, rd, seg, **_split_kw(wide))
+    _assert_closest_equal(port_a, ref_a, uv_atol)
+    for k in port_a:
+        assert np.array_equal(port_a[k], closest[k]), k
+    occ = port_a["tri"] >= 0
+    assert 0 < occ.sum() < n and (port_a["t"][occ] > 0).all()
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["packet4", "v1"])
+@pytest.mark.parametrize("scene", ["editor", "terrain", "few"])
+def test_split_kernels_match_brute_oracle(scene, wide, request):
+    flat, wb, bvh_t = request.getfixturevalue(scene)
+    ro, rd, tmax = _aimed_rays(wb, 256, seed=42)
+    tmax[:] = 1e32
+    port = _port(intersect_rays_packet, bvh_t, ro, rd, tmax, **_split_kw(wide))
+    ref = {k: v.numpy() for k, v in ttrav.intersect_brute(flat, torch.tensor(ro),
+                                                          torch.tensor(rd)).items()}
+    hit = ref["t"] < INF
+    assert hit.sum() > 20
+    assert ((port["t"] < INF) == hit).all()
+    # object-space oracle against world-space tables: 1e-4 (tests/test_bvh.py)
+    np.testing.assert_allclose(port["t"][hit], ref["t"][hit], rtol=1e-4, atol=1e-4)
+    same = (port["tri"] == ref["tri"]) & (port["rnode"] == ref["rnode"])
+    tie = np.isclose(port["t"], ref["t"], rtol=1e-5, atol=0)
+    assert (same | tie).all()
+
+
+@pytest.mark.parametrize("scene", SCENES)
+@pytest.mark.usefixtures("one_torch_thread")
+def test_wavefront_matches_reference(scene, request):
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    ro, rd, tmax = _aimed_rays(wb, 512, seed=43)
+    port = _port(intersect_rays_wavefront, bvh_t, ro, rd, tmax)
+    ref = _ref(ref_wavefront, wb, ro, rd, tmax)
+    assert (ref["tri"] >= 0).sum() > 50
+    # u/v: 2e-4 on the small-triangle scenes, where the reference's jitted
+    # XLA:CPU walk rounds u and v otherwise than torch (measured: 1.1e-4 on
+    # one helmet ray of 272, relative 1.4e-3 on an ill-conditioned hit);
+    # the port's own walks agree bit for bit, as asserted next
+    _assert_closest_equal(port, ref, 1e-5 if scene in ("editor", "few") else 2e-4)
+    fused = _port_soa(bvh_t, ro, rd, tmax, "v3")
+    same = (fused["tri"] == port["tri"]) & (port["tri"] >= 0)
+    for k in ("t", "u", "v"):
+        assert np.array_equal(fused[k][same], port[k][same]), k
+    # the same per-ray order on both sides: every id equal
+    assert np.array_equal(port["tri"], ref["tri"]) and np.array_equal(port["rnode"], ref["rnode"])
+    assert (port["t"][tmax < 0] == 1e32).all()
+
+
+@pytest.mark.parametrize("max_steps", [5, 45, 140])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_wavefront_step_cap_cuts_where_the_reference_cuts(terrain, max_steps):
+    """A ray still walking at the cap returns its best hit so far: the
+    port's walk stops at the same step as the reference's, whether the cap
+    is a multiple of its check interval or not."""
+    _, wb, bvh_t = terrain
+    ro, rd, tmax = _aimed_rays(wb, 512, seed=44)
+    n = ro.shape[0]
+    ref = ref_traverse_wavefront(jnp.asarray(wb.nodes_self), jnp.asarray(wb.nodes_i),
+                                 jnp.asarray(wb.tris), jnp.asarray(ro), jnp.asarray(rd),
+                                 jnp.zeros(n), jnp.asarray(tmax), max_steps=max_steps)
+    port = twave.traverse_wavefront(bvh_t.nodes_self, bvh_t.nodes_i, bvh_t.tris, torch.tensor(ro),
+                                    torch.tensor(rd), torch.zeros(n), torch.tensor(tmax),
+                                    max_steps=max_steps)
+    full = twave.traverse_wavefront(bvh_t.nodes_self, bvh_t.nodes_i, bvh_t.tris, torch.tensor(ro),
+                                    torch.tensor(rd), torch.zeros(n), torch.tensor(tmax))
+    assert np.array_equal(port[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_allclose(port[0].numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-5)
+    # the cap cut some walks short: fewer hits than the uncapped walk
+    assert int((port[1] >= 0).sum()) < int((full[1] >= 0).sum())
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["packet4", "v1"])
+def test_split_walks_count_visits_and_drops(editor, wide):
+    """The plain split walks count their visits (node rows, tris rows) and
+    count pushes dropped on a stack too shallow for the tree."""
+    _, wb, bvh_t = editor
+    ro, rd, tmax = _aimed_rays(wb, 256, seed=45)
+    rays = (*(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)), torch.zeros(256),
+            torch.tensor(tmax))
+    if wide:
+        plain, tables, name = (ttrav.traverse_bvh4_split_plain,
+                               (bvh_t.nodes4_f, bvh_t.nodes4_i, bvh_t.tris), "STACK_DEPTH_SPLIT4")
+    else:
+        plain, tables, name = (ttrav.traverse_bvh2_split_plain,
+                               (bvh_t.nodes_f, bvh_t.nodes_i, bvh_t.tris), "STACK_DEPTH_SPLIT2")
+    stats = {}
+    t, rn, row, u, v, dropped = plain(*tables, *rays, stats=stats)
+    assert dropped == 0 and int((row >= 0).sum()) > 50 and bool((rn == -1).all())
+    assert 0 < int(stats["node_rows"].sum()) <= tables[0].shape[0]
+    assert stats["tris"] >= int(stats["leaf_rows"].sum()) > 0
+    assert stats["internal"] > 0 and stats["leaf"] > 0
+    if not wide:  # v1: a popped node's box row is read only where the node is internal
+        metas = stats["leaf_node_rows"]
+        assert int(metas.sum()) > 0 and not bool((metas & stats["node_rows"]).any())
+        assert int((metas | stats["node_rows"]).sum()) <= tables[1].shape[0]
+    full = getattr(ttrav, name)
+    try:
+        setattr(ttrav, name, 2)
+        *_, dropped = plain(*tables, *rays)
+    finally:
+        setattr(ttrav, name, full)
+    assert dropped > 0
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_split_stack_need_fits_and_nothing_drops(scene, request):
+    """The split walks' stack needs fit their kernels' stacks, and the
+    wrappers drop nothing on these scenes."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    for family in ("bvh4_split", "bvh2_split"):
+        assert 1 <= bvh_t.stack_need[family] <= STACK_CAPACITY[family], family
+    # the packet4 walk pushes what the fused BVH4 walk pushes
+    assert bvh_t.stack_need["bvh4_split"] == bvh_t.stack_need["bvh4"]
+    ro, rd, tmax = _aimed_rays(wb, 512, seed=46)
+    for mod in (tb4s, tb2s):
+        mod.OVERFLOW.reset()
+    for wide in (True, False):
+        _port(intersect_rays_packet, bvh_t, ro, rd, tmax, **_split_kw(wide))
+    assert tb4s.OVERFLOW.total() == 0 and tb2s.OVERFLOW.total() == 0
+
+
+def test_split_tables_are_uploaded_only_when_selected(editor, few):
+    """bvh_to_device uploads no split table; add_kernel_tables_to_device
+    uploads exactly those of the named family; a traversal whose tables are
+    missing raises instead of falling back."""
+    _, wb, _ = few
+    ro, rd, tmax = _aimed_rays(wb, 8, seed=47)
+    wbt = tbvh.build_world_bvh(tflat.build_scene_flat(_editor_scene()))
+    bare = bvh_to_device(wbt, "cpu")
+    names = ("nodes_i", "nodes_f", "nodes_self", "tris", "wtri_rnode", "wtri_tri", "nodes4_i",
+             "nodes4_f")
+    assert all(getattr(bare, k) is None for k in names)
+    for kw in ({"wide": True}, {"v2": False}):
+        with pytest.raises(ValueError, match="add_kernel_tables"):
+            _port(intersect_rays_packet, bare, ro, rd, tmax, **kw)
+    with pytest.raises(ValueError, match="wavefront"):
+        _port(intersect_rays_wavefront, bare, ro, rd, tmax)
+    expect = {"bvh4_split": {"nodes4_i", "nodes4_f"}, "bvh2_split": {"nodes_i", "nodes_f"},
+              "wavefront": {"nodes_i", "nodes_self"}}
+    for family in SPLIT_FAMILIES:
+        dev = add_kernel_tables_to_device(bvh_to_device(wbt, "cpu"), wbt, "cpu", {family})
+        present = {k for k in names if getattr(dev, k) is not None}
+        assert present == expect[family] | {"tris", "wtri_rnode", "wtri_tri"}, family
+        assert dev.nodes_i is None or dev.nodes_i.dtype == torch.int32
+    _, _, bvh_t = editor
+    assert all(getattr(bvh_t, k) is not None for k in names)  # from_reference carries them
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["packet4", "v1"])
+def test_split_wrappers_refuse_other_devices(editor, wide):
+    _, _, bvh_t = editor
+    rays = [torch.zeros(8, device="meta") for _ in range(8)]
+    with pytest.raises(ValueError):
+        if wide:
+            tb4s.traverse_bvh4_split(bvh_t.nodes4_f, bvh_t.nodes4_i, bvh_t.tris, *rays)
+        else:
+            tb2s.traverse_bvh2_split(bvh_t.nodes_f, bvh_t.nodes_i, bvh_t.tris, *rays)

@@ -430,9 +430,22 @@ def test_visit_counts(editor):
     assert lanes["entries"] >= int(lanes["entry_rows"].sum()) > 0
 
 
-@pytest.mark.parametrize("traversal", ["packet4", "wavefront"])
-def test_unported_traversals_raise(traversal):
-    with pytest.raises(NotImplementedError, match=traversal):
+@pytest.mark.parametrize("traversal,families", [("packet", {"bvh4"}), ("packet4", {"bvh4_split"}),
+                                                 ("wavefront", {"wavefront"})])
+def test_every_traversal_passes_the_check(traversal, families):
+    """Each VKGR_TRAVERSAL value passes the renderer's check and reads its
+    own tables; packet4 and wavefront do not read the kernel names."""
+    cfg = RenderConfig(traversal=traversal)
+    cfg.check_supported()
+    assert cfg.kernel_tables() == families
+    if traversal != "packet":
+        assert RenderConfig(traversal=traversal, primary_kernel="v6",
+                            packet_kernel="lane").kernel_tables() == families
+
+
+@pytest.mark.parametrize("traversal", ["packet2", "Packet4", ""])
+def test_unknown_traversal_raises(traversal):
+    with pytest.raises(ValueError, match="unknown traversal"):
         RenderConfig(traversal=traversal).check_supported()
 
 

@@ -14,7 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .ops.bvh_flatten import multipop_stack_need, stack_need
+from .ops.bvh_flatten import multipop_stack_need, split_stack_need, stack_need
 from .ops.hdr import HdrEnv
 from .ops.lane_traverse import lane_entries
 from .ops.sky import SkyEnv
@@ -56,9 +56,18 @@ class DeviceBvh:
     nodes16_fi: torch.Tensor | None = None  # [M,128] f32 BVH16 rows
     lane_entries: torch.Tensor | None = None  # [E,16] f32 entry-major lane entries
     nodes4_sc: torch.Tensor | None = None  # [M,8] i32 BVH4 codes + axes (v7)
+    # the split tables of the packet4 / v1 kernels and the wavefront walk
+    nodes_i: torch.Tensor | None = None  # [Nn,8] i32 left right first count parent axis
+    nodes_f: torch.Tensor | None = None  # [Nn,16] f32 binary child boxes
+    nodes_self: torch.Tensor | None = None  # [Nn,8] f32 binary nodes' own boxes
+    tris: torch.Tensor | None = None  # [T+8,16] f32 world triangles in BVH order
+    wtri_rnode: torch.Tensor | None = None  # [T+8] i32 render node of a tris row
+    wtri_tri: torch.Tensor | None = None  # [T+8] i32 global triangle id of a tris row
+    nodes4_i: torch.Tensor | None = None  # [M,8] i32 split BVH4 codes + axes
+    nodes4_f: torch.Tensor | None = None  # [M,32] f32 split BVH4 child boxes
     # deepest traversal stack each walk over a present table can need, by
-    # table family (ops/intersect.ROUTES; bvh_flatten.stack_need and
-    # multipop_stack_need), checked against the kernels' capacity
+    # table family (ops/intersect.ROUTES and SPLIT_FAMILIES below; bvh_flatten.stack_need,
+    # multipop_stack_need and split_stack_need), checked against the kernels' capacity
     stack_need: dict = field(default_factory=dict)
 
 
@@ -102,13 +111,33 @@ def bvh_to_device(bvh, device) -> DeviceBvh:
     return add_kernel_tables_to_device(dev, bvh, device)
 
 
+# the table families of the split traversals (ops/intersect.TRAVERSALS packet4
+# and wavefront, and intersect_rays_packet's v1 kernel)
+SPLIT_FAMILIES = ("bvh4_split", "bvh2_split", "wavefront")
+# the host tables each split family reads, beside tris + wtri_rnode + wtri_tri
+_SPLIT_TABLES = {"bvh4_split": ("nodes4_i", "nodes4_f"), "bvh2_split": ("nodes_i", "nodes_f"),
+                 "wavefront": ("nodes_i", "nodes_self")}
+_SPLIT_DTYPES = {"nodes_i": np.int32, "nodes4_i": np.int32, "wtri_rnode": np.int32,
+                 "wtri_tri": np.int32}
+
+
 def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> DeviceBvh:
     """Copy to the device every optional kernel table the host BVH has and
     dev lacks (nodes_fi + root_code, nodes16_fi, lane_pages as entry-major
     lane_entries, nodes4_sc), and work out the v5 walk's stack need when
     `families` names "bvh4_multipop" (a Python walk of the whole tree, so
-    only on request). Returns dev."""
+    only on request). The split tables, which every host BVH has, are
+    copied only for the SPLIT_FAMILIES that `families` names, with the
+    split walks' stack needs. Returns dev."""
     f32 = np.float32
+    for family in SPLIT_FAMILIES:
+        if family not in families:
+            continue
+        for name in _SPLIT_TABLES[family] + ("tris", "wtri_rnode", "wtri_tri"):
+            if getattr(dev, name) is None:
+                setattr(dev, name, _t(getattr(bvh, name), _SPLIT_DTYPES.get(name, f32), device))
+        if family != "wavefront" and family not in dev.stack_need:
+            dev.stack_need[family] = split_stack_need(bvh, 2 if family == "bvh4_split" else 1)
     if getattr(bvh, "nodes4_sc", None) is not None and dev.nodes4_sc is None:
         dev.nodes4_sc = _t(bvh.nodes4_sc, np.int32, device)
         dev.stack_need["bvh4_sidecar"] = dev.stack_need["bvh4"]
@@ -136,9 +165,11 @@ def env_to_device(env, device):
 
 def from_reference(flat, bvh, env, device):
     """(flat, bvh, env) with the reference's field names -> (DeviceScene,
-    DeviceBvh, SkyEnv | HdrEnv); a None input gives None."""
+    DeviceBvh, SkyEnv | HdrEnv); a None input gives None. The BVH carries
+    the split tables of every SPLIT_FAMILIES traversal across."""
     return (
         None if flat is None else scene_to_device(flat, device),
-        None if bvh is None else bvh_to_device(bvh, device),
+        None if bvh is None else add_kernel_tables_to_device(bvh_to_device(bvh, device), bvh,
+                                                             device, SPLIT_FAMILIES),
         None if env is None else env_to_device(env, device),
     )

@@ -1,6 +1,7 @@
 // Per-ray traversal of the fused BVH row tables, one ray per thread: the
 // arity-templated walk behind traverse_bvh2.cu, traverse_bvh4.cu,
-// traverse_bvh16.cu and traverse_bvh4_sidecar.cu (walk), the node
+// traverse_bvh16.cu, traverse_bvh4_sidecar.cu and traverse_bvh4_split.cu
+// (walk; test_leaf for both leaf layouts), the node
 // expansion the v5 and v8 schedules reuse (expand_node), plus the ray/box
 // and ray/triangle tests that traverse_lanes.cu and megakernel.cu share.
 //
@@ -144,14 +145,21 @@ __device__ __forceinline__ bool triangle(float v0x, float v0y, float v0z, float 
 
 // The triangles of one leaf code, in slot order (strict '<': the first of
 // equal t wins). Returns true when an any-hit ray was accepted.
-__device__ __forceinline__ bool test_leaf(const float* __restrict__ tris128, int e, const Ray& r,
+// kSplit: the code is -(first*16 + count) - 1 into the per-triangle table
+// tris [T+8,16] of the split walks (rows first .. first+count-1, the same
+// 16-float layout as a tris128 slot without the ids), and a hit records
+// its tris row in h.tri; otherwise the code indexes tris128 rows and the
+// hit takes the ids of the slot.
+template <bool kSplit = false>
+__device__ __forceinline__ bool test_leaf(const float* __restrict__ tris, int e, const Ray& r,
                                           bool anyhit, Hit& h) {
   const int code = -e - 1;
   const int row = code / 16;
   const int cnt = code - row * 16;
-  const float4* tr = reinterpret_cast<const float4*>(tris128 + static_cast<size_t>(row) * 128);
+  const float4* tr =
+      reinterpret_cast<const float4*>(tris + static_cast<size_t>(row) * (kSplit ? 16 : 128));
   for (int c = 0; c < kLeafSlots && c < cnt; ++c) {
-    // slot layout: v0.xyz v1.xyz v2.xyz rnode tri pad5
+    // slot layout: v0.xyz v1.xyz v2.xyz rnode tri pad5 (split rows: pad from col 9)
     const float4 a = __ldg(tr + 4 * c);
     const float4 b = __ldg(tr + 4 * c + 1);
     const float4 d = __ldg(tr + 4 * c + 2);
@@ -159,8 +167,12 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ tris128, int
     if (triangle(a.x, a.y, a.z, a.w - a.x, b.x - a.y, b.y - a.z, b.z - a.x, b.w - a.y,
                  d.x - a.z, r, h.t, uu, vv, tt)) {
       h.t = anyhit ? -1.0f : tt;
-      h.rn = d.y;
-      h.tri = d.z;
+      if constexpr (kSplit) {
+        h.tri = static_cast<float>(row + c);  // exact: the wrappers cap tris at 2^24 rows
+      } else {
+        h.rn = d.y;
+        h.tri = d.z;
+      }
       h.u = uu;
       h.v = vv;
       if (anyhit) return true;
@@ -242,12 +254,18 @@ __device__ __forceinline__ void expand_node(const float* __restrict__ nodes,
 
 // The whole walk of one ray from root_code with a kStack-entry stack;
 // returns the best hit (t = tmax where nothing was accepted, -1 after an
-// any-hit). Dropped pushes are added to `dropped`.
-template <int kLevels, int kStack, bool kSidecar>
+// any-hit). Dropped pushes are added to `dropped`. kSplit: the packet4
+// walk over the split tables (nodes4_f as `nodes`, nodes4_i as `sidecar`,
+// tris as `tris`; test_leaf<true>). Its missing children carry code -1 and
+// an inverted box (lo = +3e38, hi = -3e38) that the slab test accepts for
+// every live ray; the reference pushes them and pops an empty leaf, this
+// walk does not push them, which changes no result.
+template <int kLevels, int kStack, bool kSidecar, bool kSplit = false>
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes,
                                     const int* __restrict__ sidecar,
-                                    const float* __restrict__ tris128, int root_code, const Ray& r,
+                                    const float* __restrict__ tris, int root_code, const Ray& r,
                                     float tmax, bool anyhit, unsigned int& dropped) {
+  static_assert(!kSplit || kSidecar, "the split walk reads codes from nodes4_i");
   Hit h{tmax, -1.0f, -1.0f, 0.0f, 0.0f};
   int stack[kStack];
   stack[0] = root_code;
@@ -255,10 +273,11 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ nodes,
   while (sp > 0) {
     const int e = stack[--sp];
     if (e < 0) {
-      if (test_leaf(tris128, e, r, anyhit, h)) break;
+      if (test_leaf<kSplit>(tris, e, r, anyhit, h)) break;
       continue;
     }
     expand_node<kLevels, kSidecar>(nodes, sidecar, e, r, h.t, [&](int code) {
+      if (kSplit && code == -1) return;
       if (sp < kStack) {
         stack[sp++] = code;
       } else {

@@ -16,10 +16,13 @@ default kernel reads:
                         tri id at col 10; padding slots are zero triangles
                         with ids -1)
 
-plus the fused hit-state rows (ops/hitstate.bake_hit_attrs_np) and the
-binary tree they come from (nodes_i, nodes_f, nodes_self, tris, wtri_*,
-under the reference's field names). The tables of the other traversal
-kernels are built from that tree only when a selected kernel reads them
+plus the fused hit-state rows (ops/hitstate.bake_hit_attrs_np), the
+binary tree they come from (nodes_i, nodes_f, nodes_self, tris, wtri_*)
+and the split BVH4 tables (nodes4_i, nodes4_f), under the reference's
+field names. The split tables and the binary tree are what the packet4
+kernel, the v1 kernel and the wavefront walk read (split_stack_need gives
+the two split walks' stacks). The tables of the other traversal kernels
+are built from the tree only when a selected kernel reads them
 (add_kernel_tables): they cost Python-loop seconds on a 1M-triangle scene.
 
   nodes_fi   [Nn,16] f32  binary rows (reference _packet2_tables): both
@@ -64,6 +67,10 @@ class WorldBvh:
     wtri_tri: np.ndarray  # [T+8] i32 global tri id per tris row
     nodes4_fi: np.ndarray  # [M,32] f32 fused BVH4 rows
     tris128: np.ndarray  # [L,128] f32 leaf-aligned triangle blocks
+    # the split BVH4 tables of the packet4 traversal (build_bvh4)
+    nodes4_i: np.ndarray  # [M,8] i32 c0..c3 (leaf -(first*16+count)-1 into tris,
+    #                       missing -1), axis0..2, pad
+    nodes4_f: np.ndarray  # [M,32] f32 4 child AABBs (missing: inverted lo=+3e38, hi=-3e38)
     # fused hit-state rows: row = rn_attr_base[rnode] + tri
     hit_attr: np.ndarray  # [Ta,64] (or [Ta,32] narrow) f32
     rn_attr_base: np.ndarray  # [N] i32
@@ -434,6 +441,8 @@ def build_world_bvh(flat) -> WorldBvh:
         wtri_rnode=wtri_rnode,
         wtri_tri=wtri_tri,
         nodes4_fi=_nodes4_fi(nodes_i, n4i, n4f),
+        nodes4_i=n4i,
+        nodes4_f=n4f,
         tris128=_tris128(nodes_i, tris16, wtri_rnode, wtri_tri),
         hit_attr=hit_attr,
         rn_attr_base=rn_attr_base,
@@ -550,17 +559,19 @@ def _packet3_sidecar(nodes4_fi):
     return sc
 
 
-# what add_kernel_tables accepts: the table families of ops/intersect.ROUTES;
-# the BVH4 walks other than v7 read only nodes4_fi + tris128
+# what add_kernel_tables accepts: the table families of ops/intersect.ROUTES
+# and of the split traversals; the BVH4 walks other than v7 read only
+# nodes4_fi + tris128, and the split families (packet4 "bvh4_split", v1
+# "bvh2_split", "wavefront") read tables build_world_bvh always keeps
 KERNEL_TABLES = ("bvh2", "bvh16", "lane", "bvh4", "bvh4_multipop", "bvh4_leafqueue",
-                 "bvh4_sidecar")
+                 "bvh4_sidecar", "bvh4_split", "bvh2_split", "wavefront")
 
 
 def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:
     """Build the named kernel tables ("bvh2" -> nodes_fi + root_code,
     "bvh16" -> nodes16_fi, "lane" -> lane_pages, "bvh4_sidecar" ->
     nodes4_sc) into wb, skipping those already there; the other BVH4
-    families need no table of their own. Returns wb."""
+    families and the split ones need no table of their own. Returns wb."""
     unknown = set(tables) - set(KERNEL_TABLES)
     if unknown:
         raise ValueError(f"unknown kernel tables {sorted(unknown)}; known: {KERNEL_TABLES}")
@@ -594,17 +605,48 @@ def stack_need(nodes, levels: int, root_code: int, internal_only: bool = False) 
     real = nodes[:, 0 : 6 * arity : 6] < 1e38  # lo.x of every child slot
     if internal_only:
         real = real & (codes >= 0)
+    return _push_walk_need(codes, real, real & (codes >= 0), root_code)
+
+
+def _push_walk_need(children, real, inner, root: int) -> int:
+    """Deepest stack of a walk from row `root` that pushes every real
+    child of a popped row: children/real/inner [R,A] give each row's child
+    rows, which slots hold a child, and which of those are rows the walk
+    expands further."""
     nreal = real.sum(axis=1)
     need = 1
-    frontier = np.array([root_code], np.int64)
+    frontier = np.array([root], np.int64)
     below = np.zeros(1, np.int64)
     while frontier.size:
         k = nreal[frontier]
         need = max(need, int((below + k).max()))
-        inner = real[frontier] & (codes[frontier] >= 0)
-        below = np.repeat(below + k - 1, inner.sum(axis=1))
-        frontier = codes[frontier][inner]
+        inn = inner[frontier]
+        below = np.repeat(below + k - 1, inn.sum(axis=1))
+        frontier = children[frontier][inn]
     return need
+
+
+def split_stack_need(wb: WorldBvh, levels: int) -> int:
+    """Deepest stack of the split-table walks when every box is entered.
+
+    levels=2, the packet4 walk (ops/traverse.traverse_bvh4_split_plain):
+    nodes4_i rows from BVH4 row 0, pushing every child code but the
+    missing ones (-1), which the walk skips. levels=1, the v1 walk
+    (traverse_bvh2_split_plain): binary node ids from node 0, pushing both
+    children of an internal node; a root that is a leaf needs 1."""
+    if levels == 2:
+        codes = np.asarray(wb.nodes4_i)[:, 0:4].astype(np.int64)
+        real = codes != -1
+        return _push_walk_need(codes, real, real & (codes >= 0), 0)
+    if levels != 1:
+        raise ValueError(f"split tables exist for levels 1 and 2, not {levels}")
+    nodes_i = np.asarray(wb.nodes_i)
+    internal = nodes_i[:, 3] == 0
+    if not internal[0]:
+        return 1
+    children = nodes_i[:, 0:2].astype(np.int64)
+    real = np.repeat(internal[:, None], 2, axis=1)
+    return _push_walk_need(children, real, real & internal[children], 0)
 
 
 def multipop_stack_need(nodes4_fi, root_code: int, multipop: int) -> int:

@@ -156,7 +156,7 @@ def render_mega(nodes4_fi, tris128, ro, rd, seeds, depth, root_code=0):
     return out
 
 
-def pack_rays(ro_flat, rd_flat, seeds_flat, tiles=1, tmin=1e-3, device="cpu"):
+def pack_rays(ro_flat, rd_flat, seeds_flat, tiles=1, tmin=1e-3, device="cuda"):
     """[N,3] origins / directions and [N] uint32 seeds (numpy) -> the packed
     layout both arms take: (ro, rd [G,4,sub,128] f32, seeds [G,1,sub,128]
     int32, N). Padding lanes start at the origin along (1,1,1) with seed 0,

@@ -16,17 +16,22 @@ roughness regularisation, NaN sanitising, the firefly clamp on mean
 luminance, running-mean accumulation and the directly visible HDR
 background at full resolution.
 
-Traversal kernels (the reference's switch): bounce 0's closest-hit trace
-uses RenderConfig.primary_kernel; every later bounce and every shadow ray,
-bounce 0's included, uses packet_kernel (the reference's mapping under its
-default VKGR_PEEL_SORT_SHADOW=1, ops/pathtrace.py:780 and :1130-1134).
-ops/intersect.py routes each name to its CUDA kernel.
+Traversals (the reference's switch, RenderConfig.traversal): under
+"packet", bounce 0's closest-hit trace uses RenderConfig.primary_kernel;
+every later bounce and every shadow ray, bounce 0's included, uses
+packet_kernel (the reference's mapping under its default
+VKGR_PEEL_SORT_SHADOW=1, ops/pathtrace.py:780 and :1130-1134), and
+ops/intersect.py routes each name to its CUDA kernel. Under "packet4"
+every trace, primary, bounce and shadow, goes to the split BVH4 kernel
+(intersect_rays_packet(wide=True)), under "wavefront" to the stackless
+walk (intersect_rays_wavefront); neither reads the kernel names, and both
+trace shadow rays closest hit, as the reference's do (ops/pathtrace.py
+:404-411).
 
 Not ported yet (RenderConfig.check_supported raises NotImplementedError):
 punctual lights, stochastic alpha, transmission / volume and the other
 material extensions, the infinite plane, denoiser guides, TAA jitter,
-batched spp, primary-hit seeding, and every traversal other than "packet"
-(packet4, the XLA wavefront).
+batched spp and primary-hit seeding.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ from .hdr import eval_hdr, sample_hdr
 from .hitstate import get_hit_state_fused, safe_offset_ray
 from .materials_eval import evaluate_material, unsupported_features
 from .sky import eval_sky, pdf_sky, sample_sky
-from .intersect import intersect_rays_soa, route
+from .intersect import (TRAVERSALS, intersect_rays_packet, intersect_rays_soa,
+                        intersect_rays_wavefront, route)
 from .traverse import INFINITE, dot3
 
 ANTIALIASING_STD = 0.4246609
@@ -93,23 +99,31 @@ class RenderConfig:
         missing += unsupported_features(self.features)
         if self.env_kind not in ("sky", "hdr"):
             missing.append(f"environment kind {self.env_kind!r}")
-        if self.traversal != "packet":
-            missing.append(f"traversal {self.traversal!r} (only the kernel traversal 'packet' is "
-                           "ported; packet4 is ROADMAP.md B, traverse_packets4)")
         if missing:
             raise NotImplementedError(
                 "not ported to the torch path tracer yet: " + ", ".join(missing))
-        self.kernel_tables()  # raises for kernel names not ported
+        self.kernel_tables()  # raises for unknown traversals and kernel names
 
     def kernel_tables(self) -> set:
-        """Table families (ops/intersect.ROUTES) the selected kernels read."""
+        """Table families the selected traversal reads: ops/intersect.ROUTES
+        of both kernel names under "packet", "bvh4_split" under "packet4",
+        "wavefront" under "wavefront". Raises ValueError for anything else."""
+        if self.traversal == "packet4":
+            return {"bvh4_split"}
+        if self.traversal == "wavefront":
+            return {"wavefront"}
+        if self.traversal != "packet":
+            raise ValueError(f"unknown traversal {self.traversal!r}; accepted: {list(TRAVERSALS)}")
         return {route(self.primary_kernel), route(self.packet_kernel)}
 
 
-def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False, kernel="v3"):
-    """Closest (or any) hit of [N,3] rays through the named traversal
-    kernel, in lane order; tmax is None (unbounded) or [N]. Dead lanes trace
-    with tmax = -1 and miss at the root."""
+def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False, kernel="v3",
+                  traversal="packet"):
+    """Closest (or any) hit of [N,3] rays, in lane order, through the named
+    traversal kernel under traversal "packet", else through the packet4 or
+    wavefront traversal (closest hit whatever `anyhit` says); tmax is None
+    (unbounded) or [N]. Dead lanes trace with tmax = -1 and miss at the
+    root."""
     n = ro.shape[0]
     dev = ro.device
     if tmax is None:
@@ -117,6 +131,10 @@ def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False, ke
     if alive is not None:
         tmax = torch.where(alive, tmax, -1.0)
     tmin_b = torch.full((n,), float(tmin), device=dev)
+    if traversal == "packet4":
+        return intersect_rays_packet(bvh, ro, rd, tmin_b, tmax, anyhit=anyhit, wide=True)
+    if traversal == "wavefront":
+        return intersect_rays_wavefront(bvh, ro, rd, tmin_b, tmax)
     c = [x.contiguous() for x in (ro[:, 0], ro[:, 1], ro[:, 2], rd[:, 0], rd[:, 1], rd[:, 2])]
     return intersect_rays_soa(bvh, *c, tmin_b, tmax.contiguous(), anyhit=anyhit, kernel=kernel)
 
@@ -160,9 +178,10 @@ def _sample_lights(env, pos, seed, cfg: RenderConfig):
             "pdf": pdf_sum}, seed
 
 
-def _trace_shadow(bvh, ro, rd, dist, alive, kernel):
+def _trace_shadow(bvh, ro, rd, dist, alive, cfg):
     """Opaque shadow factor [N,1]: one any-hit occlusion test."""
-    hits = trace_closest(bvh, ro, rd, tmin=0.0, tmax=dist, alive=alive, anyhit=True, kernel=kernel)
+    hits = trace_closest(bvh, ro, rd, tmin=0.0, tmax=dist, alive=alive, anyhit=True,
+                         kernel=cfg.packet_kernel, traversal=cfg.traversal)
     return torch.where((hits["tri"] >= 0)[..., None], 0.0, 1.0)
 
 
@@ -218,7 +237,8 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
 
         state["rays"] = state["rays"] + torch.sum(alive.to(torch.float32))
         hits = trace_closest(bvh, ro, rd, alive=alive,
-                             kernel=cfg.primary_kernel if first else cfg.packet_kernel)
+                             kernel=cfg.primary_kernel if first else cfg.packet_kernel,
+                             traversal=cfg.traversal)
         miss = hits["tri"] < 0
 
         # environment hit
@@ -292,8 +312,7 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         sh_base = torch.where(sh_fwd, hs["shadow_pos"], hs["pos"])
         sh_off = torch.where(sh_fwd, hs["geonrm"], -hs["geonrm"])
         sh_org = safe_offset_ray(sh_base, sh_off)
-        shadow = _trace_shadow(bvh, sh_org, dl["direction"], dl["distance"], next_event,
-                               cfg.packet_kernel)
+        shadow = _trace_shadow(bvh, sh_org, dl["direction"], dl["distance"], next_event, cfg)
         radiance = radiance + torch.where(next_event[..., None], contrib * shadow, 0.0)
 
         alive = alive & ~absorbed

@@ -1,13 +1,13 @@
 """Small-vector helpers, the plain traversals and the brute-force oracle.
 
 The plain traversals are the plain PyTorch versions of the traversal
-kernels (csrc/traverse_bvh{2,4,16}.cu and csrc/traverse_lanes.cu, wrapped
-by ops/traverse_bvh{2,4,16}.py and ops/lane_traverse.py). Each is
-vectorised over rays: one loop iteration advances every ray that is still
-walking by one step. They carry over exactly the arithmetic of the
-reference kernel bodies (vk_gltf_renderer_tpu/ops/pallas_traverse.py
-_traverse2_body, _traverse3_core, _traverse5_body, _traverse8_body,
-_traverse6_body and
+kernels (csrc/traverse_bvh*.cu and csrc/traverse_lanes.cu, wrapped by
+ops/traverse_bvh*.py and ops/lane_traverse.py). Each is vectorised over
+rays: one loop iteration advances every ray that is still walking by one
+step. They carry over exactly the arithmetic of the reference kernel
+bodies (vk_gltf_renderer_tpu/ops/pallas_traverse.py _traverse_body,
+_traverse4_body, _traverse2_body, _traverse3_core, _traverse5_body,
+_traverse8_body, _traverse6_body and
 ops/lane_traverse.py _make_step): the inv() clamp, the slab test with tnear
 floored at 0 and tfar capped at t_best, the leaf decoding and
 Moller-Trumbore with the 1e-12 determinant guard.
@@ -19,8 +19,12 @@ packet vote), which changes nothing but equal-t ties. The BVH4 variants
 follow their kernels' own schedules: traverse_bvh4_multipop_plain (v5,
 several pops per step), traverse_bvh4_leafqueue_plain (v8, internal stack
 plus leaf queue with its gate) and traverse_bvh4_sidecar_plain (v7, codes
-and axes from nodes4_sc). traverse_lanes_plain walks the skip-pointer
-entries (entry-major [E,16]) without a stack.
+and axes from nodes4_sc). The split walks read the tables the reference
+keeps beside the fused ones and return the tris row of a hit, which the
+caller resolves to (rnode, tri): traverse_bvh4_split_plain (packet4,
+nodes4_f + nodes4_i) and traverse_bvh2_split_plain (v1, nodes_f +
+nodes_i). traverse_lanes_plain walks the skip-pointer entries
+(entry-major [E,16]) without a stack.
 
 intersect_brute is the test oracle (reference ops/traverse.py:222).
 """
@@ -36,7 +40,9 @@ STACK_DEPTH16 = 256  # BVH16 (csrc/traverse_bvh16.cu)
 STACK_DEPTH_MULTIPOP = 256  # v5 (csrc/traverse_bvh4_multipop.cu)
 MULTIPOP = 4  # entries the v5 walk pops per step
 LEAF_QUEUE = 16  # v8's leaf queue (csrc/traverse_bvh4_leafqueue.cu)
-LEAF_SLOTS = 8  # triangles per tris128 row
+LEAF_SLOTS = 8  # triangles per tris128 row (and per leaf of the split tables)
+STACK_DEPTH_SPLIT4 = 64  # the packet4 walk (csrc/traverse_bvh4_split.cu)
+STACK_DEPTH_SPLIT2 = 128  # the v1 walk (csrc/traverse_bvh2_split.cu)
 
 
 def dot3(a, b):
@@ -127,11 +133,15 @@ def _new_stats(stats, nodes, tris128):
 
 
 class _Walk:
-    """Rays and best-hit state shared by the plain stack walks."""
+    """Rays and best-hit state shared by the plain stack walks. split: the
+    leaf codes index rows of the per-triangle table tris [T+8,16] (the
+    split walks) instead of tris128 rows, and a hit records its tris row
+    in `tri` (rn stays -1)."""
 
-    def __init__(self, tris128, rays, anyhit, stats):
+    def __init__(self, tris128, rays, anyhit, stats, split=False):
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax = rays
         self.tris128 = tris128
+        self.split = split
         self.ro = (rox, roy, roz)
         self.rd = (rdx, rdy, rdz)
         self.tmin = tmin
@@ -157,26 +167,34 @@ class _Walk:
         code = -e - 1
         row = torch.div(code, 16, rounding_mode="floor")
         cnt = code - row * 16
-        tv = self.tris128[row].reshape(-1, LEAF_SLOTS, 16)
+        slot = torch.arange(LEAF_SLOTS, device=li.device)
+        if self.split:  # slots are tris rows first .. first + 7 (the table is padded)
+            rows = row[:, None] + slot[None, :]
+            tv = self.tris128[rows]
+        else:
+            tv = self.tris128[row].reshape(-1, LEAF_SLOTS, 16)
         if self.stats is not None:
             self.stats["leaf"] += li.numel()
             self.stats["tris"] += int(cnt.sum())
-            self.stats["leaf_rows"][row] = True
+            self.stats["leaf_rows"][rows[slot[None, :] < cnt[:, None]] if self.split else row] = True
         rox, roy, roz = (c[li, None] for c in self.ro)
         rdx, rdy, rdz = (c[li, None] for c in self.rd)
         v0x, v0y, v0z = tv[..., 0], tv[..., 1], tv[..., 2]
         ok, uu, vv, tt = _moller_trumbore(
             v0x, v0y, v0z, tv[..., 3] - v0x, tv[..., 4] - v0y, tv[..., 5] - v0z,
             tv[..., 6] - v0x, tv[..., 7] - v0y, tv[..., 8] - v0z, rox, roy, roz, rdx, rdy, rdz)
-        ok = ok & (torch.arange(LEAF_SLOTS, device=li.device)[None, :] < cnt[:, None])
+        ok = ok & (slot[None, :] < cnt[:, None])
         cand = ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > self.tmin[li, None])
         tb, rb, trb = self.t[li], self.rn[li], self.tri[li]
         ub, vb = self.u[li], self.v[li]
         for c in range(LEAF_SLOTS):
             hit = cand[:, c] & (tt[:, c] < tb)
             tb = torch.where(hit, -1.0 if self.anyhit else tt[:, c], tb)
-            rb = torch.where(hit, tv[:, c, 9], rb)
-            trb = torch.where(hit, tv[:, c, 10], trb)
+            if self.split:
+                trb = torch.where(hit, rows[:, c].to(torch.float32), trb)
+            else:
+                rb = torch.where(hit, tv[:, c, 9], rb)
+                trb = torch.where(hit, tv[:, c, 10], trb)
             ub = torch.where(hit, uu[:, c], ub)
             vb = torch.where(hit, vv[:, c], vb)
         self.t[li], self.rn[li], self.tri[li] = tb, rb, trb
@@ -225,7 +243,7 @@ def _push(stack, sp, rows, codes, enter, depth):
 
 def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,
                         tmin, tmax, anyhit=False, stack_depth=64, multipop=1, sidecar=None,
-                        stats=None):
+                        stats=None, split=False):
     """Plain per-ray traversal of a fused row table of arity 2^levels
     (layout in csrc/traverse_bvh.cuh: child boxes, child codes, split axes).
 
@@ -240,6 +258,9 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
     step pops up to `multipop` entries and processes them in pop order,
     t_best chained through the group, each internal entry pushing its
     children as it is processed. sidecar is the v7 walk (nodes4_sc).
+    split is the packet4 walk (traverse_bvh4_split_plain): leaf codes index
+    the tris table passed as tris128, and missing children (code -1) are
+    not pushed.
 
     stats, a dict, receives the visit counts the card's bounds are made of:
     internal / leaf visits, triangles tested, and boolean masks of the
@@ -248,7 +269,7 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
     dev = rox.device
     n = rox.shape[0]
     w = _Walk(tris128, (rox, roy, roz, rdx, rdy, rdz, tmin, tmax), anyhit,
-              _new_stats(stats, nodes, tris128))
+              _new_stats(stats, nodes, tris128), split)
     stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
     stack[:, 0] = int(root_code)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
@@ -273,6 +294,8 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
             ii = rays[~leaf]
             if ii.numel():
                 codes, enter = w.expand(levels, nodes, ii, e[~leaf], w.t[ii], sidecar)
+                if split:
+                    enter = enter & (codes != -1)
                 overflow += _push(stack, sp, ii, codes, enter, stack_depth)
         if anyhit and ended:
             sp[torch.cat(ended)] = 0
@@ -310,6 +333,79 @@ def traverse_bvh4_sidecar_plain(nodes4_fi, nodes4_sc, tris128, root_code, *rays,
     nodes4_sc [M,8] int32 sidecar (csrc/traverse_bvh4_sidecar.cu)."""
     return traverse_rows_plain(2, nodes4_fi, tris128, root_code, *rays, anyhit=anyhit,
                                stack_depth=STACK_DEPTH, sidecar=nodes4_sc, stats=stats)
+
+
+def traverse_bvh4_split_plain(nodes4_f, nodes4_i, tris, rox, roy, roz, rdx, rdy, rdz, tmin,
+                              tmax, stats=None):
+    """Plain packet4 walk (csrc/traverse_bvh4_split.cu; the reference's
+    traverse_packets4): BVH4 from row 0 over the split tables, child boxes
+    from nodes4_f [M,32] (cols 0:24), codes and split axes from nodes4_i
+    [M,8] i32, leaf code -(first*16+count)-1 testing tris [T+8,16] rows
+    first .. first+count-1. A missing child has code -1 and an inverted box
+    that every live ray's slab test accepts; the reference pushes it and
+    later pops an empty leaf, this walk does not push it (the same hits).
+    Closest hit only. Returns (t, rnode, row, u, v, overflow): row [N] i32
+    is the tris row of the hit (-1 = none), rnode is -1 (the caller
+    resolves the row), t is tmax where nothing was accepted; stats as
+    traverse_rows_plain (leaf_rows over tris rows)."""
+    return traverse_rows_plain(2, nodes4_f, tris, 0, rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+                               stack_depth=STACK_DEPTH_SPLIT4, sidecar=nodes4_i, stats=stats,
+                               split=True)
+
+
+def traverse_bvh2_split_plain(nodes_f, nodes_i, tris, rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+                              stats=None):
+    """Plain v1 walk (csrc/traverse_bvh2_split.cu; the reference's
+    traverse_packets): binary node ids from node 0 over the split tables.
+    A pop reads nodes_i[node] (left, right, first, count, parent, axis):
+    count > 0 tests tris rows first .. first+count-1; otherwise both child
+    boxes of nodes_f[node] (cols 0:12) are tested and the far, then the
+    near child (near: the left one where the ray's direction along `axis`
+    is >= 0) is pushed if its box is entered. Closest hit only; returns
+    what traverse_bvh4_split_plain returns. stats: internal / leaf visits,
+    triangle tests, node_rows (internal nodes popped: their nodes_i and
+    nodes_f rows are read), leaf_node_rows (leaf nodes popped: only their
+    nodes_i row is read) and leaf_rows (tris rows tested)."""
+    dev = rox.device
+    n = rox.shape[0]
+    w = _Walk(tris, (rox, roy, roz, rdx, rdy, rdz, tmin, tmax), False,
+              _new_stats(stats, nodes_f, tris), split=True)
+    if w.stats is not None:
+        w.stats.setdefault("leaf_node_rows", torch.zeros(nodes_i.shape[0], dtype=torch.bool,
+                                                         device=dev))
+    depth = STACK_DEPTH_SPLIT2
+    stack = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    overflow = 0
+    while True:
+        act = torch.nonzero(sp > 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        e = stack[act, sp[act]]
+        meta = nodes_i[e].long()
+        leaf = meta[:, 3] > 0
+        if w.stats is not None:
+            w.stats["node_rows"][e[~leaf]] = True
+            w.stats["leaf_node_rows"][e[leaf]] = True
+        if leaf.any():
+            w.test_leaves(act[leaf], -(meta[leaf, 2] * 16 + meta[leaf, 3]) - 1)
+        ii, m = act[~leaf], meta[~leaf]
+        if ii.numel():
+            if w.stats is not None:
+                w.stats["internal"] += ii.numel()
+            f = nodes_f[e[~leaf]]
+            ro = tuple(c[ii] for c in w.ro)
+            inv_d = tuple(c[ii] for c in w.inv_d)
+            hit_l = _slab(f, 0, ro, inv_d, w.t[ii])
+            hit_r = _slab(f, 6, ro, inv_d, w.t[ii])
+            l_near = torch.gather(w.sgn[ii], 1, m[:, 5:6])[:, 0]
+            codes = torch.stack([torch.where(l_near, m[:, 1], m[:, 0]),
+                                 torch.where(l_near, m[:, 0], m[:, 1])], dim=1)
+            enter = torch.stack([torch.where(l_near, hit_r, hit_l),
+                                 torch.where(l_near, hit_l, hit_r)], dim=1)
+            overflow += _push(stack, sp, ii, codes, enter, depth)
+    return w.result(overflow)
 
 
 def traverse_bvh4_leafqueue_plain(nodes4_fi, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,

@@ -1,0 +1,32 @@
+"""Binary traversal over the split tables (v1): the wrapper of
+csrc/traverse_bvh2_split.cu, replacing the reference's traverse_packets
+(vk_gltf_renderer_tpu/ops/pallas_traverse.py, _traverse_body), reached
+through ops/intersect.intersect_rays_packet(v2=False).
+
+CPU rays take the plain torch version (ops/traverse.traverse_bvh2_split_plain),
+CUDA rays the kernel; see ops/traverse_launch.run_traversal.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..cuda_lib import LaunchCounter, OverflowCounter
+from .traverse import traverse_bvh2_split_plain
+from .traverse_launch import run_traversal
+
+COUNTER = LaunchCounter()
+OVERFLOW = OverflowCounter()  # stack pushes dropped (must stay 0)
+
+
+def traverse_bvh2_split(nodes_f, nodes_i, tris, *rays):
+    """Raw closest-hit traversal from binary node 0: (t, rnode, row, u, v)
+    for the 8 [N] f32 ray components, as traverse_bvh4_split returns."""
+    if tris.shape[0] >= 2**24:
+        raise ValueError("traverse_bvh2_split: at most 2**24 rows of tris")
+    return run_traversal(
+        "traverse_bvh2_split", COUNTER, OVERFLOW,
+        lambda: traverse_bvh2_split_plain(nodes_f, nodes_i, tris, *rays),
+        (("nodes_f", nodes_f, (None, 16)), ("nodes_i", nodes_i, (None, 8), torch.int32),
+         ("tris", tris, (None, 16))),
+        (), rays, None)

@@ -1,4 +1,4 @@
-"""The shared body of the traversal kernel wrappers (ops/traverse_bvh2.py,
+"""The shared body of the traversal kernel wrappers (ops/traverse_bvh2*.py,
 traverse_bvh4*.py, traverse_bvh16.py, lane_traverse.py).
 
 run_traversal takes CPU rays to the kernel's plain torch version and CUDA
@@ -25,7 +25,8 @@ def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit)
     outputs and a dropped-work count (CPU rays). tables: (name, tensor,
     expected shape[, dtype, default float32]) of every table argument, in
     the C entry point's order; scalars: the int arguments
-    between the tables and the rays of the C entry point vkgr_<name>."""
+    between the tables and the rays of the C entry point vkgr_<name>;
+    anyhit None: the entry point takes no any-hit flag (closest hit)."""
     rox = rays[0]
     if rox.device.type == "cpu":
         *out, dropped = plain()
@@ -49,10 +50,12 @@ def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit)
     if n == 0:
         return t, rnode, tri, u, v
     fn = getattr(library().lib, f"vkgr_{name}")
+    flag = () if anyhit is None else (int(bool(anyhit)),)
     rc = fn(*(tab[1].data_ptr() for tab in tables), *(int(s) for s in scalars),
-            *(c.data_ptr() for c in rays), n, int(bool(anyhit)),
+            *(c.data_ptr() for c in rays), n, *flag,
             t.data_ptr(), rnode.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             overflow.buffer(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, name)
     counter.launches += 1
     return t, rnode, tri, u, v
+

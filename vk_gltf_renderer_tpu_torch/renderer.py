@@ -7,19 +7,23 @@ HDR), the camera and the progressive accumulation buffer, which lives on
 the renderer's device. Each on_render() path-traces one frame of spp
 samples and folds it into the running mean.
 
-Traversal kernels are picked as in the reference: at every frame _config
-reads VKGR_PRIMARY_KERNEL (default v3), VKGR_PACKET_KERNEL (default v9)
-and VKGR_TRAVERSAL (default packet, the only value ported), and on_render
-builds any table the selection reads that the scene does not have yet
+Traversals are picked as in the reference: at every frame _config reads
+VKGR_TRAVERSAL (packet, packet4 or wavefront; default packet on the card
+and on the CPU), VKGR_PRIMARY_KERNEL (default v3) and VKGR_PACKET_KERNEL
+(default v9; both read under packet only), and on_render builds and
+uploads any table the selection reads that the scene does not have yet
 (binary rows for v2, BVH16 rows for v6, lane pages for lane/lane_stream,
-the int32 sidecar for v7, the v5 walk's stack need for v5).
-A kernel runs only because the selection names it.
+the int32 sidecar for v7, the v5 walk's stack need for v5, the split
+BVH4 tables for packet4, the binary tree's own boxes and meta rows for
+wavefront). A kernel or walk runs only because the selection names it.
 
 Not ported yet: animation, scene-change sync (dirty flags, refit), the
 preview renderer, denoising, TAA upscaling, the silhouette overlay,
 picking and the adaptive sampler (ROADMAP.md). The TPU fallback ladder
-(VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation, wavefront downgrade)
-has no role here.
+(VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation) has no role here,
+and the reference's downgrade to the wavefront after kernel faults
+(_traversal_fallback) is deliberately not ported: it would hide a faulty
+kernel behind another traversal.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ def fit_camera(scene: Scene, yfov=np.radians(45.0)) -> CameraState:
 
 
 class GltfRenderer:
-    def __init__(self, width=512, height=512, spp=1, max_depth=5, *, device,
+    def __init__(self, width=512, height=512, spp=1, max_depth=5, *, device="cuda",
                  env_kind="sky", tonemapper="filmic"):
         self.device = resolve_device(device)
         self.width = width
@@ -137,8 +141,8 @@ class GltfRenderer:
         self.reset_frame()
 
     def _sync_kernel_tables(self, cfg: RenderConfig) -> None:
-        """Build (host) and upload (device) the tables the selected kernels
-        read and the scene lacks; tables of an earlier selection stay."""
+        """Build (host) and upload (device) the tables the selected traversal
+        reads and the scene lacks; tables of an earlier selection stay."""
         need = cfg.kernel_tables() - {"bvh4"}  # nodes4_fi is always built
         if need:
             add_kernel_tables(self.bvh, need)
