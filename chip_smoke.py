@@ -71,7 +71,15 @@ Phases (each raises on failure; nothing is caught):
      tables of the terrain's nodes4_fi size (11 MB, in L2) and of 268 MB
      (past L2), then each table with one warp per block and SM (the
      chain's latency alone); probe_visit variants a, b, c, d, e and q at the TPU probe's
-     sizes; each run equal to its plain version, ns per visit printed.
+     sizes; each run equal to its plain version, ns per visit printed;
+ 13. the stream-copy and micro-op probes: probe_stream_dma for every TPU
+     variant A-G x copy construct (ld, cp_async, tma) at the TPU probe's
+     size (one stream, 48 pages), then at card scale (one stream per SM,
+     256 pages each) on tables of 11 MB (in L2) and 268 MB (past L2), each
+     run equal to its plain version and, in the regular page order, to
+     index_select + sum (its library time); probe_uarch for all 8 micro-ops
+     at 20,000 steps, each equal to its plain version run on CPU copies of
+     the inputs; ms, us per page, GB/s, ns and SM cycles per step printed.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -83,8 +91,12 @@ scaled to the full ray count, 24 per box test and 55 per triangle test
 leaf rows are the 64-byte rows of tris; a v1 leaf node reads only its
 32-byte nodes_i row. The probes: the distinct rows
 their chains read plus their inputs and outputs, and 8 FLOPs per lane and
-step (node fetch) or 24 per lane and box test (visit). Plain times include
-that visit counting.
+step (node fetch) or 24 per lane and box test (visit). The stream probe:
+the distinct pages read plus the output, and one add per element and page
+(two in the data-dependent order, its sum). The micro-op probe: its
+[8,128] input and output plus the distinct table words (rows of 128 for
+dynslice128) it reads, and its float ops per element and step
+(UARCH_FLOPS). Plain times include that visit counting.
 
 Prints one JSON line of per-kernel numbers, then the card's name and power
 limit, then the contract line {"ok": true, "device": {...}} last. Exits
@@ -149,6 +161,8 @@ SOURCES = {
     "traverse_bvh2_split": ("traverse_bvh2_split.cu", PT + "1921", None),
     "probe_nodefetch": ("probe_nodefetch.cu", "tools/exp_nodefetch.py:90", None),
     "probe_visit": ("probe_visit.cu", "tools/exp_visit.py:190", None),
+    "probe_stream_dma": ("probe_stream_dma.cu", "tools/exp_stream_dma.py:163", None),
+    "probe_uarch": ("probe_uarch.cu", "tools/uarch_probe.py:19", None),
 }
 # split kernel -> (table family, intersect_rays_packet keywords, arity, bytes read of an
 # internal node: packet4 96 box bytes of nodes4_f + 32 of nodes4_i, v1 48 of nodes_f + 32 of
@@ -904,6 +918,86 @@ def phase_probes(device):
     return results
 
 
+UARCH_FLOPS = {"empty": 0, "vec1": 2, "gather": 1, "gather12": 13, "reduce": 2, "dynslice": 1,
+               "depchain": 2, "dynslice128": 1}  # float ops per element and step
+STREAM_HEAD = "C tma TPU size"  # the stream probe's run in the kernels line's own keys
+
+
+def phase_stream_uarch(device):
+    """The stream-copy and micro-op probes through their run() entries,
+    then every run against its plain version (the micro-ops' on CPU copies
+    of their inputs) and, for the regular page order, against the
+    library's index_select + sum."""
+    from vk_gltf_renderer_tpu_torch.probes import stream_dma as sd
+    from vk_gltf_renderer_tpu_torch.probes import uarch as ua
+
+    sd.COUNTER.launches = 0
+    ua.COUNTER.launches = 0
+    sd_runs = sd.run(device)
+    ua_runs = ua.run(device)
+    launches = {"probe_stream_dma": sd.COUNTER.launches, "probe_uarch": ua.COUNTER.launches}
+    require(all(v > 0 for v in launches.values()), f"a probe never launched: {launches}")
+    results = {"probe_stream_dma": {"runs": {}}, "probe_uarch": {"runs": {}}}
+    head = {}
+    for run in sd_runs:
+        tab, v, blocks, steps = run["tab"], run["variant"], run["blocks"], run["steps"]
+        stats = {}
+        plain, plain_ms = _plain_ms(lambda: sd.probe_stream_dma_plain(tab, v, blocks, steps, stats=stats))
+        require(torch.equal(run["out"], plain), f"probe_stream_dma {run['label']}: kernel and plain differ")
+        err = float((run["out"].double() - plain.double()).abs().max())
+        f = sd.fields_of(v)
+        page_bytes = f * sd.LANE * 4
+        dyn, _ = sd.order_of(v)
+        pages = int(stats["pages"].sum())
+        b_ms, b_by = bound((pages + blocks) * page_bytes, blocks * steps * f * sd.LANE * (2 if dyn else 1))
+        lib_ms = None
+        if not dyn:
+            idx = sd.regular_pages(tab.shape[0] // f, blocks, steps, device).reshape(-1)
+
+            def lib():
+                return tab.view(-1, f, sd.LANE).index_select(0, idx).view(blocks, steps, f, sd.LANE).sum(1)
+
+            require(torch.equal(lib().reshape(plain.shape), plain), f"index_select + sum {run['label']} differs")
+            lib_ms = device_ms(lib, 5)
+        log(f"[stream] {run['label']}: {blocks} x {steps} pages of {page_bytes} B, {pages} distinct: "
+            f"{run['ms']:.4f} ms, {run['us_page']:.3f} us per page, {run['gbs']:.1f} GB/s; equal to plain "
+            f"({plain_ms:.1f} ms)" + (f" and to index_select + sum ({lib_ms:.4f} ms)" if lib_ms else "")
+            + f"; bound {b_ms:.5f} ms ({b_by})")
+        # the JSON line keeps [ms, us per page, GB/s, max_abs_err]; plain, bound and library times are in
+        # the log line
+        results["probe_stream_dma"]["runs"][run["label"]] = [run["ms"], run["us_page"], run["gbs"], err]
+        if run["label"] == STREAM_HEAD:
+            head = dict(plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    for run in ua_runs:
+        op, (a, b) = run["op"], run["inputs"]
+        stats = {}
+        t0 = time.perf_counter()
+        plain = ua.probe_uarch_plain(op, a.cpu(), b.cpu(), run["iters"], stats=stats)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(torch.equal(run["out"].cpu(), plain), f"probe_uarch {op}: kernel and plain differ")
+        err = float((run["out"].cpu().double() - plain.double()).abs().max())
+        row_bytes = b.shape[1] * 4 if op == "dynslice128" else 4  # dynslice reads one word a row
+        b_ms, b_by = bound(2 * a.numel() * 4 + stats["rows"] * row_bytes,
+                           a.numel() * run["iters"] * UARCH_FLOPS[op])
+        log(f"[uarch] {op}: {run['iters']} steps: {run['ms']:.4f} ms, {run['ns']:.2f} ns and "
+            f"{run['cycles']:.2f} SM cycles per step ({run['cycles'] / run['ns']:.3f} GHz); equal to plain "
+            f"on the CPU ({plain_ms:.0f} ms); bound {b_ms:.6f} ms ({b_by})")
+        results["probe_uarch"]["runs"][op] = dict(ms=run["ms"], ns_per_step=run["ns"],
+                                                  cycles_per_step=run["cycles"], plain_ms=plain_ms,
+                                                  plain_device="cpu", max_abs_err=err, bound_ms=b_ms,
+                                                  bound_by=b_by)
+    stream = results["probe_stream_dma"]
+    stream.update(launches=launches["probe_stream_dma"], headline=STREAM_HEAD,
+                  max_abs_err=max(r[3] for r in stream["runs"].values()),
+                  ms=stream["runs"][STREAM_HEAD][0], runs_fields=["ms", "us_per_page", "gb_per_s", "max_abs_err"],
+                  library="tab.view(-1,F,128).index_select(0, idx).sum over steps", **head)
+    uarch = results["probe_uarch"]
+    uarch.update(launches=launches["probe_uarch"], headline="depchain", library_ms=None,
+                 max_abs_err=max(r["max_abs_err"] for r in uarch["runs"].values()),
+                 **{k: uarch["runs"]["depchain"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return results
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -956,6 +1050,8 @@ def main():
         log(f"[time] wavefront frame done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
+    probes.update(phase_stream_uarch(device))
+    log(f"[time] stream and micro-op probes done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         _entry("traverse_bvh4", launches["traverse_bvh4"], kern["traverse_bvh4"],
@@ -980,7 +1076,7 @@ def main():
                           split["terrain"]["traverse_bvh2_split"], helmet=split["helmet"]["traverse_bvh2_split"],
                           launches_of="phase 9: intersect_rays_packet(v2=False), closest hit and "
                                       "anyhit=True, on the terrain's probe rays"))
-    for name in ("probe_nodefetch", "probe_visit"):
+    for name in ("probe_nodefetch", "probe_visit", "probe_stream_dma", "probe_uarch"):
         kernels.append(_entry(name, probes[name]["launches"], probes[name]))
     terrain = {f"{p},{q}": {"ms_per_frame": frames[(p, q)]["ms"], "mrays_per_s": frames[(p, q)]["mrays"]}
                for p, q in SELECTIONS}

@@ -30,6 +30,8 @@ from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2_split as tb2s
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_split as tb4s
 from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_packet, intersect_rays_soa
 from vk_gltf_renderer_tpu_torch.probes import nodefetch as tnf
+from vk_gltf_renderer_tpu_torch.probes import stream_dma as tsd
+from vk_gltf_renderer_tpu_torch.probes import uarch as tua
 from vk_gltf_renderer_tpu_torch.probes import visit as tvis
 from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb
 
@@ -262,3 +264,33 @@ def test_probe_visit_matches_plain(cuda, variant):
     out = tvis.probe_visit(fi, sc, ro, 512, variant)
     assert tvis.COUNTER.launches == launches + 1
     assert torch.equal(out, tvis.probe_visit_plain(fi, sc, ro, 512, variant))
+
+
+@pytest.mark.parametrize("copy", tsd.COPIES)
+@pytest.mark.parametrize("variant", tsd.VARIANTS)
+def test_probe_stream_dma_matches_plain(cuda, variant, copy):
+    """Integer-valued pages: every copy construct's sums equal the plain
+    version's, at the TPU probe's size and with one stream per SM."""
+    tab = torch.tensor(tsd.pages(variant), device=cuda)
+    launches = tsd.COUNTER.launches
+    out = tsd.probe_stream_dma(tab, variant, copy)
+    assert tsd.COUNTER.launches == launches + 1
+    assert torch.equal(out, tsd.probe_stream_dma_plain(tab, variant))
+    big = tsd.card_table(tsd.TERRAIN_BYTES, tsd.fields_of(variant), cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = tsd.probe_stream_dma(big, variant, copy, blocks=sms, steps=100)
+    assert torch.equal(out, tsd.probe_stream_dma_plain(big, variant, sms, 100))
+
+
+@pytest.mark.parametrize("op", tua.OPS)
+def test_probe_uarch_matches_plain(cuda, op):
+    """Each micro-op's accumulator equals the plain version's on CPU copies
+    of the inputs (the card computes the same float32 ops in the same
+    order), and the loop took cycles."""
+    tab, big, big128 = (torch.tensor(x) for x in tua.inputs())
+    b = tua.table_of(op, big, big128)
+    launches = tua.COUNTER.launches
+    out, cycles = tua.probe_uarch(op, tab.to(cuda), b.to(cuda), 2000)
+    assert tua.COUNTER.launches == launches + 1
+    assert torch.equal(out.cpu(), tua.probe_uarch_plain(op, tab, b, 2000))
+    assert int(cycles.item()) >= 2000

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "vkgr_probe_nodefetch": [_P, _P, _P, _I, _I, _I, _P, _P],
     # (fi, sc, ro, grid, rows, visits, ways, codes from the float row, out, stream)
     "vkgr_probe_visit": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # (tab, n_pages, fields, copy, dyn, double buffered, blocks, steps, out, stream)
+    "vkgr_probe_stream_dma": [_P] + [_I] * 7 + [_P, _P],
+    # (a, b, op, iters, out, cycles, stream)
+    "vkgr_probe_uarch": [_P, _P, _I, _I, _P, _P, _P],
 }
 
 
