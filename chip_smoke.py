@@ -12,7 +12,11 @@ Phases (each raises on failure; nothing is caught):
      (multi-pop), v7 (sidecar) and v8 (leaf queue) on the same rays; the
      HDR gather over 2M indices beside its library call
      (torch.index_select). Times of all versions and the visit counts of
-     the bounds are printed;
+     the bounds are printed. traverse_bvh4 is also held equal to v7 (the
+     one-ray-per-thread walk it replaces) bit for bit on every ray and
+     timed beside it in interleaved rounds (phase 6 does the same on the
+     terrain); the build's registers and spills of its kernel instances
+     are printed and kept in the JSON line;
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
      user entry points (create_scene, create_hdr, on_render, image_linear,
@@ -39,6 +43,16 @@ Phases (each raises on failure; nothing is caught):
      run must move its own kernels' counters and no other traversal
      counter, and its frame 0 must agree with the (v3, v9) one at
      tests/test_torch_frame.py's thresholds with the same ray count;
+ 7b. main-path launch replay: one (v3, v9) 1080p frame of the helmet (HDR)
+     and of the terrain through on_render, with ops.intersect.traverse_bvh4
+     wrapped to record clones of the 8 ray components of each of its
+     launches (10 a frame: closest and shadow per bounce); each launch is
+     then run through traverse_bvh4 and through v7 (traverse_bvh4_sidecar,
+     the one-ray-per-thread walk), held equal to v7 bit for bit on every
+     lane, timed in interleaved rounds, and held
+     against the plain version on a fixed subset of 65,536 lanes (dead
+     lanes included); lanes, live lanes, ms of each, the bound and the
+     frame sums are printed;
   8. the megakernel A/B (ops/megakernel.py, the reference's
      tools/exp_mega.py): the 2,073,600 camera rays of the 1080p frame 0 on
      the helmet and on the terrain, numpy seeds, depths 1, 2 and 5;
@@ -87,7 +101,9 @@ cores): bytes = the distinct table rows the plain version touched on the
 rays it walked (a lower bound for the full ray set) times their row bytes,
 plus every ray's inputs and outputs; FLOPs = the plain version's visits
 scaled to the full ray count, 24 per box test and 55 per triangle test
-(plus 20 per ray and bounce of megakernel shading). The split kernels'
+(plus 20 per ray and bounce of megakernel shading). A replayed launch's
+dead lanes (!(tmax >= 0)) move only their tmax and five outputs (24
+bytes): their result does not depend on the rest. The split kernels'
 leaf rows are the 64-byte rows of tris; a v1 leaf node reads only its
 32-byte nodes_i row. The probes: the distinct rows
 their chains read plus their inputs and outputs, and 8 FLOPs per lane and
@@ -107,6 +123,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -144,6 +161,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BOX_FLOPS, TRI_FLOPS, SHADE_FLOPS = 24, 55, 20
 RAY_BYTES = (8 + 5) * 4  # 8 f32 ray components in, 5 outputs of 4 bytes out
+DEAD_RAY_BYTES = (1 + 5) * 4  # a dead lane: tmax in, 5 outputs out
 PT = REF + "ops/pallas_traverse.py:"
 # wrapper -> (source, file:line of the TPU kernel it replaces, also replaces)
 SOURCES = {
@@ -207,9 +225,42 @@ def phase_build():
     for line in lib.compiler_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    return bvh4_resources(lib.compiler_log)
 
 
-def _helmet(tmp, device):
+def bvh4_resources(compiler_log):
+    """Registers, spills and shared memory of every kernel instance of
+    csrc/traverse_bvh4.cu, from ptxas -v in the build log: instance ->
+    dict. The walk's two instances are "walk closest" and "walk any"."""
+    out, name, section = {}, None, None
+    for line in compiler_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+            continue
+        if section != "traverse_bvh4.cu":
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            w = re.search(r"walk_kernelILb([01])E", m.group(1))
+            name = f"walk {('closest', 'any')[int(w.group(1))]}" if w else (
+                "compact_lanes" if "compact_lanes" in m.group(1) else m.group(1))
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(s.group(1)) if s else 0
+    for inst, res in out.items():
+        log(f"[build] traverse_bvh4.cu {inst}: {res}")
+    return out
+
+
+def helmet_renderer(tmp, device):
     from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
     from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_synthetic_hdr
 
@@ -219,7 +270,7 @@ def _helmet(tmp, device):
     return r, scene, hdr
 
 
-def _probe_rays(r, device):
+def probe_rays(r, device):
     """Camera rays of the 1080p frame at stride 2, plus as many incoherent
     rays from random points inside the scene bounds."""
     from vk_gltf_renderer_tpu_torch.ops.camera import generate_rays
@@ -320,12 +371,158 @@ def _visits(stats, arity, row_bytes, leaf_bytes=512):
             "touched")
 
 
-def traversal_bound(stats, arity, row_bytes, n_rays, n_walked, leaf_bytes=512):
+def traversal_bound(stats, arity, row_bytes, n_rays, n_walked, leaf_bytes=512, n_dead=0):
     """Bound of one launch on n_rays from the plain version's counts on
-    n_walked of them: distinct rows as counted, visits scaled."""
+    n_walked of them: distinct rows as counted, visits scaled. n_dead of
+    the rays are dead lanes (!(tmax >= 0) at an internal root): their
+    result is (tmax, -1, -1, 0, 0) whatever their other components, so
+    they move only DEAD_RAY_BYTES."""
     table_bytes, flops, desc = _visits(stats, arity, row_bytes, leaf_bytes)
-    ms, by = bound(table_bytes + n_rays * RAY_BYTES, flops * n_rays / n_walked)
+    ray_bytes = (n_rays - n_dead) * RAY_BYTES + n_dead * DEAD_RAY_BYTES
+    ms, by = bound(table_bytes + ray_bytes, flops * n_rays / n_walked)
     return ms, by, f"{desc} on {n_walked} rays"
+
+
+OUTPUTS = ("t", "rnode", "tri", "u", "v")
+
+
+def same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _require_bits(what, out, ref):
+    """All five outputs equal bit for bit on every lane."""
+    differ = [name for name, o, r in zip(OUTPUTS, out, ref) if not same_bits(o, r)]
+    require(not differ, f"{what}: {differ} differ from v7's")
+
+
+def _time_interleaved(calls, reps):
+    """Device ms of each call (device_ms over reps), timed in two rounds,
+    forward and backward, and averaged, so that no version has the card
+    to itself at one end of the run."""
+    ms = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            ms[k].append(device_ms(calls[k], reps))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def _bvh4_vs_v7(bvh, rays, anyhit):
+    """traverse_bvh4 and v7 on the same 8 ray components: equal bit for bit
+    on every lane, then timed in interleaved rounds. Returns
+    {"traverse_bvh4": ms, "v7": ms}."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_sidecar as tbsc
+
+    def v7():
+        return tbsc.traverse_bvh4_sidecar(bvh.nodes4_fi, bvh.nodes4_sc, bvh.tris128, bvh.root4_code,
+                                          *rays, anyhit=anyhit)
+
+    def new():
+        return tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=anyhit)
+
+    _require_bits("traverse_bvh4", new(), v7())
+    return _time_interleaved({"traverse_bvh4": new, "v7": v7}, 10)
+
+
+def _bvh4_probe_vs_v7(tag, bvh, comps, tmin, far, shadow_tmax, resources):
+    """traverse_bvh4 beside v7 on the probe rays, closest and any hit
+    (bit-equal on every ray); resources: bvh4_resources of the build,
+    whose walk instances are printed."""
+    for hit in ("closest", "any"):
+        log(f"[{tag}] traverse_bvh4 walk, {hit} hit: {resources.get(f'walk {hit}', 'not in this build log')}; "
+            f"compact_lanes: {resources.get('compact_lanes', 'not in this build log')}")
+    res = {}
+    for anyhit, tmax in ((False, far), (True, shadow_tmax)):
+        times = _bvh4_vs_v7(bvh, (*comps, tmin, tmax), anyhit)
+        hit = "any" if anyhit else "closest"
+        log(f"[{tag}] traverse_bvh4 {hit} hit on {comps[0].shape[0]} rays, equal to v7 bit for bit: "
+            f"{times['traverse_bvh4']:.4f} ms, v7 {times['v7']:.4f} ms "
+            f"(v7 / traverse_bvh4 {times['v7'] / times['traverse_bvh4']:.2f}x)")
+        res[hit] = times
+    return res
+
+
+def record_bvh4_launches(r):
+    """One frame of renderer r through on_render, with
+    ops.intersect.traverse_bvh4 wrapped to record clones of each launch's
+    8 ray components; returns ([(components, anyhit)], the frame's aux)."""
+    from vk_gltf_renderer_tpu_torch.ops import intersect
+
+    recorded = []
+    traced = intersect.traverse_bvh4
+
+    def record(*args, anyhit=False):
+        recorded.append(([c.clone() for c in args[3:]], anyhit))
+        return traced(*args, anyhit=anyhit)
+
+    intersect.traverse_bvh4 = record
+    try:
+        aux = r.on_render()
+    finally:
+        intersect.traverse_bvh4 = traced
+    torch.cuda.synchronize()
+    return recorded, aux
+
+
+def phase_replay(device, scenes, smi):
+    """The main path's traverse_bvh4 launches replayed: one (v3, v9) frame
+    per scene through on_render with ops.intersect.traverse_bvh4 wrapped
+    to record clones of each launch's 8 ray components; then every launch
+    through traverse_bvh4 and v7 (bit-equal on every lane, timed in
+    interleaved rounds), against the plain version on a fixed subset of
+    SUBSET lanes (dead lanes included), with its bound."""
+    from vk_gltf_renderer_tpu_torch.convert import add_kernel_tables_to_device
+    from vk_gltf_renderer_tpu_torch.ops import traverse as tt
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import add_kernel_tables
+
+    results = {}
+    for label, r in scenes:
+        add_kernel_tables(r.bvh, {"bvh4_sidecar"})
+        add_kernel_tables_to_device(r.dev_bvh, r.bvh, device, {"bvh4_sidecar"})
+        bvh = r.dev_bvh
+        require(bvh.root4_code >= 0, f"{label}: the BVH4 root is a leaf")
+        recorded, aux = record_bvh4_launches(r)
+        # a closest and a shadow launch per bounce while any path is alive
+        require(0 < len(recorded) <= 2 * DEPTH, f"{label}: {len(recorded)} traverse_bvh4 launches in a frame")
+        launches, frame = [], {}
+        for k, (rays, anyhit) in enumerate(recorded):
+            n = rays[0].shape[0]
+            live = int((rays[7] >= 0).sum())
+            times = _bvh4_vs_v7(bvh, rays, anyhit)
+            sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(50 + k))[:SUBSET]
+            sargs = tuple(a[sub.to(device)].contiguous() for a in rays)
+            stats = {}
+            tables = (bvh.nodes4_fi, bvh.tris128, bvh.root4_code)
+            err = _check_against_plain("traverse_bvh4", tb4.traverse_bvh4(*tables, *sargs, anyhit=anyhit),
+                                       tt.traverse_bvh4_plain(*tables, *sargs, anyhit=anyhit, stats=stats),
+                                       SUBSET, anyhit)
+            b_ms, b_by, visits = traversal_bound(stats, 4, 128, n, SUBSET, n_dead=n - live)
+            hit = "any" if anyhit else "closest"
+            log(f"[replay] {label} launch {k} ({hit} hit): {n} lanes, {live} live ({100 * live / n:.2f}%): "
+                f"traverse_bvh4 {times['traverse_bvh4']:.4f} ms, v7 {times['v7']:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by}); equal to v7 bit for bit on every lane; plain on {SUBSET} lanes "
+                f"({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
+            launches.append(dict(hit=hit, lanes=n, live=live, bound_ms=b_ms, max_abs_err=err, **times))
+            for key, v in times.items():
+                frame[key] = frame.get(key, 0.0) + v
+        frame_bound = sum(x["bound_ms"] for x in launches)
+        live_sum = sum(x["live"] for x in launches)
+        log(f"[replay] {label} frame ({len(launches)} launches, {live_sum} live lanes; the frame counted "
+            f"{float(aux['rays']):.0f} rays): traverse_bvh4 {frame['traverse_bvh4']:.4f} ms, v7 "
+            f"{frame['v7']:.4f} ms (v7 / traverse_bvh4 {frame['v7'] / frame['traverse_bvh4']:.2f}x), bound "
+            f"{frame_bound:.4f} ms, on {smi}")
+        later = {key: sum(x[key] for x in launches[1:]) for key in ("traverse_bvh4", "v7")}
+        log(f"[replay] {label} the {len(launches) - 1} launches after bounce 0's closest hit: traverse_bvh4 "
+            f"{later['traverse_bvh4']:.4f} ms, v7 {later['v7']:.4f} ms")
+        results[label] = dict(frame=dict(frame, bound_ms=frame_bound, live=live_sum,
+                                         rays=float(aux["rays"])),
+                              launches=launches)
+        del recorded
+    return results
 
 
 def _check_against_plain(name, k, p, n, anyhit):
@@ -345,11 +542,13 @@ def _check_against_plain(name, k, p, n, anyhit):
     require(bool((same | tie | ~hit).all()),
             f"{name}: ids differ beyond equal-t ties on {int((~(same | tie) & hit).sum())} rays")
     both = same & hit
-    err = max(float((kt - pt)[hit].abs().max()), float((ku - pu)[both].abs().max()),
-              float((kv - pv)[both].abs().max()))
+
+    def most(x):  # max |x|, 0 over no element (a sparse replayed launch's subset may hit nothing)
+        return float(x.abs().max()) if x.numel() else 0.0
+
+    err = max(most((kt - pt)[hit]), most((ku - pu)[both]), most((kv - pv)[both]))
     require(bool(((kt - pt)[hit].abs() <= 1e-5 * (1 + pt[hit].abs())).all()), f"{name}: t beyond 1e-5")
-    require(float((ku - pu)[both].abs().max()) <= 1e-5 and float((kv - pv)[both].abs().max()) <= 1e-5,
-            f"{name}: u/v beyond 1e-5")
+    require(most((ku - pu)[both]) <= 1e-5 and most((kv - pv)[both]) <= 1e-5, f"{name}: u/v beyond 1e-5")
     log(f"[kernels] {name} closest hit: {int(hit.sum())} hits of {n}, ids equal on {int(same.sum())}, "
         f"max |t,u,v err| {err:.3g}")
     return err
@@ -413,15 +612,15 @@ def _all_tables(r, device):
     return secs
 
 
-def phase_kernels(device):
+def phase_kernels(device, resources):
     from vk_gltf_renderer_tpu_torch.ops import gather as tgather
 
     with tempfile.TemporaryDirectory() as tmp:
-        r, scene, _ = _helmet(tmp, device)
+        r, scene, _ = helmet_renderer(tmp, device)
         r.create_scene(scene)
         _all_tables(r, device)
         bvh = r.dev_bvh
-        ro, rd = _probe_rays(r, device)
+        ro, rd = probe_rays(r, device)
     n = ro.shape[0]
     comps = [ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
     tmin = torch.zeros(n, device=device)
@@ -436,6 +635,8 @@ def phase_kernels(device):
     far = torch.full((n,), 1e32, device=device)
     results = _run_kernels("kernels", ("traverse_bvh4",) + BVH4_VARIANTS, _traversal_runs(bvh), comps,
                            tmin, far, shadow_tmax, None)
+    results["traverse_bvh4"]["against_v7"] = _bvh4_probe_vs_v7("kernels", bvh, comps, tmin, far, shadow_tmax,
+                                                            resources)
 
     gen = torch.Generator(device="cpu").manual_seed(7)
     tab = torch.randn((4, 64 * 128), generator=gen).to(device)
@@ -459,7 +660,7 @@ def phase_main_path(device, tmp, smi):
     from vk_gltf_renderer_tpu_torch.ops import gather as tgather
     from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
 
-    r, scene, hdr = _helmet(tmp, device)
+    r, scene, hdr = helmet_renderer(tmp, device)
     tb4.COUNTER.launches = 0
     tgather.COUNTER.launches = 0
     tb4.OVERFLOW.reset()
@@ -544,7 +745,7 @@ def phase_correctness(device, tmp):
     require(ids >= 0.999 and close >= 0.99 and rel.max() <= 1e-3, "card frame disagrees with the plain path")
 
 
-def _terrain_renderer(glb, hdr, device, selection):
+def terrain_renderer(glb, hdr, device, selection):
     from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
 
     os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = selection
@@ -555,11 +756,11 @@ def _terrain_renderer(glb, hdr, device, selection):
     return r, time.perf_counter() - t0
 
 
-def phase_large_kernels(device, glb, hdr):
+def phase_large_kernels(device, glb, hdr, resources):
     """Every traversal kernel against its plain version on the terrain."""
     from vk_gltf_renderer_tpu_torch.ops.intersect import STACK_CAPACITY
 
-    r, secs = _terrain_renderer(glb, hdr, device, SELECTIONS[0])
+    r, secs = terrain_renderer(glb, hdr, device, SELECTIONS[0])
     wb = r.bvh
     log(f"[large] terrain: {wb.num_world_tris} world tris; create_scene (flatten, SAH, BVH4, hit rows, "
         f"upload) {secs:.1f} s")
@@ -576,7 +777,7 @@ def phase_large_kernels(device, glb, hdr):
     for family, need in bvh.stack_need.items():
         require(need <= STACK_CAPACITY[family], f"{family} tree needs a {need}-entry stack")
 
-    ro, rd = _probe_rays(r, device)
+    ro, rd = probe_rays(r, device)
     n = ro.shape[0]
     comps = [ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
     tmin = torch.zeros(n, device=device)
@@ -588,8 +789,10 @@ def phase_large_kernels(device, glb, hdr):
     log(f"[large] {n} rays ({n // 2} camera rays at stride 2, {n - n // 2} incoherent); plain "
         f"versions on a fixed subset of {SUBSET}")
     names = ("traverse_bvh2", "traverse_bvh16", "traverse_lanes", "traverse_bvh4") + BVH4_VARIANTS
-    return (_run_kernels("large", names, _traversal_runs(bvh), comps, tmin, far, shadow_tmax, sub), r,
-            (ro, rd))
+    results = _run_kernels("large", names, _traversal_runs(bvh), comps, tmin, far, shadow_tmax, sub)
+    results["traverse_bvh4"]["against_v7"] = _bvh4_probe_vs_v7("large", bvh, comps, tmin, far, shadow_tmax,
+                                                            resources)
+    return results, r, (ro, rd)
 
 
 def phase_terrain_frames(device, glb, hdr, smi, tmp):
@@ -599,7 +802,7 @@ def phase_terrain_frames(device, glb, hdr, smi, tmp):
     mods = _traversal_modules()
     runs = {}
     for selection in SELECTIONS:
-        r, secs = _terrain_renderer(glb, hdr, device, selection)
+        r, secs = terrain_renderer(glb, hdr, device, selection)
         for m in mods.values():
             m.COUNTER.launches = 0
             m.OVERFLOW.reset()
@@ -1016,8 +1219,8 @@ def _entry(name, launches, nums, **extra):
 def main():
     t_start = time.perf_counter()
     device, smi = phase_device()
-    phase_build()
-    kern, helmet_r, helmet_rays = phase_kernels(device)
+    resources = phase_build()
+    kern, helmet_r, helmet_rays = phase_kernels(device, resources)
     with tempfile.TemporaryDirectory() as tmp:
         launches, ms, mrays, helmet_first = phase_main_path(device, tmp, smi)
         phase_correctness(device, tmp)
@@ -1029,13 +1232,16 @@ def main():
         hdr = write_synthetic_hdr(os.path.join(tmp, "sky.hdr"), 256, 512, seed=0)
         world = write_large_glb(glb, LARGE_TRIS)
         require(world == LARGE_WORLD_TRIS, f"terrain has {world} world triangles")
-        large, terrain_r, terrain_rays = phase_large_kernels(device, glb, hdr)
+        large, terrain_r, terrain_rays = phase_large_kernels(device, glb, hdr, resources)
         log(f"[time] large-scene kernels done at {time.perf_counter() - t_start:.1f} s")
         frames = phase_terrain_frames(device, glb, hdr, smi, tmp)
         log(f"[time] terrain frames done at {time.perf_counter() - t_start:.1f} s")
-        helmet, _, _ = _helmet(tmp, device)
+        helmet, _, _ = helmet_renderer(tmp, device)
         helmet.create_scene(os.path.join(tmp, "helmet.gltf"))
-        terrain, _ = _terrain_renderer(glb, hdr, device, SELECTIONS[0])
+        helmet.create_hdr(hdr)
+        terrain, _ = terrain_renderer(glb, hdr, device, SELECTIONS[0])
+        replay = phase_replay(device, (("helmet", helmet), ("terrain", terrain)), smi)
+        log(f"[time] main-path launch replay done at {time.perf_counter() - t_start:.1f} s")
         mega = phase_megakernel(device, (("helmet", helmet), ("terrain", terrain)), smi)
         log(f"[time] megakernel A/B done at {time.perf_counter() - t_start:.1f} s")
         split = {"helmet": phase_split_kernels(device, "helmet", helmet_r, *helmet_rays),
@@ -1056,7 +1262,11 @@ def main():
     kernels = [
         _entry("traverse_bvh4", launches["traverse_bvh4"], kern["traverse_bvh4"],
                terrain_launches=frames[SELECTIONS[0]]["launches"]["traverse_bvh4"],
-               terrain=large["traverse_bvh4"]),
+               terrain=large["traverse_bvh4"], resources=resources,
+               replay={label: v["frame"] for label, v in replay.items()},
+               replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["traverse_bvh4"], x["v7"], x["bound_ms"]]
+                                        for x in v["launches"]] for label, v in replay.items()},
+               replay_launches_fields=["hit", "lanes", "live", "ms", "v7_ms", "bound_ms"]),
         _entry("gather_channels", launches["gather_channels"], kern["gather_channels"]),
     ]
     for name, sel in (("traverse_bvh2", ("v2", "v2")), ("traverse_bvh16", ("v6", "v6")),

@@ -34,6 +34,7 @@ from vk_gltf_renderer_tpu_torch.probes import stream_dma as tsd
 from vk_gltf_renderer_tpu_torch.probes import uarch as tua
 from vk_gltf_renderer_tpu_torch.probes import visit as tvis
 from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb
+from torch_test_helpers import deep_chain_bvh4, deep_chain_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -148,6 +149,195 @@ def test_new_traversal_kernels_match_plain(cuda, scene, kernel, anyhit):
         torch.testing.assert_close(k["t"][hit], t[hit], rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(k["u"][same & hit], u[same & hit], rtol=0, atol=1e-5)
         torch.testing.assert_close(k["v"][same & hit], v[same & hit], rtol=0, atol=1e-5)
+
+
+def _bvh4_tables(wb, cuda):
+    """DeviceBvh of wb with the v7 sidecar, the yardstick of traverse_bvh4."""
+    wb = add_kernel_tables(wb, {"bvh4_sidecar"})
+    return add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, {"bvh4_sidecar"})
+
+
+def _inside_rays(wb, n, seed, cuda):
+    """n incoherent rays from random points inside the scene bounds, as
+    the 8 [N] components with tmin 0 and tmax 1e32."""
+    rng = np.random.default_rng(seed)
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    ro = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    comps = [torch.tensor(np.ascontiguousarray(a), device=cuda) for a in (*ro.T, *rd.T)]
+    return [*comps, torch.zeros(n, device=cuda), torch.full((n,), 1e32, device=cuda)]
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _bvh4_against_v7(bvh, args, anyhit, root=None):
+    """traverse_bvh4 against v7 on the same lanes: bit for bit in all five
+    outputs, one launch counted, nothing dropped. Returns its outputs."""
+    root = bvh.root4_code if root is None else root
+    tb4.OVERFLOW.reset()
+    tbsc.OVERFLOW.reset()
+    ref = tbsc.traverse_bvh4_sidecar(bvh.nodes4_fi, bvh.nodes4_sc, bvh.tris128, root, *args,
+                                     anyhit=anyhit)
+    launches = tb4.COUNTER.launches
+    out = tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, root, *args, anyhit=anyhit)
+    torch.cuda.synchronize()
+    assert tb4.COUNTER.launches == launches + 1
+    assert all(_same_bits(o, r) for o, r in zip(out, ref))
+    assert tb4.OVERFLOW.total() == 0 and tbsc.OVERFLOW.total() == 0
+    return out
+
+
+def _against_plain(bvh, args, anyhit, out, root=None):
+    """The kernel's outputs against the plain version's, at the tolerances
+    of test_traversal_kernel_matches_plain; returns the hit mask."""
+    root = bvh.root4_code if root is None else root
+    t, rn, tri, u, v, dropped = ttrav.traverse_bvh4_plain(bvh.nodes4_fi, bvh.tris128, root, *args,
+                                                          anyhit=anyhit)
+    kt, krn, ktri, ku, kv = out
+    assert dropped == 0
+    hit = tri >= 0
+    assert torch.equal(ktri >= 0, hit)
+    if not anyhit:
+        same = (ktri == tri) & (krn == rn)
+        tie = torch.isclose(kt, torch.where(hit, t, kt), rtol=1e-6, atol=0)
+        assert bool((same | tie).all())
+        torch.testing.assert_close(kt[hit], t[hit], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(ku[same & hit], u[same & hit], rtol=0, atol=1e-5)
+        torch.testing.assert_close(kv[same & hit], v[same & hit], rtol=0, atol=1e-5)
+    return hit
+
+
+def _assert_dead(out, tmax, dead):
+    """(tmax, -1, -1, 0, 0) bit for bit on the dead lanes."""
+    kt, krn, ktri, ku, kv = out
+    assert _same_bits(kt[dead], tmax[dead])
+    assert bool((krn[dead] == -1).all() and (ktri[dead] == -1).all())
+    for f in (ku, kv):
+        assert torch.equal(f[dead].view(torch.int32), torch.zeros_like(f[dead].view(torch.int32)))
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_bvh4_kernel_on_a_dead_lane_mix(cuda, anyhit):
+    """A helmet ray set in which 98% of the lanes are dead and scattered
+    (tmax -1, a tenth of them NaN), as in the main path's bounces: the
+    kernel equals v7 bit for bit and the plain version within tolerance."""
+    wb = _helmet_bvh()
+    bvh = _bvh4_tables(wb, cuda)
+    n = 200_000
+    args = _inside_rays(wb, n, 36, cuda)
+    g = torch.Generator(device="cpu").manual_seed(36)
+    live = (torch.rand(n, generator=g) < 0.02).to(cuda)
+    nan = (torch.rand(n, generator=g) < 0.1).to(cuda)
+    tmax = torch.where(live, 3.0 if anyhit else 1e32, torch.where(nan, float("nan"), -1.0))
+    args[7] = tmax.contiguous()
+    out = _bvh4_against_v7(bvh, args, anyhit)
+    hit = _against_plain(bvh, args, anyhit, out)
+    assert int(hit.sum()) > 500 and not bool(hit[~live].any())
+    _assert_dead(out, tmax, ~live)
+
+
+@pytest.mark.parametrize("size", ["1", "1000", "past_one_pass"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_bvh4_kernel_lane_counts(cuda, size, anyhit):
+    """n = 1, 1000 and more lanes than the persistent grid holds threads
+    (2048 per SM, the most an SM keeps resident): all live, equal to v7
+    bit for bit and to the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = {"1": 1, "1000": 1000, "past_one_pass": 2048 * sms + 333}[size]
+    wb = _helmet_bvh()
+    bvh = _bvh4_tables(wb, cuda)
+    args = _inside_rays(wb, n, 37, cuda)
+    if anyhit:
+        args[7] = torch.full((n,), 3.0, device=cuda)
+    out = _bvh4_against_v7(bvh, args, anyhit)
+    hit = _against_plain(bvh, args, anyhit, out)
+    assert n < 1000 or int(hit.sum()) > n // 10
+
+
+def test_bvh4_kernel_without_live_lanes(cuda):
+    """No live lane (tmax -1, -inf or NaN): every lane reads (tmax, -1, -1,
+    0, 0), the NaN's bits included, in the kernel and in v7."""
+    wb = _helmet_bvh()
+    bvh = _bvh4_tables(wb, cuda)
+    n = 5000
+    args = _inside_rays(wb, n, 38, cuda)
+    tmax = torch.tensor([-1.0, float("-inf"), float("nan"), -0.5], device=cuda).repeat(n // 4)
+    args[7] = tmax.contiguous()
+    for anyhit in (False, True):
+        out = _bvh4_against_v7(bvh, args, anyhit)
+        _assert_dead(out, tmax, torch.ones(n, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_bvh4_kernel_on_the_leaf_root_scene(cuda, anyhit):
+    """The 2-triangle plane whose binary root is a leaf (BVH4 root row 0
+    with one leaf child), and the same leaf passed as a negative root code:
+    there a lane with tmin < t < tmax < 0 can still hit, so only lanes with
+    !(tmin < tmax) are skipped. The kernel equals v7 and the plain
+    version."""
+    from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+    from vk_gltf_renderer_tpu_torch.scenes import _empty_scene
+
+    sc = _empty_scene()
+    SceneEditor(sc).add_primitive("plane")
+    sc.parse_scene()
+    wb = build_world_bvh(build_scene_flat(sc))
+    assert wb.nodes4_fi.shape[0] == 1
+    bvh = _bvh4_tables(wb, cuda)
+    n = 4096
+    rng = np.random.default_rng(39)
+    xz = rng.uniform(-1.2, 1.2, size=(n, 2)).astype(np.float32)
+    up = rng.random(n) < 0.5  # half the rays start above the plane, half below
+    ro = np.stack([xz[:, 0], np.where(up, 1.0, -1.0), xz[:, 1]], 1).astype(np.float32)
+    rd = np.tile(np.float32([0.0, -1.0, 0.0]), (n, 1))  # down: the plane (y = 0) at t = +1 or -1
+    tmin = np.where(up, 0.0, -3.0).astype(np.float32)
+    tmax = np.where(up, 1e32, -0.5).astype(np.float32)
+    tmax[::5] = -1.0
+    tmax[3::10] = -4.0  # tmin > tmax: dead even at a leaf root
+    comps = [torch.tensor(np.ascontiguousarray(a), device=cuda) for a in (*ro.T, *rd.T)]
+    args = [*comps, torch.tensor(tmin, device=cuda), torch.tensor(tmax, device=cuda)]
+    leaf = int(bvh.nodes4_fi[0, 24:28].min())
+    assert leaf < 0
+    for root in (bvh.root4_code, leaf):
+        out = _bvh4_against_v7(bvh, args, anyhit, root)
+        hit = _against_plain(bvh, args, anyhit, out, root)
+        below = torch.tensor(~up, device=cuda)
+        assert int(hit.sum()) > 100
+        # a lane below the plane hits only through the leaf root (the root row's slab test
+        # floors tnear at 0), and one with tmin > tmax never does
+        assert bool(hit[below].any()) == (root < 0)
+        assert not bool(hit[torch.tensor(tmax == -4.0, device=cuda)].any())
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_bvh4_kernel_counts_overflow(cuda, anyhit):
+    """A tree deeper than the 64-entry stack (torch_test_helpers.
+    deep_chain_bvh4: 3 pushes dropped a live ray) drops pushes and counts
+    them in the kernel, in v7 and in the plain version alike, with equal
+    outputs (as test_torch_traverse.py::test_stack_overflow_is_counted)."""
+    fi, sc, tr = (torch.tensor(a, device=cuda) for a in deep_chain_bvh4())
+    rays = [torch.tensor(a, device=cuda) for a in deep_chain_rays(4096, seed=40)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    tb4.OVERFLOW.reset()
+    tbsc.OVERFLOW.reset()
+    try:
+        out = tb4.traverse_bvh4(fi, tr, 0, *rays, anyhit=anyhit)
+        ref = tbsc.traverse_bvh4_sidecar(fi, sc, tr, 0, *rays, anyhit=anyhit)
+        assert tb4.OVERFLOW.total() == tbsc.OVERFLOW.total() == 3 * live
+    finally:
+        tb4.OVERFLOW.reset()
+        tbsc.OVERFLOW.reset()
+    assert all(_same_bits(o, r) for o, r in zip(out, ref))
+    *plain, dropped = ttrav.traverse_bvh4_plain(fi.cpu(), tr.cpu(), 0, *(r.cpu() for r in rays),
+                                                anyhit=anyhit)
+    assert dropped == 3 * live
+    assert all(_same_bits(o.cpu(), p) for o, p in zip(out, plain))
 
 
 def test_gather_kernel_matches_plain(cuda):

@@ -16,7 +16,9 @@ each step's rounding may differ by an ulp of the accumulator, so the sums
 agree within visits * 2^-24 * max|acc| (measured: 7.4e-6 against a bound
 of 9e-4 at 64 visits)."""
 
+import contextlib
 import functools
+import importlib
 import sys
 from pathlib import Path
 
@@ -27,15 +29,42 @@ import torch
 from jax.experimental import pallas as pl
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT / "tools"))
 
-import exp_nodefetch  # noqa: E402
-import exp_visit  # noqa: E402
+
+@contextlib.contextmanager
+def _tools_on_path():
+    """tools/ on sys.path inside the block only. The restore also takes
+    away what the imported modules insert themselves: tools/exp_visit.py
+    inserts an absolute path of its own when it runs."""
+    saved = list(sys.path)
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        yield
+    finally:
+        sys.path[:] = saved
+
+
+with _tools_on_path():
+    import exp_nodefetch  # noqa: E402
+    import exp_visit  # noqa: E402
 from vk_gltf_renderer_tpu.utils import tpu_bench  # noqa: E402
 from vk_gltf_renderer_tpu_torch.probes import nodefetch as tnf  # noqa: E402
 from vk_gltf_renderer_tpu_torch.probes import visit as tvis  # noqa: E402
 
 VISITS, GRID = 64, 2
+
+
+def test_tpu_probe_imports_leave_sys_path_as_it_was():
+    """The TPU probes are imported as the module imports them, again: inside
+    the block tools/ and the path tools/exp_visit.py inserts are on
+    sys.path, and after it sys.path is the list it was before."""
+    before = list(sys.path)
+    with _tools_on_path():
+        importlib.reload(exp_visit)  # runs the script's own sys.path.insert again
+        inside = list(sys.path)
+    assert inside[1] == str(ROOT / "tools") and len(inside) == len(before) + 2
+    assert sys.path == before
+    assert exp_visit.make_tables is not None and exp_nodefetch.mk is not None
 
 
 @pytest.fixture

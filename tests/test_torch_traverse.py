@@ -51,6 +51,13 @@ from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_soa  # noqa: E402
+from torch_test_helpers import deep_chain_bvh4, deep_chain_rays  # noqa: E402
+
+_SYS_PATH = list(sys.path)
+try:
+    import bvh4_tuning  # noqa: E402 (its import puts the repository root on sys.path)
+finally:
+    sys.path[:] = _SYS_PATH
 
 INF = 1e30
 BVH4_VARIANTS = ["v5", "v7", "v8"]
@@ -260,6 +267,127 @@ def test_wrapper_refuses_other_devices(editor):
     rays = [torch.zeros(8, device="meta") for _ in range(8)]
     with pytest.raises(ValueError):
         tb4.traverse_bvh4(bvh_t.nodes4_fi, bvh_t.tris128, 0, *rays)
+
+
+def _soa(ro, rd, tmin, tmax):
+    return (*(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)), torch.tensor(tmin),
+            torch.tensor(tmax))
+
+
+def _dead_mix(wb, n, seed):
+    """_aimed_rays in which ~2% of the lanes, scattered, are live and the
+    rest carry tmax = -1, as in the renderer's bounce and shadow launches
+    (ops/pathtrace.trace_closest)."""
+    ro, rd, _ = _aimed_rays(wb, n, seed)
+    live = np.random.default_rng(seed + 7).random(n) < 0.02
+    return ro, rd, np.where(live, np.float32(1e32), np.float32(-1.0))
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_plain_bvh4_returns_tmax_on_dead_lanes(editor, anyhit):
+    """The raw plain BVH4 walk returns (tmax, -1, -1, 0, 0) exactly on every
+    lane with tmax -1 or NaN (the rule csrc/traverse_bvh4.cu's compaction
+    relies on to skip those lanes), and intersect_rays_soa turns such a
+    lane into t = 1e32 with ids -1."""
+    _, wb, bvh_t = editor
+    n = 512
+    ro, rd, tmax = _aimed_rays(wb, n, seed=24)
+    if anyhit:
+        tmax[:] = 2.5
+    tmax[1::3] = -1.0
+    tmax[2::7] = np.nan
+    dead = ~(tmax >= 0)
+    t, rn, tri, u, v, dropped = ttrav.traverse_bvh4_plain(
+        bvh_t.nodes4_fi, bvh_t.tris128, bvh_t.root4_code, *_soa(ro, rd, np.zeros(n, np.float32), tmax),
+        anyhit=anyhit)
+    assert dropped == 0 and dead.sum() > 200 and np.isnan(tmax).sum() > 40
+    assert np.array_equal(t.numpy()[dead].view(np.int32), tmax[dead].view(np.int32))
+    for ids in (rn, tri):
+        assert (ids.numpy()[dead] == -1).all()
+    for f in (u, v):
+        assert np.array_equal(f.numpy()[dead].view(np.int32), np.zeros(dead.sum(), np.int32))
+    assert (tri.numpy()[~dead] >= 0).sum() > 30  # the live lanes of the same rays hit
+    port = _port(bvh_t, ro, rd, tmax, anyhit=anyhit)
+    assert (port["t"][dead] == 1e32).all() and (port["tri"][dead] == -1).all()
+    assert (port["rnode"][dead] == -1).all()
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+@pytest.mark.parametrize("kernel", ["v3", "v9"])
+def test_dead_lane_mix_matches_packet_kernel(editor, kernel, anyhit):
+    """On a lane mix with ~98% of the lanes dead and scattered, the port's
+    BVH4 traversal equals the reference's traverse_packets3 /
+    traverse_packets9 (interpret mode): closest hit as
+    test_plain_closest_hit_matches_packet_kernel, any hit by occlusion."""
+    _, wb, bvh_t = editor
+    ro, rd, tmax = _dead_mix(wb, 4096, seed=25)
+    if anyhit:
+        tmax = np.where(tmax > 0, np.float32(2.5), tmax)
+    live = tmax >= 0
+    assert 40 < live.sum() < 130
+    port = _port(bvh_t, ro, rd, tmax, anyhit=anyhit, kernel=kernel)
+    ref = _ref_packet(wb, ro, rd, tmax, kernel, anyhit=anyhit)
+    hit = ref["tri"] >= 0
+    assert 10 < hit.sum() and not hit[~live].any()
+    if anyhit:
+        assert ((port["tri"] >= 0) == hit).all() and ((port["t"] == 0.0) == hit).all()
+    else:
+        _assert_closest_equal(port, ref, wb, ro, rd)
+    assert (port["t"][~live] == 1e32).all() and (port["tri"][~live] == -1).all()
+
+
+def test_bvh4_scratch_and_stack_match_the_kernel():
+    """The wrapper's scratch header is csrc/traverse_bvh4.cu's, and
+    scratch_words holds it and one list entry per lane; the kernel's
+    compiled stack capacity is the plain version's STACK_DEPTH."""
+    import re
+
+    from vk_gltf_renderer_tpu_torch import cuda_lib
+
+    src = (cuda_lib._CSRC / "traverse_bvh4.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kScratchHeader"] == tb4.SCRATCH_HEADER
+    assert consts["kStackCap"] == ttrav.STACK_DEPTH == 64
+    assert [tb4.scratch_words(n) for n in (0, 1, 1000)] == [4, 5, 1004]
+
+
+@pytest.mark.parametrize("name", list(bvh4_tuning.VARIANTS))
+def test_bvh4_tuning_variant_fits_the_kernel_source(name):
+    """Each ablation and tuning variant of bvh4_tuning.py applies to
+    csrc/traverse_bvh4.cu as it is: every substitution matches once and
+    changes the source (the unchanged "source" variant aside), and a
+    source in which its first anchor appears twice is refused."""
+    from vk_gltf_renderer_tpu_torch import cuda_lib
+
+    src = (cuda_lib._CSRC / "traverse_bvh4.cu").read_text()
+    out = bvh4_tuning.variant_source(src, name)
+    assert (out == src) == (name == "source")
+    assert all(new in out for _, new in bvh4_tuning.VARIANTS[name])
+    if name != "source":
+        old = bvh4_tuning.VARIANTS[name][0][0]
+        first = old[0] if isinstance(old, tuple) else old
+        with pytest.raises(ValueError, match="exactly once"):
+            bvh4_tuning.variant_source(src.replace(first, first + first), name)
+
+
+@pytest.mark.parametrize("levels", [21, 22, 24])
+def test_plain_bvh4_counts_overflow_on_a_deep_chain(levels):
+    """torch_test_helpers.deep_chain_bvh4 through the CPU wrapper: a live
+    ray's stack needs 3 entries a row, so 21 rows fit the 64 entries and
+    from 22 rows on every live ray drops 3 pushes (dead lanes none), in
+    the BVH4 walk and in v7's; nothing is hit."""
+    fi, sc, tr = (torch.tensor(a) for a in deep_chain_bvh4(levels))
+    rays = [torch.tensor(a) for a in deep_chain_rays(300, seed=41)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    want = 0 if levels < 22 else 3 * live
+    tb4.OVERFLOW.reset()
+    t, _, tri, _, _ = tb4.traverse_bvh4(fi, tr, 0, *rays)
+    assert tb4.OVERFLOW.total() == want
+    tb4.OVERFLOW.reset()
+    assert (tri == -1).all() and torch.equal(t, rays[7])
+    *_, dropped = ttrav.traverse_bvh4_sidecar_plain(fi, sc, tr, 0, *rays)
+    assert dropped == want
 
 
 @pytest.mark.parametrize("scene", ["terrain", "few"])

@@ -1,9 +1,9 @@
 // Per-ray traversal of the fused BVH row tables, one ray per thread: the
-// arity-templated walk behind traverse_bvh2.cu, traverse_bvh4.cu,
-// traverse_bvh16.cu, traverse_bvh4_sidecar.cu and traverse_bvh4_split.cu
-// (walk; test_leaf for both leaf layouts), the node
-// expansion the v5 and v8 schedules reuse (expand_node), plus the ray/box
-// and ray/triangle tests that traverse_lanes.cu and megakernel.cu share.
+// arity-templated walk behind traverse_bvh2.cu, traverse_bvh16.cu,
+// traverse_bvh4_sidecar.cu and traverse_bvh4_split.cu (walk; test_leaf for
+// both leaf layouts), the node expansion the v5 and v8 schedules reuse
+// (expand_node), plus the ray/box and ray/triangle tests that
+// traverse_bvh4.cu, traverse_lanes.cu and megakernel.cu share.
 //
 // Row layout of an arity-A table (A = 2^L children per node, 8*A floats
 // per row; nodes_fi L=1, nodes4_fi L=2, nodes16_fi L=4):

@@ -9,11 +9,12 @@
 // extracts off the fetched row. On the card there is no such split: the
 // visit reads the 96 bytes of boxes from nodes4_fi and one 32-byte int row
 // (two 16-byte loads) from the sidecar, so the codes arrive as integers
-// and need no float conversion. What bounds it is what bounds the BVH4
-// walk (traverse_bvh4.cu): the latency of dependent row loads; the sidecar
-// adds one independent load per visit and saves the float-to-int
-// conversions. Results equal traverse_bvh4's exactly (same order, same
-// arithmetic).
+// and need no float conversion. What bounds it is what bounds the
+// one-ray-per-thread walk: the latency of dependent row loads, and warps
+// that run as long as their slowest ray; the sidecar adds one independent
+// load per visit and saves the float-to-int conversions. Results equal
+// traverse_bvh4.cu's exactly (same order, same arithmetic), which keeps
+// this walk the yardstick of that kernel's redesign.
 
 #include "traverse_bvh.cuh"
 

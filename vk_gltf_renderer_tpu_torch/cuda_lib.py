@@ -5,7 +5,9 @@ every kernel wrapper shares.
 The library is built at first use from ``csrc/*.cu`` (which include
 ``csrc/*.cuh``) into ``build/kernels/`` at the repository root (listed in
 .gitignore) and named by a hash of its sources and flags, so a fresh
-checkout builds it and an edited source rebuilds it. Each .cu compiles to
+checkout builds it and an edited source rebuilds it; the build's compiler
+output (ptxas registers and spills) is kept beside it, so a library loaded
+from that cache reports it too. Each .cu compiles to
 its own object in a separate nvcc process, all started together, and one
 nvcc call links them. Nothing here runs at import time: the CPU tests
 import every module on a machine without nvcc.
@@ -42,7 +44,8 @@ _I = ctypes.c_int
 _TRAVERSE = [_P, _P, _I] + [_P] * 8 + [_I, _I] + [_P] * 5 + [_P, _P]
 _SIGNATURES = {
     "vkgr_traverse_bvh2": _TRAVERSE,
-    "vkgr_traverse_bvh4": _TRAVERSE,
+    # (... as _TRAVERSE up to the overflow counter, scratch, stream)
+    "vkgr_traverse_bvh4": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4_multipop": _TRAVERSE,
     "vkgr_traverse_bvh4_leafqueue": _TRAVERSE,
     # (nodes4_fi, nodes4_sc, tris128, root code, rays, ... as _TRAVERSE)
@@ -125,7 +128,8 @@ def library() -> KernelLibrary:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libvkgr_kernels_{h.hexdigest()[:16]}.so"
-    log = ""
+    log_path = out.with_suffix(".log")  # the build's compiler output, kept beside the library
+    log = log_path.read_text() if out.exists() and log_path.exists() else ""
     t0 = time.perf_counter()
     if not out.exists():
         nvcc = _nvcc()
@@ -138,6 +142,9 @@ def library() -> KernelLibrary:
         log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_path)
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
         shutil.rmtree(tmpdir, ignore_errors=True)
     _loaded = KernelLibrary(out, time.perf_counter() - t0, log)

@@ -252,7 +252,10 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
     any-hit), rnode/tri [N] i32 (-1 = no hit), u/v [N] f32, and overflow
     the number of stack pushes dropped because a stack was full (0 unless
     a tree is deeper than stack_depth allows). Any-hit stops a ray at its
-    first accepted hit. Rays with tmax < 0 miss at the root.
+    first accepted hit. Rays with !(tmax >= 0) (negative or NaN) miss at
+    an internal root and return (tmax, -1, -1, 0, 0) exactly, which
+    csrc/traverse_bvh4.cu relies on to skip them; a leaf root tests its
+    triangles, whose t must still lie in (tmin, tmax).
 
     multipop > 1 is the v5 schedule (csrc/traverse_bvh4_multipop.cu): each
     step pops up to `multipop` entries and processes them in pop order,

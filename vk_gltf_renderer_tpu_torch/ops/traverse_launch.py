@@ -18,7 +18,7 @@ from ..cuda_lib import check_launch, check_tensor, library
 RAY_NAMES = ("rox", "roy", "roz", "rdx", "rdy", "rdz", "tmin", "tmax")
 
 
-def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit):
+def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit, extra=None):
     """(t, rnode, tri, u, v) of the [N] f32 ray components `rays`.
 
     plain: zero-argument call of the plain version, returning the five
@@ -26,7 +26,10 @@ def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit)
     expected shape[, dtype, default float32]) of every table argument, in
     the C entry point's order; scalars: the int arguments
     between the tables and the rays of the C entry point vkgr_<name>;
-    anyhit None: the entry point takes no any-hit flag (closest hit)."""
+    anyhit None: the entry point takes no any-hit flag (closest hit).
+    extra: None, or a call (n, device) -> the tensors that the entry point
+    takes as pointers after the overflow counter; they live until the
+    launch has been issued."""
     rox = rays[0]
     if rox.device.type == "cpu":
         *out, dropped = plain()
@@ -51,10 +54,13 @@ def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit)
         return t, rnode, tri, u, v
     fn = getattr(library().lib, f"vkgr_{name}")
     flag = () if anyhit is None else (int(bool(anyhit)),)
+    tail = () if extra is None else extra(n, dev)
     rc = fn(*(tab[1].data_ptr() for tab in tables), *(int(s) for s in scalars),
             *(c.data_ptr() for c in rays), n, *flag,
             t.data_ptr(), rnode.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-            overflow.buffer(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            overflow.buffer(dev).data_ptr(),
+            *(a.data_ptr() for a in tail),
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, name)
     counter.launches += 1
     return t, rnode, tri, u, v
