@@ -1,32 +1,40 @@
-"""Ablations and tuning runs of csrc/traverse_bvh4.cu on one NVIDIA GPU.
+"""Ablations and tuning runs of the redesigned traversal kernels on one
+NVIDIA GPU: csrc/traverse_bvh4.cu (v3/v9), csrc/traverse_lanes.cu (the
+lane walk) and csrc/traverse_bvh4_multipop.cu (v5).
 
-    python3 bvh4_tuning.py
+    python3 bvh4_tuning.py [KERNEL ...]
 
-Each entry of VARIANTS is the kernel's source with one design element
-toggled (compaction, whole-row loads, any-hit as a template parameter,
-the next node in a register, a shared-memory stack, refilling lanes whose
-ray is done) or one tuning constant changed. A variant is a list of
-source substitutions: each names the text it replaces (or the first and
-last line of a span) and must match the source exactly once, so an edit
-of the kernel that a variant no longer fits stops the run with the
-variant's name (tests/test_torch_traverse.py checks this on the CPU).
+KERNEL is a source file name of VARIANTS (default: traverse_bvh4.cu); each
+one named is tuned in turn. Each entry of VARIANTS[KERNEL] is the kernel's
+source with one design element toggled or one tuning constant changed, and
+"every element off ..." is the walk before the redesign. A variant is a
+list of source substitutions: each names the text it replaces (or the
+first and last line of a span) in the kernel's source, or in a header of
+csrc/ that it names third (live_lanes.cuh, traverse_bvh.cuh), and must
+match that file exactly once, so an edit of the kernel that a variant no
+longer fits stops the run with the variant's name
+(tests/test_torch_traverse.py checks this on the CPU).
 
 The run builds the kernel library once per variant into
-build/bvh4_tuning/ (the other sources of csrc/ compiled once, every
-object in its own nvcc process, all started together) and launches each
-through ops/traverse_bvh4.traverse_bvh4 with cuda_lib's loaded library
-swapped for the variant's. It renders one (v3, v9) 1080p frame of the
-helmet stand-in (HDR) and of the 1,059,968-triangle terrain, as
-chip_smoke.py phase 7b does, recording the 8 ray components of each
-traverse_bvh4 launch; then times every variant on those 10 launches and
-on the probe rays of chip_smoke.py phases 3 and 6 (closest hit), in a
-forward and a backward round, each variant held equal bit for bit to the
-unchanged source on every launch. Last, torch.profiler splits a sparse,
+build/bvh4_tuning/<kernel>/ (the other sources of csrc/ compiled once,
+every object in its own nvcc process, all started together; a variant
+whose build fails is reported and left out) and launches each through the
+kernel's wrapper with cuda_lib's loaded library swapped for the variant's.
+It renders one 1080p frame of the helmet stand-in (HDR) and of the
+1,059,968-triangle terrain under the kernel's selection ((v3, v9),
+(lane, lane_stream) or (v5, v5)), as chip_smoke.py phase 7b does,
+recording the 8 ray components of each of the wrapper's launches; then
+times every variant on those launches and on the probe rays of
+chip_smoke.py phases 3 and 6 (closest hit), in a forward and a backward
+round. Every variant is held equal bit for bit to the unchanged source on
+every launch, except the ones that change the visit order (ORDER), whose
+t must still equal the source's on every lane and whose ids may differ
+only there (equal-t ties, counted). Last, torch.profiler splits a sparse,
 a medium and an all-live launch of the unchanged source into its device
-kernels (memset, compact_lanes, walk_kernel). Prints the registers of
-each variant's walk, one line per variant and scene, the profile, the
-card's name and power limit, and a JSON line of every number last.
-Exits nonzero without CUDA.
+kernels (memset, compact_lanes, walk_kernel). Prints the registers and
+spills of each variant's walk, one line per variant and scene, the
+profile, the card's name and power limit, and a JSON line of every number
+last. Exits nonzero without CUDA.
 """
 
 from __future__ import annotations
@@ -47,15 +55,30 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from vk_gltf_renderer_tpu_torch import cuda_lib  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp  # noqa: E402
 from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
 
 OUT = ROOT / "build" / "bvh4_tuning"
-KERNEL = "traverse_bvh4.cu"
+LIVE = "live_lanes.cuh"
+ROWS = "traverse_bvh.cuh"
 
-# whole-row loads off: the loads of traverse_bvh.cuh's expand_node (three float2
-# per box, then the axes and the entered children's codes), one triangle at a time
+# shared by every kernel: compaction off (every lane listed and walked), any-hit at run time
+COMPACTION_OFF = [("    live = tm >= 0.0f || (root < 0 && tmin[i] < tm);\n", "    live = true;\n", LIVE)]
+WALK_TEMPLATE = "template <bool kAny>\n__global__ void __launch_bounds__(kBlock)\nwalk_kernel("
+RUNTIME_ANY = "  const bool kAny = kAnyT != (header[0] < 0);  // kAnyT, which the compiler cannot see\n"
+
+
+def runtime_anyhit(anchor):
+    """Any-hit as a runtime flag: the template parameter renamed and kAny
+    read from a value the compiler cannot see, after the line `anchor`."""
+    return [(WALK_TEMPLATE, WALK_TEMPLATE.replace("bool kAny", "bool kAnyT")), (anchor, anchor + RUNTIME_ANY)]
+
+
+# traverse_bvh4.cu, whole-row loads off: the loads of traverse_bvh.cuh's expand_node (three
+# float2 per box, then the axes and the entered children's codes), one triangle at a time
 FLOAT2_VISIT = """  const float* row = nodes + static_cast<size_t>(e) * 32;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -73,6 +96,11 @@ FLOAT2_VISIT = """  const float* row = nodes + static_cast<size_t>(e) * 32;
   if (hitmask & 4u) s2 = static_cast<int>(__ldg(row + 26));
   if (hitmask & 8u) s3 = static_cast<int>(__ldg(row + 27));
 """
+ROW_LOADS_OFF = [
+    (("  const float4* q = reinterpret_cast<const float4*>",
+      "  if (!axis_sign(q7.z, r.sx, r.sy, r.sz)) flip |= 4u;\n"), FLOAT2_VISIT, ROWS),
+    ("    if (leaf(tris128, e, r, anyhit, h)) return true;",
+     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;")]
 NEXT_IN_REGISTER = """    if (v.enter) {  // descend into the nearest entered child; push the others, far first
       const unsigned rest = v.enter & (v.enter - 1u);
       if (rest & 8u) push(v.c3);
@@ -84,7 +112,11 @@ NEXT_IN_REGISTER = """    if (v.enter) {  // descend into the nearest entered ch
 """
 # refill: a warp fetches as soon as {at} of its lanes are idle, into those lanes, and
 # its lanes walk {steps} steps between two checks (Aila and Laine's dynamic fetch)
-REFILL = """  int i = -1, e = 0, sp = 0;  // the lane's lane index (-1: none), node, stack depth
+REFILL = """  const int count = header[0];
+  const int warps = gridDim.x * (kBlock / 32);
+  const int per = min(32, max(1, (count + warps - 1) / warps));
+  const int lane = threadIdx.x & 31;
+  int i = -1, e = 0, sp = 0;  // the lane's lane index (-1: none), node, stack depth
   Ray r{{}};
   Hit h{{}};
   bool more = true;  // warp-uniform: the list may hold entries not yet taken
@@ -119,69 +151,260 @@ REFILL = """  int i = -1, e = 0, sp = 0;  // the lane's lane index (-1: none), n
     }}
   }}
 """
-WALK_LOOP = ("  while (true) {\n    int base = 0;\n",
-             "      store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);\n    }\n  }\n")
-WALK_TEMPLATE = "template <bool kAny>\n__global__ void __launch_bounds__(kBlock)\nwalk_kernel("
+BVH4_WALK = ("  walk_list<1>(header, list, [&](int i) {\n", "  });\n")
+BVH4_STACK = "  int stack[kStackCap];\n  unsigned dropped = 0;\n"
 PUSH = "    if (sp < kStackCap) {\n      stack[sp++] = code;"
 
-# variant -> [(old text, new text) or ((first, last), new text of the span first..last)]
+# traverse_bvh4_multipop.cu, order off: the reference's order. Each member's internal
+# tests see the t_best that the leaves of the members before it left (an exclusive
+# prefix minimum over the group's threads), and the members' children are pushed
+# member 0's first, so the last member's end on top (for one member a thread).
+V5_ORDER_SPAN = ("      // this thread's members, all against the t_best",
+                 "      sp = min(sp + total, kStack);\n")
+V5_OLD_ORDER = """      static_assert(kPerLane == 1, "the reference's order is written for a member a thread");
+      const float t_pop = h.t;
+      Hit best{t_pop, -1.0f, kNoHit, 0.0f, 0.0f};
+      const bool mine = q < k;
+      if (mine && e[0] < 0) leaf(tris128, e[0], r, kAny, best);
+      float upto = best.tri != kNoHit ? best.t : t_pop;  // min over threads 0 .. q
+#pragma unroll
+      for (int off = 1; off < kRayLanes; off <<= 1) {
+        const float o = __shfl_up_sync(group, upto, off, kRayLanes);
+        if (q >= off) upto = fminf(upto, o);
+      }
+      float t_before = __shfl_up_sync(group, upto, 1, kRayLanes);
+      if (q == 0) t_before = t_pop;
+      Visit v[kPerLane];
+      v[0] = Visit{0, 0, 0, 0, 0u};
+      if (mine && e[0] >= 0) v[0] = visit(nodes, e[0], r, t_before);
+      float wt = best.tri != kNoHit ? best.t : __int_as_float(0x7f800000);
+      int wq = best.tri != kNoHit ? q : kRayLanes;
+#pragma unroll
+      for (int off = 1; off < kRayLanes; off <<= 1) {
+        const float ot = __shfl_xor_sync(group, wt, off, kRayLanes);
+        const int oq = __shfl_xor_sync(group, wq, off, kRayLanes);
+        if (ot < wt || (ot == wt && oq < wq)) {
+          wt = ot;
+          wq = oq;
+        }
+      }
+      if (wq < kRayLanes) {
+        h.t = __shfl_sync(group, best.t, wq, kRayLanes);
+        h.rn = __shfl_sync(group, best.rn, wq, kRayLanes);
+        h.tri = __shfl_sync(group, best.tri, wq, kRayLanes);
+        h.u = __shfl_sync(group, best.u, wq, kRayLanes);
+        h.v = __shfl_sync(group, best.v, wq, kRayLanes);
+        if (kAny) break;
+      }
+      const int cnt = __popc(v[0].enter);
+      int upto_n = cnt;  // pushes of threads 0 .. q
+#pragma unroll
+      for (int off = 1; off < kRayLanes; off <<= 1) {
+        const int o = __shfl_up_sync(group, upto_n, off, kRayLanes);
+        if (q >= off) upto_n += o;
+      }
+      const int total = __shfl_sync(group, upto_n, kRayLanes - 1, kRayLanes);
+      int pos = sp + upto_n - cnt;
+      auto push = [&](int code) {
+        if (pos < kStack) {
+          stack[pos] = code;
+        } else {
+          ++dropped;
+        }
+        ++pos;
+      };
+      if (v[0].enter & 8u) push(v[0].c3);
+      if (v[0].enter & 4u) push(v[0].c2);
+      if (v[0].enter & 2u) push(v[0].c1);
+      if (v[0].enter & 1u) push(v[0].c0);
+      sp = min(sp + total, kStack);
+"""
+# one thread per ray: the group is one thread, its stack in local memory
+V5_THREAD = [("constexpr int kRayLanes = 4;", "constexpr int kRayLanes = 1;"),
+             ("  __shared__ int stacks[kRays * kStackStride];\n", "  int stacks[kStack];\n"),
+             ("  int* stack = stacks + (threadIdx.x / kRayLanes) * kStackStride;\n", "  int* stack = stacks;\n")]
+# the walk before the redesign (the reference's order, every popped row prefetched into
+# L1, then expand_node's and test_leaf's loads), one thread per listed lane
+V5_OLD_WALK = """  walk_list<1>(header, list, [&](int i) {
+    const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+    Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
+    stack[0] = root;
+    int sp = 1;
+    bool done = false;
+    auto push = [&](int code) {
+      if (sp < kStack) {
+        stack[sp++] = code;
+      } else {
+        ++dropped;
+      }
+    };
+    while (sp > 0 && !done) {
+      const int k = sp < kMultipop ? sp : kMultipop;
+      int grp[kMultipop];
+#pragma unroll
+      for (int j = 0; j < kMultipop; ++j) {
+        grp[j] = j < k ? stack[sp - 1 - j] : 0;
+        if (j < k) {
+          if (grp[j] < 0) {
+            prefetch_leaf(tris128, grp[j]);
+          } else {
+            prefetch_l1(nodes + static_cast<size_t>(grp[j]) * 32);
+          }
+        }
+      }
+      sp -= k;
+#pragma unroll
+      for (int j = 0; j < kMultipop; ++j) {
+        if (j < k && !done) {
+          if (grp[j] < 0) {
+            done = test_leaf(tris128, grp[j], r, kAny, h);
+          } else {
+            expand_node<2, false>(nodes, nullptr, grp[j], r, h.t, push);
+          }
+        }
+      }
+    }
+    store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
+  });
+"""
+V5_WALK = ("  walk_list<kRayLanes>(header, list, [&](int i) {\n", "  });\n")
+
+LANE_ANY = runtime_anyhit("  unsigned int stuck = 0;\n")
+LANE_PAIR = "      bool pair = (cur & 1) == 0 && cur + 1 < end;\n"
+LANE_WINDOW_1 = [(LANE_PAIR, "      bool pair = false;\n")]
+# a window of 4 entries (two lines): the entries after cur in its aligned 4, walked on while
+# the walk steps to the next entry
+LANE_WINDOW_4 = [
+    (LANE_PAIR + """      float4 na = a, nb = b, nc = c, nd = d;
+      if (pair) {
+        na = __ldg(ep + 4);
+        nb = __ldg(ep + 5);
+        nc = __ldg(ep + 6);
+        nd = __ldg(ep + 7);
+      }
+""", """      int left = min(3 - (cur & 3), end - 1 - cur);  // entries loaded after cur
+      float4 na = a, nb = b, nc = c, nd = d, ma = a, mb = b, mc = c, md = d, la = a, lb = b, lc = c, ld = d;
+      if (left > 0) {
+        na = __ldg(ep + 4);
+        nb = __ldg(ep + 5);
+        nc = __ldg(ep + 6);
+        nd = __ldg(ep + 7);
+      }
+      if (left > 1) {
+        ma = __ldg(ep + 8);
+        mb = __ldg(ep + 9);
+        mc = __ldg(ep + 10);
+        md = __ldg(ep + 11);
+      }
+      if (left > 2) {
+        la = __ldg(ep + 12);
+        lb = __ldg(ep + 13);
+        lc = __ldg(ep + 14);
+        ld = __ldg(ep + 15);
+      }
+"""),
+    ("        const bool next_loaded = pair && nxt == cur + 1;",
+     "        const bool next_loaded = left > 0 && nxt == cur + 1;"),
+    ("        pair = false;\n", """        na = ma;
+        nb = mb;
+        nc = mc;
+        nd = md;
+        ma = la;
+        mb = lb;
+        mc = lc;
+        md = ld;
+        --left;
+""")]
+
+# kernel source -> variant -> [(old text, new text[, header]) or ((first, last), new text of the
+# span first..last[, header])]
 VARIANTS = {
-    "source": [],
-    "compaction off (every lane listed and walked)": [
-        ("    live = tm >= 0.0f || (root < 0 && tmin[i] < tm);\n", "    live = true;\n")],
-    "whole-row loads off": [
-        (("  const float4* q = reinterpret_cast<const float4*>",
-          "  if (!axis_sign(q7.z, r.sx, r.sy, r.sz)) flip |= 4u;\n"), FLOAT2_VISIT),
-        ("    if (leaf(tris128, e, r, anyhit, h)) return true;",
-         "    if (test_leaf(tris128, e, r, anyhit, h)) return true;")],
-    "any-hit as a template off (a runtime flag)": [
-        (WALK_TEMPLATE, WALK_TEMPLATE.replace("bool kAny", "bool kAnyT")),
-        ("  const int count = header[0];  // final: compact_lanes ran before on this stream\n",
-         "  const int count = header[0];  // final: compact_lanes ran before on this stream\n"
-         "  const bool kAny = kAnyT != (count < 0);  // kAnyT, which the compiler cannot see\n")],
-    "next node in a register": [
-        (("    // every entered child, far first", "    if (v.enter & 1u) push(v.c0);\n"),
-         NEXT_IN_REGISTER)],
-    "stack in shared memory": [
-        ("  int stack[kStackCap];\n",
-         "  __shared__ int stack_columns[kStackCap * kBlock];  // entry d of thread t at d * kBlock + t\n"
-         "  int* stack = stack_columns + threadIdx.x;\n"),
-        ("      stack[sp++] = code;", "      stack[kBlock * sp++] = code;"),
-        ("  e = stack[--sp];", "  e = stack[kBlock * --sp];")],
-    "refill at 16 idle lanes, 4 steps": [(WALK_LOOP, REFILL.format(at=16, steps=4))],
-    "refill at 16 idle lanes, 1 step": [(WALK_LOOP, REFILL.format(at=16, steps=1))],
-    "refill at 8 idle lanes, 4 steps": [(WALK_LOOP, REFILL.format(at=8, steps=4))],
-    "triangle batch 2": [("kTriBatch = 4;", "kTriBatch = 2;")],
-    "triangle batch 8": [("kTriBatch = 4;", "kTriBatch = 8;")],
-    "64 registers": [(WALK_TEMPLATE, WALK_TEMPLATE.replace("(kBlock)", "(kBlock, 8)"))],
-    "fetch 32": [("const int per = min(32, max(1, (count + warps - 1) / warps));", "const int per = 32;")],
-    "prefetch pushed rows": [
-        (PUSH, "    if (code >= 0) prefetch_l1(nodes + static_cast<size_t>(code) * 32);\n" + PUSH)],
+    "traverse_bvh4.cu": {
+        "source": [],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "whole-row loads off": ROW_LOADS_OFF,
+        "any-hit as a template off (a runtime flag)": runtime_anyhit(BVH4_STACK),
+        "next node in a register": [
+            (("    // every entered child, far first", "    if (v.enter & 1u) push(v.c0);\n"),
+             NEXT_IN_REGISTER)],
+        "stack in shared memory": [
+            ("  int stack[kStackCap];\n",
+             "  __shared__ int stack_columns[kStackCap * kBlock];  // entry d of thread t at d * kBlock + t\n"
+             "  int* stack = stack_columns + threadIdx.x;\n"),
+            ("      stack[sp++] = code;", "      stack[kBlock * sp++] = code;"),
+            ("  e = stack[--sp];", "  e = stack[kBlock * --sp];")],
+        "refill at 16 idle lanes, 4 steps": [(BVH4_WALK, REFILL.format(at=16, steps=4))],
+        "refill at 16 idle lanes, 1 step": [(BVH4_WALK, REFILL.format(at=16, steps=1))],
+        "refill at 8 idle lanes, 4 steps": [(BVH4_WALK, REFILL.format(at=8, steps=4))],
+        "triangle batch 2": [("kTriBatch = 4;", "kTriBatch = 2;", ROWS)],
+        "triangle batch 8": [("kTriBatch = 4;", "kTriBatch = 8;", ROWS)],
+        "64 registers": [(WALK_TEMPLATE, WALK_TEMPLATE.replace("(kBlock)", "(kBlock, 8)"))],
+        "fetch 32": [("const int per = min(32 / kGroup, max(1, (count + warps - 1) / warps));",
+                      "const int per = 32 / kGroup;", LIVE)],
+        "prefetch pushed rows": [
+            (PUSH, "    if (code >= 0) prefetch_l1(nodes + static_cast<size_t>(code) * 32);\n" + PUSH)],
+        "every element off (compaction, whole-row loads, any-hit template)":
+            COMPACTION_OFF + ROW_LOADS_OFF + runtime_anyhit(BVH4_STACK),
+    },
+    "traverse_lanes.cu": {
+        "source": [],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "window loads off (one entry a round)": LANE_WINDOW_1,
+        "window 4 (two lines a round)": LANE_WINDOW_4,
+        "any-hit as a template off (a runtime flag)": LANE_ANY,
+        "every element off (compaction, window loads, any-hit template)":
+            COMPACTION_OFF + LANE_WINDOW_1 + LANE_ANY,
+    },
+    "traverse_bvh4_multipop.cu": {
+        "source": [],
+        "order off (the reference's order)": [(V5_ORDER_SPAN, V5_OLD_ORDER)],
+        "one thread per ray (whole-row loads, one member after the other)": V5_THREAD,
+        "two threads per ray": [("constexpr int kRayLanes = 4;", "constexpr int kRayLanes = 2;")],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "any-hit as a template off (a runtime flag)": runtime_anyhit("  unsigned dropped = 0;\n"),
+        "every element off (the walk before the redesign)":
+            V5_THREAD + [(V5_WALK, V5_OLD_WALK)] + COMPACTION_OFF
+            + runtime_anyhit("  unsigned dropped = 0;\n"),
+    },
 }
+# variants whose visit order differs from the source's: t equal on every lane, ids except ties
+ORDER = {"order off (the reference's order)", "every element off (the walk before the redesign)"}
 
 
-def variant_source(src, name):
-    """The kernel source of variant `name`; raises unless each of its
-    substitutions matches src exactly once."""
-    for old, new in VARIANTS[name]:
+def _files(kernel):
+    """The texts a variant of `kernel` may edit: the kernel and the shared headers."""
+    return {name: (cuda_lib._CSRC / name).read_text() for name in (kernel, LIVE, ROWS)}
+
+
+def variant_sources(kernel, name, files=None):
+    """{file name: text} of variant `name` of `kernel` (the kernel's source
+    and every header it edits); files: the original texts (default: those
+    of csrc/). Raises ValueError unless each substitution matches its file
+    exactly once."""
+    files = dict(files or _files(kernel))
+    out = {kernel: files[kernel]}
+    for old, new, *where in VARIANTS[kernel][name]:
+        target = where[0] if where else kernel
+        src = out.get(target, files[target])
         if isinstance(old, tuple):
             first, last = old
             if src.count(first) != 1:
-                raise ValueError(f"{name}: {first!r} is not in {KERNEL} exactly once")
+                raise ValueError(f"{name}: {first!r} is not in {target} exactly once")
             a = src.index(first)
             b = src.find(last, a)
             if b < 0:
-                raise ValueError(f"{name}: {last!r} does not follow {first!r} in {KERNEL}")
+                raise ValueError(f"{name}: {last!r} does not follow {first!r} in {target}")
             src = src[:a] + new + src[b + len(last):]
         else:
             if src.count(old) != 1:
-                raise ValueError(f"{name}: {old!r} is not in {KERNEL} exactly once")
+                raise ValueError(f"{name}: {old!r} is not in {target} exactly once")
             src = src.replace(old, new)
-    return src
+        out[target] = src
+    return out
 
 
-def _dir(name):
-    return OUT / re.sub(r"\W+", "_", name).strip("_")
+def _dir(kernel, name):
+    return OUT / Path(kernel).stem / re.sub(r"\W+", "_", name).strip("_")
 
 
 def _nvcc(nvcc, args):
@@ -189,41 +412,53 @@ def _nvcc(nvcc, args):
 
 
 def _wait(procs):
-    logs = {}
+    """name -> (return code, log) of each process."""
+    out = {}
     for key, proc in procs.items():
         log, _ = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {key}:\n{log}")
-        logs[key] = log
-    return logs
+        out[key] = (proc.returncode, log)
+    return out
 
 
-def build():
-    """One library per variant: name -> cuda_lib.KernelLibrary, whose
-    compiler log is the variant's traverse_bvh4.cu compile."""
+def build(kernel):
+    """One library per variant of `kernel`: name -> cuda_lib.KernelLibrary,
+    whose compiler log is the variant's kernel compile. A variant whose
+    build fails is printed and left out; the source's must build."""
     nvcc = cuda_lib._nvcc()
-    src = (cuda_lib._CSRC / KERNEL).read_text()
-    common = OUT / "common"
+    common = OUT / Path(kernel).stem / "common"
     common.mkdir(parents=True, exist_ok=True)
-    others = [p for p in sorted(cuda_lib._CSRC.glob("*.cu")) if p.name != KERNEL]
+    others = [p for p in sorted(cuda_lib._CSRC.glob("*.cu")) if p.name != kernel]
     flags = [*cuda_lib.COMPILE_FLAGS, "-I", str(cuda_lib._CSRC), "-c"]
     procs = {p.name: _nvcc(nvcc, [*flags, "-o", str(common / f"{p.stem}.o"), str(p)]) for p in others}
-    for name in VARIANTS:
-        d = _dir(name)
+    obj = f"{Path(kernel).stem}.o"
+    for name in VARIANTS[kernel]:
+        d = _dir(kernel, name)
         d.mkdir(parents=True, exist_ok=True)
-        (d / KERNEL).write_text(variant_source(src, name))
-        procs[name] = _nvcc(nvcc, [*flags, "-o", str(d / "traverse_bvh4.o"), str(d / KERNEL)])
-    logs = _wait(procs)
+        files = _files(kernel)
+        files.update(variant_sources(kernel, name, files))
+        for fname, text in files.items():  # every header beside the kernel, so that each includes the variant's
+            (d / fname).write_text(text)
+        procs[name] = _nvcc(nvcc, [*flags, "-o", str(d / obj), str(d / kernel)])
+    done = _wait(procs)
+    for p in others:
+        if done[p.name][0] != 0:
+            raise RuntimeError(f"nvcc failed on {p.name}:\n{done[p.name][1]}")
+    names = [name for name in VARIANTS[kernel] if done[name][0] == 0]
+    for name in VARIANTS[kernel]:
+        if name not in names:
+            cs.log(f"[tuning] {kernel} {name}: the build failed, left out:\n{done[name][1]}")
+    cs.require("source" in names, f"{kernel}: the unchanged source does not build")
     objs = [str(common / f"{p.stem}.o") for p in others]
-    _wait({name: _nvcc(nvcc, [*cuda_lib.LINK_FLAGS, "-o", str(_dir(name) / "libvkgr_kernels.so"),
-                              str(_dir(name) / "traverse_bvh4.o"), *objs]) for name in VARIANTS})
-    return {name: cuda_lib.KernelLibrary(_dir(name) / "libvkgr_kernels.so", 0.0, f"== {KERNEL}\n{logs[name]}")
-            for name in VARIANTS}
+    linked = _wait({name: _nvcc(nvcc, [*cuda_lib.LINK_FLAGS, "-o", str(_dir(kernel, name) / "libvkgr_kernels.so"),
+                                       str(_dir(kernel, name) / obj), *objs]) for name in names})
+    cs.require(all(rc == 0 for rc, _ in linked.values()), f"{kernel}: a link failed: {linked}")
+    return {name: cuda_lib.KernelLibrary(_dir(kernel, name) / "libvkgr_kernels.so", 0.0,
+                                         f"== {kernel}\n{done[name][1]}") for name in names}
 
 
 @contextlib.contextmanager
 def loaded(lib):
-    """ops/traverse_bvh4 (every wrapper) launches from lib inside the block."""
+    """Every wrapper launches from lib inside the block."""
     saved = cuda_lib._loaded
     cuda_lib._loaded = lib
     try:
@@ -232,11 +467,20 @@ def loaded(lib):
         cuda_lib._loaded = saved
 
 
-def call(bvh, rays, anyhit):
-    return tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=anyhit)
+# kernel source -> (kernel selection, recorded wrapper of ops.intersect, call(bvh, rays, anyhit))
+KERNELS = {
+    "traverse_bvh4.cu": (("v3", "v9"), "traverse_bvh4",
+                         lambda bvh, rays, a: tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, bvh.root4_code,
+                                                                *rays, anyhit=a)),
+    "traverse_lanes.cu": (("lane", "lane_stream"), "traverse_lanes",
+                          lambda bvh, rays, a: tlane.traverse_lanes(bvh.lane_entries, *rays, anyhit=a)),
+    "traverse_bvh4_multipop.cu": (("v5", "v5"), "traverse_bvh4_multipop",
+                                  lambda bvh, rays, a: tbmp.traverse_bvh4_multipop(
+                                      bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=a)),
+}
 
 
-def profile(bvh, rays, anyhit):
+def profile(call, bvh, rays, anyhit):
     """Device us per call of each kernel of one launch."""
     for _ in range(3):
         call(bvh, rays, anyhit)
@@ -249,16 +493,84 @@ def profile(bvh, rays, anyhit):
             for e in prof.key_averages() if e.device_time_total > 0}
 
 
-def main():
-    device, smi = cs.phase_device()
-    libs = build()
+def _check(label, name, out, want):
+    """Variant outputs against the source's on one launch: bit for bit, or
+    for an ORDER variant t bit for bit and the lanes whose ids differ
+    (equal-t ties) counted; returns that count."""
+    if name not in ORDER:
+        cs.require(all(cs.same_bits(g, w) for g, w in zip(out, want)), f"{label} {name}: outputs differ from the source's")
+        return 0
+    cs.require(cs.same_bits(out[0], want[0]), f"{label} {name}: t differs from the source's")
+    return int(((out[1] != want[1]) | (out[2] != want[2])).sum())
+
+
+def tune(kernel, device, smi, scenes):
+    """Every variant of `kernel` on the scenes' recorded launches and probe rays."""
+    selection, wrapper, call = KERNELS[kernel]
+    libs = build(kernel)
     registers = {}
     for name, lib in libs.items():
-        res = cs.bvh4_resources(lib.compiler_log)
-        registers[name] = {hit: res.get(f"walk {hit}", {}).get("registers") for hit in ("closest", "any")}
-        cs.log(f"[tuning] {name}: walk registers {registers[name]}, "
-               f"shared memory {res.get('walk closest', {}).get('smem')} B")
-    results = {"card": smi, "registers": registers, "scenes": {}}
+        res = cs.kernel_resources(lib.compiler_log, kernel)
+        registers[name] = {hit: {k: res.get(f"walk {hit}", {}).get(k) for k in ("registers", "spill_stores", "smem")}
+                           for hit in ("closest", "any")}
+        cs.log(f"[tuning] {kernel} {name}: walk {registers[name]}")
+    results = {"registers": registers, "scenes": {}}
+    os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = selection
+    for label, r in scenes:
+        ro, rd = cs.probe_rays(r, device)
+        n = ro.shape[0]
+        probe = ([ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
+                 + [torch.zeros(n, device=device), torch.full((n,), 1e32, device=device)])
+        launches, _ = cs.record_launches(r, wrapper)
+        bvh = r.dev_bvh
+        with loaded(libs["source"]):
+            ref = [call(bvh, rays, a) for rays, a in launches]
+        times = {name: [] for name in libs}
+        ties = {name: 0 for name in libs}
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                with loaded(libs[name]):
+                    for (rays, a), want in zip(launches, ref):
+                        ties[name] = max(ties[name], _check(label, name, call(bvh, rays, a), want))
+                    probe_ms = device_ms(lambda: call(bvh, probe, False), 10)
+                    frame = [device_ms(lambda rays=rays, a=a: call(bvh, rays, a), 10) for rays, a in launches]
+                times[name].append((probe_ms, frame))
+        scene_res = {}
+        base = None
+        for name, runs in times.items():
+            probe_ms = sum(p for p, _ in runs) / len(runs)
+            frame = [sum(f[k] for _, f in runs) / len(runs) for k in range(len(launches))]
+            scene_res[name] = dict(probe_ms=probe_ms, frame_ms=sum(frame), launches_ms=frame,
+                                   tie_lanes=ties[name])
+            base = base or scene_res[name]
+            cs.log(f"[tuning] {kernel} {label} {name}: probe rays {probe_ms:.4f} ms "
+                   f"({100 * (probe_ms / base['probe_ms'] - 1):+.1f}%), replayed frame {sum(frame):.4f} ms "
+                   f"({100 * (sum(frame) / base['frame_ms'] - 1):+.1f}%; launches "
+                   f"{', '.join(f'{x:.4f}' for x in frame)}); "
+                   + ("equal to the source bit for bit" if name not in ORDER else
+                      f"t equal to the source's on every lane, ids differ on {ties[name]} (ties)")
+                   + f" on {smi}")
+        live = [int((rays[7] >= 0).sum()) for rays, _ in launches]
+        sparse = min(range(len(launches)), key=lambda k: live[k])
+        prof = {}
+        with loaded(libs["source"]):
+            for what, (rays, a) in ((f"launch {sparse} ({live[sparse]} live)", launches[sparse]),
+                                    (f"launch 1 ({live[1]} live)", launches[min(1, len(launches) - 1)]),
+                                    (f"probe rays ({n} live)", (probe, False))):
+                prof[what] = profile(call, bvh, rays, a)
+                cs.log(f"[tuning] {kernel} {label} {what}, device us per call: "
+                       + ", ".join(f"{k} {v:.2f}" for k, v in prof[what].items()))
+        results["scenes"][label] = dict(variants=scene_res, live=live, profile=prof)
+    return results
+
+
+def main():
+    kernels = sys.argv[1:] or ["traverse_bvh4.cu"]
+    for kernel in kernels:
+        if kernel not in VARIANTS:
+            raise SystemExit(f"bvh4_tuning: unknown kernel {kernel!r}; accepted: {sorted(VARIANTS)}")
+    device, smi = cs.phase_device()
+    results = {"card": smi, "kernels": {}}
     with tempfile.TemporaryDirectory() as tmp:
         helmet, scene, hdr = cs.helmet_renderer(tmp, device)
         helmet.create_scene(scene)
@@ -266,47 +578,8 @@ def main():
         glb = os.path.join(tmp, "terrain.glb")
         write_large_glb(glb, cs.LARGE_TRIS)
         terrain, _ = cs.terrain_renderer(glb, hdr, device, cs.SELECTIONS[0])
-        for label, r in (("helmet", helmet), ("terrain", terrain)):
-            ro, rd = cs.probe_rays(r, device)
-            n = ro.shape[0]
-            probe = ([ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
-                     + [torch.zeros(n, device=device), torch.full((n,), 1e32, device=device)])
-            launches, _ = cs.record_bvh4_launches(r)
-            bvh = r.dev_bvh
-            with loaded(libs["source"]):
-                ref = [call(bvh, rays, a) for rays, a in launches]
-            times = {name: [] for name in libs}
-            for order in (list(libs), list(libs)[::-1]):
-                for name in order:
-                    with loaded(libs[name]):
-                        for (rays, a), want in zip(launches, ref):
-                            cs.require(all(cs.same_bits(g, w) for g, w in zip(call(bvh, rays, a), want)),
-                                       f"{label} {name}: outputs differ from the source's")
-                        probe_ms = device_ms(lambda: call(bvh, probe, False), 10)
-                        frame = [device_ms(lambda rays=rays, a=a: call(bvh, rays, a), 10) for rays, a in launches]
-                    times[name].append((probe_ms, frame))
-            scene_res = {}
-            base = None
-            for name, runs in times.items():
-                probe_ms = sum(p for p, _ in runs) / len(runs)
-                frame = [sum(f[k] for _, f in runs) / len(runs) for k in range(len(launches))]
-                scene_res[name] = dict(probe_ms=probe_ms, frame_ms=sum(frame), launches_ms=frame)
-                base = base or scene_res[name]
-                cs.log(f"[tuning] {label} {name}: probe rays {probe_ms:.4f} ms "
-                       f"({100 * (probe_ms / base['probe_ms'] - 1):+.1f}%), replayed frame {sum(frame):.4f} ms "
-                       f"({100 * (sum(frame) / base['frame_ms'] - 1):+.1f}%; launches "
-                       f"{', '.join(f'{x:.4f}' for x in frame)}) on {smi}")
-            live = [int((rays[7] >= 0).sum()) for rays, _ in launches]
-            sparse = min(range(len(launches)), key=lambda k: live[k])
-            prof = {}
-            with loaded(libs["source"]):
-                for what, (rays, a) in ((f"launch {sparse} ({live[sparse]} live)", launches[sparse]),
-                                        (f"launch 1 ({live[1]} live)", launches[1]),
-                                        (f"probe rays ({n} live)", (probe, False))):
-                    prof[what] = profile(bvh, rays, a)
-                    cs.log(f"[tuning] {label} {what}, device us per call: "
-                           + ", ".join(f"{k} {v:.2f}" for k, v in prof[what].items()))
-            results["scenes"][label] = dict(variants=scene_res, live=live, profile=prof)
+        for kernel in kernels:
+            results["kernels"][kernel] = tune(kernel, device, smi, (("helmet", helmet), ("terrain", terrain)))
     print(smi)
     print(json.dumps(results), flush=True)
 

@@ -15,8 +15,12 @@ Phases (each raises on failure; nothing is caught):
      the bounds are printed. traverse_bvh4 is also held equal to v7 (the
      one-ray-per-thread walk it replaces) bit for bit on every ray and
      timed beside it in interleaved rounds (phase 6 does the same on the
-     terrain); the build's registers and spills of its kernel instances
-     are printed and kept in the JSON line;
+     terrain), and v5's closest-hit t is held equal to traverse_bvh4's bit
+     for bit on every ray (ids, u and v may differ only there: equal-t
+     ties, counted), any-hit occlusion equal, both timed in interleaved
+     rounds; the build's registers and spills of the instances of the
+     three compacting kernels (traverse_bvh4.cu, traverse_lanes.cu,
+     traverse_bvh4_multipop.cu) are printed and kept in the JSON line;
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
      user entry points (create_scene, create_hdr, on_render, image_linear,
@@ -52,7 +56,11 @@ Phases (each raises on failure; nothing is caught):
      lane, timed in interleaved rounds, and held
      against the plain version on a fixed subset of 65,536 lanes (dead
      lanes included); lanes, live lanes, ms of each, the bound and the
-     frame sums are printed;
+     frame sums are printed. Then the same frame under (lane, lane_stream)
+     and under (v5, v5), recording traverse_lanes' and
+     traverse_bvh4_multipop's launches: each timed, against its plain
+     version on a fixed subset, with its bound, and v5's beside
+     traverse_bvh4 on the same lanes (closest-hit t bit for bit);
   8. the megakernel A/B (ops/megakernel.py, the reference's
      tools/exp_mega.py): the 2,073,600 camera rays of the 1080p frame 0 on
      the helmet and on the terrain, numpy seeds, depths 1, 2 and 5;
@@ -101,9 +109,11 @@ cores): bytes = the distinct table rows the plain version touched on the
 rays it walked (a lower bound for the full ray set) times their row bytes,
 plus every ray's inputs and outputs; FLOPs = the plain version's visits
 scaled to the full ray count, 24 per box test and 55 per triangle test
-(plus 20 per ray and bounce of megakernel shading). A replayed launch's
+(plus 20 per ray and bounce of megakernel shading); a lane entry is a box
+test or a triangle test, as its kind says. A replayed launch's
 dead lanes (!(tmax >= 0)) move only their tmax and five outputs (24
-bytes): their result does not depend on the rest. The split kernels'
+bytes): their result does not depend on the rest (the same rule holds for
+the lane walk and v5). The split kernels'
 leaf rows are the 64-byte rows of tris; a v1 leaf node reads only its
 32-byte nodes_i row. The probes: the distinct rows
 their chains read plus their inputs and outputs, and 8 FLOPs per lane and
@@ -155,6 +165,12 @@ KERNEL_OF = {"v3": "traverse_bvh4", "v9": "traverse_bvh4", "v2": "traverse_bvh2"
              "v5": "traverse_bvh4_multipop", "v7": "traverse_bvh4_sidecar",
              "v8": "traverse_bvh4_leafqueue"}
 BVH4_VARIANTS = ("traverse_bvh4_multipop", "traverse_bvh4_sidecar", "traverse_bvh4_leafqueue")
+# the kernels with live-lane compaction and a persistent grid (csrc/live_lanes.cuh)
+COMPACTING = ("traverse_bvh4.cu", "traverse_lanes.cu", "traverse_bvh4_multipop.cu")
+# phase 7b's other replays: wrapper -> its kernel selection
+REPLAYS = {"traverse_lanes": ("lane", "lane_stream"), "traverse_bvh4_multipop": ("v5", "v5")}
+# table arguments before the 8 ray components of each replayed wrapper
+TABLE_ARGS = {"traverse_bvh4": 3, "traverse_lanes": 1, "traverse_bvh4_multipop": 3}
 MEGA_DEPTHS = (1, 2, 5)
 # the bound: H100 SXM peak HBM rate and dense FP32 rate, FLOPs per test
 HBM_BYTES_PER_S = 3.35e12
@@ -225,19 +241,20 @@ def phase_build():
     for line in lib.compiler_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
-    return bvh4_resources(lib.compiler_log)
+    return {src: kernel_resources(lib.compiler_log, src) for src in COMPACTING}
 
 
-def bvh4_resources(compiler_log):
+def kernel_resources(compiler_log, source):
     """Registers, spills and shared memory of every kernel instance of
-    csrc/traverse_bvh4.cu, from ptxas -v in the build log: instance ->
-    dict. The walk's two instances are "walk closest" and "walk any"."""
+    csrc/<source> (one of COMPACTING), from ptxas -v in the build log:
+    instance -> dict. The walk's two instances are "walk closest" and
+    "walk any"."""
     out, name, section = {}, None, None
     for line in compiler_log.splitlines():
         if line.startswith("== "):
             section = line[3:].strip()
             continue
-        if section != "traverse_bvh4.cu":
+        if section != source:
             continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -256,7 +273,7 @@ def bvh4_resources(compiler_log):
             s = re.search(r"(\d+) bytes smem", line)
             out[name]["smem"] = int(s.group(1)) if s else 0
     for inst, res in out.items():
-        log(f"[build] traverse_bvh4.cu {inst}: {res}")
+        log(f"[build] {source} {inst}: {res}")
     return out
 
 
@@ -357,10 +374,12 @@ def bound(nbytes, flops):
 def _visits(stats, arity, row_bytes, leaf_bytes=512):
     """(table bytes touched, FLOPs, description) of a plain walk's counts;
     leaf_bytes: bytes of one leaf row (a tris128 row, or a tris row)."""
-    if "entries" in stats:  # the lane walk: one box and one triangle per entry
+    if "entries" in stats:  # the lane walk: a box test or a triangle test per entry
         rows = int(stats["entry_rows"].sum())
-        return (rows * 64, stats["entries"] * (BOX_FLOPS + TRI_FLOPS),
-                f"{stats['entries']} entry visits, {rows} distinct entries")
+        return (rows * 64, stats["box_entries"] * BOX_FLOPS + stats["tri_entries"] * TRI_FLOPS,
+                f"{stats['entries']} entry visits ({stats['box_entries']} box, {stats['tri_entries']} "
+                f"triangle; {stats['plus_one']} to the next entry; load rounds by window "
+                f"{stats['rounds']}), {rows} distinct entries")
     nodes, leaves = int(stats["node_rows"].sum()), int(stats["leaf_rows"].sum())
     # the v1 walk's leaf nodes: their nodes_i rows (the other walks code leaves in the parent)
     metas = int(stats["leaf_node_rows"].sum()) if "leaf_node_rows" in stats else 0
@@ -429,7 +448,7 @@ def _bvh4_vs_v7(bvh, rays, anyhit):
 
 def _bvh4_probe_vs_v7(tag, bvh, comps, tmin, far, shadow_tmax, resources):
     """traverse_bvh4 beside v7 on the probe rays, closest and any hit
-    (bit-equal on every ray); resources: bvh4_resources of the build,
+    (bit-equal on every ray); resources: kernel_resources of the build,
     whose walk instances are printed."""
     for hit in ("closest", "any"):
         log(f"[{tag}] traverse_bvh4 walk, {hit} hit: {resources.get(f'walk {hit}', 'not in this build log')}; "
@@ -445,24 +464,70 @@ def _bvh4_probe_vs_v7(tag, bvh, comps, tmin, far, shadow_tmax, resources):
     return res
 
 
-def record_bvh4_launches(r):
+def _v5_vs_bvh4(bvh, rays, anyhit):
+    """v5 (traverse_bvh4_multipop) beside traverse_bvh4 on the same 8 ray
+    components: closest hit t equal bit for bit on every lane (ids, u and
+    v may then differ only at equal-t ties, which are counted), any hit
+    occlusion equal; both timed in interleaved rounds. Returns
+    {"traverse_bvh4_multipop": ms, "traverse_bvh4": ms, "ties": lanes}."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp
+
+    tables = (bvh.nodes4_fi, bvh.tris128, bvh.root4_code)
+
+    def v5():
+        return tbmp.traverse_bvh4_multipop(*tables, *rays, anyhit=anyhit)
+
+    def bvh4():
+        return tb4.traverse_bvh4(*tables, *rays, anyhit=anyhit)
+
+    out, ref = v5(), bvh4()
+    require(torch.equal(out[2] >= 0, ref[2] >= 0), "v5: hit or occlusion differs from traverse_bvh4's")
+    ties = 0
+    if not anyhit:
+        require(same_bits(out[0], ref[0]), f"v5: t differs from traverse_bvh4's on "
+                f"{int((out[0].view(torch.int32) != ref[0].view(torch.int32)).sum())} lanes")
+        ties = int(((out[1] != ref[1]) | (out[2] != ref[2]) | (out[3].view(torch.int32) != ref[3].view(torch.int32))
+                    | (out[4].view(torch.int32) != ref[4].view(torch.int32))).sum())
+    times = _time_interleaved({"traverse_bvh4_multipop": v5, "traverse_bvh4": bvh4}, 10)
+    return dict(times, ties=ties)
+
+
+def _v5_probe_vs_bvh4(tag, bvh, comps, tmin, far, shadow_tmax):
+    """_v5_vs_bvh4 on the probe rays, closest and any hit."""
+    res = {}
+    for anyhit, tmax in ((False, far), (True, shadow_tmax)):
+        r = _v5_vs_bvh4(bvh, (*comps, tmin, tmax), anyhit)
+        hit = "any" if anyhit else "closest"
+        log(f"[{tag}] v5 {hit} hit on {comps[0].shape[0]} rays: "
+            + ("t equal to traverse_bvh4's bit for bit on every lane, ids or u/v differ on "
+               f"{r['ties']} (equal-t ties)" if not anyhit else "occlusion equal to traverse_bvh4's")
+            + f"; v5 {r['traverse_bvh4_multipop']:.4f} ms, traverse_bvh4 {r['traverse_bvh4']:.4f} ms "
+            f"(v5 / traverse_bvh4 {r['traverse_bvh4_multipop'] / r['traverse_bvh4']:.2f}x)")
+        res[hit] = r
+    return res
+
+
+def record_launches(r, wrapper):
     """One frame of renderer r through on_render, with
-    ops.intersect.traverse_bvh4 wrapped to record clones of each launch's
-    8 ray components; returns ([(components, anyhit)], the frame's aux)."""
+    ops.intersect.<wrapper> (a key of TABLE_ARGS) wrapped to record clones
+    of each launch's 8 ray components; returns ([(components, anyhit)], the
+    frame's aux)."""
     from vk_gltf_renderer_tpu_torch.ops import intersect
 
     recorded = []
-    traced = intersect.traverse_bvh4
+    traced = getattr(intersect, wrapper)
+    skip = TABLE_ARGS[wrapper]
 
     def record(*args, anyhit=False):
-        recorded.append(([c.clone() for c in args[3:]], anyhit))
+        recorded.append(([c.clone() for c in args[skip:]], anyhit))
         return traced(*args, anyhit=anyhit)
 
-    intersect.traverse_bvh4 = record
+    setattr(intersect, wrapper, record)
     try:
         aux = r.on_render()
     finally:
-        intersect.traverse_bvh4 = traced
+        setattr(intersect, wrapper, traced)
     torch.cuda.synchronize()
     return recorded, aux
 
@@ -485,7 +550,7 @@ def phase_replay(device, scenes, smi):
         add_kernel_tables_to_device(r.dev_bvh, r.bvh, device, {"bvh4_sidecar"})
         bvh = r.dev_bvh
         require(bvh.root4_code >= 0, f"{label}: the BVH4 root is a leaf")
-        recorded, aux = record_bvh4_launches(r)
+        recorded, aux = record_launches(r, "traverse_bvh4")
         # a closest and a shadow launch per bounce while any path is alive
         require(0 < len(recorded) <= 2 * DEPTH, f"{label}: {len(recorded)} traverse_bvh4 launches in a frame")
         launches, frame = [], {}
@@ -522,6 +587,66 @@ def phase_replay(device, scenes, smi):
                                          rays=float(aux["rays"])),
                               launches=launches)
         del recorded
+    return results
+
+
+def phase_replay_selections(device, scenes, smi):
+    """Phase 7b for the other redesigned kernels: per REPLAYS selection
+    ((lane, lane_stream), (v5, v5)) one 1080p frame per scene through
+    on_render with the selection's wrapper recorded (10 launches: closest
+    and shadow per bounce), then every launch timed, held against the plain
+    version on a fixed subset of SUBSET lanes (dead lanes included), with
+    its bound; v5's launches also beside traverse_bvh4 on the same lanes
+    (_v5_vs_bvh4: closest-hit t bit for bit on every lane). Nothing may be
+    dropped. Returns wrapper -> scene -> dict(frame, launches)."""
+    mods = _traversal_modules()
+    results = {}
+    for name, selection in REPLAYS.items():
+        os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = selection
+        mod = mods[name]
+        mod.OVERFLOW.reset()
+        results[name] = {}
+        for label, r in scenes:
+            recorded, aux = record_launches(r, name)
+            require(0 < len(recorded) <= 2 * DEPTH, f"{label} {selection}: {len(recorded)} {name} launches")
+            kern, plain, arity, row_bytes = _traversal_runs(r.dev_bvh)[name]
+            launches = []
+            for k, (rays, anyhit) in enumerate(recorded):
+                n = rays[0].shape[0]
+                live = int((rays[7] >= 0).sum())
+                if name == "traverse_bvh4_multipop":
+                    times = _v5_vs_bvh4(r.dev_bvh, rays, anyhit)
+                    ms = times[name]
+                else:
+                    ms = device_ms(lambda rays=rays, anyhit=anyhit: kern(*rays, anyhit=anyhit), 10)
+                    times = {}
+                sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(60 + k))[:SUBSET]
+                sargs = tuple(a[sub.to(device)].contiguous() for a in rays)
+                stats = {}
+                err = _check_against_plain(name, kern(*sargs, anyhit=anyhit),
+                                           plain(*sargs, anyhit=anyhit, stats=stats), SUBSET, anyhit)
+                b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, SUBSET, n_dead=n - live)
+                hit = "any" if anyhit else "closest"
+                beside = (f", traverse_bvh4 {times['traverse_bvh4']:.4f} ms on the same lanes (t equal bit for "
+                          f"bit, {times['ties']} equal-t ties)" if times else "")
+                log(f"[replay] {selection} {label} launch {k} ({hit} hit): {n} lanes, {live} live "
+                    f"({100 * live / n:.2f}%): {name} {ms:.4f} ms{beside}; bound {b_ms:.4f} ms ({b_by}); plain on "
+                    f"{SUBSET} lanes ({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
+                launches.append(dict(hit=hit, lanes=n, live=live, ms=ms, bound_ms=b_ms, max_abs_err=err,
+                                     **{k2: v for k2, v in times.items() if k2 != name}))
+            frame = dict(ms=sum(x["ms"] for x in launches), bound_ms=sum(x["bound_ms"] for x in launches),
+                         live=sum(x["live"] for x in launches), rays=float(aux["rays"]))
+            if name == "traverse_bvh4_multipop":
+                frame["traverse_bvh4_ms"] = sum(x["traverse_bvh4"] for x in launches)
+            log(f"[replay] {selection} {label} frame ({len(launches)} launches, {frame['live']} live lanes; "
+                f"the frame counted {frame['rays']:.0f} rays): {name} {frame['ms']:.4f} ms, bound "
+                f"{frame['bound_ms']:.4f} ms" + (f", traverse_bvh4 on the same lanes {frame['traverse_bvh4_ms']:.4f} ms"
+                                                 if "traverse_bvh4_ms" in frame else "") + f", on {smi}")
+            results[name][label] = dict(frame=frame, launches=launches)
+        dropped = mod.OVERFLOW.total()
+        require(dropped == 0, f"{name}: the replay dropped {dropped} (stack overflow / bad link)")
+    for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL"):
+        os.environ.pop(key, None)
     return results
 
 
@@ -636,7 +761,9 @@ def phase_kernels(device, resources):
     results = _run_kernels("kernels", ("traverse_bvh4",) + BVH4_VARIANTS, _traversal_runs(bvh), comps,
                            tmin, far, shadow_tmax, None)
     results["traverse_bvh4"]["against_v7"] = _bvh4_probe_vs_v7("kernels", bvh, comps, tmin, far, shadow_tmax,
-                                                            resources)
+                                                            resources["traverse_bvh4.cu"])
+    results["traverse_bvh4_multipop"]["against_traverse_bvh4"] = _v5_probe_vs_bvh4("kernels", bvh, comps, tmin,
+                                                                                 far, shadow_tmax)
 
     gen = torch.Generator(device="cpu").manual_seed(7)
     tab = torch.randn((4, 64 * 128), generator=gen).to(device)
@@ -791,7 +918,9 @@ def phase_large_kernels(device, glb, hdr, resources):
     names = ("traverse_bvh2", "traverse_bvh16", "traverse_lanes", "traverse_bvh4") + BVH4_VARIANTS
     results = _run_kernels("large", names, _traversal_runs(bvh), comps, tmin, far, shadow_tmax, sub)
     results["traverse_bvh4"]["against_v7"] = _bvh4_probe_vs_v7("large", bvh, comps, tmin, far, shadow_tmax,
-                                                            resources)
+                                                            resources["traverse_bvh4.cu"])
+    results["traverse_bvh4_multipop"]["against_traverse_bvh4"] = _v5_probe_vs_bvh4("large", bvh, comps, tmin,
+                                                                                 far, shadow_tmax)
     return results, r, (ro, rd)
 
 
@@ -1242,6 +1371,8 @@ def main():
         terrain, _ = terrain_renderer(glb, hdr, device, SELECTIONS[0])
         replay = phase_replay(device, (("helmet", helmet), ("terrain", terrain)), smi)
         log(f"[time] main-path launch replay done at {time.perf_counter() - t_start:.1f} s")
+        replays = phase_replay_selections(device, (("helmet", helmet), ("terrain", terrain)), smi)
+        log(f"[time] (lane, lane_stream) and (v5, v5) launch replays done at {time.perf_counter() - t_start:.1f} s")
         mega = phase_megakernel(device, (("helmet", helmet), ("terrain", terrain)), smi)
         log(f"[time] megakernel A/B done at {time.perf_counter() - t_start:.1f} s")
         split = {"helmet": phase_split_kernels(device, "helmet", helmet_r, *helmet_rays),
@@ -1262,7 +1393,7 @@ def main():
     kernels = [
         _entry("traverse_bvh4", launches["traverse_bvh4"], kern["traverse_bvh4"],
                terrain_launches=frames[SELECTIONS[0]]["launches"]["traverse_bvh4"],
-               terrain=large["traverse_bvh4"], resources=resources,
+               terrain=large["traverse_bvh4"], resources=resources["traverse_bvh4.cu"],
                replay={label: v["frame"] for label, v in replay.items()},
                replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["traverse_bvh4"], x["v7"], x["bound_ms"]]
                                         for x in v["launches"]] for label, v in replay.items()},
@@ -1274,6 +1405,12 @@ def main():
                       ("traverse_bvh4_multipop", ("v5", "v5")), ("traverse_bvh4_sidecar", ("v7", "v7")),
                       ("traverse_bvh4_leafqueue", ("v3", "v8"))):
         extra = {"helmet": kern[name]} if name in BVH4_VARIANTS else {}
+        if name in REPLAYS:
+            extra.update(resources=resources[SOURCES[name][0]],
+                         replay={label: v["frame"] for label, v in replays[name].items()},
+                         replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["ms"], x["bound_ms"]]
+                                                  for x in v["launches"]] for label, v in replays[name].items()},
+                         replay_launches_fields=["hit", "lanes", "live", "ms", "bound_ms"])
         kernels.append(_entry(name, frames[sel]["launches"][name], large[name], **extra))
     kernels.append(_entry("render_mega", mega[("terrain", 5)]["launches"], mega[("terrain", 5)],
                           runs={f"{label},depth{depth}": v for (label, depth), v in mega.items()}))

@@ -340,6 +340,164 @@ def test_bvh4_kernel_counts_overflow(cuda, anyhit):
     assert all(_same_bits(o.cpu(), p) for o, p in zip(out, plain))
 
 
+# the other kernels with live-lane compaction (csrc/live_lanes.cuh): kernel value -> (wrapper
+# module, call(bvh, args, anyhit, root), plain call(...) on the same arguments)
+COMPACTING = {
+    "lane": (tlane, lambda bvh, args, anyhit, root: tlane.traverse_lanes(bvh.lane_entries, *args, anyhit=anyhit),
+             lambda bvh, args, anyhit, root: ttrav.traverse_lanes_plain(bvh.lane_entries, *args, anyhit=anyhit)),
+    "v5": (tbmp, lambda bvh, args, anyhit, root: tbmp.traverse_bvh4_multipop(bvh.nodes4_fi, bvh.tris128, root,
+                                                                             *args, anyhit=anyhit),
+           lambda bvh, args, anyhit, root: ttrav.traverse_bvh4_multipop_plain(bvh.nodes4_fi, bvh.tris128, root,
+                                                                              *args, anyhit=anyhit)),
+}
+
+
+def _compacting_tables(wb, cuda):
+    """DeviceBvh of wb with the lane entries and v5's stack need."""
+    fam = {"lane", "bvh4_multipop"}
+    wb = add_kernel_tables(wb, fam)
+    return add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, fam)
+
+
+def _compacting_against_plain(kernel, bvh, args, anyhit, root=None):
+    """The lane walk or v5 against its plain version on the same lanes (ids
+    equal except on equal-t ties, t/u/v within 1e-5, occlusion equal), one
+    launch counted, nothing dropped; v5's closest-hit t also equals
+    traverse_bvh4's bit for bit on every lane. Returns (outputs, hit)."""
+    mod, call, plain = COMPACTING[kernel]
+    root = bvh.root4_code if root is None else root
+    mod.OVERFLOW.reset()
+    launches = mod.COUNTER.launches
+    out = call(bvh, args, anyhit, root)
+    torch.cuda.synchronize()
+    assert mod.COUNTER.launches == launches + 1 and mod.OVERFLOW.total() == 0
+    t, rn, tri, u, v, dropped = plain(bvh, args, anyhit, root)
+    kt, krn, ktri, ku, kv = out
+    assert dropped == 0
+    hit = tri >= 0
+    assert torch.equal(ktri >= 0, hit)
+    if not anyhit:
+        same = (ktri == tri) & (krn == rn)
+        tie = torch.isclose(kt, torch.where(hit, t, kt), rtol=1e-6, atol=0)
+        assert bool((same | tie).all())
+        torch.testing.assert_close(kt[hit], t[hit], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(ku[same & hit], u[same & hit], rtol=0, atol=1e-5)
+        torch.testing.assert_close(kv[same & hit], v[same & hit], rtol=0, atol=1e-5)
+        if kernel == "v5":
+            ref = tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, root, *args)
+            assert _same_bits(kt, ref[0])
+    return out, hit
+
+
+@pytest.mark.parametrize("kernel", sorted(COMPACTING))
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_compacting_kernel_on_a_dead_lane_mix(cuda, kernel, anyhit):
+    """The lane walk and v5 on a helmet lane set in which 98% of the lanes
+    are dead and scattered (tmax -1, a tenth of them NaN): against the
+    plain version, and (tmax, -1, -1, 0, 0) bit for bit on the dead lanes."""
+    wb = _helmet_bvh()
+    bvh = _compacting_tables(wb, cuda)
+    n = 200_000
+    args = _inside_rays(wb, n, 46, cuda)
+    g = torch.Generator(device="cpu").manual_seed(46)
+    live = (torch.rand(n, generator=g) < 0.02).to(cuda)
+    nan = (torch.rand(n, generator=g) < 0.1).to(cuda)
+    tmax = torch.where(live, 3.0 if anyhit else 1e32, torch.where(nan, float("nan"), -1.0))
+    args[7] = tmax.contiguous()
+    out, hit = _compacting_against_plain(kernel, bvh, args, anyhit)
+    assert int(hit.sum()) > 500 and not bool(hit[~live].any())
+    _assert_dead(out, tmax, ~live)
+
+
+@pytest.mark.parametrize("kernel", sorted(COMPACTING))
+@pytest.mark.parametrize("size", ["1", "1000", "past_one_pass"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_compacting_kernel_lane_counts(cuda, kernel, size, anyhit):
+    """n = 1, 1000 and more lanes than the persistent grid holds threads
+    (2048 per SM): all live, against the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = {"1": 1, "1000": 1000, "past_one_pass": 2048 * sms + 333}[size]
+    wb = _helmet_bvh()
+    bvh = _compacting_tables(wb, cuda)
+    args = _inside_rays(wb, n, 47, cuda)
+    if anyhit:
+        args[7] = torch.full((n,), 3.0, device=cuda)
+    _, hit = _compacting_against_plain(kernel, bvh, args, anyhit)
+    assert n < 1000 or int(hit.sum()) > n // 10
+
+
+@pytest.mark.parametrize("kernel", sorted(COMPACTING))
+def test_compacting_kernel_without_live_lanes(cuda, kernel):
+    """No live lane (tmax -1, -inf, NaN or -0.5): every lane reads (tmax,
+    -1, -1, 0, 0), the NaN's bits included."""
+    wb = _helmet_bvh()
+    bvh = _compacting_tables(wb, cuda)
+    n = 5000
+    args = _inside_rays(wb, n, 48, cuda)
+    tmax = torch.tensor([-1.0, float("-inf"), float("nan"), -0.5], device=cuda).repeat(n // 4)
+    args[7] = tmax.contiguous()
+    for anyhit in (False, True):
+        out, _ = _compacting_against_plain(kernel, bvh, args, anyhit)
+        _assert_dead(out, tmax, torch.ones(n, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("kernel", sorted(COMPACTING))
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_compacting_kernel_on_the_leaf_root_scene(cuda, kernel, anyhit):
+    """The 2-triangle plane whose binary root is a leaf, rays from above
+    and below with tmin -3 below: v5 from the BVH4 root row and from the
+    leaf passed as a negative root code (there a lane with tmin < t < tmax
+    < 0 hits, as in BVH4), and the lane walk, whose tree starts with the
+    triangle entries and which skips every lane with tmax < 0."""
+    from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+    from vk_gltf_renderer_tpu_torch.scenes import _empty_scene
+
+    sc = _empty_scene()
+    SceneEditor(sc).add_primitive("plane")
+    sc.parse_scene()
+    wb = build_world_bvh(build_scene_flat(sc))
+    bvh = _compacting_tables(wb, cuda)
+    n = 4096
+    rng = np.random.default_rng(49)
+    xz = rng.uniform(-1.2, 1.2, size=(n, 2)).astype(np.float32)
+    up = rng.random(n) < 0.5
+    ro = np.stack([xz[:, 0], np.where(up, 1.0, -1.0), xz[:, 1]], 1).astype(np.float32)
+    rd = np.tile(np.float32([0.0, -1.0, 0.0]), (n, 1))
+    tmin = np.where(up, 0.0, -3.0).astype(np.float32)
+    tmax = np.where(up, 1e32, -0.5).astype(np.float32)
+    tmax[::5] = -1.0
+    tmax[3::10] = -4.0
+    comps = [torch.tensor(np.ascontiguousarray(a), device=cuda) for a in (*ro.T, *rd.T)]
+    args = [*comps, torch.tensor(tmin, device=cuda), torch.tensor(tmax, device=cuda)]
+    below = torch.tensor(~up, device=cuda)
+    leaf = int(bvh.nodes4_fi[0, 24:28].min())
+    for root in ((bvh.root4_code, leaf) if kernel == "v5" else (None,)):
+        _, hit = _compacting_against_plain(kernel, bvh, args, anyhit, root)
+        assert int(hit.sum()) > 100
+        assert bool(hit[below].any()) == (root is not None and root < 0)
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_v5_kernel_counts_overflow(cuda, anyhit):
+    """torch_test_helpers.deep_chain_bvh4(24, stubs=True), whose v5 walk
+    outgrows the 128-entry stack: the kernel drops and counts the plain
+    version's 8 pushes a live ray, with outputs equal bit for bit."""
+    fi, _, tr = (torch.tensor(a, device=cuda) for a in deep_chain_bvh4(24, stubs=True))
+    rays = [torch.tensor(a, device=cuda) for a in deep_chain_rays(4096, seed=50)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    tbmp.OVERFLOW.reset()
+    try:
+        out = tbmp.traverse_bvh4_multipop(fi, tr, 0, *rays, anyhit=anyhit)
+        assert tbmp.OVERFLOW.total() == 8 * live
+    finally:
+        tbmp.OVERFLOW.reset()
+    *plain, dropped = ttrav.traverse_bvh4_multipop_plain(fi.cpu(), tr.cpu(), 0, *(r.cpu() for r in rays),
+                                                         anyhit=anyhit)
+    assert dropped == 8 * live
+    assert all(_same_bits(o.cpu(), p) for o, p in zip(out, plain))
+
+
 def test_gather_kernel_matches_plain(cuda):
     rng = np.random.default_rng(32)
     tab = torch.tensor(rng.normal(size=(4, 8192)).astype(np.float32), device=cuda)

@@ -32,7 +32,9 @@ import baseline_standins  # noqa: E402
 from vk_gltf_renderer_tpu.renderer import GltfRenderer as JaxRenderer  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb, write_synthetic_hdr  # noqa: E402
-from torch_test_helpers import one_torch_thread  # noqa: E402, F401 (a fixture)
+from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
+
+share_native_builder()
 
 W, H, DEPTH, FRAMES = 48, 32, 5, 2
 

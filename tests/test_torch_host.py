@@ -47,6 +47,9 @@ from vk_gltf_renderer_tpu_torch.scenes import (  # noqa: E402
     write_synthetic_hdr,
 )
 from vk_gltf_renderer_tpu_torch.utils.png import encode_png, read_png  # noqa: E402
+from torch_test_helpers import share_native_builder  # noqa: E402
+
+share_native_builder()
 
 
 def _tiny(tmp_path):

@@ -40,6 +40,9 @@ from vk_gltf_renderer_tpu_torch.ops import megakernel as tmega  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.bvh_flatten import build_world_bvh  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.flat import build_scene_flat  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
+from torch_test_helpers import share_native_builder  # noqa: E402
+
+share_native_builder()
 
 FLIP_SHARE = 0.01
 

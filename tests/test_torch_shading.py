@@ -43,6 +43,9 @@ from vk_gltf_renderer_tpu_torch.ops import textures as ttex  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import tonemap as ttone  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.pathtrace import trace_closest  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import synthetic_sky  # noqa: E402
+from torch_test_helpers import share_native_builder  # noqa: E402
+
+share_native_builder()
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 HELMET_FEATURES = frozenset({"textured", "tex:base_color_texture"})

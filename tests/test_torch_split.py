@@ -63,7 +63,9 @@ from vk_gltf_renderer_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_rays_wavefront,
 )
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
-from torch_test_helpers import one_torch_thread  # noqa: E402, F401 (a fixture)
+from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
+
+share_native_builder()
 
 INF = 1e30
 SCENES = ["editor", "helmet", "terrain", "few"]

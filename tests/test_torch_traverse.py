@@ -51,13 +51,15 @@ from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_soa  # noqa: E402
-from torch_test_helpers import deep_chain_bvh4, deep_chain_rays  # noqa: E402
+from torch_test_helpers import deep_chain_bvh4, deep_chain_rays, share_native_builder  # noqa: E402
 
 _SYS_PATH = list(sys.path)
 try:
     import bvh4_tuning  # noqa: E402 (its import puts the repository root on sys.path)
 finally:
     sys.path[:] = _SYS_PATH
+
+share_native_builder()
 
 INF = 1e30
 BVH4_VARIANTS = ["v5", "v7", "v8"]
@@ -313,11 +315,12 @@ def test_plain_bvh4_returns_tmax_on_dead_lanes(editor, anyhit):
 
 
 @pytest.mark.parametrize("anyhit", [False, True])
-@pytest.mark.parametrize("kernel", ["v3", "v9"])
+@pytest.mark.parametrize("kernel", ["v3", "v9", "v5", "lane"])
 def test_dead_lane_mix_matches_packet_kernel(editor, kernel, anyhit):
     """On a lane mix with ~98% of the lanes dead and scattered, the port's
-    BVH4 traversal equals the reference's traverse_packets3 /
-    traverse_packets9 (interpret mode): closest hit as
+    traversal equals the reference's kernel of the same name
+    (traverse_packets3 / traverse_packets9, traverse_packets5, traverse_lanes;
+    interpret mode): closest hit as
     test_plain_closest_hit_matches_packet_kernel, any hit by occlusion."""
     _, wb, bvh_t = editor
     ro, rd, tmax = _dead_mix(wb, 4096, seed=25)
@@ -336,38 +339,79 @@ def test_dead_lane_mix_matches_packet_kernel(editor, kernel, anyhit):
     assert (port["t"][~live] == 1e32).all() and (port["tri"][~live] == -1).all()
 
 
-def test_bvh4_scratch_and_stack_match_the_kernel():
-    """The wrapper's scratch header is csrc/traverse_bvh4.cu's, and
-    scratch_words holds it and one list entry per lane; the kernel's
-    compiled stack capacity is the plain version's STACK_DEPTH."""
+def _cu_constants(*names):
+    """constexpr int constants of the named csrc/ files."""
     import re
 
     from vk_gltf_renderer_tpu_torch import cuda_lib
 
-    src = (cuda_lib._CSRC / "traverse_bvh4.cu").read_text()
-    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert consts["kScratchHeader"] == tb4.SCRATCH_HEADER
+    src = "".join((cuda_lib._CSRC / name).read_text() for name in names)
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def test_bvh4_scratch_and_stack_match_the_kernel():
+    """The wrapper's scratch header is csrc/live_lanes.cuh's (the
+    compaction csrc/traverse_bvh4.cu shares), and scratch_words holds it
+    and one list entry per lane; the kernel's compiled stack capacity is
+    the plain version's STACK_DEPTH."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse_launch
+
+    consts = _cu_constants("traverse_bvh4.cu", "live_lanes.cuh")
+    assert consts["kScratchHeader"] == traverse_launch.SCRATCH_HEADER
     assert consts["kStackCap"] == ttrav.STACK_DEPTH == 64
-    assert [tb4.scratch_words(n) for n in (0, 1, 1000)] == [4, 5, 1004]
+    assert [traverse_launch.scratch_words(n) for n in (0, 1, 1000)] == [4, 5, 1004]
+    assert tb4.list_scratch is traverse_launch.list_scratch
 
 
-@pytest.mark.parametrize("name", list(bvh4_tuning.VARIANTS))
-def test_bvh4_tuning_variant_fits_the_kernel_source(name):
-    """Each ablation and tuning variant of bvh4_tuning.py applies to
-    csrc/traverse_bvh4.cu as it is: every substitution matches once and
-    changes the source (the unchanged "source" variant aside), and a
-    source in which its first anchor appears twice is refused."""
-    from vk_gltf_renderer_tpu_torch import cuda_lib
+def test_lane_and_v5_constants_match_the_kernels():
+    """csrc/traverse_lanes.cu's window is the plain version's LANE_WINDOW
+    (one 128-byte line), csrc/traverse_bvh4_multipop.cu's pop group and
+    compiled stack are MULTIPOP and STACK_DEPTH_MULTIPOP, and both wrappers
+    pass the compaction's scratch (traverse_launch.list_scratch)."""
+    lanes = _cu_constants("traverse_lanes.cu")
+    assert lanes["kWindow"] == ttrav.LANE_WINDOW == 2 and ttrav.LANE_WINDOW in ttrav.LANE_WINDOWS
+    assert lanes["kFields"] == tlane.FIELDS
+    v5 = _cu_constants("traverse_bvh4_multipop.cu")
+    assert v5["kMultipop"] == ttrav.MULTIPOP == 4
+    assert v5["kStack"] == ttrav.STACK_DEPTH_MULTIPOP == 128
+    assert v5["kMultipop"] % v5["kRayLanes"] == 0
+    from vk_gltf_renderer_tpu_torch.ops import traverse_launch
 
-    src = (cuda_lib._CSRC / "traverse_bvh4.cu").read_text()
-    out = bvh4_tuning.variant_source(src, name)
-    assert (out == src) == (name == "source")
-    assert all(new in out for _, new in bvh4_tuning.VARIANTS[name])
+    assert tlane.list_scratch is tbmp.list_scratch is traverse_launch.list_scratch
+
+
+def _assert_variant_fits(kernel, name):
+    """variant_sources of one bvh4_tuning.py variant applies to csrc/ as it
+    is: every substitution matches once, the variant changes some file
+    (the unchanged "source" aside), and a file in which its first anchor
+    appears twice is refused."""
+    files = bvh4_tuning._files(kernel)
+    out = bvh4_tuning.variant_sources(kernel, name)
+    changed = any(text != files[f] for f, text in out.items())
+    assert changed == (name != "source")
+    for old, new, *where in bvh4_tuning.VARIANTS[kernel][name]:
+        assert new in out[where[0] if where else kernel]
     if name != "source":
-        old = bvh4_tuning.VARIANTS[name][0][0]
+        old, _, *where = bvh4_tuning.VARIANTS[kernel][name][0]
         first = old[0] if isinstance(old, tuple) else old
+        target = where[0] if where else kernel
+        twice = dict(files, **{target: files[target].replace(first, first + first)})
         with pytest.raises(ValueError, match="exactly once"):
-            bvh4_tuning.variant_source(src.replace(first, first + first), name)
+            bvh4_tuning.variant_sources(kernel, name, twice)
+
+
+@pytest.mark.parametrize("name", list(bvh4_tuning.VARIANTS["traverse_bvh4.cu"]))
+def test_bvh4_tuning_variant_fits_the_kernel_source(name):
+    """Each ablation and tuning variant of csrc/traverse_bvh4.cu in
+    bvh4_tuning.py fits the source (_assert_variant_fits)."""
+    _assert_variant_fits("traverse_bvh4.cu", name)
+
+
+@pytest.mark.parametrize("kernel,name", [(k, n) for k in ("traverse_lanes.cu", "traverse_bvh4_multipop.cu")
+                                         for n in bvh4_tuning.VARIANTS[k]])
+def test_lane_and_v5_tuning_variants_fit_the_kernel_sources(kernel, name):
+    """The same for the lane walk's and v5's variants."""
+    _assert_variant_fits(kernel, name)
 
 
 @pytest.mark.parametrize("levels", [21, 22, 24])
@@ -607,3 +651,158 @@ def test_new_wrappers_refuse_other_devices(editor, kernel):
             tb16.traverse_bvh16(bvh_t.nodes16_fi, bvh_t.tris128, *rays)
         else:
             tlane.traverse_lanes(bvh_t.lane_entries, *rays)
+
+
+def test_share_native_builder_points_the_reference_at_the_port_build():
+    """torch_test_helpers.share_native_builder (called at this module's
+    import) points the reference's native cache at the port's build
+    directory, where the port built the library atomically; the reference
+    loads that file and builds nothing of its own."""
+    from vk_gltf_renderer_tpu import native as jnative
+    from vk_gltf_renderer_tpu_torch import native as tnative
+
+    assert jnative._CACHE == tnative._CACHE == ROOT / "build" / "native"
+    path = jnative._build_lib()
+    assert path.parent == tnative._CACHE and path.stat().st_size > 0
+    assert jnative.get_lib() is not None and tnative.get_lib() is not None
+    assert not list(tnative._CACHE.glob("*.tmp"))
+
+
+def _leaf_root_rays(n, seed):
+    """Rays straight down onto the few scene's plane (y = 0), half from
+    above (the plane at t = +1, tmin 0) and half from below (at t = -1,
+    behind the origin, tmin -3); returns (ro, rd, tmin, up)."""
+    rng = np.random.default_rng(seed)
+    xz = rng.uniform(-0.9, 0.9, size=(n, 2)).astype(np.float32)
+    up = rng.random(n) < 0.5
+    ro = np.stack([xz[:, 0], np.where(up, 1.0, -1.0), xz[:, 1]], 1).astype(np.float32)
+    rd = np.tile(np.float32([0.0, -1.0, 0.0]), (n, 1))
+    return ro, rd, np.where(up, 0.0, -3.0).astype(np.float32), up
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+@pytest.mark.parametrize("scene", ["editor", "few"])
+def test_plain_lane_walk_dead_lane_rule(scene, anyhit, request):
+    """The lane walk's dead-lane rule, which csrc/traverse_lanes.cu's
+    compaction relies on: every lane with !(tmax >= 0) returns (tmax, -1,
+    -1, 0, 0) exactly. A negative tmax starts at the end, even where the
+    lane tree's root is a triangle entry and a triangle lies in (tmin,
+    tmax) behind the origin (the few scene: the BVH4 walk from its leaf
+    root accepts it there); a NaN tmax walks entries but enters no box and
+    accepts no triangle. A zero tmax is live: it walks, and agrees with the
+    reference's lane kernel (interpret mode), which accepts a hit behind
+    the origin for it."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    n = 512
+    if scene == "few":
+        ro, rd, tmin, up = _leaf_root_rays(n, seed=26)
+    else:
+        ro, rd, _ = _aimed_rays(wb, n, seed=26)
+        tmin, up = np.zeros(n, np.float32), np.ones(n, bool)
+    tmax = np.full(n, 2.5 if anyhit else 1e32, np.float32)
+    tmax[1::4] = -0.5
+    tmax[2::8] = np.nan
+    tmax[3::8] = -np.inf
+    tmax[5::16] = 0.0
+    dead = ~(tmax >= 0)
+    rays = _soa(ro, rd, tmin, tmax)
+    t, rn, tri, u, v, bad = ttrav.traverse_lanes_plain(bvh_t.lane_entries, *rays, anyhit=anyhit)
+    assert bad == 0 and dead.sum() > 200 and np.isnan(tmax).sum() > 50
+    assert np.array_equal(t.numpy()[dead].view(np.int32), tmax[dead].view(np.int32))
+    for ids in (rn, tri):
+        assert (ids.numpy()[dead] == -1).all()
+    for f in (u, v):
+        assert np.array_equal(f.numpy()[dead].view(np.int32), np.zeros(dead.sum(), np.int32))
+    assert (tri.numpy()[~dead] >= 0).sum() > 20
+    nan = np.isnan(tmax)
+    stats = {}
+    ttrav.traverse_lanes_plain(bvh_t.lane_entries, *(c[torch.tensor(nan)] for c in rays), anyhit=anyhit,
+                               stats=stats)
+    assert stats["entries"] >= nan.sum()  # NaN lanes walk, and still return their tmax
+    zero = tmax == 0.0
+    args = [jnp.asarray(a) for a in (*ro.T, *rd.T, tmin, tmax)]
+    ref = intersect_rays_packet_soa(wb, *args, interpret=True, tiles=1, kernel="lane", anyhit=anyhit)
+    ref_tri = np.asarray(ref["tri"])
+    assert ((ref_tri >= 0) == (tri.numpy() >= 0)).all() and not (ref_tri[dead] >= 0).any()
+    assert (ref_tri[zero] == tri.numpy()[zero]).all()
+    if scene == "few":
+        assert (tri.numpy()[zero & ~up] >= 0).all()  # live at tmax 0: the plane at t = -1 is accepted
+        behind = (tmax == -0.5) & ~up
+        leaf = int(bvh_t.nodes4_fi[0, 24:28].min())
+        bvh4 = ttrav.traverse_bvh4_plain(bvh_t.nodes4_fi, bvh_t.tris128, leaf, *rays, anyhit=anyhit)
+        assert behind.sum() > 20 and (bvh4[2].numpy()[behind] >= 0).all()
+        assert (tri.numpy()[behind] == -1).all()
+
+
+def test_lane_walk_counts_steps_and_load_rounds(terrain):
+    """The plain lane walk's counters on the terrain: box and triangle
+    entries add up to the visits, most steps go to the next entry, and the
+    kernel's dependent load rounds equal the visits with a window of one
+    entry and fall as the window grows (LANE_WINDOWS)."""
+    _, wb, bvh_t = terrain
+    ro, rd, tmax = _aimed_rays(wb, 1024, seed=27)
+    stats = {}
+    ttrav.traverse_lanes_plain(bvh_t.lane_entries, *_soa(ro, rd, np.zeros(1024, np.float32), tmax), stats=stats)
+    entries, rounds = stats["entries"], stats["rounds"]
+    assert stats["box_entries"] + stats["tri_entries"] == entries > 10_000
+    assert stats["box_entries"] > 0 and stats["tri_entries"] > 0
+    assert entries / 2 < stats["plus_one"] < entries
+    assert list(rounds) == list(ttrav.LANE_WINDOWS)
+    assert rounds[1] == entries
+    assert entries / 2 <= rounds[2] < entries and rounds[ttrav.LANE_WINDOW] < entries
+    assert rounds[8] <= rounds[4] <= rounds[2]
+
+
+def test_v5_nearest_on_top_visits_no_more_than_the_old_order(terrain):
+    """v5's order (the nearest member's children on top, the group tested
+    against the t_best it was popped with) against the reference's order
+    (nearest_on_top=False) on the terrain: no more internal or leaf visits,
+    the same closest-hit t on every ray and ids except at equal-t ties,
+    and the same occlusion."""
+    _, wb, bvh_t = terrain
+    ro, rd, tmax = _aimed_rays(wb, 1024, seed=28)
+    tables = (bvh_t.nodes4_fi, bvh_t.tris128, bvh_t.root4_code)
+    rays = _soa(ro, rd, np.zeros(1024, np.float32), tmax)
+    new, old = {}, {}
+    a = ttrav.traverse_bvh4_multipop_plain(*tables, *rays, stats=new)
+    b = ttrav.traverse_bvh4_multipop_plain(*tables, *rays, stats=old, nearest_on_top=False)
+    assert a[5] == b[5] == 0
+    assert new["internal"] <= old["internal"] and new["leaf"] <= old["leaf"]
+    assert new["internal"] + new["leaf"] < old["internal"] + old["leaf"]
+    assert torch.equal(a[0], b[0]) and int((a[2] >= 0).sum()) > 200
+    assert bool(((a[2] == b[2]) | (a[0] == b[0])).all())
+    shadow = np.where(tmax > 0, np.float32(0.3), tmax)
+    rays = _soa(ro, rd, np.zeros(1024, np.float32), shadow)
+    a = ttrav.traverse_bvh4_multipop_plain(*tables, *rays, anyhit=True)
+    b = ttrav.traverse_bvh4_multipop_plain(*tables, *rays, anyhit=True, nearest_on_top=False)
+    assert torch.equal(a[2] >= 0, b[2] >= 0) and int((a[2] >= 0).sum()) > 50
+
+
+@pytest.mark.parametrize("scene", ["editor", "helmet", "terrain", "few"])
+def test_v5_stack_need_fits_the_compiled_stack(scene, request):
+    """multipop_stack_need under the new push order is within the v5
+    kernel's compiled stack (STACK_DEPTH_MULTIPOP, kStack of
+    csrc/traverse_bvh4_multipop.cu) on every scene, and at least what one
+    pop a step needs."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    need = tbvh.multipop_stack_need(wb.nodes4_fi, wb.root4_code, ttrav.MULTIPOP)
+    assert need == bvh_t.stack_need["bvh4_multipop"] <= ttrav.STACK_DEPTH_MULTIPOP
+    assert need >= tbvh.multipop_stack_need(wb.nodes4_fi, wb.root4_code, 1)
+
+
+@pytest.mark.parametrize("levels,want", [(10, 0), (11, 4), (24, 8)])
+def test_plain_v5_counts_overflow_on_a_stub_chain(levels, want):
+    """torch_test_helpers.deep_chain_bvh4(stubs=True) through the CPU
+    wrapper: the v5 walk's stack grows by 12 a row, so 10 rows fit its 128
+    entries and from 11 rows on every live ray drops pushes (4, then 8
+    once the next chain row is itself dropped), dead lanes none; nothing
+    is hit."""
+    fi, _, tr = (torch.tensor(a) for a in deep_chain_bvh4(levels, stubs=True))
+    rays = [torch.tensor(a) for a in deep_chain_rays(300, seed=42)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    tbmp.OVERFLOW.reset()
+    t, _, tri, _, _ = tbmp.traverse_bvh4_multipop(fi, tr, 0, *rays)
+    assert tbmp.OVERFLOW.total() == want * live
+    tbmp.OVERFLOW.reset()
+    assert (tri == -1).all() and torch.equal(t, rays[7])

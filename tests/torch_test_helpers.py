@@ -1,8 +1,47 @@
 """Fixtures and tables shared by the port's tests (tests/test_torch_*.py)."""
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
+
+
+def share_native_builder():
+    """Make the reference's native SAH builder load the port's copy of its
+    library. Call it at import of every port test module that reaches the
+    reference's build_world_bvh, build_scene_flat or native.
+
+    The reference (vk_gltf_renderer_tpu/native) returns its cached .so as
+    soon as the path exists, while g++ still writes it in place; on a cold
+    cache a second test worker then loads a half-written file ("file too
+    short"). The port's copy builds to a temporary name and renames it
+    (vk_gltf_renderer_tpu_torch/native), and both libraries are named by
+    the sha256 of the same bvh_builder.cpp text (held equal by
+    tests/test_torch_host.py). So this builds the port's library and points
+    the reference's cache directory at the port's build directory, where
+    the reference finds a complete file and never starts g++. It also
+    seeds the reference's own cache file by copy and rename, which narrows
+    the window in which the reference's own tests race each other there.
+
+    Not called when this module is imported: tests/test_torch_cuda.py
+    imports it on the card's machine, which has no JAX, and the reference
+    package imports jax whenever JAX_PLATFORMS is set."""
+    from vk_gltf_renderer_tpu import native as jnative
+    from vk_gltf_renderer_tpu_torch import native as tnative
+
+    if tnative.get_lib() is None:
+        return
+    own = jnative._CACHE
+    jnative._CACHE = tnative._CACHE
+    path = jnative._build_lib()  # the port's file: found, not built
+    seed = own / path.name
+    if path != seed and not seed.exists():
+        own.mkdir(parents=True, exist_ok=True)
+        tmp = seed.with_suffix(f".{os.getpid()}.tmp")
+        shutil.copyfile(path, tmp)
+        os.replace(tmp, seed)
 
 
 @pytest.fixture
@@ -19,7 +58,7 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def deep_chain_bvh4(levels=24):
+def deep_chain_bvh4(levels=24, stubs=False):
     """A degenerate BVH4 that no stack of 64 entries can walk: `levels`
     rows whose 4 child boxes are all [-1, 1]^3, child slot 0 the next row
     and slots 1-3 an empty leaf (code -1: tris128 row 0, no triangle),
@@ -28,12 +67,19 @@ def deep_chain_bvh4(levels=24):
     its stack grows by 3 a row: past 21 rows the pushes of row 21's slots
     2, 1 and 0 are dropped (3 a ray) and the walk ends in empty leaves.
     Returns (nodes4_fi [L,32] f32, nodes4_sc [L,8] i32, tris128 [1,128]
-    f32) as numpy arrays, the root code being 0."""
-    fi = np.zeros((levels, 32), np.float32)
+    f32) as numpy arrays, the root code being 0.
+
+    stubs: slots 1-3 of every chain row are instead one more row (row L)
+    whose four children are empty leaves. The v5 walk pops a chain row and
+    three stubs a step and pushes 16 children, so its stack grows by 12 a
+    row and overflows a 128-entry stack (the single-pop walks grow by 3 a
+    row as before)."""
+    fi = np.zeros((levels + stubs, 32), np.float32)
     fi[:, 0:24] = np.tile(np.float32([-1, -1, -1, 1, 1, 1]), 4)
-    fi[:, 24] = np.append(np.arange(1, levels), -1)
-    fi[:, 25:28] = -1
-    sc = np.zeros((levels, 8), np.int32)
+    fi[:levels, 24] = np.append(np.arange(1, levels), -1)
+    fi[:levels, 25:28] = levels if stubs else -1
+    fi[levels:, 24:28] = -1
+    sc = np.zeros((levels + stubs, 8), np.int32)
     sc[:, 0:4] = fi[:, 24:28]
     return fi, sc, np.zeros((1, 128), np.float32)
 

@@ -1,8 +1,9 @@
 // Per-ray traversal of the fused BVH row tables, one ray per thread: the
 // arity-templated walk behind traverse_bvh2.cu, traverse_bvh16.cu,
 // traverse_bvh4_sidecar.cu and traverse_bvh4_split.cu (walk; test_leaf for
-// both leaf layouts), the node expansion the v5 and v8 schedules reuse
-// (expand_node), plus the ray/box and ray/triangle tests that
+// both leaf layouts), the node expansion the v8 schedule reuses
+// (expand_node), the whole-row BVH4 visit and leaf of traverse_bvh4.cu and
+// the v5 walk (visit, leaf), plus the ray/box and ray/triangle tests that
 // traverse_bvh4.cu, traverse_lanes.cu and megakernel.cu share.
 //
 // Row layout of an arity-A table (A = 2^L children per node, 8*A floats
@@ -181,8 +182,108 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ tris, int e,
   return false;
 }
 
+// Whole-row loads of the BVH4 table (traverse_bvh4.cu and the v5 walk of
+// traverse_bvh4_multipop.cu): a visit reads the row's 8 aligned float4s
+// in one round (ld.global.nc.v4) and unpacks the 4 boxes, 4 codes and 3
+// axes from registers, instead of expand_node's 12 float2 box loads
+// followed, after the slab tests, by up to 7 scalar loads; a leaf issues
+// the loads of kTriBatch triangles before testing them. The arithmetic and
+// order are expand_node's and test_leaf's.
+constexpr int kTriBatch = 4;  // triangles whose loads a leaf issues together
+
+// The children of one internal row in near-first order: c0 is the code
+// of visit position 0 (the nearest), bit p of enter says whether the ray
+// enters the child at position p.
+struct Visit {
+  int c0, c1, c2, c3;
+  unsigned enter;
+};
+
+__device__ __forceinline__ int pick(int p, int c0, int c1, int c2, int c3) {
+  return p == 0 ? c0 : (p == 1 ? c1 : (p == 2 ? c2 : c3));
+}
+
+// Child slot of visit position p of a BVH4 row, from the flip bits of its
+// collapsed binary subtree (expand_node's mapping).
+__device__ __forceinline__ int slot_of(int p, unsigned flip) {
+  const int hi = ((p >> 1) & 1) ^ static_cast<int>(flip & 1u);
+  return hi * 2 + ((p & 1) ^ static_cast<int>((flip >> (1 + hi)) & 1u));
+}
+
+__device__ __forceinline__ Visit visit(const float* __restrict__ nodes, int e, const Ray& r,
+                                       float t_best) {
+  unsigned hitmask = 0, flip = 0;
+  int s0 = 0, s1 = 0, s2 = 0, s3 = 0;  // codes by slot
+  const float4* q = reinterpret_cast<const float4*>(nodes + static_cast<size_t>(e) * 32);
+  const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2), q3 = __ldg(q + 3);
+  const float4 q4 = __ldg(q + 4), q5 = __ldg(q + 5), q6 = __ldg(q + 6), q7 = __ldg(q + 7);
+  // boxes at floats 0, 6, 12, 18 (lo.xyz hi.xyz), codes 24-27, axes 28-30
+  if (slab(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, r, t_best)) hitmask |= 1u;
+  if (slab(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, r, t_best)) hitmask |= 2u;
+  if (slab(q3.x, q3.y, q3.z, q3.w, q4.x, q4.y, r, t_best)) hitmask |= 4u;
+  if (slab(q4.z, q4.w, q5.x, q5.y, q5.z, q5.w, r, t_best)) hitmask |= 8u;
+  s0 = static_cast<int>(q6.x);
+  s1 = static_cast<int>(q6.y);
+  s2 = static_cast<int>(q6.z);
+  s3 = static_cast<int>(q6.w);
+  if (!axis_sign(q7.x, r.sx, r.sy, r.sz)) flip |= 1u;
+  if (!axis_sign(q7.y, r.sx, r.sy, r.sz)) flip |= 2u;
+  if (!axis_sign(q7.z, r.sx, r.sy, r.sz)) flip |= 4u;
+  Visit v;
+  v.enter = 0;
+  int c[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int s = slot_of(p, flip);
+    c[p] = pick(s, s0, s1, s2, s3);
+    v.enter |= ((hitmask >> s) & 1u) << p;
+  }
+  v.c0 = c[0];
+  v.c1 = c[1];
+  v.c2 = c[2];
+  v.c3 = c[3];
+  return v;
+}
+
+// The triangles of leaf code e in slot order, kTriBatch triangles' loads
+// issued before their tests (test_leaf's arithmetic and acceptance).
+// Returns true when an any-hit ray was accepted.
+__device__ __forceinline__ bool leaf(const float* __restrict__ tris128, int e, const Ray& r,
+                                     bool anyhit, Hit& h) {
+  const int code = -e - 1;
+  const int row = code / 16;
+  const int cnt = min(code - row * 16, kLeafSlots);
+  const float4* tr = reinterpret_cast<const float4*>(tris128 + static_cast<size_t>(row) * 128);
+  for (int c0 = 0; c0 < cnt; c0 += kTriBatch) {
+    float4 a[kTriBatch], b[kTriBatch], d[kTriBatch];
+#pragma unroll
+    for (int k = 0; k < kTriBatch; ++k) {
+      if (c0 + k < cnt) {
+        a[k] = __ldg(tr + 4 * (c0 + k));
+        b[k] = __ldg(tr + 4 * (c0 + k) + 1);
+        d[k] = __ldg(tr + 4 * (c0 + k) + 2);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kTriBatch; ++k) {
+      if (c0 + k >= cnt) break;
+      float uu, vv, tt;
+      if (triangle(a[k].x, a[k].y, a[k].z, a[k].w - a[k].x, b[k].x - a[k].y, b[k].y - a[k].z,
+                   b[k].z - a[k].x, b[k].w - a[k].y, d[k].x - a[k].z, r, h.t, uu, vv, tt)) {
+        h.t = anyhit ? -1.0f : tt;
+        h.rn = d[k].y;
+        h.tri = d[k].z;
+        h.u = uu;
+        h.v = vv;
+        if (anyhit) return true;
+      }
+    }
+  }
+  return false;
+}
+
 // Hint that a row will be read soon: one prefetch per 128-byte line into
-// L1, no register written, nothing waited on (the v5 and v8 schedules).
+// L1, no register written, nothing waited on (the v8 schedule).
 __device__ __forceinline__ void prefetch_l1(const void* p) {
   asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
 }

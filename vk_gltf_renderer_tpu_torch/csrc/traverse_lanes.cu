@@ -1,5 +1,6 @@
-// Stackless skip-pointer traversal, one ray per thread, closest hit and
-// any hit.
+// Stackless skip-pointer traversal of the lane entries, closest hit and
+// any hit, redesigned for the H100: live-lane compaction, persistent
+// warps, window loads and any-hit as a template parameter.
 //
 // Replaces the TPU kernels traverse_lanes (_lane_kernel_body) and
 // traverse_lanes_stream (_lane_kernel_stream) of
@@ -21,8 +22,7 @@
 // Table: the reference's pages are field-major per page (entry e's field f
 // at [(e >> 7) * 16 + f, e & 127], so one entry's 16 floats lie 512 bytes
 // apart). The wrapper hands this kernel an entry-major [E,16] copy
-// (convert.lane_entries): one 64-byte row per step, read as four 16-byte
-// loads. Fields of an entry:
+// (convert.lane_entries): one 64-byte row per entry. Fields of an entry:
 //   internal  lo.xyz hi.xyz 0 0 0  skip  0      0  0      0    0 0
 //   triangle  v0.xyz e1.xyz e2.xyz next  triRow 1  rnode  tri  0 0
 // with skip/next/rnode/tri exact f32 integers (< 2^24), decoded exactly.
@@ -35,84 +35,146 @@
 // the ulp level but match its plain version (ops/traverse.py
 // traverse_lanes_plain) to the last bit or two.
 //
-// What bounds it on the card: dependent loads and walk length. Without a
-// stack or near-first order a closest-hit ray visits every box its segment
-// [0, t_best] crosses in tree order, so it takes more, cheaper steps than
-// the stack kernels; each step is one 64-byte row, adjacent to the last
-// on a hit. A link that does not advance (a malformed table) ends the ray
-// and is counted in *bad, which the wrapper exposes and must read 0.
+// What bounds it on the card, and what each design element does about it
+// (bvh4_tuning.py measures each one toggled; PERF.md keeps the numbers):
+//  - Dead lanes and divergence: live-lane compaction and a persistent grid
+//    (live_lanes.cuh). A lane is dead where !(tmax >= 0), whatever the
+//    root: a negative tmax starts at the end, and a NaN tmax can neither
+//    enter a box (the slab test caps tfar at NaN) nor accept a triangle
+//    (t < NaN is false), so both return (tmax, -1, -1, 0, 0), as the plain
+//    version does (tests/test_torch_traverse.py holds it to that).
+//  - Walk length in dependent loads. Without a stack or near-first order a
+//    closest-hit ray visits every box its segment [0, t_best] crosses in
+//    tree order, ~130 entries a terrain ray, each one dependent load of a
+//    64-byte row; the entry table (79 MB on the 1M-triangle terrain) is
+//    past the 50 MB L2. A box hit steps to cur + 1 and a leaf run to
+//    s + 1, so most steps read the entry right after the last. One load
+//    round reads the aligned window of kWindow = 2 entries that holds cur
+//    (one 128-byte line, 8 float4s: cur and, where cur is even, the entry
+//    after it), and the walk steps on from registers while the next entry
+//    is that one; the plain version's stats count the rounds each window
+//    size needs (1, 2, 4 and 8).
+//  - Any-hit is a template parameter, both instances behind the one entry
+//    point.
+// A link that does not advance (a malformed table) ends the ray and is
+// counted in *bad, which the wrapper exposes and must read 0.
 
+#include "live_lanes.cuh"
 #include "traverse_bvh.cuh"
 
-namespace {
+namespace vkgr {
+namespace lanes {
 
 constexpr int kFields = 16;
+constexpr int kWindow = 2;  // entries one load round reads: one 128-byte line (a pair of entries)
+static_assert(kWindow == 2, "a load round reads a pair of entries");
 
-__global__ void __launch_bounds__(vkgr::kBlock)
-traverse_lanes_kernel(const float* __restrict__ entries, int n_entries,
-                      const float* __restrict__ rox, const float* __restrict__ roy,
-                      const float* __restrict__ roz, const float* __restrict__ rdx,
-                      const float* __restrict__ rdy, const float* __restrict__ rdz,
-                      const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
-                      int anyhit, float* __restrict__ out_t, int* __restrict__ out_rnode,
-                      int* __restrict__ out_tri, float* __restrict__ out_u,
-                      float* __restrict__ out_v, unsigned int* __restrict__ bad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-
-  const vkgr::Ray r = vkgr::load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
-  vkgr::Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
+template <bool kAny>
+__global__ void __launch_bounds__(kBlock)
+walk_kernel(const float* __restrict__ entries, int n_entries, const float* __restrict__ rox,
+            const float* __restrict__ roy, const float* __restrict__ roz,
+            const float* __restrict__ rdx, const float* __restrict__ rdy,
+            const float* __restrict__ rdz, const float* __restrict__ tmin,
+            const float* __restrict__ tmax, float* __restrict__ out_t,
+            int* __restrict__ out_rnode, int* __restrict__ out_tri, float* __restrict__ out_u,
+            float* __restrict__ out_v, unsigned int* __restrict__ bad, int* __restrict__ header,
+            const int* __restrict__ list) {
   const int end = n_entries;
-  int cur = h.t < 0.0f ? end : 0;
   unsigned int stuck = 0;
-
-  while (cur < end) {
-    const float4* ep = reinterpret_cast<const float4*>(entries + static_cast<size_t>(cur) * kFields);
-    const float4 a = __ldg(ep), b = __ldg(ep + 1), c = __ldg(ep + 2), d = __ldg(ep + 3);
-    // a = f0..3, b = f4..7, c = f8..11, d = f12..15
-    const int link = static_cast<int>(c.y);  // f9: skip (internal) / next (triangle)
-    int nxt;
-    if (c.w > 0.5f) {  // f11: triangle entry
-      float uu, vv, tt;
-      const bool hit = vkgr::triangle(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r, h.t, uu, vv, tt);
-      if (hit) {
-        h.t = tt;
-        h.rn = d.x;
-        h.tri = d.y;
-        h.u = uu;
-        h.v = vv;
+  walk_list<1>(header, list, [&](int i) {
+    const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+    Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
+    int cur = h.t < 0.0f ? end : 0;
+    while (cur < end) {
+      // one load round: entry cur, and with it the other half of its 128-byte line when that
+      // is the entry after it (cur even), in named registers (an indexed array of entries
+      // would live in local memory)
+      const float4* ep = reinterpret_cast<const float4*>(entries + static_cast<size_t>(cur) * kFields);
+      float4 a = __ldg(ep), b = __ldg(ep + 1), c = __ldg(ep + 2), d = __ldg(ep + 3);
+      bool pair = (cur & 1) == 0 && cur + 1 < end;
+      float4 na = a, nb = b, nc = c, nd = d;
+      if (pair) {
+        na = __ldg(ep + 4);
+        nb = __ldg(ep + 5);
+        nc = __ldg(ep + 6);
+        nd = __ldg(ep + 7);
       }
-      nxt = (anyhit && hit) ? end : link;
-    } else {
-      nxt = vkgr::slab(a.x, a.y, a.z, a.w, b.x, b.y, r, h.t) ? cur + 1 : link;
+      // steps from registers while the next entry is the one loaded beside cur
+      while (true) {
+        // a = f0..3, b = f4..7, c = f8..11, d = f12..15
+        const int link = static_cast<int>(c.y);  // f9: skip (internal) / next (triangle)
+        int nxt;
+        if (c.w > 0.5f) {  // f11: triangle entry
+          float uu, vv, tt;
+          const bool hit = triangle(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r, h.t, uu, vv, tt);
+          if (hit) {
+            h.t = tt;
+            h.rn = d.x;
+            h.tri = d.y;
+            h.u = uu;
+            h.v = vv;
+          }
+          nxt = (kAny && hit) ? end : link;
+        } else {
+          nxt = slab(a.x, a.y, a.z, a.w, b.x, b.y, r, h.t) ? cur + 1 : link;
+        }
+        if (nxt <= cur) {
+          ++stuck;
+          nxt = end;
+        }
+        const bool next_loaded = pair && nxt == cur + 1;
+        cur = nxt;
+        if (!next_loaded) break;
+        a = na;
+        b = nb;
+        c = nc;
+        d = nd;
+        pair = false;
+      }
     }
-    if (nxt <= cur) {
-      ++stuck;
-      break;
-    }
-    cur = nxt;
-  }
-
-  out_t[i] = h.t;
-  out_rnode[i] = static_cast<int>(h.rn);
-  out_tri[i] = static_cast<int>(h.tri);
-  out_u[i] = h.u;
-  out_v[i] = h.v;
+    store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
+  });
   if (stuck) atomicAdd(bad, stuck);
 }
 
-}  // namespace
+template <bool kAny>
+int launch(const float* entries, int n_entries, const float* rox, const float* roy,
+           const float* roz, const float* rdx, const float* rdy, const float* rdz,
+           const float* tmin, const float* tmax, int n, float* out_t, int* out_rnode,
+           int* out_tri, float* out_u, float* out_v, unsigned int* bad, int* scratch,
+           cudaStream_t stream) {
+  // root 0: a lane walk has no leaf-root exception to the dead-lane rule
+  const int rc = begin_list(tmin, tmax, n, 0, out_t, out_rnode, out_tri, out_u, out_v, scratch,
+                            stream);
+  if (rc != 0) return rc;
+  static int per_device[64];
+  int grid = 0;
+  const int rg = persistent_grid(walk_kernel<kAny>, per_device, n, &grid);
+  if (rg != 0) return rg;
+  walk_kernel<kAny><<<grid, kBlock, 0, stream>>>(entries, n_entries, rox, roy, roz, rdx, rdy, rdz,
+                                                 tmin, tmax, out_t, out_rnode, out_tri, out_u,
+                                                 out_v, bad, scratch, scratch + kScratchHeader);
+  return static_cast<int>(cudaGetLastError());
+}
 
+}  // namespace lanes
+}  // namespace vkgr
+
+// scratch: kScratchHeader + n int32 (the wrapper's scratch_words(n)); its
+// live count and work cursor are zeroed here on the stream.
 extern "C" int vkgr_traverse_lanes(const float* entries, int n_entries, const float* rox,
                                    const float* roy, const float* roz, const float* rdx,
                                    const float* rdy, const float* rdz, const float* tmin,
                                    const float* tmax, int n, int anyhit, float* out_t,
                                    int* out_rnode, int* out_tri, float* out_u, float* out_v,
-                                   unsigned int* bad, void* stream) {
+                                   unsigned int* bad, int* scratch, void* stream) {
+  using namespace vkgr::lanes;
   if (n <= 0) return 0;
-  const int grid = (n + vkgr::kBlock - 1) / vkgr::kBlock;
-  traverse_lanes_kernel<<<grid, vkgr::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      entries, n_entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t, out_rnode,
-      out_tri, out_u, out_v, bad);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (anyhit) {
+    return launch<true>(entries, n_entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, out_t,
+                        out_rnode, out_tri, out_u, out_v, bad, scratch, s);
+  }
+  return launch<false>(entries, n_entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, out_t,
+                       out_rnode, out_tri, out_u, out_v, bad, scratch, s);
 }

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "vkgr_traverse_bvh2": _TRAVERSE,
     # (... as _TRAVERSE up to the overflow counter, scratch, stream)
     "vkgr_traverse_bvh4": _TRAVERSE[:-1] + [_P, _P],
-    "vkgr_traverse_bvh4_multipop": _TRAVERSE,
+    "vkgr_traverse_bvh4_multipop": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4_leafqueue": _TRAVERSE,
     # (nodes4_fi, nodes4_sc, tris128, root code, rays, ... as _TRAVERSE)
     "vkgr_traverse_bvh4_sidecar": [_P] + _TRAVERSE,
@@ -57,8 +57,8 @@ _SIGNATURES = {
     "vkgr_traverse_bvh2_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P],
     # (nodes4_fi, tris128, root code, ro, rd, seeds, n, per packet, depth, out, overflow, stream)
     "vkgr_render_mega": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # (entries, n_entries, 8 ray components, n, anyhit, 5 outputs, bad links, stream)
-    "vkgr_traverse_lanes": [_P, _I] + [_P] * 8 + [_I, _I] + [_P] * 5 + [_P, _P],
+    # (entries, n_entries, 8 ray components, n, anyhit, 5 outputs, bad links, scratch, stream)
+    "vkgr_traverse_lanes": [_P, _I] + [_P] * 8 + [_I, _I] + [_P] * 5 + [_P, _P, _P],
     "vkgr_gather_channels": [_P, _P, _P, _I, _I, ctypes.c_int64, _P],
     # probes: (tab, start, rox, n, visits, threads per block, out, stream)
     "vkgr_probe_nodefetch": [_P, _P, _P, _I, _I, _I, _P, _P],

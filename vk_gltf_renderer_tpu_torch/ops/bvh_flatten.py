@@ -653,9 +653,10 @@ def multipop_stack_need(nodes4_fi, root_code: int, multipop: int) -> int:
     """Deepest stack of the v5 walk (ops/traverse.traverse_rows_plain with
     multipop > 1) when every box is entered: each step pops up to
     `multipop` entries and pushes the real children of each internal one,
-    in slot order. A walk that prunes pushes a subset, and in the trees the
-    builder emits stays below this; the kernels still count any push
-    dropped on a full stack."""
+    in slot order, the last popped member's first and the first popped
+    (the top of the stack) member's last, as the walk does. A walk that
+    prunes pushes a subset, and in the trees the builder emits stays below
+    this; the kernels still count any push dropped on a full stack."""
     if root_code < 0:
         return 1
     nodes = np.asarray(nodes4_fi)
@@ -665,7 +666,7 @@ def multipop_stack_need(nodes4_fi, root_code: int, multipop: int) -> int:
     while stack:
         group = stack[-multipop:]
         del stack[-multipop:]
-        for e in reversed(group):  # pop order: top of the stack first
+        for e in group:  # bottom first: the top member's children end on top
             if e >= 0:
                 stack.extend(children[e])
         need = max(need, len(stack))

@@ -20,7 +20,8 @@ row per entry); convert.bvh_to_device makes it.
 
 traverse_lanes takes CPU rays to the plain version
 (ops/traverse.traverse_lanes_plain) and CUDA rays to the kernel; see
-ops/traverse_launch.py.
+ops/traverse_launch.py (the kernel compacts the live lanes into
+list_scratch).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 
 from ..cuda_lib import LaunchCounter, OverflowCounter
 from .traverse import traverse_lanes_plain
-from .traverse_launch import run_traversal
+from .traverse_launch import list_scratch, run_traversal
 
 FIELDS = 16  # 14 used + 2 pad
 PAGE = 128
@@ -145,4 +146,4 @@ def traverse_lanes(entries, *rays, anyhit=False):
         "traverse_lanes", COUNTER, OVERFLOW,
         lambda: traverse_lanes_plain(entries, *rays, anyhit=anyhit),
         (("lane_entries", entries, (None, FIELDS)),),
-        (entries.shape[0],), rays, anyhit)
+        (entries.shape[0],), rays, anyhit, extra=list_scratch)

@@ -37,8 +37,10 @@ INFINITE = 1e32
 STACK_DEPTH = 64  # BVH4 (csrc/traverse_bvh4.cu; also v7, and v8's internal stack)
 STACK_DEPTH2 = 128  # BVH2 (csrc/traverse_bvh2.cu)
 STACK_DEPTH16 = 256  # BVH16 (csrc/traverse_bvh16.cu)
-STACK_DEPTH_MULTIPOP = 256  # v5 (csrc/traverse_bvh4_multipop.cu)
+STACK_DEPTH_MULTIPOP = 128  # v5 (csrc/traverse_bvh4_multipop.cu kStack)
 MULTIPOP = 4  # entries the v5 walk pops per step
+LANE_WINDOW = 2  # lane entries one load round of csrc/traverse_lanes.cu reads (one 128-byte line)
+LANE_WINDOWS = (1, 2, 4, 8)  # windows whose load rounds traverse_lanes_plain counts
 LEAF_QUEUE = 16  # v8's leaf queue (csrc/traverse_bvh4_leafqueue.cu)
 LEAF_SLOTS = 8  # triangles per tris128 row (and per leaf of the split tables)
 STACK_DEPTH_SPLIT4 = 64  # the packet4 walk (csrc/traverse_bvh4_split.cu)
@@ -241,9 +243,20 @@ def _push(stack, sp, rows, codes, enter, depth):
     return dropped
 
 
+def _expand_push(w, levels, nodes, ii, e, t_best, sidecar, split, stack, sp, depth):
+    """Visit internal rows e [K] of rays ii against t_best [N] and push the
+    entered children; returns the pushes dropped."""
+    if not ii.numel():
+        return 0
+    codes, enter = w.expand(levels, nodes, ii, e, t_best[ii], sidecar)
+    if split:
+        enter = enter & (codes != -1)
+    return _push(stack, sp, ii, codes, enter, depth)
+
+
 def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,
                         tmin, tmax, anyhit=False, stack_depth=64, multipop=1, sidecar=None,
-                        stats=None, split=False):
+                        stats=None, split=False, nearest_on_top=True):
     """Plain per-ray traversal of a fused row table of arity 2^levels
     (layout in csrc/traverse_bvh.cuh: child boxes, child codes, split axes).
 
@@ -258,9 +271,18 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
     triangles, whose t must still lie in (tmin, tmax).
 
     multipop > 1 is the v5 schedule (csrc/traverse_bvh4_multipop.cu): each
-    step pops up to `multipop` entries and processes them in pop order,
-    t_best chained through the group, each internal entry pushing its
-    children as it is processed. sidecar is the v7 walk (nodes4_sc).
+    step pops a group of up to `multipop` entries (member 0 the top of the
+    stack). Every internal member is tested against the t_best the group
+    was popped with; the leaf members' triangles are tested in member
+    order with t_best chained (so the first of equal t wins, as in one
+    leaf); then the members' entered children are pushed, member k-1's
+    first and member 0's last, each far first, so that the nearest child
+    of the nearest member is popped next. nearest_on_top=False is the
+    reference's order (traverse_packets5, and this kernel before it was
+    redesigned): the members processed in pop order with t_best chained
+    through the whole group, each internal member pushing its children as
+    it is processed, which leaves the last member's on top. sidecar is the
+    v7 walk (nodes4_sc).
     split is the packet4 walk (traverse_bvh4_split_plain): leaf codes index
     the tris table passed as tris128, and missing children (code -1) are
     not pushed.
@@ -290,16 +312,19 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
             has = k > j
             group.append((act[has], stack[act[has], top[has] - 1 - j]))
         ended = []
+        chain = multipop == 1 or not nearest_on_top
+        t_pop = None if chain else w.t.clone()
         for rays, e in group:
             leaf = e < 0
             if leaf.any():
                 ended.append(w.test_leaves(rays[leaf], e[leaf]))
-            ii = rays[~leaf]
-            if ii.numel():
-                codes, enter = w.expand(levels, nodes, ii, e[~leaf], w.t[ii], sidecar)
-                if split:
-                    enter = enter & (codes != -1)
-                overflow += _push(stack, sp, ii, codes, enter, stack_depth)
+            if chain:
+                overflow += _expand_push(w, levels, nodes, rays[~leaf], e[~leaf], w.t, sidecar,
+                                         split, stack, sp, stack_depth)
+        if not chain:
+            for rays, e in reversed(group):
+                overflow += _expand_push(w, levels, nodes, rays[e >= 0], e[e >= 0], t_pop, sidecar,
+                                         split, stack, sp, stack_depth)
         if anyhit and ended:
             sp[torch.cat(ended)] = 0
     return w.result(overflow)
@@ -323,11 +348,14 @@ def traverse_bvh16_plain(nodes16_fi, tris128, root_code, *rays, anyhit=False, st
                                stack_depth=STACK_DEPTH16, stats=stats)
 
 
-def traverse_bvh4_multipop_plain(nodes4_fi, tris128, root_code, *rays, anyhit=False, stats=None):
+def traverse_bvh4_multipop_plain(nodes4_fi, tris128, root_code, *rays, anyhit=False, stats=None,
+                                 nearest_on_top=True):
     """Plain v5 walk: BVH4 popping MULTIPOP entries per step
-    (csrc/traverse_bvh4_multipop.cu)."""
+    (csrc/traverse_bvh4_multipop.cu); nearest_on_top=False is the
+    reference's order (see traverse_rows_plain)."""
     return traverse_rows_plain(2, nodes4_fi, tris128, root_code, *rays, anyhit=anyhit,
-                               stack_depth=STACK_DEPTH_MULTIPOP, multipop=MULTIPOP, stats=stats)
+                               stack_depth=STACK_DEPTH_MULTIPOP, multipop=MULTIPOP, stats=stats,
+                               nearest_on_top=nearest_on_top)
 
 
 def traverse_bvh4_sidecar_plain(nodes4_fi, nodes4_sc, tris128, root_code, *rays, anyhit=False,
@@ -473,8 +501,20 @@ def traverse_lanes_plain(entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, anyh
     Returns (t, rnode, tri, u, v, bad) like traverse_rows_plain, except that
     an any-hit keeps its t (the reference's lane kernels do not poison it)
     and `bad` counts links that did not advance (0 on a well-formed table).
-    Rays with tmax < 0 start at the end. stats, a dict, receives the entry
-    visits ("entries") and a mask of the entries touched ("entry_rows")."""
+    Rays with tmax < 0 start at the end. A ray with a NaN tmax walks but
+    can neither enter a box (its slab test caps tfar at NaN) nor accept a
+    triangle (t < NaN is false), so it returns (tmax, -1, -1, 0, 0) like a
+    negative one: every lane with !(tmax >= 0) does, which the kernel's
+    compaction relies on to skip them.
+
+    stats, a dict, receives the entry visits ("entries", of which
+    "box_entries" internal and "tri_entries" triangle entries), a mask of
+    the entries touched ("entry_rows"), the steps whose next entry is the
+    one right after ("plus_one") and, for each window of W entries in
+    LANE_WINDOWS, the kernel's dependent load rounds if it loads the
+    aligned window of W entries that holds the current one and walks on
+    from registers while the next entry lies in it ("rounds", W -> count;
+    W = 1 counts every visit)."""
     dev = rox.device
     n = rox.shape[0]
     end = entries.shape[0]
@@ -487,20 +527,28 @@ def traverse_lanes_plain(entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, anyh
     cur = torch.where(tmax < 0, end, 0).to(torch.int64)
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     if stats is not None:
-        stats.setdefault("entries", 0)
+        for key in ("entries", "box_entries", "tri_entries", "plus_one"):
+            stats.setdefault(key, 0)
         stats.setdefault("entry_rows", torch.zeros(end, dtype=torch.bool, device=dev))
+        stats.setdefault("rounds", dict.fromkeys(LANE_WINDOWS, 0))
+        window = {w: torch.full((n,), -1, dtype=torch.int64, device=dev) for w in LANE_WINDOWS}
 
     while True:
         act = torch.nonzero(cur < end).squeeze(1)
         if act.numel() == 0:
             break
         c = cur[act]
-        if stats is not None:
-            stats["entries"] += act.numel()
-            stats["entry_rows"][c] = True
         f = entries[c]  # [K,16]
         tb = t_best[act]
         leaf = f[:, 11] > 0.5
+        if stats is not None:
+            stats["entries"] += act.numel()
+            stats["tri_entries"] += int(leaf.sum())
+            stats["box_entries"] += int((~leaf).sum())
+            stats["entry_rows"][c] = True
+            for w in LANE_WINDOWS:  # a new round where the entry left the last one's window
+                stats["rounds"][w] += int((c // w != window[w][act]).sum())
+                window[w][act] = c // w
         ro = (rox[act], roy[act], roz[act])
         bhit = _slab(f, 0, ro, (ix[act], iy[act], iz[act]), tb)
         ok, uu, vv, tt = _moller_trumbore(f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4], f[:, 5],
@@ -517,6 +565,8 @@ def traverse_lanes_plain(entries, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, anyh
         nxt = torch.where(leaf, link, torch.where(bhit, c + 1, link))
         if anyhit:
             nxt = torch.where(thit, end, nxt)
+        if stats is not None:
+            stats["plus_one"] += int((nxt == c + 1).sum())
         stuck = nxt <= c
         bad += stuck.sum()
         cur[act] = torch.where(stuck, end, nxt)

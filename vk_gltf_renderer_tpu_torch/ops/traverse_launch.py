@@ -7,6 +7,13 @@ one to the other. On the card it checks every table and ray component
 (dtype, shape, device, contiguity, 16-byte alignment), allocates the five
 outputs, launches on the current stream, raises if the launch failed, and
 counts the launch.
+
+The kernels with live-lane compaction (csrc/live_lanes.cuh: traverse_bvh4,
+the lane walk and v5) also take a scratch buffer, list_scratch(n, device)
+through run_traversal's `extra`: the kernel's entry zeroes its live count
+and work cursor on the stream, compact_lanes writes the dead lanes'
+results and lists the live lanes, and a persistent grid walks the list;
+nothing is read back on the host.
 """
 
 from __future__ import annotations
@@ -16,6 +23,18 @@ import torch
 from ..cuda_lib import check_launch, check_tensor, library
 
 RAY_NAMES = ("rox", "roy", "roz", "rdx", "rdy", "rdz", "tmin", "tmax")
+SCRATCH_HEADER = 4  # live count, work cursor, pad: the list starts 16 bytes in
+
+
+def scratch_words(n: int) -> int:
+    """int32 words of a compacting kernel's scratch for n lanes: the
+    header, then the list of live lanes (at most n)."""
+    return SCRATCH_HEADER + n
+
+
+def list_scratch(n, dev):
+    """run_traversal's `extra` for a compacting kernel: its scratch."""
+    return (torch.empty(scratch_words(n), dtype=torch.int32, device=dev),)
 
 
 def run_traversal(name, counter, overflow, plain, tables, scalars, rays, anyhit, extra=None):
