@@ -1,6 +1,7 @@
 """Ablations and tuning runs of the redesigned traversal kernels on one
 NVIDIA GPU: csrc/traverse_bvh4.cu (v3/v9), csrc/traverse_lanes.cu (the
-lane walk) and csrc/traverse_bvh4_multipop.cu (v5).
+lane walk), csrc/traverse_bvh4_multipop.cu (v5), csrc/traverse_bvh2.cu
+(v2) and csrc/traverse_bvh16.cu (v6).
 
     python3 bvh4_tuning.py [KERNEL ...]
 
@@ -22,14 +23,15 @@ whose build fails is reported and left out) and launches each through the
 kernel's wrapper with cuda_lib's loaded library swapped for the variant's.
 It renders one 1080p frame of the helmet stand-in (HDR) and of the
 1,059,968-triangle terrain under the kernel's selection ((v3, v9),
-(lane, lane_stream) or (v5, v5)), as chip_smoke.py phase 7b does,
-recording the 8 ray components of each of the wrapper's launches; then
-times every variant on those launches and on the probe rays of
-chip_smoke.py phases 3 and 6 (closest hit), in a forward and a backward
-round. Every variant is held equal bit for bit to the unchanged source on
-every launch, except the ones that change the visit order (ORDER), whose
-t must still equal the source's on every lane and whose ids may differ
-only there (equal-t ties, counted). Last, torch.profiler splits a sparse,
+(lane, lane_stream), (v5, v5), (v2, v2) or (v6, v6)), as chip_smoke.py
+phase 7b does, recording the 8 ray components of each of the wrapper's
+launches; then times every variant on those launches and on the probe
+rays of chip_smoke.py phases 3 and 6 (closest hit), in a forward and a
+backward round. Every variant is held equal bit for bit to the unchanged
+source on every launch and on the probe rays, closest hit and any hit
+(phase 6's shadow tmax), except the ones that change the visit order
+(ORDER), whose t must still equal the source's on every lane and whose
+ids may differ only there (equal-t ties, counted). Last, torch.profiler splits a sparse,
 a medium and an all-live launch of the unchanged source into its device
 kernels (memset, compact_lanes, walk_kernel). Prints the registers and
 spills of each variant's walk, one line per variant and scene, the
@@ -56,8 +58,10 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from vk_gltf_renderer_tpu_torch import cuda_lib  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16  # noqa: E402
 from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
 
@@ -270,51 +274,73 @@ V5_OLD_WALK = """  walk_list<1>(header, list, [&](int i) {
 V5_WALK = ("  walk_list<kRayLanes>(header, list, [&](int i) {\n", "  });\n")
 
 LANE_ANY = runtime_anyhit("  unsigned int stuck = 0;\n")
-LANE_PAIR = "      bool pair = (cur & 1) == 0 && cur + 1 < end;\n"
-LANE_WINDOW_1 = [(LANE_PAIR, "      bool pair = false;\n")]
-# a window of 4 entries (two lines): the entries after cur in its aligned 4, walked on while
-# the walk steps to the next entry
-LANE_WINDOW_4 = [
-    (LANE_PAIR + """      float4 na = a, nb = b, nc = c, nd = d;
-      if (pair) {
-        na = __ldg(ep + 4);
-        nb = __ldg(ep + 5);
-        nc = __ldg(ep + 6);
-        nd = __ldg(ep + 7);
-      }
-""", """      int left = min(3 - (cur & 3), end - 1 - cur);  // entries loaded after cur
-      float4 na = a, nb = b, nc = c, nd = d, ma = a, mb = b, mc = c, md = d, la = a, lb = b, lc = c, ld = d;
-      if (left > 0) {
-        na = __ldg(ep + 4);
-        nb = __ldg(ep + 5);
-        nc = __ldg(ep + 6);
-        nd = __ldg(ep + 7);
-      }
-      if (left > 1) {
-        ma = __ldg(ep + 8);
-        mb = __ldg(ep + 9);
-        mc = __ldg(ep + 10);
-        md = __ldg(ep + 11);
-      }
-      if (left > 2) {
-        la = __ldg(ep + 12);
-        lb = __ldg(ep + 13);
-        lc = __ldg(ep + 14);
-        ld = __ldg(ep + 15);
-      }
-"""),
-    ("        const bool next_loaded = pair && nxt == cur + 1;",
-     "        const bool next_loaded = left > 0 && nxt == cur + 1;"),
-    ("        pair = false;\n", """        na = ma;
-        nb = mb;
-        nc = mc;
-        nd = md;
-        ma = la;
-        mb = lb;
-        mc = lc;
-        md = ld;
-        --left;
+
+# traverse_bvh2.cu (v2)
+V2_VISIT = """    const Visit2 v = visit2(nodes, e, r, h.t);
+    if (v.enter) {  // descend into the nearer entered child; push the far one if it is entered too
+      if (v.enter == 3u) push(v.c1);
+      e = (v.enter & 1u) ? v.c0 : v.c1;
+      return false;
+    }
+"""
+# push both entered children, far first, and pop the nearer next (walk<1, ...>'s stack traffic)
+V2_PUSH_BOTH = """    const Visit2 v = visit2(nodes, e, r, h.t);
+    if (v.enter & 2u) push(v.c1);
+    if (v.enter & 1u) push(v.c0);
+"""
+# visit2 with expand_node's loads: six float2 box loads, then the axis and the entered codes
+V2_FLOAT2_VISIT = """  const float* row = nodes + static_cast<size_t>(e) * 16;
+  const float2* bp = reinterpret_cast<const float2*>(row);
+  const float2 a0 = __ldg(bp), a1 = __ldg(bp + 1), a2 = __ldg(bp + 2);
+  const float2 a3 = __ldg(bp + 3), a4 = __ldg(bp + 4), a5 = __ldg(bp + 5);
+  const bool h0 = slab(a0.x, a0.y, a1.x, a1.y, a2.x, a2.y, r, t_best);
+  const bool h1 = slab(a3.x, a3.y, a4.x, a4.y, a5.x, a5.y, r, t_best);
+  if (!h0 && !h1) return Visit2{0, 0, 0u};
+  const bool flip = !axis_sign(__ldg(row + 14), r.sx, r.sy, r.sz);  // the right child is nearer
+  const int s0 = h0 ? static_cast<int>(__ldg(row + 12)) : 0;
+  const int s1 = h1 ? static_cast<int>(__ldg(row + 13)) : 0;
+"""
+V2_ROW_LOADS_OFF = [
+    (("  const float4* row = reinterpret_cast<const float4*>(nodes + static_cast<size_t>(e) * 16);",
+      "  const bool flip = !axis_sign(q3.z, r.sx, r.sy, r.sz);  // the right child is nearer\n"), V2_FLOAT2_VISIT, ROWS),
+    ("    if (leaf(tris128, e, r, anyhit, h)) return true;",
+     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;")]
+V2_PUSH = "    if (sp < kStack) {\n      stack[sp++] = code;"
+V2_ANY = runtime_anyhit("  int stack[kStack];\n  unsigned dropped = 0;\n")
+# the walk before the redesign: traverse_bvh.cuh's generic walk, one thread per lane
+ENTRY_END = "scratch, s);\n}\n"
+V2_OLD = [(("  using namespace vkgr::bvh2;\n", ENTRY_END),
+           """  return vkgr::launch_traverse_bvh<1, 128>(nodes_fi, nullptr, tris128, root_code, rox, roy, roz, rdx,
+                                           rdy, rdz, tmin, tmax, n, anyhit, out_t, out_rnode,
+                                           out_tri, out_u, out_v, overflow, stream);
+}
 """)]
+
+# traverse_bvh16.cu (v6)
+V6_GROUP_SPAN = ("  __shared__ int stacks[kRays * kStackStride];\n", "  if (dropped) atomicAdd(overflow, dropped);\n")
+# one thread per listed lane walking traverse_bvh.cuh's walk<4, ...> (stack in local memory)
+V6_THREAD = [(V6_GROUP_SPAN, """  unsigned dropped = 0;
+  walk_list<1>(header, list, [&](int i) {
+    const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+    const Hit h = walk<4, kStack, false>(nodes, nullptr, tris128, root, r, tmax[i], kAny, dropped);
+    store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
+  });
+  if (dropped) atomicAdd(overflow, dropped);
+"""), ("static_cast<long long>(n) * kRayLanes", "n")]
+V6_ANY = runtime_anyhit("  unsigned dropped = 0;\n")
+V6_OLD = [(("  using namespace vkgr::bvh16;\n", ENTRY_END),
+           """  return vkgr::launch_traverse_bvh<4, 256>(nodes16_fi, nullptr, tris128, root_code, rox, roy, roz,
+                                           rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t, out_rnode,
+                                           out_tri, out_u, out_v, overflow, stream);
+}
+""")]
+# the group's stacks in device memory (cached in L1, where local memory lives), a slice per
+# ray of each block the persistent grid can hold (at most 16 blocks an SM)
+V6_DEVICE_STACK = [
+    (WALK_TEMPLATE, "__device__ int device_stacks[4096 * kRays * kStackStride];\n\n" + WALK_TEMPLATE),
+    ("  __shared__ int stacks[kRays * kStackStride];\n", ""),
+    ("  int* stack = stacks + (threadIdx.x / kRayLanes) * kStackStride;\n",
+     "  int* stack = device_stacks + (blockIdx.x * kRays + threadIdx.x / kRayLanes) * kStackStride;\n")]
 
 # kernel source -> variant -> [(old text, new text[, header]) or ((first, last), new text of the
 # span first..last[, header])]
@@ -349,11 +375,8 @@ VARIANTS = {
     "traverse_lanes.cu": {
         "source": [],
         "compaction off (every lane listed and walked)": COMPACTION_OFF,
-        "window loads off (one entry a round)": LANE_WINDOW_1,
-        "window 4 (two lines a round)": LANE_WINDOW_4,
         "any-hit as a template off (a runtime flag)": LANE_ANY,
-        "every element off (compaction, window loads, any-hit template)":
-            COMPACTION_OFF + LANE_WINDOW_1 + LANE_ANY,
+        "every element off (compaction, any-hit template)": COMPACTION_OFF + LANE_ANY,
     },
     "traverse_bvh4_multipop.cu": {
         "source": [],
@@ -366,9 +389,32 @@ VARIANTS = {
             V5_THREAD + [(V5_WALK, V5_OLD_WALK)] + COMPACTION_OFF
             + runtime_anyhit("  unsigned dropped = 0;\n"),
     },
+    "traverse_bvh16.cu": {
+        "source": [],
+        "four threads a ray": [("constexpr int kRayLanes = 8;", "constexpr int kRayLanes = 4;")],
+        "one thread a ray, compaction only (the generic walk, its stack in local memory)": V6_THREAD,
+        "one thread a ray, compaction only, 64 registers":
+            V6_THREAD + [(WALK_TEMPLATE, WALK_TEMPLATE.replace("(kBlock)", "(kBlock, 8)"))],
+        "stack in device memory (L1-cached, as local memory is)": V6_DEVICE_STACK,
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "any-hit as a template off (a runtime flag)": V6_ANY,
+        "every element off (the walk before the redesign)": V6_OLD,
+    },
+    "traverse_bvh2.cu": {
+        "source": [],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "whole-row loads off": V2_ROW_LOADS_OFF,
+        "any-hit as a template off (a runtime flag)": V2_ANY,
+        "next node in a register off (push both, pop the nearer)": [(V2_VISIT, V2_PUSH_BOTH)],
+        "prefetch pushed rows": [
+            (V2_PUSH, "    if (code >= 0) prefetch_l1(nodes + static_cast<size_t>(code) * 16);\n" + V2_PUSH)],
+        "every element off (the walk before the redesign)": V2_OLD,
+    },
 }
-# variants whose visit order differs from the source's: t equal on every lane, ids except ties
-ORDER = {"order off (the reference's order)", "every element off (the walk before the redesign)"}
+# kernel -> its variants whose visit order differs from the source's: t equal on every lane, ids
+# except ties
+ORDER = {"traverse_bvh4_multipop.cu": {"order off (the reference's order)",
+                                       "every element off (the walk before the redesign)"}}
 
 
 def _files(kernel):
@@ -477,6 +523,11 @@ KERNELS = {
     "traverse_bvh4_multipop.cu": (("v5", "v5"), "traverse_bvh4_multipop",
                                   lambda bvh, rays, a: tbmp.traverse_bvh4_multipop(
                                       bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=a)),
+    "traverse_bvh16.cu": (("v6", "v6"), "traverse_bvh16",
+                          lambda bvh, rays, a: tb16.traverse_bvh16(bvh.nodes16_fi, bvh.tris128, *rays, anyhit=a)),
+    "traverse_bvh2.cu": (("v2", "v2"), "traverse_bvh2",
+                         lambda bvh, rays, a: tb2.traverse_bvh2(bvh.nodes_fi, bvh.tris128, bvh.root_code, *rays,
+                                                                anyhit=a)),
 }
 
 
@@ -493,11 +544,11 @@ def profile(call, bvh, rays, anyhit):
             for e in prof.key_averages() if e.device_time_total > 0}
 
 
-def _check(label, name, out, want):
+def _check(label, kernel, name, out, want):
     """Variant outputs against the source's on one launch: bit for bit, or
     for an ORDER variant t bit for bit and the lanes whose ids differ
     (equal-t ties) counted; returns that count."""
-    if name not in ORDER:
+    if name not in ORDER.get(kernel, ()):
         cs.require(all(cs.same_bits(g, w) for g, w in zip(out, want)), f"{label} {name}: outputs differ from the source's")
         return 0
     cs.require(cs.same_bits(out[0], want[0]), f"{label} {name}: t differs from the source's")
@@ -511,7 +562,8 @@ def tune(kernel, device, smi, scenes):
     registers = {}
     for name, lib in libs.items():
         res = cs.kernel_resources(lib.compiler_log, kernel)
-        registers[name] = {hit: {k: res.get(f"walk {hit}", {}).get(k) for k in ("registers", "spill_stores", "smem")}
+        registers[name] = {hit: {k: (res.get(f"walk {hit}") or res.get("walk (generic)", {})).get(k)
+                                 for k in ("registers", "spill_stores", "smem")}
                            for hit in ("closest", "any")}
         cs.log(f"[tuning] {kernel} {name}: walk {registers[name]}")
     results = {"registers": registers, "scenes": {}}
@@ -521,17 +573,21 @@ def tune(kernel, device, smi, scenes):
         n = ro.shape[0]
         probe = ([ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
                  + [torch.zeros(n, device=device), torch.full((n,), 1e32, device=device)])
+        g = torch.Generator(device="cpu").manual_seed(99)
+        diag = float((r.dev_bvh.scene_hi - r.dev_bvh.scene_lo).norm())
+        shadow = probe[:7] + [(torch.rand(n, generator=g) * diag).to(device)]  # phase 6's any-hit rays
         launches, _ = cs.record_launches(r, wrapper)
         bvh = r.dev_bvh
+        checked = launches + [(probe, False), (shadow, True)]  # every variant is held to the source on these
         with loaded(libs["source"]):
-            ref = [call(bvh, rays, a) for rays, a in launches]
+            ref = [call(bvh, rays, a) for rays, a in checked]
         times = {name: [] for name in libs}
         ties = {name: 0 for name in libs}
         for order in (list(libs), list(libs)[::-1]):
             for name in order:
                 with loaded(libs[name]):
-                    for (rays, a), want in zip(launches, ref):
-                        ties[name] = max(ties[name], _check(label, name, call(bvh, rays, a), want))
+                    for (rays, a), want in zip(checked, ref):
+                        ties[name] = max(ties[name], _check(label, kernel, name, call(bvh, rays, a), want))
                     probe_ms = device_ms(lambda: call(bvh, probe, False), 10)
                     frame = [device_ms(lambda rays=rays, a=a: call(bvh, rays, a), 10) for rays, a in launches]
                 times[name].append((probe_ms, frame))
@@ -547,7 +603,7 @@ def tune(kernel, device, smi, scenes):
                    f"({100 * (probe_ms / base['probe_ms'] - 1):+.1f}%), replayed frame {sum(frame):.4f} ms "
                    f"({100 * (sum(frame) / base['frame_ms'] - 1):+.1f}%; launches "
                    f"{', '.join(f'{x:.4f}' for x in frame)}); "
-                   + ("equal to the source bit for bit" if name not in ORDER else
+                   + ("equal to the source bit for bit" if name not in ORDER.get(kernel, ()) else
                       f"t equal to the source's on every lane, ids differ on {ties[name]} (ties)")
                    + f" on {smi}")
         live = [int((rays[7] >= 0).sum()) for rays, _ in launches]

@@ -19,8 +19,9 @@ Phases (each raises on failure; nothing is caught):
      for bit on every ray (ids, u and v may differ only there: equal-t
      ties, counted), any-hit occlusion equal, both timed in interleaved
      rounds; the build's registers and spills of the instances of the
-     three compacting kernels (traverse_bvh4.cu, traverse_lanes.cu,
-     traverse_bvh4_multipop.cu) are printed and kept in the JSON line;
+     five compacting kernels (traverse_bvh4.cu, traverse_lanes.cu,
+     traverse_bvh4_multipop.cu, traverse_bvh2.cu, traverse_bvh16.cu) are
+     printed and kept in the JSON line;
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
      user entry points (create_scene, create_hdr, on_render, image_linear,
@@ -56,11 +57,12 @@ Phases (each raises on failure; nothing is caught):
      lane, timed in interleaved rounds, and held
      against the plain version on a fixed subset of 65,536 lanes (dead
      lanes included); lanes, live lanes, ms of each, the bound and the
-     frame sums are printed. Then the same frame under (lane, lane_stream)
-     and under (v5, v5), recording traverse_lanes' and
-     traverse_bvh4_multipop's launches: each timed, against its plain
-     version on a fixed subset, with its bound, and v5's beside
-     traverse_bvh4 on the same lanes (closest-hit t bit for bit);
+     frame sums are printed. Then the same frame under (lane, lane_stream),
+     (v5, v5), (v2, v2) and (v6, v6), recording traverse_lanes',
+     traverse_bvh4_multipop's, traverse_bvh2's and traverse_bvh16's
+     launches: each timed, against its plain version on a fixed subset,
+     with its bound, and v5's, v2's and v6's beside traverse_bvh4 on the
+     same lanes (v5's closest-hit t bit for bit);
   8. the megakernel A/B (ops/megakernel.py, the reference's
      tools/exp_mega.py): the 2,073,600 camera rays of the 1080p frame 0 on
      the helmet and on the terrain, numpy seeds, depths 1, 2 and 5;
@@ -113,7 +115,7 @@ scaled to the full ray count, 24 per box test and 55 per triangle test
 test or a triangle test, as its kind says. A replayed launch's
 dead lanes (!(tmax >= 0)) move only their tmax and five outputs (24
 bytes): their result does not depend on the rest (the same rule holds for
-the lane walk and v5). The split kernels'
+the lane walk, v5, v2 and v6). The split kernels'
 leaf rows are the 64-byte rows of tris; a v1 leaf node reads only its
 32-byte nodes_i row. The probes: the distinct rows
 their chains read plus their inputs and outputs, and 8 FLOPs per lane and
@@ -166,11 +168,16 @@ KERNEL_OF = {"v3": "traverse_bvh4", "v9": "traverse_bvh4", "v2": "traverse_bvh2"
              "v8": "traverse_bvh4_leafqueue"}
 BVH4_VARIANTS = ("traverse_bvh4_multipop", "traverse_bvh4_sidecar", "traverse_bvh4_leafqueue")
 # the kernels with live-lane compaction and a persistent grid (csrc/live_lanes.cuh)
-COMPACTING = ("traverse_bvh4.cu", "traverse_lanes.cu", "traverse_bvh4_multipop.cu")
+COMPACTING = ("traverse_bvh4.cu", "traverse_lanes.cu", "traverse_bvh4_multipop.cu", "traverse_bvh2.cu",
+              "traverse_bvh16.cu")
 # phase 7b's other replays: wrapper -> its kernel selection
-REPLAYS = {"traverse_lanes": ("lane", "lane_stream"), "traverse_bvh4_multipop": ("v5", "v5")}
+REPLAYS = {"traverse_lanes": ("lane", "lane_stream"), "traverse_bvh4_multipop": ("v5", "v5"),
+           "traverse_bvh2": ("v2", "v2"), "traverse_bvh16": ("v6", "v6")}
 # table arguments before the 8 ray components of each replayed wrapper
-TABLE_ARGS = {"traverse_bvh4": 3, "traverse_lanes": 1, "traverse_bvh4_multipop": 3}
+TABLE_ARGS = {"traverse_bvh4": 3, "traverse_lanes": 1, "traverse_bvh4_multipop": 3, "traverse_bvh2": 3,
+              "traverse_bvh16": 2}
+# replayed wrappers timed beside traverse_bvh4 on the same lanes
+BESIDE_BVH4 = ("traverse_bvh4_multipop", "traverse_bvh2", "traverse_bvh16")
 MEGA_DEPTHS = (1, 2, 5)
 # the bound: H100 SXM peak HBM rate and dense FP32 rate, FLOPs per test
 HBM_BYTES_PER_S = 3.35e12
@@ -248,7 +255,8 @@ def kernel_resources(compiler_log, source):
     """Registers, spills and shared memory of every kernel instance of
     csrc/<source> (one of COMPACTING), from ptxas -v in the build log:
     instance -> dict. The walk's two instances are "walk closest" and
-    "walk any"."""
+    "walk any"; traverse_bvh.cuh's one-thread-per-lane kernel (a tuning
+    variant's walk before the redesign) is "walk (generic)"."""
     out, name, section = {}, None, None
     for line in compiler_log.splitlines():
         if line.startswith("== "):
@@ -260,7 +268,8 @@ def kernel_resources(compiler_log, source):
         if m:
             w = re.search(r"walk_kernelILb([01])E", m.group(1))
             name = f"walk {('closest', 'any')[int(w.group(1))]}" if w else (
-                "compact_lanes" if "compact_lanes" in m.group(1) else m.group(1))
+                "compact_lanes" if "compact_lanes" in m.group(1) else
+                "walk (generic)" if "traverse_bvh_kernel" in m.group(1) else m.group(1))
             out[name] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -508,6 +517,26 @@ def _v5_probe_vs_bvh4(tag, bvh, comps, tmin, far, shadow_tmax):
     return res
 
 
+def _beside_bvh4(bvh, name, kern, rays, anyhit):
+    """Kernel `name` (BVH2 or BVH16, another tree than traverse_bvh4's)
+    beside traverse_bvh4 on the same 8 ray components, timed in
+    interleaved rounds. Returns {name: ms, "traverse_bvh4": ms,
+    "t_differs": lanes}: the lanes whose t bits differ, which only an
+    equal-t tie or a leaf box that one tree's t_best culls at its face can
+    make."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+
+    def bvh4():
+        return tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=anyhit)
+
+    def own():
+        return kern(*rays, anyhit=anyhit)
+
+    out, ref = own(), bvh4()
+    differs = int((out[0].view(torch.int32) != ref[0].view(torch.int32)).sum())
+    return dict(_time_interleaved({name: own, "traverse_bvh4": bvh4}, 10), t_differs=differs)
+
+
 def record_launches(r, wrapper):
     """One frame of renderer r through on_render, with
     ops.intersect.<wrapper> (a key of TABLE_ARGS) wrapped to record clones
@@ -592,13 +621,14 @@ def phase_replay(device, scenes, smi):
 
 def phase_replay_selections(device, scenes, smi):
     """Phase 7b for the other redesigned kernels: per REPLAYS selection
-    ((lane, lane_stream), (v5, v5)) one 1080p frame per scene through
-    on_render with the selection's wrapper recorded (10 launches: closest
-    and shadow per bounce), then every launch timed, held against the plain
-    version on a fixed subset of SUBSET lanes (dead lanes included), with
-    its bound; v5's launches also beside traverse_bvh4 on the same lanes
-    (_v5_vs_bvh4: closest-hit t bit for bit on every lane). Nothing may be
-    dropped. Returns wrapper -> scene -> dict(frame, launches)."""
+    ((lane, lane_stream), (v5, v5), (v2, v2), (v6, v6)) one 1080p frame per
+    scene through on_render with the selection's wrapper recorded (10
+    launches: closest and shadow per bounce), then every launch timed, held
+    against the plain version on a fixed subset of SUBSET lanes (dead lanes
+    included), with its bound; the launches of BESIDE_BVH4 also beside
+    traverse_bvh4 on the same lanes (v5: _v5_vs_bvh4, closest-hit t bit for
+    bit on every lane; v2, v6: _beside_bvh4). Nothing may be dropped.
+    Returns wrapper -> scene -> dict(frame, launches)."""
     mods = _traversal_modules()
     results = {}
     for name, selection in REPLAYS.items():
@@ -617,6 +647,9 @@ def phase_replay_selections(device, scenes, smi):
                 if name == "traverse_bvh4_multipop":
                     times = _v5_vs_bvh4(r.dev_bvh, rays, anyhit)
                     ms = times[name]
+                elif name in BESIDE_BVH4:
+                    times = _beside_bvh4(r.dev_bvh, name, kern, rays, anyhit)
+                    ms = times[name]
                 else:
                     ms = device_ms(lambda rays=rays, anyhit=anyhit: kern(*rays, anyhit=anyhit), 10)
                     times = {}
@@ -627,8 +660,9 @@ def phase_replay_selections(device, scenes, smi):
                                            plain(*sargs, anyhit=anyhit, stats=stats), SUBSET, anyhit)
                 b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, SUBSET, n_dead=n - live)
                 hit = "any" if anyhit else "closest"
-                beside = (f", traverse_bvh4 {times['traverse_bvh4']:.4f} ms on the same lanes (t equal bit for "
-                          f"bit, {times['ties']} equal-t ties)" if times else "")
+                beside = (f", traverse_bvh4 {times['traverse_bvh4']:.4f} ms on the same lanes "
+                          + (f"(t equal bit for bit, {times['ties']} equal-t ties)" if "ties" in times else
+                             f"(t differs on {times['t_differs']} lanes)") if times else "")
                 log(f"[replay] {selection} {label} launch {k} ({hit} hit): {n} lanes, {live} live "
                     f"({100 * live / n:.2f}%): {name} {ms:.4f} ms{beside}; bound {b_ms:.4f} ms ({b_by}); plain on "
                     f"{SUBSET} lanes ({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
@@ -636,7 +670,7 @@ def phase_replay_selections(device, scenes, smi):
                                      **{k2: v for k2, v in times.items() if k2 != name}))
             frame = dict(ms=sum(x["ms"] for x in launches), bound_ms=sum(x["bound_ms"] for x in launches),
                          live=sum(x["live"] for x in launches), rays=float(aux["rays"]))
-            if name == "traverse_bvh4_multipop":
+            if name in BESIDE_BVH4:
                 frame["traverse_bvh4_ms"] = sum(x["traverse_bvh4"] for x in launches)
             log(f"[replay] {selection} {label} frame ({len(launches)} launches, {frame['live']} live lanes; "
                 f"the frame counted {frame['rays']:.0f} rays): {name} {frame['ms']:.4f} ms, bound "
@@ -1372,7 +1406,8 @@ def main():
         replay = phase_replay(device, (("helmet", helmet), ("terrain", terrain)), smi)
         log(f"[time] main-path launch replay done at {time.perf_counter() - t_start:.1f} s")
         replays = phase_replay_selections(device, (("helmet", helmet), ("terrain", terrain)), smi)
-        log(f"[time] (lane, lane_stream) and (v5, v5) launch replays done at {time.perf_counter() - t_start:.1f} s")
+        log(f"[time] {', '.join(map(str, REPLAYS.values()))} launch replays done at "
+            f"{time.perf_counter() - t_start:.1f} s")
         mega = phase_megakernel(device, (("helmet", helmet), ("terrain", terrain)), smi)
         log(f"[time] megakernel A/B done at {time.perf_counter() - t_start:.1f} s")
         split = {"helmet": phase_split_kernels(device, "helmet", helmet_r, *helmet_rays),

@@ -34,7 +34,7 @@ from vk_gltf_renderer_tpu_torch.probes import stream_dma as tsd
 from vk_gltf_renderer_tpu_torch.probes import uarch as tua
 from vk_gltf_renderer_tpu_torch.probes import visit as tvis
 from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb
-from torch_test_helpers import deep_chain_bvh4, deep_chain_rays
+from torch_test_helpers import deep_chain, deep_chain_bvh4, deep_chain_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -341,31 +341,46 @@ def test_bvh4_kernel_counts_overflow(cuda, anyhit):
 
 
 # the other kernels with live-lane compaction (csrc/live_lanes.cuh): kernel value -> (wrapper
-# module, call(bvh, args, anyhit, root), plain call(...) on the same arguments)
+# module, call(bvh, args, anyhit, root), plain call(...) on the same arguments, the root a call
+# gets by default)
 COMPACTING = {
     "lane": (tlane, lambda bvh, args, anyhit, root: tlane.traverse_lanes(bvh.lane_entries, *args, anyhit=anyhit),
-             lambda bvh, args, anyhit, root: ttrav.traverse_lanes_plain(bvh.lane_entries, *args, anyhit=anyhit)),
+             lambda bvh, args, anyhit, root: ttrav.traverse_lanes_plain(bvh.lane_entries, *args, anyhit=anyhit),
+             lambda bvh: None),
     "v5": (tbmp, lambda bvh, args, anyhit, root: tbmp.traverse_bvh4_multipop(bvh.nodes4_fi, bvh.tris128, root,
                                                                              *args, anyhit=anyhit),
            lambda bvh, args, anyhit, root: ttrav.traverse_bvh4_multipop_plain(bvh.nodes4_fi, bvh.tris128, root,
-                                                                              *args, anyhit=anyhit)),
+                                                                              *args, anyhit=anyhit),
+           lambda bvh: bvh.root4_code),
+    "v2": (tb2, lambda bvh, args, anyhit, root: tb2.traverse_bvh2(bvh.nodes_fi, bvh.tris128, root, *args,
+                                                                  anyhit=anyhit),
+           lambda bvh, args, anyhit, root: ttrav.traverse_bvh2_plain(bvh.nodes_fi, bvh.tris128, root, *args,
+                                                                     anyhit=anyhit),
+           lambda bvh: bvh.root_code),
+    # v6 walks from row 0
+    "v6": (tb16, lambda bvh, args, anyhit, root: tb16.traverse_bvh16(bvh.nodes16_fi, bvh.tris128, *args,
+                                                                     anyhit=anyhit),
+           lambda bvh, args, anyhit, root: ttrav.traverse_bvh16_plain(bvh.nodes16_fi, bvh.tris128, 0, *args,
+                                                                      anyhit=anyhit),
+           lambda bvh: 0),
 }
 
 
 def _compacting_tables(wb, cuda):
-    """DeviceBvh of wb with the lane entries and v5's stack need."""
-    fam = {"lane", "bvh4_multipop"}
+    """DeviceBvh of wb with the lane entries, v5's stack need and the BVH2
+    and BVH16 rows."""
+    fam = {"lane", "bvh4_multipop", "bvh2", "bvh16"}
     wb = add_kernel_tables(wb, fam)
     return add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, fam)
 
 
 def _compacting_against_plain(kernel, bvh, args, anyhit, root=None):
-    """The lane walk or v5 against its plain version on the same lanes (ids
-    equal except on equal-t ties, t/u/v within 1e-5, occlusion equal), one
-    launch counted, nothing dropped; v5's closest-hit t also equals
+    """A kernel of COMPACTING against its plain version on the same lanes
+    (ids equal except on equal-t ties, t/u/v within 1e-5, occlusion equal),
+    one launch counted, nothing dropped; v5's closest-hit t also equals
     traverse_bvh4's bit for bit on every lane. Returns (outputs, hit)."""
-    mod, call, plain = COMPACTING[kernel]
-    root = bvh.root4_code if root is None else root
+    mod, call, plain, default_root = COMPACTING[kernel]
+    root = default_root(bvh) if root is None else root
     mod.OVERFLOW.reset()
     launches = mod.COUNTER.launches
     out = call(bvh, args, anyhit, root)
@@ -392,7 +407,7 @@ def _compacting_against_plain(kernel, bvh, args, anyhit, root=None):
 @pytest.mark.parametrize("kernel", sorted(COMPACTING))
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_compacting_kernel_on_a_dead_lane_mix(cuda, kernel, anyhit):
-    """The lane walk and v5 on a helmet lane set in which 98% of the lanes
+    """The kernels of COMPACTING on a helmet lane set in which 98% of the lanes
     are dead and scattered (tmax -1, a tenth of them NaN): against the
     plain version, and (tmax, -1, -1, 0, 0) bit for bit on the dead lanes."""
     wb = _helmet_bvh()
@@ -447,8 +462,10 @@ def test_compacting_kernel_on_the_leaf_root_scene(cuda, kernel, anyhit):
     """The 2-triangle plane whose binary root is a leaf, rays from above
     and below with tmin -3 below: v5 from the BVH4 root row and from the
     leaf passed as a negative root code (there a lane with tmin < t < tmax
-    < 0 hits, as in BVH4), and the lane walk, whose tree starts with the
-    triangle entries and which skips every lane with tmax < 0."""
+    < 0 hits, as in BVH4), v2 from its leaf root code (the same), v6 from
+    its row 0 (internal: one leaf child), and the lane walk, whose tree
+    starts with the triangle entries and which skips every lane with
+    tmax < 0."""
     from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
     from vk_gltf_renderer_tpu_torch.scenes import _empty_scene
 
@@ -471,7 +488,8 @@ def test_compacting_kernel_on_the_leaf_root_scene(cuda, kernel, anyhit):
     args = [*comps, torch.tensor(tmin, device=cuda), torch.tensor(tmax, device=cuda)]
     below = torch.tensor(~up, device=cuda)
     leaf = int(bvh.nodes4_fi[0, 24:28].min())
-    for root in ((bvh.root4_code, leaf) if kernel == "v5" else (None,)):
+    assert bvh.root_code < 0
+    for root in {"v5": (bvh.root4_code, leaf), "v2": (bvh.root_code,)}.get(kernel, (None,)):
         _, hit = _compacting_against_plain(kernel, bvh, args, anyhit, root)
         assert int(hit.sum()) > 100
         assert bool(hit[below].any()) == (root is not None and root < 0)
@@ -496,6 +514,33 @@ def test_v5_kernel_counts_overflow(cuda, anyhit):
                                                          anyhit=anyhit)
     assert dropped == 8 * live
     assert all(_same_bits(o.cpu(), p) for o, p in zip(out, plain))
+
+
+@pytest.mark.parametrize("kernel,levels,per_ray", [("v2", 140, 12), ("v6", 24, 15)])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_bvh2_and_bvh16_kernels_count_overflow(cuda, kernel, levels, per_ray, anyhit):
+    """torch_test_helpers.deep_chain, whose walk outgrows the BVH2 kernel's
+    128-entry and the BVH16 kernel's 256-entry stack: the kernel drops and
+    counts the plain version's pushes (12 and 15 a live ray), with outputs
+    equal bit for bit."""
+    arity, mod = {"v2": (2, tb2), "v6": (16, tb16)}[kernel]
+    nodes, tr = (torch.tensor(a, device=cuda) for a in deep_chain(levels, arity))
+    rays = [torch.tensor(a, device=cuda) for a in deep_chain_rays(4096, seed=51)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    mod.OVERFLOW.reset()
+    try:
+        if kernel == "v2":
+            out = tb2.traverse_bvh2(nodes, tr, 0, *rays, anyhit=anyhit)
+        else:
+            out = tb16.traverse_bvh16(nodes, tr, *rays, anyhit=anyhit)
+        assert mod.OVERFLOW.total() == per_ray * live
+    finally:
+        mod.OVERFLOW.reset()
+    plain = {"v2": ttrav.traverse_bvh2_plain, "v6": ttrav.traverse_bvh16_plain}[kernel]
+    *ref, dropped = plain(nodes.cpu(), tr.cpu(), 0, *(r.cpu() for r in rays), anyhit=anyhit)
+    assert dropped == per_ray * live
+    assert all(_same_bits(o.cpu(), p) for o, p in zip(out, ref))
 
 
 def test_gather_kernel_matches_plain(cuda):

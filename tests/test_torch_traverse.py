@@ -51,7 +51,7 @@ from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_soa  # noqa: E402
-from torch_test_helpers import deep_chain_bvh4, deep_chain_rays, share_native_builder  # noqa: E402
+from torch_test_helpers import deep_chain, deep_chain_bvh4, deep_chain_rays, share_native_builder  # noqa: E402
 
 _SYS_PATH = list(sys.path)
 try:
@@ -365,11 +365,11 @@ def test_bvh4_scratch_and_stack_match_the_kernel():
 
 def test_lane_and_v5_constants_match_the_kernels():
     """csrc/traverse_lanes.cu's window is the plain version's LANE_WINDOW
-    (one 128-byte line), csrc/traverse_bvh4_multipop.cu's pop group and
+    (one entry a load round), csrc/traverse_bvh4_multipop.cu's pop group and
     compiled stack are MULTIPOP and STACK_DEPTH_MULTIPOP, and both wrappers
     pass the compaction's scratch (traverse_launch.list_scratch)."""
     lanes = _cu_constants("traverse_lanes.cu")
-    assert lanes["kWindow"] == ttrav.LANE_WINDOW == 2 and ttrav.LANE_WINDOW in ttrav.LANE_WINDOWS
+    assert lanes["kWindow"] == ttrav.LANE_WINDOW == 1 and ttrav.LANE_WINDOW in ttrav.LANE_WINDOWS
     assert lanes["kFields"] == tlane.FIELDS
     v5 = _cu_constants("traverse_bvh4_multipop.cu")
     assert v5["kMultipop"] == ttrav.MULTIPOP == 4
@@ -412,6 +412,145 @@ def test_bvh4_tuning_variant_fits_the_kernel_source(name):
 def test_lane_and_v5_tuning_variants_fit_the_kernel_sources(kernel, name):
     """The same for the lane walk's and v5's variants."""
     _assert_variant_fits(kernel, name)
+
+
+@pytest.mark.parametrize("kernel,name", [(k, n) for k in ("traverse_bvh2.cu", "traverse_bvh16.cu")
+                                         for n in bvh4_tuning.VARIANTS[k]])
+def test_bvh2_and_bvh16_tuning_variants_fit_the_kernel_sources(kernel, name):
+    """The same for the BVH2 (v2) and BVH16 (v6) walks' variants, "every
+    element off" (traverse_bvh.cuh's launch_traverse_bvh restored) among
+    them."""
+    _assert_variant_fits(kernel, name)
+
+
+def test_bvh2_and_bvh16_constants_match_the_kernels(monkeypatch):
+    """csrc/traverse_bvh2.cu's and csrc/traverse_bvh16.cu's compiled stacks
+    are the plain versions' STACK_DEPTH2 and STACK_DEPTH16; v6's group of
+    threads a ray divides a warp and is the one its comment describes; both
+    wrappers pass the compaction's scratch (traverse_launch.list_scratch)."""
+    import re
+
+    from vk_gltf_renderer_tpu_torch import cuda_lib
+    from vk_gltf_renderer_tpu_torch.ops import traverse_launch
+
+    assert _cu_constants("traverse_bvh2.cu")["kStack"] == ttrav.STACK_DEPTH2 == 128
+    v6 = _cu_constants("traverse_bvh16.cu")
+    assert v6["kStack"] == ttrav.STACK_DEPTH16 == 256
+    lanes = v6["kRayLanes"]
+    assert 32 % lanes == 0 and 16 % lanes == 0 and ttrav.LEAF_SLOTS % lanes == 0
+    src = (cuda_lib._CSRC / "traverse_bvh16.cu").read_text()
+    said = re.search(r"group of kRayLanes = (\d+) threads walks one ray \((\d+) rays a warp\)", src)
+    assert said and (int(said.group(1)), int(said.group(2))) == (lanes, 32 // lanes)
+    passed = {}
+
+    def record(name, *args, extra=None):
+        passed[name] = extra
+
+    monkeypatch.setattr(tb2, "run_traversal", record)
+    monkeypatch.setattr(tb16, "run_traversal", record)
+    rays = [torch.zeros(1)] * 8
+    tb2.traverse_bvh2(torch.zeros(1, 16), torch.zeros(1, 128), 0, *rays)
+    tb16.traverse_bvh16(torch.zeros(1, 128), torch.zeros(1, 128), *rays)
+    assert passed == {"traverse_bvh2": traverse_launch.list_scratch,
+                      "traverse_bvh16": traverse_launch.list_scratch}
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+@pytest.mark.parametrize("kernel,scene", [("v2", "editor"), ("v2", "few"), ("v6", "editor"), ("v6", "few")])
+def test_plain_bvh2_and_bvh16_dead_lane_rule(kernel, scene, anyhit, request):
+    """The dead-lane rule that the compaction of csrc/traverse_bvh2.cu and
+    csrc/traverse_bvh16.cu relies on, in their plain versions. v6 walks
+    from row 0, which is internal even in the few scene (one row with one
+    leaf child), and v2 from the editor's internal root: every lane with
+    !(tmax >= 0), NaN and -inf included, returns (tmax, -1, -1, 0, 0)
+    exactly, even where a triangle lies behind the origin in (tmin, tmax)
+    (the few scene's rays from below, tmin -3, tmax -0.5). v2 from the few
+    scene's leaf root accepts that triangle, so there a lane is dead only
+    where also !(tmin < tmax), and every such lane returns (tmax, -1, -1,
+    0, 0)."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    n = 512
+    if scene == "few":
+        ro, rd, tmin, up = _leaf_root_rays(n, seed=27)
+    else:
+        ro, rd, _ = _aimed_rays(wb, n, seed=27)
+        tmin, up = np.zeros(n, np.float32), np.ones(n, bool)
+    tmax = np.full(n, 2.5 if anyhit else 1e32, np.float32)
+    tmax[1::4] = -0.5
+    tmax[2::8] = np.nan
+    tmax[3::8] = -np.inf
+    tmax[5::16] = -4.0  # below tmin in the few scene's rays from below
+    rays = _soa(ro, rd, tmin, tmax)
+    if kernel == "v2":
+        root = bvh_t.root_code
+        assert (root < 0) == (scene == "few")
+        t, rn, tri, u, v, dropped = ttrav.traverse_bvh2_plain(bvh_t.nodes_fi, bvh_t.tris128, root, *rays,
+                                                              anyhit=anyhit)
+    else:
+        root = 0
+        t, rn, tri, u, v, dropped = ttrav.traverse_bvh16_plain(bvh_t.nodes16_fi, bvh_t.tris128, 0, *rays,
+                                                               anyhit=anyhit)
+    dead = ~(tmax >= 0)
+    if root < 0:
+        dead &= ~(tmin < tmax)
+    assert dropped == 0 and dead.sum() > 60 and np.isnan(tmax[dead]).sum() > 40
+    assert np.array_equal(t.numpy()[dead].view(np.int32), tmax[dead].view(np.int32))
+    for ids in (rn, tri):
+        assert (ids.numpy()[dead] == -1).all()
+    for f in (u, v):
+        assert np.array_equal(f.numpy()[dead].view(np.int32), np.zeros(dead.sum(), np.int32))
+    assert (tri.numpy()[~dead] >= 0).sum() > 20
+    behind = (tmax == -0.5) & ~up  # the plane at t = -1 lies in (tmin, tmax)
+    assert (tri.numpy()[behind] >= 0).all() if root < 0 else not (tri.numpy()[behind] >= 0).any()
+    assert behind.sum() > 20 or scene != "few"
+
+
+@pytest.mark.parametrize("kernel,levels,per_ray", [("v2", 128, 0), ("v2", 129, 1), ("v2", 140, 12),
+                                                   ("v6", 17, 0), ("v6", 18, 15), ("v6", 24, 15)])
+def test_plain_bvh2_and_bvh16_count_overflow_on_a_deep_chain(kernel, levels, per_ray):
+    """torch_test_helpers.deep_chain through the CPU wrappers: the BVH2
+    walk's stack grows by 1 a row (the far leaf; it descends into the next
+    row) and the BVH16 walk's by 15, so past 128 and 17 rows every live ray
+    drops per_ray pushes (BVH2: one a row from row 128 on; dead lanes
+    none), where bvh_flatten.stack_need says the stack is too small;
+    nothing is hit."""
+    arity, mod, call = {"v2": (2, tb2, lambda n, tr, r: tb2.traverse_bvh2(n, tr, 0, *r)),
+                        "v6": (16, tb16, lambda n, tr, r: tb16.traverse_bvh16(n, tr, *r))}[kernel]
+    nodes, tr = (torch.tensor(a) for a in deep_chain(levels, arity))
+    rays = [torch.tensor(a) for a in deep_chain_rays(300, seed=43)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    capacity = {"v2": ttrav.STACK_DEPTH2, "v6": ttrav.STACK_DEPTH16}[kernel]
+    need = tbvh.stack_need(nodes.numpy(), arity.bit_length() - 1, 0, descend=kernel == "v2")
+    assert need == levels * (arity - 1) + (kernel == "v6") and (need > capacity) == (per_ray > 0)
+    mod.OVERFLOW.reset()
+    t, _, tri, _, _ = call(nodes, tr, rays)
+    assert mod.OVERFLOW.total() == per_ray * live
+    mod.OVERFLOW.reset()
+    assert (tri == -1).all() and torch.equal(t, rays[7])
+
+
+def test_bvh2_stack_need_of_the_descending_walk(editor):
+    """stack_need(descend=True), the check before a BVH2 launch, is one
+    entry less than the push-every-child walk's need and bounds the
+    deepest stack of a walk that keeps its next child out of the stack
+    (pushes every real child but the last, walks that one next)."""
+    _, wb, _ = editor
+    nodes = np.asarray(wb.nodes_fi)
+    need = tbvh.stack_need(nodes, 1, wb.root_code, descend=True)
+    assert need == tbvh.stack_need(nodes, 1, wb.root_code) - 1 > 1
+    deepest, stack, e = 0, [], wb.root_code
+    while True:
+        kids = [] if e < 0 else [int(nodes[e, 12 + s]) for s in range(2) if nodes[e, 6 * s] < 1e38]
+        stack += kids[:-1]
+        deepest = max(deepest, len(stack))
+        if kids:
+            e = kids[-1]
+        elif stack:
+            e = stack.pop()
+        else:
+            break
+    assert 1 < deepest <= need
 
 
 @pytest.mark.parametrize("levels", [21, 22, 24])
@@ -749,7 +888,7 @@ def test_lane_walk_counts_steps_and_load_rounds(terrain):
     assert entries / 2 < stats["plus_one"] < entries
     assert list(rounds) == list(ttrav.LANE_WINDOWS)
     assert rounds[1] == entries
-    assert entries / 2 <= rounds[2] < entries and rounds[ttrav.LANE_WINDOW] < entries
+    assert entries / 2 <= rounds[2] < entries and rounds[ttrav.LANE_WINDOW] == entries
     assert rounds[8] <= rounds[4] <= rounds[2]
 
 

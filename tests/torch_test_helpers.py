@@ -84,6 +84,29 @@ def deep_chain_bvh4(levels=24, stubs=False):
     return fi, sc, np.zeros((1, 128), np.float32)
 
 
+def deep_chain(levels, arity):
+    """deep_chain_bvh4's chain for the BVH2 (arity 2, nodes_fi) and BVH16
+    (arity 16, nodes16_fi) walks: `levels` rows whose child boxes are all
+    [-1, 1]^3, child slot 0 the next row (an empty leaf in the last) and
+    the other slots empty leaves (code -1), every split axis x. A ray from
+    inside the box with dx >= 0 enters every child, so visit position p is
+    slot p: it pushes the arity - 1 leaves and then the next row, pops that
+    row (the BVH2 walk descends into it instead), and its stack grows by
+    arity - 1 a row. Returns (nodes [L,8A] f32, tris128 [1,128] f32) as
+    numpy arrays, the root code being 0.
+
+    BVH2 (128 entries): rows 0-127 fit, and every row from row 128 on
+    drops its far leaf, 1 push a live ray. BVH16 (256 entries): rows 0-16
+    fit, and a chain of 18 rows or more drops 15 (row 17's children but
+    the one that fills the stack)."""
+    a = arity
+    nodes = np.zeros((levels, 8 * a), np.float32)
+    nodes[:, 0 : 6 * a] = np.tile(np.float32([-1, -1, -1, 1, 1, 1]), a)
+    nodes[:, 6 * a : 7 * a] = -1
+    nodes[:, 6 * a] = np.append(np.arange(1, levels), -1)
+    return nodes, np.zeros((1, 128), np.float32)
+
+
 def deep_chain_rays(n, seed):
     """n rays from inside deep_chain_bvh4's box with dx >= 0, as the 8 [N]
     f32 numpy components (tmin 0, tmax 1e32)."""

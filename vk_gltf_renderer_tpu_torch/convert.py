@@ -147,7 +147,7 @@ def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> Dev
     if getattr(bvh, "nodes_fi", None) is not None and dev.nodes_fi is None:
         dev.nodes_fi = _t(bvh.nodes_fi, f32, device)
         dev.root_code = int(bvh.root_code)
-        dev.stack_need["bvh2"] = stack_need(bvh.nodes_fi, 1, dev.root_code)
+        dev.stack_need["bvh2"] = stack_need(bvh.nodes_fi, 1, dev.root_code, descend=True)
     if getattr(bvh, "nodes16_fi", None) is not None and dev.nodes16_fi is None:
         dev.nodes16_fi = _t(bvh.nodes16_fi, f32, device)
         dev.stack_need["bvh16"] = stack_need(bvh.nodes16_fi, 4, 0)

@@ -1,10 +1,11 @@
 // Per-ray traversal of the fused BVH row tables, one ray per thread: the
-// arity-templated walk behind traverse_bvh2.cu, traverse_bvh16.cu,
-// traverse_bvh4_sidecar.cu and traverse_bvh4_split.cu (walk; test_leaf for
-// both leaf layouts), the node expansion the v8 schedule reuses
-// (expand_node), the whole-row BVH4 visit and leaf of traverse_bvh4.cu and
-// the v5 walk (visit, leaf), plus the ray/box and ray/triangle tests that
-// traverse_bvh4.cu, traverse_lanes.cu and megakernel.cu share.
+// arity-templated walk behind traverse_bvh4_sidecar.cu and
+// traverse_bvh4_split.cu (walk; test_leaf for both leaf layouts), the node
+// expansion the v8 schedule reuses (expand_node), the whole-row BVH4 visit
+// and leaf of traverse_bvh4.cu and the v5 walk (visit, leaf), the
+// whole-row BVH2 visit of traverse_bvh2.cu (visit2, with leaf), plus the
+// ray/box and ray/triangle tests that every traversal kernel and
+// megakernel.cu share (traverse_bvh16.cu's group walk among them).
 //
 // Row layout of an arity-A table (A = 2^L children per node, 8*A floats
 // per row; nodes_fi L=1, nodes4_fi L=2, nodes16_fi L=4):
@@ -280,6 +281,31 @@ __device__ __forceinline__ bool leaf(const float* __restrict__ tris128, int e, c
     }
   }
   return false;
+}
+
+// The children of one BVH2 row (nodes_fi: boxes 0:12, codes 12:14, split
+// axis 14) in near-first order, from one load round of the row's four
+// float4s: c0 is the code of visit position 0 (the nearer side along the
+// split axis), bit p of enter says whether the ray enters the child at
+// position p. expand_node<1>'s arithmetic and order (traverse_bvh2.cu).
+struct Visit2 {
+  int c0, c1;
+  unsigned enter;
+};
+
+__device__ __forceinline__ Visit2 visit2(const float* __restrict__ nodes, int e, const Ray& r,
+                                         float t_best) {
+  const float4* row = reinterpret_cast<const float4*>(nodes + static_cast<size_t>(e) * 16);
+  const float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+  const bool h0 = slab(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, r, t_best);
+  const bool h1 = slab(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, r, t_best);
+  const int s0 = static_cast<int>(q3.x), s1 = static_cast<int>(q3.y);
+  const bool flip = !axis_sign(q3.z, r.sx, r.sy, r.sz);  // the right child is nearer
+  Visit2 v;
+  v.c0 = flip ? s1 : s0;
+  v.c1 = flip ? s0 : s1;
+  v.enter = ((flip ? h1 : h0) ? 1u : 0u) | ((flip ? h0 : h1) ? 2u : 0u);
+  return v;
 }
 
 // Hint that a row will be read soon: one prefetch per 128-byte line into

@@ -1,6 +1,6 @@
 // Stackless skip-pointer traversal of the lane entries, closest hit and
 // any hit, redesigned for the H100: live-lane compaction, persistent
-// warps, window loads and any-hit as a template parameter.
+// warps, whole-entry loads and any-hit as a template parameter.
 //
 // Replaces the TPU kernels traverse_lanes (_lane_kernel_body) and
 // traverse_lanes_stream (_lane_kernel_stream) of
@@ -47,13 +47,16 @@
 //    closest-hit ray visits every box its segment [0, t_best] crosses in
 //    tree order, ~130 entries a terrain ray, each one dependent load of a
 //    64-byte row; the entry table (79 MB on the 1M-triangle terrain) is
-//    past the 50 MB L2. A box hit steps to cur + 1 and a leaf run to
-//    s + 1, so most steps read the entry right after the last. One load
-//    round reads the aligned window of kWindow = 2 entries that holds cur
-//    (one 128-byte line, 8 float4s: cur and, where cur is even, the entry
-//    after it), and the walk steps on from registers while the next entry
-//    is that one; the plain version's stats count the rounds each window
-//    size needs (1, 2, 4 and 8).
+//    past the 50 MB L2. One load round reads kWindow = 1 entry, its
+//    64-byte row as 4 float4s. A box hit steps to cur + 1 and a leaf run
+//    to s + 1, so most steps read the entry right after the last, and a
+//    window of 2 entries (the aligned 128-byte line, the walk stepping on
+//    from registers while the next entry is the second) halves the rounds;
+//    but its 13 extra registers cut the resident warps by a fifth, and it
+//    measured 8-20% slower (bvh4_tuning.py; PERF.md), so the walk is
+//    bound by the loads in flight, not by one ray's chain. The plain
+//    version's stats count the rounds each window size would need (1, 2,
+//    4 and 8).
 //  - Any-hit is a template parameter, both instances behind the one entry
 //    point.
 // A link that does not advance (a malformed table) ends the ray and is
@@ -66,8 +69,7 @@ namespace vkgr {
 namespace lanes {
 
 constexpr int kFields = 16;
-constexpr int kWindow = 2;  // entries one load round reads: one 128-byte line (a pair of entries)
-static_assert(kWindow == 2, "a load round reads a pair of entries");
+constexpr int kWindow = 1;  // entries one load round reads
 
 template <bool kAny>
 __global__ void __launch_bounds__(kBlock)
@@ -86,51 +88,30 @@ walk_kernel(const float* __restrict__ entries, int n_entries, const float* __res
     Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
     int cur = h.t < 0.0f ? end : 0;
     while (cur < end) {
-      // one load round: entry cur, and with it the other half of its 128-byte line when that
-      // is the entry after it (cur even), in named registers (an indexed array of entries
-      // would live in local memory)
+      // one load round: entry cur; a = f0..3, b = f4..7, c = f8..11, d = f12..15
       const float4* ep = reinterpret_cast<const float4*>(entries + static_cast<size_t>(cur) * kFields);
-      float4 a = __ldg(ep), b = __ldg(ep + 1), c = __ldg(ep + 2), d = __ldg(ep + 3);
-      bool pair = (cur & 1) == 0 && cur + 1 < end;
-      float4 na = a, nb = b, nc = c, nd = d;
-      if (pair) {
-        na = __ldg(ep + 4);
-        nb = __ldg(ep + 5);
-        nc = __ldg(ep + 6);
-        nd = __ldg(ep + 7);
-      }
-      // steps from registers while the next entry is the one loaded beside cur
-      while (true) {
-        // a = f0..3, b = f4..7, c = f8..11, d = f12..15
-        const int link = static_cast<int>(c.y);  // f9: skip (internal) / next (triangle)
-        int nxt;
-        if (c.w > 0.5f) {  // f11: triangle entry
-          float uu, vv, tt;
-          const bool hit = triangle(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r, h.t, uu, vv, tt);
-          if (hit) {
-            h.t = tt;
-            h.rn = d.x;
-            h.tri = d.y;
-            h.u = uu;
-            h.v = vv;
-          }
-          nxt = (kAny && hit) ? end : link;
-        } else {
-          nxt = slab(a.x, a.y, a.z, a.w, b.x, b.y, r, h.t) ? cur + 1 : link;
+      const float4 a = __ldg(ep), b = __ldg(ep + 1), c = __ldg(ep + 2), d = __ldg(ep + 3);
+      const int link = static_cast<int>(c.y);  // f9: skip (internal) / next (triangle)
+      int nxt;
+      if (c.w > 0.5f) {  // f11: triangle entry
+        float uu, vv, tt;
+        const bool hit = triangle(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, r, h.t, uu, vv, tt);
+        if (hit) {
+          h.t = tt;
+          h.rn = d.x;
+          h.tri = d.y;
+          h.u = uu;
+          h.v = vv;
         }
-        if (nxt <= cur) {
-          ++stuck;
-          nxt = end;
-        }
-        const bool next_loaded = pair && nxt == cur + 1;
-        cur = nxt;
-        if (!next_loaded) break;
-        a = na;
-        b = nb;
-        c = nc;
-        d = nd;
-        pair = false;
+        nxt = (kAny && hit) ? end : link;
+      } else {
+        nxt = slab(a.x, a.y, a.z, a.w, b.x, b.y, r, h.t) ? cur + 1 : link;
       }
+      if (nxt <= cur) {
+        ++stuck;
+        nxt = end;
+      }
+      cur = nxt;
     }
     store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
   });

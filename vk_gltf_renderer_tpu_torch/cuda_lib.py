@@ -43,14 +43,14 @@ _I = ctypes.c_int
 # (tables, root code, 8 ray components, n, anyhit, 5 outputs, overflow, stream)
 _TRAVERSE = [_P, _P, _I] + [_P] * 8 + [_I, _I] + [_P] * 5 + [_P, _P]
 _SIGNATURES = {
-    "vkgr_traverse_bvh2": _TRAVERSE,
     # (... as _TRAVERSE up to the overflow counter, scratch, stream)
+    "vkgr_traverse_bvh2": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4_multipop": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4_leafqueue": _TRAVERSE,
     # (nodes4_fi, nodes4_sc, tris128, root code, rays, ... as _TRAVERSE)
     "vkgr_traverse_bvh4_sidecar": [_P] + _TRAVERSE,
-    "vkgr_traverse_bvh16": _TRAVERSE,
+    "vkgr_traverse_bvh16": _TRAVERSE[:-1] + [_P, _P],
     # (node table, meta table, tris, 8 ray components, n, 5 outputs, overflow, stream):
     # no root code (node 0) and no any-hit flag
     "vkgr_traverse_bvh4_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P],

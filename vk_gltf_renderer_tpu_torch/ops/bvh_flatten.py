@@ -589,14 +589,17 @@ def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:
     return wb
 
 
-def stack_need(nodes, levels: int, root_code: int, internal_only: bool = False) -> int:
+def stack_need(nodes, levels: int, root_code: int, internal_only: bool = False,
+               descend: bool = False) -> int:
     """Deepest traversal stack a per-ray walk of a fused row table
     (nodes_fi: levels=1, nodes4_fi: 2, nodes16_fi: 4) can need: popping a
     node pushes all of its real children, so a node reached with p entries
     below it needs p + its child count, and its nearest child is reached
     with p + count - 1. Missing children carry the +3e38 point box.
     internal_only: the stack of the v8 walk, which holds internal codes
-    only (leaf children go to its queue)."""
+    only (leaf children go to its queue). descend: the BVH2 kernel's walk,
+    which keeps the nearest child in a register instead of pushing it, so
+    a node needs one entry less."""
     if root_code < 0:
         return 1
     arity = 1 << levels
@@ -605,12 +608,13 @@ def stack_need(nodes, levels: int, root_code: int, internal_only: bool = False) 
     real = nodes[:, 0 : 6 * arity : 6] < 1e38  # lo.x of every child slot
     if internal_only:
         real = real & (codes >= 0)
-    return _push_walk_need(codes, real, real & (codes >= 0), root_code)
+    return _push_walk_need(codes, real, real & (codes >= 0), root_code, descend)
 
 
-def _push_walk_need(children, real, inner, root: int) -> int:
+def _push_walk_need(children, real, inner, root: int, descend: bool = False) -> int:
     """Deepest stack of a walk from row `root` that pushes every real
-    child of a popped row: children/real/inner [R,A] give each row's child
+    child of a popped row (descend: but the nearest, which it walks next
+    from a register): children/real/inner [R,A] give each row's child
     rows, which slots hold a child, and which of those are rows the walk
     expands further."""
     nreal = real.sum(axis=1)
@@ -619,7 +623,7 @@ def _push_walk_need(children, real, inner, root: int) -> int:
     below = np.zeros(1, np.int64)
     while frontier.size:
         k = nreal[frontier]
-        need = max(need, int((below + k).max()))
+        need = max(need, int((below + k - descend).max()))
         inn = inner[frontier]
         below = np.repeat(below + k - 1, inn.sum(axis=1))
         frontier = children[frontier][inn]

@@ -39,7 +39,7 @@ STACK_DEPTH2 = 128  # BVH2 (csrc/traverse_bvh2.cu)
 STACK_DEPTH16 = 256  # BVH16 (csrc/traverse_bvh16.cu)
 STACK_DEPTH_MULTIPOP = 128  # v5 (csrc/traverse_bvh4_multipop.cu kStack)
 MULTIPOP = 4  # entries the v5 walk pops per step
-LANE_WINDOW = 2  # lane entries one load round of csrc/traverse_lanes.cu reads (one 128-byte line)
+LANE_WINDOW = 1  # lane entries one load round of csrc/traverse_lanes.cu reads (its kWindow)
 LANE_WINDOWS = (1, 2, 4, 8)  # windows whose load rounds traverse_lanes_plain counts
 LEAF_QUEUE = 16  # v8's leaf queue (csrc/traverse_bvh4_leafqueue.cu)
 LEAF_SLOTS = 8  # triangles per tris128 row (and per leaf of the split tables)
@@ -228,13 +228,22 @@ class _Walk:
         return torch.gather(codes, 1, slots), torch.gather(hits, 1, slots)
 
 
-def _push(stack, sp, rows, codes, enter, depth):
+def _push(stack, sp, rows, codes, enter, depth, descend=False):
     """Push codes [K,A] where enter, column by column, onto the per-ray
-    stacks of rows [K]; returns the pushes dropped on a full stack."""
+    stacks of rows [K]; returns the pushes dropped on a full stack.
+    descend: the last entered column (the nearest child, popped next) is
+    the walk's next node, held outside the stack, so it is never dropped
+    (the stack holds one column more than depth for it)."""
     spi = sp[rows]
     dropped = 0
+    nearest = torch.zeros_like(enter)
+    if descend:
+        later = torch.zeros_like(enter[:, 0])  # an entered column follows
+        for p in reversed(range(codes.shape[1])):
+            nearest[:, p] = enter[:, p] & ~later
+            later = later | enter[:, p]
     for p in range(codes.shape[1]):
-        full = enter[:, p] & (spi >= depth)
+        full = enter[:, p] & (spi >= depth) & ~nearest[:, p]
         dropped += int(full.sum())
         push = enter[:, p] & ~full
         stack[rows[push], spi[push]] = codes[push, p]
@@ -243,7 +252,7 @@ def _push(stack, sp, rows, codes, enter, depth):
     return dropped
 
 
-def _expand_push(w, levels, nodes, ii, e, t_best, sidecar, split, stack, sp, depth):
+def _expand_push(w, levels, nodes, ii, e, t_best, sidecar, split, stack, sp, depth, descend=False):
     """Visit internal rows e [K] of rays ii against t_best [N] and push the
     entered children; returns the pushes dropped."""
     if not ii.numel():
@@ -251,12 +260,12 @@ def _expand_push(w, levels, nodes, ii, e, t_best, sidecar, split, stack, sp, dep
     codes, enter = w.expand(levels, nodes, ii, e, t_best[ii], sidecar)
     if split:
         enter = enter & (codes != -1)
-    return _push(stack, sp, ii, codes, enter, depth)
+    return _push(stack, sp, ii, codes, enter, depth, descend)
 
 
 def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, rdy, rdz,
                         tmin, tmax, anyhit=False, stack_depth=64, multipop=1, sidecar=None,
-                        stats=None, split=False, nearest_on_top=True):
+                        stats=None, split=False, nearest_on_top=True, descend=False):
     """Plain per-ray traversal of a fused row table of arity 2^levels
     (layout in csrc/traverse_bvh.cuh: child boxes, child codes, split axes).
 
@@ -285,7 +294,10 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
     v7 walk (nodes4_sc).
     split is the packet4 walk (traverse_bvh4_split_plain): leaf codes index
     the tris table passed as tris128, and missing children (code -1) are
-    not pushed.
+    not pushed. descend (single pop) is the BVH2 kernel's walk, which
+    holds the nearest entered child in a register instead of pushing it:
+    the same visits, and a stack of stack_depth entries drops only pushes
+    of the other children (bvh_flatten.stack_need with descend=True).
 
     stats, a dict, receives the visit counts the card's bounds are made of:
     internal / leaf visits, triangles tested, and boolean masks of the
@@ -295,7 +307,7 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
     n = rox.shape[0]
     w = _Walk(tris128, (rox, roy, roz, rdx, rdy, rdz, tmin, tmax), anyhit,
               _new_stats(stats, nodes, tris128), split)
-    stack = torch.zeros((n, stack_depth), dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, stack_depth + descend), dtype=torch.int64, device=dev)
     stack[:, 0] = int(root_code)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
     overflow = 0
@@ -320,7 +332,7 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
                 ended.append(w.test_leaves(rays[leaf], e[leaf]))
             if chain:
                 overflow += _expand_push(w, levels, nodes, rays[~leaf], e[~leaf], w.t, sidecar,
-                                         split, stack, sp, stack_depth)
+                                         split, stack, sp, stack_depth, descend)
         if not chain:
             for rays, e in reversed(group):
                 overflow += _expand_push(w, levels, nodes, rays[e >= 0], e[e >= 0], t_pop, sidecar,
@@ -331,9 +343,10 @@ def traverse_rows_plain(levels, nodes, tris128, root_code, rox, roy, roz, rdx, r
 
 
 def traverse_bvh2_plain(nodes_fi, tris128, root_code, *rays, anyhit=False, stats=None):
-    """Plain BVH2 traversal over nodes_fi [N,16] (csrc/traverse_bvh2.cu)."""
+    """Plain BVH2 traversal over nodes_fi [N,16] (csrc/traverse_bvh2.cu,
+    which descends into the nearer entered child)."""
     return traverse_rows_plain(1, nodes_fi, tris128, root_code, *rays, anyhit=anyhit,
-                               stack_depth=STACK_DEPTH2, stats=stats)
+                               stack_depth=STACK_DEPTH2, stats=stats, descend=True)
 
 
 def traverse_bvh4_plain(nodes4_fi, tris128, root_code, *rays, anyhit=False, stats=None):
