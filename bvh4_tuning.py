@@ -1,7 +1,8 @@
 """Ablations and tuning runs of the redesigned traversal kernels on one
 NVIDIA GPU: csrc/traverse_bvh4.cu (v3/v9), csrc/traverse_lanes.cu (the
 lane walk), csrc/traverse_bvh4_multipop.cu (v5), csrc/traverse_bvh2.cu
-(v2) and csrc/traverse_bvh16.cu (v6).
+(v2), csrc/traverse_bvh16.cu (v6), csrc/traverse_bvh4_sidecar.cu (v7) and
+csrc/traverse_bvh4_split.cu (packet4).
 
     python3 bvh4_tuning.py [KERNEL ...]
 
@@ -11,10 +12,10 @@ source with one design element toggled or one tuning constant changed, and
 "every element off ..." is the walk before the redesign. A variant is a
 list of source substitutions: each names the text it replaces (or the
 first and last line of a span) in the kernel's source, or in a header of
-csrc/ that it names third (live_lanes.cuh, traverse_bvh.cuh), and must
-match that file exactly once, so an edit of the kernel that a variant no
-longer fits stops the run with the variant's name
-(tests/test_torch_traverse.py checks this on the CPU).
+csrc/ that it names third (live_lanes.cuh, traverse_bvh.cuh,
+sidecar_walk.cuh), and must match that file exactly once, so an edit of
+the kernel that a variant no longer fits stops the run with the
+variant's name (tests/test_torch_traverse.py checks this on the CPU).
 
 The run builds the kernel library once per variant into
 build/bvh4_tuning/<kernel>/ (the other sources of csrc/ compiled once,
@@ -23,13 +24,14 @@ whose build fails is reported and left out) and launches each through the
 kernel's wrapper with cuda_lib's loaded library swapped for the variant's.
 It renders one 1080p frame of the helmet stand-in (HDR) and of the
 1,059,968-triangle terrain under the kernel's selection ((v3, v9),
-(lane, lane_stream), (v5, v5), (v2, v2) or (v6, v6)), as chip_smoke.py
-phase 7b does, recording the 8 ray components of each of the wrapper's
-launches; then times every variant on those launches and on the probe
-rays of chip_smoke.py phases 3 and 6 (closest hit), in a forward and a
-backward round. Every variant is held equal bit for bit to the unchanged
+(lane, lane_stream), (v5, v5), (v2, v2), (v6, v6) or (v7, v7); packet4
+under VKGR_TRAVERSAL=packet4), as chip_smoke.py phase 7b does, recording
+the 8 ray components of each of the wrapper's launches; then times every
+variant on those launches and on the probe rays of chip_smoke.py phases
+3 and 6 (closest hit), in a forward and a backward round. Every variant is held equal bit for bit to the unchanged
 source on every launch and on the probe rays, closest hit and any hit
-(phase 6's shadow tmax), except the ones that change the visit order
+(phase 6's shadow tmax; packet4 has no any-hit mode and traces those
+rays closest hit), except the ones that change the visit order
 (ORDER), whose t must still equal the source's on every lane and whose
 ids may differ only there (equal-t ties, counted). Last, torch.profiler splits a sparse,
 a medium and an all-live launch of the unchanged source into its device
@@ -61,6 +63,8 @@ from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_sidecar as tbsc  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_split as tb4s  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh16 as tb16  # noqa: E402
 from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
@@ -68,6 +72,7 @@ from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
 OUT = ROOT / "build" / "bvh4_tuning"
 LIVE = "live_lanes.cuh"
 ROWS = "traverse_bvh.cuh"
+SC = "sidecar_walk.cuh"
 
 # shared by every kernel: compaction off (every lane listed and walked), any-hit at run time
 COMPACTION_OFF = [("    live = tm >= 0.0f || (root < 0 && tmin[i] < tm);\n", "    live = true;\n", LIVE)]
@@ -263,7 +268,7 @@ V5_OLD_WALK = """  walk_list<1>(header, list, [&](int i) {
           if (grp[j] < 0) {
             done = test_leaf(tris128, grp[j], r, kAny, h);
           } else {
-            expand_node<2, false>(nodes, nullptr, grp[j], r, h.t, push);
+            expand_node<2>(nodes, grp[j], r, h.t, push);
           }
         }
       }
@@ -274,6 +279,140 @@ V5_OLD_WALK = """  walk_list<1>(header, list, [&](int i) {
 V5_WALK = ("  walk_list<kRayLanes>(header, list, [&](int i) {\n", "  });\n")
 
 LANE_ANY = runtime_anyhit("  unsigned int stuck = 0;\n")
+
+# the one-thread-per-lane generic walk that the redesigns replaced, as traverse_bvh.cuh held it
+# (its sidecar and split branches included; the split walk's kernel folded into its kernel and
+# launch): the "every element off" variants put it before the entry point, which launches it
+GENERIC = """namespace vkgr {
+namespace before {
+
+template <int kLevels, bool kSidecar, typename Push>
+__device__ __forceinline__ void expand_node(const float* __restrict__ nodes,
+                                            const int* __restrict__ sidecar, int e, const Ray& r,
+                                            float t_best, Push&& push) {
+  constexpr int kArity = 1 << kLevels;
+  constexpr int kRow = 8 * kArity;
+  static_assert(!kSidecar || kLevels == 2, "the sidecar describes BVH4 rows");
+  const float* row = nodes + static_cast<size_t>(e) * kRow;
+  unsigned int hitmask = 0;
+#pragma unroll
+  for (int s = 0; s < kArity; ++s) {
+    const float2* bp = reinterpret_cast<const float2*>(row + 6 * s);
+    const float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+    if (slab(b0.x, b0.y, b1.x, b1.y, b2.x, b2.y, r, t_best)) hitmask |= 1u << s;
+  }
+  if (!hitmask) return;
+  unsigned int flip = 0;
+  int4 sc_codes = make_int4(0, 0, 0, 0);
+  if constexpr (kSidecar) {
+    const int4* sc = reinterpret_cast<const int4*>(sidecar + static_cast<size_t>(e) * 8);
+    sc_codes = __ldg(sc);
+    const int4 a = __ldg(sc + 1);
+    if (!axis_sign(static_cast<float>(a.x), r.sx, r.sy, r.sz)) flip |= 1u;
+    if (!axis_sign(static_cast<float>(a.y), r.sx, r.sy, r.sz)) flip |= 2u;
+    if (!axis_sign(static_cast<float>(a.z), r.sx, r.sy, r.sz)) flip |= 4u;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kArity - 1; ++k) {
+      if (!axis_sign(__ldg(row + 7 * kArity + k), r.sx, r.sy, r.sz)) flip |= 1u << k;
+    }
+  }
+#pragma unroll
+  for (int p = kArity - 1; p >= 0; --p) {
+    int path = 0;
+#pragma unroll
+    for (int d = 0; d < kLevels; ++d) {
+      const int bit = (p >> (kLevels - 1 - d)) & 1;
+      path = path * 2 + (bit ^ static_cast<int>((flip >> ((1 << d) - 1 + path)) & 1u));
+    }
+    if ((hitmask >> path) & 1u) {
+      if constexpr (kSidecar) {
+        push(path == 0 ? sc_codes.x : path == 1 ? sc_codes.y : path == 2 ? sc_codes.z : sc_codes.w);
+      } else {
+        push(static_cast<int>(__ldg(row + 6 * kArity + path)));
+      }
+    }
+  }
+}
+
+template <int kLevels, int kStack, bool kSidecar, bool kSplit>
+__device__ __forceinline__ Hit walk(const float* __restrict__ nodes,
+                                    const int* __restrict__ sidecar,
+                                    const float* __restrict__ tris, int root_code, const Ray& r,
+                                    float tmax, bool anyhit, unsigned int& dropped) {
+  Hit h{tmax, -1.0f, -1.0f, 0.0f, 0.0f};
+  int stack[kStack];
+  stack[0] = root_code;
+  int sp = 1;
+  while (sp > 0) {
+    const int e = stack[--sp];
+    if (e < 0) {
+      if (test_leaf<kSplit>(tris, e, r, anyhit, h)) break;
+      continue;
+    }
+    expand_node<kLevels, kSidecar>(nodes, sidecar, e, r, h.t, [&](int code) {
+      if (kSplit && code == -1) return;
+      if (sp < kStack) {
+        stack[sp++] = code;
+      } else {
+        ++dropped;
+      }
+    });
+  }
+  return h;
+}
+
+template <int kLevels, int kStack, bool kSidecar, bool kSplit>
+__global__ void __launch_bounds__(kBlock)
+traverse_bvh_kernel(const float* __restrict__ nodes, const int* __restrict__ sidecar,
+                    const float* __restrict__ tris128, int root_code,
+                    const float* __restrict__ rox, const float* __restrict__ roy,
+                    const float* __restrict__ roz, const float* __restrict__ rdx,
+                    const float* __restrict__ rdy, const float* __restrict__ rdz,
+                    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+                    int anyhit, float* __restrict__ out_t, int* __restrict__ out_rnode,
+                    int* __restrict__ out_tri, float* __restrict__ out_u,
+                    float* __restrict__ out_v, unsigned int* __restrict__ overflow) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+  unsigned int dropped = 0;
+  const Hit h = walk<kLevels, kStack, kSidecar, kSplit>(nodes, sidecar, tris128, root_code, r,
+                                                        tmax[i], anyhit != 0, dropped);
+  store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
+  if (dropped) atomicAdd(overflow, dropped);
+}
+
+template <int kLevels, int kStack, bool kSidecar = false, bool kSplit = false>
+int launch_traverse_bvh(const float* nodes, const int* sidecar, const float* tris128,
+                        int root_code, const float* rox, const float* roy, const float* roz,
+                        const float* rdx, const float* rdy, const float* rdz, const float* tmin,
+                        const float* tmax, int n, int anyhit, float* out_t, int* out_rnode,
+                        int* out_tri, float* out_u, float* out_v, unsigned int* overflow,
+                        void* stream) {
+  if (n <= 0) return 0;
+  const int grid = (n + kBlock - 1) / kBlock;
+  traverse_bvh_kernel<kLevels, kStack, kSidecar, kSplit>
+      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          nodes, sidecar, tris128, root_code, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit,
+          out_t, out_rnode, out_tri, out_u, out_v, overflow);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace before
+}  // namespace vkgr
+
+"""
+ENTRY_END = "scratch, s);\n}\n"
+
+
+def walk_before(entry, first, last, launch):
+    """The "every element off" variant of a kernel whose C entry point
+    `entry` runs from `first` to `last`: GENERIC before the entry, whose
+    body becomes `launch` (a call of GENERIC's launch_traverse_bvh)."""
+    head = f'extern "C" int {entry}('
+    return [(head, GENERIC + head), ((first, last), launch)]
+
 
 # traverse_bvh2.cu (v2)
 V2_VISIT = """    const Visit2 v = visit2(nodes, e, r, h.t);
@@ -307,14 +446,13 @@ V2_ROW_LOADS_OFF = [
      "    if (test_leaf(tris128, e, r, anyhit, h)) return true;")]
 V2_PUSH = "    if (sp < kStack) {\n      stack[sp++] = code;"
 V2_ANY = runtime_anyhit("  int stack[kStack];\n  unsigned dropped = 0;\n")
-# the walk before the redesign: traverse_bvh.cuh's generic walk, one thread per lane
-ENTRY_END = "scratch, s);\n}\n"
-V2_OLD = [(("  using namespace vkgr::bvh2;\n", ENTRY_END),
-           """  return vkgr::launch_traverse_bvh<1, 128>(nodes_fi, nullptr, tris128, root_code, rox, roy, roz, rdx,
-                                           rdy, rdz, tmin, tmax, n, anyhit, out_t, out_rnode,
-                                           out_tri, out_u, out_v, overflow, stream);
+# the walk before the redesign: the generic walk, one thread per lane
+V2_OLD = walk_before("vkgr_traverse_bvh2", "  using namespace vkgr::bvh2;\n", ENTRY_END,
+                     """  return vkgr::before::launch_traverse_bvh<1, 128>(nodes_fi, nullptr, tris128, root_code, rox, roy,
+                                           roz, rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t,
+                                           out_rnode, out_tri, out_u, out_v, overflow, stream);
 }
-""")]
+""")
 
 # traverse_bvh16.cu (v6)
 V6_GROUP_SPAN = ("  __shared__ int stacks[kRays * kStackStride];\n", "  if (dropped) atomicAdd(overflow, dropped);\n")
@@ -322,18 +460,18 @@ V6_GROUP_SPAN = ("  __shared__ int stacks[kRays * kStackStride];\n", "  if (drop
 V6_THREAD = [(V6_GROUP_SPAN, """  unsigned dropped = 0;
   walk_list<1>(header, list, [&](int i) {
     const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
-    const Hit h = walk<4, kStack, false>(nodes, nullptr, tris128, root, r, tmax[i], kAny, dropped);
+    const Hit h = walk<4, kStack>(nodes, tris128, root, r, tmax[i], kAny, dropped);
     store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
   });
   if (dropped) atomicAdd(overflow, dropped);
 """), ("static_cast<long long>(n) * kRayLanes", "n")]
 V6_ANY = runtime_anyhit("  unsigned dropped = 0;\n")
-V6_OLD = [(("  using namespace vkgr::bvh16;\n", ENTRY_END),
-           """  return vkgr::launch_traverse_bvh<4, 256>(nodes16_fi, nullptr, tris128, root_code, rox, roy, roz,
-                                           rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t, out_rnode,
-                                           out_tri, out_u, out_v, overflow, stream);
+V6_OLD = walk_before("vkgr_traverse_bvh16", "  using namespace vkgr::bvh16;\n", ENTRY_END,
+                     """  return vkgr::before::launch_traverse_bvh<4, 256>(nodes16_fi, nullptr, tris128, root_code, rox,
+                                           roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t,
+                                           out_rnode, out_tri, out_u, out_v, overflow, stream);
 }
-""")]
+""")
 # the group's stacks in device memory (cached in L1, where local memory lives), a slice per
 # ray of each block the persistent grid can hold (at most 16 blocks an SM)
 V6_DEVICE_STACK = [
@@ -341,6 +479,47 @@ V6_DEVICE_STACK = [
     ("  __shared__ int stacks[kRays * kStackStride];\n", ""),
     ("  int* stack = stacks + (threadIdx.x / kRayLanes) * kStackStride;\n",
      "  int* stack = device_stacks + (blockIdx.x * kRays + threadIdx.x / kRayLanes) * kStackStride;\n")]
+
+# traverse_bvh4_sidecar.cu (v7) and traverse_bvh4_split.cu (packet4), both on sidecar_walk.cuh;
+# whole-row loads off: visit_sc with expand_node's loads (three float2 per box, then, where a box
+# is entered, the int row's two int4), one triangle at a time
+SC_FLOAT2_VISIT = """  const float* row = nodes + static_cast<size_t>(e) * 32;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const float2* bp = reinterpret_cast<const float2*>(row + 6 * s);
+    const float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
+    if (slab(b0.x, b0.y, b1.x, b1.y, b2.x, b2.y, r, t_best)) hitmask |= 1u << s;
+  }
+  if (!hitmask) return Visit{0, 0, 0, 0, 0u};
+  const int4* meta = reinterpret_cast<const int4*>(sidecar + static_cast<size_t>(e) * 8);
+  const int4 codes = __ldg(meta), axes = __ldg(meta + 1);
+  if (!axis_sign(axes.x, r.sx, r.sy, r.sz)) flip |= 1u;
+  if (!axis_sign(axes.y, r.sx, r.sy, r.sz)) flip |= 2u;
+  if (!axis_sign(axes.z, r.sx, r.sy, r.sz)) flip |= 4u;
+"""
+SC_ROW_LOADS_OFF = [
+    (("  const float4* box = reinterpret_cast<const float4*>",
+      "  if (!axis_sign(axes.z, r.sx, r.sy, r.sz)) flip |= 4u;\n"), SC_FLOAT2_VISIT, ROWS),
+    ("    if (leaf<kSplit>(tris, e, r, anyhit, h)) return true;",
+     "    if (test_leaf<kSplit>(tris, e, r, anyhit, h)) return true;", SC)]
+SC_TEMPLATE = "template <bool kAny, bool kSplit>\n__global__ void __launch_bounds__(kBlock)\nwalk_kernel("
+V7_ANY = [(SC_TEMPLATE, SC_TEMPLATE.replace("bool kAny", "bool kAnyT"), SC),
+          (BVH4_STACK, BVH4_STACK + RUNTIME_ANY, SC)]
+V7_OLD = walk_before("vkgr_traverse_bvh4_sidecar", "  using namespace vkgr::sc4;\n", ENTRY_END,
+                     """  return vkgr::before::launch_traverse_bvh<2, 64, true>(nodes4_fi, nodes4_sc, tris128, root_code, rox,
+                                                 roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit,
+                                                 out_t, out_rnode, out_tri, out_u, out_v, overflow,
+                                                 stream);
+}
+""")
+PACKET4_OLD = walk_before("vkgr_traverse_bvh4_split", "  using namespace vkgr::sc4;\n",
+                          "static_cast<cudaStream_t>(stream));\n}\n",
+                          """  return vkgr::before::launch_traverse_bvh<2, 64, true, true>(nodes4_f, nodes4_i, tris, 0, rox, roy,
+                                                       roz, rdx, rdy, rdz, tmin, tmax, n, 0, out_t,
+                                                       out_rnode, out_row, out_u, out_v, overflow,
+                                                       stream);
+}
+""")
 
 # kernel source -> variant -> [(old text, new text[, header]) or ((first, last), new text of the
 # span first..last[, header])]
@@ -410,6 +589,21 @@ VARIANTS = {
             (V2_PUSH, "    if (code >= 0) prefetch_l1(nodes + static_cast<size_t>(code) * 16);\n" + V2_PUSH)],
         "every element off (the walk before the redesign)": V2_OLD,
     },
+    "traverse_bvh4_sidecar.cu": {
+        "source": [],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "whole-row loads off": SC_ROW_LOADS_OFF,
+        "any-hit as a template off (a runtime flag)": V7_ANY,
+        "every element off (the walk before the redesign)": V7_OLD,
+    },
+    "traverse_bvh4_split.cu": {
+        "source": [],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "whole-row loads off": SC_ROW_LOADS_OFF,
+        "triangle batch 2": [("kTriBatch = 4;", "kTriBatch = 2;", ROWS)],
+        "triangle batch 8": [("kTriBatch = 4;", "kTriBatch = 8;", ROWS)],
+        "every element off (the walk before the redesign)": PACKET4_OLD,
+    },
 }
 # kernel -> its variants whose visit order differs from the source's: t equal on every lane, ids
 # except ties
@@ -419,7 +613,7 @@ ORDER = {"traverse_bvh4_multipop.cu": {"order off (the reference's order)",
 
 def _files(kernel):
     """The texts a variant of `kernel` may edit: the kernel and the shared headers."""
-    return {name: (cuda_lib._CSRC / name).read_text() for name in (kernel, LIVE, ROWS)}
+    return {name: (cuda_lib._CSRC / name).read_text() for name in (kernel, LIVE, ROWS, SC)}
 
 
 def variant_sources(kernel, name, files=None):
@@ -513,21 +707,29 @@ def loaded(lib):
         cuda_lib._loaded = saved
 
 
-# kernel source -> (kernel selection, recorded wrapper of ops.intersect, call(bvh, rays, anyhit))
+# kernel source -> (kernel selection, VKGR_TRAVERSAL, recorded wrapper of ops.intersect,
+# call(bvh, rays, anyhit))
 KERNELS = {
-    "traverse_bvh4.cu": (("v3", "v9"), "traverse_bvh4",
+    "traverse_bvh4.cu": (("v3", "v9"), "packet", "traverse_bvh4",
                          lambda bvh, rays, a: tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, bvh.root4_code,
                                                                 *rays, anyhit=a)),
-    "traverse_lanes.cu": (("lane", "lane_stream"), "traverse_lanes",
+    "traverse_lanes.cu": (("lane", "lane_stream"), "packet", "traverse_lanes",
                           lambda bvh, rays, a: tlane.traverse_lanes(bvh.lane_entries, *rays, anyhit=a)),
-    "traverse_bvh4_multipop.cu": (("v5", "v5"), "traverse_bvh4_multipop",
+    "traverse_bvh4_multipop.cu": (("v5", "v5"), "packet", "traverse_bvh4_multipop",
                                   lambda bvh, rays, a: tbmp.traverse_bvh4_multipop(
                                       bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=a)),
-    "traverse_bvh16.cu": (("v6", "v6"), "traverse_bvh16",
+    "traverse_bvh16.cu": (("v6", "v6"), "packet", "traverse_bvh16",
                           lambda bvh, rays, a: tb16.traverse_bvh16(bvh.nodes16_fi, bvh.tris128, *rays, anyhit=a)),
-    "traverse_bvh2.cu": (("v2", "v2"), "traverse_bvh2",
+    "traverse_bvh2.cu": (("v2", "v2"), "packet", "traverse_bvh2",
                          lambda bvh, rays, a: tb2.traverse_bvh2(bvh.nodes_fi, bvh.tris128, bvh.root_code, *rays,
                                                                 anyhit=a)),
+    "traverse_bvh4_sidecar.cu": (("v7", "v7"), "packet", "traverse_bvh4_sidecar",
+                                 lambda bvh, rays, a: tbsc.traverse_bvh4_sidecar(
+                                     bvh.nodes4_fi, bvh.nodes4_sc, bvh.tris128, bvh.root4_code, *rays, anyhit=a)),
+    # closest hit only: the any-hit rays are traced closest hit
+    "traverse_bvh4_split.cu": (("v3", "v9"), "packet4", "traverse_bvh4_split",
+                               lambda bvh, rays, a: tb4s.traverse_bvh4_split(bvh.nodes4_f, bvh.nodes4_i, bvh.tris,
+                                                                             *rays)),
 }
 
 
@@ -540,8 +742,8 @@ def profile(call, bvh, rays, anyhit):
         for _ in range(10):
             call(bvh, rays, anyhit)
         torch.cuda.synchronize()
-    return {e.key.split("(")[0].replace("void ", ""): e.device_time_total / e.count
-            for e in prof.key_averages() if e.device_time_total > 0}
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", ""):
+            e.device_time_total / e.count for e in prof.key_averages() if e.device_time_total > 0}
 
 
 def _check(label, kernel, name, out, want):
@@ -557,7 +759,7 @@ def _check(label, kernel, name, out, want):
 
 def tune(kernel, device, smi, scenes):
     """Every variant of `kernel` on the scenes' recorded launches and probe rays."""
-    selection, wrapper, call = KERNELS[kernel]
+    selection, traversal, wrapper, call = KERNELS[kernel]
     libs = build(kernel)
     registers = {}
     for name, lib in libs.items():
@@ -568,6 +770,7 @@ def tune(kernel, device, smi, scenes):
         cs.log(f"[tuning] {kernel} {name}: walk {registers[name]}")
     results = {"registers": registers, "scenes": {}}
     os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = selection
+    os.environ["VKGR_TRAVERSAL"] = traversal
     for label, r in scenes:
         ro, rd = cs.probe_rays(r, device)
         n = ro.shape[0]
@@ -617,6 +820,7 @@ def tune(kernel, device, smi, scenes):
                 cs.log(f"[tuning] {kernel} {label} {what}, device us per call: "
                        + ", ".join(f"{k} {v:.2f}" for k, v in prof[what].items()))
         results["scenes"][label] = dict(variants=scene_res, live=live, profile=prof)
+    os.environ.pop("VKGR_TRAVERSAL")
     return results
 
 

@@ -13,15 +13,16 @@ Phases (each raises on failure; nothing is caught):
      HDR gather over 2M indices beside its library call
      (torch.index_select). Times of all versions and the visit counts of
      the bounds are printed. traverse_bvh4 is also held equal to v7 (the
-     one-ray-per-thread walk it replaces) bit for bit on every ray and
+     same walk over the int32 sidecar) bit for bit on every ray and
      timed beside it in interleaved rounds (phase 6 does the same on the
      terrain), and v5's closest-hit t is held equal to traverse_bvh4's bit
      for bit on every ray (ids, u and v may differ only there: equal-t
      ties, counted), any-hit occlusion equal, both timed in interleaved
      rounds; the build's registers and spills of the instances of the
-     five compacting kernels (traverse_bvh4.cu, traverse_lanes.cu,
-     traverse_bvh4_multipop.cu, traverse_bvh2.cu, traverse_bvh16.cu) are
-     printed and kept in the JSON line;
+     seven compacting kernels (traverse_bvh4.cu, traverse_lanes.cu,
+     traverse_bvh4_multipop.cu, traverse_bvh2.cu, traverse_bvh16.cu,
+     traverse_bvh4_sidecar.cu, traverse_bvh4_split.cu) are printed and kept
+     in the JSON line;
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
      user entry points (create_scene, create_hdr, on_render, image_linear,
@@ -53,7 +54,7 @@ Phases (each raises on failure; nothing is caught):
      wrapped to record clones of the 8 ray components of each of its
      launches (10 a frame: closest and shadow per bounce); each launch is
      then run through traverse_bvh4 and through v7 (traverse_bvh4_sidecar,
-     the one-ray-per-thread walk), held equal to v7 bit for bit on every
+     the same walk over the sidecar), held equal to v7 bit for bit on every
      lane, timed in interleaved rounds, and held
      against the plain version on a fixed subset of 65,536 lanes (dead
      lanes included); lanes, live lanes, ms of each, the bound and the
@@ -83,7 +84,13 @@ Phases (each raises on failure; nothing is caught):
      the terrain and on the helmet (2 warm-up and 10 timed frames each):
      only traverse_bvh4_split's counter may move among the traversal
      kernels, and frame 0 must agree with the (v3, v9) frame 0 of phases 7
-     and 4 at tests/test_torch_frame.py's thresholds with the same ray count;
+     and 4 at tests/test_torch_frame.py's thresholds with the same ray count.
+     Then phase 7b's replay of packet4: one more frame with
+     ops.intersect.traverse_bvh4_split wrapped to record its 10 launches
+     (every one closest hit, the shadow segments too), each timed beside
+     traverse_bvh4 on the same lanes (the lanes whose t differs counted),
+     held against the plain version on a fixed subset of 65,536 lanes, with
+     its bound;
  11. VKGR_TRAVERSAL=wavefront (the stackless walk in plain torch) on the
      helmet: a 960x540 frame 0 sizes the run (time scaled by pixel count),
      then 1 warm-up and 1 timed frame at the largest of 1920x1080, 960x540
@@ -169,13 +176,13 @@ KERNEL_OF = {"v3": "traverse_bvh4", "v9": "traverse_bvh4", "v2": "traverse_bvh2"
 BVH4_VARIANTS = ("traverse_bvh4_multipop", "traverse_bvh4_sidecar", "traverse_bvh4_leafqueue")
 # the kernels with live-lane compaction and a persistent grid (csrc/live_lanes.cuh)
 COMPACTING = ("traverse_bvh4.cu", "traverse_lanes.cu", "traverse_bvh4_multipop.cu", "traverse_bvh2.cu",
-              "traverse_bvh16.cu")
+              "traverse_bvh16.cu", "traverse_bvh4_sidecar.cu", "traverse_bvh4_split.cu")
 # phase 7b's other replays: wrapper -> its kernel selection
 REPLAYS = {"traverse_lanes": ("lane", "lane_stream"), "traverse_bvh4_multipop": ("v5", "v5"),
            "traverse_bvh2": ("v2", "v2"), "traverse_bvh16": ("v6", "v6")}
 # table arguments before the 8 ray components of each replayed wrapper
 TABLE_ARGS = {"traverse_bvh4": 3, "traverse_lanes": 1, "traverse_bvh4_multipop": 3, "traverse_bvh2": 3,
-              "traverse_bvh16": 2}
+              "traverse_bvh16": 2, "traverse_bvh4_sidecar": 4, "traverse_bvh4_split": 3}
 # replayed wrappers timed beside traverse_bvh4 on the same lanes
 BESIDE_BVH4 = ("traverse_bvh4_multipop", "traverse_bvh2", "traverse_bvh16")
 MEGA_DEPTHS = (1, 2, 5)
@@ -255,8 +262,8 @@ def kernel_resources(compiler_log, source):
     """Registers, spills and shared memory of every kernel instance of
     csrc/<source> (one of COMPACTING), from ptxas -v in the build log:
     instance -> dict. The walk's two instances are "walk closest" and
-    "walk any"; traverse_bvh.cuh's one-thread-per-lane kernel (a tuning
-    variant's walk before the redesign) is "walk (generic)"."""
+    "walk any"; the one-thread-per-lane kernel of bvh4_tuning.GENERIC (a
+    tuning variant's walk before the redesign) is "walk (generic)"."""
     out, name, section = {}, None, None
     for line in compiler_log.splitlines():
         if line.startswith("== "):
@@ -541,16 +548,16 @@ def record_launches(r, wrapper):
     """One frame of renderer r through on_render, with
     ops.intersect.<wrapper> (a key of TABLE_ARGS) wrapped to record clones
     of each launch's 8 ray components; returns ([(components, anyhit)], the
-    frame's aux)."""
+    frame's aux). anyhit is False for a wrapper without the flag (packet4)."""
     from vk_gltf_renderer_tpu_torch.ops import intersect
 
     recorded = []
     traced = getattr(intersect, wrapper)
     skip = TABLE_ARGS[wrapper]
 
-    def record(*args, anyhit=False):
-        recorded.append(([c.clone() for c in args[skip:]], anyhit))
-        return traced(*args, anyhit=anyhit)
+    def record(*args, **kw):
+        recorded.append(([c.clone() for c in args[skip:]], kw.get("anyhit", False)))
+        return traced(*args, **kw)
 
     setattr(intersect, wrapper, record)
     try:
@@ -1174,9 +1181,52 @@ def phase_packet4_frames(device, scenes, smi):
             f"{mrays:.3f} Mrays/s on {smi}; launches {launches['traverse_bvh4_split']} of "
             f"traverse_bvh4_split, {tgather.COUNTER.launches} of gather_channels")
         _require_agree(f"[packet4] {label} frame 0 vs (v3, v9)", first, ref)
-        runs[label] = dict(ms=ms, mrays=mrays, launches=launches["traverse_bvh4_split"])
+        recorded, aux = record_launches(r, "traverse_bvh4_split")
+        runs[label] = dict(ms=ms, mrays=mrays, launches=launches["traverse_bvh4_split"],
+                           replay=_replay_packet4(device, label, r.dev_bvh, recorded, aux, smi))
+        del r, recorded
     os.environ.pop("VKGR_TRAVERSAL")
     return runs
+
+
+def _replay_packet4(device, label, bvh, recorded, aux, smi):
+    """Phase 7b for packet4: each recorded launch of one packet4 frame
+    timed beside traverse_bvh4 (closest hit, the same lanes), against the
+    plain version on a fixed subset of SUBSET lanes (dead lanes included),
+    with its bound. Nothing may be dropped. Returns dict(frame, launches)."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse as tt
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_split as tb4s
+
+    name = "traverse_bvh4_split"
+    require(0 < len(recorded) <= 2 * DEPTH, f"packet4 {label}: {len(recorded)} {name} launches")
+    tables = (bvh.nodes4_f, bvh.nodes4_i, bvh.tris)
+    _, _, arity, row_bytes = SPLIT[name]
+    tb4s.OVERFLOW.reset()
+    launches = []
+    for k, (rays, _) in enumerate(recorded):
+        n = rays[0].shape[0]
+        live = int((rays[7] >= 0).sum())
+        times = _beside_bvh4(bvh, name, lambda *a, anyhit: tb4s.traverse_bvh4_split(*tables, *a), rays, False)
+        sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(70 + k))[:SUBSET]
+        sargs = tuple(a[sub.to(device)].contiguous() for a in rays)
+        stats = {}
+        err = _check_against_plain(name, tb4s.traverse_bvh4_split(*tables, *sargs),
+                                   tt.traverse_bvh4_split_plain(*tables, *sargs, stats=stats), SUBSET, False)
+        b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, SUBSET, SPLIT_LEAF_BYTES, n_dead=n - live)
+        log(f"[replay] packet4 {label} launch {k}: {n} lanes, {live} live ({100 * live / n:.2f}%): {name} "
+            f"{times[name]:.4f} ms, traverse_bvh4 {times['traverse_bvh4']:.4f} ms on the same lanes (t differs "
+            f"on {times['t_differs']}); bound {b_ms:.4f} ms ({b_by}); plain on {SUBSET} lanes "
+            f"({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
+        launches.append(dict(hit="closest", lanes=n, live=live, ms=times[name], traverse_bvh4=times["traverse_bvh4"],
+                             t_differs=times["t_differs"], bound_ms=b_ms, max_abs_err=err))
+    dropped = tb4s.OVERFLOW.total()
+    require(dropped == 0, f"{name}: the replay dropped {dropped} (stack overflow / bad link)")
+    frame = {key: sum(x[key] for x in launches) for key in ("ms", "traverse_bvh4", "bound_ms", "live")}
+    frame.update(rays=float(aux["rays"]), traverse_bvh4_ms=frame.pop("traverse_bvh4"))
+    log(f"[replay] packet4 {label} frame ({len(launches)} launches, {frame['live']} live lanes; the frame "
+        f"counted {frame['rays']:.0f} rays): {name} {frame['ms']:.4f} ms, traverse_bvh4 on the same lanes "
+        f"{frame['traverse_bvh4_ms']:.4f} ms, bound {frame['bound_ms']:.4f} ms, on {smi}")
+    return dict(frame=frame, launches=launches)
 
 
 def phase_wavefront_frame(device, path, hdr, smi):
@@ -1440,6 +1490,15 @@ def main():
                       ("traverse_bvh4_multipop", ("v5", "v5")), ("traverse_bvh4_sidecar", ("v7", "v7")),
                       ("traverse_bvh4_leafqueue", ("v3", "v8"))):
         extra = {"helmet": kern[name]} if name in BVH4_VARIANTS else {}
+        if name == "traverse_bvh4_sidecar":  # phase 7b: v7 on the (v3, v9) frame's lanes
+            extra.update(resources=resources[SOURCES[name][0]],
+                         replay={label: dict(ms=v["frame"]["v7"], bound_ms=v["frame"]["bound_ms"],
+                                             live=v["frame"]["live"], rays=v["frame"]["rays"],
+                                             traverse_bvh4_ms=v["frame"]["traverse_bvh4"])
+                                 for label, v in replay.items()},
+                         replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["v7"], x["bound_ms"]]
+                                                  for x in v["launches"]] for label, v in replay.items()},
+                         replay_launches_fields=["hit", "lanes", "live", "ms", "bound_ms"])
         if name in REPLAYS:
             extra.update(resources=resources[SOURCES[name][0]],
                          replay={label: v["frame"] for label, v in replays[name].items()},
@@ -1451,7 +1510,13 @@ def main():
                           runs={f"{label},depth{depth}": v for (label, depth), v in mega.items()}))
     kernels.append(_entry("traverse_bvh4_split", packet4["terrain"]["launches"],
                           split["terrain"]["traverse_bvh4_split"], helmet=split["helmet"]["traverse_bvh4_split"],
-                          helmet_launches=packet4["helmet"]["launches"]))
+                          helmet_launches=packet4["helmet"]["launches"],
+                          resources=resources["traverse_bvh4_split.cu"],
+                          replay={label: v["replay"]["frame"] for label, v in packet4.items()},
+                          replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["ms"], x["traverse_bvh4"],
+                                                    x["bound_ms"]] for x in v["replay"]["launches"]]
+                                           for label, v in packet4.items()},
+                          replay_launches_fields=["hit", "lanes", "live", "ms", "traverse_bvh4_ms", "bound_ms"]))
     # v1 has no renderer path: its launches are those of phase 9's two intersect_rays_packet
     # calls on the terrain
     kernels.append(_entry("traverse_bvh2_split", split["terrain"]["traverse_bvh2_split"]["launches"],

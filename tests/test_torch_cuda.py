@@ -363,13 +363,20 @@ COMPACTING = {
            lambda bvh, args, anyhit, root: ttrav.traverse_bvh16_plain(bvh.nodes16_fi, bvh.tris128, 0, *args,
                                                                       anyhit=anyhit),
            lambda bvh: 0),
+    "v7": (tbsc, lambda bvh, args, anyhit, root: tbsc.traverse_bvh4_sidecar(bvh.nodes4_fi, bvh.nodes4_sc,
+                                                                            bvh.tris128, root, *args,
+                                                                            anyhit=anyhit),
+           lambda bvh, args, anyhit, root: ttrav.traverse_bvh4_sidecar_plain(bvh.nodes4_fi, bvh.nodes4_sc,
+                                                                             bvh.tris128, root, *args,
+                                                                             anyhit=anyhit),
+           lambda bvh: bvh.root4_code),
 }
 
 
 def _compacting_tables(wb, cuda):
-    """DeviceBvh of wb with the lane entries, v5's stack need and the BVH2
-    and BVH16 rows."""
-    fam = {"lane", "bvh4_multipop", "bvh2", "bvh16"}
+    """DeviceBvh of wb with the lane entries, v5's stack need, the BVH2
+    and BVH16 rows and the v7 sidecar."""
+    fam = {"lane", "bvh4_multipop", "bvh2", "bvh16", "bvh4_sidecar"}
     wb = add_kernel_tables(wb, fam)
     return add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, fam)
 
@@ -378,7 +385,9 @@ def _compacting_against_plain(kernel, bvh, args, anyhit, root=None):
     """A kernel of COMPACTING against its plain version on the same lanes
     (ids equal except on equal-t ties, t/u/v within 1e-5, occlusion equal),
     one launch counted, nothing dropped; v5's closest-hit t also equals
-    traverse_bvh4's bit for bit on every lane. Returns (outputs, hit)."""
+    traverse_bvh4's bit for bit on every lane, and v7's five outputs equal
+    traverse_bvh4's bit for bit, closest and any hit. Returns (outputs,
+    hit)."""
     mod, call, plain, default_root = COMPACTING[kernel]
     root = default_root(bvh) if root is None else root
     mod.OVERFLOW.reset()
@@ -389,6 +398,9 @@ def _compacting_against_plain(kernel, bvh, args, anyhit, root=None):
     t, rn, tri, u, v, dropped = plain(bvh, args, anyhit, root)
     kt, krn, ktri, ku, kv = out
     assert dropped == 0
+    if kernel == "v7":
+        ref = tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, root, *args, anyhit=anyhit)
+        assert all(_same_bits(o, r) for o, r in zip(out, ref))
     hit = tri >= 0
     assert torch.equal(ktri >= 0, hit)
     if not anyhit:
@@ -460,9 +472,9 @@ def test_compacting_kernel_without_live_lanes(cuda, kernel):
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_compacting_kernel_on_the_leaf_root_scene(cuda, kernel, anyhit):
     """The 2-triangle plane whose binary root is a leaf, rays from above
-    and below with tmin -3 below: v5 from the BVH4 root row and from the
-    leaf passed as a negative root code (there a lane with tmin < t < tmax
-    < 0 hits, as in BVH4), v2 from its leaf root code (the same), v6 from
+    and below with tmin -3 below: v5 and v7 from the BVH4 root row and from
+    the leaf passed as a negative root code (there a lane with tmin < t <
+    tmax < 0 hits, as in BVH4), v2 from its leaf root code (the same), v6 from
     its row 0 (internal: one leaf child), and the lane walk, whose tree
     starts with the triangle entries and which skips every lane with
     tmax < 0."""
@@ -489,7 +501,8 @@ def test_compacting_kernel_on_the_leaf_root_scene(cuda, kernel, anyhit):
     below = torch.tensor(~up, device=cuda)
     leaf = int(bvh.nodes4_fi[0, 24:28].min())
     assert bvh.root_code < 0
-    for root in {"v5": (bvh.root4_code, leaf), "v2": (bvh.root_code,)}.get(kernel, (None,)):
+    for root in {"v5": (bvh.root4_code, leaf), "v7": (bvh.root4_code, leaf),
+                 "v2": (bvh.root_code,)}.get(kernel, (None,)):
         _, hit = _compacting_against_plain(kernel, bvh, args, anyhit, root)
         assert int(hit.sum()) > 100
         assert bool(hit[below].any()) == (root is not None and root < 0)
@@ -631,6 +644,68 @@ def test_split_traversal_kernels_match_plain(cuda, scene, kernel):
     torch.testing.assert_close(k["t"][hit], t[hit], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(k["u"][same & hit], u[same & hit], rtol=0, atol=1e-5)
     torch.testing.assert_close(k["v"][same & hit], v[same & hit], rtol=0, atol=1e-5)
+
+
+# lane mix -> (share of live lanes, the dead lanes' tmax): all live, 0.1% live with tmax -1,
+# no live lane (-1, -inf, -0.5), 10% live with NaN
+LANE_MIXES = {"all_live": (1.0, (-1.0,)), "sparse": (0.001, (-1.0,)),
+              "dead_only": (0.0, (-1.0, float("-inf"), -0.5)), "nan": (0.1, (float("nan"),))}
+
+
+def _lane_mix(wb, mix, anyhit, cuda):
+    """200,000 helmet lanes (_inside_rays) of LANE_MIXES[mix]; live lanes
+    get tmax 3 for any hit, else 1e32. Returns (args, live mask)."""
+    share, dead_tmax = LANE_MIXES[mix]
+    n = 200_000
+    args = _inside_rays(wb, n, 52, cuda)
+    g = torch.Generator(device="cpu").manual_seed(52)
+    live = (torch.rand(n, generator=g) < share).to(cuda)
+    dead = torch.tensor(dead_tmax, device=cuda).repeat(n // len(dead_tmax) + 1)[:n]
+    args[7] = torch.where(live, 3.0 if anyhit else 1e32, dead).contiguous()
+    return args, live
+
+
+@pytest.mark.parametrize("mix", sorted(LANE_MIXES))
+def test_packet4_kernel_on_lane_mixes_equals_plain(cuda, mix):
+    """The packet4 kernel (csrc/traverse_bvh4_split.cu) on helmet lanes all
+    live, 0.1% live, none live, and 10% live among NaN lanes: its five
+    outputs equal traverse_bvh4_split_plain's bit for bit on every lane
+    (the same order and arithmetic), the dead lanes read (tmax, -1, -1, 0,
+    0), one launch counted, nothing dropped."""
+    wb = add_kernel_tables(_helmet_bvh(), {"bvh4_split"})
+    bvh = add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, {"bvh4_split"})
+    args, live = _lane_mix(wb, mix, False, cuda)
+    tables = (bvh.nodes4_f, bvh.nodes4_i, bvh.tris)
+    tb4s.OVERFLOW.reset()
+    launches = tb4s.COUNTER.launches
+    out = tb4s.traverse_bvh4_split(*tables, *args)
+    torch.cuda.synchronize()
+    assert tb4s.COUNTER.launches == launches + 1 and tb4s.OVERFLOW.total() == 0
+    *plain, dropped = ttrav.traverse_bvh4_split_plain(*tables, *args)
+    assert dropped == 0
+    assert all(_same_bits(o, p) for o, p in zip(out, plain))
+    _assert_dead(out, args[7], ~live)
+    assert int((out[2] >= 0).sum()) >= int(live.sum()) // 10
+
+
+@pytest.mark.parametrize("mix", sorted(LANE_MIXES))
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_v7_kernel_on_lane_mixes_equals_bvh4_and_plain(cuda, mix, anyhit):
+    """v7 (csrc/traverse_bvh4_sidecar.cu) on the lane mixes of
+    test_packet4_kernel_on_lane_mixes_equals_plain, closest and any hit:
+    its five outputs equal traverse_bvh4's and the plain version's
+    (traverse_bvh4_sidecar_plain) bit for bit on every lane, the dead lanes
+    read (tmax, -1, -1, 0, 0), nothing dropped."""
+    wb = _helmet_bvh()
+    bvh = _bvh4_tables(wb, cuda)
+    args, live = _lane_mix(wb, mix, anyhit, cuda)
+    out = _bvh4_against_v7(bvh, args, anyhit)
+    *plain, dropped = ttrav.traverse_bvh4_sidecar_plain(bvh.nodes4_fi, bvh.nodes4_sc, bvh.tris128,
+                                                        bvh.root4_code, *args, anyhit=anyhit)
+    assert dropped == 0
+    assert all(_same_bits(o, p) for o, p in zip(out, plain))
+    _assert_dead(out, args[7], ~live)
+    assert int((out[2] >= 0).sum()) >= int(live.sum()) // 10
 
 
 @pytest.mark.parametrize("variant", tnf.VARIANTS)

@@ -310,6 +310,68 @@ def test_split_walks_count_visits_and_drops(editor, wide):
     assert dropped > 0
 
 
+def _down_rays(n, seed):
+    """Rays straight down onto the few scene's plane (y = 0), half from
+    above (the plane at t = +1, tmin 0) and half from below (at t = -1,
+    behind the origin, tmin -3); returns (ro, rd, tmin, up)."""
+    rng = np.random.default_rng(seed)
+    xz = rng.uniform(-0.9, 0.9, size=(n, 2)).astype(np.float32)
+    up = rng.random(n) < 0.5
+    ro = np.stack([xz[:, 0], np.where(up, 1.0, -1.0), xz[:, 1]], 1).astype(np.float32)
+    rd = np.tile(np.float32([0.0, -1.0, 0.0]), (n, 1))
+    return ro, rd, np.where(up, 0.0, -3.0).astype(np.float32), up
+
+
+@pytest.mark.parametrize("scene", ["editor", "terrain", "few"])
+def test_plain_packet4_dead_lane_rule(scene, request):
+    """The dead-lane rule that the compaction of csrc/traverse_bvh4_split.cu
+    relies on, in its plain version: every lane with tmax -1, -0.0, -0.5
+    or NaN returns (tmax, -1, row -1, 0, 0) bit for bit, though the scene's
+    missing children carry code -1 and an inverted box (lo = +3e38, hi =
+    -3e38), whose slab test gives tnear 0 and tfar tmax: a negative or NaN
+    tmax enters it no more than a real box. The walk starts at row 0, whose
+    slab tests floor tnear at 0, so even the few scene's plane behind the
+    origin (t = -1, in (tmin, tmax) = (-3, -0.5)) is never reached. -0.0
+    passes tmax >= 0 and is walked by the kernel, with the same result.
+    intersect_rays_packet(wide=True) turns each such lane into t = 1e32
+    and ids -1."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    codes = bvh_t.nodes4_i[:, 0:4]
+    boxes = bvh_t.nodes4_f[:, 0:24].reshape(-1, 4, 6)
+    missing = codes == -1
+    assert bool(missing.any()) and bool((boxes[missing][:, 0:3] > boxes[missing][:, 3:6]).all())
+    n = 512
+    if scene == "few":
+        ro, rd, tmin, up = _down_rays(n, seed=48)
+    else:
+        ro, rd, _ = _aimed_rays(wb, n, seed=48)
+        tmin, up = np.zeros(n, np.float32), np.ones(n, bool)
+    tmax = np.full(n, 1e32, np.float32)
+    tmax[1::4] = -1.0
+    tmax[2::8] = np.nan
+    tmax[3::8] = -0.0
+    tmax[5::16] = -0.5
+    dead = np.signbit(tmax) | np.isnan(tmax)
+    rays = (*(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)), torch.tensor(tmin),
+            torch.tensor(tmax))
+    t, rn, row, u, v, dropped = ttrav.traverse_bvh4_split_plain(bvh_t.nodes4_f, bvh_t.nodes4_i, bvh_t.tris,
+                                                                *rays)
+    assert dropped == 0 and dead.sum() > 250 and np.isnan(tmax[dead]).sum() > 60
+    assert np.array_equal(t.numpy()[dead].view(np.int32), tmax[dead].view(np.int32))
+    for ids in (rn, row):
+        assert (ids.numpy()[dead] == -1).all()
+    for f in (u, v):
+        assert np.array_equal(f.numpy()[dead].view(np.int32), np.zeros(dead.sum(), np.int32))
+    assert (row.numpy()[~dead] >= 0).sum() > 20
+    behind = (tmax == -0.5) & ~up  # the plane at t = -1 lies in (tmin, tmax)
+    assert behind.sum() > 10 or scene != "few"
+    port = intersect_rays_packet(bvh_t, torch.tensor(ro), torch.tensor(rd), torch.tensor(tmin), torch.tensor(tmax),
+                                 wide=True)
+    dead_t = torch.tensor(dead)
+    assert bool((port["t"][dead_t] == 1e32).all() and (port["tri"][dead_t] == -1).all())
+    assert bool((port["rnode"][dead_t] == -1).all())
+
+
 @pytest.mark.parametrize("scene", SCENES)
 def test_split_stack_need_fits_and_nothing_drops(scene, request):
     """The split walks' stack needs fit their kernels' stacks, and the

@@ -418,9 +418,46 @@ def test_lane_and_v5_tuning_variants_fit_the_kernel_sources(kernel, name):
                                          for n in bvh4_tuning.VARIANTS[k]])
 def test_bvh2_and_bvh16_tuning_variants_fit_the_kernel_sources(kernel, name):
     """The same for the BVH2 (v2) and BVH16 (v6) walks' variants, "every
-    element off" (traverse_bvh.cuh's launch_traverse_bvh restored) among
-    them."""
+    element off" (the generic walk, bvh4_tuning.GENERIC, put back before
+    the entry point) among them."""
     _assert_variant_fits(kernel, name)
+
+
+@pytest.mark.parametrize("kernel,name", [(k, n) for k in ("traverse_bvh4_sidecar.cu", "traverse_bvh4_split.cu")
+                                         for n in bvh4_tuning.VARIANTS[k]])
+def test_sidecar_and_split_tuning_variants_fit_the_kernel_sources(kernel, name):
+    """The same for the variants of v7 and packet4, which edit their shared
+    walk (csrc/sidecar_walk.cuh) or traverse_bvh.cuh, or put the generic
+    walk before the redesign back in front of the entry point ("every
+    element off")."""
+    _assert_variant_fits(kernel, name)
+
+
+def test_sidecar_walk_constants_match_the_kernels(monkeypatch):
+    """The walk that v7 and packet4 share (csrc/sidecar_walk.cuh) holds the
+    plain versions' STACK_DEPTH and STACK_DEPTH_SPLIT4 entries, both
+    kernels include it, and both wrappers pass the compaction's scratch
+    (traverse_launch.list_scratch)."""
+    from vk_gltf_renderer_tpu_torch import cuda_lib
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_split as tb4s
+    from vk_gltf_renderer_tpu_torch.ops import traverse_launch
+
+    assert _cu_constants("sidecar_walk.cuh")["kStackCap"] == ttrav.STACK_DEPTH == ttrav.STACK_DEPTH_SPLIT4 == 64
+    for name in ("traverse_bvh4_sidecar.cu", "traverse_bvh4_split.cu"):
+        assert '#include "sidecar_walk.cuh"' in (cuda_lib._CSRC / name).read_text()
+    passed = {}
+
+    def record(name, *args, extra=None):
+        passed[name] = extra
+
+    monkeypatch.setattr(tbsc, "run_traversal", record)
+    monkeypatch.setattr(tb4s, "run_traversal", record)
+    rays = [torch.zeros(1)] * 8
+    tbsc.traverse_bvh4_sidecar(torch.zeros(1, 32), torch.zeros(1, 8, dtype=torch.int32), torch.zeros(1, 128), 0,
+                               *rays)
+    tb4s.traverse_bvh4_split(torch.zeros(1, 32), torch.zeros(1, 8, dtype=torch.int32), torch.zeros(9, 16), *rays)
+    assert passed == {"traverse_bvh4_sidecar": traverse_launch.list_scratch,
+                      "traverse_bvh4_split": traverse_launch.list_scratch}
 
 
 def test_bvh2_and_bvh16_constants_match_the_kernels(monkeypatch):

@@ -1,7 +1,9 @@
 // Live-lane compaction and the persistent walk of the listed lanes, shared
-// by the five kernels that take the renderer's launches: traverse_bvh4.cu
+// by the seven kernels that take the renderer's launches: traverse_bvh4.cu
 // (v3/v9), traverse_lanes.cu (the lane walk), traverse_bvh4_multipop.cu
-// (v5), traverse_bvh2.cu (v2) and traverse_bvh16.cu (v6).
+// (v5), traverse_bvh2.cu (v2), traverse_bvh16.cu (v6), and
+// traverse_bvh4_sidecar.cu (v7) and traverse_bvh4_split.cu (packet4)
+// through sidecar_walk.cuh.
 //
 // The renderer traces every pixel's lane in every launch and marks
 // finished paths with tmax = -1, so after the first bounce 0.001-7% of the

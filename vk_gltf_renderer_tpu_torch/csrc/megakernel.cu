@@ -65,8 +65,7 @@ render_mega_kernel(const float* __restrict__ nodes4_fi, const float* __restrict_
     bool hit = false;
     if (alive) {
       const Ray r = make_ray(ox, oy, oz, dx, dy, dz, tmin);
-      const Hit h = walk<2, 64, false>(nodes4_fi, nullptr, tris128, root_code, r, kFar, false,
-                                       dropped);
+      const Hit h = walk<2, 64>(nodes4_fi, tris128, root_code, r, kFar, false, dropped);
       t = h.t;
       hit = h.tri >= 0.0f;
     } else {

@@ -1,11 +1,14 @@
-// Per-ray traversal of the fused BVH row tables, one ray per thread: the
-// arity-templated walk behind traverse_bvh4_sidecar.cu and
-// traverse_bvh4_split.cu (walk; test_leaf for both leaf layouts), the node
-// expansion the v8 schedule reuses (expand_node), the whole-row BVH4 visit
-// and leaf of traverse_bvh4.cu and the v5 walk (visit, leaf), the
-// whole-row BVH2 visit of traverse_bvh2.cu (visit2, with leaf), plus the
-// ray/box and ray/triangle tests that every traversal kernel and
-// megakernel.cu share (traverse_bvh16.cu's group walk among them).
+// Per-ray traversal of the fused BVH row tables, shared by every traversal
+// kernel. For the seven compacting kernels (live_lanes.cuh): the
+// whole-row BVH4 visits and leaf (visit and leaf: traverse_bvh4.cu and the
+// v5 walk of traverse_bvh4_multipop.cu; visit_sc and leaf: the walk of
+// sidecar_walk.cuh behind traverse_bvh4_sidecar.cu (v7) and
+// traverse_bvh4_split.cu (packet4)), the whole-row BVH2 visit of
+// traverse_bvh2.cu (visit2, with leaf), and the ray/box and ray/triangle
+// tests of traverse_bvh16.cu's group walk and traverse_lanes.cu. For the
+// others: the arity-templated generic walk of megakernel.cu (walk), the
+// node expansion of the v8 schedule (expand_node) and test_leaf for both
+// leaf layouts (v8, traverse_bvh2_split.cu).
 //
 // Row layout of an arity-A table (A = 2^L children per node, 8*A floats
 // per row; nodes_fi L=1, nodes4_fi L=2, nodes16_fi L=4):
@@ -18,8 +21,13 @@
 //   cols 7A : 8A-1   the A-1 split axes of the collapsed binary subtree in
 //                    level order (index (1 << depth) - 1 + path)
 //   col  8A-1        pad
-// nodes4_sc [M,8] i32 (v7 only): cols 0:4 the BVH4 row's child codes, 4:7
-// its split axes, as int32; the walk then reads only the boxes of the row.
+// nodes4_sc [M,8] i32 (v7): cols 0:4 the BVH4 row's child codes, 4:7 its
+// split axes, as int32; the walk then reads only the boxes of the row.
+// The split tables of packet4 have the same shapes: nodes4_f [M,32] (the
+// boxes in cols 0:24; a missing child is the inverted box lo = +3e38,
+// hi = -3e38 with code -1) and nodes4_i [M,8] i32, whose leaf codes
+// -(first*16 + count) - 1 name rows first .. first+count-1 of
+// tris [T+8,16], one triangle a 64-byte row.
 // tris128 [L,128]: 8 triangles x 16 floats per leaf row (v0 v1 v2, pad,
 // render node id at col 9, global triangle id at col 10).
 //
@@ -65,9 +73,12 @@ __device__ __forceinline__ float inv_dir(float d) {
   return fabsf(d) < 1e-20f ? (d >= 0.0f ? 1e30f : -1e30f) : 1.0f / d;
 }
 
-__device__ __forceinline__ bool axis_sign(float axis, bool sx, bool sy, bool sz) {
-  const int a = static_cast<int>(axis);
+__device__ __forceinline__ bool axis_sign(int a, bool sx, bool sy, bool sz) {
   return a == 0 ? sx : (a == 1 ? sy : sz);
+}
+
+__device__ __forceinline__ bool axis_sign(float axis, bool sx, bool sy, bool sz) {
+  return axis_sign(static_cast<int>(axis), sx, sy, sz);
 }
 
 struct Ray {
@@ -183,11 +194,12 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ tris, int e,
   return false;
 }
 
-// Whole-row loads of the BVH4 table (traverse_bvh4.cu and the v5 walk of
-// traverse_bvh4_multipop.cu): a visit reads the row's 8 aligned float4s
-// in one round (ld.global.nc.v4) and unpacks the 4 boxes, 4 codes and 3
-// axes from registers, instead of expand_node's 12 float2 box loads
-// followed, after the slab tests, by up to 7 scalar loads; a leaf issues
+// Whole-row loads of the BVH4 tables (traverse_bvh4.cu, the v5 walk of
+// traverse_bvh4_multipop.cu, and v7 and packet4 through visit_sc): a
+// visit reads the row's 8 aligned float4s in one round (ld.global.nc.v4)
+// and unpacks the 4 boxes, 4 codes and 3 axes from registers, instead of
+// expand_node's 12 float2 box loads followed, after the slab tests, by up
+// to 7 scalar loads (or by 2 int4 loads of the int row); a leaf issues
 // the loads of kTriBatch triangles before testing them. The arithmetic and
 // order are expand_node's and test_leaf's.
 constexpr int kTriBatch = 4;  // triangles whose loads a leaf issues together
@@ -211,6 +223,26 @@ __device__ __forceinline__ int slot_of(int p, unsigned flip) {
   return hi * 2 + ((p & 1) ^ static_cast<int>((flip >> (1 + hi)) & 1u));
 }
 
+// The Visit of a BVH4 row from its slab-test bits (bit s: the ray enters
+// the child in slot s), its flip bits and its codes by slot.
+__device__ __forceinline__ Visit near_first(unsigned hitmask, unsigned flip, int s0, int s1, int s2,
+                                            int s3) {
+  Visit v;
+  v.enter = 0;
+  int c[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int s = slot_of(p, flip);
+    c[p] = pick(s, s0, s1, s2, s3);
+    v.enter |= ((hitmask >> s) & 1u) << p;
+  }
+  v.c0 = c[0];
+  v.c1 = c[1];
+  v.c2 = c[2];
+  v.c3 = c[3];
+  return v;
+}
+
 __device__ __forceinline__ Visit visit(const float* __restrict__ nodes, int e, const Ray& r,
                                        float t_best) {
   unsigned hitmask = 0, flip = 0;
@@ -230,31 +262,44 @@ __device__ __forceinline__ Visit visit(const float* __restrict__ nodes, int e, c
   if (!axis_sign(q7.x, r.sx, r.sy, r.sz)) flip |= 1u;
   if (!axis_sign(q7.y, r.sx, r.sy, r.sz)) flip |= 2u;
   if (!axis_sign(q7.z, r.sx, r.sy, r.sz)) flip |= 4u;
-  Visit v;
-  v.enter = 0;
-  int c[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int s = slot_of(p, flip);
-    c[p] = pick(s, s0, s1, s2, s3);
-    v.enter |= ((hitmask >> s) & 1u) << p;
-  }
-  v.c0 = c[0];
-  v.c1 = c[1];
-  v.c2 = c[2];
-  v.c3 = c[3];
-  return v;
+  return near_first(hitmask, flip, s0, s1, s2, s3);
+}
+
+// The same visit of a row whose codes and split axes are int32 rows of a
+// second table (nodes4_sc for v7, nodes4_i for packet4): the 6 float4s of
+// the row's boxes and the 2 int4s of its int row in one load round.
+__device__ __forceinline__ Visit visit_sc(const float* __restrict__ nodes,
+                                          const int* __restrict__ sidecar, int e, const Ray& r,
+                                          float t_best) {
+  unsigned hitmask = 0, flip = 0;
+  const float4* box = reinterpret_cast<const float4*>(nodes + static_cast<size_t>(e) * 32);
+  const int4* meta = reinterpret_cast<const int4*>(sidecar + static_cast<size_t>(e) * 8);
+  const float4 b0 = __ldg(box), b1 = __ldg(box + 1), b2 = __ldg(box + 2);
+  const float4 b3 = __ldg(box + 3), b4 = __ldg(box + 4), b5 = __ldg(box + 5);
+  const int4 codes = __ldg(meta), axes = __ldg(meta + 1);
+  if (slab(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, r, t_best)) hitmask |= 1u;
+  if (slab(b1.z, b1.w, b2.x, b2.y, b2.z, b2.w, r, t_best)) hitmask |= 2u;
+  if (slab(b3.x, b3.y, b3.z, b3.w, b4.x, b4.y, r, t_best)) hitmask |= 4u;
+  if (slab(b4.z, b4.w, b5.x, b5.y, b5.z, b5.w, r, t_best)) hitmask |= 8u;
+  if (!axis_sign(axes.x, r.sx, r.sy, r.sz)) flip |= 1u;
+  if (!axis_sign(axes.y, r.sx, r.sy, r.sz)) flip |= 2u;
+  if (!axis_sign(axes.z, r.sx, r.sy, r.sz)) flip |= 4u;
+  return near_first(hitmask, flip, codes.x, codes.y, codes.z, codes.w);
 }
 
 // The triangles of leaf code e in slot order, kTriBatch triangles' loads
-// issued before their tests (test_leaf's arithmetic and acceptance).
-// Returns true when an any-hit ray was accepted.
-__device__ __forceinline__ bool leaf(const float* __restrict__ tris128, int e, const Ray& r,
+// issued before their tests (test_leaf<kSplit>'s arithmetic and
+// acceptance). kSplit: tris rows of 64 bytes, which need not start on a
+// 128-byte line, and a hit records its tris row. Returns true when an
+// any-hit ray was accepted.
+template <bool kSplit = false>
+__device__ __forceinline__ bool leaf(const float* __restrict__ tris, int e, const Ray& r,
                                      bool anyhit, Hit& h) {
   const int code = -e - 1;
   const int row = code / 16;
   const int cnt = min(code - row * 16, kLeafSlots);
-  const float4* tr = reinterpret_cast<const float4*>(tris128 + static_cast<size_t>(row) * 128);
+  const float4* tr =
+      reinterpret_cast<const float4*>(tris + static_cast<size_t>(row) * (kSplit ? 16 : 128));
   for (int c0 = 0; c0 < cnt; c0 += kTriBatch) {
     float4 a[kTriBatch], b[kTriBatch], d[kTriBatch];
 #pragma unroll
@@ -272,8 +317,12 @@ __device__ __forceinline__ bool leaf(const float* __restrict__ tris128, int e, c
       if (triangle(a[k].x, a[k].y, a[k].z, a[k].w - a[k].x, b[k].x - a[k].y, b[k].y - a[k].z,
                    b[k].z - a[k].x, b[k].w - a[k].y, d[k].x - a[k].z, r, h.t, uu, vv, tt)) {
         h.t = anyhit ? -1.0f : tt;
-        h.rn = d[k].y;
-        h.tri = d[k].z;
+        if constexpr (kSplit) {
+          h.tri = static_cast<float>(row + c0 + k);  // exact: the wrappers cap tris at 2^24 rows
+        } else {
+          h.rn = d[k].y;
+          h.tri = d[k].z;
+        }
         h.u = uu;
         h.v = vv;
         if (anyhit) return true;
@@ -326,15 +375,12 @@ __device__ __forceinline__ void prefetch_leaf(const float* __restrict__ tris128,
 
 // One visit of the internal row e: the slab tests of its children against
 // t_best and, far first, push(code) for each child whose box the ray
-// enters (so the nearest is pushed last and popped next). With kSidecar
-// the child codes and split axes come from nodes4_sc instead of the row.
-template <int kLevels, bool kSidecar, typename Push>
-__device__ __forceinline__ void expand_node(const float* __restrict__ nodes,
-                                            const int* __restrict__ sidecar, int e, const Ray& r,
+// enters (so the nearest is pushed last and popped next).
+template <int kLevels, typename Push>
+__device__ __forceinline__ void expand_node(const float* __restrict__ nodes, int e, const Ray& r,
                                             float t_best, Push&& push) {
   constexpr int kArity = 1 << kLevels;
   constexpr int kRow = 8 * kArity;
-  static_assert(!kSidecar || kLevels == 2, "the sidecar describes BVH4 rows");
   const float* row = nodes + static_cast<size_t>(e) * kRow;
   unsigned int hitmask = 0;
 #pragma unroll
@@ -346,19 +392,9 @@ __device__ __forceinline__ void expand_node(const float* __restrict__ nodes,
   }
   if (!hitmask) return;
   unsigned int flip = 0;  // bit k: the right side of split k is nearer
-  int4 sc_codes = make_int4(0, 0, 0, 0);
-  if constexpr (kSidecar) {
-    const int4* sc = reinterpret_cast<const int4*>(sidecar + static_cast<size_t>(e) * 8);
-    sc_codes = __ldg(sc);
-    const int4 a = __ldg(sc + 1);
-    if (!axis_sign(static_cast<float>(a.x), r.sx, r.sy, r.sz)) flip |= 1u;
-    if (!axis_sign(static_cast<float>(a.y), r.sx, r.sy, r.sz)) flip |= 2u;
-    if (!axis_sign(static_cast<float>(a.z), r.sx, r.sy, r.sz)) flip |= 4u;
-  } else {
 #pragma unroll
-    for (int k = 0; k < kArity - 1; ++k) {
-      if (!axis_sign(__ldg(row + 7 * kArity + k), r.sx, r.sy, r.sz)) flip |= 1u << k;
-    }
+  for (int k = 0; k < kArity - 1; ++k) {
+    if (!axis_sign(__ldg(row + 7 * kArity + k), r.sx, r.sy, r.sz)) flip |= 1u << k;
   }
   // visit position p -> child slot, level by level; push far first
 #pragma unroll
@@ -369,30 +405,17 @@ __device__ __forceinline__ void expand_node(const float* __restrict__ nodes,
       const int bit = (p >> (kLevels - 1 - d)) & 1;
       path = path * 2 + (bit ^ static_cast<int>((flip >> ((1 << d) - 1 + path)) & 1u));
     }
-    if ((hitmask >> path) & 1u) {
-      if constexpr (kSidecar) {
-        push(path == 0 ? sc_codes.x : path == 1 ? sc_codes.y : path == 2 ? sc_codes.z : sc_codes.w);
-      } else {
-        push(static_cast<int>(__ldg(row + 6 * kArity + path)));
-      }
-    }
+    if ((hitmask >> path) & 1u) push(static_cast<int>(__ldg(row + 6 * kArity + path)));
   }
 }
 
 // The whole walk of one ray from root_code with a kStack-entry stack;
 // returns the best hit (t = tmax where nothing was accepted, -1 after an
-// any-hit). Dropped pushes are added to `dropped`. kSplit: the packet4
-// walk over the split tables (nodes4_f as `nodes`, nodes4_i as `sidecar`,
-// tris as `tris`; test_leaf<true>). Its missing children carry code -1 and
-// an inverted box (lo = +3e38, hi = -3e38) that the slab test accepts for
-// every live ray; the reference pushes them and pops an empty leaf, this
-// walk does not push them, which changes no result.
-template <int kLevels, int kStack, bool kSidecar, bool kSplit = false>
+// any-hit). Dropped pushes are added to `dropped`.
+template <int kLevels, int kStack>
 __device__ __forceinline__ Hit walk(const float* __restrict__ nodes,
-                                    const int* __restrict__ sidecar,
-                                    const float* __restrict__ tris, int root_code, const Ray& r,
+                                    const float* __restrict__ tris128, int root_code, const Ray& r,
                                     float tmax, bool anyhit, unsigned int& dropped) {
-  static_assert(!kSplit || kSidecar, "the split walk reads codes from nodes4_i");
   Hit h{tmax, -1.0f, -1.0f, 0.0f, 0.0f};
   int stack[kStack];
   stack[0] = root_code;
@@ -400,11 +423,10 @@ __device__ __forceinline__ Hit walk(const float* __restrict__ nodes,
   while (sp > 0) {
     const int e = stack[--sp];
     if (e < 0) {
-      if (test_leaf<kSplit>(tris, e, r, anyhit, h)) break;
+      if (test_leaf(tris128, e, r, anyhit, h)) break;
       continue;
     }
-    expand_node<kLevels, kSidecar>(nodes, sidecar, e, r, h.t, [&](int code) {
-      if (kSplit && code == -1) return;
+    expand_node<kLevels>(nodes, e, r, h.t, [&](int code) {
       if (sp < kStack) {
         stack[sp++] = code;
       } else {
@@ -423,43 +445,6 @@ __device__ __forceinline__ void store_hit(int i, const Hit& h, float* __restrict
   out_tri[i] = static_cast<int>(h.tri);
   out_u[i] = h.u;
   out_v[i] = h.v;
-}
-
-template <int kLevels, int kStack, bool kSidecar>
-__global__ void __launch_bounds__(kBlock)
-traverse_bvh_kernel(const float* __restrict__ nodes, const int* __restrict__ sidecar,
-                    const float* __restrict__ tris128, int root_code,
-                    const float* __restrict__ rox, const float* __restrict__ roy,
-                    const float* __restrict__ roz, const float* __restrict__ rdx,
-                    const float* __restrict__ rdy, const float* __restrict__ rdz,
-                    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
-                    int anyhit, float* __restrict__ out_t, int* __restrict__ out_rnode,
-                    int* __restrict__ out_tri, float* __restrict__ out_u,
-                    float* __restrict__ out_v, unsigned int* __restrict__ overflow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
-  unsigned int dropped = 0;
-  const Hit h = walk<kLevels, kStack, kSidecar>(nodes, sidecar, tris128, root_code, r, tmax[i],
-                                                anyhit != 0, dropped);
-  store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
-  if (dropped) atomicAdd(overflow, dropped);
-}
-
-template <int kLevels, int kStack, bool kSidecar = false>
-int launch_traverse_bvh(const float* nodes, const int* sidecar, const float* tris128,
-                        int root_code, const float* rox, const float* roy, const float* roz,
-                        const float* rdx, const float* rdy, const float* rdz, const float* tmin,
-                        const float* tmax, int n, int anyhit, float* out_t, int* out_rnode,
-                        int* out_tri, float* out_u, float* out_v, unsigned int* overflow,
-                        void* stream) {
-  if (n <= 0) return 0;
-  const int grid = (n + kBlock - 1) / kBlock;
-  traverse_bvh_kernel<kLevels, kStack, kSidecar>
-      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-          nodes, sidecar, tris128, root_code, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit,
-          out_t, out_rnode, out_tri, out_u, out_v, overflow);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vkgr

@@ -12,15 +12,16 @@
 // traverse_bvh.cuh: its own stack, near-first order from its own direction
 // signs, the same slab and Moller-Trumbore arithmetic (-fmad=false), and an
 // any-hit exit at the first accepted hit. Every output equals the v7 walk's
-// (traverse_bvh4_sidecar.cu, the one-ray-per-thread design this replaces)
+// (traverse_bvh4_sidecar.cu, the same walk with the codes read from the
+// int32 sidecar) and the generic one-ray-per-thread walk this replaces
 // bit for bit on every lane; against the packet kernels only equal-t ties
 // may differ.
 //
 // What bounds it on the card, and what each design element does about it
 // (bvh4_tuning.py measures each one toggled; PERF.md keeps the numbers):
 //  - Dead lanes and divergence: live-lane compaction and a persistent grid
-//    of warps that fetch from the list (live_lanes.cuh, shared with the
-//    lane walk and v5). Only a lane with !(tmax >= 0) is dead: the root's
+//    of warps that fetch from the list (live_lanes.cuh, shared by seven
+//    kernels). Only a lane with !(tmax >= 0) is dead: the root's
 //    slab test caps tfar at tmax < 0 <= tnear (or NaN) and enters nothing,
 //    which is the rule of the plain version (ops/traverse.py). With a leaf
 //    root a triangle with tmin < t < tmax < 0 could still be accepted, so

@@ -75,7 +75,7 @@ traverse_bvh4_leafqueue_kernel(const float* __restrict__ nodes4_fi,
     const int e = take_internal ? stack[--sp] : 0;
     const int leaf = lq > 0 ? queue[--lq] : 0;
     if (leaf < 0) prefetch_leaf(tris128, leaf);
-    if (take_internal) expand_node<2, false>(nodes4_fi, nullptr, e, r, h.t, push);
+    if (take_internal) expand_node<2>(nodes4_fi, e, r, h.t, push);
     if (leaf < 0 && test_leaf(tris128, leaf, r, anyhit != 0, h)) break;
   }
 

@@ -48,12 +48,12 @@ _SIGNATURES = {
     "vkgr_traverse_bvh4": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4_multipop": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4_leafqueue": _TRAVERSE,
-    # (nodes4_fi, nodes4_sc, tris128, root code, rays, ... as _TRAVERSE)
-    "vkgr_traverse_bvh4_sidecar": [_P] + _TRAVERSE,
+    # (nodes4_fi, nodes4_sc, tris128, root code, rays, ... as vkgr_traverse_bvh4)
+    "vkgr_traverse_bvh4_sidecar": [_P] + _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh16": _TRAVERSE[:-1] + [_P, _P],
-    # (node table, meta table, tris, 8 ray components, n, 5 outputs, overflow, stream):
-    # no root code (node 0) and no any-hit flag
-    "vkgr_traverse_bvh4_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P],
+    # (node table, meta table, tris, 8 ray components, n, 5 outputs, overflow, stream; packet4
+    # also scratch before the stream): no root code (node 0) and no any-hit flag
+    "vkgr_traverse_bvh4_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P, _P],
     "vkgr_traverse_bvh2_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P],
     # (nodes4_fi, tris128, root code, ro, rd, seeds, n, per packet, depth, out, overflow, stream)
     "vkgr_render_mega": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],

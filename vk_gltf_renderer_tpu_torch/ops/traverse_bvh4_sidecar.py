@@ -6,6 +6,9 @@ kernel value v7.
 CPU rays take the plain torch version (ops/traverse.traverse_bvh4_sidecar_plain),
 CUDA rays the kernel; see ops/traverse_launch.py. The renderer reaches it
 through ops/intersect.intersect_rays_soa.
+
+On the card a launch compacts the live lanes into a scratch list, which
+a persistent grid walks (ops/traverse_launch.list_scratch).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from ..cuda_lib import LaunchCounter, OverflowCounter
 from .traverse import traverse_bvh4_sidecar_plain
-from .traverse_launch import run_traversal
+from .traverse_launch import list_scratch, run_traversal
 
 COUNTER = LaunchCounter()
 OVERFLOW = OverflowCounter()  # stack pushes dropped (must stay 0)
@@ -31,4 +34,4 @@ def traverse_bvh4_sidecar(nodes4_fi, nodes4_sc, tris128, root_code, *rays, anyhi
         (("nodes4_fi", nodes4_fi, (None, 32)),
          ("nodes4_sc", nodes4_sc, (None, 8), torch.int32),
          ("tris128", tris128, (None, 128))),
-        (root_code,), rays, anyhit)
+        (root_code,), rays, anyhit, extra=list_scratch)

@@ -6,6 +6,9 @@ VKGR_TRAVERSAL=packet4.
 CPU rays take the plain torch version (ops/traverse.traverse_bvh4_split_plain),
 CUDA rays the kernel; see ops/traverse_launch.run_traversal. The renderer
 reaches it through ops/intersect.intersect_rays_packet(wide=True).
+
+On the card a launch compacts the live lanes into a scratch list, which
+a persistent grid walks (ops/traverse_launch.list_scratch).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from ..cuda_lib import LaunchCounter, OverflowCounter
 from .traverse import traverse_bvh4_split_plain
-from .traverse_launch import run_traversal
+from .traverse_launch import list_scratch, run_traversal
 
 COUNTER = LaunchCounter()
 OVERFLOW = OverflowCounter()  # stack pushes dropped (must stay 0)
@@ -33,4 +36,4 @@ def traverse_bvh4_split(nodes4_f, nodes4_i, tris, *rays):
         lambda: traverse_bvh4_split_plain(nodes4_f, nodes4_i, tris, *rays),
         (("nodes4_f", nodes4_f, (None, 32)), ("nodes4_i", nodes4_i, (None, 8), torch.int32),
          ("tris", tris, (None, 16))),
-        (), rays, None)
+        (), rays, None, extra=list_scratch)
