@@ -1,8 +1,9 @@
-"""Ablations and tuning runs of the redesigned traversal kernels on one
-NVIDIA GPU: csrc/traverse_bvh4.cu (v3/v9), csrc/traverse_lanes.cu (the
-lane walk), csrc/traverse_bvh4_multipop.cu (v5), csrc/traverse_bvh2.cu
-(v2), csrc/traverse_bvh16.cu (v6), csrc/traverse_bvh4_sidecar.cu (v7) and
-csrc/traverse_bvh4_split.cu (packet4).
+"""Ablations and tuning runs of the nine kernels redesigned on
+csrc/live_lanes.cuh, on one NVIDIA GPU: csrc/traverse_bvh4.cu (v3/v9),
+csrc/traverse_lanes.cu (the lane walk), csrc/traverse_bvh4_multipop.cu
+(v5), csrc/traverse_bvh2.cu (v2), csrc/traverse_bvh16.cu (v6),
+csrc/traverse_bvh4_sidecar.cu (v7), csrc/traverse_bvh4_split.cu (packet4),
+csrc/traverse_bvh4_leafqueue.cu (v8) and csrc/megakernel.cu.
 
     python3 bvh4_tuning.py [KERNEL ...]
 
@@ -24,8 +25,8 @@ whose build fails is reported and left out) and launches each through the
 kernel's wrapper with cuda_lib's loaded library swapped for the variant's.
 It renders one 1080p frame of the helmet stand-in (HDR) and of the
 1,059,968-triangle terrain under the kernel's selection ((v3, v9),
-(lane, lane_stream), (v5, v5), (v2, v2), (v6, v6) or (v7, v7); packet4
-under VKGR_TRAVERSAL=packet4), as chip_smoke.py phase 7b does, recording
+(lane, lane_stream), (v5, v5), (v2, v2), (v6, v6), (v7, v7) or (v3, v8);
+packet4 under VKGR_TRAVERSAL=packet4), as chip_smoke.py phase 7b does, recording
 the 8 ray components of each of the wrapper's launches; then times every
 variant on those launches and on the probe rays of chip_smoke.py phases
 3 and 6 (closest hit), in a forward and a backward round. Every variant is held equal bit for bit to the unchanged
@@ -35,10 +36,14 @@ rays closest hit), except the ones that change the visit order
 (ORDER), whose t must still equal the source's on every lane and whose
 ids may differ only there (equal-t ties, counted). Last, torch.profiler splits a sparse,
 a medium and an all-live launch of the unchanged source into its device
-kernels (memset, compact_lanes, walk_kernel). Prints the registers and
-spills of each variant's walk, one line per variant and scene, the
-profile, the card's name and power limit, and a JSON line of every number
-last. Exits nonzero without CUDA.
+kernels (memset, compact_lanes, walk_kernel). The megakernel has no
+recorded launches: its variants run chip_smoke.py phase 8's 2,073,600
+camera rays of each scene at depths 1, 2 and 5, in pixel order and
+shuffled (tune_mega), each held equal to the source bit for bit and
+timed in the same two rounds. Prints
+the registers and spills of each variant's walk, one line per variant and
+scene, the profile, the card's name and power limit, and a JSON line of
+every number last. Exits nonzero without CUDA.
 """
 
 from __future__ import annotations
@@ -55,13 +60,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from vk_gltf_renderer_tpu_torch import cuda_lib  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import megakernel as mk  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_leafqueue as tblq  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_sidecar as tbsc  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_split as tb4s  # noqa: E402
@@ -86,8 +94,9 @@ def runtime_anyhit(anchor):
     return [(WALK_TEMPLATE, WALK_TEMPLATE.replace("bool kAny", "bool kAnyT")), (anchor, anchor + RUNTIME_ANY)]
 
 
-# traverse_bvh4.cu, whole-row loads off: the loads of traverse_bvh.cuh's expand_node (three
-# float2 per box, then the axes and the entered children's codes), one triangle at a time
+# traverse_bvh4.cu and megakernel.cu (bvh4::step of traverse_bvh.cuh), whole-row loads off: the
+# generic walk's loads (three float2 per box, then the axes and the entered children's codes),
+# one triangle at a time
 FLOAT2_VISIT = """  const float* row = nodes + static_cast<size_t>(e) * 32;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -109,7 +118,7 @@ ROW_LOADS_OFF = [
     (("  const float4* q = reinterpret_cast<const float4*>",
       "  if (!axis_sign(q7.z, r.sx, r.sy, r.sz)) flip |= 4u;\n"), FLOAT2_VISIT, ROWS),
     ("    if (leaf(tris128, e, r, anyhit, h)) return true;",
-     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;")]
+     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;", ROWS)]
 NEXT_IN_REGISTER = """    if (v.enter) {  // descend into the nearest entered child; push the others, far first
       const unsigned rest = v.enter & (v.enter - 1u);
       if (rest & 8u) push(v.c3);
@@ -163,6 +172,8 @@ REFILL = """  const int count = header[0];
 BVH4_WALK = ("  walk_list<1>(header, list, [&](int i) {\n", "  });\n")
 BVH4_STACK = "  int stack[kStackCap];\n  unsigned dropped = 0;\n"
 PUSH = "    if (sp < kStackCap) {\n      stack[sp++] = code;"
+# the generic walk (GENERIC below) put after a kernel's includes, outside its namespaces
+AFTER_INCLUDES = '#include "traverse_bvh.cuh"\n'
 
 # traverse_bvh4_multipop.cu, order off: the reference's order. Each member's internal
 # tests see the t_best that the leaves of the members before it left (an exclusive
@@ -268,7 +279,7 @@ V5_OLD_WALK = """  walk_list<1>(header, list, [&](int i) {
           if (grp[j] < 0) {
             done = test_leaf(tris128, grp[j], r, kAny, h);
           } else {
-            expand_node<2>(nodes, grp[j], r, h.t, push);
+            before::expand_node<2, false>(nodes, nullptr, grp[j], r, h.t, push);
           }
         }
       }
@@ -406,12 +417,13 @@ int launch_traverse_bvh(const float* nodes, const int* sidecar, const float* tri
 ENTRY_END = "scratch, s);\n}\n"
 
 
-def walk_before(entry, first, last, launch):
+def walk_before(entry, first, last, launch, kernel=""):
     """The "every element off" variant of a kernel whose C entry point
-    `entry` runs from `first` to `last`: GENERIC before the entry, whose
-    body becomes `launch` (a call of GENERIC's launch_traverse_bvh)."""
+    `entry` runs from `first` to `last`: GENERIC and `kernel` (the old
+    kernel on GENERIC's walk, if GENERIC's own does not serve) before the
+    entry, whose body becomes `launch`."""
     head = f'extern "C" int {entry}('
-    return [(head, GENERIC + head), ((first, last), launch)]
+    return [(head, GENERIC + kernel + head), ((first, last), launch)]
 
 
 # traverse_bvh2.cu (v2)
@@ -456,15 +468,16 @@ V2_OLD = walk_before("vkgr_traverse_bvh2", "  using namespace vkgr::bvh2;\n", EN
 
 # traverse_bvh16.cu (v6)
 V6_GROUP_SPAN = ("  __shared__ int stacks[kRays * kStackStride];\n", "  if (dropped) atomicAdd(overflow, dropped);\n")
-# one thread per listed lane walking traverse_bvh.cuh's walk<4, ...> (stack in local memory)
+# one thread per listed lane walking GENERIC's walk<4, ...> (stack in local memory)
 V6_THREAD = [(V6_GROUP_SPAN, """  unsigned dropped = 0;
   walk_list<1>(header, list, [&](int i) {
     const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
-    const Hit h = walk<4, kStack>(nodes, tris128, root, r, tmax[i], kAny, dropped);
+    const Hit h = before::walk<4, kStack, false, false>(nodes, nullptr, tris128, root, r, tmax[i], kAny,
+                                                        dropped);
     store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
   });
   if (dropped) atomicAdd(overflow, dropped);
-"""), ("static_cast<long long>(n) * kRayLanes", "n")]
+"""), ("static_cast<long long>(n) * kRayLanes", "n"), (AFTER_INCLUDES, AFTER_INCLUDES + "\n" + GENERIC)]
 V6_ANY = runtime_anyhit("  unsigned dropped = 0;\n")
 V6_OLD = walk_before("vkgr_traverse_bvh16", "  using namespace vkgr::bvh16;\n", ENTRY_END,
                      """  return vkgr::before::launch_traverse_bvh<4, 256>(nodes16_fi, nullptr, tris128, root_code, rox,
@@ -521,6 +534,193 @@ PACKET4_OLD = walk_before("vkgr_traverse_bvh4_split", "  using namespace vkgr::s
 }
 """)
 
+# traverse_bvh4_leafqueue.cu (v8)
+V8_HINT = "  if (code < 0) prefetch_leaf(tris128, code);\n"
+V8_LEAF = "  if (code < 0 && leaf(tris128, code, r, anyhit, h)) return true;\n"
+V8_ROW_LOADS_OFF = [ROW_LOADS_OFF[0], (V8_LEAF, V8_LEAF.replace("leaf(", "test_leaf("))]
+# the queued leaf's first kTriBatch triangles loaded into registers before the internal row's
+# tests, then tested (leaf's arithmetic and order); the rest of the leaf by leaf() from slot
+# kTriBatch (the same row, read kTriBatch slots in)
+V8_FIRST_BATCH_LOADS = """  int row = 0, cnt = 0;  // the queued leaf's row and triangle count
+  if (code < 0) {
+    row = (-code - 1) / 16;
+    cnt = min(-code - 1 - row * 16, kLeafSlots);
+  }
+  const float4* tr = reinterpret_cast<const float4*>(tris128 + static_cast<size_t>(row) * 128);
+  float4 a[kTriBatch], b[kTriBatch], d[kTriBatch];
+#pragma unroll
+  for (int k = 0; k < kTriBatch; ++k) {
+    if (k < cnt) {
+      a[k] = __ldg(tr + 4 * k);
+      b[k] = __ldg(tr + 4 * k + 1);
+      d[k] = __ldg(tr + 4 * k + 2);
+    }
+  }
+"""
+V8_FIRST_BATCH_TESTS = """#pragma unroll
+  for (int k = 0; k < kTriBatch; ++k) {
+    if (k >= cnt) break;
+    float uu, vv, tt;
+    if (triangle(a[k].x, a[k].y, a[k].z, a[k].w - a[k].x, b[k].x - a[k].y, b[k].y - a[k].z,
+                 b[k].z - a[k].x, b[k].w - a[k].y, d[k].x - a[k].z, r, h.t, uu, vv, tt)) {
+      h.t = anyhit ? -1.0f : tt;
+      h.rn = d[k].y;
+      h.tri = d[k].z;
+      h.u = uu;
+      h.v = vv;
+      if (anyhit) return true;
+    }
+  }
+  if (cnt > kTriBatch && leaf(tris128 + kTriBatch * 16, -(row * 16 + cnt - kTriBatch) - 1, r, anyhit, h)) {
+    return true;
+  }
+"""
+V8_ANY = runtime_anyhit("  int stack[kStackInternal];\n  int queue[kQueue];\n  unsigned dropped = 0;\n")
+# the one-thread-per-lane v8 kernel that the redesign replaced, on GENERIC's expand_node
+V8_OLD_KERNEL = """namespace vkgr {
+namespace before {
+
+__global__ void __launch_bounds__(kBlock)
+traverse_bvh_kernel_lq(const float* __restrict__ nodes4_fi, const float* __restrict__ tris128,
+                       int root_code, const float* __restrict__ rox, const float* __restrict__ roy,
+                       const float* __restrict__ roz, const float* __restrict__ rdx,
+                       const float* __restrict__ rdy, const float* __restrict__ rdz,
+                       const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+                       int anyhit, float* __restrict__ out_t, int* __restrict__ out_rnode,
+                       int* __restrict__ out_tri, float* __restrict__ out_u,
+                       float* __restrict__ out_v, unsigned int* __restrict__ overflow) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+  Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
+  unsigned int dropped = 0;
+  int stack[v8::kStackInternal];
+  int queue[v8::kQueue];
+  int sp = 0, lq = 0;
+  if (root_code >= 0) {
+    stack[sp++] = root_code;
+  } else {
+    queue[lq++] = root_code;
+  }
+  auto push = [&](int code) {
+    if (code < 0) {
+      if (lq < v8::kQueue) {
+        queue[lq++] = code;
+      } else {
+        ++dropped;
+      }
+    } else if (sp < v8::kStackInternal) {
+      stack[sp++] = code;
+    } else {
+      ++dropped;
+    }
+  };
+  while (sp > 0 || lq > 0) {
+    const bool take_internal = sp > 0 && lq < v8::kGate;
+    const int e = take_internal ? stack[--sp] : 0;
+    const int code = lq > 0 ? queue[--lq] : 0;
+    if (code < 0) prefetch_leaf(tris128, code);
+    if (take_internal) expand_node<2, false>(nodes4_fi, nullptr, e, r, h.t, push);
+    if (code < 0 && test_leaf(tris128, code, r, anyhit != 0, h)) break;
+  }
+  store_hit(i, h, out_t, out_rnode, out_tri, out_u, out_v);
+  if (dropped) atomicAdd(overflow, dropped);
+}
+
+}  // namespace before
+}  // namespace vkgr
+
+"""
+V8_OLD = walk_before("vkgr_traverse_bvh4_leafqueue", "  using namespace vkgr::v8;\n", ENTRY_END,
+                     """  if (n <= 0) return 0;
+  const int grid = (n + vkgr::kBlock - 1) / vkgr::kBlock;
+  vkgr::before::traverse_bvh_kernel_lq<<<grid, vkgr::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes4_fi, tris128, root_code, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, anyhit, out_t,
+      out_rnode, out_tri, out_u, out_v, overflow);
+  return static_cast<int>(cudaGetLastError());
+}
+""", V8_OLD_KERNEL)
+
+# megakernel.cu: refill off = a warp takes paths only when all 32 of its lanes are idle, and
+# runs them to their end (while-while by path)
+MEGA_REFILL = "    if (more && idle != 0u) {"
+# the one-thread-per-ray megakernel that the redesign replaced, on GENERIC's walk
+MEGA_OLD_KERNEL = """namespace vkgr {
+namespace before {
+
+__global__ void __launch_bounds__(kBlock)
+render_mega_kernel(const float* __restrict__ nodes4_fi, const float* __restrict__ tris128,
+                   int root_code, const float* __restrict__ ro, const float* __restrict__ rd,
+                   const unsigned int* __restrict__ seeds, int n, int per, int depth,
+                   float* __restrict__ out, unsigned int* __restrict__ overflow) {
+  using namespace mega;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int g = i / per;
+  const int l = i - g * per;
+  const size_t b4 = static_cast<size_t>(g) * 4 * per + l;
+  float ox = ro[b4], oy = ro[b4 + per], oz = ro[b4 + 2 * per];
+  float dx = rd[b4], dy = rd[b4 + per], dz = rd[b4 + 2 * per];
+  const float tmin = rd[b4 + 3 * per];
+  unsigned int seed = seeds[static_cast<size_t>(g) * per + l];
+  bool alive = true;
+  float radiance = 0.0f, throughput = 1.0f, t = 0.0f;
+  unsigned int dropped = 0;
+  for (int b = 0; b < depth; ++b) {
+    bool hit = false;
+    if (alive) {
+      const Ray r = make_ray(ox, oy, oz, dx, dy, dz, tmin);
+      const Hit h = walk<2, 64, false, false>(nodes4_fi, nullptr, tris128, root_code, r, kFar, false,
+                                              dropped);
+      t = h.t;
+      hit = h.tri >= 0.0f;
+    } else {
+      t = -1.0f;
+    }
+    radiance = radiance + ((alive && !hit) ? kSky : 0.0f) * throughput;
+    alive = alive && hit;
+    throughput = throughput * (alive ? kAlbedo : 1.0f);
+    if (b < depth - 1) {
+      if (alive) {
+        ox = ox + t * dx;
+        oy = oy + t * dy;
+        oz = oz + t * dz;
+      }
+      const float u1 = lcg_uniform(seed);
+      const float u2 = lcg_uniform(seed);
+      const float u3 = lcg_uniform(seed);
+      const float nx = 2.0f * u1 - 1.0f;
+      const float ny = 2.0f * u2 - 1.0f;
+      float nz = 2.0f * u3 - 1.0f;
+      nz = nz + (nz >= 0.0f ? 0.05f : -0.05f);
+      const float inv_len = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz);
+      if (alive) {
+        dx = nx * inv_len;
+        dy = ny * inv_len;
+        dz = nz * inv_len;
+      }
+    }
+  }
+  const size_t b2 = static_cast<size_t>(g) * 2 * per + l;
+  out[b2] = radiance;
+  out[b2 + per] = t;
+  if (dropped) atomicAdd(overflow, dropped);
+}
+
+}  // namespace before
+}  // namespace vkgr
+
+"""
+MEGA_OLD = walk_before("vkgr_render_mega", "  using namespace vkgr::mega;\n",
+                       "  return static_cast<int>(cudaGetLastError());\n}\n",
+                       """  if (n <= 0) return 0;
+  const int grid = (n + vkgr::kBlock - 1) / vkgr::kBlock;
+  vkgr::before::render_mega_kernel<<<grid, vkgr::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes4_fi, tris128, root_code, ro, rd, seeds, n, per, depth, out, overflow);
+  return static_cast<int>(cudaGetLastError());
+}
+""", MEGA_OLD_KERNEL)
+
 # kernel source -> variant -> [(old text, new text[, header]) or ((first, last), new text of the
 # span first..last[, header])]
 VARIANTS = {
@@ -531,13 +731,13 @@ VARIANTS = {
         "any-hit as a template off (a runtime flag)": runtime_anyhit(BVH4_STACK),
         "next node in a register": [
             (("    // every entered child, far first", "    if (v.enter & 1u) push(v.c0);\n"),
-             NEXT_IN_REGISTER)],
+             NEXT_IN_REGISTER, ROWS)],
         "stack in shared memory": [
             ("  int stack[kStackCap];\n",
              "  __shared__ int stack_columns[kStackCap * kBlock];  // entry d of thread t at d * kBlock + t\n"
              "  int* stack = stack_columns + threadIdx.x;\n"),
-            ("      stack[sp++] = code;", "      stack[kBlock * sp++] = code;"),
-            ("  e = stack[--sp];", "  e = stack[kBlock * --sp];")],
+            ("      stack[sp++] = code;", "      stack[kBlock * sp++] = code;", ROWS),
+            ("  e = stack[--sp];", "  e = stack[kBlock * --sp];", ROWS)],
         "refill at 16 idle lanes, 4 steps": [(BVH4_WALK, REFILL.format(at=16, steps=4))],
         "refill at 16 idle lanes, 1 step": [(BVH4_WALK, REFILL.format(at=16, steps=1))],
         "refill at 8 idle lanes, 4 steps": [(BVH4_WALK, REFILL.format(at=8, steps=4))],
@@ -547,7 +747,7 @@ VARIANTS = {
         "fetch 32": [("const int per = min(32 / kGroup, max(1, (count + warps - 1) / warps));",
                       "const int per = 32 / kGroup;", LIVE)],
         "prefetch pushed rows": [
-            (PUSH, "    if (code >= 0) prefetch_l1(nodes + static_cast<size_t>(code) * 32);\n" + PUSH)],
+            (PUSH, "    if (code >= 0) prefetch_l1(nodes + static_cast<size_t>(code) * 32);\n" + PUSH, ROWS)],
         "every element off (compaction, whole-row loads, any-hit template)":
             COMPACTION_OFF + ROW_LOADS_OFF + runtime_anyhit(BVH4_STACK),
     },
@@ -565,7 +765,7 @@ VARIANTS = {
         "compaction off (every lane listed and walked)": COMPACTION_OFF,
         "any-hit as a template off (a runtime flag)": runtime_anyhit("  unsigned dropped = 0;\n"),
         "every element off (the walk before the redesign)":
-            V5_THREAD + [(V5_WALK, V5_OLD_WALK)] + COMPACTION_OFF
+            V5_THREAD + [(V5_WALK, V5_OLD_WALK), (AFTER_INCLUDES, AFTER_INCLUDES + "\n" + GENERIC)] + COMPACTION_OFF
             + runtime_anyhit("  unsigned dropped = 0;\n"),
     },
     "traverse_bvh16.cu": {
@@ -604,11 +804,33 @@ VARIANTS = {
         "triangle batch 8": [("kTriBatch = 4;", "kTriBatch = 8;", ROWS)],
         "every element off (the walk before the redesign)": PACKET4_OLD,
     },
+    "traverse_bvh4_leafqueue.cu": {
+        "source": [],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "whole-row loads off": V8_ROW_LOADS_OFF,
+        "leaf's first triangle batch into registers (no L1 hint)": [
+            (V8_HINT, V8_FIRST_BATCH_LOADS), (V8_LEAF, V8_FIRST_BATCH_TESTS)],
+        "leaf's first triangle batch into registers, its lines also hinted": [
+            (V8_HINT, V8_HINT + V8_FIRST_BATCH_LOADS), (V8_LEAF, V8_FIRST_BATCH_TESTS)],
+        "queue 8": [("constexpr int kQueue = 16;", "constexpr int kQueue = 8;")],
+        "queue 32": [("constexpr int kQueue = 16;", "constexpr int kQueue = 32;")],
+        "any-hit as a template off (a runtime flag)": V8_ANY,
+        "every element off (the walk before the redesign)": V8_OLD,
+    },
+    "megakernel.cu": {
+        "source": [],
+        "refill off (a warp runs 32 paths to their end, then takes 32 more)": [
+            (MEGA_REFILL, MEGA_REFILL.replace("idle != 0u", "idle == kFull"))],
+        "whole-row loads off": ROW_LOADS_OFF,
+        "every element off (the walk before the redesign)": MEGA_OLD,
+    },
 }
 # kernel -> its variants whose visit order differs from the source's: t equal on every lane, ids
 # except ties
 ORDER = {"traverse_bvh4_multipop.cu": {"order off (the reference's order)",
-                                       "every element off (the walk before the redesign)"}}
+                                       "every element off (the walk before the redesign)"},
+         # another queue gates at another length, so the internal visits see other t_bests
+         "traverse_bvh4_leafqueue.cu": {"queue 8", "queue 32"}}
 
 
 def _files(kernel):
@@ -730,7 +952,12 @@ KERNELS = {
     "traverse_bvh4_split.cu": (("v3", "v9"), "packet4", "traverse_bvh4_split",
                                lambda bvh, rays, a: tb4s.traverse_bvh4_split(bvh.nodes4_f, bvh.nodes4_i, bvh.tris,
                                                                              *rays)),
+    # v8 takes the (v3, v8) frame's 9 launches after bounce 0's closest hit
+    "traverse_bvh4_leafqueue.cu": (("v3", "v8"), "packet", "traverse_bvh4_leafqueue",
+                                   lambda bvh, rays, a: tblq.traverse_bvh4_leafqueue(
+                                       bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=a)),
 }
+MEGA = "megakernel.cu"  # no recorded launches: tune_mega runs phase 8's camera rays
 
 
 def profile(call, bvh, rays, anyhit):
@@ -824,6 +1051,56 @@ def tune(kernel, device, smi, scenes):
     return results
 
 
+def tune_mega(kernel, device, smi, scenes):
+    """Every variant of csrc/megakernel.cu through ops/megakernel.render_mega
+    on the 2,073,600 camera rays of each scene's 1080p frame 0 (phase 8's
+    rays and seeds) at depths 1, 2 and 5, in pixel order (a warp's 32
+    paths are neighbouring pixels, which mostly hit or miss together) and
+    shuffled (a warp's paths end at unrelated bounces): each held equal to
+    the source bit for bit, nothing dropped, timed in a forward and a
+    backward round."""
+    libs = build(kernel)
+    registers = {}
+    for name, lib in libs.items():
+        res = cs.kernel_resources(lib.compiler_log, kernel).get("render_mega", {})
+        registers[name] = {k: res.get(k) for k in ("registers", "spill_stores", "smem")}
+        cs.log(f"[tuning] {kernel} {name}: render_mega {registers[name]}")
+    results = {"registers": registers, "scenes": {}}
+    for label, r in scenes:
+        ro, rd = (a.cpu().numpy() for a in cs._camera_rays(r, device))
+        n = ro.shape[0]
+        seeds = np.random.default_rng(42).integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+        bvh = r.dev_bvh
+        for order, perm in (("in pixel order", np.arange(n)), ("shuffled", np.random.default_rng(7).permutation(n))):
+            packed = mk.pack_rays(ro[perm], rd[perm], seeds[perm], device=device)[:3]
+
+            def call(depth, packed=packed):
+                return mk.render_mega(bvh.nodes4_fi, bvh.tris128, *packed, depth, bvh.root4_code)
+
+            mk.OVERFLOW.reset()
+            with loaded(libs["source"]):
+                ref = {d: call(d) for d in cs.MEGA_DEPTHS}
+            times = {name: {d: [] for d in cs.MEGA_DEPTHS} for name in libs}
+            for rnd in (list(libs), list(libs)[::-1]):
+                for name in rnd:
+                    with loaded(libs[name]):
+                        for d in cs.MEGA_DEPTHS:
+                            cs.require(cs.same_bits(call(d), ref[d]),
+                                       f"{label} {order} {name} depth {d}: outputs differ from the source's")
+                            times[name][d].append(device_ms(lambda d=d: call(d), 5))
+            dropped = mk.OVERFLOW.total()
+            cs.require(dropped == 0, f"{label} {order}: the megakernel dropped {dropped} pushes")
+            res = {name: {d: sum(v) / len(v) for d, v in per.items()} for name, per in times.items()}
+            for name, per in res.items():
+                cs.log(f"[tuning] {kernel} {label} {order} {name}: "
+                       + ", ".join(f"depth {d} {ms:.4f} ms ({100 * (ms / res['source'][d] - 1):+.1f}%, "
+                                   f"{n * d / ms / 1e3:.1f} Mrays/s)" for d, ms in per.items())
+                       + f"; equal to the source bit for bit on {smi}")
+            results["scenes"][f"{label} {order}"] = {name: {str(d): ms for d, ms in per.items()}
+                                                     for name, per in res.items()}
+    return results
+
+
 def main():
     kernels = sys.argv[1:] or ["traverse_bvh4.cu"]
     for kernel in kernels:
@@ -839,7 +1116,8 @@ def main():
         write_large_glb(glb, cs.LARGE_TRIS)
         terrain, _ = cs.terrain_renderer(glb, hdr, device, cs.SELECTIONS[0])
         for kernel in kernels:
-            results["kernels"][kernel] = tune(kernel, device, smi, (("helmet", helmet), ("terrain", terrain)))
+            results["kernels"][kernel] = (tune_mega if kernel == MEGA else tune)(
+                kernel, device, smi, (("helmet", helmet), ("terrain", terrain)))
     print(smi)
     print(json.dumps(results), flush=True)
 

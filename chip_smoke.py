@@ -18,10 +18,12 @@ Phases (each raises on failure; nothing is caught):
      terrain), and v5's closest-hit t is held equal to traverse_bvh4's bit
      for bit on every ray (ids, u and v may differ only there: equal-t
      ties, counted), any-hit occlusion equal, both timed in interleaved
-     rounds; the build's registers and spills of the instances of the
-     seven compacting kernels (traverse_bvh4.cu, traverse_lanes.cu,
+     rounds, and so is v8's; the build's registers and spills of the
+     instances of the nine kernels on csrc/live_lanes.cuh (the eight that
+     compact live lanes, traverse_bvh4.cu, traverse_lanes.cu,
      traverse_bvh4_multipop.cu, traverse_bvh2.cu, traverse_bvh16.cu,
-     traverse_bvh4_sidecar.cu, traverse_bvh4_split.cu) are printed and kept
+     traverse_bvh4_sidecar.cu, traverse_bvh4_split.cu and
+     traverse_bvh4_leafqueue.cu, and megakernel.cu) are printed and kept
      in the JSON line;
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
@@ -59,19 +61,23 @@ Phases (each raises on failure; nothing is caught):
      against the plain version on a fixed subset of 65,536 lanes (dead
      lanes included); lanes, live lanes, ms of each, the bound and the
      frame sums are printed. Then the same frame under (lane, lane_stream),
-     (v5, v5), (v2, v2) and (v6, v6), recording traverse_lanes',
-     traverse_bvh4_multipop's, traverse_bvh2's and traverse_bvh16's
-     launches: each timed, against its plain version on a fixed subset,
-     with its bound, and v5's, v2's and v6's beside traverse_bvh4 on the
-     same lanes (v5's closest-hit t bit for bit);
+     (v5, v5), (v2, v2), (v6, v6) and (v3, v8), recording traverse_lanes',
+     traverse_bvh4_multipop's, traverse_bvh2's, traverse_bvh16's and
+     traverse_bvh4_leafqueue's launches (v8 takes the 9 after bounce 0's
+     closest hit): each timed, against its plain version on a fixed subset,
+     with its bound, and v5's, v2's, v6's and v8's beside traverse_bvh4 on
+     the same lanes (v5's and v8's closest-hit t bit for bit, ties
+     counted, any-hit occlusion equal);
   8. the megakernel A/B (ops/megakernel.py, the reference's
      tools/exp_mega.py): the 2,073,600 camera rays of the 1080p frame 0 on
      the helmet and on the terrain, numpy seeds, depths 1, 2 and 5;
      render_mega (one launch) and render_wavefront (one BVH4 launch per
      bounce + torch glue) timed with CUDA events, ms and Mrays/s (rays x
-     depth / ms) printed; the counters are zeroed before the timed runs and
-     read after them; mega is held against wavefront on every ray and
-     against its plain version on a fixed subset of 65,536 rays;
+     depth / ms), their ratio and the bound printed; the counters are
+     zeroed before the timed runs and read after them; mega is held against
+     wavefront on every ray and against its plain version on a fixed subset
+     of 65,536 rays, whose paths that ended at each bounce are printed (the
+     megakernel's lanes refill by path);
   9. split-table kernels (the packet4 kernel traverse_bvh4_split and the v1
      kernel traverse_bvh2_split) through ops/intersect.intersect_rays_packet
      (wide=True, v2=False) on the probe rays of phases 3 and 6, on the
@@ -176,15 +182,24 @@ KERNEL_OF = {"v3": "traverse_bvh4", "v9": "traverse_bvh4", "v2": "traverse_bvh2"
 BVH4_VARIANTS = ("traverse_bvh4_multipop", "traverse_bvh4_sidecar", "traverse_bvh4_leafqueue")
 # the kernels with live-lane compaction and a persistent grid (csrc/live_lanes.cuh)
 COMPACTING = ("traverse_bvh4.cu", "traverse_lanes.cu", "traverse_bvh4_multipop.cu", "traverse_bvh2.cu",
-              "traverse_bvh16.cu", "traverse_bvh4_sidecar.cu", "traverse_bvh4_split.cu")
+              "traverse_bvh16.cu", "traverse_bvh4_sidecar.cu", "traverse_bvh4_split.cu",
+              "traverse_bvh4_leafqueue.cu")
+# the sources whose registers and spills go into the JSON line: those and the megakernel (which
+# takes only live_lanes.cuh's persistent grid)
+RESOURCES = COMPACTING + ("megakernel.cu",)
 # phase 7b's other replays: wrapper -> its kernel selection
 REPLAYS = {"traverse_lanes": ("lane", "lane_stream"), "traverse_bvh4_multipop": ("v5", "v5"),
-           "traverse_bvh2": ("v2", "v2"), "traverse_bvh16": ("v6", "v6")}
+           "traverse_bvh2": ("v2", "v2"), "traverse_bvh16": ("v6", "v6"),
+           "traverse_bvh4_leafqueue": ("v3", "v8")}
 # table arguments before the 8 ray components of each replayed wrapper
 TABLE_ARGS = {"traverse_bvh4": 3, "traverse_lanes": 1, "traverse_bvh4_multipop": 3, "traverse_bvh2": 3,
-              "traverse_bvh16": 2, "traverse_bvh4_sidecar": 4, "traverse_bvh4_split": 3}
+              "traverse_bvh16": 2, "traverse_bvh4_sidecar": 4, "traverse_bvh4_split": 3,
+              "traverse_bvh4_leafqueue": 3}
 # replayed wrappers timed beside traverse_bvh4 on the same lanes
-BESIDE_BVH4 = ("traverse_bvh4_multipop", "traverse_bvh2", "traverse_bvh16")
+BESIDE_BVH4 = ("traverse_bvh4_multipop", "traverse_bvh2", "traverse_bvh16", "traverse_bvh4_leafqueue")
+# BVH4 kernels that walk traverse_bvh4's tree in another schedule, so that their closest-hit t
+# equals traverse_bvh4's bit for bit: wrapper -> kernel value
+SAME_TREE = {"traverse_bvh4_multipop": "v5", "traverse_bvh4_leafqueue": "v8"}
 MEGA_DEPTHS = (1, 2, 5)
 # the bound: H100 SXM peak HBM rate and dense FP32 rate, FLOPs per test
 HBM_BYTES_PER_S = 3.35e12
@@ -255,15 +270,16 @@ def phase_build():
     for line in lib.compiler_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
-    return {src: kernel_resources(lib.compiler_log, src) for src in COMPACTING}
+    return {src: kernel_resources(lib.compiler_log, src) for src in RESOURCES}
 
 
 def kernel_resources(compiler_log, source):
     """Registers, spills and shared memory of every kernel instance of
-    csrc/<source> (one of COMPACTING), from ptxas -v in the build log:
+    csrc/<source> (one of RESOURCES), from ptxas -v in the build log:
     instance -> dict. The walk's two instances are "walk closest" and
     "walk any"; the one-thread-per-lane kernel of bvh4_tuning.GENERIC (a
-    tuning variant's walk before the redesign) is "walk (generic)"."""
+    tuning variant's walk before the redesign) is "walk (generic)", the
+    megakernel "render_mega"."""
     out, name, section = {}, None, None
     for line in compiler_log.splitlines():
         if line.startswith("== "):
@@ -276,6 +292,7 @@ def kernel_resources(compiler_log, source):
             w = re.search(r"walk_kernelILb([01])E", m.group(1))
             name = f"walk {('closest', 'any')[int(w.group(1))]}" if w else (
                 "compact_lanes" if "compact_lanes" in m.group(1) else
+                "render_mega" if "render_mega_kernel" in m.group(1) else
                 "walk (generic)" if "traverse_bvh_kernel" in m.group(1) else m.group(1))
             out[name] = {}
             continue
@@ -480,46 +497,46 @@ def _bvh4_probe_vs_v7(tag, bvh, comps, tmin, far, shadow_tmax, resources):
     return res
 
 
-def _v5_vs_bvh4(bvh, rays, anyhit):
-    """v5 (traverse_bvh4_multipop) beside traverse_bvh4 on the same 8 ray
-    components: closest hit t equal bit for bit on every lane (ids, u and
-    v may then differ only at equal-t ties, which are counted), any hit
-    occlusion equal; both timed in interleaved rounds. Returns
-    {"traverse_bvh4_multipop": ms, "traverse_bvh4": ms, "ties": lanes}."""
-    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
-    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp
-
+def _same_tree_vs_bvh4(name, bvh, rays, anyhit):
+    """BVH4 kernel `name` of SAME_TREE (v5, v8) beside traverse_bvh4 on the
+    same 8 ray components: closest hit t equal bit for bit on every lane
+    (ids, u and v may then differ only at equal-t ties, which are counted),
+    any hit occlusion equal; both timed in interleaved rounds. Returns
+    {name: ms, "traverse_bvh4": ms, "ties": lanes}."""
+    mods = _traversal_modules()
     tables = (bvh.nodes4_fi, bvh.tris128, bvh.root4_code)
+    tag = SAME_TREE[name]
 
-    def v5():
-        return tbmp.traverse_bvh4_multipop(*tables, *rays, anyhit=anyhit)
+    def own():
+        return getattr(mods[name], name)(*tables, *rays, anyhit=anyhit)
 
     def bvh4():
-        return tb4.traverse_bvh4(*tables, *rays, anyhit=anyhit)
+        return mods["traverse_bvh4"].traverse_bvh4(*tables, *rays, anyhit=anyhit)
 
-    out, ref = v5(), bvh4()
-    require(torch.equal(out[2] >= 0, ref[2] >= 0), "v5: hit or occlusion differs from traverse_bvh4's")
+    out, ref = own(), bvh4()
+    require(torch.equal(out[2] >= 0, ref[2] >= 0), f"{tag}: hit or occlusion differs from traverse_bvh4's")
     ties = 0
     if not anyhit:
-        require(same_bits(out[0], ref[0]), f"v5: t differs from traverse_bvh4's on "
+        require(same_bits(out[0], ref[0]), f"{tag}: t differs from traverse_bvh4's on "
                 f"{int((out[0].view(torch.int32) != ref[0].view(torch.int32)).sum())} lanes")
         ties = int(((out[1] != ref[1]) | (out[2] != ref[2]) | (out[3].view(torch.int32) != ref[3].view(torch.int32))
                     | (out[4].view(torch.int32) != ref[4].view(torch.int32))).sum())
-    times = _time_interleaved({"traverse_bvh4_multipop": v5, "traverse_bvh4": bvh4}, 10)
+    times = _time_interleaved({name: own, "traverse_bvh4": bvh4}, 10)
     return dict(times, ties=ties)
 
 
-def _v5_probe_vs_bvh4(tag, bvh, comps, tmin, far, shadow_tmax):
-    """_v5_vs_bvh4 on the probe rays, closest and any hit."""
+def _same_tree_probe_vs_bvh4(tag, name, bvh, comps, tmin, far, shadow_tmax):
+    """_same_tree_vs_bvh4 on the probe rays, closest and any hit."""
     res = {}
+    kv = SAME_TREE[name]
     for anyhit, tmax in ((False, far), (True, shadow_tmax)):
-        r = _v5_vs_bvh4(bvh, (*comps, tmin, tmax), anyhit)
+        r = _same_tree_vs_bvh4(name, bvh, (*comps, tmin, tmax), anyhit)
         hit = "any" if anyhit else "closest"
-        log(f"[{tag}] v5 {hit} hit on {comps[0].shape[0]} rays: "
+        log(f"[{tag}] {kv} {hit} hit on {comps[0].shape[0]} rays: "
             + ("t equal to traverse_bvh4's bit for bit on every lane, ids or u/v differ on "
                f"{r['ties']} (equal-t ties)" if not anyhit else "occlusion equal to traverse_bvh4's")
-            + f"; v5 {r['traverse_bvh4_multipop']:.4f} ms, traverse_bvh4 {r['traverse_bvh4']:.4f} ms "
-            f"(v5 / traverse_bvh4 {r['traverse_bvh4_multipop'] / r['traverse_bvh4']:.2f}x)")
+            + f"; {kv} {r[name]:.4f} ms, traverse_bvh4 {r['traverse_bvh4']:.4f} ms "
+            f"({kv} / traverse_bvh4 {r[name] / r['traverse_bvh4']:.2f}x)")
         res[hit] = r
     return res
 
@@ -628,13 +645,15 @@ def phase_replay(device, scenes, smi):
 
 def phase_replay_selections(device, scenes, smi):
     """Phase 7b for the other redesigned kernels: per REPLAYS selection
-    ((lane, lane_stream), (v5, v5), (v2, v2), (v6, v6)) one 1080p frame per
-    scene through on_render with the selection's wrapper recorded (10
-    launches: closest and shadow per bounce), then every launch timed, held
+    ((lane, lane_stream), (v5, v5), (v2, v2), (v6, v6), (v3, v8)) one 1080p
+    frame per scene through on_render with the selection's wrapper recorded
+    (10 launches: closest and shadow per bounce; v8 the 9 after bounce 0's
+    closest hit, which goes to v3), then every launch timed, held
     against the plain version on a fixed subset of SUBSET lanes (dead lanes
     included), with its bound; the launches of BESIDE_BVH4 also beside
-    traverse_bvh4 on the same lanes (v5: _v5_vs_bvh4, closest-hit t bit for
-    bit on every lane; v2, v6: _beside_bvh4). Nothing may be dropped.
+    traverse_bvh4 on the same lanes (v5, v8: _same_tree_vs_bvh4, closest-hit
+    t bit for bit on every lane; v2, v6: _beside_bvh4). Nothing may be
+    dropped.
     Returns wrapper -> scene -> dict(frame, launches)."""
     mods = _traversal_modules()
     results = {}
@@ -651,8 +670,8 @@ def phase_replay_selections(device, scenes, smi):
             for k, (rays, anyhit) in enumerate(recorded):
                 n = rays[0].shape[0]
                 live = int((rays[7] >= 0).sum())
-                if name == "traverse_bvh4_multipop":
-                    times = _v5_vs_bvh4(r.dev_bvh, rays, anyhit)
+                if name in SAME_TREE:
+                    times = _same_tree_vs_bvh4(name, r.dev_bvh, rays, anyhit)
                     ms = times[name]
                 elif name in BESIDE_BVH4:
                     times = _beside_bvh4(r.dev_bvh, name, kern, rays, anyhit)
@@ -679,6 +698,8 @@ def phase_replay_selections(device, scenes, smi):
                          live=sum(x["live"] for x in launches), rays=float(aux["rays"]))
             if name in BESIDE_BVH4:
                 frame["traverse_bvh4_ms"] = sum(x["traverse_bvh4"] for x in launches)
+            if name in SAME_TREE:
+                frame["ties"] = sum(x["ties"] for x in launches)
             log(f"[replay] {selection} {label} frame ({len(launches)} launches, {frame['live']} live lanes; "
                 f"the frame counted {frame['rays']:.0f} rays): {name} {frame['ms']:.4f} ms, bound "
                 f"{frame['bound_ms']:.4f} ms" + (f", traverse_bvh4 on the same lanes {frame['traverse_bvh4_ms']:.4f} ms"
@@ -803,8 +824,9 @@ def phase_kernels(device, resources):
                            tmin, far, shadow_tmax, None)
     results["traverse_bvh4"]["against_v7"] = _bvh4_probe_vs_v7("kernels", bvh, comps, tmin, far, shadow_tmax,
                                                             resources["traverse_bvh4.cu"])
-    results["traverse_bvh4_multipop"]["against_traverse_bvh4"] = _v5_probe_vs_bvh4("kernels", bvh, comps, tmin,
-                                                                                 far, shadow_tmax)
+    for name in SAME_TREE:
+        results[name]["against_traverse_bvh4"] = _same_tree_probe_vs_bvh4("kernels", name, bvh, comps, tmin, far,
+                                                                          shadow_tmax)
 
     gen = torch.Generator(device="cpu").manual_seed(7)
     tab = torch.randn((4, 64 * 128), generator=gen).to(device)
@@ -960,8 +982,9 @@ def phase_large_kernels(device, glb, hdr, resources):
     results = _run_kernels("large", names, _traversal_runs(bvh), comps, tmin, far, shadow_tmax, sub)
     results["traverse_bvh4"]["against_v7"] = _bvh4_probe_vs_v7("large", bvh, comps, tmin, far, shadow_tmax,
                                                             resources["traverse_bvh4.cu"])
-    results["traverse_bvh4_multipop"]["against_traverse_bvh4"] = _v5_probe_vs_bvh4("large", bvh, comps, tmin,
-                                                                                 far, shadow_tmax)
+    for name in SAME_TREE:
+        results[name]["against_traverse_bvh4"] = _same_tree_probe_vs_bvh4("large", name, bvh, comps, tmin, far,
+                                                                          shadow_tmax)
     return results, r, (ro, rd)
 
 
@@ -1066,6 +1089,8 @@ def phase_megakernel(device, scenes, smi):
             require(torch.equal(k[0], plain[0]) and bool(((k[1] - plain[1]).abs()
                                                           <= 1e-5 * (1 + plain[1].abs())).all()),
                     f"{label} depth {depth}: mega and its plain version differ (max err {err})")
+            ended = stats["ended"]
+            require(sum(ended) == SUBSET, f"{label} depth {depth}: {ended} paths ended of {SUBSET}")
             table_bytes, flops, visits = _visits(stats, 4, 128)
             ray_bytes = (4 + 4 + 1 + 2) * 4  # ro, rd, seed in; radiance, t out
             b_ms, b_by = bound(table_bytes + n * ray_bytes, flops * n / SUBSET + n * depth * SHADE_FLOPS)
@@ -1074,12 +1099,13 @@ def phase_megakernel(device, scenes, smi):
             log(f"[mega] {label} depth {depth}, {n} camera rays: render_mega {mega_ms:.3f} ms "
                 f"({n * depth / mega_ms / 1e3:.1f} Mrays/s), render_wavefront {wave_ms:.3f} ms "
                 f"({n * depth / wave_ms / 1e3:.1f} Mrays/s), wavefront/mega {wave_ms / mega_ms:.2f}x on "
-                f"{smi}; equal on every ray; plain {plain_ms:.1f} ms for {SUBSET} rays, max err {err:.3g}; "
+                f"{smi}; equal on every ray; plain {plain_ms:.1f} ms for {SUBSET} rays, max err {err:.3g}, "
+                f"paths ended at bounces 0..{depth - 1}: {ended}; "
                 f"visits on the subset {visits}; bound {b_ms:.4f} ms ({b_by}); mean radiance "
                 f"{float(rad.mean()):.4f}; launches {launches}")
             results[(label, depth)] = dict(ms=mega_ms, wavefront_ms=wave_ms, plain_ms=plain_ms,
                                            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                                           launches=launches["render_mega"], rays=n)
+                                           launches=launches["render_mega"], rays=n, ended_subset=ended)
     return results
 
 
@@ -1500,13 +1526,16 @@ def main():
                                                   for x in v["launches"]] for label, v in replay.items()},
                          replay_launches_fields=["hit", "lanes", "live", "ms", "bound_ms"])
         if name in REPLAYS:
+            beside = ["traverse_bvh4_ms"] if name in BESIDE_BVH4 else []
             extra.update(resources=resources[SOURCES[name][0]],
                          replay={label: v["frame"] for label, v in replays[name].items()},
                          replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["ms"], x["bound_ms"]]
+                                                  + [x["traverse_bvh4"] for _ in beside]
                                                   for x in v["launches"]] for label, v in replays[name].items()},
-                         replay_launches_fields=["hit", "lanes", "live", "ms", "bound_ms"])
+                         replay_launches_fields=["hit", "lanes", "live", "ms", "bound_ms"] + beside)
         kernels.append(_entry(name, frames[sel]["launches"][name], large[name], **extra))
     kernels.append(_entry("render_mega", mega[("terrain", 5)]["launches"], mega[("terrain", 5)],
+                          resources=resources["megakernel.cu"],
                           runs={f"{label},depth{depth}": v for (label, depth), v in mega.items()}))
     kernels.append(_entry("traverse_bvh4_split", packet4["terrain"]["launches"],
                           split["terrain"]["traverse_bvh4_split"], helmet=split["helmet"]["traverse_bvh4_split"],

@@ -370,6 +370,11 @@ COMPACTING = {
                                                                              bvh.tris128, root, *args,
                                                                              anyhit=anyhit),
            lambda bvh: bvh.root4_code),
+    "v8": (tblq, lambda bvh, args, anyhit, root: tblq.traverse_bvh4_leafqueue(bvh.nodes4_fi, bvh.tris128, root,
+                                                                              *args, anyhit=anyhit),
+           lambda bvh, args, anyhit, root: ttrav.traverse_bvh4_leafqueue_plain(bvh.nodes4_fi, bvh.tris128, root,
+                                                                               *args, anyhit=anyhit),
+           lambda bvh: bvh.root4_code),
 }
 
 
@@ -384,10 +389,11 @@ def _compacting_tables(wb, cuda):
 def _compacting_against_plain(kernel, bvh, args, anyhit, root=None):
     """A kernel of COMPACTING against its plain version on the same lanes
     (ids equal except on equal-t ties, t/u/v within 1e-5, occlusion equal),
-    one launch counted, nothing dropped; v5's closest-hit t also equals
-    traverse_bvh4's bit for bit on every lane, and v7's five outputs equal
-    traverse_bvh4's bit for bit, closest and any hit. Returns (outputs,
-    hit)."""
+    one launch counted, nothing dropped; v5's and v8's closest-hit t also
+    equals traverse_bvh4's bit for bit on every lane (their any-hit
+    occlusion is the plain version's, which is traverse_bvh4's), and v7's
+    five outputs equal traverse_bvh4's bit for bit, closest and any hit.
+    Returns (outputs, hit)."""
     mod, call, plain, default_root = COMPACTING[kernel]
     root = default_root(bvh) if root is None else root
     mod.OVERFLOW.reset()
@@ -410,7 +416,7 @@ def _compacting_against_plain(kernel, bvh, args, anyhit, root=None):
         torch.testing.assert_close(kt[hit], t[hit], rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(ku[same & hit], u[same & hit], rtol=0, atol=1e-5)
         torch.testing.assert_close(kv[same & hit], v[same & hit], rtol=0, atol=1e-5)
-        if kernel == "v5":
+        if kernel in ("v5", "v8"):
             ref = tb4.traverse_bvh4(bvh.nodes4_fi, bvh.tris128, root, *args)
             assert _same_bits(kt, ref[0])
     return out, hit
@@ -472,9 +478,9 @@ def test_compacting_kernel_without_live_lanes(cuda, kernel):
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_compacting_kernel_on_the_leaf_root_scene(cuda, kernel, anyhit):
     """The 2-triangle plane whose binary root is a leaf, rays from above
-    and below with tmin -3 below: v5 and v7 from the BVH4 root row and from
-    the leaf passed as a negative root code (there a lane with tmin < t <
-    tmax < 0 hits, as in BVH4), v2 from its leaf root code (the same), v6 from
+    and below with tmin -3 below: v5, v7 and v8 from the BVH4 root row and
+    from the leaf passed as a negative root code (there a lane with tmin < t
+    < tmax < 0 hits, as in BVH4), v2 from its leaf root code (the same), v6 from
     its row 0 (internal: one leaf child), and the lane walk, whose tree
     starts with the triangle entries and which skips every lane with
     tmax < 0."""
@@ -501,7 +507,7 @@ def test_compacting_kernel_on_the_leaf_root_scene(cuda, kernel, anyhit):
     below = torch.tensor(~up, device=cuda)
     leaf = int(bvh.nodes4_fi[0, 24:28].min())
     assert bvh.root_code < 0
-    for root in {"v5": (bvh.root4_code, leaf), "v7": (bvh.root4_code, leaf),
+    for root in {"v5": (bvh.root4_code, leaf), "v7": (bvh.root4_code, leaf), "v8": (bvh.root4_code, leaf),
                  "v2": (bvh.root_code,)}.get(kernel, (None,)):
         _, hit = _compacting_against_plain(kernel, bvh, args, anyhit, root)
         assert int(hit.sum()) > 100
@@ -568,14 +574,17 @@ def test_gather_kernel_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("scene", ["helmet", "terrain"])
-def test_megakernel_matches_wavefront_and_plain(cuda, scene):
+@pytest.mark.parametrize("depth", [1, 2, 5])
+def test_megakernel_matches_wavefront_and_plain(cuda, scene, depth):
     """render_mega (csrc/megakernel.cu) against render_wavefront (one
-    traverse_bvh4 launch per bounce) and against its plain version, depth
-    3: the same arithmetic in the same order, so radiance and t are equal
-    except on equal-t ties (which change neither); nothing dropped."""
+    traverse_bvh4 launch per bounce) and against its plain version at
+    depths 1, 2 and 5, on more paths than the persistent grid holds threads
+    (2048 per SM), so that lanes refill: the same walk and arithmetic in
+    the same order, so radiance and t are equal bit for bit on every ray;
+    nothing dropped."""
     wb = _helmet_bvh() if scene == "helmet" else _terrain_bvh()
     rng = np.random.default_rng(34)
-    n = 20000
+    n = 2048 * torch.cuda.get_device_properties(cuda).multi_processor_count + 333
     lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
     ro = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
     rd = rng.normal(size=(n, 3)).astype(np.float32)
@@ -585,13 +594,13 @@ def test_megakernel_matches_wavefront_and_plain(cuda, scene):
     tables = (torch.tensor(wb.nodes4_fi, device=cuda), torch.tensor(wb.tris128, device=cuda))
     launches = tmega.COUNTER.launches
     tmega.OVERFLOW.reset()
-    mega = tmega.render_mega(*tables, *packed, depth=3, root_code=wb.root4_code)
+    mega = tmega.render_mega(*tables, *packed, depth=depth, root_code=wb.root4_code)
     torch.cuda.synchronize()
     assert tmega.COUNTER.launches == launches + 1
-    wave = tmega.render_wavefront(*tables, *packed, depth=3, root_code=wb.root4_code)
-    plain = tmega.render_mega_plain(*tables, *packed, depth=3, root_code=wb.root4_code)
+    wave = tmega.render_wavefront(*tables, *packed, depth=depth, root_code=wb.root4_code)
+    plain = tmega.render_mega_plain(*tables, *packed, depth=depth, root_code=wb.root4_code)
     assert tmega.OVERFLOW.total() == 0
-    assert torch.equal(mega, wave) and torch.equal(mega, plain)
+    assert _same_bits(mega, wave) and _same_bits(mega, plain)
     rad = mega[:, 0].reshape(-1)[:n]
     assert bool((rad > 0).any()) and bool((rad == 0).any())
 

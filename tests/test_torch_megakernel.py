@@ -135,6 +135,40 @@ def test_wavefront_matches_reference_arms(scene, arm):
     assert (t == -1.0).any() and (t == np.float32(1e30)).any()
 
 
+@pytest.mark.parametrize("depth", [1, 3])
+def test_plain_on_permuted_rays_matches_reference(scene, depth):
+    """The premise of the megakernel's refill by path (csrc/megakernel.cu's
+    lanes take paths in any order): each path's output depends only on its
+    own inputs. render_mega_plain on a permutation of the rays equals the
+    same permutation of its output on the rays in order bit for bit, and
+    of the reference's render_mega (interpret mode) at
+    test_wavefront_matches_reference_arms's tolerances, at depths 1 and 3,
+    with paths that end at every bounce (stats["ended"])."""
+    ref_bvh, port = scene
+    n = 2048
+    ro, rd, seeds = _rays(port, n, seed=5)
+    perm = np.random.default_rng(5).permutation(n)
+    args, n_in_order = _port_inputs(port, ro, rd, seeds)
+    args_perm, n_perm = _port_inputs(port, ro[perm], rd[perm], seeds[perm])
+    assert n_in_order == n_perm == n  # 2 packets of 1024 rays, no padding
+    stats = {}
+    out = tmega.render_mega_plain(*args_perm, depth=depth, root_code=port.root4_code, stats=stats).numpy()
+    in_order = tmega.render_mega_plain(*args, depth=depth, root_code=port.root4_code).numpy()
+    rad, t = (out[:, c].reshape(-1) for c in (0, 1))
+    assert np.array_equal(rad.view(np.int32), in_order[:, 0].reshape(-1)[perm].view(np.int32))
+    assert np.array_equal(t.view(np.int32), in_order[:, 1].reshape(-1)[perm].view(np.int32))
+    ro_j, rd_j, seeds_j, _ = jmega.pack_rays(jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(seeds))
+    ref = np.asarray(jmega.render_mega(ref_bvh.nodes4_fi, ref_bvh.tris128, ro_j, rd_j, seeds_j, depth=depth,
+                                       root_code=ref_bvh.root4_code, interpret=True))
+    rad_ref, t_ref = (ref[:, c].reshape(-1)[:n][perm] for c in (0, 1))
+    flips = rad != rad_ref
+    print(f"depth {depth}: {int(flips.sum())} of {n} rays flip; paths ended by bounce {stats['ended']}")
+    assert flips.sum() <= FLIP_SHARE * n
+    np.testing.assert_allclose(t[~flips], t_ref[~flips], rtol=1e-5, atol=1e-5)
+    ended = stats["ended"]
+    assert len(ended) == depth and sum(ended) == n and min(ended) > 0
+
+
 def test_depth1_equals_single_trace(scene):
     """depth 1 == one traversal + one shade step (the reference's
     test_mega_depth1_equals_single_trace)."""

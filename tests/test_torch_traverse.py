@@ -352,11 +352,12 @@ def _cu_constants(*names):
 def test_bvh4_scratch_and_stack_match_the_kernel():
     """The wrapper's scratch header is csrc/live_lanes.cuh's (the
     compaction csrc/traverse_bvh4.cu shares), and scratch_words holds it
-    and one list entry per lane; the kernel's compiled stack capacity is
-    the plain version's STACK_DEPTH."""
+    and one list entry per lane; the kernel's compiled stack capacity (of
+    bvh4::step in traverse_bvh.cuh, the walk it shares with the
+    megakernel) is the plain version's STACK_DEPTH."""
     from vk_gltf_renderer_tpu_torch.ops import traverse_launch
 
-    consts = _cu_constants("traverse_bvh4.cu", "live_lanes.cuh")
+    consts = _cu_constants("traverse_bvh4.cu", "live_lanes.cuh", "traverse_bvh.cuh")
     assert consts["kScratchHeader"] == traverse_launch.SCRATCH_HEADER
     assert consts["kStackCap"] == ttrav.STACK_DEPTH == 64
     assert [traverse_launch.scratch_words(n) for n in (0, 1, 1000)] == [4, 5, 1004]
@@ -400,36 +401,13 @@ def _assert_variant_fits(kernel, name):
             bvh4_tuning.variant_sources(kernel, name, twice)
 
 
-@pytest.mark.parametrize("name", list(bvh4_tuning.VARIANTS["traverse_bvh4.cu"]))
-def test_bvh4_tuning_variant_fits_the_kernel_source(name):
-    """Each ablation and tuning variant of csrc/traverse_bvh4.cu in
-    bvh4_tuning.py fits the source (_assert_variant_fits)."""
-    _assert_variant_fits("traverse_bvh4.cu", name)
-
-
-@pytest.mark.parametrize("kernel,name", [(k, n) for k in ("traverse_lanes.cu", "traverse_bvh4_multipop.cu")
-                                         for n in bvh4_tuning.VARIANTS[k]])
-def test_lane_and_v5_tuning_variants_fit_the_kernel_sources(kernel, name):
-    """The same for the lane walk's and v5's variants."""
-    _assert_variant_fits(kernel, name)
-
-
-@pytest.mark.parametrize("kernel,name", [(k, n) for k in ("traverse_bvh2.cu", "traverse_bvh16.cu")
-                                         for n in bvh4_tuning.VARIANTS[k]])
-def test_bvh2_and_bvh16_tuning_variants_fit_the_kernel_sources(kernel, name):
-    """The same for the BVH2 (v2) and BVH16 (v6) walks' variants, "every
-    element off" (the generic walk, bvh4_tuning.GENERIC, put back before
-    the entry point) among them."""
-    _assert_variant_fits(kernel, name)
-
-
-@pytest.mark.parametrize("kernel,name", [(k, n) for k in ("traverse_bvh4_sidecar.cu", "traverse_bvh4_split.cu")
-                                         for n in bvh4_tuning.VARIANTS[k]])
-def test_sidecar_and_split_tuning_variants_fit_the_kernel_sources(kernel, name):
-    """The same for the variants of v7 and packet4, which edit their shared
-    walk (csrc/sidecar_walk.cuh) or traverse_bvh.cuh, or put the generic
-    walk before the redesign back in front of the entry point ("every
-    element off")."""
+@pytest.mark.parametrize("kernel,name", [(k, n) for k in bvh4_tuning.VARIANTS for n in bvh4_tuning.VARIANTS[k]])
+def test_tuning_variant_fits_the_kernel_source(kernel, name):
+    """Each ablation and tuning variant in bvh4_tuning.py fits the source it
+    edits (_assert_variant_fits): the kernel's file, or a header of csrc/
+    (live_lanes.cuh, traverse_bvh.cuh, sidecar_walk.cuh), and for "every
+    element off" the generic walk before the redesign
+    (bvh4_tuning.GENERIC) put back before the kernel's entry point."""
     _assert_variant_fits(kernel, name)
 
 
@@ -458,6 +436,79 @@ def test_sidecar_walk_constants_match_the_kernels(monkeypatch):
     tb4s.traverse_bvh4_split(torch.zeros(1, 32), torch.zeros(1, 8, dtype=torch.int32), torch.zeros(9, 16), *rays)
     assert passed == {"traverse_bvh4_sidecar": traverse_launch.list_scratch,
                       "traverse_bvh4_split": traverse_launch.list_scratch}
+
+
+def test_leafqueue_and_megakernel_constants_match_the_kernels(monkeypatch):
+    """csrc/traverse_bvh4_leafqueue.cu's (v8) compiled stack and queue are
+    the plain version's STACK_DEPTH and LEAF_QUEUE, its gate is 4 below the
+    queue (an internal visit queues at most 4 leaves), and its wrapper
+    passes the compaction's scratch (traverse_launch.list_scratch);
+    csrc/megakernel.cu walks with traverse_bvh4.cu's step (bvh4::step),
+    whose stack the megakernel's plain version (the plain BVH4 walk) has
+    too."""
+    from vk_gltf_renderer_tpu_torch import cuda_lib
+    from vk_gltf_renderer_tpu_torch.ops import traverse_launch
+
+    v8 = _cu_constants("traverse_bvh4_leafqueue.cu")
+    assert v8["kStackInternal"] == ttrav.STACK_DEPTH == 64 and v8["kQueue"] == ttrav.LEAF_QUEUE == 16
+    assert "constexpr int kGate = kQueue - 4;" in (cuda_lib._CSRC / "traverse_bvh4_leafqueue.cu").read_text()
+    mega = (cuda_lib._CSRC / "megakernel.cu").read_text()
+    assert "bvh4::step(" in mega and "int stack[bvh4::kStackCap];" in mega
+    assert _cu_constants("traverse_bvh.cuh")["kStackCap"] == ttrav.STACK_DEPTH
+    passed = {}
+
+    def record(name, *args, extra=None):
+        passed[name] = extra
+
+    monkeypatch.setattr(tblq, "run_traversal", record)
+    tblq.traverse_bvh4_leafqueue(torch.zeros(1, 32), torch.zeros(1, 128), 0, *[torch.zeros(1)] * 8)
+    assert passed == {"traverse_bvh4_leafqueue": traverse_launch.list_scratch}
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+@pytest.mark.parametrize("scene,root", [("editor", "root"), ("few", "root"), ("few", "leaf")])
+def test_plain_leafqueue_dead_lane_rule(scene, root, anyhit, request):
+    """The dead-lane rule that the compaction of
+    csrc/traverse_bvh4_leafqueue.cu (v8) relies on, in its plain version.
+    From an internal root (the editor's, and the few scene's BVH4 row 0
+    with its one leaf child) every lane with !(tmax >= 0), NaN and -inf
+    included, returns (tmax, -1, -1, 0, 0) exactly whatever its other
+    inputs, even where a triangle lies behind the origin in (tmin, tmax)
+    (the few scene's rays from below, tmin -3, tmax -0.5): the root is
+    visited with t_best = tmax and enters no child, so nothing is pushed
+    or queued. The few scene's leaf passed as a negative root code goes
+    straight to the queue, and there such a lane does hit that triangle,
+    so a lane is dead only where also !(tmin < tmax), and every such lane
+    returns (tmax, -1, -1, 0, 0)."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    n = 512
+    if scene == "few":
+        ro, rd, tmin, up = _leaf_root_rays(n, seed=28)
+    else:
+        ro, rd, _ = _aimed_rays(wb, n, seed=28)
+        tmin, up = np.zeros(n, np.float32), np.ones(n, bool)
+    tmax = np.full(n, 2.5 if anyhit else 1e32, np.float32)
+    tmax[1::4] = -0.5
+    tmax[2::8] = np.nan
+    tmax[3::8] = -np.inf
+    tmax[5::16] = -4.0  # below tmin in the few scene's rays from below
+    code = int(bvh_t.root4_code) if root == "root" else int(bvh_t.nodes4_fi[0, 24:28].min())
+    assert (code < 0) == (root == "leaf")
+    t, rn, tri, u, v, dropped = ttrav.traverse_bvh4_leafqueue_plain(bvh_t.nodes4_fi, bvh_t.tris128, code,
+                                                                    *_soa(ro, rd, tmin, tmax), anyhit=anyhit)
+    dead = ~(tmax >= 0)
+    if code < 0:
+        dead &= ~(tmin < tmax)
+    assert dropped == 0 and dead.sum() > 60 and np.isnan(tmax[dead]).sum() > 40
+    assert np.array_equal(t.numpy()[dead].view(np.int32), tmax[dead].view(np.int32))
+    for ids in (rn, tri):
+        assert (ids.numpy()[dead] == -1).all()
+    for f in (u, v):
+        assert np.array_equal(f.numpy()[dead].view(np.int32), np.zeros(dead.sum(), np.int32))
+    assert (tri.numpy()[~dead] >= 0).sum() > 20
+    behind = (tmax == -0.5) & ~up  # the plane at t = -1 lies in (tmin, tmax)
+    assert (tri.numpy()[behind] >= 0).all() if code < 0 else not (tri.numpy()[behind] >= 0).any()
+    assert behind.sum() > 20 or scene != "few"
 
 
 def test_bvh2_and_bvh16_constants_match_the_kernels(monkeypatch):

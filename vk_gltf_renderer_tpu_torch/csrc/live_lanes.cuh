@@ -1,9 +1,11 @@
 // Live-lane compaction and the persistent walk of the listed lanes, shared
-// by the seven kernels that take the renderer's launches: traverse_bvh4.cu
+// by the eight kernels that take the renderer's launches: traverse_bvh4.cu
 // (v3/v9), traverse_lanes.cu (the lane walk), traverse_bvh4_multipop.cu
-// (v5), traverse_bvh2.cu (v2), traverse_bvh16.cu (v6), and
-// traverse_bvh4_sidecar.cu (v7) and traverse_bvh4_split.cu (packet4)
-// through sidecar_walk.cuh.
+// (v5), traverse_bvh2.cu (v2), traverse_bvh16.cu (v6),
+// traverse_bvh4_leafqueue.cu (v8), and traverse_bvh4_sidecar.cu (v7) and
+// traverse_bvh4_split.cu (packet4) through sidecar_walk.cuh; megakernel.cu,
+// whose every lane starts live, takes only its persistent grid: nine
+// kernels in all.
 //
 // The renderer traces every pixel's lane in every launch and marks
 // finished paths with tmax = -1, so after the first bounce 0.001-7% of the

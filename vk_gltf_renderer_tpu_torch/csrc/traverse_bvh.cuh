@@ -1,14 +1,17 @@
 // Per-ray traversal of the fused BVH row tables, shared by every traversal
-// kernel. For the seven compacting kernels (live_lanes.cuh): the
-// whole-row BVH4 visits and leaf (visit and leaf: traverse_bvh4.cu and the
-// v5 walk of traverse_bvh4_multipop.cu; visit_sc and leaf: the walk of
-// sidecar_walk.cuh behind traverse_bvh4_sidecar.cu (v7) and
+// kernel. For the nine kernels on live_lanes.cuh: the whole-row BVH4
+// visits and leaf (visit and leaf: the BVH4 step below, which
+// traverse_bvh4.cu and megakernel.cu walk, the v5 walk of
+// traverse_bvh4_multipop.cu and the v8 schedule of
+// traverse_bvh4_leafqueue.cu, with prefetch_leaf; visit_sc and leaf: the
+// walk of sidecar_walk.cuh behind traverse_bvh4_sidecar.cu (v7) and
 // traverse_bvh4_split.cu (packet4)), the whole-row BVH2 visit of
 // traverse_bvh2.cu (visit2, with leaf), and the ray/box and ray/triangle
-// tests of traverse_bvh16.cu's group walk and traverse_lanes.cu. For the
-// others: the arity-templated generic walk of megakernel.cu (walk), the
-// node expansion of the v8 schedule (expand_node) and test_leaf for both
-// leaf layouts (v8, traverse_bvh2_split.cu).
+// tests of traverse_bvh16.cu's group walk and traverse_lanes.cu. For
+// traverse_bvh2_split.cu (v1): test_leaf for both leaf layouts. The
+// generic one-ray-per-thread walk that the redesigns replaced (float2 box
+// loads, then the codes, one triangle at a time) is no longer here:
+// bvh4_tuning.GENERIC carries it for the "every element off" variants.
 //
 // Row layout of an arity-A table (A = 2^L children per node, 8*A floats
 // per row; nodes_fi L=1, nodes4_fi L=2, nodes16_fi L=4):
@@ -194,14 +197,14 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ tris, int e,
   return false;
 }
 
-// Whole-row loads of the BVH4 tables (traverse_bvh4.cu, the v5 walk of
-// traverse_bvh4_multipop.cu, and v7 and packet4 through visit_sc): a
+// Whole-row loads of the BVH4 tables (the BVH4 step below, the v5 walk of
+// traverse_bvh4_multipop.cu, v8, and v7 and packet4 through visit_sc): a
 // visit reads the row's 8 aligned float4s in one round (ld.global.nc.v4)
 // and unpacks the 4 boxes, 4 codes and 3 axes from registers, instead of
-// expand_node's 12 float2 box loads followed, after the slab tests, by up
-// to 7 scalar loads (or by 2 int4 loads of the int row); a leaf issues
-// the loads of kTriBatch triangles before testing them. The arithmetic and
-// order are expand_node's and test_leaf's.
+// the generic walk's 12 float2 box loads followed, after the slab tests,
+// by up to 7 scalar loads (or by 2 int4 loads of the int row); a leaf
+// issues the loads of kTriBatch triangles before testing them. The
+// arithmetic and order are the generic walk's and test_leaf's.
 constexpr int kTriBatch = 4;  // triangles whose loads a leaf issues together
 
 // The children of one internal row in near-first order: c0 is the code
@@ -217,7 +220,7 @@ __device__ __forceinline__ int pick(int p, int c0, int c1, int c2, int c3) {
 }
 
 // Child slot of visit position p of a BVH4 row, from the flip bits of its
-// collapsed binary subtree (expand_node's mapping).
+// collapsed binary subtree (the generic walk's mapping).
 __device__ __forceinline__ int slot_of(int p, unsigned flip) {
   const int hi = ((p >> 1) & 1) ^ static_cast<int>(flip & 1u);
   return hi * 2 + ((p & 1) ^ static_cast<int>((flip >> (1 + hi)) & 1u));
@@ -336,7 +339,7 @@ __device__ __forceinline__ bool leaf(const float* __restrict__ tris, int e, cons
 // axis 14) in near-first order, from one load round of the row's four
 // float4s: c0 is the code of visit position 0 (the nearer side along the
 // split axis), bit p of enter says whether the ray enters the child at
-// position p. expand_node<1>'s arithmetic and order (traverse_bvh2.cu).
+// position p. The generic BVH2 walk's arithmetic and order (traverse_bvh2.cu).
 struct Visit2 {
   int c0, c1;
   unsigned enter;
@@ -373,69 +376,42 @@ __device__ __forceinline__ void prefetch_leaf(const float* __restrict__ tris128,
   for (int l = 0; l < (cnt + 1) / 2; ++l) prefetch_l1(base + 32 * l);
 }
 
-// One visit of the internal row e: the slab tests of its children against
-// t_best and, far first, push(code) for each child whose box the ray
-// enters (so the nearest is pushed last and popped next).
-template <int kLevels, typename Push>
-__device__ __forceinline__ void expand_node(const float* __restrict__ nodes, int e, const Ray& r,
-                                            float t_best, Push&& push) {
-  constexpr int kArity = 1 << kLevels;
-  constexpr int kRow = 8 * kArity;
-  const float* row = nodes + static_cast<size_t>(e) * kRow;
-  unsigned int hitmask = 0;
-#pragma unroll
-  for (int s = 0; s < kArity; ++s) {
-    // a box starts at 6*s floats: 8-byte aligned, three 8-byte loads
-    const float2* bp = reinterpret_cast<const float2*>(row + 6 * s);
-    const float2 b0 = __ldg(bp), b1 = __ldg(bp + 1), b2 = __ldg(bp + 2);
-    if (slab(b0.x, b0.y, b1.x, b1.y, b2.x, b2.y, r, t_best)) hitmask |= 1u << s;
-  }
-  if (!hitmask) return;
-  unsigned int flip = 0;  // bit k: the right side of split k is nearer
-#pragma unroll
-  for (int k = 0; k < kArity - 1; ++k) {
-    if (!axis_sign(__ldg(row + 7 * kArity + k), r.sx, r.sy, r.sz)) flip |= 1u << k;
-  }
-  // visit position p -> child slot, level by level; push far first
-#pragma unroll
-  for (int p = kArity - 1; p >= 0; --p) {
-    int path = 0;
-#pragma unroll
-    for (int d = 0; d < kLevels; ++d) {
-      const int bit = (p >> (kLevels - 1 - d)) & 1;
-      path = path * 2 + (bit ^ static_cast<int>((flip >> ((1 << d) - 1 + path)) & 1u));
+// One step of the BVH4 walk of traverse_bvh4.cu and megakernel.cu: the
+// leaf or internal row e, then the next e popped from a kStackCap-entry
+// stack. A visit pushes every entered child far first, so that the nearest
+// is popped next (the order and arithmetic of the generic walk before the
+// redesigns, bvh4_tuning.GENERIC). Starts at e = root with sp = 0; returns
+// true when the ray is done. Dropped pushes are added to `dropped`.
+namespace bvh4 {
+
+constexpr int kStackCap = 64;
+
+__device__ __forceinline__ bool step(const float* __restrict__ nodes,
+                                     const float* __restrict__ tris128, const Ray& r, bool anyhit,
+                                     int* stack, int& e, int& sp, Hit& h, unsigned& dropped) {
+  auto push = [&](int code) {
+    if (sp < kStackCap) {
+      stack[sp++] = code;
+    } else {
+      ++dropped;
     }
-    if ((hitmask >> path) & 1u) push(static_cast<int>(__ldg(row + 6 * kArity + path)));
+  };
+  if (e < 0) {
+    if (leaf(tris128, e, r, anyhit, h)) return true;
+  } else {
+    const Visit v = visit(nodes, e, r, h.t);
+    // every entered child, far first, so that the nearest is popped next
+    if (v.enter & 8u) push(v.c3);
+    if (v.enter & 4u) push(v.c2);
+    if (v.enter & 2u) push(v.c1);
+    if (v.enter & 1u) push(v.c0);
   }
+  if (sp == 0) return true;
+  e = stack[--sp];
+  return false;
 }
 
-// The whole walk of one ray from root_code with a kStack-entry stack;
-// returns the best hit (t = tmax where nothing was accepted, -1 after an
-// any-hit). Dropped pushes are added to `dropped`.
-template <int kLevels, int kStack>
-__device__ __forceinline__ Hit walk(const float* __restrict__ nodes,
-                                    const float* __restrict__ tris128, int root_code, const Ray& r,
-                                    float tmax, bool anyhit, unsigned int& dropped) {
-  Hit h{tmax, -1.0f, -1.0f, 0.0f, 0.0f};
-  int stack[kStack];
-  stack[0] = root_code;
-  int sp = 1;
-  while (sp > 0) {
-    const int e = stack[--sp];
-    if (e < 0) {
-      if (test_leaf(tris128, e, r, anyhit, h)) break;
-      continue;
-    }
-    expand_node<kLevels>(nodes, e, r, h.t, [&](int code) {
-      if (sp < kStack) {
-        stack[sp++] = code;
-      } else {
-        ++dropped;
-      }
-    });
-  }
-  return h;
-}
+}  // namespace bvh4
 
 __device__ __forceinline__ void store_hit(int i, const Hit& h, float* __restrict__ out_t,
                                           int* __restrict__ out_rnode, int* __restrict__ out_tri,

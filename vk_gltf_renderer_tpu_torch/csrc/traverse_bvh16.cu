@@ -12,8 +12,9 @@
 // stored split axis picks which half is visited first. The Pallas kernel
 // votes that sign per packet and runs 8 packed any() reductions per visit;
 // here each ray uses its own signs. The order and arithmetic are those of
-// walk<4, ...> in traverse_bvh.cuh (one ray per thread, the design this
-// replaces): every output equals it bit for bit on every lane.
+// the generic walk of arity 16 (one ray per thread, the design this
+// replaces; bvh4_tuning.GENERIC carries it): every output equals it bit
+// for bit on every lane.
 //
 // What bounds it on the card, and what each design element does about it
 // (bvh4_tuning.py measures each one toggled; PERF.md keeps the numbers):
@@ -28,10 +29,10 @@
 //    thread runs its 2 slab tests and its axes' sign tests, and one OR
 //    over the group (3 shuffles) gives every thread the 16-bit enter mask
 //    and the 15 flip bits. Each thread maps its own slots to their visit
-//    positions (expand_node's mapping, 4 levels a slot) and, after a
+//    positions (the generic walk's mapping, 4 levels a slot) and, after a
 //    second OR of the entered positions, writes its entered children into
 //    the ray's stack at sp + (entered positions after its own): the stack
-//    expand_node's far-first pushes leave. Four threads a ray (80
+//    generic walk's far-first pushes leave. Four threads a ray (80
 //    registers), one thread a ray with compaction (the generic walk, 93
 //    registers, and slower still when capped at 64, where it spills) and
 //    the stacks in L1-cached device memory each measured slower on the
@@ -74,7 +75,7 @@ static_assert(kRayLanes >= 2 && kRayLanes <= 8 && 32 % kRayLanes == 0 && (6 * kS
               "a group splits a row's boxes, codes and axes into whole float4s");
 
 // Visit position of child slot s from the flip bits (bit k: the right side
-// of split k of the collapsed subtree is nearer): expand_node's mapping,
+// of split k of the collapsed subtree is nearer): the generic walk's mapping,
 // inverted level by level.
 __device__ __forceinline__ int position_of(int s, unsigned flip) {
   int p = s;

@@ -11,9 +11,10 @@
 // any-hit lane with t = -1 until the stack drains; here each thread walks
 // its own ray and stops at its first accepted any hit (t = -1 too, so the
 // wrapper reads occlusion from tri >= 0, as the reference's caller does).
-// The order and arithmetic are those of walk<1, ...> in traverse_bvh.cuh
-// (the one-ray-per-thread design this replaces): every output equals it
-// bit for bit on every lane where no push is dropped.
+// The order and arithmetic are those of the generic walk of arity 2 (the
+// one-ray-per-thread design this replaces; bvh4_tuning.GENERIC carries
+// it): every output equals it bit for bit on every lane where no push is
+// dropped.
 //
 // What bounds it on the card, and what each design element does about it
 // (bvh4_tuning.py measures each one toggled; PERF.md keeps the numbers):
@@ -21,7 +22,7 @@
 //    tree (one split a visit). Whole-row loads (visit2 in
 //    traverse_bvh.cuh): a visit reads the 64-byte row as four float4s in
 //    one round and takes both slab tests, the codes and the axis from
-//    registers, instead of expand_node's six float2 box loads followed,
+//    registers, instead of the generic walk's six float2 box loads followed,
 //    after the slab tests, by the axis and code loads; a leaf issues the
 //    loads of kTriBatch triangles before testing them (leaf).
 //  - Dead lanes and divergence: live-lane compaction and a persistent grid
@@ -33,7 +34,7 @@
 //    requires !(tmin < tmax), the rule of the plain version.
 //  - Stack traffic, on the dependent chain between two visits: the walk
 //    descends into the nearer entered child from a register and pushes
-//    only the far one (walk<1, ...> pushes both and pops the nearer next,
+//    only the far one (the generic walk pushes both and pops the nearer next,
 //    so the visits are the same), into a kStack-entry stack in local
 //    memory (L1), the reference's STACK. The wrapper checks the tree's
 //    deepest need (bvh_flatten.stack_need with descend=True, one entry
@@ -52,7 +53,7 @@ namespace bvh2 {
 
 constexpr int kStack = 128;  // ops/traverse.STACK_DEPTH2
 
-// One step of a ray's walk (the order and arithmetic of walk<1, ...>): the
+// One step of a ray's walk (the order and arithmetic of the generic walk): the
 // leaf or internal row e, then the next e: the nearer entered child, or
 // the top of the stack. Starts at e = root with sp = 0; returns true when
 // the ray is done. Dropped pushes are added to `dropped`.

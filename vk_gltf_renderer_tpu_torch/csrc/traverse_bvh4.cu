@@ -20,14 +20,15 @@
 // What bounds it on the card, and what each design element does about it
 // (bvh4_tuning.py measures each one toggled; PERF.md keeps the numbers):
 //  - Dead lanes and divergence: live-lane compaction and a persistent grid
-//    of warps that fetch from the list (live_lanes.cuh, shared by seven
+//    of warps that fetch from the list (live_lanes.cuh, shared by nine
 //    kernels). Only a lane with !(tmax >= 0) is dead: the root's
 //    slab test caps tfar at tmax < 0 <= tnear (or NaN) and enters nothing,
 //    which is the rule of the plain version (ops/traverse.py). With a leaf
 //    root a triangle with tmin < t < tmax < 0 could still be accepted, so
 //    there the lane must also have !(tmin < tmax).
 //  - Dependent row fetches: whole-row loads (visit and leaf in
-//    traverse_bvh.cuh, shared with v5). This doubles the walk's
+//    traverse_bvh.cuh, shared with v5 and v8; the walk's step,
+//    bvh4::step there, is also the megakernel's). This doubles the walk's
 //    registers, which halves the warps an SM holds; a smaller batch or a
 //    register cap measured slower.
 //  - Stack traffic. The walk pushes every entered child far first and pops
@@ -43,37 +44,6 @@
 
 namespace vkgr {
 namespace bvh4 {
-
-constexpr int kStackCap = 64;
-
-// One step of a ray's walk (the order and arithmetic of walk<2, ...> in
-// traverse_bvh.cuh): the leaf or internal row e, then the next e popped
-// from the stack. Starts at e = root with sp = 0; returns true when the
-// ray is done. Dropped pushes are added to `dropped`.
-__device__ __forceinline__ bool step(const float* __restrict__ nodes,
-                                     const float* __restrict__ tris128, const Ray& r, bool anyhit,
-                                     int* stack, int& e, int& sp, Hit& h, unsigned& dropped) {
-  auto push = [&](int code) {
-    if (sp < kStackCap) {
-      stack[sp++] = code;
-    } else {
-      ++dropped;
-    }
-  };
-  if (e < 0) {
-    if (leaf(tris128, e, r, anyhit, h)) return true;
-  } else {
-    const Visit v = visit(nodes, e, r, h.t);
-    // every entered child, far first, so that the nearest is popped next
-    if (v.enter & 8u) push(v.c3);
-    if (v.enter & 4u) push(v.c2);
-    if (v.enter & 2u) push(v.c1);
-    if (v.enter & 1u) push(v.c0);
-  }
-  if (sp == 0) return true;
-  e = stack[--sp];
-  return false;
-}
 
 // The persistent walk of the list: each warp takes up to `per` entries
 // with one atomicAdd of lane 0 and a shuffle, walks them to their end and

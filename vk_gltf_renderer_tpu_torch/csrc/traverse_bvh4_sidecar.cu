@@ -13,7 +13,7 @@
 // float conversion. Every output equals traverse_bvh4.cu's bit for bit on
 // every lane (the same order and arithmetic; only the codes' table
 // differs), and equals the one-ray-per-thread walk this replaces (the
-// generic walk of traverse_bvh.cuh with the sidecar; bvh4_tuning.py's
+// generic walk with the sidecar, bvh4_tuning.GENERIC; bvh4_tuning.py's
 // "every element off").
 //
 // What bounds it on the card, and what each design element does about it

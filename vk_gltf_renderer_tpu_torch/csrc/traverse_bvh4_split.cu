@@ -16,9 +16,9 @@
 // On the TPU one packet of 1024 rays shares a scalar stack in SMEM and
 // votes its near order; here each ray walks alone with its own direction
 // signs (only equal-t ties differ). Every output equals the
-// one-ray-per-thread walk this replaces (the generic walk of
-// traverse_bvh.cuh over the split tables; bvh4_tuning.py's "every element
-// off") bit for bit on every lane.
+// one-ray-per-thread walk this replaces (the generic walk over the split
+// tables, bvh4_tuning.GENERIC; bvh4_tuning.py's "every element off") bit
+// for bit on every lane.
 //
 // What bounds it on the card, and what each design element does about it
 // (bvh4_tuning.py measures each one toggled; PERF.md keeps the numbers):

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "vkgr_traverse_bvh2": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4": _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh4_multipop": _TRAVERSE[:-1] + [_P, _P],
-    "vkgr_traverse_bvh4_leafqueue": _TRAVERSE,
+    "vkgr_traverse_bvh4_leafqueue": _TRAVERSE[:-1] + [_P, _P],
     # (nodes4_fi, nodes4_sc, tris128, root code, rays, ... as vkgr_traverse_bvh4)
     "vkgr_traverse_bvh4_sidecar": [_P] + _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh16": _TRAVERSE[:-1] + [_P, _P],
@@ -55,8 +55,9 @@ _SIGNATURES = {
     # also scratch before the stream): no root code (node 0) and no any-hit flag
     "vkgr_traverse_bvh4_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P, _P],
     "vkgr_traverse_bvh2_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P],
-    # (nodes4_fi, tris128, root code, ro, rd, seeds, n, per packet, depth, out, overflow, stream)
-    "vkgr_render_mega": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # (nodes4_fi, tris128, root code, ro, rd, seeds, n, per packet, depth, out, overflow, path
+    # cursor, stream)
+    "vkgr_render_mega": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # (entries, n_entries, 8 ray components, n, anyhit, 5 outputs, bad links, scratch, stream)
     "vkgr_traverse_lanes": [_P, _I] + [_P] * 8 + [_I, _I] + [_P] * 5 + [_P, _P, _P],
     "vkgr_gather_channels": [_P, _P, _P, _I, _I, ctypes.c_int64, _P],

@@ -3,8 +3,10 @@
 The reference's experiment runs a reduced but representative path in two
 equivalent arms that differ only in where the bounce loop lives:
 
-  render_mega       csrc/megakernel.cu: one launch; every bounce's BVH4
-                    walk, shade and regeneration stay inside the thread.
+  render_mega       csrc/megakernel.cu: one launch of a persistent grid;
+                    every bounce's BVH4 walk, shade and regeneration of a
+                    path stay inside its lane, which takes the next path
+                    when its own ends.
   render_wavefront  one traverse_bvh4 launch per bounce (csrc/traverse_bvh4.cu
                     on the card) with _shade_and_regen in torch between.
 
@@ -82,8 +84,10 @@ def _shade_and_regen(b, depth, alive, radiance, throughput, ro, rd, seed, t, tri
     return alive, radiance, throughput, ro, rd, seed
 
 
-def _wavefront(trace, ro, rd, seeds, depth):
-    """The bounce loop with one trace(8 ray components) call per bounce."""
+def _wavefront(trace, ro, rd, seeds, depth, ended=None):
+    """The bounce loop with one trace(8 ray components) call per bounce.
+    ended: None, or a list that receives the number of paths that ended at
+    each bounce (missed there, or lived through the last one)."""
     ro_c = tuple(ro[:, c].reshape(-1) for c in range(3))
     rd_c = tuple(rd[:, c].reshape(-1) for c in range(3))
     tmin = rd[:, 3].reshape(-1).contiguous()
@@ -96,8 +100,11 @@ def _wavefront(trace, ro, rd, seeds, depth):
     for b in range(depth):
         tmax = torch.where(alive, INF, -1.0)
         t, _, tri, _, _ = trace(*(c.contiguous() for c in ro_c + rd_c), tmin, tmax)
+        was_alive = alive
         alive, radiance, throughput, ro_c, rd_c, seed = _shade_and_regen(
             b, depth, alive, radiance, throughput, ro_c, rd_c, seed, t, tri)
+        if ended is not None:
+            ended.append(int((was_alive & ~alive).sum()) + (int(alive.sum()) if b == depth - 1 else 0))
     g, _, sub, lane = ro.shape
     return torch.stack([radiance, t]).reshape(2, g, sub, lane).transpose(0, 1).contiguous()
 
@@ -115,20 +122,24 @@ def render_wavefront(nodes4_fi, tris128, ro, rd, seeds, depth, root_code=0):
 def render_mega_plain(nodes4_fi, tris128, ro, rd, seeds, depth, root_code=0, stats=None):
     """render_mega's plain version: the wavefront loop over the plain BVH4
     walk, on any device. stats: visit counts of every bounce's walk
-    (ops/traverse.traverse_rows_plain)."""
+    (ops/traverse.traverse_rows_plain) and "ended", the paths that ended at
+    each bounce (the lanes of the padding included)."""
     def trace(*rays):
         *out, dropped = traverse_bvh4_plain(nodes4_fi, tris128, root_code, *rays, stats=stats)
         OVERFLOW.cpu += dropped
         return out
 
-    return _wavefront(trace, ro, rd, seeds, depth)
+    ended = None if stats is None else stats.setdefault("ended", [])
+    return _wavefront(trace, ro, rd, seeds, depth, ended)
 
 
 def render_mega(nodes4_fi, tris128, ro, rd, seeds, depth, root_code=0):
     """Megakernel arm: the whole bounce loop in one launch of
     csrc/megakernel.cu for CUDA tensors; render_mega_plain for CPU ones.
     ro, rd [G,4,sub,128] f32, seeds [G,1,sub,128] int32 (uint32 bits).
-    Returns [G,2,sub,128] f32: (radiance, last t)."""
+    Returns [G,2,sub,128] f32: (radiance, last t). On the card the kernel's
+    lanes take paths from a cursor in a one-word scratch buffer, which its
+    entry zeroes on the stream."""
     if ro.device.type == "cpu":
         return render_mega_plain(nodes4_fi, tris128, ro, rd, seeds, depth, root_code)
     if ro.device.type != "cuda":
@@ -147,10 +158,11 @@ def render_mega(nodes4_fi, tris128, ro, rd, seeds, depth, root_code=0):
     out = torch.empty((g, 2, sub, lane), dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    cursor = torch.empty(1, dtype=torch.int32, device=dev)
     rc = library().lib.vkgr_render_mega(
         nodes4_fi.data_ptr(), tris128.data_ptr(), int(root_code), ro.data_ptr(), rd.data_ptr(),
         seeds.data_ptr(), n, per, int(depth), out.data_ptr(), OVERFLOW.buffer(dev).data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        cursor.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "render_mega")
     COUNTER.launches += 1
     return out
