@@ -1,9 +1,10 @@
-"""Ablations and tuning runs of the nine kernels redesigned on
+"""Ablations and tuning runs of the ten kernels redesigned on
 csrc/live_lanes.cuh, on one NVIDIA GPU: csrc/traverse_bvh4.cu (v3/v9),
 csrc/traverse_lanes.cu (the lane walk), csrc/traverse_bvh4_multipop.cu
 (v5), csrc/traverse_bvh2.cu (v2), csrc/traverse_bvh16.cu (v6),
 csrc/traverse_bvh4_sidecar.cu (v7), csrc/traverse_bvh4_split.cu (packet4),
-csrc/traverse_bvh4_leafqueue.cu (v8) and csrc/megakernel.cu.
+csrc/traverse_bvh4_leafqueue.cu (v8), csrc/traverse_bvh2_split.cu (v1)
+and csrc/megakernel.cu.
 
     python3 bvh4_tuning.py [KERNEL ...]
 
@@ -26,13 +27,15 @@ kernel's wrapper with cuda_lib's loaded library swapped for the variant's.
 It renders one 1080p frame of the helmet stand-in (HDR) and of the
 1,059,968-triangle terrain under the kernel's selection ((v3, v9),
 (lane, lane_stream), (v5, v5), (v2, v2), (v6, v6), (v7, v7) or (v3, v8);
-packet4 under VKGR_TRAVERSAL=packet4), as chip_smoke.py phase 7b does, recording
+packet4 under VKGR_TRAVERSAL=packet4; v1, which no frame launches, on the
+(v2, v2) frame's launches of traverse_bvh2, the same binary tree), as
+chip_smoke.py phase 7b does, recording
 the 8 ray components of each of the wrapper's launches; then times every
 variant on those launches and on the probe rays of chip_smoke.py phases
 3 and 6 (closest hit), in a forward and a backward round. Every variant is held equal bit for bit to the unchanged
 source on every launch and on the probe rays, closest hit and any hit
-(phase 6's shadow tmax; packet4 has no any-hit mode and traces those
-rays closest hit), except the ones that change the visit order
+(phase 6's shadow tmax; packet4 and v1 have no any-hit mode and trace
+those rays closest hit), except the ones that change the visit order
 (ORDER), whose t must still equal the source's on every lane and whose
 ids may differ only there (equal-t ties, counted). Last, torch.profiler splits a sparse,
 a medium and an all-live launch of the unchanged source into its device
@@ -67,7 +70,9 @@ import chip_smoke as cs  # noqa: E402
 from vk_gltf_renderer_tpu_torch import cuda_lib  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import megakernel as mk  # noqa: E402
+from vk_gltf_renderer_tpu_torch.convert import add_kernel_tables_to_device  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2_split as tb2s  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_leafqueue as tblq  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4_multipop as tbmp  # noqa: E402
@@ -94,6 +99,44 @@ def runtime_anyhit(anchor):
     return [(WALK_TEMPLATE, WALK_TEMPLATE.replace("bool kAny", "bool kAnyT")), (anchor, anchor + RUNTIME_ANY)]
 
 
+# the generic walk's leaf, which traverse_bvh.cuh no longer holds: each triangle's loads, then its
+# test (leaf's arithmetic and order)
+TEST_LEAF = """template <bool kSplit = false>
+__device__ __forceinline__ bool test_leaf(const float* __restrict__ tris, int e, const Ray& r,
+                                          bool anyhit, Hit& h) {
+  const int code = -e - 1;
+  const int row = code / 16;
+  const int cnt = code - row * 16;
+  const float4* tr =
+      reinterpret_cast<const float4*>(tris + static_cast<size_t>(row) * (kSplit ? 16 : 128));
+  for (int c = 0; c < kLeafSlots && c < cnt; ++c) {
+    // slot layout: v0.xyz v1.xyz v2.xyz rnode tri pad5 (split rows: pad from col 9)
+    const float4 a = __ldg(tr + 4 * c);
+    const float4 b = __ldg(tr + 4 * c + 1);
+    const float4 d = __ldg(tr + 4 * c + 2);
+    float uu, vv, tt;
+    if (triangle(a.x, a.y, a.z, a.w - a.x, b.x - a.y, b.y - a.z, b.z - a.x, b.w - a.y,
+                 d.x - a.z, r, h.t, uu, vv, tt)) {
+      h.t = anyhit ? -1.0f : tt;
+      if constexpr (kSplit) {
+        h.tri = static_cast<float>(row + c);  // exact: the wrappers cap tris at 2^24 rows
+      } else {
+        h.rn = d.y;
+        h.tri = d.z;
+      }
+      h.u = uu;
+      h.v = vv;
+      if (anyhit) return true;
+    }
+  }
+  return false;
+}
+
+"""
+# test_leaf put back into traverse_bvh.cuh (namespace vkgr), before the batched leaf's constants
+TRI_BATCH = "constexpr int kTriBatch = 4;"
+RESTORE_TEST_LEAF = (TRI_BATCH, TEST_LEAF + TRI_BATCH, ROWS)
+
 # traverse_bvh4.cu and megakernel.cu (bvh4::step of traverse_bvh.cuh), whole-row loads off: the
 # generic walk's loads (three float2 per box, then the axes and the entered children's codes),
 # one triangle at a time
@@ -118,7 +161,7 @@ ROW_LOADS_OFF = [
     (("  const float4* q = reinterpret_cast<const float4*>",
       "  if (!axis_sign(q7.z, r.sx, r.sy, r.sz)) flip |= 4u;\n"), FLOAT2_VISIT, ROWS),
     ("    if (leaf(tris128, e, r, anyhit, h)) return true;",
-     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;", ROWS)]
+     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;", ROWS), RESTORE_TEST_LEAF]
 NEXT_IN_REGISTER = """    if (v.enter) {  // descend into the nearest entered child; push the others, far first
       const unsigned rest = v.enter & (v.enter - 1u);
       if (rest & 8u) push(v.c3);
@@ -277,7 +320,7 @@ V5_OLD_WALK = """  walk_list<1>(header, list, [&](int i) {
       for (int j = 0; j < kMultipop; ++j) {
         if (j < k && !done) {
           if (grp[j] < 0) {
-            done = test_leaf(tris128, grp[j], r, kAny, h);
+            done = before::test_leaf(tris128, grp[j], r, kAny, h);
           } else {
             before::expand_node<2, false>(nodes, nullptr, grp[j], r, h.t, push);
           }
@@ -292,12 +335,13 @@ V5_WALK = ("  walk_list<kRayLanes>(header, list, [&](int i) {\n", "  });\n")
 LANE_ANY = runtime_anyhit("  unsigned int stuck = 0;\n")
 
 # the one-thread-per-lane generic walk that the redesigns replaced, as traverse_bvh.cuh held it
-# (its sidecar and split branches included; the split walk's kernel folded into its kernel and
-# launch): the "every element off" variants put it before the entry point, which launches it
+# (its sidecar and split branches and test_leaf included; the split walk's kernel folded into its
+# kernel and launch): the "every element off" variants put it before the entry point, which
+# launches it
 GENERIC = """namespace vkgr {
 namespace before {
 
-template <int kLevels, bool kSidecar, typename Push>
+""" + TEST_LEAF + """template <int kLevels, bool kSidecar, typename Push>
 __device__ __forceinline__ void expand_node(const float* __restrict__ nodes,
                                             const int* __restrict__ sidecar, int e, const Ray& r,
                                             float t_best, Push&& push) {
@@ -455,7 +499,7 @@ V2_ROW_LOADS_OFF = [
     (("  const float4* row = reinterpret_cast<const float4*>(nodes + static_cast<size_t>(e) * 16);",
       "  const bool flip = !axis_sign(q3.z, r.sx, r.sy, r.sz);  // the right child is nearer\n"), V2_FLOAT2_VISIT, ROWS),
     ("    if (leaf(tris128, e, r, anyhit, h)) return true;",
-     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;")]
+     "    if (test_leaf(tris128, e, r, anyhit, h)) return true;"), RESTORE_TEST_LEAF]
 V2_PUSH = "    if (sp < kStack) {\n      stack[sp++] = code;"
 V2_ANY = runtime_anyhit("  int stack[kStack];\n  unsigned dropped = 0;\n")
 # the walk before the redesign: the generic walk, one thread per lane
@@ -514,7 +558,7 @@ SC_ROW_LOADS_OFF = [
     (("  const float4* box = reinterpret_cast<const float4*>",
       "  if (!axis_sign(axes.z, r.sx, r.sy, r.sz)) flip |= 4u;\n"), SC_FLOAT2_VISIT, ROWS),
     ("    if (leaf<kSplit>(tris, e, r, anyhit, h)) return true;",
-     "    if (test_leaf<kSplit>(tris, e, r, anyhit, h)) return true;", SC)]
+     "    if (test_leaf<kSplit>(tris, e, r, anyhit, h)) return true;", SC), RESTORE_TEST_LEAF]
 SC_TEMPLATE = "template <bool kAny, bool kSplit>\n__global__ void __launch_bounds__(kBlock)\nwalk_kernel("
 V7_ANY = [(SC_TEMPLATE, SC_TEMPLATE.replace("bool kAny", "bool kAnyT"), SC),
           (BVH4_STACK, BVH4_STACK + RUNTIME_ANY, SC)]
@@ -537,7 +581,7 @@ PACKET4_OLD = walk_before("vkgr_traverse_bvh4_split", "  using namespace vkgr::s
 # traverse_bvh4_leafqueue.cu (v8)
 V8_HINT = "  if (code < 0) prefetch_leaf(tris128, code);\n"
 V8_LEAF = "  if (code < 0 && leaf(tris128, code, r, anyhit, h)) return true;\n"
-V8_ROW_LOADS_OFF = [ROW_LOADS_OFF[0], (V8_LEAF, V8_LEAF.replace("leaf(", "test_leaf("))]
+V8_ROW_LOADS_OFF = [ROW_LOADS_OFF[0], (V8_LEAF, V8_LEAF.replace("leaf(", "test_leaf(")), RESTORE_TEST_LEAF]
 # the queued leaf's first kTriBatch triangles loaded into registers before the internal row's
 # tests, then tested (leaf's arithmetic and order); the rest of the leaf by leaf() from slot
 # kTriBatch (the same row, read kTriBatch slots in)
@@ -640,6 +684,108 @@ V8_OLD = walk_before("vkgr_traverse_bvh4_leafqueue", "  using namespace vkgr::v8
   return static_cast<int>(cudaGetLastError());
 }
 """, V8_OLD_KERNEL)
+
+# traverse_bvh2_split.cu (v1)
+V1_DESCEND = """    if (near_hit || far_hit) {  // descend into the nearer entered child; push the far one if both are
+      if (near_hit && far_hit) push(far_c);
+      next = near_hit ? near_c : far_c;
+    } else {
+      if (sp == 0) return;
+      next = stack[--sp];
+    }
+"""
+# push both entered children, far first, and pop the nearer next (the kernel before's stack traffic)
+V1_PUSH_BOTH = """    if (far_hit) push(far_c);
+    if (near_hit) push(near_c);
+    if (sp == 0) return;
+    next = stack[--sp];
+"""
+V1_LEAF = """      leaf<true>(tris, -(nd.m.z * 16 + nd.m.w) - 1, r, false, h);
+      if (sp == 0) return;
+      nd = fetch(nodes_f, nodes_i, stack[--sp]);
+"""
+# the next node popped and its loads issued before the leaf's tests, which then run against the
+# t_best the next node's slab tests will see (the same outputs)
+V1_FETCH_BEFORE = """      const int code = -(nd.m.z * 16 + nd.m.w) - 1;
+      const bool more = sp > 0;
+      if (more) nd = fetch(nodes_f, nodes_i, stack[--sp]);
+      leaf<true>(tris, code, r, false, h);
+      if (!more) return;
+"""
+V1_WALK = "__global__ void __launch_bounds__(kBlock)\nwalk_kernel("
+# the one-thread-per-lane kernel that the redesign replaced, on GENERIC's test_leaf
+V1_OLD_KERNEL = """namespace vkgr {
+namespace before {
+
+__global__ void __launch_bounds__(kBlock)
+traverse_bvh_kernel_split2(const float* __restrict__ nodes_f, const int* __restrict__ nodes_i,
+                           const float* __restrict__ tris, const float* __restrict__ rox,
+                           const float* __restrict__ roy, const float* __restrict__ roz,
+                           const float* __restrict__ rdx, const float* __restrict__ rdy,
+                           const float* __restrict__ rdz, const float* __restrict__ tmin,
+                           const float* __restrict__ tmax, int n, float* __restrict__ out_t,
+                           int* __restrict__ out_rnode, int* __restrict__ out_row,
+                           float* __restrict__ out_u, float* __restrict__ out_v,
+                           unsigned int* __restrict__ overflow) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin);
+  Hit h{tmax[i], -1.0f, -1.0f, 0.0f, 0.0f};
+  unsigned int dropped = 0;
+  int stack[128];
+  stack[0] = 0;
+  int sp = 1;
+  while (sp > 0) {
+    const int node = stack[--sp];
+    const int4* meta = reinterpret_cast<const int4*>(nodes_i + static_cast<size_t>(node) * 8);
+    const float4* box = reinterpret_cast<const float4*>(nodes_f + static_cast<size_t>(node) * 16);
+    const int4 m0 = __ldg(meta);  // left, right, first, count
+    const int4 m1 = __ldg(meta + 1);  // parent, axis, pad, pad
+    const float4 b0 = __ldg(box), b1 = __ldg(box + 1), b2 = __ldg(box + 2);
+    if (m0.w > 0) {
+      test_leaf<true>(tris, -(m0.z * 16 + m0.w) - 1, r, false, h);
+      continue;
+    }
+    const bool hit_l = slab(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, r, h.t);
+    const bool hit_r = slab(b1.z, b1.w, b2.x, b2.y, b2.z, b2.w, r, h.t);
+    const bool l_near = axis_sign(static_cast<float>(m1.y), r.sx, r.sy, r.sz);
+    const int near_c = l_near ? m0.x : m0.y;
+    const int far_c = l_near ? m0.y : m0.x;
+    const bool near_hit = l_near ? hit_l : hit_r;
+    const bool far_hit = l_near ? hit_r : hit_l;
+    if (far_hit) {
+      if (sp < 128) {
+        stack[sp++] = far_c;
+      } else {
+        ++dropped;
+      }
+    }
+    if (near_hit) {
+      if (sp < 128) {
+        stack[sp++] = near_c;
+      } else {
+        ++dropped;
+      }
+    }
+  }
+  store_hit(i, h, out_t, out_rnode, out_row, out_u, out_v);
+  if (dropped) atomicAdd(overflow, dropped);
+}
+
+}  // namespace before
+}  // namespace vkgr
+
+"""
+V1_OLD = walk_before("vkgr_traverse_bvh2_split", "  using namespace vkgr::bvh2s;\n",
+                     "static_cast<cudaStream_t>(stream));\n}\n",
+                     """  if (n <= 0) return 0;
+  const int grid = (n + vkgr::kBlock - 1) / vkgr::kBlock;
+  vkgr::before::traverse_bvh_kernel_split2<<<grid, vkgr::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes_f, nodes_i, tris, rox, roy, roz, rdx, rdy, rdz, tmin, tmax, n, out_t, out_rnode, out_row,
+      out_u, out_v, overflow);
+  return static_cast<int>(cudaGetLastError());
+}
+""", V1_OLD_KERNEL)
 
 # megakernel.cu: refill off = a warp takes paths only when all 32 of its lanes are idle, and
 # runs them to their end (while-while by path)
@@ -817,6 +963,17 @@ VARIANTS = {
         "any-hit as a template off (a runtime flag)": V8_ANY,
         "every element off (the walk before the redesign)": V8_OLD,
     },
+    "traverse_bvh2_split.cu": {
+        "source": [],
+        "compaction off (every lane listed and walked)": COMPACTION_OFF,
+        "descend off (push both, pop the nearer)": [(V1_DESCEND, V1_PUSH_BOTH)],
+        "batched leaf off (test_leaf, one triangle at a time)": [
+            RESTORE_TEST_LEAF, (V1_LEAF, V1_LEAF.replace("leaf<", "test_leaf<"))],
+        "leaf-time prefetch on (the next node's loads before the leaf's tests)": [(V1_LEAF, V1_FETCH_BEFORE)],
+        "triangle batch 2": [("kTriBatch = 4;", "kTriBatch = 2;", ROWS)],
+        "64 registers": [(V1_WALK, V1_WALK.replace("(kBlock)", "(kBlock, 8)"))],
+        "every element off (the walk before the redesign)": V1_OLD,
+    },
     "megakernel.cu": {
         "source": [],
         "refill off (a warp runs 32 paths to their end, then takes 32 more)": [
@@ -956,7 +1113,14 @@ KERNELS = {
     "traverse_bvh4_leafqueue.cu": (("v3", "v8"), "packet", "traverse_bvh4_leafqueue",
                                    lambda bvh, rays, a: tblq.traverse_bvh4_leafqueue(
                                        bvh.nodes4_fi, bvh.tris128, bvh.root4_code, *rays, anyhit=a)),
+    # no frame launches v1: it takes the (v2, v2) frame's traverse_bvh2 launches (the same binary
+    # tree), closest hit only
+    "traverse_bvh2_split.cu": (("v2", "v2"), "packet", "traverse_bvh2",
+                               lambda bvh, rays, a: tb2s.traverse_bvh2_split(
+                                   bvh.nodes_f, bvh.nodes_i, bvh.tris, *rays, root_leaf=bvh.bvh2_split_root_leaf)),
 }
+# kernel source -> the split tables its call reads beside the frame's (convert.SPLIT_FAMILIES)
+SPLIT_TABLES = {"traverse_bvh2_split.cu": {"bvh2_split"}}
 MEGA = "megakernel.cu"  # no recorded launches: tune_mega runs phase 8's camera rays
 
 
@@ -991,7 +1155,9 @@ def tune(kernel, device, smi, scenes):
     registers = {}
     for name, lib in libs.items():
         res = cs.kernel_resources(lib.compiler_log, kernel)
-        registers[name] = {hit: {k: (res.get(f"walk {hit}") or res.get("walk (generic)", {})).get(k)
+        # the walk the variant launches: the generic kernel where "every element off" put one
+        # beside the unused redesigned walk (v1's is not a template, so it is still compiled)
+        registers[name] = {hit: {k: (res.get("walk (generic)") or res.get(f"walk {hit}", {})).get(k)
                                  for k in ("registers", "spill_stores", "smem")}
                            for hit in ("closest", "any")}
         cs.log(f"[tuning] {kernel} {name}: walk {registers[name]}")
@@ -1007,7 +1173,7 @@ def tune(kernel, device, smi, scenes):
         diag = float((r.dev_bvh.scene_hi - r.dev_bvh.scene_lo).norm())
         shadow = probe[:7] + [(torch.rand(n, generator=g) * diag).to(device)]  # phase 6's any-hit rays
         launches, _ = cs.record_launches(r, wrapper)
-        bvh = r.dev_bvh
+        bvh = add_kernel_tables_to_device(r.dev_bvh, r.bvh, device, SPLIT_TABLES.get(kernel, ()))
         checked = launches + [(probe, False), (shadow, True)]  # every variant is held to the source on these
         with loaded(libs["source"]):
             ref = [call(bvh, rays, a) for rays, a in checked]

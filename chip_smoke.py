@@ -19,12 +19,12 @@ Phases (each raises on failure; nothing is caught):
      for bit on every ray (ids, u and v may differ only there: equal-t
      ties, counted), any-hit occlusion equal, both timed in interleaved
      rounds, and so is v8's; the build's registers and spills of the
-     instances of the nine kernels on csrc/live_lanes.cuh (the eight that
+     instances of the ten kernels on csrc/live_lanes.cuh (the nine that
      compact live lanes, traverse_bvh4.cu, traverse_lanes.cu,
      traverse_bvh4_multipop.cu, traverse_bvh2.cu, traverse_bvh16.cu,
-     traverse_bvh4_sidecar.cu, traverse_bvh4_split.cu and
-     traverse_bvh4_leafqueue.cu, and megakernel.cu) are printed and kept
-     in the JSON line;
+     traverse_bvh4_sidecar.cu, traverse_bvh4_split.cu,
+     traverse_bvh4_leafqueue.cu and traverse_bvh2_split.cu, and
+     megakernel.cu) are printed and kept in the JSON line;
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
      user entry points (create_scene, create_hdr, on_render, image_linear,
@@ -67,7 +67,14 @@ Phases (each raises on failure; nothing is caught):
      closest hit): each timed, against its plain version on a fixed subset,
      with its bound, and v5's, v2's, v6's and v8's beside traverse_bvh4 on
      the same lanes (v5's and v8's closest-hit t bit for bit, ties
-     counted, any-hit occlusion equal);
+     counted, any-hit occlusion equal). The (v2, v2) frames' launches also
+     go through v1 (traverse_bvh2_split, which walks the same binary tree
+     in the same near-first order over the split tables; closest hit only)
+     beside traverse_bvh2: on a closest-hit launch t equal bit for bit on
+     every lane and the (rnode, tri) pair after resolution equal except on
+     equal-t ties (the lanes that differ are counted), on an any-hit
+     launch the occlusion equal; timed in interleaved rounds, held against
+     v1's plain version on a fixed subset, with its bound;
   8. the megakernel A/B (ops/megakernel.py, the reference's
      tools/exp_mega.py): the 2,073,600 camera rays of the 1080p frame 0 on
      the helmet and on the terrain, numpy seeds, depths 1, 2 and 5;
@@ -183,7 +190,7 @@ BVH4_VARIANTS = ("traverse_bvh4_multipop", "traverse_bvh4_sidecar", "traverse_bv
 # the kernels with live-lane compaction and a persistent grid (csrc/live_lanes.cuh)
 COMPACTING = ("traverse_bvh4.cu", "traverse_lanes.cu", "traverse_bvh4_multipop.cu", "traverse_bvh2.cu",
               "traverse_bvh16.cu", "traverse_bvh4_sidecar.cu", "traverse_bvh4_split.cu",
-              "traverse_bvh4_leafqueue.cu")
+              "traverse_bvh4_leafqueue.cu", "traverse_bvh2_split.cu")
 # the sources whose registers and spills go into the JSON line: those and the megakernel (which
 # takes only live_lanes.cuh's persistent grid)
 RESOURCES = COMPACTING + ("megakernel.cu",)
@@ -277,7 +284,8 @@ def kernel_resources(compiler_log, source):
     """Registers, spills and shared memory of every kernel instance of
     csrc/<source> (one of RESOURCES), from ptxas -v in the build log:
     instance -> dict. The walk's two instances are "walk closest" and
-    "walk any"; the one-thread-per-lane kernel of bvh4_tuning.GENERIC (a
+    "walk any" (v1's one walk, closest hit only, "walk closest"); the
+    one-thread-per-lane kernel of bvh4_tuning.GENERIC (a
     tuning variant's walk before the redesign) is "walk (generic)", the
     megakernel "render_mega"."""
     out, name, section = {}, None, None
@@ -289,8 +297,8 @@ def kernel_resources(compiler_log, source):
             continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            w = re.search(r"walk_kernelILb([01])E", m.group(1))
-            name = f"walk {('closest', 'any')[int(w.group(1))]}" if w else (
+            w = re.search(r"walk_kernel(?:ILb([01])E)?", m.group(1))
+            name = f"walk {('closest', 'any')[int(w.group(1) or 0)]}" if w else (
                 "compact_lanes" if "compact_lanes" in m.group(1) else
                 "render_mega" if "render_mega_kernel" in m.group(1) else
                 "walk (generic)" if "traverse_bvh_kernel" in m.group(1) else m.group(1))
@@ -561,6 +569,58 @@ def _beside_bvh4(bvh, name, kern, rays, anyhit):
     return dict(_time_interleaved({name: own, "traverse_bvh4": bvh4}, 10), t_differs=differs)
 
 
+def _v1_beside_v2(device, bvh, rays, anyhit, k):
+    """v1 (traverse_bvh2_split, closest hit only) on one replayed launch of
+    traverse_bvh2, the same binary tree walked in the same near-first
+    order, beside traverse_bvh2 on the same 8 ray components: for a
+    closest-hit launch t equal bit for bit on every lane and the (rnode,
+    tri) pair after v1's row resolution equal except on equal-t ties (the
+    lanes that differ counted); for an any-hit launch, which v1 traces
+    closest hit, the occlusion equal. Both timed in interleaved rounds; v1
+    held against its plain version on a fixed subset of SUBSET lanes, with
+    its bound. Returns dict(ms, traverse_bvh2, id_ties, uv_differ,
+    bound_ms, max_abs_err)."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse as tt
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2 as tb2
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh2_split as tb2s
+
+    name = "traverse_bvh2_split"
+    tables = (bvh.nodes_f, bvh.nodes_i, bvh.tris)
+
+    def v1(*a):
+        return tb2s.traverse_bvh2_split(*tables, *(a or rays), root_leaf=bvh.bvh2_split_root_leaf)
+
+    def v2():
+        return tb2.traverse_bvh2(bvh.nodes_fi, bvh.tris128, bvh.root_code, *rays, anyhit=anyhit)
+
+    (t1, _, row, u1, w1), (t2, rn2, tri2, u2, w2) = v1(), v2()
+    require(torch.equal(row >= 0, tri2 >= 0), f"v1: hit or occlusion differs from traverse_bvh2's on "
+            f"{int((row >= 0).ne(tri2 >= 0).sum())} lanes")
+    id_ties = uv_differ = 0
+    if not anyhit:
+        require(same_bits(t1, t2), f"v1: t differs from traverse_bvh2's on "
+                f"{int((t1.view(torch.int32) != t2.view(torch.int32)).sum())} lanes")
+        safe = row.clamp(min=0).long()
+        rn1 = torch.where(row >= 0, bvh.wtri_rnode[safe], -1)
+        tri1 = torch.where(row >= 0, bvh.wtri_tri[safe], -1)
+        id_ties = int(((rn1 != rn2) | (tri1 != tri2)).sum())
+        uv_differ = int(((u1.view(torch.int32) != u2.view(torch.int32))
+                         | (w1.view(torch.int32) != w2.view(torch.int32))).sum())
+    times = _time_interleaved({name: v1, "traverse_bvh2": v2}, 10)
+    n = rays[0].shape[0]
+    live = int((rays[7] >= 0).sum())
+    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(80 + k))[:SUBSET]
+    sargs = tuple(a[sub.to(device)].contiguous() for a in rays)
+    stats = {}
+    err = _check_against_plain(name, v1(*sargs), tt.traverse_bvh2_split_plain(*tables, *sargs, stats=stats),
+                               SUBSET, False)
+    _, _, arity, row_bytes = SPLIT[name]
+    n_dead = 0 if bvh.bvh2_split_root_leaf else n - live
+    b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, SUBSET, SPLIT_LEAF_BYTES, n_dead=n_dead)
+    return dict(ms=times[name], traverse_bvh2=times["traverse_bvh2"], id_ties=id_ties, uv_differ=uv_differ,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, visits=visits)
+
+
 def record_launches(r, wrapper):
     """One frame of renderer r through on_render, with
     ops.intersect.<wrapper> (a key of TABLE_ARGS) wrapped to record clones
@@ -652,11 +712,16 @@ def phase_replay_selections(device, scenes, smi):
     against the plain version on a fixed subset of SUBSET lanes (dead lanes
     included), with its bound; the launches of BESIDE_BVH4 also beside
     traverse_bvh4 on the same lanes (v5, v8: _same_tree_vs_bvh4, closest-hit
-    t bit for bit on every lane; v2, v6: _beside_bvh4). Nothing may be
-    dropped.
-    Returns wrapper -> scene -> dict(frame, launches)."""
+    t bit for bit on every lane; v2, v6: _beside_bvh4), and the (v2, v2)
+    launches also through v1 beside traverse_bvh2 (_v1_beside_v2). Nothing
+    may be dropped.
+    Returns wrapper -> scene -> dict(frame, launches), "traverse_bvh2_split"
+    among the wrappers."""
+    from vk_gltf_renderer_tpu_torch.convert import add_kernel_tables_to_device
+
     mods = _traversal_modules()
-    results = {}
+    results = {"traverse_bvh2_split": {}}
+    mods["traverse_bvh2_split"].OVERFLOW.reset()
     for name, selection in REPLAYS.items():
         os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = selection
         mod = mods[name]
@@ -666,7 +731,9 @@ def phase_replay_selections(device, scenes, smi):
             recorded, aux = record_launches(r, name)
             require(0 < len(recorded) <= 2 * DEPTH, f"{label} {selection}: {len(recorded)} {name} launches")
             kern, plain, arity, row_bytes = _traversal_runs(r.dev_bvh)[name]
-            launches = []
+            if name == "traverse_bvh2":  # v1 on the same lanes: its split tables
+                add_kernel_tables_to_device(r.dev_bvh, r.bvh, device, {"bvh2_split"})
+            launches, v1_launches = [], []
             for k, (rays, anyhit) in enumerate(recorded):
                 n = rays[0].shape[0]
                 live = int((rays[7] >= 0).sum())
@@ -694,6 +761,16 @@ def phase_replay_selections(device, scenes, smi):
                     f"{SUBSET} lanes ({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
                 launches.append(dict(hit=hit, lanes=n, live=live, ms=ms, bound_ms=b_ms, max_abs_err=err,
                                      **{k2: v for k2, v in times.items() if k2 != name}))
+                if name == "traverse_bvh2":
+                    v1 = _v1_beside_v2(device, r.dev_bvh, rays, anyhit, k)
+                    log(f"[replay] {selection} {label} launch {k} ({hit} hit) through v1: traverse_bvh2_split "
+                        f"{v1['ms']:.4f} ms, traverse_bvh2 {v1['traverse_bvh2']:.4f} ms on the same lanes ("
+                        + (f"t equal bit for bit on every lane, (rnode, tri) differs on {v1['id_ties']} "
+                           f"(equal-t ties), u/v on {v1['uv_differ']}" if not anyhit else
+                           "occlusion equal; v1 traces the segments closest hit")
+                        + f"); bound {v1['bound_ms']:.4f} ms ({v1['bound_by']}); plain on {SUBSET} lanes, "
+                        f"max err {v1['max_abs_err']:.3g}; visits {v1.pop('visits')}")
+                    v1_launches.append(dict(hit=hit, lanes=n, live=live, **v1))
             frame = dict(ms=sum(x["ms"] for x in launches), bound_ms=sum(x["bound_ms"] for x in launches),
                          live=sum(x["live"] for x in launches), rays=float(aux["rays"]))
             if name in BESIDE_BVH4:
@@ -705,8 +782,19 @@ def phase_replay_selections(device, scenes, smi):
                 f"{frame['bound_ms']:.4f} ms" + (f", traverse_bvh4 on the same lanes {frame['traverse_bvh4_ms']:.4f} ms"
                                                  if "traverse_bvh4_ms" in frame else "") + f", on {smi}")
             results[name][label] = dict(frame=frame, launches=launches)
+            if v1_launches:
+                v1_frame = {key: sum(x[key] for x in v1_launches)
+                            for key in ("ms", "traverse_bvh2", "bound_ms", "live", "id_ties", "uv_differ")}
+                v1_frame.update(rays=frame["rays"], traverse_bvh2_ms=v1_frame.pop("traverse_bvh2"))
+                log(f"[replay] {selection} {label} frame through v1 ({len(v1_launches)} launches): "
+                    f"traverse_bvh2_split {v1_frame['ms']:.4f} ms, traverse_bvh2 on the same lanes "
+                    f"{v1_frame['traverse_bvh2_ms']:.4f} ms, bound {v1_frame['bound_ms']:.4f} ms; "
+                    f"(rnode, tri) equal-t ties {v1_frame['id_ties']}, on {smi}")
+                results["traverse_bvh2_split"][label] = dict(frame=v1_frame, launches=v1_launches)
         dropped = mod.OVERFLOW.total()
         require(dropped == 0, f"{name}: the replay dropped {dropped} (stack overflow / bad link)")
+    dropped = mods["traverse_bvh2_split"].OVERFLOW.total()
+    require(dropped == 0, f"traverse_bvh2_split: the replay dropped {dropped}")
     for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL"):
         os.environ.pop(key, None)
     return results
@@ -1127,10 +1215,11 @@ def phase_split_kernels(device, label, r, ro, rd):
     log(f"[split] {label}: {n} rays, plain versions on a fixed subset of {SUBSET}; tables "
         + ", ".join(f"{k} {tuple(getattr(bvh, k).shape)} {getattr(bvh, k).numel() * 4 / 1e6:.1f} MB"
                     for k in ("nodes4_f", "nodes4_i", "nodes_f", "nodes_i", "tris", "wtri_rnode")))
-    kernels = {"traverse_bvh4_split": (tt.traverse_bvh4_split_plain, (bvh.nodes4_f, bvh.nodes4_i, bvh.tris)),
-               "traverse_bvh2_split": (tt.traverse_bvh2_split_plain, (bvh.nodes_f, bvh.nodes_i, bvh.tris))}
+    kernels = {"traverse_bvh4_split": (tt.traverse_bvh4_split_plain, (bvh.nodes4_f, bvh.nodes4_i, bvh.tris), {}),
+               "traverse_bvh2_split": (tt.traverse_bvh2_split_plain, (bvh.nodes_f, bvh.nodes_i, bvh.tris),
+                                       {"root_leaf": bvh.bvh2_split_root_leaf})}
     results = {}
-    for name, (plain, tables) in kernels.items():
+    for name, (plain, tables, fkw) in kernels.items():
         family, kw, arity, row_bytes = SPLIT[name]
         mod = mods[name]
         need, cap = bvh.stack_need[family], STACK_CAPACITY[family]
@@ -1138,7 +1227,7 @@ def phase_split_kernels(device, label, r, ro, rd):
         mod.OVERFLOW.reset()
         args = (*comps, tmin, far)
         fn = getattr(mod, name)
-        ms = device_ms(lambda: fn(*tables, *args), 10)
+        ms = device_ms(lambda: fn(*tables, *args, **fkw), 10)
         entry_ms = device_ms(lambda: intersect_rays_packet(bvh, ro, rd, tmin, far, **kw), 10)
         any_ms = device_ms(lambda: intersect_rays_packet(bvh, ro, rd, tmin, shadow_tmax, anyhit=True, **kw), 10)
         # the entry point's run: one closest-hit and one anyhit=True call
@@ -1150,7 +1239,7 @@ def phase_split_kernels(device, label, r, ro, rd):
         require(all(torch.equal(closest[k], anyhit[k]) for k in closest),
                 f"{name}: anyhit=True differs from the closest hit")
         sargs = tuple(a[sub].contiguous() for a in args)
-        k = fn(*tables, *sargs)
+        k = fn(*tables, *sargs, **fkw)
         stats = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1547,11 +1636,19 @@ def main():
                                            for label, v in packet4.items()},
                           replay_launches_fields=["hit", "lanes", "live", "ms", "traverse_bvh4_ms", "bound_ms"]))
     # v1 has no renderer path: its launches are those of phase 9's two intersect_rays_packet
-    # calls on the terrain
+    # calls on the terrain; its replay is the (v2, v2) frames' launches (phase 7b)
+    v1_replay = replays["traverse_bvh2_split"]
     kernels.append(_entry("traverse_bvh2_split", split["terrain"]["traverse_bvh2_split"]["launches"],
                           split["terrain"]["traverse_bvh2_split"], helmet=split["helmet"]["traverse_bvh2_split"],
                           launches_of="phase 9: intersect_rays_packet(v2=False), closest hit and "
-                                      "anyhit=True, on the terrain's probe rays"))
+                                      "anyhit=True, on the terrain's probe rays",
+                          resources=resources["traverse_bvh2_split.cu"],
+                          replay={label: v["frame"] for label, v in v1_replay.items()},
+                          replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["ms"], x["traverse_bvh2"],
+                                                    x["bound_ms"], x["id_ties"]] for x in v["launches"]]
+                                           for label, v in v1_replay.items()},
+                          replay_launches_fields=["hit", "lanes", "live", "ms", "traverse_bvh2_ms", "bound_ms",
+                                                  "id_ties"]))
     for name in ("probe_nodefetch", "probe_visit", "probe_stream_dma", "probe_uarch"):
         kernels.append(_entry(name, probes[name]["launches"], probes[name]))
     terrain = {f"{p},{q}": {"ms_per_frame": frames[(p, q)]["ms"], "mrays_per_s": frames[(p, q)]["mrays"]}

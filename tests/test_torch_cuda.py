@@ -34,7 +34,7 @@ from vk_gltf_renderer_tpu_torch.probes import stream_dma as tsd
 from vk_gltf_renderer_tpu_torch.probes import uarch as tua
 from vk_gltf_renderer_tpu_torch.probes import visit as tvis
 from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb
-from torch_test_helpers import deep_chain, deep_chain_bvh4, deep_chain_rays
+from torch_test_helpers import deep_chain, deep_chain_bvh4, deep_chain_rays, deep_chain_split
 
 pytestmark = pytest.mark.cuda
 
@@ -695,6 +695,107 @@ def test_packet4_kernel_on_lane_mixes_equals_plain(cuda, mix):
     assert all(_same_bits(o, p) for o, p in zip(out, plain))
     _assert_dead(out, args[7], ~live)
     assert int((out[2] >= 0).sum()) >= int(live.sum()) // 10
+
+
+def _v1_against_plain(bvh, args):
+    """The v1 kernel (csrc/traverse_bvh2_split.cu) against its plain
+    version on the same lanes: all five outputs bit for bit (the same
+    order and arithmetic), one launch counted, nothing dropped. Returns
+    its outputs."""
+    tables = (bvh.nodes_f, bvh.nodes_i, bvh.tris)
+    tb2s.OVERFLOW.reset()
+    launches = tb2s.COUNTER.launches
+    out = tb2s.traverse_bvh2_split(*tables, *args, root_leaf=bvh.bvh2_split_root_leaf)
+    torch.cuda.synchronize()
+    assert tb2s.COUNTER.launches == launches + 1 and tb2s.OVERFLOW.total() == 0
+    *plain, dropped = ttrav.traverse_bvh2_split_plain(*tables, *args)
+    assert dropped == 0
+    assert all(_same_bits(o, p) for o, p in zip(out, plain))
+    return out
+
+
+def _v1_tables(wb, cuda):
+    return add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, {"bvh2_split"})
+
+
+@pytest.mark.parametrize("mix", sorted(LANE_MIXES))
+def test_v1_kernel_on_lane_mixes_equals_plain(cuda, mix):
+    """The v1 kernel on helmet lanes all live, 0.1% live (the rest tmax
+    -1), none live, and 10% live among NaN lanes: bit for bit against its
+    plain version, the dead lanes (tmax, -1, -1, 0, 0)."""
+    wb = _helmet_bvh()
+    bvh = _v1_tables(wb, cuda)
+    assert not bvh.bvh2_split_root_leaf
+    args, live = _lane_mix(wb, mix, False, cuda)
+    out = _v1_against_plain(bvh, args)
+    _assert_dead(out, args[7], ~live)
+    assert int((out[2] >= 0).sum()) >= int(live.sum()) // 10
+
+
+@pytest.mark.parametrize("size", ["1", "1000", "past_one_pass"])
+def test_v1_kernel_lane_counts(cuda, size):
+    """n = 1, 1000 and more lanes than the persistent grid holds threads
+    (2048 per SM): all live, bit for bit against the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = {"1": 1, "1000": 1000, "past_one_pass": 2048 * sms + 333}[size]
+    wb = _helmet_bvh()
+    out = _v1_against_plain(_v1_tables(wb, cuda), _inside_rays(wb, n, 53, cuda))
+    assert n < 1000 or int((out[2] >= 0).sum()) > n // 10
+
+
+def test_v1_kernel_on_the_leaf_root_scene(cuda):
+    """The 2-triangle plane whose node 0 is a leaf, rays from above and
+    below (tmin -3 below): bit for bit against the plain version. A lane
+    from below with tmax -0.5 is live (tmin < tmax) and hits the plane at
+    t = -1; the lanes with !(tmax >= 0) and !(tmin < tmax) are dead."""
+    from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+    from vk_gltf_renderer_tpu_torch.scenes import _empty_scene
+
+    sc = _empty_scene()
+    SceneEditor(sc).add_primitive("plane")
+    sc.parse_scene()
+    wb = build_world_bvh(build_scene_flat(sc))
+    bvh = _v1_tables(wb, cuda)
+    assert bvh.bvh2_split_root_leaf
+    n = 4096
+    rng = np.random.default_rng(54)
+    xz = rng.uniform(-0.9, 0.9, size=(n, 2)).astype(np.float32)
+    up = rng.random(n) < 0.5
+    ro = np.stack([xz[:, 0], np.where(up, 1.0, -1.0), xz[:, 1]], 1).astype(np.float32)
+    rd = np.tile(np.float32([0.0, -1.0, 0.0]), (n, 1))
+    tmin = np.where(up, 0.0, -3.0).astype(np.float32)
+    tmax = np.where(up, 1e32, -0.5).astype(np.float32)
+    tmax[::5] = -1.0
+    tmax[3::10] = -4.0
+    comps = [torch.tensor(np.ascontiguousarray(a), device=cuda) for a in (*ro.T, *rd.T)]
+    args = [*comps, torch.tensor(tmin, device=cuda), torch.tensor(tmax, device=cuda)]
+    out = _v1_against_plain(bvh, args)
+    behind = torch.tensor(~up & (tmax == -0.5), device=cuda)
+    assert int(behind.sum()) > 100 and bool((out[2][behind] >= 0).all())
+    dead = torch.tensor(~(tmax >= 0) & ~(tmin < tmax), device=cuda)
+    assert int(dead.sum()) > 100
+    _assert_dead(out, args[7], dead)
+
+
+def test_v1_kernel_counts_overflow(cuda):
+    """torch_test_helpers.deep_chain_split(140), whose walk outgrows the v1
+    kernel's 128-entry stack: the kernel drops and counts the plain
+    version's 12 pushes a live ray, with outputs equal bit for bit."""
+    nodes_f, nodes_i, tris = (torch.tensor(a, device=cuda) for a in deep_chain_split(140))
+    rays = [torch.tensor(a, device=cuda) for a in deep_chain_rays(4096, seed=55)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    tb2s.OVERFLOW.reset()
+    try:
+        out = tb2s.traverse_bvh2_split(nodes_f, nodes_i, tris, *rays, root_leaf=False)
+        assert tb2s.OVERFLOW.total() == 12 * live
+    finally:
+        tb2s.OVERFLOW.reset()
+    *ref, dropped = ttrav.traverse_bvh2_split_plain(nodes_f.cpu(), nodes_i.cpu(), tris.cpu(),
+                                                    *(r.cpu() for r in rays))
+    assert dropped == 12 * live
+    assert all(_same_bits(o.cpu(), p) for o, p in zip(out, ref))
+    assert bool((out[2] == -1).all())
 
 
 @pytest.mark.parametrize("mix", sorted(LANE_MIXES))

@@ -218,11 +218,12 @@ def test_split_tables_equal_reference(name, tmp_path):
 def test_split_stack_need_bounds_the_walk(name, tmp_path):
     """split_stack_need is the deepest stack of the split walks when every
     box is entered, over every order a ray's near-first pushes can take:
-    the packet4 walk pushes every child code but the missing ones (-1),
-    the v1 walk both children of an internal node. Checked against a
-    recursive worst case (any pushed child may be popped first, its
-    siblings below it) and against walks in random push orders, none of
-    which goes deeper."""
+    the packet4 walk pushes every child code but the missing ones (-1);
+    the v1 walk, which descends (csrc/traverse_bvh2_split.cu), pushes the
+    far child of an internal node and walks the near one next from a
+    register. Checked against a recursive worst case (any child may come
+    first, its siblings below it) and against walks in random push
+    orders, none of which goes deeper."""
     wb = tbvh.build_world_bvh(tflat.build_scene_flat(SCENES[name](tmp_path)))
 
     def children4(e):
@@ -233,18 +234,30 @@ def test_split_stack_need_bounds_the_walk(name, tmp_path):
         return [] if count else [left, right]
 
     rng = np.random.default_rng(0)
-    for levels, children in ((2, children4), (1, children2)):
+    for levels, children, descend in ((2, children4, False), (1, children2, True)):
         def worst(node, below):
             kids = children(node)
-            return max([below + len(kids)] + [worst(c, below + len(kids) - 1) for c in kids])
+            return max([below + len(kids) - descend] + [worst(c, below + len(kids) - 1) for c in kids])
 
         need = tbvh.split_stack_need(wb, levels)
         assert need == max(1, worst(0, 0)), levels
         for _ in range(20):
-            deepest, stack = 1, [0]
-            while stack:
-                stack += list(rng.permutation(children(stack.pop())))
+            deepest, stack, node = 1, [], 0
+            if not descend:
+                stack = [node]
+                while stack:
+                    stack += list(rng.permutation(children(stack.pop())))
+                    deepest = max(deepest, len(stack))
+            while descend:  # all children but the last pushed, the last walked next
+                kids = list(rng.permutation(children(node)))
+                stack += kids[:-1]
                 deepest = max(deepest, len(stack))
+                if kids:
+                    node = kids[-1]
+                elif stack:
+                    node = stack.pop()
+                else:
+                    break
             assert deepest <= need, levels
         if name == "few":
             assert need == (1 if levels == 1 else len(children4(0)))

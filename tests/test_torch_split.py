@@ -25,6 +25,7 @@ patches (8,192 triangles) and a 2-triangle scene whose root is a leaf."""
 
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -63,7 +64,12 @@ from vk_gltf_renderer_tpu_torch.ops.intersect import (  # noqa: E402
     intersect_rays_wavefront,
 )
 from vk_gltf_renderer_tpu_torch.scenes import write_large_glb  # noqa: E402
-from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
+from torch_test_helpers import (  # noqa: E402, F401 (a fixture)
+    deep_chain_rays,
+    deep_chain_split,
+    one_torch_thread,
+    share_native_builder,
+)
 
 share_native_builder()
 
@@ -370,6 +376,178 @@ def test_plain_packet4_dead_lane_rule(scene, request):
     dead_t = torch.tensor(dead)
     assert bool((port["t"][dead_t] == 1e32).all() and (port["tri"][dead_t] == -1).all())
     assert bool((port["rnode"][dead_t] == -1).all())
+
+
+@pytest.mark.parametrize("scene", ["editor", "terrain", "few"])
+def test_plain_v1_dead_lane_rule(scene, request):
+    """The dead-lane rule that the compaction of csrc/traverse_bvh2_split.cu
+    relies on, in its plain version, with tmax -1, -0.0, -0.5, -4 or NaN.
+    Where node 0 is internal (editor, terrain) every lane with !(tmax >=
+    0) is dead: node 0's slab tests floor tnear at 0 and cap tfar at tmax,
+    so the walk enters no child, and the lane returns (tmax, -1, row -1,
+    0, 0) bit for bit (so does -0.0, which the kernel walks). Where node 0
+    is a leaf (the few scene) its triangles accept any t in (tmin, tmax):
+    the rays from below (tmin -3) with tmax -0.5 hit the plane at t = -1,
+    so a lane is dead only where also !(tmin < tmax), and every such lane
+    returns (tmax, -1, -1, 0, 0). DeviceBvh.bvh2_split_root_leaf says
+    which rule the kernel's compaction applies; intersect_rays_packet(
+    v2=False) turns each dead lane into t = 1e32 and ids -1."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    root_leaf = bool(wb.nodes_i[0, 3] > 0)
+    assert root_leaf == (scene == "few") == bvh_t.bvh2_split_root_leaf
+    n = 512
+    if scene == "few":
+        ro, rd, tmin, up = _down_rays(n, seed=49)
+    else:
+        ro, rd, _ = _aimed_rays(wb, n, seed=49)
+        tmin, up = np.zeros(n, np.float32), np.ones(n, bool)
+    tmax = np.full(n, 1e32, np.float32)
+    tmax[1::4] = -1.0
+    tmax[2::8] = np.nan
+    tmax[3::8] = -0.0
+    tmax[5::16] = -0.5
+    tmax[7::16] = -4.0  # below the tmin of the rays from below
+    compacted = ~(tmax >= 0)  # the lanes compact_lanes drops
+    dead = np.signbit(tmax) | np.isnan(tmax)  # -0.0 too: the kernel walks it, with the same result
+    if root_leaf:
+        compacted &= ~(tmin < tmax)
+        dead &= ~(tmin < tmax)
+    assert not (compacted & ~dead).any()
+    rays = (*(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)), torch.tensor(tmin),
+            torch.tensor(tmax))
+    t, rn, row, u, v, dropped = ttrav.traverse_bvh2_split_plain(bvh_t.nodes_f, bvh_t.nodes_i, bvh_t.tris,
+                                                                *rays)
+    assert dropped == 0 and compacted.sum() > 60 and np.isnan(tmax[compacted]).sum() > 30
+    assert np.array_equal(t.numpy()[dead].view(np.int32), tmax[dead].view(np.int32))
+    for ids in (rn, row):
+        assert (ids.numpy()[dead] == -1).all()
+    for f in (u, v):
+        assert np.array_equal(f.numpy()[dead].view(np.int32), np.zeros(dead.sum(), np.int32))
+    assert (row.numpy()[~dead] >= 0).sum() > 20
+    behind = (tmax == -0.5) & ~up  # the plane at t = -1 lies in (tmin, tmax)
+    if scene == "few":
+        assert behind.sum() >= 8 and (row.numpy()[behind] >= 0).all()
+    port = intersect_rays_packet(bvh_t, torch.tensor(ro), torch.tensor(rd), torch.tensor(tmin), torch.tensor(tmax),
+                                 v2=False)
+    dead_t = torch.tensor(dead)
+    assert bool((port["t"][dead_t] == 1e32).all() and (port["tri"][dead_t] == -1).all())
+    assert bool((port["rnode"][dead_t] == -1).all())
+
+
+def _soa(ro, rd, tmax):
+    return (*(torch.tensor(np.ascontiguousarray(a)) for a in (*ro.T, *rd.T)), torch.zeros(ro.shape[0]),
+            torch.tensor(tmax))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_plain_v1_descend_changes_no_output(scene, request):
+    """The plain v1 walk with descend (the kernel's: the nearer entered
+    child walked next from a register, only the far one pushed) and
+    without (the kernel before, which pushed both and popped the nearer)
+    give the same five outputs bit for bit and drop nothing; both equal
+    the plain BVH2 walk over the fused rows of the same binary tree
+    (traverse_bvh2_plain, csrc/traverse_bvh2.cu), which visits it in the
+    same near-first order and tests the same triangles in the same leaf
+    order: t, u and v bit for bit and (rnode, tri) after the row's
+    resolution on every lane."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    ro, rd, tmax = _aimed_rays(wb, 512, seed=50)
+    rays = _soa(ro, rd, tmax)
+    tables = (bvh_t.nodes_f, bvh_t.nodes_i, bvh_t.tris)
+    *desc, dropped = ttrav.traverse_bvh2_split_plain(*tables, *rays)
+    *push_both, dropped_before = ttrav.traverse_bvh2_split_plain(*tables, *rays, descend=False)
+    assert dropped == dropped_before == 0
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(desc, push_both))
+    t, _, row, u, v = desc
+    assert int((row >= 0).sum()) > 50
+    t2, rn2, tri2, u2, v2, dropped2 = ttrav.traverse_bvh2_plain(bvh_t.nodes_fi, bvh_t.tris128, bvh_t.root_code,
+                                                                *rays)
+    assert dropped2 == 0
+    for a, b in ((t, t2), (u, u2), (v, v2)):
+        assert torch.equal(_bits(a), _bits(b))
+    safe = row.clamp(min=0).long()
+    assert torch.equal(torch.where(row >= 0, bvh_t.wtri_rnode[safe], -1), rn2)
+    assert torch.equal(torch.where(row >= 0, bvh_t.wtri_tri[safe], -1), tri2)
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_v1_stack_need_counts_the_descending_walk(scene, request, monkeypatch):
+    """split_stack_need(wb, 1), the check before a v1 launch, counts the
+    kernel's descending walk: it equals bvh_flatten.stack_need of the
+    fused BVH2 rows of the same tree with descend=True, one entry less
+    than the push-both walk's need where node 0 is internal. On stacks
+    shrunk below it the plain v1 walk drops exactly the pushes the plain
+    BVH2 walk drops (the accounting of both kernels), with t equal bit for
+    bit, and on a stack of its need none."""
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    need = tbvh.split_stack_need(wb, 1)
+    assert need == bvh_t.stack_need["bvh2_split"]
+    assert need == tbvh.stack_need(bvh_t.nodes_fi.numpy(), 1, bvh_t.root_code, descend=True)
+    if bvh_t.root_code >= 0:
+        assert need == tbvh.stack_need(bvh_t.nodes_fi.numpy(), 1, bvh_t.root_code) - 1
+    ro, rd, tmax = _aimed_rays(wb, 512, seed=51)
+    rays = _soa(ro, rd, tmax)
+    drops = []
+    for depth in (need, 3, 1):
+        monkeypatch.setattr(ttrav, "STACK_DEPTH_SPLIT2", depth)
+        monkeypatch.setattr(ttrav, "STACK_DEPTH2", depth)
+        t, *_, dropped = ttrav.traverse_bvh2_split_plain(bvh_t.nodes_f, bvh_t.nodes_i, bvh_t.tris, *rays)
+        t2, *_, dropped2 = ttrav.traverse_bvh2_plain(bvh_t.nodes_fi, bvh_t.tris128, bvh_t.root_code, *rays)
+        assert dropped == dropped2 and torch.equal(_bits(t), _bits(t2))
+        drops.append(dropped)
+    assert drops[0] == 0
+    assert (drops[2] > drops[1] > 0) == (scene != "few")  # the few scene's leaf root pushes nothing
+
+
+@pytest.mark.parametrize("levels,per_ray", [(128, 0), (129, 1), (140, 12)])
+def test_plain_v1_counts_overflow_on_a_deep_chain(levels, per_ray):
+    """torch_test_helpers.deep_chain_split through the CPU wrapper: the
+    descending v1 walk's stack grows by 1 a node (the far leaf), so past
+    128 nodes every live ray drops per_ray pushes (one a node from node
+    128 on; dead lanes none), where split_stack_need says the stack is too
+    small; nothing is hit. The walk before (descend=False) pushed both
+    children: it drops the near child of node 127 and so loses the rest of
+    the chain, one push a live ray from 128 nodes on."""
+    nodes_f, nodes_i, tris = (torch.tensor(a) for a in deep_chain_split(levels))
+    rays = [torch.tensor(a) for a in deep_chain_rays(300, seed=52)]
+    rays[7][::5] = -1.0
+    live = int((rays[7] >= 0).sum())
+    need = tbvh.split_stack_need(SimpleNamespace(nodes_i=nodes_i.numpy()), 1)
+    assert need == levels and (need > ttrav.STACK_DEPTH_SPLIT2) == (per_ray > 0)
+    tb2s.OVERFLOW.reset()
+    t, _, row, _, _ = tb2s.traverse_bvh2_split(nodes_f, nodes_i, tris, *rays)
+    assert tb2s.OVERFLOW.total() == per_ray * live
+    tb2s.OVERFLOW.reset()
+    assert (row == -1).all() and torch.equal(t, rays[7])
+    *_, dropped = ttrav.traverse_bvh2_split_plain(nodes_f, nodes_i, tris, *rays, descend=False)
+    assert dropped == live * (levels >= 128)
+
+
+@pytest.mark.parametrize("scene", ["editor", "few"])
+def test_v1_wrapper_passes_the_root_leaf_and_its_scratch(scene, request, monkeypatch):
+    """intersect_rays_packet(v2=False) hands the v1 wrapper the host's
+    bvh2_split_root_leaf (0 for the editor's internal node 0, 1 for the
+    few scene's leaf), which the wrapper passes to the C entry as its one
+    scalar, with the compaction's scratch (traverse_launch.list_scratch),
+    and without a read of the device tables."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse_launch
+
+    _, wb, bvh_t = request.getfixturevalue(scene)
+    passed = []
+    real = tb2s.run_traversal
+
+    def record(name, counter, overflow, plain, tables, scalars, rays, anyhit, extra=None):
+        passed.append((scalars, extra))
+        return real(name, counter, overflow, plain, tables, scalars, rays, anyhit, extra=extra)
+
+    monkeypatch.setattr(tb2s, "run_traversal", record)
+    ro, rd, tmax = _aimed_rays(wb, 16, seed=53)
+    _port(intersect_rays_packet, bvh_t, ro, rd, tmax, v2=False)
+    assert passed == [((int(scene == "few"),), traverse_launch.list_scratch)]
 
 
 @pytest.mark.parametrize("scene", SCENES)

@@ -411,6 +411,52 @@ def test_tuning_variant_fits_the_kernel_source(kernel, name):
     _assert_variant_fits(kernel, name)
 
 
+@pytest.mark.parametrize("kernel", sorted(bvh4_tuning.VARIANTS))
+def test_tuning_variants_carry_test_leaf_where_they_call_it(kernel):
+    """No kernel of the library calls the generic walk's one-triangle-at-a-
+    time leaf test, and csrc/ no longer defines it (every walk, v1's since
+    its redesign, tests leaves with the batched leaf of traverse_bvh.cuh).
+    Each bvh4_tuning.py variant of `kernel` that calls test_leaf (its
+    "whole-row loads off", "batched leaf off" and "every element off"
+    variants) carries the definition: GENERIC's in namespace before, or
+    RESTORE_TEST_LEAF's in traverse_bvh.cuh; else its build would fail on
+    the card."""
+    import re
+
+    from vk_gltf_renderer_tpu_torch import cuda_lib
+
+    call = re.compile(r"(?<!bool )\btest_leaf(?:<\w+>)?\(")
+    for path in cuda_lib._CSRC.glob("*.cu*"):
+        text = path.read_text()
+        assert not call.search(text) and "bool test_leaf(" not in text, path.name
+    files = bvh4_tuning._files(kernel)
+    callers = 0
+    for name in bvh4_tuning.VARIANTS[kernel]:
+        out = bvh4_tuning.variant_sources(kernel, name, files)
+        text = "".join(out.get(f, files[f]) for f in files)
+        if call.search(text):
+            callers += 1
+            assert "bool test_leaf(" in text, name
+    assert callers > 0 or kernel == "traverse_lanes.cu"
+
+
+def test_v1_constants_match_the_kernel():
+    """csrc/traverse_bvh2_split.cu's compiled stack is the plain version's
+    STACK_DEPTH_SPLIT2, and its C entry takes the root_leaf scalar after
+    the three tables and the scratch before the stream
+    (cuda_lib._SIGNATURES)."""
+    import ctypes
+
+    from vk_gltf_renderer_tpu_torch import cuda_lib
+
+    assert _cu_constants("traverse_bvh2_split.cu")["kStack"] == ttrav.STACK_DEPTH_SPLIT2 == 128
+    sig = cuda_lib._SIGNATURES["vkgr_traverse_bvh2_split"]
+    assert len(sig) == 3 + 1 + 8 + 1 + 5 + 3 and sig[3] is ctypes.c_int and sig[12] is ctypes.c_int
+    src = (cuda_lib._CSRC / "traverse_bvh2_split.cu").read_text()
+    assert "const float* tris, int root_leaf, const float* rox" in src
+    assert "unsigned int* overflow, int* scratch, void* stream)" in src
+
+
 def test_sidecar_walk_constants_match_the_kernels(monkeypatch):
     """The walk that v7 and packet4 share (csrc/sidecar_walk.cuh) holds the
     plain versions' STACK_DEPTH and STACK_DEPTH_SPLIT4 entries, both

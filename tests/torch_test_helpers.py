@@ -107,6 +107,28 @@ def deep_chain(levels, arity):
     return nodes, np.zeros((1, 128), np.float32)
 
 
+def deep_chain_split(levels):
+    """deep_chain's BVH2 chain as the v1 walk's split tables: internal nodes
+    0 .. levels-1, both child boxes [-1, 1]^3, the left child the next node
+    (the leaf for the last one), the right child the one leaf node
+    `levels`, which holds tris row 0: a degenerate triangle (all zeros) that
+    nothing hits; every split axis x. A ray from inside the box with dx >= 0
+    enters both children of every node, the left one nearer: the v1 walk
+    pushes the leaf and descends into the next node, so its stack grows by
+    1 a node, and from node 128 on every live ray drops one push a node
+    (the walk before, which pushed both children, lost the chain at node
+    127 instead). Returns (nodes_f [L+1,16] f32, nodes_i [L+1,8] i32, tris
+    [9,16] f32) as numpy arrays."""
+    nodes_f = np.zeros((levels + 1, 16), np.float32)
+    nodes_f[:levels, 0:12] = np.tile(np.float32([-1, -1, -1, 1, 1, 1]), 2)
+    nodes_i = np.zeros((levels + 1, 8), np.int32)
+    nodes_i[:levels, 0] = np.arange(1, levels + 1)
+    nodes_i[:levels, 1] = levels
+    nodes_i[levels, 3] = 1  # first 0, count 1
+    nodes_i[:, 4] = np.append(-1, np.arange(levels))  # parents
+    return nodes_f, nodes_i, np.zeros((9, 16), np.float32)
+
+
 def deep_chain_rays(n, seed):
     """n rays from inside deep_chain_bvh4's box with dx >= 0, as the 8 [N]
     f32 numpy components (tmin 0, tmax 1e32)."""

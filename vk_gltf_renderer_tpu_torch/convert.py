@@ -65,6 +65,9 @@ class DeviceBvh:
     wtri_tri: torch.Tensor | None = None  # [T+8] i32 global triangle id of a tris row
     nodes4_i: torch.Tensor | None = None  # [M,8] i32 split BVH4 codes + axes
     nodes4_f: torch.Tensor | None = None  # [M,32] f32 split BVH4 child boxes
+    # whether binary node 0 is a leaf, read on the host with the v1 kernel's tables: its
+    # compaction's dead-lane rule depends on it, and the wrapper must not sync to learn it
+    bvh2_split_root_leaf: bool = False
     # deepest traversal stack each walk over a present table can need, by
     # table family (ops/intersect.ROUTES and SPLIT_FAMILIES below; bvh_flatten.stack_need,
     # multipop_stack_need and split_stack_need), checked against the kernels' capacity
@@ -128,7 +131,8 @@ def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> Dev
     `families` names "bvh4_multipop" (a Python walk of the whole tree, so
     only on request). The split tables, which every host BVH has, are
     copied only for the SPLIT_FAMILIES that `families` names, with the
-    split walks' stack needs. Returns dev."""
+    split walks' stack needs (and, for the v1 kernel, whether node 0 is a
+    leaf). Returns dev."""
     f32 = np.float32
     for family in SPLIT_FAMILIES:
         if family not in families:
@@ -138,6 +142,8 @@ def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> Dev
                 setattr(dev, name, _t(getattr(bvh, name), _SPLIT_DTYPES.get(name, f32), device))
         if family != "wavefront" and family not in dev.stack_need:
             dev.stack_need[family] = split_stack_need(bvh, 2 if family == "bvh4_split" else 1)
+        if family == "bvh2_split":
+            dev.bvh2_split_root_leaf = bool(np.asarray(bvh.nodes_i)[0, 3] > 0)
     if getattr(bvh, "nodes4_sc", None) is not None and dev.nodes4_sc is None:
         dev.nodes4_sc = _t(bvh.nodes4_sc, np.int32, device)
         dev.stack_need["bvh4_sidecar"] = dev.stack_need["bvh4"]

@@ -3,9 +3,10 @@
 // (v3/v9), traverse_lanes.cu (the lane walk), traverse_bvh4_multipop.cu
 // (v5), traverse_bvh2.cu (v2), traverse_bvh16.cu (v6),
 // traverse_bvh4_leafqueue.cu (v8), and traverse_bvh4_sidecar.cu (v7) and
-// traverse_bvh4_split.cu (packet4) through sidecar_walk.cuh; megakernel.cu,
-// whose every lane starts live, takes only its persistent grid: nine
-// kernels in all.
+// traverse_bvh4_split.cu (packet4) through sidecar_walk.cuh; by
+// traverse_bvh2_split.cu (v1), which only intersect_rays_packet(v2=False)
+// launches; and megakernel.cu, whose every lane starts live, takes only its
+// persistent grid: ten kernels in all.
 //
 // The renderer traces every pixel's lane in every launch and marks
 // finished paths with tmax = -1, so after the first bounce 0.001-7% of the

@@ -1,17 +1,17 @@
 // Per-ray traversal of the fused BVH row tables, shared by every traversal
-// kernel. For the nine kernels on live_lanes.cuh: the whole-row BVH4
-// visits and leaf (visit and leaf: the BVH4 step below, which
-// traverse_bvh4.cu and megakernel.cu walk, the v5 walk of
-// traverse_bvh4_multipop.cu and the v8 schedule of
-// traverse_bvh4_leafqueue.cu, with prefetch_leaf; visit_sc and leaf: the
-// walk of sidecar_walk.cuh behind traverse_bvh4_sidecar.cu (v7) and
-// traverse_bvh4_split.cu (packet4)), the whole-row BVH2 visit of
-// traverse_bvh2.cu (visit2, with leaf), and the ray/box and ray/triangle
-// tests of traverse_bvh16.cu's group walk and traverse_lanes.cu. For
-// traverse_bvh2_split.cu (v1): test_leaf for both leaf layouts. The
-// generic one-ray-per-thread walk that the redesigns replaced (float2 box
-// loads, then the codes, one triangle at a time) is no longer here:
-// bvh4_tuning.GENERIC carries it for the "every element off" variants.
+// kernel, all ten on live_lanes.cuh: the whole-row BVH4 visits and leaf
+// (visit and leaf: the BVH4 step below, which traverse_bvh4.cu and
+// megakernel.cu walk, the v5 walk of traverse_bvh4_multipop.cu and the v8
+// schedule of traverse_bvh4_leafqueue.cu, with prefetch_leaf; visit_sc and
+// leaf: the walk of sidecar_walk.cuh behind traverse_bvh4_sidecar.cu (v7)
+// and traverse_bvh4_split.cu (packet4)), the whole-row BVH2 visit of
+// traverse_bvh2.cu (visit2, with leaf), the batched leaf<true> over the
+// split tables' 64-byte tris rows of traverse_bvh2_split.cu (v1), and the
+// ray/box and ray/triangle tests of traverse_bvh16.cu's group walk and
+// traverse_lanes.cu. The generic one-ray-per-thread walk that the
+// redesigns replaced (float2 box loads, then the codes, one triangle at a
+// time in test_leaf) is no longer here: bvh4_tuning.GENERIC carries it for
+// the "every element off" variants.
 //
 // Row layout of an arity-A table (A = 2^L children per node, 8*A floats
 // per row; nodes_fi L=1, nodes4_fi L=2, nodes16_fi L=4):
@@ -159,52 +159,15 @@ __device__ __forceinline__ bool triangle(float v0x, float v0y, float v0z, float 
   return ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > r.tmin && tt < t_best;
 }
 
-// The triangles of one leaf code, in slot order (strict '<': the first of
-// equal t wins). Returns true when an any-hit ray was accepted.
-// kSplit: the code is -(first*16 + count) - 1 into the per-triangle table
-// tris [T+8,16] of the split walks (rows first .. first+count-1, the same
-// 16-float layout as a tris128 slot without the ids), and a hit records
-// its tris row in h.tri; otherwise the code indexes tris128 rows and the
-// hit takes the ids of the slot.
-template <bool kSplit = false>
-__device__ __forceinline__ bool test_leaf(const float* __restrict__ tris, int e, const Ray& r,
-                                          bool anyhit, Hit& h) {
-  const int code = -e - 1;
-  const int row = code / 16;
-  const int cnt = code - row * 16;
-  const float4* tr =
-      reinterpret_cast<const float4*>(tris + static_cast<size_t>(row) * (kSplit ? 16 : 128));
-  for (int c = 0; c < kLeafSlots && c < cnt; ++c) {
-    // slot layout: v0.xyz v1.xyz v2.xyz rnode tri pad5 (split rows: pad from col 9)
-    const float4 a = __ldg(tr + 4 * c);
-    const float4 b = __ldg(tr + 4 * c + 1);
-    const float4 d = __ldg(tr + 4 * c + 2);
-    float uu, vv, tt;
-    if (triangle(a.x, a.y, a.z, a.w - a.x, b.x - a.y, b.y - a.z, b.z - a.x, b.w - a.y,
-                 d.x - a.z, r, h.t, uu, vv, tt)) {
-      h.t = anyhit ? -1.0f : tt;
-      if constexpr (kSplit) {
-        h.tri = static_cast<float>(row + c);  // exact: the wrappers cap tris at 2^24 rows
-      } else {
-        h.rn = d.y;
-        h.tri = d.z;
-      }
-      h.u = uu;
-      h.v = vv;
-      if (anyhit) return true;
-    }
-  }
-  return false;
-}
-
 // Whole-row loads of the BVH4 tables (the BVH4 step below, the v5 walk of
 // traverse_bvh4_multipop.cu, v8, and v7 and packet4 through visit_sc): a
 // visit reads the row's 8 aligned float4s in one round (ld.global.nc.v4)
 // and unpacks the 4 boxes, 4 codes and 3 axes from registers, instead of
 // the generic walk's 12 float2 box loads followed, after the slab tests,
 // by up to 7 scalar loads (or by 2 int4 loads of the int row); a leaf
-// issues the loads of kTriBatch triangles before testing them. The
-// arithmetic and order are the generic walk's and test_leaf's.
+// issues the loads of kTriBatch triangles before testing them, where the
+// generic walk's test_leaf loaded and tested one triangle after the other.
+// The arithmetic and order are the generic walk's.
 constexpr int kTriBatch = 4;  // triangles whose loads a leaf issues together
 
 // The children of one internal row in near-first order: c0 is the code
@@ -290,11 +253,14 @@ __device__ __forceinline__ Visit visit_sc(const float* __restrict__ nodes,
   return near_first(hitmask, flip, codes.x, codes.y, codes.z, codes.w);
 }
 
-// The triangles of leaf code e in slot order, kTriBatch triangles' loads
-// issued before their tests (test_leaf<kSplit>'s arithmetic and
-// acceptance). kSplit: tris rows of 64 bytes, which need not start on a
-// 128-byte line, and a hit records its tris row. Returns true when an
-// any-hit ray was accepted.
+// The triangles of leaf code e in slot order (strict '<': the first of
+// equal t wins), kTriBatch triangles' loads issued before their tests.
+// kSplit: the code is -(first*16 + count) - 1 into the per-triangle table
+// tris [T+8,16] of the split walks (rows first .. first+count-1, the same
+// 16-float layout as a tris128 slot without the ids; 64-byte rows, which
+// need not start on a 128-byte line), and a hit records its tris row in
+// h.tri; otherwise the code indexes tris128 rows and the hit takes the
+// ids of the slot. Returns true when an any-hit ray was accepted.
 template <bool kSplit = false>
 __device__ __forceinline__ bool leaf(const float* __restrict__ tris, int e, const Ray& r,
                                      bool anyhit, Hit& h) {

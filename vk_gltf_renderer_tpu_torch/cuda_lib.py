@@ -51,10 +51,11 @@ _SIGNATURES = {
     # (nodes4_fi, nodes4_sc, tris128, root code, rays, ... as vkgr_traverse_bvh4)
     "vkgr_traverse_bvh4_sidecar": [_P] + _TRAVERSE[:-1] + [_P, _P],
     "vkgr_traverse_bvh16": _TRAVERSE[:-1] + [_P, _P],
-    # (node table, meta table, tris, 8 ray components, n, 5 outputs, overflow, stream; packet4
-    # also scratch before the stream): no root code (node 0) and no any-hit flag
+    # (node table, meta table, tris, 8 ray components, n, 5 outputs, overflow, scratch, stream):
+    # no root code (node 0) and no any-hit flag; v1 also takes root_leaf (node 0 is a leaf)
+    # after the tables
     "vkgr_traverse_bvh4_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P, _P],
-    "vkgr_traverse_bvh2_split": [_P] * 3 + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P],
+    "vkgr_traverse_bvh2_split": [_P] * 3 + [_I] + [_P] * 8 + [_I] + [_P] * 5 + [_P, _P, _P],
     # (nodes4_fi, tris128, root code, ro, rd, seeds, n, per packet, depth, out, overflow, path
     # cursor, stream)
     "vkgr_render_mega": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],

@@ -636,8 +636,10 @@ def split_stack_need(wb: WorldBvh, levels: int) -> int:
     levels=2, the packet4 walk (ops/traverse.traverse_bvh4_split_plain):
     nodes4_i rows from BVH4 row 0, pushing every child code but the
     missing ones (-1), which the walk skips. levels=1, the v1 walk
-    (traverse_bvh2_split_plain): binary node ids from node 0, pushing both
-    children of an internal node; a root that is a leaf needs 1."""
+    (traverse_bvh2_split_plain with descend, csrc/traverse_bvh2_split.cu):
+    binary node ids from node 0, pushing the far child of an internal node
+    and walking the near one next from a register (stack_need's
+    descend=True on the same tree); a root that is a leaf needs 1."""
     if levels == 2:
         codes = np.asarray(wb.nodes4_i)[:, 0:4].astype(np.int64)
         real = codes != -1
@@ -650,7 +652,7 @@ def split_stack_need(wb: WorldBvh, levels: int) -> int:
         return 1
     children = nodes_i[:, 0:2].astype(np.int64)
     real = np.repeat(internal[:, None], 2, axis=1)
-    return _push_walk_need(children, real, real & internal[children], 0)
+    return _push_walk_need(children, real, real & internal[children], 0, descend=True)
 
 
 def multipop_stack_need(nodes4_fi, root_code: int, multipop: int) -> int:

@@ -167,7 +167,7 @@ def intersect_rays_packet(bvh, ro, rd, tmin=0.0, tmax=None, anyhit=False, wide=F
                                               tmax)
     else:
         t, _, row, u, v = traverse_bvh2_split(bvh.nodes_f, bvh.nodes_i, bvh.tris, *comps, tmin,
-                                              tmax)
+                                              tmax, root_leaf=bvh.bvh2_split_root_leaf)
     return _resolve_rows(bvh, t, row, u, v)
 
 

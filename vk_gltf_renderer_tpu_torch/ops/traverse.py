@@ -398,7 +398,7 @@ def traverse_bvh4_split_plain(nodes4_f, nodes4_i, tris, rox, roy, roz, rdx, rdy,
 
 
 def traverse_bvh2_split_plain(nodes_f, nodes_i, tris, rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-                              stats=None):
+                              stats=None, descend=True):
     """Plain v1 walk (csrc/traverse_bvh2_split.cu; the reference's
     traverse_packets): binary node ids from node 0 over the split tables.
     A pop reads nodes_i[node] (left, right, first, count, parent, axis):
@@ -406,10 +406,15 @@ def traverse_bvh2_split_plain(nodes_f, nodes_i, tris, rox, roy, roz, rdx, rdy, r
     boxes of nodes_f[node] (cols 0:12) are tested and the far, then the
     near child (near: the left one where the ray's direction along `axis`
     is >= 0) is pushed if its box is entered. Closest hit only; returns
-    what traverse_bvh4_split_plain returns. stats: internal / leaf visits,
-    triangle tests, node_rows (internal nodes popped: their nodes_i and
-    nodes_f rows are read), leaf_node_rows (leaf nodes popped: only their
-    nodes_i row is read) and leaf_rows (tris rows tested)."""
+    what traverse_bvh4_split_plain returns. descend: the kernel's walk,
+    which keeps the nearer entered child in a register instead of pushing
+    it: the same visits, and a stack of STACK_DEPTH_SPLIT2 entries drops
+    only pushes of the far child (bvh_flatten.split_stack_need counts this
+    walk); descend=False is the walk of the kernel before its redesign,
+    which pushed both. stats: internal / leaf visits, triangle tests,
+    node_rows (internal nodes popped: their nodes_i and nodes_f rows are
+    read), leaf_node_rows (leaf nodes popped: only their nodes_i row is
+    read) and leaf_rows (tris rows tested)."""
     dev = rox.device
     n = rox.shape[0]
     w = _Walk(tris, (rox, roy, roz, rdx, rdy, rdz, tmin, tmax), False,
@@ -418,7 +423,7 @@ def traverse_bvh2_split_plain(nodes_f, nodes_i, tris, rox, roy, roz, rdx, rdy, r
         w.stats.setdefault("leaf_node_rows", torch.zeros(nodes_i.shape[0], dtype=torch.bool,
                                                          device=dev))
     depth = STACK_DEPTH_SPLIT2
-    stack = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, depth + descend), dtype=torch.int64, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)
     overflow = 0
     while True:
@@ -448,7 +453,7 @@ def traverse_bvh2_split_plain(nodes_f, nodes_i, tris, rox, roy, roz, rdx, rdy, r
                                  torch.where(l_near, m[:, 0], m[:, 1])], dim=1)
             enter = torch.stack([torch.where(l_near, hit_r, hit_l),
                                  torch.where(l_near, hit_l, hit_r)], dim=1)
-            overflow += _push(stack, sp, ii, codes, enter, depth)
+            overflow += _push(stack, sp, ii, codes, enter, depth, descend)
     return w.result(overflow)
 
 

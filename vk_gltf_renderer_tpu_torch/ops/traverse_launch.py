@@ -9,7 +9,7 @@ outputs, launches on the current stream, raises if the launch failed, and
 counts the launch.
 
 The kernels with live-lane compaction (csrc/live_lanes.cuh: traverse_bvh4,
-the lane walk, v5, traverse_bvh2, traverse_bvh16, v7, packet4 and v8) also
+the lane walk, v5, traverse_bvh2, traverse_bvh16, v7, packet4, v8 and v1) also
 take a scratch buffer, list_scratch(n, device), through run_traversal's
 `extra`: the kernel's entry zeroes its live count
 and work cursor on the stream, compact_lanes writes the dead lanes'
