@@ -124,6 +124,18 @@ Phases (each raises on failure; nothing is caught):
      index_select + sum (its library time); probe_uarch for all 8 micro-ops
      at 20,000 steps, each equal to its plain version run on CPU copies of
      the inputs; ms, us per page, GB/s, ns and SM cycles per step printed.
+ 14. front ends, the user's entry points on the card: headless.main on the
+     helmet stand-in under the HDR at 1920x1080, 6 frames (5 timed), with
+     VKGR_SETTINGS in the run's temp dir: its BENCHMARK_JSON must read 5
+     frames, 9,218 triangles and Mrays/s > 0, its PNG must decode with
+     utils/png.read_png, and traverse_bvh4 and gather_channels must have
+     launched (their counters zeroed just before); `benchmark run` on a
+     two-line cfg (helmet and terrain at 512x512, 4 frames) and `compare`
+     of its CSV with itself, both rc 0; the bench entry
+     (python -m vk_gltf_renderer_tpu_torch.bench_impl) as a child at its
+     full recipe, whose JSON line must read value > 0 with no error; and
+     utils/profiler.profile_frames on the helmet and the terrain at 1080p
+     (3 frames each), both tables printed.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -168,10 +180,12 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from vk_gltf_renderer_tpu_torch.bench_impl import gpu_line  # noqa: E402
 from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 
 FRAME_W, FRAME_H, SPP, DEPTH = 1920, 1080, 1, 5
 WARMUP, TIMED = 2, 10
+PROFILED_FRAMES = 3  # frames each of phase 14's profiles covers
 SRC = "vk_gltf_renderer_tpu_torch/csrc/"
 REF = "vk_gltf_renderer_tpu/"
 TRAV_SRC = SRC + "traverse_bvh4.cu"
@@ -249,12 +263,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def require(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -263,7 +271,7 @@ def require(cond, msg):
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU")
-    smi = nvidia_smi_line()
+    smi = gpu_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     return torch.device("cuda:0"), smi
@@ -1529,6 +1537,93 @@ def phase_stream_uarch(device):
     return results
 
 
+def _headless_record(out):
+    """The BENCHMARK_JSON record of a headless run's stdout."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("BENCHMARK_JSON ")]
+    require(len(lines) == 1, f"headless printed {len(lines)} BENCHMARK_JSON lines")
+    return lines[0], json.loads(lines[0].split(" ", 1)[1])
+
+
+def phase_frontends(device, tmp, glb, smi):
+    """Phase 14: headless, the benchmark harness, the bench entry and the
+    frame profiler on the card."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import headless
+    from vk_gltf_renderer_tpu_torch.benchmark.__main__ import main as benchmark_main
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.png import read_png
+    from vk_gltf_renderer_tpu_torch.utils.profiler import format_table, profile_frames
+
+    for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL", "VKGR_TRAVERSAL"):
+        os.environ.pop(key, None)
+    os.environ["VKGR_SETTINGS"] = os.path.join(tmp, "settings.json")
+    scene, hdr = os.path.join(tmp, "helmet.gltf"), os.path.join(tmp, "sky.hdr")
+    png = os.path.join(tmp, "headless.png")
+    t0 = time.perf_counter()
+    tb4.COUNTER.launches = 0
+    tgather.COUNTER.launches = 0
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = headless.main(["--headless", "--scenefile", scene, "--hdrfile", hdr, "--envSystem", "1",
+                            "--size", str(FRAME_W), str(FRAME_H), "--frames", "6", "--output", png])
+    launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+    line, rec = _headless_record(buf.getvalue())
+    log(f"[frontends] headless rc {rc}: {line}")
+    with open(png, "rb") as f:
+        img = read_png(f.read())
+    log(f"[frontends] headless PNG {img.shape}, mean {img.mean(axis=(0, 1)).round(2).tolist()}; kernel "
+        f"launches {launches} ({time.perf_counter() - t0:.1f} s)")
+    require(rc == 0 and rec["frames"] == 5 and rec["triangles"] == 9218 and rec["Mrays_per_sec"] > 0,
+            f"headless record {rec}")
+    require(img.shape == (FRAME_H, FRAME_W, 3) and img.mean() > 1, "headless PNG is wrong or black")
+    require(all(v > 0 for v in launches.values()), f"a kernel of the headless path never launched: {launches}")
+
+    t0 = time.perf_counter()
+    cfg, csv_path = os.path.join(tmp, "frontends.cfg"), os.path.join(tmp, "frontends.csv")
+    with open(cfg, "w") as f:
+        for path in (scene, glb):
+            f.write(f"--scenefile {path} --size 512 512 --frames 4 --envSystem 1 --hdrfile {hdr}\n")
+    with redirect_stdout(io.StringIO()):
+        rc_run = benchmark_main(["run", cfg, "--output", csv_path, "--device", str(device)])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc_cmp = benchmark_main(["compare", csv_path, csv_path])
+    with open(csv_path) as f:
+        rows = f.read().splitlines()
+    log(f"[frontends] benchmark run rc {rc_run}, compare rc {rc_cmp} ({time.perf_counter() - t0:.1f} s); "
+        f"CSV: {rows}; compare: {buf.getvalue().splitlines()}")
+    require(rc_run == 0 and rc_cmp == 0 and len(rows) == 3, "benchmark run / compare failed")
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VKGR_BENCH_")}
+    env["VKGR_BENCH_SCENE2_TIMEOUT"] = "300"
+    proc = subprocess.run([sys.executable, "-m", "vk_gltf_renderer_tpu_torch.bench_impl"], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True, timeout=400)
+    bench_line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    log(f"[frontends] bench_impl rc {proc.returncode} ({time.perf_counter() - t0:.1f} s): {bench_line}")
+    require(proc.returncode == 0, f"bench_impl failed: {proc.stderr[-2000:]}")
+    bench = json.loads(bench_line)
+    require(bench["value"] > 0 and "error" not in bench["detail"].get("scene2", {"error": "missing"}),
+            "bench_impl reported no rate or an error")
+
+    profiles = {}
+    for label, path in (("helmet", scene), ("terrain", glb)):
+        t0 = time.perf_counter()
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(path)
+        r.create_hdr(hdr)
+        profiles[label] = profile_frames(r, PROFILED_FRAMES)
+        del r
+        log(format_table(profiles[label], f"[frontends] profile {label} {FRAME_W}x{FRAME_H} on {smi}, "))
+        log(f"[frontends] profile {label} took {time.perf_counter() - t0:.1f} s")
+    return dict(headless=rec, launches=launches, bench=bench, profiles=profiles)
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -1585,6 +1680,8 @@ def main():
         log(f"[time] packet4 frames done at {time.perf_counter() - t_start:.1f} s")
         wave = phase_wavefront_frame(device, helmet_path, hdr, smi)
         log(f"[time] wavefront frame done at {time.perf_counter() - t_start:.1f} s")
+        front = phase_frontends(device, tmp, glb, smi)
+        log(f"[time] front ends done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -1592,13 +1689,15 @@ def main():
 
     kernels = [
         _entry("traverse_bvh4", launches["traverse_bvh4"], kern["traverse_bvh4"],
+               headless_launches=front["launches"]["traverse_bvh4"],
                terrain_launches=frames[SELECTIONS[0]]["launches"]["traverse_bvh4"],
                terrain=large["traverse_bvh4"], resources=resources["traverse_bvh4.cu"],
                replay={label: v["frame"] for label, v in replay.items()},
                replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["traverse_bvh4"], x["v7"], x["bound_ms"]]
                                         for x in v["launches"]] for label, v in replay.items()},
                replay_launches_fields=["hit", "lanes", "live", "ms", "v7_ms", "bound_ms"]),
-        _entry("gather_channels", launches["gather_channels"], kern["gather_channels"]),
+        _entry("gather_channels", launches["gather_channels"], kern["gather_channels"],
+               headless_launches=front["launches"]["gather_channels"]),
     ]
     for name, sel in (("traverse_bvh2", ("v2", "v2")), ("traverse_bvh16", ("v6", "v6")),
                       ("traverse_lanes", ("lane", "lane_stream")),
@@ -1660,6 +1759,9 @@ def main():
                       "packet4_frames": {k: {"ms_per_frame": v["ms"], "mrays_per_s": v["mrays"]}
                                          for k, v in packet4.items()},
                       "wavefront_frame": wave,
+                      "headless": front["headless"], "bench_impl": front["bench"],
+                      "profiles": {label: {k: v for k, v in prof.items() if k != "top"}
+                                   for label, prof in front["profiles"].items()},
                       "terrain_frame": f"{FRAME_W}x{FRAME_H} spp{SPP} depth{DEPTH} terrain "
                                        f"{LARGE_WORLD_TRIS} tris + HDR"}))
     print(smi)

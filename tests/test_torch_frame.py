@@ -149,14 +149,21 @@ def test_helmet_hdr_frame_matches_jax_renderer_under_packet4(tmp_path, monkeypat
 
 
 def test_entry_points_default_to_the_card():
-    """The renderer and the megakernel's ray packing run on the card unless
-    the caller asks for the CPU."""
+    """The renderer, the megakernel's ray packing and the front ends
+    (headless, the benchmark harness's headless and run, the bench entry)
+    run on the card unless the caller asks for the CPU."""
     import inspect
 
+    from vk_gltf_renderer_tpu_torch import bench_impl, headless
+    from vk_gltf_renderer_tpu_torch.benchmark import __main__ as benchmark
     from vk_gltf_renderer_tpu_torch.ops.megakernel import pack_rays
 
     assert inspect.signature(GltfRenderer).parameters["device"].default == "cuda"
     assert inspect.signature(pack_rays).parameters["device"].default == "cuda"
+    assert headless.build_parser().parse_args([]).device == "cuda"
+    assert bench_impl.build_parser().parse_args([]).device == "cuda"
+    for argv in (["headless", "--scene", "x.gltf"], ["run", "x.cfg"]):
+        assert benchmark.build_parser().parse_args(argv).device == "cuda"
 
 
 @pytest.mark.usefixtures("one_torch_thread")

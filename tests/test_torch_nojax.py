@@ -3,9 +3,10 @@ subprocess blocks `import jax` and `import vk_gltf_renderer_tpu`, imports
 every module of the port, builds the helmet stand-in with the port's own
 writer and renders a frame on the CPU, renders the terrain grid under
 every traversal-kernel selection and under VKGR_TRAVERSAL=packet4 and
-wavefront, and runs a small megakernel render; and no source file of the
-port, chip_smoke.py or bvh4_tuning.py imports either, or the reference's
-tools/."""
+wavefront, runs a small megakernel render, and runs the headless CLI and
+`benchmark run` on the CPU, each printing one BENCHMARK_JSON line; and no
+source file of the port, chip_smoke.py or bvh4_tuning.py imports either,
+or the reference's tools/."""
 
 import os
 import re
@@ -68,6 +69,21 @@ with tempfile.TemporaryDirectory() as d:
                       r.dev_bvh.root4_code)
     assert out.shape == (1, 2, 8, 128) and bool(torch.isfinite(out).all())
     assert bool((out[:, 0].reshape(-1)[:n] > 0).any())
+    # the front ends: headless and `benchmark run` on the CPU
+    import contextlib, io
+    from vk_gltf_renderer_tpu_torch import headless
+    from vk_gltf_renderer_tpu_torch.benchmark.__main__ import main as benchmark_main
+    os.environ["VKGR_SETTINGS"] = d + "/settings.json"
+    scene, cfg = d + "/helmet.gltf", d + "/one.cfg"
+    with open(cfg, "w") as f:
+        f.write(f"--scenefile {scene} --size 24 16 --frames 2 --ptDepth 2\n")
+    for main, argv in ((headless.main, ["--scenefile", scene, "--size", "32", "24", "--frames", "2",
+                                        "--device", "cpu"]),
+                       (benchmark_main, ["run", cfg, "--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(argv) == 0
+        assert sum(ln.startswith("BENCHMARK_JSON {") for ln in buf.getvalue().splitlines()) == 1
 blocked = ("jax", "vk_gltf_renderer_tpu")
 assert not any(m.split(".")[0] in blocked for m, v in sys.modules.items() if v is not None)
 print("NOJAX_OK")

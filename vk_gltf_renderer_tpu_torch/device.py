@@ -31,3 +31,10 @@ def resolve_device(name) -> torch.device:
         raise ValueError(f"unsupported device {name!r}")
     set_precision()
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on a card (a host clock read before it
+    times the enqueue); a CPU device has nothing queued."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

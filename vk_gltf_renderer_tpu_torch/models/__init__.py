@@ -6,8 +6,9 @@ Flat render arrays (RenderNode / RenderPrimitive) are derived, never edited.
 
 The port's own copy of vk_gltf_renderer_tpu/models (the modules the port
 reaches: glTF I/O and its Draco / meshopt decoders, Scene, geometry,
-materials, the editor, animation), so the port imports nothing of the JAX
-package; tests/test_torch_host.py holds each copy equal to its original.
+materials, the editor, animation, variants), so the port imports nothing
+of the JAX package; tests/test_torch_host.py (tests/test_torch_frontends.py
+for variants) holds each copy equal to its original.
 """
 
 from .gltf import GltfModel, load_model, save_model

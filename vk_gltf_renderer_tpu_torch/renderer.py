@@ -17,9 +17,10 @@ the int32 sidecar for v7, the v5 walk's stack need for v5, the split
 BVH4 tables for packet4, the binary tree's own boxes and meta rows for
 wavefront). A kernel or walk runs only because the selection names it.
 
-Not ported yet: animation, scene-change sync (dirty flags, refit), the
-preview renderer, denoising, TAA upscaling, the silhouette overlay,
-picking and the adaptive sampler (ROADMAP.md). The TPU fallback ladder
+Not ported yet: animation, scene-change sync (dirty flags, refit; a
+variant switch rebuilds the device scene), the preview renderer,
+denoising, TAA upscaling, the silhouette overlay, picking and the
+adaptive sampler (ROADMAP.md). The TPU fallback ladder
 (VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation) has no role here,
 and the reference's downgrade to the wavefront after kernel faults
 (_traversal_fallback) is deliberately not ported: it would hide a faulty
@@ -38,6 +39,7 @@ from .convert import add_kernel_tables_to_device, bvh_to_device, scene_to_device
 from .device import resolve_device
 from .models import Scene
 from .models.materials import detect_scene_features
+from .models.variants import apply_variant, parse_variants
 from .ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from .ops.camera import pixel_angle
 from .ops.flat import build_scene_flat
@@ -120,6 +122,22 @@ class GltfRenderer:
             else:
                 self.camera = fit_camera(self.scene)
         self.rebuild_device_scene()
+
+    def variants(self) -> list:
+        """KHR_materials_variants names."""
+        return parse_variants(self.scene.model)
+
+    def set_variant(self, index: int) -> int:
+        """Apply a material variant; returns the number of primitives
+        switched. Without scene-change sync (ROADMAP A6) a switch rebuilds
+        the device scene and restarts accumulation: the image is the
+        reference's of the switched scene as loaded (the reference's own
+        switch refits on its device and rounds the hit rows apart;
+        ROADMAP C)."""
+        n = apply_variant(self.scene, index)
+        if n:
+            self.rebuild_device_scene()
+        return n
 
     def create_hdr(self, path) -> None:
         """Load an HDR environment (Radiance .hdr)."""
