@@ -30,9 +30,10 @@ Phases (each raises on failure; nothing is caught):
      user entry points (create_scene, create_hdr, on_render, image_linear,
      save_image): 2 warm-up and 10 timed frames. The kernels' launch
      counters are zeroed just before and must have moved;
-  5. correctness: a small frame on the card (kernels) against the same
+  5. correctness: a 96x64 frame on the card (kernels) against the same
      frame from the port's plain CPU path, which tests/test_torch_frame.py
-     holds against the JAX reference;
+     holds against the JAX reference, for the helmet and for each scene
+     of phase 15 (game, suite, lit game, materials);
   6. large-scene kernels: the 1,059,968-triangle terrain scene
      (scenes.write_large_glb) with every kernel table built (shapes, bytes,
      build seconds and stack needs printed); on ~1M rays (camera rays of
@@ -136,6 +137,26 @@ Phases (each raises on failure; nothing is caught):
      full recipe, whose JSON line must read value > 0 with no error; and
      utils/profiler.profile_frames on the helmet and the terrain at 1080p
      (3 frames each), both tables printed.
+ 15. the material model and punctual lights: the game stand-in under the
+     HDR and the game with a point, a spot and a directional light
+     (scenes.make_lit_game_standin) at 1920x1080, the suite stand-in under
+     the sky at 1024x1024, and scenes.make_materials_standin (every
+     material family on a sphere, three lights) under the sky at
+     1920x1080, spp 1, depth 5, through the entry points: 2 warm-up and 12
+     timed frames each, ms/frame (mean, min, max), Mrays/s, the scene's
+     triangles and table sizes, and the launches a frame of traverse_bvh4
+     (closest and any hit apart, by counting the calls of
+     ops.intersect.traverse_bvh4, held equal to the kernel's counter) and
+     of gather_channels (which must launch under the HDR and only there);
+     then utils/profiler.profile_frames on the suite (kernel ms and
+     launches a frame, busy share, the largest kernels).
+     Then the transmission march's launches of one 1080p frame of the game
+     and of scenes.make_materials_standin (every material family on a
+     sphere, three lights), recorded by wrapping
+     ops.intersect.traverse_bvh4 as phase 7b does (the closest-hit
+     launches with tmin 1e-4): each replayed through traverse_bvh4 and
+     its plain version on every lane (t, rnode and tri bit for bit on
+     every lane, u and v on every hit), timed, with its bound.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -256,6 +277,11 @@ SPLIT = {"traverse_bvh4_split": ("bvh4_split", {"wide": True}, 4, 128),
 SPLIT_LEAF_BYTES = 64  # one tris row per triangle
 LEAF_NODE_BYTES = 32
 WAVEFRONT_SIZES = ((1920, 1080), (960, 540), (480, 270))
+SUITE_SIZE = (1024, 1024)  # the suite stand-in's frame (BASELINE cfg row 3)
+MATERIAL_TIMED = 12  # timed frames of each material scene
+MATERIAL_FRAMES = ("game", "suite", "lit_game", "materials")  # phase 15's timed scenes
+MATERIAL_PROFILED = ("suite",)  # profiled after their timed frames
+MARCH_REPLAYS = ("game", "materials")  # phase 15's recorded frames
 WAVEFRONT_FRAME_S = 30.0  # the longest wavefront frame the run takes
 
 
@@ -1009,26 +1035,52 @@ def _require_agree(tag, first, ref):
             f"{tag}: frame 0 disagrees")
 
 
-def phase_correctness(device, tmp):
-    """Kernels on the card vs the plain CPU path on a small frame."""
-    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+def material_scenes(tmp):
+    """The material phase's scenes, written into tmp: label -> (path, HDR
+    path or None, frame size). The HDR is the one helmet_renderer wrote."""
+    from vk_gltf_renderer_tpu_torch import scenes
 
-    scene = os.path.join(tmp, "helmet.gltf")
     hdr = os.path.join(tmp, "sky.hdr")
     out = {}
-    for dev in (device, "cpu"):
-        r = GltfRenderer(96, 64, spp=1, max_depth=DEPTH, device=dev)
-        r.create_scene(scene)
-        r.create_hdr(hdr)
-        aux = r.on_render()
-        out[str(dev)] = (r.image_linear(), aux["first_tri"].cpu().numpy(), float(aux["rays"]))
-    (img_g, tri_g, rays_g), (img_c, tri_c, rays_c) = out[str(device)], out["cpu"]
-    ids = (tri_g == tri_c).mean()
-    close = (np.abs(img_g - img_c) <= 1e-3 * (1 + np.abs(img_c))).all(-1).mean()
-    rel = np.abs(img_g.mean((0, 1)) - img_c.mean((0, 1))) / np.abs(img_c.mean((0, 1)))
-    log(f"[check] 96x64 frame, card vs plain CPU path: first-hit ids equal {ids:.4f}, pixels within "
-        f"1e-3 {close:.4f}, channel-mean rel diff {rel.max():.2e}, rays {rays_g:.0f} vs {rays_c:.0f}")
-    require(ids >= 0.999 and close >= 0.99 and rel.max() <= 1e-3, "card frame disagrees with the plain path")
+    for label, make, env, size in (("game", scenes.make_game_standin, hdr, (FRAME_W, FRAME_H)),
+                                   ("suite", scenes.make_suite_standin, None, SUITE_SIZE),
+                                   ("lit_game", scenes.make_lit_game_standin, hdr, (FRAME_W, FRAME_H)),
+                                   ("materials", scenes.make_materials_standin, None, (FRAME_W, FRAME_H))):
+        d = os.path.join(tmp, label)
+        os.makedirs(d, exist_ok=True)
+        out[label] = (make(d), env, size)
+    return out
+
+
+def phase_correctness(device, tmp):
+    """Kernels on the card vs the plain CPU path on a small frame of the
+    helmet and of each material scene."""
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    hdr = os.path.join(tmp, "sky.hdr")
+    cases = {"helmet": (os.path.join(tmp, "helmet.gltf"), hdr)}
+    cases.update({label: (path, env) for label, (path, env, _) in material_scenes(tmp).items()})
+    out = {}
+    for label, (scene, env) in cases.items():
+        res = {}
+        for dev in (device, "cpu"):
+            r = GltfRenderer(96, 64, spp=1, max_depth=DEPTH, device=dev)
+            r.create_scene(scene)
+            if env is not None:
+                r.create_hdr(env)
+            aux = r.on_render()
+            res[str(dev)] = (r.image_linear(), aux["first_tri"].cpu().numpy(), float(aux["rays"]))
+        (img_g, tri_g, rays_g), (img_c, tri_c, rays_c) = res[str(device)], res["cpu"]
+        ids = (tri_g == tri_c).mean()
+        close = (np.abs(img_g - img_c) <= 1e-3 * (1 + np.abs(img_c))).all(-1).mean()
+        rel = np.abs(img_g.mean((0, 1)) - img_c.mean((0, 1))) / np.abs(img_c.mean((0, 1)))
+        log(f"[check] {label} 96x64 frame, card vs plain CPU path: first-hit ids equal {ids:.4f}, pixels "
+            f"within 1e-3 {close:.4f}, channel-mean rel diff {rel.max():.2e}, rays {rays_g:.0f} vs {rays_c:.0f}")
+        require(np.isfinite(img_g).all() and img_g.mean() > 0.01, f"{label}: card frame black or not finite")
+        require(ids >= 0.999 and close >= 0.99 and rel.max() <= 1e-3,
+                f"{label}: card frame disagrees with the plain path")
+        out[label] = dict(ids=float(ids), close=float(close), mean_rel=float(rel.max()), rays=rays_g)
+    return out
 
 
 def terrain_renderer(glb, hdr, device, selection):
@@ -1624,6 +1676,155 @@ def phase_frontends(device, tmp, glb, smi):
     return dict(headless=rec, launches=launches, bench=bench, profiles=profiles)
 
 
+def _scene_tables(r):
+    """Triangles and table sizes of renderer r's scene (PERF.md section 4)."""
+    b = r.dev_bvh
+    return dict(world_tris=int(b.num_world_tris), nodes4_rows=int(b.nodes4_fi.shape[0]),
+                tris128_rows=int(b.tris128.shape[0]), hit_attr_rows=int(b.hit_attr.shape[0]),
+                hit_attr_cols=int(b.hit_attr.shape[1]),
+                table_mb=round(sum(t.numel() * t.element_size() for t in (b.nodes4_fi, b.tris128, b.hit_attr))
+                               / 1e6, 3),
+                materials=int(r.dev_scene.mat_packed.shape[0]), lights=int(r.dev_scene.num_lights))
+
+
+def _count_bvh4_calls():
+    """Wrap ops.intersect.traverse_bvh4 to count its calls by hit mode;
+    returns (counts dict, restore function)."""
+    from vk_gltf_renderer_tpu_torch.ops import intersect
+
+    counts = {"closest": 0, "any": 0}
+    traced = intersect.traverse_bvh4
+
+    def counted(*args, **kw):
+        counts["any" if kw.get("anyhit", False) else "closest"] += 1
+        return traced(*args, **kw)
+
+    intersect.traverse_bvh4 = counted
+    return counts, lambda: setattr(intersect, "traverse_bvh4", traced)
+
+
+def phase_material_frames(device, scenes, smi):
+    """Phase 15a: the material scenes through the entry points, 2 warm-up
+    and MATERIAL_TIMED timed frames each between two synchronizes: ms/frame,
+    Mrays/s and the kernels' launches a frame (traverse_bvh4 closest and
+    any hit apart, from a count of its wrapper's calls held equal to the
+    kernel's launch counter); the MATERIAL_PROFILED scenes then through
+    profile_frames."""
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.profiler import format_table, profile_frames
+
+    for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL", "VKGR_TRAVERSAL"):
+        os.environ.pop(key, None)
+    results = {}
+    for label in MATERIAL_FRAMES:
+        path, hdr, (w, h) = scenes[label]
+        t0 = time.perf_counter()
+        r = GltfRenderer(w, h, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(path)
+        if hdr is not None:
+            r.create_hdr(hdr)
+        cfg = r._config()
+        tables = _scene_tables(r)
+        log(f"[materials] {label} {w}x{h} spp {SPP} depth {DEPTH}, env {cfg.env_kind}, features "
+            f"{sorted(cfg.features)}, lights {tables['lights']}; tables {tables} "
+            f"(built in {time.perf_counter() - t0:.1f} s)")
+        tb4.COUNTER.launches = 0
+        tgather.COUNTER.launches = 0
+        tb4.OVERFLOW.reset()
+        calls, restore = _count_bvh4_calls()
+        try:
+            times, rays, first = _render_frames(r, WARMUP, MATERIAL_TIMED)
+        finally:
+            restore()
+        frames = WARMUP + MATERIAL_TIMED
+        launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+        img = r.image_linear()
+        require(img.shape == (h, w, 3) and np.isfinite(img).all() and img.mean() > 0.01,
+                f"{label}: image black or not finite (mean {img.mean()})")
+        require(min(rays) > 0 and tb4.OVERFLOW.total() == 0, f"{label}: no rays, or the stack overflowed")
+        require(launches["traverse_bvh4"] == calls["closest"] + calls["any"] > 0,
+                f"{label}: traverse_bvh4 launches {launches} against wrapper calls {calls}")
+        require((launches["gather_channels"] > 0) == (hdr is not None),
+                f"{label}: gather_channels launches {launches['gather_channels']} under env {cfg.env_kind}")
+        ms = 1e3 * float(np.mean(times))
+        mrays = float(np.mean(rays)) / float(np.mean(times)) / 1e6
+        per_frame = {"traverse_bvh4_closest": calls["closest"] / frames, "traverse_bvh4_any": calls["any"] / frames,
+                     "gather_channels": launches["gather_channels"] / frames}
+        log(f"[materials] {label} {MATERIAL_TIMED} frames: {ms:.2f} ms/frame (min {1e3 * min(times):.2f}, max "
+            f"{1e3 * max(times):.2f}), {np.mean(rays):.0f} rays/frame, {mrays:.3f} Mrays/s on {smi}; launches a "
+            f"frame {per_frame}; image mean {img.mean(axis=(0, 1)).round(4).tolist()}")
+        results[label] = dict(size=f"{w}x{h}", env=cfg.env_kind, ms=ms, min_ms=1e3 * min(times),
+                              max_ms=1e3 * max(times), mrays=mrays, rays=float(np.mean(rays)),
+                              launches=launches, per_frame=per_frame, tables=tables)
+        if label in MATERIAL_PROFILED:
+            prof = profile_frames(r, PROFILED_FRAMES)
+            log(format_table(prof, f"[materials] profile {label} {w}x{h} on {smi}, "))
+            results[label]["profile"] = {k: prof[k] for k in ("kernel_ms_per_frame", "launches_per_frame",
+                                                              "wall_ms_per_frame", "busy_share")}
+        del r
+    return results
+
+
+def phase_march_replay(device, scenes, smi):
+    """Phase 15b: the transmission march's launches on their own. One 1080p
+    frame of each MARCH_REPLAYS scene through on_render with
+    ops.intersect.traverse_bvh4 recorded; the march's launches are its
+    closest-hit launches with tmin 1e-4 (the primary and bounce traces start
+    at 0). Each is replayed through traverse_bvh4 and its plain version on
+    every lane, timed with CUDA events, with its bound. t, rnode and tri must equal the plain walk's bit
+    for bit on every lane, u and v on every hit."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse as tt
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    results = {}
+    for label in MARCH_REPLAYS:
+        path, hdr, (w, h) = scenes[label]
+        r = GltfRenderer(w, h, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(path)
+        if hdr is not None:
+            r.create_hdr(hdr)
+        recorded, aux = record_launches(r, "traverse_bvh4")
+        march = [rays for rays, anyhit in recorded if not anyhit and bool((rays[6] > 0).all())]
+        require(march, f"{label}: no transmission-march launch in a frame")
+        bvh = r.dev_bvh
+        tables = (bvh.nodes4_fi, bvh.tris128, bvh.root4_code)
+        launches = []
+        for k, rays in enumerate(march):
+            n = rays[0].shape[0]
+            live = int((rays[7] >= 0).sum())
+            ms = device_ms(lambda: tb4.traverse_bvh4(*tables, *rays), 10)
+            out = tb4.traverse_bvh4(*tables, *rays)
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = tt.traverse_bvh4_plain(*tables, *rays, stats=stats)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            require(plain[5] == 0, f"{label} march launch {k}: the plain walk dropped {plain[5]}")
+            hit = plain[2] >= 0
+            differ = [name for name, a, b in zip(OUTPUTS, out, plain[:5])
+                      if not (same_bits(a, b) if name in ("t", "rnode", "tri") else same_bits(a[hit], b[hit]))]
+            require(not differ, f"{label} march launch {k}: {differ} differ from the plain walk's")
+            b_ms, b_by, visits = traversal_bound(stats, 4, 128, n, n, n_dead=n - live)
+            hits = int((out[2] >= 0).sum())
+            log(f"[march] {label} launch {k}: {n} lanes, {live} live, {hits} hits: traverse_bvh4 {ms:.4f} ms, "
+                f"plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}); equal to the plain walk bit for bit on "
+                f"every lane; visits {visits}")
+            launches.append(dict(lanes=n, live=live, hits=hits, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by))
+        frame = {key: sum(x[key] for x in launches) for key in ("live", "ms", "plain_ms", "bound_ms")}
+        frame.update(launches=len(launches), all_launches=len(recorded), rays=float(aux["rays"]))
+        log(f"[march] {label} frame: {len(launches)} march launches of {len(recorded)} traverse_bvh4 launches, "
+            f"{frame['live']} live lanes: {frame['ms']:.4f} ms (plain {frame['plain_ms']:.1f} ms), bound "
+            f"{frame['bound_ms']:.4f} ms, on {smi}")
+        results[label] = dict(frame=frame, launches=launches)
+        del r, recorded, march
+    return results
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -1646,7 +1847,7 @@ def main():
     kern, helmet_r, helmet_rays = phase_kernels(device, resources)
     with tempfile.TemporaryDirectory() as tmp:
         launches, ms, mrays, helmet_first = phase_main_path(device, tmp, smi)
-        phase_correctness(device, tmp)
+        checks = phase_correctness(device, tmp)
         log(f"[time] helmet phases done at {time.perf_counter() - t_start:.1f} s")
 
         from vk_gltf_renderer_tpu_torch.scenes import write_large_glb, write_synthetic_hdr
@@ -1682,6 +1883,10 @@ def main():
         log(f"[time] wavefront frame done at {time.perf_counter() - t_start:.1f} s")
         front = phase_frontends(device, tmp, glb, smi)
         log(f"[time] front ends done at {time.perf_counter() - t_start:.1f} s")
+        scenes = material_scenes(tmp)
+        material = phase_material_frames(device, scenes, smi)
+        march = phase_march_replay(device, scenes, smi)
+        log(f"[time] material scenes done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -1695,9 +1900,17 @@ def main():
                replay={label: v["frame"] for label, v in replay.items()},
                replay_launches={label: [[x["hit"], x["lanes"], x["live"], x["traverse_bvh4"], x["v7"], x["bound_ms"]]
                                         for x in v["launches"]] for label, v in replay.items()},
-               replay_launches_fields=["hit", "lanes", "live", "ms", "v7_ms", "bound_ms"]),
+               replay_launches_fields=["hit", "lanes", "live", "ms", "v7_ms", "bound_ms"],
+               material_launches_per_frame={label: {k: v for k, v in m["per_frame"].items() if k != "gather_channels"}
+                                            for label, m in material.items()},
+               march_replay={label: v["frame"] for label, v in march.items()},
+               march_launches={label: [[x["lanes"], x["live"], x["hits"], x["ms"], x["plain_ms"], x["bound_ms"]]
+                                       for x in v["launches"]] for label, v in march.items()},
+               march_launches_fields=["lanes", "live", "hits", "ms", "plain_ms", "bound_ms"]),
         _entry("gather_channels", launches["gather_channels"], kern["gather_channels"],
-               headless_launches=front["launches"]["gather_channels"]),
+               headless_launches=front["launches"]["gather_channels"],
+               material_launches_per_frame={label: m["per_frame"]["gather_channels"]
+                                            for label, m in material.items()}),
     ]
     for name, sel in (("traverse_bvh2", ("v2", "v2")), ("traverse_bvh16", ("v6", "v6")),
                       ("traverse_lanes", ("lane", "lane_stream")),
@@ -1763,7 +1976,10 @@ def main():
                       "profiles": {label: {k: v for k, v in prof.items() if k != "top"}
                                    for label, prof in front["profiles"].items()},
                       "terrain_frame": f"{FRAME_W}x{FRAME_H} spp{SPP} depth{DEPTH} terrain "
-                                       f"{LARGE_WORLD_TRIS} tris + HDR"}))
+                                       f"{LARGE_WORLD_TRIS} tris + HDR",
+                      "material_frames": {label: {k: v for k, v in m.items() if k != "launches"}
+                                          for label, m in material.items()},
+                      "card_vs_cpu": checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,11 @@ So: first-hit ids equal on >= 99.9% of pixels, >= 99% of pixels within
 1e-3 * (1 + |ref|) in every channel, each channel's image mean within 1e-3
 relative, and the ray counts equal.
 
+The material tests render the game stand-in (HDR), the suite stand-in
+(sky), an analytic-style plane under a point and a spot light, and
+scenes.make_materials_standin (every material family under three lights),
+at the same thresholds.
+
 The terrain tests render the 8,192-triangle terrain grid
 (scenes.write_large_glb, grid=2) under each traversal-kernel selection of
 the port (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) and under
@@ -31,7 +36,8 @@ sys.path.insert(0, str(ROOT / "tools"))
 import baseline_standins  # noqa: E402
 from vk_gltf_renderer_tpu.renderer import GltfRenderer as JaxRenderer  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
-from vk_gltf_renderer_tpu_torch.scenes import write_large_glb, write_synthetic_hdr  # noqa: E402
+from vk_gltf_renderer_tpu_torch.scenes import (make_game_standin, make_materials_standin,  # noqa: E402
+                                                make_suite_standin, write_large_glb, write_synthetic_hdr)
 from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
 
 share_native_builder()
@@ -82,6 +88,46 @@ def test_frame_matches_jax_renderer(scene, env, tmp_path):
     hdr = write_synthetic_hdr(tmp_path / "env.hdr", 64, 128) if env == "hdr" else None
     ref = _render(JaxRenderer(W, H, spp=1, max_depth=DEPTH), path, hdr)
     port = _render(GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu"), path, hdr)
+    _assert_frames_agree(ref, port)
+
+
+def _lit_plane_path(tmp_path):
+    """tests/test_analytic.py's Lambertian plane under a point and a spot
+    light (its _scene, as the analytic oracles build it)."""
+    from test_analytic import _lambert_material, _scene
+
+    return str(_scene(
+        tmp_path, material=_lambert_material(),
+        lights=[{"type": "point", "intensity": 40.0, "color": [1.0, 0.9, 0.8]},
+                {"type": "spot", "intensity": 300.0, "color": [0.6, 0.8, 1.0],
+                 "spot": {"innerConeAngle": 0.2, "outerConeAngle": 0.5}}],
+        light_nodes=[{"translation": [1.0, -0.5, 4.0]}, {"translation": [-1.0, 1.0, 6.0]}]))
+
+
+MATERIAL_SCENES = {
+    "game": (lambda tmp: make_game_standin(str(tmp)), "hdr"),
+    "suite": (lambda tmp: make_suite_standin(str(tmp)), "sky"),
+    "lit_plane": (_lit_plane_path, "sky"),
+    "materials": (lambda tmp: make_materials_standin(str(tmp)), "sky"),
+}
+
+
+@pytest.mark.parametrize("scene", sorted(MATERIAL_SCENES))
+@pytest.mark.usefixtures("one_torch_thread")
+def test_material_frame_matches_jax_renderer(scene, tmp_path):
+    """The material model and punctual lights in whole frames: the game
+    stand-in under the HDR, the suite stand-in under the sky, the analytic
+    plane lit by a point and a spot light, and scenes.make_materials_standin
+    (every material family on a sphere, three lights) under the sky."""
+    make, env = MATERIAL_SCENES[scene]
+    path = make(tmp_path)
+    hdr = write_synthetic_hdr(tmp_path / "env.hdr", 64, 128) if env == "hdr" else None
+    ref = _render(JaxRenderer(W, H, spp=1, max_depth=DEPTH), path, hdr)
+    r = GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu")
+    port = _render(r, path, hdr)
+    cfg = r._config()
+    assert cfg.has_lights == (scene in ("lit_plane", "materials"))
+    assert scene == "lit_plane" or {"transmission", "volume"} <= cfg.features
     _assert_frames_agree(ref, port)
 
 

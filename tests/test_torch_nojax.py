@@ -3,9 +3,11 @@ subprocess blocks `import jax` and `import vk_gltf_renderer_tpu`, imports
 every module of the port, builds the helmet stand-in with the port's own
 writer and renders a frame on the CPU, renders the terrain grid under
 every traversal-kernel selection and under VKGR_TRAVERSAL=packet4 and
-wavefront, runs a small megakernel render, and runs the headless CLI and
+wavefront, runs a small megakernel render, renders
+scenes.make_materials_standin (every material family, three punctual
+lights), and runs the headless CLI and
 `benchmark run` on the CPU, each printing one BENCHMARK_JSON line; and no
-source file of the port, chip_smoke.py or bvh4_tuning.py imports either,
+source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports either,
 or the reference's tools/."""
 
 import os
@@ -69,6 +71,13 @@ with tempfile.TemporaryDirectory() as d:
                       r.dev_bvh.root4_code)
     assert out.shape == (1, 2, 8, 128) and bool(torch.isfinite(out).all())
     assert bool((out[:, 0].reshape(-1)[:n] > 0).any())
+    # the material model and punctual lights: every material family under three lights
+    from vk_gltf_renderer_tpu_torch.scenes import make_materials_standin
+    r = GltfRenderer(24, 16, spp=1, max_depth=3, device="cpu")
+    r.create_scene(make_materials_standin(d))
+    assert r._config().has_lights and "volume_scatter" in r._config().features
+    r.on_render()
+    assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
     # the front ends: headless and `benchmark run` on the CPU
     import contextlib, io
     from vk_gltf_renderer_tpu_torch import headless
@@ -104,7 +113,8 @@ def test_port_renders_with_jax_blocked():
 def test_no_port_source_imports_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu|tools)\b(?!_torch)", re.M)
     files = list((ROOT / "vk_gltf_renderer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                         ROOT / "bvh4_tuning.py"]
+                                                                         ROOT / "bvh4_tuning.py",
+                                                                         ROOT / "frame_ab.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
     # the scan itself sees both kinds of import

@@ -152,10 +152,20 @@ def test_evaluate_material(hits):
 
 
 def test_unported_material_features_raise():
-    with pytest.raises(NotImplementedError, match="clearcoat"):
-        tmat.check_features(frozenset({"textured", "clearcoat"}))
-    with pytest.raises(NotImplementedError, match="transmission"):
-        tbsdf.bsdf_evaluate({}, None, None, frozenset({"transmission"}))
+    """Every material extension and every BSDF lobe is ported; what still
+    raises is alpha (MASK/BLEND) and the infinite plane, through
+    RenderConfig.check_supported, and a feature flag no block knows."""
+    from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig
+
+    every = frozenset(tmat.SUPPORTED_FEATURES) | {"tex:clearcoat_texture"}
+    tmat.check_features(every)
+    RenderConfig(features=every, has_lights=True).check_supported()
+    with pytest.raises(NotImplementedError, match="alpha"):
+        RenderConfig(features=frozenset({"textured"}), alpha_any=True).check_supported()
+    with pytest.raises(NotImplementedError, match="infinite plane"):
+        RenderConfig(use_infinite_plane=True).check_supported()
+    with pytest.raises(NotImplementedError, match="no_such_block"):
+        tmat.check_features(frozenset({"textured", "no_such_block"}))
 
 
 def _dirs(rng, n):
@@ -197,7 +207,12 @@ def test_hdr_environment(rotation):
         _close(a, b, f"sample_hdr {what}")
 
 
-def _random_pbr(rng, n, smooth_frac=0.0):
+def _random_pbr(rng, n, smooth_frac=0.0, lobes=False):
+    """A random PbrMaterial of n lanes. lobes=True adds the keys of the
+    transmission, clearcoat, sheen, diffuse-transmission and iridescence
+    lobes (drawn after the others, so the base keys do not change): about
+    half the lanes are glass seen from inside (ior1 > ior2), and each
+    lobe's factor is zero on a fifth of the lanes."""
     N = _dirs(rng, n)
     a = _dirs(rng, n)
     T = np.cross(N, a)
@@ -216,6 +231,36 @@ def _random_pbr(rng, n, smooth_frac=0.0):
         "specular_color": np.ones((n, 3), np.float32), "specular": np.ones(n, np.float32),
         "transmission": np.zeros(n, np.float32), "diffuse_transmission": np.zeros(n, np.float32),
     }
+    if lobes:
+        def factor():
+            f = rng.random(n).astype(np.float32)
+            f[rng.random(n) < 0.2] = 0.0
+            return f
+
+        inside = rng.random(n) < 0.5
+        ior = rng.uniform(1.2, 2.0, n).astype(np.float32)
+        Nc = N + 0.2 * _dirs(rng, n)
+        Nc /= np.linalg.norm(Nc, axis=1, keepdims=True)
+        sheen_color = rng.random((n, 3)).astype(np.float32)
+        sheen_color[rng.random(n) < 0.2] = 0.0
+        pbr.update({
+            "ior1": np.where(inside, ior, 1.0).astype(np.float32),
+            "ior2": np.where(inside, 1.0, ior).astype(np.float32),
+            "specular_color": rng.uniform(0.5, 1.0, (n, 3)).astype(np.float32),
+            "specular": rng.uniform(0.5, 1.0, n).astype(np.float32),
+            "transmission": factor(),
+            "diffuse_transmission": factor(),
+            "diffuse_transmission_color": rng.random((n, 3)).astype(np.float32),
+            "clearcoat": factor(),
+            "clearcoat_roughness": rng.uniform(0.001, 1.0, n).astype(np.float32),
+            "Nc": Nc.astype(np.float32),
+            "sheen_color": sheen_color,
+            "sheen_roughness": rng.uniform(0.0014142, 1.0, n).astype(np.float32),
+            "_sheen_on": (sheen_color.max(-1) > 0).astype(np.float32),
+            "iridescence": factor(),
+            "iridescence_thickness": rng.uniform(0.0, 500.0, n).astype(np.float32),
+            "iridescence_ior": rng.uniform(1.2, 2.2, n).astype(np.float32),
+        })
     return pbr
 
 

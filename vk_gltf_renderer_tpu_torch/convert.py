@@ -35,6 +35,15 @@ class DeviceScene:
     tex_mip_table: torch.Tensor  # [ntex,max_mips] i32
     tex_num_mips: torch.Tensor  # [ntex] i32
     num_lights: int
+    # punctual lights (ops/flat._build_lights; one placeholder row when the scene has none)
+    light_type: torch.Tensor  # [L] i32
+    light_pos: torch.Tensor  # [L,3] f32
+    light_dir: torch.Tensor  # [L,3] f32
+    light_color: torch.Tensor  # [L,3] f32
+    light_intensity: torch.Tensor  # [L] f32
+    light_radius: torch.Tensor  # [L] f32
+    light_angular_or_invrange: torch.Tensor  # [L] f32
+    light_cone: torch.Tensor  # [L,2] f32
 
 
 @dataclass
@@ -91,6 +100,14 @@ def scene_to_device(flat, device) -> DeviceScene:
         tex_mip_table=_t(flat.tex_mip_table, i32, device),
         tex_num_mips=_t(flat.tex_num_mips, i32, device),
         num_lights=int(flat.num_lights),
+        light_type=_t(flat.light_type, i32, device),
+        light_pos=_t(flat.light_pos, f32, device),
+        light_dir=_t(flat.light_dir, f32, device),
+        light_color=_t(flat.light_color, f32, device),
+        light_intensity=_t(flat.light_intensity, f32, device),
+        light_radius=_t(flat.light_radius, f32, device),
+        light_angular_or_invrange=_t(flat.light_angular_or_invrange, f32, device),
+        light_cone=_t(flat.light_cone, f32, device),
     )
 
 

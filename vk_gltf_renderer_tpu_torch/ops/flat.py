@@ -283,9 +283,8 @@ def _white_texture_pool():
 
 
 def _build_lights(scene) -> dict:
-    """Punctual lights -> SoA (reference ops/flat.py:345). The tables are
-    built so SceneFlat stays field-equal; the slice's path tracer refuses
-    scenes with lights (ops/pathtrace.RenderConfig.check_supported)."""
+    """Punctual lights -> SoA (reference ops/flat.py:345), read by
+    ops/lights.sample_one_light."""
     model = scene.model
     defs = model.gltf.get("extensions", {}).get("KHR_lights_punctual", {}).get("lights", [])
     rls = scene.render_lights

@@ -133,6 +133,13 @@ def _segments(n, dev, tmin, tmax):
     return tmin.expand(n).contiguous(), tmax.expand(n).contiguous()
 
 
+def soa_columns(ro, rd):
+    """[N,3] origins and directions as six fresh contiguous [N] columns.
+    The CUDA wrappers require 16-byte aligned data, and the column view of
+    a single ray is contiguous already but 4 or 8 bytes into its row."""
+    return [x[:, c].clone(memory_format=torch.contiguous_format) for x in (ro, rd) for c in range(3)]
+
+
 def _resolve_rows(bvh, t, row, u, v):
     """A split walk's (t, tris row, u, v) -> dict(t, rnode, tri, u, v), the
     row resolved through wtri_rnode / wtri_tri as the reference does after
@@ -157,7 +164,7 @@ def intersect_rays_packet(bvh, ro, rd, tmin=0.0, tmax=None, anyhit=False, wide=F
     kernel (v1); both trace closest hit whatever `anyhit` says. Returns
     dict(t, rnode, tri, u, v) of [N]."""
     tmin, tmax = _segments(ro.shape[0], ro.device, tmin, tmax)
-    comps = [ro[:, c].contiguous() for c in range(3)] + [rd[:, c].contiguous() for c in range(3)]
+    comps = soa_columns(ro, rd)
     if not wide and v2:
         return intersect_rays_soa(bvh, *comps, tmin, tmax, anyhit=anyhit, kernel="v2")
     _check_stack(bvh, "bvh4_split" if wide else "bvh2_split",

@@ -2,57 +2,92 @@
 non-compact path of vk_gltf_renderer_tpu/ops/pathtrace.py).
 
 Rays live in [N] / [N,3] tensors with an `alive` mask; each bounce is
-intersect -> environment hit -> shade -> NEE with a deferred shadow ray ->
-BSDF sample -> Russian roulette, and the loop stops once every lane is
-dead. Lanes stay in row-major pixel order throughout: every lane carries
-its own RNG stream seeded from xxhash32(px, py, frame), so the TPU-only
-ray reordering of the reference (tile order, co-sorts, bucket ladder,
-trace_width padding) changes no pixel and is not ported.
+intersect -> environment hit -> shade -> volume segment -> NEE with a
+deferred shadow ray -> BSDF sample -> Russian roulette, and the loop stops
+once every lane is dead. Lanes stay in row-major pixel order throughout:
+every lane carries its own RNG stream seeded from xxhash32(px, py, frame),
+so the TPU-only ray reordering of the reference (tile order, co-sorts,
+bucket ladder, trace_width padding, the compact frame's state columns)
+changes no pixel and is not ported.
 
 Semantics kept from the reference (anchors in its module docstring):
-Gaussian subpixel AA, env-miss MIS, emissive add, NEE against the
-environment, deferred shadow ray, Russian roulette from depth 3, the
-roughness regularisation, NaN sanitising, the firefly clamp on mean
-luminance, running-mean accumulation and the directly visible HDR
-background at full resolution.
+Gaussian subpixel AA, env-miss MIS, emissive add and the unlit early-out,
+NEE with the 50/50 punctual-light / environment technique MIS, the
+deferred shadow ray with its transmission march, Beer-Lambert absorption
+and Henyey-Greenstein scattering inside volumes (with NEE at the scatter
+point and the ratio-tracking residual), dispersion's wavelength-channel
+pick, Russian roulette from depth 3, the roughness regularisation, NaN
+sanitising, the firefly clamp on mean luminance, running-mean
+accumulation and the directly visible HDR background at full resolution.
+Every random number is drawn in the reference's order, for every lane.
 
 Traversals (the reference's switch, RenderConfig.traversal): under
 "packet", bounce 0's closest-hit trace uses RenderConfig.primary_kernel;
 every later bounce and every shadow ray, bounce 0's included, uses
 packet_kernel (the reference's mapping under its default
 VKGR_PEEL_SORT_SHADOW=1, ops/pathtrace.py:780 and :1130-1134), and
-ops/intersect.py routes each name to its CUDA kernel. Under "packet4"
-every trace, primary, bounce and shadow, goes to the split BVH4 kernel
-(intersect_rays_packet(wide=True)), under "wavefront" to the stackless
-walk (intersect_rays_wavefront); neither reads the kernel names, and both
-trace shadow rays closest hit, as the reference's do (ops/pathtrace.py
-:404-411).
+ops/intersect.py routes each name to its CUDA kernel. A scene without
+transmission traces its shadow rays any hit; with transmission every
+shadow ray takes the march, closest hit from tmin 1e-4.
+Under "packet4" every trace, primary, bounce and shadow, goes to the split
+BVH4 kernel (intersect_rays_packet(wide=True)), under "wavefront" to the
+stackless walk (intersect_rays_wavefront); neither reads the kernel names,
+and both trace shadow rays closest hit, as the reference's do
+(ops/pathtrace.py:404-411).
 
-Not ported yet (RenderConfig.check_supported raises NotImplementedError):
-punctual lights, stochastic alpha, transmission / volume and the other
-material extensions, the infinite plane, denoiser guides, TAA jitter,
-batched spp and primary-hit seeding.
+Not ported yet (RenderConfig.check_supported raises NotImplementedError,
+naming the ROADMAP.md queue A item): stochastic alpha (A5), denoiser
+guides and TAA jitter (A7), the infinite plane (A8), batched spp and
+primary-hit seeding (A12).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
 from . import rng
-from .bsdf import DIRAC, EVENT_ABSORB, bsdf_evaluate, bsdf_sample
+from .bsdf import (DIRAC, EVENT_ABSORB, EVENT_GLOSSY_TRANSMISSION, EVENT_IMPULSE_TRANSMISSION,
+                   bsdf_evaluate, bsdf_sample)
 from .camera import apply_depth_of_field, generate_rays
 from .hdr import eval_hdr, sample_hdr
 from .hitstate import get_hit_state_fused, safe_offset_ray
-from .materials_eval import evaluate_material, unsupported_features
-from .sky import eval_sky, pdf_sky, sample_sky
+from .lights import sample_one_light
+from .materials_eval import _gather_materials, evaluate_material, unsupported_features
+from .sky import _onb, eval_sky, pdf_sky, sample_sky
 from .intersect import (TRAVERSALS, intersect_rays_packet, intersect_rays_soa,
-                        intersect_rays_wavefront, route)
+                        intersect_rays_wavefront, route, soa_columns)
 from .traverse import INFINITE, dot3
 
 ANTIALIASING_STD = 0.4246609
 RR_MIN_DEPTH = 3
+MIN_TRANSMISSION = 0.01
+VOLUME_MIN_SCATTER = 0.001
+VOLUME_RAND_FLOOR = 1.0e-10
+
+
+def _hg_sample(u2, g, wi):
+    """Henyey-Greenstein direction sample around wi."""
+    g = torch.clamp(g, -0.99, 0.99)
+    sq = (1.0 - g * g) / torch.clamp(1.0 - g + 2.0 * g * u2[..., 0], min=1e-6)
+    cos_t = torch.where(torch.abs(g) < 1e-3, 1.0 - 2.0 * u2[..., 0],
+                        (1.0 + g * g - sq * sq) / torch.clamp(2.0 * g, min=1e-6))
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * math.pi * u2[..., 1]
+    t, b = _onb(wi)
+    return (
+        t * (torch.cos(phi) * sin_t)[..., None]
+        + b * (torch.sin(phi) * sin_t)[..., None]
+        + wi * cos_t[..., None]
+    )
+
+
+def _hg_pdf(cos_t, g):
+    g = torch.clamp(g, -0.99, 0.99)
+    denom = torch.clamp(1.0 + g * g - 2.0 * g * cos_t, min=1e-6)
+    return (1.0 - g * g) / (4.0 * math.pi * denom * torch.sqrt(denom))
 
 
 @dataclass(frozen=True)
@@ -72,6 +107,7 @@ class RenderConfig:
     aperture: float = 0.0
     focal_distance: float = 0.0
     orthographic: bool = False
+    transmission_rounds: int = 4  # shadow-ray transmission marches
     background: tuple | None = None  # solid backplate for primary misses
     use_infinite_plane: bool = False
     denoise_guides: bool = False
@@ -88,13 +124,12 @@ class RenderConfig:
         """Raise NotImplementedError for anything the port cannot render
         yet, rather than rendering it half right."""
         missing = [name for name, on in (
-            ("punctual lights", self.has_lights),
-            ("alpha (MASK/BLEND materials)", self.alpha_any),
-            ("infinite plane / shadow catcher", self.use_infinite_plane),
-            ("denoiser guides", self.denoise_guides),
-            ("TAA jitter", self.taa_jitter),
-            ("batched spp", self.spp_batch and self.spp > 1),
-            ("primary-hit seeding", self.primary_seed),
+            ("alpha (MASK/BLEND materials; ROADMAP A5)", self.alpha_any),
+            ("infinite plane / shadow catcher (ROADMAP A8)", self.use_infinite_plane),
+            ("denoiser guides (ROADMAP A7)", self.denoise_guides),
+            ("TAA jitter (ROADMAP A7)", self.taa_jitter),
+            ("batched spp (ROADMAP A12)", self.spp_batch and self.spp > 1),
+            ("primary-hit seeding (ROADMAP A12)", self.primary_seed),
         ) if on]
         missing += unsupported_features(self.features)
         if self.env_kind not in ("sky", "hdr"):
@@ -135,8 +170,8 @@ def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False, ke
         return intersect_rays_packet(bvh, ro, rd, tmin_b, tmax, anyhit=anyhit, wide=True)
     if traversal == "wavefront":
         return intersect_rays_wavefront(bvh, ro, rd, tmin_b, tmax)
-    c = [x.contiguous() for x in (ro[:, 0], ro[:, 1], ro[:, 2], rd[:, 0], rd[:, 1], rd[:, 2])]
-    return intersect_rays_soa(bvh, *c, tmin_b, tmax.contiguous(), anyhit=anyhit, kernel=kernel)
+    return intersect_rays_soa(bvh, *soa_columns(ro, rd), tmin_b, tmax.contiguous(), anyhit=anyhit,
+                              kernel=kernel)
 
 
 def sample_environment(env, d, cfg: RenderConfig):
@@ -160,29 +195,111 @@ def _env_mis_weight(last_pdf, env_pdf, cfg):
     return torch.where(last_pdf == DIRAC, 1.0, w)
 
 
-def _sample_lights(env, pos, seed, cfg: RenderConfig):
-    """NEE technique pick, environment branch (the only technique without
-    punctual lights). Consumes the same random numbers as the reference's
-    _sample_lights so the streams stay aligned. Returns (DirectLight dict,
-    seed)."""
-    env_w = 1.0
-    _, seed = rng.rand(seed)  # the light/env technique pick
+def _sample_lights(scene, env, pos, normal, seed, cfg: RenderConfig):
+    """NEE technique mix: punctual lights against the environment, 50/50
+    when the scene has lights, with the technique MIS. Returns (DirectLight
+    dict, seed)."""
+    light_w = 0.5 if cfg.has_lights else 0.0
+    env_w = 0.5 if cfg.has_lights else 1.0
+    shape = pos.shape[:-1]
+    dev = pos.device
+
+    u_pick, seed = rng.rand(seed)
+    pick_light = u_pick < light_w if cfg.has_lights else torch.zeros(shape, dtype=torch.bool, device=dev)
+
+    direction = torch.zeros_like(pos)
+    radiance = torch.zeros_like(pos)
+    distance = torch.full(shape, INFINITE, device=dev)
+    pdf = torch.zeros(shape, device=dev)
+    env_pdf = torch.zeros(shape, device=dev)
+
+    if cfg.has_lights:
+        u_sel, seed = rng.rand(seed)
+        nl = max(scene.num_lights, 1)
+        li = torch.clamp((u_sel * nl).to(torch.int32), max=nl - 1)
+        sel_pdf = 1.0 / nl
+        u2, seed = rng.rand2(seed)
+        lc = sample_one_light(scene, li, pos, normal, u2)
+        direction = torch.where(pick_light[..., None], lc["direction"], direction)
+        distance = torch.where(pick_light, lc["distance"], distance)
+        radiance = torch.where(pick_light[..., None], lc["intensity"] / (sel_pdf * light_w), radiance)
+        pdf = torch.where(pick_light, torch.where(lc["pdf"] == DIRAC, DIRAC, sel_pdf * lc["pdf"]), pdf)
+
+    # environment technique
     u3, seed = rng.rand3(seed)
     e_dir, e_rad, e_pdf = sample_environment_dir(env, u3, cfg)
-    radiance = e_rad / torch.clamp(e_pdf * env_w, min=1e-20)[..., None]
-    pdf_sum = env_w * e_pdf
-    mis = (env_w * e_pdf) / torch.clamp(pdf_sum, min=1e-20)
+    pick_env = ~pick_light
+    direction = torch.where(pick_env[..., None], e_dir, direction)
+    radiance = torch.where(pick_env[..., None], e_rad / torch.clamp(e_pdf * env_w, min=1e-20)[..., None],
+                           radiance)
+    env_pdf = torch.where(pick_env, e_pdf, env_pdf)
+    if cfg.has_lights:
+        # the environment's pdf of the light-sampled direction (technique MIS)
+        _, env_pdf_of_light_dir = sample_environment(env, direction, cfg)
+        env_pdf = torch.where(pick_light, env_pdf_of_light_dir, env_pdf)
+
+    not_dirac = pdf != DIRAC
+    pdf_sum = light_w * torch.clamp(pdf, min=0.0) + env_w * env_pdf
+    mis = torch.where(pick_light, light_w * torch.clamp(pdf, min=0.0), env_w * env_pdf) / torch.clamp(
+        pdf_sum, min=1e-20)
+    mis = torch.where(not_dirac, mis, 1.0)
     radiance = radiance * mis[..., None]
-    distance = torch.full(pos.shape[:-1], INFINITE, device=pos.device)
-    return {"direction": e_dir, "radiance_over_pdf": radiance, "distance": distance,
-            "pdf": pdf_sum}, seed
+    pdf = torch.where(not_dirac, pdf_sum, DIRAC)
+    return {"direction": direction, "radiance_over_pdf": radiance, "distance": distance, "pdf": pdf}, seed
 
 
-def _trace_shadow(bvh, ro, rd, dist, alive, cfg):
-    """Opaque shadow factor [N,1]: one any-hit occlusion test."""
-    hits = trace_closest(bvh, ro, rd, tmin=0.0, tmax=dist, alive=alive, anyhit=True,
-                         kernel=cfg.packet_kernel, traversal=cfg.traversal)
-    return torch.where((hits["tri"] >= 0)[..., None], 0.0, 1.0)
+def _trace_shadow(scene, bvh, ro, rd, dist, seed, cfg: RenderConfig, alive):
+    """Shadow transmission factor [N,3] of the lanes in `alive` (other
+    lanes' factor is not defined), and the seed. Without transmission one
+    any-hit occlusion test; with it a march through up to
+    transmission_rounds surfaces (closest hit from tmin 1e-4), each
+    tinting by its transmission factor, base color and Fresnel, then one
+    final trace: a hit past the budget occludes. The march runs on the
+    live lanes only, gathered once a round (one host sync: their count);
+    the others keep the factor 1. Every round draws one uniform for every
+    lane (the reference's alpha draw), so the streams stay aligned; the
+    alpha pass itself is not ported (A5). A round (or the final trace)
+    with no lane left is skipped, its draws still made."""
+    if "transmission" not in cfg.features:
+        hits = trace_closest(bvh, ro, rd, tmin=0.0, tmax=dist, alive=alive, anyhit=True,
+                             kernel=cfg.packet_kernel, traversal=cfg.traversal)
+        return torch.where((hits["tri"] >= 0)[..., None], 0.0, 1.0), seed
+
+    transmission = torch.ones((ro.shape[0], 3), device=ro.device)
+    lanes = torch.nonzero(alive).squeeze(1)  # the live lanes; nonzero brings their count to the host
+    org, d, remaining = ro[lanes], rd[lanes], dist[lanes]
+    for _ in range(cfg.transmission_rounds):
+        _, seed = rng.rand(seed)  # the alpha draw, for every lane: opacity is 1 without alpha
+        if lanes.numel() == 0:
+            continue
+        hits = trace_closest(bvh, org, d, tmin=1e-4, tmax=remaining, kernel=cfg.packet_kernel,
+                             traversal=cfg.traversal)
+        hit = hits["tri"] >= 0
+        hs = get_hit_state_fused(bvh.hit_attr, bvh.rn_attr_base, hits, d)
+        mat_id = scene.rn_material[torch.clamp(hits["rnode"], min=0).long()]
+        m = _gather_materials(scene, mat_id, ("transmission_factor", "base_color_factor", "ior"))
+        tfac, bc = m["transmission_factor"], m["base_color_factor"][..., :3]
+        ior = m["ior"] if "ior" in cfg.features else torch.full_like(tfac, 1.5)
+        cos_theta = torch.abs(dot3(d, hs["nrm"]))
+        f0 = ((ior - 1.0) / (ior + 1.0)) ** 2
+        fres = f0 + (1.0 - f0) * (1.0 - cos_theta) ** 5
+        surface_trans = tfac[..., None] * bc * (1.0 - fres)[..., None]
+        trans = transmission[lanes]
+        trans = torch.where(hit[..., None], trans * surface_trans, trans)
+        blocked = torch.amax(trans, dim=-1) <= MIN_TRANSMISSION
+        trans = torch.where(blocked[..., None], 0.0, trans)
+        transmission[lanes] = trans
+        # continue past the surface: the lanes that hit, are not blocked and have distance left
+        step = hits["t"] + 1e-4
+        org, remaining = org + d * step[..., None], remaining - step
+        keep = torch.nonzero(hit & ~blocked & (remaining > 1e-4)).squeeze(1)
+        lanes, org, d, remaining = lanes[keep], org[keep], d[keep], remaining[keep]
+    # a surface left after the budget occludes
+    if lanes.numel():
+        hits = trace_closest(bvh, org, d, tmin=1e-4, tmax=remaining, kernel=cfg.packet_kernel,
+                             traversal=cfg.traversal)
+        transmission[lanes] = torch.where((hits["tri"] >= 0)[..., None], 0.0, transmission[lanes])
+    return transmission, seed
 
 
 def _hdr_background_fixup(state, env, cfg):
@@ -214,6 +331,7 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         alive=torch.ones(n, dtype=torch.bool, device=dev),
         last_pdf=torch.full((n,), DIRAC, device=dev),
         max_rough=zeros(2),
+        is_inside=torch.zeros(n, dtype=torch.bool, device=dev),
         solid=torch.ones(n, dtype=torch.bool, device=dev),
         first_pos=torch.full((n, 3), 1e34, device=dev),
         first_rnode=torch.full((n,), -1, dtype=torch.int32, device=dev),
@@ -221,6 +339,10 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         guide_albedo=zeros(3),
         guide_normal=zeros(3),
         guide_rough=zeros(),
+        att_sigma=zeros(3),
+        scatter_sigma=zeros(3),
+        scatter_g=zeros(),
+        chroma=torch.full((n,), -1, dtype=torch.int32, device=dev),  # dispersion: -1 none, 0/1/2 = R/G/B
         cone_width=zeros(),
         seed=seed,
         rays=torch.zeros((), device=dev),
@@ -263,7 +385,8 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
             torch.abs(dot3(hs["nrm"], -rd)), min=1e-3)
         tex_grad = world_foot * hs["texel_density"]
         state["cone_width"] = torch.where(lane_hit, world_foot, state["cone_width"])
-        pbr = evaluate_material(scene, mat_id, hs, features=feats, tex_lod=tex_grad)
+        pbr = evaluate_material(scene, mat_id, hs, features=feats, is_inside=state["is_inside"],
+                                tex_lod=tex_grad)
 
         if first:
             fh = lane_hit
@@ -274,14 +397,66 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
             state["guide_normal"] = torch.where(fh[..., None], pbr["N"], state["guide_normal"])
             state["guide_rough"] = torch.where(fh, torch.sqrt(pbr["roughness"][..., 0]), state["guide_rough"])
 
+        # in-volume segment: Beer-Lambert absorption, and Henyey-Greenstein
+        # scatter events where the medium scatters (KHR_materials_volume_scatter)
+        scattered = torch.zeros_like(alive)
+        if "volume" in feats:
+            in_medium = lane_hit & state["is_inside"]
+            if "volume_scatter" in feats:
+                sig_s = state["scatter_sigma"]
+                sig_t = state["att_sigma"] + sig_s
+                max_s = torch.amax(sig_s, dim=-1)
+                max_t = torch.clamp(torch.amax(sig_t, dim=-1), min=1e-6)
+                u_s, seed = rng.rand(seed)
+                s_dist = -torch.log(torch.clamp(u_s, min=VOLUME_RAND_FLOOR)) / max_t
+                scattered = in_medium & (max_s > VOLUME_MIN_SCATTER) & (s_dist < hits["t"])
+                # scatter event: single-scatter albedo weighting, HG redirect
+                throughput = torch.where(scattered[..., None],
+                                         throughput * (1.0 - (sig_t - sig_s) / max_t[..., None]), throughput)
+                u2_hg, seed = rng.rand2(seed)
+                wi = rd
+                sc_dir = _hg_sample(u2_hg, state["scatter_g"], wi)
+                sc_org = ro + rd * s_dist[..., None]
+                # NEE at the scatter point: the light sampler gets wi where a
+                # surface passes its normal
+                dlv, seed = _sample_lights(scene, env, sc_org, wi, seed, cfg)
+                phase_pdf = _hg_pdf(dot3(wi, dlv["direction"]), state["scatter_g"])
+                v_mis = torch.where(dlv["pdf"] == DIRAC, 1.0,
+                                    dlv["pdf"] / torch.clamp(dlv["pdf"] + phase_pdf, min=1e-20))
+                v_lit = scattered & (dlv["pdf"] != 0.0)
+                v_shadow, seed = _trace_shadow(scene, bvh, sc_org, dlv["direction"], dlv["distance"], seed,
+                                               cfg, alive=v_lit)
+                v_contrib = throughput * dlv["radiance_over_pdf"] * (v_mis * phase_pdf)[..., None] * v_shadow
+                radiance = radiance + torch.where(v_lit[..., None], v_contrib, 0.0)
+                # lanes that did not scatter: the ratio-tracking residual of a
+                # free flight sampled with max_t (Beer-Lambert without scatter)
+                no_sc = in_medium & ~scattered
+                resid = torch.exp(torch.clamp(hits["t"], max=1e8)[..., None]
+                                  * torch.clamp(max_t[..., None] - sig_t, max=0.0))
+                throughput = torch.where(no_sc[..., None], throughput * resid, throughput)
+                ro = torch.where(scattered[..., None], sc_org, ro)
+                rd = torch.where(scattered[..., None], sc_dir, rd)
+                state["last_pdf"] = torch.where(scattered, _hg_pdf(dot3(wi, sc_dir), state["scatter_g"]),
+                                                state["last_pdf"])
+                lane_hit = lane_hit & ~scattered  # scattered lanes stay alive and skip the surface
+            else:
+                seg_att = torch.exp(-hits["t"][..., None] * state["att_sigma"])
+                throughput = torch.where(in_medium[..., None], throughput * seg_att, throughput)
+
         # roughness regularisation
         state["max_rough"] = torch.maximum(state["max_rough"], pbr["roughness"])
         pbr["roughness"] = torch.where(lane_hit[..., None], state["max_rough"], pbr["roughness"])
 
         radiance = radiance + torch.where(lane_hit[..., None], pbr["emissive"] * throughput, 0.0)
 
+        if "unlit" in feats:
+            unlit = lane_hit & (pbr["unlit"] > 0)
+            radiance = radiance + torch.where(unlit[..., None], pbr["base_color"], 0.0)
+            alive = alive & ~unlit
+            lane_hit = lane_hit & ~unlit
+
         # next-event estimation
-        dl, seed = _sample_lights(env, hs["pos"], seed, cfg)
+        dl, seed = _sample_lights(scene, env, hs["pos"], pbr["N"], seed, cfg)
         next_event = (
             lane_hit
             & ((dot3(dl["direction"], hs["nrm"]) > 0.0) | (pbr["diffuse_transmission"] > 0.0))
@@ -295,6 +470,20 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         next_event = next_event & (ev["pdf"] > 0.0)
 
         # BSDF sample for the next segment
+        if "dispersion" in feats:
+            # pick a wavelength channel on the first dispersive transmission
+            # and shift the IOR per channel (Abbe number V = 20 / D)
+            u_ch, seed = rng.rand(seed)
+            needs_chroma = (lane_hit & (pbr["dispersion"] > 0.0) & (pbr["transmission"] > 0.0)
+                            & (state["chroma"] < 0))
+            new_ch = torch.clamp((u_ch * 3).to(torch.int32), max=2)
+            state["chroma"] = torch.where(needs_chroma, new_ch, state["chroma"])
+            one_hot = torch.nn.functional.one_hot(new_ch.long(), 3).to(torch.float32)
+            throughput = torch.where(needs_chroma[..., None], throughput * 3.0 * one_hot, throughput)
+            half = (pbr["ior2"] - 1.0) * pbr["dispersion"] / 20.0 * 0.5
+            shift = torch.where(state["chroma"] == 0, -half, torch.where(state["chroma"] == 2, half, 0.0))
+            pbr["ior2"] = torch.where(state["chroma"] >= 0, torch.clamp(pbr["ior2"] + shift, min=1.01),
+                                      pbr["ior2"])
         u3b, seed = rng.rand3(seed)
         ue, seed = rng.rand2(seed)
         samp = bsdf_sample(pbr, -rd, u3b, ue, feats)
@@ -302,6 +491,26 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         state["last_pdf"] = torch.where(lane_hit, samp["pdf"], state["last_pdf"])
         new_dir = samp["k2"]
         absorbed = lane_hit & (samp["event"] == EVENT_ABSORB)
+
+        if "transmission" in feats:
+            # a transmission event enters or leaves the medium; entering takes
+            # the material's absorption (and scattering) coefficients
+            is_trans = ((samp["event"] == EVENT_IMPULSE_TRANSMISSION)
+                        | (samp["event"] == EVENT_GLOSSY_TRANSMISSION))
+            toggled = lane_hit & is_trans
+            new_inside = torch.where(toggled, ~state["is_inside"], state["is_inside"])
+            if "volume" in feats:
+                att = -torch.log(torch.clamp(pbr["attenuation_color"], min=0.001)) / torch.clamp(
+                    pbr["attenuation_distance"], min=0.001)[..., None]
+                has_vol = (pbr["thickness"] > 0.0) & (pbr["attenuation_distance"] > 0.0)
+                att = torch.where(has_vol[..., None], att, 0.0)
+                enter = toggled & new_inside
+                state["att_sigma"] = torch.where(enter[..., None], att, state["att_sigma"])
+                if "volume_scatter" in feats:
+                    state["scatter_sigma"] = torch.where(enter[..., None], pbr["scatter_coefficient"],
+                                                         state["scatter_sigma"])
+                    state["scatter_g"] = torch.where(enter, pbr["scatter_anisotropy"], state["scatter_g"])
+            state["is_inside"] = new_inside
 
         offset_dir = torch.where((dot3(new_dir, hs["geonrm"]) > 0)[..., None], hs["geonrm"], -hs["geonrm"])
         new_org = safe_offset_ray(hs["pos"], offset_dir)
@@ -312,12 +521,14 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         sh_base = torch.where(sh_fwd, hs["shadow_pos"], hs["pos"])
         sh_off = torch.where(sh_fwd, hs["geonrm"], -hs["geonrm"])
         sh_org = safe_offset_ray(sh_base, sh_off)
-        shadow = _trace_shadow(bvh, sh_org, dl["direction"], dl["distance"], next_event, cfg)
+        shadow, seed = _trace_shadow(scene, bvh, sh_org, dl["direction"], dl["distance"], seed, cfg,
+                                     alive=next_event)
         radiance = radiance + torch.where(next_event[..., None], contrib * shadow, 0.0)
 
-        alive = alive & ~absorbed
-        ro = torch.where(alive[..., None], new_org, ro)
-        rd = torch.where(alive[..., None], new_dir, rd)
+        alive = (alive & ~absorbed) | scattered
+        surf = alive & ~scattered
+        ro = torch.where(surf[..., None], new_org, ro)
+        rd = torch.where(surf[..., None], new_dir, rd)
 
         # Russian roulette
         rr_p = torch.clamp(torch.amax(throughput, dim=-1) + 0.001, max=0.95)

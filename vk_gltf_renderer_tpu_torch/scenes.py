@@ -3,7 +3,25 @@
 make_helmet_standin writes the same glTF as the reference's
 tools/baseline_standins.make_helmet (a checker-textured PBR sphere on a
 rough plate, the DamagedHelmet feature role), but writes its checker
-texture with utils/png.py, so it needs no Pillow.
+texture with utils/png.py, so it needs no Pillow. make_game_standin and
+make_suite_standin write the same glTF as make_game (one sphere mesh
+instanced 16 times over a board, clearcoat pieces and transmission +
+volume glass: the ABeautifulGame role) and make_suite (transmission +
+volume-scatter, dispersion and iridescence spheres: the material-suite
+role), through the port's own models package. Both keep the reference
+generators' material indices as they are: SceneEditor.add_primitive
+appends a default material per primitive, so the game's pieces render
+with those defaults and its "glass" mesh with the board material, and the
+suite's second and third spheres take the default and the dispersive
+material; its volume_scatter block names scatterColor, which the material
+parser does not read. So neither scene shows glass, clearcoat or
+iridescence on a surface, though each compiles those blocks in.
+add_standin_lights adds a point, a spot and a directional light;
+make_lit_game_standin is the game with them, and make_materials_standin a
+board with nine spheres that do carry every material family the path
+tracer shades (scattering, dispersive and thick glass, clearcoat,
+iridescence, sheen, anisotropy, diffuse transmission with specular, and
+unlit) under those lights.
 
 write_large_glb writes the same bytes as tools/large_scene_demo.write_large_glb:
 an instanced grid of displaced terrain patches with one untextured
@@ -97,6 +115,198 @@ def make_helmet_standin(out_dir) -> str:
     ed.set_material(plate, 0, 1)
     sc.parse_scene()
     p = os.path.join(out_dir, "helmet.gltf")
+    sc.save(p)
+    return p
+
+
+def make_game_standin(out_dir) -> str:
+    """Write game.gltf (+ .bin) into out_dir; returns the .gltf path."""
+    sc = _empty_scene()
+    ed = SceneEditor(sc)
+    board = ed.add_primitive("plane", name="board")
+    ed.set_scale(board, [4.0, 1.0, 4.0])
+    piece0 = ed.add_primitive("sphere", segments=24, name="piece")
+    m = sc.model
+    m.materials.append({
+        "name": "board",
+        "pbrMetallicRoughness": {"baseColorFactor": [0.1, 0.1, 0.12, 1.0],
+                                 "roughnessFactor": 0.4, "metallicFactor": 0.1},
+    })
+    m.materials.append({
+        "name": "clearcoat_piece",
+        "pbrMetallicRoughness": {"baseColorFactor": [0.7, 0.1, 0.05, 1.0],
+                                 "roughnessFactor": 0.5, "metallicFactor": 0.0},
+        "extensions": {"KHR_materials_clearcoat": {
+            "clearcoatFactor": 1.0, "clearcoatRoughnessFactor": 0.08}},
+    })
+    m.materials.append({
+        "name": "glass_piece",
+        "pbrMetallicRoughness": {"baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+                                 "roughnessFactor": 0.02, "metallicFactor": 0.0},
+        "extensions": {
+            "KHR_materials_transmission": {"transmissionFactor": 1.0},
+            "KHR_materials_ior": {"ior": 1.5},
+            "KHR_materials_volume": {"thicknessFactor": 0.4,
+                                     "attenuationColor": [0.8, 0.9, 1.0],
+                                     "attenuationDistance": 2.0},
+        },
+    })
+    ed.set_material(board, 0, 0)
+    ed.set_material(piece0, 0, 1)
+    ed.set_translation(piece0, [-1.5, 0.35, -1.5])
+    ed.set_scale(piece0, [0.3, 0.3, 0.3])
+    # 15 more node instances of the same mesh
+    mesh_id = sc.model.nodes[piece0].get("mesh")
+    for i in range(15):
+        gx, gz = (i + 1) % 4, (i + 1) // 4
+        nid = len(sc.model.nodes)
+        sc.model.nodes.append({
+            "name": f"piece_{i+1}", "mesh": mesh_id,
+            "translation": [-1.5 + gx, 0.35, -1.5 + gz],
+            "scale": [0.3, 0.3, 0.3],
+        })
+        sc.model.scenes[0]["nodes"].append(nid)
+    # materials are per mesh in glTF: a clone of the mesh carries the glass,
+    # and the pieces on even node indices take it
+    glass_mesh = dict(sc.model.meshes[mesh_id])
+    glass_mesh["primitives"] = [dict(p) for p in glass_mesh["primitives"]]
+    glass_mesh["primitives"][0]["material"] = 2
+    sc.model.meshes.append(glass_mesh)
+    for i, node in enumerate(sc.model.nodes):
+        if node.get("name", "").startswith("piece_") and i % 2 == 0:
+            node["mesh"] = len(sc.model.meshes) - 1
+    sc.parse_scene()
+    p = os.path.join(out_dir, "game.gltf")
+    sc.save(p)
+    return p
+
+
+def make_suite_standin(out_dir) -> str:
+    """Write suite.gltf (+ .bin) into out_dir; returns the .gltf path."""
+    sc = _empty_scene()
+    ed = SceneEditor(sc)
+    m = sc.model
+    mats = [
+        {"name": "scatter_glass",
+         "pbrMetallicRoughness": {"baseColorFactor": [1, 1, 1, 1],
+                                  "roughnessFactor": 0.0, "metallicFactor": 0.0},
+         "extensions": {
+             "KHR_materials_transmission": {"transmissionFactor": 1.0},
+             "KHR_materials_ior": {"ior": 1.45},
+             "KHR_materials_volume": {"thicknessFactor": 1.0,
+                                      "attenuationColor": [0.9, 0.6, 0.4],
+                                      "attenuationDistance": 1.0},
+             "KHR_materials_volume_scatter": {
+                 "scatterColor": [0.6, 0.7, 0.9], "scatterDistance": 0.8,
+                 "scatterAnisotropy": 0.3},
+         }},
+        {"name": "dispersive",
+         "pbrMetallicRoughness": {"baseColorFactor": [1, 1, 1, 1],
+                                  "roughnessFactor": 0.0, "metallicFactor": 0.0},
+         "extensions": {
+             "KHR_materials_transmission": {"transmissionFactor": 1.0},
+             "KHR_materials_ior": {"ior": 1.52},
+             "KHR_materials_dispersion": {"dispersion": 0.25},
+         }},
+        {"name": "iridescent",
+         "pbrMetallicRoughness": {"baseColorFactor": [0.2, 0.2, 0.2, 1],
+                                  "roughnessFactor": 0.15, "metallicFactor": 1.0},
+         "extensions": {
+             "KHR_materials_iridescence": {
+                 "iridescenceFactor": 1.0, "iridescenceIor": 1.8,
+                 "iridescenceThicknessMaximum": 500.0},
+         }},
+    ]
+    for i, mat in enumerate(mats):
+        m.materials.append(mat)
+        nid = ed.add_primitive("sphere", segments=32, name=mat["name"])
+        ed.set_material(nid, 0, i)
+        ed.set_translation(nid, [(i - 1) * 2.4, 0.0, 0.0])
+    sc.parse_scene()
+    p = os.path.join(out_dir, "suite.gltf")
+    sc.save(p)
+    return p
+
+
+def add_standin_lights(editor) -> None:
+    """A point light above the board, a spot light pointing down and a
+    directional light from 45 degrees, through SceneEditor.add_light."""
+    editor.add_light("point", intensity=40.0, translation=[0.5, 2.5, 0.5])
+    spot = editor.add_light("spot", intensity=80.0, translation=[-1.0, 3.0, 1.0], inner_cone=0.3,
+                            outer_cone=0.7)
+    editor.set_rotation(spot, [-0.70710677, 0.0, 0.0, 0.70710677])  # node -z points down
+    sun = editor.add_light("directional", intensity=2.0)
+    editor.set_rotation(sun, [-0.38268343, 0.0, 0.0, 0.9238795])
+
+
+def make_lit_game_standin(out_dir) -> str:
+    """Write lit_game.gltf: the game stand-in with add_standin_lights."""
+    sc = Scene()
+    sc.load(make_game_standin(out_dir))
+    add_standin_lights(SceneEditor(sc))
+    sc.parse_scene()
+    p = os.path.join(out_dir, "lit_game.gltf")
+    sc.save(p)
+    return p
+
+
+_VOLUME = {"thicknessFactor": 1.0, "attenuationColor": [0.9, 0.6, 0.4], "attenuationDistance": 1.0}
+MATERIALS_STANDIN = [
+    {"name": "scatter_glass", "pbrMetallicRoughness": {"roughnessFactor": 0.0, "metallicFactor": 0.0},
+     "extensions": {"KHR_materials_transmission": {"transmissionFactor": 1.0},
+                    "KHR_materials_ior": {"ior": 1.45}, "KHR_materials_volume": _VOLUME,
+                    "KHR_materials_volume_scatter": {"multiscatterColor": [0.6, 0.7, 0.9],
+                                                     "scatterAnisotropy": 0.3}}},
+    {"name": "dispersive_glass", "pbrMetallicRoughness": {"roughnessFactor": 0.0, "metallicFactor": 0.0},
+     "extensions": {"KHR_materials_transmission": {"transmissionFactor": 1.0},
+                    "KHR_materials_ior": {"ior": 1.52}, "KHR_materials_dispersion": {"dispersion": 0.25},
+                    "KHR_materials_volume": {"thicknessFactor": 0.5, "attenuationColor": [0.95, 0.95, 0.9],
+                                             "attenuationDistance": 2.0}}},
+    {"name": "rough_glass", "pbrMetallicRoughness": {"roughnessFactor": 0.3, "metallicFactor": 0.0,
+                                                     "baseColorFactor": [0.8, 0.95, 0.9, 1.0]},
+     "extensions": {"KHR_materials_transmission": {"transmissionFactor": 0.9}}},
+    {"name": "clearcoat", "pbrMetallicRoughness": {"baseColorFactor": [0.7, 0.1, 0.05, 1.0],
+                                                   "roughnessFactor": 0.5, "metallicFactor": 0.0},
+     "extensions": {"KHR_materials_clearcoat": {"clearcoatFactor": 1.0, "clearcoatRoughnessFactor": 0.08}}},
+    {"name": "iridescent", "pbrMetallicRoughness": {"baseColorFactor": [0.2, 0.2, 0.2, 1.0],
+                                                    "roughnessFactor": 0.15, "metallicFactor": 1.0},
+     "extensions": {"KHR_materials_iridescence": {"iridescenceFactor": 1.0, "iridescenceIor": 1.8,
+                                                  "iridescenceThicknessMaximum": 500.0}}},
+    {"name": "sheen", "pbrMetallicRoughness": {"baseColorFactor": [0.2, 0.1, 0.3, 1.0],
+                                               "roughnessFactor": 0.8, "metallicFactor": 0.0},
+     "extensions": {"KHR_materials_sheen": {"sheenColorFactor": [0.9, 0.7, 0.8], "sheenRoughnessFactor": 0.5}}},
+    {"name": "anisotropic", "pbrMetallicRoughness": {"baseColorFactor": [0.9, 0.8, 0.6, 1.0],
+                                                     "roughnessFactor": 0.4, "metallicFactor": 1.0},
+     "extensions": {"KHR_materials_anisotropy": {"anisotropyStrength": 0.6, "anisotropyRotation": 0.5}}},
+    {"name": "leaf", "pbrMetallicRoughness": {"baseColorFactor": [0.3, 0.6, 0.2, 1.0],
+                                              "roughnessFactor": 0.4, "metallicFactor": 0.0},
+     "extensions": {"KHR_materials_diffuse_transmission": {"diffuseTransmissionFactor": 0.6,
+                                                           "diffuseTransmissionColorFactor": [0.9, 0.5, 0.2]},
+                    "KHR_materials_specular": {"specularFactor": 0.5,
+                                               "specularColorFactor": [1.0, 0.9, 0.8]}}},
+    {"name": "unlit", "pbrMetallicRoughness": {"baseColorFactor": [0.9, 0.9, 0.3, 1.0]},
+     "extensions": {"KHR_materials_unlit": {}}},
+]
+
+
+def make_materials_standin(out_dir) -> str:
+    """Write materials.gltf: a rough board with a 3 x 3 grid of spheres, one
+    MATERIALS_STANDIN material each, and add_standin_lights."""
+    sc = _empty_scene()
+    ed = SceneEditor(sc)
+    m = sc.model
+    m.materials.append({"name": "board", "pbrMetallicRoughness": {
+        "baseColorFactor": [0.5, 0.5, 0.55, 1.0], "roughnessFactor": 0.6, "metallicFactor": 0.0}})
+    board = ed.add_primitive("plane", name="board", material=0)
+    ed.set_scale(board, [3.0, 1.0, 3.0])
+    for i, mat in enumerate(MATERIALS_STANDIN):
+        m.materials.append(json.loads(json.dumps(mat)))
+        nid = ed.add_primitive("sphere", segments=24, name=mat["name"], material=len(m.materials) - 1)
+        ed.set_translation(nid, [(i % 3 - 1) * 1.3, 0.5, (i // 3 - 1) * 1.3])
+        ed.set_scale(nid, [0.5, 0.5, 0.5])
+    add_standin_lights(ed)
+    sc.parse_scene()
+    p = os.path.join(out_dir, "materials.gltf")
     sc.save(p)
     return p
 

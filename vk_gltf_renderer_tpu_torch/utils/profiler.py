@@ -14,10 +14,13 @@ kernels with the most device time under the names the profiler gives
 them. The profiler's host-side cost per operation lengthens the window, so
 the busy share it reads is a lower bound of the unprofiled frame's.
 
-    python -m vk_gltf_renderer_tpu_torch.utils.profiler --scene helmet|terrain [--frames 3]
+    python -m vk_gltf_renderer_tpu_torch.utils.profiler --scene helmet|terrain|game|suite|materials \
+        [--frames 3] [--size W H]
 
 renders the scene at the bench recipe (1920x1080, spp 1, depth 5, the
-bench entry's HDR; bench_impl.scene_file) on the card and prints the table.
+bench entry's HDR; bench_impl.scene_file, or scenes.make_<scene>_standin
+for the material stand-ins, the suite and the materials scene under the
+sky) on the card and prints the table.
 """
 
 from __future__ import annotations
@@ -213,18 +216,23 @@ def format_table(summary, title="") -> str:
 
 
 def main(argv=None) -> int:
+    from .. import scenes
     from ..bench_impl import DEPTH, SPP, hdr_file, scene_file
     from ..renderer import GltfRenderer
 
     p = argparse.ArgumentParser(prog="vk_gltf_renderer_tpu_torch.utils.profiler")
-    p.add_argument("--scene", choices=("helmet", "terrain"), required=True)
+    p.add_argument("--scene", choices=("helmet", "terrain", "game", "suite", "materials"), required=True)
     p.add_argument("--frames", type=int, default=3)
     p.add_argument("--size", type=int, nargs=2, default=[1920, 1080], metavar=("W", "H"))
     args = p.parse_args(argv)
     with tempfile.TemporaryDirectory() as d:
         r = GltfRenderer(args.size[0], args.size[1], spp=SPP, max_depth=DEPTH, device="cuda")
-        r.create_scene(scene_file(args.scene, d))
-        r.create_hdr(hdr_file(d))
+        if args.scene in ("helmet", "terrain"):
+            r.create_scene(scene_file(args.scene, d))
+        else:
+            r.create_scene(getattr(scenes, f"make_{args.scene}_standin")(d))
+        if args.scene not in ("suite", "materials"):  # those two render under the sky
+            r.create_hdr(hdr_file(d))
         summary = profile_frames(r, args.frames)
     print(format_table(summary, f"{args.scene} {args.size[0]}x{args.size[1]}: "))
     print(json.dumps(summary))
