@@ -47,8 +47,10 @@ Phases (each raises on failure; nothing is caught):
   7. the terrain scene through the entry points at the bench recipe
      (1920x1080, spp 1, depth 5, the synthetic HDR) once per kernel
      selection (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) = (v3, v9), (v2, v2),
-     (v6, v6), (lane, lane_stream), (v5, v5), (v7, v7), (v3, v8): 2 warm-up
-     and 10 timed frames each, the launch counters zeroed just before; each
+     (v6, v6), (lane, lane_stream), (v5, v5), (v7, v7), (v3, v8), switched
+     on one renderer (each run from frame index 0 on fresh accumulation,
+     its tables built in its warm-up): 2 warm-up and 10 timed frames each,
+     the launch counters zeroed just before; each
      run must move its own kernels' counters and no other traversal
      counter, and its frame 0 must agree with the (v3, v9) one at
      tests/test_torch_frame.py's thresholds with the same ray count;
@@ -106,10 +108,10 @@ Phases (each raises on failure; nothing is caught):
      held against the plain version on a fixed subset of 65,536 lanes, with
      its bound;
  11. VKGR_TRAVERSAL=wavefront (the stackless walk in plain torch) on the
-     helmet: a 960x540 frame 0 sizes the run (time scaled by pixel count),
+     helmet: a 480x270 frame 0 sizes the run (time scaled by pixel count),
      then 1 warm-up and 1 timed frame at the largest of 1920x1080, 960x540
-     and 480x270 predicted under 30 s (the sizing frame is the warm-up when
-     960x540 is chosen); no traversal kernel may launch, and frame 0 must
+     and 480x270 predicted under 10 s (the sizing frame is the warm-up when
+     480x270 is chosen); no traversal kernel may launch, and frame 0 must
      agree with a (v3, v9) frame 0 of the same size;
  12. probes (vk_gltf_renderer_tpu_torch/probes): probe_nodefetch at the TPU
      probe's sizes under all four variant names, then on random-cycle
@@ -157,6 +159,28 @@ Phases (each raises on failure; nothing is caught):
      launches with tmin 1e-4): each replayed through traverse_bvh4 and
      its plain version on every lane (t, rnode and tri bit for bit on
      every lane, u and v on every hit), timed, with its bound.
+ 16. animation and the device refit: (a) BASELINE config 5 through
+     headless.main (scenes.make_brainstem, 1024x1024, --frames 20
+     --ptSamples 1 --animate 30, the sky): its BENCHMARK_JSON line and
+     ms/frame, traverse_bvh4 launched and gather_channels not, one host
+     BVH build (the load's); then a renderer animating the same scene 20
+     frames with sync_scene_changes timed between two synchronizes (the
+     refit's ms a frame) and profiled apart from whole frames
+     (utils/profiler.profile_frames and profile_refit: launches a frame,
+     the refit's apart); (b) 3 animated 96x64 brainstem frames on the card
+     against the port's CPU path at tests/test_torch_frame.py's
+     thresholds, the skinned vertex table within 1e-5, and the helmet
+     after set_variant(1), which refits (no host BVH build); (c) phase 6's
+     terrain renderer (every table family built), one of its 64 instances
+     lifted by a node edit (NODE_TRANSFORMS): sync_scene_changes timed
+     (with the upload of the refit's tables, then the same edit again)
+     and rebuild_device_scene on the same edit; on the refitted tables
+     every traversal kernel (v3/v9, v7, v2, v6, v5, v8, lane, packet4,
+     v1) against its plain walk on 65,536 probe rays (closest-hit t bit
+     for bit, id ties counted, occlusion equal), every selection's frame 0 against the
+     default's, and traverse_bvh4's hits on the refitted tree against the
+     fresh build of the moved scene (ids equal on >= 0.999 of the probe
+     rays, the rest within 1e-5 in t but for 1e-4 of the rays).
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -282,7 +306,7 @@ MATERIAL_TIMED = 12  # timed frames of each material scene
 MATERIAL_FRAMES = ("game", "suite", "lit_game", "materials")  # phase 15's timed scenes
 MATERIAL_PROFILED = ("suite",)  # profiled after their timed frames
 MARCH_REPLAYS = ("game", "materials")  # phase 15's recorded frames
-WAVEFRONT_FRAME_S = 30.0  # the longest wavefront frame the run takes
+WAVEFRONT_FRAME_S = 10.0  # the longest wavefront frame the run takes
 
 
 def log(msg):
@@ -1142,8 +1166,12 @@ def phase_terrain_frames(device, glb, hdr, smi, tmp):
 
     mods = _traversal_modules()
     runs = {}
+    r, secs = terrain_renderer(glb, hdr, device, SELECTIONS[0])
+    log(f"[terrain] create_scene+create_hdr {secs:.1f} s")
     for selection in SELECTIONS:
-        r, secs = terrain_renderer(glb, hdr, device, selection)
+        os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = selection
+        r.frame_idx = 0
+        r.reset_frame()
         for m in mods.values():
             m.COUNTER.launches = 0
             m.OVERFLOW.reset()
@@ -1162,7 +1190,7 @@ def phase_terrain_frames(device, glb, hdr, smi, tmp):
                 f"{selection}: image not finite or black")
         ms = 1e3 * float(np.mean(times))
         mrays = float(np.mean(rays)) / float(np.mean(times)) / 1e6
-        log(f"[terrain] {selection}: create_scene+create_hdr {secs:.1f} s; {TIMED} frames "
+        log(f"[terrain] {selection}: {TIMED} frames "
             f"{ms:.2f} ms/frame (min {1e3 * min(times):.2f}, max {1e3 * max(times):.2f}), "
             f"{np.mean(rays):.0f} rays/frame, {mrays:.3f} Mrays/s on {smi}; launches {launches}")
         runs[selection] = dict(ms=ms, mrays=mrays, launches=launches, first=first)
@@ -1406,7 +1434,7 @@ def _replay_packet4(device, label, bvh, recorded, aux, smi):
 
 def phase_wavefront_frame(device, path, hdr, smi):
     """VKGR_TRAVERSAL=wavefront on the helmet at the largest size whose
-    frame is predicted under WAVEFRONT_FRAME_S from a 960x540 frame (its
+    frame is predicted under WAVEFRONT_FRAME_S from a 480x270 frame (its
     time scaled by pixel count)."""
     from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
 
@@ -1420,7 +1448,7 @@ def phase_wavefront_frame(device, path, hdr, smi):
     for m in mods.values():
         m.COUNTER.launches = 0
     os.environ["VKGR_TRAVERSAL"] = "wavefront"
-    w0, h0 = WAVEFRONT_SIZES[1]
+    w0, h0 = WAVEFRONT_SIZES[-1]
     r = renderer(w0, h0)
     (t_size,), _, first = _render_frames(r, 0, 1)
     w, h = next(((w, h) for w, h in WAVEFRONT_SIZES if t_size * w * h / (w0 * h0) <= WAVEFRONT_FRAME_S),
@@ -1825,6 +1853,280 @@ def phase_march_replay(device, scenes, smi):
     return results
 
 
+BRAINSTEM_SIZE, BRAINSTEM_FRAMES = (1024, 1024), 20  # BASELINE config 5 (baseline_standins.cfg row 4)
+ANIM_CHECK_FRAMES = 3  # phase 16b's animated frames, card against the CPU
+MOVED_NODE, MOVED_BY = 27, (0.0, 0.3, 0.0)  # phase 16c: one terrain instance (of 64) lifted
+
+
+def _with_variants(path):
+    """The helmet stand-in with two KHR_materials_variants (variant 1 maps
+    the sphere to a green material), as tests/test_torch_frontends.py writes it."""
+    with open(path) as f:
+        g = json.load(f)
+    g["materials"].append({"name": "green", "pbrMetallicRoughness": {
+        "baseColorFactor": [0.1, 0.8, 0.1, 1.0], "roughnessFactor": 0.5, "metallicFactor": 0.0}})
+    g["extensions"] = {"KHR_materials_variants": {"variants": [{"name": "base"}, {"name": "green"}]}}
+    g["extensionsUsed"] = ["KHR_materials_variants"]
+    prim = g["meshes"][0]["primitives"][0]
+    prim["extensions"] = {"KHR_materials_variants": {"mappings": [
+        {"material": m, "variants": [i]} for i, m in enumerate([prim["material"], len(g["materials"]) - 1])]}}
+    out = os.path.join(os.path.dirname(path), "helmet_variants.gltf")
+    with open(out, "w") as f:
+        json.dump(g, f)
+    return out
+
+
+def _count_world_builds():
+    """Wrap renderer.build_world_bvh to count host BVH builds; returns the
+    counter dict and a function that restores the original."""
+    from vk_gltf_renderer_tpu_torch import renderer as rmod
+
+    calls, orig = {"n": 0}, rmod.build_world_bvh
+
+    def counting(*a, **k):
+        calls["n"] += 1
+        return orig(*a, **k)
+
+    rmod.build_world_bvh = counting
+    return calls, lambda: setattr(rmod, "build_world_bvh", orig)
+
+
+def phase_animation(device, tmp, hdr, smi, terrain):
+    """Phase 16: animation and the device refit (module docstring); terrain
+    is phase 6's renderer, every table family built."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import headless, scenes
+    from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.profiler import format_table, profile_frames, profile_refit
+
+    for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL", "VKGR_TRAVERSAL"):
+        os.environ.pop(key, None)
+    out = {}
+    d = os.path.join(tmp, "brainstem")
+    os.makedirs(d, exist_ok=True)
+    brainstem = scenes.make_brainstem(d)
+    w, h = BRAINSTEM_SIZE
+
+    # (a) BASELINE config 5 through the headless CLI, then the refit timed and profiled apart
+    os.environ["VKGR_SETTINGS"] = os.path.join(tmp, "settings_anim.json")
+    tb4.COUNTER.launches = 0
+    tgather.COUNTER.launches = 0
+    builds, restore = _count_world_builds()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = headless.main(["--headless", "--scenefile", brainstem, "--size", str(w), str(h), "--frames",
+                            str(BRAINSTEM_FRAMES), "--ptSamples", "1", "--animate", "30",
+                            "--output", os.path.join(tmp, "brainstem.png"), "--device", str(device)])
+    restore()
+    line, rec = _headless_record(buf.getvalue())
+    launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+    log(f"[anim] config 5 headless rc {rc} ({time.perf_counter() - t0:.1f} s): {line}")
+    log(f"[anim] config 5: {rec['ms_per_frame']:.3f} ms/frame, {rec['Mrays_per_sec']:.3f} Mrays/s on {smi}; "
+        f"kernel launches over {BRAINSTEM_FRAMES} frames {launches}; host BVH builds {builds['n']} (the load's)")
+    require(rc == 0 and rec["frames"] == BRAINSTEM_FRAMES - 1 and rec["triangles"] == 64
+            and rec["Mrays_per_sec"] > 0, f"config 5 record {rec}")
+    require(launches["traverse_bvh4"] > 0 and launches["gather_channels"] == 0,
+            f"config 5 launches {launches} (the sky: no gather)")
+    require(builds["n"] == 1, f"{builds['n']} host BVH builds: animated frames must refit, not rebuild")
+
+    r = GltfRenderer(w, h, spp=SPP, max_depth=DEPTH, device=device)
+    r.create_scene(brainstem)
+    r.animate = True
+    r.on_render()
+    refit_ms, frame_ms = [], []
+    for _ in range(BRAINSTEM_FRAMES):
+        r.step_animation()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        require(r.sync_scene_changes(), "an animation step left nothing to sync")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r.animate = False  # the clip already stepped: on_render syncs a clean scene
+        r.on_render()
+        r.animate = True
+        torch.cuda.synchronize()
+        refit_ms.append((t1 - t0) * 1e3)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_frames(r, PROFILED_FRAMES)
+    prof_refit = profile_refit(r, PROFILED_FRAMES)
+    log(f"[anim] config 5 refit (sync_scene_changes between two synchronizes): {np.mean(refit_ms):.3f} ms a "
+        f"frame (min {min(refit_ms):.3f}, max {max(refit_ms):.3f}) of {np.mean(frame_ms):.3f} ms a frame")
+    log(format_table(prof, f"[anim] profile config 5 {w}x{h} on {smi}, "))
+    log(format_table(prof_refit, f"[anim] profile config 5 refit alone on {smi}, "))
+    out["config5"] = dict(headless=rec, launches=launches, refit_ms=float(np.mean(refit_ms)),
+                          refit_ms_min=min(refit_ms), refit_ms_max=max(refit_ms),
+                          frame_ms=float(np.mean(frame_ms)),
+                          profile={k: v for k, v in prof.items() if k != "top"},
+                          refit_profile={k: v for k, v in prof_refit.items() if k != "top"})
+    del r
+
+    # (b) the card against the port's CPU path: animated brainstem frames, the skinned
+    # vertex table, and the helmet after a variant switch through the sync
+    res = {}
+    for dev in (device, "cpu"):
+        rr = GltfRenderer(96, 64, spp=1, max_depth=DEPTH, device=dev)
+        rr.create_scene(brainstem)
+        rr.animate = True
+        frames = []
+        for _ in range(ANIM_CHECK_FRAMES):
+            aux = rr.on_render()
+            frames.append((rr.image_linear(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy(),
+                           float(aux["rays"])))
+        res[str(dev)] = (frames, rr.dev_bvh.refit.vtx_pos.cpu(), rr.dev_bvh.refit.vtx_nrm.cpu())
+    for i, (card, cpu) in enumerate(zip(res[str(device)][0], res["cpu"][0])):
+        _require_agree(f"[anim] brainstem 96x64 animated frame {i}, card vs plain CPU path", card, cpu)
+    vtx_err = max(float((res[str(device)][1] - res["cpu"][1]).abs().max()),
+                  float((res[str(device)][2] - res["cpu"][2]).abs().max()))
+    log(f"[anim] skinned vertex table after {ANIM_CHECK_FRAMES} frames, card vs CPU: max |err| {vtx_err:.3g}")
+    require(vtx_err <= 1e-5, f"skinned vertices differ by {vtx_err}")
+    var = _with_variants(os.path.join(tmp, "helmet.gltf"))
+    res = {}
+    for dev in (device, "cpu"):
+        rr = GltfRenderer(96, 64, spp=1, max_depth=DEPTH, device=dev)
+        rr.create_scene(var)
+        rr.create_hdr(hdr)
+        builds, restore = _count_world_builds()
+        require(rr.set_variant(1) == 1, "the variant switched no primitive")
+        restore()
+        require(builds["n"] == 0 and rr.dev_bvh.refit is not None, "the variant switch did not refit")
+        aux = rr.on_render()
+        res[str(dev)] = (rr.image_linear(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy(),
+                         float(aux["rays"]))
+    _require_agree("[anim] helmet 96x64 after set_variant(1), card vs plain CPU path", res[str(device)], res["cpu"])
+    out["card_vs_cpu_vertex_err"] = vtx_err
+
+    # (c) the refit at a real size: one of the terrain's 64 instances lifted
+    r = terrain
+    node = r.scene.model.nodes[MOVED_NODE]
+    moved_to = [a + b for a, b in zip(node.get("translation", [0.0, 0.0, 0.0]), MOVED_BY)]
+    SceneEditor(r.scene).set_translation(MOVED_NODE, moved_to)
+    builds, restore = _count_world_builds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(r.sync_scene_changes(), "the node edit left nothing to sync")
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    # the same edit again: the refit's own tables went up with the first one
+    SceneEditor(r.scene).set_translation(MOVED_NODE, moved_to)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(r.sync_scene_changes(), "the repeated node edit left nothing to sync")
+    torch.cuda.synchronize()
+    refit2_s = time.perf_counter() - t0
+    restore()
+    require(builds["n"] == 0, "the node edit rebuilt instead of refitting")
+    bvh = r.dev_bvh
+    log(f"[anim] terrain ({bvh.num_world_tris} tris, every table family): node {MOVED_NODE} moved by "
+        f"{MOVED_BY}, refit (sync_scene_changes) {refit_s * 1e3:.2f} ms "
+        f"with the upload of the refit's tables, {refit2_s * 1e3:.2f} ms for the same edit again")
+
+    ro, rd = probe_rays(r, device)
+    n = ro.shape[0]
+    comps = [ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
+    tmin = torch.zeros(n, device=device)
+    far = torch.full((n,), 1e32, device=device)
+    g = torch.Generator(device="cpu").manual_seed(99)
+    shadow_tmax = (torch.rand(n, generator=g) * float((bvh.scene_hi - bvh.scene_lo).norm())).to(device)
+    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(5))[:SUBSET].to(device)
+    out["refit_kernels"] = _refit_kernel_checks(bvh, comps, tmin, far, shadow_tmax, sub)
+
+    # every selection's frame 0 on the refitted tables against the default's
+    firsts = {}
+    for sel in SELECTIONS + (("packet4", None),):
+        for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL", "VKGR_TRAVERSAL"):
+            os.environ.pop(key, None)
+        if sel[0] == "packet4":
+            os.environ["VKGR_TRAVERSAL"] = "packet4"
+        else:
+            os.environ["VKGR_PRIMARY_KERNEL"], os.environ["VKGR_PACKET_KERNEL"] = sel
+        r.frame_idx = 0
+        r.reset_frame()
+        aux = r.on_render()
+        firsts[sel] = (r.image_linear(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy(),
+                       float(aux["rays"]))
+    for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL", "VKGR_TRAVERSAL"):
+        os.environ.pop(key, None)
+    for sel in list(firsts)[1:]:
+        _require_agree(f"[anim] refitted terrain frame 0 {sel} vs {SELECTIONS[0]}", firsts[sel], firsts[SELECTIONS[0]])
+
+    # the same edit rebuilt from scratch, and traverse_bvh4 on both trees
+    refitted = r.dev_bvh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.rebuild_device_scene()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    fresh = r.dev_bvh
+    a = tb4.traverse_bvh4(refitted.nodes4_fi, refitted.tris128, refitted.root4_code, *comps, tmin, far)
+    b = tb4.traverse_bvh4(fresh.nodes4_fi, fresh.tris128, fresh.root4_code, *comps, tmin, far)
+    same = (a[1] == b[1]) & (a[2] == b[2])
+    hit = (a[2] >= 0) | (b[2] >= 0)
+    tie = (a[0] - b[0]).abs() <= 1e-5 * (1 + b[0].abs())
+    ids = float(same.float().mean())
+    others = int((~same & ~tie).sum())
+    log(f"[anim] terrain refit {refit2_s * 1e3:.2f} ms against rebuild_device_scene {rebuild_s:.2f} s on the same "
+        f"edit; traverse_bvh4 on the refitted tree vs a fresh build of the moved scene: ids equal on {ids:.6f} of "
+        f"{n} rays ({int(hit.sum())} hit), {int((~same).sum())} differ, of which {others} beyond equal-t ties "
+        f"(1e-5)")
+    require(ids >= 0.999 and others <= n * 1e-4, "the refitted tree and the fresh build disagree")
+    out["terrain"] = dict(world_tris=bvh.num_world_tris, first_refit_ms=refit_s * 1e3, refit_ms=refit2_s * 1e3,
+                          rebuild_s=rebuild_s, ids_equal=ids, id_differ=int((~same).sum()),
+                          beyond_ties=others, moved_node=MOVED_NODE, moved_by=list(MOVED_BY))
+    return out
+
+
+def _refit_kernel_checks(bvh, comps, tmin, far, shadow_tmax, sub):
+    """Every traversal kernel on the refitted tables against its plain walk
+    on the rays `sub`: closest-hit t bit for bit, the rays whose (rnode,
+    tri) ids differ (equal-t ties) counted, any-hit occlusion equal."""
+    from vk_gltf_renderer_tpu_torch.ops import traverse as tt
+
+    mods = _traversal_modules()
+    runs = _traversal_runs(bvh)
+    # the split kernels walk closest hit only; their ids are tris rows
+    runs["traverse_bvh4_split"] = (
+        lambda *a, anyhit: mods["traverse_bvh4_split"].traverse_bvh4_split(bvh.nodes4_f, bvh.nodes4_i, bvh.tris, *a),
+        lambda *a, anyhit: tt.traverse_bvh4_split_plain(bvh.nodes4_f, bvh.nodes4_i, bvh.tris, *a))
+    runs["traverse_bvh2_split"] = (
+        lambda *a, anyhit: mods["traverse_bvh2_split"].traverse_bvh2_split(
+            bvh.nodes_f, bvh.nodes_i, bvh.tris, *a, root_leaf=bvh.bvh2_split_root_leaf),
+        lambda *a, anyhit: tt.traverse_bvh2_split_plain(bvh.nodes_f, bvh.nodes_i, bvh.tris, *a))
+    names = ("traverse_bvh4", "traverse_bvh4_sidecar", "traverse_bvh2", "traverse_bvh16", "traverse_bvh4_multipop",
+             "traverse_bvh4_leafqueue", "traverse_lanes", "traverse_bvh4_split", "traverse_bvh2_split")
+    require(set(names) <= set(runs), f"refitted tables missing for {sorted(set(names) - set(runs))}")
+    out = {}
+    for name in names:
+        kern, plain = runs[name][0], runs[name][1]
+        mods[name].OVERFLOW.reset()
+        res = {}
+        for anyhit, tmax in ((False, far), (True, shadow_tmax)):
+            if anyhit and name in ("traverse_bvh4_split", "traverse_bvh2_split"):
+                continue
+            args = tuple(x[sub].contiguous() for x in (*comps, tmin, tmax))
+            k = kern(*args, anyhit=anyhit)
+            p = plain(*args, anyhit=anyhit)
+            require(len(p) < 6 or p[5] == 0, f"{name}: the plain walk dropped {p[5] if len(p) > 5 else 0}")
+            if anyhit:
+                require(torch.equal(k[2] >= 0, p[2] >= 0), f"{name}: any-hit occlusion differs on the refit")
+                res["occluded"] = int((k[2] >= 0).sum())
+                continue
+            require(same_bits(k[0], p[0]), f"{name}: closest-hit t differs from the plain walk on the refit "
+                    f"on {int((k[0].view(torch.int32) != p[0].view(torch.int32)).sum())} rays")
+            # with t equal in every bit, rays whose ids differ hit two triangles at one t
+            res.update(hits=int((p[2] >= 0).sum()), id_ties=int(((k[1] != p[1]) | (k[2] != p[2])).sum()))
+        require(mods[name].OVERFLOW.total() == 0, f"{name}: dropped work on the refit")
+        log(f"[anim] refitted terrain, {name} vs its plain walk on {sub.shape[0]} rays: closest-hit t bit for bit "
+            f"({res['hits']} hits, {res['id_ties']} equal-t id ties), occlusion equal ({res.get('occluded', '-')})")
+        out[name] = res
+    return out
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -1873,7 +2175,7 @@ def main():
         log(f"[time] megakernel A/B done at {time.perf_counter() - t_start:.1f} s")
         split = {"helmet": phase_split_kernels(device, "helmet", helmet_r, *helmet_rays),
                  "terrain": phase_split_kernels(device, "terrain", terrain_r, *terrain_rays)}
-        del helmet, terrain, helmet_r, terrain_r
+        del helmet, terrain, helmet_r
         log(f"[time] split-table kernels done at {time.perf_counter() - t_start:.1f} s")
         helmet_path = os.path.join(tmp, "helmet.gltf")
         packet4 = phase_packet4_frames(device, (("terrain", glb, hdr, frames[SELECTIONS[0]]["first"]),
@@ -1887,6 +2189,9 @@ def main():
         material = phase_material_frames(device, scenes, smi)
         march = phase_march_replay(device, scenes, smi)
         log(f"[time] material scenes done at {time.perf_counter() - t_start:.1f} s")
+        anim = phase_animation(device, tmp, hdr, smi, terrain_r)
+        del terrain_r
+        log(f"[time] animation and refit done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -1979,7 +2284,7 @@ def main():
                                        f"{LARGE_WORLD_TRIS} tris + HDR",
                       "material_frames": {label: {k: v for k, v in m.items() if k != "launches"}
                                           for label, m in material.items()},
-                      "card_vs_cpu": checks}))
+                      "card_vs_cpu": checks, "animation": anim}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

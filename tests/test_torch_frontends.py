@@ -1,6 +1,6 @@
 """The port's front ends against the JAX package's, on the CPU: the headless
 CLI (its BENCHMARK_JSON record and its PNG, with and without a material
-variant), the parser's flags and defaults, the settings overlay, the
+variant, and animated), the parser's flags and defaults, the settings overlay, the
 benchmark harness (`compare` and `run`), the bench entry, the unported
 flags, material variants and the frame profiler's summary.
 
@@ -91,12 +91,11 @@ def _run(main, argv, capsys):
 @pytest.mark.usefixtures("one_torch_thread")
 def test_headless_matches_jax_headless(variant, tmp_path, capsys):
     """The record and the PNG of the port's headless run against the
-    reference's on the same arguments. With --variant, the reference's
-    switch refits on the device (sync_scene_changes -> _refit_device),
-    whose jitted hit-row bake rounds one column (43, ~1.5e3) in the last
-    ulp on 2,470 of the helmet's 9,218 rows, and at depth 5 paths part on
-    ~2.5% of pixels; the port rebuilds on the host, as the reference does
-    on load. So the PNG is held against the reference's render of the
+    reference's on the same arguments. With --variant, both packages' switch
+    refits on the device (sync_scene_changes -> _refit_device), but the
+    reference's sync never re-packs the materials on that path, so its
+    switched frame is its unswitched frame (ROADMAP C); the port re-packs
+    them. So the PNG is held against the reference's render of the
     switched scene as loaded (the variant's material in the file), and
     the --variant run against the reference's --variant run by its
     record and its switch."""
@@ -125,6 +124,30 @@ def test_headless_matches_jax_headless(variant, tmp_path, capsys):
     img_p = read_png((tmp_path / "port.png").read_bytes()).astype(np.int32)
     assert img_p.shape == img_r.shape == (H, W, 3)
     assert img_p.mean() > 2, "black frame"
+    close = (np.abs(img_p - img_r) <= 1).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    np.testing.assert_allclose(img_p.mean(axis=(0, 1)), img_r.mean(axis=(0, 1)), atol=0.5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_headless_animate_matches_jax_headless(tmp_path, capsys):
+    """--animate 1 on the brainstem stand-in (BASELINE config 5's flags at
+    48x32, sky): the record and the PNG of the last animated frame against
+    the reference's headless run on the same arguments."""
+    from vk_gltf_renderer_tpu_torch.scenes import make_brainstem
+
+    scene = make_brainstem(str(tmp_path))
+    argv = ["--headless", "--scenefile", scene, "--size", str(W), str(H), "--frames", str(FRAMES),
+            "--ptSamples", "1", "--ptDepth", str(DEPTH), "--animate", "1"]
+    _, ref = _run(jheadless.main, argv + ["--output", str(tmp_path / "ref.png")], capsys)
+    _, rec = _run(headless.main, argv + ["--output", str(tmp_path / "port.png"), "--device", "cpu"], capsys)
+    assert rec.keys() == ref.keys()
+    for k in ("frames", "spp", "triangles", "width", "height", "max_depth", "env", "renderer"):
+        assert rec[k] == ref[k], k
+    assert rec["frames"] == FRAMES - 1 and rec["triangles"] == 64 and rec["Mrays_per_sec"] > 0
+    img_r = read_png((tmp_path / "ref.png").read_bytes()).astype(np.int32)
+    img_p = read_png((tmp_path / "port.png").read_bytes()).astype(np.int32)
+    assert img_p.shape == img_r.shape == (H, W, 3) and img_p.mean() > 2
     close = (np.abs(img_p - img_r) <= 1).all(axis=-1)
     assert close.mean() >= 0.99, close.mean()
     np.testing.assert_allclose(img_p.mean(axis=(0, 1)), img_r.mean(axis=(0, 1)), atol=0.5)
@@ -287,7 +310,7 @@ def test_bench_main_prints_one_json_line(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--renderSystem", "1"], ["--wireframe", "1"], ["--upscale", "2"],
-                                  ["--animate", "1"], ["--infinitePlane", "1"], ["--output", "out.jpg"]])
+                                  ["--output", "out.webp"], ["--infinitePlane", "1"], ["--output", "out.jpg"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported|PNG only"):
         headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu"] + flag)

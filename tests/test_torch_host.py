@@ -4,8 +4,10 @@ sidecar tables of add_kernel_tables), the port's copies of the JAX
 package's models/, utils/mathutil.py and native/ against their originals
 (parsed scenes, material features, editor operations, matrix helpers, the
 native SAH and radix builders), the PNG reader/writer against Pillow, and
-the port's helmet stand-in and terrain scene against
-tools/baseline_standins.make_helmet and tools/large_scene_demo.write_large_glb.
+the port's helmet stand-in, brainstem stand-in and terrain scene against
+tools/baseline_standins.make_helmet, make_brainstem and
+tools/large_scene_demo.write_large_glb. The refit maps of every table and
+the LBVH branch (VKGR_BVH=lbvh) are held equal too.
 
 Every builder comparison is exact (np.array_equal, same dtype): the port's
 builders are copies of the reference's numpy code, so any difference is a
@@ -42,6 +44,7 @@ from vk_gltf_renderer_tpu_torch.ops import bvh_flatten as tbvh  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import flat as tflat  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import hdr as thdr  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import (  # noqa: E402
+    make_brainstem,
     make_helmet_standin,
     write_large_glb,
     write_synthetic_hdr,
@@ -120,33 +123,60 @@ def test_scene_flat_equals_reference(name, tmp_path):
     assert tflat.MAT_LAYOUT == jflat.MAT_LAYOUT
 
 
+# the WorldBvh fields every build carries, beside nodes_i and nodes_self
+WORLD_FIELDS = ("nodes4_fi", "tris128", "hit_attr", "rn_attr_base", "attr_alpha_class", "nodes_f", "tris",
+                "wtri_rnode", "wtri_tri", "nodes4_i", "nodes4_f", "refit_levels", "portal_roots", "map4",
+                "wtri8_rnode", "wtri8_tri", "tri8_src", "attr_rnode", "attr_tri", "attr_has_uv", "attr_bary",
+                "wtri_src_tri", "wtri_bary")
+
+
+def _assert_world_bvh_same(ref, port):
+    # nodes_self cols 6:8 are never written by the native builder (np.empty)
+    _assert_same(ref.nodes_self[:, :6], port.nodes_self[:, :6], "nodes_self")
+    for k in WORLD_FIELDS:
+        _assert_same(getattr(ref, k), getattr(port, k), k)
+    # nodes_i: a leaf's child slots and col 7 are never written by the
+    # native builder (np.empty); the port zeroes them. Col 6 holds the
+    # portal ids of the treelet cut (-1 elsewhere).
+    inner = ref.nodes_i[:, 3] == 0
+    _assert_same(ref.nodes_i[:, 2:7], port.nodes_i[:, 2:7], "nodes_i")
+    _assert_same(ref.nodes_i[inner, 0:2], port.nodes_i[inner, 0:2], "nodes_i children")
+    assert (port.nodes_i[~inner, 0:2] == 0).all() and (port.nodes_i[:, 7] == 0).all()
+    assert port.num_world_tris == ref.num_world_tris
+    assert port.root4_code == ref.root4_code
+
+
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_world_bvh_equals_reference(name, tmp_path):
     sc = SCENES[name](tmp_path)
     ref = jbvh.build_world_bvh(jflat.build_scene_flat(sc))
     port = tbvh.build_world_bvh(tflat.build_scene_flat(sc))
-    # nodes_self cols 6:8 are never written by the native builder (np.empty)
-    _assert_same(ref.nodes_self[:, :6], port.nodes_self[:, :6], "nodes_self")
-    for k in ("nodes4_fi", "tris128", "hit_attr", "rn_attr_base", "attr_alpha_class",
-              "nodes_f", "tris", "wtri_rnode", "wtri_tri"):
-        _assert_same(getattr(ref, k), getattr(port, k), k)
-    # nodes_i: a leaf's child slots and cols 6:8 are never written by the
-    # native builder (np.empty); the port zeroes them
-    inner = ref.nodes_i[:, 3] == 0
-    _assert_same(ref.nodes_i[:, 2:6], port.nodes_i[:, 2:6], "nodes_i")
-    _assert_same(ref.nodes_i[inner, 0:2], port.nodes_i[inner, 0:2], "nodes_i children")
-    assert (port.nodes_i[~inner, 0:2] == 0).all() and (port.nodes_i[:, 6:8] == 0).all()
-    assert port.num_world_tris == ref.num_world_tris
-    assert port.root4_code == ref.root4_code
-    # the other kernels' tables are built only on request
+    _assert_world_bvh_same(ref, port)
+    # the other kernels' tables and their refit maps are built only on request
     assert port.nodes_fi is None and port.nodes16_fi is None and port.lane_pages is None
+    assert port.map16 is None and port.lane_geo_idx is None
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_lbvh_tables_equal_reference(name, tmp_path, monkeypatch):
+    """VKGR_BVH=lbvh: the Morton radix tree collapsed to <= 8-triangle
+    leaves, every field and kernel table equal to the reference's."""
+    monkeypatch.setenv("VKGR_BVH", "lbvh")
+    sc = SCENES[name](tmp_path)
+    ref = jbvh.build_world_bvh(jflat.build_scene_flat(sc))
+    port = tbvh.add_kernel_tables(tbvh.build_world_bvh(tflat.build_scene_flat(sc)),
+                                  {"bvh2", "bvh16", "lane", "bvh4_sidecar"})
+    _assert_world_bvh_same(ref, port)
+    for k in ("nodes16_fi", "map16", "lane_pages", "lane_geo_idx", "nodes4_sc", "nodes_fi"):
+        _assert_same(getattr(ref, k), getattr(port, k), k)
+    assert port.root_code == ref.root_code
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_kernel_tables_equal_reference(name, tmp_path):
-    """nodes_fi/root_code (_packet2_tables), nodes16_fi (_packet6_tables)
-    and lane_pages (build_lane_tree) of add_kernel_tables equal the
-    reference's fields."""
+    """nodes_fi/root_code (_packet2_tables), nodes16_fi + map16
+    (_packet6_tables) and lane_pages + lane_geo_idx (build_lane_tree) of
+    add_kernel_tables equal the reference's fields."""
     sc = SCENES[name](tmp_path)
     ref = jbvh.build_world_bvh(jflat.build_scene_flat(sc))
     port = tbvh.add_kernel_tables(tbvh.build_world_bvh(tflat.build_scene_flat(sc)),
@@ -154,7 +184,9 @@ def test_kernel_tables_equal_reference(name, tmp_path):
     _assert_same(ref.nodes4_sc, tbvh.add_kernel_tables(port, {"bvh4_sidecar"}).nodes4_sc,
                  "nodes4_sc")
     _assert_same(ref.nodes16_fi, port.nodes16_fi, "nodes16_fi")
+    _assert_same(ref.map16, port.map16, "map16")
     _assert_same(ref.lane_pages, port.lane_pages, "lane_pages")
+    _assert_same(ref.lane_geo_idx, port.lane_geo_idx, "lane_geo_idx")
     assert port.root_code == ref.root_code
     # nodes_fi of a leaf row reads its (unwritten) child slots: compare the
     # reference's builder on the same tree, and the internal rows directly
@@ -358,6 +390,18 @@ def test_make_helmet_standin_equals_tools_version(tmp_path):
     tb = pb.parent / "helmet_baseColor.png"
     assert np.array_equal(np.asarray(Image.open(ta)), np.asarray(Image.open(tb)))
     assert np.array_equal(read_png(ta.read_bytes()), read_png(tb.read_bytes()))
+
+
+def test_make_brainstem_equals_tools_version(tmp_path):
+    (tmp_path / "tools").mkdir()
+    (tmp_path / "port").mkdir()
+    pa = Path(baseline_standins.make_brainstem(str(tmp_path / "tools")))
+    pb = Path(make_brainstem(str(tmp_path / "port")))
+    assert pa.read_bytes() == pb.read_bytes()
+    assert (pa.parent / "brainstem.bin").read_bytes() == (pb.parent / "brainstem.bin").read_bytes()
+    sc = tmodels.Scene()
+    sc.load(str(pb))
+    assert sum(p.index_count // 3 for p in sc.render_primitives) == 64 and len(sc.animations) == 1
 
 
 # ------------------------------------------------- copies of the JAX package

@@ -5,7 +5,8 @@ writer and renders a frame on the CPU, renders the terrain grid under
 every traversal-kernel selection and under VKGR_TRAVERSAL=packet4 and
 wavefront, runs a small megakernel render, renders
 scenes.make_materials_standin (every material family, three punctual
-lights), and runs the headless CLI and
+lights), animates scenes.make_brainstem through the device refit, and
+runs the headless CLI and
 `benchmark run` on the CPU, each printing one BENCHMARK_JSON line; and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports either,
 or the reference's tools/."""
@@ -78,6 +79,16 @@ with tempfile.TemporaryDirectory() as d:
     assert r._config().has_lights and "volume_scatter" in r._config().features
     r.on_render()
     assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
+    # animation: skinning and the device refit, frame to frame
+    from vk_gltf_renderer_tpu_torch.scenes import make_brainstem
+    r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
+    r.create_scene(make_brainstem(d))
+    r.animate = True
+    boxes = []
+    for _ in range(2):
+        r.on_render()
+        boxes.append(r.dev_bvh.nodes4_fi.clone())
+    assert not torch.equal(boxes[0], boxes[1]) and np.isfinite(r.image_linear()).all()
     # the front ends: headless and `benchmark run` on the CPU
     import contextlib, io
     from vk_gltf_renderer_tpu_torch import headless

@@ -5,17 +5,26 @@ package's field names (its SceneFlat / WorldBvh / env dicts, or this
 package's numpy copies; numpy or jax arrays) and returns the port's device
 dataclasses. The renderer uses it on its own host builders; the tests use
 it to hand both packages the same tables.
+
+DeviceRefit holds what the device refit reads (the deformable vertex
+state, the index tables of the world-triangle and hit-row bakes, and the
+refit maps of every table family present); refit_tables_to_device uploads
+it once per scene and refit_device_bvh replaces a DeviceBvh's geometry
+after a transform, skin or morph edit (renderer._refit_device).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from .ops.animation import refit_world_bvh
 from .ops.bvh_flatten import multipop_stack_need, split_stack_need, stack_need
 from .ops.hdr import HdrEnv
+from .ops.hitstate import HIT_ATTR_COLS_NARROW
 from .ops.lane_traverse import lane_entries
 from .ops.sky import SkyEnv
 from .ops.traverse import MULTIPOP
@@ -81,6 +90,36 @@ class DeviceBvh:
     # table family (ops/intersect.ROUTES and SPLIT_FAMILIES below; bvh_flatten.stack_need,
     # multipop_stack_need and split_stack_need), checked against the kernels' capacity
     stack_need: dict = field(default_factory=dict)
+    # the device refit's tables (refit_tables_to_device), once a refit needs them
+    refit: DeviceRefit | None = None
+
+
+@dataclass
+class DeviceRefit:
+    """What the device refit reads. The vertex state is the last refit's
+    (the reference's _refit_device carries its deformed vtx_nrm and
+    vtx_packed from frame to frame); the rest is topology."""
+
+    vtx_pos: torch.Tensor  # [V,3] f32
+    vtx_nrm: torch.Tensor  # [V,3] f32
+    vtx_packed: torch.Tensor  # [V,24] f32
+    tri_idx: torch.Tensor  # [F,3] i64
+    wtri_rnode: torch.Tensor  # [T+8] i64 render node of each world triangle row
+    wtri_src_tri: torch.Tensor  # [T+8] i64 its bake source triangle
+    wtri_bary: torch.Tensor  # [T+8,6] f32
+    attr_rnode: torch.Tensor  # [Ta] i64 render node of each hit row
+    attr_tri: torch.Tensor  # [Ta] i64 its bake source triangle
+    attr_has_uv: torch.Tensor  # [Ta] i32
+    attr_bary: torch.Tensor  # [Ta,6] f32
+    narrow: bool  # hit rows of 32 columns
+    nodes_i: torch.Tensor  # [Nn,8] i64
+    nodes_self: torch.Tensor  # [Nn,8] f32 (as built; the refit overwrites every box)
+    refit_levels: torch.Tensor  # [L,K] i64
+    map4: torch.Tensor  # [M,4] i64
+    tri8_src: torch.Tensor  # [L*8] i64
+    map16: torch.Tensor | None = None  # [M,16] i64, with nodes16_fi
+    lane_geo_idx: torch.Tensor | None = None  # [E,16] i32 entry-major, with lane_entries
+    tris: torch.Tensor | None = None  # [T+8,16] f32 world triangles of the last refit
 
 
 def _t(a, dtype, device):
@@ -149,8 +188,11 @@ def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> Dev
     only on request). The split tables, which every host BVH has, are
     copied only for the SPLIT_FAMILIES that `families` names, with the
     split walks' stack needs (and, for the v1 kernel, whether node 0 is a
-    leaf). Returns dev."""
+    leaf). Tables added after a refit (dev.refit.tris) are refitted over
+    its triangles: the host tree keeps the boxes it was built with.
+    Returns dev."""
     f32 = np.float32
+    present = _geometry_present(dev)
     for family in SPLIT_FAMILIES:
         if family not in families:
             continue
@@ -176,6 +218,87 @@ def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> Dev
         dev.stack_need["bvh16"] = stack_need(bvh.nodes16_fi, 4, 0)
     if getattr(bvh, "lane_pages", None) is not None and dev.lane_entries is None:
         dev.lane_entries = _t(lane_entries(bvh.lane_pages), f32, device)
+    if dev.refit is not None and dev.refit.tris is not None and _geometry_present(dev) != present:
+        add_refit_maps(dev.refit, bvh, device)
+        refit_device_bvh(dev, dev.refit.tris)
+    return dev
+
+
+# the DeviceBvh tables whose boxes or triangles a refit replaces, beside nodes4_fi and tris128
+_REFIT_TABLES = ("nodes_fi", "nodes16_fi", "lane_entries", "nodes_f", "nodes_self", "tris", "nodes4_f")
+
+
+def _geometry_present(dev: DeviceBvh) -> tuple:
+    return tuple(getattr(dev, name) is not None for name in _REFIT_TABLES)
+
+
+def refit_tables_to_device(flat, bvh, device) -> DeviceRefit:
+    """Upload the refit's tables from the host scene and BVH (numpy or jax
+    arrays, the reference's field names). A leaf's child slots of nodes_i
+    go up as 0: the reference's native builder leaves them unwritten, and
+    the refit gathers through them (its leaf rows of nodes_f are never read)."""
+    f32, i64 = np.float32, np.int64
+    nodes_i = np.array(bvh.nodes_i, i64)
+    nodes_i[nodes_i[:, 3] > 0, 0:2] = 0
+    ref = DeviceRefit(
+        vtx_pos=_t(flat.vtx_pos, f32, device),
+        vtx_nrm=_t(flat.vtx_nrm, f32, device),
+        vtx_packed=_t(flat.vtx_packed, f32, device),
+        tri_idx=_t(flat.tri_idx, i64, device),
+        wtri_rnode=_t(bvh.wtri_rnode, i64, device),
+        wtri_src_tri=_t(bvh.wtri_src_tri, i64, device),
+        wtri_bary=_t(bvh.wtri_bary, f32, device),
+        attr_rnode=_t(bvh.attr_rnode, i64, device),
+        attr_tri=_t(bvh.attr_tri, i64, device),
+        attr_has_uv=_t(bvh.attr_has_uv, np.int32, device),
+        attr_bary=_t(bvh.attr_bary, f32, device),
+        narrow=np.asarray(bvh.hit_attr).shape[-1] == HIT_ATTR_COLS_NARROW,
+        nodes_i=_t(nodes_i, i64, device),
+        nodes_self=_t(bvh.nodes_self, f32, device),
+        refit_levels=_t(bvh.refit_levels, i64, device),
+        map4=_t(bvh.map4, i64, device),
+        tri8_src=_t(bvh.tri8_src, i64, device),
+    )
+    return add_refit_maps(ref, bvh, device)
+
+
+def add_refit_maps(ref: DeviceRefit, bvh, device) -> DeviceRefit:
+    """Upload the refit maps of the kernel tables the host BVH has and ref
+    lacks (map16 with nodes16_fi, lane_geo_idx entry-major with
+    lane_pages). Returns ref."""
+    if getattr(bvh, "map16", None) is not None and ref.map16 is None:
+        ref.map16 = _t(bvh.map16, np.int64, device)
+    if getattr(bvh, "lane_geo_idx", None) is not None and ref.lane_geo_idx is None:
+        ref.lane_geo_idx = _t(lane_entries(bvh.lane_geo_idx), np.int32, device)
+    return ref
+
+
+def refit_device_bvh(dev: DeviceBvh, new_tris: torch.Tensor) -> DeviceBvh:
+    """Replace the geometry of every table family dev holds with the boxes
+    refitted over new_tris [T+8,16] (ops/animation.refit_world_bvh): the
+    BVH4 rows and leaf blocks, the BVH2, BVH16 and lane tables, the split
+    tables and the scene bounds. Topology (codes, sidecar, stack needs)
+    stays. dev.refit must hold the maps of every family present."""
+    ref = dev.refit
+    if dev.nodes16_fi is not None and ref.map16 is None or (
+            dev.lane_entries is not None and ref.lane_geo_idx is None):
+        raise ValueError("refit maps missing for a table family on the device (add_refit_maps)")
+    nodes_f, nodes_self, nodes4_f, tris, nodes_fi, tris128, lane, nodes4_fi, nodes16_fi = refit_world_bvh(
+        SimpleNamespace(nodes_i=ref.nodes_i, nodes_self=ref.nodes_self, refit_levels=ref.refit_levels,
+                        map4=ref.map4, nodes4_fi=dev.nodes4_fi, nodes4_f=dev.nodes4_f, tri8_src=ref.tri8_src,
+                        tris128=dev.tris128, nodes_fi=dev.nodes_fi, nodes16_fi=dev.nodes16_fi, map16=ref.map16,
+                        lane_pages=dev.lane_entries, lane_geo_idx=ref.lane_geo_idx),
+        new_tris)
+    dev.nodes4_fi, dev.tris128 = nodes4_fi, tris128
+    dev.nodes_fi, dev.nodes16_fi, dev.lane_entries, dev.nodes4_f = nodes_fi, nodes16_fi, lane, nodes4_f
+    if dev.nodes_f is not None:
+        dev.nodes_f = nodes_f
+    if dev.nodes_self is not None:
+        dev.nodes_self = nodes_self
+    if dev.tris is not None:
+        dev.tris = tris
+    dev.scene_lo, dev.scene_hi = nodes_self[0, 0:3], nodes_self[0, 3:6]
+    ref.tris = new_tris
     return dev
 
 
@@ -189,10 +312,15 @@ def env_to_device(env, device):
 def from_reference(flat, bvh, env, device):
     """(flat, bvh, env) with the reference's field names -> (DeviceScene,
     DeviceBvh, SkyEnv | HdrEnv); a None input gives None. The BVH carries
-    the split tables of every SPLIT_FAMILIES traversal across."""
+    the split tables of every SPLIT_FAMILIES traversal across, and, given
+    flat too, the refit's tables and maps (DeviceBvh.refit)."""
+    dev_bvh = None
+    if bvh is not None:
+        dev_bvh = add_kernel_tables_to_device(bvh_to_device(bvh, device), bvh, device, SPLIT_FAMILIES)
+        if flat is not None:
+            dev_bvh.refit = refit_tables_to_device(flat, bvh, device)
     return (
         None if flat is None else scene_to_device(flat, device),
-        None if bvh is None else add_kernel_tables_to_device(bvh_to_device(bvh, device), bvh,
-                                                             device, SPLIT_FAMILIES),
+        dev_bvh,
         None if env is None else env_to_device(env, device),
     )

@@ -25,7 +25,6 @@ UNPORTED = {
     "renderSystem": (lambda v: v != 0, "A9 (preview: the rasterizer)"),
     "wireframe": (bool, "A9 (preview: the wireframe overlay)"),
     "upscale": (lambda v: v > 1, "A7 (denoise and TAA upscaling)"),
-    "animate": (bool, "A6 (animation and refit)"),
     "infinitePlane": (bool, "A8 (the infinite plane)"),
 }
 
@@ -130,6 +129,9 @@ def main(argv=None) -> int:
     if args.variant is not None:
         n = r.set_variant(args.variant)
         print(f"variant {args.variant}: switched {n} primitives")
+    if args.animate and r.scene.animations:
+        r.animate = True
+        r.scene.current_animation = max(0, min(args.animation, len(r.scene.animations) - 1))
     if args.camera:
         import numpy as np
 

@@ -36,8 +36,21 @@ are built from the tree only when a selected kernel reads them
                           _packet3_sidecar): the 4 child codes and 3 split
                           axes of every BVH4 row as int32
 
-The SBVH and LBVH branches, alpha culling and the refit maps (map4,
-map16, lane geo_idx) of the reference are not ported yet (ROADMAP.md).
+Every table carries the refit maps of the reference's WorldBvh, which
+ops/animation.refit_world_bvh reads to refit the boxes on the device after
+a transform, skin or morph edit: refit_levels (internal binary nodes,
+deepest level first), map4 (the binary node of each BVH4 child slot),
+tri8_src (the tris row of each tris128 slot), map16 (each BVH16 slot,
+built with nodes16_fi) and lane_geo_idx (the geometry source of each
+lane-page element, built with lane_pages), plus the emit-order rows the
+hit-row bake reads (attr_rnode, attr_tri, attr_has_uv, attr_bary) and the
+bake source of every tris row (wtri_src_tri, wtri_bary; identity
+barycentrics while alpha culling, ROADMAP A5, is not ported).
+
+VKGR_BVH picks the builder as in the reference: sah (default) or lbvh,
+the Morton radix tree of ops/bvh.py, which is also the fallback for
+scenes over 300,000 triangles when the native builder is missing. SBVH
+(sbvh) raises NotImplementedError (ROADMAP A12).
 tests/test_torch_host.py holds every field equal to the reference's.
 """
 
@@ -48,6 +61,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .bvh import _build_radix_tree, morton3d
 from .hitstate import bake_hit_attrs_np, narrow_attr_ok
 
 LEAF_SIZE = 8
@@ -55,6 +69,8 @@ _SAH_BINS = 16
 _SAH_NUMPY_MAX_TRIS = 300_000  # the numpy oracle is a Python loop
 _B4_EMPTY_LO = 3e38
 _B4_EMPTY_HI = -3e38
+# barycentric corners (u0 v0 u1 v1 u2 v2) of a row baked from its whole triangle
+IDENT_BARY = np.array([0.0, 0.0, 1.0, 0.0, 0.0, 1.0], np.float32)
 
 
 @dataclass
@@ -75,13 +91,28 @@ class WorldBvh:
     hit_attr: np.ndarray  # [Ta,64] (or [Ta,32] narrow) f32
     rn_attr_base: np.ndarray  # [N] i32
     attr_alpha_class: np.ndarray  # [Ta] i8 (1 = mixed: no classification)
+    # refit maps (ops/animation.refit_world_bvh) and the hit-row bake's rows
+    refit_levels: np.ndarray  # [L,K] i32 internal binary nodes, deepest level first (-1 pad)
+    portal_roots: np.ndarray  # [P] i32 nodes of the treelet cut (their ids in nodes_i[:,6])
+    map4: np.ndarray  # [M,4] i32 binary node of each BVH4 child slot (-1 missing)
+    wtri8_rnode: np.ndarray  # [L*8] i32 render node of each tris128 slot (-1 pad)
+    wtri8_tri: np.ndarray  # [L*8] i32 global tri of each tris128 slot (-1 pad)
+    tri8_src: np.ndarray  # [L*8] i32 tris row of each tris128 slot (-1 pad)
+    attr_rnode: np.ndarray  # [Ta] i32 emit-order render node
+    attr_tri: np.ndarray  # [Ta] i32 emit-order bake source tri id
+    attr_has_uv: np.ndarray  # [Ta] i32 texel-density gate
+    attr_bary: np.ndarray  # [Ta,6] f32 corner barycentrics of each hit row (identity)
+    wtri_src_tri: np.ndarray  # [T+8] i32 bake source tri of each tris row
+    wtri_bary: np.ndarray  # [T+8,6] f32 corner barycentrics of each tris row (identity)
     num_world_tris: int
     root4_code: int = 0
     # built on demand by add_kernel_tables (None until a kernel reads them)
     nodes_fi: np.ndarray | None = None  # [Nn,16] f32 binary rows
     root_code: int = 0  # code of the binary root (< 0 when it is a leaf)
     nodes16_fi: np.ndarray | None = None  # [M,128] f32 BVH16 rows
+    map16: np.ndarray | None = None  # [M,16] i32 binary node of each BVH16 slot (-1 missing)
     lane_pages: np.ndarray | None = None  # [P*16,128] f32 skip-pointer pages
+    lane_geo_idx: np.ndarray | None = None  # [P*16,128] i32 geometry source of each page element
     nodes4_sc: np.ndarray | None = None  # [M,8] i32 BVH4 codes + axes (v7)
 
 
@@ -206,36 +237,57 @@ def _build_sah(tlo, thi, cen):
     return perm, nodes_i, nodes_f, nodes_self
 
 
-def _expand_bits_10(v: np.ndarray) -> np.ndarray:
-    v = v.astype(np.uint64)
-    v = (v * np.uint64(0x00010001)) & np.uint64(0xFF0000FF)
-    v = (v * np.uint64(0x00000101)) & np.uint64(0x0F00F00F)
-    v = (v * np.uint64(0x00000011)) & np.uint64(0xC30C30C3)
-    v = (v * np.uint64(0x00000005)) & np.uint64(0x49249249)
-    return v
+def _levels_and_portals(nodes_i):
+    """BFS depths -> (refit_levels, portal_roots) (reference
+    ops/bvh_flatten.py:216). Writes each portal's id into nodes_i[:, 6]
+    (-1 elsewhere): the treelet cut, nodes at depth K or shallower leaves,
+    K aiming at ~256 portals. refit_levels [L,K] lists the internal nodes
+    level by level, deepest first, padded with -1."""
+    nn = nodes_i.shape[0]
+    depth = np.full(nn, -1, np.int64)
+    depth[0] = 0
+    bfs = [0]
+    for nd in bfs:
+        if nodes_i[nd, 3] == 0:  # internal
+            for c in (nodes_i[nd, 0], nodes_i[nd, 1]):
+                depth[c] = depth[nd] + 1
+                bfs.append(int(c))
 
+    target = 256
+    K = max(1, int(np.ceil(np.log2(min(target, max(nn // 8, 2))))))
+    portal_list = []
+    for nd in bfs:
+        d = depth[nd]
+        if d == K or (d < K and nodes_i[nd, 3] > 0):
+            portal_list.append(nd)
+    nodes_i[:, 6] = -1
+    for pid, nd in enumerate(portal_list):
+        nodes_i[nd, 6] = pid
+    portal_roots = np.asarray(portal_list, np.int32)
 
-def _morton_order(tlo, thi, cen) -> np.ndarray:
-    """Triangle order of a scene small enough to be one leaf: the Morton
-    order the reference's radix-tree path stores it in (its native sort,
-    else the numpy morton3d + stable argsort of ops/bvh.py)."""
-    from ..native import build_radix_tree_native
-
-    native = build_radix_tree_native(tlo, thi, cen)
-    if native is not None:
-        return native[0]
-    lo, hi = tlo.min(axis=0), thi.max(axis=0)
-    q = np.clip((cen - lo) / np.maximum(hi - lo, 1e-12) * 1024.0, 0, 1023).astype(np.uint32)
-    codes = ((_expand_bits_10(q[:, 0]) << np.uint64(2))
-             | (_expand_bits_10(q[:, 1]) << np.uint64(1))
-             | _expand_bits_10(q[:, 2]))
-    return np.argsort(codes, kind="stable")
+    internal_ids = np.nonzero(nodes_i[:, 3] == 0)[0]
+    levels = []
+    if internal_ids.size:
+        for d in range(int(depth[internal_ids].max()), -1, -1):
+            lv = internal_ids[depth[internal_ids] == d]
+            if lv.size:
+                levels.append(lv)
+    if not levels:
+        return np.full((1, 1), -1, np.int32), portal_roots
+    kmax = max(len(lv) for lv in levels)
+    refit_levels = np.full((len(levels), kmax), -1, np.int32)
+    for idx, lv in enumerate(levels):
+        refit_levels[idx, : len(lv)] = lv
+    return refit_levels, portal_roots
 
 
 def _tris128(nodes_i, tris16, wtri_rnode, wtri_tri):
     """Leaf-aligned triangle blocks (the tris128 half of the reference's
     _packet2_tables, ops/bvh_flatten.py:48): one [128] row per binary leaf,
-    in leaf-id order, 8 slots of 16 floats with the ids at cols 9/10."""
+    in leaf-id order, 8 slots of 16 floats with the ids at cols 9/10.
+    Returns (tris128, wtri8_rnode, wtri8_tri, tri8_src): the last three
+    give each of the L*8 slots its render node, global tri and tris row
+    (-1 on padding); the refit regathers the blocks through tri8_src."""
     count = nodes_i[:, 3].astype(np.int64)
     first = nodes_i[:, 2].astype(np.int64)
     leaf_ids = np.nonzero(count > 0)[0]
@@ -244,6 +296,9 @@ def _tris128(nodes_i, tris16, wtri_rnode, wtri_tri):
         raise ValueError("leaf codes cap at 2^20 leaves (exact in f32)")
     tris128 = np.zeros((n_leaves, 8, 16), np.float32)
     tris128[:, :, 9:11] = -1.0
+    w8r = np.full(n_leaves * 8, -1, np.int32)
+    w8t = np.full(n_leaves * 8, -1, np.int32)
+    t8s = np.full(n_leaves * 8, -1, np.int32)
     if leaf_ids.size:
         c = count[leaf_ids]
         reps = np.repeat(np.arange(leaf_ids.size), c)
@@ -252,7 +307,11 @@ def _tris128(nodes_i, tris16, wtri_rnode, wtri_tri):
         tris128[reps, k] = tris16[rows]
         tris128[reps, k, 9] = wtri_rnode[rows].astype(np.float32)
         tris128[reps, k, 10] = wtri_tri[rows].astype(np.float32)
-    return tris128.reshape(n_leaves, 128)
+        slot = reps * 8 + k
+        w8r[slot] = wtri_rnode[rows]
+        w8t[slot] = wtri_tri[rows]
+        t8s[slot] = rows
+    return tris128.reshape(n_leaves, 128), w8r, w8t, t8s
 
 
 def _leaf_code(first, count):
@@ -262,8 +321,9 @@ def _leaf_code(first, count):
 def build_bvh4(nodes_i, nodes_self):
     """Collapse the binary tree into BVH4 (reference ops/bvh_flatten.py:1270).
     Returns (nodes4_i [M,8] i32: 4 child slots + 3 axes, nodes4_f [M,32]
-    f32: 4 child boxes; missing children carry inverted boxes)."""
-    n4_i, n4_f = [], []
+    f32: 4 child boxes, missing children carrying inverted boxes, map4
+    [M,4] i32: the binary node of each child slot, -1 where missing)."""
+    n4_i, n4_f, m4 = [], [], []
     if nodes_i[0, 3] > 0:  # root is a leaf: one BVH4 node with 1 child
         n4_i.append([_leaf_code(nodes_i[0, 2], nodes_i[0, 3]), -1, -1, -1, 0, 0, 0, 0])
         f = np.full(32, 0.0, np.float32)
@@ -273,12 +333,14 @@ def build_bvh4(nodes_i, nodes_self):
             f[6 * s : 6 * s + 3] = _B4_EMPTY_LO
             f[6 * s + 3 : 6 * s + 6] = _B4_EMPTY_HI
         n4_f.append(f)
-        return np.asarray(n4_i, np.int32), np.stack(n4_f).astype(np.float32)
+        m4.append([0, -1, -1, -1])
+        return np.asarray(n4_i, np.int32), np.stack(n4_f).astype(np.float32), np.asarray(m4, np.int32)
 
     id_of = {0: 0}
     work = deque([0])
     n4_i.append(None)
     n4_f.append(None)
+    m4.append(None)
     while work:
         b = work.popleft()
         nid = id_of[b]
@@ -296,12 +358,14 @@ def build_bvh4(nodes_i, nodes_self):
         row_i = [0, 0, 0, 0, axes[0], axes[1], axes[2], 0]
         row_f = np.empty(32, np.float32)
         row_f[24:] = 0.0
+        row_m = [-1, -1, -1, -1]
         for s, c in enumerate(slots):
             if c is None:
                 row_i[s] = -1
                 row_f[6 * s : 6 * s + 3] = _B4_EMPTY_LO
                 row_f[6 * s + 3 : 6 * s + 6] = _B4_EMPTY_HI
                 continue
+            row_m[s] = c
             row_f[6 * s : 6 * s + 3] = nodes_self[c, 0:3]
             row_f[6 * s + 3 : 6 * s + 6] = nodes_self[c, 3:6]
             if nodes_i[c, 3] > 0:
@@ -311,11 +375,13 @@ def build_bvh4(nodes_i, nodes_self):
                     id_of[c] = len(n4_i)
                     n4_i.append(None)
                     n4_f.append(None)
+                    m4.append(None)
                     work.append(c)
                 row_i[s] = id_of[c]
         n4_i[nid] = row_i
         n4_f[nid] = row_f
-    return np.asarray(n4_i, np.int32), np.stack(n4_f).astype(np.float32)
+        m4[nid] = row_m
+    return np.asarray(n4_i, np.int32), np.stack(n4_f).astype(np.float32), np.asarray(m4, np.int32)
 
 
 def _nodes4_fi(nodes_i, nodes4_i, nodes4_f):
@@ -347,8 +413,12 @@ def _nodes4_fi(nodes_i, nodes4_i, nodes4_f):
 
 
 def build_world_bvh(flat) -> WorldBvh:
-    """Bake instances to world space + SAH BVH4 over all world triangles
-    (reference build_world_bvh with tri_class=None, VKGR_BVH=sah)."""
+    """Bake instances to world space + a BVH4 over all world triangles
+    (reference build_world_bvh with tri_class=None): binned SAH by default,
+    the Morton radix tree (LBVH) under VKGR_BVH=lbvh or when a scene of
+    more than 300,000 triangles finds no native builder."""
+    import os
+
     vtx = np.asarray(flat.vtx_pos, np.float64)
     tri_idx = np.asarray(flat.tri_idx)
     rn_o2w = np.asarray(flat.rn_o2w, np.float64)
@@ -356,6 +426,10 @@ def build_world_bvh(flat) -> WorldBvh:
     rn_visible = np.asarray(flat.rn_visible)
     pft = np.asarray(flat.prim_first_tri)
     ptc = np.asarray(flat.prim_tri_count)
+    bvh_kind = os.environ.get("VKGR_BVH", "sah")
+    if bvh_kind == "sbvh":
+        raise NotImplementedError("VKGR_BVH=sbvh: the spatial-split builder is not ported "
+                                  "(ROADMAP A12)")
 
     v_chunks, rnode_chunks, tri_chunks = [], [], []
     attr_rnode_chunks, attr_tri_chunks = [], []
@@ -383,6 +457,7 @@ def build_world_bvh(flat) -> WorldBvh:
 
     attr_rnode = np.concatenate(attr_rnode_chunks) if attr_rnode_chunks else np.zeros(0, np.int32)
     attr_tri = np.concatenate(attr_tri_chunks) if attr_tri_chunks else np.zeros(0, np.int32)
+    attr_bary = np.tile(IDENT_BARY, (attr_rnode.shape[0], 1))
     wv = np.concatenate(v_chunks) if v_chunks else np.zeros((0, 9), np.float32)
     wtri_rnode = np.concatenate(rnode_chunks) if rnode_chunks else np.zeros(0, np.int32)
     wtri_tri = np.concatenate(tri_chunks) if tri_chunks else np.zeros(0, np.int32)
@@ -390,49 +465,52 @@ def build_world_bvh(flat) -> WorldBvh:
         wv = np.full((1, 9), 3e37, np.float32)
         wtri_rnode = np.zeros(1, np.int32)
         wtri_tri = np.zeros(1, np.int32)
+    wtri_src_tri = wtri_tri.copy()
     nt = wv.shape[0]
 
-    hit_attr, _ = bake_hit_attrs_np(flat, attr_rnode, attr_tri, narrow=narrow_attr_ok(flat))
-    attr_alpha_class = np.ones(attr_rnode.shape[0], np.int8)  # unclassified = mixed
+    hit_attr, attr_has_uv = bake_hit_attrs_np(flat, attr_rnode, attr_tri, narrow=narrow_attr_ok(flat))
 
     v0, v1, v2 = wv[:, 0:3], wv[:, 3:6], wv[:, 6:9]
     tlo = np.minimum(np.minimum(v0, v1), v2)
     thi = np.maximum(np.maximum(v0, v1), v2)
     cen = (tlo + thi) * 0.5
 
-    if nt <= LEAF_SIZE:
-        # the whole scene is one leaf, stored in Morton order
-        order = _morton_order(tlo, thi, cen) if nt > 1 else np.zeros(1, np.int64)
-        nodes_i = np.zeros((1, 8), np.int32)
-        nodes_i[0] = [0, 0, 0, nt, -1, 0, 0, 0]
-        nodes_f = np.zeros((1, 16), np.float32)
-        nodes_self = np.zeros((1, 8), np.float32)
-        nodes_self[0, 0:3] = tlo.min(axis=0)
-        nodes_self[0, 3:6] = thi.max(axis=0)
-    else:
+    built = None
+    if nt > LEAF_SIZE and bvh_kind == "sah":
         from ..native import build_sah_native
 
         built = build_sah_native(tlo, thi, cen, LEAF_SIZE)
-        if built is None:
-            if nt > _SAH_NUMPY_MAX_TRIS:
-                raise NotImplementedError(
-                    f"{nt} world triangles need the native SAH builder (g++); the "
-                    "reference's LBVH fallback for large scenes is not ported yet")
+        if built is None and nt <= _SAH_NUMPY_MAX_TRIS:
             built = _build_sah(tlo, thi, cen)
+    if nt == 1:
+        order = np.zeros(1, np.int64)
+        nodes_i = np.array([[0, 0, 0, 1, -1, 0, 0, 0]], np.int32)
+        nodes_f = np.zeros((1, 16), np.float32)
+        nodes_self = np.zeros((1, 8), np.float32)
+        nodes_self[0, 0:3] = tlo[0]
+        nodes_self[0, 3:6] = thi[0]
+        refit_levels, portal_roots = np.full((1, 1), -1, np.int32), np.zeros(1, np.int32)
+    elif built is not None:
         order, nodes_i, nodes_f, nodes_self = built
-        # the native builder leaves a leaf's child slots and cols 6:8
-        # unwritten (np.empty); zero them as the numpy oracle does
+        # the native builder leaves a leaf's child slots and col 7 unwritten
+        # (np.empty); zero them as the numpy oracle does
         nodes_i[nodes_i[:, 3] > 0, 0:2] = 0
-        nodes_i[:, 6:8] = 0
+        nodes_i[:, 7] = 0
+        refit_levels, portal_roots = _levels_and_portals(nodes_i)
+    else:
+        order, nodes_i, nodes_f, nodes_self, refit_levels, portal_roots = _build_lbvh(tlo, thi, cen)
     wv = wv[order]
     wtri_rnode = wtri_rnode[order]
     wtri_tri = wtri_tri[order]
+    wtri_src_tri = wtri_src_tri[order]
     tris16 = np.zeros((nt + LEAF_SIZE, 16), np.float32)
     tris16[:nt, :9] = wv
     wtri_rnode = np.concatenate([wtri_rnode, np.zeros(LEAF_SIZE, np.int32)])
     wtri_tri = np.concatenate([wtri_tri, np.zeros(LEAF_SIZE, np.int32)])
+    wtri_src_tri = np.concatenate([wtri_src_tri, np.zeros(LEAF_SIZE, np.int32)])
 
-    n4i, n4f = build_bvh4(nodes_i, nodes_self)
+    n4i, n4f, m4 = build_bvh4(nodes_i, nodes_self)
+    tris128, w8r, w8t, t8s = _tris128(nodes_i, tris16, wtri_rnode, wtri_tri)
     return WorldBvh(
         nodes_i=nodes_i,
         nodes_f=nodes_f,
@@ -443,12 +521,140 @@ def build_world_bvh(flat) -> WorldBvh:
         nodes4_fi=_nodes4_fi(nodes_i, n4i, n4f),
         nodes4_i=n4i,
         nodes4_f=n4f,
-        tris128=_tris128(nodes_i, tris16, wtri_rnode, wtri_tri),
+        tris128=tris128,
         hit_attr=hit_attr,
         rn_attr_base=rn_attr_base,
-        attr_alpha_class=attr_alpha_class,
+        attr_alpha_class=np.ones(attr_rnode.shape[0], np.int8),  # unclassified = mixed
+        refit_levels=refit_levels,
+        portal_roots=portal_roots,
+        map4=m4,
+        wtri8_rnode=w8r,
+        wtri8_tri=w8t,
+        tri8_src=t8s,
+        attr_rnode=attr_rnode,
+        attr_tri=attr_tri,
+        attr_has_uv=attr_has_uv,
+        attr_bary=attr_bary,
+        wtri_src_tri=wtri_src_tri,
+        wtri_bary=np.tile(IDENT_BARY, (nt + LEAF_SIZE, 1)),
         num_world_tris=nt,
     )
+
+
+def _build_lbvh(tlo, thi, cen):
+    """The reference's radix-tree branch of build_world_bvh
+    (ops/bvh_flatten.py:918-1110): Morton-sorted triangles, a Karras radix
+    tree (the native builder's, else ops/bvh.py's), subtrees of at most
+    LEAF_SIZE triangles collapsed into leaves, internal nodes numbered in
+    BFS order and then the leaves. Returns (order, nodes_i, nodes_f,
+    nodes_self, refit_levels, portal_roots)."""
+    from ..native import build_radix_tree_native
+
+    nt = tlo.shape[0]
+    native = build_radix_tree_native(tlo, thi, cen)
+    if native is not None:
+        order, lc, rc, leaf_l, leaf_r = native
+    else:
+        codes = morton3d(cen, tlo.min(axis=0), thi.max(axis=0))
+        order = np.argsort(codes, kind="stable")
+        keys = (codes[order].astype(np.uint64) << np.uint64(32)) | np.arange(nt, dtype=np.uint64)
+        lc, rc, leaf_l, leaf_r = _build_radix_tree(keys)
+    tlo, thi = tlo[order], thi[order]
+
+    # subtree leaf ranges: internal node i covers the sorted range [range_lo, range_hi]
+    ni = nt - 1
+    range_lo = np.full(ni, -1, np.int64)
+    range_hi = np.full(ni, -1, np.int64)
+    lo_l = np.where(leaf_l, lc, -1)
+    hi_l = np.where(leaf_l, lc, -1)
+    lo_r = np.where(leaf_r, rc, -1)
+    hi_r = np.where(leaf_r, rc, -1)
+    pend = np.ones(ni, bool)
+    cl_i = np.clip(lc, 0, ni - 1)  # only valid where ~leaf_l
+    cr_i = np.clip(rc, 0, ni - 1)
+    while pend.any():
+        need_l = ~leaf_l & (lo_l < 0)
+        lo_l = np.where(need_l & (range_lo[cl_i] >= 0), range_lo[cl_i], lo_l)
+        hi_l = np.where(need_l & (range_hi[cl_i] >= 0), range_hi[cl_i], hi_l)
+        need_r = ~leaf_r & (lo_r < 0)
+        lo_r = np.where(need_r & (range_lo[cr_i] >= 0), range_lo[cr_i], lo_r)
+        hi_r = np.where(need_r & (range_hi[cr_i] >= 0), range_hi[cr_i], hi_r)
+        ready = pend & (lo_l >= 0) & (lo_r >= 0)
+        if not ready.any():
+            raise RuntimeError("range propagation deadlock")
+        range_lo[ready] = np.minimum(lo_l[ready], lo_r[ready])
+        range_hi[ready] = np.maximum(hi_l[ready], hi_r[ready])
+        pend &= ~ready
+    counts = range_hi - range_lo + 1
+
+    # collapse roots: subtrees of <= LEAF_SIZE tris whose parent has more
+    kept_int = ~(counts <= LEAF_SIZE)
+    if not kept_int.any():  # the whole tree is one leaf (nt <= LEAF_SIZE)
+        nodes_i = np.array([[0, 0, 0, nt, -1, 0, 0, 0]], np.int32)
+        nodes_self = np.zeros((1, 8), np.float32)
+        nodes_self[0, 0:3] = tlo.min(axis=0)
+        nodes_self[0, 3:6] = thi.max(axis=0)
+        return (order, nodes_i, np.zeros((1, 16), np.float32), nodes_self,
+                np.full((1, 1), -1, np.int32), np.zeros(1, np.int32))
+
+    # kept internals in BFS order from the root, then the leaves as met
+    order_nodes = [0]
+    for i in order_nodes:
+        for c, is_leaf_child in ((lc[i], leaf_l[i]), (rc[i], leaf_r[i])):
+            if not is_leaf_child and kept_int[c]:
+                order_nodes.append(int(c))
+    id_of_int = {i: k for k, i in enumerate(order_nodes)}
+    n_new = len(order_nodes)
+    leaf_rows = []  # (first, count, lo, hi), numbered after the internals
+
+    def range_box(f, c):
+        return tlo[f : f + c].min(axis=0), thi[f : f + c].max(axis=0)
+
+    def child_ref(c, is_leaf_child):
+        """(new id, lo, hi) of child c of a kept internal node."""
+        if is_leaf_child:
+            first, count = int(c), 1
+        elif kept_int[c]:
+            return (id_of_int[c], *range_box(int(range_lo[c]), int(counts[c])))
+        else:  # collapsed subtree -> leaf
+            first, count = int(range_lo[c]), int(counts[c])
+        lo, hi = range_box(first, count)
+        leaf_rows.append((first, count, lo, hi))
+        return n_new + len(leaf_rows) - 1, lo, hi
+
+    child_info = [(child_ref(lc[i], bool(leaf_l[i])), child_ref(rc[i], bool(leaf_r[i])))
+                  for i in order_nodes]
+    nn = n_new + len(leaf_rows)
+    nodes_i = np.zeros((nn, 8), np.int32)
+    nodes_f = np.zeros((nn, 16), np.float32)
+    nodes_self = np.zeros((nn, 8), np.float32)
+    parent_new = np.full(nn, -1, np.int32)
+    for nid, (i, ((l_id, l_lo, l_hi), (r_id, r_lo, r_hi))) in enumerate(zip(order_nodes, child_info)):
+        # near-child contract: left = smaller centroid on the split axis
+        cl = (l_lo + l_hi) * 0.5
+        cr = (r_lo + r_hi) * 0.5
+        axis = int(np.argmax(np.abs(cr - cl)))
+        if cr[axis] < cl[axis]:
+            l_id, r_id = r_id, l_id
+            l_lo, l_hi, r_lo, r_hi = r_lo, r_hi, l_lo, l_hi
+        nodes_i[nid, 0] = l_id
+        nodes_i[nid, 1] = r_id
+        nodes_i[nid, 5] = axis
+        nodes_f[nid, 0:3] = l_lo
+        nodes_f[nid, 3:6] = l_hi
+        nodes_f[nid, 6:9] = r_lo
+        nodes_f[nid, 9:12] = r_hi
+        nodes_self[nid, 0:3], nodes_self[nid, 3:6] = range_box(int(range_lo[i]), int(counts[i]))
+        parent_new[l_id] = nid
+        parent_new[r_id] = nid
+    for k, (first, count, lo, hi) in enumerate(leaf_rows):
+        nodes_i[n_new + k, 2] = first
+        nodes_i[n_new + k, 3] = count
+        nodes_self[n_new + k, 0:3] = lo
+        nodes_self[n_new + k, 3:6] = hi
+    nodes_i[:, 4] = parent_new
+    refit_levels, portal_roots = _levels_and_portals(nodes_i)
+    return order, nodes_i, nodes_f, nodes_self, refit_levels, portal_roots
 
 
 # ---------------------------------------------------------------- kernel tables
@@ -490,9 +696,10 @@ def _axis_idx(depth, path):
 
 
 def _packet6_tables(nodes_i, nodes_self):
-    """nodes16_fi [M,128] f32 from the binary tree (reference
-    ops/bvh_flatten.py:1381, without the refit map16). Root BVH16 node is
-    id 0. Layout: cols 0:96 16 child boxes (lo3 hi3; missing = the +3e38
+    """(nodes16_fi [M,128] f32, map16 [M,16] i32) from the binary tree
+    (reference ops/bvh_flatten.py:1381); map16 names the binary node of
+    each child slot (-1 missing), which the refit regathers boxes from.
+    Root BVH16 node is id 0. Layout: cols 0:96 16 child boxes (lo3 hi3; missing = the +3e38
     point box), 96:112 16 child codes (as nodes_fi; missing 0), 112:127
     the 15 near-order axes of the collapsed binary subtree in level order
     (slot index = 4-bit root-to-leaf path, MSB = top split)."""
@@ -513,9 +720,11 @@ def _packet6_tables(nodes_i, nodes_self):
         f[0:3] = nodes_self[0, 0:3]
         f[3:6] = nodes_self[0, 3:6]
         f[96] = leaf_code(0)
-        return f[None, :].copy()
+        m = np.full(16, -1, np.int32)
+        m[0] = 0
+        return f[None, :].copy(), m[None, :].copy()
 
-    rows_f = [None]
+    rows_f, rows_m = [None], [None]
     id_of = {0: 0}
     work = deque([0])
     while work:
@@ -524,6 +733,7 @@ def _packet6_tables(nodes_i, nodes_self):
         f = np.zeros(128, np.float32)
         for s in range(16):
             f[6 * s : 6 * s + 6] = 3e38  # missing = point box
+        m = np.full(16, -1, np.int32)
         # expand the binary subtree at b up to 4 levels
         stack = [(b, 0, 0)]  # (internal binary id, path, depth)
         while stack:
@@ -536,18 +746,21 @@ def _packet6_tables(nodes_i, nodes_self):
                     slot = cpath << (4 - cdepth)
                     f[6 * slot : 6 * slot + 3] = nodes_self[child, 0:3]
                     f[6 * slot + 3 : 6 * slot + 6] = nodes_self[child, 3:6]
+                    m[slot] = child
                     if nodes_i[child, 3] > 0:
                         f[96 + slot] = leaf_code(child)
                     else:
                         if child not in id_of:
                             id_of[child] = len(rows_f)
                             rows_f.append(None)
+                            rows_m.append(None)
                             work.append(child)
                         f[96 + slot] = id_of[child]
                 else:
                     stack.append((child, cpath, cdepth))
         rows_f[nid] = f
-    return np.stack(rows_f).astype(np.float32)
+        rows_m[nid] = m
+    return np.stack(rows_f).astype(np.float32), np.stack(rows_m).astype(np.int32)
 
 
 def _packet3_sidecar(nodes4_fi):
@@ -569,23 +782,26 @@ KERNEL_TABLES = ("bvh2", "bvh16", "lane", "bvh4", "bvh4_multipop", "bvh4_leafque
 
 def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:
     """Build the named kernel tables ("bvh2" -> nodes_fi + root_code,
-    "bvh16" -> nodes16_fi, "lane" -> lane_pages, "bvh4_sidecar" ->
-    nodes4_sc) into wb, skipping those already there; the other BVH4
-    families and the split ones need no table of their own. Returns wb."""
+    "bvh16" -> nodes16_fi + map16, "lane" -> lane_pages + lane_geo_idx,
+    "bvh4_sidecar" -> nodes4_sc) into wb, skipping those already there; the
+    other BVH4 families and the split ones need no table of their own.
+    The tables take their boxes from wb's tree as built: after a refit on
+    the device they are refitted there too (convert.refit_device_bvh).
+    Returns wb."""
     unknown = set(tables) - set(KERNEL_TABLES)
     if unknown:
         raise ValueError(f"unknown kernel tables {sorted(unknown)}; known: {KERNEL_TABLES}")
     if "bvh2" in tables and wb.nodes_fi is None:
         wb.nodes_fi, wb.root_code = _packet2_nodes(wb.nodes_i, wb.nodes_f)
     if "bvh16" in tables and wb.nodes16_fi is None:
-        wb.nodes16_fi = _packet6_tables(wb.nodes_i, wb.nodes_self)
+        wb.nodes16_fi, wb.map16 = _packet6_tables(wb.nodes_i, wb.nodes_self)
     if "bvh4_sidecar" in tables and wb.nodes4_sc is None:
         wb.nodes4_sc = _packet3_sidecar(wb.nodes4_fi)
     if "lane" in tables and wb.lane_pages is None:
         from .lane_traverse import build_lane_tree
 
-        wb.lane_pages = build_lane_tree(wb.nodes_i, wb.nodes_self, wb.tris,
-                                        wtri_rnode=wb.wtri_rnode, wtri_tri=wb.wtri_tri)
+        wb.lane_pages, wb.lane_geo_idx = build_lane_tree(wb.nodes_i, wb.nodes_self, wb.tris,
+                                                         wtri_rnode=wb.wtri_rnode, wtri_tri=wb.wtri_tri)
     return wb
 
 

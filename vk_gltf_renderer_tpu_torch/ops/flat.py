@@ -1,9 +1,9 @@
 """SceneFlat: the scene mirror as one dataclass of numpy arrays.
 
 jax-free copy of vk_gltf_renderer_tpu/ops/flat.py (SceneFlat,
-build_scene_flat and helpers), without the pytree registration and the
-material-refresh path. tests/test_torch_host.py holds every field equal to
-the reference builder's. convert.scene_to_device moves the fields the
+build_scene_flat, refresh_materials and helpers), without the pytree
+registration. tests/test_torch_host.py holds every field equal to the
+reference builder's. convert.scene_to_device moves the fields the
 device path reads into torch.
 """
 
@@ -323,3 +323,41 @@ def _build_lights(scene) -> dict:
             ci, co = np.cos(inner), np.cos(outer)
             out["light_cone"][i] = [co, 1.0 / max(ci - co, 1e-4)]
     return out
+
+
+def refresh_materials(flat: SceneFlat, scene) -> SceneFlat:
+    """Material and light sync (reference ops/flat.py:388): re-pack only the
+    material, texture-info and light arrays into a copy of flat. Geometry,
+    BVH and the texture pool stay, unless the edit references a texture the
+    pool (pruned to the textures in use) lacks."""
+    import dataclasses
+
+    model = scene.model
+    conv = mats.MaterialConverter(model)
+    shade_mats = conv.convert_all()
+    mat_soa = _materials_soa(shade_mats)
+    mat_packed = _materials_packed(mat_soa, len(shade_mats))
+    ti = conv.texture_infos
+    lights = _build_lights(scene)
+    extra = {}
+    old_refs = set(int(v) for v in np.asarray(flat.ti_index).tolist() if v >= 0)
+    new_refs = set(int(t.index) for t in ti if t.index >= 0)
+    if not new_refs <= old_refs:
+        if model.images:
+            from .textures import build_texture_pool
+
+            tex = build_texture_pool(model, used_texinfos=ti)
+        else:
+            tex = _white_texture_pool()
+        extra = dict(tex_quads=tex[0], tex_desc=tex[1], tex_mip_table=tex[2], tex_num_mips=tex[3])
+    return dataclasses.replace(
+        flat,
+        materials=mat_soa,
+        mat_packed=mat_packed,
+        ti_index=np.array([t.index for t in ti], np.int32),
+        ti_texcoord=np.array([t.tex_coord for t in ti], np.int32),
+        ti_uvxform=np.stack([t.uv_transform for t in ti]).astype(np.float32),
+        num_lights=len(scene.render_lights),
+        **lights,
+        **extra,
+    )

@@ -3,6 +3,8 @@
 Host half: bake_hit_attrs_np / narrow_attr_ok, numpy copies of the
 reference's build-time bake (vk_gltf_renderer_tpu/ops/hitstate.py:202-330,
 without the subtriangle-OMM barycentric remap, which only alpha scenes use).
+bake_hit_attrs is the refit-time bake of the reference's _refit_device on
+tensors (:333, jitted there), with the barycentric remap.
 
 Device half: get_hit_state_fused (reference :341) and safe_offset_ray
 (:417) on torch tensors. One row gather per lane, then world-space math.
@@ -96,6 +98,96 @@ def bake_hit_attrs_np(flat, attr_rnode, attr_tri, narrow=False):
                           np.asarray(flat.rn_packed, np.float32), attr_rnode, attr_tri, has_uv,
                           narrow=narrow)
     return out, has_uv.astype(np.int32)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32 (through f64, where a * b is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def bake_hit_attrs(vtx_packed, tri_idx, rn_packed, attr_rnode, attr_tri, attr_has_uv,
+                   narrow=False, attr_bary=None):
+    """Refit-time bake on tensors (reference bake_hit_attrs, jitted by its
+    renderer's _refit_device): the rows of bake_hit_attrs_np from deformed
+    vertices (vtx_packed [V,24]) and moved instances (rn_packed [N,32]).
+    attr_bary [Ta,6] recombines each row's corners at its barycentric
+    corners (identity rows pass through).
+
+    The float order is that of XLA's CPU build of the reference's bake,
+    which the build-time numpy bake does not share: the matrix-vector
+    products, the cross product and its squared norm use fused
+    multiply-adds (emulated through f64), and column 43 (texel density,
+    sqrt(max(uv_area, 1e-20) / w_area) with w_area = sqrt(max(|e1 x e2|^2,
+    1e-20))) divides by the square root as a product with its reciprocal
+    square root. XLA's rsqrt is an approximation (not correctly rounded);
+    this one is, so column 43 can still differ from the reference's in the
+    last ulps (ROADMAP C)."""
+    idx = tri_idx[attr_tri]  # [Ta,3]
+    rn_row = rn_packed[attr_rnode]  # [Ta,32]
+    o2w = rn_row[:, :16].reshape(-1, 4, 4)
+    w2o = rn_row[:, 16:32].reshape(-1, 4, 4)
+    va = vtx_packed[idx[:, 0]]
+    vb = vtx_packed[idx[:, 1]]
+    vc = vtx_packed[idx[:, 2]]
+    if attr_bary is not None:
+        tanw = va[:, 9:10]
+
+        def interp(bu, bv):
+            w = (1.0 - bu - bv)[:, None]
+            return va * w + vb * bu[:, None] + vc * bv[:, None]
+
+        va, vb, vc = (torch.cat([x[:, :9], tanw, x[:, 10:]], dim=1) for x in (
+            interp(attr_bary[:, 0], attr_bary[:, 1]), interp(attr_bary[:, 2], attr_bary[:, 3]),
+            interp(attr_bary[:, 4], attr_bary[:, 5])))
+
+    def xf(m0, m1, m2, v):  # m0 v0 + m1 v1 + m2 v2 with the two adds fused, as XLA's CPU build fuses them
+        return _fma(m2, v[:, 2:3], _fma(m1, v[:, 1:2], m0 * v[:, 0:1]))
+
+    def xf_point(p):
+        return xf(o2w[:, :3, 0], o2w[:, :3, 1], o2w[:, :3, 2], p) + o2w[:, :3, 3]
+
+    def xf_dir(d):
+        return xf(o2w[:, :3, 0], o2w[:, :3, 1], o2w[:, :3, 2], d)
+
+    def xf_nrm(n):
+        return xf(w2o[:, 0, :3], w2o[:, 1, :3], w2o[:, 2, :3], n)
+
+    p0, p1, p2 = xf_point(va[:, 0:3]), xf_point(vb[:, 0:3]), xf_point(vc[:, 0:3])
+    n0, n1, n2 = xf_nrm(va[:, 3:6]), xf_nrm(vb[:, 3:6]), xf_nrm(vc[:, 3:6])
+    t0, t1, t2 = xf_dir(va[:, 6:9]), xf_dir(vb[:, 6:9]), xf_dir(vc[:, 6:9])
+
+    e1, e2 = p1 - p0, p2 - p0
+    wc = [_fma(e1[:, i], e2[:, j], -(e1[:, j] * e2[:, i])) for i, j in ((1, 2), (2, 0), (0, 1))]
+    wsq = _fma(wc[2], wc[2], _fma(wc[1], wc[1], wc[0] * wc[0]))
+    inv_w_area = (1.0 / torch.sqrt(torch.clamp(wsq, min=1e-20).double())).float()
+    duv1 = vb[:, 10:12] - va[:, 10:12]
+    duv2 = vc[:, 10:12] - va[:, 10:12]
+    uv_area = torch.abs(duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0])
+    # square roots through f64, rounded once: torch's vectorised f32 sqrt on the CPU is not
+    # always correctly rounded
+    texel_density = torch.where(attr_has_uv > 0,
+                                torch.sqrt((torch.clamp(uv_area, min=1e-20) * inv_w_area).double()).float(),
+                                torch.zeros_like(uv_area))
+    m = o2w[:, :3, :3]
+    det = (
+        m[:, 0, 0] * (m[:, 1, 1] * m[:, 2, 2] - m[:, 1, 2] * m[:, 2, 1])
+        - m[:, 0, 1] * (m[:, 1, 0] * m[:, 2, 2] - m[:, 1, 2] * m[:, 2, 0])
+        + m[:, 0, 2] * (m[:, 1, 0] * m[:, 2, 1] - m[:, 1, 1] * m[:, 2, 0])
+    )
+    geo_sign = torch.where(det < 0, -1.0, 1.0).to(va.dtype)
+    if narrow:
+        cols = [n0, n1, n2, t0, t1, t2, va[:, 9:10], p0, p1, p2, geo_sign[:, None],
+                va.new_zeros((va.shape[0], HIT_ATTR_COLS_NARROW - 29))]
+    else:
+        cols = [
+            n0, n1, n2, t0, t1, t2, va[:, 9:10],
+            va[:, 10:12], vb[:, 10:12], vc[:, 10:12],
+            va[:, 12:14], vb[:, 12:14], vc[:, 12:14],
+            va[:, 14:18], vb[:, 14:18], vc[:, 14:18],
+            texel_density[:, None], p0, p1, p2, geo_sign[:, None],
+            va.new_zeros((va.shape[0], HIT_ATTR_COLS - 54)),
+        ]
+    return torch.cat(cols, dim=1).float()
 
 
 def _normalize(v):

@@ -2,9 +2,10 @@
 of csrc/traverse_lanes.cu (replacing the reference's traverse_lanes and
 traverse_lanes_stream, kernel values lane and lane_stream).
 
-build_lane_tree is a jax-free copy of the page half of the reference's
-build_lane_tree (vk_gltf_renderer_tpu/ops/lane_traverse.py:65; the refit
-map geo_idx is not ported). The tree is laid out in DFS order with skip
+build_lane_tree is a jax-free copy of the reference's build_lane_tree
+(vk_gltf_renderer_tpu/ops/lane_traverse.py:65), the pages and their refit
+map geo_idx, and refit_lane_pages (:173) rebuilds the page values from
+refitted boxes and triangles on the device. The tree is laid out in DFS order with skip
 pointers, leaves expanded to one triangle per entry with precomputed
 edges, 16 f32 fields per entry:
 
@@ -27,6 +28,7 @@ list_scratch).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..cuda_lib import LaunchCounter, OverflowCounter
 from .traverse import traverse_lanes_plain
@@ -41,14 +43,20 @@ OVERFLOW = OverflowCounter()  # links that did not advance (must stay 0)
 
 
 def build_lane_tree(nodes_i, nodes_self, tris16, wtri_rnode=None, wtri_tri=None):
-    """DFS skip-pointer pages [P*16,128] f32 of the collapsed binary BVH.
+    """DFS skip-pointer pages [P*16,128] f32 of the collapsed binary BVH,
+    and their refit map geo_idx [P*16,128] i32.
 
     nodes_i: [N,8] i32 (left,right,first,count,parent,axis,...)
     nodes_self: [N,8] f32 (own lo.xyz, hi.xyz, pad) per node
     tris16: [T+pad,16] f32 (v0.xyz, v1.xyz, v2.xyz, pad) in BVH tri order
     wtri_rnode/wtri_tri: optional [T'] i32 per-tri-row (render-node,
     global-tri) ids, baked into triangle entries (fields 12/13) so hits
-    resolve in-kernel; zeros when omitted."""
+    resolve in-kernel; zeros when omitted.
+
+    geo_idx maps each page element to the flattened geometry source
+    concat(nodes_self[:, :6].ravel(), tri_geo.ravel()), tri_geo [T,9]
+    being v0, e1, e2 of each tris16 row, and holds -1 on topology
+    elements (refit_lane_pages)."""
     nodes_i = np.asarray(nodes_i)
     nodes_self = np.asarray(nodes_self, np.float32)
     tris16 = np.asarray(tris16, np.float32)
@@ -70,8 +78,9 @@ def build_lane_tree(nodes_i, nodes_self, tris16, wtri_rnode=None, wtri_tri=None)
 
     total = int(size[0])
     # ---- entry start + skip per node, top-down (BFS)
-    start = np.zeros(nodes_i.shape[0], np.int64)
-    skip = np.zeros(nodes_i.shape[0], np.int64)
+    nn = nodes_i.shape[0]
+    start = np.zeros(nn, np.int64)
+    skip = np.zeros(nn, np.int64)
     start[0], skip[0] = 0, total
     order = [0]
     for n in order:
@@ -86,6 +95,7 @@ def build_lane_tree(nodes_i, nodes_self, tris16, wtri_rnode=None, wtri_tri=None)
         order.append(r)
 
     ent = np.zeros((total, FIELDS), np.float32)
+    geo = np.full((total, FIELDS), -1, np.int64)
 
     # internal entries
     ints = np.asarray([n for n in order if not is_leaf[n]], np.int64)
@@ -93,6 +103,8 @@ def build_lane_tree(nodes_i, nodes_self, tris16, wtri_rnode=None, wtri_tri=None)
         s = start[ints]
         ent[s, 0:6] = nodes_self[ints, 0:6]
         ent[s, 9] = skip[ints].astype(np.float32)
+        # geometry source rows: nodes_self[n, 0:6] lives at n*6 .. n*6+5
+        geo[s, 0:6] = ints[:, None] * 6 + np.arange(6)[None, :]
 
     # triangle entries (vectorized over all leaf runs)
     leaves = np.asarray([n for n in order if is_leaf[n]], np.int64)
@@ -116,6 +128,7 @@ def build_lane_tree(nodes_i, nodes_self, tris16, wtri_rnode=None, wtri_tri=None)
         if wtri_rnode is not None:
             ent[s, 12] = np.asarray(wtri_rnode)[rows].astype(np.float32)
             ent[s, 13] = np.asarray(wtri_tri)[rows].astype(np.float32)
+        geo[s, 0:9] = nn * 6 + rows[:, None] * 9 + np.arange(9)[None, :]
 
     # pad to whole pages with never-hit internal entries
     pad = (-total) % PAGE
@@ -125,15 +138,30 @@ def build_lane_tree(nodes_i, nodes_self, tris16, wtri_rnode=None, wtri_tri=None)
         pe[:, 3:6] = -_BIG
         pe[:, 9] = total + pad
         ent = np.concatenate([ent, pe], axis=0)
+        geo = np.concatenate([geo, np.full((pad, FIELDS), -1, np.int64)], axis=0)
 
     p = ent.shape[0] // PAGE
     pages = ent.reshape(p, PAGE, FIELDS).transpose(0, 2, 1).reshape(p * FIELDS, PAGE)
-    return np.ascontiguousarray(pages)
+    geo_idx = geo.reshape(p, PAGE, FIELDS).transpose(0, 2, 1).reshape(p * FIELDS, PAGE)
+    return np.ascontiguousarray(pages), geo_idx.astype(np.int32)
+
+
+def refit_lane_pages(pages, geo_idx, nodes_self, tris16):
+    """Page values rebuilt from refitted boxes and triangles (tensors;
+    topology static): every element whose geo_idx is >= 0 takes its
+    geometry source, the others keep their value. Elementwise in the
+    layout, so the entry-major lane_entries refit with lane_entries(geo_idx)."""
+    v0 = tris16[:, 0:3]
+    tri_geo = torch.cat([v0, tris16[:, 3:6] - v0, tris16[:, 6:9] - v0], dim=1)
+    src = torch.cat([nodes_self[:, 0:6].reshape(-1), tri_geo.reshape(-1)])
+    gathered = src[geo_idx.clamp(min=0).long()]
+    return torch.where(geo_idx >= 0, gathered, pages)
 
 
 def lane_entries(pages) -> np.ndarray:
-    """Page-major field-major pages [P*16,128] -> entry-major [P*128,16]."""
-    pages = np.asarray(pages, np.float32)
+    """Page-major field-major pages [P*16,128] -> entry-major [P*128,16]
+    (f32 pages, or the int32 geo_idx of the same layout)."""
+    pages = np.asarray(pages)
     p = pages.shape[0] // FIELDS
     return np.ascontiguousarray(pages.reshape(p, FIELDS, PAGE).transpose(0, 2, 1).reshape(p * PAGE, FIELDS))
 

@@ -17,10 +17,18 @@ the int32 sidecar for v7, the v5 walk's stack need for v5, the split
 BVH4 tables for packet4, the binary tree's own boxes and meta rows for
 wavefront). A kernel or walk runs only because the selection names it.
 
-Not ported yet: animation, scene-change sync (dirty flags, refit; a
-variant switch rebuilds the device scene), the preview renderer,
-denoising, TAA upscaling, the silhouette overlay, picking and the
-adaptive sampler (ROADMAP.md). The TPU fallback ladder
+Scene edits go through sync_scene_changes, driven by the Scene's dirty
+flags as in the reference: a topology or visibility change rebuilds; a
+node, render-node or vertex change (an animation step, a material-variant
+switch) refits on the device (_refit_device: skin and morph, the world
+triangles, every table family's boxes and the hit rows, with no host
+readback); a material or light change re-packs the material tables. With
+animate on, on_render advances the current clip by anim_speed / 60 s a
+frame first.
+
+Not ported yet: alpha (A5), the preview renderer, denoising, TAA
+upscaling, the silhouette overlay, picking and the adaptive sampler
+(ROADMAP.md). The TPU fallback ladder
 (VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation) has no role here,
 and the reference's downgrade to the wavefront after kernel faults
 (_traversal_fallback) is deliberately not ported: it would hide a faulty
@@ -29,21 +37,26 @@ kernel behind another traversal.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .convert import add_kernel_tables_to_device, bvh_to_device, scene_to_device
+from .convert import (add_kernel_tables_to_device, bvh_to_device, refit_device_bvh,
+                      refit_tables_to_device, scene_to_device)
 from .device import resolve_device
-from .models import Scene
+from .models import DirtyFlags, Scene
+from .models.animation import compute_joint_matrices, update_animation
 from .models.materials import detect_scene_features
 from .models.variants import apply_variant, parse_variants
+from .ops.animation import bake_world_tris, morph_vertices, skin_vertices
 from .ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from .ops.camera import pixel_angle
-from .ops.flat import build_scene_flat
+from .ops.flat import build_scene_flat, refresh_materials
 from .ops.hdr import load_hdr_environment
+from .ops.hitstate import bake_hit_attrs
 from .ops.pathtrace import RenderConfig, render_frame_flat
 from .ops.sky import SkyEnv, SkyParams
 from .ops.tonemap import tonemap
@@ -106,6 +119,9 @@ class GltfRenderer:
         self.aperture = 0.0
         self.focal_distance = 0.0
         self.background = None  # (r,g,b) solid backplate or None
+        self.animate = False
+        self.anim_speed = 1.0  # playback rate multiplier
+        self._anim_tables_cache = None
 
     # -------------------------------------------------------------- scene
     def create_scene(self, path) -> None:
@@ -129,14 +145,12 @@ class GltfRenderer:
 
     def set_variant(self, index: int) -> int:
         """Apply a material variant; returns the number of primitives
-        switched. Without scene-change sync (ROADMAP A6) a switch rebuilds
-        the device scene and restarts accumulation: the image is the
-        reference's of the switched scene as loaded (the reference's own
-        switch refits on its device and rounds the hit rows apart;
-        ROADMAP C)."""
+        switched. The switch marks RENDER_NODES | MATERIALS, so
+        sync_scene_changes refits on the device and re-packs the materials
+        (the reference's sync skips the materials there: ROADMAP C)."""
         n = apply_variant(self.scene, index)
         if n:
-            self.rebuild_device_scene()
+            self.sync_scene_changes()
         return n
 
     def create_hdr(self, path) -> None:
@@ -150,17 +164,152 @@ class GltfRenderer:
         """Re-parse the model, rebuild the host tables and their device
         mirrors."""
         self.scene.parse_scene()
+        self._build_device_scene()
+        self._anim_tables_cache = None
+        self.scene.clear_dirty_flags()
+        self.reset_frame()
+
+    def _build_device_scene(self) -> None:
+        """Host tables and BVH from the parsed scene, and their device mirrors."""
         self.flat = build_scene_flat(self.scene)
         self.bvh = build_world_bvh(self.flat)
         self.dev_scene = scene_to_device(self.flat, self.device)
         self.dev_bvh = bvh_to_device(self.bvh, self.device)
         self._sync_kernel_tables(self._config())
+
+    def sync_scene_changes(self) -> bool:
+        """Apply the scene's dirty flags to the device mirrors (reference
+        sync_scene_changes, renderer.py:247). Returns True if anything
+        changed. A topology or visibility change rebuilds. A node,
+        render-node or vertex change refits on the device
+        (_refit_device), or rebuilds when the render-node count or
+        visibility moved. A material or light change re-packs the material
+        and light tables; unlike the reference, it does so on the refit
+        path too (a variant switch marks both), and the render nodes'
+        material ids follow."""
+        df = self.scene.get_dirty_flags()
+        if df == DirtyFlags.NONE:
+            return False
+        if df & (DirtyFlags.PRIMITIVES_CHANGED | DirtyFlags.TANGENTS | DirtyFlags.VISIBILITY):
+            self.rebuild_device_scene()
+            return True
+        if df & (DirtyFlags.NODE_TRANSFORMS | DirtyFlags.RENDER_NODES | DirtyFlags.VERTICES):
+            if len(self.scene.model.nodes) >= 512:
+                self.scene.update_world_matrices_levels()
+            else:
+                self.scene.update_world_matrices_serial()
+            self.scene.refresh_render_node_matrices()
+            if not self._refit_device():
+                self._build_device_scene()
+        if df & (DirtyFlags.MATERIALS | DirtyFlags.LIGHTS):
+            # alpha classes are not built (ROADMAP A5): an alpha material raises at the next
+            # frame, so no classification can move here
+            self.flat = dataclasses.replace(
+                refresh_materials(self.flat, self.scene),
+                rn_material=np.array([max(rn.material_id, 0) for rn in self.scene.render_nodes], np.int32))
+            self.dev_scene = scene_to_device(self.flat, self.device)
         self.scene.clear_dirty_flags()
         self.reset_frame()
+        return True
+
+    def _anim_tables(self) -> dict:
+        """Device-resident animation inputs, built once per device scene
+        (reference _anim_tables, renderer.py:308): {render node index: {v0,
+        nv, pos0, deltas, joints0, weights0}} for every skinned or morphed
+        render node, so that an animated frame decodes no primitive."""
+        if self._anim_tables_cache is not None:
+            return self._anim_tables_cache
+        from .models.geometry import extract_primitive
+
+        scene, dev = self.scene, self.device
+
+        def up(a, dtype):
+            return None if a is None else torch.tensor(np.asarray(a, dtype), device=dev)
+
+        tables = {}
+        for i, rn in enumerate(scene.render_nodes):
+            node = scene.model.nodes[rn.ref_node_id] if rn.ref_node_id >= 0 else {}
+            if rn.skin_id < 0 and node.get("weights") is None:
+                continue
+            rp = scene.render_primitives[rn.render_prim_id]
+            pd = extract_primitive(scene.model, rp.primitive(scene.model))
+            deltas = None
+            if pd.morph_targets:
+                deltas = np.stack([t.get("POSITION", np.zeros_like(pd.positions)) for t in pd.morph_targets])
+            tables[i] = {
+                "v0": int(self.flat.prim_first_vtx[rn.render_prim_id]),
+                "nv": int(self.flat.prim_vtx_count[rn.render_prim_id]),
+                "pos0": up(pd.positions, np.float32),
+                "deltas": up(deltas, np.float32),
+                "joints0": up(pd.joints0, np.int64),
+                "weights0": up(pd.weights0, np.float32),
+            }
+        self._anim_tables_cache = tables
+        return tables
+
+    def _refit_device(self) -> bool:
+        """Transform, skin and morph update on the device (reference
+        _refit_device, renderer.py:347): deform the vertices, rebuild the
+        instance matrices (w2o by f64 inverse on the host), re-bake the world
+        triangles, refit every table family present and re-bake the hit
+        rows. No host readback. Returns False, for a rebuild, when the
+        render-node count or visibility changed (the flattened BVH bakes
+        the visible instance set)."""
+        if self.flat is None or self.bvh is None:
+            return False
+        scene = self.scene
+        vis_now = np.array([1 if rn.visible else 0 for rn in scene.render_nodes], np.int32)
+        if len(scene.render_nodes) != self.flat.rn_o2w.shape[0] or not np.array_equal(
+                vis_now, np.asarray(self.flat.rn_visible)):
+            return False
+        n = len(scene.render_nodes)
+        o2w = np.stack([rn.world_matrix for rn in scene.render_nodes]).astype(np.float32)
+        w2o = np.linalg.inv(o2w.astype(np.float64)).astype(np.float32)
+        rn_packed = np.concatenate([o2w.reshape(n, 16), w2o.reshape(n, 16)], axis=1)
+        dev = self.dev_bvh
+        if dev.refit is None:
+            dev.refit = refit_tables_to_device(self.flat, self.bvh, self.device)
+        ref = dev.refit
+
+        def dev_f32(a):
+            return torch.tensor(np.asarray(a, np.float32), device=self.device)
+
+        # skin / morph from the tables built once; the per-frame inputs are the small joint
+        # matrices and morph weights. Normals carry over from the last refit, as in the reference.
+        tables = self._anim_tables()
+        if tables:
+            vtx_pos, vtx_nrm = ref.vtx_pos.clone(), ref.vtx_nrm.clone()
+            for rn_idx, tab in tables.items():
+                rn = scene.render_nodes[rn_idx]
+                node = scene.model.nodes[rn.ref_node_id] if rn.ref_node_id >= 0 else {}
+                weights = node.get("weights")
+                v0, nv = tab["v0"], tab["nv"]
+                pos, nrm = tab["pos0"], vtx_nrm[v0:v0 + nv]
+                if weights is not None and tab["deltas"] is not None:
+                    pos = morph_vertices(pos, tab["deltas"], dev_f32(weights))
+                if rn.skin_id >= 0 and tab["joints0"] is not None:
+                    jm = compute_joint_matrices(scene, rn.skin_id, scene.world_matrices[rn.ref_node_id])
+                    pos, nrm = skin_vertices(pos, nrm, tab["joints0"], tab["weights0"], dev_f32(jm))
+                vtx_pos[v0:v0 + nv] = pos
+                vtx_nrm[v0:v0 + nv] = nrm
+            ref.vtx_pos, ref.vtx_nrm = vtx_pos, vtx_nrm
+            ref.vtx_packed = torch.cat([vtx_pos, vtx_nrm, ref.vtx_packed[:, 6:]], dim=1)
+
+        tris = bake_world_tris(ref.vtx_pos, ref.tri_idx, dev_f32(o2w), ref.wtri_rnode, ref.wtri_src_tri,
+                               ref.wtri_bary)
+        refit_device_bvh(dev, tris)
+        dev.hit_attr = bake_hit_attrs(ref.vtx_packed, ref.tri_idx, dev_f32(rn_packed), ref.attr_rnode,
+                                      ref.attr_tri, ref.attr_has_uv, narrow=ref.narrow,
+                                      attr_bary=ref.attr_bary)
+        # the host mirror keeps the instance matrices; the deformed vertices stay on the device
+        self.flat = dataclasses.replace(self.flat, rn_o2w=o2w, rn_w2o=w2o, rn_packed=rn_packed)
+        return True
 
     def _sync_kernel_tables(self, cfg: RenderConfig) -> None:
         """Build (host) and upload (device) the tables the selected traversal
-        reads and the scene lacks; tables of an earlier selection stay."""
+        reads and the scene lacks; tables of an earlier selection stay. A
+        table built after a device refit is refitted on upload
+        (convert.add_kernel_tables_to_device)."""
         need = cfg.kernel_tables() - {"bvh4"}  # nodes4_fi is always built
         if need:
             add_kernel_tables(self.bvh, need)
@@ -226,8 +375,20 @@ class GltfRenderer:
             return self.hdr
         return SkyEnv.from_arrays(self.sky_params.as_arrays(), self.device)
 
+    def step_animation(self) -> None:
+        """With animate on, advance the current clip by anim_speed / 60 s
+        and apply it to the model's nodes (marking them dirty)."""
+        if self.animate and self.scene.animations:
+            info = self.scene.animations[self.scene.current_animation]
+            info.increment_time(self.anim_speed / 60.0)
+            update_animation(self.scene, self.scene.current_animation)
+
     def on_render(self) -> dict:
-        """Render one frame; returns aux (first-hit captures, ray count)."""
+        """Render one frame; returns aux (first-hit captures, ray count).
+        With animate on, the current clip first advances anim_speed / 60 s;
+        then the scene's edits are synced."""
+        self.step_animation()
+        self.sync_scene_changes()
         cfg = self._config()
         cfg.check_supported()
         self._sync_kernel_tables(cfg)

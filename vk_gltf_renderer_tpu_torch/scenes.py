@@ -23,6 +23,11 @@ tracer shades (scattering, dispersive and thick glass, clearcoat,
 iridescence, sheen, anisotropy, diffuse transmission with specular, and
 unlit) under those lights.
 
+make_brainstem writes the same files as tools/baseline_standins.make_brainstem
+(the BrainStem role of BASELINE config 5): a 16-sided column of 64
+triangles skinned to two joints, and a looping 2 s rotation clip on the
+top joint.
+
 write_large_glb writes the same bytes as tools/large_scene_demo.write_large_glb:
 an instanced grid of displaced terrain patches with one untextured
 metallic-roughness material (1,059,968 world triangles at the default
@@ -308,6 +313,86 @@ def make_materials_standin(out_dir) -> str:
     sc.parse_scene()
     p = os.path.join(out_dir, "materials.gltf")
     sc.save(p)
+    return p
+
+
+def make_brainstem(out_dir) -> str:
+    """A 2-bone skinned column and a looping rotation clip (reference
+    tools/baseline_standins.make_brainstem); writes brainstem.gltf and
+    brainstem.bin into out_dir and returns the .gltf path."""
+    h, r, seg = 2.0, 0.4, 16
+    ang = np.linspace(0, 2 * np.pi, seg, endpoint=False)
+    ring = np.stack([np.cos(ang) * r, np.zeros(seg), np.sin(ang) * r], axis=1)
+    pos = np.concatenate([ring, ring + [0, h / 2, 0], ring + [0, h, 0]]).astype(np.float32)
+    idx = []
+    for lvl in range(2):
+        b0, b1 = lvl * seg, (lvl + 1) * seg
+        for i in range(seg):
+            j = (i + 1) % seg
+            idx += [b0 + i, b0 + j, b1 + i, b0 + j, b1 + j, b1 + i]
+    idx = np.asarray(idx, np.uint16)
+    w_top = np.clip(pos[:, 1] / h, 0, 1)
+    joints = np.zeros((pos.shape[0], 4), np.uint16)
+    joints[:, 1] = 1
+    weights = np.zeros((pos.shape[0], 4), np.float32)
+    weights[:, 0] = 1 - w_top
+    weights[:, 1] = w_top
+    ibm = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    ibm[1, 1, 3] = -h  # joint 1 binds at the top
+    ibm = ibm.transpose(0, 2, 1).copy()  # column-major on disk
+    times = np.array([0.0, 1.0, 2.0], np.float32)
+    s2 = float(np.sqrt(0.5))
+    rots = np.array([[0, 0, 0, 1], [0, 0, s2, s2], [0, 0, 0, 1]], np.float32)
+
+    buf = b"".join(a.tobytes() for a in (pos, idx, joints, weights, ibm, times, rots))
+    views, accs, off = [], [], 0
+
+    def add(arr, ctype, atype, **kw):
+        nonlocal off
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": arr.nbytes})
+        accs.append({"bufferView": len(views) - 1, "componentType": ctype,
+                     "count": arr.shape[0], "type": atype, **kw})
+        off += arr.nbytes
+        return len(accs) - 1
+
+    a_p = add(pos, 5126, "VEC3", min=pos.min(0).tolist(), max=pos.max(0).tolist())
+    a_i = add(idx.reshape(-1, 1), 5123, "SCALAR")
+    a_j = add(joints, 5123, "VEC4")
+    a_w = add(weights, 5126, "VEC4")
+    a_m = add(ibm, 5126, "MAT4")
+    a_t = add(times.reshape(-1, 1), 5126, "SCALAR", min=[0.0], max=[2.0])
+    a_r = add(rots, 5126, "VEC4")
+
+    gltf = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1]}],
+        "nodes": [
+            {"name": "column", "mesh": 0, "skin": 0},
+            {"name": "j_base", "children": [2]},
+            {"name": "j_top", "translation": [0, h, 0]},
+        ],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": a_p, "JOINTS_0": a_j, "WEIGHTS_0": a_w},
+            "indices": a_i, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [0.75, 0.6, 0.5, 1.0], "roughnessFactor": 0.6,
+            "metallicFactor": 0.0}, "doubleSided": True}],
+        "skins": [{"joints": [1, 2], "inverseBindMatrices": a_m}],
+        "animations": [{
+            "name": "sway",
+            "samplers": [{"input": a_t, "output": a_r, "interpolation": "LINEAR"}],
+            "channels": [{"sampler": 0, "target": {"node": 2, "path": "rotation"}}],
+        }],
+        "accessors": accs,
+        "bufferViews": views,
+        "buffers": [{"uri": "brainstem.bin", "byteLength": len(buf)}],
+    }
+    with open(os.path.join(out_dir, "brainstem.bin"), "wb") as f:
+        f.write(buf)
+    p = os.path.join(out_dir, "brainstem.gltf")
+    with open(p, "w") as f:
+        json.dump(gltf, f)
     return p
 
 

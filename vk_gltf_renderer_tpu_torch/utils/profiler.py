@@ -13,14 +13,18 @@ the kernel intervals over the profiled window's wall clock), and the 15
 kernels with the most device time under the names the profiler gives
 them. The profiler's host-side cost per operation lengthens the window, so
 the busy share it reads is a lower bound of the unprofiled frame's.
+profile_refit does the same for an animated renderer's animation step and
+scene sync alone (the device refit), one step a frame.
 
-    python -m vk_gltf_renderer_tpu_torch.utils.profiler --scene helmet|terrain|game|suite|materials \
-        [--frames 3] [--size W H]
+    python -m vk_gltf_renderer_tpu_torch.utils.profiler \
+        --scene helmet|terrain|game|suite|materials|brainstem [--frames 3] [--size W H]
 
 renders the scene at the bench recipe (1920x1080, spp 1, depth 5, the
 bench entry's HDR; bench_impl.scene_file, or scenes.make_<scene>_standin
 for the material stand-ins, the suite and the materials scene under the
-sky) on the card and prints the table.
+sky) on the card and prints the table. brainstem is BASELINE config 5:
+scenes.make_brainstem animated under the sky at 1024x1024, profiled
+twice, whole frames and then the refit alone.
 """
 
 from __future__ import annotations
@@ -174,17 +178,32 @@ def summarize_kernels(kernels, window, frames) -> dict:
 def profile_frames(renderer, frames=3) -> dict:
     """Profile `frames` frames of a renderer on the card (after one warm-up
     frame): the summary of summarize_kernels, plus the card's name."""
+    return _profile(renderer, renderer.on_render, frames)
+
+
+def profile_refit(renderer, frames=3) -> dict:
+    """profile_frames of the animation step and scene sync alone
+    (GltfRenderer.step_animation + sync_scene_changes: the device refit of
+    an animated scene), one of each a frame."""
+    def step():
+        renderer.step_animation()
+        renderer.sync_scene_changes()
+
+    return _profile(renderer, step, frames)
+
+
+def _profile(renderer, step, frames) -> dict:
     dev = renderer.device
     if dev.type != "cuda":
-        raise ValueError(f"profile_frames measures the card; the renderer is on {dev}")
+        raise ValueError(f"the profiler measures the card; the renderer is on {dev}")
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    renderer.on_render()
+    step()
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function(_WINDOW):
             for _ in range(frames):
-                renderer.on_render()
+                step()
             torch.cuda.synchronize(dev)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
@@ -221,21 +240,32 @@ def main(argv=None) -> int:
     from ..renderer import GltfRenderer
 
     p = argparse.ArgumentParser(prog="vk_gltf_renderer_tpu_torch.utils.profiler")
-    p.add_argument("--scene", choices=("helmet", "terrain", "game", "suite", "materials"), required=True)
+    p.add_argument("--scene", choices=("helmet", "terrain", "game", "suite", "materials", "brainstem"),
+                   required=True)
     p.add_argument("--frames", type=int, default=3)
-    p.add_argument("--size", type=int, nargs=2, default=[1920, 1080], metavar=("W", "H"))
+    p.add_argument("--size", type=int, nargs=2, default=None, metavar=("W", "H"),
+                   help="frame size (default 1920 1080; brainstem 1024 1024)")
     args = p.parse_args(argv)
+    size = args.size or ([1024, 1024] if args.scene == "brainstem" else [1920, 1080])
+    title = f"{args.scene} {size[0]}x{size[1]}: "
     with tempfile.TemporaryDirectory() as d:
-        r = GltfRenderer(args.size[0], args.size[1], spp=SPP, max_depth=DEPTH, device="cuda")
+        r = GltfRenderer(size[0], size[1], spp=SPP, max_depth=DEPTH, device="cuda")
         if args.scene in ("helmet", "terrain"):
             r.create_scene(scene_file(args.scene, d))
+        elif args.scene == "brainstem":
+            r.create_scene(scenes.make_brainstem(d))
+            r.animate = True
         else:
             r.create_scene(getattr(scenes, f"make_{args.scene}_standin")(d))
-        if args.scene not in ("suite", "materials"):  # those two render under the sky
+        if args.scene not in ("suite", "materials", "brainstem"):  # those render under the sky
             r.create_hdr(hdr_file(d))
         summary = profile_frames(r, args.frames)
-    print(format_table(summary, f"{args.scene} {args.size[0]}x{args.size[1]}: "))
-    print(json.dumps(summary))
+        print(format_table(summary, title))
+        print(json.dumps(summary))
+        if r.animate:
+            refit = profile_refit(r, args.frames)
+            print(format_table(refit, f"{title}refit (step_animation + sync_scene_changes), "))
+            print(json.dumps(refit))
     return 0
 
 
