@@ -32,8 +32,10 @@ Phases (each raises on failure; nothing is caught):
      counters are zeroed just before and must have moved;
   5. correctness: a 96x64 frame on the card (kernels) against the same
      frame from the port's plain CPU path, which tests/test_torch_frame.py
-     holds against the JAX reference, for the helmet and for each scene
-     of phase 15 (game, suite, lit game, materials);
+     holds against the JAX reference, for the helmet, for each scene of
+     phase 15 (game, suite, lit game, materials), for the foliage stand-in
+     of phase 17 at 1,024 cards (its kernels meet the full-size tables in
+     phase 17) and for the helmet over the shadow-catcher plane;
   6. large-scene kernels: the 1,059,968-triangle terrain scene
      (scenes.write_large_glb) with every kernel table built (shapes, bytes,
      build seconds and stack needs printed); on ~1M rays (camera rays of
@@ -181,6 +183,35 @@ Phases (each raises on failure; nothing is caught):
      default's, and traverse_bvh4's hits on the refitted tree against the
      fresh build of the moved scene (ids equal on >= 0.999 of the probe
      rays, the rest within 1e-5 in t but for 1e-4 of the rays).
+ 17. alpha and the infinite plane: (a) scenes.make_foliage_standin at
+     16,384 cards under the HDR at 1920x1080, spp 1, depth 5: the host
+     classification's seconds (ops/omm.py, whole triangles and level-2
+     cells; computed once a run and handed to every later renderer of the
+     file), the rows culled and split, the virtual
+     rows, world rows, table MB and each family's stack need against its
+     kernel's capacity (all tables built); (b) one 1080p frame with
+     ops.intersect.traverse_bvh4 recorded, its launches sorted into bounce
+     traces, alpha re-trace rounds (the rejecting lanes, tmin 0) and
+     shadow-march rounds (tmin 1e-4): each re-trace and march launch timed
+     through traverse_bvh4 on all its lanes, and a fixed subset of up to
+     8,192 lanes of each, all the launches of a kind in one call, held
+     against the plain walk (t, rnode, tri bit for bit, u and v on hits;
+     the walk's cost is its step count, so one call a kind), with each
+     kind's bound; (c) every traversal kernel against its plain walk on
+     the culled and split tables (phase 16c's checks on 65,536 of the
+     probe rays); (d) 1080p frames under each acceleration level (subtri:
+     2 warm-up and 12 timed; whole and none: 2 and 4, a depth cut for the
+     run's time; one renderer each, frame indices from 0), ms/frame,
+     Mrays/s, traverse_bvh4 launches a frame (the frame's profile is
+     `python -m vk_gltf_renderer_tpu_torch.utils.profiler --scene
+     foliage`), and the share of pixels within 2e-3 of subtri's image after as many
+     frames (subtri's image kept after its 6th; printed, not required:
+     culling shifts which alpha round decides a BLEND surface, and rays
+     that run out of rounds differ between levels, ROADMAP C); (e) the
+     leaf material set from MASK to
+     OPAQUE through sync_scene_changes: one host rebuild, timed, every
+     source triangle back in the world; (f) headless.main on the helmet at
+     1080p over the shadow-catcher plane at y -1.05 (6 frames, 5 timed).
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -1076,19 +1107,32 @@ def material_scenes(tmp):
     return out
 
 
+def _plane_catcher(r):
+    r.use_infinite_plane, r.plane_height, r.plane_shadow_catcher = True, PLANE_HEIGHT, True
+
+
 def phase_correctness(device, tmp):
     """Kernels on the card vs the plain CPU path on a small frame of the
-    helmet and of each material scene."""
+    helmet, of each material scene, of the foliage stand-in and of the
+    helmet over the shadow-catcher plane."""
     from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
 
     hdr = os.path.join(tmp, "sky.hdr")
-    cases = {"helmet": (os.path.join(tmp, "helmet.gltf"), hdr)}
-    cases.update({label: (path, env) for label, (path, env, _) in material_scenes(tmp).items()})
+    helmet = os.path.join(tmp, "helmet.gltf")
+    cases = {"helmet": (helmet, hdr, None)}
+    cases.update({label: (path, env, None) for label, (path, env, _) in material_scenes(tmp).items()})
+    cases["foliage"] = (foliage_scene(tmp, CHECK_CARDS), hdr, None)
+    cases["plane_helmet"] = (helmet, hdr, _plane_catcher)
     out = {}
-    for label, (scene, env) in cases.items():
+    for label, (scene, env, setup) in cases.items():
         res = {}
         for dev in (device, "cpu"):
-            r = GltfRenderer(96, 64, spp=1, max_depth=DEPTH, device=dev)
+            if label == "foliage":
+                r = foliage_renderer(scene, 96, 64, dev)
+            else:
+                r = GltfRenderer(96, 64, spp=1, max_depth=DEPTH, device=dev)
+            if setup is not None:
+                setup(r)
             r.create_scene(scene)
             if env is not None:
                 r.create_hdr(env)
@@ -2034,7 +2078,7 @@ def phase_animation(device, tmp, hdr, smi, terrain):
     g = torch.Generator(device="cpu").manual_seed(99)
     shadow_tmax = (torch.rand(n, generator=g) * float((bvh.scene_hi - bvh.scene_lo).norm())).to(device)
     sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(5))[:SUBSET].to(device)
-    out["refit_kernels"] = _refit_kernel_checks(bvh, comps, tmin, far, shadow_tmax, sub)
+    out["refit_kernels"] = _kernel_checks("[anim] refitted terrain", bvh, comps, tmin, far, shadow_tmax, sub)
 
     # every selection's frame 0 on the refitted tables against the default's
     firsts = {}
@@ -2081,10 +2125,11 @@ def phase_animation(device, tmp, hdr, smi, terrain):
     return out
 
 
-def _refit_kernel_checks(bvh, comps, tmin, far, shadow_tmax, sub):
-    """Every traversal kernel on the refitted tables against its plain walk
-    on the rays `sub`: closest-hit t bit for bit, the rays whose (rnode,
-    tri) ids differ (equal-t ties) counted, any-hit occlusion equal."""
+def _kernel_checks(tag, bvh, comps, tmin, far, shadow_tmax, sub):
+    """Every traversal kernel on bvh's tables (every family built) against
+    its plain walk on the rays `sub`: closest-hit t bit for bit, the rays
+    whose (rnode, tri) ids differ (equal-t ties) counted, any-hit occlusion
+    equal, nothing dropped. tag heads the log lines."""
     from vk_gltf_renderer_tpu_torch.ops import traverse as tt
 
     mods = _traversal_modules()
@@ -2099,7 +2144,7 @@ def _refit_kernel_checks(bvh, comps, tmin, far, shadow_tmax, sub):
         lambda *a, anyhit: tt.traverse_bvh2_split_plain(bvh.nodes_f, bvh.nodes_i, bvh.tris, *a))
     names = ("traverse_bvh4", "traverse_bvh4_sidecar", "traverse_bvh2", "traverse_bvh16", "traverse_bvh4_multipop",
              "traverse_bvh4_leafqueue", "traverse_lanes", "traverse_bvh4_split", "traverse_bvh2_split")
-    require(set(names) <= set(runs), f"refitted tables missing for {sorted(set(names) - set(runs))}")
+    require(set(names) <= set(runs), f"{tag}: tables missing for {sorted(set(names) - set(runs))}")
     out = {}
     for name in names:
         kern, plain = runs[name][0], runs[name][1]
@@ -2111,19 +2156,296 @@ def _refit_kernel_checks(bvh, comps, tmin, far, shadow_tmax, sub):
             args = tuple(x[sub].contiguous() for x in (*comps, tmin, tmax))
             k = kern(*args, anyhit=anyhit)
             p = plain(*args, anyhit=anyhit)
-            require(len(p) < 6 or p[5] == 0, f"{name}: the plain walk dropped {p[5] if len(p) > 5 else 0}")
+            require(len(p) < 6 or p[5] == 0, f"{tag} {name}: the plain walk dropped {p[5] if len(p) > 5 else 0}")
             if anyhit:
-                require(torch.equal(k[2] >= 0, p[2] >= 0), f"{name}: any-hit occlusion differs on the refit")
+                require(torch.equal(k[2] >= 0, p[2] >= 0), f"{tag} {name}: any-hit occlusion differs")
                 res["occluded"] = int((k[2] >= 0).sum())
                 continue
-            require(same_bits(k[0], p[0]), f"{name}: closest-hit t differs from the plain walk on the refit "
+            require(same_bits(k[0], p[0]), f"{tag} {name}: closest-hit t differs from the plain walk "
                     f"on {int((k[0].view(torch.int32) != p[0].view(torch.int32)).sum())} rays")
             # with t equal in every bit, rays whose ids differ hit two triangles at one t
             res.update(hits=int((p[2] >= 0).sum()), id_ties=int(((k[1] != p[1]) | (k[2] != p[2])).sum()))
-        require(mods[name].OVERFLOW.total() == 0, f"{name}: dropped work on the refit")
-        log(f"[anim] refitted terrain, {name} vs its plain walk on {sub.shape[0]} rays: closest-hit t bit for bit "
+        require(mods[name].OVERFLOW.total() == 0, f"{tag} {name}: dropped work")
+        log(f"{tag}, {name} vs its plain walk on {sub.shape[0]} rays: closest-hit t bit for bit "
             f"({res['hits']} hits, {res['id_ties']} equal-t id ties), occlusion equal ({res.get('occluded', '-')})")
         out[name] = res
+    return out
+
+
+FOLIAGE_CARDS = 16384  # scenes.make_foliage_standin at its full size: 32,768 source triangles
+CHECK_CARDS = 1024  # phase 5's card-against-CPU foliage: the CPU build and frame of the full size take seconds
+FOLIAGE_TIMED = {"subtri": 12, "whole": 4, "none": 4}  # timed 1080p foliage frames by acceleration level
+LEVELS = ("subtri", "whole", "none")  # opacity classes per cell, per triangle, none (GltfRenderer._alpha_classes)
+REPLAY_WALKED = 8192  # lanes of each replayed alpha launch that the plain walk takes
+PLANE_HEIGHT = -1.05  # the helmet stand-in's shadow-catcher plane: between its plate (y -1.1) and its sphere
+_CLASSES = {}  # foliage scene path -> (tri_class, subtri_cells, {seconds}): classified once a run
+
+
+def foliage_scene(tmp, cards=FOLIAGE_CARDS):
+    """The foliage stand-in (cards cards, seed 0), written once into tmp/foliage_<cards>."""
+    from vk_gltf_renderer_tpu_torch.scenes import make_foliage_standin
+
+    path = os.path.join(tmp, f"foliage_{cards}", "foliage.gltf")
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        make_foliage_standin(os.path.dirname(path), cards=cards)
+    return path
+
+
+def foliage_renderer(path, w, h, device, level="subtri"):
+    """A GltfRenderer for the foliage stand-in at path whose opacity classes
+    (ops/omm.py, on the host) are computed by its first build in this run,
+    timed, and handed to every later renderer of the same file: the classes
+    depend on the host tables only, and the subtriangle pass takes seconds.
+    level "whole" drops the cells, "none" the classes (acceleration off)."""
+    from vk_gltf_renderer_tpu_torch.ops.omm import classify_attr_alpha, classify_subtri
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    r = GltfRenderer(w, h, spp=SPP, max_depth=DEPTH, device=device)
+
+    def classes():
+        if path not in _CLASSES:
+            t0 = time.perf_counter()
+            cls = classify_attr_alpha(r.flat)
+            t1 = time.perf_counter()
+            cells = classify_subtri(r.flat, cls)
+            _CLASSES[path] = (cls, cells, {"whole_s": t1 - t0, "subtri_s": time.perf_counter() - t1})
+        cls, cells, _ = _CLASSES[path]
+        return {"subtri": (cls, cells), "whole": (cls, None), "none": (None, None)}[level]
+
+    r._alpha_classes = classes
+    return r
+
+
+def _launch_kind(rays, anyhit, n_pixels):
+    """What a recorded traverse_bvh4 launch of a frame traced: "any" (a
+    shadow test), "march" (a shadow march round, closest hit from tmin
+    1e-4), "bounce" (a bounce's closest-hit trace, every pixel's lane) or
+    "retrace" (an alpha round: the rejecting lanes only, from tmin 0)."""
+    if anyhit:
+        return "any"
+    if bool((rays[6] > 0).all()):
+        return "march"
+    return "bounce" if rays[0].shape[0] == n_pixels else "retrace"
+
+
+def phase_alpha(device, tmp, hdr, smi):
+    """Phase 17: stochastic alpha and the infinite plane (module docstring)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import headless
+    from vk_gltf_renderer_tpu_torch.models import DirtyFlags
+    from vk_gltf_renderer_tpu_torch.ops import omm
+    from vk_gltf_renderer_tpu_torch.ops import traverse as tt
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops.intersect import STACK_CAPACITY
+    from vk_gltf_renderer_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL", "VKGR_TRAVERSAL", "VKGR_OMM_SUBTRI"):
+        os.environ.pop(key, None)
+    out = {}
+    path = foliage_scene(tmp)
+    n_pixels = FRAME_W * FRAME_H
+
+    # (a) the build: classes, culled and split rows, world rows, tables and stacks
+    t0 = time.perf_counter()
+    r = foliage_renderer(path, FRAME_W, FRAME_H, device)
+    r.create_scene(path)
+    r.create_hdr(hdr)
+    build_s = time.perf_counter() - t0
+    cls, cells, secs = _CLASSES[path]
+    trans = cells == omm.ALPHA_TRANSPARENT
+    mixed = cls == omm.ALPHA_MIXED
+    split = mixed & trans.any(1) & ~trans.all(1)
+    src = int(r.flat.tri_idx.shape[0])
+    build = dict(cards=FOLIAGE_CARDS, source_tris=src, classify_whole_s=secs["whole_s"],
+                 classify_subtri_s=secs["subtri_s"], build_s=build_s,
+                 classes={name: int((cls == c).sum()) for name, c in (("opaque", omm.ALPHA_OPAQUE),
+                                                                      ("mixed", omm.ALPHA_MIXED),
+                                                                      ("transparent", omm.ALPHA_TRANSPARENT))},
+                 culled_rows=int((cls == omm.ALPHA_TRANSPARENT).sum() + (mixed & trans.all(1)).sum()),
+                 split_rows=int(split.sum()), virtual_rows=int(r.bvh.attr_rnode.shape[0] - src),
+                 world_rows={"subtri": int(r.bvh.num_world_tris)}, tables=_scene_tables(r))
+    secs_tables = _all_tables(r, device)
+    bvh = r.dev_bvh
+    need = {family: (bvh.stack_need[family], STACK_CAPACITY[family]) for family in STACK_CAPACITY}
+    build.update(stack_need=need, kernel_tables_s=secs_tables)
+    log(f"[alpha] foliage stand-in, {FOLIAGE_CARDS} cards, {src} source triangles: classes {build['classes']} in "
+        f"{secs['whole_s']:.2f} s (whole triangles) + {secs['subtri_s']:.2f} s (level-2 cells, host numpy); "
+        f"{build['culled_rows']} rows culled, {build['split_rows']} split into {build['virtual_rows']} virtual "
+        f"rows; {build['world_rows']['subtri']} world rows; create_scene + create_hdr {build_s:.1f} s; tables "
+        f"{build['tables']}; stack need / capacity {need}")
+    require(all(a <= b for a, b in need.values()), f"a foliage tree outgrows its kernel's stack: {need}")
+    require(build["virtual_rows"] > 0 and build["culled_rows"] > 0, "the foliage build culled or split nothing")
+    log(f"[time] alpha build done at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (b) one 1080p frame recorded: the re-trace rounds and the march through traverse_bvh4 and its plain walk
+    tables = (bvh.nodes4_fi, bvh.tris128, bvh.root4_code)
+    r.frame_idx = 0
+    r.reset_frame()
+    tb4.OVERFLOW.reset()
+    recorded, aux = record_launches(r, "traverse_bvh4")
+    kinds = [_launch_kind(rays, anyhit, n_pixels) for rays, anyhit in recorded]
+    per_kind = {k: kinds.count(k) for k in ("bounce", "retrace", "march", "any")}
+    log(f"[alpha] foliage 1080p frame: {len(recorded)} traverse_bvh4 launches {per_kind}, {float(aux['rays']):.0f} "
+        f"rays counted")
+    require(per_kind["retrace"] > 0 and per_kind["march"] > 0 and per_kind["any"] == 0,
+            f"the alpha frame took no re-trace or no march: {per_kind}")
+    # each launch timed on all its lanes; the plain walk takes a fixed subset of every launch of a
+    # kind in one call (its cost is the walk's step count, not its lanes), split back per launch
+    launches, subsets = [], {"retrace": [], "march": []}
+    for k, ((rays, anyhit), kind) in enumerate(zip(recorded, kinds)):
+        if kind not in subsets:
+            continue
+        n = rays[0].shape[0]
+        ms = device_ms(lambda: tb4.traverse_bvh4(*tables, *rays), 10)
+        m = min(n, REPLAY_WALKED)
+        sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(70 + k))[:m].to(device)
+        subsets[kind].append((k, tuple(a[sub].contiguous() for a in rays)))
+        launches.append(dict(kind=kind, index=k, lanes=n, live=int((rays[7] >= 0).sum()), walked=m, ms=ms))
+    replay = {}
+    for kind, subs in subsets.items():
+        sargs = tuple(torch.cat(parts) for parts in zip(*(a for _, a in subs)))
+        kern = tb4.traverse_bvh4(*tables, *sargs)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = tt.traverse_bvh4_plain(*tables, *sargs, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        require(plain[5] == 0, f"alpha {kind} launches: the plain walk dropped {plain[5]}")
+        hit = plain[2] >= 0
+        sizes = [a[0].shape[0] for _, a in subs]
+        for (k, _), *outs in zip(subs, *(x.split(sizes) for x in (*kern, *plain[:5], hit))):
+            ko, po, h = outs[:5], outs[5:10], outs[10]
+            differ = [name for name, a, b in zip(OUTPUTS, ko, po)
+                      if not (same_bits(a, b) if name in ("t", "rnode", "tri") else same_bits(a[h], b[h]))]
+            require(not differ, f"alpha {kind} launch {k}: {differ} differ from the plain walk's")
+        mine = [x for x in launches if x["kind"] == kind]
+        lanes, live, walked = (sum(x[key] for x in mine) for key in ("lanes", "live", "walked"))
+        b_ms, b_by, visits = traversal_bound(stats, 4, 128, lanes, walked, n_dead=lanes - live)
+        replay[kind] = dict(launches=len(mine), lanes=lanes, live=live, walked=walked,
+                            ms=sum(x["ms"] for x in mine), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"[alpha] {kind} launches of the frame ({len(mine)}): {lanes} lanes, {live} live; traverse_bvh4 "
+            f"{replay[kind]['ms']:.4f} ms on all of them, per launch {[round(x['ms'], 4) for x in mine]}; plain "
+            f"walk {plain_ms:.1f} ms on {walked} of them ({int(hit.sum())} hits), t, rnode, tri equal to the "
+            f"kernel's bit for bit, u and v on hits; bound {b_ms:.4f} ms ({b_by}); visits {visits}")
+    require(tb4.OVERFLOW.total() == 0, "traverse_bvh4 dropped work on the foliage tables")
+    log(f"[alpha] foliage frame replay on {smi}: re-trace rounds {replay['retrace']}, march {replay['march']}")
+    out["replay"] = dict(frame=replay, launches=[[x["kind"], x["lanes"], x["live"], x["ms"]] for x in launches],
+                         launches_fields=["kind", "lanes", "live", "ms"], launches_per_frame=per_kind)
+    del recorded
+    log(f"[time] alpha re-trace and march replay done at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (c) every traversal kernel against its plain walk on the culled and split tables
+    ro, rd = probe_rays(r, device)
+    n = ro.shape[0]
+    comps = [ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
+    tmin = torch.zeros(n, device=device)
+    far = torch.full((n,), 1e32, device=device)
+    g = torch.Generator(device="cpu").manual_seed(98)
+    shadow_tmax = (torch.rand(n, generator=g) * float((bvh.scene_hi - bvh.scene_lo).norm())).to(device)
+    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(6))[:SUBSET].to(device)
+    out["kernels"] = _kernel_checks("[alpha] foliage tables", bvh, comps, tmin, far, shadow_tmax, sub)
+    del ro, rd, comps, tmin, far, shadow_tmax
+    log(f"[time] alpha kernel checks done at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (d) 1080p frames at each acceleration level, frame indices from 0, images against subtri's
+    levels, images = {}, {}
+    calls, restore = _count_bvh4_calls()
+    try:
+        for level in LEVELS:
+            if level != "subtri":
+                r = foliage_renderer(path, FRAME_W, FRAME_H, device, level)
+                r.create_scene(path)
+                r.create_hdr(hdr)
+            for k in calls:
+                calls[k] = 0
+            tb4.COUNTER.launches = 0
+            r.frame_idx = 0
+            r.reset_frame()
+            # every level's image is compared after the same frames: subtri's is kept after as many
+            n_cmp = FOLIAGE_TIMED["whole"]
+            times, rays, _ = _render_frames(r, WARMUP, n_cmp)
+            images[level] = r.image_linear()
+            more_times, more_rays, _ = _render_frames(r, 0, FOLIAGE_TIMED[level] - n_cmp)
+            times, rays = times + more_times, rays + more_rays
+            frames = WARMUP + FOLIAGE_TIMED[level]
+            require(np.isfinite(images[level]).all() and images[level].mean() > 0.01,
+                    f"foliage {level}: image black or not finite")
+            require(tb4.COUNTER.launches == calls["closest"] + calls["any"] > 0,
+                    f"foliage {level}: traverse_bvh4 launches {tb4.COUNTER.launches} against calls {calls}")
+            levels[level] = dict(world_rows=int(r.bvh.num_world_tris), ms=1e3 * float(np.mean(times)),
+                                 min_ms=1e3 * min(times), max_ms=1e3 * max(times),
+                                 mrays=float(np.mean(rays)) / float(np.mean(times)) / 1e6, rays=float(np.mean(rays)),
+                                 traverse_bvh4_per_frame=tb4.COUNTER.launches / frames)
+            build["world_rows"][level] = levels[level]["world_rows"]
+            log(f"[alpha] foliage {level} {FRAME_W}x{FRAME_H}, {levels[level]['world_rows']} world rows: "
+                f"{levels[level]['ms']:.2f} ms/frame (min {levels[level]['min_ms']:.2f}, max "
+                f"{levels[level]['max_ms']:.2f}) over {FOLIAGE_TIMED[level]} frames, {levels[level]['rays']:.0f} "
+                f"rays/frame, {levels[level]['mrays']:.3f} Mrays/s, traverse_bvh4 "
+                f"{levels[level]['traverse_bvh4_per_frame']:.2f} launches a frame, on {smi}")
+            if level == "subtri":
+                r_subtri = r
+    finally:
+        restore()
+    for level in LEVELS[1:]:
+        diff = np.abs(images[level] - images["subtri"]).max(-1)
+        rel = np.abs(images[level].mean((0, 1)) - images["subtri"].mean((0, 1))) / images["subtri"].mean((0, 1))
+        levels[level]["pixels_within_2e-3"] = float((diff <= 2e-3).mean())
+        levels[level]["mean_rel_diff"] = float(rel.max())
+        log(f"[alpha] foliage {level} against subtri after {WARMUP + FOLIAGE_TIMED[level]} frames each: pixels "
+            f"within 2e-3 "
+            f"{levels[level]['pixels_within_2e-3']:.4f}, channel-mean rel diff {levels[level]['mean_rel_diff']:.2e}")
+    del r, images
+    r = r_subtri
+    log(f"[time] alpha level frames done at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (e) MASK -> OPAQUE: the classes move, the sync rebuilds and un-culls
+    del r._alpha_classes  # the renderer's own classification from here
+    r.scene.model.materials[1]["alphaMode"] = "OPAQUE"
+    r.scene.mark_dirty(DirtyFlags.MATERIALS)
+    builds, restore = _count_world_builds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(r.sync_scene_changes(), "the material edit left nothing to sync")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    restore()
+    rows = int(r.bvh.num_world_tris)
+    r.on_render()
+    img = r.image_linear()
+    log(f"[alpha] MASK -> OPAQUE on the leaf material: sync_scene_changes rebuilt ({builds['n']} host build) in "
+        f"{rebuild_s:.2f} s; world rows {build['world_rows']['subtri']} -> {rows} (source triangles {src})")
+    require(builds["n"] == 1 and rows == src and np.isfinite(img).all(),
+            f"the MASK -> OPAQUE edit: {builds['n']} builds, {rows} world rows of {src}")
+    out["mask_to_opaque"] = dict(rebuild_s=rebuild_s, world_rows=rows)
+    del r, r_subtri
+    log(f"[time] alpha MASK -> OPAQUE rebuild done at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (f) headless on the helmet stand-in over the shadow-catcher plane at 1080p
+    os.environ["VKGR_SETTINGS"] = os.path.join(tmp, "settings_plane.json")
+    png = os.path.join(tmp, "plane.png")
+    tb4.COUNTER.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = headless.main(["--headless", "--scenefile", os.path.join(tmp, "helmet.gltf"), "--hdrfile", hdr,
+                            "--envSystem", "1", "--size", str(FRAME_W), str(FRAME_H), "--frames", "6",
+                            "--infinitePlane", "1", "--infinitePlaneDistance", str(PLANE_HEIGHT),
+                            "--infinitePlaneShadowCatcher", "1", "--output", png, "--device", str(device)])
+    line, rec = _headless_record(buf.getvalue())
+    with open(png, "rb") as f:
+        pimg = read_png(f.read())
+    log(f"[alpha] headless helmet + shadow-catcher plane at y {PLANE_HEIGHT} rc {rc} "
+        f"({time.perf_counter() - t0:.1f} s): {line}; PNG {pimg.shape} mean {pimg.mean(axis=(0, 1)).round(2).tolist()}; "
+        f"traverse_bvh4 launches {tb4.COUNTER.launches}")
+    require(rc == 0 and rec["frames"] == 5 and rec["Mrays_per_sec"] > 0 and tb4.COUNTER.launches > 0,
+            f"plane headless record {rec}")
+    require(pimg.shape == (FRAME_H, FRAME_W, 3) and pimg.mean() > 1, "plane headless PNG is wrong or black")
+    out.update(build=build, levels=levels, plane_headless=rec)
     return out
 
 
@@ -2192,6 +2514,8 @@ def main():
         anim = phase_animation(device, tmp, hdr, smi, terrain_r)
         del terrain_r
         log(f"[time] animation and refit done at {time.perf_counter() - t_start:.1f} s")
+        alpha = phase_alpha(device, tmp, hdr, smi)
+        log(f"[time] alpha and the plane done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -2211,7 +2535,11 @@ def main():
                march_replay={label: v["frame"] for label, v in march.items()},
                march_launches={label: [[x["lanes"], x["live"], x["hits"], x["ms"], x["plain_ms"], x["bound_ms"]]
                                        for x in v["launches"]] for label, v in march.items()},
-               march_launches_fields=["lanes", "live", "hits", "ms", "plain_ms", "bound_ms"]),
+               march_launches_fields=["lanes", "live", "hits", "ms", "plain_ms", "bound_ms"],
+               alpha_launches_per_frame=alpha["replay"]["launches_per_frame"],
+               alpha_replay=alpha["replay"]["frame"],
+               alpha_launches=alpha["replay"]["launches"], alpha_launches_fields=alpha["replay"]["launches_fields"],
+               foliage=alpha["kernels"]["traverse_bvh4"]),
         _entry("gather_channels", launches["gather_channels"], kern["gather_channels"],
                headless_launches=front["launches"]["gather_channels"],
                material_launches_per_frame={label: m["per_frame"]["gather_channels"]
@@ -2284,7 +2612,9 @@ def main():
                                        f"{LARGE_WORLD_TRIS} tris + HDR",
                       "material_frames": {label: {k: v for k, v in m.items() if k != "launches"}
                                           for label, m in material.items()},
-                      "card_vs_cpu": checks, "animation": anim}))
+                      "card_vs_cpu": checks, "animation": anim,
+                      "alpha": {k: v for k, v in alpha.items() if k not in ("replay", "kernels")},
+                      "foliage_kernels": alpha["kernels"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

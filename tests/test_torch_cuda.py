@@ -33,7 +33,7 @@ from vk_gltf_renderer_tpu_torch.probes import nodefetch as tnf
 from vk_gltf_renderer_tpu_torch.probes import stream_dma as tsd
 from vk_gltf_renderer_tpu_torch.probes import uarch as tua
 from vk_gltf_renderer_tpu_torch.probes import visit as tvis
-from vk_gltf_renderer_tpu_torch.scenes import make_helmet_standin, write_large_glb
+from vk_gltf_renderer_tpu_torch.scenes import make_foliage_standin, make_helmet_standin, write_large_glb
 from torch_test_helpers import deep_chain, deep_chain_bvh4, deep_chain_rays, deep_chain_split
 
 pytestmark = pytest.mark.cuda
@@ -95,6 +95,22 @@ def _terrain_bvh():
         return build_world_bvh(build_scene_flat(sc))
 
 
+def _foliage_bvh(cards=1024):
+    """The foliage stand-in's culled and split tables (subtriangle classes):
+    virtual tri ids past each primitive's triangle count."""
+    from vk_gltf_renderer_tpu_torch.ops.omm import classify_attr_alpha, classify_subtri
+
+    with tempfile.TemporaryDirectory() as d:
+        sc = Scene()
+        sc.load(make_foliage_standin(d, cards=cards))
+        flat = build_scene_flat(sc)
+        cls = classify_attr_alpha(flat)
+        return build_world_bvh(flat, tri_class=cls, subtri_cells=classify_subtri(flat, cls))
+
+
+SCENE_BVH = {"helmet": _helmet_bvh, "terrain": _terrain_bvh, "foliage": _foliage_bvh}
+
+
 # kernel value -> (wrapper module, plain version, DeviceBvh tables, root code attribute)
 NEW = {
     "v2": (tb2, ttrav.traverse_bvh2_plain, ("nodes_fi", "tris128"), "root_code"),
@@ -108,7 +124,7 @@ NEW = {
 TABLES = {"bvh2", "bvh16", "lane", "bvh4_sidecar", "bvh4_multipop"}
 
 
-@pytest.mark.parametrize("scene", ["helmet", "terrain"])
+@pytest.mark.parametrize("scene", ["helmet", "terrain", "foliage"])
 @pytest.mark.parametrize("kernel", sorted(NEW))
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_new_traversal_kernels_match_plain(cuda, scene, kernel, anyhit):
@@ -116,7 +132,7 @@ def test_new_traversal_kernels_match_plain(cuda, scene, kernel, anyhit):
     against their plain versions on the card: ids equal except on equal-t
     ties, t/u/v within 1e-5, occlusion equal, nothing dropped, one launch
     counted."""
-    wb = add_kernel_tables(_helmet_bvh() if scene == "helmet" else _terrain_bvh(), TABLES)
+    wb = add_kernel_tables(SCENE_BVH[scene](), TABLES)
     bvh = add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, TABLES)
     mod, plain, tables, root = NEW[kernel]
     rng = np.random.default_rng(33)
@@ -219,6 +235,28 @@ def _assert_dead(out, tmax, dead):
     assert bool((krn[dead] == -1).all() and (ktri[dead] == -1).all())
     for f in (ku, kv):
         assert torch.equal(f[dead].view(torch.int32), torch.zeros_like(f[dead].view(torch.int32)))
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_bvh4_kernel_on_the_foliage_tables(cuda, anyhit):
+    """traverse_bvh4 on the culled and split foliage tables: bit for bit
+    with v7, against its plain walk, nothing dropped, and closest hits on
+    virtual rows (tri ids past their primitive's count) returned as the
+    tables hold them."""
+    wb = _foliage_bvh()
+    bvh = _bvh4_tables(wb, cuda)
+    args = _inside_rays(wb, 50_000, 54, cuda)
+    if anyhit:
+        args[7] = torch.full_like(args[7], 0.5)
+    out = _bvh4_against_v7(bvh, args, anyhit)
+    hit = _against_plain(bvh, args, anyhit, out)
+    assert int(hit.sum()) > 1000
+    if not anyhit:
+        # a virtual row's hit row bakes its parent: attr_tri differs from the hit's tri id
+        rnode, tri = out[1].clamp(min=0).long(), out[2].clamp(min=0).long()
+        row = torch.tensor(wb.rn_attr_base, device=cuda).long()[rnode] + tri
+        virtual = hit & (torch.tensor(wb.attr_tri, device=cuda).long()[row] != tri)
+        assert int(virtual.sum()) > 100
 
 
 @pytest.mark.parametrize("anyhit", [False, True])
@@ -613,7 +651,7 @@ SPLIT = {
 }
 
 
-@pytest.mark.parametrize("scene", ["helmet", "terrain"])
+@pytest.mark.parametrize("scene", ["helmet", "terrain", "foliage"])
 @pytest.mark.parametrize("kernel", sorted(SPLIT))
 def test_split_traversal_kernels_match_plain(cuda, scene, kernel):
     """The packet4 and v1 kernels through intersect_rays_packet against
@@ -621,7 +659,7 @@ def test_split_traversal_kernels_match_plain(cuda, scene, kernel):
     t/u/v within 1e-5, nothing dropped, one launch counted; anyhit=True
     returns the closest hit (neither kernel has an any-hit mode)."""
     mod, plain, tables, family = SPLIT[kernel]
-    wb = _helmet_bvh() if scene == "helmet" else _terrain_bvh()
+    wb = SCENE_BVH[scene]()
     bvh = add_kernel_tables_to_device(bvh_to_device(wb, cuda), wb, cuda, {family})
     rng = np.random.default_rng(35)
     n = 20000

@@ -220,16 +220,17 @@ def test_settings_overlay_matches_jax_and_ignores_unported_saved_flags(tmp_path)
     ref = _settings_scenario(jsettings, jheadless.build_parser, tmp_path)
     (tmp_path / "settings.json").unlink()
     assert _settings_scenario(settings, headless.build_parser, tmp_path) == ref
-    # a store the JAX app wrote with its rasterizer and infinite plane on
+    # a store the JAX app wrote with its rasterizer and infinite plane on: the plane (ported)
+    # is overlaid, the rasterizer (not ported) is not
     jsettings.save_settings({"flags": {"renderSystem": 1, "infinitePlane": 1, "ptDepth": 4}})
     argv = ["--scenefile", "x.glb"]
     args = headless.build_parser().parse_args(argv)
     settings.apply_saved_settings(args, argv)
     headless.check_ported(args)  # never raises for a saved value
-    assert (args.renderSystem, args.infinitePlane, args.ptDepth) == (0, 0, 4)
+    assert (args.renderSystem, args.infinitePlane, args.ptDepth) == (0, 1, 4)
     settings.remember(args, None)
     saved = json.loads((tmp_path / "settings.json").read_text())["flags"]
-    assert saved["renderSystem"] == 1 and saved["infinitePlane"] == 1  # left for the JAX app
+    assert saved["renderSystem"] == 1 and saved["infinitePlane"] == 1  # the rasterizer's left for the JAX app
     assert settings.settings_path() == tmp_path / "settings.json"
 
 
@@ -310,7 +311,7 @@ def test_bench_main_prints_one_json_line(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--renderSystem", "1"], ["--wireframe", "1"], ["--upscale", "2"],
-                                  ["--output", "out.webp"], ["--infinitePlane", "1"], ["--output", "out.jpg"]])
+                                  ["--output", "out.webp"], ["--upscale", "4"], ["--output", "out.jpg"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported|PNG only"):
         headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu"] + flag)

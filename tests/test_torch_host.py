@@ -7,7 +7,9 @@ native SAH and radix builders), the PNG reader/writer against Pillow, and
 the port's helmet stand-in, brainstem stand-in and terrain scene against
 tools/baseline_standins.make_helmet, make_brainstem and
 tools/large_scene_demo.write_large_glb. The refit maps of every table and
-the LBVH branch (VKGR_BVH=lbvh) are held equal too.
+the LBVH branch (VKGR_BVH=lbvh) are held equal too, and so are the port's
+copy of ops/omm.py (every function's source) and scenes.make_masked_quads
+(against tests/test_omm.py's scene).
 
 Every builder comparison is exact (np.array_equal, same dtype): the port's
 builders are copies of the reference's numpy code, so any difference is a
@@ -525,3 +527,46 @@ def test_copied_native_builders_match_the_originals(name, tmp_path):
                     tnative.build_radix_tree_native(tlo, thi, cen)):
         _assert_same(a, b, "radix tree")
     assert tnative._CACHE == ROOT / "build" / "native"
+
+
+def test_copied_omm_matches_the_original():
+    """ops/omm.py is a copy: every function's source and every constant of
+    the JAX package's ops/omm.py, unchanged (its relative imports reach the
+    port's flat.py, whose MAT_LAYOUT and tex_texels are held equal above and
+    below)."""
+    import inspect
+
+    from vk_gltf_renderer_tpu.ops import omm as jomm
+    from vk_gltf_renderer_tpu_torch.ops import omm as tomm
+
+    names = [n for n, v in vars(jomm).items() if inspect.isfunction(v) and v.__module__ == jomm.__name__]
+    assert sorted(names) == sorted(n for n, v in vars(tomm).items()
+                                   if inspect.isfunction(v) and v.__module__ == tomm.__name__)
+    assert {"_minmax_bounds", "_tex_alpha_bounds", "subtri_corners", "classify_subtri",
+            "classify_attr_alpha"} <= set(names)
+    for n in names:
+        assert inspect.getsource(getattr(tomm, n)) == inspect.getsource(getattr(jomm, n)), n
+    for c in ("ALPHA_OPAQUE", "ALPHA_MIXED", "ALPHA_TRANSPARENT", "_CELLS"):
+        assert getattr(tomm, c) == getattr(jomm, c), c
+
+
+def test_make_masked_quads_equals_the_omm_test_scene(tmp_path):
+    """scenes.make_masked_quads (written without Pillow) parses to the same
+    SceneFlat, texels included, as tests/test_omm.py's make_masked_quads,
+    MASK and BLEND."""
+    from test_omm import make_masked_quads as ref_quads
+
+    from vk_gltf_renderer_tpu_torch.scenes import make_masked_quads
+
+    for mode in ("MASK", "BLEND"):
+        port = Scene()
+        port.load(make_masked_quads(str(tmp_path), alpha_mode=mode, cutoff=0.4))
+        a = jflat.build_scene_flat(ref_quads(mode, 0.4))
+        b = jflat.build_scene_flat(port)
+        for f in dataclasses.fields(a):
+            if f.name == "materials":
+                for k in a.materials:
+                    _assert_same(a.materials[k], b.materials[k], f"materials.{k}")
+            elif f.name != "num_lights":
+                _assert_same(getattr(a, f.name), getattr(b, f.name), f.name)
+        _assert_same(a.tex_texels, tflat.build_scene_flat(port).tex_texels, "tex_texels")

@@ -5,7 +5,8 @@ writer and renders a frame on the CPU, renders the terrain grid under
 every traversal-kernel selection and under VKGR_TRAVERSAL=packet4 and
 wavefront, runs a small megakernel render, renders
 scenes.make_materials_standin (every material family, three punctual
-lights), animates scenes.make_brainstem through the device refit, and
+lights), animates scenes.make_brainstem through the device refit, renders
+scenes.make_foliage_standin (alpha) over the shadow-catcher plane, and
 runs the headless CLI and
 `benchmark run` on the CPU, each printing one BENCHMARK_JSON line; and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports either,
@@ -89,6 +90,15 @@ with tempfile.TemporaryDirectory() as d:
         r.on_render()
         boxes.append(r.dev_bvh.nodes4_fi.clone())
     assert not torch.equal(boxes[0], boxes[1]) and np.isfinite(r.image_linear()).all()
+    # alpha: the foliage stand-in, classified, culled and split, re-traced past rejected hits,
+    # over the shadow-catcher plane
+    from vk_gltf_renderer_tpu_torch.scenes import make_foliage_standin
+    r = GltfRenderer(24, 16, spp=1, max_depth=3, device="cpu")
+    r.use_infinite_plane, r.plane_height, r.plane_shadow_catcher = True, 0.5, True
+    r.create_scene(make_foliage_standin(d, cards=32))
+    assert r._config().alpha_any and r.bvh.attr_rnode.shape[0] > r.flat.tri_idx.shape[0]
+    r.on_render()
+    assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
     # the front ends: headless and `benchmark run` on the CPU
     import contextlib, io
     from vk_gltf_renderer_tpu_torch import headless

@@ -152,18 +152,19 @@ def test_evaluate_material(hits):
 
 
 def test_unported_material_features_raise():
-    """Every material extension and every BSDF lobe is ported; what still
-    raises is alpha (MASK/BLEND) and the infinite plane, through
-    RenderConfig.check_supported, and a feature flag no block knows."""
+    """Every material extension and every BSDF lobe is ported, and so are
+    alpha (MASK/BLEND) and the infinite plane; what still raises, through
+    RenderConfig.check_supported, is the denoiser guides (A7), and a
+    feature flag no block knows."""
     from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig
 
     every = frozenset(tmat.SUPPORTED_FEATURES) | {"tex:clearcoat_texture"}
     tmat.check_features(every)
     RenderConfig(features=every, has_lights=True).check_supported()
-    with pytest.raises(NotImplementedError, match="alpha"):
-        RenderConfig(features=frozenset({"textured"}), alpha_any=True).check_supported()
-    with pytest.raises(NotImplementedError, match="infinite plane"):
-        RenderConfig(use_infinite_plane=True).check_supported()
+    RenderConfig(features=frozenset({"textured"}), alpha_any=True).check_supported()
+    RenderConfig(use_infinite_plane=True, plane_shadow_catcher=True).check_supported()
+    with pytest.raises(NotImplementedError, match="denoiser guides"):
+        RenderConfig(features=every, alpha_any=True, denoise_guides=True).check_supported()
     with pytest.raises(NotImplementedError, match="no_such_block"):
         tmat.check_features(frozenset({"textured", "no_such_block"}))
 

@@ -25,7 +25,6 @@ UNPORTED = {
     "renderSystem": (lambda v: v != 0, "A9 (preview: the rasterizer)"),
     "wireframe": (bool, "A9 (preview: the wireframe overlay)"),
     "upscale": (lambda v: v > 1, "A7 (denoise and TAA upscaling)"),
-    "infinitePlane": (bool, "A8 (the infinite plane)"),
 }
 
 
@@ -115,6 +114,10 @@ def main(argv=None) -> int:
     r.focal_distance = args.ptFocalDistance
     if args.backgroundColor:
         r.background = tuple(args.backgroundColor)
+    if args.infinitePlane:
+        r.use_infinite_plane = True
+        r.plane_height = args.infinitePlaneDistance
+        r.plane_shadow_catcher = bool(args.infinitePlaneShadowCatcher)
 
     if not args.scenefile:
         print("error: --scenefile is required in headless mode", file=sys.stderr)

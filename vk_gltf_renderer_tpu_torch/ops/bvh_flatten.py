@@ -44,8 +44,13 @@ tri8_src (the tris row of each tris128 slot), map16 (each BVH16 slot,
 built with nodes16_fi) and lane_geo_idx (the geometry source of each
 lane-page element, built with lane_pages), plus the emit-order rows the
 hit-row bake reads (attr_rnode, attr_tri, attr_has_uv, attr_bary) and the
-bake source of every tris row (wtri_src_tri, wtri_bary; identity
-barycentrics while alpha culling, ROADMAP A5, is not ported).
+bake source of every tris row (wtri_src_tri, wtri_bary: the parent
+triangle and the cell's barycentric corners of a virtual subtriangle row,
+else the row's own triangle and identity barycentrics).
+
+Alpha-tested scenes pass the opacity classes of ops/omm.py: transparent
+triangles are culled and MIXED triangles with transparent cells are split
+into their other cells (build_world_bvh's docstring).
 
 VKGR_BVH picks the builder as in the reference: sah (default) or lbvh,
 the Morton radix tree of ops/bvh.py, which is also the fallback for
@@ -63,6 +68,7 @@ import numpy as np
 
 from .bvh import _build_radix_tree, morton3d
 from .hitstate import bake_hit_attrs_np, narrow_attr_ok
+from .omm import ALPHA_MIXED, ALPHA_TRANSPARENT, subtri_corners
 
 LEAF_SIZE = 8
 _SAH_BINS = 16
@@ -90,7 +96,7 @@ class WorldBvh:
     # fused hit-state rows: row = rn_attr_base[rnode] + tri
     hit_attr: np.ndarray  # [Ta,64] (or [Ta,32] narrow) f32
     rn_attr_base: np.ndarray  # [N] i32
-    attr_alpha_class: np.ndarray  # [Ta] i8 (1 = mixed: no classification)
+    attr_alpha_class: np.ndarray  # [Ta] i8 ops/omm classes (all 1 = MIXED: unclassified)
     # refit maps (ops/animation.refit_world_bvh) and the hit-row bake's rows
     refit_levels: np.ndarray  # [L,K] i32 internal binary nodes, deepest level first (-1 pad)
     portal_roots: np.ndarray  # [P] i32 nodes of the treelet cut (their ids in nodes_i[:,6])
@@ -101,9 +107,9 @@ class WorldBvh:
     attr_rnode: np.ndarray  # [Ta] i32 emit-order render node
     attr_tri: np.ndarray  # [Ta] i32 emit-order bake source tri id
     attr_has_uv: np.ndarray  # [Ta] i32 texel-density gate
-    attr_bary: np.ndarray  # [Ta,6] f32 corner barycentrics of each hit row (identity)
+    attr_bary: np.ndarray  # [Ta,6] f32 corner barycentrics of each hit row in its source triangle
     wtri_src_tri: np.ndarray  # [T+8] i32 bake source tri of each tris row
-    wtri_bary: np.ndarray  # [T+8,6] f32 corner barycentrics of each tris row (identity)
+    wtri_bary: np.ndarray  # [T+8,6] f32 corner barycentrics of each tris row in its source triangle
     num_world_tris: int
     root4_code: int = 0
     # built on demand by add_kernel_tables (None until a kernel reads them)
@@ -412,11 +418,24 @@ def _nodes4_fi(nodes_i, nodes4_i, nodes4_f):
     return fi
 
 
-def build_world_bvh(flat) -> WorldBvh:
+def build_world_bvh(flat, tri_class=None, subtri_cells=None, subtri_level=2) -> WorldBvh:
     """Bake instances to world space + a BVH4 over all world triangles
-    (reference build_world_bvh with tri_class=None): binned SAH by default,
-    the Morton radix tree (LBVH) under VKGR_BVH=lbvh or when a scene of
-    more than 300,000 triangles finds no native builder."""
+    (reference build_world_bvh): binned SAH by default, the Morton radix
+    tree (LBVH) under VKGR_BVH=lbvh or when a scene of more than 300,000
+    triangles finds no native builder.
+
+    tri_class: optional [sum of visible-node tri counts] int8 in emit order
+    (ops/omm.classify_attr_alpha): rows classed ALPHA_TRANSPARENT are culled
+    from the world triangles; the hit rows keep the full emit, so
+    rn_attr_base addressing is unchanged, and attr_alpha_class carries the
+    classes (all MIXED without tri_class). subtri_cells: optional [same
+    rows, 4**subtri_level] int8 per-cell classes (ops/omm.classify_subtri):
+    a MIXED triangle with some provably transparent cells is replaced by
+    its other cells, emitted as virtual rows with tri ids f+c, f+c+1, ...
+    past the primitive's span, each with its own hit row baked at the
+    cell's parent-barycentric corners (attr_bary, wtri_bary) from its
+    parent (attr_tri, wtri_src_tri). A scene with nothing left gets one
+    degenerate far-away triangle."""
     import os
 
     vtx = np.asarray(flat.vtx_pos, np.float64)
@@ -431,10 +450,17 @@ def build_world_bvh(flat) -> WorldBvh:
         raise NotImplementedError("VKGR_BVH=sbvh: the spatial-split builder is not ported "
                                   "(ROADMAP A12)")
 
+    sub_bary_tab = None
+    if subtri_cells is not None and tri_class is not None:
+        sub_bary_tab = subtri_corners(subtri_level).reshape(-1, 6)  # [m,6]
+
     v_chunks, rnode_chunks, tri_chunks = [], [], []
+    wsrc_chunks, wbary_chunks = [], []
     attr_rnode_chunks, attr_tri_chunks = [], []
+    attr_bary_chunks, attr_cls_chunks = [], []
     rn_attr_base = np.zeros(rn_o2w.shape[0], np.int32)
     attr_off = 0
+    cls_off = 0  # row offset into tri_class / subtri_cells (the parents' emit order)
     for i in range(rn_o2w.shape[0]):
         if not rn_visible[i]:
             continue
@@ -443,32 +469,87 @@ def build_world_bvh(flat) -> WorldBvh:
         ids = np.arange(f, f + c)
         attr_rnode_chunks.append(np.full(c, i, np.int32))
         attr_tri_chunks.append(ids.astype(np.int32))
-        idx = tri_idx[ids]
+        attr_bary_chunks.append(np.tile(IDENT_BARY, (c, 1)))
+        keep = np.ones(c, bool)
+        split = np.zeros(c, bool)
+        cells = None
+        if tri_class is not None:
+            cl = np.asarray(tri_class[cls_off:cls_off + c])
+            keep = cl != ALPHA_TRANSPARENT
+            attr_cls_chunks.append(cl.astype(np.int8))
+            if sub_bary_tab is not None:
+                cells = np.asarray(subtri_cells[cls_off:cls_off + c])
+                any_trans = (cells == ALPHA_TRANSPARENT).any(axis=1)
+                all_trans = (cells == ALPHA_TRANSPARENT).all(axis=1)
+                split = (cl == ALPHA_MIXED) & any_trans & ~all_trans
+                # finer cell bounds can prove a whole MIXED triangle transparent
+                keep &= ~(split | ((cl == ALPHA_MIXED) & all_trans))
+        else:
+            attr_cls_chunks.append(np.ones(c, np.int8))  # unclassified: MIXED
+        kept_ids = ids[keep]
+        idx = tri_idx[kept_ids]
         m = rn_o2w[i]
         w0 = vtx[idx[:, 0]] @ m[:3, :3].T + m[:3, 3]
         w1 = vtx[idx[:, 1]] @ m[:3, :3].T + m[:3, 3]
         w2 = vtx[idx[:, 2]] @ m[:3, :3].T + m[:3, 3]
         v_chunks.append(np.concatenate([w0, w1, w2], axis=1).astype(np.float32))
-        rnode_chunks.append(np.full(c, i, np.int32))
-        tri_chunks.append(ids.astype(np.int32))
-        # this node's world tris occupy emit rows [attr_off, attr_off + c)
+        rnode_chunks.append(np.full(kept_ids.shape[0], i, np.int32))
+        tri_chunks.append(kept_ids.astype(np.int32))
+        wsrc_chunks.append(kept_ids.astype(np.int32))
+        wbary_chunks.append(np.tile(IDENT_BARY, (kept_ids.shape[0], 1)))
+        # this node's hit rows are emit rows [attr_off, attr_off + c) for tri ids [f, f + c),
+        # then its virtual rows for ids f + c, f + c + 1, ...
         rn_attr_base[i] = attr_off - f
-        attr_off += c
+        n_virtual = 0
+        if split.any():
+            scls = cells[split]  # [k, m]
+            kk, cell_ids = np.nonzero(scls != ALPHA_TRANSPARENT)
+            par = ids[split][kk]  # parent tri id of each emitted cell [S]
+            bary = sub_bary_tab[cell_ids]  # [S,6]
+            pidx = tri_idx[par]
+            pw0 = vtx[pidx[:, 0]] @ m[:3, :3].T + m[:3, 3]
+            pw1 = vtx[pidx[:, 1]] @ m[:3, :3].T + m[:3, 3]
+            pw2 = vtx[pidx[:, 2]] @ m[:3, :3].T + m[:3, 3]
+
+            def comb(bu, bv):
+                return pw0 * (1.0 - bu - bv)[:, None] + pw1 * bu[:, None] + pw2 * bv[:, None]
+
+            s0 = comb(bary[:, 0], bary[:, 1])
+            s1 = comb(bary[:, 2], bary[:, 3])
+            s2 = comb(bary[:, 4], bary[:, 5])
+            v_chunks.append(np.concatenate([s0, s1, s2], axis=1).astype(np.float32))
+            n_virtual = par.shape[0]
+            rnode_chunks.append(np.full(n_virtual, i, np.int32))
+            tri_chunks.append((f + c + np.arange(n_virtual)).astype(np.int32))
+            wsrc_chunks.append(par.astype(np.int32))
+            wbary_chunks.append(bary.astype(np.float32))
+            attr_rnode_chunks.append(np.full(n_virtual, i, np.int32))
+            attr_tri_chunks.append(par.astype(np.int32))
+            attr_bary_chunks.append(bary.astype(np.float32))
+            attr_cls_chunks.append(scls[kk, cell_ids].astype(np.int8))
+        attr_off += c + n_virtual
+        cls_off += c
 
     attr_rnode = np.concatenate(attr_rnode_chunks) if attr_rnode_chunks else np.zeros(0, np.int32)
     attr_tri = np.concatenate(attr_tri_chunks) if attr_tri_chunks else np.zeros(0, np.int32)
-    attr_bary = np.tile(IDENT_BARY, (attr_rnode.shape[0], 1))
+    attr_bary = (np.concatenate(attr_bary_chunks).astype(np.float32) if attr_bary_chunks
+                 else np.zeros((0, 6), np.float32))
+    attr_alpha_class = np.concatenate(attr_cls_chunks) if attr_cls_chunks else np.zeros(0, np.int8)
     wv = np.concatenate(v_chunks) if v_chunks else np.zeros((0, 9), np.float32)
     wtri_rnode = np.concatenate(rnode_chunks) if rnode_chunks else np.zeros(0, np.int32)
     wtri_tri = np.concatenate(tri_chunks) if tri_chunks else np.zeros(0, np.int32)
-    if wv.shape[0] == 0:  # empty scene: one degenerate far-away tri
+    wtri_src_tri = np.concatenate(wsrc_chunks) if wsrc_chunks else np.zeros(0, np.int32)
+    wtri_bary = (np.concatenate(wbary_chunks).astype(np.float32) if wbary_chunks
+                 else np.zeros((0, 6), np.float32))
+    if wv.shape[0] == 0:  # empty (or fully culled) scene: one degenerate far-away tri
         wv = np.full((1, 9), 3e37, np.float32)
         wtri_rnode = np.zeros(1, np.int32)
         wtri_tri = np.zeros(1, np.int32)
-    wtri_src_tri = wtri_tri.copy()
+        wtri_src_tri = np.zeros(1, np.int32)
+        wtri_bary = np.tile(IDENT_BARY, (1, 1))
     nt = wv.shape[0]
 
-    hit_attr, attr_has_uv = bake_hit_attrs_np(flat, attr_rnode, attr_tri, narrow=narrow_attr_ok(flat))
+    hit_attr, attr_has_uv = bake_hit_attrs_np(flat, attr_rnode, attr_tri, attr_bary, narrow=narrow_attr_ok(flat))
 
     v0, v1, v2 = wv[:, 0:3], wv[:, 3:6], wv[:, 6:9]
     tlo = np.minimum(np.minimum(v0, v1), v2)
@@ -503,11 +584,13 @@ def build_world_bvh(flat) -> WorldBvh:
     wtri_rnode = wtri_rnode[order]
     wtri_tri = wtri_tri[order]
     wtri_src_tri = wtri_src_tri[order]
+    wtri_bary = wtri_bary[order]
     tris16 = np.zeros((nt + LEAF_SIZE, 16), np.float32)
     tris16[:nt, :9] = wv
     wtri_rnode = np.concatenate([wtri_rnode, np.zeros(LEAF_SIZE, np.int32)])
     wtri_tri = np.concatenate([wtri_tri, np.zeros(LEAF_SIZE, np.int32)])
     wtri_src_tri = np.concatenate([wtri_src_tri, np.zeros(LEAF_SIZE, np.int32)])
+    wtri_bary = np.concatenate([wtri_bary, np.tile(IDENT_BARY, (LEAF_SIZE, 1))])
 
     n4i, n4f, m4 = build_bvh4(nodes_i, nodes_self)
     tris128, w8r, w8t, t8s = _tris128(nodes_i, tris16, wtri_rnode, wtri_tri)
@@ -524,7 +607,7 @@ def build_world_bvh(flat) -> WorldBvh:
         tris128=tris128,
         hit_attr=hit_attr,
         rn_attr_base=rn_attr_base,
-        attr_alpha_class=np.ones(attr_rnode.shape[0], np.int8),  # unclassified = mixed
+        attr_alpha_class=attr_alpha_class,
         refit_levels=refit_levels,
         portal_roots=portal_roots,
         map4=m4,
@@ -536,7 +619,7 @@ def build_world_bvh(flat) -> WorldBvh:
         attr_has_uv=attr_has_uv,
         attr_bary=attr_bary,
         wtri_src_tri=wtri_src_tri,
-        wtri_bary=np.tile(IDENT_BARY, (nt + LEAF_SIZE, 1)),
+        wtri_bary=wtri_bary,
         num_world_tris=nt,
     )
 

@@ -69,6 +69,12 @@ class SceneFlat:
     tex_mip_table: np.ndarray  # [ntex, max_mips] -> desc row
     tex_num_mips: np.ndarray  # [ntex]
 
+    @property
+    def tex_texels(self):
+        """Plain [K,4] texel view (tap 0 of each quad row) for host-side
+        consumers (ops/omm.py alpha maps)."""
+        return self.tex_quads[..., :4]
+
 
 # static layout of mat_packed rows: field -> (offset, width), from the
 # ShadeMaterial dataclass; shared with ops/materials_eval.py

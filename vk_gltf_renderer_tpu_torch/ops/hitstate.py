@@ -1,10 +1,11 @@
 """Hit-state reconstruction from the fused per-world-triangle rows.
 
 Host half: bake_hit_attrs_np / narrow_attr_ok, numpy copies of the
-reference's build-time bake (vk_gltf_renderer_tpu/ops/hitstate.py:202-330,
-without the subtriangle-OMM barycentric remap, which only alpha scenes use).
+reference's build-time bake (vk_gltf_renderer_tpu/ops/hitstate.py:202-330),
+with the barycentric remap of subtriangle rows (attr_bary, the virtual rows
+ops/bvh_flatten.build_world_bvh emits for split alpha-tested triangles).
 bake_hit_attrs is the refit-time bake of the reference's _refit_device on
-tensors (:333, jitted there), with the barycentric remap.
+tensors (:333, jitted there), with the same remap.
 
 Device half: get_hit_state_fused (reference :341) and safe_offset_ray
 (:417) on torch tensors. One row gather per lane, then world-space math.
@@ -29,7 +30,8 @@ HIT_ATTR_COLS = 64
 HIT_ATTR_COLS_NARROW = 32
 
 
-def _bake_hit_attrs(vtx_packed, tri_idx, rn_packed, attr_rnode, attr_tri, attr_has_uv, narrow=False):
+def _bake_hit_attrs(vtx_packed, tri_idx, rn_packed, attr_rnode, attr_tri, attr_has_uv, attr_bary,
+                    narrow=False):
     idx = tri_idx[attr_tri]  # [Ta,3]
     rn_row = rn_packed[attr_rnode]  # [Ta,32]
     o2w = rn_row[:, :16].reshape(-1, 4, 4)
@@ -37,6 +39,21 @@ def _bake_hit_attrs(vtx_packed, tri_idx, rn_packed, attr_rnode, attr_tri, attr_h
     va = vtx_packed[idx[:, 0]]
     vb = vtx_packed[idx[:, 1]]
     vc = vtx_packed[idx[:, 2]]
+    # every per-corner attribute is linear over the triangle: a subtriangle row recombines
+    # its parent's corners at its own barycentric corners; handedness keeps corner a's
+    tanw = va[:, 9:10]
+
+    def interp(bu, bv):
+        w = (1.0 - bu - bv)[:, None]
+        return va * w + vb * bu[:, None] + vc * bv[:, None]
+
+    va2 = interp(attr_bary[:, 0], attr_bary[:, 1])
+    vb2 = interp(attr_bary[:, 2], attr_bary[:, 3])
+    vc2 = interp(attr_bary[:, 4], attr_bary[:, 5])
+    va2[:, 9:10] = tanw
+    vb2[:, 9:10] = tanw
+    vc2[:, 9:10] = tanw
+    va, vb, vc = va2, vb2, vc2
 
     def xf_point(p):
         return (o2w[:, :3, 0] * p[:, 0:1] + o2w[:, :3, 1] * p[:, 1:2]
@@ -91,12 +108,13 @@ def narrow_attr_ok(flat) -> bool:
     return untextured and colors_const
 
 
-def bake_hit_attrs_np(flat, attr_rnode, attr_tri, narrow=False):
-    """Build-time bake. Returns (hit_attr [Ta,64|32] f32, has_uv [Ta] i32)."""
+def bake_hit_attrs_np(flat, attr_rnode, attr_tri, attr_bary, narrow=False):
+    """Build-time bake. Returns (hit_attr [Ta,64|32] f32, has_uv [Ta] i32).
+    attr_bary [Ta,6] (identity rows for whole triangles) as bake_hit_attrs."""
     has_uv = np.asarray(flat.prim_has_uv0)[np.asarray(flat.rn_prim)[attr_rnode]]
     out = _bake_hit_attrs(np.asarray(flat.vtx_packed, np.float32), np.asarray(flat.tri_idx),
                           np.asarray(flat.rn_packed, np.float32), attr_rnode, attr_tri, has_uv,
-                          narrow=narrow)
+                          np.asarray(attr_bary, np.float32), narrow=narrow)
     return out, has_uv.astype(np.int32)
 
 

@@ -321,7 +321,7 @@ def evaluate_material(scene, mat_id, hit, *, features: frozenset, is_inside=None
 def get_opacity(scene, mat_id, hit, *, textured: bool = True):
     """Stochastic-alpha opacity at a hit: baseColor alpha x texture alpha x
     vertex alpha; MASK thresholds at the cutoff (reference :323)."""
-    m = _gather_materials(scene, mat_id)
+    m = _gather_materials(scene, mat_id, ("base_color_factor", "base_color_texture", "alpha_mode", "alpha_cutoff"))
     bc = m["base_color_factor"]
     slot = m["base_color_texture"]
     if textured:

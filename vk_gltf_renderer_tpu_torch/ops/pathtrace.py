@@ -13,22 +13,26 @@ changes no pixel and is not ported.
 Semantics kept from the reference (anchors in its module docstring):
 Gaussian subpixel AA, env-miss MIS, emissive add and the unlit early-out,
 NEE with the 50/50 punctual-light / environment technique MIS, the
-deferred shadow ray with its transmission march, Beer-Lambert absorption
-and Henyey-Greenstein scattering inside volumes (with NEE at the scatter
-point and the ratio-tracking residual), dispersion's wavelength-channel
-pick, Russian roulette from depth 3, the roughness regularisation, NaN
-sanitising, the firefly clamp on mean luminance, running-mean
-accumulation and the directly visible HDR background at full resolution.
-Every random number is drawn in the reference's order, for every lane.
+deferred shadow ray with its transmission and alpha march, Beer-Lambert
+absorption and Henyey-Greenstein scattering inside volumes (with NEE at the
+scatter point and the ratio-tracking residual), dispersion's
+wavelength-channel pick, stochastic alpha (re-tracing past rejected hits
+of MASK and BLEND materials, the opacity classes of ops/omm.py skipping
+OPAQUE-class rows), the infinite plane and its shadow catcher, Russian
+roulette from depth 3, the roughness regularisation, NaN sanitising, the
+firefly clamp on mean luminance, running-mean accumulation and the directly
+visible HDR background at full resolution. Every random number is drawn in
+the reference's order, for every lane.
 
 Traversals (the reference's switch, RenderConfig.traversal): under
 "packet", bounce 0's closest-hit trace uses RenderConfig.primary_kernel;
 every later bounce and every shadow ray, bounce 0's included, uses
 packet_kernel (the reference's mapping under its default
 VKGR_PEEL_SORT_SHADOW=1, ops/pathtrace.py:780 and :1130-1134), and
-ops/intersect.py routes each name to its CUDA kernel. A scene without
-transmission traces its shadow rays any hit; with transmission every
-shadow ray takes the march, closest hit from tmin 1e-4.
+ops/intersect.py routes each name to its CUDA kernel; a bounce's alpha
+re-traces take its closest-hit kernel. A scene without transmission or
+alpha traces its shadow rays any hit; with either, every shadow ray takes
+the march, closest hit from tmin 1e-4.
 Under "packet4" every trace, primary, bounce and shadow, goes to the split
 BVH4 kernel (intersect_rays_packet(wide=True)), under "wavefront" to the
 stackless walk (intersect_rays_wavefront); neither reads the kernel names,
@@ -36,9 +40,8 @@ and both trace shadow rays closest hit, as the reference's do
 (ops/pathtrace.py:404-411).
 
 Not ported yet (RenderConfig.check_supported raises NotImplementedError,
-naming the ROADMAP.md queue A item): stochastic alpha (A5), denoiser
-guides and TAA jitter (A7), the infinite plane (A8), batched spp and
-primary-hit seeding (A12).
+naming the ROADMAP.md queue A item): denoiser guides and TAA jitter (A7),
+batched spp and primary-hit seeding (A12).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from .camera import apply_depth_of_field, generate_rays
 from .hdr import eval_hdr, sample_hdr
 from .hitstate import get_hit_state_fused, safe_offset_ray
 from .lights import sample_one_light
-from .materials_eval import _gather_materials, evaluate_material, unsupported_features
+from .materials_eval import _gather_materials, evaluate_material, get_opacity, unsupported_features
 from .sky import _onb, eval_sky, pdf_sky, sample_sky
 from .intersect import (TRAVERSALS, intersect_rays_packet, intersect_rays_soa,
                         intersect_rays_wavefront, route, soa_columns)
@@ -102,14 +105,24 @@ class RenderConfig:
     features: frozenset = frozenset()
     env_kind: str = "sky"  # "sky" | "hdr"
     has_lights: bool = False
-    alpha_any: bool = False
+    alpha_any: bool = False  # any MASK/BLEND material in the scene
+    alpha_rounds: int = 4  # stochastic-alpha re-traces a bounce at most
     firefly_clamp: float = 10.0
     aperture: float = 0.0
     focal_distance: float = 0.0
     orthographic: bool = False
     transmission_rounds: int = 4  # shadow-ray transmission marches
     background: tuple | None = None  # solid backplate for primary misses
+    # the infinite plane y = plane_height and its shadow catcher (the reference's
+    # frameInfo.infinitePlane*: a default PBR material, or with the catcher an invisible
+    # plane that shows the environment, darkened where occluded)
     use_infinite_plane: bool = False
+    plane_height: float = 0.0
+    plane_shadow_catcher: bool = False
+    plane_base_color: tuple = (0.5, 0.5, 0.5)
+    plane_metallic: float = 0.0
+    plane_roughness: float = 0.5
+    shadow_catcher_darken: float = 0.0
     denoise_guides: bool = False
     taa_jitter: bool = False
     spp_batch: bool = False
@@ -124,8 +137,6 @@ class RenderConfig:
         """Raise NotImplementedError for anything the port cannot render
         yet, rather than rendering it half right."""
         missing = [name for name, on in (
-            ("alpha (MASK/BLEND materials; ROADMAP A5)", self.alpha_any),
-            ("infinite plane / shadow catcher (ROADMAP A8)", self.use_infinite_plane),
             ("denoiser guides (ROADMAP A7)", self.denoise_guides),
             ("TAA jitter (ROADMAP A7)", self.taa_jitter),
             ("batched spp (ROADMAP A12)", self.spp_batch and self.spp > 1),
@@ -248,19 +259,25 @@ def _sample_lights(scene, env, pos, normal, seed, cfg: RenderConfig):
     return {"direction": direction, "radiance_over_pdf": radiance, "distance": distance, "pdf": pdf}, seed
 
 
+def _marches(cfg: RenderConfig) -> bool:
+    """Whether shadow rays take the march (transmission or alpha in the
+    scene) rather than one any-hit test."""
+    return "transmission" in cfg.features or cfg.alpha_any
+
+
 def _trace_shadow(scene, bvh, ro, rd, dist, seed, cfg: RenderConfig, alive):
     """Shadow transmission factor [N,3] of the lanes in `alive` (other
-    lanes' factor is not defined), and the seed. Without transmission one
-    any-hit occlusion test; with it a march through up to
-    transmission_rounds surfaces (closest hit from tmin 1e-4), each
-    tinting by its transmission factor, base color and Fresnel, then one
-    final trace: a hit past the budget occludes. The march runs on the
-    live lanes only, gathered once a round (one host sync: their count);
-    the others keep the factor 1. Every round draws one uniform for every
-    lane (the reference's alpha draw), so the streams stay aligned; the
-    alpha pass itself is not ported (A5). A round (or the final trace)
-    with no lane left is skipped, its draws still made."""
-    if "transmission" not in cfg.features:
+    lanes' factor is not defined), and the seed. Without transmission or
+    alpha one any-hit occlusion test; with either a march through up to
+    transmission_rounds surfaces (closest hit from tmin 1e-4), each passing
+    untouched with probability 1 - opacity (u >= opacity, one uniform a
+    round for every lane) and otherwise tinting by its transmission factor,
+    base color and Fresnel (blocking without transmission), then one final
+    trace: a hit past the budget occludes. The march runs on the live lanes
+    only, gathered once a round (one host sync: their count); the others
+    keep the factor 1. A round (or the final trace) with no lane left is
+    skipped, its draws still made."""
+    if not _marches(cfg):
         hits = trace_closest(bvh, ro, rd, tmin=0.0, tmax=dist, alive=alive, anyhit=True,
                              kernel=cfg.packet_kernel, traversal=cfg.traversal)
         return torch.where((hits["tri"] >= 0)[..., None], 0.0, 1.0), seed
@@ -269,7 +286,7 @@ def _trace_shadow(scene, bvh, ro, rd, dist, seed, cfg: RenderConfig, alive):
     lanes = torch.nonzero(alive).squeeze(1)  # the live lanes; nonzero brings their count to the host
     org, d, remaining = ro[lanes], rd[lanes], dist[lanes]
     for _ in range(cfg.transmission_rounds):
-        _, seed = rng.rand(seed)  # the alpha draw, for every lane: opacity is 1 without alpha
+        u, seed = rng.rand(seed)  # the alpha draw, for every lane
         if lanes.numel() == 0:
             continue
         hits = trace_closest(bvh, org, d, tmin=1e-4, tmax=remaining, kernel=cfg.packet_kernel,
@@ -277,15 +294,23 @@ def _trace_shadow(scene, bvh, ro, rd, dist, seed, cfg: RenderConfig, alive):
         hit = hits["tri"] >= 0
         hs = get_hit_state_fused(bvh.hit_attr, bvh.rn_attr_base, hits, d)
         mat_id = scene.rn_material[torch.clamp(hits["rnode"], min=0).long()]
-        m = _gather_materials(scene, mat_id, ("transmission_factor", "base_color_factor", "ior"))
-        tfac, bc = m["transmission_factor"], m["base_color_factor"][..., :3]
-        ior = m["ior"] if "ior" in cfg.features else torch.full_like(tfac, 1.5)
-        cos_theta = torch.abs(dot3(d, hs["nrm"]))
-        f0 = ((ior - 1.0) / (ior + 1.0)) ** 2
-        fres = f0 + (1.0 - f0) * (1.0 - cos_theta) ** 5
-        surface_trans = tfac[..., None] * bc * (1.0 - fres)[..., None]
+        if cfg.alpha_any:
+            pass_alpha = u[lanes] >= get_opacity(scene, mat_id, hs, textured="textured" in cfg.features)
+        else:
+            pass_alpha = u[lanes] >= 1.0
+        if "transmission" in cfg.features:
+            m = _gather_materials(scene, mat_id, ("transmission_factor", "base_color_factor", "ior"))
+            tfac, bc = m["transmission_factor"], m["base_color_factor"][..., :3]
+            ior = m["ior"] if "ior" in cfg.features else torch.full_like(tfac, 1.5)
+            cos_theta = torch.abs(dot3(d, hs["nrm"]))
+            f0 = ((ior - 1.0) / (ior + 1.0)) ** 2
+            fres = f0 + (1.0 - f0) * (1.0 - cos_theta) ** 5
+            surface_trans = tfac[..., None] * bc * (1.0 - fres)[..., None]
+        else:
+            surface_trans = torch.zeros_like(org)
         trans = transmission[lanes]
-        trans = torch.where(hit[..., None], trans * surface_trans, trans)
+        this_trans = torch.where(pass_alpha[..., None], 1.0, surface_trans)
+        trans = torch.where(hit[..., None], trans * this_trans, trans)
         blocked = torch.amax(trans, dim=-1) <= MIN_TRANSMISSION
         trans = torch.where(blocked[..., None], 0.0, trans)
         transmission[lanes] = trans
@@ -300,6 +325,47 @@ def _trace_shadow(scene, bvh, ro, rd, dist, seed, cfg: RenderConfig, alive):
                              traversal=cfg.traversal)
         transmission[lanes] = torch.where((hits["tri"] >= 0)[..., None], 0.0, transmission[lanes])
     return transmission, seed
+
+
+def _trace_with_alpha(scene, bvh, ro, rd, seed, cfg: RenderConfig, alive, kernel):
+    """Closest hit with stochastic alpha (reference _trace_with_alpha,
+    ops/pathtrace.py:552): after the trace, alpha_rounds rounds each draw
+    one uniform for every lane and reject a hit on a row that is not
+    OPAQUE-class (bvh.attr_alpha_class) where u > opacity; a rejected lane
+    steps t + 1e-4 past its hit and re-traces from tmin 0. Only the hits
+    that may reject have their opacity evaluated, and only the rejecting
+    lanes are re-traced (one host sync a round: their count); the other
+    lanes keep their hits as they were. The steps are added back to t at
+    the end, in the reference's order of sums."""
+    hits = trace_closest(bvh, ro, rd, alive=alive, kernel=kernel, traversal=cfg.traversal)
+    if not cfg.alpha_any:
+        return hits, seed
+    cls_tab = bvh.attr_alpha_class
+    org = ro
+    t_accum = torch.zeros(ro.shape[0], device=ro.device)
+    textured = "textured" in cfg.features
+    for _ in range(cfg.alpha_rounds):
+        u, seed = rng.rand(seed)
+        attr_row = (bvh.rn_attr_base[torch.clamp(hits["rnode"], min=0).long()]
+                    + torch.clamp(hits["tri"], min=0)).long()
+        cls = cls_tab[torch.clamp(attr_row, 0, cls_tab.shape[0] - 1)]
+        cand = torch.nonzero((hits["tri"] >= 0) & (cls != 0)).squeeze(1)  # 0: ALPHA_OPAQUE
+        if cand.numel() == 0:
+            continue
+        sub = {k: v[cand] for k, v in hits.items()}
+        hs = get_hit_state_fused(bvh.hit_attr, bvh.rn_attr_base, sub, rd[cand])
+        mat_id = scene.rn_material[torch.clamp(sub["rnode"], min=0).long()]
+        lanes = cand[u[cand] > get_opacity(scene, mat_id, hs, textured=textured)]
+        if lanes.numel() == 0:
+            continue
+        step = hits["t"][lanes] + 1e-4
+        org_r = org[lanes] + rd[lanes] * step[..., None]
+        re = trace_closest(bvh, org_r, rd[lanes], tmin=0.0, kernel=kernel, traversal=cfg.traversal)
+        hits = {k: v.index_put((lanes,), re[k]) for k, v in hits.items()}
+        org = org.index_put((lanes,), org_r)
+        t_accum = t_accum.index_put((lanes,), t_accum[lanes] + step)
+    hits["t"] = hits["t"] + t_accum
+    return hits, seed
 
 
 def _hdr_background_fixup(state, env, cfg):
@@ -358,10 +424,17 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         first = depth == 0
 
         state["rays"] = state["rays"] + torch.sum(alive.to(torch.float32))
-        hits = trace_closest(bvh, ro, rd, alive=alive,
-                             kernel=cfg.primary_kernel if first else cfg.packet_kernel,
-                             traversal=cfg.traversal)
+        hits, seed = _trace_with_alpha(scene, bvh, ro, rd, seed, cfg, alive,
+                                       cfg.primary_kernel if first else cfg.packet_kernel)
         miss = hits["tri"] < 0
+
+        # the infinite plane y = plane_height, seen from above, where it is nearer than the hit
+        if cfg.use_infinite_plane:
+            dn = rd[:, 1]
+            t_plane = (cfg.plane_height - ro[:, 1]) / torch.where(torch.abs(dn) < 1e-6, 1.0, dn)
+            plane_hit = ((ro[:, 1] > cfg.plane_height) & (torch.abs(dn) > 1e-6) & (t_plane > 0)
+                         & (t_plane < torch.where(miss, INFINITE, hits["t"])))
+            miss = miss & ~plane_hit
 
         # environment hit
         env_color, env_pdf = sample_environment(env, rd, cfg)
@@ -377,6 +450,7 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
 
         lane_hit = alive & ~miss
         alive = lane_hit
+        lane_plane = alive & plane_hit if cfg.use_infinite_plane else None
 
         # surface shading with ray-cone texture LOD
         hs = get_hit_state_fused(bvh.hit_attr, bvh.rn_attr_base, hits, rd)
@@ -387,6 +461,29 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         state["cone_width"] = torch.where(lane_hit, world_foot, state["cone_width"])
         pbr = evaluate_material(scene, mat_id, hs, features=feats, is_inside=state["is_inside"],
                                 tex_lod=tex_grad)
+
+        if cfg.use_infinite_plane:
+            # plane lanes take the plane's hit state and its default PBR material
+            ppos = ro + rd * t_plane[..., None]
+            axes = torch.eye(3, device=dev)
+            up, tx, bz = (axes[k].expand(n, 3) for k in (1, 0, 2))
+            pl = lane_plane[..., None]
+            for k, v in (("pos", ppos), ("nrm", up), ("geonrm", up), ("shadow_pos", ppos), ("tangent", tx),
+                         ("bitangent", bz)):
+                hs[k] = torch.where(pl, v, hs[k])
+            pbr["base_color"] = torch.where(
+                pl, torch.tensor(cfg.plane_base_color, dtype=torch.float32, device=dev), pbr["base_color"])
+            pbr["metallic"] = torch.where(lane_plane, cfg.plane_metallic, pbr["metallic"])
+            alpha_p = max(cfg.plane_roughness, 0.0014) ** 2  # a Python float, as the reference's
+            pbr["roughness"] = torch.where(pl, alpha_p, pbr["roughness"])
+            pbr["N"] = torch.where(pl, up, pbr["N"])
+            pbr["Ng"] = torch.where(pl, up, pbr["Ng"])
+            pbr["T"] = torch.where(pl, tx, pbr["T"])
+            pbr["B"] = torch.where(pl, bz, pbr["B"])
+            pbr["emissive"] = torch.where(pl, 0.0, pbr["emissive"])
+            hits["t"] = torch.where(lane_plane, t_plane, hits["t"])
+            lane_hit = alive & (~miss | lane_plane)
+            alive = lane_hit
 
         if first:
             fh = lane_hit
@@ -521,8 +618,22 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         sh_base = torch.where(sh_fwd, hs["shadow_pos"], hs["pos"])
         sh_off = torch.where(sh_fwd, hs["geonrm"], -hs["geonrm"])
         sh_org = safe_offset_ray(sh_base, sh_off)
+        catcher = cfg.use_infinite_plane and cfg.plane_shadow_catcher
+        # the reference marches every lane's shadow ray, so its catcher reads the shadow of a
+        # plane lane that has no next event too
         shadow, seed = _trace_shadow(scene, bvh, sh_org, dl["direction"], dl["distance"], seed, cfg,
-                                     alive=next_event)
+                                     alive=next_event | lane_plane if catcher and _marches(cfg) else next_event)
+        if catcher:
+            # the plane is invisible: it shows the environment, darkened where occluded
+            env_c, env_p = sample_environment(env, rd, cfg)
+            sc_mis = _env_mis_weight(state["last_pdf"], env_p, cfg)
+            lit = torch.amin(shadow, dim=-1)
+            sc_rad = throughput * sc_mis[..., None] * env_c * (
+                lit + (1.0 - lit) * (1.0 - cfg.shadow_catcher_darken))[..., None]
+            radiance = radiance + torch.where(lane_plane[..., None], sc_rad, 0.0)
+            alive = alive & ~lane_plane
+            lane_hit = lane_hit & ~lane_plane
+            next_event = next_event & ~lane_plane
         radiance = radiance + torch.where(next_event[..., None], contrib * shadow, 0.0)
 
         alive = (alive & ~absorbed) | scattered

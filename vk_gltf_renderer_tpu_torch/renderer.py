@@ -17,19 +17,28 @@ the int32 sidecar for v7, the v5 walk's stack need for v5, the split
 BVH4 tables for packet4, the binary tree's own boxes and meta rows for
 wavefront). A kernel or walk runs only because the selection names it.
 
+A scene with a MASK or BLEND material is built with the conservative
+opacity classes of ops/omm.py (_alpha_classes): transparent triangles are
+culled from the BVH, MIXED triangles with transparent cells are split into
+their other cells (VKGR_OMM_SUBTRI=0 keeps whole triangles), and the path
+tracer re-traces past rejected hits. use_infinite_plane, plane_height and
+plane_shadow_catcher (with shadow_catcher_darken) add the reference's
+infinite plane and its shadow catcher.
+
 Scene edits go through sync_scene_changes, driven by the Scene's dirty
 flags as in the reference: a topology or visibility change rebuilds; a
 node, render-node or vertex change (an animation step, a material-variant
 switch) refits on the device (_refit_device: skin and morph, the world
 triangles, every table family's boxes and the hit rows, with no host
-readback); a material or light change re-packs the material tables. With
-animate on, on_render advances the current clip by anim_speed / 60 s a
-frame first.
+readback); a material or light change re-packs the material tables, and
+rebuilds when the opacity classes moved (a MASK material made OPAQUE
+un-culls its triangles). With animate on, on_render advances the current
+clip by anim_speed / 60 s a frame first.
 
-Not ported yet: alpha (A5), the preview renderer, denoising, TAA
-upscaling, the silhouette overlay, picking and the adaptive sampler
-(ROADMAP.md). The TPU fallback ladder
-(VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation) has no role here,
+Not ported yet: the preview renderer, denoising, TAA upscaling, the
+silhouette overlay, picking and the adaptive sampler (ROADMAP.md). The
+TPU fallback ladder (VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation)
+has no role here,
 and the reference's downgrade to the wavefront after kernel faults
 (_traversal_fallback) is deliberately not ported: it would hide a faulty
 kernel behind another traversal.
@@ -57,6 +66,7 @@ from .ops.camera import pixel_angle
 from .ops.flat import build_scene_flat, refresh_materials
 from .ops.hdr import load_hdr_environment
 from .ops.hitstate import bake_hit_attrs
+from .ops.omm import classify_attr_alpha, classify_subtri
 from .ops.pathtrace import RenderConfig, render_frame_flat
 from .ops.sky import SkyEnv, SkyParams
 from .ops.tonemap import tonemap
@@ -75,6 +85,13 @@ class CameraState:
     orthographic: bool = False
     xmag: float = 1.0
     ymag: float = 1.0
+
+
+def _moved(a, b) -> bool:
+    """Whether two opacity-class arrays (or None) differ."""
+    if a is None or b is None:
+        return (a is None) != (b is None)
+    return a.shape != b.shape or bool((a != b).any())
 
 
 def fit_camera(scene: Scene, yfov=np.radians(45.0)) -> CameraState:
@@ -119,9 +136,14 @@ class GltfRenderer:
         self.aperture = 0.0
         self.focal_distance = 0.0
         self.background = None  # (r,g,b) solid backplate or None
+        self.use_infinite_plane = False
+        self.plane_height = 0.0
+        self.plane_shadow_catcher = False
+        self.shadow_catcher_darken = 0.0
         self.animate = False
         self.anim_speed = 1.0  # playback rate multiplier
         self._anim_tables_cache = None
+        self._alpha_cls = self._subtri_cells = None  # the opacity classes the BVH was built with
 
     # -------------------------------------------------------------- scene
     def create_scene(self, path) -> None:
@@ -170,12 +192,24 @@ class GltfRenderer:
         self.reset_frame()
 
     def _build_device_scene(self) -> None:
-        """Host tables and BVH from the parsed scene, and their device mirrors."""
+        """Host tables, opacity classes and BVH from the parsed scene, and
+        their device mirrors."""
         self.flat = build_scene_flat(self.scene)
-        self.bvh = build_world_bvh(self.flat)
+        self._alpha_cls, self._subtri_cells = self._alpha_classes()
+        self.bvh = build_world_bvh(self.flat, tri_class=self._alpha_cls, subtri_cells=self._subtri_cells)
         self.dev_scene = scene_to_device(self.flat, self.device)
         self.dev_bvh = bvh_to_device(self.bvh, self.device)
         self._sync_kernel_tables(self._config())
+
+    def _alpha_classes(self):
+        """(tri_class, subtri_cells) of ops/omm.py for the current host
+        tables (reference renderer.py:224): both None when every material
+        is OPAQUE; subtri_cells None under VKGR_OMM_SUBTRI=0."""
+        if not any(m.get("alphaMode", "OPAQUE") != "OPAQUE" for m in self.scene.model.materials):
+            return None, None
+        cls = classify_attr_alpha(self.flat)
+        cells = classify_subtri(self.flat, cls) if os.environ.get("VKGR_OMM_SUBTRI", "1") != "0" else None
+        return cls, cells
 
     def sync_scene_changes(self) -> bool:
         """Apply the scene's dirty flags to the device mirrors (reference
@@ -186,7 +220,8 @@ class GltfRenderer:
         visibility moved. A material or light change re-packs the material
         and light tables; unlike the reference, it does so on the refit
         path too (a variant switch marks both), and the render nodes'
-        material ids follow."""
+        material ids follow. A material edit that moves the opacity classes
+        rebuilds (reference renderer.py:284-302)."""
         df = self.scene.get_dirty_flags()
         if df == DirtyFlags.NONE:
             return False
@@ -202,11 +237,16 @@ class GltfRenderer:
             if not self._refit_device():
                 self._build_device_scene()
         if df & (DirtyFlags.MATERIALS | DirtyFlags.LIGHTS):
-            # alpha classes are not built (ROADMAP A5): an alpha material raises at the next
-            # frame, so no classification can move here
             self.flat = dataclasses.replace(
                 refresh_materials(self.flat, self.scene),
                 rn_material=np.array([max(rn.material_id, 0) for rn in self.scene.render_nodes], np.int32))
+            if df & DirtyFlags.MATERIALS:
+                # an alpha mode, cutoff or texture edit can move the classes the BVH culled and
+                # split by: rebuild when they moved
+                cls, cells = self._alpha_classes()
+                if _moved(cls, self._alpha_cls) or _moved(cells, self._subtri_cells):
+                    self.rebuild_device_scene()
+                    return True
             self.dev_scene = scene_to_device(self.flat, self.device)
         self.scene.clear_dirty_flags()
         self.reset_frame()
@@ -342,6 +382,10 @@ class GltfRenderer:
             focal_distance=(self.focal_distance or float(np.linalg.norm(
                 np.asarray(cam.center) - np.asarray(cam.eye)))) if self.aperture > 0 else 0.0,
             background=self.background,
+            use_infinite_plane=self.use_infinite_plane,
+            plane_height=self.plane_height,
+            plane_shadow_catcher=self.plane_shadow_catcher,
+            shadow_catcher_darken=self.shadow_catcher_darken,
             traversal=os.environ.get("VKGR_TRAVERSAL", "packet"),
             primary_kernel=os.environ.get("VKGR_PRIMARY_KERNEL", "v3"),
             packet_kernel=os.environ.get("VKGR_PACKET_KERNEL", "v9"),

@@ -28,6 +28,15 @@ make_brainstem writes the same files as tools/baseline_standins.make_brainstem
 triangles skinned to two joints, and a looping 2 s rotation clip on the
 top joint.
 
+make_masked_quads writes tests/test_omm.py's three MASK-textured
+triangles (one over opaque texels, one over transparent ones, one across
+the seam), the PNG written with utils/png.py instead of Pillow.
+make_foliage_standin writes an alpha-tested canopy with no generator in
+the reference, the role of Sponza's plants and Khronos' AlphaBlendModeTest:
+leaf cards over an atlas whose quadrants classify MIXED (split into
+cells), OPAQUE, TRANSPARENT (culled) and as an alpha gradient, blended
+panes and an opaque ground.
+
 write_large_glb writes the same bytes as tools/large_scene_demo.write_large_glb:
 an instanced grid of displaced terrain patches with one untextured
 metallic-roughness material (1,059,968 world triangles at the default
@@ -394,6 +403,192 @@ def make_brainstem(out_dir) -> str:
     with open(p, "w") as f:
         json.dump(gltf, f)
     return p
+
+
+def _write_gltf(out_dir, name, gltf, arrays, images=()) -> str:
+    """Write name.gltf and name.bin into out_dir: `arrays` are (array,
+    componentType, type) accessors in order, each in a bufferView of its
+    own, and `images` PNG byte strings, each in a bufferView after them.
+    gltf holds the rest of the document. Returns the .gltf path."""
+    views, accs, chunks, off = [], [], [], 0
+    for arr, ctype, atype in arrays:
+        arr = np.ascontiguousarray(arr)
+        extra = {"min": arr.min(0).tolist(), "max": arr.max(0).tolist()} if atype == "VEC3" else {}
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": arr.nbytes})
+        accs.append({"bufferView": len(views) - 1, "componentType": ctype, "count": arr.shape[0],
+                     "type": atype, **extra})
+        chunks.append(arr.tobytes())
+        off += arr.nbytes
+    for png in images:
+        pad = -off % 4
+        chunks.append(b"\0" * pad)
+        off += pad
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(png)})
+        gltf.setdefault("images", []).append({"bufferView": len(views) - 1, "mimeType": "image/png"})
+        chunks.append(png)
+        off += len(png)
+    buf = b"".join(chunks)
+    gltf.update(asset={"version": "2.0"}, accessors=accs, bufferViews=views,
+                buffers=[{"uri": name + ".bin", "byteLength": len(buf)}])
+    with open(os.path.join(out_dir, name + ".bin"), "wb") as f:
+        f.write(buf)
+    p = os.path.join(out_dir, name + ".gltf")
+    with open(p, "w") as f:
+        json.dump(gltf, f)
+    return p
+
+
+def make_masked_quads(out_dir, alpha_mode="MASK", cutoff=0.5) -> str:
+    """tests/test_omm.py's make_masked_quads, written into out_dir as
+    masked_quads.gltf (+ .bin with the PNG): three separate triangles over a
+    16x16 texture whose left half has alpha 1 and right half alpha 0; tri 0
+    maps into the left half (OPAQUE), tri 1 into the right (TRANSPARENT),
+    tri 2 across the seam (MIXED). Returns the .gltf path."""
+    from .utils.png import encode_png
+
+    tex = np.zeros((16, 16, 4), np.uint8)
+    tex[:, :, 0] = 255
+    tex[:, :8, 3] = 255  # left half opaque
+    positions = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [2, 0, 0], [3, 0, 0], [2, 1, 0],
+                          [4, 0, 0], [5, 0, 0], [4, 1, 0]], np.float32)
+    uvs = np.array([[0.05, 0.1], [0.30, 0.1], [0.05, 0.9], [0.70, 0.1], [0.95, 0.1], [0.70, 0.9],
+                    [0.30, 0.1], [0.70, 0.1], [0.30, 0.9]], np.float32)
+    gltf = {
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "TEXCOORD_0": 1}, "indices": 2,
+                                    "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}},
+                       "alphaMode": alpha_mode, "alphaCutoff": cutoff}],
+        "textures": [{"source": 0}],
+    }
+    return _write_gltf(out_dir, "masked_quads", gltf,
+                       [(positions, 5126, "VEC3"), (uvs, 5126, "VEC2"),
+                        (np.arange(9, dtype=np.uint16), 5123, "SCALAR")],
+                       images=[encode_png(tex)])
+
+
+FOLIAGE_ATLAS = 256  # the leaf atlas' side, texels: four 128-texel quadrants
+FOLIAGE_RAMP = 8  # texels over which the leaf's alpha falls from 1 to 0 at its edge
+# quadrant -> (u0, v0) of its corner in the atlas, and its share of the cards
+FOLIAGE_QUADRANTS = {"leaf": ((0.0, 0.0), 0.7), "bark": ((0.5, 0.0), 0.1), "empty": ((0.0, 0.5), 0.1),
+                     "gradient": ((0.5, 0.5), 0.1)}
+
+
+def foliage_atlas(seed=0) -> np.ndarray:
+    """The foliage stand-in's RGBA atlas [256,256,4] uint8. Quadrants (u
+    right, v down): an elliptical leaf whose alpha ramps from 1 to 0 over
+    the 8 texels inside its edge (MIXED, split into cells), solid bark
+    (OPAQUE), empty (TRANSPARENT, culled) and alpha rising from 0 to 1
+    left to right (the BLEND material's)."""
+    rng = np.random.default_rng(seed)
+    q = FOLIAGE_ATLAS // 2
+    y, x = np.mgrid[0:q, 0:q] + 0.5
+    rx, ry = 0.36 * q, 0.26 * q
+    d = np.sqrt(((x - q / 2) / rx) ** 2 + ((y - q / 2) / ry) ** 2)
+    leaf_a = np.clip((1.0 - d) * ry / FOLIAGE_RAMP, 0.0, 1.0)
+    green = np.array([0.22, 0.55, 0.16]) * (0.85 + 0.3 * rng.random((q, q, 1)))
+    img = np.zeros((FOLIAGE_ATLAS, FOLIAGE_ATLAS, 4))
+    img[:q, :q, :3], img[:q, :q, 3] = green, leaf_a
+    img[:q, q:, :3], img[:q, q:, 3] = np.array([0.36, 0.25, 0.16]) * (0.8 + 0.4 * rng.random((q, q, 1))), 1.0
+    img[q:, :q, :3] = 0.5
+    img[q:, q:, :3], img[q:, q:, 3] = np.array([0.85, 0.6, 0.25]), x / q - 0.5 / q
+    return np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def make_foliage_standin(out_dir, cards=16384, seed=0) -> str:
+    """Write foliage.gltf (+ .bin with the atlas PNG) into out_dir: an opaque
+    ground, `cards` leaf cards (a quad of 2 triangles each, centres, sizes
+    and orientations from `seed` in a canopy 6 x 2 x 6 units above the
+    ground) mapped each onto one quadrant of foliage_atlas with the shares
+    of FOLIAGE_QUADRANTS, and 8 vertical BLEND panes (baseColorFactor alpha
+    0.35) in a ring around the canopy's foot, and a camera in front of it.
+    The leaf, bark and empty cards take a MASK material (cutoff 0.5), the
+    gradient cards a BLEND one on the same atlas; both are double-sided.
+    Returns the .gltf path."""
+    from .utils.png import encode_png
+
+    rng = np.random.default_rng(seed)
+    names = list(FOLIAGE_QUADRANTS)
+    quad = rng.choice(len(names), size=cards, p=[FOLIAGE_QUADRANTS[k][1] for k in names])
+    centre = rng.uniform([-3.0, 1.0, -3.0], [3.0, 3.0, 3.0], size=(cards, 3))
+    half = rng.uniform(0.12, 0.3, size=(cards, 1))
+    # an orthonormal frame a card: a random normal and a random direction in its plane
+    nrm = rng.normal(size=(cards, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    ref = np.where(np.abs(nrm[:, 1:2]) < 0.9, [[0.0, 1.0, 0.0]], [[1.0, 0.0, 0.0]])
+    ax_u = np.cross(ref, nrm)
+    ax_u /= np.linalg.norm(ax_u, axis=1, keepdims=True)
+    ax_v = np.cross(nrm, ax_u)
+    ang = rng.uniform(0.0, 2.0 * np.pi, size=(cards, 1))
+    ax_u, ax_v = np.cos(ang) * ax_u + np.sin(ang) * ax_v, -np.sin(ang) * ax_u + np.cos(ang) * ax_v
+    corners = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]])
+    pos = (centre[:, None] + half[:, None] * (corners[None, :, 0:1] * ax_u[:, None]
+                                               + corners[None, :, 1:2] * ax_v[:, None]))
+    inset = 2.0 / FOLIAGE_ATLAS  # keeps a quadrant's bilinear taps inside it
+    uv0 = np.array([FOLIAGE_QUADRANTS[k][0] for k in names])[quad]
+    uv = uv0[:, None] + inset + (corners[None] * 0.5 + 0.5) * (0.5 - 2.0 * inset)
+
+    def card_mesh(sel):
+        k = int(sel.sum())
+        idx = (np.arange(k)[:, None] * 4 + np.array([0, 1, 2, 0, 2, 3])).reshape(-1)
+        return (pos[sel].reshape(-1, 3).astype(np.float32), np.repeat(nrm[sel], 4, axis=0).astype(np.float32),
+                uv[sel].reshape(-1, 2).astype(np.float32), idx.astype(np.uint32))
+
+    def quads(c, a, b):
+        """Quads centred at c [k,3] with half-axes a, b [k,3]: (pos, nrm, uv, idx)."""
+        p = c[:, None] + corners[None, :, 0:1] * a[:, None] + corners[None, :, 1:2] * b[:, None]
+        n = np.cross(a, b)
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        k = c.shape[0]
+        idx = (np.arange(k)[:, None] * 4 + np.array([0, 1, 2, 0, 2, 3])).reshape(-1)
+        return (p.reshape(-1, 3).astype(np.float32), np.repeat(n, 4, axis=0).astype(np.float32),
+                np.tile(corners * 0.5 + 0.5, (k, 1)).astype(np.float32), idx.astype(np.uint32))
+
+    phi = np.arange(8) * (np.pi / 4.0)
+    ring = np.stack([np.cos(phi), np.zeros(8), np.sin(phi)], axis=1)
+    meshes = [
+        quads(np.zeros((1, 3)), np.array([[6.0, 0.0, 0.0]]), np.array([[0.0, 0.0, -6.0]])),  # ground
+        card_mesh(quad != names.index("gradient")),
+        card_mesh(quad == names.index("gradient")),
+        quads(ring * 4.0 + [0.0, 0.6, 0.0], np.cross(ring, [0.0, 1.0, 0.0]) * 0.5,
+              np.tile([[0.0, 0.6, 0.0]], (8, 1))),  # panes
+    ]
+    arrays, prims = [], []
+    for material, (p, n, t, i) in enumerate(meshes):
+        a = len(arrays)
+        arrays += [(p, 5126, "VEC3"), (n, 5126, "VEC3"), (t, 5126, "VEC2"), (i, 5125, "SCALAR")]
+        prims.append({"attributes": {"POSITION": a, "NORMAL": a + 1, "TEXCOORD_0": a + 2}, "indices": a + 3,
+                      "material": material})
+    pitch = np.radians(-8.0) / 2.0  # the camera looks down the -z axis, tilted 8 degrees down
+    gltf = {
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1, 2, 3, 4]}],
+        "nodes": [{"name": name, "mesh": k} for k, name in enumerate(("ground", "leaves", "gradient", "panes"))]
+        + [{"name": "camera", "camera": 0, "translation": [0.0, 1.9, 6.0],
+            "rotation": [float(np.sin(pitch)), 0.0, 0.0, float(np.cos(pitch))]}],
+        "cameras": [{"type": "perspective", "perspective": {"yfov": 0.9, "aspectRatio": 16 / 9, "znear": 0.05,
+                                                             "zfar": 100.0}}],
+        "meshes": [{"name": name, "primitives": [prim]}
+                   for name, prim in zip(("ground", "leaves", "gradient", "panes"), prims)],
+        "materials": [
+            {"name": "ground", "pbrMetallicRoughness": {"baseColorFactor": [0.35, 0.3, 0.24, 1.0],
+                                                        "roughnessFactor": 0.9, "metallicFactor": 0.0}},
+            {"name": "leaves", "alphaMode": "MASK", "alphaCutoff": 0.5, "doubleSided": True,
+             "pbrMetallicRoughness": {"baseColorTexture": {"index": 0}, "roughnessFactor": 0.7,
+                                      "metallicFactor": 0.0}},
+            {"name": "gradient", "alphaMode": "BLEND", "doubleSided": True,
+             "pbrMetallicRoughness": {"baseColorTexture": {"index": 0}, "roughnessFactor": 0.6,
+                                      "metallicFactor": 0.0}},
+            {"name": "panes", "alphaMode": "BLEND", "doubleSided": True,
+             "pbrMetallicRoughness": {"baseColorFactor": [0.6, 0.8, 0.9, 0.35], "roughnessFactor": 0.1,
+                                      "metallicFactor": 0.0}},
+        ],
+        "samplers": [{"wrapS": 10497, "wrapT": 10497}],
+        "textures": [{"source": 0, "sampler": 0}],
+    }
+    return _write_gltf(out_dir, "foliage", gltf, arrays, images=[encode_png(foliage_atlas(seed))])
 
 
 def _patch_mesh(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:

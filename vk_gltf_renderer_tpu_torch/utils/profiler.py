@@ -17,12 +17,13 @@ profile_refit does the same for an animated renderer's animation step and
 scene sync alone (the device refit), one step a frame.
 
     python -m vk_gltf_renderer_tpu_torch.utils.profiler \
-        --scene helmet|terrain|game|suite|materials|brainstem [--frames 3] [--size W H]
+        --scene helmet|terrain|game|suite|materials|foliage|brainstem [--frames 3] [--size W H]
 
 renders the scene at the bench recipe (1920x1080, spp 1, depth 5, the
 bench entry's HDR; bench_impl.scene_file, or scenes.make_<scene>_standin
-for the material stand-ins, the suite and the materials scene under the
-sky) on the card and prints the table. brainstem is BASELINE config 5:
+for the material stand-ins and the alpha-tested foliage stand-in at its
+16,384 cards, the suite and the materials scene under the sky) on the card
+and prints the table. brainstem is BASELINE config 5:
 scenes.make_brainstem animated under the sky at 1024x1024, profiled
 twice, whole frames and then the refit alone.
 """
@@ -240,7 +241,7 @@ def main(argv=None) -> int:
     from ..renderer import GltfRenderer
 
     p = argparse.ArgumentParser(prog="vk_gltf_renderer_tpu_torch.utils.profiler")
-    p.add_argument("--scene", choices=("helmet", "terrain", "game", "suite", "materials", "brainstem"),
+    p.add_argument("--scene", choices=("helmet", "terrain", "game", "suite", "materials", "foliage", "brainstem"),
                    required=True)
     p.add_argument("--frames", type=int, default=3)
     p.add_argument("--size", type=int, nargs=2, default=None, metavar=("W", "H"),

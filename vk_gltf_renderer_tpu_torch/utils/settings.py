@@ -11,11 +11,11 @@ renderer.cpp:224-254), plus a recent-files list. The store is a JSON file:
 ONLY for options absent from argv — the same precedence: CLI beats saved
 settings beats built-in defaults.
 
-The port persists only the flags whose features it renders. A store shared
-with the JAX app (through VKGR_SETTINGS) may hold renderSystem or the
-infinite-plane flags, whose features the port has not ported and whose
-non-default values its CLI refuses: those saved values are never read, and
-`remember` leaves them in the file.
+The port persists only the flags whose features it renders: the
+reference's list but renderSystem. A store shared with the JAX app (through
+VKGR_SETTINGS) may hold renderSystem, whose rasterizer the port has not
+ported and whose non-default values its CLI refuses: that saved value is
+never read, and `remember` leaves it in the file.
 """
 
 from __future__ import annotations
@@ -36,6 +36,9 @@ PERSISTED = (
     "ptAperture",
     "ptFocalDistance",
     "tonemapper",
+    "infinitePlane",
+    "infinitePlaneDistance",
+    "infinitePlaneShadowCatcher",
 )
 MAX_RECENT = 10
 
