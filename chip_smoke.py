@@ -35,7 +35,12 @@ Phases (each raises on failure; nothing is caught):
      holds against the JAX reference, for the helmet, for each scene of
      phase 15 (game, suite, lit game, materials), for the foliage stand-in
      of phase 17 at 1,024 cards (its kernels meet the full-size tables in
-     phase 17) and for the helmet over the shadow-catcher plane;
+     phase 17) and for the helmet over the shadow-catcher plane; then the
+     viewer's frames (VIEWER_CHECKS): an animated brainstem frame with the
+     guides (the guides, lum_moments, the image and image_denoised), two
+     upscale-2 helmet frames (the TAAU history) and a sky and a wireframe
+     preview of the helmet, ids equal on >= 99.9% of pixels and every
+     other output within 1e-3 * (1 + |cpu|) on >= 99% of its pixels;
   6. large-scene kernels: the 1,059,968-triangle terrain scene
      (scenes.write_large_glb) with every kernel table built (shapes, bytes,
      build seconds and stack needs printed); on ~1M rays (camera rays of
@@ -51,7 +56,7 @@ Phases (each raises on failure; nothing is caught):
      selection (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) = (v3, v9), (v2, v2),
      (v6, v6), (lane, lane_stream), (v5, v5), (v7, v7), (v3, v8), switched
      on one renderer (each run from frame index 0 on fresh accumulation,
-     its tables built in its warm-up): 2 warm-up and 10 timed frames each,
+     its tables built in its warm-up): 2 warm-up and 4 timed frames each,
      the launch counters zeroed just before; each
      run must move its own kernels' counters and no other traversal
      counter, and its frame 0 must agree with the (v3, v9) one at
@@ -99,7 +104,7 @@ Phases (each raises on failure; nothing is caught):
      subset of 65,536 rays as in phase 6; visits, bound, stack need, table
      bytes and upload seconds printed;
  10. VKGR_TRAVERSAL=packet4 through the entry points at the bench recipe on
-     the terrain and on the helmet (2 warm-up and 10 timed frames each):
+     the terrain and on the helmet (2 warm-up and 4 timed frames each):
      only traverse_bvh4_split's counter may move among the traversal
      kernels, and frame 0 must agree with the (v3, v9) frame 0 of phases 7
      and 4 at tests/test_torch_frame.py's thresholds with the same ray count.
@@ -138,7 +143,9 @@ Phases (each raises on failure; nothing is caught):
      two-line cfg (helmet and terrain at 512x512, 4 frames) and `compare`
      of its CSV with itself, both rc 0; the bench entry
      (python -m vk_gltf_renderer_tpu_torch.bench_impl) as a child at its
-     full recipe, whose JSON line must read value > 0 with no error; and
+     recipe with 8 timed frames a scene (VKGR_BENCH_FRAMES; the recipe's
+     20 cut for the run's time), whose JSON line must read value > 0 with
+     no error; and
      utils/profiler.profile_frames on the helmet and the terrain at 1080p
      (3 frames each), both tables printed.
  15. the material model and punctual lights: the game stand-in under the
@@ -146,7 +153,7 @@ Phases (each raises on failure; nothing is caught):
      (scenes.make_lit_game_standin) at 1920x1080, the suite stand-in under
      the sky at 1024x1024, and scenes.make_materials_standin (every
      material family on a sphere, three lights) under the sky at
-     1920x1080, spp 1, depth 5, through the entry points: 2 warm-up and 12
+     1920x1080, spp 1, depth 5, through the entry points: 2 warm-up and 4
      timed frames each, ms/frame (mean, min, max), Mrays/s, the scene's
      triangles and table sizes, and the launches a frame of traverse_bvh4
      (closest and any hit apart, by counting the calls of
@@ -199,19 +206,41 @@ Phases (each raises on failure; nothing is caught):
      the walk's cost is its step count, so one call a kind), with each
      kind's bound; (c) every traversal kernel against its plain walk on
      the culled and split tables (phase 16c's checks on 65,536 of the
-     probe rays); (d) 1080p frames under each acceleration level (subtri:
-     2 warm-up and 12 timed; whole and none: 2 and 4, a depth cut for the
-     run's time; one renderer each, frame indices from 0), ms/frame,
+     probe rays); (d) 1080p frames under each acceleration level (2
+     warm-up and 4 timed each, a depth cut for the run's time; one
+     renderer each, frame indices from 0), ms/frame,
      Mrays/s, traverse_bvh4 launches a frame (the frame's profile is
      `python -m vk_gltf_renderer_tpu_torch.utils.profiler --scene
      foliage`), and the share of pixels within 2e-3 of subtri's image after as many
-     frames (subtri's image kept after its 6th; printed, not required:
+     frames (printed, not required:
      culling shifts which alpha round decides a BLEND surface, and rays
      that run out of rounds differ between levels, ROADMAP C); (e) the
      leaf material set from MASK to
      OPAQUE through sync_scene_changes: one host rebuild, timed, every
      source triangle back in the world; (f) headless.main on the helmet at
      1080p over the shadow-catcher plane at y -1.05 (6 frames, 5 timed).
+ 18. guides, denoise, TAAU, preview (what the viewer shows of a frame):
+     (a) BASELINE config 5 (scenes.make_brainstem, animated) at 1024x1024,
+     depth 5, with denoise_guides on: 2 warm-up and 6 timed frames, each
+     on_render then image_denoised() (temporal), both timed between two
+     synchronizes; every guide finite, spec_hitdist 65504 or below 1e4,
+     spec_albedo 0 on miss pixels, the denoised image finite; (b) the
+     helmet at 480x270 with its sphere moved by (0.3, 0, 0) through
+     SceneEditor between two guided frames: first_pos - first_pos_prev
+     within 1e-3 of the move on the sphere's pixels and of 0 on the other
+     hit pixels; (c) headless.main --upscale 2 --size 1920 1080 on the
+     helmet under the HDR (rendered at 960x540), 6 frames (5 timed): its
+     record, its PNG and image_upscaled() [1080,1920,3] finite; (d)
+     preview frames (render_system 1) of the helmet at 1920x1080 under the
+     sky and the HDR, each without and with the wireframe: 1 warm-up and 5
+     timed, ms/frame and the launches a frame of traverse_bvh4 (and of
+     gather_channels, under the HDR only), after image_denoised() timed
+     3 times on a guided 1080p helmet frame and profiled
+     (utils/profiler.profile_denoise, 3 calls; the sky preview too,
+     profile_frames); build_ibl's ms (best of 3)
+     per environment; (e) pick() at 16 fixed pixels equal to the port's
+     CPU pick of the same scene and camera, one traverse_bvh4 launch each.
+     The phase prints its seconds in a [time] line.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -261,6 +290,9 @@ from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 
 FRAME_W, FRAME_H, SPP, DEPTH = 1920, 1080, 1, 5
 WARMUP, TIMED = 2, 10
+# timed frames cut for the run's time: phase 7's per kernel selection, phase 10's per scene
+TERRAIN_TIMED, PACKET4_TIMED = 4, 4
+BENCH_CHILD_FRAMES = 8  # phase 14's bench_impl child: its timed frames a scene (a cut of the recipe's 20)
 PROFILED_FRAMES = 3  # frames each of phase 14's profiles covers
 SRC = "vk_gltf_renderer_tpu_torch/csrc/"
 REF = "vk_gltf_renderer_tpu/"
@@ -333,7 +365,7 @@ SPLIT_LEAF_BYTES = 64  # one tris row per triangle
 LEAF_NODE_BYTES = 32
 WAVEFRONT_SIZES = ((1920, 1080), (960, 540), (480, 270))
 SUITE_SIZE = (1024, 1024)  # the suite stand-in's frame (BASELINE cfg row 3)
-MATERIAL_TIMED = 12  # timed frames of each material scene
+MATERIAL_TIMED = 4  # timed frames of each material scene
 MATERIAL_FRAMES = ("game", "suite", "lit_game", "materials")  # phase 15's timed scenes
 MATERIAL_PROFILED = ("suite",)  # profiled after their timed frames
 MARCH_REPLAYS = ("game", "materials")  # phase 15's recorded frames
@@ -1148,6 +1180,73 @@ def phase_correctness(device, tmp):
         require(ids >= 0.999 and close >= 0.99 and rel.max() <= 1e-3,
                 f"{label}: card frame disagrees with the plain path")
         out[label] = dict(ids=float(ids), close=float(close), mean_rel=float(rel.max()), rays=rays_g)
+    out.update(_viewer_checks(device, tmp))
+    return out
+
+
+def _guided(r):
+    r.denoise_guides, r.animate = True, True
+
+
+def _upscaled(r):
+    r.upscale = 2
+
+
+def _preview(r, wireframe=False):
+    r.render_system, r.wireframe = 1, wireframe
+
+
+# phase 5's viewer checks: label -> (scene, setup, frames, outputs of the last frame by name)
+VIEWER_CHECKS = {
+    "guided_brainstem": ("brainstem", _guided, 1, lambda r, aux: {
+        **{k: aux[k] for k in ("first_rnode", "spec_albedo", "spec_hitdist", "first_pos_prev", "lum_moments")},
+        "image": r.image_linear(), "denoised": r.image_denoised()}),
+    "upscale2_helmet": ("helmet", _upscaled, 2, lambda r, aux: {"first_rnode": aux["first_rnode"],
+                                                                "taau_history": r._history_hi}),
+    "preview_helmet": ("helmet", _preview, 1, lambda r, aux: {"first_rnode": aux["first_rnode"],
+                                                              "image": r.image_linear()}),
+    "wireframe_helmet": ("helmet", lambda r: _preview(r, True), 1,
+                         lambda r, aux: {"first_rnode": aux["first_rnode"], "image": r.image_linear()}),
+}
+
+
+def _viewer_checks(device, tmp):
+    """Phase 5's viewer frames at 96x64 on the card against the port's CPU
+    path (VIEWER_CHECKS): ids equal on >= 99.9% of pixels, every other
+    output within 1e-3 * (1 + |cpu|) on >= 99% of its pixels."""
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.scenes import make_brainstem
+
+    d = os.path.join(tmp, "brainstem_check")
+    os.makedirs(d, exist_ok=True)
+    scenes = {"brainstem": make_brainstem(d), "helmet": os.path.join(tmp, "helmet.gltf")}
+    out = {}
+    for label, (scene, setup, frames, outputs) in VIEWER_CHECKS.items():
+        res = {}
+        for dev in (device, "cpu"):
+            r = GltfRenderer(96, 64, spp=1, max_depth=DEPTH, device=dev)
+            setup(r)
+            r.create_scene(scenes[scene])
+            for _ in range(frames):
+                aux = r.on_render()
+            res[str(dev)] = {k: np.asarray(v.cpu() if hasattr(v, "cpu") else v) for k, v in outputs(r, aux).items()}
+        card, cpu = res[str(device)], res["cpu"]
+        stats = {}
+        for k, ref in cpu.items():
+            got = card[k]
+            require(got.shape == ref.shape and np.isfinite(got.astype(np.float64)).all(),
+                    f"{label}: card {k} has the wrong shape or is not finite")
+            if k == "first_rnode":
+                stats["ids"] = float((got == ref).mean())
+                continue
+            px = ref.shape[0] * ref.shape[1] if ref.ndim == 3 else ref.shape[0]
+            stats[k] = float((np.abs(got - ref) <= 1e-3 * (1 + np.abs(ref))).reshape(px, -1).all(-1).mean())
+        log(f"[check] {label} 96x64 ({frames} frame{'s' if frames > 1 else ''}), card vs plain CPU path: "
+            f"first-hit ids equal {stats['ids']:.4f}, share within 1e-3 "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stats.items() if k != "ids"))
+        require(stats["ids"] >= 0.999 and all(v >= 0.99 for k, v in stats.items() if k != "ids"),
+                f"{label}: card frame disagrees with the plain path")
+        out[label] = stats
     return out
 
 
@@ -1220,7 +1319,7 @@ def phase_terrain_frames(device, glb, hdr, smi, tmp):
             m.COUNTER.launches = 0
             m.OVERFLOW.reset()
         tgather.COUNTER.launches = 0
-        times, rays, first = _render_frames(r, WARMUP, TIMED)
+        times, rays, first = _render_frames(r, WARMUP, TERRAIN_TIMED)
         launches = {name: m.COUNTER.launches for name, m in mods.items()}
         dropped = {name: m.OVERFLOW.total() for name, m in mods.items()}
         img = r.image_linear()
@@ -1234,7 +1333,7 @@ def phase_terrain_frames(device, glb, hdr, smi, tmp):
                 f"{selection}: image not finite or black")
         ms = 1e3 * float(np.mean(times))
         mrays = float(np.mean(rays)) / float(np.mean(times)) / 1e6
-        log(f"[terrain] {selection}: {TIMED} frames "
+        log(f"[terrain] {selection}: {TERRAIN_TIMED} frames "
             f"{ms:.2f} ms/frame (min {1e3 * min(times):.2f}, max {1e3 * max(times):.2f}), "
             f"{np.mean(rays):.0f} rays/frame, {mrays:.3f} Mrays/s on {smi}; launches {launches}")
         runs[selection] = dict(ms=ms, mrays=mrays, launches=launches, first=first)
@@ -1412,7 +1511,7 @@ def phase_packet4_frames(device, scenes, smi):
             m.COUNTER.launches = 0
             m.OVERFLOW.reset()
         tgather.COUNTER.launches = 0
-        times, rays, first = _render_frames(r, WARMUP, TIMED)
+        times, rays, first = _render_frames(r, WARMUP, PACKET4_TIMED)
         launches = {name: m.COUNTER.launches for name, m in mods.items()}
         dropped = {name: m.OVERFLOW.total() for name, m in mods.items()}
         require(all((v > 0) == (k == "traverse_bvh4_split") for k, v in launches.items()),
@@ -1423,7 +1522,7 @@ def phase_packet4_frames(device, scenes, smi):
         require(np.isfinite(img).all() and img.mean() > 0.01, f"packet4 {label}: image not finite or black")
         ms = 1e3 * float(np.mean(times))
         mrays = float(np.mean(rays)) / float(np.mean(times)) / 1e6
-        log(f"[packet4] {label}: create_scene+create_hdr {secs:.1f} s; {TIMED} frames {ms:.2f} ms/frame "
+        log(f"[packet4] {label}: create_scene+create_hdr {secs:.1f} s; {PACKET4_TIMED} frames {ms:.2f} ms/frame "
             f"(min {1e3 * min(times):.2f}, max {1e3 * max(times):.2f}), {np.mean(rays):.0f} rays/frame, "
             f"{mrays:.3f} Mrays/s on {smi}; launches {launches['traverse_bvh4_split']} of "
             f"traverse_bvh4_split, {tgather.COUNTER.launches} of gather_channels")
@@ -1726,6 +1825,7 @@ def phase_frontends(device, tmp, glb, smi):
     torch.cuda.empty_cache()
     env = {k: v for k, v in os.environ.items() if not k.startswith("VKGR_BENCH_")}
     env["VKGR_BENCH_SCENE2_TIMEOUT"] = "300"
+    env["VKGR_BENCH_FRAMES"] = str(BENCH_CHILD_FRAMES)
     proc = subprocess.run([sys.executable, "-m", "vk_gltf_renderer_tpu_torch.bench_impl"], cwd=str(ROOT),
                           env=env, capture_output=True, text=True, timeout=400)
     bench_line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
@@ -2174,7 +2274,7 @@ def _kernel_checks(tag, bvh, comps, tmin, far, shadow_tmax, sub):
 
 FOLIAGE_CARDS = 16384  # scenes.make_foliage_standin at its full size: 32,768 source triangles
 CHECK_CARDS = 1024  # phase 5's card-against-CPU foliage: the CPU build and frame of the full size take seconds
-FOLIAGE_TIMED = {"subtri": 12, "whole": 4, "none": 4}  # timed 1080p foliage frames by acceleration level
+FOLIAGE_TIMED = {"subtri": 4, "whole": 4, "none": 4}  # timed 1080p foliage frames by acceleration level
 LEVELS = ("subtri", "whole", "none")  # opacity classes per cell, per triangle, none (GltfRenderer._alpha_classes)
 REPLAY_WALKED = 8192  # lanes of each replayed alpha launch that the plain walk takes
 PLANE_HEIGHT = -1.05  # the helmet stand-in's shadow-catcher plane: between its plate (y -1.1) and its sphere
@@ -2449,6 +2549,203 @@ def phase_alpha(device, tmp, hdr, smi):
     return out
 
 
+VIEWER_SIZE = (1024, 1024)  # phase 18a: BASELINE config 5's frame
+VIEWER_WARMUP, VIEWER_TIMED = 2, 6  # phase 18a's guided frames
+PREVIEW_TIMED = 5  # phase 18d: timed preview frames of each configuration, after 1 warm-up
+MOVED_BY_X = (0.3, 0.0, 0.0)  # phase 18b: the helmet's sphere instance moves by this between two frames
+PICK_PIXELS = [(x, y) for x in (760, 900, 1020, 1160) for y in (380, 500, 600, 760)]  # phase 18e, 1080p
+
+
+def _sync_ms(fn):
+    """(result, host ms) of fn between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_viewer(device, tmp, hdr, smi):
+    """Phase 18: what the viewer shows of a frame on the card: guided
+    frames and image_denoised, instance motion, headless --upscale 2 and
+    the preview, and picking."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import headless
+    from vk_gltf_renderer_tpu_torch import renderer as trenderer
+    from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops.ibl import build_ibl
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.scenes import make_brainstem
+    from vk_gltf_renderer_tpu_torch.utils.png import read_png
+    from vk_gltf_renderer_tpu_torch.utils.profiler import format_table, profile_denoise, profile_frames
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    helmet = os.path.join(tmp, "helmet.gltf")
+
+    def zero():
+        tb4.COUNTER.launches = tgather.COUNTER.launches = 0
+
+    def per_frame(frames):
+        return {"traverse_bvh4": tb4.COUNTER.launches / frames, "gather_channels": tgather.COUNTER.launches / frames}
+
+    # (a) BASELINE config 5 with the guides: each frame on_render, then image_denoised
+    d = os.path.join(tmp, "brainstem_viewer")
+    os.makedirs(d, exist_ok=True)
+    w, h = VIEWER_SIZE
+    r = GltfRenderer(w, h, spp=SPP, max_depth=DEPTH, device=device)
+    r.denoise_guides = r.animate = True
+    r.create_scene(make_brainstem(d))
+    zero()
+    frame_ms, den_ms, rays = [], [], []
+    for i in range(VIEWER_WARMUP + VIEWER_TIMED):
+        aux, ms = _sync_ms(r.on_render)
+        den, dms = _sync_ms(lambda: r.image_denoised())
+        miss = ~aux["solid"]
+        hd = aux["spec_hitdist"]
+        require(all(bool(torch.isfinite(aux[k]).all()) for k in ("albedo", "normal", "roughness", "spec_albedo",
+                                                                  "spec_hitdist", "first_pos_prev",
+                                                                  "lum_moments")),
+                f"guided frame {i}: a guide is not finite")
+        require(bool(((hd == 65504.0) | (hd < 1e4)).all()), f"guided frame {i}: spec_hitdist out of range")
+        require(bool((aux["spec_albedo"][miss] == 0).all()), f"guided frame {i}: spec_albedo on a miss pixel")
+        require(den.shape == (h, w, 3) and np.isfinite(den).all(), f"guided frame {i}: denoised image")
+        if i >= VIEWER_WARMUP:
+            frame_ms.append(ms)
+            den_ms.append(dms)
+            rays.append(float(aux["rays"]))
+    launches["guided_brainstem"] = per_frame(VIEWER_WARMUP + VIEWER_TIMED)
+    require(launches["guided_brainstem"]["traverse_bvh4"] > 0, "guided frames: traverse_bvh4 never launched")
+    captured = int((aux["spec_hitdist"] > 0).sum())
+    out["guided_brainstem"] = dict(size=f"{w}x{h}", ms=float(np.mean(frame_ms)), min_ms=min(frame_ms),
+                                   max_ms=max(frame_ms), denoise_ms=float(np.mean(den_ms)),
+                                   denoise_min_ms=min(den_ms), mrays=float(np.mean(rays)) / float(np.mean(frame_ms))
+                                   / 1e3, launches_per_frame=launches["guided_brainstem"])
+    log(f"[viewer] brainstem {w}x{h} guided, animated, {VIEWER_TIMED} frames: {np.mean(frame_ms):.2f} ms/frame "
+        f"(min {min(frame_ms):.2f}, max {max(frame_ms):.2f}), image_denoised {np.mean(den_ms):.2f} ms "
+        f"(min {min(den_ms):.2f}) on {smi}; {captured} pixels with a specular hit distance; launches a frame "
+        f"{launches['guided_brainstem']}")
+    del r
+
+    # (b) instance motion: the helmet's sphere moved between two guided frames
+    r = GltfRenderer(480, 270, spp=SPP, max_depth=2, device=device)
+    r.denoise_guides = True
+    r.create_scene(helmet)
+    r.on_render()
+    nid = r.scene.render_nodes[0].ref_node_id
+    t = list(r.scene.model.nodes[nid].get("translation", [0.0, 0.0, 0.0]))
+    SceneEditor(r.scene).set_translation(nid, [a + b for a, b in zip(t, MOVED_BY_X)])
+    aux = r.on_render()
+    motion = (aux["first_pos"] - aux["first_pos_prev"]).cpu().numpy()
+    rn = aux["first_rnode"].cpu().numpy()
+    moved, still = rn == 0, (rn >= 0) & (rn != 0)
+    err_moved = float(np.abs(motion[moved] - np.asarray(MOVED_BY_X)).max())
+    err_still = float(np.abs(motion[still]).max())
+    log(f"[viewer] helmet 480x270, sphere moved by {MOVED_BY_X}: first_pos - first_pos_prev on its {moved.sum()} "
+        f"pixels within {err_moved:.2e} of the move, on the {still.sum()} other hit pixels within {err_still:.2e} of 0")
+    require(moved.sum() > 100 and err_moved <= 1e-3 and err_still <= 1e-3, "instance motion is wrong")
+    out["instance_motion"] = dict(moved_px=int(moved.sum()), err_moved=err_moved, err_still=err_still)
+    del r
+
+    # (c) headless --upscale 2 at 1920x1080 (rendered at 960x540); the renderer kept at save_image
+    kept = []
+    save = trenderer.GltfRenderer.save_image
+    trenderer.GltfRenderer.save_image = lambda self, path: (kept.append(self), save(self, path))[1]
+    png = os.path.join(tmp, "upscale.png")
+    zero()
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            rc = headless.main(["--headless", "--scenefile", helmet, "--hdrfile", hdr, "--envSystem", "1",
+                                "--size", str(FRAME_W), str(FRAME_H), "--frames", "6", "--upscale", "2",
+                                "--output", png, "--device", str(device)])
+    finally:
+        trenderer.GltfRenderer.save_image = save
+    launches["taau_helmet"] = per_frame(6)
+    line, rec = _headless_record(buf.getvalue())
+    with open(png, "rb") as f:
+        pimg = read_png(f.read())
+    up = kept[0].image_upscaled()
+    log(f"[viewer] headless --upscale 2 rc {rc}: {line}; image_upscaled {up.shape}, PNG {pimg.shape}; launches "
+        f"a frame {launches['taau_helmet']}")
+    require(rc == 0 and rec["frames"] == 5 and rec["Mrays_per_sec"] > 0 and launches["taau_helmet"]["traverse_bvh4"] > 0
+            and launches["taau_helmet"]["gather_channels"] > 0, f"upscale headless record {rec}, launches")
+    require(kept[0].width * 2 == FRAME_W and up.shape == (FRAME_H, FRAME_W, 3) and np.isfinite(up).all()
+            and pimg.shape == (FRAME_H, FRAME_W, 3) and pimg.mean() > 1, "upscaled image is wrong")
+    out["taau_headless"] = dict(rec, launches_per_frame=launches["taau_helmet"])
+    del kept
+
+    # image_denoised of a guided 1080p helmet frame under the HDR (3 calls after 2 frames)
+    r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+    r.denoise_guides = True
+    r.create_scene(helmet)
+    r.create_hdr(hdr)
+    for _ in range(2):
+        r.on_render()
+    den_ms = [_sync_ms(lambda: r.image_denoised())[1] for _ in range(3)]
+    prof = profile_denoise(r, PROFILED_FRAMES)
+    out["denoise_helmet_1080p"] = dict(ms=float(np.mean(den_ms)), min_ms=min(den_ms),
+                                       profile={k: v for k, v in prof.items() if k != "top"})
+    log(f"[viewer] image_denoised of a guided helmet {FRAME_W}x{FRAME_H} frame: {np.mean(den_ms):.2f} ms "
+        f"(min {min(den_ms):.2f}) on {smi}")
+    log(format_table(prof, f"[viewer] profile image_denoised {FRAME_W}x{FRAME_H} on {smi}, "))
+    del r
+
+    # (d) preview frames of the helmet at 1080p: sky, HDR, each with and without the wireframe
+    r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device, render_system=1)
+    r.create_scene(helmet)
+    ibl_ms = {}
+    for env in ("sky", "hdr"):
+        if env == "hdr":
+            r.create_hdr(hdr)
+        ibl_ms[env] = min(_sync_ms(lambda: build_ibl(r._env(), r.env_kind))[1] for _ in range(3))
+        for wire in (False, True):
+            r.wireframe = wire
+            label = f"preview_{env}" + ("_wireframe" if wire else "")
+            _sync_ms(r.on_render)
+            zero()
+            times = [_sync_ms(r.on_render)[1] for _ in range(PREVIEW_TIMED)]
+            launches[label] = per_frame(PREVIEW_TIMED)
+            img = r.image_linear()
+            require(img.shape == (FRAME_H, FRAME_W, 3) and np.isfinite(img).all() and img.mean() > 0.01,
+                    f"{label}: image not finite or black")
+            require(launches[label]["traverse_bvh4"] > 0 and (env == "hdr") == (launches[label]["gather_channels"] > 0),
+                    f"{label}: launches {launches[label]}")
+            out[label] = dict(ms=float(np.mean(times)), min_ms=min(times), max_ms=max(times),
+                              rays=float(r._last_aux["rays"]), launches_per_frame=launches[label])
+            log(f"[viewer] {label} {FRAME_W}x{FRAME_H}: {np.mean(times):.2f} ms/frame (min {min(times):.2f}, max "
+                f"{max(times):.2f}), {float(r._last_aux['rays']):.0f} rays a frame, launches a frame "
+                f"{launches[label]} on {smi}")
+            if label == "preview_sky":
+                prof = profile_frames(r, PROFILED_FRAMES)
+                out[label]["profile"] = {k: v for k, v in prof.items() if k != "top"}
+                log(format_table(prof, f"[viewer] profile {label} {FRAME_W}x{FRAME_H} on {smi}, "))
+    out["build_ibl_ms"] = ibl_ms
+    log(f"[viewer] build_ibl (best of 3): sky {ibl_ms['sky']:.2f} ms, hdr {ibl_ms['hdr']:.2f} ms")
+
+    # (e) picks on the card against the port's CPU pick of the same scene and camera
+    cpu = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device="cpu")
+    cpu.create_scene(helmet)
+    zero()
+    picks = [r.pick(x, y) for x, y in PICK_PIXELS]
+    pick_launches = tb4.COUNTER.launches
+    cpu_picks = [cpu.pick(x, y) for x, y in PICK_PIXELS]
+    log(f"[viewer] pick at {len(PICK_PIXELS)} pixels: card {picks}, CPU {cpu_picks}; traverse_bvh4 launches "
+        f"{pick_launches}")
+    require(picks == cpu_picks and pick_launches == len(PICK_PIXELS) and {0, 1} <= set(picks),
+            "card picks differ from the CPU's")
+    out["picks"] = picks
+    out["launches_per_frame"] = launches
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"[time] viewer phase {secs:.1f} s")
+    return out
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -2516,6 +2813,8 @@ def main():
         log(f"[time] animation and refit done at {time.perf_counter() - t_start:.1f} s")
         alpha = phase_alpha(device, tmp, hdr, smi)
         log(f"[time] alpha and the plane done at {time.perf_counter() - t_start:.1f} s")
+        viewer = phase_viewer(device, tmp, hdr, smi)
+        log(f"[time] guides, denoise, TAAU and preview done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -2539,11 +2838,16 @@ def main():
                alpha_launches_per_frame=alpha["replay"]["launches_per_frame"],
                alpha_replay=alpha["replay"]["frame"],
                alpha_launches=alpha["replay"]["launches"], alpha_launches_fields=alpha["replay"]["launches_fields"],
-               foliage=alpha["kernels"]["traverse_bvh4"]),
+               foliage=alpha["kernels"]["traverse_bvh4"],
+               viewer_launches_per_frame={label: v["traverse_bvh4"]
+                                          for label, v in viewer["launches_per_frame"].items()},
+               pick_launches=len(PICK_PIXELS)),
         _entry("gather_channels", launches["gather_channels"], kern["gather_channels"],
                headless_launches=front["launches"]["gather_channels"],
                material_launches_per_frame={label: m["per_frame"]["gather_channels"]
-                                            for label, m in material.items()}),
+                                            for label, m in material.items()},
+               viewer_launches_per_frame={label: v["gather_channels"]
+                                          for label, v in viewer["launches_per_frame"].items()}),
     ]
     for name, sel in (("traverse_bvh2", ("v2", "v2")), ("traverse_bvh16", ("v6", "v6")),
                       ("traverse_lanes", ("lane", "lane_stream")),
@@ -2614,7 +2918,8 @@ def main():
                                           for label, m in material.items()},
                       "card_vs_cpu": checks, "animation": anim,
                       "alpha": {k: v for k, v in alpha.items() if k not in ("replay", "kernels")},
-                      "foliage_kernels": alpha["kernels"]}))
+                      "foliage_kernels": alpha["kernels"],
+                      "viewer": {k: v for k, v in viewer.items() if k != "launches_per_frame"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -24,6 +24,7 @@ import sys
 import tempfile
 
 SCENES = ("game", "suite", "lit_game", "materials")
+TIMED = 12  # timed frames of each scene and side (chip_smoke.py's own phase 15 takes fewer)
 PROFILE_KEYS = ("kernel_ms_per_frame", "launches_per_frame", "wall_ms_per_frame", "busy_share")
 
 
@@ -38,6 +39,7 @@ def child(root, tag, out):
     if not cs.__file__.startswith(root):
         raise SystemExit(f"frame_ab: imported {cs.__file__}, not the checkout at {root}")
     cs.MATERIAL_FRAMES = SCENES
+    cs.MATERIAL_TIMED = TIMED
     cs.MATERIAL_PROFILED = ()
     device, smi = cs.phase_device()
     cs.phase_build()

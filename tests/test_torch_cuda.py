@@ -910,3 +910,72 @@ def test_probe_uarch_matches_plain(cuda, op):
     assert tua.COUNTER.launches == launches + 1
     assert torch.equal(out.cpu(), tua.probe_uarch_plain(op, tab, b, 2000))
     assert int(cycles.item()) >= 2000
+
+
+# ------------------------------------------------------------ what a viewer shows, card against CPU
+
+
+def _frame_outputs(device, scene, setup, frames, outputs):
+    """Render `frames` frames of a 96x64 GltfRenderer on `device` after
+    setup(r); returns outputs(r, aux) of the last frame as numpy arrays."""
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    r = GltfRenderer(96, 64, spp=1, max_depth=5, device=device)
+    setup(r)
+    r.create_scene(scene)
+    for _ in range(frames):
+        aux = r.on_render()
+    return {k: np.asarray(v.cpu() if hasattr(v, "cpu") else v) for k, v in outputs(r, aux).items()}
+
+
+def _agree_card_cpu(card, cpu, ids=("first_rnode",)):
+    """chip_smoke.py phase 5's thresholds: ids equal on >= 99.9% of pixels,
+    every other output within 1e-3 * (1 + |cpu|) on >= 99% of its pixels."""
+    for k, ref in cpu.items():
+        got = card[k]
+        assert got.shape == ref.shape and np.isfinite(got.astype(np.float64)).all(), k
+        if k in ids:
+            assert (got == ref).mean() >= 0.999, k
+        else:
+            px = ref.shape[0] * ref.shape[1] if ref.ndim == 3 else ref.shape[0]  # [H,W,C] or [N(,C)]
+            close = (np.abs(got - ref) <= 1e-3 * (1 + np.abs(ref))).reshape(px, -1).all(-1)
+            assert close.mean() >= 0.99, (k, close.mean())
+
+
+def _guided(r):
+    r.denoise_guides = True
+    r.animate = True
+
+
+def _upscaled(r):
+    r.upscale = 2
+
+
+VIEWER_CASES = {
+    "guided_brainstem": ("brainstem", _guided, 2, lambda r, aux: {
+        **{k: aux[k] for k in ("first_rnode", "spec_albedo", "spec_hitdist", "first_pos_prev", "lum_moments")},
+        "image": r.image_linear(), "denoised": r.image_denoised()}),
+    "upscale2_helmet": ("helmet", _upscaled, 2, lambda r, aux: {"first_rnode": aux["first_rnode"],
+                                                                "history": r._history_hi}),
+    "preview_helmet": ("helmet", lambda r: setattr(r, "render_system", 1), 1,
+                       lambda r, aux: {"first_rnode": aux["first_rnode"], "image": r.image_linear()}),
+    "wireframe_helmet": ("helmet", lambda r: (setattr(r, "render_system", 1), setattr(r, "wireframe", True)), 1,
+                         lambda r, aux: {"first_rnode": aux["first_rnode"], "image": r.image_linear()}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VIEWER_CASES))
+def test_viewer_frames_card_match_cpu(cuda, case):
+    """The guided brainstem frame (guides, moments, image_denoised), two
+    upscale-2 frames (the TAAU history) and the sky and wireframe preview
+    frames of the helmet: on the card (the traversal kernel) against the
+    port's plain CPU path."""
+    from vk_gltf_renderer_tpu_torch.scenes import make_brainstem
+
+    name, setup, frames, outputs = VIEWER_CASES[case]
+    with tempfile.TemporaryDirectory() as d:
+        scene = make_brainstem(d) if name == "brainstem" else make_helmet_standin(d)
+        launches = tb4.COUNTER.launches
+        card = _frame_outputs(cuda, scene, setup, frames, outputs)
+        assert tb4.COUNTER.launches > launches
+        _agree_card_cpu(card, _frame_outputs("cpu", scene, setup, frames, outputs))

@@ -220,17 +220,21 @@ def test_settings_overlay_matches_jax_and_ignores_unported_saved_flags(tmp_path)
     ref = _settings_scenario(jsettings, jheadless.build_parser, tmp_path)
     (tmp_path / "settings.json").unlink()
     assert _settings_scenario(settings, headless.build_parser, tmp_path) == ref
-    # a store the JAX app wrote with its rasterizer and infinite plane on: the plane (ported)
-    # is overlaid, the rasterizer (not ported) is not
-    jsettings.save_settings({"flags": {"renderSystem": 1, "infinitePlane": 1, "ptDepth": 4}})
+    # a store with the preview, the infinite plane and an upscale factor in it: the port overlays
+    # what the JAX app overlays (renderSystem, the plane, ptDepth; upscale is not a remembered
+    # flag in either) and remembers the same flags
+    store = {"flags": {"renderSystem": 1, "infinitePlane": 1, "ptDepth": 4, "upscale": 2}}
     argv = ["--scenefile", "x.glb"]
-    args = headless.build_parser().parse_args(argv)
-    settings.apply_saved_settings(args, argv)
-    headless.check_ported(args)  # never raises for a saved value
-    assert (args.renderSystem, args.infinitePlane, args.ptDepth) == (0, 1, 4)
-    settings.remember(args, None)
-    saved = json.loads((tmp_path / "settings.json").read_text())["flags"]
-    assert saved["renderSystem"] == 1 and saved["infinitePlane"] == 1  # the rasterizer's left for the JAX app
+    overlaid = []
+    for st, parser in ((jsettings, jheadless.build_parser), (settings, headless.build_parser)):
+        st.save_settings(store)
+        args = parser().parse_args(argv)
+        st.apply_saved_settings(args, argv)
+        overlaid.append((args.renderSystem, args.infinitePlane, args.ptDepth, args.upscale))
+        st.remember(args, None)
+        overlaid.append(json.loads((tmp_path / "settings.json").read_text())["flags"])
+    assert overlaid[0] == overlaid[2] == (1, 1, 4, 1) and overlaid[1] == overlaid[3]
+    headless.check_ported(args)  # a saved renderSystem is rendered, so never refused
     assert settings.settings_path() == tmp_path / "settings.json"
 
 
@@ -310,11 +314,37 @@ def test_bench_main_prints_one_json_line(tmp_path, monkeypatch, capsys):
     assert d["scene2"]["rays_per_frame"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--renderSystem", "1"], ["--wireframe", "1"], ["--upscale", "2"],
-                                  ["--output", "out.webp"], ["--upscale", "4"], ["--output", "out.jpg"]])
+@pytest.mark.parametrize("flag", [["--output", "out.webp"], ["--output", "out.jpg"]])
 def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported|PNG only"):
+    with pytest.raises(NotImplementedError, match="PNG only"):
         headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("flag", [["--renderSystem", "1"], ["--wireframe", "1"], ["--upscale", "2"],
+                                  ["--upscale", "4"]])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_formerly_unported_flags_match_jax_headless(flag, tmp_path, capsys):
+    """The flags A7 and A9 ported: the record and the PNG of the port's
+    headless run against the reference's, helmet stand-in under the HDR,
+    48x32, 3 frames (--wireframe with --renderSystem 1, its preview)."""
+    scene, hdr = _helmet(tmp_path)
+    if flag[0] == "--wireframe":
+        flag = ["--renderSystem", "1"] + flag
+    argv = ["--headless", "--scenefile", scene, "--hdrfile", hdr, "--envSystem", "1", "--size", str(W), str(H),
+            "--frames", str(FRAMES), "--ptDepth", str(DEPTH)] + flag
+    _, ref = _run(jheadless.main, argv + ["--output", str(tmp_path / "ref.png")], capsys)
+    _, rec = _run(headless.main, argv + ["--output", str(tmp_path / "port.png"), "--device", "cpu"], capsys)
+    for k in ("frames", "spp", "triangles", "width", "height", "max_depth", "env", "renderer"):
+        assert rec[k] == ref[k], k
+    assert rec["frames"] == FRAMES - 1 and rec["Mrays_per_sec"] > 0
+    assert rec["throughput_MSps"] > 0 and (rec["width"], rec["height"]) == (W, H)
+    img_r = read_png((tmp_path / "ref.png").read_bytes()).astype(np.int32)
+    img_p = read_png((tmp_path / "port.png").read_bytes()).astype(np.int32)
+    assert img_p.shape == img_r.shape == (H, W, 3)
+    assert img_p.mean() > 2, "black frame"
+    close = (np.abs(img_p - img_r) <= 1).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    np.testing.assert_allclose(img_p.mean(axis=(0, 1)), img_r.mean(axis=(0, 1)), atol=0.5)
 
 
 def test_profiler_summary_and_memory(tmp_path):

@@ -6,8 +6,9 @@ every traversal-kernel selection and under VKGR_TRAVERSAL=packet4 and
 wavefront, runs a small megakernel render, renders
 scenes.make_materials_standin (every material family, three punctual
 lights), animates scenes.make_brainstem through the device refit, renders
-scenes.make_foliage_standin (alpha) over the shadow-catcher plane, and
-runs the headless CLI and
+scenes.make_foliage_standin (alpha) over the shadow-catcher plane, renders
+guided frames upscaled 2x and denoises them, renders preview frames with the
+wireframe and picks, and runs the headless CLI and
 `benchmark run` on the CPU, each printing one BENCHMARK_JSON line; and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports either,
 or the reference's tools/."""
@@ -99,6 +100,25 @@ with tempfile.TemporaryDirectory() as d:
     assert r._config().alpha_any and r.bvh.attr_rnode.shape[0] > r.flat.tri_idx.shape[0]
     r.on_render()
     assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
+    # what a viewer shows: guided frames upscaled 2x, denoised, then preview frames of the helmet
+    # under the HDR with the wireframe, and a pick
+    r = GltfRenderer(16, 12, spp=1, max_depth=2, device="cpu")
+    r.denoise_guides, r.upscale, r.selection = True, 2, {0}
+    r.create_scene(d + "/helmet.gltf")
+    for _ in range(2):
+        aux = r.on_render()
+    assert {"spec_albedo", "spec_hitdist", "first_pos_prev", "lum_moments"} <= set(aux)
+    assert r.image_upscaled().shape == (24, 32, 3) and np.isfinite(r.image_upscaled()).all()
+    den = r.image_denoised()
+    assert den.shape == (12, 16, 3) and np.isfinite(den).all() and r.image_with_silhouette().shape == (12, 16, 3)
+    r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu", render_system=1)
+    r.wireframe = True
+    r.create_scene(d + "/helmet.gltf")
+    r.create_hdr(d + "/env.hdr")
+    for _ in range(2):
+        r.on_render()
+    assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
+    assert r.pick(12, 8) in (-1, 0, 1)
     # the front ends: headless and `benchmark run` on the CPU
     import contextlib, io
     from vk_gltf_renderer_tpu_torch import headless

@@ -149,7 +149,7 @@ def test_headless_infinite_plane_matches_jax_headless(tmp_path, capsys, monkeypa
     saved = settings.load_settings()["flags"]
     assert (saved["infinitePlane"], saved["infinitePlaneDistance"], saved["infinitePlaneShadowCatcher"]) == (
         1, PLANE_Y, 1)
-    assert set(settings.PERSISTED) == set(jsettings.PERSISTED) - {"renderSystem"}
+    assert settings.PERSISTED == jsettings.PERSISTED
     args = headless.build_parser().parse_args(["--scenefile", scene])
     settings.apply_saved_settings(args, ["--scenefile", scene])
     assert (args.infinitePlane, args.infinitePlaneDistance, args.infinitePlaneShadowCatcher) == (1, PLANE_Y, 1)

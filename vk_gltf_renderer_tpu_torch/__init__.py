@@ -10,6 +10,9 @@ tests/test_torch_host.py holds each copy equal to its original.
 Layers, from the entry point down:
   renderer.py     GltfRenderer: scene/HDR lifecycle, accumulation, output
   ops/pathtrace   one frame of samples: camera rays, bounce loop, NEE
+  ops/preview     one preview frame (ops/ibl: its prefiltered lighting)
+  ops/denoise, ops/temporal, ops/upscale, ops/postfx
+                  what the viewer shows: SVGF, reprojection, TAAU, outline, pick
   ops/*           hit state, materials, textures, sky/HDR, BSDF, tonemap
   ops/intersect   the traversal-kernel switch (VKGR_*_KERNEL names)
   ops/traverse_* + csrc/traverse_*.cu         traversal kernels

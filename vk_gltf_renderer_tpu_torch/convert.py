@@ -4,7 +4,8 @@ from_reference(flat, bvh, env, device) accepts any objects with the JAX
 package's field names (its SceneFlat / WorldBvh / env dicts, or this
 package's numpy copies; numpy or jax arrays) and returns the port's device
 dataclasses. The renderer uses it on its own host builders; the tests use
-it to hand both packages the same tables.
+it to hand both packages the same tables; ibl_to_device does the same for
+the preview's IBL prefilter products.
 
 DeviceRefit holds what the device refit reads (the deformable vertex
 state, the index tables of the world-triangle and hit-row bakes, and the
@@ -35,6 +36,7 @@ class DeviceScene:
     """The SceneFlat fields the device path reads."""
 
     rn_material: torch.Tensor  # [N] i32
+    rn_packed: torch.Tensor  # [N,32] f32 each render node's o2w | w2o, row-major 4x4 (the device refit's)
     mat_packed: torch.Tensor  # [M,K] f32 (ops/flat.MAT_LAYOUT)
     ti_index: torch.Tensor  # [TI] i32
     ti_texcoord: torch.Tensor  # [TI] i32
@@ -130,6 +132,7 @@ def scene_to_device(flat, device) -> DeviceScene:
     f32, i32 = np.float32, np.int32
     return DeviceScene(
         rn_material=_t(flat.rn_material, i32, device),
+        rn_packed=_t(flat.rn_packed, f32, device),
         mat_packed=_t(flat.mat_packed, f32, device),
         ti_index=_t(flat.ti_index, i32, device),
         ti_texcoord=_t(flat.ti_texcoord, i32, device),
@@ -307,6 +310,12 @@ def env_to_device(env, device):
     if "samp" in env:
         return HdrEnv.from_arrays(env, device)
     return SkyEnv.from_arrays(env, device)
+
+
+def ibl_to_device(products, device) -> dict:
+    """Reference build_ibl products (irr, spec, brdf; numpy or jax arrays)
+    -> the port's dict of float32 tensors (ops/ibl.py)."""
+    return {k: _t(products[k], np.float32, device) for k in ("irr", "spec", "brdf")}
 
 
 def from_reference(flat, bvh, env, device):

@@ -8,8 +8,10 @@ registration, docs/benchmarking.md recipe):
 
 Emits the same machine-readable lines as the reference: a HEADLESS_SUMMARY
 human line and a schema-1 BENCHMARK_JSON record. Renders on the card
-unless --device names the CPU. Flags of features the port has not ported
-raise NotImplementedError naming their ROADMAP item (section A).
+unless --device names the CPU. --upscale N renders at size/N and writes the
+TAAU image at the given size; --renderSystem 1 renders preview frames
+(--wireframe 1 overlays the triangle edges). An --output other than PNG
+raises NotImplementedError naming its ROADMAP item (section A).
 """
 
 from __future__ import annotations
@@ -18,14 +20,6 @@ import argparse
 import json
 import sys
 import time
-
-# flag -> (whether its value asks for a feature the port has not ported, the
-# ROADMAP item of that feature); the values the reference reads the same way
-UNPORTED = {
-    "renderSystem": (lambda v: v != 0, "A9 (preview: the rasterizer)"),
-    "wireframe": (bool, "A9 (preview: the wireframe overlay)"),
-    "upscale": (lambda v: v > 1, "A7 (denoise and TAA upscaling)"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,9 +69,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose feature is not ported."""
-    for flag, (asks, item) in UNPORTED.items():
-        if asks(getattr(args, flag)):
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: not ported (ROADMAP {item})")
     if args.output and not args.output.lower().endswith(".png"):
         raise NotImplementedError(f"--output {args.output}: the port writes PNG only "
                                   "(ROADMAP A12, image codecs)")
@@ -98,15 +89,19 @@ def main(argv=None) -> int:
     from .renderer import GltfRenderer
 
     w, h = args.size
+    rw, rh = (w // args.upscale, h // args.upscale) if args.upscale > 1 else (w, h)
     r = GltfRenderer(
-        width=w,
-        height=h,
+        width=rw,
+        height=rh,
         spp=args.ptSamples,
         max_depth=args.ptDepth,
         device=args.device,
         env_kind="hdr" if args.envSystem == 1 else "sky",
         tonemapper=args.tonemapper,
+        render_system=args.renderSystem,
     )
+    r.upscale = args.upscale
+    r.wireframe = bool(args.wireframe)
     r.firefly_clamp = args.ptFireflyClamp
     r.env_intensity = args.envIntensity
     r.env_rotation = args.envRotation
@@ -181,7 +176,7 @@ def main(argv=None) -> int:
 
     if timed > 0:
         ms_per_frame = wall / timed * 1000.0
-        msps = (w * h * args.ptSamples * timed) / wall / 1e6
+        msps = (rw * rh * args.ptSamples * timed) / wall / 1e6
         mrays = rays_timed / wall / 1e6
     else:
         ms_per_frame = msps = mrays = 0.0

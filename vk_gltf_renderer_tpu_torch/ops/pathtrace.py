@@ -39,9 +39,18 @@ stackless walk (intersect_rays_wavefront); neither reads the kernel names,
 and both trace shadow rays closest hit, as the reference's do
 (ops/pathtrace.py:404-411).
 
+With denoise_guides the tracer also keeps the reference's full denoiser
+guide set: the specular albedo (_env_brdf_approx2 of the first hit), the
+specular hit distance (the t of the trace after a first-bounce glossy or
+impulse reflection, 65504 on a miss), the first hit's previous-frame
+position through the previous frame's per-node transforms
+(frame["prev_rn_o2w"]) and the per-sample luminance moments summed over
+spp. taa_jitter places sample 0 at frame["cam_jitter"] (the TAAU Halton
+jitter) and still draws the Gaussian, so every later draw keeps its place.
+
 Not ported yet (RenderConfig.check_supported raises NotImplementedError,
-naming the ROADMAP.md queue A item): denoiser guides and TAA jitter (A7),
-batched spp and primary-hit seeding (A12).
+naming the ROADMAP.md queue A item): batched spp and primary-hit seeding
+(A12).
 """
 
 from __future__ import annotations
@@ -52,8 +61,8 @@ from dataclasses import dataclass
 import torch
 
 from . import rng
-from .bsdf import (DIRAC, EVENT_ABSORB, EVENT_GLOSSY_TRANSMISSION, EVENT_IMPULSE_TRANSMISSION,
-                   bsdf_evaluate, bsdf_sample)
+from .bsdf import (DIRAC, EVENT_ABSORB, EVENT_GLOSSY_REFLECTION, EVENT_GLOSSY_TRANSMISSION,
+                   EVENT_IMPULSE_REFLECTION, EVENT_IMPULSE_TRANSMISSION, bsdf_evaluate, bsdf_sample)
 from .camera import apply_depth_of_field, generate_rays
 from .hdr import eval_hdr, sample_hdr
 from .hitstate import get_hit_state_fused, safe_offset_ray
@@ -123,8 +132,9 @@ class RenderConfig:
     plane_metallic: float = 0.0
     plane_roughness: float = 0.5
     shadow_catcher_darken: float = 0.0
-    denoise_guides: bool = False
-    taa_jitter: bool = False
+    denoise_guides: bool = False  # the full denoiser guide set (see the module docstring)
+    taa_jitter: bool = False  # sample 0 at frame["cam_jitter"] (TAAU)
+    wireframe: bool = False  # the preview's barycentric edge overlay (ops/preview.py)
     spp_batch: bool = False
     primary_seed: bool = False
     # traversal switch (VKGR_TRAVERSAL, VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL);
@@ -137,8 +147,6 @@ class RenderConfig:
         """Raise NotImplementedError for anything the port cannot render
         yet, rather than rendering it half right."""
         missing = [name for name, on in (
-            ("denoiser guides (ROADMAP A7)", self.denoise_guides),
-            ("TAA jitter (ROADMAP A7)", self.taa_jitter),
             ("batched spp (ROADMAP A12)", self.spp_batch and self.spp > 1),
             ("primary-hit seeding (ROADMAP A12)", self.primary_seed),
         ) if on]
@@ -183,6 +191,37 @@ def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False, ke
         return intersect_rays_wavefront(bvh, ro, rd, tmin_b, tmax)
     return intersect_rays_soa(bvh, *soa_columns(ro, rd), tmin_b, tmax.contiguous(), anyhit=anyhit,
                               kernel=kernel)
+
+
+def _env_brdf_approx2(spec_color, alpha, nov):
+    """Integrated specular reflectance approximation [Ray Tracing Gems,
+    ch. 32]: the specular-albedo guide."""
+    nov = torch.abs(nov)
+    x = (torch.ones_like(nov), nov, nov * nov, nov ** 3)
+    y = (torch.ones_like(alpha), alpha, alpha * alpha, alpha ** 3)
+
+    def dot2(m, a, b):
+        return (m[0][0] * a[0] + m[0][1] * a[1]) * b[0] + (m[1][0] * a[0] + m[1][1] * a[1]) * b[1]
+
+    def dot3m(m, a, b):
+        r = [m[i][0] * a[0] + m[i][1] * a[1] + m[i][2] * a[2] for i in range(3)]
+        return r[0] * b[0] + r[1] * b[1] + r[2] * b[2]
+
+    m1 = ((0.99044, -1.28514), (1.29678, -0.755907))
+    m2 = ((1.0, 2.92338, 59.4188), (20.3225, -27.0302, 222.592), (121.563, 626.13, 316.627))
+    m3 = ((0.0365463, 3.32707), (9.0632, -9.04756))
+    m4 = ((1.0, 3.59685, -1.36772), (9.04401, -16.3174, 9.22949), (5.56589, 19.7886, -20.2123))
+    xw, yw, xzw = (x[0], x[1], x[3]), (y[0], y[1], y[3]), (x[0], x[2], x[3])
+    bias = dot2(m1, x, y) / torch.clamp(dot3m(m2, xw, yw), min=1e-6)
+    scale = dot2(m3, x, y) / torch.clamp(dot3m(m4, xzw, yw), min=1e-6)
+    bias = bias * torch.clamp(spec_color[..., 1] * 50.0, 0.0, 1.0)
+    return spec_color * torch.clamp(scale, min=0.0)[..., None] + torch.clamp(bias, min=0.0)[..., None]
+
+
+def _xform_point(m, p):
+    """Batched 4x4 point transform: m [...,4,4], p [...,3]."""
+    return (m[..., :3, 0] * p[..., 0:1] + m[..., :3, 1] * p[..., 1:2] + m[..., :3, 2] * p[..., 2:3]
+            + m[..., :3, 3])
 
 
 def sample_environment(env, d, cfg: RenderConfig):
@@ -381,8 +420,10 @@ def _hdr_background_fixup(state, env, cfg):
     return state
 
 
-def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_angle=0.0):
-    """Trace one sample per lane. Returns (radiance [N,3], aux dict, seed)."""
+def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_angle=0.0, prev_rn_o2w=None):
+    """Trace one sample per lane. Returns (radiance [N,3], aux dict, seed).
+    prev_rn_o2w [R,16]: the previous frame's per-node object-to-world
+    matrices, for the guides' first_pos_prev (zero without them)."""
     n = ro.shape[0]
     dev = ro.device
 
@@ -413,6 +454,9 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         seed=seed,
         rays=torch.zeros((), device=dev),
     )
+    if cfg.denoise_guides:
+        state.update(guide_spec_albedo=zeros(3), guide_spec_hitdist=zeros(),
+                     capture_spec=torch.zeros(n, dtype=torch.bool, device=dev), guide_pos_prev=zeros(3))
     feats = cfg.features
 
     def bounce(state, depth):
@@ -427,6 +471,14 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         hits, seed = _trace_with_alpha(scene, bvh, ro, rd, seed, cfg, alive,
                                        cfg.primary_kernel if first else cfg.packet_kernel)
         miss = hits["tri"] < 0
+
+        if cfg.denoise_guides:
+            # specular hit distance: this trace's t after a first-bounce reflection, taken before
+            # the plane test (a plane hit records a miss), 65504 (fp16 max) on a miss
+            cap = state["capture_spec"] & alive
+            hd = torch.where(miss, 65504.0, hits["t"])
+            state["guide_spec_hitdist"] = torch.where(cap, hd, state["guide_spec_hitdist"])
+            state["capture_spec"] = torch.zeros_like(cap)
 
         # the infinite plane y = plane_height, seen from above, where it is nearer than the hit
         if cfg.use_infinite_plane:
@@ -493,6 +545,20 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
             state["guide_albedo"] = torch.where(fh[..., None], pbr["base_color"], state["guide_albedo"])
             state["guide_normal"] = torch.where(fh[..., None], pbr["N"], state["guide_normal"])
             state["guide_rough"] = torch.where(fh, torch.sqrt(pbr["roughness"][..., 0]), state["guide_rough"])
+            if cfg.denoise_guides and prev_rn_o2w is not None:
+                # instance motion: the hit back in object space through the node's current w2o,
+                # out again through its previous-frame o2w
+                rn_safe = torch.clamp(hits["rnode"], min=0).long()
+                w2o = scene.rn_packed[rn_safe, 16:32].reshape(n, 4, 4)
+                prev_o2w = prev_rn_o2w[rn_safe].reshape(n, 4, 4)
+                pos_prev = _xform_point(prev_o2w, _xform_point(w2o, hs["pos"]))
+                state["guide_pos_prev"] = torch.where(fh[..., None], pos_prev, state["guide_pos_prev"])
+            if cfg.denoise_guides:
+                # the specular albedo: the KHR_materials_specular energy clamp, then EnvBRDFApprox2
+                f0i = ((pbr["ior2"] - pbr["ior1"]) / torch.clamp(pbr["ior2"] + pbr["ior1"], min=1e-6)) ** 2
+                scc = torch.clamp(f0i[..., None] * pbr["specular_color"], max=1.0)
+                spec_alb = _env_brdf_approx2(scc, pbr["roughness"][..., 0], dot3(pbr["N"], rd))
+                state["guide_spec_albedo"] = torch.where(fh[..., None], spec_alb, state["guide_spec_albedo"])
 
         # in-volume segment: Beer-Lambert absorption, and Henyey-Greenstein
         # scatter events where the medium scatters (KHR_materials_volume_scatter)
@@ -588,6 +654,10 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         state["last_pdf"] = torch.where(lane_hit, samp["pdf"], state["last_pdf"])
         new_dir = samp["k2"]
         absorbed = lane_hit & (samp["event"] == EVENT_ABSORB)
+        if cfg.denoise_guides and first:
+            # arm the specular hit-distance capture for the next trace
+            spec_ev = (samp["event"] == EVENT_GLOSSY_REFLECTION) | (samp["event"] == EVENT_IMPULSE_REFLECTION)
+            state["capture_spec"] = lane_hit & spec_ev & ~absorbed
 
         if "transmission" in feats:
             # a transmission event enters or leaves the medium; entering takes
@@ -668,6 +738,9 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         "roughness": state["guide_rough"],
         "rays": state["rays"],
     }
+    if cfg.denoise_guides:
+        aux.update(spec_albedo=state["guide_spec_albedo"], spec_hitdist=state["guide_spec_hitdist"],
+                   first_pos_prev=state["guide_pos_prev"])
     return state["radiance"], aux, state["seed"]
 
 
@@ -675,7 +748,10 @@ def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
     """Render one frame of cfg.spp samples for all W*H pixels.
 
     frame: dict(proj_inv [4,4], view_inv [4,4], frame_idx int, accum [W*H,3],
-    total_samples int, pixel_angle float). Returns (new_accum, aux)."""
+    total_samples int, pixel_angle float; cam_jitter [2] under taa_jitter,
+    prev_rn_o2w [R,16] with the guides). Returns (new_accum, aux); with the
+    guides aux also holds lum_moments [W*H,2], the sum over the samples of
+    (L, L^2) of their luminance after the clamps."""
     cfg.check_supported()
     w, h = cfg.width, cfg.height
     dev = frame["accum"].device
@@ -689,11 +765,14 @@ def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
     total = torch.zeros((n, 3), device=dev)
     rays_total = torch.zeros((), device=dev)
     aux_out = None
+    moments = torch.zeros((n, 2), device=dev) if cfg.denoise_guides else None
     for s in range(cfg.spp):
         ug, seed = rng.rand2(seed)
         gauss = 0.5 + ANTIALIASING_STD * rng.sample_gaussian(ug)
         uu, seed = rng.rand2(seed)
         jitter = gauss if s == 0 else uu
+        if cfg.taa_jitter and s == 0:
+            jitter = frame["cam_jitter"].expand(n, 2)
         ro, rd = generate_rays(sample_pos, jitter, image_size, frame["proj_inv"], frame["view_inv"],
                                orthographic=cfg.orthographic)
         if cfg.aperture > 0.0:
@@ -701,13 +780,17 @@ def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
             u2, seed = rng.rand(seed)
             ro, rd = apply_depth_of_field(ro, rd, frame["view_inv"], cfg.focal_distance, cfg.aperture, u1, u2)
         rad, aux, seed = path_trace_batch(scene, bvh, env, ro, rd, seed, cfg,
-                                          pixel_angle=frame.get("pixel_angle", 0.0))
+                                          pixel_angle=frame.get("pixel_angle", 0.0),
+                                          prev_rn_o2w=frame.get("prev_rn_o2w"))
         # a rare degenerate sample (0*inf through a near-zero pdf) must not
         # poison the accumulation buffer
         rad = torch.nan_to_num(rad, nan=0.0, posinf=0.0, neginf=0.0)
         lum = torch.mean(rad, dim=-1)
         scale = torch.where(lum > cfg.firefly_clamp, cfg.firefly_clamp / torch.clamp(lum, min=1e-20), 1.0)
         rad = rad * scale[..., None]
+        if moments is not None:
+            lum_s = 0.2126 * rad[:, 0] + 0.7152 * rad[:, 1] + 0.0722 * rad[:, 2]
+            moments = moments + torch.stack([lum_s, lum_s * lum_s], dim=-1)
         if s == 0:
             aux_out = dict(aux)  # first-hit captures come from sample 0
         total = total + rad
@@ -717,4 +800,6 @@ def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
     ts = torch.tensor(float(frame["total_samples"]), dtype=torch.float32, device=dev)
     new_accum = (frame["accum"] * ts + mean * cfg.spp) / (ts + cfg.spp)
     aux_out["rays"] = rays_total
+    if moments is not None:
+        aux_out["lum_moments"] = moments
     return new_accum, aux_out

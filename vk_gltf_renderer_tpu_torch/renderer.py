@@ -35,8 +35,21 @@ rebuilds when the opacity classes moved (a MASK material made OPAQUE
 un-culls its triangles). With animate on, on_render advances the current
 clip by anim_speed / 60 s a frame first.
 
-Not ported yet: the preview renderer, denoising, TAA upscaling, the
-silhouette overlay, picking and the adaptive sampler (ROADMAP.md). The
+What a viewer shows of a frame: with denoise_guides on, each frame keeps the
+full guide set and the per-sample luminance moments, and the renderer
+snapshots the per-node transforms for the next frame's instance motion;
+image_denoised() runs the à-trous denoiser (ops/denoise.py) and, with
+temporal, reprojects it against the last denoised frame (ops/temporal.py).
+With upscale > 1 the frames render at the given size with the Halton TAA
+jitter and each one folds into a display-resolution TAAU history
+(ops/upscale.py, image_upscaled()). selection outlines the selected render
+nodes (image_with_silhouette()); pick() traces one ray through the
+traversal selection. render_system 1 renders preview frames (ops/preview.py
+with the IBL of ops/ibl.py, built once per environment), which replace the
+accumulation rather than adding to it; wireframe overlays triangle edges on
+them.
+
+Not ported yet: the adaptive sampler (ROADMAP.md). The
 TPU fallback ladder (VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation)
 has no role here,
 and the reference's downgrade to the wavefront after kernel faults
@@ -63,13 +76,19 @@ from .models.variants import apply_variant, parse_variants
 from .ops.animation import bake_world_tris, morph_vertices, skin_vertices
 from .ops.bvh_flatten import add_kernel_tables, build_world_bvh
 from .ops.camera import pixel_angle
+from .ops.denoise import denoise_renderer
 from .ops.flat import build_scene_flat, refresh_materials
 from .ops.hdr import load_hdr_environment
 from .ops.hitstate import bake_hit_attrs
+from .ops.ibl import build_ibl
 from .ops.omm import classify_attr_alpha, classify_subtri
 from .ops.pathtrace import RenderConfig, render_frame_flat
+from .ops.postfx import pick_ray, silhouette
+from .ops.preview import render_preview
 from .ops.sky import SkyEnv, SkyParams
+from .ops.temporal import motion_vectors, temporal_accumulate
 from .ops.tonemap import tonemap
+from .ops.upscale import halton23, temporal_upscale
 from .utils import mathutil as mu
 from .utils.png import write_png
 
@@ -109,8 +128,9 @@ def fit_camera(scene: Scene, yfov=np.radians(45.0)) -> CameraState:
 
 class GltfRenderer:
     def __init__(self, width=512, height=512, spp=1, max_depth=5, *, device="cuda",
-                 env_kind="sky", tonemapper="filmic"):
+                 env_kind="sky", tonemapper="filmic", render_system=0):
         self.device = resolve_device(device)
+        self.render_system = render_system  # 0 = path tracer, 1 = preview
         self.width = width
         self.height = height
         self.spp = spp
@@ -144,6 +164,16 @@ class GltfRenderer:
         self.anim_speed = 1.0  # playback rate multiplier
         self._anim_tables_cache = None
         self._alpha_cls = self._subtri_cells = None  # the opacity classes the BVH was built with
+        self.denoise_guides = False  # the full denoiser guide set (turn on before rendering)
+        self.upscale = 1  # > 1: TAAU-reconstruct upscale x the render size
+        self.selection = set()  # selected render-node ids (silhouette)
+        self.wireframe = False  # preview edge overlay
+        self._prev_rn_o2w = None  # the last frame's per-node o2w [R,16] (instance motion)
+        self._prev_vp = None  # the last view-projection that image_denoised or _taau_step used
+        self._history = None  # the last image_denoised output (temporal reprojection)
+        self._history_hi = None  # display-res TAAU history [H*up, W*up, 4]
+        self._moments = None  # accumulated per-sample luminance moments [W*H,2]
+        self._ibl = self._ibl_key = None  # the preview's IBL products and their environment
 
     # -------------------------------------------------------------- scene
     def create_scene(self, path) -> None:
@@ -291,8 +321,9 @@ class GltfRenderer:
         """Transform, skin and morph update on the device (reference
         _refit_device, renderer.py:347): deform the vertices, rebuild the
         instance matrices (w2o by f64 inverse on the host), re-bake the world
-        triangles, refit every table family present and re-bake the hit
-        rows. No host readback. Returns False, for a rebuild, when the
+        triangles, refit every table family present, write the instance
+        matrices into the device scene and re-bake the hit rows. No host
+        readback. Returns False, for a rebuild, when the
         render-node count or visibility changed (the flattened BVH bakes
         the visible instance set)."""
         if self.flat is None or self.bvh is None:
@@ -338,10 +369,12 @@ class GltfRenderer:
         tris = bake_world_tris(ref.vtx_pos, ref.tri_idx, dev_f32(o2w), ref.wtri_rnode, ref.wtri_src_tri,
                                ref.wtri_bary)
         refit_device_bvh(dev, tris)
-        dev.hit_attr = bake_hit_attrs(ref.vtx_packed, ref.tri_idx, dev_f32(rn_packed), ref.attr_rnode,
+        # the instance matrices go to the device scene (instance motion reads them) and the host
+        # mirror; the deformed vertices stay on the device
+        self.dev_scene.rn_packed = dev_f32(rn_packed)
+        dev.hit_attr = bake_hit_attrs(ref.vtx_packed, ref.tri_idx, self.dev_scene.rn_packed, ref.attr_rnode,
                                       ref.attr_tri, ref.attr_has_uv, narrow=ref.narrow,
                                       attr_bary=ref.attr_bary)
-        # the host mirror keeps the instance matrices; the deformed vertices stay on the device
         self.flat = dataclasses.replace(self.flat, rn_o2w=o2w, rn_w2o=w2o, rn_packed=rn_packed)
         return True
 
@@ -357,9 +390,12 @@ class GltfRenderer:
 
     # -------------------------------------------------------------- frames
     def reset_frame(self) -> None:
-        """Restart accumulation."""
+        """Restart accumulation (the luminance moments and the TAAU history
+        restart too)."""
         self.total_samples = 0
         self.accum = torch.zeros((self.width * self.height, 3), dtype=torch.float32, device=self.device)
+        self._moments = None
+        self._history_hi = None
 
     def _config(self) -> RenderConfig:
         model = self.scene.model
@@ -386,6 +422,9 @@ class GltfRenderer:
             plane_height=self.plane_height,
             plane_shadow_catcher=self.plane_shadow_catcher,
             shadow_catcher_darken=self.shadow_catcher_darken,
+            denoise_guides=self.denoise_guides,
+            taa_jitter=self.upscale > 1,
+            wireframe=self.wireframe,
             traversal=os.environ.get("VKGR_TRAVERSAL", "packet"),
             primary_kernel=os.environ.get("VKGR_PRIMARY_KERNEL", "v3"),
             packet_kernel=os.environ.get("VKGR_PACKET_KERNEL", "v9"),
@@ -404,7 +443,7 @@ class GltfRenderer:
         def dev_f32(a):
             return torch.tensor(np.asarray(a, np.float32), device=self.device)
 
-        return {
+        out = {
             "proj_inv": dev_f32(np.linalg.inv(proj.astype(np.float64))),
             "view_inv": dev_f32(np.linalg.inv(view.astype(np.float64))),
             "frame_idx": self.frame_idx,
@@ -413,6 +452,39 @@ class GltfRenderer:
             # rounded to f32 like the reference's frame scalar
             "pixel_angle": float(np.float32(pixel_angle(cam.yfov, self.height))),
         }
+        if self.upscale > 1:
+            out["cam_jitter"] = dev_f32(halton23(self.frame_idx))
+        if self.denoise_guides and self.dev_scene is not None:
+            # the previous frame's transforms; the current ones on the first frame and after the
+            # node count changed (zero motion)
+            cur = self._rn_o2w()
+            prev = self._prev_rn_o2w
+            out["prev_rn_o2w"] = cur if prev is None or prev.shape != cur.shape else prev
+        return out
+
+    def _rn_o2w(self) -> torch.Tensor:
+        """The render nodes' current object-to-world matrices [R,16] on the device."""
+        return self.dev_scene.rn_packed[:, :16]
+
+    def _view_proj(self) -> torch.Tensor:
+        """Perspective view-projection of the camera (the reference uses the
+        perspective even for an orthographic camera here), f64 product
+        rounded to f32."""
+        cam = self.camera
+        view = mu.look_at(cam.eye, cam.center, cam.up)
+        proj = mu.perspective(cam.yfov, self.width / self.height, cam.znear, cam.zfar)
+        vp = proj.astype(np.float64) @ view.astype(np.float64)
+        return torch.tensor(vp.astype(np.float32), device=self.device)
+
+    def _ensure_ibl(self) -> dict:
+        """The preview's IBL products, rebuilt when the environment changes."""
+        key = (self.env_kind, id(self.hdr), self.env_intensity, self.env_rotation,
+               tuple(np.asarray(self.sky_params.sun_direction, np.float32).tolist())
+               if self.env_kind == "sky" else None)
+        if self._ibl is None or self._ibl_key != key:
+            self._ibl = build_ibl(self._env(), self.env_kind)
+            self._ibl_key = key
+        return self._ibl
 
     def _env(self):
         if self.env_kind == "hdr" and self.hdr is not None:
@@ -436,22 +508,100 @@ class GltfRenderer:
         cfg = self._config()
         cfg.check_supported()
         self._sync_kernel_tables(cfg)
-        accum, aux = render_frame_flat(self.dev_scene, self.dev_bvh, self._env(), self._frame_inputs(), cfg)
+        frame = self._frame_inputs()
+        if self.render_system == 1:
+            # a preview frame replaces the accumulation
+            frame["ibl"] = self._ensure_ibl()
+            accum, aux = render_preview(self.dev_scene, self.dev_bvh, self._env(), frame, cfg)
+        else:
+            accum, aux = render_frame_flat(self.dev_scene, self.dev_bvh, self._env(), frame, cfg)
         self.accum = accum
         self.total_samples += self.spp
         self.frame_idx += 1
         self._last_aux = aux
+        if self.upscale > 1:
+            # TAAU accumulates at display resolution: each frame's accum is that frame alone
+            self.total_samples = 0
+            self._taau_step()
+        if "lum_moments" in aux:
+            self._moments = aux["lum_moments"] if self._moments is None else self._moments + aux["lum_moments"]
+        if self.denoise_guides and self.dev_scene is not None:
+            self._prev_rn_o2w = self._rn_o2w()
         return aux
 
     # -------------------------------------------------------------- output
     def image_linear(self) -> np.ndarray:
         return self.accum.reshape(self.height, self.width, 3).cpu().numpy()
 
+    def _motion(self, vp, prev_vp) -> torch.Tensor:
+        """Motion vectors [H,W,2] of the last frame's first hits."""
+        h, w, aux = self.height, self.width, self._last_aux
+        prev_pos = aux["first_pos_prev"].reshape(h, w, 3) if "first_pos_prev" in aux else None
+        return motion_vectors(aux["first_pos"].reshape(h, w, 3), aux["solid"].reshape(h, w), prev_vp, vp, w, h,
+                              first_pos_prev=prev_pos)
+
+    def _taau_step(self) -> None:
+        """Fold the frame just rendered into the display-res TAAU history."""
+        vp = self._view_proj()
+        mv = self._motion(vp, self._prev_vp if self._prev_vp is not None else vp)
+        # frame_idx has advanced: the frame rendered with frame_idx - 1's jitter
+        self._history_hi = temporal_upscale(self.accum.reshape(self.height, self.width, 3), mv,
+                                            halton23(self.frame_idx - 1), self._history_hi, self.upscale)
+        self._prev_vp = vp
+
+    def image_upscaled(self) -> np.ndarray:
+        """The display-res linear image of the TAAU history (upscale > 1,
+        after a frame)."""
+        if self._history_hi is None:
+            raise RuntimeError("no TAAU history: set upscale > 1 and render")
+        return self._history_hi[..., :3].cpu().numpy()
+
     def image_tonemapped(self) -> np.ndarray:
         img = tonemap(self.accum.reshape(self.height, self.width, 3), self.tonemapper, self.exposure)
         return img.cpu().numpy()
 
+    def image_denoised(self, *, temporal: bool = True, iterations: int = 4) -> np.ndarray:
+        """The denoised linear image [H,W,3]: the à-trous denoiser over the
+        accumulation with the last frame's guides, then, with temporal,
+        blended into the previous denoised image reprojected by the motion
+        vectors."""
+        cur = denoise_renderer(self, iterations=iterations)
+        vp = self._view_proj()
+        if temporal and self._history is not None and self._prev_vp is not None and self._last_aux is not None:
+            valid = torch.ones((self.height, self.width), dtype=torch.bool, device=self.device)
+            cur = temporal_accumulate(cur, self._history, self._motion(vp, self._prev_vp), valid)
+        self._history = cur
+        self._prev_vp = vp
+        return cur.cpu().numpy()
+
+    def image_with_silhouette(self) -> np.ndarray:
+        """The tonemapped image with the selected render nodes outlined."""
+        img = tonemap(self.accum.reshape(self.height, self.width, 3), self.tonemapper, self.exposure)
+        if self.selection and self._last_aux is not None:
+            mask = torch.zeros(max(len(self.scene.render_nodes), 1), dtype=torch.bool)
+            for i in self.selection:
+                if 0 <= i < mask.shape[0]:
+                    mask[i] = True
+            oid = self._last_aux["first_rnode"].reshape(self.height, self.width)
+            img = silhouette(oid, mask.to(self.device), img)
+        return img.cpu().numpy()
+
+    def pick(self, px: int, py: int) -> int:
+        """The render node under pixel (px, py), or -1; a node marked
+        unselectable (KHR_node_selectability) gives -1."""
+        rid = pick_ray(self, px, py)
+        if rid >= 0:
+            rn = self.scene.render_nodes[rid]
+            node = self.scene.model.nodes[rn.ref_node_id] if rn.ref_node_id >= 0 else {}
+            if not node.get("extensions", {}).get("KHR_node_selectability", {}).get("selectable", True):
+                return -1
+        return rid
+
     def save_image(self, path) -> None:
-        """Write the tonemapped image as an 8-bit RGB PNG."""
-        img = (np.clip(self.image_tonemapped(), 0, 1) * 255).astype(np.uint8)
-        write_png(path, img)
+        """Write an 8-bit RGB PNG: the tonemapped TAAU image under upscale,
+        else the tonemapped image with the selection outlined."""
+        if self.upscale > 1 and self._history_hi is not None:
+            img = tonemap(self._history_hi[..., :3], self.tonemapper, self.exposure).cpu().numpy()
+        else:
+            img = self.image_with_silhouette()
+        write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))

@@ -193,6 +193,13 @@ def profile_refit(renderer, frames=3) -> dict:
     return _profile(renderer, step, frames)
 
 
+def profile_denoise(renderer, frames=3) -> dict:
+    """profile_frames of GltfRenderer.image_denoised alone (the SVGF
+    à-trous pass and the temporal reprojection over the last frame), one
+    call a frame."""
+    return _profile(renderer, renderer.image_denoised, frames)
+
+
 def _profile(renderer, step, frames) -> dict:
     dev = renderer.device
     if dev.type != "cuda":

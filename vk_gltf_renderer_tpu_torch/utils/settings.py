@@ -10,12 +10,6 @@ renderer.cpp:224-254), plus a recent-files list. The store is a JSON file:
 `apply_saved_settings(args, argv)` overlays saved values onto parsed args
 ONLY for options absent from argv — the same precedence: CLI beats saved
 settings beats built-in defaults.
-
-The port persists only the flags whose features it renders: the
-reference's list but renderSystem. A store shared with the JAX app (through
-VKGR_SETTINGS) may hold renderSystem, whose rasterizer the port has not
-ported and whose non-default values its CLI refuses: that saved value is
-never read, and `remember` leaves it in the file.
 """
 
 from __future__ import annotations
@@ -27,6 +21,7 @@ from pathlib import Path
 # flags worth remembering across runs (rendering preferences, not
 # per-invocation I/O like --scenefile/--output/--frames)
 PERSISTED = (
+    "renderSystem",
     "envSystem",
     "envIntensity",
     "envRotation",
@@ -78,8 +73,7 @@ def apply_saved_settings(args, argv) -> None:
 def remember(args, scene_path: str | None) -> None:
     """Persist the current flag values + update the recent-files list."""
     data = load_settings()
-    data["flags"] = {**data.get("flags", {}),
-                     **{k: getattr(args, k) for k in PERSISTED if hasattr(args, k)}}
+    data["flags"] = {k: getattr(args, k) for k in PERSISTED if hasattr(args, k)}
     if scene_path:
         recent = [scene_path] + [r for r in data.get("recent_files", []) if r != scene_path]
         data["recent_files"] = recent[:MAX_RECENT]
