@@ -56,7 +56,7 @@ Phases (each raises on failure; nothing is caught):
      selection (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) = (v3, v9), (v2, v2),
      (v6, v6), (lane, lane_stream), (v5, v5), (v7, v7), (v3, v8), switched
      on one renderer (each run from frame index 0 on fresh accumulation,
-     its tables built in its warm-up): 2 warm-up and 4 timed frames each,
+     its tables built in its warm-up): 2 warm-up and 3 timed frames each,
      the launch counters zeroed just before; each
      run must move its own kernels' counters and no other traversal
      counter, and its frame 0 must agree with the (v3, v9) one at
@@ -117,9 +117,9 @@ Phases (each raises on failure; nothing is caught):
  11. VKGR_TRAVERSAL=wavefront (the stackless walk in plain torch) on the
      helmet: a 480x270 frame 0 sizes the run (time scaled by pixel count),
      then 1 warm-up and 1 timed frame at the largest of 1920x1080, 960x540
-     and 480x270 predicted under 10 s (the sizing frame is the warm-up when
-     480x270 is chosen); no traversal kernel may launch, and frame 0 must
-     agree with a (v3, v9) frame 0 of the same size;
+     and 480x270 predicted under 10 s (when 480x270 is chosen, the sizing
+     frame is the timed frame); no traversal kernel may launch, and frame 0
+     must agree with a (v3, v9) frame 0 of the same size;
  12. probes (vk_gltf_renderer_tpu_torch/probes): probe_nodefetch at the TPU
      probe's sizes under all four variant names, then on random-cycle
      tables of the terrain's nodes4_fi size (11 MB, in L2) and of 268 MB
@@ -147,13 +147,13 @@ Phases (each raises on failure; nothing is caught):
      20 cut for the run's time), whose JSON line must read value > 0 with
      no error; and
      utils/profiler.profile_frames on the helmet and the terrain at 1080p
-     (3 frames each), both tables printed.
+     (2 frames each, as every profile of the run), both tables printed.
  15. the material model and punctual lights: the game stand-in under the
      HDR and the game with a point, a spot and a directional light
      (scenes.make_lit_game_standin) at 1920x1080, the suite stand-in under
      the sky at 1024x1024, and scenes.make_materials_standin (every
      material family on a sphere, three lights) under the sky at
-     1920x1080, spp 1, depth 5, through the entry points: 2 warm-up and 4
+     1920x1080, spp 1, depth 5, through the entry points: 2 warm-up and 3
      timed frames each, ms/frame (mean, min, max), Mrays/s, the scene's
      triangles and table sizes, and the launches a frame of traverse_bvh4
      (closest and any hit apart, by counting the calls of
@@ -236,11 +236,36 @@ Phases (each raises on failure; nothing is caught):
      timed, ms/frame and the launches a frame of traverse_bvh4 (and of
      gather_channels, under the HDR only), after image_denoised() timed
      3 times on a guided 1080p helmet frame and profiled
-     (utils/profiler.profile_denoise, 3 calls; the sky preview too,
+     (utils/profiler.profile_denoise, 2 calls; the sky preview too,
      profile_frames); build_ibl's ms (best of 3)
      per environment; (e) pick() at 16 fixed pixels equal to the port's
      CPU pick of the same scene and camera, one traverse_bvh4 launch each.
      The phase prints its seconds in a [time] line.
+ 19. the editor and the viewer: (a) edit_cli.main on the helmet stand-in
+     with --device cuda: render at 1920x1080 (depth 3, the shell's), then
+     after translating the helmet node, after its undo, and after `add
+     cube` (then undone): every PNG written, the undone render equal to
+     the first byte for byte, the moved and added renders different; ms
+     per render (cmd_render whole and its frame), traverse_bvh4 launches
+     of each render, and the launches of one such render recorded with
+     record_launches on a renderer built as cmd_render builds it, equal;
+     (b) viewer.main --size 1024 under the HDR with a key script (orbit,
+     select the plate, grid, gizmo, :translate and :undo on the card,
+     :gizmo pick on a pixel of the +X handle, denoised display, preview):
+     the PNG written, the pick equal to the same keys' pick on a CPU
+     viewer, ms and traverse_bvh4 / gather_channels launches of every
+     key-frame (each launches traverse_bvh4 and, under the HDR,
+     gather_channels), then grid_overlay and gizmo_overlay (each mode)
+     timed on a 1024x1024 image on the card; (c) the same script at
+     --size 96, depth 2, on the card and on the CPU: every frame's
+     accumulation and first-hit ids through _require_agree, the preview
+     shading with the card's IBL products on both, and those products
+     against the CPU's build (the BRDF LUT required within 1e-4; the
+     environment's products printed: their texel-edge lookups, ROADMAP
+     C); (d) 10 1080p
+     helmet frames under the HDR with GltfRenderer.adaptive =
+     AdaptiveSampler(target_fps=10): the spp sequence, every value a
+     bucket. `[editor]` and `[viewer]` lines, then a [time] line.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -291,9 +316,9 @@ from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 FRAME_W, FRAME_H, SPP, DEPTH = 1920, 1080, 1, 5
 WARMUP, TIMED = 2, 10
 # timed frames cut for the run's time: phase 7's per kernel selection, phase 10's per scene
-TERRAIN_TIMED, PACKET4_TIMED = 4, 4
+TERRAIN_TIMED, PACKET4_TIMED = 3, 4
 BENCH_CHILD_FRAMES = 8  # phase 14's bench_impl child: its timed frames a scene (a cut of the recipe's 20)
-PROFILED_FRAMES = 3  # frames each of phase 14's profiles covers
+PROFILED_FRAMES = 2  # frames (or calls) each profile of the run covers
 SRC = "vk_gltf_renderer_tpu_torch/csrc/"
 REF = "vk_gltf_renderer_tpu/"
 TRAV_SRC = SRC + "traverse_bvh4.cu"
@@ -365,7 +390,7 @@ SPLIT_LEAF_BYTES = 64  # one tris row per triangle
 LEAF_NODE_BYTES = 32
 WAVEFRONT_SIZES = ((1920, 1080), (960, 540), (480, 270))
 SUITE_SIZE = (1024, 1024)  # the suite stand-in's frame (BASELINE cfg row 3)
-MATERIAL_TIMED = 4  # timed frames of each material scene
+MATERIAL_TIMED = 3  # timed frames of each material scene
 MATERIAL_FRAMES = ("game", "suite", "lit_game", "materials")  # phase 15's timed scenes
 MATERIAL_PROFILED = ("suite",)  # profiled after their timed frames
 MARCH_REPLAYS = ("game", "materials")  # phase 15's recorded frames
@@ -1597,8 +1622,8 @@ def phase_wavefront_frame(device, path, hdr, smi):
     w, h = next(((w, h) for w, h in WAVEFRONT_SIZES if t_size * w * h / (w0 * h0) <= WAVEFRONT_FRAME_S),
                 WAVEFRONT_SIZES[-1])
     log(f"[wavefront] helmet {w0}x{h0} sizing frame {t_size:.2f} s: rendering at {w}x{h}")
-    if (w, h) == (w0, h0):  # the sizing frame was the warm-up
-        times, rays, _ = _render_frames(r, 0, 1)
+    if (w, h) == (w0, h0):  # the sizing frame is the timed frame
+        times, rays = [t_size], [first[3]]
     else:
         r = renderer(w, h)
         times, rays, first = _render_frames(r, 1, 1)
@@ -2679,7 +2704,7 @@ def phase_viewer(device, tmp, hdr, smi):
     out["taau_headless"] = dict(rec, launches_per_frame=launches["taau_helmet"])
     del kept
 
-    # image_denoised of a guided 1080p helmet frame under the HDR (3 calls after 2 frames)
+    # image_denoised of a guided 1080p helmet frame under the HDR (3 timed calls after 2 frames)
     r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
     r.denoise_guides = True
     r.create_scene(helmet)
@@ -2743,6 +2768,273 @@ def phase_viewer(device, tmp, hdr, smi):
     secs = time.perf_counter() - t_phase
     out["seconds"] = secs
     log(f"[time] viewer phase {secs:.1f} s")
+    return out
+
+
+EDIT_SIZE = (1920, 1080)  # phase 19a: edit_cli renders
+VIEWER_EDIT_SIZE = 1024  # phase 19b: the viewer's square frame
+VIEWER_CHECK_SIZE = 96  # phase 19c: card against CPU
+ADAPTIVE_FRAMES = 10  # phase 19d
+
+
+def _viewer_keys(px):
+    """Phase 19's key script: orbit, select the plate (node 1), grid, gizmo,
+    an edit and its undo (refits), a pick at pixel px, denoised display,
+    preview."""
+    return f"aw+]Gg:translate 1 0 0.1 0;:undo;:gizmo pick {px};np"
+
+
+def _pick_pixel(path, hdr, size):
+    """The pixel under 0.6 of the gizmo's +X axis after the script's first
+    keys, and the handle a CPU viewer picks there after the whole script
+    (keys only: no frame is rendered)."""
+    from vk_gltf_renderer_tpu_torch.ops.gizmo_draw import _Camera
+    from vk_gltf_renderer_tpu_torch.viewer import TerminalViewer
+
+    v = TerminalViewer(path, hdr, size=size, max_depth=2, device="cpu")
+    for k in "aw+]Gg":
+        v.handle_key(k)
+    _, pivot, axes, size_w = v._gizmo_frame()
+    cam = v.r.camera
+    (tip,), (front,) = _Camera(cam.eye, cam.center, cam.up, cam.yfov, size, size).project(
+        pivot[None] + axes[0][None] * size_w * 0.6)
+    require(bool(front), "gizmo handle behind the camera")
+    px = f"{tip[0]:.2f} {tip[1]:.2f}"
+    keys = _viewer_keys(px)
+    for k in keys[len("aw+]Gg"):]:
+        v.handle_key(k)
+    return px, v.gizmo_active
+
+
+def _viewer_run(argv, device, ibl=None):
+    """viewer.main(argv) with every frame_u8 between two synchronizes:
+    (stdout, [per frame: ms, traverse_bvh4 and gather_channels launches,
+    render_system, (linear image, first-hit rnode, first-hit tri, rays)],
+    the preview's IBL products). With ibl, the preview shades with those
+    products instead of building its own."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import viewer
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    frames, built = [], {}
+    frame_u8, ensure_ibl = viewer.TerminalViewer.frame_u8, GltfRenderer._ensure_ibl
+
+    def timed(self):
+        sync = torch.cuda.synchronize if self.r.device.type == "cuda" else (lambda: None)
+        sync()
+        n4, ng = tb4.COUNTER.launches, tgather.COUNTER.launches
+        t0 = time.perf_counter()
+        img = frame_u8(self)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        aux = self.r._last_aux
+        rn = aux["first_rnode"].cpu().numpy()
+        # a preview frame carries no first-hit triangle: its render node stands in
+        tri = aux["first_tri"].cpu().numpy() if "first_tri" in aux else rn
+        frames.append(dict(ms=ms, traverse_bvh4=tb4.COUNTER.launches - n4, gather_channels=tgather.COUNTER.launches - ng,
+                           render_system=self.r.render_system,
+                           first=(self.r.image_linear(), rn, tri, float(aux["rays"]))))
+        built["ibl"] = self.r._ibl
+        return img
+
+    viewer.TerminalViewer.frame_u8 = timed
+    if ibl is not None:
+        GltfRenderer._ensure_ibl = lambda self: {k: v.to(self.device) for k, v in ibl.items()}
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            rc = viewer.main(argv + ["--device", str(device)])
+    finally:
+        viewer.TerminalViewer.frame_u8, GltfRenderer._ensure_ibl = frame_u8, ensure_ibl
+    require(rc == 0, f"viewer.main rc {rc}")
+    return buf.getvalue(), frames, built.get("ibl")
+
+
+def _ibl_against_cpu(tag, card, cpu):
+    """The card's IBL products against the CPU's build of the same HDR. The
+    BRDF LUT reads no environment: within 1e-4 * (1 + |cpu|) everywhere,
+    required, and every product finite. The environment's products are
+    printed, not required: each of their lookups picks a texel of the
+    reduced map by truncation, and where a float32 direction lands within
+    an ulp of a texel edge the card's and the CPU's acos / atan2 / sin / cos
+    pick neighbours (the glossy chain's level-0 texel centres lie exactly
+    on such edges; ROADMAP C)."""
+    close = {k: (np.abs(card[k].cpu().numpy() - cpu[k].numpy()) <= 1e-4 * (1 + np.abs(cpu[k].numpy())))
+             for k in ("irr", "spec", "brdf")}
+    means = {"irr": abs(float(card["irr"].mean()) - float(cpu["irr"].mean())) / abs(float(cpu["irr"].mean()))}
+    means.update({f"spec{i}": abs(float(card["spec"][i].mean()) - float(cpu["spec"][i].mean()))
+                  / abs(float(cpu["spec"][i].mean())) for i in range(cpu["spec"].shape[0])})
+    log(f"{tag}: IBL card vs CPU, share within 1e-4: irr {close['irr'].mean():.6f}, spec {close['spec'].mean():.6f} "
+        f"(level 0 {close['spec'][0].mean():.6f}), brdf {close['brdf'].mean():.6f}; mean rel diff "
+        + ", ".join(f"{k} {v:.2e}" for k, v in means.items()))
+    require(all(bool(torch.isfinite(card[k]).all()) for k in card) and close["brdf"].all(),
+            f"{tag}: the IBL products are not finite or the BRDF LUT disagrees")
+    return dict(share_within_1e4={k: float(v.mean()) for k, v in close.items()}, mean_rel_diff=means)
+
+
+def phase_editor(device, tmp, hdr, smi):
+    """Phase 19: the editor and the viewer on the card: edit_cli renders
+    with an edit and its undo, the scripted viewer with the overlays, the
+    viewer card against CPU, and the adaptive sampler."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import edit_cli
+    from vk_gltf_renderer_tpu_torch import renderer as trenderer
+    from vk_gltf_renderer_tpu_torch.gizmo import Mode
+    from vk_gltf_renderer_tpu_torch.models import Scene
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops.gizmo_draw import auto_size, gizmo_overlay
+    from vk_gltf_renderer_tpu_torch.ops.grid import grid_overlay
+    from vk_gltf_renderer_tpu_torch.ops.hdr import load_hdr_environment
+    from vk_gltf_renderer_tpu_torch.ops.ibl import build_ibl
+    from vk_gltf_renderer_tpu_torch.renderer import AdaptiveSampler, GltfRenderer, fit_camera
+    from vk_gltf_renderer_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    out = {}
+    helmet = os.path.join(tmp, "helmet.gltf")
+
+    # (a) edit_cli at 1080p: render, translate + render, undo + render, add cube + render, undo
+    w, h = EDIT_SIZE
+    pngs = {k: os.path.join(tmp, f"edit_{k}.png") for k in ("before", "moved", "undone", "added")}
+    cmds = [f"render {pngs['before']} {w} {h}", "translate 0 0 0.25 0", f"render {pngs['moved']} {w} {h}", "undo",
+            f"render {pngs['undone']} {w} {h}", "add cube", f"render {pngs['added']} {w} {h}", "undo"]
+    renders = []
+    on_render, cmd_render = trenderer.GltfRenderer.on_render, edit_cli.EditShell.cmd_render
+
+    def frame(self):
+        torch.cuda.synchronize()
+        n4 = tb4.COUNTER.launches
+        t0 = time.perf_counter()
+        aux = on_render(self)
+        torch.cuda.synchronize()
+        renders[-1].update(frame_ms=1e3 * (time.perf_counter() - t0), traverse_bvh4=tb4.COUNTER.launches - n4)
+        return aux
+
+    def render(self, *a):
+        torch.cuda.synchronize()
+        renders.append({})
+        t0 = time.perf_counter()
+        cmd_render(self, *a)
+        renders[-1]["ms"] = 1e3 * (time.perf_counter() - t0)
+
+    trenderer.GltfRenderer.on_render, edit_cli.EditShell.cmd_render = frame, render
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            rc = edit_cli.main([helmet, "--device", str(device)] + [a for c in cmds for a in ("-c", c)])
+    finally:
+        trenderer.GltfRenderer.on_render, edit_cli.EditShell.cmd_render = on_render, cmd_render
+    printed = buf.getvalue()
+    require(rc == 0 and "error:" not in printed and printed.count("rendered ") == 4, f"edit_cli: {printed}")
+    data = {}
+    for k, path in pngs.items():
+        with open(path, "rb") as f:
+            data[k] = f.read()
+        require(read_png(data[k]).shape == (h, w, 3), f"edit_cli {k}.png")
+    require(data["undone"] == data["before"], "edit_cli: the undone render differs from the first")
+    require(data["moved"] != data["before"] and data["added"] != data["before"],
+            "edit_cli: an edit left the render unchanged")
+    require(len(renders) == 4 and all(r["traverse_bvh4"] > 0 for r in renders),
+            f"edit_cli renders without traverse_bvh4: {renders}")
+    # one render's launches, recorded on a renderer built as cmd_render builds it
+    sc = Scene()
+    sc.load(helmet)
+    r = GltfRenderer(width=w, height=h, spp=1, max_depth=3, device=device)
+    r.scene = sc
+    r.camera = fit_camera(sc)
+    r.rebuild_device_scene()
+    recorded, _ = record_launches(r, "traverse_bvh4")
+    del r
+    require(len(recorded) == renders[0]["traverse_bvh4"], f"recorded {len(recorded)} launches, counted {renders}")
+    out["edit_cli"] = dict(size=f"{w}x{h}", renders=renders, recorded_launches=len(recorded))
+    log(f"[editor] edit_cli --device cuda on the helmet at {w}x{h} depth 3: render ms (whole cmd_render / frame) "
+        + ", ".join(f"{k} {r['ms']:.1f}/{r['frame_ms']:.2f}" for k, r in zip(pngs, renders))
+        + f"; traverse_bvh4 launches a render {[r['traverse_bvh4'] for r in renders]} (recorded: {len(recorded)}); "
+        f"undone.png == before.png byte for byte, moved and added differ; on {smi}")
+
+    # (b) the viewer at 1024x1024 under the HDR on the card
+    size = VIEWER_EDIT_SIZE
+    px, cpu_pick = _pick_pixel(helmet, hdr, size)
+    png = os.path.join(tmp, "viewer.png")
+    printed, frames, _ = _viewer_run(["--scenefile", helmet, "--hdr", hdr, "--size", str(size), "--keys",
+                                      _viewer_keys(px), "--output", png], device)
+    with open(png, "rb") as f:
+        img = read_png(f.read())
+    picks = [ln for ln in printed.splitlines() if ln.startswith("gizmo pick -> ")]
+    log(f"[viewer] viewer.main --size {size} on the card: {len(frames)} key-frames, ms "
+        f"{[round(fr['ms'], 2) for fr in frames]}; traverse_bvh4 launches {[fr['traverse_bvh4'] for fr in frames]}, "
+        f"gather_channels {[fr['gather_channels'] for fr in frames]}; {picks[0] if picks else 'no pick'} "
+        f"(CPU viewer: {cpu_pick}); on {smi}")
+    require(img.shape == (size, size, 3) and img.mean() > 2, "viewer PNG")
+    require(picks == [f"gizmo pick -> {cpu_pick}"] and cpu_pick is not None, f"viewer pick {picks} vs CPU {cpu_pick}")
+    require(all(fr["traverse_bvh4"] > 0 and fr["gather_channels"] > 0 for fr in frames),
+            "a viewer key-frame did not launch traverse_bvh4 and gather_channels")
+    # the overlays alone on a 1024x1024 image on the card, best of 3 after a warm-up
+    v_img = torch.rand((size, size, 3), device=device)
+    depth = torch.rand(size * size, device=device) * 6.0
+    cam = fit_camera(sc)
+    pivot, axes = np.asarray(sc.world_matrices[1][:3, 3], np.float64), np.eye(3)
+    overlays = {"grid": lambda: grid_overlay(v_img, cam.eye, cam.center, cam.up, cam.yfov, scene_depth=depth)}
+    for mode in Mode:
+        overlays[f"gizmo_{mode.value}"] = (lambda m: lambda: gizmo_overlay(
+            v_img, cam.eye, cam.center, cam.up, cam.yfov, pivot, axes, m,
+            size=auto_size(cam.eye, pivot, cam.yfov), active=0))(mode)
+    overlay_ms = {}
+    for label, fn in overlays.items():
+        res = [_sync_ms(fn) for _ in range(4)]
+        require(all(bool(torch.isfinite(x).all()) for x, _ in res), f"{label} overlay not finite")
+        overlay_ms[label] = min(ms for _, ms in res[1:])
+    # the least time: read the image (and the depth) once, write the image once
+    img_bytes = size * size * 3 * 4
+    overlay_bound_ms = {"grid": 1e3 * (2 * img_bytes + size * size * 4) / HBM_BYTES_PER_S,
+                        "gizmo": 1e3 * 2 * img_bytes / HBM_BYTES_PER_S}
+    log(f"[viewer] overlays at {size}x{size} on the card (best of 3): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in overlay_ms.items())
+        + f"; memory bound grid {overlay_bound_ms['grid']:.4f} ms, gizmo {overlay_bound_ms['gizmo']:.4f} ms")
+    out["viewer"] = dict(size=size, frames=[{k: v for k, v in fr.items() if k != "first"} for fr in frames],
+                         pick=cpu_pick, overlay_ms=overlay_ms, overlay_bound_ms=overlay_bound_ms)
+
+    # (c) the same script at 96x96, depth 2: card against CPU, every frame. The preview shades
+    # with the card's IBL products on both, which are held against the CPU's own build apart
+    size = VIEWER_CHECK_SIZE
+    px, _ = _pick_pixel(helmet, hdr, size)
+    argv = ["--scenefile", helmet, "--hdr", hdr, "--size", str(size), "--maxDepth", "2", "--keys", _viewer_keys(px)]
+    card = _viewer_run(argv, device)
+    cpu = _viewer_run(argv, "cpu", ibl=card[2])
+    require(len(card[1]) == len(cpu[1]) and card[0].count("gizmo pick") == 1, "viewer card/CPU runs differ in frames")
+    for i, (g, c) in enumerate(zip(card[1], cpu[1])):
+        _require_agree(f"[viewer] {size}x{size} frame {i} (render_system {g['render_system']}), card vs CPU",
+                       g["first"], c["first"])
+    ibl = _ibl_against_cpu(f"[viewer] {size}x{size} preview", card[2],
+                           build_ibl(load_hdr_environment(hdr, "cpu"), "hdr"))
+    out["viewer_check"] = dict(size=size, frames=len(card[1]), ibl=ibl)
+
+    # (d) the adaptive sampler on 1080p helmet frames under the HDR
+    r = GltfRenderer(FRAME_W, FRAME_H, spp=1, max_depth=DEPTH, device=device)
+    r.create_scene(helmet)
+    r.create_hdr(hdr)
+    r.adaptive = AdaptiveSampler(target_fps=10)
+    seq, times = [], []
+    for _ in range(ADAPTIVE_FRAMES):
+        seq.append(r.spp)
+        _, ms = _sync_ms(r.on_render)
+        times.append(ms)
+    seq.append(r.spp)
+    require(set(seq) <= set(AdaptiveSampler.BUCKETS) and np.isfinite(r.image_linear()).all(),
+            f"adaptive spp sequence {seq}")
+    out["adaptive"] = dict(spp=seq, ms=times)
+    log(f"[viewer] AdaptiveSampler(target_fps=10) on the helmet {FRAME_W}x{FRAME_H} depth {DEPTH}: spp {seq}, "
+        f"ms/frame {[round(t, 2) for t in times]} on {smi}")
+    del r
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"[time] editor phase {secs:.1f} s")
     return out
 
 
@@ -2815,6 +3107,8 @@ def main():
         log(f"[time] alpha and the plane done at {time.perf_counter() - t_start:.1f} s")
         viewer = phase_viewer(device, tmp, hdr, smi)
         log(f"[time] guides, denoise, TAAU and preview done at {time.perf_counter() - t_start:.1f} s")
+        editor = phase_editor(device, tmp, hdr, smi)
+        log(f"[time] editor and viewer done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -2841,13 +3135,16 @@ def main():
                foliage=alpha["kernels"]["traverse_bvh4"],
                viewer_launches_per_frame={label: v["traverse_bvh4"]
                                           for label, v in viewer["launches_per_frame"].items()},
-               pick_launches=len(PICK_PIXELS)),
+               pick_launches=len(PICK_PIXELS),
+               editor_launches_per_render=[r["traverse_bvh4"] for r in editor["edit_cli"]["renders"]],
+               viewer_keyframe_launches=[fr["traverse_bvh4"] for fr in editor["viewer"]["frames"]]),
         _entry("gather_channels", launches["gather_channels"], kern["gather_channels"],
                headless_launches=front["launches"]["gather_channels"],
                material_launches_per_frame={label: m["per_frame"]["gather_channels"]
                                             for label, m in material.items()},
                viewer_launches_per_frame={label: v["gather_channels"]
-                                          for label, v in viewer["launches_per_frame"].items()}),
+                                          for label, v in viewer["launches_per_frame"].items()},
+               viewer_keyframe_launches=[fr["gather_channels"] for fr in editor["viewer"]["frames"]]),
     ]
     for name, sel in (("traverse_bvh2", ("v2", "v2")), ("traverse_bvh16", ("v6", "v6")),
                       ("traverse_lanes", ("lane", "lane_stream")),
@@ -2919,7 +3216,8 @@ def main():
                       "card_vs_cpu": checks, "animation": anim,
                       "alpha": {k: v for k, v in alpha.items() if k not in ("replay", "kernels")},
                       "foliage_kernels": alpha["kernels"],
-                      "viewer": {k: v for k, v in viewer.items() if k != "launches_per_frame"}}))
+                      "viewer": {k: v for k, v in viewer.items() if k != "launches_per_frame"},
+                      "editor": editor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

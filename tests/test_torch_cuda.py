@@ -979,3 +979,35 @@ def test_viewer_frames_card_match_cpu(cuda, case):
         card = _frame_outputs(cuda, scene, setup, frames, outputs)
         assert tb4.COUNTER.launches > launches
         _agree_card_cpu(card, _frame_outputs("cpu", scene, setup, frames, outputs))
+
+
+# ------------------------------------------------------------ the editor and the viewer, card against CPU
+
+
+def test_scripted_viewer_card_matches_cpu(cuda):
+    """chip_smoke.py phase 19 (c) at 32x32: the viewer's key script (orbit,
+    grid, gizmo, an edit and its undo, a pick, the denoised display, the
+    preview) on the card and on the CPU, every key-frame's accumulation and
+    first-hit ids at the frame thresholds (the preview shading with the
+    card's IBL products on both: ROADMAP C), the same pick, and every card
+    key-frame launching traverse_bvh4 and, under the HDR, gather_channels."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from vk_gltf_renderer_tpu_torch.scenes import write_synthetic_hdr
+
+    with tempfile.TemporaryDirectory() as d:
+        scene = make_helmet_standin(d)
+        hdr = write_synthetic_hdr(d + "/sky.hdr", 32, 64)
+        px, pick = chip_smoke._pick_pixel(scene, hdr, 32)
+        argv = ["--scenefile", scene, "--hdr", hdr, "--size", "32", "--maxDepth", "2",
+                "--keys", chip_smoke._viewer_keys(px)]
+        card_out, card, ibl = chip_smoke._viewer_run(argv, cuda)
+        cpu_out, cpu, _ = chip_smoke._viewer_run(argv, "cpu", ibl=ibl)
+    assert pick is not None and f"gizmo pick -> {pick}" in card_out and f"gizmo pick -> {pick}" in cpu_out
+    assert len(card) == len(cpu) > 5
+    assert all(fr["traverse_bvh4"] > 0 and fr["gather_channels"] > 0 for fr in card)
+    for g, c in zip(card, cpu):
+        chip_smoke._require_agree("scripted viewer key-frame", g["first"], c["first"])

@@ -1,5 +1,6 @@
 """The port runs where there is neither JAX nor the JAX package: a
-subprocess blocks `import jax` and `import vk_gltf_renderer_tpu`, imports
+subprocess blocks `import jax`, `import vk_gltf_renderer_tpu` and `import
+PIL`, imports
 every module of the port, builds the helmet stand-in with the port's own
 writer and renders a frame on the CPU, renders the terrain grid under
 every traversal-kernel selection and under VKGR_TRAVERSAL=packet4 and
@@ -8,10 +9,11 @@ scenes.make_materials_standin (every material family, three punctual
 lights), animates scenes.make_brainstem through the device refit, renders
 scenes.make_foliage_standin (alpha) over the shadow-catcher plane, renders
 guided frames upscaled 2x and denoises them, renders preview frames with the
-wireframe and picks, and runs the headless CLI and
-`benchmark run` on the CPU, each printing one BENCHMARK_JSON line; and no
-source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports either,
-or the reference's tools/."""
+wireframe and picks, runs the headless CLI and `benchmark run` on the
+CPU, each printing one BENCHMARK_JSON line, and edits and renders through
+edit_cli and a scripted viewer (grid, gizmo, an edit verb); and no
+source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports any
+of them, or the reference's tools/."""
 
 import os
 import re
@@ -25,6 +27,7 @@ _SCRIPT = r"""
 import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["vk_gltf_renderer_tpu"] = None  # and so does the JAX package
+sys.modules["PIL"] = None  # and Pillow, which the card's machine lacks
 import numpy as np
 import torch
 torch.set_num_threads(1)  # tiny tensors: a thread pool only adds contention beside other workers
@@ -134,7 +137,21 @@ with tempfile.TemporaryDirectory() as d:
         with contextlib.redirect_stdout(buf):
             assert main(argv) == 0
         assert sum(ln.startswith("BENCHMARK_JSON {") for ln in buf.getvalue().splitlines()) == 1
-blocked = ("jax", "vk_gltf_renderer_tpu")
+    # the editor and the viewer: an edit, a render and its undo through edit_cli, then a scripted
+    # viewer with the grid, the gizmo and an edit verb
+    from vk_gltf_renderer_tpu_torch import edit_cli, viewer
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert edit_cli.main([scene, "--device", "cpu", "-c", "translate 0 0 0.25 0",
+                              "-c", f"render {d}/edit.png 24 16", "-c", "undo"]) == 0
+        assert viewer.main(["--scenefile", scene, "--size", "16", "--maxDepth", "2", "--device", "cpu",
+                            "--keys", "aw]Gg:translate 1 0 0.1 0;:undo;n", "--output", d + "/viewer.png"]) == 0
+    assert f"rendered {d}/edit.png" in buf.getvalue() and "+grid +gizmo:translate" in buf.getvalue()
+    from vk_gltf_renderer_tpu_torch.utils.png import read_png
+    for png in ("edit.png", "viewer.png"):
+        with open(f"{d}/{png}", "rb") as f:
+            assert read_png(f.read()).mean() > 2
+blocked = ("jax", "vk_gltf_renderer_tpu", "PIL")
 assert not any(m.split(".")[0] in blocked for m, v in sys.modules.items() if v is not None)
 print("NOJAX_OK")
 """
@@ -152,7 +169,7 @@ def test_port_renders_with_jax_blocked():
 
 
 def test_no_port_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu|tools)\b(?!_torch)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu|tools|PIL)\b(?!_torch)", re.M)
     files = list((ROOT / "vk_gltf_renderer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                          ROOT / "bvh4_tuning.py",
                                                                          ROOT / "frame_ab.py"]
@@ -160,5 +177,5 @@ def test_no_port_source_imports_jax():
     assert not offenders
     # the scan itself sees both kinds of import
     assert pattern.search("import jax.numpy as jnp") and pattern.search(
-        "    from vk_gltf_renderer_tpu.models import Scene")
+        "    from vk_gltf_renderer_tpu.models import Scene") and pattern.search("        from PIL import Image")
     assert not pattern.search("from vk_gltf_renderer_tpu_torch.models import Scene")

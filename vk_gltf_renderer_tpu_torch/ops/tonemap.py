@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+OPERATORS = ("filmic", "aces", "agx", "khronos_pbr", "reinhard_ext", "none")
+
 _AGX_IN = ((0.842479, 0.0784336, 0.0792237), (0.0423282, 0.878468, 0.0791661),
            (0.0423756, 0.0784336, 0.879142))
 _AGX_OUT = ((1.19688, -0.0980209, -0.0990297), (-0.0528968, 1.15190, -0.0989611),

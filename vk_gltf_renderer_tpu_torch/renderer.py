@@ -49,7 +49,9 @@ with the IBL of ops/ibl.py, built once per environment), which replace the
 accumulation rather than adding to it; wireframe overlays triangle edges on
 them.
 
-Not ported yet: the adaptive sampler (ROADMAP.md). The
+With adaptive set to an AdaptiveSampler, each on_render waits for the
+card, reads the frame's time on the host clock and retargets spp for the
+next frame. The
 TPU fallback ladder (VMEM kernel rungs, VKGR_LANE_STREAM, cache rotation)
 has no role here,
 and the reference's downgrade to the wavefront after kernel faults
@@ -61,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -68,7 +71,7 @@ import torch
 
 from .convert import (add_kernel_tables_to_device, bvh_to_device, refit_device_bvh,
                       refit_tables_to_device, scene_to_device)
-from .device import resolve_device
+from .device import resolve_device, synchronize
 from .models import DirtyFlags, Scene
 from .models.animation import compute_joint_matrices, update_animation
 from .models.materials import detect_scene_features
@@ -111,6 +114,54 @@ def _moved(a, b) -> bool:
     if a is None or b is None:
         return (a is None) != (b is None)
     return a.shape != b.shape or bool((a != b).any())
+
+
+class AdaptiveSampler:
+    """spp feedback controller (reference renderer_pathtracer.hpp:159-194,
+    .cpp:1326-1374): retargets samples-per-frame from the measured frame
+    time toward a budget (60/30/15/10 FPS presets).
+
+    The retarget quantizes to power-of-two buckets (1..64), as in the
+    reference, where each distinct spp is a compile; here it keeps the
+    accumulation cadence steady, and 25% hysteresis keeps the controller
+    from oscillating between two buckets."""
+
+    BUDGETS_MS = {60: 16.67, 30: 33.33, 15: 66.67, 10: 100.0}
+    BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+    def __init__(self, target_fps: int = 30):
+        self.budget_ms = self.BUDGETS_MS.get(target_fps, 33.33)
+        self.spp = 1
+        self._ema_ms = None
+
+    def update(self, frame_ms: float) -> int:
+        if frame_ms <= 0:
+            return self.spp
+        per_sample = frame_ms / max(self.spp, 1)
+        self._ema_ms = per_sample if self._ema_ms is None else 0.8 * self._ema_ms + 0.2 * per_sample
+        ideal = self.budget_ms / max(self._ema_ms, 1e-3)
+        # largest bucket that fits the budget
+        target = 1
+        for b in self.BUCKETS:
+            if b <= ideal:
+                target = b
+        # hysteresis: move up only with 25% headroom beyond the bucket edge,
+        # move down only when over budget by 25%
+        if target > self.spp and ideal < target * 1.25:
+            target = self.spp
+        if target < self.spp and ideal > self.spp * 0.8:
+            target = self.spp
+        self.spp = target
+        return self.spp
+
+    def update_global(self, rays: float, wall_ms: float) -> int:
+        """Retarget from a ray count summed over every card and a wall time
+        all processes agree on, so that every process lands on the same
+        bucket; the per-sample math is the single-card controller's
+        (wall_ms / spp), so this delegates. No rays: no change."""
+        if rays <= 0:
+            return self.spp
+        return self.update(wall_ms)
 
 
 def fit_camera(scene: Scene, yfov=np.radians(45.0)) -> CameraState:
@@ -174,6 +225,7 @@ class GltfRenderer:
         self._history_hi = None  # display-res TAAU history [H*up, W*up, 4]
         self._moments = None  # accumulated per-sample luminance moments [W*H,2]
         self._ibl = self._ibl_key = None  # the preview's IBL products and their environment
+        self.adaptive: AdaptiveSampler | None = None  # set to retarget spp from each frame's time
 
     # -------------------------------------------------------------- scene
     def create_scene(self, path) -> None:
@@ -509,6 +561,9 @@ class GltfRenderer:
         cfg.check_supported()
         self._sync_kernel_tables(cfg)
         frame = self._frame_inputs()
+        if self.adaptive is not None:
+            synchronize(self.device)  # the frame's time starts with nothing else queued
+        t0 = time.perf_counter()
         if self.render_system == 1:
             # a preview frame replaces the accumulation
             frame["ibl"] = self._ensure_ibl()
@@ -527,6 +582,11 @@ class GltfRenderer:
             self._moments = aux["lum_moments"] if self._moments is None else self._moments + aux["lum_moments"]
         if self.denoise_guides and self.dev_scene is not None:
             self._prev_rn_o2w = self._rn_o2w()
+        if self.adaptive is not None:
+            # a real frame time: wait for the card before the host clock; the next frame renders
+            # with the new spp
+            synchronize(self.device)
+            self.spp = self.adaptive.update((time.perf_counter() - t0) * 1000.0)
         return aux
 
     # -------------------------------------------------------------- output
@@ -556,15 +616,22 @@ class GltfRenderer:
             raise RuntimeError("no TAAU history: set upscale > 1 and render")
         return self._history_hi[..., :3].cpu().numpy()
 
+    def _tonemapped(self) -> torch.Tensor:
+        """The tonemapped image [H,W,3] on the device."""
+        return tonemap(self.accum.reshape(self.height, self.width, 3), self.tonemapper, self.exposure)
+
     def image_tonemapped(self) -> np.ndarray:
-        img = tonemap(self.accum.reshape(self.height, self.width, 3), self.tonemapper, self.exposure)
-        return img.cpu().numpy()
+        return self._tonemapped().cpu().numpy()
 
     def image_denoised(self, *, temporal: bool = True, iterations: int = 4) -> np.ndarray:
         """The denoised linear image [H,W,3]: the à-trous denoiser over the
         accumulation with the last frame's guides, then, with temporal,
         blended into the previous denoised image reprojected by the motion
         vectors."""
+        return self._denoised(temporal, iterations).cpu().numpy()
+
+    def _denoised(self, temporal: bool = True, iterations: int = 4) -> torch.Tensor:
+        """image_denoised's image on the device."""
         cur = denoise_renderer(self, iterations=iterations)
         vp = self._view_proj()
         if temporal and self._history is not None and self._prev_vp is not None and self._last_aux is not None:
@@ -572,11 +639,11 @@ class GltfRenderer:
             cur = temporal_accumulate(cur, self._history, self._motion(vp, self._prev_vp), valid)
         self._history = cur
         self._prev_vp = vp
-        return cur.cpu().numpy()
+        return cur
 
     def image_with_silhouette(self) -> np.ndarray:
         """The tonemapped image with the selected render nodes outlined."""
-        img = tonemap(self.accum.reshape(self.height, self.width, 3), self.tonemapper, self.exposure)
+        img = self._tonemapped()
         if self.selection and self._last_aux is not None:
             mask = torch.zeros(max(len(self.scene.render_nodes), 1), dtype=torch.bool)
             for i in self.selection:
