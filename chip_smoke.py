@@ -28,7 +28,7 @@ Phases (each raises on failure; nothing is caught):
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
      user entry points (create_scene, create_hdr, on_render, image_linear,
-     save_image): 2 warm-up and 10 timed frames. The kernels' launch
+     save_image): 2 warm-up and 6 timed frames. The kernels' launch
      counters are zeroed just before and must have moved;
   5. correctness: a 96x64 frame on the card (kernels) against the same
      frame from the port's plain CPU path, which tests/test_torch_frame.py
@@ -143,7 +143,7 @@ Phases (each raises on failure; nothing is caught):
      two-line cfg (helmet and terrain at 512x512, 4 frames) and `compare`
      of its CSV with itself, both rc 0; the bench entry
      (python -m vk_gltf_renderer_tpu_torch.bench_impl) as a child at its
-     recipe with 8 timed frames a scene (VKGR_BENCH_FRAMES; the recipe's
+     recipe with 5 timed frames a scene (VKGR_BENCH_FRAMES; the recipe's
      20 cut for the run's time), whose JSON line must read value > 0 with
      no error; and
      utils/profiler.profile_frames on the helmet and the terrain at 1080p
@@ -153,7 +153,7 @@ Phases (each raises on failure; nothing is caught):
      (scenes.make_lit_game_standin) at 1920x1080, the suite stand-in under
      the sky at 1024x1024, and scenes.make_materials_standin (every
      material family on a sphere, three lights) under the sky at
-     1920x1080, spp 1, depth 5, through the entry points: 2 warm-up and 3
+     1920x1080, spp 1, depth 5, through the entry points: 2 warm-up and 2
      timed frames each, ms/frame (mean, min, max), Mrays/s, the scene's
      triangles and table sizes, and the launches a frame of traverse_bvh4
      (closest and any hit apart, by counting the calls of
@@ -262,10 +262,46 @@ Phases (each raises on failure; nothing is caught):
      shading with the card's IBL products on both, and those products
      against the CPU's build (the BRDF LUT required within 1e-4; the
      environment's products printed: their texel-edge lookups, ROADMAP
-     C); (d) 10 1080p
+     C); (d) 6 1080p
      helmet frames under the HDR with GltfRenderer.adaptive =
      AdaptiveSampler(target_fps=10): the spp sequence, every value a
      bucket. `[editor]` and `[viewer]` lines, then a [time] line.
+ 20. textures and devices: (a) a seeded 2048x2048 texture
+     (scenes.texture_image, the size of DamagedHelmet's maps) written as
+     JPEG 4:2:0 q75 (the port's writer, Pillow's defaults), JPEG 4:4:4,
+     JPEG progressive (spectral selection), DDS BGRA8, DDS BC1 and KTX2
+     RGBA8 and zlib, and a 256x256 one as KTX2 ETC1S, UASTC and ASTC 4x4
+     (the copied per-block Python decoders; 256x256 is a cut of the
+     512x512 asked for, to keep the phase within its minute): each
+     file's bytes, encode and decode host seconds (with the card's name
+     and power limit, the decode rate, and for the block formats the
+     microseconds a block and the 2048x2048 time that gives), the lossless
+     ones equal to the source texel for texel, the lossy ones' PSNR; (b)
+     the helmet (scenes.helmet_with_texture) at 1920x1080, spp 1, depth 5,
+     under the HDR, with (a)'s 2048x2048 file as its base colour in PNG
+     and each container but the three per-block ones, which take a
+     128x128 image (a cut: their Python decoders would take about 45 s
+     each at 2048x2048): the card holds the host's texel pool bit for bit;
+     the load seconds, the ms of frame 0 and its traverse_bvh4 /
+     gather_channels launches a frame; the lossless containers' frame 0
+     equal to the PNG texture's bit for bit; each lossy container's card
+     renderer, its scene kept, set to 96x64: frame 0 on the card against
+     frame 0 on the CPU through parallel.render_mesh(r, ["cpu"]) (the
+     plain versions on copies of the card's tables, held equal to the
+     host's above), through _require_agree. (c) to (f) render the helmet
+     with a 128x128 JPEG base colour: (c) headless --output x.jpg and
+     x.png on the card at 1080p: the JPEG read back by the port's decoder, its PSNR against the
+     PNG; (d) parallel.render_mesh over [cuda:0] * 2 and over every visible
+     card, each two 1080p frames equal to on_render's bit for bit with
+     equal rays, ms/frame; then AdaptiveSampler(10) under render_mesh and
+     its spp; (e) two processes of parallel.multihost on the card (gloo,
+     CUDA tensors), 540 rows each of the 1080p helmet: each shard equal to
+     the process's own unsharded frame bit for bit, three adaptive frames
+     with equal spp on both ranks (a 120 s timeout on each; a failed rank
+     fails the phase); (f) probes.boundary on the helmet and the terrain
+     (2,097,152 rays): kernel, wf/bounce, mega/bounce, boundary and
+     residency gain at depths 1 and 2. `[textures]` and `[devices]` lines,
+     then a [time] line.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -310,14 +346,17 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from vk_gltf_renderer_tpu_torch import scenes as tscenes  # noqa: E402
 from vk_gltf_renderer_tpu_torch.bench_impl import gpu_line  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import jpeg  # noqa: E402
 from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
+from vk_gltf_renderer_tpu_torch.utils.png import encode_png  # noqa: E402
 
 FRAME_W, FRAME_H, SPP, DEPTH = 1920, 1080, 1, 5
-WARMUP, TIMED = 2, 10
+WARMUP, TIMED = 2, 6  # phase 4's helmet frames (6 timed: a cut that keeps the script within its time)
 # timed frames cut for the run's time: phase 7's per kernel selection, phase 10's per scene
 TERRAIN_TIMED, PACKET4_TIMED = 3, 4
-BENCH_CHILD_FRAMES = 8  # phase 14's bench_impl child: its timed frames a scene (a cut of the recipe's 20)
+BENCH_CHILD_FRAMES = 5  # phase 14's bench_impl child: its timed frames a scene (a cut of the recipe's 20)
 PROFILED_FRAMES = 2  # frames (or calls) each profile of the run covers
 SRC = "vk_gltf_renderer_tpu_torch/csrc/"
 REF = "vk_gltf_renderer_tpu/"
@@ -390,7 +429,7 @@ SPLIT_LEAF_BYTES = 64  # one tris row per triangle
 LEAF_NODE_BYTES = 32
 WAVEFRONT_SIZES = ((1920, 1080), (960, 540), (480, 270))
 SUITE_SIZE = (1024, 1024)  # the suite stand-in's frame (BASELINE cfg row 3)
-MATERIAL_TIMED = 3  # timed frames of each material scene
+MATERIAL_TIMED = 2  # timed frames of each material scene
 MATERIAL_FRAMES = ("game", "suite", "lit_game", "materials")  # phase 15's timed scenes
 MATERIAL_PROFILED = ("suite",)  # profiled after their timed frames
 MARCH_REPLAYS = ("game", "materials")  # phase 15's recorded frames
@@ -416,8 +455,11 @@ def phase_device():
 
 
 def phase_build():
-    from vk_gltf_renderer_tpu_torch import cuda_lib
+    from vk_gltf_renderer_tpu_torch import cuda_lib, native
 
+    t0 = time.perf_counter()
+    native.jpeg_lib()  # the host JPEG entropy coder (g++), which phase 20's codecs run on
+    log(f"[build] native/jpeg_entropy.cpp built or found in {time.perf_counter() - t0:.1f} s")
     lib = cuda_lib.library()
     log(f"[build] {lib.path.name} built in {lib.build_seconds:.1f} s")
     for line in lib.compiler_log.splitlines():
@@ -2774,7 +2816,7 @@ def phase_viewer(device, tmp, hdr, smi):
 EDIT_SIZE = (1920, 1080)  # phase 19a: edit_cli renders
 VIEWER_EDIT_SIZE = 1024  # phase 19b: the viewer's square frame
 VIEWER_CHECK_SIZE = 96  # phase 19c: card against CPU
-ADAPTIVE_FRAMES = 10  # phase 19d
+ADAPTIVE_FRAMES = 6  # phase 19d
 
 
 def _viewer_keys(px):
@@ -3038,6 +3080,336 @@ def phase_editor(device, tmp, hdr, smi):
     return out
 
 
+TEX_SIZE = 2048  # phase 20a: DamagedHelmet's map size
+BLOCK_TEX_SIZE = 256  # phase 20a: the per-block Python decoders' (ETC1S, UASTC, ASTC) image
+SMALL_TEX_SIZE = 128  # phase 20b's block formats (decoded by the per-block Python code) and 20c-f's JPEG
+MESH_FRAMES = 2  # phase 20d: frames of each render_mesh run, against on_render
+MESH_ADAPTIVE_FRAMES = 4  # phase 20d
+MULTIHOST_TIMEOUT_S = 120  # phase 20e: each rank's limit
+LOSSLESS = ("dds_bgra8", "ktx2_rgba8", "ktx2_zlib")
+# phase 20: container -> (file name, writer of a uint8 RGB image)
+CONTAINERS = {
+    "png": ("base.png", encode_png),
+    "jpeg_420": ("base_420.jpg", jpeg.encode_jpeg),
+    "jpeg_444": ("base_444.jpg", lambda img: jpeg.encode_jpeg(img, subsampling="4:4:4")),
+    "jpeg_progressive": ("base_prog.jpg", lambda img: jpeg.encode_jpeg(img, progressive=True)),
+    "dds_bgra8": ("base_bgra8.dds", tscenes.dds_bgra8),
+    "dds_bc1": ("base_bc1.dds", tscenes.dds_bc1),
+    "ktx2_rgba8": ("base_rgba8.ktx2", tscenes.ktx2_rgba8),
+    "ktx2_zlib": ("base_zlib.ktx2", lambda img: tscenes.ktx2_rgba8(img, zlib_level=1)),
+    "ktx2_etc1s": ("base_etc1s.ktx2", tscenes.ktx2_etc1s),
+    "ktx2_uastc": ("base_uastc.ktx2", lambda img: tscenes.ktx2_astc(tscenes.astc_4x4_blocks(img), img.shape[1],
+                                                                   img.shape[0], uastc=True)),
+    "ktx2_astc": ("base_astc.ktx2", lambda img: tscenes.ktx2_astc(tscenes.astc_4x4_blocks(img), img.shape[1],
+                                                                 img.shape[0])),
+}
+BLOCK_FORMATS = ("ktx2_etc1s", "ktx2_uastc", "ktx2_astc")
+
+
+def _decode_texture(data):
+    """ops/textures.decode_image of one in-memory image: float32 RGBA."""
+    from types import SimpleNamespace
+
+    from vk_gltf_renderer_tpu_torch.ops.textures import decode_image
+
+    model = SimpleNamespace(buffer_views=[{"buffer": 0, "byteOffset": 0, "byteLength": len(data)}],
+                            buffers=[data], base_dir=None)
+    return decode_image(model, {"bufferView": 0})
+
+
+def _psnr(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def _textures_decoders(smi):
+    """Phase 20 (a). Returns (records, the 2048x2048 files by container,
+    the 2048x2048 image)."""
+    out, files = {}, {}
+    images = {TEX_SIZE: tscenes.texture_image(TEX_SIZE, seed=0), BLOCK_TEX_SIZE: tscenes.texture_image(BLOCK_TEX_SIZE,
+                                                                                                       seed=0)}
+    shared = {}  # the ASTC blocks are UASTC's too: encode them once
+    for kind, (name, write) in CONTAINERS.items():
+        if kind == "png":
+            continue
+        n = BLOCK_TEX_SIZE if kind in BLOCK_FORMATS else TEX_SIZE
+        img = images[n]
+        t0 = time.perf_counter()
+        if kind in ("ktx2_uastc", "ktx2_astc"):
+            if "astc" not in shared:
+                shared["astc"] = tscenes.astc_4x4_blocks(img)
+            data = tscenes.ktx2_astc(shared["astc"], n, n, uastc=kind == "ktx2_uastc")
+        else:
+            data = write(img)
+        enc_s = time.perf_counter() - t0
+        if n == TEX_SIZE:
+            files[kind] = data
+        t0 = time.perf_counter()
+        dec = _decode_texture(data)
+        dec_s = time.perf_counter() - t0
+        rgb = np.rint(dec[..., :3] * 255.0)
+        require(dec.shape == (n, n, 4) and bool(np.all(dec[..., 3] == 1.0)), f"{kind}: decoded {dec.shape}")
+        psnr = _psnr(rgb, img)
+        if kind in LOSSLESS:
+            require(np.array_equal(rgb, img), f"{kind}: a lossless container lost texels")
+        else:
+            require(psnr > 30.0, f"{kind}: decoded PSNR {psnr:.2f} dB")
+        blocks = (n // 4) ** 2
+        rec = dict(size=n, bytes=len(data), encode_s=enc_s, decode_s=dec_s, psnr_db=None if kind in LOSSLESS else psnr,
+                   decode_mpix_per_s=n * n / dec_s / 1e6)
+        extra = ""
+        if kind in BLOCK_FORMATS:
+            rec.update(us_per_block=dec_s / blocks * 1e6, est_2048_s=dec_s / blocks * (TEX_SIZE // 4) ** 2)
+            extra = (f", {rec['us_per_block']:.1f} us a block -> {rec['est_2048_s']:.1f} s for "
+                     f"{TEX_SIZE}x{TEX_SIZE}")
+        out[kind] = rec
+        log(f"[textures] (a) {kind} {n}x{n}: {len(data)} bytes, encode {enc_s:.3f} s, decode {dec_s:.3f} s on the "
+            f"host ({rec['decode_mpix_per_s']:.2f} Mpixel/s{extra}), PSNR {psnr:.2f} dB"
+            f"{' (lossless: equal texel for texel)' if kind in LOSSLESS else ''}; card {smi}")
+    return out, files, images[TEX_SIZE]
+
+
+def _textured_scenes(tmp, files, img):
+    """Phase 20 (b)'s scenes: container -> glTF of the helmet with phase
+    (a)'s TEX_SIZE file as its base colour (a SMALL_TEX_SIZE image for the
+    per-block formats), and "small_jpeg", the SMALL_TEX_SIZE JPEG helmet of
+    (c) to (f)."""
+    d = os.path.join(tmp, "textured")
+    os.makedirs(d, exist_ok=True)
+    small = tscenes.texture_image(SMALL_TEX_SIZE, seed=1)
+    out = {"small_jpeg": tscenes.helmet_with_texture(d, jpeg.encode_jpeg(small), "small.jpg")}
+    for kind, (name, write) in CONTAINERS.items():
+        data = write(small) if kind in BLOCK_FORMATS else encode_png(img) if kind == "png" else files[kind]
+        out[kind] = tscenes.helmet_with_texture(d, data, name)
+    return out
+
+
+def _textured_frames(device, textured, hdr, smi):
+    """Phase 20 (b)."""
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.parallel import render_mesh
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    out, firsts = {}, {}
+    for kind in CONTAINERS:
+        scene = textured[kind]
+        n = SMALL_TEX_SIZE if kind in BLOCK_FORMATS else TEX_SIZE
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        t0 = time.perf_counter()
+        r.create_scene(scene)
+        r.create_hdr(hdr)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        require(torch.equal(r.dev_scene.tex_quads, torch.from_numpy(np.asarray(r.flat.tex_quads)).to(device)),
+                f"{kind}: the card's texel pool differs from the host's")
+        require(r.dev_scene.tex_desc[0, 1:3].tolist() == [n, n], f"{kind}: the base colour did not decode")
+        tb4.COUNTER.launches = 0
+        tgather.COUNTER.launches = 0
+        times, rays, first = _render_frames(r, 0, 1)  # frame 0, timed
+        per_frame = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+        require(all(v > 0 for v in per_frame.values()), f"{kind}: a kernel never launched {per_frame}")
+        firsts[kind] = first
+        ms = 1e3 * float(np.mean(times))
+        out[kind] = dict(tex_size=n, load_s=load_s, ms=ms, rays=float(np.mean(rays)), launches_per_frame=per_frame)
+        check = ""
+        if kind in LOSSLESS:
+            ref = firsts["png"]
+            require(all(np.array_equal(a, b) for a, b in zip(first, ref)),
+                    f"{kind}: the 1080p frame differs from the PNG texture's")
+            check = "; frame 0 equal to the PNG texture's bit for bit"
+        log(f"[textures] (b) {kind} {n}x{n} base colour, helmet {FRAME_W}x{FRAME_H} depth {DEPTH}: load "
+            f"{load_s:.2f} s, frame 0 {ms:.2f} ms, launches a frame {per_frame}{check}; on {smi}")
+        if kind not in LOSSLESS and kind != "png":
+            # the same renderer made a 96x64 one: frame 0 on the card (on_render), then frame 0 on the
+            # CPU path (render_mesh over the CPU: the plain versions on copies of the card's tables,
+            # which equal the host's) -- a CPU renderer would rebuild the same 2048x2048 pool
+            r.width, r.height = 96, 64
+            res = []
+            for render in (r.on_render, lambda: render_mesh(r, ["cpu"])):
+                r.frame_idx = 0
+                r.reset_frame()
+                aux = render()
+                res.append((r.image_linear(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy(),
+                            float(aux["rays"])))
+            _require_agree(f"[textures] (b) {kind} 96x64 card vs CPU", *res)
+        del r
+    return out
+
+
+def _writer_check(device, tmp, scene, hdr, smi):
+    """Phase 20 (c): headless --output x.jpg and x.png on the card."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import headless
+    from vk_gltf_renderer_tpu_torch.ops.jpeg import decode_jpeg
+    from vk_gltf_renderer_tpu_torch.utils.png import read_png
+
+    os.environ["VKGR_SETTINGS"] = os.path.join(tmp, "settings20.json")
+    imgs, secs = {}, {}
+    for suffix in (".jpg", ".png"):
+        path = os.path.join(tmp, "headless20" + suffix)
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            rc = headless.main(["--headless", "--scenefile", scene, "--hdrfile", hdr, "--envSystem", "1",
+                                "--size", str(FRAME_W), str(FRAME_H), "--frames", "2", "--output", path,
+                                "--device", str(device)])
+        secs[suffix] = time.perf_counter() - t0
+        require(rc == 0, f"headless --output {path}: rc {rc}")
+        with open(path, "rb") as f:
+            data = f.read()
+        imgs[suffix] = (decode_jpeg if suffix == ".jpg" else read_png)(data)
+        require(imgs[suffix].shape == (FRAME_H, FRAME_W, 3), f"headless {suffix}: {imgs[suffix].shape}")
+    psnr = _psnr(imgs[".jpg"], imgs[".png"])
+    log(f"[textures] (c) headless --output x.jpg at {FRAME_W}x{FRAME_H} on the card ({secs['.jpg']:.1f} s with the "
+        f"scene load): read back by ops/jpeg, PSNR {psnr:.2f} dB against the --output x.png image "
+        f"({secs['.png']:.1f} s); on {smi}")
+    require(psnr > 30.0, f"headless JPEG PSNR {psnr:.2f} dB")
+    return dict(psnr_db=psnr, seconds=secs)
+
+
+def _mesh_check(device, scene, hdr, smi):
+    """Phase 20 (d): render_mesh against on_render at 1080p."""
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.parallel import render_mesh
+    from vk_gltf_renderer_tpu_torch.renderer import AdaptiveSampler, GltfRenderer
+
+    def make():
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(scene)
+        r.create_hdr(hdr)
+        return r
+
+    out = {}
+    ref = make()
+    ref_frames = [(ref.on_render(), ref.accum.clone()) for _ in range(MESH_FRAMES)]
+    del ref
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda" else [device]
+    for label, devices in ((f"{device} x2", [device] * 2), ("every card", cards)):
+        r = make()
+        times = []
+        tb4.COUNTER.launches = 0
+        tgather.COUNTER.launches = 0
+        for aux_ref, accum_ref in ref_frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = render_mesh(r, devices)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            require(torch.equal(r.accum, accum_ref), f"render_mesh over {label}: the frame differs from on_render's")
+            require(float(aux["rays"]) == float(aux_ref["rays"]), f"render_mesh over {label}: rays differ")
+            require(all(torch.equal(aux[k], aux_ref[k]) for k in aux_ref), f"render_mesh over {label}: aux differs")
+        per_frame = {"traverse_bvh4": tb4.COUNTER.launches / MESH_FRAMES,
+                     "gather_channels": tgather.COUNTER.launches / MESH_FRAMES}
+        require(all(v > 0 for v in per_frame.values()), f"render_mesh over {label}: a kernel never launched")
+        out[label] = dict(shards=len(devices), ms=times, rays=float(aux["rays"]), launches_per_frame=per_frame)
+        log(f"[devices] (d) render_mesh over {label} ({len(devices)} shards of {FRAME_H // len(devices)} rows), "
+            f"helmet {FRAME_W}x{FRAME_H} depth {DEPTH}: {MESH_FRAMES} frames equal to on_render's bit for bit, rays "
+            f"{float(aux['rays']):.0f} equal; ms/frame {[round(t, 2) for t in times]}, launches a frame {per_frame} "
+            f"on {smi}")
+        del r
+    r = make()
+    r.adaptive = AdaptiveSampler(target_fps=10)
+    seq, times = [r.spp], []
+    for _ in range(MESH_ADAPTIVE_FRAMES):
+        _, ms = _sync_ms(lambda: render_mesh(r, [device] * 2))
+        times.append(ms)
+        seq.append(r.spp)
+    require(set(seq) <= set(AdaptiveSampler.BUCKETS) and np.isfinite(r.image_linear()).all(),
+            f"render_mesh adaptive spp {seq}")
+    out["adaptive"] = dict(spp=seq, ms=times)
+    log(f"[devices] (d) render_mesh with AdaptiveSampler(target_fps=10) over {device} x2: spp {seq}, ms/frame "
+        f"{[round(t, 2) for t in times]}")
+    return out
+
+
+def _multihost_check(device, scene, hdr, smi):
+    """Phase 20 (e): two ranks of parallel.multihost on the card (gloo)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "vk_gltf_renderer_tpu_torch.parallel.multihost", "--rank", str(rank), "--world", "2",
+         "--port", str(port), "--scene", scene, "--hdr", hdr, "--size", str(FRAME_W), str(FRAME_H),
+         "--depth", str(DEPTH), "--backend", "gloo", "--device", str(device)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MULTIHOST_TIMEOUT_S)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    lines = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        ok = [ln for ln in out.splitlines() if ln.startswith(f"MULTIHOST_OK rank={rank} ")]
+        require(p.returncode == 0 and len(ok) == 1, f"multihost rank {rank} failed (rc {p.returncode}):\n{out[-3000:]}")
+        lines.append(ok[0])
+    spps = [ln.split("spps=")[1] for ln in lines]
+    require(spps[0] == spps[1], f"multihost ranks' spp differ: {spps}")
+    launches = [int(re.search(r"traverse_bvh4=(\d+)", ln).group(1)) for ln in lines]
+    require(device.type != "cuda" or min(launches) > 0, f"a rank's shard launched no traverse_bvh4: {launches}")
+    for ln in lines:
+        log(f"[devices] (e) {ln}")
+    log(f"[devices] (e) two gloo ranks on one card, {FRAME_H // 2} rows each of the helmet {FRAME_W}x{FRAME_H}: "
+        f"shards equal to the unsharded frame bit for bit, equal spp {spps[0]}; {secs:.1f} s with both processes' "
+        f"start; on {smi}")
+    return dict(lines=lines, seconds=secs, traverse_bvh4_per_rank=launches)
+
+
+def _boundary_check(device, helmet_bvh, terrain_bvh, smi):
+    """Phase 20 (f): probes.boundary on the helmet and the terrain."""
+    from vk_gltf_renderer_tpu_torch.ops import megakernel as mk
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.probes import boundary
+
+    out = {}
+    for label, bvh in (("helmet", helmet_bvh), ("terrain", terrain_bvh)):
+        mk.COUNTER.launches = 0
+        tb4.COUNTER.launches = 0
+        res = boundary.measure(bvh, boundary.N, boundary.ITERS, device)
+        res["launches"] = {"render_mega": mk.COUNTER.launches, "traverse_bvh4": tb4.COUNTER.launches}
+        require(res["launches"]["render_mega"] > 0 and res["launches"]["traverse_bvh4"] > 0,
+                f"boundary probe launches {res['launches']}")
+        out[label] = res
+        log(boundary.report(label, res) + f"\n[boundary] {label} launches {res['launches']}; on {smi}")
+    return out
+
+
+def phase_textures_devices(device, tmp, hdr, smi, terrain_bvh):
+    """Phase 20: textures and devices (the module docstring)."""
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    t_phase = time.perf_counter()
+    out = {}
+    out["decoders"], files, img = _textures_decoders(smi)
+    log(f"[time] textures (a) done at {time.perf_counter() - t_phase:.1f} s into the phase")
+    textured = _textured_scenes(tmp, files, img)
+    del files, img
+    out["frames"] = _textured_frames(device, textured, hdr, smi)
+    log(f"[time] textures (b) done at {time.perf_counter() - t_phase:.1f} s into the phase")
+    out["writer"] = _writer_check(device, tmp, textured["small_jpeg"], hdr, smi)
+    out["mesh"] = _mesh_check(device, textured["small_jpeg"], hdr, smi)
+    log(f"[time] devices (c), (d) done at {time.perf_counter() - t_phase:.1f} s into the phase")
+    out["multihost"] = _multihost_check(device, textured["small_jpeg"], hdr, smi)
+    r = GltfRenderer(8, 8, spp=1, max_depth=1, device=device)
+    r.create_scene(textured["small_jpeg"])
+    out["boundary"] = _boundary_check(device, r.dev_bvh, terrain_bvh, smi)
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"[time] textures and devices phase {secs:.1f} s")
+    return out
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -3101,7 +3473,6 @@ def main():
         march = phase_march_replay(device, scenes, smi)
         log(f"[time] material scenes done at {time.perf_counter() - t_start:.1f} s")
         anim = phase_animation(device, tmp, hdr, smi, terrain_r)
-        del terrain_r
         log(f"[time] animation and refit done at {time.perf_counter() - t_start:.1f} s")
         alpha = phase_alpha(device, tmp, hdr, smi)
         log(f"[time] alpha and the plane done at {time.perf_counter() - t_start:.1f} s")
@@ -3109,6 +3480,9 @@ def main():
         log(f"[time] guides, denoise, TAAU and preview done at {time.perf_counter() - t_start:.1f} s")
         editor = phase_editor(device, tmp, hdr, smi)
         log(f"[time] editor and viewer done at {time.perf_counter() - t_start:.1f} s")
+        textures = phase_textures_devices(device, tmp, hdr, smi, terrain_r.dev_bvh)
+        del terrain_r
+        log(f"[time] textures and devices done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -3137,14 +3511,23 @@ def main():
                                           for label, v in viewer["launches_per_frame"].items()},
                pick_launches=len(PICK_PIXELS),
                editor_launches_per_render=[r["traverse_bvh4"] for r in editor["edit_cli"]["renders"]],
-               viewer_keyframe_launches=[fr["traverse_bvh4"] for fr in editor["viewer"]["frames"]]),
+               viewer_keyframe_launches=[fr["traverse_bvh4"] for fr in editor["viewer"]["frames"]],
+               textured_launches_per_frame={k: v["launches_per_frame"]["traverse_bvh4"]
+                                            for k, v in textures["frames"].items()},
+               mesh_launches_per_frame={k: v["launches_per_frame"]["traverse_bvh4"]
+                                        for k, v in textures["mesh"].items() if k != "adaptive"},
+               boundary_launches={k: v["launches"]["traverse_bvh4"] for k, v in textures["boundary"].items()}),
         _entry("gather_channels", launches["gather_channels"], kern["gather_channels"],
                headless_launches=front["launches"]["gather_channels"],
                material_launches_per_frame={label: m["per_frame"]["gather_channels"]
                                             for label, m in material.items()},
                viewer_launches_per_frame={label: v["gather_channels"]
                                           for label, v in viewer["launches_per_frame"].items()},
-               viewer_keyframe_launches=[fr["gather_channels"] for fr in editor["viewer"]["frames"]]),
+               viewer_keyframe_launches=[fr["gather_channels"] for fr in editor["viewer"]["frames"]],
+               textured_launches_per_frame={k: v["launches_per_frame"]["gather_channels"]
+                                            for k, v in textures["frames"].items()},
+               mesh_launches_per_frame={k: v["launches_per_frame"]["gather_channels"]
+                                        for k, v in textures["mesh"].items() if k != "adaptive"}),
     ]
     for name, sel in (("traverse_bvh2", ("v2", "v2")), ("traverse_bvh16", ("v6", "v6")),
                       ("traverse_lanes", ("lane", "lane_stream")),
@@ -3171,7 +3554,8 @@ def main():
         kernels.append(_entry(name, frames[sel]["launches"][name], large[name], **extra))
     kernels.append(_entry("render_mega", mega[("terrain", 5)]["launches"], mega[("terrain", 5)],
                           resources=resources["megakernel.cu"],
-                          runs={f"{label},depth{depth}": v for (label, depth), v in mega.items()}))
+                          runs={f"{label},depth{depth}": v for (label, depth), v in mega.items()},
+                          boundary_launches={k: v["launches"]["render_mega"] for k, v in textures["boundary"].items()}))
     kernels.append(_entry("traverse_bvh4_split", packet4["terrain"]["launches"],
                           split["terrain"]["traverse_bvh4_split"], helmet=split["helmet"]["traverse_bvh4_split"],
                           helmet_launches=packet4["helmet"]["launches"],
@@ -3217,7 +3601,7 @@ def main():
                       "alpha": {k: v for k, v in alpha.items() if k not in ("replay", "kernels")},
                       "foliage_kernels": alpha["kernels"],
                       "viewer": {k: v for k, v in viewer.items() if k != "launches_per_frame"},
-                      "editor": editor}))
+                      "editor": editor, "textures_devices": textures}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

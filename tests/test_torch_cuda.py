@@ -1011,3 +1011,81 @@ def test_scripted_viewer_card_matches_cpu(cuda):
     assert all(fr["traverse_bvh4"] > 0 and fr["gather_channels"] > 0 for fr in card)
     for g, c in zip(card, cpu):
         chip_smoke._require_agree("scripted viewer key-frame", g["first"], c["first"])
+
+
+# ------------------------------------------------------------ textures and devices (chip_smoke.py phase 20)
+
+# container -> the file name its image takes
+TEXTURE_CONTAINERS = {"png": "base.png", "dds_bgra8": "base.dds", "ktx2_rgba8": "base.ktx2",
+                      "ktx2_zlib": "base_z.ktx2", "jpeg_420": "base.jpg", "dds_bc1": "bc1.dds",
+                      "ktx2_etc1s": "etc1s.ktx2"}
+LOSSLESS = ("dds_bgra8", "ktx2_rgba8", "ktx2_zlib")
+
+
+def _texture_bytes(kind, img):
+    from vk_gltf_renderer_tpu_torch import scenes
+    from vk_gltf_renderer_tpu_torch.ops.jpeg import encode_jpeg
+    from vk_gltf_renderer_tpu_torch.utils.png import encode_png
+
+    return {"png": lambda: encode_png(img), "dds_bgra8": lambda: scenes.dds_bgra8(img),
+            "ktx2_rgba8": lambda: scenes.ktx2_rgba8(img), "ktx2_zlib": lambda: scenes.ktx2_rgba8(img, 1),
+            "jpeg_420": lambda: encode_jpeg(img), "dds_bc1": lambda: scenes.dds_bc1(img),
+            "ktx2_etc1s": lambda: scenes.ktx2_etc1s(img)}[kind]()
+
+
+def _textured_frame(device, scene, hdr, w=96, h=64):
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    r = GltfRenderer(w, h, spp=1, max_depth=5, device=device)
+    r.create_scene(scene)
+    r.create_hdr(hdr)
+    aux = r.on_render()
+    return {"first_rnode": aux["first_rnode"].cpu().numpy(), "image": r.image_linear()}
+
+
+@pytest.mark.parametrize("kind", sorted(set(TEXTURE_CONTAINERS) - {"png"}))
+def test_textured_frames_card(cuda, kind):
+    """chip_smoke.py phase 20 (b) at 96x64: the helmet with its base colour
+    in each container; a lossless container's card frame equals the PNG
+    texture's card frame bit for bit, a lossy one's agrees with the CPU
+    frame at phase 5's thresholds."""
+    from vk_gltf_renderer_tpu_torch import scenes
+
+    img = scenes.texture_image(128, seed=2)
+    with tempfile.TemporaryDirectory() as d:
+        hdr = scenes.write_synthetic_hdr(d + "/sky.hdr", 32, 64)
+        scene = scenes.helmet_with_texture(d, _texture_bytes(kind, img), TEXTURE_CONTAINERS[kind])
+        launches = (tb4.COUNTER.launches, tgather.COUNTER.launches)
+        card = _textured_frame(cuda, scene, hdr)
+        assert tb4.COUNTER.launches > launches[0] and tgather.COUNTER.launches > launches[1]
+        if kind in LOSSLESS:
+            png = scenes.helmet_with_texture(d, _texture_bytes("png", img), TEXTURE_CONTAINERS["png"])
+            ref = _textured_frame(cuda, png, hdr)
+            assert all(np.array_equal(card[k], ref[k]) for k in card)
+        else:
+            _agree_card_cpu(card, _textured_frame("cpu", scene, hdr))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_render_mesh_on_the_card_equals_on_render(cuda, shards):
+    """chip_smoke.py phase 20 (d) at 256x128: render_mesh over the card
+    named `shards` times gives on_render's accumulation, per-pixel outputs
+    and ray count bit for bit, frame after frame."""
+    from vk_gltf_renderer_tpu_torch import scenes
+    from vk_gltf_renderer_tpu_torch.parallel import render_mesh
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    with tempfile.TemporaryDirectory() as d:
+        hdr = scenes.write_synthetic_hdr(d + "/sky.hdr", 32, 64)
+        scene = make_helmet_standin(d)
+        rs = []
+        for _ in range(2):
+            r = GltfRenderer(256, 128, spp=1, max_depth=5, device=cuda)
+            r.create_scene(scene)
+            r.create_hdr(hdr)
+            rs.append(r)
+        for _ in range(2):
+            ref = rs[0].on_render()
+            aux = render_mesh(rs[1], [cuda] * shards)
+            assert torch.equal(rs[0].accum, rs[1].accum)
+            assert all(torch.equal(aux[k], ref[k]) for k in ref)

@@ -10,8 +10,11 @@ lights), animates scenes.make_brainstem through the device refit, renders
 scenes.make_foliage_standin (alpha) over the shadow-catcher plane, renders
 guided frames upscaled 2x and denoises them, renders preview frames with the
 wireframe and picks, runs the headless CLI and `benchmark run` on the
-CPU, each printing one BENCHMARK_JSON line, and edits and renders through
-edit_cli and a scripted viewer (grid, gizmo, an edit verb); and no
+CPU, each printing one BENCHMARK_JSON line, edits and renders through
+edit_cli and a scripted viewer (grid, gizmo, an edit verb), renders the
+helmet with a JPEG and with a KTX2 BasisLZ base colour (the port's own
+decoders), writes a JPEG and renders a frame split over two shards
+(parallel.render_mesh); and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports any
 of them, or the reference's tools/."""
 
@@ -45,6 +48,25 @@ with tempfile.TemporaryDirectory() as d:
     assert img.shape == (24, 32, 3) and np.isfinite(img).all() and img.mean() > 0.01
     assert float(aux["rays"]) > 0
     r.save_image(d + "/out.png")
+    # textures without Pillow: JPEG and KTX2 BasisLZ base colours, a JPEG written, rows over two shards
+    from vk_gltf_renderer_tpu_torch.ops.jpeg import decode_jpeg, encode_jpeg
+    from vk_gltf_renderer_tpu_torch.parallel import render_mesh
+    from vk_gltf_renderer_tpu_torch.scenes import helmet_with_texture, ktx2_etc1s, texture_image
+    tex = texture_image(32, seed=1)
+    for data, name in ((encode_jpeg(tex), "base.jpg"), (ktx2_etc1s(tex), "base.ktx2")):
+        r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
+        r.create_scene(helmet_with_texture(d, data, name))
+        assert r.dev_scene.tex_desc[0, 1:3].tolist() == [32, 32]
+        r.on_render()
+        assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
+    r.save_image(d + "/out.jpg")
+    with open(d + "/out.jpg", "rb") as f:
+        assert decode_jpeg(f.read()).shape == (16, 24, 3)
+    accum = r.accum.clone()
+    r.reset_frame()
+    r.frame_idx -= 1
+    render_mesh(r, ["cpu", "cpu"])
+    assert torch.equal(r.accum, accum)
     write_large_glb(d + "/terrain.glb", target_tris=8000, grid=2)
     images = []
     for primary, packet in (("v3", "v9"), ("v2", "v2"), ("v6", "v6"), ("lane", "lane_stream"),

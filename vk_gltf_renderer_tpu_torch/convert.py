@@ -5,7 +5,8 @@ package's field names (its SceneFlat / WorldBvh / env dicts, or this
 package's numpy copies; numpy or jax arrays) and returns the port's device
 dataclasses. The renderer uses it on its own host builders; the tests use
 it to hand both packages the same tables; ibl_to_device does the same for
-the preview's IBL prefilter products.
+the preview's IBL prefilter products. DeviceScene.to, DeviceBvh.to and
+replicate copy device tables to another device (parallel/mesh.py's replicas).
 
 DeviceRefit holds what the device refit reads (the deformable vertex
 state, the index tables of the world-triangle and hit-row bakes, and the
@@ -16,6 +17,7 @@ after a transform, skin or morph edit (renderer._refit_device).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from types import SimpleNamespace
 
@@ -56,6 +58,9 @@ class DeviceScene:
     light_angular_or_invrange: torch.Tensor  # [L] f32
     light_cone: torch.Tensor  # [L,2] f32
 
+    def to(self, device) -> "DeviceScene":
+        return replicate(self, device)
+
 
 @dataclass
 class DeviceBvh:
@@ -95,6 +100,11 @@ class DeviceBvh:
     # the device refit's tables (refit_tables_to_device), once a refit needs them
     refit: DeviceRefit | None = None
 
+    def to(self, device) -> "DeviceBvh":
+        """A copy on device without the refit's tables: a replica renders,
+        and is replaced after a refit of the original."""
+        return replicate(self, device, drop=("refit",))
+
 
 @dataclass
 class DeviceRefit:
@@ -122,6 +132,25 @@ class DeviceRefit:
     map16: torch.Tensor | None = None  # [M,16] i64, with nodes16_fi
     lane_geo_idx: torch.Tensor | None = None  # [E,16] i32 entry-major, with lane_entries
     tris: torch.Tensor | None = None  # [T+8,16] f32 world triangles of the last refit
+
+
+def replicate(obj, device, drop=()):
+    """A copy of a device dataclass (DeviceScene, DeviceBvh, HdrEnv,
+    SkyEnv) with every tensor field copied to device; other fields carried
+    across (dicts copied), the fields named in drop set to None. The copy
+    of a tensor already on device is the tensor itself."""
+    device = torch.device(device)
+    kwargs = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.name in drop:
+            v = None
+        elif isinstance(v, torch.Tensor):
+            v = v.to(device)
+        elif isinstance(v, dict):
+            v = dict(v)
+        kwargs[f.name] = v
+    return type(obj)(**kwargs)
 
 
 def _t(a, dtype, device):

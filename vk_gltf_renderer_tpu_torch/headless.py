@@ -10,8 +10,9 @@ Emits the same machine-readable lines as the reference: a HEADLESS_SUMMARY
 human line and a schema-1 BENCHMARK_JSON record. Renders on the card
 unless --device names the CPU. --upscale N renders at size/N and writes the
 TAAU image at the given size; --renderSystem 1 renders preview frames
-(--wireframe 1 overlays the triangle edges). An --output other than PNG
-raises NotImplementedError naming its ROADMAP item (section A).
+(--wireframe 1 overlays the triangle edges). --output writes PNG or JPEG
+by its suffix (utils/image_io.py); another suffix raises
+NotImplementedError naming its ROADMAP item (section A).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--size", type=int, nargs=2, default=[512, 512], metavar=("W", "H"))
     p.add_argument("--frames", type=int, default=1, help="frames to render in headless mode")
     p.add_argument("--maxFrames", type=int, default=None, help="accumulation limit")
-    p.add_argument("--output", type=str, default=None, help="output image path (.png)")
+    p.add_argument("--output", type=str, default=None, help="output image path (.png, .jpg or .jpeg)")
     # rendering
     p.add_argument("--renderSystem", type=int, default=0, help="0=pathtracer 1=rasterizer")
     p.add_argument("--wireframe", type=int, default=0, help="barycentric wireframe overlay (preview)")
@@ -69,9 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose feature is not ported."""
-    if args.output and not args.output.lower().endswith(".png"):
-        raise NotImplementedError(f"--output {args.output}: the port writes PNG only "
-                                  "(ROADMAP A12, image codecs)")
+    if args.output:
+        from .utils.image_io import check_writable
+
+        check_writable(args.output)
 
 
 def main(argv=None) -> int:

@@ -1,12 +1,16 @@
-"""Native (C++) host builders with build-on-first-use + ctypes bindings.
+"""Native (C++) host code with build-on-first-use + ctypes bindings.
 
 The port's own copy of vk_gltf_renderer_tpu/native (binned SAH and the
 Morton radix tree over world triangles, bvh_builder.cpp), so the port
-imports nothing of the JAX package. The library is built by g++ at first
-use into ``build/native/`` at the repository root (listed in .gitignore),
-named by a hash of the source. Each function returns None when the
-library cannot be built; ops/bvh_flatten.py then takes its numpy oracle,
-and refuses scenes too large for it rather than waiting on a Python loop.
+imports nothing of the JAX package, and the JPEG entropy coder of
+ops/jpeg.py (jpeg_entropy.cpp). Each library is built by g++ at first use
+into ``build/native/`` at the repository root (listed in .gitignore),
+named by a hash of its source, and renamed into place once complete, so
+that concurrent builders never load half a file. The BVH functions return
+None when their library cannot be built; ops/bvh_flatten.py then takes its
+numpy oracle, and refuses scenes too large for it rather than waiting on a
+Python loop. The JPEG coder has no such oracle: jpeg_lib raises when its
+build fails.
 """
 
 from __future__ import annotations
@@ -21,30 +25,66 @@ from pathlib import Path
 import numpy as np
 
 _SRC = Path(__file__).parent / "bvh_builder.cpp"
+_JPEG_SRC = Path(__file__).parent / "jpeg_entropy.cpp"
 _CACHE = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 _lib = None
 _lib_failed = False
+_jpeg = None
 
 
-def _build_lib() -> Path | None:
-    src = _SRC.read_text()
+def _compile(src_path: Path) -> Path:
+    """Build src_path into build/native/<stem>_<hash>.so (once); raises
+    subprocess.SubprocessError or OSError when g++ fails or is missing."""
+    src = src_path.read_text()
     tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-    out = _CACHE / f"bvh_builder_{tag}.so"
+    out = _CACHE / f"{src_path.stem}_{tag}.so"
     if out.exists():
         return out
     _CACHE.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        str(_SRC), "-o", str(tmp),
+        str(src_path), "-o", str(tmp),
     ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (subprocess.SubprocessError, FileNotFoundError) as e:
-        print(f"[vkgr.native] build failed ({e}); using numpy fallback", file=sys.stderr)
-        return None
+    subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     os.replace(tmp, out)  # atomic: concurrent builders never load half a file
     return out
+
+
+def _build_lib() -> Path | None:
+    try:
+        return _compile(_SRC)
+    except (subprocess.SubprocessError, OSError) as e:
+        print(f"[vkgr.native] build failed ({e}); using numpy fallback", file=sys.stderr)
+        return None
+
+
+def jpeg_lib():
+    """The JPEG entropy coder (jpeg_entropy.cpp), built at first use.
+    Raises RuntimeError when it cannot be built or loaded: there is no
+    Python decoder to stand in for it, and a RuntimeError is not one of
+    the decode errors that build_texture_pool turns into a white texel."""
+    global _jpeg
+    if _jpeg is not None:
+        return _jpeg
+    try:
+        path = _compile(_JPEG_SRC)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"building {_JPEG_SRC.name} failed:\n{e.stderr.decode(errors='replace')}") from e
+    except (subprocess.SubprocessError, OSError) as e:
+        raise RuntimeError(f"building {_JPEG_SRC.name} failed: {e}") from e
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    try:  # a truncated cache entry or a missing symbol: OSError, AttributeError
+        lib = ctypes.CDLL(str(path))
+        lib.vkgr_jpeg_decode_scan.restype = ctypes.c_int
+        lib.vkgr_jpeg_decode_scan.argtypes = [vp, i64, i32, vp, vp, i32, i32, vp, vp, vp, i32, i32, i32, i32,
+                                              i32, i32]
+        lib.vkgr_jpeg_encode_scan.restype = ctypes.c_int
+        lib.vkgr_jpeg_encode_scan.argtypes = [vp, vp, i64, vp, vp, vp, vp, i32, i32, vp, i64, vp]
+    except (OSError, AttributeError) as e:
+        raise RuntimeError(f"loading {path} failed: {e}") from e
+    _jpeg = lib
+    return _jpeg
 
 
 def get_lib():

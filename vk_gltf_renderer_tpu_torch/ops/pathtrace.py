@@ -745,19 +745,26 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
 
 
 def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
-    """Render one frame of cfg.spp samples for all W*H pixels.
+    """Render one frame of cfg.spp samples for all W*H pixels, or for the
+    pixels that frame["px"], frame["py"] name (int64 [N] each; a shard of
+    parallel/, reference pathtrace.py:1344).
 
-    frame: dict(proj_inv [4,4], view_inv [4,4], frame_idx int, accum [W*H,3],
+    frame: dict(proj_inv [4,4], view_inv [4,4], frame_idx int, accum [N,3],
     total_samples int, pixel_angle float; cam_jitter [2] under taa_jitter,
-    prev_rn_o2w [R,16] with the guides). Returns (new_accum, aux); with the
-    guides aux also holds lum_moments [W*H,2], the sum over the samples of
-    (L, L^2) of their luminance after the clamps."""
+    prev_rn_o2w [R,16] with the guides). Returns (new_accum, aux) over the N
+    pixels; with the guides aux also holds lum_moments [N,2], the sum over
+    the samples of (L, L^2) of their luminance after the clamps. Every
+    pixel's samples depend only on its own seed, xxhash32(px, py, frame), so
+    a shard's pixels come out as they do in the whole frame."""
     cfg.check_supported()
     w, h = cfg.width, cfg.height
     dev = frame["accum"].device
-    n = w * h
-    px = torch.arange(w, device=dev).repeat(h)
-    py = torch.arange(h, device=dev).repeat_interleave(w)
+    if "px" in frame:
+        px, py = frame["px"], frame["py"]
+    else:
+        px = torch.arange(w, device=dev).repeat(h)
+        py = torch.arange(h, device=dev).repeat_interleave(w)
+    n = px.shape[0]
     seed = rng.xxhash32(px, py, torch.full_like(px, int(frame["frame_idx"])))
     sample_pos = torch.stack([px, py], dim=-1).to(torch.float32)
     image_size = torch.tensor([w, h], dtype=torch.float32, device=dev)

@@ -4,17 +4,27 @@
 Port of vk_gltf_renderer_tpu/ops/textures.py. The pool layout is the
 reference's: row i of tex_quads holds the 4 bilinear taps anchored at
 texel i (REPEAT wrap baked in), so one bilinear fetch is one row gather.
-Sampling wraps with REPEAT only, as the reference does. Images decode
-through utils/png.py; formats without a decoder here (JPEG, WebP,
-KTX2/BasisU, DDS) raise NotImplementedError.
+Sampling wraps with REPEAT only, as the reference does. decode_image
+picks the decoder by the file's magic bytes: PNG through utils/png.py,
+DDS and KTX2 (BC1-3, RGBA8, zlib, zstd with the zstandard package,
+BasisLZ/ETC1S, UASTC, ASTC) through ops/dds.py, JPEG through ops/jpeg.py.
+Every decoder raises ValueError (or its subclass UnsupportedCodec) for
+input it cannot read, and build_texture_pool turns such an image into 1x1
+white, as the reference does for any failed decode. WebP has no decoder
+here yet and raises NotImplementedError (ROADMAP A12).
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 import torch
 
 from ..utils.png import is_png, read_png
+from .dds import DDS_MAGIC, KTX2_MAGIC, sniff_decode
+from .jpeg import decode_jpeg, is_jpeg
 
 _SRGB_SLOT_KEYS = (
     "baseColorTexture",
@@ -83,11 +93,21 @@ def decode_image(model, image: dict) -> np.ndarray:
     data = _image_bytes(model, image)
     if data is None:
         return np.ones((1, 1, 4), np.float32)
-    if not is_png(data):
-        raise NotImplementedError(
-            "only PNG textures are decoded by the port so far (JPEG, WebP, KTX2/BasisU "
-            "and DDS are not ported yet)")
-    px = read_png(data).astype(np.float32) / 255.0
+    try:
+        if data[:4] == DDS_MAGIC or data[:12] == KTX2_MAGIC:
+            # C order: the BGRA swizzle's fancy index leaves another memory layout, and the mip
+            # chain's mean sums in layout order (the reference's DDS BGRA8 mips differ in the last bit)
+            return np.ascontiguousarray(sniff_decode(data))
+        if is_png(data):
+            px = read_png(data)
+        elif is_jpeg(data):
+            px = decode_jpeg(data)
+        else:
+            raise NotImplementedError("the port decodes PNG, JPEG, DDS and KTX2 textures; WebP and other "
+                                      "formats are not ported yet (ROADMAP A12, WebP)")
+    except (struct.error, zlib.error, IndexError) as e:  # a truncated or corrupt file
+        raise ValueError(f"corrupt image: {e!r}") from e
+    px = px.astype(np.float32) / 255.0
     ch = px.shape[2]
     if ch == 1:  # gray
         px = np.concatenate([px, px, px, np.ones_like(px)], axis=-1)
@@ -108,23 +128,28 @@ def _mip_chain(img: np.ndarray, max_mips: int = 16) -> list:
     return mips
 
 
-def _quad_pack(mip: np.ndarray) -> np.ndarray:
-    """[h,w,4] -> [h*w,16]: row (y,x) = taps (x,y),(x+1,y),(x,y+1),(x+1,y+1),
-    REPEAT wrap."""
-    right = np.roll(mip, -1, axis=1)
-    down = np.roll(mip, -1, axis=0)
-    diag = np.roll(right, -1, axis=0)
-    return np.concatenate([mip, right, down, diag], axis=-1).reshape(-1, 16).astype(np.float32)
+def _quad_pack(mip: np.ndarray, out: np.ndarray) -> None:
+    """[h,w,4] -> out [h*w,16] float32: row (y,x) = taps (x,y),(x+1,y),
+    (x,y+1),(x+1,y+1), REPEAT wrap (the reference's rolls, written in
+    place)."""
+    h, w = mip.shape[:2]
+    q = out.reshape(h, w, 4, 4)
+    q[:, :, 0] = mip
+    q[:, : w - 1, 1] = mip[:, 1:]
+    q[:, w - 1, 1] = mip[:, 0]
+    q[: h - 1, :, 2:] = q[1:, :, :2]
+    q[h - 1, :, 2:] = q[0, :, :2]
 
 
 def build_texture_pool(model, used_texinfos=None):
     """Decode all images -> (quads [K,16], desc [D,4], mip_table [ntex,max],
     num_mips [ntex]) (reference ops/textures.py:124). An image that fails to
-    decode becomes 1x1 white, as in the reference; a format the port has no
-    decoder for raises."""
+    decode (ValueError, or an unreadable file) becomes 1x1 white, as in the
+    reference; a format the port has no decoder for raises. The catch is no
+    wider, so that a device or programming error is not hidden."""
     del used_texinfos  # the reference takes it too and decodes every image
     srgb = find_srgb_images(model)
-    texel_chunks = []
+    mips = []
     desc_rows = []
     per_image_descs = []
     offset = 0
@@ -140,12 +165,16 @@ def build_texture_pool(model, used_texinfos=None):
             h, w = mip.shape[:2]
             desc_rows.append([offset, w, h, 0])
             rows.append(len(desc_rows) - 1)
-            texel_chunks.append(_quad_pack(mip))
+            mips.append(mip)
             offset += h * w
         per_image_descs.append(rows)
 
-    if not desc_rows:
-        texel_chunks = [np.ones((1, 16), np.float32)]
+    if desc_rows:
+        quads = np.empty((offset, 16), np.float32)
+        for mip, (start, w, h, _) in zip(mips, desc_rows):
+            _quad_pack(mip, quads[start : start + h * w])
+    else:
+        quads = np.ones((1, 16), np.float32)
         desc_rows = [[0, 1, 1, 0]]
         per_image_descs = [[0]]
 
@@ -158,7 +187,6 @@ def build_texture_pool(model, used_texinfos=None):
         num_mips[i] = len(rows)
         mip_table[i, len(rows) :] = rows[-1]  # pad with the coarsest mip
 
-    quads = np.concatenate(texel_chunks).astype(np.float32)
     return quads, np.asarray(desc_rows, np.int32), mip_table, num_mips
 
 

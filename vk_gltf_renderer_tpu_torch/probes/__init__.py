@@ -8,6 +8,12 @@ command-line entry that runs on the card:
     python -m vk_gltf_renderer_tpu_torch.probes.visit
     python -m vk_gltf_renderer_tpu_torch.probes.stream_dma
     python -m vk_gltf_renderer_tpu_torch.probes.uarch
+
+boundary.py is the front end of tools/exp_boundary.py: it times the
+existing traverse_bvh4 and megakernel wrappers at one ray population and
+has no kernel of its own:
+
+    python -m vk_gltf_renderer_tpu_torch.probes.boundary
 """
 
 from __future__ import annotations

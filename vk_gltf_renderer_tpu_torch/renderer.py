@@ -93,7 +93,7 @@ from .ops.temporal import motion_vectors, temporal_accumulate
 from .ops.tonemap import tonemap
 from .ops.upscale import halton23, temporal_upscale
 from .utils import mathutil as mu
-from .utils.png import write_png
+from .utils.image_io import write_image
 
 
 @dataclass
@@ -193,6 +193,7 @@ class GltfRenderer:
         self.bvh = None  # host WorldBvh (numpy)
         self.dev_scene = None  # convert.DeviceScene
         self.dev_bvh = None  # convert.DeviceBvh
+        self._table_families = set()  # the kernel table families dev_bvh was given (_sync_kernel_tables)
         self.sky_params = SkyParams()
         self.hdr = None  # ops.hdr.HdrEnv
         self.camera: CameraState | None = None
@@ -226,6 +227,9 @@ class GltfRenderer:
         self._moments = None  # accumulated per-sample luminance moments [W*H,2]
         self._ibl = self._ibl_key = None  # the preview's IBL products and their environment
         self.adaptive: AdaptiveSampler | None = None  # set to retarget spp from each frame's time
+        # device -> (DeviceScene, DeviceBvh, HdrEnv | None) copies that parallel/ renders on; dropped
+        # whenever the tables they copy change (drop_replicas)
+        self.replicas = {}
 
     # -------------------------------------------------------------- scene
     def create_scene(self, path) -> None:
@@ -262,6 +266,7 @@ class GltfRenderer:
         self.hdr = load_hdr_environment(path, self.device, intensity=self.env_intensity,
                                         rotation=self.env_rotation)
         self.env_kind = "hdr"
+        self.drop_replicas()
         self.reset_frame()
 
     def rebuild_device_scene(self) -> None:
@@ -281,7 +286,14 @@ class GltfRenderer:
         self.bvh = build_world_bvh(self.flat, tri_class=self._alpha_cls, subtri_cells=self._subtri_cells)
         self.dev_scene = scene_to_device(self.flat, self.device)
         self.dev_bvh = bvh_to_device(self.bvh, self.device)
+        self._table_families = set()
+        self.drop_replicas()
         self._sync_kernel_tables(self._config())
+
+    def drop_replicas(self) -> None:
+        """Forget the other devices' copies of the device tables (after a
+        rebuild, a refit, a material or table change, a new environment)."""
+        self.replicas = {}
 
     def _alpha_classes(self):
         """(tri_class, subtri_cells) of ops/omm.py for the current host
@@ -330,6 +342,7 @@ class GltfRenderer:
                     self.rebuild_device_scene()
                     return True
             self.dev_scene = scene_to_device(self.flat, self.device)
+            self.drop_replicas()
         self.scene.clear_dirty_flags()
         self.reset_frame()
         return True
@@ -428,6 +441,7 @@ class GltfRenderer:
                                       ref.attr_tri, ref.attr_has_uv, narrow=ref.narrow,
                                       attr_bary=ref.attr_bary)
         self.flat = dataclasses.replace(self.flat, rn_o2w=o2w, rn_w2o=w2o, rn_packed=rn_packed)
+        self.drop_replicas()
         return True
 
     def _sync_kernel_tables(self, cfg: RenderConfig) -> None:
@@ -435,10 +449,12 @@ class GltfRenderer:
         reads and the scene lacks; tables of an earlier selection stay. A
         table built after a device refit is refitted on upload
         (convert.add_kernel_tables_to_device)."""
-        need = cfg.kernel_tables() - {"bvh4"}  # nodes4_fi is always built
+        need = cfg.kernel_tables() - {"bvh4"} - self._table_families  # nodes4_fi is always built
         if need:
             add_kernel_tables(self.bvh, need)
             add_kernel_tables_to_device(self.dev_bvh, self.bvh, self.device, need)
+            self._table_families |= need
+            self.drop_replicas()
 
     # -------------------------------------------------------------- frames
     def reset_frame(self) -> None:
@@ -665,10 +681,11 @@ class GltfRenderer:
         return rid
 
     def save_image(self, path) -> None:
-        """Write an 8-bit RGB PNG: the tonemapped TAAU image under upscale,
-        else the tonemapped image with the selection outlined."""
+        """Write an 8-bit RGB image by path's suffix (utils/image_io: PNG or
+        JPEG): the tonemapped TAAU image under upscale, else the tonemapped
+        image with the selection outlined."""
         if self.upscale > 1 and self._history_hi is not None:
             img = tonemap(self._history_hi[..., :3], self.tonemapper, self.exposure).cpu().numpy()
         else:
             img = self.image_with_silhouette()
-        write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        write_image(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))

@@ -663,3 +663,221 @@ def write_large_glb(path: str, target_tris: int = 1_050_000, grid: int = 8) -> i
         f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
         f.write(struct.pack("<II", len(bin_chunk), 0x004E4942) + bin_chunk)
     return world_tris
+
+
+# ------------------------------------------------------------------ texture containers
+# The helmet's base colour in every container the port decodes (phase 20 of chip_smoke.py, the
+# codec tests): a seeded image and writers for DDS (BGRA8, BC1), KTX2 (RGBA8, zlib, BasisLZ/ETC1S,
+# UASTC, ASTC 4x4) and JPEG (ops/jpeg.encode_jpeg). The block encoders are simple (BC1: the
+# block's per-channel min and max as endpoints; ETC1S: the block's mean colour and the best of
+# the eight intensity tables; ASTC: one partition, CEM 8 with the per-channel min and max, a
+# 4x4 grid of 12-level weights): they make valid files of a real image, not good ones.
+
+
+def texture_image(n=2048, seed=0) -> np.ndarray:
+    """A seeded RGB texture [n,n,3] uint8: smooth colour waves over a
+    checker of 64-texel cells, with per-texel noise (the kind of content
+    a base-colour map holds, so that a lossy codec has edges and gradients
+    to keep)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    ph = rng.random(3).astype(np.float32) * 6.0
+    img = np.stack([128 + 80 * np.sin(x / 53 + ph[0]) * np.cos(y / 41),
+                    128 + 70 * np.sin((x + y) / 97 + ph[1]),
+                    128 + 60 * np.cos(x / 29 - y / 71 + ph[2])], axis=-1)
+    img += np.where((((x // 64) + (y // 64)) % 2 == 0)[..., None], 25.0, -25.0)
+    img += rng.normal(0.0, 6.0, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _rgba(img) -> np.ndarray:
+    img = np.asarray(img, np.uint8)
+    if img.shape[-1] == 4:
+        return img
+    return np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+
+
+def _dds_header(w, h, pf_flags, fourcc=b"\0\0\0\0", masks=(0, 0, 0, 0, 0)) -> bytes:
+    head = b"DDS " + struct.pack("<I", 124) + struct.pack("<3I", 0x1007, h, w)
+    head += b"\0" * (72 - 16)
+    head += struct.pack("<2I4s", 32, pf_flags, fourcc) + struct.pack("<5I", *masks)
+    return head + b"\0" * (128 - len(head))
+
+
+def dds_bgra8(img) -> bytes:
+    """An uncompressed 32-bit BGRA DDS file of an RGB(A) uint8 image."""
+    rgba = _rgba(img)
+    h, w = rgba.shape[:2]
+    masks = (32, 0x00FF0000, 0x0000FF00, 0x000000FF, 0xFF000000)
+    return _dds_header(w, h, 0x41, masks=masks) + rgba[..., [2, 1, 0, 3]].tobytes()
+
+
+def bc1_blocks(img) -> bytes:
+    """BC1 blocks of an RGB(A) uint8 image (sides multiples of 4): each
+    block's per-channel max and min as the two 565 endpoints (four-colour
+    mode), every texel the nearest of the four palette colours."""
+    rgb = np.asarray(img, np.uint8)[..., :3].astype(np.int32)
+    h, w = rgb.shape[:2]
+    blk = rgb.reshape(h // 4, 4, w // 4, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+
+    def to565(c):
+        return ((c[..., 0] * 31 + 127) // 255 << 11) | ((c[..., 1] * 63 + 127) // 255 << 5) | (
+            (c[..., 2] * 31 + 127) // 255)
+
+    def from565(c):
+        return np.stack([((c >> 11) & 31) * 255 // 31, ((c >> 5) & 63) * 255 // 63, (c & 31) * 255 // 31], -1)
+
+    c0, c1 = to565(blk.max(axis=1)), to565(blk.min(axis=1))
+    swap = c0 < c1
+    c0, c1 = np.where(swap, c1, c0), np.where(swap, c0, c1)
+    p0, p1 = from565(c0), from565(c1)
+    pal = np.stack([p0, p1, (2 * p0 + p1) // 3, (p0 + 2 * p1) // 3], axis=1)  # [N,4,3]
+    err = ((blk[:, :, None, :] - pal[:, None, :, :]) ** 2).sum(-1)  # [N,16,4]
+    idx = np.where((c0 == c1)[:, None], 0, err.argmin(-1)).astype(np.uint64)
+    bits = (idx << (2 * np.arange(16, dtype=np.uint64))).sum(axis=1)
+    words = c0.astype(np.uint64) | (c1.astype(np.uint64) << 16) | (bits << 32)
+    return words.astype("<u8").tobytes()
+
+
+def dds_bc1(img) -> bytes:
+    """A DXT1 (BC1) DDS file of an RGB(A) uint8 image (bc1_blocks)."""
+    h, w = np.asarray(img).shape[:2]
+    return _dds_header(w, h, 0x4, b"DXT1") + bc1_blocks(img)
+
+
+def _ktx2(vk_format, w, h, scheme, level0, level_len_uncompressed, color_model=0, sgd=b"") -> bytes:
+    """A one-level KTX2 file with a minimal data format descriptor."""
+    from .ops.dds import KTX2_MAGIC
+
+    dfd_block = bytearray(24 + 16)
+    struct.pack_into("<HH", dfd_block, 4, 2, len(dfd_block))
+    dfd_block[8] = color_model
+    dfd = struct.pack("<I", 4 + len(dfd_block)) + bytes(dfd_block)
+    dfd_off = 80 + 24
+    sgd_off = dfd_off + len(dfd)
+    pad = -sgd_off % 8
+    sgd_off += pad
+    level_off = sgd_off + len(sgd)
+    out = KTX2_MAGIC + struct.pack("<9I", vk_format, 1, w, h, 0, 0, 1, 1, scheme)
+    out += struct.pack("<4I", dfd_off, len(dfd), 0, 0)
+    out += struct.pack("<2Q", sgd_off if sgd else 0, len(sgd))
+    out += struct.pack("<3Q", level_off, len(level0), level_len_uncompressed)
+    return out + dfd + b"\0" * pad + sgd + level0
+
+
+def ktx2_rgba8(img, zlib_level=None) -> bytes:
+    """A KTX2 R8G8B8A8_SRGB file, its level zlib-supercompressed when
+    zlib_level is given."""
+    import zlib
+
+    rgba = _rgba(img)
+    h, w = rgba.shape[:2]
+    raw = rgba.tobytes()
+    if zlib_level is None:
+        return _ktx2(43, w, h, 0, raw, len(raw))
+    return _ktx2(43, w, h, 3, zlib.compress(raw, zlib_level), len(raw))
+
+
+def ktx2_etc1s(img) -> bytes:
+    """A BasisLZ/ETC1S KTX2 file of an RGB uint8 image (sides multiples
+    of 4): one codebook endpoint and one selector row set a block, written
+    by the port's copy of the reference's encoders (ops/basisu.py)."""
+    from .ops import basisu
+
+    rgb = np.asarray(img, np.uint8)[..., :3].astype(np.int32)
+    h, w = rgb.shape[:2]
+    nby, nbx = h // 4, w // 4
+    blk = rgb.reshape(nby, 4, nbx, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+    color5 = np.clip((blk.mean(axis=1) * 31 / 255 + 0.5).astype(np.int32), 0, 31)
+    base = (color5 << 3) | (color5 >> 2)  # [N,3]
+    cand = np.clip(base[:, None, None, :] + basisu.ETC1_INTEN[None, :, :, None], 0, 255)  # [N,8,4,3]
+    err = ((blk[:, :, None, None, :] - cand[:, None]) ** 2).sum(-1)  # [N,16,8,4]
+    sel = err.argmin(-1)  # [N,16,8]
+    inten = np.take_along_axis(err, sel[..., None], -1)[..., 0].sum(1).argmin(-1)  # [N]
+    sel = sel[np.arange(sel.shape[0]), :, inten].reshape(-1, 4, 4)
+    rows = (sel << (2 * np.arange(4))).sum(-1).astype(np.uint8)  # [N,4]: a row's 4 selectors
+    # the codebooks: the distinct endpoints and selector row sets (a Huffman alphabet holds at
+    # most 2^14 - 1 symbols, so a side of at most 504 texels always fits)
+    ends, eidx = np.unique(np.concatenate([color5, inten[:, None]], axis=1), axis=0, return_inverse=True)
+    sels, sidx = np.unique(rows, axis=0, return_inverse=True)
+    ne, ns = ends.shape[0], sels.shape[0]
+    if max(ne, ns) >= (1 << basisu.MAX_SYMS_LOG2) - 1:
+        raise ValueError(f"ETC1S codebooks of {ne} endpoints and {ns} selectors do not fit")
+    endpoints = basisu.encode_endpoints(ends[:, :3], ends[:, 3])
+    selectors = basisu.encode_selectors(sels)
+    tables = basisu.encode_tables(ne, ns)
+    level0 = basisu.encode_slice(eidx.reshape(nby, nbx), sidx.reshape(nby, nbx), ne, ns)
+    sgd = struct.pack("<HHIIII", ne, ns, len(endpoints), len(selectors), len(tables), 0)
+    sgd += struct.pack("<IIIII", 0, 0, len(level0), 0, 0) + endpoints + selectors + tables
+    return _ktx2(0, w, h, 1, level0, len(level0), color_model=163, sgd=sgd)
+
+
+def astc_4x4_blocks(img) -> bytes:
+    """ASTC 4x4 LDR blocks of an RGB uint8 image (sides multiples of 4):
+    one partition, CEM 8 (RGB direct) with the block's per-channel min and
+    max as endpoints, a full 4x4 grid of 12-level weights (each texel's
+    projection on the endpoint axis), packed by the port's copy of the
+    reference's encoder (ops/astc.encode_block)."""
+    from .ops import astc
+
+    wlevels = 12
+    clevels = astc.color_levels_for_config(4, 4, wlevels, 1, 6)
+    cq = [astc.quantize_color(v, clevels) for v in range(256)]
+    wq = [astc.quantize_weight(v, wlevels) for v in range(65)]
+    rgb = np.asarray(img, np.uint8)[..., :3].astype(np.float64)
+    h, w = rgb.shape[:2]
+    blk = rgb.reshape(h // 4, 4, w // 4, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+    lo, hi = blk.min(axis=1), blk.max(axis=1)
+    axis = hi - lo
+    t = ((blk - lo[:, None]) * axis[:, None]).sum(-1) / np.maximum((axis * axis).sum(-1), 1e-9)[:, None]
+    wts = np.clip(np.rint(t * 64), 0, 64).astype(np.int64)
+    lo_i, hi_i = lo.astype(np.int64), hi.astype(np.int64)
+    out = []
+    for b in range(blk.shape[0]):
+        cvals = [cq[v] for pair in zip(lo_i[b], hi_i[b]) for v in pair]  # r0 r1 g0 g1 b0 b1
+        out.append(astc.encode_block(4, 4, wlevels, [wq[v] for v in wts[b]], [8], cvals))
+    return b"".join(out)
+
+
+def ktx2_astc(blocks: bytes, w, h, uastc=False) -> bytes:
+    """A KTX2 file of ASTC 4x4 blocks: VK_FORMAT_ASTC_4x4_SRGB_BLOCK, or
+    vkFormat 0 with the UASTC colour model (whose LDR 4x4 payload is a
+    stream of ASTC blocks) when uastc is set."""
+    if uastc:
+        return _ktx2(0, w, h, 0, blocks, len(blocks), color_model=166)
+    return _ktx2(158, w, h, 0, blocks, len(blocks))
+
+
+# glTF texture extension of each container's images
+_TEXTURE_EXTENSION = {".dds": "MSFT_texture_dds", ".ktx2": "KHR_texture_basisu"}
+
+
+def helmet_with_texture(out_dir, data: bytes, filename: str) -> str:
+    """The helmet stand-in (make_helmet_standin, written into out_dir if
+    absent) with its base colour image replaced by `data`, written to
+    filename in out_dir, and that textured material on the sphere and the
+    plate (in make_helmet_standin both keep the default materials
+    add_primitive gave them, as the reference's generator does, so its
+    texture is never sampled). A .dds or .ktx2 image is named through
+    MSFT_texture_dds or KHR_texture_basisu, as such assets name theirs.
+    Returns the path of helmet_<stem>.gltf."""
+    base = os.path.join(out_dir, "helmet.gltf")
+    if not os.path.exists(base):
+        make_helmet_standin(out_dir)
+    with open(base) as f:
+        gltf = json.load(f)
+    with open(os.path.join(out_dir, filename), "wb") as f:
+        f.write(data)
+    gltf["images"] = [{"uri": filename}]
+    textured = next(i for i, m in enumerate(gltf["materials"]) if m.get("name") == "helmet_pbr")
+    for mesh in gltf["meshes"]:
+        for prim in mesh["primitives"]:
+            prim["material"] = textured
+    ext = _TEXTURE_EXTENSION.get(os.path.splitext(filename)[1].lower())
+    if ext:
+        gltf["textures"][0] = {"sampler": 0, "extensions": {ext: {"source": 0}}}
+        gltf["extensionsUsed"] = sorted(set(gltf.get("extensionsUsed", [])) | {ext})
+    p = os.path.join(out_dir, f"helmet_{os.path.splitext(filename)[0]}.gltf")
+    with open(p, "w") as f:
+        json.dump(gltf, f)
+    return p

@@ -3,8 +3,8 @@
 The reader handles what the slice's scenes need: 8-bit, non-interlaced
 grayscale, gray+alpha, RGB and RGBA images with all five scanline filter
 types. Anything else (palette, 16-bit, interlaced) raises ValueError, as
-does any non-PNG data; JPEG, WebP, KTX2/BasisU and DDS textures are not
-ported yet (ROADMAP.md).
+does any non-PNG data (ops/textures.decode_image sends JPEG, DDS and KTX2
+to their own decoders).
 """
 
 from __future__ import annotations

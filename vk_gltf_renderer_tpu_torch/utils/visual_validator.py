@@ -5,8 +5,8 @@ here it is real — BASELINE.json's acceptance metric is per-spp RMSE vs
 reference renders, and this is the tool that computes it.
 
 The port's copy of vk_gltf_renderer_tpu/utils/visual_validator.py, with
-images read and written by utils/png.py instead of Pillow: a path that is
-not a PNG raises ValueError, as the reader does.
+images read by utils/image_io.py (PNG or JPEG) and goldens written by
+utils/png.py instead of Pillow: a file that is neither raises ValueError.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
-from .png import read_png, write_png
+from .image_io import read_image
+from .png import write_png
 
 
 def rmse(a: np.ndarray, b: np.ndarray) -> float:
@@ -27,9 +28,9 @@ def rmse(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def load_image(path) -> np.ndarray:
-    """A PNG as RGB float32 in [0, 1]: gray repeated over three channels,
-    alpha dropped (Pillow's convert("RGB"))."""
-    img = read_png(Path(path).read_bytes())
+    """A PNG or JPEG as RGB float32 in [0, 1]: gray repeated over three
+    channels, alpha dropped (Pillow's convert("RGB"))."""
+    img = read_image(Path(path).read_bytes())
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3, axis=-1)
     return rgb.astype(np.float32) / 255.0
 

@@ -56,7 +56,7 @@ import torch
 
 from .edit_cli import BAD_INPUT
 from .ops.grid import camera_basis
-from .utils.png import write_png
+from .utils.image_io import check_writable, write_image
 
 
 def _node_visible(n: dict) -> bool:
@@ -700,7 +700,7 @@ def run_scripted(v: TerminalViewer, keys: str, output: str | None):
             break
     img = v.frame_u8()
     if output:
-        write_png(output, img)
+        write_image(output, img)
         print(f"Saved {output}")
     # one pane of ANSI output proves the display path end-to-end
     small = img[:: max(1, img.shape[0] // 16), :: max(1, img.shape[1] // 16)]
@@ -723,6 +723,8 @@ def main(argv=None) -> int:
                    help="initial renderer: 0=pathtrace 1=preview (reference --renderSystem)")
     p.add_argument("--device", type=str, default="cuda", help="torch device (cuda, cuda:N or cpu)")
     args = p.parse_args(argv)
+    if args.output:
+        check_writable(args.output)  # before the scene loads
 
     v = TerminalViewer(args.scenefile, args.hdr, size=args.size, spp=args.spp,
                        max_depth=args.maxDepth, render_system=args.renderer, device=args.device)
