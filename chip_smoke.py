@@ -302,6 +302,42 @@ Phases (each raises on failure; nothing is caught):
      (2,097,152 rays): kernel, wf/bounce, mega/bounce, boundary and
      residency gain at depths 1 and 2. `[textures]` and `[devices]` lines,
      then a [time] line.
+ 21. SBVH, seeding, batching, WebP (the helmet stand-in at 1920x1080,
+     depth 5, under the synthetic HDR): (a) the helmet built under
+     VKGR_BVH=sbvh (build seconds, references against triangles, table MB
+     by family, each family's stack need against its kernel's capacity;
+     its SBVH makes no spatial split), every kernel's closest hits on all
+     the probe rays against the SAH tables' (t bit for bit, id ties
+     counted); three 1080p SBVH frames and three SAH frames (the first a
+     warm-up), frame 0 equal but at the printed tie pixels, ms/frame and
+     the replayed frame's traverse_bvh4 ms of each; then
+     scenes.make_sliver_soup at 1,000 triangles, whose SBVH duplicates
+     references: the same table lines, every traversal kernel against its
+     plain walk on its tables (phase 16c's checks on 8,192 of the probe
+     rays, SBVH_CHECK_RAYS) and its closest hits on all the probe rays
+     against the SAH tables'; 3 1080p soup frames (SOUP_FRAMES), each from
+     one state unseeded and seeded on the SBVH tables and on the SAH
+     tables, accumulations equal but at the tie pixels, with the seeds
+     kept on a triangle that has several rows counted; and node 0 moved:
+     the device refit of its SBVH tables against the CPU refit's,
+     traverse_bvh4 against the plain walk on 8,192 rays (t, rnode, tri
+     bit for bit); (b) on (a)'s helmet renderer, 6 seeded
+     (VKGR_PRIMARY_SEED=1) and 6 unseeded 1080p frames, then a node edit
+     and 2 more: accumulations equal but at the tie pixels (first-hit ids
+     that differ in any frame), the seed's valid share, the primary
+     launch's ms seeded and unseeded (CUDA events), and the foliage
+     stand-in at 64 cards left unseeded; (c) spp 4 batched
+     (VKGR_SPP_BATCH=1) and scan, 1 warm-up and 2 timed frames each:
+     ms/frame, traverse_bvh4 / gather_channels launches a frame and peak
+     device bytes; the batched 96x64 card frame against the whole-frame
+     CPU path (_require_agree); (d) the committed WebP fixtures
+     (tests/data/webp) decoded on the host, equal to the digests of
+     Pillow's decode, with host ms, us a macroblock (lossy) or ns a pixel
+     (lossless); the helmet with a 512x512 base colour as PNG, lossless
+     WebP (equal to the PNG frame bit for bit) and the lossy fixture (96x64
+     card against CPU); headless --output x.webp at 1080p read back equal
+     to the x.png output. `[sbvh]`, `[seed]`, `[batch]`,
+     `[webp]` lines, then [time] lines.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -3410,6 +3446,510 @@ def phase_textures_devices(device, tmp, hdr, smi, terrain_bvh):
     return out
 
 
+SEED_FRAMES = 6  # phase 21b: seeded and unseeded 1080p helmet frames, then SEED_EDIT_FRAMES after an edit
+SEED_EDIT_FRAMES = 2
+BATCH_SPP, BATCH_TIMED = 4, 2  # phase 21c: spp 4 frames, 1 warm-up and BATCH_TIMED timed per path
+# phase 21a: scenes.make_sliver_soup, whose SBVH duplicates references; its plain walks loop until the
+# longest ray ends, which the slivers' overlap sets (3,000 slivers took 24-30 s of walks, 1,000 ~40% of that)
+SOUP_TRIS = 1000
+SOUP_FRAMES = 3  # phase 21a: 1080p soup frames on the SBVH tables (unseeded and seeded) and on the SAH tables
+# phase 21a: probe rays each kernel's plain walk takes on the soup's SBVH tables (a cut of phase 16c's
+# SUBSET for the phase's time; every kernel still meets all the probe rays against the SAH tables' hits)
+SBVH_CHECK_RAYS = 8_192
+WEBP_FIXTURES = ROOT / "tests" / "data" / "webp"
+WEBP_TEX = 512  # phase 21d: the side of the lossless WebP / PNG base colour
+SEED_CARDS = 64  # phase 21b: the foliage stand-in that must leave seeding off
+
+
+def _sbvh_renderer(path, w, h, device, hdr=None):
+    """A renderer whose scene is built under VKGR_BVH=sbvh (the build alone;
+    the variable is cleared after it). Returns (renderer, build seconds)."""
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    r = GltfRenderer(w, h, spp=SPP, max_depth=DEPTH, device=device)
+    os.environ["VKGR_BVH"] = "sbvh"
+    try:
+        t0 = time.perf_counter()
+        r.create_scene(path)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["VKGR_BVH"]
+    if hdr is not None:
+        r.create_hdr(hdr)
+    require(r.bvh.builder == "sbvh", f"{path}: the SBVH builder did not run ({r.bvh.builder})")
+    return r, secs
+
+
+def _table_mb(dev):
+    """MB of each table family a DeviceBvh holds."""
+    fams = {"bvh4": ("nodes4_fi", "tris128"), "bvh2": ("nodes_fi",), "bvh16": ("nodes16_fi",),
+            "lane": ("lane_entries",), "bvh4_sidecar": ("nodes4_sc",), "split": ("nodes_i", "nodes_f", "nodes_self",
+                                                                                   "nodes4_i", "nodes4_f", "tris"),
+            "hit": ("hit_attr", "emit2ref")}
+    return {f: round(sum(getattr(dev, k).numel() * getattr(dev, k).element_size() for k in keys
+                         if getattr(dev, k) is not None) / 1e6, 3) for f, keys in fams.items()}
+
+
+def _hits_against(tag, bvh, ref_bvh, comps, tmin, far):
+    """Every kernel's closest hits on bvh's tables against ref_bvh's (the same
+    scene, another tree): t bit for bit, (rnode, tri) but for equal-t ties."""
+    from vk_gltf_renderer_tpu_torch.ops.intersect import intersect_rays_packet, intersect_rays_soa
+
+    ro = torch.stack(comps[:3], -1)
+    rd = torch.stack(comps[3:], -1)
+    out = {}
+    for kernel in ("v3", "v5", "v7", "v8", "v2", "v6", "lane", "packet4", "v1"):
+        hits = []
+        for b in (bvh, ref_bvh):
+            if kernel in ("packet4", "v1"):
+                hits.append(intersect_rays_packet(b, ro, rd, tmin, far, wide=kernel == "packet4"))
+            else:
+                hits.append(intersect_rays_soa(b, *comps, tmin, far, kernel=kernel))
+        a, r = hits
+        require(same_bits(a["t"], r["t"]), f"{tag} {kernel}: closest-hit t differs from the SAH tables' on "
+                f"{int((a['t'].view(torch.int32) != r['t'].view(torch.int32)).sum())} rays")
+        out[kernel] = int(((a["rnode"] != r["rnode"]) | (a["tri"] != r["tri"])).sum())
+    log(f"{tag}: every kernel's closest hits on {comps[0].shape[0]} probe rays equal the SAH tables' (t bit for "
+        f"bit; equal-t id ties {out})")
+    return out
+
+
+def _probe_args(r, device, n_sub, seed=98):
+    ro, rd = probe_rays(r, device)
+    n = ro.shape[0]
+    comps = [ro[:, i].contiguous() for i in range(3)] + [rd[:, i].contiguous() for i in range(3)]
+    tmin = torch.zeros(n, device=device)
+    far = torch.full((n,), 1e32, device=device)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shadow_tmax = (torch.rand(n, generator=g) * float((r.dev_bvh.scene_hi - r.dev_bvh.scene_lo).norm())).to(device)
+    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(6))[:n_sub].to(device)
+    return comps, tmin, far, shadow_tmax, sub
+
+
+def _cpu_whole_frame(r):
+    """Frame r.frame_idx of renderer r on the CPU path, whole (a batched or
+    seeded config renders there as on the card; a shard would take the
+    scan path), from copies of the card's tables: (image, first-hit rnode,
+    first-hit tri, rays)."""
+    from vk_gltf_renderer_tpu_torch.ops.pathtrace import render_frame_flat
+    from vk_gltf_renderer_tpu_torch.parallel.mesh import _tables_on
+
+    cfg = r._config()
+    frame = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in r._frame_inputs(cfg).items()}
+    accum, aux = render_frame_flat(*_tables_on(r, torch.device("cpu")), frame, cfg)
+    return (accum.reshape(r.height, r.width, 3).numpy(), aux["first_rnode"].numpy(), aux["first_tri"].numpy(),
+            float(aux["rays"]))
+
+
+def _soup_frames(r, soup_sah, device, smi):
+    """Phase 21 (a): SOUP_FRAMES 1080p frames of the soup on its SBVH tables
+    (renderer r), each from one state unseeded and then seeded (whose state
+    carries on), against the SAH tables' frames (soup_sah): the
+    accumulations equal but at the tie pixels (first-hit ids that differed
+    in any frame). Counts the seeds kept on a row of a triangle that has
+    other rows (emit2ref names one of its copies)."""
+    from vk_gltf_renderer_tpu_torch.ops import pathtrace as tpt
+
+    wb = r.bvh
+    n_rows = np.bincount(wb.wtri_tri[wb.wtri_tri >= 0], minlength=wb.num_world_tris)
+    kept = {"seeds": 0, "on_copies": 0}
+    seed_hits = tpt._primary_seed_hits
+
+    def counted(bvh, ro, rd, prev_ref):
+        res = seed_hits(bvh, ro, rd, prev_ref)
+        ref = prev_ref[res[5]].cpu().numpy()
+        kept["seeds"] += int(ref.size)
+        kept["on_copies"] += int((n_rows[wb.wtri_tri[ref]] > 1).sum())
+        return res
+
+    ever = torch.zeros(FRAME_W * FRAME_H, dtype=torch.bool, device=device)
+    ms = {"unseeded": [], "seeded": [], "sah": []}
+    tpt._primary_seed_hits = counted
+    try:
+        for i in range(SOUP_FRAMES):
+            state = (r.accum.clone(), r.total_samples, r.frame_idx, r._prev_first)
+            res = {}
+            for label, seed in (("unseeded", "0"), ("seeded", "1")):
+                os.environ["VKGR_PRIMARY_SEED"] = seed
+                r.accum, r.total_samples, r.frame_idx, r._prev_first = state[0].clone(), *state[1:]
+                aux, t = _sync_ms(r.on_render)
+                require(r._config().primary_seed == (seed == "1"), f"[sbvh] soup {label}: cfg.primary_seed")
+                ms[label].append(t)
+                res[label] = (r.accum.reshape(-1, 3).clone(), aux["first_rnode"], aux["first_tri"])
+            os.environ["VKGR_PRIMARY_SEED"] = "0"
+            aux, t = _sync_ms(soup_sah.on_render)
+            ms["sah"].append(t)
+            res["sah"] = (soup_sah.accum.reshape(-1, 3), aux["first_rnode"], aux["first_tri"])
+            u = res["unseeded"]
+            for other in ("seeded", "sah"):
+                o = res[other]
+                ever |= (u[1] != o[1]) | (u[2] != o[2])
+            same = ~ever
+            for other in ("seeded", "sah"):
+                require(ever.float().mean() <= 1e-3 and torch.equal(u[0][same], res[other][0][same]),
+                        f"[sbvh] soup frame {i}: the SBVH unseeded accumulation differs from the {other} one "
+                        f"beyond {int(ever.sum())} tie pixels")
+    finally:
+        tpt._primary_seed_hits = seed_hits
+        os.environ.pop("VKGR_PRIMARY_SEED", None)
+    require(kept["on_copies"] > 0, f"[sbvh] soup: no seed was kept on a duplicated triangle {kept}")
+    mean = {k: float(np.mean(v[1:])) for k, v in ms.items()}  # frame 0 warms up
+    log(f"[sbvh] (a) soup {FRAME_W}x{FRAME_H}: {SOUP_FRAMES} SBVH frames unseeded and seeded (each from one "
+        f"state) and the SAH tables' frames, accumulations equal but at {int(ever.sum())} tie pixels; seeds kept "
+        f"{kept['seeds']}, {kept['on_copies']} of them on a triangle with several rows; ms/frame SBVH "
+        f"{mean['unseeded']:.2f} unseeded, {mean['seeded']:.2f} seeded, SAH {mean['sah']:.2f}; on {smi}")
+    return dict(tie_pixels=int(ever.sum()), seeds_kept=kept["seeds"], seeds_on_copies=kept["on_copies"],
+                ms_per_frame=mean)
+
+
+def _sbvh_phase(device, tmp, hdr, smi, sah):
+    """Phase 21 (a); sah: the helmet's 1080p renderer on the SAH tables."""
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops.intersect import STACK_CAPACITY
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    out = {}
+    helmet = os.path.join(tmp, "helmet.gltf")
+    os.makedirs(os.path.join(tmp, "soup21"), exist_ok=True)
+    soup = tscenes.make_sliver_soup(os.path.join(tmp, "soup21"), n=SOUP_TRIS)
+    t_phase = time.perf_counter()
+    for label, path in (("helmet", helmet), ("soup", soup)):
+        r, build_s = _sbvh_renderer(path, FRAME_W, FRAME_H, device, hdr)
+        _all_tables(r, device)
+        nrefs = int(r.bvh.tris.shape[0] - 8)
+        need = {f: (r.dev_bvh.stack_need[f], STACK_CAPACITY[f]) for f in STACK_CAPACITY}
+        require(all(a <= b for a, b in need.values()), f"[sbvh] {label}: a stack need exceeds its capacity {need}")
+        mb = _table_mb(r.dev_bvh)
+        log(f"[sbvh] (a) {label}: SBVH build {build_s:.2f} s, {nrefs} references for {r.bvh.num_world_tris} "
+            f"triangles, table MB {mb}, stack need / capacity {need}")
+        comps, tmin, far, shadow_tmax, sub = _probe_args(r, device, SBVH_CHECK_RAYS)
+        entry = dict(build_s=build_s, refs=nrefs, tris=int(r.bvh.num_world_tris), table_mb=mb,
+                     stack_need={f: v[0] for f, v in need.items()})
+        log(f"[time] sbvh {label} built, tables up, at {time.perf_counter() - t_phase:.1f} s into the phase")
+        if label == "helmet":
+            # the helmet's SBVH makes no spatial split (its references are its triangles): its kernels are
+            # held to the SAH tables' hits here and to their plain walks on the soup
+            _all_tables(sah, device)
+            entry["sah_table_mb"] = _table_mb(sah.dev_bvh)
+            entry["id_ties_vs_sah"] = _hits_against("[sbvh] (a) helmet SBVH", r.dev_bvh, sah.dev_bvh, comps, tmin,
+                                                    far)
+            del comps, tmin, far, shadow_tmax, sub
+            # the 1080p frames: SBVH against SAH, equal but at tie pixels; replayed kernel ms
+            frames = {}
+            for name, rr in (("sbvh", r), ("sah", sah)):
+                tb4.COUNTER.launches = 0
+                tgather.COUNTER.launches = 0
+                rr.frame_idx = 0
+                rr.reset_frame()
+                times, rays, first = _render_frames(rr, 1, 2)  # frame 0 is the warm-up
+                per_frame = {"traverse_bvh4": tb4.COUNTER.launches / 3, "gather_channels": tgather.COUNTER.launches / 3}
+                recorded, _ = record_launches(rr, "traverse_bvh4")
+                b = rr.dev_bvh
+                k_ms = sum(device_ms(lambda c=c, a=a: tb4.traverse_bvh4(b.nodes4_fi, b.tris128, b.root4_code, *c,
+                                                                        anyhit=a), 3) for c, a in recorded)
+                frames[name] = dict(ms=1e3 * float(np.mean(times)), replay_kernel_ms=k_ms, first=first,
+                                    launches_per_frame=per_frame)
+            a, b = frames["sbvh"]["first"], frames["sah"]["first"]
+            same = ((a[1] == b[1]) & (a[2] == b[2])).reshape(a[0].shape[:2])
+            ties = int((~same).sum())
+            require(same.mean() >= 0.999 and np.array_equal(a[0][same], b[0][same]),
+                    f"[sbvh] 1080p helmet frame differs from the SAH frame beyond {ties} tie pixels")
+            log(f"[sbvh] (a) helmet {FRAME_W}x{FRAME_H}: SBVH frame equal to the SAH frame but at {ties} tie "
+                f"pixels; ms/frame SBVH {frames['sbvh']['ms']:.2f}, SAH {frames['sah']['ms']:.2f}; replayed "
+                f"traverse_bvh4 kernel ms a frame SBVH {frames['sbvh']['replay_kernel_ms']:.3f}, SAH "
+                f"{frames['sah']['replay_kernel_ms']:.3f}; on {smi}")
+            entry["frames"] = {k: {kk: vv for kk, vv in v.items() if kk != "first"} for k, v in frames.items()}
+            entry["tie_pixels"] = ties
+            out["launches_per_frame"] = frames["sbvh"]["launches_per_frame"]
+        else:
+            # every kernel on the soup's duplicated references: against its plain walk on SBVH_CHECK_RAYS rays,
+            # and against the SAH tables' hits on all the probe rays
+            entry["kernels"] = _kernel_checks(f"[sbvh] (a) {label} SBVH tables", r.dev_bvh, comps, tmin, far,
+                                              shadow_tmax, sub)
+            log(f"[time] sbvh soup kernel checks done at {time.perf_counter() - t_phase:.1f} s into the phase")
+            soup_sah = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+            soup_sah.create_scene(path)
+            soup_sah.create_hdr(hdr)
+            _all_tables(soup_sah, device)
+            entry["id_ties_vs_sah"] = _hits_against("[sbvh] (a) soup SBVH", r.dev_bvh, soup_sah.dev_bvh, comps, tmin,
+                                                    far)
+            del comps, tmin, far, shadow_tmax
+            # the 1080p frames, unseeded and seeded, against the SAH tables' frames
+            entry["frames"] = _soup_frames(r, soup_sah, device, smi)
+            del soup_sah
+            log(f"[time] sbvh soup frames done at {time.perf_counter() - t_phase:.1f} s into the phase")
+            # one node moved: the device refit of the SBVH tables against the CPU's
+            cpu, _ = _sbvh_renderer(path, 64, 48, "cpu")
+            from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+            from vk_gltf_renderer_tpu_torch.ops.pathtrace import trace_closest
+
+            for rr in (r, cpu):
+                SceneEditor(rr.scene).set_translation(0, [0.4, -0.2, 0.3])
+            refit, refit_ms = _sync_ms(r.sync_scene_changes)
+            require(refit and cpu.sync_scene_changes() and r.bvh.builder == "sbvh" and r.dev_bvh.refit is not None,
+                    "[sbvh] the node edit did not refit the SBVH tables")
+            ro, rd = probe_rays(r, device)
+            ro, rd = ro[sub], rd[sub]
+            hg = trace_closest(r.dev_bvh, ro, rd, kernel="v3")
+            hc = trace_closest(cpu.dev_bvh, ro.cpu(), rd.cpu(), kernel="v3")
+            require(same_bits(hg["t"].cpu(), hc["t"]) and torch.equal(hg["tri"].cpu(), hc["tri"])
+                    and torch.equal(hg["rnode"].cpu(), hc["rnode"]),
+                    "[sbvh] the card's SBVH refit gives other hits than the CPU's")
+            log(f"[sbvh] (a) soup: node 0 moved, device refit {refit_ms:.2f} ms; traverse_bvh4 on the "
+                f"refitted SBVH tables equals the CPU refit's plain walk on {sub.shape[0]} rays (t, rnode, tri bit "
+                f"for bit; {int((hc['tri'] >= 0).sum())} hits)")
+            entry["refit_ms"] = refit_ms
+        log(f"[time] sbvh {label} done at {time.perf_counter() - t_phase:.1f} s into the phase")
+        out[label] = entry
+        del r
+    return out
+
+
+def _seed_phase(device, tmp, hdr, smi, r):
+    """Phase 21 (b); r: the helmet's 1080p renderer on the SAH tables (21a's)."""
+    from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import pathtrace as tpt
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    # lockstep on one renderer: each frame from the same state unseeded, then seeded (whose state
+    # carries on), so a difference is the seeding's and not another renderer's build or refit
+    ms = {"unseeded": [], "seeded": []}
+    ties = np.zeros(FRAME_W * FRAME_H, bool)
+    tb4.COUNTER.launches = 0
+    tgather.COUNTER.launches = 0
+    try:
+        for i in range(SEED_FRAMES + SEED_EDIT_FRAMES):
+            if i == SEED_FRAMES:  # a node edit: the device refit moves the triangles under the seeds
+                SceneEditor(r.scene).set_translation(0, [0.05, 0.02, 0.0])
+                require(r.sync_scene_changes() and r.dev_bvh.tris is not None, "[seed] the edit did not refit")
+            state = (r.accum.clone(), r.total_samples, r.frame_idx, r._prev_first)
+            res = {}
+            for label, seed in (("unseeded", "0"), ("seeded", "1")):
+                os.environ["VKGR_PRIMARY_SEED"] = seed
+                r.accum, r.total_samples, r.frame_idx, r._prev_first = state[0].clone(), *state[1:]
+                aux, t = _sync_ms(r.on_render)
+                require(r._config().primary_seed == (seed == "1"), f"[seed] {label}: cfg.primary_seed")
+                ms[label].append(t)
+                res[label] = (r.accum.clone(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy())
+            (acc_u, rn_u, tri_u), (acc_s, rn_s, tri_s) = res["unseeded"], res["seeded"]
+            tie = (rn_u != rn_s) | (tri_u != tri_s)
+            ties |= tie
+            same = torch.from_numpy(~tie).to(device)
+            require(tie.mean() <= 1e-3 and torch.equal(acc_u[same], acc_s[same]),
+                    f"[seed] frame {i}: the seeded accumulation differs from the unseeded one beyond "
+                    f"{int(tie.sum())} tie pixels")
+            if i == SEED_FRAMES - 1:
+                ties_before = int(ties.sum())
+        per_frame = {k: c.launches / (2 * (SEED_FRAMES + SEED_EDIT_FRAMES))
+                     for k, c in (("traverse_bvh4", tb4.COUNTER), ("gather_channels", tgather.COUNTER))}
+        # the primary launch of one more frame, unseeded and seeded: timed with CUDA events
+        primary_ms, valid = {}, None
+        b = r.dev_bvh
+        for label, seed in (("unseeded", "0"), ("seeded", "1")):
+            os.environ["VKGR_PRIMARY_SEED"] = seed
+            frame = r._frame_inputs(r._config())
+            recorded, _ = record_launches(r, "traverse_bvh4")
+            c, anyhit = recorded[0]
+            primary_ms[label] = device_ms(lambda c=c, a=anyhit: tb4.traverse_bvh4(b.nodes4_fi, b.tris128,
+                                                                                  b.root4_code, *c, anyhit=a), 5)
+            if seed == "1":  # that frame's seeds, re-verified as render_frame_flat does
+                row = (b.rn_attr_base[frame["prev_first_rnode"].long().clamp(min=0)].long()
+                       + frame["prev_first_tri"].long().clamp(min=0))
+                ref = torch.where(frame["prev_first_tri"] >= 0, b.emit2ref[row.clamp(0, b.emit2ref.shape[0] - 1)], -1)
+                valid = float(tpt._primary_seed_hits(b, torch.stack(c[0:3], -1), torch.stack(c[3:6], -1),
+                                                     ref)[5].float().mean())
+    finally:
+        os.environ.pop("VKGR_PRIMARY_SEED", None)
+    # the foliage stand-in (alpha): the renderer leaves seeding off
+    os.environ["VKGR_PRIMARY_SEED"] = "1"
+    try:
+        fol = GltfRenderer(64, 48, spp=1, max_depth=2, device=device)
+        fol.create_scene(foliage_scene(tmp, SEED_CARDS))
+        require(not fol._config().primary_seed, "[seed] the foliage stand-in (alpha) is seeded")
+    finally:
+        del os.environ["VKGR_PRIMARY_SEED"]
+    mean = {k: float(np.mean(v[1:])) for k, v in ms.items()}  # frame 0 warms up
+    log(f"[seed] (b) helmet {FRAME_W}x{FRAME_H}: {SEED_FRAMES} seeded frames, each from the unseeded frame's "
+        f"state, equal to the unseeded ones but at {ties_before} tie pixels, and after a node edit (a refit) "
+        f"{SEED_EDIT_FRAMES} more ({int(ties.sum())} in all); seed valid share {valid:.4f}; primary launch "
+        f"{primary_ms['seeded']:.3f} ms seeded, {primary_ms['unseeded']:.3f} ms unseeded (CUDA events); ms/frame "
+        f"{mean['seeded']:.2f} seeded, {mean['unseeded']:.2f} unseeded; launches a frame {per_frame}; the foliage "
+        f"stand-in ({SEED_CARDS} cards, alpha) left unseeded; on {smi}")
+    return dict(tie_pixels=int(ties.sum()), tie_pixels_before_edit=ties_before, seed_valid_share=valid,
+                primary_ms=primary_ms, ms_per_frame=mean, launches_per_frame=per_frame)
+
+
+def _batch_phase(device, tmp, hdr, smi):
+    """Phase 21 (c)."""
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.profiler import device_memory_stats
+
+    helmet = os.path.join(tmp, "helmet.gltf")
+    out = {}
+    for label, batch in (("scan", "0"), ("batched", "1")):
+        os.environ["VKGR_SPP_BATCH"] = batch
+        try:
+            r = GltfRenderer(FRAME_W, FRAME_H, spp=BATCH_SPP, max_depth=DEPTH, device=device)
+            r.create_scene(helmet)
+            r.create_hdr(hdr)
+            require(r._config().spp_batch == (batch == "1"), f"[batch] {label}: cfg.spp_batch")
+            r.on_render()  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            tb4.COUNTER.launches = 0
+            tgather.COUNTER.launches = 0
+            times = [_sync_ms(r.on_render)[1] for _ in range(BATCH_TIMED)]
+            peak = device_memory_stats(device)["peak_bytes_in_use"]
+            per_frame = {"traverse_bvh4": tb4.COUNTER.launches / BATCH_TIMED,
+                         "gather_channels": tgather.COUNTER.launches / BATCH_TIMED}
+            img = r.image_linear()
+            require(np.isfinite(img).all() and img.mean() > 0.01, f"[batch] {label}: image")
+            out[label] = dict(ms=float(np.mean(times)), launches_per_frame=per_frame, peak_bytes=int(peak),
+                              rays=float(r._last_aux["rays"]))
+            if batch == "1":  # 96x64 on the card against the whole-frame CPU path
+                r.width, r.height = 96, 64
+                r.frame_idx = 0
+                r.reset_frame()
+                cpu = _cpu_whole_frame(r)
+                aux = r.on_render()
+                card = (r.image_linear(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy(),
+                        float(aux["rays"]))
+                _require_agree("[batch] (c) batched spp 4 96x64 card vs CPU", card, cpu)
+            del r
+        finally:
+            del os.environ["VKGR_SPP_BATCH"]
+    b, s = out["batched"], out["scan"]
+    require(b["launches_per_frame"]["traverse_bvh4"] < s["launches_per_frame"]["traverse_bvh4"],
+            "[batch] the batched frame launches traverse_bvh4 as often as the scan")
+    out["launches_per_frame"] = b["launches_per_frame"]
+    log(f"[batch] (c) helmet {FRAME_W}x{FRAME_H} spp {BATCH_SPP}: batched {b['ms']:.2f} ms/frame, scan "
+        f"{s['ms']:.2f}; launches a frame (traverse_bvh4, gather_channels) batched "
+        f"{b['launches_per_frame']}, scan {s['launches_per_frame']}; peak device bytes batched "
+        f"{b['peak_bytes']}, scan {s['peak_bytes']}; rays a frame {b['rays']:.0f} / {s['rays']:.0f}; on {smi}")
+    return out
+
+
+def _webp_phase(device, tmp, hdr, smi):
+    """Phase 21 (d)."""
+    import hashlib
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import headless
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.ops import webp
+    from vk_gltf_renderer_tpu_torch.parallel import render_mesh
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
+
+    meta = json.loads((WEBP_FIXTURES / "digests.json").read_text())["files"]
+    decodes = {}
+    for name, m in sorted(meta.items()):
+        data = (WEBP_FIXTURES / name).read_bytes()
+        webp.decode_webp(data)  # the first call builds the coder
+        t0 = time.perf_counter()
+        rgba = webp.decode_webp(data)
+        secs = time.perf_counter() - t0
+        require(list(rgba.shape) == m["shape"] and hashlib.sha256(rgba.tobytes()).hexdigest() == m["sha256"],
+                f"[webp] {name}: the decode differs from Pillow's digest")
+        h, w = rgba.shape[:2]
+        lossless = data[12:16] == b"VP8L"
+        rate = (f"{1e9 * secs / (w * h):.2f} ns a pixel" if lossless
+                else f"{1e6 * secs / (((w + 15) // 16) * ((h + 15) // 16)):.2f} us a macroblock")
+        decodes[name] = dict(bytes=len(data), w=w, h=h, host_s=secs, lossless=lossless)
+        log(f"[webp] (d) {name} {w}x{h}, {len(data)} bytes: equal to Pillow's decode (sha256); host decode "
+            f"{1e3 * secs:.2f} ms, {rate}; 2048x2048 at that rate {secs * 2048 * 2048 / (w * h):.3f} s")
+    # the helmet with a WebP base colour: lossless equal to PNG bit for bit, lossy card against CPU
+    img = tscenes.texture_image(WEBP_TEX, seed=3)
+    d = os.path.join(tmp, "webp21")
+    os.makedirs(d, exist_ok=True)
+    firsts, launches = {}, {}
+    for kind, data, name in (("png", encode_png(img), "base.png"), ("webp_lossless", webp.encode_webp(img),
+                                                                     "base.webp"),
+                             ("webp_lossy", (WEBP_FIXTURES / "lossy_q80_512.webp").read_bytes(), "lossy.webp")):
+        scene = tscenes.helmet_with_texture(d, data, name)
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(scene)
+        r.create_hdr(hdr)
+        require(r.dev_scene.tex_desc[0, 1:3].tolist() == [512, 512], f"[webp] {kind}: the base colour did not decode")
+        tb4.COUNTER.launches = 0
+        tgather.COUNTER.launches = 0
+        times, _, first = _render_frames(r, 0, 1)
+        firsts[kind] = first
+        launches[kind] = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+        if kind == "webp_lossless":
+            require(all(np.array_equal(a, b) for a, b in zip(first, firsts["png"])),
+                    "[webp] the lossless WebP frame differs from the PNG frame")
+        if kind == "webp_lossy":
+            r.width, r.height = 96, 64
+            res = []
+            for render in (r.on_render, lambda: render_mesh(r, ["cpu"])):
+                r.frame_idx = 0
+                r.reset_frame()
+                aux = render()
+                res.append((r.image_linear(), aux["first_rnode"].cpu().numpy(), aux["first_tri"].cpu().numpy(),
+                            float(aux["rays"])))
+            _require_agree("[webp] (d) lossy WebP base colour 96x64 card vs CPU", *res)
+        log(f"[webp] (d) helmet {FRAME_W}x{FRAME_H} with a {kind} base colour: frame 0 {1e3 * times[0]:.2f} ms"
+            + ("; equal to the PNG frame bit for bit" if kind == "webp_lossless" else ""))
+        del r
+    # headless --output x.webp against x.png
+    os.environ["VKGR_SETTINGS"] = os.path.join(tmp, "settings21.json")
+    outs = {}
+    for suffix in (".png", ".webp"):
+        path = os.path.join(tmp, "headless21" + suffix)
+        with redirect_stdout(io.StringIO()):
+            rc = headless.main(["--headless", "--scenefile", os.path.join(tmp, "helmet.gltf"), "--hdrfile", hdr,
+                                "--envSystem", "1", "--size", str(FRAME_W), str(FRAME_H), "--frames", "1",
+                                "--output", path, "--device", str(device)])
+        require(rc == 0, f"headless --output {path}: rc {rc}")
+        with open(path, "rb") as f:
+            outs[suffix] = f.read()
+    png = read_image(outs[".png"])
+    got = read_image(outs[".webp"])
+    require(got.shape == (FRAME_H, FRAME_W, 4) and np.array_equal(got[..., :3], png[..., :3])
+            and (got[..., 3] == 255).all(), "[webp] headless --output x.webp differs from the PNG output")
+    log(f"[webp] (d) headless --output x.webp at {FRAME_W}x{FRAME_H} on the card: {len(outs['.webp'])} bytes "
+        f"(lossless; the PNG {len(outs['.png'])}), read back equal to the PNG output pixel for pixel; on {smi}")
+    return dict(decodes=decodes, headless_webp_bytes=len(outs[".webp"]), headless_png_bytes=len(outs[".png"]),
+                launches_per_frame=launches["webp_lossy"], frame_launches=launches)
+
+
+def phase_sbvh_seed_batch_webp(device, tmp, hdr, smi):
+    """Phase 21: the SBVH, seeding, batching and WebP (the module docstring)."""
+    t_phase = time.perf_counter()
+    for key in ("VKGR_PRIMARY_KERNEL", "VKGR_PACKET_KERNEL", "VKGR_TRAVERSAL", "VKGR_BVH", "VKGR_PRIMARY_SEED",
+                "VKGR_SPP_BATCH"):
+        os.environ.pop(key, None)
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    # the helmet's 1080p renderer on the SAH tables, shared by (a) and (b)
+    helmet = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+    helmet.create_scene(os.path.join(tmp, "helmet.gltf"))
+    helmet.create_hdr(hdr)
+    out = {}
+    launches = {}
+    for key, fn in (("sbvh", lambda *a: _sbvh_phase(*a, helmet)), ("seed", lambda *a: _seed_phase(*a, helmet)),
+                    ("batch", _batch_phase), ("webp", _webp_phase)):
+        out[key] = fn(device, tmp, hdr, smi)
+        # the main-path frames' launches a frame (counters zeroed before the frames, read after)
+        launches[key] = out[key].pop("launches_per_frame")
+        require(all(v > 0 for v in launches[key].values()), f"phase 21 ({key}): a kernel never launched {launches}")
+        log(f"[time] phase 21 {key} done at {time.perf_counter() - t_phase:.1f} s into the phase")
+    del helmet
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] SBVH, seeding, batching and WebP phase {out['seconds']:.1f} s")
+    return out
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -3483,6 +4023,8 @@ def main():
         textures = phase_textures_devices(device, tmp, hdr, smi, terrain_r.dev_bvh)
         del terrain_r
         log(f"[time] textures and devices done at {time.perf_counter() - t_start:.1f} s")
+        slice21 = phase_sbvh_seed_batch_webp(device, tmp, hdr, smi)
+        log(f"[time] SBVH, seeding, batching and WebP done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -3581,6 +4123,11 @@ def main():
                                                   "id_ties"]))
     for name in ("probe_nodefetch", "probe_visit", "probe_stream_dma", "probe_uarch"):
         kernels.append(_entry(name, probes[name]["launches"], probes[name]))
+    for e in kernels:  # phase 21: the SBVH frames' launches, each kernel on the SBVH tables
+        if e["name"] in ("traverse_bvh4", "gather_channels"):
+            e["sbvh_seed_batch_launches"] = {k: v[e["name"]] for k, v in slice21["launches"].items()}
+        if e["name"] in slice21["sbvh"]["soup"]["kernels"]:
+            e["sbvh_soup"] = slice21["sbvh"]["soup"]["kernels"][e["name"]]
     terrain = {f"{p},{q}": {"ms_per_frame": frames[(p, q)]["ms"], "mrays_per_s": frames[(p, q)]["mrays"]}
                for p, q in SELECTIONS}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
@@ -3601,7 +4148,8 @@ def main():
                       "alpha": {k: v for k, v in alpha.items() if k not in ("replay", "kernels")},
                       "foliage_kernels": alpha["kernels"],
                       "viewer": {k: v for k, v in viewer.items() if k != "launches_per_frame"},
-                      "editor": editor, "textures_devices": textures}))
+                      "editor": editor, "textures_devices": textures,
+                      "sbvh_seed_batch_webp": {k: v for k, v in slice21.items() if k != "launches"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

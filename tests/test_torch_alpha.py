@@ -578,12 +578,14 @@ def _same(a, b):
 
 def test_check_supported_takes_alpha_and_the_plane():
     """Alpha (A5), the infinite plane (A8), the denoiser guides and TAA
-    jitter (A7) no longer raise; batched spp and primary-hit seeding (A12)
-    still do."""
+    jitter (A7), batched spp and primary-hit seeding (A12) no longer raise;
+    with alpha the renderer leaves seeding off, and the seeding's tables are
+    named only when it is on."""
     tpt.RenderConfig(alpha_any=True, use_infinite_plane=True, plane_shadow_catcher=True).check_supported()
     tpt.RenderConfig(alpha_any=True, denoise_guides=True, taa_jitter=True).check_supported()
     for kw in ({"spp_batch": True, "spp": 2}, {"primary_seed": True}):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tpt.RenderConfig(alpha_any=True, **kw).check_supported()
+        tpt.RenderConfig(alpha_any=True, **kw).check_supported()
+    assert "primary_seed" in tpt.RenderConfig(primary_seed=True).kernel_tables()
+    assert "primary_seed" not in tpt.RenderConfig(alpha_any=True).kernel_tables()
     assert tpt.RenderConfig().alpha_rounds == jpt.RenderConfig().alpha_rounds == 4
     assert WORLD_FIELDS  # the fields _assert_world_bvh_same compares

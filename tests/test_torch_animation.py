@@ -44,7 +44,7 @@ from vk_gltf_renderer_tpu_torch.ops import flat as tflat  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import hitstate as thit  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import lane_traverse as tlane  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
-from vk_gltf_renderer_tpu_torch.scenes import make_brainstem, write_large_glb  # noqa: E402
+from vk_gltf_renderer_tpu_torch.scenes import make_brainstem, make_sliver_soup, write_large_glb  # noqa: E402
 from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
 
 share_native_builder()
@@ -73,6 +73,8 @@ def _load(tmp_path, name):
         sc.load(p)
     elif name == "brainstem":
         sc.load(make_brainstem(str(tmp_path)))
+    elif name == "soup":  # long thin triangles: VKGR_BVH=sbvh duplicates references
+        sc.load(make_sliver_soup(str(tmp_path), n=600))
     else:  # "few": one plane, 2 triangles (the root is a leaf)
         sc = baseline_standins._empty_scene()
         SceneEditor(sc).add_primitive("plane")
@@ -162,11 +164,13 @@ def _tables(wb):
 
 
 @pytest.mark.parametrize("name,kind", [("helmet", "sah"), ("terrain", "sah"), ("terrain", "lbvh"),
-                                       ("brainstem", "lbvh"), ("few", "sah")])
+                                       ("brainstem", "lbvh"), ("few", "sah"), ("soup", "sbvh")])
 def test_refit_world_bvh_equals_reference(name, kind, tmp_path, monkeypatch):
     """bake_world_tris (2 ulp) and every output of refit_world_bvh (bit for
     bit) on the same tree and the same moved triangles, on a SAH and an
-    LBVH tree; refit_lane_pages bit for bit on pages and entry-major."""
+    LBVH tree and on an SBVH tree with duplicated references (each copy
+    refits from its whole triangle); refit_lane_pages bit for bit on pages
+    and entry-major."""
     monkeypatch.setenv("VKGR_BVH", kind)
     flat = tflat.build_scene_flat(_load(tmp_path, name))
     wb = tbvh.add_kernel_tables(tbvh.build_world_bvh(flat), {"bvh2", "bvh16", "lane"})
@@ -568,12 +572,16 @@ def test_refit_is_reference_lbvh_fallback_without_native(tmp_path, monkeypatch):
 
 
 def test_unknown_builder_kinds(tmp_path, monkeypatch):
-    """VKGR_BVH=sbvh is not ported (ROADMAP A12) and raises; any other
-    value than sah builds the LBVH, as in the reference."""
+    """VKGR_BVH=sbvh builds the spatial-split BVH, the reference's table
+    for table; any other value than sah or sbvh builds the LBVH, as in the
+    reference."""
     flat = tflat.build_scene_flat(_load(tmp_path, "brainstem"))
     monkeypatch.setenv("VKGR_BVH", "sbvh")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tbvh.build_world_bvh(flat)
+    sbvh = tbvh.build_world_bvh(flat)
+    ref = jbvh.build_world_bvh(jflat.build_scene_flat(_load(tmp_path, "brainstem")))
+    assert sbvh.builder == "sbvh"
+    for k in ("nodes_i", "nodes4_fi", "tris128", "emit2ref"):
+        assert np.array_equal(getattr(sbvh, k), np.asarray(getattr(ref, k))), k
     monkeypatch.setenv("VKGR_BVH", "radix")
     other = tbvh.build_world_bvh(flat)
     monkeypatch.setenv("VKGR_BVH", "lbvh")

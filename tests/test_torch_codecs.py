@@ -18,7 +18,9 @@
   thresholds.
 - Truncated files, and JPEGs with Huffman tables libjpeg refuses, give a
   white 1x1 texture in both packages' build_texture_pool, and the scene
-  loads; a JPEG coder that does not load fails the scene load; WebP raises
+  loads; a JPEG coder that does not load fails the scene load; WebP decodes
+  as Pillow does (tests/test_torch_webp.py has the rest), renders as the
+  JAX renderer does and loads white when truncated; BMP raises
   NotImplementedError naming ROADMAP A12.
 
 Pillow is only a reference here: the port never imports it."""
@@ -51,6 +53,7 @@ from vk_gltf_renderer_tpu_torch.ops import basisu as tbasisu  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import dds as tdds  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import jpeg  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import textures as ttextures  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import webp  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
 from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
 
@@ -305,13 +308,27 @@ def test_jpeg_refuses_what_it_does_not_decode():
 
 
 def test_webp_raises_naming_a12():
+    """WebP decodes as the JAX package's decode_image (Pillow) does, bit for
+    bit (tests/test_torch_webp.py covers every form); Pillow's other
+    formats, such as BMP, still raise NotImplementedError naming A12."""
     webp = io.BytesIO()
-    PIL_Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(webp, "WEBP")
+    PIL_Image.fromarray(scenes.texture_image(8, seed=4)[..., :3]).save(webp, "WEBP")
+    model = _model(webp.getvalue())
+    assert np.array_equal(ttextures.decode_image(model, {"bufferView": 0}),
+                          np.asarray(jtextures.decode_image(model, {"bufferView": 0})))
+    bmp = io.BytesIO()
+    PIL_Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(bmp, "BMP")
     with pytest.raises(NotImplementedError, match="A12"):
-        ttextures.decode_image(_model(webp.getvalue()), {"bufferView": 0})
+        ttextures.decode_image(_model(bmp.getvalue()), {"bufferView": 0})
 
 
 # ------------------------------------------------------------ truncated files, whole frames
+
+
+def _pillow_webp(img, **kw) -> bytes:
+    b = io.BytesIO()
+    PIL_Image.fromarray(img).save(b, "WEBP", **kw)
+    return b.getvalue()
 
 
 TRUNCATED = {
@@ -320,6 +337,8 @@ TRUNCATED = {
     "ktx2_zlib": lambda img: (scenes.ktx2_rgba8(img, zlib_level=6), "tex.ktx2"),
     "ktx2_etc1s": lambda img: (scenes.ktx2_etc1s(img), "tex.ktx2"),
     "ktx2_uastc": lambda img: (scenes.ktx2_astc(scenes.astc_4x4_blocks(img), 32, 32, uastc=True), "tex.ktx2"),
+    "webp_lossy": lambda img: (_pillow_webp(img, quality=80), "tex.webp"),
+    "webp_lossless": lambda img: (webp.encode_webp(img), "tex.webp"),
 }
 
 
@@ -413,6 +432,7 @@ FRAME_FORMATS = {
     "jpeg": lambda img: (jpeg.encode_jpeg(img), "base.jpg"),
     "dds_bc1": lambda img: (scenes.dds_bc1(img), "base.dds"),
     "ktx2_basislz": lambda img: (scenes.ktx2_etc1s(img), "base.ktx2"),
+    "webp_lossy": lambda img: (_pillow_webp(img, quality=80), "base.webp"),
 }
 W, H, DEPTH = 48, 32, 5
 

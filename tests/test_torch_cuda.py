@@ -1089,3 +1089,139 @@ def test_render_mesh_on_the_card_equals_on_render(cuda, shards):
             aux = render_mesh(rs[1], [cuda] * shards)
             assert torch.equal(rs[0].accum, rs[1].accum)
             assert all(torch.equal(aux[k], ref[k]) for k in ref)
+
+
+# ------------------------------------------------------------ SBVH, seeding, batching (chip_smoke.py phase 21)
+
+def _sbvh_soup(device):
+    """The sliver soup under VKGR_BVH=sbvh (duplicated references) with every
+    kernel family's tables on device, and its host WorldBvh."""
+    import os
+
+    from vk_gltf_renderer_tpu_torch.convert import SPLIT_FAMILIES
+    from vk_gltf_renderer_tpu_torch.scenes import make_sliver_soup
+
+    with tempfile.TemporaryDirectory() as d:
+        sc = Scene()
+        sc.load(make_sliver_soup(d))
+    os.environ["VKGR_BVH"] = "sbvh"
+    try:
+        wb = build_world_bvh(build_scene_flat(sc))
+    finally:
+        del os.environ["VKGR_BVH"]
+    assert wb.builder == "sbvh" and wb.tris.shape[0] - 8 > wb.num_world_tris
+    add_kernel_tables(wb, {"bvh2", "bvh16", "lane", "bvh4_sidecar"})
+    families = set(SPLIT_FAMILIES) | {"bvh4_multipop"}
+    return wb, add_kernel_tables_to_device(bvh_to_device(wb, device), wb, device, families), \
+        add_kernel_tables_to_device(bvh_to_device(wb, "cpu"), wb, "cpu", families)
+
+
+@pytest.mark.parametrize("kernel", ["v3", "v9", "v5", "v7", "v8", "v2", "v6", "lane", "packet4", "v1"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_kernels_on_sbvh_tables_match_plain(cuda, kernel, anyhit):
+    """chip_smoke.py phase 21 (a) on the sliver soup: every traversal
+    kernel on tables with repeated triangles equals its plain walk (t bit
+    for bit, ids but for ties; occlusion equal)."""
+    wb, dev, host = _sbvh_soup(cuda)
+    rng = np.random.default_rng(41)
+    n = 4096
+    lo, hi = wb.nodes_self[0, 0:3], wb.nodes_self[0, 3:6]
+    ro = (lo + rng.random((n, 3)) * (hi - lo)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.full(n, 3.0 if anyhit else 1e32, np.float32)
+    out = []
+    for bvh, device in ((dev, cuda), (host, "cpu")):
+        args = [torch.tensor(a, device=device) for a in (ro, rd)]
+        tmin, tm = torch.zeros(n, device=device), torch.tensor(tmax, device=device)
+        if kernel in ("packet4", "v1"):
+            h = intersect_rays_packet(bvh, *args, tmin, tm, anyhit=anyhit, wide=kernel == "packet4")
+        else:
+            cols = [c.contiguous() for a in args for c in a.T]
+            h = intersect_rays_soa(bvh, *cols, tmin, tm, anyhit=anyhit, kernel=kernel)
+        out.append({k: v.cpu().numpy() for k, v in h.items()})
+    card, plain = out
+    assert ((card["tri"] >= 0) == (plain["tri"] >= 0)).all()
+    assert (plain["tri"] >= 0).sum() > 100
+    if not anyhit:
+        assert np.array_equal(card["t"].view(np.int32), plain["t"].view(np.int32))
+        assert ((card["tri"] == plain["tri"]) | (card["t"] == plain["t"])).all()
+
+
+def test_seeded_frames_card_equal_unseeded(cuda, monkeypatch):
+    """chip_smoke.py phase 21 (b) at 128x96: 4 seeded frames equal the
+    unseeded ones but where two triangles tie at the seed's t."""
+    from vk_gltf_renderer_tpu_torch import scenes
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    with tempfile.TemporaryDirectory() as d:
+        hdr = scenes.write_synthetic_hdr(d + "/sky.hdr", 32, 64)
+        scene = make_helmet_standin(d)
+        frames = []
+        for seed in ("0", "1"):
+            monkeypatch.setenv("VKGR_PRIMARY_SEED", seed)
+            r = GltfRenderer(128, 96, spp=1, max_depth=5, device=cuda)
+            r.create_scene(scene)
+            r.create_hdr(hdr)
+            frames.append([(r.on_render()["first_tri"].cpu().numpy(), r.image_linear()) for _ in range(4)])
+        for (ta, ia), (tb, ib) in zip(*frames):
+            same = ta == tb
+            assert same.mean() >= 0.999
+            assert np.array_equal(ia.reshape(-1, 3)[same], ib.reshape(-1, 3)[same])
+
+
+def test_seeded_frames_card_after_deleting_a_render_node(cuda, monkeypatch):
+    """The seeds of the frame before a deletion name the deleted render
+    node, past the new rn_attr_base: clamped, they raise no device-side
+    assert, and the frames stay the unseeded ones but at ties."""
+    from vk_gltf_renderer_tpu_torch import scenes
+    from vk_gltf_renderer_tpu_torch.models.editor import SceneEditor
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    with tempfile.TemporaryDirectory() as d:
+        hdr = scenes.write_synthetic_hdr(d + "/sky.hdr", 32, 64)
+        scene = make_helmet_standin(d)
+        frames = []
+        for seed in ("0", "1"):
+            monkeypatch.setenv("VKGR_PRIMARY_SEED", seed)
+            r = GltfRenderer(128, 96, spp=1, max_depth=5, device=cuda)
+            r.create_scene(scene)
+            r.create_hdr(hdr)
+            out = []
+            for i in range(4):
+                if i == 2:  # the plate, render node 1 of 2, goes
+                    assert r.dev_bvh.rn_attr_base.shape[0] == 2 and (r._prev_first[0] == 1).any()
+                    SceneEditor(r.scene).delete_node(1)
+                out.append((r.on_render()["first_tri"].cpu().numpy(), r.image_linear()))
+            torch.cuda.synchronize()
+            frames.append(out)
+        assert r.dev_bvh.rn_attr_base.shape[0] == 1
+        for (ta, ia), (tb, ib) in zip(*frames):
+            same = ta == tb
+            assert same.mean() >= 0.999
+            assert np.array_equal(ia.reshape(-1, 3)[same], ib.reshape(-1, 3)[same])
+
+
+def test_batched_frames_card_match_cpu(cuda, monkeypatch):
+    """chip_smoke.py phase 21 (c) at 96x64: spp 4 batched on the card agrees
+    with the port's CPU frame at phase 5's thresholds, in one
+    traverse_bvh4 launch a trace (10 a frame at depth 5, not 40)."""
+    from vk_gltf_renderer_tpu_torch import scenes
+
+    monkeypatch.setenv("VKGR_SPP_BATCH", "1")
+    with tempfile.TemporaryDirectory() as d:
+        hdr = scenes.write_synthetic_hdr(d + "/sky.hdr", 32, 64)
+        scene = make_helmet_standin(d)
+        from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+        def frame(device):
+            r = GltfRenderer(96, 64, spp=4, max_depth=5, device=device)
+            r.create_scene(scene)
+            r.create_hdr(hdr)
+            aux = r.on_render()
+            return {"first_rnode": aux["first_rnode"].cpu().numpy(), "image": r.image_linear()}
+
+        before = tb4.COUNTER.launches
+        card = frame(cuda)
+        assert 0 < tb4.COUNTER.launches - before <= 10
+        _agree_card_cpu(card, frame("cpu"))

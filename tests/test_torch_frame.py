@@ -69,9 +69,10 @@ def _helmet_path(tmp_path):
     return baseline_standins.make_helmet(str(tmp_path))
 
 
-def _assert_frames_agree(ref, port):
+def _assert_frames_agree(ref, port, size=(W, H)):
+    w, h = size
     for frame, ((img_r, aux_r), (img_p, aux_p)) in enumerate(zip(ref, port, strict=True)):
-        assert img_p.shape == (H, W, 3) and np.isfinite(img_p).all()
+        assert img_p.shape == (h, w, 3) and np.isfinite(img_p).all()
         assert img_p.mean() > 0.01, "black frame"
         ids_equal = (aux_p["first_rnode"] == aux_r["first_rnode"]) & (aux_p["first_tri"] == aux_r["first_tri"])
         assert ids_equal.mean() >= 0.999, (frame, ids_equal.mean())
@@ -79,7 +80,7 @@ def _assert_frames_agree(ref, port):
         assert close.mean() >= 0.99, (frame, close.mean())
         m_p, m_r = img_p.mean(axis=(0, 1)), img_r.mean(axis=(0, 1))
         np.testing.assert_allclose(m_p, m_r, rtol=1e-3, err_msg=f"frame {frame} channel means")
-        assert float(aux_p["rays"]) == float(aux_r["rays"]) > W * H
+        assert float(aux_p["rays"]) == float(aux_r["rays"]) > w * h
 
 
 @pytest.mark.parametrize("scene,env", [("helmet", "hdr"), ("tiny", "sky")])

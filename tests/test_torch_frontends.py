@@ -317,12 +317,24 @@ def test_bench_main_prints_one_json_line(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--output", "out.webp"], ["--output", "out.jpg"]])
 def test_unported_flags_raise(flag, tmp_path):
-    """--output .webp still raises NotImplementedError naming ROADMAP A12,
-    before any scene loads; .jpg, ported since, writes a JPEG that the
-    port's decoder reads back."""
+    """--output .bmp (a suffix only Pillow writes) still raises
+    NotImplementedError naming ROADMAP A12, before any scene loads; .webp
+    and .jpg, ported since, write a lossless WebP and a JPEG that the
+    port's decoder reads back (the WebP equal to the PNG output)."""
+    with pytest.raises(NotImplementedError, match="A12"):
+        headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu", "--output", "out.bmp"])
     if flag[1].endswith(".webp"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu"] + flag)
+        from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
+
+        scene, hdr = _helmet(tmp_path)
+        base = ["--scenefile", scene, "--hdrfile", hdr, "--envSystem", "1", "--size", "24", "16", "--frames", "1",
+                "--device", "cpu"]
+        headless.main(base + ["--output", str(tmp_path / "o.png")])
+        headless.main(base + ["--output", str(tmp_path / "o.webp")])
+        png = read_image((tmp_path / "o.png").read_bytes())
+        got = read_image((tmp_path / "o.webp").read_bytes())
+        assert got.shape == (16, 24, 4) and (got[..., 3] == 255).all()
+        assert np.array_equal(got[..., :3], png[..., :3])
         return
     scene, _ = _helmet(tmp_path)
     out = tmp_path / flag[1]

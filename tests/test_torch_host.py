@@ -129,7 +129,7 @@ def test_scene_flat_equals_reference(name, tmp_path):
 WORLD_FIELDS = ("nodes4_fi", "tris128", "hit_attr", "rn_attr_base", "attr_alpha_class", "nodes_f", "tris",
                 "wtri_rnode", "wtri_tri", "nodes4_i", "nodes4_f", "refit_levels", "portal_roots", "map4",
                 "wtri8_rnode", "wtri8_tri", "tri8_src", "attr_rnode", "attr_tri", "attr_has_uv", "attr_bary",
-                "wtri_src_tri", "wtri_bary")
+                "wtri_src_tri", "wtri_bary", "emit2ref")
 
 
 def _assert_world_bvh_same(ref, port):

@@ -12,8 +12,9 @@ guided frames upscaled 2x and denoises them, renders preview frames with the
 wireframe and picks, runs the headless CLI and `benchmark run` on the
 CPU, each printing one BENCHMARK_JSON line, edits and renders through
 edit_cli and a scripted viewer (grid, gizmo, an edit verb), renders the
-helmet with a JPEG and with a KTX2 BasisLZ base colour (the port's own
-decoders), writes a JPEG and renders a frame split over two shards
+helmet with a JPEG, a KTX2 BasisLZ and a lossless and a lossy WebP base
+colour (the port's own decoders), writes a JPEG and a WebP, renders
+seeded and batched frames on the SBVH, and renders a frame split over two shards
 (parallel.render_mesh); and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports any
 of them, or the reference's tools/."""
@@ -53,20 +54,36 @@ with tempfile.TemporaryDirectory() as d:
     from vk_gltf_renderer_tpu_torch.parallel import render_mesh
     from vk_gltf_renderer_tpu_torch.scenes import helmet_with_texture, ktx2_etc1s, texture_image
     tex = texture_image(32, seed=1)
-    for data, name in ((encode_jpeg(tex), "base.jpg"), (ktx2_etc1s(tex), "base.ktx2")):
+    from vk_gltf_renderer_tpu_torch.ops.webp import decode_webp, encode_webp
+    for data, name in ((encode_jpeg(tex), "base.jpg"), (ktx2_etc1s(tex), "base.ktx2"),
+                       (encode_webp(tex), "base.webp"),
+                       (open(os.path.join("tests", "data", "webp", "lossy_alpha_256.webp"), "rb").read(),
+                        "lossy.webp")):
         r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
         r.create_scene(helmet_with_texture(d, data, name))
-        assert r.dev_scene.tex_desc[0, 1:3].tolist() == [32, 32]
+        assert r.dev_scene.tex_desc[0, 1:3].tolist() == ([256, 256] if name == "lossy.webp" else [32, 32])
         r.on_render()
         assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
     r.save_image(d + "/out.jpg")
     with open(d + "/out.jpg", "rb") as f:
         assert decode_jpeg(f.read()).shape == (16, 24, 3)
+    r.save_image(d + "/out.webp")
+    with open(d + "/out.webp", "rb") as f:
+        assert decode_webp(f.read()).shape == (16, 24, 4)
     accum = r.accum.clone()
     r.reset_frame()
     r.frame_idx -= 1
     render_mesh(r, ["cpu", "cpu"])
     assert torch.equal(r.accum, accum)
+    # the spatial-split BVH, a seeded frame and a batched one
+    os.environ.update(VKGR_BVH="sbvh", VKGR_PRIMARY_SEED="1", VKGR_SPP_BATCH="1")
+    r = GltfRenderer(24, 16, spp=2, max_depth=2, device="cpu")
+    r.create_scene(make_helmet_standin(d))
+    r.on_render()
+    r.on_render()
+    assert r.bvh.builder == "sbvh" and r._config().primary_seed and np.isfinite(r.image_linear()).all()
+    for k in ("VKGR_BVH", "VKGR_PRIMARY_SEED", "VKGR_SPP_BATCH"):
+        del os.environ[k]
     write_large_glb(d + "/terrain.glb", target_tris=8000, grid=2)
     images = []
     for primary, packet in (("v3", "v9"), ("v2", "v2"), ("v6", "v6"), ("lane", "lane_stream"),

@@ -153,9 +153,9 @@ def test_evaluate_material(hits):
 
 def test_unported_material_features_raise():
     """Every material extension and every BSDF lobe is ported, and so are
-    alpha (MASK/BLEND), the infinite plane, the denoiser guides and the TAA
-    jitter; what still raises, through RenderConfig.check_supported, is
-    batched spp and primary-hit seeding (A12), and a feature flag no block
+    alpha (MASK/BLEND), the infinite plane, the denoiser guides, the TAA
+    jitter, batched spp and primary-hit seeding (A12); what still raises,
+    through RenderConfig.check_supported, is a feature flag no block
     knows."""
     from vk_gltf_renderer_tpu_torch.ops.pathtrace import RenderConfig
 
@@ -165,10 +165,8 @@ def test_unported_material_features_raise():
     RenderConfig(features=frozenset({"textured"}), alpha_any=True).check_supported()
     RenderConfig(use_infinite_plane=True, plane_shadow_catcher=True).check_supported()
     RenderConfig(features=every, alpha_any=True, denoise_guides=True, taa_jitter=True).check_supported()
-    with pytest.raises(NotImplementedError, match="batched spp"):
-        RenderConfig(features=every, denoise_guides=True, spp=2, spp_batch=True).check_supported()
-    with pytest.raises(NotImplementedError, match="primary-hit seeding"):
-        RenderConfig(features=every, taa_jitter=True, primary_seed=True).check_supported()
+    RenderConfig(features=every, denoise_guides=True, spp=2, spp_batch=True).check_supported()
+    RenderConfig(features=every, taa_jitter=True, primary_seed=True).check_supported()
     with pytest.raises(NotImplementedError, match="no_such_block"):
         tmat.check_features(frozenset({"textured", "no_such_block"}))
 

@@ -75,6 +75,9 @@ class DeviceBvh:
     scene_hi: torch.Tensor  # [3] f32
     root4_code: int
     num_world_tris: int
+    # tris row of each hit row (WorldBvh.emit2ref; -1 culled): the primary-hit seeding's
+    # inversion of a pixel's (rnode, tri); rows stay in place under a refit
+    emit2ref: torch.Tensor | None = None  # [max(Ta,1)] i32
     # the other kernels' tables, present only where the host BVH has them
     nodes_fi: torch.Tensor | None = None  # [Nn,16] f32 binary rows (BVH2)
     root_code: int = 0  # binary root code
@@ -195,6 +198,8 @@ def bvh_to_device(bvh, device) -> DeviceBvh:
         scene_hi=_t(root[3:6], f32, device),
         root4_code=int(bvh.root4_code),
         num_world_tris=int(bvh.num_world_tris),
+        emit2ref=(_t(bvh.emit2ref, i32, device) if getattr(bvh, "emit2ref", None) is not None
+                  else None),
         stack_need={"bvh4": stack_need(bvh.nodes4_fi, 2, int(bvh.root4_code)),
                     "bvh4_leafqueue": stack_need(bvh.nodes4_fi, 2, int(bvh.root4_code),
                                                  internal_only=True)},
@@ -205,9 +210,10 @@ def bvh_to_device(bvh, device) -> DeviceBvh:
 # the table families of the split traversals (ops/intersect.TRAVERSALS packet4
 # and wavefront, and intersect_rays_packet's v1 kernel)
 SPLIT_FAMILIES = ("bvh4_split", "bvh2_split", "wavefront")
-# the host tables each split family reads, beside tris + wtri_rnode + wtri_tri
+# the host tables each split family reads, beside tris + wtri_rnode + wtri_tri; the
+# primary-hit seeding (RenderConfig.primary_seed) reads those three alone
 _SPLIT_TABLES = {"bvh4_split": ("nodes4_i", "nodes4_f"), "bvh2_split": ("nodes_i", "nodes_f"),
-                 "wavefront": ("nodes_i", "nodes_self")}
+                 "wavefront": ("nodes_i", "nodes_self"), "primary_seed": ()}
 _SPLIT_DTYPES = {"nodes_i": np.int32, "nodes4_i": np.int32, "wtri_rnode": np.int32,
                  "wtri_tri": np.int32}
 
@@ -218,20 +224,21 @@ def add_kernel_tables_to_device(dev: DeviceBvh, bvh, device, families=()) -> Dev
     lane_entries, nodes4_sc), and work out the v5 walk's stack need when
     `families` names "bvh4_multipop" (a Python walk of the whole tree, so
     only on request). The split tables, which every host BVH has, are
-    copied only for the SPLIT_FAMILIES that `families` names, with the
+    copied only for the SPLIT_FAMILIES that `families` names (tris and
+    wtri_* alone for "primary_seed"), with the
     split walks' stack needs (and, for the v1 kernel, whether node 0 is a
     leaf). Tables added after a refit (dev.refit.tris) are refitted over
     its triangles: the host tree keeps the boxes it was built with.
     Returns dev."""
     f32 = np.float32
     present = _geometry_present(dev)
-    for family in SPLIT_FAMILIES:
+    for family in SPLIT_FAMILIES + ("primary_seed",):
         if family not in families:
             continue
         for name in _SPLIT_TABLES[family] + ("tris", "wtri_rnode", "wtri_tri"):
             if getattr(dev, name) is None:
                 setattr(dev, name, _t(getattr(bvh, name), _SPLIT_DTYPES.get(name, f32), device))
-        if family != "wavefront" and family not in dev.stack_need:
+        if family in ("bvh4_split", "bvh2_split") and family not in dev.stack_need:
             dev.stack_need[family] = split_stack_need(bvh, 2 if family == "bvh4_split" else 1)
         if family == "bvh2_split":
             dev.bvh2_split_root_leaf = bool(np.asarray(bvh.nodes_i)[0, 3] > 0)

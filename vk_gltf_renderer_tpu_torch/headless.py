@@ -10,8 +10,8 @@ Emits the same machine-readable lines as the reference: a HEADLESS_SUMMARY
 human line and a schema-1 BENCHMARK_JSON record. Renders on the card
 unless --device names the CPU. --upscale N renders at size/N and writes the
 TAAU image at the given size; --renderSystem 1 renders preview frames
-(--wireframe 1 overlays the triangle edges). --output writes PNG or JPEG
-by its suffix (utils/image_io.py); another suffix raises
+(--wireframe 1 overlays the triangle edges). --output writes PNG, JPEG or
+(lossless) WebP by its suffix (utils/image_io.py); another suffix raises
 NotImplementedError naming its ROADMAP item (section A).
 """
 

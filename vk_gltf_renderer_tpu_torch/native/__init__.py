@@ -2,15 +2,16 @@
 
 The port's own copy of vk_gltf_renderer_tpu/native (binned SAH and the
 Morton radix tree over world triangles, bvh_builder.cpp), so the port
-imports nothing of the JAX package, and the JPEG entropy coder of
-ops/jpeg.py (jpeg_entropy.cpp). Each library is built by g++ at first use
+imports nothing of the JAX package, the JPEG entropy coder of
+ops/jpeg.py (jpeg_entropy.cpp) and the WebP pixel codec of ops/webp.py
+(webp_decode.cpp). Each library is built by g++ at first use
 into ``build/native/`` at the repository root (listed in .gitignore),
 named by a hash of its source, and renamed into place once complete, so
 that concurrent builders never load half a file. The BVH functions return
 None when their library cannot be built; ops/bvh_flatten.py then takes its
 numpy oracle, and refuses scenes too large for it rather than waiting on a
-Python loop. The JPEG coder has no such oracle: jpeg_lib raises when its
-build fails.
+Python loop. The JPEG and WebP coders have no such oracle: jpeg_lib and
+webp_lib raise when their build fails.
 """
 
 from __future__ import annotations
@@ -26,17 +27,20 @@ import numpy as np
 
 _SRC = Path(__file__).parent / "bvh_builder.cpp"
 _JPEG_SRC = Path(__file__).parent / "jpeg_entropy.cpp"
+_WEBP_SRC = Path(__file__).parent / "webp_decode.cpp"
 _CACHE = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 _lib = None
 _lib_failed = False
 _jpeg = None
+_webp = None
 
 
-def _compile(src_path: Path) -> Path:
-    """Build src_path into build/native/<stem>_<hash>.so (once); raises
-    subprocess.SubprocessError or OSError when g++ fails or is missing."""
+def _compile(src_path: Path, defines: tuple = ()) -> Path:
+    """Build src_path, with -D of each of `defines`, into
+    build/native/<stem>_<hash>.so (once); raises subprocess.SubprocessError
+    or OSError when g++ fails or is missing."""
     src = src_path.read_text()
-    tag = hashlib.sha256(src.encode()).hexdigest()[:16]
+    tag = hashlib.sha256((src + "".join(f"\n-D{d}" for d in defines)).encode()).hexdigest()[:16]
     out = _CACHE / f"{src_path.stem}_{tag}.so"
     if out.exists():
         return out
@@ -44,7 +48,7 @@ def _compile(src_path: Path) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        str(src_path), "-o", str(tmp),
+        *(f"-D{d}" for d in defines), str(src_path), "-o", str(tmp),
     ]
     subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     os.replace(tmp, out)  # atomic: concurrent builders never load half a file
@@ -59,32 +63,55 @@ def _build_lib() -> Path | None:
         return None
 
 
-def jpeg_lib():
-    """The JPEG entropy coder (jpeg_entropy.cpp), built at first use.
-    Raises RuntimeError when it cannot be built or loaded: there is no
-    Python decoder to stand in for it, and a RuntimeError is not one of
-    the decode errors that build_texture_pool turns into a white texel."""
-    global _jpeg
-    if _jpeg is not None:
-        return _jpeg
+def _load_coder(src: Path, signatures: dict, defines: tuple = ()):
+    """Build src (with `defines`, as _compile) at first use and bind
+    `signatures` (name -> argtypes, every function returning int). Raises RuntimeError when the library cannot be
+    built or loaded: there is no Python decoder to stand in for it, and a
+    RuntimeError is not one of the decode errors that build_texture_pool
+    turns into a white texel."""
     try:
-        path = _compile(_JPEG_SRC)
+        path = _compile(src, defines)
     except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"building {_JPEG_SRC.name} failed:\n{e.stderr.decode(errors='replace')}") from e
+        raise RuntimeError(f"building {src.name} failed:\n{e.stderr.decode(errors='replace')}") from e
     except (subprocess.SubprocessError, OSError) as e:
-        raise RuntimeError(f"building {_JPEG_SRC.name} failed: {e}") from e
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        raise RuntimeError(f"building {src.name} failed: {e}") from e
     try:  # a truncated cache entry or a missing symbol: OSError, AttributeError
         lib = ctypes.CDLL(str(path))
-        lib.vkgr_jpeg_decode_scan.restype = ctypes.c_int
-        lib.vkgr_jpeg_decode_scan.argtypes = [vp, i64, i32, vp, vp, i32, i32, vp, vp, vp, i32, i32, i32, i32,
-                                              i32, i32]
-        lib.vkgr_jpeg_encode_scan.restype = ctypes.c_int
-        lib.vkgr_jpeg_encode_scan.argtypes = [vp, vp, i64, vp, vp, vp, vp, i32, i32, vp, i64, vp]
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
     except (OSError, AttributeError) as e:
         raise RuntimeError(f"loading {path} failed: {e}") from e
-    _jpeg = lib
+    return lib
+
+
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+
+
+def jpeg_lib():
+    """The JPEG entropy coder (jpeg_entropy.cpp), built at first use
+    (_load_coder: RuntimeError when it cannot be built or loaded)."""
+    global _jpeg
+    if _jpeg is None:
+        _jpeg = _load_coder(_JPEG_SRC, {
+            "vkgr_jpeg_decode_scan": [_VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _I32, _I32, _I32,
+                                      _I32, _I32, _I32],
+            "vkgr_jpeg_encode_scan": [_VP, _VP, _I64, _VP, _VP, _VP, _VP, _I32, _I32, _VP, _I64, _VP]})
     return _jpeg
+
+
+def webp_lib():
+    """The WebP pixel codec (webp_decode.cpp), built at first use
+    (_load_coder: RuntimeError when it cannot be built or loaded)."""
+    global _webp
+    if _webp is None:
+        _webp = _load_coder(_WEBP_SRC, {
+            "vkgr_vp8_decode": [_VP, _I64, _I32, _I32, _VP],
+            "vkgr_vp8l_decode": [_VP, _I64, _I32, _I32, _I32, _VP],
+            "vkgr_alpha_decode": [_VP, _I64, _I32, _I32, _VP],
+            "vkgr_vp8l_encode": [_VP, _I32, _I32, _I32, _I32, _VP, _I64, _VP]})
+    return _webp
 
 
 def get_lib():

@@ -52,10 +52,17 @@ Alpha-tested scenes pass the opacity classes of ops/omm.py: transparent
 triangles are culled and MIXED triangles with transparent cells are split
 into their other cells (build_world_bvh's docstring).
 
-VKGR_BVH picks the builder as in the reference: sah (default) or lbvh,
+VKGR_BVH picks the builder as in the reference: sah (default), lbvh,
 the Morton radix tree of ops/bvh.py, which is also the fallback for
-scenes over 300,000 triangles when the native builder is missing. SBVH
-(sbvh) raises NotImplementedError (ROADMAP A12).
+scenes over 300,000 triangles when the native builder is missing, or
+sbvh, the spatial-split builder (_build_sbvh, Stich et al. 2009) for
+scenes of at most 300,000 triangles and the native SAH above that, as in
+the reference. SBVH duplicates triangle references: its tris rows (and
+so tris128 slots, lane-page elements and wtri_*) repeat a triangle where
+a split plane cut it, each copy holding the whole triangle, and
+num_world_tris still counts triangles. WorldBvh.builder names the
+builder that ran; emit2ref maps each hit row back to its tris row (the
+primary-hit seeding of ops/pathtrace.py reads it).
 tests/test_torch_host.py holds every field equal to the reference's.
 """
 
@@ -110,7 +117,9 @@ class WorldBvh:
     attr_bary: np.ndarray  # [Ta,6] f32 corner barycentrics of each hit row in its source triangle
     wtri_src_tri: np.ndarray  # [T+8] i32 bake source tri of each tris row
     wtri_bary: np.ndarray  # [T+8,6] f32 corner barycentrics of each tris row in its source triangle
-    num_world_tris: int
+    emit2ref: np.ndarray  # [max(Ta,1)] i32 tris row of each hit row (-1: culled); _emit2ref
+    num_world_tris: int  # world triangles; the tris rows number more under SBVH (duplicated references)
+    builder: str = "sah"  # the builder that ran: sah, sah_numpy, sbvh, lbvh or single (one triangle)
     root4_code: int = 0
     # built on demand by add_kernel_tables (None until a kernel reads them)
     nodes_fi: np.ndarray | None = None  # [Nn,16] f32 binary rows
@@ -241,6 +250,284 @@ def _build_sah(tlo, thi, cen):
         parent[r_id] = nid
     nodes_i[:, 4] = parent
     return perm, nodes_i, nodes_f, nodes_self
+
+
+def _clip_tri_slab(tri, axis, lo, hi):
+    """AABB of a triangle clipped to the slab lo <= x[axis] <= hi
+    (Sutherland-Hodgman against the two planes). tri: [3,3] float64."""
+    poly = [tri[0], tri[1], tri[2]]
+    for plane_v, keep_ge in ((lo, True), (hi, False)):
+        out = []
+        for i in range(len(poly)):
+            a = poly[i]
+            b = poly[(i + 1) % len(poly)]
+            da = a[axis] - plane_v
+            db = b[axis] - plane_v
+            ina = da >= 0 if keep_ge else da <= 0
+            inb = db >= 0 if keep_ge else db <= 0
+            if ina:
+                out.append(a)
+            if ina != inb:
+                t = da / (da - db)
+                out.append(a + (b - a) * t)
+        poly = out
+        if not poly:
+            return None
+    p = np.asarray(poly)
+    return p.min(axis=0), p.max(axis=0)
+
+
+def _build_sbvh(tlo, thi, cen, wv, alpha=1e-5, ref_budget=0.5):
+    """Top-down SBVH (Stich et al. 2009): binned object SAH + spatial
+    splits with triangle-clipped reference duplication.
+
+    When the best object split's child boxes overlap by more than
+    alpha * root_area, a spatial-split candidate is also evaluated: 16
+    uniform bins along each axis, each reference entering every bin its
+    clipped box straddles; straddling references are DUPLICATED into both
+    children with their boxes re-clipped to the winning plane. Total
+    duplicates are capped at ref_budget * num_tris, after which only
+    object splits are taken. Same output contract as _build_sah except
+    `order` is a REFERENCE -> triangle map that may repeat triangle ids
+    (downstream tables simply carry duplicated tris128 rows; hits on
+    either copy resolve to the same (rnode, tri)).
+
+    The reference builds its BLAS inside the Vulkan driver
+    (gltf_scene_rtx.cpp:173) where spatial splits are the vendor's call;
+    here the build policy is in-repo. Gated to static scenes: refit
+    conservatively re-expands clipped boxes (correct, just looser).
+    """
+    nt = tlo.shape[0]
+    wv3 = np.asarray(wv, np.float64)[:, :9].reshape(nt, 3, 3)
+    max_refs = nt + int(ref_budget * nt)
+    # reference arrays (grow as refs split)
+    rlo = [tlo[i].astype(np.float64) for i in range(nt)]
+    rhi = [thi[i].astype(np.float64) for i in range(nt)]
+    rtri = list(range(nt))
+
+    root_d = thi.max(axis=0) - tlo.min(axis=0)
+    root_area = float(root_d[0] * root_d[1] + root_d[1] * root_d[2] + root_d[2] * root_d[0])
+    if root_area <= 0:
+        return _build_sah(tlo, thi, cen)
+
+    t_left, t_right, t_first, t_count, t_axis = [], [], [], [], []
+    t_lo, t_hi = [], []
+
+    def new_node():
+        t_left.append(-1)
+        t_right.append(-1)
+        t_first.append(-1)
+        t_count.append(0)
+        t_axis.append(0)
+        t_lo.append(None)
+        t_hi.append(None)
+        return len(t_left) - 1
+
+    def area3(d):
+        d = np.maximum(d, 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    # node work items carry explicit ref-id lists (duplication makes the
+    # in-place permutation of _build_sah unusable)
+    root = new_node()
+    stack = [(root, list(range(nt)))]
+    leaves = []  # (nid, ref ids) — order assembled at the end
+
+    while stack:
+        nid, ids = stack.pop()
+        n = len(ids)
+        nlo = np.min([rlo[i] for i in ids], axis=0)
+        nhi = np.max([rhi[i] for i in ids], axis=0)
+        t_lo[nid] = nlo
+        t_hi[nid] = nhi
+        if n <= LEAF_SIZE:
+            t_first[nid] = -2  # filled in the order pass
+            t_count[nid] = n
+            leaves.append((nid, ids))
+            continue
+        blo_r = np.asarray([rlo[i] for i in ids])
+        bhi_r = np.asarray([rhi[i] for i in ids])
+        c = (blo_r + bhi_r) * 0.5
+
+        # ---- object split (binned SAH over reference boxes)
+        clo = c.min(axis=0)
+        chi = c.max(axis=0)
+        ext = chi - clo
+        best = dict(cost=np.inf, axis=-1, kind="obj")
+        for axis in range(3):
+            if ext[axis] <= 1e-12:
+                continue
+            b = np.minimum(((c[:, axis] - clo[axis]) * (_SAH_BINS / ext[axis])).astype(np.int64),
+                           _SAH_BINS - 1)
+            cnt = np.bincount(b, minlength=_SAH_BINS)
+            blo = np.full((_SAH_BINS, 3), np.inf)
+            bhi = np.full((_SAH_BINS, 3), -np.inf)
+            np.minimum.at(blo, b, blo_r)
+            np.maximum.at(bhi, b, bhi_r)
+            llo = np.minimum.accumulate(blo, axis=0)
+            lhi = np.maximum.accumulate(bhi, axis=0)
+            rlo_s = np.minimum.accumulate(blo[::-1], axis=0)[::-1]
+            rhi_s = np.maximum.accumulate(bhi[::-1], axis=0)[::-1]
+            lcnt = np.cumsum(cnt)
+
+            def areas(alo, ahi):
+                d = np.maximum(ahi - alo, 0.0)
+                return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+            la = areas(llo[:-1], lhi[:-1])
+            ra = areas(rlo_s[1:], rhi_s[1:])
+            lc = lcnt[:-1]
+            rc = n - lc
+            cost = la * lc + ra * rc
+            cost[(lc == 0) | (rc == 0)] = np.inf
+            k = int(np.argmin(cost))
+            if cost[k] < best["cost"]:
+                ov_lo = np.maximum(llo[k], rlo_s[k + 1])
+                ov_hi = np.minimum(lhi[k], rhi_s[k + 1])
+                best = dict(cost=float(cost[k]), axis=axis, kind="obj",
+                            mask=b <= k, overlap=area3(ov_hi - ov_lo))
+
+        # ---- spatial split candidate (only when object children overlap)
+        if (best["axis"] >= 0 and best.get("overlap", 0.0) > alpha * root_area
+                and len(rtri) < max_refs):
+            for axis in range(3):
+                w = nhi[axis] - nlo[axis]
+                if w <= 1e-12:
+                    continue
+                inv_w = _SAH_BINS / w
+                b0 = np.clip(((blo_r[:, axis] - nlo[axis]) * inv_w).astype(np.int64),
+                             0, _SAH_BINS - 1)
+                b1 = np.clip(((bhi_r[:, axis] - nlo[axis]) * inv_w).astype(np.int64),
+                             0, _SAH_BINS - 1)
+                enter = np.bincount(b0, minlength=_SAH_BINS)
+                exit_ = np.bincount(b1, minlength=_SAH_BINS)
+                # per-bin boxes from clipped fragments (AABB-clip estimate
+                # for costing; the actual split re-clips the triangle)
+                blo = np.full((_SAH_BINS, 3), np.inf)
+                bhi = np.full((_SAH_BINS, 3), -np.inf)
+                for j in range(n):
+                    lo_j, hi_j = blo_r[j].copy(), bhi_r[j].copy()
+                    for bb in range(int(b0[j]), int(b1[j]) + 1):
+                        s0 = nlo[axis] + bb * w / _SAH_BINS
+                        s1 = s0 + w / _SAH_BINS
+                        fl = lo_j.copy()
+                        fh = hi_j.copy()
+                        fl[axis] = max(fl[axis], s0)
+                        fh[axis] = min(fh[axis], s1)
+                        blo[bb] = np.minimum(blo[bb], fl)
+                        bhi[bb] = np.maximum(bhi[bb], fh)
+                llo = np.minimum.accumulate(blo, axis=0)
+                lhi = np.maximum.accumulate(bhi, axis=0)
+                rlo_s = np.minimum.accumulate(blo[::-1], axis=0)[::-1]
+                rhi_s = np.maximum.accumulate(bhi[::-1], axis=0)[::-1]
+                lc = np.cumsum(enter)[:-1]
+                rc = n - np.cumsum(exit_)[:-1]
+
+                def areas(alo, ahi):
+                    d = np.maximum(ahi - alo, 0.0)
+                    return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+                la = areas(llo[:-1], lhi[:-1])
+                ra = areas(rlo_s[1:], rhi_s[1:])
+                cost = la * lc + ra * rc
+                bad = (lc == 0) | (rc == 0)
+                cost[bad] = np.inf
+                k = int(np.argmin(cost))
+                if cost[k] < best["cost"]:
+                    best = dict(cost=float(cost[k]), axis=axis, kind="spatial",
+                                plane=float(nlo[axis] + (k + 1) * w / _SAH_BINS))
+
+        if best["axis"] < 0:
+            mid = n // 2
+            lids, rids = ids[:mid], ids[mid:]
+        elif best["kind"] == "obj":
+            mask = best["mask"]
+            lids = [ids[j] for j in range(n) if mask[j]]
+            rids = [ids[j] for j in range(n) if not mask[j]]
+            t_axis[nid] = best["axis"]
+        else:
+            axis, plane = best["axis"], best["plane"]
+            lids, rids = [], []
+            for j in range(n):
+                rid = ids[j]
+                if rhi[rid][axis] <= plane:
+                    lids.append(rid)
+                elif rlo[rid][axis] >= plane:
+                    rids.append(rid)
+                else:
+                    tri = wv3[rtri[rid]]
+                    cl = _clip_tri_slab(tri, axis, rlo[rid][axis], plane)
+                    cr = _clip_tri_slab(tri, axis, plane, rhi[rid][axis])
+                    if cl is None or cr is None or len(rtri) >= max_refs:
+                        # degenerate clip or budget exhausted: assign whole
+                        (lids if (rlo[rid][axis] + rhi[rid][axis]) * 0.5 <= plane
+                         else rids).append(rid)
+                        continue
+                    # left fragment reuses the ref id; right gets a new one
+                    rlo[rid] = np.maximum(cl[0], rlo[rid])
+                    rhi[rid] = np.minimum(cl[1], rhi[rid])
+                    lids.append(rid)
+                    rlo.append(np.maximum(cr[0], np.asarray(tlo[rtri[rid]], np.float64)))
+                    rhi.append(np.minimum(cr[1], np.asarray(thi[rtri[rid]], np.float64)))
+                    rtri.append(rtri[rid])
+                    rids.append(len(rtri) - 1)
+            t_axis[nid] = axis
+            if not lids or not rids:  # numerical corner: fall back
+                mid = n // 2
+                lids, rids = ids[:mid], ids[mid:]
+        l_id = new_node()
+        r_id = new_node()
+        t_left[nid] = l_id
+        t_right[nid] = r_id
+        stack.append((r_id, rids))
+        stack.append((l_id, lids))
+
+    # assemble reference order from leaves (leaf tris must be contiguous)
+    order = np.empty(sum(len(ids) for _, ids in leaves), np.int64)
+    pos = 0
+    for nid, ids in leaves:
+        t_first[nid] = pos
+        order[pos : pos + len(ids)] = [rtri[i] for i in ids]
+        pos += len(ids)
+
+    nn = len(t_left)
+    nodes_i = np.zeros((nn, 8), np.int32)
+    nodes_f = np.zeros((nn, 16), np.float32)
+    nodes_self = np.zeros((nn, 8), np.float32)
+    parent = np.full(nn, -1, np.int32)
+    for nid in range(nn):
+        nodes_self[nid, 0:3] = t_lo[nid]
+        nodes_self[nid, 3:6] = t_hi[nid]
+        if t_count[nid] > 0:
+            nodes_i[nid, 2] = t_first[nid]
+            nodes_i[nid, 3] = t_count[nid]
+            continue
+        l_id, r_id, axis = t_left[nid], t_right[nid], t_axis[nid]
+        cl = (t_lo[l_id][axis] + t_hi[l_id][axis]) * 0.5
+        cr = (t_lo[r_id][axis] + t_hi[r_id][axis]) * 0.5
+        if cr < cl:
+            l_id, r_id = r_id, l_id
+        nodes_i[nid, 0] = l_id
+        nodes_i[nid, 1] = r_id
+        nodes_i[nid, 5] = axis
+        nodes_f[nid, 0:3] = t_lo[l_id]
+        nodes_f[nid, 3:6] = t_hi[l_id]
+        nodes_f[nid, 6:9] = t_lo[r_id]
+        nodes_f[nid, 9:12] = t_hi[r_id]
+        parent[l_id] = nid
+        parent[r_id] = nid
+    nodes_i[:, 4] = parent
+    return order, nodes_i, nodes_f, nodes_self
+
+
+def _emit2ref(rn_attr_base, wtri_rnode, wtri_tri, n_attr, nrefs):
+    """emit-row -> reordered ref table (see WorldBvh.emit2ref)."""
+    e2r = np.full(max(int(n_attr), 1), -1, np.int32)
+    if nrefs > 0:
+        rows = (np.asarray(rn_attr_base)[wtri_rnode[:nrefs]]
+                + np.asarray(wtri_tri[:nrefs], np.int64))
+        e2r[rows] = np.arange(nrefs, dtype=np.int32)
+    return e2r
 
 
 def _levels_and_portals(nodes_i):
@@ -420,9 +707,10 @@ def _nodes4_fi(nodes_i, nodes4_i, nodes4_f):
 
 def build_world_bvh(flat, tri_class=None, subtri_cells=None, subtri_level=2) -> WorldBvh:
     """Bake instances to world space + a BVH4 over all world triangles
-    (reference build_world_bvh): binned SAH by default, the Morton radix
-    tree (LBVH) under VKGR_BVH=lbvh or when a scene of more than 300,000
-    triangles finds no native builder.
+    (reference build_world_bvh): binned SAH by default, the spatial-split
+    SBVH under VKGR_BVH=sbvh (at most 300,000 triangles, else the SAH), the
+    Morton radix tree (LBVH) under VKGR_BVH=lbvh or when a scene of more
+    than 300,000 triangles finds no native builder.
 
     tri_class: optional [sum of visible-node tri counts] int8 in emit order
     (ops/omm.classify_attr_alpha): rows classed ALPHA_TRANSPARENT are culled
@@ -446,9 +734,6 @@ def build_world_bvh(flat, tri_class=None, subtri_cells=None, subtri_level=2) -> 
     pft = np.asarray(flat.prim_first_tri)
     ptc = np.asarray(flat.prim_tri_count)
     bvh_kind = os.environ.get("VKGR_BVH", "sah")
-    if bvh_kind == "sbvh":
-        raise NotImplementedError("VKGR_BVH=sbvh: the spatial-split builder is not ported "
-                                  "(ROADMAP A12)")
 
     sub_bary_tab = None
     if subtri_cells is not None and tri_class is not None:
@@ -557,13 +842,18 @@ def build_world_bvh(flat, tri_class=None, subtri_cells=None, subtri_level=2) -> 
     cen = (tlo + thi) * 0.5
 
     built = None
-    if nt > LEAF_SIZE and bvh_kind == "sah":
-        from ..native import build_sah_native
+    builder = "lbvh"
+    if nt > LEAF_SIZE and bvh_kind in ("sah", "sbvh"):
+        if bvh_kind == "sbvh" and nt <= _SAH_NUMPY_MAX_TRIS:
+            built, builder = _build_sbvh(tlo, thi, cen, wv), "sbvh"
+        else:
+            from ..native import build_sah_native
 
-        built = build_sah_native(tlo, thi, cen, LEAF_SIZE)
-        if built is None and nt <= _SAH_NUMPY_MAX_TRIS:
-            built = _build_sah(tlo, thi, cen)
+            built, builder = build_sah_native(tlo, thi, cen, LEAF_SIZE), "sah"
+            if built is None and nt <= _SAH_NUMPY_MAX_TRIS:
+                built, builder = _build_sah(tlo, thi, cen), "sah_numpy"
     if nt == 1:
+        builder = "single"
         order = np.zeros(1, np.int64)
         nodes_i = np.array([[0, 0, 0, 1, -1, 0, 0, 0]], np.int32)
         nodes_f = np.zeros((1, 16), np.float32)
@@ -585,8 +875,9 @@ def build_world_bvh(flat, tri_class=None, subtri_cells=None, subtri_level=2) -> 
     wtri_tri = wtri_tri[order]
     wtri_src_tri = wtri_src_tri[order]
     wtri_bary = wtri_bary[order]
-    tris16 = np.zeros((nt + LEAF_SIZE, 16), np.float32)
-    tris16[:nt, :9] = wv
+    nrefs = order.shape[0]  # == nt except under SBVH duplication
+    tris16 = np.zeros((nrefs + LEAF_SIZE, 16), np.float32)
+    tris16[:nrefs, :9] = wv
     wtri_rnode = np.concatenate([wtri_rnode, np.zeros(LEAF_SIZE, np.int32)])
     wtri_tri = np.concatenate([wtri_tri, np.zeros(LEAF_SIZE, np.int32)])
     wtri_src_tri = np.concatenate([wtri_src_tri, np.zeros(LEAF_SIZE, np.int32)])
@@ -620,7 +911,9 @@ def build_world_bvh(flat, tri_class=None, subtri_cells=None, subtri_level=2) -> 
         attr_bary=attr_bary,
         wtri_src_tri=wtri_src_tri,
         wtri_bary=wtri_bary,
+        emit2ref=_emit2ref(rn_attr_base, wtri_rnode, wtri_tri, attr_rnode.shape[0], nrefs),
         num_world_tris=nt,
+        builder=builder,
     )
 
 
@@ -858,9 +1151,10 @@ def _packet3_sidecar(nodes4_fi):
 # what add_kernel_tables accepts: the table families of ops/intersect.ROUTES
 # and of the split traversals; the BVH4 walks other than v7 read only
 # nodes4_fi + tris128, and the split families (packet4 "bvh4_split", v1
-# "bvh2_split", "wavefront") read tables build_world_bvh always keeps
+# "bvh2_split", "wavefront") and the primary-hit seeding ("primary_seed")
+# read tables build_world_bvh always keeps
 KERNEL_TABLES = ("bvh2", "bvh16", "lane", "bvh4", "bvh4_multipop", "bvh4_leafqueue",
-                 "bvh4_sidecar", "bvh4_split", "bvh2_split", "wavefront")
+                 "bvh4_sidecar", "bvh4_split", "bvh2_split", "wavefront", "primary_seed")
 
 
 def add_kernel_tables(wb: WorldBvh, tables) -> WorldBvh:

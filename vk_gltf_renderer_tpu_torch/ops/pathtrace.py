@@ -48,9 +48,22 @@ position through the previous frame's per-node transforms
 spp. taa_jitter places sample 0 at frame["cam_jitter"] (the TAAU Halton
 jitter) and still draws the Gaussian, so every later draw keeps its place.
 
-Not ported yet (RenderConfig.check_supported raises NotImplementedError,
-naming the ROADMAP.md queue A item): batched spp and primary-hit seeding
-(A12).
+primary_seed (the reference's previous-frame hit seeding): render_frame_flat
+inverts the previous frame's per-pixel first hit (frame["prev_first_rnode"],
+frame["prev_first_tri"]) through rn_attr_base and emit2ref to a tris row,
+_primary_seed_hits re-verifies that row's current triangle by one
+Moller-Trumbore test a lane, and every sample's bounce-0 trace of a scene
+without alpha runs with tmax at the verified t; the seed stands where the
+kernel finds nothing closer. The image is the unseeded one but where two
+triangles tie at the seed's t.
+
+spp_batch with spp > 1 (and no frame["px"]): the frame's spp samples are one
+path_trace_batch over n*spp lanes in sample-major blocks, seeded
+xxhash32(px, py, frame*spp + s), sample 0 with the Gaussian (or TAA) jitter
+and the others uniform; the reference's non-compact branch (its compact
+branch and tile order are TPU lane orders): the first-hit aux and
+spec_hitdist come from sample block 0, lum_moments sums every sample and
+rays counts every lane.
 """
 
 from __future__ import annotations
@@ -71,7 +84,7 @@ from .materials_eval import _gather_materials, evaluate_material, get_opacity, u
 from .sky import _onb, eval_sky, pdf_sky, sample_sky
 from .intersect import (TRAVERSALS, intersect_rays_packet, intersect_rays_soa,
                         intersect_rays_wavefront, route, soa_columns)
-from .traverse import INFINITE, dot3
+from .traverse import INFINITE, cross3, dot3
 
 ANTIALIASING_STD = 0.4246609
 RR_MIN_DEPTH = 3
@@ -146,11 +159,7 @@ class RenderConfig:
     def check_supported(self) -> None:
         """Raise NotImplementedError for anything the port cannot render
         yet, rather than rendering it half right."""
-        missing = [name for name, on in (
-            ("batched spp (ROADMAP A12)", self.spp_batch and self.spp > 1),
-            ("primary-hit seeding (ROADMAP A12)", self.primary_seed),
-        ) if on]
-        missing += unsupported_features(self.features)
+        missing = list(unsupported_features(self.features))
         if self.env_kind not in ("sky", "hdr"):
             missing.append(f"environment kind {self.env_kind!r}")
         if missing:
@@ -161,14 +170,17 @@ class RenderConfig:
     def kernel_tables(self) -> set:
         """Table families the selected traversal reads: ops/intersect.ROUTES
         of both kernel names under "packet", "bvh4_split" under "packet4",
-        "wavefront" under "wavefront". Raises ValueError for anything else."""
+        "wavefront" under "wavefront"; with primary_seed also "primary_seed"
+        (the tris rows the seed re-verifies). Raises ValueError for anything
+        else."""
+        seed = {"primary_seed"} if self.primary_seed else set()
         if self.traversal == "packet4":
-            return {"bvh4_split"}
+            return {"bvh4_split"} | seed
         if self.traversal == "wavefront":
-            return {"wavefront"}
+            return {"wavefront"} | seed
         if self.traversal != "packet":
             raise ValueError(f"unknown traversal {self.traversal!r}; accepted: {list(TRAVERSALS)}")
-        return {route(self.primary_kernel), route(self.packet_kernel)}
+        return {route(self.primary_kernel), route(self.packet_kernel)} | seed
 
 
 def trace_closest(bvh, ro, rd, tmin=0.0, tmax=None, alive=None, anyhit=False, kernel="v3",
@@ -407,6 +419,43 @@ def _trace_with_alpha(scene, bvh, ro, rd, seed, cfg: RenderConfig, alive, kernel
     return hits, seed
 
 
+def _primary_seed_hits(bvh, ro, rd, prev_ref):
+    """Re-verify each lane's previous first hit (prev_ref: a tris row, -1
+    for none) against the current triangle of that row by one
+    Moller-Trumbore test (reference ops/pathtrace.py:683). Returns (t, rnode,
+    tri, u, v, valid), t INFINITE where invalid: a sound tmax for the
+    primary trace and the hit that stands where the trace finds nothing."""
+    ref = torch.clamp(prev_ref, 0, bvh.tris.shape[0] - 1).long()
+    tv = bvh.tris[ref]  # [n,16]: cols 0:9 the world vertices
+    v0 = tv[:, 0:3]
+    e1 = tv[:, 3:6] - v0
+    e2 = tv[:, 6:9] - v0
+    p = cross3(rd, e2)
+    det = dot3(e1, p)
+    ok = torch.abs(det) >= 1e-12
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    tvec = ro - v0
+    u = dot3(tvec, p) * inv_det
+    q = cross3(tvec, e1)
+    v = dot3(rd, q) * inv_det
+    t = dot3(e2, q) * inv_det
+    valid = (prev_ref >= 0) & ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    t = torch.where(valid, t, INFINITE)
+    return t, bvh.wtri_rnode[ref], bvh.wtri_tri[ref], u, v, valid
+
+
+def _seeded_primary_trace(bvh, ro, rd, cfg: RenderConfig, alive, seed_hits):
+    """Bounce 0's closest hit with the verified seeds as tmax (reference
+    ops/pathtrace.py:781): the kernel returns anything closer, else the
+    seed's hit stands."""
+    s_t, s_rn, s_tri, s_u, s_v, s_valid = seed_hits
+    hits = trace_closest(bvh, ro, rd, tmax=s_t, alive=alive, kernel=cfg.primary_kernel,
+                         traversal=cfg.traversal)
+    use = s_valid & (hits["tri"] < 0)
+    seeded = {"t": s_t, "rnode": s_rn, "tri": s_tri, "u": s_u, "v": s_v}
+    return {k: torch.where(use, seeded[k].to(v.dtype), v) if k in seeded else v for k, v in hits.items()}
+
+
 def _hdr_background_fixup(state, env, cfg):
     """Directly visible background: indirect bounces used the reduced
     sampling map, the primary miss shows the full-resolution radiance.
@@ -420,12 +469,17 @@ def _hdr_background_fixup(state, env, cfg):
     return state
 
 
-def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_angle=0.0, prev_rn_o2w=None):
+def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_angle=0.0, prev_rn_o2w=None,
+                     prev_ref=None):
     """Trace one sample per lane. Returns (radiance [N,3], aux dict, seed).
     prev_rn_o2w [R,16]: the previous frame's per-node object-to-world
-    matrices, for the guides' first_pos_prev (zero without them)."""
+    matrices, for the guides' first_pos_prev (zero without them).
+    prev_ref [N]: each lane's previous first hit as a tris row (-1 none),
+    which seeds bounce 0's trace in a scene without alpha."""
     n = ro.shape[0]
     dev = ro.device
+    seed_hits = (_primary_seed_hits(bvh, ro, rd, prev_ref)
+                 if prev_ref is not None and not cfg.alpha_any else None)
 
     def zeros(*shape):
         return torch.zeros((n,) + shape, device=dev)
@@ -468,8 +522,11 @@ def path_trace_batch(scene, bvh, env, ro, rd, seed, cfg: RenderConfig, pixel_ang
         first = depth == 0
 
         state["rays"] = state["rays"] + torch.sum(alive.to(torch.float32))
-        hits, seed = _trace_with_alpha(scene, bvh, ro, rd, seed, cfg, alive,
-                                       cfg.primary_kernel if first else cfg.packet_kernel)
+        if first and seed_hits is not None:
+            hits = _seeded_primary_trace(bvh, ro, rd, cfg, alive, seed_hits)
+        else:
+            hits, seed = _trace_with_alpha(scene, bvh, ro, rd, seed, cfg, alive,
+                                           cfg.primary_kernel if first else cfg.packet_kernel)
         miss = hits["tri"] < 0
 
         if cfg.denoise_guides:
@@ -755,7 +812,13 @@ def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
     pixels; with the guides aux also holds lum_moments [N,2], the sum over
     the samples of (L, L^2) of their luminance after the clamps. Every
     pixel's samples depend only on its own seed, xxhash32(px, py, frame), so
-    a shard's pixels come out as they do in the whole frame."""
+    a shard's pixels come out as they do in the whole frame.
+
+    With primary_seed, frame["prev_first_rnode"] and ["prev_first_tri"]
+    ([W*H] int32, the previous frame's aux; -1 where it saw nothing) seed
+    every sample's bounce 0; a shard (frame["px"]) is not seeded, as in the
+    reference. With spp_batch and spp > 1 the samples are one batch
+    (_render_frame_spp_batched) unless frame["px"] names a shard."""
     cfg.check_supported()
     w, h = cfg.width, cfg.height
     dev = frame["accum"].device
@@ -768,6 +831,22 @@ def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
     seed = rng.xxhash32(px, py, torch.full_like(px, int(frame["frame_idx"])))
     sample_pos = torch.stack([px, py], dim=-1).to(torch.float32)
     image_size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+
+    prev_ref = None
+    if cfg.primary_seed and "px" not in frame and frame.get("prev_first_rnode") is not None:
+        # the previous frame's per-pixel first hit -> this frame's tris row (emit2ref). After an
+        # edit that removed render nodes a stale rnode may lie past the table: clamped, as the
+        # reference's gather clamps, and the seed is then re-verified like any other
+        pix = (py * w + px).long()
+        p_rn = frame["prev_first_rnode"][pix].long()
+        p_tri = frame["prev_first_tri"][pix].long()
+        p_rn_row = torch.clamp(p_rn, 0, bvh.rn_attr_base.shape[0] - 1)
+        row = bvh.rn_attr_base[p_rn_row].long() + torch.clamp(p_tri, min=0)
+        ref = bvh.emit2ref[torch.clamp(row, 0, bvh.emit2ref.shape[0] - 1)]
+        prev_ref = torch.where((p_rn >= 0) & (p_tri >= 0), ref, -1)
+
+    if cfg.spp > 1 and cfg.spp_batch and "px" not in frame:
+        return _render_frame_spp_batched(scene, bvh, env, frame, cfg, px, py, image_size)
 
     total = torch.zeros((n, 3), device=dev)
     rays_total = torch.zeros((), device=dev)
@@ -788,25 +867,72 @@ def render_frame_flat(scene, bvh, env, frame, cfg: RenderConfig):
             ro, rd = apply_depth_of_field(ro, rd, frame["view_inv"], cfg.focal_distance, cfg.aperture, u1, u2)
         rad, aux, seed = path_trace_batch(scene, bvh, env, ro, rd, seed, cfg,
                                           pixel_angle=frame.get("pixel_angle", 0.0),
-                                          prev_rn_o2w=frame.get("prev_rn_o2w"))
-        # a rare degenerate sample (0*inf through a near-zero pdf) must not
-        # poison the accumulation buffer
-        rad = torch.nan_to_num(rad, nan=0.0, posinf=0.0, neginf=0.0)
-        lum = torch.mean(rad, dim=-1)
-        scale = torch.where(lum > cfg.firefly_clamp, cfg.firefly_clamp / torch.clamp(lum, min=1e-20), 1.0)
-        rad = rad * scale[..., None]
+                                          prev_rn_o2w=frame.get("prev_rn_o2w"), prev_ref=prev_ref)
+        rad = _clamp_sample(rad, cfg)
         if moments is not None:
-            lum_s = 0.2126 * rad[:, 0] + 0.7152 * rad[:, 1] + 0.0722 * rad[:, 2]
+            lum_s = _luminance(rad)
             moments = moments + torch.stack([lum_s, lum_s * lum_s], dim=-1)
         if s == 0:
             aux_out = dict(aux)  # first-hit captures come from sample 0
         total = total + rad
         rays_total = rays_total + aux["rays"]
 
-    mean = total / cfg.spp
-    ts = torch.tensor(float(frame["total_samples"]), dtype=torch.float32, device=dev)
-    new_accum = (frame["accum"] * ts + mean * cfg.spp) / (ts + cfg.spp)
     aux_out["rays"] = rays_total
     if moments is not None:
         aux_out["lum_moments"] = moments
-    return new_accum, aux_out
+    return _accumulate(frame, total, cfg.spp), aux_out
+
+
+def _clamp_sample(rad, cfg: RenderConfig):
+    """A rare degenerate sample (0*inf through a near-zero pdf) must not
+    poison the accumulation buffer; then the firefly clamp on the mean."""
+    rad = torch.nan_to_num(rad, nan=0.0, posinf=0.0, neginf=0.0)
+    lum = torch.mean(rad, dim=-1)
+    scale = torch.where(lum > cfg.firefly_clamp, cfg.firefly_clamp / torch.clamp(lum, min=1e-20), 1.0)
+    return rad * scale[..., None]
+
+
+def _luminance(rad):
+    return 0.2126 * rad[:, 0] + 0.7152 * rad[:, 1] + 0.0722 * rad[:, 2]
+
+
+def _accumulate(frame, total, k: int):
+    """The running mean after k more samples summing to total [N,3]."""
+    mean = total / k
+    ts = torch.tensor(float(frame["total_samples"]), dtype=torch.float32, device=total.device)
+    return (frame["accum"] * ts + mean * k) / (ts + k)
+
+
+def _render_frame_spp_batched(scene, bvh, env, frame, cfg: RenderConfig, px, py, image_size):
+    """cfg.spp samples of every pixel as one path_trace_batch over n*spp
+    lanes in sample-major blocks (reference _render_frame_spp_batched,
+    ops/pathtrace.py:1244, its non-compact branch). Returns (new_accum, aux)."""
+    n, k = px.shape[0], cfg.spp
+    dev = px.device
+    s_b = torch.arange(k, device=dev).repeat_interleave(n)
+    px_b, py_b = px.repeat(k), py.repeat(k)
+    seed = rng.xxhash32(px_b, py_b, int(frame["frame_idx"]) * k + s_b)
+    sample_pos = torch.stack([px_b, py_b], dim=-1).to(torch.float32)
+    ug, seed = rng.rand2(seed)
+    gauss = 0.5 + ANTIALIASING_STD * rng.sample_gaussian(ug)
+    uu, seed = rng.rand2(seed)
+    first = (s_b == 0)[..., None]
+    jitter = torch.where(first, gauss, uu)
+    if cfg.taa_jitter:
+        jitter = torch.where(first, frame["cam_jitter"].expand(n * k, 2), jitter)
+    ro, rd = generate_rays(sample_pos, jitter, image_size, frame["proj_inv"], frame["view_inv"],
+                           orthographic=cfg.orthographic)
+    if cfg.aperture > 0.0:
+        u1, seed = rng.rand(seed)
+        u2, seed = rng.rand(seed)
+        ro, rd = apply_depth_of_field(ro, rd, frame["view_inv"], cfg.focal_distance, cfg.aperture, u1, u2)
+    rad, aux, _ = path_trace_batch(scene, bvh, env, ro, rd, seed, cfg, pixel_angle=frame.get("pixel_angle", 0.0),
+                                   prev_rn_o2w=frame.get("prev_rn_o2w"))
+    rad = _clamp_sample(rad, cfg)
+    total = rad.reshape(k, n, 3).sum(dim=0)
+    aux_out = {key: (v if key == "rays" else v[:n]) for key, v in aux.items()}  # sample block 0
+    if cfg.denoise_guides:
+        lum = _luminance(rad)
+        aux_out["lum_moments"] = torch.stack([lum.reshape(k, n).sum(dim=0), (lum * lum).reshape(k, n).sum(dim=0)],
+                                             dim=-1)
+    return _accumulate(frame, total, k), aux_out

@@ -7,11 +7,13 @@ texel i (REPEAT wrap baked in), so one bilinear fetch is one row gather.
 Sampling wraps with REPEAT only, as the reference does. decode_image
 picks the decoder by the file's magic bytes: PNG through utils/png.py,
 DDS and KTX2 (BC1-3, RGBA8, zlib, zstd with the zstandard package,
-BasisLZ/ETC1S, UASTC, ASTC) through ops/dds.py, JPEG through ops/jpeg.py.
-Every decoder raises ValueError (or its subclass UnsupportedCodec) for
-input it cannot read, and build_texture_pool turns such an image into 1x1
-white, as the reference does for any failed decode. WebP has no decoder
-here yet and raises NotImplementedError (ROADMAP A12).
+BasisLZ/ETC1S, UASTC, ASTC) through ops/dds.py, JPEG through ops/jpeg.py,
+WebP (lossy, lossless, with alpha, an animation's first frame) through
+ops/webp.py. Every decoder raises ValueError (or its subclass
+UnsupportedCodec) for input it cannot read, and build_texture_pool turns
+such an image into 1x1 white, as the reference does for any failed
+decode. Any other format (BMP, TGA, TIFF, GIF, PPM: Pillow reads them,
+glTF names none of them) raises NotImplementedError (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from ..utils.png import is_png, read_png
 from .dds import DDS_MAGIC, KTX2_MAGIC, sniff_decode
 from .jpeg import decode_jpeg, is_jpeg
+from .webp import decode_webp, is_webp
 
 _SRGB_SLOT_KEYS = (
     "baseColorTexture",
@@ -102,9 +105,11 @@ def decode_image(model, image: dict) -> np.ndarray:
             px = read_png(data)
         elif is_jpeg(data):
             px = decode_jpeg(data)
+        elif is_webp(data):
+            px = decode_webp(data)
         else:
-            raise NotImplementedError("the port decodes PNG, JPEG, DDS and KTX2 textures; WebP and other "
-                                      "formats are not ported yet (ROADMAP A12, WebP)")
+            raise NotImplementedError("the port decodes PNG, JPEG, WebP, DDS and KTX2 textures; Pillow's other "
+                                      "formats (BMP, TGA, TIFF, GIF, PPM) are not ported (ROADMAP A12)")
     except (struct.error, zlib.error, IndexError) as e:  # a truncated or corrupt file
         raise ValueError(f"corrupt image: {e!r}") from e
     px = px.astype(np.float32) / 255.0

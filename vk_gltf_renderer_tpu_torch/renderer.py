@@ -49,6 +49,13 @@ with the IBL of ops/ibl.py, built once per environment), which replace the
 accumulation rather than adding to it; wireframe overlays triangle edges on
 them.
 
+VKGR_PRIMARY_SEED=1 seeds each frame's primary trace with the last
+frame's per-pixel first hits (left off for alpha scenes; the seeds are
+re-verified in the frame, so edits need no invalidation) and
+VKGR_SPP_BATCH=1 renders spp > 1 as one batch of W*H*spp lanes
+(ops/pathtrace.py). VKGR_BVH=sbvh builds the spatial-split BVH
+(ops/bvh_flatten.py).
+
 With adaptive set to an AdaptiveSampler, each on_render waits for the
 card, reads the frame's time on the host clock and retargets spp for the
 next frame. The
@@ -221,6 +228,7 @@ class GltfRenderer:
         self.selection = set()  # selected render-node ids (silhouette)
         self.wireframe = False  # preview edge overlay
         self._prev_rn_o2w = None  # the last frame's per-node o2w [R,16] (instance motion)
+        self._prev_first = None  # the last frame's per-pixel (first_rnode, first_tri) (primary_seed)
         self._prev_vp = None  # the last view-projection that image_denoised or _taau_step used
         self._history = None  # the last image_denoised output (temporal reprojection)
         self._history_hi = None  # display-res TAAU history [H*up, W*up, 4]
@@ -471,6 +479,7 @@ class GltfRenderer:
         if model.images:
             feats.add("textured")
         cam = self.camera
+        alpha_any = any(m.get("alphaMode", "OPAQUE") != "OPAQUE" for m in model.materials)
         return RenderConfig(
             width=self.width,
             height=self.height,
@@ -479,7 +488,7 @@ class GltfRenderer:
             features=frozenset(feats),
             env_kind=self.env_kind,
             has_lights=len(self.scene.render_lights) > 0,
-            alpha_any=any(m.get("alphaMode", "OPAQUE") != "OPAQUE" for m in model.materials),
+            alpha_any=alpha_any,
             firefly_clamp=self.firefly_clamp,
             orthographic=bool(cam and cam.orthographic),
             aperture=self.aperture,
@@ -496,9 +505,16 @@ class GltfRenderer:
             traversal=os.environ.get("VKGR_TRAVERSAL", "packet"),
             primary_kernel=os.environ.get("VKGR_PRIMARY_KERNEL", "v3"),
             packet_kernel=os.environ.get("VKGR_PACKET_KERNEL", "v9"),
+            # previous-frame hit seeding, off for alpha scenes (a seeded hit would skip the
+            # stochastic alpha test), and the batched spp launch (reference renderer.py:513-515)
+            primary_seed=os.environ.get("VKGR_PRIMARY_SEED", "0") != "0" and not alpha_any,
+            spp_batch=os.environ.get("VKGR_SPP_BATCH", "0") != "0",
         )
 
-    def _frame_inputs(self) -> dict:
+    def _frame_inputs(self, cfg: RenderConfig | None = None) -> dict:
+        """The frame dict of render_frame_flat; with cfg.primary_seed it also
+        carries the last frame's first hits (a shard's caller passes no cfg:
+        shards are not seeded)."""
         cam = self.camera
         view = mu.look_at(cam.eye, cam.center, cam.up)
         if cam.orthographic:
@@ -528,6 +544,14 @@ class GltfRenderer:
             cur = self._rn_o2w()
             prev = self._prev_rn_o2w
             out["prev_rn_o2w"] = cur if prev is None or prev.shape != cur.shape else prev
+        if cfg is not None and cfg.primary_seed:
+            # the last frame's per-pixel first hit; -1 (no seed) at first and after the pixel count
+            # changed. A stale seed after an edit is re-verified in the frame.
+            n = self.width * self.height
+            pf = self._prev_first
+            if pf is None or pf[0].shape[0] != n:
+                pf = tuple(torch.full((n,), -1, dtype=torch.int32, device=self.device) for _ in range(2))
+            out["prev_first_rnode"], out["prev_first_tri"] = pf
         return out
 
     def _rn_o2w(self) -> torch.Tensor:
@@ -576,7 +600,7 @@ class GltfRenderer:
         cfg = self._config()
         cfg.check_supported()
         self._sync_kernel_tables(cfg)
-        frame = self._frame_inputs()
+        frame = self._frame_inputs(cfg)
         if self.adaptive is not None:
             synchronize(self.device)  # the frame's time starts with nothing else queued
         t0 = time.perf_counter()
@@ -590,6 +614,8 @@ class GltfRenderer:
         self.total_samples += self.spp
         self.frame_idx += 1
         self._last_aux = aux
+        if "first_tri" in aux:
+            self._prev_first = (aux["first_rnode"], aux["first_tri"])
         if self.upscale > 1:
             # TAAU accumulates at display resolution: each frame's accum is that frame alone
             self.total_samples = 0
@@ -681,8 +707,8 @@ class GltfRenderer:
         return rid
 
     def save_image(self, path) -> None:
-        """Write an 8-bit RGB image by path's suffix (utils/image_io: PNG or
-        JPEG): the tonemapped TAAU image under upscale, else the tonemapped
+        """Write an 8-bit RGB image by path's suffix (utils/image_io: PNG,
+        JPEG or lossless WebP): the tonemapped TAAU image under upscale, else the tonemapped
         image with the selection outlined."""
         if self.upscale > 1 and self._history_hi is not None:
             img = tonemap(self._history_hi[..., :3], self.tonemapper, self.exposure).cpu().numpy()

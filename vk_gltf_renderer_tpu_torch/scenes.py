@@ -469,6 +469,29 @@ def make_masked_quads(out_dir, alpha_mode="MASK", cutoff=0.5) -> str:
                        images=[encode_png(tex)])
 
 
+
+def make_sliver_soup(out_dir, n=1500, seed=7) -> str:
+    """n long thin triangles in a 10-unit cube (tests/test_bvh.py's
+    spatial-split scene): one edge of 4 to 8 units along a random axis and
+    one of at most 0.2, so the object-split children overlap and
+    VKGR_BVH=sbvh duplicates references. One mesh, one grey material.
+    Writes sliver_soup.gltf (+ .bin) into out_dir and returns its path."""
+    rng = np.random.RandomState(seed)
+    v0 = rng.rand(n, 3) * 10
+    e_long = np.zeros((n, 3))
+    e_long[np.arange(n), rng.randint(0, 3, n)] = 4.0 + rng.rand(n) * 4.0
+    e_small = rng.rand(n, 3) * 0.2
+    positions = np.stack([v0, v0 + e_long, v0 + e_small], axis=1).reshape(-1, 3).astype(np.float32)
+    gltf = {
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorFactor": [0.7, 0.7, 0.7, 1.0],
+                                                "metallicFactor": 0.0, "roughnessFactor": 0.6}}],
+    }
+    return _write_gltf(out_dir, "sliver_soup", gltf, [(positions, 5126, "VEC3")])
+
 FOLIAGE_ATLAS = 256  # the leaf atlas' side, texels: four 128-texel quadrants
 FOLIAGE_RAMP = 8  # texels over which the leaf's alpha falls from 1 to 0 at its edge
 # quadrant -> (u0, v0) of its corner in the atlas, and its share of the cards
@@ -849,7 +872,8 @@ def ktx2_astc(blocks: bytes, w, h, uastc=False) -> bytes:
 
 
 # glTF texture extension of each container's images
-_TEXTURE_EXTENSION = {".dds": "MSFT_texture_dds", ".ktx2": "KHR_texture_basisu"}
+_TEXTURE_EXTENSION = {".dds": "MSFT_texture_dds", ".ktx2": "KHR_texture_basisu",
+                      ".webp": "EXT_texture_webp"}
 
 
 def helmet_with_texture(out_dir, data: bytes, filename: str) -> str:
@@ -859,7 +883,8 @@ def helmet_with_texture(out_dir, data: bytes, filename: str) -> str:
     plate (in make_helmet_standin both keep the default materials
     add_primitive gave them, as the reference's generator does, so its
     texture is never sampled). A .dds or .ktx2 image is named through
-    MSFT_texture_dds or KHR_texture_basisu, as such assets name theirs.
+    MSFT_texture_dds or KHR_texture_basisu and a .webp image through
+    EXT_texture_webp, as such assets name theirs.
     Returns the path of helmet_<stem>.gltf."""
     base = os.path.join(out_dir, "helmet.gltf")
     if not os.path.exists(base):

@@ -28,7 +28,7 @@ def rmse(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def load_image(path) -> np.ndarray:
-    """A PNG or JPEG as RGB float32 in [0, 1]: gray repeated over three
+    """A PNG, JPEG or WebP as RGB float32 in [0, 1]: gray repeated over three
     channels, alpha dropped (Pillow's convert("RGB"))."""
     img = read_image(Path(path).read_bytes())
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3, axis=-1)
