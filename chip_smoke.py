@@ -338,6 +338,22 @@ Phases (each raises on failure; nothing is caught):
      card against CPU); headless --output x.webp at 1080p read back equal
      to the x.png output. `[sbvh]`, `[seed]`, `[batch]`,
      `[webp]` lines, then [time] lines.
+ 22. Pillow's other formats (image I/O without Pillow, no kernel of its
+     own): (a) every committed fixture of tests/data/images (BMP/DIB, TGA,
+     GIF, TIFF, Netpbm and the arithmetic, lossless and CMYK/YCCK JPEGs)
+     decoded on the host, equal to the digest of Pillow's decode in
+     digests.json, refused where Pillow refuses it, and the TIFFs Pillow
+     reads only through libtiff's other codecs refused; a 2048x2048 map of
+     each format made here (the port's writers; RLE, Deflate, PackBits and
+     literal-code LZW forms assembled with numpy) decoded, host seconds
+     each; (b) the helmet at 1080p with a 512x512, 256-colour base colour
+     as PNG and as BMP, TGA, TIFF (LZW), GIF and PPM: each frame equal to
+     the PNG frame bit for bit, its ms and its traverse_bvh4 and
+     gather_channels launches; (c) headless --output in every new suffix
+     at 1080p, read back by the port equal to the PNG output (the GIF, of
+     more than 256 colours, within its median cut: the share of pixels
+     that differ and the largest channel error). `[formats]` lines, then
+     [time] lines.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -3950,6 +3966,275 @@ def phase_sbvh_seed_batch_webp(device, tmp, hdr, smi):
     return out
 
 
+IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
+MAP_SIDE = 2048  # phase 22a: the side of each format's timed map
+FORMATS_TEX = 512  # phase 22b: the side of the base colour
+
+
+def _tiff_strips(w, h, bps, photometric, strips, rows, compression):
+    """A little-endian TIFF of the given compressed strips (phase 22a): the
+    IFD at offset 8, the out-of-line tag values after it, then the strips."""
+    import struct
+
+    offsets = [0] * len(strips)
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, list(bps)), (259, 3, [compression]), (262, 3, [photometric]),
+            (273, 4, offsets), (277, 3, [len(bps)]), (278, 4, [rows]), (279, 4, [len(s) for s in strips])]
+
+    def pack(typ, v):
+        return struct.pack(f"<{len(v)}{'H' if typ == 3 else 'I'}", *v)
+
+    at = 8 + 2 + 12 * len(tags) + 4
+    data_at = at + sum(len(pack(typ, v)) for _, typ, v in tags if len(pack(typ, v)) > 4)
+    for i, st in enumerate(strips):
+        offsets[i] = data_at
+        data_at += len(st)
+    entries, tail = b"", b""
+    for t, typ, v in tags:
+        b = pack(typ, v)
+        if len(b) > 4:
+            entries += struct.pack("<HHII", t, typ, len(v), at + len(tail))
+            tail += b
+        else:
+            entries += struct.pack("<HHI", t, typ, len(v)) + b.ljust(4, b"\0")
+    return b"II*\0" + struct.pack("<IH", 8, len(tags)) + entries + b"\0\0\0\0" + tail + b"".join(strips)
+
+
+def _literal_lzw(data: np.ndarray) -> bytes:
+    """TIFF LZW of bytes as 9-bit literal codes only, a clear code every
+    253 literals (the table never widens): the decoder's slowest input per
+    byte."""
+    n = len(data)
+    groups = -(-n // 253)
+    codes = np.full(groups * 254 + 1, 256, np.int64)
+    body = codes[:-1].reshape(groups, 254)
+    lit = np.full(groups * 253, -1, np.int64)
+    lit[:n] = data
+    body[:, 1:] = lit.reshape(groups, 253)
+    codes = codes[codes >= 0]
+    codes[-1] = 257
+    bits = ((codes[:, None] >> np.arange(8, -1, -1)) & 1).astype(np.uint8).reshape(-1)
+    return np.packbits(bits).tobytes()
+
+
+def _literal_packbits(data: np.ndarray) -> bytes:
+    """PackBits of bytes as literal packets of 128 (and one short one)."""
+    n = len(data)
+    full = n // 128
+    out = np.empty((full, 129), np.uint8)
+    out[:, 0] = 127
+    out[:, 1:] = data[: full * 128].reshape(full, 128)
+    rest = data[full * 128:]
+    return out.tobytes() + (bytes([len(rest) - 1]) + rest.tobytes() if len(rest) else b"")
+
+
+def _format_maps(img):
+    """{format: 2048^2 file bytes} for phase 22a, img [n, n, 3] uint8 of at most 256 colours."""
+    import struct
+    import zlib
+
+    from vk_gltf_renderer_tpu_torch.ops import bmp, gif, netpbm, tga, tiff
+
+    n = img.shape[0]
+    gray = img[..., 1].copy()
+    out = {"bmp_rgb24": bmp.encode_bmp(img), "tga_rgb24": tga.encode_tga(img), "tiff_raw": tiff.encode_tiff(img),
+           "gif": gif.encode_gif(img), "ppm_p6": netpbm.encode_netpbm(img),
+           "pgm_16bit": b"P5\n%d %d\n65535\n" % (n, n) + (gray.astype(">u2") * 257).tobytes()}
+    # RLE8: runs of up to 255 pixels of a banded gray image, EOL after each row, EOB
+    bands = (np.arange(n) // 64 * 37 % 251).astype(np.uint8)
+    runs = []
+    for row in range(n):
+        v = bands[(np.arange(n // 256) + row // 64) % len(bands)]
+        rec = np.empty((n // 256, 4), np.uint8)
+        rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3] = 255, v, 1, v
+        runs.append(rec.tobytes() + b"\0\0")
+    pal = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+    pal[:, 3] = 0
+    rle = b"".join(runs) + b"\0\1"
+    off = 14 + 40 + 1024
+    out["bmp_rle8"] = (b"BM" + struct.pack("<IHHI", off + len(rle), 0, 0, off)
+                       + struct.pack("<IiiHHIIiiII", 40, n, n, 1, 8, 1, len(rle), 0, 0, 256, 0) + pal.tobytes() + rle)
+    # TGA RLE: run packets of 128 pixels along each row
+    px = img[::-1, :, ::-1].reshape(n, n // 128, 128, 3)[:, :, 0]
+    packets = np.concatenate([np.full((n, n // 128, 1), 0xFF, np.uint8), px], axis=-1)
+    out["tga_rle"] = struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, n, n, 24, 0) + packets.tobytes()
+    rows = 64
+    strips = [np.ascontiguousarray(img[y:y + rows]).reshape(-1) for y in range(0, n, rows)]
+    out["tiff_deflate"] = _tiff_strips(n, n, (8, 8, 8), 2, [zlib.compress(s.tobytes(), 6) for s in strips], rows, 8)
+    out["tiff_packbits"] = _tiff_strips(n, n, (8, 8, 8), 2, [_literal_packbits(s) for s in strips], rows, 32773)
+    out["tiff_lzw"] = _tiff_strips(n, n, (8, 8, 8), 2, [_literal_lzw(s) for s in strips], rows, 5)
+    return out
+
+
+def _formats_fixtures():
+    """Phase 22a's fixtures: every committed file against Pillow's digests."""
+    import hashlib
+
+    from vk_gltf_renderer_tpu_torch.native import image_lib, jpeg_lib
+    from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec
+    from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
+
+    image_lib(), jpeg_lib()  # built (or found) before the clock starts
+    digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
+    counts = {"decoded": 0, "refused": 0, "libtiff_only": 0}
+    host_ms = {}
+    for name, entry in sorted(digests["files"].items()):
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        t0 = time.perf_counter()
+        try:
+            img = read_image(data)
+        except ValueError as e:
+            require("refused" in entry, f"[formats] {name}: refused ({e!r}) where Pillow decodes it")
+            counts["refused"] += 1
+            continue
+        host_ms[name] = 1e3 * (time.perf_counter() - t0)
+        require("refused" not in entry, f"[formats] {name}: decoded where Pillow refuses it")
+        if img.shape[2] == 1:
+            img = np.concatenate([img] * 3 + [np.full_like(img, 255)], axis=-1)
+        elif img.shape[2] == 3:
+            img = np.concatenate([img, np.full_like(img[..., :1], 255)], axis=-1)
+        img = np.ascontiguousarray(img)
+        require(list(img.shape) == entry["shape"] and hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"],
+                f"[formats] {name}: the decode differs from Pillow's digest")
+        counts["decoded"] += 1
+    for name in sorted(digests["libtiff_only"]):
+        try:
+            read_image((IMAGE_FIXTURES / name).read_bytes())
+            require(False, f"[formats] {name}: a libtiff-only TIFF decoded")
+        except UnsupportedCodec:
+            counts["libtiff_only"] += 1
+    log(f"[formats] (a) {counts['decoded']} fixtures equal to Pillow's digests, {counts['refused']} refused as "
+        f"Pillow refuses them, {counts['libtiff_only']} libtiff-only TIFFs refused (Pillow decodes them: "
+        f"ROADMAP C); host ms the slowest {max(host_ms.values()):.2f} ({max(host_ms, key=host_ms.get)})")
+    return dict(counts=counts, host_ms=host_ms)
+
+
+def _formats_maps():
+    """Phase 22a's 2048^2 maps: host seconds of each format's decode (the
+    coder libraries built by _formats_fixtures)."""
+    from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
+
+    base = tscenes.texture_image(MAP_SIDE, seed=7)[..., :3]
+    img = (base // 43 * 43).astype(np.uint8)  # at most 216 colours, so that the GIF is lossless
+    maps = _format_maps(img)
+    out = {}
+    for name, data in maps.items():
+        t0 = time.perf_counter()
+        dec = read_image(data)
+        secs = time.perf_counter() - t0
+        require(dec.shape[:2] == (MAP_SIDE, MAP_SIDE), f"[formats] {name}: a {dec.shape} decode")
+        if name in ("bmp_rgb24", "tga_rgb24", "tiff_raw", "gif", "ppm_p6", "tiff_deflate", "tiff_packbits",
+                    "tiff_lzw"):
+            require(np.array_equal(dec[..., :3], img), f"[formats] {name}: the 2048^2 map does not read back")
+        out[name] = dict(bytes=len(data), host_s=secs)
+        log(f"[formats] (a) {name} {MAP_SIDE}x{MAP_SIDE}, {len(data)} bytes: host decode {secs:.3f} s")
+    return out
+
+
+def _formats_frames(device, tmp, hdr, smi):
+    """Phase 22b: the helmet with its base colour in each lossless new format."""
+    from vk_gltf_renderer_tpu_torch.ops import bmp, gif, netpbm, tga
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+
+    img = (tscenes.texture_image(FORMATS_TEX, seed=3)[..., :3] // 43 * 43).astype(np.uint8)
+    strips = [np.ascontiguousarray(img[y:y + 32]).reshape(-1) for y in range(0, FORMATS_TEX, 32)]
+    files = {"png": (encode_png(img), "base.png"), "bmp": (bmp.encode_bmp(img), "base.bmp"),
+             "tga": (tga.encode_tga(img), "base.tga"),
+             "tiff_lzw": (_tiff_strips(FORMATS_TEX, FORMATS_TEX, (8, 8, 8), 2, [_literal_lzw(s) for s in strips], 32,
+                                       5), "base.tif"),
+             "gif": (gif.encode_gif(img), "base.gif"), "ppm": (netpbm.encode_netpbm(img), "base.ppm")}
+    d = os.path.join(tmp, "formats22")
+    os.makedirs(d, exist_ok=True)
+    frames, first_png = {}, None
+    for kind, (data, name) in files.items():
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(tscenes.helmet_with_texture(d, data, name))
+        r.create_hdr(hdr)
+        require(r.dev_scene.tex_desc[0, 1:3].tolist() == [FORMATS_TEX, FORMATS_TEX],
+                f"[formats] {kind}: the base colour did not decode")
+        tb4.COUNTER.launches = 0
+        tgather.COUNTER.launches = 0
+        times, _, first = _render_frames(r, 0, 1)
+        launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+        if kind == "png":
+            first_png = first
+        else:
+            require(all(np.array_equal(a, b) for a, b in zip(first, first_png)),
+                    f"[formats] the {kind} frame differs from the PNG frame")
+        frames[kind] = dict(ms=1e3 * times[0], launches=launches)
+        log(f"[formats] (b) helmet {FRAME_W}x{FRAME_H} with a {kind} base colour: {1e3 * times[0]:.2f} ms, "
+            f"traverse_bvh4 {launches['traverse_bvh4']} and gather_channels {launches['gather_channels']} "
+            f"launches" + ("" if kind == "png" else "; equal to the PNG frame bit for bit") + f"; on {smi}")
+        del r
+    return frames
+
+
+def _formats_headless(device, tmp, hdr, smi):
+    """Phase 22c: headless --output in every new suffix, read back."""
+    import io
+    from contextlib import redirect_stdout
+
+    from vk_gltf_renderer_tpu_torch import headless
+    from vk_gltf_renderer_tpu_torch.utils.image_io import WRITABLE, read_image
+
+    os.environ["VKGR_SETTINGS"] = os.path.join(tmp, "settings22.json")
+    outs = {}
+    for suffix in [".png"] + [s for s in WRITABLE if s not in (".png", ".jpg", ".jpeg", ".webp")]:
+        path = os.path.join(tmp, "headless22" + suffix)
+        with redirect_stdout(io.StringIO()):
+            rc = headless.main(["--headless", "--scenefile", os.path.join(tmp, "helmet.gltf"), "--hdrfile", hdr,
+                                "--envSystem", "1", "--size", str(FRAME_W), str(FRAME_H), "--frames", "1",
+                                "--output", path, "--device", str(device)])
+        require(rc == 0, f"headless --output {path}: rc {rc}")
+        with open(path, "rb") as f:
+            outs[suffix] = f.read()
+    png = read_image(outs[".png"])[..., :3].astype(np.int32)
+    res = {}
+    for suffix, data in outs.items():
+        if suffix == ".png":
+            continue
+        got = read_image(data)
+        rgb = (np.repeat(got, 3, axis=-1) if got.shape[2] == 1 else got[..., :3]).astype(np.int32)
+        require(rgb.shape == png.shape, f"[formats] headless {suffix}: shape {rgb.shape}")
+        err = np.abs(rgb - png)
+        if suffix == ".gif":
+            share, worst = float((err > 0).any(-1).mean()), int(err.max())
+            # a sanity bound (a wrong palette or index order errs by tens on average): the measured share and
+            # error go into the JSON line
+            require(worst < 128 and float(err.mean()) < 8.0,
+                    f"[formats] headless .gif: the median cut strays (largest channel error {worst}, mean "
+                    f"{float(err.mean()):.2f})")
+            res[suffix] = dict(bytes=len(data), differing_share=share, max_channel_err=worst,
+                               mean_abs_err=float(err.mean()))
+            log(f"[formats] (c) headless --output x.gif at {FRAME_W}x{FRAME_H}: {len(data)} bytes, "
+                f"{100 * share:.2f}% of pixels differ from the PNG output, largest channel error {worst}, mean "
+                f"{float(err.mean()):.3f} (the median cut of {len(np.unique(png.reshape(-1, 3), axis=0))} colours)")
+        else:
+            require(not err.any(), f"[formats] headless {suffix} differs from the PNG output")
+            res[suffix] = dict(bytes=len(data))
+    log(f"[formats] (c) headless --output at {FRAME_W}x{FRAME_H} in "
+        f"{', '.join(s for s in res if s != '.gif')}: each read back equal to the PNG output; on {smi}")
+    return res
+
+
+def phase_pillow_formats(device, tmp, hdr, smi):
+    """Phase 22: Pillow's other formats (the module docstring)."""
+    t_phase = time.perf_counter()
+    out = {"fixtures": _formats_fixtures()}
+    out["maps"] = _formats_maps()
+    log(f"[time] phase 22 (a) done at {time.perf_counter() - t_phase:.1f} s into the phase")
+    out["frames"] = _formats_frames(device, tmp, hdr, smi)
+    log(f"[time] phase 22 (b) done at {time.perf_counter() - t_phase:.1f} s into the phase")
+    out["headless"] = _formats_headless(device, tmp, hdr, smi)
+    out["launches_per_frame"] = out["frames"]["bmp"]["launches"]
+    require(all(v > 0 for v in out["launches_per_frame"].values()),
+            f"phase 22: a kernel never launched {out['launches_per_frame']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] Pillow's other formats phase {out['seconds']:.1f} s")
+    return out
+
+
 def _entry(name, launches, nums, **extra):
     """One kernel's object in the kernels JSON line."""
     src, replaces, also = SOURCES[name]
@@ -4025,6 +4310,8 @@ def main():
         log(f"[time] textures and devices done at {time.perf_counter() - t_start:.1f} s")
         slice21 = phase_sbvh_seed_batch_webp(device, tmp, hdr, smi)
         log(f"[time] SBVH, seeding, batching and WebP done at {time.perf_counter() - t_start:.1f} s")
+        slice22 = phase_pillow_formats(device, tmp, hdr, smi)
+        log(f"[time] Pillow's other formats done at {time.perf_counter() - t_start:.1f} s")
     probes = phase_probes(device)
     log(f"[time] probes done at {time.perf_counter() - t_start:.1f} s")
     probes.update(phase_stream_uarch(device))
@@ -4128,6 +4415,8 @@ def main():
             e["sbvh_seed_batch_launches"] = {k: v[e["name"]] for k, v in slice21["launches"].items()}
         if e["name"] in slice21["sbvh"]["soup"]["kernels"]:
             e["sbvh_soup"] = slice21["sbvh"]["soup"]["kernels"][e["name"]]
+        if e["name"] in ("traverse_bvh4", "gather_channels"):  # phase 22b: a frame of each base-colour format
+            e["formats_launches_per_frame"] = {k: v["launches"][e["name"]] for k, v in slice22["frames"].items()}
     terrain = {f"{p},{q}": {"ms_per_frame": frames[(p, q)]["ms"], "mrays_per_s": frames[(p, q)]["mrays"]}
                for p, q in SELECTIONS}
     log(f"[time] total {time.perf_counter() - t_start:.1f} s")
@@ -4149,7 +4438,8 @@ def main():
                       "foliage_kernels": alpha["kernels"],
                       "viewer": {k: v for k, v in viewer.items() if k != "launches_per_frame"},
                       "editor": editor, "textures_devices": textures,
-                      "sbvh_seed_batch_webp": {k: v for k, v in slice21.items() if k != "launches"}}))
+                      "sbvh_seed_batch_webp": {k: v for k, v in slice21.items() if k != "launches"},
+                      "pillow_formats": {k: v for k, v in slice22.items() if k != "launches_per_frame"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

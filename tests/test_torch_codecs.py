@@ -10,7 +10,11 @@
   Pillow (libjpeg-turbo): every sample within 1/255 and at least 99% of
   samples equal, in every mode listed in JPEG_CASES (Pillow-made files, and
   the port's writer's 4:4:0 and progressive files, which Pillow cannot
-  write). The port's writer's files decode in Pillow as in the port, and
+  write). The forms Pillow decodes beyond Huffman DCT (arithmetic coding,
+  8-bit lossless, CMYK and YCCK, made by tests/torch_test_helpers.py's
+  encoders) decode bit for bit as the JAX package decodes them; the forms
+  it refuses (12-bit, hierarchical, lossless arithmetic, lossless YCbCr)
+  are white in both packages. The port's writer's files decode in Pillow as in the port, and
   its quality-75 file keeps the PSNR of Pillow's own quality-75 save
   within 0.5 dB.
 - A glTF whose base colour is JPEG, DDS or KTX2 BasisLZ renders 48x32
@@ -20,8 +24,8 @@
   white 1x1 texture in both packages' build_texture_pool, and the scene
   loads; a JPEG coder that does not load fails the scene load; WebP decodes
   as Pillow does (tests/test_torch_webp.py has the rest), renders as the
-  JAX renderer does and loads white when truncated; BMP raises
-  NotImplementedError naming ROADMAP A12.
+  JAX renderer does and loads white when truncated; BMP decodes as Pillow
+  decodes it (tests/test_torch_images.py has Pillow's other formats).
 
 Pillow is only a reference here: the port never imports it."""
 
@@ -55,6 +59,7 @@ from vk_gltf_renderer_tpu_torch.ops import jpeg  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import textures as ttextures  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import webp  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
+from torch_test_helpers import cmyk_to_ycck, jpeg_from_planes, jpeg_lossless  # noqa: E402
 from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
 
 share_native_builder()
@@ -291,35 +296,122 @@ def test_jpeg_writer_quality_matches_pillow(seed):
         assert segs["port"][marker] == segs["pillow"][marker], hex(marker)
 
 
-def test_jpeg_refuses_what_it_does_not_decode():
-    base = _pillow_jpeg(_photo(16, 16))
-    i = base.index(b"\xff\xc0")
-    for sof in (0xC3, 0xC9, 0xCA, 0xCB):  # lossless, arithmetic
-        with pytest.raises(tdds.UnsupportedCodec):
-            jpeg.decode_jpeg(base[:i] + bytes([0xFF, sof]) + base[i + 2:])
-    twelve = bytearray(base)
-    twelve[i + 4] = 12  # 12-bit samples
-    with pytest.raises(tdds.UnsupportedCodec):
-        jpeg.decode_jpeg(bytes(twelve))
-    cmyk = io.BytesIO()
-    PIL_Image.fromarray(np.zeros((8, 8, 4), np.uint8), "CMYK").save(cmyk, "JPEG")
-    with pytest.raises(tdds.UnsupportedCodec):
-        jpeg.decode_jpeg(cmyk.getvalue())
+def _cmyk(h, w, seed):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8)
+
+
+def _ycc_planes(img):
+    return [p.astype(np.uint8) for p in jpeg._rgb_to_ycc(img)]
+
+
+# forms libjpeg-turbo (through Pillow) decodes and the port decodes as well: arithmetic coding (the QM coder,
+# DAC conditioning, restarts, progressive refinement), 8-bit lossless (every predictor, point transforms,
+# restarts) and four-component Adobe files (CMYK, YCCK)
+PILLOW_DECODES = {
+    "arith_baseline_420": lambda: jpeg_from_planes(_ycc_planes(_photo(37, 45)), samp=[(2, 2), (1, 1), (1, 1)],
+                                                   arith=True),
+    "arith_422_dac_restart": lambda: jpeg_from_planes(
+        _ycc_planes(_photo(37, 45, 1)), samp=[(2, 1), (1, 1), (1, 1)], arith=True, restart=3,
+        dac={(0, 0): 0x52, (1, 0): 12, (0, 1): 0x20, (1, 1): 2}),
+    "arith_progressive_420": lambda: jpeg_from_planes(_ycc_planes(_photo(37, 45, 2)),
+                                                      samp=[(2, 2), (1, 1), (1, 1)], arith=True, progressive=True),
+    "arith_progressive_restart": lambda: jpeg_from_planes(_ycc_planes(_photo(21, 30, 3)), arith=True,
+                                                          progressive=True, restart=2),
+    "arith_gray": lambda: jpeg_from_planes([_photo(33, 17, 4, gray=True)], arith=True, quality=95),
+    **{f"lossless_gray_predictor{p}": (lambda p=p: jpeg_lossless([_photo(13, 19, 5, gray=True)], predictor=p))
+       for p in range(1, 8)},
+    "lossless_rgb_restart": lambda: jpeg_lossless(list(_photo(17, 15, 6).transpose(2, 0, 1)), predictor=6,
+                                                  restart_rows=4),
+    "lossless_rgb_adobe0": lambda: jpeg_lossless(list(_photo(9, 11, 7).transpose(2, 0, 1)), adobe=0),
+    "lossless_gray_pt3": lambda: jpeg_lossless([_photo(11, 9, 8, gray=True)], predictor=5, pt=3),
+    "lossless_cmyk": lambda: jpeg_lossless(list(_cmyk(9, 7, 9).transpose(2, 0, 1)), predictor=2),
+    "cmyk_pillow": lambda: _pillow_cmyk(_cmyk(23, 29, 10)),
+    "cmyk_no_adobe": lambda: jpeg_from_planes(list(_cmyk(23, 29, 11).transpose(2, 0, 1)), jfif=False),
+    "ycck_adobe2_420": lambda: jpeg_from_planes(cmyk_to_ycck(_cmyk(23, 29, 12)),
+                                                samp=[(2, 2), (1, 1), (1, 1), (2, 2)], adobe=2, jfif=False),
+    "ycck_adobe1": lambda: jpeg_from_planes(cmyk_to_ycck(_cmyk(16, 16, 13)), adobe=1, jfif=False),
+    "ycck_arith": lambda: jpeg_from_planes(cmyk_to_ycck(_cmyk(23, 29, 14)), adobe=2, jfif=False, arith=True),
+}
+
+
+def _pillow_cmyk(cmyk):
+    b = io.BytesIO()
+    PIL_Image.fromarray(cmyk, "CMYK").save(b, "JPEG", quality=85)
+    return b.getvalue()
+
+
+@pytest.mark.parametrize("case", sorted(PILLOW_DECODES))
+def test_jpeg_decodes_what_pillow_decodes(case):
+    """Each form decodes in the port bit for bit as the JAX package's
+    decode_image (Pillow) decodes it; Pillow is asked first, so that a form
+    it refused would fail here rather than pass as a shared refusal."""
+    data = PILLOW_DECODES[case]()
+    PIL_Image.open(io.BytesIO(data)).convert("RGBA")  # Pillow decodes it
+    model = _model(data)
+    ref = np.asarray(jtextures.decode_image(model, {"bufferView": 0}))
+    assert np.array_equal(ttextures.decode_image(model, {"bufferView": 0}), ref)
+
+
+def _with_sof(data, marker):
+    i = data.index(b"\xff\xc3") if b"\xff\xc3" in data else data.index(b"\xff\xc0")
+    return data[:i] + bytes([0xFF, marker]) + data[i + 2:]
+
+
+def _twelve_bit():
+    twelve = bytearray(_pillow_jpeg(_photo(16, 16)))
+    twelve[twelve.index(b"\xff\xc0") + 4] = 12
+    return bytes(twelve)
+
+
+def _two_components():
+    data = bytearray(jpeg_from_planes(_ycc_planes(_photo(16, 16))[:2], jfif=False))
+    return bytes(data)
+
+
+# forms Pillow refuses (libjpeg-turbo's errors, or Pillow's own SOF checks): both packages give white
+PILLOW_REFUSES = {
+    "twelve_bit": _twelve_bit,
+    "two_components": _two_components,
+    "lossless_arithmetic_sof11": lambda: _with_sof(jpeg_lossless([_photo(8, 8, gray=True)]), 0xCB),
+    **{f"hierarchical_sof{m - 0xC0}": (lambda m=m: _with_sof(_pillow_jpeg(_photo(16, 16)), m))
+       for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)},
+    "lossless_jfif_ycbcr": lambda: jpeg_lossless(list(_photo(9, 11).transpose(2, 0, 1)), jfif=True),
+    "lossless_adobe1_ycbcr": lambda: jpeg_lossless(list(_photo(9, 11).transpose(2, 0, 1)), adobe=1),
+    "lossless_ycck": lambda: jpeg_lossless(list(_cmyk(9, 7, 1).transpose(2, 0, 1)), adobe=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PILLOW_REFUSES))
+def test_jpeg_refuses_what_it_does_not_decode(case, tmp_path):
+    """Pillow raises for each form, the port raises ValueError (so its
+    texture pool makes it white), and both packages' pools give 1x1 white."""
+    data = PILLOW_REFUSES[case]()
+    with pytest.raises(Exception):  # noqa: B017 - whatever Pillow raises, the reference's pool catches
+        PIL_Image.open(io.BytesIO(data)).convert("RGBA")
+    with pytest.raises(ValueError):
+        jpeg.decode_jpeg(data)
+    path = scenes.helmet_with_texture(str(tmp_path), data, "tex.jpg")
+    for Scene, build in ((JScene, jtextures.build_texture_pool), (TScene, ttextures.build_texture_pool)):
+        sc = Scene()
+        sc.load(path)
+        quads, desc, _, num_mips = build(sc.model)
+        assert np.asarray(desc).tolist() == [[0, 1, 1, 0]] and np.asarray(num_mips).tolist() == [1]
+        assert np.array_equal(np.asarray(quads), np.ones((1, 16), np.float32))
 
 
 def test_webp_raises_naming_a12():
     """WebP decodes as the JAX package's decode_image (Pillow) does, bit for
-    bit (tests/test_torch_webp.py covers every form); Pillow's other
-    formats, such as BMP, still raise NotImplementedError naming A12."""
+    bit (tests/test_torch_webp.py covers every form); BMP, once a format
+    that raised NotImplementedError naming A12, decodes as Pillow decodes
+    it too (tests/test_torch_images.py covers Pillow's other formats)."""
     webp = io.BytesIO()
     PIL_Image.fromarray(scenes.texture_image(8, seed=4)[..., :3]).save(webp, "WEBP")
-    model = _model(webp.getvalue())
-    assert np.array_equal(ttextures.decode_image(model, {"bufferView": 0}),
-                          np.asarray(jtextures.decode_image(model, {"bufferView": 0})))
     bmp = io.BytesIO()
-    PIL_Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(bmp, "BMP")
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttextures.decode_image(_model(bmp.getvalue()), {"bufferView": 0})
+    PIL_Image.fromarray(scenes.texture_image(8, seed=5)[..., :3]).save(bmp, "BMP")
+    for data in (webp.getvalue(), bmp.getvalue()):
+        model = _model(data)
+        assert np.array_equal(ttextures.decode_image(model, {"bufferView": 0}),
+                              np.asarray(jtextures.decode_image(model, {"bufferView": 0})))
 
 
 # ------------------------------------------------------------ truncated files, whole frames

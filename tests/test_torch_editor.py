@@ -335,8 +335,9 @@ def test_visual_validator_reads_pillow_pngs_as_rgb(mode, tmp_path):
 
 def test_visual_validator_refuses_a_non_png(tmp_path):
     """A Pillow JPEG, refused before the port decoded JPEG, now reads as
-    the reference's load_image reads it (within 1/255); a file that is
-    neither PNG nor JPEG is still refused."""
+    the reference's load_image reads it (within 1/255), and so does a BMP
+    (exactly), refused before Pillow's other formats were ported; data
+    that no reader claims is still refused."""
     rng = np.random.default_rng(5)
     p = tmp_path / "x.jpg"
     Image.fromarray(rng.integers(0, 256, (19, 27, 3), dtype=np.uint8)).save(p)
@@ -344,9 +345,12 @@ def test_visual_validator_refuses_a_non_png(tmp_path):
     assert port.shape == ref.shape == (19, 27, 3)
     assert np.abs(port - ref).max() <= 1 / 255 + 1e-7
     q = tmp_path / "x.bmp"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(q)
-    with pytest.raises(ValueError, match="not a PNG"):
-        tvv.load_image(q)
+    Image.fromarray(rng.integers(0, 256, (4, 5, 3), dtype=np.uint8)).save(q)
+    assert np.array_equal(tvv.load_image(q), jvv.load_image(q))
+    z = tmp_path / "x.xyz"
+    z.write_bytes(b"neither PNG nor JPEG nor anything else\n")
+    with pytest.raises(ValueError, match="cannot identify"):
+        tvv.load_image(z)
 
 
 def _gizmo_log(gz, scene, rays, mode, space):

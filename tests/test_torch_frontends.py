@@ -317,12 +317,14 @@ def test_bench_main_prints_one_json_line(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--output", "out.webp"], ["--output", "out.jpg"]])
 def test_unported_flags_raise(flag, tmp_path):
-    """--output .bmp (a suffix only Pillow writes) still raises
-    NotImplementedError naming ROADMAP A12, before any scene loads; .webp
-    and .jpg, ported since, write a lossless WebP and a JPEG that the
-    port's decoder reads back (the WebP equal to the PNG output)."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu", "--output", "out.bmp"])
+    """--output with a suffix no writer knows raises ValueError ("unknown
+    file extension", as Pillow's save does) before any scene loads (.bmp,
+    which raised NotImplementedError naming ROADMAP A12 before Pillow's
+    other formats were ported, is written now: tests/test_torch_images.py);
+    .webp and .jpg write a lossless WebP and a JPEG that the port's decoder
+    reads back (the WebP equal to the PNG output)."""
+    with pytest.raises(ValueError, match="unknown file extension"):
+        headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu", "--output", "out.xyz"])
     if flag[1].endswith(".webp"):
         from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
 

@@ -1,0 +1,404 @@
+"""The port's BMP, TGA, GIF, TIFF and Netpbm codecs (ops/bmp.py, ops/tga.py,
+ops/gif.py, ops/tiff.py, ops/netpbm.py over native/image_coders.cpp, and
+ops/imagemodes.py) against Pillow 12.1.0 and the JAX package, on the CPU.
+
+- Every committed fixture of tests/data/images decodes in the port's
+  texture decode_image bit for bit as in the JAX package's (which reads
+  through Pillow), and to the digest of Pillow's decode in digests.json;
+  where Pillow refuses a file, both packages refuse it, and both texture
+  pools make it 1x1 white. The TIFF forms Pillow reads only through
+  libtiff's other codecs (CCITT, LZMA, ZSTD) are refused by the port
+  (ROADMAP C).
+- Identification follows Image.open: data that no reader claims, and TGA
+  headers that fail Pillow's checks, are refused by both.
+- Pillow's mode conversions (convert("RGBA") from 1, L, I, I;16, F, P with
+  short palettes and transparency, PA, LA, RGB with transparency, CMYK)
+  equal ops/imagemodes.to_rgba on seeded arrays.
+- write_image writes BMP, DIB, TGA, TIFF and Netpbm byte for byte as
+  Image.fromarray(a).save(path), for every array shape it takes; its GIF
+  decodes to Pillow's GIF's pixels for images of at most 256 colours, and
+  above that holds the median-cut error measured in ROADMAP C; an unknown
+  suffix raises ValueError as Pillow's save does.
+- edit_cli's render to an unknown suffix prints Pillow's error and keeps
+  the shell alive, as the reference's shell does.
+- A glTF whose base colour is BMP, TGA, TIFF, GIF or PPM renders 48x32
+  frames that agree with the JAX renderer's at tests/test_torch_frame.py's
+  thresholds, and headless --output writes each suffix, read back equal to
+  the PNG output.
+- The image coder library that fails to load fails the scene load (no
+  white texel in its place).
+
+Pillow is only a reference here: the port never imports it."""
+
+import hashlib
+import io
+import json
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+PIL_Image = pytest.importorskip("PIL.Image")
+
+from vk_gltf_renderer_tpu.models import Scene as JScene  # noqa: E402
+from vk_gltf_renderer_tpu.ops import textures as jtextures  # noqa: E402
+from vk_gltf_renderer_tpu.renderer import GltfRenderer as JaxRenderer  # noqa: E402
+from vk_gltf_renderer_tpu_torch import headless, native, scenes  # noqa: E402
+from vk_gltf_renderer_tpu_torch.models import Scene as TScene  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops import gif, textures as ttextures  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec  # noqa: E402
+from vk_gltf_renderer_tpu_torch.ops.imagemodes import to_rgba  # noqa: E402
+from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
+from vk_gltf_renderer_tpu_torch.utils.image_io import WRITABLE, read_image, write_image  # noqa: E402
+from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
+
+share_native_builder()
+
+FIXTURES = Path(__file__).resolve().parent / "data" / "images"
+DIGESTS = json.loads((FIXTURES / "digests.json").read_text())
+
+
+@pytest.fixture(autouse=True)
+def _settings_file(tmp_path, monkeypatch):
+    """The front ends read and write one settings file of the test's own."""
+    monkeypatch.setenv("VKGR_SETTINGS", str(tmp_path / "settings.json"))
+
+
+def _model(data):
+    return SimpleNamespace(buffer_views=[{"buffer": 0, "byteOffset": 0, "byteLength": len(data)}],
+                           buffers=[data], base_dir=None)
+
+
+def _pillow_rgba(data):
+    return np.asarray(PIL_Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
+def _rgba(img):
+    """read_image's [H, W, C] as RGBA, as decode_image expands it."""
+    if img.shape[2] == 1:
+        return np.concatenate([img] * 3 + [np.full_like(img, 255)], axis=-1)
+    if img.shape[2] == 3:
+        return np.concatenate([img, np.full_like(img[..., :1], 255)], axis=-1)
+    return img
+
+
+# ------------------------------------------------------------ the committed fixtures
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS["files"]))
+def test_fixture_decodes_as_the_jax_package(name):
+    data = (FIXTURES / name).read_bytes()
+    entry = DIGESTS["files"][name]
+    model = _model(data)
+    if "refused" in entry:
+        with pytest.raises(Exception):  # noqa: B017 - whatever Pillow raises, the reference's pool catches
+            jtextures.decode_image(model, {"bufferView": 0})
+        with pytest.raises(ValueError):
+            ttextures.decode_image(model, {"bufferView": 0})
+        return
+    ref = np.asarray(jtextures.decode_image(model, {"bufferView": 0}))
+    got = ttextures.decode_image(model, {"bufferView": 0})
+    assert got.shape == ref.shape and np.array_equal(got, ref)
+    rgba = np.ascontiguousarray(_rgba(read_image(data)))
+    assert list(rgba.shape) == entry["shape"] and hashlib.sha256(rgba.tobytes()).hexdigest() == entry["sha256"]
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS["libtiff_only"]))
+def test_libtiff_only_tiffs_are_refused(name):
+    """Pillow decodes these through libtiff's other codecs; the port raises
+    UnsupportedCodec, so the texture is white (ROADMAP C)."""
+    data = (FIXTURES / name).read_bytes()
+    assert list(_pillow_rgba(data).shape) == DIGESTS["libtiff_only"][name]["shape"]
+    with pytest.raises(UnsupportedCodec):
+        read_image(data)
+
+
+@pytest.mark.parametrize("fmt", ["bmp", "tga", "gif", "tiff", "ppm"])
+def test_refused_fixtures_load_white_in_both_packages(fmt, tmp_path):
+    for name in sorted(n for n, e in DIGESTS["files"].items() if n.startswith(fmt + "_") and "refused" in e):
+        path = scenes.helmet_with_texture(str(tmp_path), (FIXTURES / name).read_bytes(), name)
+        for Scene, build in ((JScene, jtextures.build_texture_pool), (TScene, ttextures.build_texture_pool)):
+            sc = Scene()
+            sc.load(path)
+            quads, desc, _, num_mips = build(sc.model)
+            assert np.asarray(desc).tolist() == [[0, 1, 1, 0]] and np.asarray(num_mips).tolist() == [1], name
+            assert np.array_equal(np.asarray(quads), np.ones((1, 16), np.float32)), name
+
+
+def _tga_header(itype, depth, cmap_type=0, w=4, h=3, map_depth=24):
+    return bytes([0, cmap_type, itype, 0, 0, 4 if cmap_type else 0, 0, map_depth if cmap_type else 0, 0, 0, 0,
+                  0, w, 0, h, 0, depth, 0])
+
+
+IDENTIFY = {
+    "random": bytes(np.random.default_rng(1).integers(0, 256, 300, dtype=np.uint8)),
+    "empty": b"",
+    "text": b"hello, this is not an image at all\n" * 4,
+    "tga_bad_colormap_type": _tga_header(2, 24, cmap_type=2) + bytes(36),
+    "tga_bad_depth": _tga_header(2, 12) + bytes(36),
+    "tga_unknown_type": _tga_header(5, 24) + bytes(36),
+    "tga_zero_width": _tga_header(2, 24, w=0) + bytes(36),
+    "tga_plain": _tga_header(2, 24) + bytes(range(36)),
+    "tga_type3_depth16": _tga_header(3, 16) + bytes(range(24)),
+    "tga_type1_cmap16": _tga_header(1, 8, cmap_type=1, map_depth=16) + bytes(range(8)) + bytes(12),
+    "dib_header": (40).to_bytes(4, "little") + (2).to_bytes(4, "little") + (2).to_bytes(4, "little")
+                  + (1).to_bytes(2, "little") + (24).to_bytes(2, "little") + bytes(24) + bytes(16),
+    "netpbm_p7": b"P7\n4 4\n",
+    "gif_no_image": b"GIF89a" + bytes([2, 0, 2, 0, 0, 0, 0]) + b";",
+    "tiff_short": b"II*\x00\x08\x00",
+}
+
+
+@pytest.mark.parametrize("case", sorted(IDENTIFY))
+def test_identification_follows_image_open(case):
+    """Data claimed by no reader, or a TGA header that fails Pillow's
+    checks, is refused by both; data that passes decodes alike."""
+    data = IDENTIFY[case]
+    try:
+        ref = _pillow_rgba(data)
+    except Exception:  # noqa: BLE001 - any refusal
+        ref = None
+    if ref is None:
+        with pytest.raises(ValueError):
+            read_image(data)
+    else:
+        assert np.array_equal(_rgba(read_image(data)), ref)
+
+
+# ------------------------------------------------------------ Pillow's modes
+
+
+def _img(mode, arr):
+    return PIL_Image.frombuffer(mode, arr.shape[1::-1], np.ascontiguousarray(arr).tobytes(), "raw", mode, 0, 1)
+
+
+MODE_CASES = ["1", "L", "L_trns", "I", "I;16", "F", "P_short", "P_trns_int", "P_trns_bytes", "PA", "LA",
+              "RGB_trns", "CMYK"]
+
+
+@pytest.mark.parametrize("case", MODE_CASES)
+def test_mode_conversions_match_pillow(case):
+    rng = np.random.default_rng(MODE_CASES.index(case))
+    h, w = 7, 11
+    mode = case.split("_")[0]
+    palette, trns = None, None
+    if mode == "1":
+        px = rng.integers(0, 2, (h, w)).astype(np.uint8) * 255
+        im = PIL_Image.fromarray(px).convert("1")
+    elif mode == "I":
+        px = rng.integers(-300, 70000, (h, w)).astype(np.int32)
+        im = PIL_Image.frombuffer("I", (w, h), px.tobytes(), "raw", "I", 0, 1)
+    elif mode == "I;16":
+        px = rng.integers(0, 65536, (h, w)).astype(np.uint16)
+        im = PIL_Image.frombuffer("I;16", (w, h), px.tobytes(), "raw", "I;16", 0, 1)
+    elif mode == "F":
+        px = (rng.normal(100, 120, (h, w))).astype(np.float32)
+        px[0, :4] = [np.nan, np.inf, -np.inf, 254.99]
+        im = PIL_Image.frombuffer("F", (w, h), px.tobytes(), "raw", "F", 0, 1)
+    elif mode in ("L", "LA", "PA", "P", "CMYK", "RGB"):
+        bands = {"L": 1, "LA": 2, "PA": 2, "P": 1, "CMYK": 4, "RGB": 3}[mode]
+        px = rng.integers(0, 256, (h, w, bands) if bands > 1 else (h, w), dtype=np.uint8)
+        if mode == "P":
+            px = px % 12
+        im = _img(mode, px)
+        if mode in ("P", "PA"):
+            palette = rng.integers(0, 256, (9, 3), dtype=np.uint8)
+            im.putpalette(palette.reshape(-1).tolist())
+        if case == "L_trns":
+            trns = int(px[0, 0])
+        elif case == "P_trns_int":
+            trns = 3
+        elif case == "P_trns_bytes":
+            trns = bytes(rng.integers(0, 256, 7, dtype=np.uint8))
+        elif case == "RGB_trns":
+            trns = tuple(int(v) for v in px[1, 2])
+            px[4, 5] = px[1, 2]
+            im = _img(mode, px)
+        if trns is not None:
+            im.info["transparency"] = trns
+    ref = np.asarray(im.convert("RGBA"))
+    assert np.array_equal(to_rgba(mode, px if mode != "1" else np.asarray(im, np.uint8) * 255, palette, trns), ref)
+
+
+# ------------------------------------------------------------ writers
+
+
+SHAPES = {"gray": (13, 17), "gray1": (13, 17, 1), "rgb": (13, 17, 3), "rgba": (13, 17, 4), "one_pixel": (1, 1, 3),
+          "odd_rgb": (31, 29, 3)}
+BYTE_EQUAL = [".bmp", ".dib", ".tga", ".tif", ".tiff", ".ppm", ".pgm", ".pbm", ".pnm"]
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("suffix", BYTE_EQUAL)
+def test_writer_matches_pillow_byte_for_byte(suffix, shape, tmp_path):
+    a = np.random.default_rng(len(suffix) + 7 * len(shape)).integers(0, 256, SHAPES[shape], dtype=np.uint8)
+    write_image(tmp_path / ("x" + suffix), a)
+    ref = tmp_path / ("ref" + suffix)
+    PIL_Image.fromarray(a[..., 0] if a.ndim == 3 and a.shape[2] == 1 else a).save(ref)
+    assert (tmp_path / ("x" + suffix)).read_bytes() == ref.read_bytes()
+    back = _rgba(read_image(ref.read_bytes()))
+    assert np.array_equal(back, _pillow_rgba(ref.read_bytes()))
+
+
+def _smooth_frame(h, w, seed):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.stack([0.5 + 0.4 * np.sin(6 * x + k + 3 * y * y) for k in range(3)], -1) + rng.normal(0, 0.01, (h, w, 3))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("colours", [2, 100, 256])
+def test_gif_writer_keeps_every_colour_up_to_256(colours, tmp_path):
+    """At most 256 colours: the port's GIF and Pillow's decode to the same
+    pixels, the image itself."""
+    rng = np.random.default_rng(colours)
+    pal = rng.integers(0, 256, (colours, 3), dtype=np.uint8)
+    a = pal[rng.integers(0, colours, (19, 23))]
+    write_image(tmp_path / "x.gif", a)
+    PIL_Image.fromarray(a).save(tmp_path / "ref.gif")
+    mine = _pillow_rgba((tmp_path / "x.gif").read_bytes())
+    assert np.array_equal(mine, _pillow_rgba((tmp_path / "ref.gif").read_bytes()))
+    assert np.array_equal(mine[..., :3], a) and np.array_equal(read_image((tmp_path / "x.gif").read_bytes()), mine)
+
+
+def test_gif_writer_median_cut_above_256_colours(tmp_path):
+    """A smooth 96x128 frame of thousands of colours: the port's median cut
+    and Pillow's differ (ROADMAP C records the share and the largest
+    channel error measured here); each stays close to the frame."""
+    a = _smooth_frame(96, 128, 3)
+    assert len(np.unique(a.reshape(-1, 3), axis=0)) > 256
+    write_image(tmp_path / "x.gif", a)
+    PIL_Image.fromarray(a).save(tmp_path / "ref.gif")
+    mine = read_image((tmp_path / "x.gif").read_bytes())[..., :3].astype(int)
+    assert np.array_equal(_pillow_rgba((tmp_path / "x.gif").read_bytes())[..., :3], mine)
+    ref = _pillow_rgba((tmp_path / "ref.gif").read_bytes())[..., :3].astype(int)
+    assert np.abs(mine - a).max() <= 16 and np.abs(mine - a).mean() < 2.5
+    assert np.abs(ref - a).max() <= 16
+    differ = (mine != ref).any(-1).mean()
+    print(f"GIF median cut of {len(np.unique(a.reshape(-1, 3), axis=0))} colours, 96x128: {100 * differ:.2f}% of "
+          f"pixels differ from Pillow's, largest channel error {np.abs(mine - ref).max()}; against the frame "
+          f"port {np.abs(mine - a).max()} / {np.abs(mine - a).mean():.3f}, Pillow {np.abs(ref - a).max()} / "
+          f"{np.abs(ref - a).mean():.3f} (largest / mean)")
+    assert 0 < differ < 1 and np.abs(mine - ref).max() <= 16
+
+
+@pytest.mark.parametrize("suffix", [".xyz", ".jp2", ".ico"])
+def test_unknown_suffix_raises_value_error(suffix, tmp_path):
+    with pytest.raises(ValueError, match="unknown file extension"):
+        write_image(tmp_path / ("x" + suffix), np.zeros((2, 2, 3), np.uint8))
+    with pytest.raises(ValueError, match="unknown file extension"):
+        headless.main(["--scenefile", str(tmp_path / "absent.gltf"), "--device", "cpu", "--output",
+                       str(tmp_path / ("o" + suffix))])
+
+
+def test_edit_shell_render_unknown_suffix_keeps_the_shell(tmp_path, capsys):
+    """edit_cli's `render x.xyz` prints the error the reference's shell
+    prints from Pillow's save (ValueError: unknown file extension) and
+    keeps the shell alive, before any frame renders."""
+    from vk_gltf_renderer_tpu_torch import edit_cli
+
+    with pytest.raises(ValueError) as pillow:
+        PIL_Image.new("RGB", (1, 1)).save(tmp_path / "ref.xyz")
+    sc = TScene()
+    sc.load(scenes.make_helmet_standin(str(tmp_path)))
+    sh = edit_cli.EditShell(sc, device="cpu")
+    assert sh.run_line(f"render {tmp_path / 'x.xyz'} 8 8")
+    assert capsys.readouterr().out == f"error: ValueError: {pillow.value}\n"
+    assert not (tmp_path / "x.xyz").exists()
+
+
+# ------------------------------------------------------------ whole frames
+
+
+FRAME_FIXTURES = ["bmp_palette8.bmp", "tga_rgb24_rle.tga", "tiff_tiles_lzw.tif", "gif_interlaced.gif",
+                  "ppm_p6_maxval_1023.ppm"]
+W, H, DEPTH = 48, 32, 5
+
+
+def _frame(renderer, path, hdr):
+    renderer.create_scene(path)
+    renderer.create_hdr(hdr)
+    aux = renderer.on_render()
+    aux = {k: np.asarray(v.cpu() if hasattr(v, "cpu") else v) for k, v in aux.items()}
+    return np.array(renderer.image_linear()), aux
+
+
+@pytest.mark.parametrize("name", FRAME_FIXTURES)
+@pytest.mark.usefixtures("one_torch_thread")
+def test_textured_frame_matches_jax_renderer(name, tmp_path):
+    data = (FIXTURES / name).read_bytes()
+    path = scenes.helmet_with_texture(str(tmp_path), data, name)
+    hdr = scenes.write_synthetic_hdr(tmp_path / "env.hdr", 64, 128)
+    img_r, aux_r = _frame(JaxRenderer(W, H, spp=1, max_depth=DEPTH), path, hdr)
+    r = GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu")
+    img_p, aux_p = _frame(r, path, hdr)
+    assert r.dev_scene.tex_desc[0, 1:3].tolist() == DIGESTS["files"][name]["shape"][1::-1]
+    assert img_p.shape == (H, W, 3) and np.isfinite(img_p).all() and img_p.mean() > 0.01
+    ids = (aux_p["first_rnode"] == aux_r["first_rnode"]) & (aux_p["first_tri"] == aux_r["first_tri"])
+    assert ids.mean() >= 0.999
+    close = (np.abs(img_p - img_r) <= 1e-3 * (1.0 + np.abs(img_r))).all(axis=-1)
+    assert close.mean() >= 0.99
+    np.testing.assert_allclose(img_p.mean(axis=(0, 1)), img_r.mean(axis=(0, 1)), rtol=1e-3)
+
+
+NEW_SUFFIXES = [s for s in WRITABLE if s not in (".png", ".jpg", ".jpeg", ".webp")]
+
+
+@pytest.fixture(scope="module")
+def headless_outputs(tmp_path_factory):
+    """One headless render written in PNG and in every new suffix. The
+    renders read and write a settings file of their own, so the flags they
+    remember reach no other test."""
+    tmp = tmp_path_factory.mktemp("headless")
+    sc = scenes.make_helmet_standin(str(tmp))
+    hdr = scenes.write_synthetic_hdr(str(tmp / "env.hdr"), 32, 64)
+    base = ["--scenefile", sc, "--hdrfile", hdr, "--envSystem", "1", "--size", "24", "16", "--frames", "1",
+            "--ptDepth", "2", "--device", "cpu"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VKGR_SETTINGS", str(tmp / "settings.json"))
+        for suffix in [".png"] + NEW_SUFFIXES:
+            assert headless.main(base + ["--output", str(tmp / ("o" + suffix))]) == 0
+    assert (tmp / "settings.json").exists()
+    return tmp
+
+
+@pytest.mark.parametrize("suffix", NEW_SUFFIXES)
+def test_headless_output_in_each_new_suffix(suffix, headless_outputs):
+    png = read_image((headless_outputs / "o.png").read_bytes())[..., :3]
+    data = (headless_outputs / ("o" + suffix)).read_bytes()
+    got = _rgba(read_image(data))
+    assert np.array_equal(got, _pillow_rgba(data))
+    colours = len(np.unique(png.reshape(-1, 3), axis=0))
+    if suffix == ".gif" and colours > 256:
+        assert np.abs(got[..., :3].astype(int) - png).max() <= 16
+    else:
+        assert np.array_equal(got[..., :3], png)
+
+
+# ------------------------------------------------------------ the native coder
+
+
+def test_image_coder_that_fails_to_load_raises(monkeypatch, tmp_path):
+    """An image coder library that builds but does not load fails the scene
+    load: no texture turns white in its place, and there is no numpy path."""
+    path = scenes.helmet_with_texture(str(tmp_path), (FIXTURES / "tiff_rgb_lzw.tif").read_bytes(), "t.tif")
+    native.get_lib()
+
+    def refuse(*args, **kwargs):
+        raise OSError("file too short")
+
+    monkeypatch.setattr(native, "_image", None)
+    monkeypatch.setattr(native.ctypes, "CDLL", refuse)
+    with pytest.raises(RuntimeError, match="image_coders.*file too short"):
+        GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu").create_scene(path)
+
+
+def test_gif_median_cut_is_a_partition():
+    cols = np.random.default_rng(2).integers(0, 256, (5000, 3))
+    weights = np.random.default_rng(3).integers(1, 9, 5000)
+    palette, box = gif.median_cut(cols, weights, 256)
+    assert len(palette) == 256 and box.max() == 255
+    for i in (0, 100, 255):
+        members = cols[box == i]
+        assert len(members) and (members.min(0) <= palette[i]).all() and (palette[i] <= members.max(0)).all()

@@ -13,7 +13,9 @@ wireframe and picks, runs the headless CLI and `benchmark run` on the
 CPU, each printing one BENCHMARK_JSON line, edits and renders through
 edit_cli and a scripted viewer (grid, gizmo, an edit verb), renders the
 helmet with a JPEG, a KTX2 BasisLZ and a lossless and a lossy WebP base
-colour (the port's own decoders), writes a JPEG and a WebP, renders
+colour (the port's own decoders), writes a JPEG and a WebP, renders the
+helmet with BMP, TGA, TIFF, GIF, PPM and arithmetic-coded JPEG base colours
+and writes a frame in every suffix image_io writes, renders
 seeded and batched frames on the SBVH, and renders a frame split over two shards
 (parallel.render_mesh); and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports any
@@ -70,6 +72,22 @@ with tempfile.TemporaryDirectory() as d:
     r.save_image(d + "/out.webp")
     with open(d + "/out.webp", "rb") as f:
         assert decode_webp(f.read()).shape == (16, 24, 4)
+    # Pillow's other formats without Pillow: BMP, TGA, TIFF (LZW), GIF and PPM base colours from the
+    # committed fixtures, and a frame written in each suffix and read back
+    from vk_gltf_renderer_tpu_torch.utils.image_io import WRITABLE, read_image
+    for name in ("bmp_rle8.bmp", "tga_rgb24_rle.tga", "tiff_tiles_lzw.tif", "gif_interlaced.gif",
+                 "ppm_p6_maxval_1023.ppm", "jpeg_arith_progressive.jpg"):
+        with open(os.path.join("tests", "data", "images", name), "rb") as f:
+            data = f.read()
+        r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
+        r.create_scene(helmet_with_texture(d, data, name))
+        assert r.dev_scene.tex_desc[0, 1:3].tolist() == list(read_image(data).shape[1::-1]), name
+        r.on_render()
+        assert np.isfinite(r.image_linear()).all() and r.image_linear().mean() > 0.01
+    for suffix in WRITABLE:
+        r.save_image(d + "/out" + suffix)
+        with open(d + "/out" + suffix, "rb") as f:
+            assert read_image(f.read()).shape[:2] == (16, 24), suffix
     accum = r.accum.clone()
     r.reset_frame()
     r.frame_idx -= 1

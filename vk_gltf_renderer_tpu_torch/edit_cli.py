@@ -360,8 +360,10 @@ class EditShell:
 
     def cmd_render(self, path, w="256", h="256"):
         from .renderer import GltfRenderer, fit_camera
+        from .utils.image_io import check_writable
 
         width, height = int(w), int(h)
+        check_writable(path)  # an unknown suffix is bad input (the reference's save raises ValueError for it)
         self._rendering = True
         r = GltfRenderer(width=width, height=height, spp=1, max_depth=3, device=self.device)
         r.scene = self.scene

@@ -3,15 +3,16 @@
 The port's own copy of vk_gltf_renderer_tpu/native (binned SAH and the
 Morton radix tree over world triangles, bvh_builder.cpp), so the port
 imports nothing of the JAX package, the JPEG entropy coder of
-ops/jpeg.py (jpeg_entropy.cpp) and the WebP pixel codec of ops/webp.py
-(webp_decode.cpp). Each library is built by g++ at first use
+ops/jpeg.py (jpeg_entropy.cpp), the WebP pixel codec of ops/webp.py
+(webp_decode.cpp) and the LZW, PackBits and RLE coders of the BMP, TGA,
+GIF and TIFF readers and the GIF writer (image_coders.cpp). Each library is built by g++ at first use
 into ``build/native/`` at the repository root (listed in .gitignore),
 named by a hash of its source, and renamed into place once complete, so
 that concurrent builders never load half a file. The BVH functions return
 None when their library cannot be built; ops/bvh_flatten.py then takes its
 numpy oracle, and refuses scenes too large for it rather than waiting on a
-Python loop. The JPEG and WebP coders have no such oracle: jpeg_lib and
-webp_lib raise when their build fails.
+Python loop. The image coders have no such oracle: jpeg_lib, webp_lib
+and image_lib raise when their build fails.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ import numpy as np
 _SRC = Path(__file__).parent / "bvh_builder.cpp"
 _JPEG_SRC = Path(__file__).parent / "jpeg_entropy.cpp"
 _WEBP_SRC = Path(__file__).parent / "webp_decode.cpp"
+_IMAGE_SRC = Path(__file__).parent / "image_coders.cpp"
 _CACHE = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 _lib = None
 _lib_failed = False
 _jpeg = None
 _webp = None
+_image = None
 
 
 def _compile(src_path: Path, defines: tuple = ()) -> Path:
@@ -97,6 +100,10 @@ def jpeg_lib():
         _jpeg = _load_coder(_JPEG_SRC, {
             "vkgr_jpeg_decode_scan": [_VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _I32, _I32, _I32,
                                       _I32, _I32, _I32],
+            "vkgr_jpeg_decode_scan_arith": [_VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _I32, _I32, _I32,
+                                            _I32, _I32, _I32],
+            "vkgr_jpeg_decode_lossless": [_VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _I32, _I32, _I32,
+                                          _I32],
             "vkgr_jpeg_encode_scan": [_VP, _VP, _I64, _VP, _VP, _VP, _VP, _I32, _I32, _VP, _I64, _VP]})
     return _jpeg
 
@@ -112,6 +119,21 @@ def webp_lib():
             "vkgr_alpha_decode": [_VP, _I64, _I32, _I32, _VP],
             "vkgr_vp8l_encode": [_VP, _I32, _I32, _I32, _I32, _VP, _I64, _VP]})
     return _webp
+
+
+def image_lib():
+    """The LZW, PackBits and RLE coders (image_coders.cpp), built at first
+    use (_load_coder: RuntimeError when it cannot be built or loaded)."""
+    global _image
+    if _image is None:
+        _image = _load_coder(_IMAGE_SRC, {
+            "vkgr_tiff_lzw": [_VP, _I64, _VP, _I64],
+            "vkgr_packbits": [_VP, _I64, _VP, _I64],
+            "vkgr_gif_lzw_decode": [_VP, _I64, _I32, _VP, _I32, _I32, _I32],
+            "vkgr_gif_lzw_encode": [_VP, _I64, _I32, _VP, _I64, _VP],
+            "vkgr_bmp_rle": [_VP, _I64, _I64, _I32, _I32, _I32, _VP, _VP],
+            "vkgr_tga_rle": [_VP, _I64, _I32, _I64, _I32, _VP]})
+    return _image
 
 
 def get_lib():

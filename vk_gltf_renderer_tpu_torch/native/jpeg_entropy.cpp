@@ -16,14 +16,33 @@
 // (Ss 0, Se 63), a progressive DC-first scan (Ss = Se = 0) and a
 // progressive AC-first scan (Ss 1, Se 63) with point transform 0.
 //
+// Decoding one arithmetic-coded scan (SOF9 sequential, SOF10 progressive):
+// the QM decoder of ITU T.81 Annex D with its probability estimation table,
+// the DC and AC statistics models of F.1.4.4 and G.1.3.3 with the DAC
+// conditioning bounds, as libjpeg's jdarith.c decodes them (statistics
+// reset at each scan and restart; a marker inside the data reads as zero
+// bytes; a magnitude or spectral overflow stops the scan, its remaining
+// blocks left as they are).
+//
+// Decoding one lossless scan (SOF3, Huffman): the differences of each
+// sample (DC tables, symbol 16 meaning 32768), undone with the scan's
+// predictor 1-7 and point transform; the first row of the scan, and of each
+// restart interval, predicts from the left (its first sample from
+// 2^(P-Pt-1)), each row's first sample from above, as libjpeg-turbo's
+// jdpred.c does.
+//
 // Exported C ABI (all return 0 on success, < 0 on bad arguments or tables):
-//   vkgr_jpeg_decode_scan(...)  see below
-//   vkgr_jpeg_encode_scan(...)  see below
+//   vkgr_jpeg_decode_scan(...)        see below
+//   vkgr_jpeg_decode_scan_arith(...)  see below
+//   vkgr_jpeg_decode_lossless(...)    see below
+//   vkgr_jpeg_encode_scan(...)        see below
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17
 
 #include <cstdint>
 #include <cstring>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -93,13 +112,13 @@ struct Huff {
   // Returns false for a table libjpeg's jpeg_make_d_derived_tbl refuses:
   // more than 256 codes, a code length whose codes do not fit in it (the
   // all-ones code included), or, for a DC table, a symbol above 15.
-  bool build(const uint8_t* bits, const uint8_t* v, bool dc) {
+  bool build(const uint8_t* bits, const uint8_t* v, bool dc, int max_dc = 15) {
     int total = 0;
     for (int l = 0; l < 16; ++l) total += bits[l];
     if (total > 256) return false;
     if (dc)
       for (int k = 0; k < total; ++k)
-        if (v[k] > 15) return false;
+        if (v[k] > max_dc) return false;
     std::memcpy(vals, v, 256);
     std::memset(look_len, 0, sizeof(look_len));
     int code = 0, k = 0;
@@ -267,6 +286,297 @@ struct Decoder {
   }
 };
 
+// T.81 Table D.3 as libjpeg's jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate.
+#define V(a, b, c, d) ((int32_t(a) << 16) | (int32_t(c) << 8) | (int32_t(d) << 7) | (b))
+const int32_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),    V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0),    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),   V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),   V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0),   V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),   V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),   V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0),   V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),   V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),   V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0),   V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),   V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),   V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0),   V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),   V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),   V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0),   V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),   V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),   V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1),   V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),   V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),   V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0),   V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),  V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0),  V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+struct ArithScanComp {
+  int16_t* coef;
+  int h, v, buf_cols, real_cols, real_rows;
+  int dc_tbl, ac_tbl;
+  int last_dc = 0, dc_context = 0;
+};
+
+struct ArithDecoder {
+  const uint8_t* p;
+  const uint8_t* end;
+  bool marker = false;
+  int32_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read; -1: the scan stopped on a bad code
+  int Ss = 0, Se = 63, Ah = 0, Al = 0;
+  bool progressive = false;
+  const int32_t* dac_l = nullptr;
+  const int32_t* dac_u = nullptr;
+  const int32_t* dac_k = nullptr;
+  uint8_t dc_stats[4][64] = {};
+  uint8_t ac_stats[4][256] = {};
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
+
+  int unread = 0;  // the marker the data ran into (0: none yet)
+
+  int byte() {
+    if (marker || p >= end) return 0;
+    int d = *p++;
+    if (d == 0xFF) {
+      while (p < end && *p == 0xFF) ++p;
+      int nxt = p < end ? *p++ : 0xD9;
+      if (nxt == 0) return 0xFF;
+      marker = true;  // a marker: zero data from here on
+      unread = nxt;
+      return 0;
+    }
+    return d;
+  }
+
+  // pass the RSTn marker that ends a restart interval (the one the data ran
+  // into, or the next one ahead), then start the coder over
+  void restart() {
+    if (!(marker && unread >= 0xD0 && unread <= 0xD7)) {
+      while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7)) ++p;
+      if (p + 1 < end) p += 2;
+    }
+    marker = false;
+    unread = 0;
+    reset_coder();
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAritab[sv & 0x7F];
+    const uint8_t nl = qe & 0xFF;
+    qe >>= 8;
+    const uint8_t nm = qe & 0xFF;
+    qe >>= 8;
+    int32_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  void reset_coder() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  // Figures F.19 and F.21-F.24: one DC difference; false on a magnitude overflow
+  bool dc_diff(ArithScanComp& k, int tbl, int* diff) {
+    uint8_t* st = dc_stats[tbl] + k.dc_context;
+    if (decode(st) == 0) {
+      k.dc_context = 0;
+      *diff = 0;
+      return true;
+    }
+    int sign = decode(st + 1);
+    st += 2 + sign;
+    int m = decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < int((1L << dac_l[tbl]) >> 1))
+      k.dc_context = 0;
+    else if (m > int((1L << dac_u[tbl]) >> 1))
+      k.dc_context = 12 + sign * 4;
+    else
+      k.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (decode(st)) v |= m;
+    v += 1;
+    *diff = sign ? -v : v;
+    return true;
+  }
+
+  // the magnitude category and bits of an AC value at index k (st at its bin S0 + 2)
+  bool ac_value(uint8_t* st, int tbl, int k, int sign, int* out) {
+    int m = decode(st);
+    if (m != 0 && decode(st)) {
+      m <<= 1;
+      st = ac_stats[tbl] + (k <= dac_k[tbl] ? 189 : 217);
+      while (decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (decode(st)) v |= m;
+    v += 1;
+    *out = sign ? -v : v;
+    return true;
+  }
+
+  void sequential(ArithScanComp& k, int16_t* blk) {
+    int diff;
+    if (!dc_diff(k, k.dc_tbl, &diff)) {
+      ct = -1;
+      return;
+    }
+    k.last_dc = (k.last_dc + diff) & 0xffff;
+    blk[0] = int16_t(k.last_dc);
+    if (Se == 0) return;
+    const int tbl = k.ac_tbl;
+    int i = 0;
+    do {
+      uint8_t* st = ac_stats[tbl] + 3 * i;
+      if (decode(st)) break;  // EOB
+      for (;;) {
+        ++i;
+        if (decode(st + 1)) break;
+        st += 3;
+        if (i >= Se) {
+          ct = -1;  // spectral overflow
+          return;
+        }
+      }
+      int sign = decode(fixed_bin);
+      int v;
+      if (!ac_value(st + 2, tbl, i, sign, &v)) {
+        ct = -1;
+        return;
+      }
+      blk[kNatural[i]] = int16_t(v);
+    } while (i < Se);
+  }
+
+  void dc_first(ArithScanComp& k, int16_t* blk) {
+    int diff;
+    if (!dc_diff(k, k.dc_tbl, &diff)) {
+      ct = -1;
+      return;
+    }
+    k.last_dc = (k.last_dc + diff) & 0xffff;
+    blk[0] = int16_t(uint32_t(k.last_dc) << Al);
+  }
+
+  void dc_refine(int16_t* blk) {
+    if (decode(fixed_bin)) blk[0] = int16_t(blk[0] | (1 << Al));
+  }
+
+  void ac_first(ArithScanComp& k, int16_t* blk) {
+    const int tbl = k.ac_tbl;
+    for (int i = Ss; i <= Se; ++i) {
+      uint8_t* st = ac_stats[tbl] + 3 * (i - 1);
+      if (decode(st)) break;  // EOB
+      while (decode(st + 1) == 0) {
+        st += 3;
+        if (++i > Se) {
+          ct = -1;
+          return;
+        }
+      }
+      int sign = decode(fixed_bin);
+      int v;
+      if (!ac_value(st + 2, tbl, i, sign, &v)) {
+        ct = -1;
+        return;
+      }
+      blk[kNatural[i]] = int16_t(uint32_t(v) << Al);
+    }
+  }
+
+  void ac_refine(ArithScanComp& k, int16_t* blk) {
+    const int tbl = k.ac_tbl;
+    const int p1 = 1 << Al, m1 = -1 * (1 << Al);
+    int kex = Se;
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int i = Ss; i <= Se; ++i) {
+      uint8_t* st = ac_stats[tbl] + 3 * (i - 1);
+      if (i > kex && decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[i];
+        if (*coef) {
+          if (decode(st + 2)) *coef = int16_t(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (decode(st + 1)) {
+          *coef = int16_t(decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++i > Se) {
+          ct = -1;
+          return;
+        }
+      }
+    }
+  }
+
+  void block(ArithScanComp& k, int16_t* blk) {
+    if (ct == -1) return;  // a bad code stopped the scan
+    if (!progressive)
+      sequential(k, blk);
+    else if (Ss == 0)
+      Ah == 0 ? dc_first(k, blk) : dc_refine(blk);
+    else
+      Ah == 0 ? ac_first(k, blk) : ac_refine(k, blk);
+  }
+};
+
 struct BitWriter {
   uint8_t* out;
   int64_t cap;
@@ -379,6 +689,143 @@ int vkgr_jpeg_decode_scan(const uint8_t* data, int64_t len, int32_t ncomp, int16
       }
       ++mcus_done;
     }
+  return 0;
+}
+
+// Decode one arithmetic-coded scan: the arguments of vkgr_jpeg_decode_scan,
+// with the DAC conditioning bounds (dac_l, dac_u per DC table, dac_k per AC
+// table) in place of the Huffman tables.
+int vkgr_jpeg_decode_scan_arith(const uint8_t* data, int64_t len, int32_t ncomp, int16_t* const* coef,
+                                const int32_t* geom, int32_t mcux, int32_t mcuy, const int32_t* dac_l,
+                                const int32_t* dac_u, const int32_t* dac_k, int32_t ss, int32_t se, int32_t ah,
+                                int32_t al, int32_t progressive, int32_t restart) {
+  if (ncomp < 1 || ncomp > 4 || ss < 0 || se > 63 || ss > se || al < 0 || al > 13) return -1;
+  ArithDecoder d{data, data + len};
+  d.Ss = ss;
+  d.Se = se;
+  d.Ah = ah;
+  d.Al = al;
+  d.progressive = progressive != 0;
+  d.dac_l = dac_l;
+  d.dac_u = dac_u;
+  d.dac_k = dac_k;
+  ArithScanComp comps[4];
+  for (int i = 0; i < ncomp; ++i) {
+    const int32_t* g = geom + 7 * i;
+    comps[i] = ArithScanComp{coef[i], g[0], g[1], g[2], g[3], g[4], g[5] & 3, g[6] & 3};
+  }
+  const bool dc_pass = !progressive || (ss == 0 && ah == 0);
+  const bool ac_pass = (!progressive && se > 0) || (progressive && ss > 0);
+  auto reset_stats = [&]() {
+    for (int i = 0; i < ncomp; ++i) {
+      if (dc_pass) {
+        std::memset(d.dc_stats[comps[i].dc_tbl], 0, 64);
+        comps[i].last_dc = 0;
+        comps[i].dc_context = 0;
+      }
+      if (ac_pass) std::memset(d.ac_stats[comps[i].ac_tbl], 0, 256);
+    }
+  };
+  reset_stats();
+  int64_t mcus_done = 0;
+  auto maybe_restart = [&]() {
+    if (restart > 0 && mcus_done > 0 && mcus_done % restart == 0) {
+      d.restart();
+      reset_stats();
+    }
+  };
+  if (ncomp == 1) {
+    ArithScanComp& c = comps[0];
+    for (int by = 0; by < c.real_rows; ++by)
+      for (int bx = 0; bx < c.real_cols; ++bx) {
+        maybe_restart();
+        d.block(c, c.coef + (int64_t(by) * c.buf_cols + bx) * 64);
+        ++mcus_done;
+      }
+    return 0;
+  }
+  for (int my = 0; my < mcuy; ++my)
+    for (int mx = 0; mx < mcux; ++mx) {
+      maybe_restart();
+      for (int i = 0; i < ncomp; ++i) {
+        ArithScanComp& c = comps[i];
+        for (int y = 0; y < c.v; ++y)
+          for (int x = 0; x < c.h; ++x) {
+            int64_t row = int64_t(my) * c.v + y, col = int64_t(mx) * c.h + x;
+            d.block(c, c.coef + (row * c.buf_cols + col) * 64);
+          }
+      }
+      ++mcus_done;
+    }
+  return 0;
+}
+
+// Decode one lossless (SOF3) scan of ncomp components, each sampled 1x1.
+//   out            per component its uint16 plane [height, width]
+//   dc             per component its DC Huffman table (0..3)
+//   bits, vals, present   the Huffman tables as vkgr_jpeg_decode_scan takes them
+//   precision, predictor (1..7), pt   the frame's P and the scan's Ss and Al
+//   restart        the restart interval in MCUs (a whole number of rows)
+// Returns -2 / -4 for an undefined or refused table, -5 for a restart
+// interval that is not a whole number of rows.
+int vkgr_jpeg_decode_lossless(const uint8_t* data, int64_t len, int32_t ncomp, uint16_t* const* out,
+                              const int32_t* dc, int32_t width, int32_t height, const uint8_t* bits,
+                              const uint8_t* vals, const uint8_t* present, int32_t precision, int32_t predictor,
+                              int32_t pt, int32_t restart) {
+  if (ncomp < 1 || ncomp > 4 || predictor < 1 || predictor > 7 || pt < 0 || pt >= precision) return -1;
+  if (restart > 0 && restart % width != 0) return -5;
+  Huff tables[4];
+  const Huff* tab[4];
+  for (int i = 0; i < ncomp; ++i) {
+    int t = dc[i] & 3;
+    if (!present[t]) return -2;
+    if (!tables[t].present && !tables[t].build(bits + 16 * t, vals + 256 * t, true, 16)) return -4;
+    tab[i] = &tables[t];
+  }
+  BitReader br{data, data + len};
+  const int rows_per_interval = restart > 0 ? restart / width : 0;
+  const int initial = 1 << (precision - pt - 1);
+  std::vector<int32_t> prev(size_t(width) * ncomp), cur(size_t(width) * ncomp);
+  bool first_row = true;
+  for (int y = 0; y < height; ++y) {
+    if (rows_per_interval > 0 && y > 0 && y % rows_per_interval == 0) {
+      br.restart();
+      first_row = true;
+    }
+    for (int x = 0; x < width; ++x)
+      for (int c = 0; c < ncomp; ++c) {
+        int s = tab[c]->decode(br);
+        int diff;
+        if (s == 0)
+          diff = 0;
+        else if (s == 16)
+          diff = 32768;
+        else
+          diff = extend(br.get(s), s);
+        const size_t k = size_t(x) * ncomp + c;
+        int pred;
+        if (first_row) {
+          pred = x == 0 ? initial : cur[k - ncomp];
+        } else if (x == 0) {
+          pred = prev[k];
+        } else {
+          const int ra = cur[k - ncomp], rb = prev[k], rc = prev[k - ncomp];
+          switch (predictor) {
+            case 1: pred = ra; break;
+            case 2: pred = rb; break;
+            case 3: pred = rc; break;
+            case 4: pred = ra + rb - rc; break;
+            case 5: pred = ra + ((rb - rc) >> 1); break;
+            case 6: pred = rb + ((ra - rc) >> 1); break;
+            default: pred = (ra + rb) >> 1; break;
+          }
+        }
+        cur[k] = (pred + diff) & 0xFFFF;
+        out[c][int64_t(y) * width + x] = uint16_t(cur[k] << pt);
+      }
+    first_row = false;
+    std::swap(prev, cur);
+  }
   return 0;
 }
 

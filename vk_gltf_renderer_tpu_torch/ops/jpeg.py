@@ -5,8 +5,10 @@ which decodes with libjpeg-turbo. This module decodes as libjpeg-turbo
 does with its defaults, so that a texture reads the same in both packages:
 
   * frames: baseline (SOF0), extended 8-bit Huffman (SOF1) and progressive
-    (SOF2, spectral selection and successive approximation), restart
-    intervals, one or three components at any integral sampling;
+    (SOF2, spectral selection and successive approximation), their
+    arithmetic-coded forms (SOF9, SOF10, with DAC conditioning), and 8-bit
+    lossless (SOF3, 1x1 sampling); restart intervals; one, three or four
+    components at any integral sampling;
   * the entropy decoding of each scan in C++ (native/jpeg_entropy.cpp,
     built at first use); dequantisation, the inverse DCT, upsampling and
     colour conversion vectorised in numpy over all blocks:
@@ -17,12 +19,20 @@ does with its defaults, so that a texture reads the same in both packages:
         image edge replicated), box upsampling otherwise,
       - libjpeg's fixed-point YCbCr -> RGB tables, and libjpeg's guess of
         the colour space (JFIF, Adobe transform, component ids);
+  * four components: CMYK (Adobe transform 0, or no Adobe marker) or YCCK
+    (any other transform, turned into CMYK as libjpeg does), read inverted
+    as Pillow's "CMYK;I" raw mode reads them and turned into RGB by
+    Pillow's cmyk2rgb (ops/imagemodes.py);
+  * lossless scans convert no colour space, as libjpeg-turbo's: three
+    components without JFIF or Adobe markers are RGB, and a file that
+    libjpeg-turbo takes for YCbCr or YCCK is refused (ValueError, as
+    Pillow's "broken data stream");
   * gray images decode to one channel (the caller repeats it over RGB with
     alpha 1, as Pillow's convert("RGBA") does).
 
-Arithmetic coding (SOF9-11), lossless (SOF3), hierarchical frames,
-12-bit samples and four-component (CMYK/YCCK) files raise UnsupportedCodec;
-a truncated file raises ValueError.
+Hierarchical frames (SOF5-7, SOF13-15), lossless arithmetic (SOF11), 12-bit
+samples and two-component files raise UnsupportedCodec, as Pillow refuses
+them; a truncated file raises ValueError.
 
 encode_jpeg writes what Pillow writes by default: baseline, quality 75
 (the IJG tables scaled as libjpeg scales them), 4:2:0 chroma (libjpeg's
@@ -40,6 +50,7 @@ import struct
 import numpy as np
 
 from .dds import UnsupportedCodec
+from .imagemodes import cmyk_to_rgb
 
 JPEG_MAGIC = b"\xff\xd8\xff"
 
@@ -115,6 +126,7 @@ class _Component:
     def __init__(self, cid, h, v, tq):
         self.id, self.h, self.v, self.tq = cid, h, v, tq
         self.qt = None  # latched at the component's first scan, as libjpeg latches it
+        self.scanned = False
         self.coef = None
 
 
@@ -264,8 +276,10 @@ def _scan_ends(arr: np.ndarray) -> np.ndarray:
     return np.flatnonzero((arr[:-1] == 0xFF) & ~stuffed_or_rst)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> uint8 [H,W,3] RGB, or [H,W,1] for a gray file."""
+def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
+    """JPEG bytes -> uint8 [H,W,3] RGB, or [H,W,1] for a gray file. color
+    "ycc" or "raw" overrides libjpeg's guess of a three-component file's
+    colour space (what libtiff asks of libjpeg for a TIFF's JPEG strips)."""
     if not is_jpeg(data):
         raise ValueError("not a JPEG file")
     arr = np.frombuffer(data, np.uint8)
@@ -277,7 +291,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     present = np.zeros(8, np.uint8)
     comps = None
     width = height = 0
-    progressive = False
+    progressive = arith = lossless = False
+    dac_l = np.zeros(4, np.int32)  # the DAC conditioning bounds, libjpeg's defaults
+    dac_u = np.ones(4, np.int32)
+    dac_k = np.full(4, 5, np.int32)
+    planes16 = None
     restart = 0
     jfif = False
     adobe = None
@@ -335,7 +353,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 off += 17 + total
         elif marker == 0xDD:  # DRI
             restart = _u16(seg, 0)
-        elif marker in (0xC0, 0xC1, 0xC2):
+        elif marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             if comps is not None:
                 raise ValueError("JPEG with two frames")
             if len(seg) < 6:
@@ -343,8 +361,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             precision, height, width, nc = seg[0], _u16(seg, 1), _u16(seg, 3), seg[5]
             if precision != 8:
                 raise UnsupportedCodec(f"{precision}-bit JPEG samples are not supported")
-            if nc not in (1, 3):
-                raise UnsupportedCodec(f"JPEG with {nc} components (CMYK/YCCK) is not supported")
+            if nc not in (1, 3, 4):
+                raise UnsupportedCodec(f"JPEG with {nc} components is not supported")
             if height == 0 or width == 0 or len(seg) < 6 + 3 * nc:
                 raise ValueError("bad JPEG SOF segment")
             comps = []
@@ -354,7 +372,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
                     raise ValueError("bad JPEG sampling factors")
                 comps.append(_Component(cid, h, v, tq))
-            progressive = marker == 0xC2
+            progressive = marker in (0xC2, 0xCA)
+            arith = marker in (0xC9, 0xCA)
+            lossless = marker == 0xC3
+            if lossless and any(c.h != 1 or c.v != 1 for c in comps):
+                raise UnsupportedCodec("lossless JPEG with subsampled components is not supported")
             hmax = max(c.h for c in comps)
             vmax = max(c.v for c in comps)
             mcux = -(-width // (8 * hmax))
@@ -364,11 +386,22 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c.hgt = -(-height * c.v // vmax)
                 c.cols, c.rows = mcux * c.h, mcuy * c.v
                 c.coef = np.zeros((c.rows * c.cols, 64), np.int16)
-        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise UnsupportedCodec(f"JPEG SOF{marker - 0xC0} (lossless, hierarchical or arithmetic) "
+        elif 0xC5 <= marker <= 0xCF and marker not in (0xC8, 0xC9, 0xCA, 0xCC):
+            raise UnsupportedCodec(f"JPEG SOF{marker - 0xC0} (hierarchical, or lossless arithmetic) "
                                    "is not supported")
-        elif marker == 0xCC:
-            raise UnsupportedCodec("arithmetic-coded JPEG is not supported")
+        elif marker == 0xCC:  # DAC
+            for off in range(0, len(seg) - 1, 2):
+                tc, tb, val = seg[off] >> 4, seg[off] & 15, seg[off + 1]
+                if tb > 3 or tc > 1:
+                    raise ValueError("bad JPEG DAC table index")
+                if tc == 0:
+                    dac_l[tb], dac_u[tb] = val & 15, val >> 4
+                    if dac_l[tb] > dac_u[tb]:
+                        raise ValueError("bad JPEG DAC value")
+                else:
+                    if not 1 <= val <= 63:
+                        raise ValueError("bad JPEG DAC value")
+                    dac_k[tb] = val
         elif marker == 0xE0:
             jfif = jfif or seg[:5] == b"JFIF\x00"
         elif marker == 0xEE:
@@ -387,7 +420,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 if not match:
                     raise ValueError("JPEG scan names an unknown component")
                 c = match[0]
-                if c.qt is None:
+                c.scanned = True
+                if c.qt is None and not lossless:
                     if c.tq not in qts:
                         raise ValueError("JPEG component without a quantisation table")
                     c.qt = qts[c.tq]
@@ -396,19 +430,35 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 rows = -(-c.hgt // 8) if ns == 1 else c.rows
                 geom.append([c.h, c.v, c.cols, cols, rows, tables >> 4, tables & 15])
             ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-            if not progressive:
+            if not progressive and not lossless:
                 ss, se = 0, 63
             k = np.searchsorted(ends, pos)
             if k >= len(ends):
                 raise ValueError("truncated JPEG: the scan has no end")
             end = int(ends[k])
-            entropy = arr[pos:end]
-            ptrs = (ctypes.c_void_p * 4)(*[c.coef.ctypes.data for c in scomps])
+            entropy = np.ascontiguousarray(arr[pos:end])
             geom_a = np.ascontiguousarray(geom, np.int32)
-            rc = _lib().vkgr_jpeg_decode_scan(
-                _ptr(np.ascontiguousarray(entropy)), len(entropy), ns, ptrs, _ptr(geom_a), mcux, mcuy,
-                _ptr(huff_bits), _ptr(huff_vals), _ptr(present), ss, se, ahal >> 4, ahal & 15,
-                int(progressive), restart)
+            if lossless:
+                if planes16 is None:
+                    planes16 = {c.id: np.zeros((height, width), np.uint16) for c in comps}
+                outs = (ctypes.c_void_p * 4)(*[planes16[c.id].ctypes.data for c in scomps])
+                dc = np.ascontiguousarray([g[5] for g in geom], np.int32)
+                rc = _lib().vkgr_jpeg_decode_lossless(
+                    _ptr(entropy), len(entropy), ns, outs, _ptr(dc), width, height, _ptr(huff_bits),
+                    _ptr(huff_vals), _ptr(present), 8, ss, ahal & 15, restart)
+                if rc == -5:
+                    raise ValueError("lossless JPEG restart interval that is not a whole number of rows")
+            elif arith:
+                ptrs = (ctypes.c_void_p * 4)(*[c.coef.ctypes.data for c in scomps])
+                rc = _lib().vkgr_jpeg_decode_scan_arith(
+                    _ptr(entropy), len(entropy), ns, ptrs, _ptr(geom_a), mcux, mcuy, _ptr(dac_l), _ptr(dac_u),
+                    _ptr(dac_k), ss, se, ahal >> 4, ahal & 15, int(progressive), restart)
+            else:
+                ptrs = (ctypes.c_void_p * 4)(*[c.coef.ctypes.data for c in scomps])
+                rc = _lib().vkgr_jpeg_decode_scan(
+                    _ptr(entropy), len(entropy), ns, ptrs, _ptr(geom_a), mcux, mcuy,
+                    _ptr(huff_bits), _ptr(huff_vals), _ptr(present), ss, se, ahal >> 4, ahal & 15,
+                    int(progressive), restart)
             if rc == -2:
                 raise ValueError("JPEG scan uses an undefined Huffman table")
             if rc == -4:
@@ -420,9 +470,26 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError("truncated JPEG: no end-of-image marker")
     if comps is None:
         raise ValueError("JPEG without a frame header")
-    if any(c.qt is None for c in comps):
+    if not all(c.scanned for c in comps):
         raise ValueError("truncated JPEG: a component has no scan")
 
+    if jfif:
+        ycc = True
+    elif adobe is not None:
+        ycc = adobe != 0
+    elif len(comps) == 3:
+        ycc = [c.id for c in comps] != [82, 71, 66]  # ASCII R, G, B
+    else:
+        ycc = False
+    if lossless:
+        # libjpeg-turbo converts no colour space in lossless mode: a file it takes for YCbCr or YCCK is refused
+        # (without JFIF or Adobe markers it takes three components for RGB)
+        if len(comps) > 1 and (jfif or (adobe is not None and adobe != 0)):
+            raise ValueError("lossless JPEG in a colour space libjpeg-turbo cannot convert")
+        planes = [(planes16[c.id] & 0xFF).astype(np.uint8) for c in comps]
+        if len(comps) == 4:
+            return cmyk_to_rgb(255 - np.stack(planes, axis=-1))
+        return np.stack(planes, axis=-1)
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     planes = []
@@ -435,12 +502,16 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         planes.append(up[:height, :width])
     if len(comps) == 1:
         return planes[0].astype(np.uint8)[..., None]
-    if jfif:
-        ycc = True
-    elif adobe is not None:
-        ycc = adobe != 0
-    else:
-        ycc = [c.id for c in comps] != [82, 71, 66]  # ASCII R, G, B
+    if len(comps) == 4:
+        # Adobe transform 0 (or none) is CMYK, anything else YCCK, which libjpeg turns into CMYK; Pillow reads
+        # the samples inverted ("CMYK;I") and converts them to RGB with its cmyk2rgb
+        if adobe is not None and adobe != 0:
+            inv = np.concatenate([_ycc_to_rgb(*planes[:3]), (255 - planes[3]).astype(np.uint8)[..., None]], axis=-1)
+        else:
+            inv = 255 - np.stack(planes, axis=-1).astype(np.int32)
+        return cmyk_to_rgb(inv.astype(np.uint8))
+    if color is not None:
+        ycc = color == "ycc"
     if not ycc:
         return np.stack(planes, axis=-1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
@@ -585,6 +656,29 @@ def _encode_scan(blocks, comp, tables, ss, se):
     return out[: int(written[0])].tobytes()
 
 
+def component_blocks(planes, samp, qts):
+    """Full-size sample planes (int, [H, W] each) with their sampling
+    factors and quantisation tables -> each component's quantised blocks
+    [rows, cols, 64] (natural order) over the MCU grid: the planes padded by
+    edge replication, downsampled as libjpeg does, libjpeg's integer
+    forward DCT."""
+    height, width = planes[0].shape
+    hmax = max(h for h, _ in samp)
+    vmax = max(v for _, v in samp)
+    mcux = -(-width // (8 * hmax))
+    mcuy = -(-height // (8 * vmax))
+    pad_h, pad_w = mcuy * 8 * vmax - height, mcux * 8 * hmax - width
+    out = []
+    for plane, (h, v), qt in zip(planes, samp, qts):
+        plane = np.pad(plane, ((0, pad_h), (0, pad_w)), mode="edge")
+        plane = _downsample(plane, hmax // h, vmax // v)
+        rows, cols = plane.shape[0] // 8, plane.shape[1] // 8
+        blocks = plane.reshape(rows, 8, cols, 8).transpose(1, 3, 0, 2).reshape(8, 8, rows * cols) - 128
+        coef = _quantize(fdct_islow(blocks), qt)
+        out.append(coef.reshape(64, rows * cols).T.reshape(rows, cols, 64))
+    return out
+
+
 def encode_jpeg(img: np.ndarray, subsampling: str = "4:2:0", progressive: bool = False) -> bytes:
     """uint8 [H,W,3] RGB (alpha dropped from [H,W,4]) or [H,W] / [H,W,1]
     gray -> JPEG bytes (module docstring)."""
@@ -609,16 +703,7 @@ def encode_jpeg(img: np.ndarray, subsampling: str = "4:2:0", progressive: bool =
     vmax = max(v for _, v in samp)
     mcux = -(-width // (8 * hmax))
     mcuy = -(-height // (8 * vmax))
-    # the full planes padded to the MCU grid by edge replication
-    pad_h, pad_w = mcuy * 8 * vmax - height, mcux * 8 * hmax - width
-    comp_blocks = []
-    for plane, (h, v), q in zip(planes, samp, qsel):
-        plane = np.pad(plane, ((0, pad_h), (0, pad_w)), mode="edge")
-        plane = _downsample(plane, hmax // h, vmax // v)
-        rows, cols = plane.shape[0] // 8, plane.shape[1] // 8
-        blocks = plane.reshape(rows, 8, cols, 8).transpose(1, 3, 0, 2).reshape(8, 8, rows * cols) - 128
-        coef = _quantize(fdct_islow(blocks), (qlum, qchrom)[q])
-        comp_blocks.append(coef.reshape(64, rows * cols).T.reshape(rows, cols, 64))
+    comp_blocks = component_blocks(planes, samp, [(qlum, qchrom)[q] for q in qsel])
 
     def mcu_order(indices):
         """Blocks of the given components in interleaved MCU order."""

@@ -5,15 +5,15 @@ Port of vk_gltf_renderer_tpu/ops/textures.py. The pool layout is the
 reference's: row i of tex_quads holds the 4 bilinear taps anchored at
 texel i (REPEAT wrap baked in), so one bilinear fetch is one row gather.
 Sampling wraps with REPEAT only, as the reference does. decode_image
-picks the decoder by the file's magic bytes: PNG through utils/png.py,
-DDS and KTX2 (BC1-3, RGBA8, zlib, zstd with the zstandard package,
-BasisLZ/ETC1S, UASTC, ASTC) through ops/dds.py, JPEG through ops/jpeg.py,
-WebP (lossy, lossless, with alpha, an animation's first frame) through
-ops/webp.py. Every decoder raises ValueError (or its subclass
-UnsupportedCodec) for input it cannot read, and build_texture_pool turns
+tries DDS and KTX2 first (BC1-3, RGBA8, zlib, zstd with the zstandard
+package, BasisLZ/ETC1S, UASTC, ASTC, through ops/dds.py), as the
+reference does, then identifies the data as Image.open does
+(utils/image_io.read_image): PNG, BMP/DIB, GIF, JPEG, Netpbm, TIFF and
+WebP by their magic bytes, TGA last by its header checks. Every decoder
+raises ValueError (or its subclass UnsupportedCodec) for input it cannot
+read, data that no reader claims included, and build_texture_pool turns
 such an image into 1x1 white, as the reference does for any failed
-decode. Any other format (BMP, TGA, TIFF, GIF, PPM: Pillow reads them,
-glTF names none of them) raises NotImplementedError (ROADMAP A12).
+decode.
 """
 
 from __future__ import annotations
@@ -24,10 +24,8 @@ import zlib
 import numpy as np
 import torch
 
-from ..utils.png import is_png, read_png
+from ..utils.image_io import read_image
 from .dds import DDS_MAGIC, KTX2_MAGIC, sniff_decode
-from .jpeg import decode_jpeg, is_jpeg
-from .webp import decode_webp, is_webp
 
 _SRGB_SLOT_KEYS = (
     "baseColorTexture",
@@ -101,15 +99,7 @@ def decode_image(model, image: dict) -> np.ndarray:
             # C order: the BGRA swizzle's fancy index leaves another memory layout, and the mip
             # chain's mean sums in layout order (the reference's DDS BGRA8 mips differ in the last bit)
             return np.ascontiguousarray(sniff_decode(data))
-        if is_png(data):
-            px = read_png(data)
-        elif is_jpeg(data):
-            px = decode_jpeg(data)
-        elif is_webp(data):
-            px = decode_webp(data)
-        else:
-            raise NotImplementedError("the port decodes PNG, JPEG, WebP, DDS and KTX2 textures; Pillow's other "
-                                      "formats (BMP, TGA, TIFF, GIF, PPM) are not ported (ROADMAP A12)")
+        px = read_image(data)
     except (struct.error, zlib.error, IndexError) as e:  # a truncated or corrupt file
         raise ValueError(f"corrupt image: {e!r}") from e
     px = px.astype(np.float32) / 255.0
@@ -150,8 +140,8 @@ def build_texture_pool(model, used_texinfos=None):
     """Decode all images -> (quads [K,16], desc [D,4], mip_table [ntex,max],
     num_mips [ntex]) (reference ops/textures.py:124). An image that fails to
     decode (ValueError, or an unreadable file) becomes 1x1 white, as in the
-    reference; a format the port has no decoder for raises. The catch is no
-    wider, so that a device or programming error is not hidden."""
+    reference. The catch is no wider, so that a device or programming error
+    is not hidden."""
     del used_texinfos  # the reference takes it too and decodes every image
     srgb = find_srgb_images(model)
     mips = []

@@ -5,8 +5,9 @@ here it is real — BASELINE.json's acceptance metric is per-spp RMSE vs
 reference renders, and this is the tool that computes it.
 
 The port's copy of vk_gltf_renderer_tpu/utils/visual_validator.py, with
-images read by utils/image_io.py (PNG or JPEG) and goldens written by
-utils/png.py instead of Pillow: a file that is neither raises ValueError.
+images read by utils/image_io.py (every format it reads: PNG, JPEG, WebP,
+BMP, GIF, TIFF, TGA, Netpbm) and goldens written by utils/png.py instead
+of Pillow: data that no reader claims raises ValueError.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def rmse(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def load_image(path) -> np.ndarray:
-    """A PNG, JPEG or WebP as RGB float32 in [0, 1]: gray repeated over three
+    """An image file as RGB float32 in [0, 1]: gray repeated over three
     channels, alpha dropped (Pillow's convert("RGB"))."""
     img = read_image(Path(path).read_bytes())
     rgb = img[..., :3] if img.shape[-1] >= 3 else np.repeat(img[..., :1], 3, axis=-1)
