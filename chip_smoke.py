@@ -28,7 +28,7 @@ Phases (each raises on failure; nothing is caught):
   4. main path: GltfRenderer(1920, 1080, spp=1, max_depth=5, device="cuda")
      renders the helmet stand-in under a procedural HDR sky through the
      user entry points (create_scene, create_hdr, on_render, image_linear,
-     save_image): 2 warm-up and 6 timed frames. The kernels' launch
+     save_image): 2 warm-up and 4 timed frames (TIMED). The kernels' launch
      counters are zeroed just before and must have moved;
   5. correctness: a 96x64 frame on the card (kernels) against the same
      frame from the port's plain CPU path, which tests/test_torch_frame.py
@@ -56,7 +56,7 @@ Phases (each raises on failure; nothing is caught):
      selection (VKGR_PRIMARY_KERNEL, VKGR_PACKET_KERNEL) = (v3, v9), (v2, v2),
      (v6, v6), (lane, lane_stream), (v5, v5), (v7, v7), (v3, v8), switched
      on one renderer (each run from frame index 0 on fresh accumulation,
-     its tables built in its warm-up): 2 warm-up and 3 timed frames each,
+     its tables built in its warm-up): 2 warm-up and 2 timed frames each,
      the launch counters zeroed just before; each
      run must move its own kernels' counters and no other traversal
      counter, and its frame 0 must agree with the (v3, v9) one at
@@ -68,9 +68,9 @@ Phases (each raises on failure; nothing is caught):
      then run through traverse_bvh4 and through v7 (traverse_bvh4_sidecar,
      the same walk over the sidecar), held equal to v7 bit for bit on every
      lane, timed in interleaved rounds, and held
-     against the plain version on a fixed subset of 65,536 lanes (dead
-     lanes included); lanes, live lanes, ms of each, the bound and the
-     frame sums are printed. Then the same frame under (lane, lane_stream),
+     against the plain version on a fixed subset of 16,384 lanes
+     (REPLAY_SUBSET, dead lanes included); lanes, live lanes, ms of each,
+     the bound and the frame sums are printed. Then the same frame under (lane, lane_stream),
      (v5, v5), (v2, v2), (v6, v6) and (v3, v8), recording traverse_lanes',
      traverse_bvh4_multipop's, traverse_bvh2's, traverse_bvh16's and
      traverse_bvh4_leafqueue's launches (v8 takes the 9 after bounce 0's
@@ -104,7 +104,7 @@ Phases (each raises on failure; nothing is caught):
      subset of 65,536 rays as in phase 6; visits, bound, stack need, table
      bytes and upload seconds printed;
  10. VKGR_TRAVERSAL=packet4 through the entry points at the bench recipe on
-     the terrain and on the helmet (2 warm-up and 4 timed frames each):
+     the terrain and on the helmet (2 warm-up and 3 timed frames each):
      only traverse_bvh4_split's counter may move among the traversal
      kernels, and frame 0 must agree with the (v3, v9) frame 0 of phases 7
      and 4 at tests/test_torch_frame.py's thresholds with the same ray count.
@@ -125,7 +125,8 @@ Phases (each raises on failure; nothing is caught):
      tables of the terrain's nodes4_fi size (11 MB, in L2) and of 268 MB
      (past L2), then each table with one warp per block and SM (the
      chain's latency alone); probe_visit variants a, b, c, d, e and q at the TPU probe's
-     sizes; each run equal to its plain version, ns per visit printed;
+     sizes; both with 1,024 visits a chain (PROBE_VISITS); each run equal
+     to its plain version, ns per visit printed;
  13. the stream-copy and micro-op probes: probe_stream_dma for every TPU
      variant A-G x copy construct (ld, cp_async, tma) at the TPU probe's
      size (one stream, 48 pages), then at card scale (one stream per SM,
@@ -143,11 +144,11 @@ Phases (each raises on failure; nothing is caught):
      two-line cfg (helmet and terrain at 512x512, 4 frames) and `compare`
      of its CSV with itself, both rc 0; the bench entry
      (python -m vk_gltf_renderer_tpu_torch.bench_impl) as a child at its
-     recipe with 5 timed frames a scene (VKGR_BENCH_FRAMES; the recipe's
+     recipe with 3 timed frames a scene (VKGR_BENCH_FRAMES; the recipe's
      20 cut for the run's time), whose JSON line must read value > 0 with
      no error; and
      utils/profiler.profile_frames on the helmet and the terrain at 1080p
-     (2 frames each, as every profile of the run), both tables printed.
+     (1 frame each, as every profile of the run: PROFILED_FRAMES), both tables printed.
  15. the material model and punctual lights: the game stand-in under the
      HDR and the game with a point, a spot and a directional light
      (scenes.make_lit_game_standin) at 1920x1080, the suite stand-in under
@@ -185,7 +186,7 @@ Phases (each raises on failure; nothing is caught):
      (with the upload of the refit's tables, then the same edit again)
      and rebuild_device_scene on the same edit; on the refitted tables
      every traversal kernel (v3/v9, v7, v2, v6, v5, v8, lane, packet4,
-     v1) against its plain walk on 65,536 probe rays (closest-hit t bit
+     v1) against its plain walk on 16,384 probe rays (PLAIN_CHECK_RAYS; closest-hit t bit
      for bit, id ties counted, occlusion equal), every selection's frame 0 against the
      default's, and traverse_bvh4's hits on the refitted tree against the
      fresh build of the moved scene (ids equal on >= 0.999 of the probe
@@ -221,7 +222,7 @@ Phases (each raises on failure; nothing is caught):
      1080p over the shadow-catcher plane at y -1.05 (6 frames, 5 timed).
  18. guides, denoise, TAAU, preview (what the viewer shows of a frame):
      (a) BASELINE config 5 (scenes.make_brainstem, animated) at 1024x1024,
-     depth 5, with denoise_guides on: 2 warm-up and 6 timed frames, each
+     depth 5, with denoise_guides on: 2 warm-up and 4 timed frames, each
      on_render then image_denoised() (temporal), both timed between two
      synchronizes; every guide finite, spec_hitdist 65504 or below 1e4,
      spec_albedo 0 on miss pixels, the denoised image finite; (b) the
@@ -232,11 +233,11 @@ Phases (each raises on failure; nothing is caught):
      helmet under the HDR (rendered at 960x540), 6 frames (5 timed): its
      record, its PNG and image_upscaled() [1080,1920,3] finite; (d)
      preview frames (render_system 1) of the helmet at 1920x1080 under the
-     sky and the HDR, each without and with the wireframe: 1 warm-up and 5
+     sky and the HDR, each without and with the wireframe: 1 warm-up and 3
      timed, ms/frame and the launches a frame of traverse_bvh4 (and of
      gather_channels, under the HDR only), after image_denoised() timed
      3 times on a guided 1080p helmet frame and profiled
-     (utils/profiler.profile_denoise, 2 calls; the sky preview too,
+     (utils/profiler.profile_denoise, 1 call; the sky preview too,
      profile_frames); build_ibl's ms (best of 3)
      per environment; (e) pick() at 16 fixed pixels equal to the port's
      CPU pick of the same scene and camera, one traverse_bvh4 launch each.
@@ -340,16 +341,24 @@ Phases (each raises on failure; nothing is caught):
      `[webp]` lines, then [time] lines.
  22. Pillow's other formats (image I/O without Pillow, no kernel of its
      own): (a) every committed fixture of tests/data/images (BMP/DIB, TGA,
-     GIF, TIFF, Netpbm and the arithmetic, lossless and CMYK/YCCK JPEGs)
-     decoded on the host, equal to the digest of Pillow's decode in
-     digests.json, refused where Pillow refuses it, and the TIFFs Pillow
-     reads only through libtiff's other codecs refused; a 2048x2048 map of
-     each format made here (the port's writers; RLE, Deflate, PackBits and
-     literal-code LZW forms assembled with numpy) decoded, host seconds
-     each; (b) the helmet at 1080p with a 512x512, 256-colour base colour
-     as PNG and as BMP, TGA, TIFF (LZW), GIF and PPM: each frame equal to
-     the PNG frame bit for bit, its ms and its traverse_bvh4 and
-     gather_channels launches; (c) headless --output in every new suffix
+     GIF, TIFF with the libtiff codecs the port reads: CCITT, LZMA, the
+     floating-point predictor, YCbCr, ThunderScan, 12-bit; Netpbm, PSD,
+     SGI, PCX/DCX, ICO/CUR, QOI, Sun raster, EPS, and the arithmetic,
+     lossless, subsampled lossless and CMYK/YCCK JPEGs) decoded on the
+     host, equal to the digest of Pillow's decode in digests.json, refused
+     where Pillow refuses it, and the TIFFs Pillow reads only through
+     libtiff's other codecs refused; a 2048x2048 map of each format (ICO
+     and CUR 256x256, an icon's largest size) made here (the port's
+     writers; RLE, Deflate, PackBits, literal-code LZW, literal packets,
+     one-byte runs, QOI_OP_RGB pixels, vertical stripes as CCITT rows and
+     a vectorised lossless JPEG coder assembled with numpy) decoded, host
+     seconds each, each read back equal where its pixels are known; (b)
+     the helmet at 1080p with a 512x512, 216-colour base colour as PNG and
+     as BMP, TGA, TIFF (LZW, LZMA), GIF, PPM, PSD, SGI, PCX, QOI and Sun
+     raster, a 256x256 ICO, a bilevel Group 4 TIFF and a 2x2-subsampled
+     lossless JPEG: each frame equal bit for bit to the frame of a PNG of
+     the same pixels, with 10 traverse_bvh4 and 16 gather_channels
+     launches, its ms printed; (c) headless --output in every new suffix
      at 1080p, read back by the port equal to the PNG output (the GIF, of
      more than 256 colours, within its median cut: the share of pixels
      that differ and the largest channel error). `[formats]` lines, then
@@ -405,11 +414,12 @@ from vk_gltf_renderer_tpu_torch.probes import device_ms  # noqa: E402
 from vk_gltf_renderer_tpu_torch.utils.png import encode_png  # noqa: E402
 
 FRAME_W, FRAME_H, SPP, DEPTH = 1920, 1080, 1, 5
-WARMUP, TIMED = 2, 6  # phase 4's helmet frames (6 timed: a cut that keeps the script within its time)
+WARMUP, TIMED = 2, 4  # phase 4's helmet frames (4 timed: a cut that keeps the script within its time)
 # timed frames cut for the run's time: phase 7's per kernel selection, phase 10's per scene
-TERRAIN_TIMED, PACKET4_TIMED = 3, 4
-BENCH_CHILD_FRAMES = 5  # phase 14's bench_impl child: its timed frames a scene (a cut of the recipe's 20)
-PROFILED_FRAMES = 2  # frames (or calls) each profile of the run covers
+TERRAIN_TIMED, PACKET4_TIMED = 2, 3
+BENCH_CHILD_FRAMES = 3  # phase 14's bench_impl child: its timed frames a scene (a cut of the recipe's 20)
+PROFILED_FRAMES = 1  # frames (or calls) each profile of the run covers (2 before, cut for the run's time)
+PROBE_VISITS = 1024  # phase 12: visits a chain of each probe run (the probes' 4,096, cut for the plain walks' time)
 SRC = "vk_gltf_renderer_tpu_torch/csrc/"
 REF = "vk_gltf_renderer_tpu/"
 TRAV_SRC = SRC + "traverse_bvh4.cu"
@@ -417,6 +427,9 @@ GATHER_SRC = SRC + "gather.cu"
 LARGE_TRIS = 1_050_000  # scenes.write_large_glb target: 1,059,968 world triangles
 LARGE_WORLD_TRIS = 1_059_968
 SUBSET = 65_536  # rays the plain versions walk on the large scene
+# cut for the run's time: the lanes of each replayed launch (phase 7b) and the probe rays of the refitted terrain
+# (16c) that the plain walks take (65,536 before)
+REPLAY_SUBSET = PLAIN_CHECK_RAYS = 16_384
 SELECTIONS = (("v3", "v9"), ("v2", "v2"), ("v6", "v6"), ("lane", "lane_stream"),
               ("v5", "v5"), ("v7", "v7"), ("v3", "v8"))
 # kernel value -> its wrapper's name in the JSON line
@@ -817,7 +830,7 @@ def _v1_beside_v2(device, bvh, rays, anyhit, k):
     tri) pair after v1's row resolution equal except on equal-t ties (the
     lanes that differ counted); for an any-hit launch, which v1 traces
     closest hit, the occlusion equal. Both timed in interleaved rounds; v1
-    held against its plain version on a fixed subset of SUBSET lanes, with
+    held against its plain version on a fixed subset of REPLAY_SUBSET lanes, with
     its bound. Returns dict(ms, traverse_bvh2, id_ties, uv_differ,
     bound_ms, max_abs_err)."""
     from vk_gltf_renderer_tpu_torch.ops import traverse as tt
@@ -849,14 +862,14 @@ def _v1_beside_v2(device, bvh, rays, anyhit, k):
     times = _time_interleaved({name: v1, "traverse_bvh2": v2}, 10)
     n = rays[0].shape[0]
     live = int((rays[7] >= 0).sum())
-    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(80 + k))[:SUBSET]
+    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(80 + k))[:REPLAY_SUBSET]
     sargs = tuple(a[sub.to(device)].contiguous() for a in rays)
     stats = {}
     err = _check_against_plain(name, v1(*sargs), tt.traverse_bvh2_split_plain(*tables, *sargs, stats=stats),
-                               SUBSET, False)
+                               REPLAY_SUBSET, False)
     _, _, arity, row_bytes = SPLIT[name]
     n_dead = 0 if bvh.bvh2_split_root_leaf else n - live
-    b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, SUBSET, SPLIT_LEAF_BYTES, n_dead=n_dead)
+    b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, REPLAY_SUBSET, SPLIT_LEAF_BYTES, n_dead=n_dead)
     return dict(ms=times[name], traverse_bvh2=times["traverse_bvh2"], id_ties=id_ties, uv_differ=uv_differ,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err, visits=visits)
 
@@ -891,7 +904,7 @@ def phase_replay(device, scenes, smi):
     to record clones of each launch's 8 ray components; then every launch
     through traverse_bvh4 and v7 (bit-equal on every lane, timed in
     interleaved rounds), against the plain version on a fixed subset of
-    SUBSET lanes (dead lanes included), with its bound."""
+    REPLAY_SUBSET lanes (dead lanes included), with its bound."""
     from vk_gltf_renderer_tpu_torch.convert import add_kernel_tables_to_device
     from vk_gltf_renderer_tpu_torch.ops import traverse as tt
     from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
@@ -911,18 +924,18 @@ def phase_replay(device, scenes, smi):
             n = rays[0].shape[0]
             live = int((rays[7] >= 0).sum())
             times = _bvh4_vs_v7(bvh, rays, anyhit)
-            sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(50 + k))[:SUBSET]
+            sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(50 + k))[:REPLAY_SUBSET]
             sargs = tuple(a[sub.to(device)].contiguous() for a in rays)
             stats = {}
             tables = (bvh.nodes4_fi, bvh.tris128, bvh.root4_code)
             err = _check_against_plain("traverse_bvh4", tb4.traverse_bvh4(*tables, *sargs, anyhit=anyhit),
                                        tt.traverse_bvh4_plain(*tables, *sargs, anyhit=anyhit, stats=stats),
-                                       SUBSET, anyhit)
-            b_ms, b_by, visits = traversal_bound(stats, 4, 128, n, SUBSET, n_dead=n - live)
+                                       REPLAY_SUBSET, anyhit)
+            b_ms, b_by, visits = traversal_bound(stats, 4, 128, n, REPLAY_SUBSET, n_dead=n - live)
             hit = "any" if anyhit else "closest"
             log(f"[replay] {label} launch {k} ({hit} hit): {n} lanes, {live} live ({100 * live / n:.2f}%): "
                 f"traverse_bvh4 {times['traverse_bvh4']:.4f} ms, v7 {times['v7']:.4f} ms; bound {b_ms:.4f} ms "
-                f"({b_by}); equal to v7 bit for bit on every lane; plain on {SUBSET} lanes "
+                f"({b_by}); equal to v7 bit for bit on every lane; plain on {REPLAY_SUBSET} lanes "
                 f"({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
             launches.append(dict(hit=hit, lanes=n, live=live, bound_ms=b_ms, max_abs_err=err, **times))
             for key, v in times.items():
@@ -949,7 +962,7 @@ def phase_replay_selections(device, scenes, smi):
     frame per scene through on_render with the selection's wrapper recorded
     (10 launches: closest and shadow per bounce; v8 the 9 after bounce 0's
     closest hit, which goes to v3), then every launch timed, held
-    against the plain version on a fixed subset of SUBSET lanes (dead lanes
+    against the plain version on a fixed subset of REPLAY_SUBSET lanes (dead lanes
     included), with its bound; the launches of BESIDE_BVH4 also beside
     traverse_bvh4 on the same lanes (v5, v8: _same_tree_vs_bvh4, closest-hit
     t bit for bit on every lane; v2, v6: _beside_bvh4), and the (v2, v2)
@@ -968,6 +981,7 @@ def phase_replay_selections(device, scenes, smi):
         mod.OVERFLOW.reset()
         results[name] = {}
         for label, r in scenes:
+            t_scene = time.perf_counter()
             recorded, aux = record_launches(r, name)
             require(0 < len(recorded) <= 2 * DEPTH, f"{label} {selection}: {len(recorded)} {name} launches")
             kern, plain, arity, row_bytes = _traversal_runs(r.dev_bvh)[name]
@@ -986,19 +1000,19 @@ def phase_replay_selections(device, scenes, smi):
                 else:
                     ms = device_ms(lambda rays=rays, anyhit=anyhit: kern(*rays, anyhit=anyhit), 10)
                     times = {}
-                sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(60 + k))[:SUBSET]
+                sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(60 + k))[:REPLAY_SUBSET]
                 sargs = tuple(a[sub.to(device)].contiguous() for a in rays)
                 stats = {}
                 err = _check_against_plain(name, kern(*sargs, anyhit=anyhit),
-                                           plain(*sargs, anyhit=anyhit, stats=stats), SUBSET, anyhit)
-                b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, SUBSET, n_dead=n - live)
+                                           plain(*sargs, anyhit=anyhit, stats=stats), REPLAY_SUBSET, anyhit)
+                b_ms, b_by, visits = traversal_bound(stats, arity, row_bytes, n, REPLAY_SUBSET, n_dead=n - live)
                 hit = "any" if anyhit else "closest"
                 beside = (f", traverse_bvh4 {times['traverse_bvh4']:.4f} ms on the same lanes "
                           + (f"(t equal bit for bit, {times['ties']} equal-t ties)" if "ties" in times else
                              f"(t differs on {times['t_differs']} lanes)") if times else "")
                 log(f"[replay] {selection} {label} launch {k} ({hit} hit): {n} lanes, {live} live "
                     f"({100 * live / n:.2f}%): {name} {ms:.4f} ms{beside}; bound {b_ms:.4f} ms ({b_by}); plain on "
-                    f"{SUBSET} lanes ({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
+                    f"{REPLAY_SUBSET} lanes ({int((sargs[7] >= 0).sum())} live), max err {err:.3g}; visits {visits}")
                 launches.append(dict(hit=hit, lanes=n, live=live, ms=ms, bound_ms=b_ms, max_abs_err=err,
                                      **{k2: v for k2, v in times.items() if k2 != name}))
                 if name == "traverse_bvh2":
@@ -1008,7 +1022,7 @@ def phase_replay_selections(device, scenes, smi):
                         + (f"t equal bit for bit on every lane, (rnode, tri) differs on {v1['id_ties']} "
                            f"(equal-t ties), u/v on {v1['uv_differ']}" if not anyhit else
                            "occlusion equal; v1 traces the segments closest hit")
-                        + f"); bound {v1['bound_ms']:.4f} ms ({v1['bound_by']}); plain on {SUBSET} lanes, "
+                        + f"); bound {v1['bound_ms']:.4f} ms ({v1['bound_by']}); plain on {REPLAY_SUBSET} lanes, "
                         f"max err {v1['max_abs_err']:.3g}; visits {v1.pop('visits')}")
                     v1_launches.append(dict(hit=hit, lanes=n, live=live, **v1))
             frame = dict(ms=sum(x["ms"] for x in launches), bound_ms=sum(x["bound_ms"] for x in launches),
@@ -1020,7 +1034,8 @@ def phase_replay_selections(device, scenes, smi):
             log(f"[replay] {selection} {label} frame ({len(launches)} launches, {frame['live']} live lanes; "
                 f"the frame counted {frame['rays']:.0f} rays): {name} {frame['ms']:.4f} ms, bound "
                 f"{frame['bound_ms']:.4f} ms" + (f", traverse_bvh4 on the same lanes {frame['traverse_bvh4_ms']:.4f} ms"
-                                                 if "traverse_bvh4_ms" in frame else "") + f", on {smi}")
+                                                 if "traverse_bvh4_ms" in frame else "") + f", on {smi} "
+                f"(the replay took {time.perf_counter() - t_scene:.1f} s)")
             results[name][label] = dict(frame=frame, launches=launches)
             if v1_launches:
                 v1_frame = {key: sum(x[key] for x in v1_launches)
@@ -1749,8 +1764,8 @@ def phase_probes(device):
 
     nf.COUNTER.launches = 0
     vs.COUNTER.launches = 0
-    nf_runs = nf.run(device)
-    vs_runs = vs.run(device)
+    nf_runs = nf.run(device, visits=PROBE_VISITS)
+    vs_runs = vs.run(device, visits=PROBE_VISITS)
     launches = {"probe_nodefetch": nf.COUNTER.launches, "probe_visit": vs.COUNTER.launches}
     require(all(v > 0 for v in launches.values()), f"a probe never launched: {launches}")
     results = {"probe_nodefetch": {"runs": {}}, "probe_visit": {"runs": {}}}
@@ -2296,7 +2311,7 @@ def phase_animation(device, tmp, hdr, smi, terrain):
     far = torch.full((n,), 1e32, device=device)
     g = torch.Generator(device="cpu").manual_seed(99)
     shadow_tmax = (torch.rand(n, generator=g) * float((bvh.scene_hi - bvh.scene_lo).norm())).to(device)
-    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(5))[:SUBSET].to(device)
+    sub = torch.randperm(n, generator=torch.Generator(device="cpu").manual_seed(5))[:PLAIN_CHECK_RAYS].to(device)
     out["refit_kernels"] = _kernel_checks("[anim] refitted terrain", bvh, comps, tmin, far, shadow_tmax, sub)
 
     # every selection's frame 0 on the refitted tables against the default's
@@ -2669,8 +2684,8 @@ def phase_alpha(device, tmp, hdr, smi):
 
 
 VIEWER_SIZE = (1024, 1024)  # phase 18a: BASELINE config 5's frame
-VIEWER_WARMUP, VIEWER_TIMED = 2, 6  # phase 18a's guided frames
-PREVIEW_TIMED = 5  # phase 18d: timed preview frames of each configuration, after 1 warm-up
+VIEWER_WARMUP, VIEWER_TIMED = 2, 4  # phase 18a's guided frames
+PREVIEW_TIMED = 3  # phase 18d: timed preview frames of each configuration, after 1 warm-up
 MOVED_BY_X = (0.3, 0.0, 0.0)  # phase 18b: the helmet's sphere instance moves by this between two frames
 PICK_PIXELS = [(x, y) for x in (760, 900, 1020, 1160) for y in (380, 500, 600, 760)]  # phase 18e, 1080p
 
@@ -3968,17 +3983,20 @@ def phase_sbvh_seed_batch_webp(device, tmp, hdr, smi):
 
 IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
 MAP_SIDE = 2048  # phase 22a: the side of each format's timed map
+ICON_SIDE = 256  # phase 22a, 22b: an icon's largest size, so ICO and CUR are timed and rendered at 256^2
 FORMATS_TEX = 512  # phase 22b: the side of the base colour
 
 
-def _tiff_strips(w, h, bps, photometric, strips, rows, compression):
-    """A little-endian TIFF of the given compressed strips (phase 22a): the
-    IFD at offset 8, the out-of-line tag values after it, then the strips."""
+def _tiff_strips(w, h, bps, photometric, strips, rows, compression, extra=()):
+    """A little-endian TIFF of the given compressed strips (phase 22a), with
+    `extra` (tag, type, values) entries: the IFD at offset 8, the
+    out-of-line tag values after it, then the strips."""
     import struct
 
     offsets = [0] * len(strips)
     tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, list(bps)), (259, 3, [compression]), (262, 3, [photometric]),
             (273, 4, offsets), (277, 3, [len(bps)]), (278, 4, [rows]), (279, 4, [len(s) for s in strips])]
+    tags = sorted(tags + list(extra))
 
     def pack(typ, v):
         return struct.pack(f"<{len(v)}{'H' if typ == 3 else 'I'}", *v)
@@ -4027,18 +4045,212 @@ def _literal_packbits(data: np.ndarray) -> bytes:
     return out.tobytes() + (bytes([len(rest) - 1]) + rest.tobytes() if len(rest) else b"")
 
 
+def _packbits_rows(planes: np.ndarray) -> bytes:
+    """PSD PackBits of [c, n, n] planes (n a multiple of 128): each row as
+    literal packets of 128, the row byte counts first."""
+    c, n, _ = planes.shape
+    pk = np.empty((c * n, n // 128, 129), np.uint8)
+    pk[..., 0] = 127
+    pk[..., 1:] = planes.reshape(c * n, n // 128, 128)
+    return np.full(c * n, n // 128 * 129, ">u2").tobytes() + pk.tobytes()
+
+
+def _psd(img, packbits=True):
+    import struct
+
+    n = img.shape[0]
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, n, n, 8, 3) + struct.pack(">III", 0, 0, 0)
+    planes = np.ascontiguousarray(img.transpose(2, 0, 1))
+    return head + (b"\0\1" + _packbits_rows(planes) if packbits else b"\0\0" + planes.tobytes())
+
+
+def _sgi(img, rle=True):
+    """SGI RGB, rows bottom-up; RLE rows as copy packets of up to 127."""
+    import struct
+
+    n = img.shape[0]
+    head = struct.pack(">hBBHHHHll4s80sl404s", 474, int(rle), 1, 3, n, n, 3, 0, 255, b"", b"map", 0, b"")
+    planes = np.ascontiguousarray(img[::-1].transpose(2, 0, 1)).reshape(3 * n, n)
+    if not rle:
+        return head + planes.tobytes()
+    full, rest = n // 127, n % 127
+    row = np.empty((3 * n, full * 128 + (rest + 1 if rest else 0) + 1), np.uint8)
+    body = row[:, : full * 128].reshape(3 * n, full, 128)
+    body[..., 0] = 0x80 | 127
+    body[..., 1:] = planes[:, : full * 127].reshape(3 * n, full, 127)
+    if rest:
+        row[:, full * 128] = 0x80 | rest
+        row[:, full * 128 + 1: full * 128 + 1 + rest] = planes[:, full * 127:]
+    row[:, -1] = 0
+    length = row.shape[1]
+    starts = 512 + 8 * 3 * n + length * np.arange(3 * n)
+    return head + starts.astype(">u4").tobytes() + np.full(3 * n, length, ">u4").tobytes() + row.tobytes()
+
+
+def _pcx(img):
+    """PCX RGB (version 5, 3 planes), every byte a one-byte run."""
+    import struct
+
+    n = img.shape[0]
+    head = struct.pack("<BBBBHHHHHH", 10, 5, 1, 8, 0, 0, n - 1, n - 1, 72, 72) + bytes(48) + bytes([0, 3])
+    head = (head + struct.pack("<HH", n, 1)).ljust(128, b"\0")
+    data = np.ascontiguousarray(img.transpose(0, 2, 1)).reshape(-1)
+    return head + np.stack([np.full_like(data, 0xC1), data], axis=-1).tobytes()
+
+
+def _icon(img, kind):
+    """An ICO (kind 1) or CUR (kind 2) of one 24-bit DIB of img [n, n, 3]
+    (n <= 256), its AND mask clear."""
+    import struct
+
+    n = img.shape[0]
+    info = struct.pack("<IiiHHIIiiII", 40, n, 2 * n, 1, 24, 0, 0, 0, 0, 0, 0)
+    dib = info + img[::-1, :, ::-1].tobytes() + bytes(n * ((n + 31) // 32 * 4))
+    return struct.pack("<HHH", 0, kind, 1) + struct.pack("<BBBBHHII", n % 256, n % 256, 0, 0, 1, 24, len(dib), 22) + dib
+
+
+def _qoi(img):
+    """QOI RGB, every pixel a QOI_OP_RGB."""
+    import struct
+
+    n = img.shape[0]
+    px = np.concatenate([np.full((n * n, 1), 0xFE, np.uint8), img.reshape(-1, 3)], axis=1)
+    return b"qoif" + struct.pack(">IIBB", n, n, 3, 0) + px.tobytes() + bytes(7) + b"\1"
+
+
+def _sun(img, rle=True):
+    """Sun raster BGR (type 1), or one RLE stream of literals (a 0x80 byte
+    as 0x80 0)."""
+    import struct
+
+    n = img.shape[0]
+    data = np.ascontiguousarray(img[..., ::-1]).reshape(-1)
+    if rle:
+        esc = data == 0x80
+        out = np.zeros(len(data) + int(esc.sum()), np.uint8)
+        pos = np.arange(len(data)) + np.cumsum(esc) - esc
+        out[pos] = data
+        data = out
+    return struct.pack(">8I", 0x59A66A95, n, n, 24, len(data), 2 if rle else 1, 0, 0) + data.tobytes()
+
+
+def _fax(n, compression):
+    """A bilevel n x n TIFF of vertical stripes 32 pixels wide (white first)
+    coded as CCITT modified Huffman rows (2), T.4 one-dimensional rows after
+    an EOL each (3) or T.6 (4: the first row in horizontal mode, each other
+    row as vertical-0 codes), MinIsWhite."""
+    pairs = n // 64
+    pair = "00011011" + "000001101010"  # the T.4 codes of a white and a black run of 32
+    row1d = pair * pairs
+    if compression == 2:
+        row = np.array(list(row1d + "0" * (-len(row1d) % 8)), np.uint8)
+        bits = np.tile(row, n)
+    elif compression == 3:
+        bits = np.tile(np.array(list("000000000001" + row1d), np.uint8), n)
+    else:
+        first = np.array(list(("001" + pair) * pairs), np.uint8)  # horizontal mode
+        bits = np.concatenate([first, np.ones((n - 1) * 2 * pairs, np.uint8), np.array(list("0000000000010000"
+                                                                                             "00000001"), np.uint8)])
+    strip = np.packbits(bits).tobytes()
+    return _tiff_strips(n, n, (1,), 0, [strip], n, compression), (np.arange(n) % 64 < 32)[None, :].repeat(n, 0)
+
+
+def _fp_predictor(f: np.ndarray) -> bytes:
+    """libtiff's floating-point predictor applied to float32 rows [h, w]:
+    the big-endian byte planes of each row, then differenced byte by byte."""
+    h, w = f.shape
+    planes = f.astype(">f4").view(np.uint8).reshape(h, w, 4).transpose(0, 2, 1).reshape(h, 4 * w)
+    d = planes.astype(np.int16)
+    d[:, 1:] -= planes[:, :-1].astype(np.int16)
+    return (d & 255).astype(np.uint8).tobytes()
+
+
+def _ycbcr_units(img, hs=2, vs=2):
+    """YCbCr data units (hs x vs luma, then Cb, Cr) of img [h, w, 3]: the
+    green channel as luma, the unit's red and blue as chroma."""
+    h, w = img.shape[:2]
+    y = img[..., 1].reshape(h // vs, vs, w // hs, hs).transpose(0, 2, 1, 3).reshape(h // vs, w // hs, hs * vs)
+    c = img[::vs, ::hs]
+    return np.concatenate([y, c[..., :1], c[..., 2:3]], axis=-1).tobytes()
+
+
+def _thunderscan(gray4):
+    """ThunderScan rows of raw-pixel ops (0xC0 | v) of 4-bit gray."""
+    return (0xC0 | gray4).astype(np.uint8).tobytes()
+
+
+def _gray12(v):
+    """12-bit samples [h, w] (w even), MSB first, packed."""
+    a, b = v[:, 0::2].astype(np.uint32), v[:, 1::2].astype(np.uint32)
+    return np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], axis=-1).astype(np.uint8).tobytes()
+
+
+def _lossless_jpeg(img):
+    """A lossless JPEG (SOF3, predictor 1, the Annex K DC luminance table)
+    of img [n, n, 3]: component 1 the red channel sampled 2x2, components
+    2 and 3 green and blue sampled 1x1 (every other row and column), one
+    interleaved scan, no markers (RGB); -> (file, the image it decodes to)."""
+    import struct
+
+    n = img.shape[0]
+    planes = [img[..., 0], img[::2, ::2, 1], img[::2, ::2, 2]]
+    code, size = jpeg._huff_codes(*jpeg.STD_HUFFMAN["dc_lum"])
+    code, size = np.asarray(code, np.int64), np.asarray(size, np.int64)
+
+    def diffs(p):
+        p = p.astype(np.int64)
+        pred = np.empty_like(p)
+        pred[:, 1:] = p[:, :-1]
+        pred[1:, 0] = p[:-1, 0]
+        pred[0, 0] = 128
+        return p - pred
+
+    dy, d1, d2 = (diffs(p) for p in planes)
+    m = n // 2
+    units = np.concatenate([dy.reshape(m, 2, m, 2).transpose(0, 2, 1, 3).reshape(m, m, 4), d1[..., None],
+                            d2[..., None]], axis=-1).reshape(-1)
+    cat = np.where(units == 0, 0, np.floor(np.log2(np.abs(units) + 0.5)).astype(np.int64) + 1)
+    cat = np.where(np.abs(units) >= (1 << cat), cat + 1, cat)
+    extra = np.where(units > 0, units, units + (1 << cat) - 1)
+    value = (code[cat] << cat) | extra
+    nbits = size[cat] + cat
+    chunks = []
+    for lo in range(0, len(value), 1 << 20):
+        v, nb = value[lo:lo + (1 << 20)], nbits[lo:lo + (1 << 20)]
+        owner = np.repeat(np.arange(len(v)), nb)
+        k = np.arange(len(owner)) - np.repeat(np.cumsum(nb) - nb, nb)
+        chunks.append(((v[owner] >> (nb[owner] - 1 - k)) & 1).astype(np.uint8))
+    bits = np.concatenate(chunks)
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    ff = np.flatnonzero(data == 0xFF)
+    data = np.insert(data, ff + 1, 0)
+    dc_bits, dc_vals = jpeg.STD_HUFFMAN["dc_lum"]
+    sof = struct.pack(">BHHB", 8, n, n, 3) + bytes([1, 0x22, 0, 2, 0x11, 0, 3, 0x11, 0])
+    sos = bytes([3, 1, 0, 2, 0, 3, 0, 1, 0, 0])
+    out = (b"\xff\xd8" + jpeg._segment(0xC3, sof) + jpeg._segment(0xC4, bytes([0]) + dc_bits + dc_vals)
+           + jpeg._segment(0xDA, sos) + data.tobytes() + b"\xff\xd9")
+    up = np.stack([planes[0]] + [np.repeat(np.repeat(p, 2, 0), 2, 1) for p in planes[1:]], axis=-1)
+    return out, up
+
 def _format_maps(img):
-    """{format: 2048^2 file bytes} for phase 22a, img [n, n, 3] uint8 of at most 256 colours."""
+    """{name: (2048^2 file bytes, the image it must decode to or None)} for
+    phase 22a (ICO and CUR 256^2): img [n, n, 3] uint8 of at most 216
+    colours (the GIF lossless; the LZMA and lossless JPEG maps built in
+    seconds), no byte of it 0x80."""
+    import lzma
     import struct
     import zlib
 
     from vk_gltf_renderer_tpu_torch.ops import bmp, gif, netpbm, tga, tiff
 
     n = img.shape[0]
-    gray = img[..., 1].copy()
-    out = {"bmp_rgb24": bmp.encode_bmp(img), "tga_rgb24": tga.encode_tga(img), "tiff_raw": tiff.encode_tiff(img),
-           "gif": gif.encode_gif(img), "ppm_p6": netpbm.encode_netpbm(img),
-           "pgm_16bit": b"P5\n%d %d\n65535\n" % (n, n) + (gray.astype(">u2") * 257).tobytes()}
+    gray = np.ascontiguousarray(img[..., 1])
+    rgb = lambda g: np.repeat(g[..., None], 3, axis=-1)  # noqa: E731
+    out = {"bmp_rgb24": (bmp.encode_bmp(img), img), "tga_rgb24": (tga.encode_tga(img), img),
+           "tiff_raw": (tiff.encode_tiff(img), img), "gif": (gif.encode_gif(img), img),
+           "ppm_p6": (netpbm.encode_netpbm(img), img),
+           "pgm_16bit": (b"P5\n%d %d\n65535\n" % (n, n) + (gray.astype(">u2") * 257).tobytes(), None)}
     # RLE8: runs of up to 255 pixels of a banded gray image, EOL after each row, EOB
     bands = (np.arange(n) // 64 * 37 % 251).astype(np.uint8)
     runs = []
@@ -4052,16 +4264,42 @@ def _format_maps(img):
     rle = b"".join(runs) + b"\0\1"
     off = 14 + 40 + 1024
     out["bmp_rle8"] = (b"BM" + struct.pack("<IHHI", off + len(rle), 0, 0, off)
-                       + struct.pack("<IiiHHIIiiII", 40, n, n, 1, 8, 1, len(rle), 0, 0, 256, 0) + pal.tobytes() + rle)
+                       + struct.pack("<IiiHHIIiiII", 40, n, n, 1, 8, 1, len(rle), 0, 0, 256, 0) + pal.tobytes() + rle,
+                       None)
     # TGA RLE: run packets of 128 pixels along each row
     px = img[::-1, :, ::-1].reshape(n, n // 128, 128, 3)[:, :, 0]
     packets = np.concatenate([np.full((n, n // 128, 1), 0xFF, np.uint8), px], axis=-1)
-    out["tga_rle"] = struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, n, n, 24, 0) + packets.tobytes()
+    out["tga_rle"] = (struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, n, n, 24, 0) + packets.tobytes(), None)
     rows = 64
     strips = [np.ascontiguousarray(img[y:y + rows]).reshape(-1) for y in range(0, n, rows)]
-    out["tiff_deflate"] = _tiff_strips(n, n, (8, 8, 8), 2, [zlib.compress(s.tobytes(), 6) for s in strips], rows, 8)
-    out["tiff_packbits"] = _tiff_strips(n, n, (8, 8, 8), 2, [_literal_packbits(s) for s in strips], rows, 32773)
-    out["tiff_lzw"] = _tiff_strips(n, n, (8, 8, 8), 2, [_literal_lzw(s) for s in strips], rows, 5)
+    out["tiff_deflate"] = (_tiff_strips(n, n, (8, 8, 8), 2, [zlib.compress(s.tobytes(), 6) for s in strips], rows, 8),
+                           img)
+    out["tiff_packbits"] = (_tiff_strips(n, n, (8, 8, 8), 2, [_literal_packbits(s) for s in strips], rows, 32773), img)
+    out["tiff_lzw"] = (_tiff_strips(n, n, (8, 8, 8), 2, [_literal_lzw(s) for s in strips], rows, 5), img)
+    icon = np.ascontiguousarray(img[:ICON_SIDE, :ICON_SIDE])
+    out.update({"psd_raw": (_psd(img, False), img), "psd_packbits": (_psd(img), img),
+                "sgi_raw": (_sgi(img, False), img), "sgi_rle": (_sgi(img), img), "pcx_rle": (_pcx(img), img),
+                "ico_256_bmp": (_icon(icon, 1), icon), "cur_256_bmp": (_icon(icon, 2), icon),
+                "qoi_rgb_ops": (_qoi(img), img), "sun_raw": (_sun(img, False), img), "sun_rle": (_sun(img), img)})
+    out["dcx"] = ((987654321).to_bytes(4, "little") + (12).to_bytes(4, "little") + bytes(4) + out["pcx_rle"][0], img)
+    out["tiff_lzma"] = (_tiff_strips(n, n, (8, 8, 8), 2, [lzma.compress(s.tobytes(), preset=1) for s in strips], rows,
+                                     34925), img)
+    for comp, name in ((2, "tiff_ccitt_rle"), (3, "tiff_group3"), (4, "tiff_group4")):
+        data, on = _fax(n, comp)
+        out[name] = (data, rgb(np.where(on, 255, 0).astype(np.uint8)))
+    f = (gray.astype(np.float32) - 100.0) / 7.0
+    fstrips = [zlib.compress(_fp_predictor(f[y:y + rows]), 6) for y in range(0, n, rows)]
+    out["tiff_float_predictor3"] = (_tiff_strips(n, n, (32,), 1, fstrips, rows, 8, extra=[(317, 3, [3]), (339, 3, [3])]),
+                                    rgb(np.clip(f, 0, 255).astype(np.uint8)))
+    ystrips = [_literal_lzw(np.frombuffer(_ycbcr_units(img[y:y + rows]), np.uint8)) for y in range(0, n, rows)]
+    out["tiff_ycbcr_22_lzw"] = (_tiff_strips(n, n, (8, 8, 8), 6, ystrips, rows, 5), None)
+    out["tiff_thunderscan"] = (_tiff_strips(n, n, (4,), 1, [_thunderscan(gray[y:y + rows] >> 4)
+                                                           for y in range(0, n, rows)], rows, 32809),
+                               rgb((gray >> 4) * 17))
+    out["tiff_gray12"] = (_tiff_strips(n, n, (12,), 1, [_gray12(gray[y:y + rows].astype(np.uint16) * 16)
+                                                        for y in range(0, n, rows)], rows, 1),
+                          rgb(np.minimum(gray.astype(np.int32) * 16, 255).astype(np.uint8)))
+    out["jpeg_lossless_2x2"] = _lossless_jpeg(img)
     return out
 
 
@@ -4109,63 +4347,84 @@ def _formats_fixtures():
 
 
 def _formats_maps():
-    """Phase 22a's 2048^2 maps: host seconds of each format's decode (the
-    coder libraries built by _formats_fixtures)."""
-    from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
+    """Phase 22a's maps: host seconds of each format's decode (the coder
+    libraries built by _formats_fixtures); the ones whose pixels are known
+    read back equal."""
+    from vk_gltf_renderer_tpu_torch.utils.image_io import identify_and_read
 
     base = tscenes.texture_image(MAP_SIDE, seed=7)[..., :3]
     img = (base // 43 * 43).astype(np.uint8)  # at most 216 colours, so that the GIF is lossless
-    maps = _format_maps(img)
     out = {}
-    for name, data in maps.items():
+    for name, (data, want) in _format_maps(img).items():
         t0 = time.perf_counter()
-        dec = read_image(data)
+        fmt, dec = identify_and_read(data)
         secs = time.perf_counter() - t0
-        require(dec.shape[:2] == (MAP_SIDE, MAP_SIDE), f"[formats] {name}: a {dec.shape} decode")
-        if name in ("bmp_rgb24", "tga_rgb24", "tiff_raw", "gif", "ppm_p6", "tiff_deflate", "tiff_packbits",
-                    "tiff_lzw"):
-            require(np.array_equal(dec[..., :3], img), f"[formats] {name}: the 2048^2 map does not read back")
-        out[name] = dict(bytes=len(data), host_s=secs)
-        log(f"[formats] (a) {name} {MAP_SIDE}x{MAP_SIDE}, {len(data)} bytes: host decode {secs:.3f} s")
+        side = ICON_SIDE if name.startswith(("ico", "cur")) else MAP_SIDE
+        require(dec.shape[:2] == (side, side), f"[formats] {name}: a {dec.shape} decode")
+        if want is not None:
+            require(np.array_equal(dec[..., :3], want), f"[formats] {name}: the map does not read back")
+        out[name] = dict(format=fmt, bytes=len(data), side=side, host_s=secs)
+        log(f"[formats] (a) {name} ({fmt}) {side}x{side}, {len(data)} bytes: host decode {secs:.3f} s"
+            + ("; read back equal" if want is not None else ""))
     return out
 
 
 def _formats_frames(device, tmp, hdr, smi):
-    """Phase 22b: the helmet with its base colour in each lossless new format."""
+    """Phase 22b: the helmet with its base colour in each lossless format,
+    each frame equal bit for bit to the frame of a PNG of the same pixels
+    (the icon's corner, the bilevel stripes, the upsampled JPEG planes),
+    with 10 traverse_bvh4 and 16 gather_channels launches."""
+    import lzma
+
     from vk_gltf_renderer_tpu_torch.ops import bmp, gif, netpbm, tga
     from vk_gltf_renderer_tpu_torch.ops import gather as tgather
     from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
     from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
 
-    img = (tscenes.texture_image(FORMATS_TEX, seed=3)[..., :3] // 43 * 43).astype(np.uint8)
-    strips = [np.ascontiguousarray(img[y:y + 32]).reshape(-1) for y in range(0, FORMATS_TEX, 32)]
-    files = {"png": (encode_png(img), "base.png"), "bmp": (bmp.encode_bmp(img), "base.bmp"),
-             "tga": (tga.encode_tga(img), "base.tga"),
-             "tiff_lzw": (_tiff_strips(FORMATS_TEX, FORMATS_TEX, (8, 8, 8), 2, [_literal_lzw(s) for s in strips], 32,
-                                       5), "base.tif"),
-             "gif": (gif.encode_gif(img), "base.gif"), "ppm": (netpbm.encode_netpbm(img), "base.ppm")}
+    n = FORMATS_TEX
+    img = (tscenes.texture_image(n, seed=3)[..., :3] // 43 * 43).astype(np.uint8)
+    icon = np.ascontiguousarray(img[:ICON_SIDE, :ICON_SIDE])
+    fax, on = _fax(n, 4)
+    ljpeg, up = _lossless_jpeg(img)
+    refs = {"png": img, "png_icon": icon, "png_bilevel": np.repeat(np.where(on, 255, 0).astype(np.uint8)[..., None], 3,
+                                                                    axis=-1), "png_up": up}
+    strips = [np.ascontiguousarray(img[y:y + 32]).reshape(-1) for y in range(0, n, 32)]
+    files = {"bmp": (bmp.encode_bmp(img), "base.bmp", "png"), "tga": (tga.encode_tga(img), "base.tga", "png"),
+             "tiff_lzw": (_tiff_strips(n, n, (8, 8, 8), 2, [_literal_lzw(s) for s in strips], 32, 5), "base.tif",
+                          "png"),
+             "gif": (gif.encode_gif(img), "base.gif", "png"), "ppm": (netpbm.encode_netpbm(img), "base.ppm", "png"),
+             "psd": (_psd(img), "base.psd", "png"), "sgi": (_sgi(img), "base.rgb", "png"),
+             "pcx": (_pcx(img), "base.pcx", "png"), "ico": (_icon(icon, 1), "base.ico", "png_icon"),
+             "qoi": (_qoi(img), "base.qoi", "png"), "sun": (_sun(img), "base.ras", "png"),
+             "tiff_lzma": (_tiff_strips(n, n, (8, 8, 8), 2, [lzma.compress(s.tobytes()) for s in strips], 32, 34925),
+                           "base_lzma.tif", "png"),
+             "tiff_group4": (fax, "base_g4.tif", "png_bilevel"), "jpeg_lossless_2x2": (ljpeg, "base.jpg", "png_up")}
     d = os.path.join(tmp, "formats22")
     os.makedirs(d, exist_ok=True)
-    frames, first_png = {}, None
-    for kind, (data, name) in files.items():
+    frames, firsts = {}, {}
+    for kind, (data, name, ref) in [(k, (encode_png(v), k + ".png", None)) for k, v in refs.items()] + list(files.items()):
         r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
         r.create_scene(tscenes.helmet_with_texture(d, data, name))
         r.create_hdr(hdr)
-        require(r.dev_scene.tex_desc[0, 1:3].tolist() == [FORMATS_TEX, FORMATS_TEX],
-                f"[formats] {kind}: the base colour did not decode")
+        side = refs[ref or kind].shape[0]
+        require(r.dev_scene.tex_desc[0, 1:3].tolist() == [side, side], f"[formats] {kind}: the base colour did not "
+                                                                       f"decode")
         tb4.COUNTER.launches = 0
         tgather.COUNTER.launches = 0
         times, _, first = _render_frames(r, 0, 1)
         launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
-        if kind == "png":
-            first_png = first
+        require(launches == {"traverse_bvh4": 10, "gather_channels": 16},
+                f"[formats] {kind}: launches a frame {launches}, not 10 and 16")
+        if ref is None:
+            firsts[kind] = first
         else:
-            require(all(np.array_equal(a, b) for a, b in zip(first, first_png)),
-                    f"[formats] the {kind} frame differs from the PNG frame")
-        frames[kind] = dict(ms=1e3 * times[0], launches=launches)
-        log(f"[formats] (b) helmet {FRAME_W}x{FRAME_H} with a {kind} base colour: {1e3 * times[0]:.2f} ms, "
-            f"traverse_bvh4 {launches['traverse_bvh4']} and gather_channels {launches['gather_channels']} "
-            f"launches" + ("" if kind == "png" else "; equal to the PNG frame bit for bit") + f"; on {smi}")
+            require(all(np.array_equal(a, b) for a, b in zip(first, firsts[ref])),
+                    f"[formats] the {kind} frame differs from the {ref} frame")
+        frames[kind] = dict(ms=1e3 * times[0], launches=launches, tex_side=side)
+        log(f"[formats] (b) helmet {FRAME_W}x{FRAME_H} with a {side}x{side} {kind} base colour: "
+            f"{1e3 * times[0]:.2f} ms, traverse_bvh4 {launches['traverse_bvh4']} and gather_channels "
+            f"{launches['gather_channels']} launches" + (f"; equal to the {ref} frame bit for bit" if ref else "")
+            + f"; on {smi}")
         del r
     return frames
 
@@ -4227,9 +4486,7 @@ def phase_pillow_formats(device, tmp, hdr, smi):
     out["frames"] = _formats_frames(device, tmp, hdr, smi)
     log(f"[time] phase 22 (b) done at {time.perf_counter() - t_phase:.1f} s into the phase")
     out["headless"] = _formats_headless(device, tmp, hdr, smi)
-    out["launches_per_frame"] = out["frames"]["bmp"]["launches"]
-    require(all(v > 0 for v in out["launches_per_frame"].values()),
-            f"phase 22: a kernel never launched {out['launches_per_frame']}")
+    out["launches_per_frame"] = out["frames"]["png"]["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[time] Pillow's other formats phase {out['seconds']:.1f} s")
     return out

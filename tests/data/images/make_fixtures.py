@@ -1,15 +1,18 @@
 """Regenerate the image fixtures of this directory and digests.json.
 
-The files are BMP/DIB, TGA, GIF, TIFF, Netpbm and JPEG forms that the JAX
-package reads through Pillow (12.1.0 when they were made) and the port
-reads without it: files Pillow writes, and files assembled here from
-seeded numpy images for the forms Pillow cannot be asked to write (OS/2
-and V4/V5 BMP headers, bit masks, RLE; TGA colour maps and packets across
-scan lines; GIF frames off the logical screen, local tables, a full LZW
-table; TIFF tiles, planes, big-endian, BigTIFF, predictors, old-style
-LZW, JPEG strips with shared tables; arithmetic-coded, lossless and
-CMYK/YCCK JPEG through tests/torch_test_helpers.py's encoders). Some are
-files Pillow refuses. digests.json holds, for each file, the shape and
+The files are BMP/DIB, TGA, GIF, TIFF, Netpbm, JPEG, PSD, SGI, PCX/DCX,
+ICO/CUR, QOI and Sun raster forms that the JAX package reads through
+Pillow (12.1.0 when they were made) and the port reads without it: files
+Pillow writes, and files assembled here from seeded numpy images for the
+forms Pillow cannot be asked to write (OS/2 and V4/V5 BMP headers, bit
+masks, RLE; TGA colour maps and packets across scan lines; GIF frames off
+the logical screen, local tables, a full LZW table; TIFF tiles, planes,
+big-endian, BigTIFF, predictors, old-style LZW, JPEG strips with shared
+tables, subsampled YCbCr, ThunderScan, 12-bit gray; arithmetic-coded,
+lossless (subsampled too) and CMYK/YCCK JPEG through
+tests/torch_test_helpers.py's encoders; PSD, SGI RLE, PCX bit planes, DCX,
+icons and cursors with DIB images, QOI ops, Sun raster). Some are files
+Pillow refuses, EPS among them (Pillow needs Ghostscript to load it). digests.json holds, for each file, the shape and
 sha256 of Pillow's decode (Image.open(f).convert("RGBA") as uint8 bytes),
 or that Pillow refuses it, so that the port can be held to Pillow where
 Pillow is absent (chip_smoke.py's phase 22); tests/test_torch_images.py
@@ -702,19 +705,125 @@ def tiff() -> dict:
     return out
 
 
-def libtiff_only() -> dict:
-    """TIFF forms Pillow reads through libtiff's other codecs, which the port
-    refuses (ROADMAP C): CCITT Group 4 and an LZMA-compressed strip where
-    Pillow's libtiff has them."""
+def thunderscan(px) -> bytes:
+    """ThunderScan data of 4-bit rows: runs of the last pixel (never to the
+    row's end, where libtiff leaves them unwritten), three 2-bit or two
+    3-bit deltas, raw pixels."""
+    d2, d3 = {0: 0, 1: 1, -1: 3}, {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    out = bytearray()
+    for row in px:
+        row = [int(v) for v in row]
+        w, x, last = len(row), 0, 0
+        while x < w:
+            k = 0
+            while x + k < w - 1 and k < 63 and row[x + k] == last:
+                k += 1
+            if k >= 2:
+                out.append(k)
+                x += k
+                continue
+            dd = [((row[x + i] - (row[x + i - 1] if i else last) + 8) % 16) - 8 for i in range(min(3, w - x))]
+            if len(dd) == 3 and all(v in d2 for v in dd):
+                out.append(0x40 | (d2[dd[0]] << 4) | (d2[dd[1]] << 2) | d2[dd[2]])
+                x, last = x + 3, row[x + 2]
+            elif len(dd) >= 2 and all(v in d3 for v in dd[:2]):
+                out.append(0x80 | (d3[dd[0]] << 3) | d3[dd[1]])
+                x, last = x + 2, row[x + 1]
+            else:
+                out.append(0xC0 | row[x])
+                x, last = x + 1, row[x]
+    return bytes(out)
+
+
+def ycbcr_units(rgb, hs, vs):
+    """YCbCr data units (hs x vs luma samples, then Cb, Cr of the unit's
+    mean colour) of an RGB image, the edges replicated to whole units."""
+    h, w = rgb.shape[:2]
+    pad = np.pad(rgb.astype(np.float64), ((0, -h % vs), (0, -w % hs), (0, 0)), mode="edge")
+    y = pad @ [0.299, 0.587, 0.114]
+    cb = (pad[..., 2] - y) / 1.772 + 128
+    cr = (pad[..., 0] - y) / 1.402 + 128
+    by, bx = pad.shape[0] // vs, pad.shape[1] // hs
+    yu = y.reshape(by, vs, bx, hs).transpose(0, 2, 1, 3).reshape(by, bx, hs * vs)
+    cu = [c.reshape(by, vs, bx, hs).mean(axis=(1, 3))[..., None] for c in (cb, cr)]
+    return np.clip(np.concatenate([yu] + cu, -1).round(), 0, 255).astype(np.uint8).tobytes()
+
+
+def libtiff() -> dict:
+    """TIFF forms Pillow reads through libtiff's other codecs: CCITT (RLE,
+    T.4 one- and two-dimensional, T.6), LZMA, the floating-point predictor,
+    YCbCr that JPEG did not code, ThunderScan and 12-bit gray; and the
+    ones it refuses (WebP without libtiff's WebP codec, SGILog,
+    uncompressed YCbCr)."""
     g = smooth(37, 29, 46, 1)[..., 0]
-    out = {}
-    for name, img, comp in (("tiff_libtiff_group4.tif", Image.fromarray(g).convert("1"), "group4"),
-                            ("tiff_libtiff_lzma.tif", Image.fromarray(g), "lzma"),
-                            ("tiff_libtiff_zstd.tif", Image.fromarray(g), "zstd")):
-        try:
-            out[name] = pillow(img, "TIFF", compression=comp)
-        except (OSError, ValueError, KeyError):
-            pass
+    rgb, rgba = smooth(37, 29, 47), smooth(37, 29, 48, 4)
+    bl = Image.fromarray(g).convert("1")
+    big = Image.fromarray(smooth(300, 200, 49, 1)[..., 0]).convert("1")
+    out = {
+        "tiff_libtiff_group4.tif": pillow(bl, "TIFF", compression="group4"),
+        "tiff_libtiff_lzma.tif": pillow(Image.fromarray(g), "TIFF", compression="lzma"),
+        "tiff_ccitt_rle.tif": pillow(bl, "TIFF", compression="tiff_ccitt"),
+        "tiff_group3_1d.tif": pillow(bl, "TIFF", compression="group3"),
+        "tiff_group3_2d.tif": pillow(bl, "TIFF", compression="group3", tiffinfo={292: 1}),
+        "tiff_group3_2d_fill_bits.tif": pillow(big, "TIFF", compression="group3", tiffinfo={292: 5}),
+        "tiff_group4_300x200.tif": pillow(big, "TIFF", compression="group4"),
+        "tiff_ccitt_rle_300x200.tif": pillow(big, "TIFF", compression="tiff_ccitt"),
+        "tiff_lzma_rgb.tif": pillow(Image.fromarray(rgb), "TIFF", compression="lzma"),
+        "tiff_lzma_rgba.tif": pillow(Image.fromarray(rgba), "TIFF", compression="lzma"),
+        "tiff_float_predictor3_lzw.tif": pillow(Image.fromarray(g.astype(np.float32) * 1.3 - 7), "TIFF",
+                                                compression="tiff_lzw", tiffinfo={317: 3}),
+        "tiff_float_predictor3_deflate.tif": pillow(Image.fromarray(g.astype(np.float32) / 3 + 0.25), "TIFF",
+                                                    compression="tiff_adobe_deflate", tiffinfo={317: 3}),
+        "tiff_ycbcr_lzw.tif": pillow(Image.fromarray(rgb).convert("YCbCr"), "TIFF", compression="tiff_lzw"),
+    }
+    # a G4 strip with FillOrder 2, and one in MinIsWhite
+    g4 = Image.open(io.BytesIO(out["tiff_libtiff_group4.tif"]))
+    strip = out["tiff_libtiff_group4.tif"][g4.tag_v2[273][0]:g4.tag_v2[273][0] + g4.tag_v2[279][0]]
+    rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+    out["tiff_group4_fill_order_2.tif"] = tiff_file(37, 29, (1,), 1, [rev[np.frombuffer(strip, np.uint8)].tobytes()],
+                                                    ("strips", 29), compression=4, tags={266: (3, [2])})
+    out["tiff_group4_min_is_white.tif"] = tiff_file(37, 29, (1,), 0, [strip], ("strips", 29), compression=4)
+    for hs, vs, comp in ((2, 2, 8), (2, 1, 5), (1, 2, 32773), (4, 2, 8)):
+        units = [ycbcr_units(s, hs, vs) for s in split(rgb, 8)]
+        enc = {8: zlib.compress, 5: tiff_lzw, 32773: packbits}[comp]
+        out[f"tiff_ycbcr_{hs}{vs}_{comp}.tif"] = tiff_file(37, 29, (8, 8, 8), 6, [enc(u) for u in units],
+                                                           ("strips", 8), compression=comp,
+                                                           tags={530: (3, [hs, vs])})
+    out["tiff_ycbcr_22_coefficients.tif"] = tiff_file(
+        37, 29, (8, 8, 8), 6, [zlib.compress(ycbcr_units(rgb, 2, 2))], ("strips", 29), compression=8,
+        tags={530: (3, [2, 2]), 529: (5, [2126, 10000, 7152, 10000, 722, 10000]),
+              532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])})
+    out["tiff_thunderscan.tif"] = tiff_file(37, 29, (4,), 1, [thunderscan(g >> 4)], ("strips", 29), compression=32809)
+    v = g.astype(">u2") * 16 + 7
+    bits = np.unpackbits(v.view(np.uint8).reshape(29, 37, 2), axis=2)[:, :, 4:].reshape(29, -1)
+    packed = np.packbits(np.pad(bits, ((0, 0), (0, -bits.shape[1] % 8))), axis=1)
+    out["tiff_gray12.tif"] = tiff_file(37, 29, (12,), 1, [packed.tobytes()], ("strips", 29))
+    out["tiff_gray12_lzw.tif"] = tiff_file(37, 29, (12,), 1, [tiff_lzw(packed.tobytes())], ("strips", 29),
+                                           compression=5)
+    from vk_gltf_renderer_tpu_torch.ops.webp import encode_webp
+
+    out["tiff_refused_webp.tif"] = tiff_file(37, 29, (8, 8, 8), 2, [encode_webp(rgb)], ("strips", 29),
+                                             compression=50001)
+    out["tiff_refused_sgilog.tif"] = tiff_file(37, 29, (16,), 32844, [bytes(37 * 29 * 2)], ("strips", 29),
+                                               compression=34676, tags={339: (3, [2])})
+    out["tiff_refused_ycbcr_raw.tif"] = tiff_file(37, 29, (8, 8, 8), 6, [rgb.tobytes()], ("strips", 29),
+                                                  tags={530: (3, [1, 1])})
+    return out
+
+
+def libtiff_only() -> dict:
+    """TIFF forms Pillow reads through libtiff and the port refuses
+    (ROADMAP C): ZSTD (no decoder without a package), old-style JPEG (6)
+    and CIELab (Pillow converts it through LittleCMS)."""
+    g, rgb = smooth(37, 29, 46, 1)[..., 0], smooth(37, 29, 41)
+    jp = pillow(Image.fromarray(rgb), "JPEG", quality=90)
+    out = {"tiff_libtiff_old_jpeg.tif": tiff_file(37, 29, (8, 8, 8), 6, [jp], ("strips", 29), compression=6),
+           "tiff_libtiff_cielab.tif": tiff_file(37, 29, (8, 8, 8), 8, [tiff_lzw(rgb.tobytes())], ("strips", 29),
+                                                compression=5)}
+    try:
+        out["tiff_libtiff_zstd.tif"] = pillow(Image.fromarray(g), "TIFF", compression="zstd")
+    except (OSError, ValueError, KeyError):
+        pass
     return out
 
 
@@ -743,6 +852,15 @@ def jpeg() -> dict:
                                                  adobe=2, jfif=False),
         "jpeg_ycck_arith.jpg": jpeg_from_planes(cmyk_to_ycck(cmyk), adobe=2, jfif=False, arith=True),
     }
+    for hs, vs in ((2, 2), (2, 1), (1, 2)):
+        cw, ch = -(-45 // hs), -(-37 // vs)
+        small = [np.ascontiguousarray(rgb[::vs, ::hs, c][:ch, :cw]) for c in (1, 2)]
+        for inter in (True, False):
+            for adobe in (0, None):
+                name = f"jpeg_lossless_{hs}x{vs}_{'interleaved' if inter else 'scans'}{'_adobe0' if adobe == 0 else ''}"
+                out[name + ".jpg"] = jpeg_lossless([rgb[..., 0]] + small, predictor=1 + (hs + 2 * vs) % 7,
+                                                   samp=[(hs, vs), (1, 1), (1, 1)], interleaved=inter,
+                                                   size=(45, 37), adobe=adobe)
     base = jpeg_lossless([rgb[..., 0]])
     i = base.index(b"\xff\xc3")
     out["jpeg_refused_lossless_arith.jpg"] = base[:i] + b"\xff\xcb" + base[i + 2:]
@@ -754,14 +872,376 @@ def jpeg() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ PSD
+
+
+def psd_file(mode, bits, channels, w, h, planes, compression=0, cmap=b"", layers=b"", resources=b""):
+    """A PSD whose merged image is `planes` (bytes of each channel, rows of
+    (w * bits + 7) // 8 bytes), raw or PackBits row by row."""
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels, h, w, bits, mode)
+    out = head + struct.pack(">I", len(cmap)) + cmap + struct.pack(">I", len(resources)) + resources
+    out += struct.pack(">I", len(layers)) + layers
+    row = (w * bits + 7) // 8
+    if compression == 0:
+        return out + struct.pack(">H", 0) + b"".join(planes)
+    rows = [packbits(p[y * row:(y + 1) * row]) for p in planes for y in range(h)]
+    return out + struct.pack(">H", 1) + b"".join(struct.pack(">H", len(r)) for r in rows) + b"".join(rows)
+
+
+def psd() -> dict:
+    w, h = 23, 17
+    rgba = smooth(w, h, 61, 4)
+    q = rgba // 16 * 16  # runs for PackBits
+    g = smooth(w, h, 62, 1)[..., 0]
+    planes = lambda a: [np.ascontiguousarray(a[..., c]).tobytes() for c in range(a.shape[2])]  # noqa: E731
+    bits = np.packbits(g > 128, axis=1)
+    rng = np.random.default_rng(63)
+    pal = rng.integers(0, 256, (3, 256), dtype=np.uint8).tobytes()
+    resource = b"8BIM" + struct.pack(">H", 1005) + b"\0\0" + struct.pack(">I", 5) + b"abcde\0"
+    out = {
+        "psd_rgb_raw.psd": psd_file(3, 8, 3, w, h, planes(rgba[..., :3])),
+        "psd_rgba_packbits.psd": psd_file(3, 8, 4, w, h, planes(q), compression=1),
+        "psd_gray_packbits.psd": psd_file(1, 8, 1, w, h, [(g // 32 * 32).tobytes()], compression=1),
+        "psd_bitmap.psd": psd_file(0, 1, 1, w, h, [bits.tobytes()]),
+        "psd_palette.psd": psd_file(2, 8, 1, w, h, [indices(w, h, 200, 64).tobytes()], cmap=pal),
+        "psd_cmyk_packbits.psd": psd_file(4, 8, 4, w, h, planes(q), compression=1),
+        "psd_duotone.psd": psd_file(8, 8, 1, w, h, [g.tobytes()], cmap=bytes(range(40))),
+        "psd_rgb_five_channels_raw.psd": psd_file(3, 8, 5, w, h, planes(np.concatenate([rgba, q[..., :1]], -1))),
+        "psd_rgb_layers_resources.psd": psd_file(3, 8, 3, w, h, planes(q[..., :3]), compression=1,
+                                                 layers=struct.pack(">I", 0) + bytes(range(30)), resources=resource),
+    }
+    # PackBits with more channels than the mode reads: Pillow takes the byte counts past the mode's channels for
+    # data; refused: 16-bit samples, ZIP compression, a PSB (version 2)
+    out["psd_refused_16bit.psd"] = psd_file(3, 16, 3, w, h, planes(np.repeat(rgba[..., :3], 2, axis=1)))
+    out["psd_rgb_five_channels_packbits.psd"] = psd_file(3, 8, 5, w, h, planes(np.concatenate([q, q[..., :1]], -1)),
+                                                         compression=1)
+    zipped = bytearray(psd_file(3, 8, 3, w, h, planes(rgba[..., :3])))
+    zipped[26 + 12: 26 + 14] = b"\0\2"
+    out["psd_refused_zip.psd"] = bytes(zipped)
+    psb = bytearray(out["psd_rgb_raw.psd"])
+    psb[5] = 2
+    out["psd_refused_psb.psd"] = bytes(psb)
+    return out
+
+
+# ------------------------------------------------------------------ SGI
+
+
+def sgi_rle_rows(rows: list, bpc: int) -> list:
+    """SGI RLE of each row (a 1-D array of samples): runs of 3+ equal
+    samples, copy packets otherwise, up to 127 samples; a 0 count ends it."""
+    out = []
+    for r in rows:
+        r = [int(v) for v in r]
+        pk = []
+        i = 0
+        while i < len(r):
+            j = i + 1
+            while j < len(r) and j - i < 127 and r[j] == r[i]:
+                j += 1
+            if j - i >= 3:
+                pk += [j - i, r[i]]
+                i = j
+                continue
+            j = i + 1
+            while j < len(r) and j - i < 127 and not (j + 2 < len(r) and r[j] == r[j + 1] == r[j + 2]):
+                j += 1
+            pk += [0x80 | (j - i)] + r[i:j]
+            i = j
+        pk.append(0)
+        out.append(struct.pack(f">{len(pk)}{'B' if bpc == 1 else 'H'}", *pk))
+    return out
+
+
+def sgi_file(px, bpc=1, rle=False, dimension=None):
+    """An SGI file of px [h, w, z] (uint8 or uint16), rows stored bottom-up,
+    channel after channel."""
+    h, w, z = px.shape
+    dimension = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">hBBHHHHll4s80sl404s", 474, int(rle), bpc, dimension, w, h, z, 0, 255 if bpc == 1 else 65535,
+                       b"", b"fixture", 0, b"")
+    chans = [px[::-1, :, c] for c in range(z)]
+    if not rle:
+        dt = ">u1" if bpc == 1 else ">u2"
+        return head + b"".join(c.astype(dt).tobytes() for c in chans)
+    rows = sgi_rle_rows([r for c in chans for r in c], bpc)
+    base = 512 + 8 * h * z
+    starts, p = [], base
+    for r in rows:
+        starts.append(p)
+        p += len(r)
+    return head + struct.pack(f">{h * z}I", *starts) + struct.pack(f">{h * z}I", *map(len, rows)) + b"".join(rows)
+
+
+def sgi() -> dict:
+    w, h = 21, 15
+    rgba = smooth(w, h, 71, 4)
+    g = smooth(w, h, 72, 1)[..., 0]
+    out = {
+        "sgi_rgb.sgi": pillow(Image.fromarray(rgba[..., :3]), "SGI"),
+        "sgi_rgba.sgi": pillow(Image.fromarray(rgba), "SGI"),
+        "sgi_gray.bw": pillow(Image.fromarray(g), "SGI"),
+        "sgi_rgb16.sgi": pillow(Image.fromarray(rgba[..., :3]), "SGI", bpc=2),
+        "sgi_gray16.sgi": pillow(Image.fromarray(g), "SGI", bpc=2),
+    }
+    q = rgba // 32 * 32
+    out["sgi_rgb_rle.rgb"] = sgi_file(q[..., :3], rle=True)
+    out["sgi_rgba_rle.sgi"] = sgi_file(q, rle=True)
+    out["sgi_gray_rle.bw"] = sgi_file((g // 40 * 40)[..., None], rle=True)
+    out["sgi_rgba16_rle.sgi"] = sgi_file(q.astype(np.uint16) * 257 + 3, bpc=2, rle=True)
+    out["sgi_gray_dimension1.bw"] = sgi_file(g[:1, :, None], dimension=1)
+    # refused: two channels (no mode in Pillow's table), one channel with dimension 3
+    out["sgi_refused_two_channels.sgi"] = sgi_file(rgba[..., :2])
+    out["sgi_refused_gray_dimension3.sgi"] = sgi_file(g[..., None], dimension=3)
+    return out
+
+
+# ------------------------------------------------------------------ PCX and DCX
+
+
+def pcx_rle(rows: bytes) -> bytes:
+    """PCX RLE of a byte string (a whole image's scan lines): runs up to 63
+    within each line, a byte >= 0xC0 always as a run."""
+    out = bytearray()
+    i = 0
+    while i < len(rows):
+        j = i + 1
+        while j < len(rows) and j - i < 63 and rows[j] == rows[i]:
+            j += 1
+        if j - i > 1 or rows[i] >= 0xC0:
+            out += bytes([0xC0 | (j - i), rows[i]])
+        else:
+            out.append(rows[i])
+        i = j
+    return bytes(out)
+
+
+def pcx_file(w, h, bits, planes, lines, version=5, palette16=b"", stride=None, palette256=None):
+    """A PCX: lines = [h][planes] bytes of each plane's scan line (stride
+    bytes), RLE-coded line by line."""
+    stride = stride or (w * bits + 7) // 8 + ((w * bits + 7) // 8) % 2
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1, h - 1, 72, 72)
+    head += palette16.ljust(48, b"\0") + bytes([0, planes]) + struct.pack("<HH", stride, 1)
+    body = b"".join(pcx_rle(b"".join(ln.ljust(stride, b"\0") for ln in row)) for row in lines)
+    return head.ljust(128, b"\0") + body + (b"\x0c" + palette256 if palette256 is not None else b"")
+
+
+def bitplanes(idx, nplanes):
+    """[h][nplanes] packed bit planes of an index image."""
+    return [[np.packbits((row >> p) & 1).tobytes() for p in range(nplanes)] for row in idx]
+
+
+def pcx() -> dict:
+    w, h = 19, 13
+    rgb = smooth(w, h, 81)
+    g = smooth(w, h, 82, 1)[..., 0]
+    q = Image.fromarray(rgb).quantize(60)
+    out = {
+        "pcx_rgb.pcx": pillow(Image.fromarray(rgb), "PCX"),
+        "pcx_gray.pcx": pillow(Image.fromarray(g), "PCX"),
+        "pcx_palette.pcx": pillow(q, "PCX"),
+        "pcx_bilevel.pcx": pillow(Image.fromarray(g).convert("1"), "PCX"),
+        "pcx_rgb_even_width.pcx": pillow(Image.fromarray(smooth(20, 13, 83)), "PCX"),
+    }
+    rng = np.random.default_rng(84)
+    pal16 = rng.integers(0, 256, (16, 3), dtype=np.uint8).tobytes()
+    out["pcx_planes4.pcx"] = pcx_file(w, h, 1, 4, bitplanes(indices(w, h, 16, 85), 4), palette16=pal16)
+    out["pcx_planes2.pcx"] = pcx_file(w, h, 1, 2, bitplanes(indices(w, h, 4, 86), 2), palette16=pal16)
+    out["pcx_planes4_wide.pcx"] = pcx_file(40, 9, 1, 4, bitplanes(indices(40, 9, 16, 87), 4), palette16=pal16)
+    out["pcx_rgb_odd_stride.pcx"] = pcx_file(w, h, 8, 3, [[r[:, c].tobytes() for c in range(3)] for r in rgb])
+    ramp = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    out["pcx_gray_ramp_palette.pcx"] = pcx_file(w, h, 8, 1, [[r.tobytes()] for r in g], palette256=ramp)
+    out["pcx_no_palette.pcx"] = pcx_file(w, h, 8, 1, [[r.tobytes()] for r in g])
+    out["pcx_given_stride_odd.pcx"] = pcx_file(w, h, 8, 1, [[r.tobytes()] for r in g], stride=w,
+                                               palette256=rng.integers(0, 256, 768, dtype=np.uint8).tobytes())
+    # refused: 8 bits at version 3, 2 bits in one plane, a run across scan lines past the last line
+    out["pcx_refused_version3_8bit.pcx"] = pcx_file(w, h, 8, 1, [[r.tobytes()] for r in g], version=3)
+    out["pcx_refused_2bit.pcx"] = pcx_file(w, h, 2, 1, [[np.packbits(np.unpackbits(r[:, None] >> 6, axis=1)[
+        :, 6:].reshape(-1)).tobytes()] for r in g])
+    out["pcx_refused_truncated.pcx"] = out["pcx_rgb.pcx"][:300]
+    pages = [out["pcx_palette.pcx"], out["pcx_rgb.pcx"]]
+    offs, p = [], 4 + 4 * (len(pages) + 1)
+    for pg in pages:
+        offs.append(p)
+        p += len(pg)
+    out["dcx_two_pages.dcx"] = struct.pack("<I", 987654321) + struct.pack(f"<{len(pages) + 1}I", *offs, 0) \
+        + b"".join(pages)
+    one = out["pcx_rgb_odd_stride.pcx"]
+    out["dcx_one_page.dcx"] = struct.pack("<III", 987654321, 12, 0) + one
+    return out
+
+
+# ------------------------------------------------------------------ ICO and CUR
+
+
+def dib(px, bits, palette=None, mask=None, height_factor=2):
+    """A BITMAPINFOHEADER DIB of px [h, w, 3 or 4] (bits 24 / 32) or an
+    index image (bits 1, 4, 8 with palette [n, 3]), its height doubled as in
+    an icon, then the AND mask (1 = transparent) rows."""
+    h, w = px.shape[:2]
+    ncol = 0 if palette is None else len(palette)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h * height_factor, 1, bits, 0, 0, 0, 0, ncol, 0)
+    pal = b"" if palette is None else np.concatenate(
+        [palette[:, ::-1], np.zeros((ncol, 1), np.uint8)], 1).tobytes()
+    if bits >= 24:
+        order = [2, 1, 0, 3][: bits // 8]
+        rows = pack_rows(px[..., order], 8)
+    else:
+        rows = pack_rows(px, bits)
+    m = mask if mask is not None else np.zeros((h, w), np.uint8)
+    return info + pal + rows + pack_rows(m, 1)
+
+
+def icon_dir(kind, entries):
+    """An ICO (kind 1) or CUR (kind 2): entries = (w, h, colours, planes or
+    hotspot x, bpp or hotspot y, image bytes)."""
+    out = struct.pack("<HHH", 0, kind, len(entries))
+    off = 6 + 16 * len(entries)
+    body = b""
+    for w, h, ncol, a, b, data in entries:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, ncol, 0, a, b, len(data), off + len(body))
+        body += data
+    return out + body
+
+
+def ico() -> dict:
+    rgba = smooth(24, 24, 91, 4)
+    rgba[..., 3] = np.where(rgba[..., 3] > 100, 255, rgba[..., 3] // 2)
+    rgb16 = smooth(16, 16, 92)
+    mask16 = indices(16, 16, 2, 93)
+    pal = np.random.default_rng(94).integers(0, 256, (16, 3), dtype=np.uint8)
+    idx = indices(32, 32, 16, 95)
+    out = {
+        "ico_png_sizes.ico": pillow(Image.fromarray(smooth(48, 48, 96, 4)), "ICO", sizes=[(16, 16), (32, 32), (48, 48)]),
+        "ico_png_rgb.ico": pillow(Image.fromarray(smooth(32, 32, 97)), "ICO", sizes=[(32, 32)]),
+    }
+    out["ico_bmp32_alpha.ico"] = icon_dir(1, [(24, 24, 0, 1, 32, dib(rgba, 32))])
+    out["ico_bmp24_mask.ico"] = icon_dir(1, [(16, 16, 0, 1, 24, dib(rgb16, 24, mask=mask16))])
+    out["ico_bmp4_mask_largest.ico"] = icon_dir(1, [(16, 16, 0, 1, 24, dib(rgb16, 24, mask=mask16)),
+                                                    (32, 32, 16, 1, 4, dib(idx, 4, pal, mask=indices(32, 32, 2, 98))),
+                                                    (32, 32, 0, 1, 8, dib(idx, 8, pal))])
+    out["ico_bmp1.ico"] = icon_dir(1, [(32, 32, 2, 1, 1, dib(idx % 2, 1, pal[:2], mask=indices(32, 32, 2, 99)))])
+    out["ico_bmp8_gray_ramp.ico"] = icon_dir(1, [(16, 16, 0, 1, 8, dib(np.arange(256, dtype=np.uint8).reshape(16, 16),
+                                                                         8, np.repeat(np.arange(256, dtype=np.uint8)
+                                                                                      [:, None], 3, 1)))])
+    out["ico_png_in_dir_256.ico"] = icon_dir(1, [(256, 256, 0, 1, 32, pillow(Image.fromarray(smooth(256, 256, 100, 4)),
+                                                                              "PNG"))])
+    out["cur_bmp24.cur"] = icon_dir(2, [(16, 16, 0, 3, 5, dib(rgb16, 24, mask=mask16))])
+    out["cur_bmp32_largest.cur"] = icon_dir(2, [(16, 16, 0, 0, 0, dib(rgb16, 24)), (24, 24, 0, 1, 1, dib(rgba, 32))])
+    out["cur_bmp8.cur"] = icon_dir(2, [(32, 32, 0, 0, 0, dib(idx, 8, pal))])
+    # refused: an icon directory with no entries (and no other plugin takes the data), a cursor whose image is not a DIB
+    out["ico_refused_empty.ico"] = struct.pack("<HHH", 0, 1, 0) + bytes(40)
+    out["cur_refused_bad_dib.cur"] = icon_dir(2, [(16, 16, 0, 0, 0, b"\x07" * 100)])
+    return out
+
+
+# ------------------------------------------------------------------ QOI
+
+
+def qoi() -> dict:
+    rgba = smooth(27, 19, 101, 4)
+    q = rgba // 24 * 24
+    q[5:9, 3:20] = [10, 200, 30, 255]  # runs
+    out = {
+        "qoi_rgb.qoi": pillow(Image.fromarray(rgba[..., :3]), "QOI"),
+        "qoi_rgba.qoi": pillow(Image.fromarray(rgba), "QOI"),
+        "qoi_rgba_runs.qoi": pillow(Image.fromarray(q), "QOI"),
+        "qoi_rgb_runs.qoi": pillow(Image.fromarray(q[..., :3]), "QOI"),
+    }
+    # a hand-made stream: an index before its entry is set (Pillow's (0, 0, 0, 0)), every op, a run past the end
+    ops = bytes([0xFE, 10, 20, 30, 0x00 | 7, 0x40 | 0x1B, 0x80 | 40, 0x9C, 0xC0 | 3, 0xFF, 1, 2, 3, 4,
+                 0x00 | ((10 * 3 + 20 * 5 + 30 * 7 + 255 * 11) % 64), 0xC0 | 20])
+    out["qoi_hand_ops.qoi"] = b"qoif" + struct.pack(">IIBB", 5, 6, 4, 0) + ops + bytes(7) + b"\1"
+    out["qoi_refused_truncated.qoi"] = out["qoi_rgb.qoi"][:60]
+    return out
+
+
+# ------------------------------------------------------------------ Sun raster
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun byte-encoded RLE: runs of 3+ as 0x80 n-1 v, a lone 0x80 as 0x80 0."""
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        j = i + 1
+        while j < len(data) and j - i < 256 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([0x80, j - i - 1, data[i]])
+            i = j
+        else:
+            for _ in range(j - i):
+                out += b"\x80\x00" if data[i] == 0x80 else bytes([data[i]])
+            i = j
+    return bytes(out)
+
+
+def sun_file(w, h, depth, rows, file_type=1, cmap=b"", cmap_type=1):
+    """A Sun raster: rows padded to 16 bits (raw), or the unpadded rows
+    RLE-coded as one stream (type 2, as Pillow reads it)."""
+    stride = ((w * depth + 15) // 16) * 2
+    if file_type == 2:
+        body = sun_rle(b"".join(rows))
+    else:
+        body = b"".join(r.ljust(stride, b"\0") for r in rows)
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), file_type, cmap_type if cmap else 0, len(cmap))
+    return head + cmap + body
+
+
+def sun() -> dict:
+    w, h = 21, 11
+    rgb = smooth(w, h, 111)
+    g = smooth(w, h, 112, 1)[..., 0]
+    idx = indices(w, h, 40, 113)
+    rng = np.random.default_rng(114)
+    cmap = rng.integers(0, 256, (3, 40), dtype=np.uint8).tobytes()
+    cmap16 = rng.integers(0, 256, (3, 16), dtype=np.uint8).tobytes()
+    q = rgb // 32 * 32
+    out = {
+        "sun_bilevel.ras": sun_file(w, h, 1, [np.packbits(r > 128).tobytes() for r in g]),
+        "sun_gray4.ras": sun_file(w, h, 4, [np.packbits(np.unpackbits((r >> 4)[:, None], axis=1)[:, 4:]).tobytes()
+                                            for r in g]),
+        "sun_gray8.ras": sun_file(w, h, 8, [r.tobytes() for r in g]),
+        "sun_palette8.ras": sun_file(w, h, 8, [r.tobytes() for r in idx], cmap=cmap),
+        "sun_palette4.ras": sun_file(w, h, 4, [np.packbits(np.unpackbits((r % 16)[:, None], axis=1)[:, 4:]).tobytes()
+                                               for r in idx], cmap=cmap16),
+        "sun_bgr24.ras": sun_file(w, h, 24, [r[:, ::-1].tobytes() for r in rgb]),
+        "sun_rgb24_type3.ras": sun_file(w, h, 24, [r.tobytes() for r in rgb], file_type=3),
+        "sun_bgrx32.ras": sun_file(w, h, 32, [np.concatenate([r[:, ::-1], r[:, :1]], 1).tobytes() for r in rgb]),
+        "sun_xrgb32_type3.ras": sun_file(w, h, 32, [np.concatenate([r, r[:, :1]], 1).tobytes() for r in rgb],
+                                         file_type=3),
+        "sun_rle_gray8.ras": sun_file(w, h, 8, [(r // 64 * 64).tobytes() for r in g], file_type=2),
+        "sun_rle_bgr24.ras": sun_file(w, h, 24, [r[:, ::-1].tobytes() for r in q], file_type=2),
+        "sun_rle_palette8_0x80.ras": sun_file(w, h, 8, [np.where(r % 3 == 0, 0x80, r).astype(np.uint8).tobytes()
+                                                         for r in idx], file_type=2,
+                                              cmap=rng.integers(0, 256, (3, 256), dtype=np.uint8).tobytes()),
+    }
+    # refused: a raw palette type, 16 bits a pixel, an unknown file type, RLE data that end early
+    out["sun_refused_cmap_type2.ras"] = sun_file(w, h, 8, [r.tobytes() for r in idx], cmap=cmap, cmap_type=2)
+    out["sun_refused_depth16.ras"] = sun_file(w, h, 16, [r.astype(">u2").tobytes() for r in g])
+    out["sun_refused_type6.ras"] = sun_file(w, h, 8, [r.tobytes() for r in g], file_type=6)
+    out["sun_refused_rle_truncated.ras"] = out["sun_rle_bgr24.ras"][:-20]
+    return out
+
+
+def eps() -> dict:
+    """EPS: Pillow opens it and needs Ghostscript to load it; without
+    Ghostscript both packages refuse it."""
+    return {"eps_refused_no_ghostscript.eps": b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 4 4\n%%EndComments\n"
+                                              b"0 0 moveto 4 4 lineto stroke\nshowpage\n%%EOF\n"}
+
+
 def fixtures() -> dict:
-    return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **jpeg()}
+    return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **libtiff(), **jpeg(), **psd(), **sgi(), **pcx(), **ico(),
+            **qoi(), **sun(), **eps()}
 
 
 def main():
     digests = {"pillow": Image.__version__, "files": {}, "libtiff_only": {}}
     for old in HERE.iterdir():
-        if old.suffix in (".bmp", ".dib", ".tga", ".gif", ".tif", ".ppm", ".pgm", ".pbm", ".pfm", ".pam", ".jpg"):
+        if old.suffix in (".bmp", ".dib", ".tga", ".gif", ".tif", ".ppm", ".pgm", ".pbm", ".pfm", ".pam", ".jpg", ".psd",
+                          ".sgi", ".rgb", ".bw", ".pcx", ".dcx", ".ico", ".cur", ".qoi", ".ras", ".eps"):
             old.unlink()
     for group, files in (("files", fixtures()), ("libtiff_only", libtiff_only())):
         for name, data in files.items():

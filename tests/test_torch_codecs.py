@@ -325,6 +325,9 @@ PILLOW_DECODES = {
     "lossless_rgb_adobe0": lambda: jpeg_lossless(list(_photo(9, 11, 7).transpose(2, 0, 1)), adobe=0),
     "lossless_gray_pt3": lambda: jpeg_lossless([_photo(11, 9, 8, gray=True)], predictor=5, pt=3),
     "lossless_cmyk": lambda: jpeg_lossless(list(_cmyk(9, 7, 9).transpose(2, 0, 1)), predictor=2),
+    **{f"lossless_subsampled_{h}x{v}_{'interleaved' if inter else 'scans'}_{'adobe0' if adobe == 0 else 'no_marker'}":
+       (lambda h=h, v=v, inter=inter, adobe=adobe: _lossless_subsampled(h, v, inter, adobe))
+       for h, v in ((2, 2), (2, 1), (1, 2)) for inter in (True, False) for adobe in (0, None)},
     "cmyk_pillow": lambda: _pillow_cmyk(_cmyk(23, 29, 10)),
     "cmyk_no_adobe": lambda: jpeg_from_planes(list(_cmyk(23, 29, 11).transpose(2, 0, 1)), jfif=False),
     "ycck_adobe2_420": lambda: jpeg_from_planes(cmyk_to_ycck(_cmyk(23, 29, 12)),
@@ -332,6 +335,19 @@ PILLOW_DECODES = {
     "ycck_adobe1": lambda: jpeg_from_planes(cmyk_to_ycck(_cmyk(16, 16, 13)), adobe=1, jfif=False),
     "ycck_arith": lambda: jpeg_from_planes(cmyk_to_ycck(_cmyk(23, 29, 14)), adobe=2, jfif=False, arith=True),
 }
+
+
+def _lossless_subsampled(h, v, interleaved, adobe, w=19, ht=13):
+    """Lossless RGB whose first component is sampled h x v and the other two
+    1x1 (each plane at its own size; the chroma-sized planes a smooth photo's
+    box means), predictor 1 + h + 2v."""
+    rgb = _photo(ht, w, 20 + 4 * h + v).astype(np.int32)
+    cw, ch = -(-w // h), -(-ht // v)
+    pad = np.pad(rgb, ((0, ch * v - ht), (0, cw * h - w), (0, 0)), mode="edge")
+    small = pad.reshape(ch, v, cw, h, 3).mean(axis=(1, 3)).astype(np.uint8)
+    planes = [rgb[..., 0].astype(np.uint8), small[..., 1], small[..., 2]]
+    return jpeg_lossless(planes, predictor=1 + h + 2 * v if 1 + h + 2 * v <= 7 else 7,
+                         samp=[(h, v), (1, 1), (1, 1)], interleaved=interleaved, size=(w, ht), adobe=adobe)
 
 
 def _pillow_cmyk(cmyk):

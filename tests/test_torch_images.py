@@ -1,16 +1,19 @@
-"""The port's BMP, TGA, GIF, TIFF and Netpbm codecs (ops/bmp.py, ops/tga.py,
-ops/gif.py, ops/tiff.py, ops/netpbm.py over native/image_coders.cpp, and
-ops/imagemodes.py) against Pillow 12.1.0 and the JAX package, on the CPU.
+"""The port's image codecs (ops/bmp.py, ops/tga.py, ops/gif.py, ops/tiff.py,
+ops/netpbm.py, ops/psd.py, ops/sgi.py, ops/pcx.py, ops/ico.py, ops/qoi.py,
+ops/sun.py over native/image_coders.cpp, and ops/imagemodes.py) against
+Pillow 12.1.0 and the JAX package, on the CPU.
 
 - Every committed fixture of tests/data/images decodes in the port's
   texture decode_image bit for bit as in the JAX package's (which reads
   through Pillow), and to the digest of Pillow's decode in digests.json;
-  where Pillow refuses a file, both packages refuse it, and both texture
-  pools make it 1x1 white. The TIFF forms Pillow reads only through
-  libtiff's other codecs (CCITT, LZMA, ZSTD) are refused by the port
-  (ROADMAP C).
-- Identification follows Image.open: data that no reader claims, and TGA
-  headers that fail Pillow's checks, are refused by both.
+  where Pillow refuses a file (EPS without Ghostscript among them), both
+  packages refuse it, and both texture pools make it 1x1 white. The TIFF
+  forms Pillow reads through libtiff that the port does not (ZSTD,
+  old-style JPEG, CIELab) are refused by the port (ROADMAP C).
+- Identification follows Image.open, in its order: data that no reader
+  claims, TGA headers that fail Pillow's checks, and TGA headers that
+  PCX, CUR or ICO claim first are decoded or refused as Pillow does, and
+  the format the port names is Pillow's.
 - Pillow's mode conversions (convert("RGBA") from 1, L, I, I;16, F, P with
   short palettes and transparency, PA, LA, RGB with transparency, CMYK)
   equal ops/imagemodes.to_rgba on seeded arrays.
@@ -21,10 +24,15 @@ ops/imagemodes.py) against Pillow 12.1.0 and the JAX package, on the CPU.
   suffix raises ValueError as Pillow's save does.
 - edit_cli's render to an unknown suffix prints Pillow's error and keeps
   the shell alive, as the reference's shell does.
-- A glTF whose base colour is BMP, TGA, TIFF, GIF or PPM renders 48x32
+- A glTF whose base colour is BMP, TGA, TIFF, GIF, PPM, PSD, SGI, PCX,
+  DCX, ICO, CUR, QOI, Sun raster or subsampled lossless JPEG renders 48x32
   frames that agree with the JAX renderer's at tests/test_torch_frame.py's
   thresholds, and headless --output writes each suffix, read back equal to
   the PNG output.
+- No front end hands write_image four channels, so a GIF is never written
+  from RGBA there; written from RGBA by hand, the port's GIF keeps the
+  colours and drops alpha where Pillow's marks a transparent index
+  (ROADMAP C).
 - The image coder library that fails to load fails the scene load (no
   white texel in its place).
 
@@ -33,6 +41,7 @@ Pillow is only a reference here: the port never imports it."""
 import hashlib
 import io
 import json
+import struct
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -50,7 +59,7 @@ from vk_gltf_renderer_tpu_torch.ops import gif, textures as ttextures  # noqa: E
 from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.imagemodes import to_rgba  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
-from vk_gltf_renderer_tpu_torch.utils.image_io import WRITABLE, read_image, write_image  # noqa: E402
+from vk_gltf_renderer_tpu_torch.utils.image_io import WRITABLE, identify_and_read, read_image, write_image  # noqa: E402
 from torch_test_helpers import one_torch_thread, share_native_builder  # noqa: E402, F401 (a fixture)
 
 share_native_builder()
@@ -106,17 +115,21 @@ def test_fixture_decodes_as_the_jax_package(name):
 
 @pytest.mark.parametrize("name", sorted(DIGESTS["libtiff_only"]))
 def test_libtiff_only_tiffs_are_refused(name):
-    """Pillow decodes these through libtiff's other codecs; the port raises
-    UnsupportedCodec, so the texture is white (ROADMAP C)."""
+    """Pillow decodes these through libtiff (ZSTD, old-style JPEG, CIELab
+    through LittleCMS); the port raises UnsupportedCodec, so the texture is
+    white (ROADMAP C)."""
     data = (FIXTURES / name).read_bytes()
     assert list(_pillow_rgba(data).shape) == DIGESTS["libtiff_only"][name]["shape"]
     with pytest.raises(UnsupportedCodec):
         read_image(data)
 
 
-@pytest.mark.parametrize("fmt", ["bmp", "tga", "gif", "tiff", "ppm"])
+@pytest.mark.parametrize("fmt", ["bmp", "tga", "gif", "tiff", "ppm", "psd", "sgi", "pcx", "ico", "cur", "qoi", "sun",
+                                 "eps"])
 def test_refused_fixtures_load_white_in_both_packages(fmt, tmp_path):
-    for name in sorted(n for n, e in DIGESTS["files"].items() if n.startswith(fmt + "_") and "refused" in e):
+    names = sorted(n for n, e in DIGESTS["files"].items() if n.startswith(fmt + "_") and "refused" in e)
+    assert names
+    for name in names:
         path = scenes.helmet_with_texture(str(tmp_path), (FIXTURES / name).read_bytes(), name)
         for Scene, build in ((JScene, jtextures.build_texture_pool), (TScene, ttextures.build_texture_pool)):
             sc = Scene()
@@ -147,6 +160,27 @@ IDENTIFY = {
     "netpbm_p7": b"P7\n4 4\n",
     "gif_no_image": b"GIF89a" + bytes([2, 0, 2, 0, 0, 0, 0]) + b";",
     "tiff_short": b"II*\x00\x08\x00",
+    # TGA headers that Pillow's PCX, CUR and ICO plugins accept first (Image.ID's order)
+    "tga_id_length_10_pcx_unknown_mode": bytes([10]) + _tga_header(2, 24)[1:] + bytes(10) + bytes(range(36)),
+    "tga_type2_cur_no_entries": _tga_header(2, 24) + bytes(range(36)),
+    "tga_type2_cur_entries_cut_short": bytes([0, 0, 2, 0, 0, 3]) + _tga_header(2, 24, w=2, h=2)[6:] + bytes(12),
+    "tga_type2_cur_entry_not_a_dib": bytes([0, 0, 2, 0, 0, 1]) + _tga_header(2, 24, w=4, h=3)[6:] + bytes(range(36)),
+    "tga_type1_ico_no_entries": _tga_header(1, 8) + bytes(range(12)),
+    "tga_type1_ico_entry_cut_short": bytes([0, 0, 1, 0, 2, 0]) + _tga_header(1, 8, w=2, h=2)[6:] + bytes(4),
+    "pcx_empty_size": bytes([10, 5, 1, 8]) + struct.pack("<4H", 5, 5, 4, 4) + bytes(120),
+    "pcx_short_header": bytes([10, 5, 1, 8, 0, 0]),
+    "dcx_no_pages": (987654321).to_bytes(4, "little") + bytes(8),
+    "psd_version_2": b"8BPS\x00\x02" + bytes(40),
+    "qoi_short_header": b"qoif\x00\x00",
+    "sun_depth_16": (0x59A66A95).to_bytes(4, "big") + struct.pack(">7I", 2, 2, 16, 8, 1, 0, 0) + bytes(8),
+    "sgi_short_header": (474).to_bytes(2, "big") + bytes(20),
+    "eps_header": b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 2 2\n",
+    # sizes refused before anything is allocated: past Pillow's decompression-bomb limit, or coded data too short
+    "qoi_past_bomb_limit": b"qoif" + struct.pack(">IIBB", 20000, 20000, 4, 0) + bytes(10),
+    "sun_rle_past_bomb_limit": (0x59A66A95).to_bytes(4, "big") + struct.pack(">7I", 30000, 30000, 8, 8, 2, 0, 0)
+                               + bytes(8),
+    "pcx_rle_data_too_short": bytes([10, 5, 1, 8]) + struct.pack("<4H", 0, 0, 3999, 3999) + bytes(53) + bytes([3])
+                              + struct.pack("<H", 4000) + bytes(58) + bytes(10),
 }
 
 
@@ -164,6 +198,51 @@ def test_identification_follows_image_open(case):
             read_image(data)
     else:
         assert np.array_equal(_rgba(read_image(data)), ref)
+
+
+def _pillow_format(data):
+    try:
+        return PIL_Image.open(io.BytesIO(data)).format
+    except Exception:  # noqa: BLE001 - any refusal
+        return None
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS["files"]) + sorted(DIGESTS["libtiff_only"]) + sorted(IDENTIFY))
+def test_read_image_names_pillows_format(name):
+    """Where the port decodes the data, the format it names is the one
+    Image.open names; where the port refuses the data, Pillow's open or
+    load refuses it too, or it is a listed libtiff-only TIFF."""
+    data = IDENTIFY[name] if name in IDENTIFY else (FIXTURES / name).read_bytes()
+    fmt = _pillow_format(data)
+    try:
+        got, _ = identify_and_read(data)
+    except ValueError:
+        if name in DIGESTS["libtiff_only"]:
+            return
+        try:
+            _pillow_rgba(data)
+        except Exception:  # noqa: BLE001 - any refusal
+            return
+        raise AssertionError(f"{name}: the port refuses data that Pillow reads as {fmt}")
+    assert got == fmt, (name, got, fmt)
+
+
+def test_no_pcx_cur_or_ico_data_decodes_as_tga():
+    """Every fixture and identification case whose first bytes PCX, CUR or
+    ICO accept is read by that reader or refused, never by the TGA reader,
+    unless Pillow passes it on to TGA too."""
+    from vk_gltf_renderer_tpu_torch.ops.ico import is_cur, is_ico
+    from vk_gltf_renderer_tpu_torch.ops.pcx import is_pcx
+
+    cases = {n: (FIXTURES / n).read_bytes() for n in DIGESTS["files"]} | IDENTIFY
+    claimed = {n: d for n, d in cases.items() if is_pcx(d) or is_cur(d) or is_ico(d)}
+    assert len(claimed) > 20
+    for name, data in claimed.items():
+        try:
+            fmt, _ = identify_and_read(data)
+        except ValueError:
+            continue
+        assert fmt != "TGA" or _pillow_format(data) == "TGA", name
 
 
 # ------------------------------------------------------------ Pillow's modes
@@ -312,7 +391,10 @@ def test_edit_shell_render_unknown_suffix_keeps_the_shell(tmp_path, capsys):
 
 
 FRAME_FIXTURES = ["bmp_palette8.bmp", "tga_rgb24_rle.tga", "tiff_tiles_lzw.tif", "gif_interlaced.gif",
-                  "ppm_p6_maxval_1023.ppm"]
+                  "ppm_p6_maxval_1023.ppm", "psd_rgb_layers_resources.psd", "sgi_rgb_rle.rgb", "pcx_planes4.pcx",
+                  "dcx_one_page.dcx", "ico_bmp24_mask.ico", "cur_bmp8.cur", "qoi_rgb_runs.qoi", "sun_rle_bgr24.ras",
+                  "tiff_lzma_rgb.tif", "tiff_group4_300x200.tif", "tiff_ycbcr_22_8.tif",
+                  "jpeg_lossless_2x2_interleaved.jpg"]
 W, H, DEPTH = 48, 32, 5
 
 
@@ -392,6 +474,37 @@ def test_image_coder_that_fails_to_load_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(native.ctypes, "CDLL", refuse)
     with pytest.raises(RuntimeError, match="image_coders.*file too short"):
         GltfRenderer(W, H, spp=1, max_depth=DEPTH, device="cpu").create_scene(path)
+
+
+def test_gif_from_rgba_no_front_end_writes_it(tmp_path, monkeypatch):
+    """A GIF written from an RGBA array, by Pillow and by the port: Pillow
+    quantizes RGBA (its fast octree) and maps the fully transparent pixels
+    to a transparency index, the port keeps every colour and drops alpha
+    (ROADMAP C). No front end reaches
+    this: save_image (headless, edit_cli) and the viewer's --output hand
+    write_image three channels."""
+    rng = np.random.default_rng(5)
+    pal = rng.integers(0, 256, (20, 3), dtype=np.uint8)
+    rgb = pal[rng.integers(0, 20, (19, 23))]
+    rgba = np.concatenate([rgb, np.where(rng.random((19, 23, 1)) < 0.3, 0, 255).astype(np.uint8)], -1)
+    write_image(tmp_path / "x.gif", rgba)
+    PIL_Image.fromarray(rgba).save(tmp_path / "ref.gif")
+    mine, ref = _pillow_rgba((tmp_path / "x.gif").read_bytes()), _pillow_rgba((tmp_path / "ref.gif").read_bytes())
+    clear = rgba[..., 3] == 0
+    assert np.array_equal(mine[..., :3], rgb) and (mine[..., 3] == 255).all()
+    assert (ref[..., 3] == np.where(clear, 0, 255)).all()
+    assert np.abs(ref[~clear, :3].astype(int) - rgb[~clear]).max() <= 16
+    from vk_gltf_renderer_tpu_torch import renderer as trenderer, viewer as tviewer
+
+    shapes = []
+    monkeypatch.setattr(trenderer, "write_image", lambda path, a: shapes.append(np.asarray(a).shape))
+    monkeypatch.setattr(tviewer, "write_image", lambda path, a: shapes.append(np.asarray(a).shape))
+    sc = scenes.make_helmet_standin(str(tmp_path))
+    assert headless.main(["--scenefile", sc, "--size", "8", "6", "--frames", "1", "--ptDepth", "1", "--device", "cpu",
+                          "--output", str(tmp_path / "o.gif")]) == 0
+    assert tviewer.main(["--scenefile", sc, "--size", "8", "--keys", " ", "--output", str(tmp_path / "v.gif"),
+                         "--device", "cpu"]) in (0, None)
+    assert shapes and all(len(sh) == 3 and sh[2] == 3 for sh in shapes), shapes
 
 
 def test_gif_median_cut_is_a_partition():

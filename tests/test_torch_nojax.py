@@ -14,8 +14,10 @@ CPU, each printing one BENCHMARK_JSON line, edits and renders through
 edit_cli and a scripted viewer (grid, gizmo, an edit verb), renders the
 helmet with a JPEG, a KTX2 BasisLZ and a lossless and a lossy WebP base
 colour (the port's own decoders), writes a JPEG and a WebP, renders the
-helmet with BMP, TGA, TIFF, GIF, PPM and arithmetic-coded JPEG base colours
-and writes a frame in every suffix image_io writes, renders
+helmet with BMP, TGA, TIFF, GIF, PPM, arithmetic-coded JPEG, PSD, SGI, PCX,
+DCX, ICO, CUR, QOI, Sun raster, CCITT, LZMA and ThunderScan TIFF and
+subsampled lossless JPEG base colours and writes a frame in every suffix
+image_io writes, renders
 seeded and batched frames on the SBVH, and renders a frame split over two shards
 (parallel.render_mesh); and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports any
@@ -76,7 +78,10 @@ with tempfile.TemporaryDirectory() as d:
     # committed fixtures, and a frame written in each suffix and read back
     from vk_gltf_renderer_tpu_torch.utils.image_io import WRITABLE, read_image
     for name in ("bmp_rle8.bmp", "tga_rgb24_rle.tga", "tiff_tiles_lzw.tif", "gif_interlaced.gif",
-                 "ppm_p6_maxval_1023.ppm", "jpeg_arith_progressive.jpg"):
+                 "ppm_p6_maxval_1023.ppm", "jpeg_arith_progressive.jpg", "psd_cmyk_packbits.psd",
+                 "sgi_rgba16_rle.sgi", "pcx_palette.pcx", "dcx_two_pages.dcx", "ico_bmp32_alpha.ico",
+                 "cur_bmp24.cur", "qoi_hand_ops.qoi", "sun_rle_palette8_0x80.ras", "tiff_group3_2d.tif",
+                 "tiff_libtiff_lzma.tif", "tiff_thunderscan.tif", "jpeg_lossless_1x2_scans.jpg"):
         with open(os.path.join("tests", "data", "images", name), "rb") as f:
             data = f.read()
         r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
@@ -232,6 +237,9 @@ def test_no_port_source_imports_jax():
                                                                          ROOT / "frame_ab.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
+    # the image readers are among the files scanned
+    assert {"psd.py", "sgi.py", "pcx.py", "ico.py", "qoi.py", "sun.py", "tiff.py", "jpeg.py", "image_io.py"} <= {
+        p.name for p in files}
     # the scan itself sees both kinds of import
     assert pattern.search("import jax.numpy as jnp") and pattern.search(
         "    from vk_gltf_renderer_tpu.models import Scene") and pattern.search("        from PIL import Image")

@@ -556,20 +556,59 @@ def jpeg_from_planes(planes, samp=None, quality=75, adobe=None, jfif=True, arith
     return b"".join(out)
 
 
-def jpeg_lossless(planes, predictor=1, pt=0, restart_rows=0, jfif=False, adobe=None):
+def jpeg_lossless(planes, predictor=1, pt=0, restart_rows=0, jfif=False, adobe=None, samp=None, interleaved=True,
+                  size=None):
     """An 8-bit lossless JPEG (SOF3, Huffman with the Annex K DC luminance
-    table) of 1, 3 or 4 uint8 planes sampled 1x1: predictor 1-7, point
-    transform pt, restart markers every restart_rows rows."""
+    table) of 1, 3 or 4 uint8 planes: predictor 1-7, point transform pt,
+    restart markers every restart_rows rows (1x1 sampling only).
+
+    samp gives each component's (h, v) sampling factors (1x1 by default);
+    then each plane is the component at its own size, ceil(W * h / hmax) x
+    ceil(H * v / vmax), and size = (W, H) the image's (the first plane's
+    size by default). interleaved=False writes one scan per component;
+    interleaved scans code the dummy samples past a component's edge, in
+    its last MCU column and row, as zero differences."""
     from vk_gltf_renderer_tpu_torch.ops import jpeg as tj
 
     nc = len(planes)
-    h, w = planes[0].shape
-    p = np.stack([np.asarray(q, np.int64) >> pt for q in planes], axis=-1)
-    code, size = tj._huff_codes(*tj.STD_HUFFMAN["dc_lum"])
+    samp = samp or [(1, 1)] * nc
+    if restart_rows and any(s != (1, 1) for s in samp):
+        raise ValueError("restart markers with 1x1 sampling only")
+    hmax, vmax = max(s[0] for s in samp), max(s[1] for s in samp)
+    w, h = size or planes[0].shape[::-1]
+    code, size_ = tj._huff_codes(*tj.STD_HUFFMAN["dc_lum"])
     initial = 1 << (8 - pt - 1)
-    segments, bits = [], []
 
-    def flush():
+    def differences(q):
+        """A component's differences in its own raster order (its first row,
+        and the first row of each restart interval, predicted from the left)."""
+        p = np.asarray(q, np.int64) >> pt
+        ch, cw = p.shape
+        d = np.empty_like(p)
+        for y in range(ch):
+            first = y == 0 or (restart_rows and y % restart_rows == 0)
+            for x in range(cw):
+                if first:
+                    pred = initial if x == 0 else p[y, x - 1]
+                elif x == 0:
+                    pred = p[y - 1, x]
+                else:
+                    ra, rb, rc = p[y, x - 1], p[y - 1, x], p[y - 1, x - 1]
+                    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+                v = int(p[y, x] - pred) % 65536
+                d[y, x] = v - 65536 if v >= 32768 else v
+        return d
+
+    diffs = [differences(q) for q in planes]
+
+    def put(bits, v):
+        s = 0 if v == 0 else abs(v).bit_length()
+        bits.append((int(code[s]), int(size_[s])))
+        if s:
+            bits.append((v if v > 0 else v + (1 << s) - 1, s))
+
+    def flush(bits):
         acc = n = 0
         out = bytearray()
         for v, s in bits:
@@ -582,35 +621,39 @@ def jpeg_lossless(planes, predictor=1, pt=0, restart_rows=0, jfif=False, adobe=N
         if n:
             b = ((acc << (8 - n)) | ((1 << (8 - n)) - 1)) & 255
             out += bytes([b, 0]) if b == 255 else bytes([b])
-        segments.append(bytes(out))
         bits.clear()
+        return bytes(out)
 
-    first = 0
-    for y in range(h):
-        if restart_rows and y and y % restart_rows == 0:
-            flush()
-            segments.append(bytes([0xFF, 0xD0 + (y // restart_rows - 1) % 8]))
-            first = y
-        for x in range(w):
-            for c in range(nc):
-                if y == first:
-                    pred = initial if x == 0 else p[y, x - 1, c]
-                elif x == 0:
-                    pred = p[y - 1, x, c]
-                else:
-                    ra, rb, rc = p[y, x - 1, c], p[y - 1, x, c], p[y - 1, x - 1, c]
-                    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
-                            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
-                d = int(p[y, x, c] - pred) % 65536
-                d = d - 65536 if d >= 32768 else d
-                s = 0 if d == 0 else abs(d).bit_length()
-                bits.append((int(code[s]), int(size[s])))
-                if s:
-                    bits.append((d if d > 0 else d + (1 << s) - 1, s))
-    flush()
+    def scan_header(comps):
+        return tj._segment(0xDA, bytes([len(comps)]) + b"".join(bytes([c + 1, 0]) for c in comps)
+                           + bytes([predictor, 0, pt]))
+
+    scans = []
+    if interleaved:
+        bits, segments = [], []
+        mcux, mcuy = -(-w // hmax), -(-h // vmax)
+        for my in range(mcuy):
+            if restart_rows and my and my % restart_rows == 0:
+                segments.append(flush(bits))
+                segments.append(bytes([0xFF, 0xD0 + (my // restart_rows - 1) % 8]))
+            for mx in range(mcux):
+                for c, (hc, vc) in enumerate(samp):
+                    d = diffs[c]
+                    for yy in range(vc):
+                        for xx in range(hc):
+                            y, x = my * vc + yy, mx * hc + xx
+                            put(bits, int(d[y, x]) if y < d.shape[0] and x < d.shape[1] else 0)
+        segments.append(flush(bits))
+        scans.append(scan_header(range(nc)) + b"".join(segments))
+    else:
+        for c in range(nc):
+            bits = []
+            for v in diffs[c].reshape(-1):
+                put(bits, int(v))
+            scans.append(scan_header([c]) + flush(bits))
     dc_bits, dc_vals = tj.STD_HUFFMAN["dc_lum"]
-    sof = struct.pack(">BHHB", 8, h, w, nc) + b"".join(bytes([i + 1, 0x11, 0]) for i in range(nc))
-    sos = bytes([nc]) + b"".join(bytes([i + 1, 0]) for i in range(nc)) + bytes([predictor, 0, pt])
+    sof = struct.pack(">BHHB", 8, h, w, nc) + b"".join(bytes([i + 1, (hc << 4) | vc, 0])
+                                                      for i, (hc, vc) in enumerate(samp))
     out = [b"\xff\xd8"]
     if jfif:
         out.append(tj._segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
@@ -619,7 +662,7 @@ def jpeg_lossless(planes, predictor=1, pt=0, restart_rows=0, jfif=False, adobe=N
     out += [tj._segment(0xC3, sof), tj._segment(0xC4, bytes([0]) + dc_bits + dc_vals)]
     if restart_rows:
         out.append(tj._segment(0xDD, struct.pack(">H", restart_rows * w)))
-    out += [tj._segment(0xDA, sos), *segments, b"\xff\xd9"]
+    out += [*scans, b"\xff\xd9"]
     return b"".join(out)
 
 

@@ -10,9 +10,11 @@ Emits the same machine-readable lines as the reference: a HEADLESS_SUMMARY
 human line and a schema-1 BENCHMARK_JSON record. Renders on the card
 unless --device names the CPU. --upscale N renders at size/N and writes the
 TAAU image at the given size; --renderSystem 1 renders preview frames
-(--wireframe 1 overlays the triangle edges). --output writes PNG, JPEG or
-(lossless) WebP by its suffix (utils/image_io.py); another suffix raises
-NotImplementedError naming its ROADMAP item (section A).
+(--wireframe 1 overlays the triangle edges). --output writes PNG, JPEG,
+(lossless) WebP, BMP, DIB, TGA, TIFF, GIF or Netpbm by its suffix
+(utils/image_io.write_image); another suffix raises ValueError("unknown
+file extension") through utils/image_io.check_writable before any work, as
+Pillow's save raises it.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose feature is not ported."""
+    """Raise ValueError (utils/image_io.check_writable) for an --output
+    suffix that write_image cannot write, before the scene loads."""
     if args.output:
         from .utils.image_io import check_writable
 

@@ -122,7 +122,7 @@ def webp_lib():
 
 
 def image_lib():
-    """The LZW, PackBits and RLE coders (image_coders.cpp), built at first
+    """The LZW, PackBits, RLE, QOI and CCITT coders (image_coders.cpp), built at first
     use (_load_coder: RuntimeError when it cannot be built or loaded)."""
     global _image
     if _image is None:
@@ -132,7 +132,14 @@ def image_lib():
             "vkgr_gif_lzw_decode": [_VP, _I64, _I32, _VP, _I32, _I32, _I32],
             "vkgr_gif_lzw_encode": [_VP, _I64, _I32, _VP, _I64, _VP],
             "vkgr_bmp_rle": [_VP, _I64, _I64, _I32, _I32, _I32, _VP, _VP],
-            "vkgr_tga_rle": [_VP, _I64, _I32, _I64, _I32, _VP]})
+            "vkgr_tga_rle": [_VP, _I64, _I32, _I64, _I32, _VP],
+            "vkgr_packbits_rows": [_VP, _I64, _I64, _I32, _VP],
+            "vkgr_sgi_rle": [_VP, _I64, _I32, _I32, _I32, _I32, _VP],
+            "vkgr_pcx_rle": [_VP, _I64, _I64, _I32, _VP],
+            "vkgr_sun_rle": [_VP, _I64, _VP, _I64],
+            "vkgr_qoi_decode": [_VP, _I64, _I64, _I32, _VP],
+            "vkgr_ccitt": [_VP, _I64, _I32, _I32, _I32, _I32, _VP],
+            "vkgr_thunderscan": [_VP, _I64, _I32, _I32, _VP]})
     return _image
 
 

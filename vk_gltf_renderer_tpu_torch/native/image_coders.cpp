@@ -1,5 +1,6 @@
-// Byte-stream coders of the port's BMP, TGA, GIF and TIFF readers and its
-// GIF writer (ops/bmp.py, ops/tga.py, ops/gif.py, ops/tiff.py): the loops
+// Byte-stream coders of the port's image readers and its GIF writer
+// (ops/bmp.py, ops/tga.py, ops/gif.py, ops/tiff.py, ops/psd.py, ops/sgi.py,
+// ops/pcx.py, ops/qoi.py, ops/sun.py): the loops
 // that would take tens of seconds a 2048^2 map in Python. Each decoder
 // follows the code that Pillow reads the format with, so that a file
 // (corrupt ones included) decodes as the JAX package decodes it:
@@ -16,13 +17,23 @@
 //                       full), in sub-blocks of 255 bytes,
 //   vkgr_bmp_rle        Pillow's BmpRleDecoder (RLE8 and RLE4, with its
 //                       file-position word alignment and its delta record),
-//   vkgr_tga_rle        Pillow's TgaRleDecode.c (packets cross scan lines).
+//   vkgr_tga_rle        Pillow's TgaRleDecode.c (packets cross scan lines),
+//   vkgr_packbits_rows  Pillow's PackbitsDecode.c over PSD rows,
+//   vkgr_sgi_rle        Pillow's SgiRleDecode.c (8 and 16-bit samples),
+//   vkgr_pcx_rle        Pillow's PcxDecode.c,
+//   vkgr_sun_rle        Pillow's SunRleDecode.c (runs cross scan lines),
+//   vkgr_qoi_decode     Pillow's QoiDecoder (the QOI ops, its index table),
+//   vkgr_ccitt          libtiff's tif_fax3.c: CCITT modified Huffman (TIFF
+//                       compression 2), T.4 one- and two-dimensional
+//                       (Group 3) and T.6 (Group 4),
+//   vkgr_thunderscan    libtiff's tif_thunder.c.
 //
 // Exported C ABI: every function returns 0 on success and < 0 on corrupt
 // or short data (the Python side raises ValueError).
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -38,6 +49,199 @@ struct TiffEntry {
   uint8_t value, firstchar;
 };
 
+
+// ITU-T T.4 modified Huffman codes: {code bits, run length}; terminating
+// codes 0-63, make-up codes 64-1728 of each colour, then the make-up codes
+// 1792-2560 that both colours share.
+struct FaxCode {
+  const char* bits;
+  int16_t run;
+};
+const FaxCode kWhite[] = {
+    {"00110101", 0}, {"000111", 1}, {"0111", 2}, {"1000", 3}, {"1011", 4}, {"1100", 5}, {"1110", 6},
+    {"1111", 7}, {"10011", 8}, {"10100", 9}, {"00111", 10}, {"01000", 11}, {"001000", 12}, {"000011", 13},
+    {"110100", 14}, {"110101", 15}, {"101010", 16}, {"101011", 17}, {"0100111", 18}, {"0001100", 19},
+    {"0001000", 20}, {"0010111", 21}, {"0000011", 22}, {"0000100", 23}, {"0101000", 24}, {"0101011", 25},
+    {"0010011", 26}, {"0100100", 27}, {"0011000", 28}, {"00000010", 29}, {"00000011", 30}, {"00011010", 31},
+    {"00011011", 32}, {"00010010", 33}, {"00010011", 34}, {"00010100", 35}, {"00010101", 36}, {"00010110", 37},
+    {"00010111", 38}, {"00101000", 39}, {"00101001", 40}, {"00101010", 41}, {"00101011", 42}, {"00101100", 43},
+    {"00101101", 44}, {"00000100", 45}, {"00000101", 46}, {"00001010", 47}, {"00001011", 48}, {"01010010", 49},
+    {"01010011", 50}, {"01010100", 51}, {"01010101", 52}, {"00100100", 53}, {"00100101", 54}, {"01011000", 55},
+    {"01011001", 56}, {"01011010", 57}, {"01011011", 58}, {"01001010", 59}, {"01001011", 60}, {"00110010", 61},
+    {"00110011", 62}, {"00110100", 63}, {"11011", 64}, {"10010", 128}, {"010111", 192}, {"0110111", 256},
+    {"00110110", 320}, {"00110111", 384}, {"01100100", 448}, {"01100101", 512}, {"01101000", 576},
+    {"01100111", 640}, {"011001100", 704}, {"011001101", 768}, {"011010010", 832}, {"011010011", 896},
+    {"011010100", 960}, {"011010101", 1024}, {"011010110", 1088}, {"011010111", 1152}, {"011011000", 1216},
+    {"011011001", 1280}, {"011011010", 1344}, {"011011011", 1408}, {"010011000", 1472}, {"010011001", 1536},
+    {"010011010", 1600}, {"011000", 1664}, {"010011011", 1728}};
+const FaxCode kBlack[] = {
+    {"0000110111", 0}, {"010", 1}, {"11", 2}, {"10", 3}, {"011", 4}, {"0011", 5}, {"0010", 6}, {"00011", 7},
+    {"000101", 8}, {"000100", 9}, {"0000100", 10}, {"0000101", 11}, {"0000111", 12}, {"00000100", 13},
+    {"00000111", 14}, {"000011000", 15}, {"0000010111", 16}, {"0000011000", 17}, {"0000001000", 18},
+    {"00001100111", 19}, {"00001101000", 20}, {"00001101100", 21}, {"00000110111", 22}, {"00000101000", 23},
+    {"00000010111", 24}, {"00000011000", 25}, {"000011001010", 26}, {"000011001011", 27}, {"000011001100", 28},
+    {"000011001101", 29}, {"000001101000", 30}, {"000001101001", 31}, {"000001101010", 32},
+    {"000001101011", 33}, {"000011010010", 34}, {"000011010011", 35}, {"000011010100", 36},
+    {"000011010101", 37}, {"000011010110", 38}, {"000011010111", 39}, {"000001101100", 40},
+    {"000001101101", 41}, {"000011011010", 42}, {"000011011011", 43}, {"000001010100", 44},
+    {"000001010101", 45}, {"000001010110", 46}, {"000001010111", 47}, {"000001100100", 48},
+    {"000001100101", 49}, {"000001010010", 50}, {"000001010011", 51}, {"000000100100", 52},
+    {"000000110111", 53}, {"000000111000", 54}, {"000000100111", 55}, {"000000101000", 56},
+    {"000001011000", 57}, {"000001011001", 58}, {"000000101011", 59}, {"000000101100", 60},
+    {"000001011010", 61}, {"000001100110", 62}, {"000001100111", 63}, {"0000001111", 64},
+    {"000011001000", 128}, {"000011001001", 192}, {"000001011011", 256}, {"000000110011", 320},
+    {"000000110100", 384}, {"000000110101", 448}, {"0000001101100", 512}, {"0000001101101", 576},
+    {"0000001001010", 640}, {"0000001001011", 704}, {"0000001001100", 768}, {"0000001001101", 832},
+    {"0000001110010", 896}, {"0000001110011", 960}, {"0000001110100", 1024}, {"0000001110101", 1088},
+    {"0000001110110", 1152}, {"0000001110111", 1216}, {"0000001010010", 1280}, {"0000001010011", 1344},
+    {"0000001010100", 1408}, {"0000001010101", 1472}, {"0000001011010", 1536}, {"0000001011011", 1600},
+    {"0000001100100", 1664}, {"0000001100101", 1728}};
+const FaxCode kExtended[] = {
+    {"00000001000", 1792}, {"00000001100", 1856}, {"00000001101", 1920}, {"000000010010", 1984},
+    {"000000010011", 2048}, {"000000010100", 2112}, {"000000010101", 2176}, {"000000010110", 2240},
+    {"000000010111", 2304}, {"000000011100", 2368}, {"000000011101", 2432}, {"000000011110", 2496},
+    {"000000011111", 2560}};
+// T.4 two-dimensional mode codes: vertical offsets -3..3, then these
+constexpr int kPass = 10, kHoriz = 11, kExt = 12, kEol = 13;
+const FaxCode kModes[] = {{"1", 0},        {"011", 1},     {"000011", 2},       {"0000011", 3},
+                          {"010", -1},     {"000010", -2}, {"0000010", -3},     {"0001", kPass},
+                          {"001", kHoriz}, {"0000001", kExt}, {"000000000001", kEol}};
+
+constexpr int kFaxMaxLen = 13;
+constexpr int16_t kNoCode = -32768;
+
+// A code table as lut[length][code]; kNoCode where no code has those bits.
+struct FaxTable {
+  std::vector<int16_t> lut = std::vector<int16_t>(size_t(kFaxMaxLen + 1) << kFaxMaxLen, kNoCode);
+  void add(const FaxCode* codes, size_t n) {
+    for (size_t i = 0; i < n; ++i) {
+      int len = int(std::strlen(codes[i].bits)), code = 0;
+      for (int k = 0; k < len; ++k) code = (code << 1) | (codes[i].bits[k] - '0');
+      lut[(size_t(len) << kFaxMaxLen) | code] = codes[i].run;
+    }
+  }
+};
+
+// MSB-first bits of a fax strip (FillOrder 2 is undone before).
+struct FaxBits {
+  const uint8_t* p;
+  int64_t n, pos = 0;  // pos in bits
+  int bit() { return pos < n * 8 ? (p[pos >> 3] >> (7 - (pos++ & 7))) & 1 : -1; }
+  // one code of `t`: its value, kNoCode for bits no code has, -32767 at the end of the data
+  int code(const FaxTable& t) {
+    int c = 0;
+    for (int len = 1; len <= kFaxMaxLen; ++len) {
+      int b = bit();
+      if (b < 0) return -32767;
+      c = (c << 1) | b;
+      int16_t v = t.lut[(size_t(len) << kFaxMaxLen) | c];
+      if (v != kNoCode) return v;
+    }
+    return kNoCode;
+  }
+  // a run: make-up codes, then a terminating code; < 0 on bad or missing codes
+  int run(const FaxTable& t) {
+    int total = 0;
+    for (;;) {
+      int v = code(t);
+      if (v < 0) return -1;
+      total += v;
+      if (v < 64) return total;
+    }
+  }
+  // libtiff's SYNC_EOL: 11 zero bits (sliding a bit at a time), the zeros
+  // after them, and the 1 that ends the EOL; false at the end of the data
+  bool sync_eol() {
+    for (;;) {
+      if (pos + 11 > n * 8) return false;
+      bool zeros = true;
+      for (int k = 0; k < 11 && zeros; ++k) zeros = ((p[(pos + k) >> 3] >> (7 - ((pos + k) & 7))) & 1) == 0;
+      if (zeros) break;
+      ++pos;
+    }
+    pos += 11;
+    for (;;) {
+      int b = bit();
+      if (b < 0) return false;
+      if (b == 1) return true;
+    }
+  }
+};
+
+const FaxTable& fax_table(int which) {
+  static const FaxTable* tables = [] {
+    static FaxTable t[3];
+    t[0].add(kWhite, sizeof(kWhite) / sizeof(kWhite[0]));
+    t[0].add(kExtended, sizeof(kExtended) / sizeof(kExtended[0]));
+    t[1].add(kBlack, sizeof(kBlack) / sizeof(kBlack[0]));
+    t[1].add(kExtended, sizeof(kExtended) / sizeof(kExtended[0]));
+    t[2].add(kModes, sizeof(kModes) / sizeof(kModes[0]));
+    return t;
+  }();
+  return tables[which];
+}
+
+// One row coded one-dimensionally: alternating white and black runs from
+// white, into the changing elements `cur`; false on a bad code or the end
+// of the data.
+bool fax_row_1d(FaxBits& br, int w, std::vector<int>& cur) {
+  cur.clear();
+  int a0 = 0, colour = 0;
+  while (a0 < w) {
+    int r = br.run(fax_table(colour));
+    if (r < 0) return false;
+    a0 = std::min(a0 + r, w);
+    cur.push_back(a0);
+    colour ^= 1;
+  }
+  return true;
+}
+
+// One row coded two-dimensionally against the reference row's changing
+// elements `ref` (ended by w, w); false on a bad or unsupported code.
+bool fax_row_2d(FaxBits& br, int w, const std::vector<int>& ref, std::vector<int>& cur) {
+  cur.clear();
+  int a0 = -1, colour = 0;
+  size_t i = 0;  // the search for b1 moves forward only
+  while (a0 < w) {
+    // b1: the first changing element right of a0 whose colour is not a0's (even indices turn black)
+    while (i < ref.size() && (ref[i] <= a0 || int(i & 1) != colour)) ++i;
+    const int b1 = i < ref.size() ? ref[i] : w;
+    const int b2 = i + 1 < ref.size() ? ref[i + 1] : w;
+    int m = br.code(fax_table(2));
+    if (m == kPass) {
+      a0 = b2;
+    } else if (m == kHoriz) {
+      const int start = a0 < 0 ? 0 : a0;
+      int r1 = br.run(fax_table(colour));
+      if (r1 < 0) return false;
+      int r2 = br.run(fax_table(colour ^ 1));
+      if (r2 < 0) return false;
+      const int a1 = std::min(start + r1, w), a2 = std::min(a1 + r2, w);
+      cur.push_back(a1);
+      cur.push_back(a2);
+      a0 = a2;
+    } else if (m >= -3 && m <= 3) {
+      const int a1 = b1 + m;
+      if (a1 < 0 || a1 > w || a1 < a0) return false;
+      cur.push_back(a1);
+      a0 = a1;
+      colour ^= 1;
+    } else {
+      return false;  // uncompressed-mode extension, an EOL inside a row, bad bits, the end of the data
+    }
+    if (i > 0) --i;  // b1 may sit left of the next search's start only through i; step back one to re-check
+  }
+  return true;
+}
+
+void fax_fill(const std::vector<int>& cur, int w, uint8_t* row) {
+  std::memset(row, 0, size_t((w + 7) / 8));
+  for (size_t k = 0; k < cur.size(); k += 2) {
+    const int x0 = cur[k], x1 = k + 1 < cur.size() ? cur[k + 1] : w;
+    for (int x = x0; x < x1 && x < w; ++x) row[x >> 3] |= uint8_t(0x80 >> (x & 7));
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -430,6 +634,326 @@ int vkgr_tga_rle(const uint8_t* src, int64_t n, int32_t depth, int64_t row_bytes
         }
       }
     }
+  }
+  return 0;
+}
+
+// PackBits as Pillow's PackbitsDecode.c reads a PSD channel: rows of
+// row_bytes bytes decoded one after another from one stream; a run or
+// literal that passes the end of a row is cut there (the rest dropped),
+// 0x80 is a no-op. dst gets rows * row_bytes bytes. -1: the data end
+// before the last row is full (Pillow's "image file is truncated").
+int vkgr_packbits_rows(const uint8_t* src, int64_t n, int64_t row_bytes, int32_t rows, uint8_t* dst) {
+  int64_t pos = 0, x = 0;
+  int32_t y = 0;
+  while (y < rows) {
+    if (pos >= n) return -1;
+    const int hdr = src[pos];
+    uint8_t* row = dst + int64_t(y) * row_bytes;
+    if (hdr & 0x80) {
+      if (hdr == 0x80) {
+        ++pos;
+        continue;
+      }
+      if (n - pos < 2) return -1;
+      for (int k = 257 - hdr; k > 0 && x < row_bytes; --k) row[x++] = src[pos + 1];
+      pos += 2;
+    } else {
+      const int64_t len = hdr + 1;
+      if (n - pos < len + 1) return -1;
+      for (int64_t i = 0; i < len && x < row_bytes; ++i) row[x++] = src[pos + 1 + i];
+      pos += len + 1;
+    }
+    if (x >= row_bytes) {
+      x = 0;
+      ++y;
+    }
+  }
+  return 0;
+}
+
+// SGI RLE as Pillow's SgiRleDecode.c: body is the file from byte 512 on
+// (the start and length tables first, big-endian, ysize * zsize entries
+// each, channel-major); rows are decoded bottom row first, each channel
+// into a row buffer kept from row to row (samples a short row leaves are
+// the previous row's), 8-bit samples (bpc 1) or the big-endian 16-bit
+// words (bpc 2) whose high byte Pillow keeps. A packet reads its count
+// from the sample's low byte: 0 ends the row, 0x80 set copies, else a run;
+// the packets counted down from the row's length in bytes, the last one
+// with a count ends the image early (the rows after it stay 0), as
+// Pillow's expandrow does. dst gets ysize * xsize * zsize bytes (the high
+// bytes), rows in file order, channels interleaved. -1: an offset or
+// packet outside the data, or a row past xsize (Pillow's overrun).
+int vkgr_sgi_rle(const uint8_t* body, int64_t n, int32_t xsize, int32_t ysize, int32_t zsize, int32_t bpc,
+                 uint8_t* dst) {
+  const int64_t tablen = int64_t(ysize) * zsize;
+  if (n < 8 * tablen) return -1;
+  auto u32 = [&](int64_t off) {
+    return (uint32_t(body[off]) << 24) | (uint32_t(body[off + 1]) << 16) | (uint32_t(body[off + 2]) << 8) |
+           uint32_t(body[off + 3]);
+  };
+  const uint8_t* end = body + n - 1;  // the last byte, as Pillow's end_of_buffer
+  std::vector<uint8_t> buf(size_t(xsize) * zsize * 2, 0);
+  for (int32_t row = 0; row < ysize; ++row) {
+    for (int32_t ch = 0; ch < zsize; ++ch) {
+      const int64_t t = row + int64_t(ch) * ysize;
+      uint32_t off = u32(4 * t), len = u32(4 * (tablen + t));
+      if (off < 512) return -1;
+      off -= 512;
+      const uint8_t* p = body + off;
+      uint8_t* d = buf.data() + ch * bpc;
+      int x = 0;
+      int status = 0;
+      for (int64_t k = len; k > 0; --k) {
+        if (p + (bpc - 1) > end) return -1;
+        const uint8_t pixel = p[bpc - 1];
+        p += bpc;
+        if (k == 1 && pixel != 0) {
+          status = 1;
+          break;
+        }
+        int count = pixel & 0x7f;
+        if (!count) break;
+        if (x + count > xsize) return -1;
+        x += count;
+        if (pixel & 0x80) {
+          if (p + int64_t(bpc) * count > end) return -1;
+          while (count--) {
+            std::memcpy(d, p, size_t(bpc));
+            p += bpc;
+            d += int64_t(zsize) * bpc;
+          }
+        } else {
+          if (bpc == 1 ? p > end : p + 2 > end) return -1;
+          while (count--) {
+            std::memcpy(d, p, size_t(bpc));
+            d += int64_t(zsize) * bpc;
+          }
+          p += bpc;
+        }
+      }
+      if (status == 1) return 0;  // Pillow stops here without an error
+    }
+    uint8_t* out = dst + int64_t(row) * xsize * zsize;
+    for (int64_t i = 0; i < int64_t(xsize) * zsize; ++i) out[i] = buf[i * bpc];
+  }
+  return 0;
+}
+
+// PCX RLE as Pillow's PcxDecode.c: a byte with its top two bits set is a
+// run of (byte & 0x3f) copies of the next byte, any other byte a literal;
+// rows of row_bytes bytes. -1: a run past the end of a row (Pillow's
+// overrun), -2: the data end before the last row is full.
+int vkgr_pcx_rle(const uint8_t* src, int64_t n, int64_t row_bytes, int32_t rows, uint8_t* dst) {
+  int64_t pos = 0, x = 0;
+  int32_t y = 0;
+  while (y < rows) {
+    if (pos >= n) return -2;
+    uint8_t* row = dst + int64_t(y) * row_bytes;
+    if ((src[pos] & 0xC0) == 0xC0) {
+      if (n - pos < 2) return -2;
+      const int cnt = src[pos] & 0x3F;
+      if (x + cnt > row_bytes) return -1;
+      std::memset(row + x, src[pos + 1], size_t(cnt));
+      x += cnt;
+      pos += 2;
+    } else {
+      row[x++] = src[pos++];
+    }
+    if (x >= row_bytes) {
+      x = 0;
+      ++y;
+    }
+  }
+  return 0;
+}
+
+// Sun raster byte-encoded RLE as Pillow's SunRleDecode.c: 0x80 0 is a
+// literal 0x80, 0x80 n v (n > 0) n + 1 copies of v, any other byte a
+// literal; one stream whose runs pass from row to row, into cap bytes (a
+// run past the end is cut). -1: the data end first.
+int vkgr_sun_rle(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
+  int64_t pos = 0, out = 0;
+  while (out < cap) {
+    if (pos >= n) return -1;
+    if (src[pos] == 0x80) {
+      if (n - pos < 2) return -1;
+      if (src[pos + 1] == 0) {
+        dst[out++] = 0x80;
+        pos += 2;
+        continue;
+      }
+      if (n - pos < 3) return -1;
+      int64_t cnt = int64_t(src[pos + 1]) + 1;
+      if (cnt > cap - out) cnt = cap - out;
+      std::memset(dst + out, src[pos + 2], size_t(cnt));
+      out += cnt;
+      pos += 3;
+    } else {
+      dst[out++] = src[pos++];
+    }
+  }
+  return 0;
+}
+
+// QOI as Pillow's QoiDecoder: src is the stream after the 14-byte header;
+// dst gets npix pixels of `bands` (3 or 4) bytes. A run writes the
+// previous pixel; an index names one of 64 pixels hashed by
+// (3r + 5g + 7b + 11a) % 64, (0, 0, 0, 0) before it is set; the first
+// previous pixel is (0, 0, 0, 255). -1: the stream ends before the image
+// is full (Pillow raises then).
+int vkgr_qoi_decode(const uint8_t* src, int64_t n, int64_t npix, int32_t bands, uint8_t* dst) {
+  uint8_t index[64][4];
+  std::memset(index, 0, sizeof(index));
+  uint8_t prev[4] = {0, 0, 0, 255};
+  int64_t pos = 0, px = 0;
+  auto put = [&](const uint8_t* v) {
+    std::memcpy(dst + px * bands, v, size_t(bands));
+    ++px;
+  };
+  while (px < npix) {
+    if (pos >= n) return -1;
+    const uint8_t b = src[pos++];
+    uint8_t v[4];
+    if (b == 0xFE) {
+      if (n - pos < 3) return -1;
+      v[0] = src[pos], v[1] = src[pos + 1], v[2] = src[pos + 2], v[3] = prev[3];
+      pos += 3;
+    } else if (b == 0xFF) {
+      if (n - pos < 4) return -1;
+      std::memcpy(v, src + pos, 4);
+      pos += 4;
+    } else {
+      const int op = b >> 6;
+      if (op == 0) {
+        std::memcpy(v, index[b & 63], 4);
+      } else if (op == 1) {
+        v[0] = uint8_t(prev[0] + ((b >> 4) & 3) - 2);
+        v[1] = uint8_t(prev[1] + ((b >> 2) & 3) - 2);
+        v[2] = uint8_t(prev[2] + (b & 3) - 2);
+        v[3] = prev[3];
+      } else if (op == 2) {
+        if (pos >= n) return -1;
+        const uint8_t b2 = src[pos++];
+        const int dg = (b & 63) - 32, dr = ((b2 >> 4) & 15) - 8, db = (b2 & 15) - 8;
+        v[0] = uint8_t(prev[0] + dg + dr);
+        v[1] = uint8_t(prev[1] + dg);
+        v[2] = uint8_t(prev[2] + dg + db);
+        v[3] = prev[3];
+      } else {
+        for (int k = (b & 63) + 1; k > 0 && px < npix; --k) put(prev);
+        continue;
+      }
+    }
+    std::memcpy(prev, v, 4);
+    std::memcpy(index[(v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64], v, 4);
+    put(v);
+  }
+  return 0;
+}
+
+// CCITT fax data of one strip or tile as libtiff's tif_fax3.c decodes it:
+// compression 2 (modified Huffman rows, each from a byte boundary), 3 (T.4:
+// an EOL before each row, found as libtiff's SYNC_EOL finds it; with
+// T4Options bit 0 a tag bit after it picks a 1-D or 2-D row) or 4 (T.6:
+// 2-D rows against the row before, the first against a white row). dst gets
+// h rows of (w + 7) / 8 bytes, black runs as 1 bits, as libtiff hands them
+// to Pillow. -1: a bad code, a code libtiff would refuse (uncompressed
+// mode), or the data end before the last row.
+int vkgr_ccitt(const uint8_t* src, int64_t n, int32_t w, int32_t h, int32_t compression, int32_t t4options,
+               uint8_t* dst) {
+  if (w <= 0 || h <= 0) return -1;
+  FaxBits br{src, n};
+  std::vector<int> ref{w, w}, cur;
+  const int64_t rowbytes = (w + 7) / 8;
+  for (int y = 0; y < h; ++y) {
+    bool ok;
+    if (compression == 2) {
+      ok = fax_row_1d(br, w, cur);
+      br.pos = (br.pos + 7) & ~int64_t(7);
+    } else if (compression == 3) {
+      if (!br.sync_eol()) return -1;
+      bool two_d = false;
+      if (t4options & 1) {
+        int b = br.bit();
+        if (b < 0) return -1;
+        two_d = b == 0;
+      }
+      ok = two_d ? fax_row_2d(br, w, ref, cur) : fax_row_1d(br, w, cur);
+    } else if (compression == 4) {
+      ok = fax_row_2d(br, w, ref, cur);
+    } else {
+      return -1;
+    }
+    if (!ok) return -1;
+    fax_fill(cur, w, dst + y * rowbytes);
+    ref = cur;
+    ref.push_back(w);
+    ref.push_back(w);
+  }
+  return 0;
+}
+
+// ThunderScan 4-bit data as libtiff's tif_thunder.c decodes a row: each byte
+// is a run of the last pixel (low 6 bits a count), three 2-bit deltas, two
+// 3-bit deltas (a skip code leaves a slot out) or a raw pixel; pixels pack
+// two a byte, the high nibble first. A delta or raw pixel past the row's
+// end is dropped; a run is written only when it ends before the row's end
+// (its first pixel is, at an odd position), and one that passes the end
+// fails the row, as in libtiff. dst gets rows * ((w + 1) / 2) bytes. -1:
+// the data end before the last row is full, or a run passes a row's end.
+int vkgr_thunderscan(const uint8_t* src, int64_t n, int32_t w, int32_t rows, uint8_t* dst) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const int64_t rowbytes = (int64_t(w) + 1) / 2;
+  int64_t pos = 0;
+  for (int32_t y = 0; y < rows; ++y) {
+    uint8_t* op = dst + y * rowbytes;
+    std::memset(op, 0, size_t(rowbytes));
+    int last = 0;
+    int64_t np = 0;
+    auto put = [&](int v) {  // libtiff's SETPIXEL
+      last = v & 15;
+      if (np < w) {
+        op[np >> 1] |= uint8_t((np & 1) ? last : last << 4);
+        ++np;
+      }
+    };
+    while (np < w) {
+      if (pos >= n) return -1;
+      const int b = src[pos++];
+      switch (b & 0xC0) {
+        case 0x00: {  // a run of the last pixel
+          int k = b & 0x3F;
+          if (np & 1) {
+            op[np >> 1] |= uint8_t(last);
+            ++np;
+            --k;
+          }
+          if (np + k < w)
+            for (int i = 0; i < k; ++i, ++np) op[np >> 1] |= uint8_t((np & 1) ? last : last << 4);
+          else
+            np += k;
+          break;
+        }
+        case 0x40:  // three 2-bit deltas, 2 skips
+          for (int sh = 4; sh >= 0; sh -= 2) {
+            const int d = (b >> sh) & 3;
+            if (d != 2) put(last + two[d]);
+          }
+          break;
+        case 0x80:  // two 3-bit deltas, 4 skips
+          for (int sh = 3; sh >= 0; sh -= 3) {
+            const int d = (b >> sh) & 7;
+            if (d != 4) put(last + three[d]);
+          }
+          break;
+        default:  // a raw pixel
+          put(b & 15);
+          break;
+      }
+    }
+    if (np != w) return -1;
   }
   return 0;
 }

@@ -25,11 +25,12 @@
 // blocks left as they are).
 //
 // Decoding one lossless scan (SOF3, Huffman): the differences of each
-// sample (DC tables, symbol 16 meaning 32768), undone with the scan's
-// predictor 1-7 and point transform; the first row of the scan, and of each
-// restart interval, predicts from the left (its first sample from
-// 2^(P-Pt-1)), each row's first sample from above, as libjpeg-turbo's
-// jdpred.c does.
+// sample (DC tables, symbol 16 meaning 32768), in MCUs of h x v samples a
+// component when the scan interleaves subsampled components, undone with
+// the scan's predictor 1-7 and point transform; the first row of the scan,
+// and of each restart interval, predicts from the left (its first sample
+// from 2^(P-Pt-1)), each row's first sample from above, as libjpeg-turbo's
+// jddiffct.c and jdpred.c do.
 //
 // Exported C ABI (all return 0 on success, < 0 on bad arguments or tables):
 //   vkgr_jpeg_decode_scan(...)        see below
@@ -760,71 +761,116 @@ int vkgr_jpeg_decode_scan_arith(const uint8_t* data, int64_t len, int32_t ncomp,
   return 0;
 }
 
-// Decode one lossless (SOF3) scan of ncomp components, each sampled 1x1.
-//   out            per component its uint16 plane [height, width]
-//   dc             per component its DC Huffman table (0..3)
+// Decode one lossless (SOF3) scan of ncomp components, as libjpeg-turbo's
+// jddiffct.c and jdpred.c do. A data unit is one sample: an interleaved scan
+// codes MCUs of h x v samples of each component in turn (the samples past a
+// component's edge in the last MCU column and row are decoded and dropped),
+// a scan of one component codes its samples in raster order. The
+// differences of one iMCU row (v rows of each component) are decoded first
+// and then undone row by row; a restart (every `restart` MCUs, a whole
+// number of MCU rows) makes the next undone row of every component a first
+// row again, which predicts from the left.
+//   out            per component its uint16 plane [geom rows, geom cols]
+//   geom           per component h, v, cols, rows, DC Huffman table (0..3)
+//   mcux, mcuy     an interleaved scan's MCU columns and rows (ceil(W / hmax),
+//                  ceil(H / vmax))
 //   bits, vals, present   the Huffman tables as vkgr_jpeg_decode_scan takes them
 //   precision, predictor (1..7), pt   the frame's P and the scan's Ss and Al
-//   restart        the restart interval in MCUs (a whole number of rows)
+//   restart        the restart interval in MCUs
 // Returns -2 / -4 for an undefined or refused table, -5 for a restart
-// interval that is not a whole number of rows.
+// interval that is not a whole number of MCU rows.
 int vkgr_jpeg_decode_lossless(const uint8_t* data, int64_t len, int32_t ncomp, uint16_t* const* out,
-                              const int32_t* dc, int32_t width, int32_t height, const uint8_t* bits,
+                              const int32_t* geom, int32_t mcux, int32_t mcuy, const uint8_t* bits,
                               const uint8_t* vals, const uint8_t* present, int32_t precision, int32_t predictor,
                               int32_t pt, int32_t restart) {
   if (ncomp < 1 || ncomp > 4 || predictor < 1 || predictor > 7 || pt < 0 || pt >= precision) return -1;
-  if (restart > 0 && restart % width != 0) return -5;
   Huff tables[4];
   const Huff* tab[4];
+  int hs[4], vs[4], cols[4], rows[4], pitch[4];
   for (int i = 0; i < ncomp; ++i) {
-    int t = dc[i] & 3;
+    const int32_t* g = geom + 5 * i;
+    hs[i] = ncomp == 1 ? 1 : g[0];
+    vs[i] = g[1];
+    cols[i] = g[2];
+    rows[i] = g[3];
+    if (hs[i] < 1 || vs[i] < 1 || cols[i] < 1 || rows[i] < 1) return -1;
+    int t = g[4] & 3;
     if (!present[t]) return -2;
     if (!tables[t].present && !tables[t].build(bits + 16 * t, vals + 256 * t, true, 16)) return -4;
     tab[i] = &tables[t];
   }
+  const bool interleaved = ncomp > 1;
+  const int per_row = interleaved ? mcux : cols[0];
+  const int imcu_rows = interleaved ? mcuy : (rows[0] + vs[0] - 1) / vs[0];
+  if (per_row < 1 || imcu_rows < 1) return -1;
+  if (restart > 0 && restart % per_row != 0) return -5;
+  std::vector<std::vector<int32_t>> diff(ncomp), prev(ncomp), cur(ncomp);
+  for (int c = 0; c < ncomp; ++c) {
+    pitch[c] = interleaved ? mcux * hs[c] : cols[c];
+    diff[c].assign(size_t(pitch[c]) * vs[c], 0);
+    prev[c].assign(cols[c], 0);
+    cur[c].assign(cols[c], 0);
+  }
   BitReader br{data, data + len};
-  const int rows_per_interval = restart > 0 ? restart / width : 0;
+  const int restart_rows = restart > 0 ? restart / per_row : 0;
+  int rows_to_go = restart_rows;
   const int initial = 1 << (precision - pt - 1);
-  std::vector<int32_t> prev(size_t(width) * ncomp), cur(size_t(width) * ncomp);
-  bool first_row = true;
-  for (int y = 0; y < height; ++y) {
-    if (rows_per_interval > 0 && y > 0 && y % rows_per_interval == 0) {
-      br.restart();
-      first_row = true;
-    }
-    for (int x = 0; x < width; ++x)
-      for (int c = 0; c < ncomp; ++c) {
-        int s = tab[c]->decode(br);
-        int diff;
-        if (s == 0)
-          diff = 0;
-        else if (s == 16)
-          diff = 32768;
-        else
-          diff = extend(br.get(s), s);
-        const size_t k = size_t(x) * ncomp + c;
-        int pred;
-        if (first_row) {
-          pred = x == 0 ? initial : cur[k - ncomp];
-        } else if (x == 0) {
-          pred = prev[k];
-        } else {
-          const int ra = cur[k - ncomp], rb = prev[k], rc = prev[k - ncomp];
-          switch (predictor) {
-            case 1: pred = ra; break;
-            case 2: pred = rb; break;
-            case 3: pred = rc; break;
-            case 4: pred = ra + rb - rc; break;
-            case 5: pred = ra + ((rb - rc) >> 1); break;
-            case 6: pred = rb + ((ra - rc) >> 1); break;
-            default: pred = (ra + rb) >> 1; break;
-          }
+  bool first_row[4] = {true, true, true, true};
+  auto sample = [&](const Huff* t) {
+    int s = t->decode(br);
+    return s == 0 ? 0 : s == 16 ? 32768 : extend(br.get(s), s);
+  };
+  for (int im = 0; im < imcu_rows; ++im) {
+    const bool last = im == imcu_rows - 1;
+    const int mcu_rows = interleaved ? 1 : last ? rows[0] - im * vs[0] : vs[0];
+    for (int yo = 0; yo < mcu_rows; ++yo) {
+      for (int mx = 0; mx < per_row; ++mx) {
+        if (restart_rows > 0 && rows_to_go == 0) {
+          br.restart();
+          rows_to_go = restart_rows;
+          for (int c = 0; c < ncomp; ++c) first_row[c] = true;
         }
-        cur[k] = (pred + diff) & 0xFFFF;
-        out[c][int64_t(y) * width + x] = uint16_t(cur[k] << pt);
+        if (interleaved) {
+          for (int c = 0; c < ncomp; ++c)
+            for (int yy = 0; yy < vs[c]; ++yy)
+              for (int xx = 0; xx < hs[c]; ++xx) diff[c][size_t(yy) * pitch[c] + mx * hs[c] + xx] = sample(tab[c]);
+        } else {
+          diff[0][size_t(yo) * pitch[0] + mx] = sample(tab[0]);
+        }
       }
-    first_row = false;
-    std::swap(prev, cur);
+      if (restart_rows > 0) --rows_to_go;
+    }
+    for (int c = 0; c < ncomp; ++c) {
+      const int n = last ? rows[c] - im * vs[c] : vs[c];
+      for (int r = 0; r < n && r < vs[c]; ++r) {
+        const int32_t* d = diff[c].data() + size_t(r) * pitch[c];
+        std::vector<int32_t>& up = prev[c];
+        std::vector<int32_t>& row = cur[c];
+        for (int x = 0; x < cols[c]; ++x) {
+          int pred;
+          if (first_row[c]) {
+            pred = x == 0 ? initial : row[x - 1];
+          } else if (x == 0) {
+            pred = up[0];
+          } else {
+            const int ra = row[x - 1], rb = up[x], rc = up[x - 1];
+            switch (predictor) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+          }
+          row[x] = (pred + d[x]) & 0xFFFF;
+          out[c][int64_t(im * vs[c] + r) * cols[c] + x] = uint16_t(row[x] << pt);
+        }
+        first_row[c] = false;
+        std::swap(prev[c], cur[c]);
+      }
+    }
   }
   return 0;
 }

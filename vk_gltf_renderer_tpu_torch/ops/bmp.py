@@ -89,8 +89,10 @@ def _unpack_pixels(rows: np.ndarray, raw_mode: str, bits: int, w: int) -> np.nda
     return px[..., order]
 
 
-def read_bmp(data: bytes, dib: bool = False):
-    """BMP (or headerless DIB) bytes -> (mode, pixels, palette)."""
+def read_bmp(data: bytes, dib: bool = False, half_height: bool = False):
+    """BMP (or headerless DIB) bytes -> (mode, pixels, palette); with
+    half_height the image an icon or cursor holds (ops/ico.py): the
+    header's height halved, the rows of the first half read."""
     if dib:
         start, offset = 0, 0
     else:
@@ -127,6 +129,8 @@ def read_bmp(data: bytes, dib: bool = False):
                 pos += 12
     else:
         raise UnsupportedCodec(f"BMP header size {hsize} is not supported")
+    if half_height:
+        h //= 2
     if w <= 0 or h <= 0 or w >= 2**31 or h >= 2**31:
         raise ValueError("BMP: empty or negative image size")
     colors = colors if colors else 1 << bits

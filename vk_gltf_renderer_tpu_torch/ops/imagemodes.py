@@ -95,3 +95,30 @@ def to_rgba(mode: str, px: np.ndarray, palette=None, transparency=None) -> np.nd
     else:
         raise UnsupportedCodec(f"image mode {mode} is not supported")
     return out
+
+
+class PassOn(UnsupportedCodec):
+    """A reader's header checks failed the way Image.open lets the next
+    plugin try (its _open raised SyntaxError, IndexError, TypeError or
+    struct.error): utils/image_io.read_image asks the next reader."""
+
+
+# Pillow's DecompressionBombError limit: twice Image.MAX_IMAGE_PIXELS
+MAX_PIXELS = 2 * 89_478_485
+
+
+def check_size(what: str, w: int, h: int, need: int = 0, have: int = 0, ratio: int = 0) -> None:
+    """Raise ValueError for an image past Pillow's decompression-bomb limit,
+    and, with a coder's largest expansion `ratio`, for coded data (`have`
+    bytes) too short to fill `need` bytes, before anything is allocated
+    (Pillow fails such data as truncated when it loads them)."""
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"{what}: {w}x{h} pixels is past Pillow's decompression-bomb limit")
+    if ratio and need > ratio * have:
+        raise ValueError(f"{what}: truncated data")
+
+
+def native_rc(rc: int, what: str) -> None:
+    """Raise ValueError for a native coder's error code."""
+    if rc != 0:
+        raise ValueError(f"{what}: corrupt or truncated data (rc {rc})")

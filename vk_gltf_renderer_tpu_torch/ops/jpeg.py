@@ -7,8 +7,10 @@ does with its defaults, so that a texture reads the same in both packages:
   * frames: baseline (SOF0), extended 8-bit Huffman (SOF1) and progressive
     (SOF2, spectral selection and successive approximation), their
     arithmetic-coded forms (SOF9, SOF10, with DAC conditioning), and 8-bit
-    lossless (SOF3, 1x1 sampling); restart intervals; one, three or four
-    components at any integral sampling;
+    lossless (SOF3; subsampled components, interleaved or in scans of
+    their own, replicated up as libjpeg-turbo upsamples a lossless frame);
+    restart intervals; one, three or four components at any integral
+    sampling;
   * the entropy decoding of each scan in C++ (native/jpeg_entropy.cpp,
     built at first use); dequantisation, the inverse DCT, upsampling and
     colour conversion vectorised in numpy over all blocks:
@@ -375,8 +377,6 @@ def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
             progressive = marker in (0xC2, 0xCA)
             arith = marker in (0xC9, 0xCA)
             lossless = marker == 0xC3
-            if lossless and any(c.h != 1 or c.v != 1 for c in comps):
-                raise UnsupportedCodec("lossless JPEG with subsampled components is not supported")
             hmax = max(c.h for c in comps)
             vmax = max(c.v for c in comps)
             mcux = -(-width // (8 * hmax))
@@ -385,7 +385,8 @@ def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
                 c.w = -(-width * c.h // hmax)
                 c.hgt = -(-height * c.v // vmax)
                 c.cols, c.rows = mcux * c.h, mcuy * c.v
-                c.coef = np.zeros((c.rows * c.cols, 64), np.int16)
+                if not lossless:
+                    c.coef = np.zeros((c.rows * c.cols, 64), np.int16)
         elif 0xC5 <= marker <= 0xCF and marker not in (0xC8, 0xC9, 0xCA, 0xCC):
             raise UnsupportedCodec(f"JPEG SOF{marker - 0xC0} (hierarchical, or lossless arithmetic) "
                                    "is not supported")
@@ -440,14 +441,14 @@ def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
             geom_a = np.ascontiguousarray(geom, np.int32)
             if lossless:
                 if planes16 is None:
-                    planes16 = {c.id: np.zeros((height, width), np.uint16) for c in comps}
+                    planes16 = {c.id: np.zeros((c.hgt, c.w), np.uint16) for c in comps}
                 outs = (ctypes.c_void_p * 4)(*[planes16[c.id].ctypes.data for c in scomps])
-                dc = np.ascontiguousarray([g[5] for g in geom], np.int32)
+                lgeom = np.ascontiguousarray([[c.h, c.v, c.w, c.hgt, g[5]] for c, g in zip(scomps, geom)], np.int32)
                 rc = _lib().vkgr_jpeg_decode_lossless(
-                    _ptr(entropy), len(entropy), ns, outs, _ptr(dc), width, height, _ptr(huff_bits),
-                    _ptr(huff_vals), _ptr(present), 8, ss, ahal & 15, restart)
+                    _ptr(entropy), len(entropy), ns, outs, _ptr(lgeom), -(-width // hmax), -(-height // vmax),
+                    _ptr(huff_bits), _ptr(huff_vals), _ptr(present), 8, ss, ahal & 15, restart)
                 if rc == -5:
-                    raise ValueError("lossless JPEG restart interval that is not a whole number of rows")
+                    raise ValueError("lossless JPEG restart interval that is not a whole number of MCU rows")
             elif arith:
                 ptrs = (ctypes.c_void_p * 4)(*[c.coef.ctypes.data for c in scomps])
                 rc = _lib().vkgr_jpeg_decode_scan_arith(
@@ -486,7 +487,13 @@ def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
         # (without JFIF or Adobe markers it takes three components for RGB)
         if len(comps) > 1 and (jfif or (adobe is not None and adobe != 0)):
             raise ValueError("lossless JPEG in a colour space libjpeg-turbo cannot convert")
-        planes = [(planes16[c.id] & 0xFF).astype(np.uint8) for c in comps]
+        hmax = max(c.h for c in comps)
+        vmax = max(c.v for c in comps)
+        if any(hmax % c.h or vmax % c.v for c in comps):
+            raise UnsupportedCodec("JPEG with non-integral sampling ratios is not supported")
+        # a data unit is one sample, so libjpeg-turbo upsamples by replication (no fancy upsampling)
+        planes = [np.repeat(np.repeat((planes16[c.id] & 0xFF).astype(np.uint8), vmax // c.v, axis=0),
+                            hmax // c.h, axis=1)[:height, :width] for c in comps]
         if len(comps) == 4:
             return cmyk_to_rgb(255 - np.stack(planes, axis=-1))
         return np.stack(planes, axis=-1)

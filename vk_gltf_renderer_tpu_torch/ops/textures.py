@@ -7,9 +7,10 @@ texel i (REPEAT wrap baked in), so one bilinear fetch is one row gather.
 Sampling wraps with REPEAT only, as the reference does. decode_image
 tries DDS and KTX2 first (BC1-3, RGBA8, zlib, zstd with the zstandard
 package, BasisLZ/ETC1S, UASTC, ASTC, through ops/dds.py), as the
-reference does, then identifies the data as Image.open does
-(utils/image_io.read_image): PNG, BMP/DIB, GIF, JPEG, Netpbm, TIFF and
-WebP by their magic bytes, TGA last by its header checks. Every decoder
+reference does, then identifies the data as Image.open does, in its order
+(utils/image_io.read_image): BMP/DIB, GIF, JPEG, Netpbm, PNG, CUR, PCX,
+DCX, ICO, TIFF, PSD, QOI, SGI, Sun raster, TGA (by its header checks) and
+WebP. Every decoder
 raises ValueError (or its subclass UnsupportedCodec) for input it cannot
 read, data that no reader claims included, and build_texture_pool turns
 such an image into 1x1 white, as the reference does for any failed

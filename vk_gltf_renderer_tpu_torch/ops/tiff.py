@@ -17,10 +17,20 @@ unpackers map them: WhiteIsZero inverted at 1, 2, 4 and 8 bits (not at
 high byte, associated alpha un-premultiplied (v * 255 // a, 0 where a is
 0), the colour map's high bytes as the palette. The Orientation tag is
 applied as Pillow 12's load_end applies it (ImageOps.exif_transpose: flips,
-rotations and transposes, the size swapped for 5-8). Compressions that Pillow reads only through libtiff's other
-codecs (CCITT, LZMA, ZSTD, WebP, SGILog, old JPEG), floating-point
-predictor (3), YCbCr without JPEG, and CIELab raise UnsupportedCodec
-(ROADMAP C).
+rotations and transposes, the size swapped for 5-8). The codecs Pillow
+reads through libtiff: CCITT modified Huffman (2), T.4 (3, one- and
+two-dimensional, T4Options) and T.6 (4), and ThunderScan through
+native/image_coders.cpp (black runs as set bits, as libtiff hands them to
+Pillow's "1" and "1;I" raw modes); LZMA (34925) through the standard
+library's lzma; the floating-point predictor (3); 12-bit gray (Pillow's "I;12" raw mode, MSB-first fields); YCbCr that JPEG
+did not code, as libtiff's TIFFRGBAImage converts it for Pillow (each data
+unit's chroma over its hs x vs pixels, TIFFYCbCrtoRGB's fixed-point tables
+from the coefficients and ReferenceBlackWhite). ZSTD (no zstd decoder
+without a package), old-style JPEG (libtiff's raw YCbCr planes), WebP
+(this Pillow's libtiff has no WebP codec, so the JAX package refuses it
+too), SGILog (no mode in Pillow's table) and CIELab (Pillow converts it
+through LittleCMS) raise UnsupportedCodec (ROADMAP C); uncompressed YCbCr,
+which Pillow reads with a four-byte raw mode, raises ValueError.
 
 encode_tiff writes what Image.fromarray(a).save(path) writes: little
 endian, uncompressed, one strip (RowsPerStrip = height), Pillow's tags in
@@ -44,7 +54,9 @@ COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tiff_lz
                 8: "tiff_adobe_deflate", 32771: "tiff_raw_16", 32773: "packbits", 32809: "tiff_thunderscan",
                 32946: "tiff_deflate", 34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                 50001: "webp"}
-DECODED = ("raw", "tiff_lzw", "packbits", "tiff_adobe_deflate", "tiff_deflate", "jpeg")
+DECODED = ("raw", "tiff_lzw", "packbits", "tiff_adobe_deflate", "tiff_deflate", "jpeg", "tiff_ccitt", "group3", "group4",
+           "lzma", "tiff_thunderscan")
+CCITT = {"tiff_ccitt": 2, "group3": 3, "group4": 4}
 
 # Pillow's OPEN_INFO: (byte orders, photometric, sample format, fill order, bits, extra samples) -> (mode,
 # raw mode); "*" is both byte orders
@@ -168,9 +180,9 @@ def _scalar(tags, tag, default=None):
 def _samples(rows: np.ndarray, bits: int, nsamp: int, width: int, bo: str, sfmt: int) -> np.ndarray:
     """[h, row bytes] -> samples [h, width, nsamp] (integers, or float32)."""
     h = rows.shape[0]
-    if bits < 8:
+    if bits < 8 or bits == 12:  # MSB-first bit fields (Pillow's "I;12" unpacker reads 12-bit ones so)
         b = np.unpackbits(rows, axis=1)[:, : width * nsamp * bits].reshape(h, width * nsamp, bits)
-        v = b.dot(1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+        v = b.dot(1 << np.arange(bits - 1, -1, -1)).astype(np.uint8 if bits < 8 else np.int64)
         return v.reshape(h, width, nsamp)
     nb = bits // 8
     kind = {1: "u", 2: "i", 3: "f"}[sfmt]
@@ -257,25 +269,35 @@ def read_tiff(data: bytes):
     mode, raw = OPEN_INFO[key]
     if comp not in DECODED:
         raise UnsupportedCodec(f"TIFF compression {comp} is not supported")
-    if mode == "LAB" or raw == "I;12":
-        raise UnsupportedCodec(f"TIFF raw mode {raw} is not supported")
+    if mode == "LAB":
+        raise UnsupportedCodec("TIFF CIELab: Pillow converts it through LittleCMS, which is not ported")
     if fill == 2:  # the data are bit-reversed below, so the ";R" raw modes read as their plain forms
         if comp != "raw":
             mode, raw = OPEN_INFO[key[:3] + (1,) + key[4:]]
         elif raw.endswith("R"):
             raw = raw[:-1].rstrip(";")
-    if comp != "raw":
-        if photo == 6 and comp != "jpeg":
-            raise UnsupportedCodec("TIFF YCbCr without JPEG compression is not supported")
+    # libtiff hands Pillow YCbCr that JPEG did not code as RGBA (TIFFRGBAImage)
+    ycbcr = photo == 6 and comp not in ("raw", "jpeg")
+    if photo == 6 and comp == "raw":  # Pillow reads it with its own "RGBX" raw mode: four bytes a pixel
+        raise ValueError("TIFF: uncompressed YCbCr, which Pillow reads four bytes a pixel")
+    subsampling = tuple(tags.get(530, (2, 2)))[:2] if ycbcr else (1, 1)
+    if ycbcr and (planar == 2 or bps != (8, 8, 8) or subsampling[0] not in (1, 2, 4) or subsampling[1] not in (1, 2, 4)):
+        raise ValueError("TIFF: a YCbCr layout libtiff does not convert")
     predictor = _scalar(tags, 317, 1)
     if comp == "raw":
         predictor = 1
-    if predictor not in (1, 2):
+    if predictor not in (1, 2, 3):
         raise UnsupportedCodec(f"TIFF predictor {predictor} is not supported")
     bits = bps[0]
     sample_fmt = sfmt[0]
     if predictor == 2 and bits not in (8, 16, 32):
         raise ValueError(f"TIFF: horizontal differencing at {bits} bits")
+    if predictor == 3 and (sample_fmt != 3 or bits % 8):
+        raise ValueError("TIFF: the floating-point predictor needs floating-point samples")
+    if comp in CCITT and (bits != 1 or spp != 1):
+        raise ValueError("TIFF: CCITT data of more than one bit a pixel")
+    if comp == "tiff_thunderscan" and (bits != 4 or spp != 1):
+        raise ValueError("TIFF: ThunderScan data that are not 4-bit gray")
 
     tiled = 324 in tags
     if tiled:
@@ -314,12 +336,21 @@ def read_tiff(data: bytes):
                     s = _jpeg_segment(data, offsets[k], counts[k], jpeg_tables, photo, fill)[:sh, :sw]
                     if s.shape[:2] != (sh, sw):
                         raise ValueError("TIFF: a JPEG strip smaller than its strip")
+                elif ycbcr:
+                    hs, vs = subsampling
+                    nblocks = -(-tw // hs) * -(-seg_rows // vs)
+                    blocks = _segment_bytes(data, comp, offsets[k], counts[k], nblocks * (hs * vs + 2), fill, tags,
+                                            tw, seg_rows)
+                    s = _ycbcr_to_rgb(blocks, tw, seg_rows, hs, vs, tags)[:sh, :sw]
                 else:
                     rows = _segment_bytes(data, comp, offsets[k], counts[k] if counts else None,
-                                          seg_rows * row_bytes, fill)
-                    # libtiff differences floats as 32-bit integers
-                    s = _samples(rows.reshape(seg_rows, row_bytes), bits, seg_n, tw, bo,
-                                 1 if predictor == 2 and is_float else sample_fmt)
+                                          seg_rows * row_bytes, fill, tags, tw, seg_rows)
+                    if predictor == 3:
+                        s = _undo_fp_predictor(rows.reshape(seg_rows, row_bytes), bits, seg_n, tw)
+                    else:
+                        # libtiff differences floats as 32-bit integers
+                        s = _samples(rows.reshape(seg_rows, row_bytes), bits, seg_n, tw, bo,
+                                     1 if predictor == 2 and is_float else sample_fmt)
                     if predictor == 2:
                         s = _undo_predictor(s, bits, sample_fmt == 2)
                         if is_float:
@@ -349,8 +380,9 @@ def _orient(px: np.ndarray, orientation) -> np.ndarray:
             8: lambda a: np.rot90(a)}.get(orientation, lambda a: a)(px)
 
 
-def _segment_bytes(data, comp, off, count, expect, fill):
-    """One strip or tile's bytes after decompression (expect bytes)."""
+def _segment_bytes(data, comp, off, count, expect, fill, tags=None, width=0, rows=0):
+    """One strip or tile's bytes after decompression (expect bytes; CCITT
+    and ThunderScan decode `rows` rows of `width` pixels)."""
     if comp == "raw":
         raw = np.frombuffer(data, np.uint8, count=min(expect, max(len(data) - off, 0)), offset=min(off, len(data)))
         if len(raw) < expect:
@@ -360,20 +392,105 @@ def _segment_bytes(data, comp, off, count, expect, fill):
     if fill == 2:
         src = _REVERSE_BITS[src]
     src = np.ascontiguousarray(src)
-    if comp in ("tiff_adobe_deflate", "tiff_deflate"):
-        try:
-            out = zlib.decompressobj().decompress(src.tobytes(), expect)
-        except zlib.error as e:
-            raise ValueError(f"TIFF: corrupt Deflate data ({e})") from e
+    if comp in ("tiff_adobe_deflate", "tiff_deflate", "lzma"):
+        if comp == "lzma":
+            import lzma  # the standard library's; a Python built without it raises ImportError here
+
+            try:
+                out = lzma.LZMADecompressor().decompress(src.tobytes(), expect)
+            except lzma.LZMAError as e:
+                raise ValueError(f"TIFF: corrupt LZMA data ({e})") from e
+        else:
+            try:
+                out = zlib.decompressobj().decompress(src.tobytes(), expect)
+            except zlib.error as e:
+                raise ValueError(f"TIFF: corrupt Deflate data ({e})") from e
         if len(out) < expect:
-            raise ValueError("TIFF: Deflate data end before the strip is full")
+            raise ValueError(f"TIFF: {comp} data end before the strip is full")
         return np.frombuffer(out, np.uint8)
     out = np.empty(expect, np.uint8)
-    fn = _lib().vkgr_tiff_lzw if comp == "tiff_lzw" else _lib().vkgr_packbits
-    rc = fn(src.ctypes.data, len(src), out.ctypes.data, expect)
+    if comp in CCITT:
+        rc = _lib().vkgr_ccitt(src.ctypes.data, len(src), width, rows, CCITT[comp], int(_scalar(tags, 292, 0)),
+                               out.ctypes.data)
+    elif comp == "tiff_thunderscan":
+        rc = _lib().vkgr_thunderscan(src.ctypes.data, len(src), width, rows, out.ctypes.data)
+    else:
+        fn = _lib().vkgr_tiff_lzw if comp == "tiff_lzw" else _lib().vkgr_packbits
+        rc = fn(src.ctypes.data, len(src), out.ctypes.data, expect)
     if rc != 0:
         raise ValueError(f"TIFF: corrupt or short {comp} data (rc {rc})")
     return out
+
+
+def _undo_fp_predictor(rows: np.ndarray, bits: int, nsamp: int, width: int) -> np.ndarray:
+    """libtiff's floating-point predictor (3) undone: each row's bytes summed
+    along the row a pixel apart, then its byte planes (most significant
+    first) put back together; -> float32 samples [h, width, nsamp]."""
+    h, n = rows.shape
+    nb = bits // 8
+    acc = rows.reshape(h, -1, nsamp).cumsum(axis=1, dtype=np.uint8).reshape(h, n)  # modulo 256
+    wc = n // nb
+    planes = acc[:, : wc * nb].reshape(h, nb, wc)
+    v = np.zeros((h, wc), np.uint64)
+    for b in range(nb):
+        v = (v << np.uint64(8)) | planes[:, b].astype(np.uint64)
+    f = v.astype(np.uint32).view(np.float32) if nb == 4 else v.astype(np.uint16).view(np.float16).astype(np.float32)
+    return f.reshape(h, -1, nsamp)[:, :width]
+
+
+def _ycbcr_tables(tags):
+    """libtiff's TIFFYCbCrToRGBInit tables (tif_color.c) from the
+    YCbCrCoefficients and ReferenceBlackWhite tags (or their defaults)."""
+    f32 = np.float32
+    luma = [f32(v) for v in tags.get(529, (0.299, 0.587, 0.114))]
+    ref = [f32(v) for v in tags.get(532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))]
+
+    def fix(x):
+        return int(float(f32(x) * f32(65536)) + 0.5)
+
+    def clamp(v, lo, hi):
+        return min(max(v, lo), hi)
+
+    f1 = f32(2) - f32(2) * luma[0]
+    d1 = fix(clamp(f1, f32(0), f32(2)))
+    f2 = luma[0] * f1 / luma[1]
+    d2 = -fix(clamp(f2, f32(0), f32(2)))
+    f3 = f32(2) - f32(2) * luma[2]
+    d3 = fix(clamp(f3, f32(0), f32(2)))
+    f4 = luma[2] * f3 / luma[1]
+    d4 = -fix(clamp(f4, f32(0), f32(2)))
+
+    def code2v(c, rb, rw, cr):
+        den = rw - rb if rw - rb != 0 else f32(1)
+        return f32(f32(c - int(rb)) * f32(cr)) / f32(den)
+
+    tabs = np.zeros((5, 256), np.int64)
+    for i, x in enumerate(range(-128, 128)):
+        cr = int(clamp(code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127), -128.0 * 32, 128.0 * 32))
+        cb = int(clamp(code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127), -128.0 * 32, 128.0 * 32))
+        tabs[0, i] = (d1 * cr + 32768) >> 16  # Cr -> r
+        tabs[1, i] = (d3 * cb + 32768) >> 16  # Cb -> b
+        tabs[2, i] = d2 * cr  # Cr -> g
+        tabs[3, i] = d4 * cb + 32768  # Cb -> g
+        tabs[4, i] = int(clamp(code2v(x + 128, ref[0], ref[1], 255), -128.0 * 32, 128.0 * 32))  # Y
+    return tabs
+
+
+def _ycbcr_to_rgb(blocks: np.ndarray, width: int, rows: int, hs: int, vs: int, tags) -> np.ndarray:
+    """A segment of YCbCr data units (hs * vs luma samples, then Cb and Cr)
+    -> RGB [rows, width, 3]: each unit's chroma over its pixels, converted
+    with libtiff's TIFFYCbCrtoRGB."""
+    bx, by = -(-width // hs), -(-rows // vs)
+    u = blocks.reshape(by, bx, hs * vs + 2).astype(np.int64)
+    y = u[..., : hs * vs].reshape(by, bx, vs, hs).transpose(0, 2, 1, 3).reshape(by * vs, bx * hs)
+    cb = np.repeat(np.repeat(u[..., -2], vs, axis=0), hs, axis=1)
+    cr = np.repeat(np.repeat(u[..., -1], vs, axis=0), hs, axis=1)
+    t = _ycbcr_tables(tags)
+    yv = t[4][np.minimum(y, 255)]
+    r = yv + t[0][cr]
+    g = yv + ((t[3][cb] + t[2][cr]) >> 16)
+    b = yv + t[1][cb]
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255)[:rows, :width]
 
 
 def _undo_predictor(s: np.ndarray, bits: int, signed: bool) -> np.ndarray:

@@ -16,11 +16,17 @@ edit_cli's render), with what Image.fromarray(a).save(path) writes:
 An [H,W,1] array is written as [H,W] (Image.fromarray refuses it). Another
 suffix raises ValueError("unknown file extension"), as Pillow does.
 
-read_image identifies data the way Image.open does: PNG, BMP, DIB, GIF,
-JPEG, Netpbm, TIFF and WebP by their magic bytes, and TGA last, by the
-header checks of Pillow's TGA plugin (TGA has no magic). Data that no
-reader claims raise UnsupportedCodec (a ValueError), where Image.open
-raises UnidentifiedImageError.
+read_image identifies data the way Image.open does, in its order: the
+plugins Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then Image.ID's
+order (CUR, PCX, DCX, ICO, TIFF, PSD, QOI, SGI, SUN, TGA, WEBP, of those the
+port reads), each reader asked when its magic bytes or header checks
+accept the data (TGA has no magic: Pillow's TGA header checks). A reader
+whose header checks fail the way Image.open lets the next plugin try
+(ops/imagemodes.PassOn) passes the data on; any other failure refuses it,
+as Image.open raises. Data that no reader claims raise UnsupportedCodec (a
+ValueError), where Image.open raises UnidentifiedImageError. EPS, JPEG 2000,
+AVIF and Pillow's other readers are not ported (ROADMAP A): such data are
+refused.
 """
 
 from __future__ import annotations
@@ -32,12 +38,29 @@ import numpy as np
 from ..ops.bmp import decode_bmp, encode_bmp, is_bmp, is_dib
 from ..ops.dds import UnsupportedCodec
 from ..ops.gif import decode_gif, encode_gif, is_gif
+from ..ops.ico import decode_cur, decode_ico, is_cur, is_ico
+from ..ops.imagemodes import PassOn
 from ..ops.jpeg import decode_jpeg, encode_jpeg, is_jpeg
 from ..ops.netpbm import decode_netpbm, encode_netpbm, is_netpbm
+from ..ops.pcx import decode_dcx, decode_pcx, is_dcx, is_pcx
+from ..ops.psd import decode_psd, is_psd
+from ..ops.qoi import decode_qoi, is_qoi
+from ..ops.sgi import decode_sgi, is_sgi
+from ..ops.sun import decode_sun, is_sun
 from ..ops.tga import decode_tga, encode_tga, is_tga
 from ..ops.tiff import decode_tiff, encode_tiff, is_tiff
 from ..ops.webp import decode_webp, encode_webp, is_webp
 from .png import is_png, read_png, write_png
+
+# Image.open's order: (Pillow's format name, accept, decode)
+READERS = (
+    ("BMP", is_bmp, decode_bmp), ("DIB", is_dib, lambda d: decode_bmp(d, dib=True)), ("GIF", is_gif, decode_gif),
+    ("JPEG", is_jpeg, decode_jpeg), ("PPM", is_netpbm, decode_netpbm), ("PNG", is_png, read_png),
+    ("CUR", is_cur, decode_cur), ("PCX", is_pcx, decode_pcx), ("DCX", is_dcx, decode_dcx),
+    ("ICO", is_ico, decode_ico), ("TIFF", is_tiff, decode_tiff), ("PSD", is_psd, decode_psd),
+    ("QOI", is_qoi, decode_qoi), ("SGI", is_sgi, decode_sgi), ("SUN", is_sun, decode_sun), ("TGA", is_tga, decode_tga),
+    ("WEBP", is_webp, decode_webp),
+)
 
 _ENCODERS = {
     ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".webp": encode_webp,
@@ -68,25 +91,20 @@ def write_image(path, u8: np.ndarray) -> None:
     Path(path).write_bytes(_ENCODERS[suffix](a))
 
 
+def identify_and_read(data: bytes) -> tuple:
+    """Image bytes -> (Pillow's format name, uint8 [H,W,C]): the first
+    reader in Image.open's order that accepts the data and does not pass
+    it on (PassOn)."""
+    for fmt, accept, decode in READERS:
+        if accept(data):
+            try:
+                return fmt, decode(data)
+            except PassOn:
+                continue
+    raise UnsupportedCodec("cannot identify image data")
+
+
 def read_image(data: bytes) -> np.ndarray:
     """Image bytes -> uint8 [H,W,C]: PNG, JPEG and WebP as their decoders
     give them (WebP RGBA), the other formats as Pillow's convert("RGBA")."""
-    if is_png(data):
-        return read_png(data)
-    if is_bmp(data):
-        return decode_bmp(data)
-    if is_dib(data):
-        return decode_bmp(data, dib=True)
-    if is_gif(data):
-        return decode_gif(data)
-    if is_jpeg(data):
-        return decode_jpeg(data)
-    if is_netpbm(data):
-        return decode_netpbm(data)
-    if is_tiff(data):
-        return decode_tiff(data)
-    if is_webp(data):
-        return decode_webp(data)
-    if is_tga(data):
-        return decode_tga(data)
-    raise UnsupportedCodec("cannot identify image data")
+    return identify_and_read(data)[1]
