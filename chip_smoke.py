@@ -341,24 +341,29 @@ Phases (each raises on failure; nothing is caught):
      `[webp]` lines, then [time] lines.
  22. Pillow's other formats (image I/O without Pillow, no kernel of its
      own): (a) every committed fixture of tests/data/images (BMP/DIB, TGA,
-     GIF, TIFF with the libtiff codecs the port reads: CCITT, LZMA, the
-     floating-point predictor, YCbCr, ThunderScan, 12-bit; Netpbm, PSD,
-     SGI, PCX/DCX, ICO/CUR, QOI, Sun raster, EPS, and the arithmetic,
-     lossless, subsampled lossless and CMYK/YCCK JPEGs) decoded on the
-     host, equal to the digest of Pillow's decode in digests.json, refused
-     where Pillow refuses it, and the TIFFs Pillow reads only through
-     libtiff's other codecs refused; a 2048x2048 map of each format (ICO
-     and CUR 256x256, an icon's largest size) made here (the port's
-     writers; RLE, Deflate, PackBits, literal-code LZW, literal packets,
-     one-byte runs, QOI_OP_RGB pixels, vertical stripes as CCITT rows and
-     a vectorised lossless JPEG coder assembled with numpy) decoded, host
-     seconds each, each read back equal where its pixels are known; (b)
-     the helmet at 1080p with a 512x512, 216-colour base colour as PNG and
-     as BMP, TGA, TIFF (LZW, LZMA), GIF, PPM, PSD, SGI, PCX, QOI and Sun
-     raster, a 256x256 ICO, a bilevel Group 4 TIFF and a 2x2-subsampled
-     lossless JPEG: each frame equal bit for bit to the frame of a PNG of
-     the same pixels, with 10 traverse_bvh4 and 16 gather_channels
-     launches, its ms printed; (c) headless --output in every new suffix
+     GIF, TIFF with the libtiff codecs the port reads: CCITT, LZMA, ZSTD,
+     old-style JPEG, CIELab, the floating-point predictor, YCbCr,
+     ThunderScan, 12-bit; Netpbm, PSD (Lab too), SGI, PCX/DCX, ICO/CUR,
+     QOI, Sun raster, PNG in every form, BLP, FTEX, XBM, XPM, MSP, IM, EPS,
+     and the arithmetic, lossless, subsampled lossless and CMYK/YCCK
+     JPEGs) decoded on the host, equal to the digest of Pillow's decode in
+     digests.json, refused where Pillow refuses it; a 2048x2048 map of
+     each format (ICO and CUR 256x256, an icon's largest size) made here
+     (the port's writers; RLE, Deflate, PackBits, literal-code LZW,
+     literal packets, one-byte runs, QOI_OP_RGB pixels, vertical stripes
+     as CCITT rows, a vectorised lossless JPEG coder assembled with numpy,
+     PNG with each filter and a filter a row, palette, 16-bit and Adam7
+     PNG, ZSTD strips tiled from the committed frame zstd_strip.zst, an
+     old-style JPEG and a CIELab TIFF, BLP DXT1 and palette, FTEX DXT1,
+     MSP RLE and IM) decoded, host seconds each, each read back equal where
+     its pixels are known; (b) the helmet at 1080p with a 512x512,
+     216-colour base colour as PNG and as BMP, TGA, TIFF (LZW, LZMA,
+     ZSTD, old-style JPEG), GIF, PPM, PSD, SGI, PCX, QOI, Sun raster,
+     palette, 16-bit and Adam7 PNG, palette BLP and IM, a 256x256 ICO, a
+     bilevel Group 4 TIFF and a 2x2-subsampled lossless JPEG: each frame
+     equal bit for bit to the frame of a PNG of the same pixels, with 10
+     traverse_bvh4 and 16 gather_channels launches, its ms printed; (c)
+     headless --output in every new suffix
      at 1080p, read back by the port equal to the PNG output (the GIF, of
      more than 256 colours, within its median cut: the share of pixels
      that differ and the largest channel error). `[formats]` lines, then
@@ -4300,20 +4305,62 @@ def _format_maps(img):
                                                         for y in range(0, n, rows)], rows, 1),
                           rgb(np.minimum(gray.astype(np.int32) * 16, 255).astype(np.uint8)))
     out["jpeg_lossless_2x2"] = _lossless_jpeg(img)
+    # PNG's filters one by one and mixed a row at a time, palette, 16-bit and Adam7 PNG; ZSTD, old-style JPEG
+    # and CIELab TIFF; BLP (DXT1, palette), FTEX, MSP (RLE) and IM
+    for name, f in (("png_sub", 1), ("png_average", 3), ("png_paeth", 4), ("png_mixed_filters", [0, 1, 2, 3, 4])):
+        out[name] = (tscenes.png_file(img, 8, 2, filters=f, level=1), img)
+    pal, idx, bgra = _palette(img)
+    out["png_palette"] = (tscenes.png_file(idx, 8, 3, palette=pal, filters=4, level=1), img)
+    out["png_rgb16"] = (tscenes.png_file(img.astype(np.uint16) * 257, 16, 2, filters=4, level=1), img)
+    out["png_adam7"] = (tscenes.png_file(img, 8, 2, interlace=True, filters=[1, 4], level=1), img)
+    out["tiff_zstd"] = _zstd_tiff(n)
+    out["tiff_old_jpeg"] = (_tiff_strips(n, n, (8, 8, 8), 6, [jpeg.encode_jpeg(img)], n, 6), None)
+    out["tiff_cielab"] = (_tiff_strips(n, n, (8, 8, 8), 8, [zlib.compress(s.tobytes(), 1) for s in strips], rows, 8),
+                          None)
+    bc1 = tscenes.bc1_blocks(img)
+    out["blp2_dxt1"] = (tscenes.blp2_file(n, n, 2, 0, 0, bgra, bc1), None)
+    out["blp2_palette"] = (tscenes.blp2_file(n, n, 1, 0, 0, bgra, idx.tobytes()), img)
+    out["ftex_dxt1"] = (tscenes.ftex_file(n, n, 0, bc1), None)
+    white = on.copy()
+    white[::7] = True  # rows of one byte value: MSP's run packets
+    out["msp_rle"] = (tscenes.msp_file(white), rgb(np.where(white, 255, 0).astype(np.uint8)))
+    out["im_rgb"] = (tscenes.im_rgb_file(img), img)
     return out
+
+
+def _palette(img):
+    """img's colours as a palette: (palette [k, 3], indices [n, n] uint8,
+    BLP's 1024-byte BGRA palette)."""
+    key = img.reshape(-1, 3).astype(np.int32) @ np.array([1 << 16, 1 << 8, 1], np.int32)
+    keys, idx = np.unique(key, return_inverse=True)
+    pal = np.stack([keys >> 16, (keys >> 8) & 255, keys & 255], axis=-1).astype(np.uint8)
+    bgra = np.zeros((256, 4), np.uint8)
+    bgra[: len(pal), :3] = pal[:, ::-1]
+    return pal, idx.reshape(img.shape[:2]).astype(np.uint8), bgra.tobytes()
+
+
+def _zstd_tiff(n):
+    """An n x n RGB ZSTD TIFF whose strips are each the committed frame
+    tests/data/images/zstd_strip.zst (the card's machine has no zstandard
+    package to write one), and the pixels it must decode to: the frame's
+    pattern (scenes.zstd_strip_pattern) n wide, tiled."""
+    frame = (IMAGE_FIXTURES / "zstd_strip.zst").read_bytes()
+    rows = tscenes.ZSTD_STRIP_BYTES // (3 * n)
+    k = n // rows
+    return (_tiff_strips(n, n, (8, 8, 8), 2, [frame] * k, rows, 50000),
+            np.tile(tscenes.zstd_strip_pattern().reshape(rows, n, 3), (k, 1, 1)))
 
 
 def _formats_fixtures():
     """Phase 22a's fixtures: every committed file against Pillow's digests."""
     import hashlib
 
-    from vk_gltf_renderer_tpu_torch.native import image_lib, jpeg_lib
-    from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec
+    from vk_gltf_renderer_tpu_torch.native import image_lib, jpeg_lib, zstd_lib
     from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
 
-    image_lib(), jpeg_lib()  # built (or found) before the clock starts
+    image_lib(), jpeg_lib(), zstd_lib()  # built (or found) before the clock starts
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
-    counts = {"decoded": 0, "refused": 0, "libtiff_only": 0}
+    counts = {"decoded": 0, "refused": 0}
     host_ms = {}
     for name, entry in sorted(digests["files"].items()):
         data = (IMAGE_FIXTURES / name).read_bytes()
@@ -4328,21 +4375,16 @@ def _formats_fixtures():
         require("refused" not in entry, f"[formats] {name}: decoded where Pillow refuses it")
         if img.shape[2] == 1:
             img = np.concatenate([img] * 3 + [np.full_like(img, 255)], axis=-1)
+        elif img.shape[2] == 2:
+            img = np.concatenate([img[..., :1]] * 3 + [img[..., 1:]], axis=-1)
         elif img.shape[2] == 3:
             img = np.concatenate([img, np.full_like(img[..., :1], 255)], axis=-1)
         img = np.ascontiguousarray(img)
         require(list(img.shape) == entry["shape"] and hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"],
                 f"[formats] {name}: the decode differs from Pillow's digest")
         counts["decoded"] += 1
-    for name in sorted(digests["libtiff_only"]):
-        try:
-            read_image((IMAGE_FIXTURES / name).read_bytes())
-            require(False, f"[formats] {name}: a libtiff-only TIFF decoded")
-        except UnsupportedCodec:
-            counts["libtiff_only"] += 1
     log(f"[formats] (a) {counts['decoded']} fixtures equal to Pillow's digests, {counts['refused']} refused as "
-        f"Pillow refuses them, {counts['libtiff_only']} libtiff-only TIFFs refused (Pillow decodes them: "
-        f"ROADMAP C); host ms the slowest {max(host_ms.values()):.2f} ({max(host_ms, key=host_ms.get)})")
+        f"Pillow refuses them; host ms the slowest {max(host_ms.values()):.2f} ({max(host_ms, key=host_ms.get)})")
     return dict(counts=counts, host_ms=host_ms)
 
 
@@ -4372,22 +4414,29 @@ def _formats_maps():
 def _formats_frames(device, tmp, hdr, smi):
     """Phase 22b: the helmet with its base colour in each lossless format,
     each frame equal bit for bit to the frame of a PNG of the same pixels
-    (the icon's corner, the bilevel stripes, the upsampled JPEG planes),
-    with 10 traverse_bvh4 and 16 gather_channels launches."""
+    (the icon's corner, the bilevel stripes, the upsampled lossless JPEG
+    planes, the ZSTD strips' pattern, the old-style JPEG TIFF's planes as
+    libtiff converts them), with 10 traverse_bvh4 and 16 gather_channels
+    launches."""
     import lzma
 
     from vk_gltf_renderer_tpu_torch.ops import bmp, gif, netpbm, tga
     from vk_gltf_renderer_tpu_torch.ops import gather as tgather
     from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
     from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
 
     n = FORMATS_TEX
     img = (tscenes.texture_image(n, seed=3)[..., :3] // 43 * 43).astype(np.uint8)
     icon = np.ascontiguousarray(img[:ICON_SIDE, :ICON_SIDE])
     fax, on = _fax(n, 4)
     ljpeg, up = _lossless_jpeg(img)
+    pal, idx, bgra = _palette(img)
+    zstd_tif, zstd_px = _zstd_tiff(n)
+    old_jpeg = _tiff_strips(n, n, (8, 8, 8), 6, [jpeg.encode_jpeg(img)], n, 6)
     refs = {"png": img, "png_icon": icon, "png_bilevel": np.repeat(np.where(on, 255, 0).astype(np.uint8)[..., None], 3,
-                                                                    axis=-1), "png_up": up}
+                                                                    axis=-1), "png_up": up, "png_zstd": zstd_px,
+            "png_old_jpeg": read_image(old_jpeg)[..., :3]}  # libtiff's conversion of the JPEG's raw planes
     strips = [np.ascontiguousarray(img[y:y + 32]).reshape(-1) for y in range(0, n, 32)]
     files = {"bmp": (bmp.encode_bmp(img), "base.bmp", "png"), "tga": (tga.encode_tga(img), "base.tga", "png"),
              "tiff_lzw": (_tiff_strips(n, n, (8, 8, 8), 2, [_literal_lzw(s) for s in strips], 32, 5), "base.tif",
@@ -4398,7 +4447,14 @@ def _formats_frames(device, tmp, hdr, smi):
              "qoi": (_qoi(img), "base.qoi", "png"), "sun": (_sun(img), "base.ras", "png"),
              "tiff_lzma": (_tiff_strips(n, n, (8, 8, 8), 2, [lzma.compress(s.tobytes()) for s in strips], 32, 34925),
                            "base_lzma.tif", "png"),
-             "tiff_group4": (fax, "base_g4.tif", "png_bilevel"), "jpeg_lossless_2x2": (ljpeg, "base.jpg", "png_up")}
+             "tiff_group4": (fax, "base_g4.tif", "png_bilevel"), "jpeg_lossless_2x2": (ljpeg, "base.jpg", "png_up"),
+             "png_palette": (tscenes.png_file(idx, 8, 3, palette=pal, filters=4), "base_palette.png", "png"),
+             "png_rgb16": (tscenes.png_file(img.astype(np.uint16) * 257, 16, 2, filters=4), "base_rgb16.png", "png"),
+             "png_adam7": (tscenes.png_file(img, 8, 2, interlace=True, filters=[1, 4]), "base_adam7.png", "png"),
+             "tiff_zstd": (zstd_tif, "base_zstd.tif", "png_zstd"),
+             "blp_palette": (tscenes.blp2_file(n, n, 1, 0, 0, bgra, idx.tobytes()), "base.blp", "png"),
+             "im": (tscenes.im_rgb_file(img), "base.im", "png"),
+             "tiff_old_jpeg": (old_jpeg, "base_ojpeg.tif", "png_old_jpeg")}
     d = os.path.join(tmp, "formats22")
     os.makedirs(d, exist_ok=True)
     frames, firsts = {}, {}

@@ -1,8 +1,9 @@
 """Regenerate the image fixtures of this directory and digests.json.
 
 The files are BMP/DIB, TGA, GIF, TIFF, Netpbm, JPEG, PSD, SGI, PCX/DCX,
-ICO/CUR, QOI and Sun raster forms that the JAX package reads through
-Pillow (12.1.0 when they were made) and the port reads without it: files
+ICO/CUR, QOI, Sun raster, PNG, BLP, FTEX, XBM, XPM, MSP and IM forms that
+the JAX package reads through Pillow (12.1.0 when they were made) and the
+port reads without it: files
 Pillow writes, and files assembled here from seeded numpy images for the
 forms Pillow cannot be asked to write (OS/2 and V4/V5 BMP headers, bit
 masks, RLE; TGA colour maps and packets across scan lines; GIF frames off
@@ -11,12 +12,17 @@ big-endian, BigTIFF, predictors, old-style LZW, JPEG strips with shared
 tables, subsampled YCbCr, ThunderScan, 12-bit gray; arithmetic-coded,
 lossless (subsampled too) and CMYK/YCCK JPEG through
 tests/torch_test_helpers.py's encoders; PSD, SGI RLE, PCX bit planes, DCX,
-icons and cursors with DIB images, QOI ops, Sun raster). Some are files
+icons and cursors with DIB images, QOI ops, Sun raster; PNG at every
+depth, Adam7 and 16-bit RGB; ZSTD, old-style JPEG and CIELab TIFF, Lab
+PSD; BLP, FTEX, XBM, XPM, MSP and IM). Some are files
 Pillow refuses, EPS among them (Pillow needs Ghostscript to load it). digests.json holds, for each file, the shape and
 sha256 of Pillow's decode (Image.open(f).convert("RGBA") as uint8 bytes),
 or that Pillow refuses it, so that the port can be held to Pillow where
 Pillow is absent (chip_smoke.py's phase 22); tests/test_torch_images.py
 holds it to Pillow itself.
+
+It also writes zstd_strip.zst, one Zstandard frame of
+scenes.zstd_strip_pattern, from which chip_smoke.py tiles its ZSTD TIFFs.
 
 Run from the repository root: python tests/data/images/make_fixtures.py
 """
@@ -811,19 +817,39 @@ def libtiff() -> dict:
     return out
 
 
-def libtiff_only() -> dict:
-    """TIFF forms Pillow reads through libtiff and the port refuses
-    (ROADMAP C): ZSTD (no decoder without a package), old-style JPEG (6)
-    and CIELab (Pillow converts it through LittleCMS)."""
+def libtiff_lab_zstd_ojpeg() -> dict:
+    """TIFF forms Pillow reads through libtiff's ZSTD and old-style JPEG
+    (6) codecs, and CIELab (Pillow converts LAB through LittleCMS): ZSTD
+    strips (Pillow's and hand-made at other levels), old-style JPEG at 2x2
+    and 1x1 sampling in the strip and through JPEGInterchangeFormat, Lab
+    compressed and raw."""
+    import zstandard
+
     g, rgb = smooth(37, 29, 46, 1)[..., 0], smooth(37, 29, 41)
     jp = pillow(Image.fromarray(rgb), "JPEG", quality=90)
     out = {"tiff_libtiff_old_jpeg.tif": tiff_file(37, 29, (8, 8, 8), 6, [jp], ("strips", 29), compression=6),
            "tiff_libtiff_cielab.tif": tiff_file(37, 29, (8, 8, 8), 8, [tiff_lzw(rgb.tobytes())], ("strips", 29),
-                                                compression=5)}
-    try:
-        out["tiff_libtiff_zstd.tif"] = pillow(Image.fromarray(g), "TIFF", compression="zstd")
-    except (OSError, ValueError, KeyError):
-        pass
+                                                compression=5),
+           "tiff_libtiff_zstd.tif": pillow(Image.fromarray(g), "TIFF", compression="zstd")}
+    jp11 = pillow(Image.fromarray(smooth(37, 29, 44)), "JPEG", quality=85, subsampling=0)
+    out["tiff_old_jpeg_11.tif"] = tiff_file(37, 29, (8, 8, 8), 6, [jp11], ("strips", 29), compression=6)
+    first = tiff_file(37, 29, (8, 8, 8), 6, [jp], ("strips", 29), compression=6,
+                      tags={513: (4, [0]), 514: (4, [len(jp)])})
+    at = first.index(jp)
+    out["tiff_old_jpeg_interchange.tif"] = tiff_file(37, 29, (8, 8, 8), 6, [jp], ("strips", 29), compression=6,
+                                                     tags={513: (4, [at]), 514: (4, [len(jp)])})
+    lab = np.random.default_rng(45).integers(0, 256, (29, 37, 3), dtype=np.uint8)
+    out["tiff_cielab_raw.tif"] = tiff_file(37, 29, (8, 8, 8), 8, [lab.tobytes()], ("strips", 29))
+    rgba = smooth(37, 29, 43, 4)
+    for level in (1, 9, 19):
+        strips = [zstandard.ZstdCompressor(level=level, write_checksum=level == 9).compress(s.tobytes())
+                  for s in split(rgba, 8)]
+        out[f"tiff_zstd_rgba_level{level}.tif"] = tiff_file(37, 29, (8, 8, 8, 8), 2, strips, ("strips", 8),
+                                                           compression=50000, tags={338: (3, [2])})
+    out["tiff_zstd_gray_predictor.tif"] = tiff_file(37, 29, (8,), 1, [zstandard.ZstdCompressor(level=3).compress(
+        hdiff(g).tobytes())], ("strips", 29), compression=50000, tags={317: (3, [2])})
+    out["tiff_refused_zstd_corrupt.tif"] = tiff_file(37, 29, (8,), 1, [b"\x28\xb5\x2f\xfd" + bytes(40)],
+                                                     ("strips", 29), compression=50000)
     return out
 
 
@@ -909,6 +935,8 @@ def psd() -> dict:
         "psd_rgb_five_channels_raw.psd": psd_file(3, 8, 5, w, h, planes(np.concatenate([rgba, q[..., :1]], -1))),
         "psd_rgb_layers_resources.psd": psd_file(3, 8, 3, w, h, planes(q[..., :3]), compression=1,
                                                  layers=struct.pack(">I", 0) + bytes(range(30)), resources=resource),
+        "psd_lab_raw.psd": psd_file(9, 8, 3, w, h, planes(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))),
+        "psd_lab_packbits.psd": psd_file(9, 8, 3, w, h, planes(q[..., :3]), compression=1),
     }
     # PackBits with more channels than the mode reads: Pillow takes the byte counts past the mode's channels for
     # data; refused: 16-bit samples, ZIP compression, a PSB (version 2)
@@ -1225,6 +1253,266 @@ def sun() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ PNG
+
+
+def png() -> dict:
+    """PNG forms beyond 8-bit gray and colour, written by scenes.png_file
+    (Pillow writes neither Adam7 nor 16-bit RGB) and by Pillow; refused:
+    a bad IHDR CRC, data cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import png_file
+
+    rng = np.random.default_rng(110)
+    w, h = 29, 23
+    pal = rng.integers(0, 256, (13, 3), dtype=np.uint8)
+    idx = indices(w, h, 16, 111)
+    rgb16 = (smooth(w, h, 112).astype(np.uint16) * 257) ^ rng.integers(0, 256, (h, w, 3), dtype=np.uint16)
+    out = {
+        "png_palette4_short_plte_trns.png": png_file(idx, 4, 3, palette=pal, trns=bytes(range(0, 250, 25)),
+                                                     filters=[1, 4]),
+        "png_palette8_adam7.png": png_file(indices(w, h, 200, 113), 8, 3, interlace=True,
+                                           palette=rng.integers(0, 256, (200, 3), dtype=np.uint8), filters=3),
+        "png_palette1.png": png_file(idx % 2, 1, 3, palette=pal[:2]),
+        "png_palette2_adam7_trns.png": png_file(idx % 4, 2, 3, interlace=True, palette=pal[:4], trns=b"\x00\x80"),
+        "png_gray1_adam7.png": png_file(idx % 2, 1, 0, interlace=True, filters=[0, 2]),
+        "png_gray2_trns.png": png_file(idx % 4, 2, 0, trns=b"\x00\x00", filters=4),
+        "png_gray4.png": png_file(idx, 4, 0, filters=[3, 1]),
+        "png_gray16_trns.png": png_file(smooth(w, h, 114, 1)[..., 0].astype(np.uint16) * 3, 16, 0,
+                                        trns=struct.pack(">H", 255)),
+        "png_rgb16.png": png_file(rgb16, 16, 2, filters=[4, 3, 2, 1, 0]),
+        "png_rgb16_adam7.png": png_file(rgb16, 16, 2, interlace=True, filters=4),
+        "png_rgb8_adam7_trns.png": png_file(smooth(w, h, 115) // 64 * 64, 8, 2, interlace=True,
+                                            trns=struct.pack(">3H", 64, 128, 192), filters=[1, 3]),
+        "png_la16.png": png_file(rng.integers(0, 65536, (h, w, 2)), 16, 4, filters=2),
+        "png_rgba16_adam7.png": png_file(rng.integers(0, 65536, (h, w, 4)), 16, 6, interlace=True, filters=[4, 1]),
+        "png_la8_adam7.png": png_file(smooth(w, h, 116, 2), 8, 4, interlace=True, filters=[2, 4]),
+        "png_pillow_1bit.png": pillow(Image.fromarray(idx % 2 * 255).convert("1"), "PNG"),
+        "png_pillow_palette_bits2.png": pillow(Image.fromarray(smooth(w, h, 117)).quantize(4), "PNG", bits=2),
+        "png_pillow_i16.png": pillow(Image.fromarray(smooth(w, h, 118, 1)[..., 0].astype(np.uint16) * 200), "PNG"),
+    }
+    good = out["png_rgb16.png"]
+    i = good.index(b"IDAT")
+    n = struct.unpack(">I", good[i - 4:i])[0]
+    out["png_idat_crc_ignored.png"] = good[:i + 4 + n] + b"\0\0\0\0" + good[i + 8 + n:]
+    out["png_refused_ihdr_crc.png"] = good[:29] + b"\0\0\0\0" + good[33:]
+    out["png_refused_truncated.png"] = good[:i + 4 + n // 2] + good[i + 8 + n:]
+    return out
+
+
+# ------------------------------------------------------------------ BLP and FTEX
+
+
+def blp1(w, h, compression, alpha, encoding, body, offset0, length0):
+    """A BLP1 file: header, mip offsets and lengths, then body (the palette
+    and indices, or the JPEG header's size, the header and mip 0)."""
+    return (b"BLP1" + struct.pack("<iIIIiI", compression, alpha, w, h, encoding, 0)
+            + struct.pack("<16I", offset0, *([0] * 15)) + struct.pack("<16I", length0, *([0] * 15)) + body)
+
+
+def blp() -> dict:
+    from vk_gltf_renderer_tpu_torch.scenes import blp2_file as blp2
+
+    """BLP1 palette and JPEG, BLP2 palette (alpha depths 0, 1, 4, 8) and
+    DXT1 (with and without alpha), DXT3, DXT5 (random blocks, so every
+    block mode appears), Pillow's own BLP1 and BLP2; refused: raw BGRA
+    (encoding 3), BLP2 JPEG, an unknown alpha encoding, a cut palette."""
+    rng = np.random.default_rng(120)
+    w, h = 16, 8
+    pal = rng.integers(0, 256, (256, 4), dtype=np.uint8).tobytes()
+    idx = indices(w, h, 256, 121).tobytes()
+    p_img = Image.fromarray(smooth(w, h, 122)).quantize(40)
+    out = {"blp_pillow_blp2.blp": pillow(p_img, "BLP"), "blp_pillow_blp1.blp": pillow(p_img, "BLP", blp_version="BLP1")}
+    for depth in (0, 1, 4, 8):
+        out[f"blp2_palette_alpha{depth}.blp"] = blp2(w, h, 1, depth, 0, pal, idx)
+    for name, (aenc, depth, size) in {"dxt1": (0, 0, 8), "dxt1_alpha": (0, 1, 8), "dxt3": (1, 8, 16),
+                                      "dxt5": (7, 8, 16), "dxt5_no_alpha_flag": (7, 0, 16)}.items():
+        blocks = rng.integers(0, 256, (w // 4) * (h // 4) * size, dtype=np.uint8).tobytes()
+        out[f"blp2_{name}.blp"] = blp2(w, h, 2, depth, aenc, pal, blocks)
+    blocks = rng.integers(0, 256, 3 * 2 * 8, dtype=np.uint8).tobytes()
+    out["blp2_dxt1_12x6.blp"] = blp2(12, 6, 2, 1, 0, pal, blocks)
+    out["blp1_palette.blp"] = blp1(w, h, 1, 0, 5, pal + idx, 156 + 1024, len(idx))
+    out["blp1_palette_alpha.blp"] = blp1(w, h, 1, 8, 4, pal + idx + b"extra", 0, len(idx))
+    jp = pillow(Image.fromarray(smooth(w, h, 123)), "JPEG", quality=90)
+    sos = jp.index(b"\xff\xda")
+    head, rest = jp[:sos], jp[sos:]
+    body = struct.pack("<I", len(head)) + head + b"pad!"
+    for alpha in (0, 8):
+        out[f"blp1_jpeg_alpha{alpha}.blp"] = blp1(w, h, 0, alpha, 0, body + rest, 156 + len(body), len(rest))
+    out["blp_refused_raw_bgra.blp"] = blp2(w, h, 3, 8, 0, pal,
+                                           rng.integers(0, 256, w * h * 4, dtype=np.uint8).tobytes())
+    out["blp_refused_blp2_jpeg.blp"] = blp2(w, h, 1, 0, 0, pal, idx, compression=0)
+    out["blp_refused_alpha_encoding.blp"] = blp2(w, h, 2, 8, 3, pal, bytes(128))
+    out["blp_refused_cut_palette.blp"] = blp2(w, h, 1, 0, 0, pal, idx)[:148 + 600]
+    return out
+
+
+def ftex() -> dict:
+    from vk_gltf_renderer_tpu_torch.scenes import ftex_file
+
+    """FTEX: FTC (DXT1, random blocks) and FTU (uncompressed RGB); refused:
+    an unknown format, two formats, data cut short."""
+    rng = np.random.default_rng(130)
+    out = {"ftex_dxt1.ftc": ftex_file(16, 12, 0, rng.integers(0, 256, 4 * 3 * 8, dtype=np.uint8).tobytes()),
+           "ftex_dxt1_10x6.ftc": ftex_file(10, 6, 0, rng.integers(0, 256, 3 * 2 * 8, dtype=np.uint8).tobytes()),
+           "ftex_rgb.ftu": ftex_file(13, 9, 1, smooth(13, 9, 131).tobytes())}
+    out["ftex_refused_format.ftc"] = ftex_file(16, 12, 2, bytes(400))
+    out["ftex_refused_two_formats.ftc"] = ftex_file(16, 12, 0, bytes(400), nformats=2)
+    out["ftex_refused_truncated.ftu"] = ftex_file(13, 9, 1, smooth(13, 9, 131).tobytes()[:100])
+    return out
+
+
+# ------------------------------------------------------------------ XBM, XPM, MSP, IM
+
+
+def xbm() -> dict:
+    """XBM: Pillow's (with a hotspot too), hand-made with uppercase hex and
+    single-digit bytes; refused: data cut short."""
+    bits = indices(21, 13, 2, 140) * 255
+    img = Image.fromarray(bits.astype(np.uint8)).convert("1")
+    out = {"xbm_pillow.xbm": pillow(img, "XBM"), "xbm_pillow_hotspot.xbm": pillow(img, "XBM", hotspot=(3, 4))}
+    vals = np.packbits(indices(21, 13, 2, 141).astype(bool), axis=1, bitorder="little").reshape(-1)
+    text = ", ".join(f"0x{v:02X}" if i % 3 else f"0x{v:x}" for i, v in enumerate(vals))
+    out["xbm_hand_hex_forms.xbm"] = (b"#define pic_width 21\n#define pic_height 13\n"
+                                     b"static unsigned char pic_bits[] = {\n" + text.encode() + b"};\n")
+    out["xbm_refused_truncated.xbm"] = out["xbm_pillow.xbm"][:-60]
+    return out
+
+
+def xpm_file(w, h, colours, rows, cpp=1, pixels_comment=True):
+    lines = [b"/* XPM */", b"static char *pic[] = {", b"/* columns rows colors chars-per-pixel */",
+             f'"{w} {h} {len(colours)} {cpp} ",'.encode()]
+    lines += [b'"' + k + b" c " + v + b'",' for k, v in colours]
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    lines += [b'"' + r + b'",' for r in rows]
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def xpm() -> dict:
+    """XPM, written here (Pillow has no XPM writer): one and two characters
+    a pixel, a None key that no pixel uses (its bytes become per-entry
+    alphas in Pillow's convert), over 256 colours (RGB); refused: a pixel
+    of the None key, a colour name."""
+    rng = np.random.default_rng(150)
+    w, h = 11, 7
+    keys1 = [bytes([c]) for c in b".Xo+@#"]
+    cols = [(k, f"#{int(v):06x}".encode()) for k, v in zip(keys1, rng.integers(0, 1 << 24, 6))]
+    idx = indices(w, h, 6, 151)
+    rows1 = [b"".join(keys1[i] for i in r) for r in idx]
+    out = {"xpm_one_char.xpm": xpm_file(w, h, cols, rows1),
+           "xpm_none_unused.xpm": xpm_file(w, h, [(b" ", b"None")] + cols, rows1, pixels_comment=False)}
+    keys2 = [bytes([a, b]) for a in b"abcdefghijklmnopqrst" for b in b"ABCDEFGHIJKLMNOP"][:300]
+    cols2 = [(k, f"#{int(v):06X}".encode()) for k, v in zip(keys2, rng.integers(0, 1 << 24, 300))]
+    idx2 = rng.integers(0, 300, (h, w))
+    out["xpm_two_chars_rgb.xpm"] = xpm_file(w, h, cols2, [b"".join(keys2[i] for i in r) for r in idx2], cpp=2)
+    out["xpm_two_chars_palette.xpm"] = xpm_file(w, h, cols2[:40], [b"".join(keys2[i % 40] for i in r) for r in idx2],
+                                                cpp=2)
+    used = [r.replace(b".", b" ") for r in rows1]
+    out["xpm_refused_none_used.xpm"] = xpm_file(w, h, [(b" ", b"None")] + cols, used)
+    out["xpm_refused_colour_name.xpm"] = xpm_file(w, h, [(b".", b"red")] + cols[1:], rows1)
+    return out
+
+
+def msp_header(version, w, h):
+    words = [*struct.unpack("<2H", b"DanM" if version == 1 else b"LinS"), w, h, 1, 1, 1, 1, w, h, 0, 0, 0, 0, 0, 0]
+    check = 0
+    for v in words:
+        check ^= v
+    words[12] = check
+    return struct.pack("<16H", *words)
+
+
+def msp_rows(rows):
+    """Version 2 rows: runs of 3+ equal bytes as (0, count, value), the rest
+    as literal packets."""
+    out = []
+    for r in rows:
+        r, enc, i = bytes(r), b"", 0
+        while i < len(r):
+            j = i
+            while j < len(r) and j - i < 255 and r[j] == r[i]:
+                j += 1
+            if j - i >= 3:
+                enc += bytes([0, j - i, r[i]])
+                i = j
+                continue
+            j = i
+            while j < len(r) and j - i < 255 and not (j + 2 < len(r) and r[j] == r[j + 1] == r[j + 2]):
+                j += 1
+            enc += bytes([j - i]) + r[i:j]
+            i = j
+        out.append(enc)
+    return out
+
+
+def msp() -> dict:
+    """MSP: Pillow's version 1, version 2 written here (runs, an empty row,
+    a literal packet cut at its row's end); refused: a bad checksum, a row
+    cut short."""
+    w, h = 37, 19
+    bits = (indices(w, h, 2, 160) * 255).astype(np.uint8)
+    packed = np.packbits(bits > 0, axis=1)
+    out = {"msp_pillow_v1.msp": pillow(Image.fromarray(bits).convert("1"), "MSP")}
+    rows = msp_rows(packed)
+    rows[3] = b""
+    out["msp_v2_rle.msp"] = msp_header(2, w, h) + struct.pack(f"<{h}H", *map(len, rows)) + b"".join(rows)
+    cut = list(rows)
+    cut[5] = bytes([9]) + packed[5].tobytes()[:2]  # a literal of 9 bytes of which the row holds 2
+    cut += [bytes([0, 10, 0x55])]
+    hh = h + 1
+    out["msp_v2_cut_literal.msp"] = (msp_header(2, w, hh) + struct.pack(f"<{hh}H", *map(len, cut)) + b"".join(cut))
+    bad = bytearray(out["msp_pillow_v1.msp"])
+    bad[24] ^= 1
+    out["msp_refused_checksum.msp"] = bytes(bad)
+    out["msp_refused_truncated_row.msp"] = out["msp_v2_rle.msp"][:-5]
+    return out
+
+
+def im() -> dict:
+    """IM: Pillow's for 1, L, LA, P (a Lut), PA, I, I;16, I;16B, F, RGB, RGBA,
+    CMYK; written here: X 24, B4, L 32 S (unsigned samples past 2^31), PA
+    with a colour Lut, float types of 8 and 16 bits, a gray Lut, CR
+    at the start of lines, a NUL-padded header; refused: a size that is not
+    a number, pixels cut short, a CR inside a line (the image type is then
+    no type Pillow knows), RLB (no unpacker in Pillow). YCC is left out: Pillow reads it, the port does
+    not (ROADMAP)."""
+    w, h = 19, 13
+    rgb, rgba = smooth(w, h, 170), smooth(w, h, 171, 4)
+    g = rgb[..., 0]
+    out = {}
+    for mode, img in (("1", Image.fromarray(g).convert("1")), ("L", Image.fromarray(g)),
+                      ("LA", Image.fromarray(rgba[..., :2], "LA")), ("P", Image.fromarray(rgb).quantize(30)),
+                      ("PA", Image.fromarray(rgb).quantize(30).convert("PA")),
+                      ("I", Image.fromarray(g.astype(np.int32) * 300 - 9000)),
+                      ("I16", Image.fromarray(g.astype(np.uint16) * 2)),
+                      ("I16B", Image.frombytes("I;16B", (w, h), (g.astype(">u2") + 100).tobytes())),
+                      ("F", Image.fromarray(g.astype(np.float32) * 1.5 - 20)), ("RGB", Image.fromarray(rgb)),
+                      ("RGBA", Image.fromarray(rgba)), ("CMYK", Image.fromarray(rgba, "CMYK"))):
+        out[f"im_pillow_{mode.lower()}.im"] = pillow(img, "IM")
+
+    def hand(itype, body, extra=b"", pad=512):
+        head = b"Image type: " + itype + b" image\r\nImage size (x*y): %d*%d\r\n" % (w, h) + extra
+        return head + b"\0" * (pad - 1 - len(head)) + b"\x1a" + body
+
+    out["im_x24.im"] = hand(b"X 24", rgb.tobytes())
+    out["im_float8.im"] = hand(b"L 8", g.tobytes())
+    out["im_float16s.im"] = hand(b"L 16S", (g.astype("<i2") * 40 - 3000).tobytes())
+    out["im_gray_lut.im"] = hand(b"Greyscale", g.tobytes(), b"Lut: 1\r\n") + b""
+    out["im_gray_lut.im"] = (out["im_gray_lut.im"][:512] + np.repeat(np.arange(255, -1, -1, dtype=np.uint8)[None], 3, 0)
+                             .tobytes() + g.tobytes())
+    out["im_cr_lines.im"] = (b"\rImage type: L image\n\r\rImage size (x*y): %d*%d\n\x1a" % (w, h)) + g.tobytes()
+    out["im_refused_cr_inside_line.im"] = (b"Image type: L image\rImage size (x*y): %d*%d\n\x1a" % (w, h)) + g.tobytes()
+    out["im_b4.im"] = hand(b"B4", np.packbits(np.unpackbits(indices(w, h, 16, 172)[..., None], axis=-1)[..., 4:]
+                                             .reshape(h, -1), axis=1).tobytes())
+    out["im_l32s_unsigned.im"] = hand(b"L 32 S", ((g.astype("<u4") << 24) | 77).tobytes())
+    lut = np.random.default_rng(173).integers(0, 256, 768, dtype=np.uint8).tobytes()
+    out["im_pa_lut.im"] = hand(b"PA", lut + rgba[..., :2].transpose(0, 2, 1).tobytes(), b"Lut: 1\r\n")
+    out["im_refused_rlb.im"] = hand(b"RLB", rgb.tobytes())
+    out["im_refused_size_not_number.im"] = hand(b"Greyscale", g.tobytes()).replace(b"%d*%d" % (w, h), b"ab*cd")
+    out["im_refused_truncated.im"] = hand(b"RGB", rgb.tobytes()[:-40])
+    return out
+
+
 def eps() -> dict:
     """EPS: Pillow opens it and needs Ghostscript to load it; without
     Ghostscript both packages refuse it."""
@@ -1233,17 +1521,19 @@ def eps() -> dict:
 
 
 def fixtures() -> dict:
-    return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **libtiff(), **jpeg(), **psd(), **sgi(), **pcx(), **ico(),
-            **qoi(), **sun(), **eps()}
+    return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **libtiff(), **libtiff_lab_zstd_ojpeg(), **jpeg(), **psd(),
+            **sgi(), **pcx(), **ico(), **qoi(), **sun(), **png(), **blp(), **ftex(), **xbm(), **xpm(), **msp(), **im(),
+            **eps()}
 
 
 def main():
-    digests = {"pillow": Image.__version__, "files": {}, "libtiff_only": {}}
+    digests = {"pillow": Image.__version__, "files": {}}
     for old in HERE.iterdir():
         if old.suffix in (".bmp", ".dib", ".tga", ".gif", ".tif", ".ppm", ".pgm", ".pbm", ".pfm", ".pam", ".jpg", ".psd",
-                          ".sgi", ".rgb", ".bw", ".pcx", ".dcx", ".ico", ".cur", ".qoi", ".ras", ".eps"):
+                          ".sgi", ".rgb", ".bw", ".pcx", ".dcx", ".ico", ".cur", ".qoi", ".ras", ".eps", ".png", ".blp",
+                          ".ftc", ".ftu", ".xbm", ".xpm", ".msp", ".im"):
             old.unlink()
-    for group, files in (("files", fixtures()), ("libtiff_only", libtiff_only())):
+    for group, files in (("files", fixtures()),):
         for name, data in files.items():
             (HERE / name).write_bytes(data)
             try:
@@ -1253,6 +1543,14 @@ def main():
                 entry = {"refused": type(e).__name__}
             digests[group][name] = entry
     (HERE / "digests.json").write_text(json.dumps(digests, indent=1) + "\n")
+    # chip_smoke.py's ZSTD maps: one frame of scenes.zstd_strip_pattern, tiled (the card's machine has no
+    # zstandard package to write one)
+    import zstandard
+
+    from vk_gltf_renderer_tpu_torch.scenes import zstd_strip_pattern
+
+    (HERE / "zstd_strip.zst").write_bytes(zstandard.ZstdCompressor(level=19, write_checksum=True).compress(
+        zstd_strip_pattern().tobytes()))
 
 
 if __name__ == "__main__":

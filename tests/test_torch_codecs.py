@@ -72,13 +72,33 @@ def _own(module):
             if (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == module.__name__}
 
 
+# the one deliberate difference: KTX2's zstd supercompression goes through the port's own decoder
+# (ops/zstd.py), not the zstandard package, which the card's machine lacks
+_ZSTD_REF = """        try:
+            import zstandard
+        except ImportError as e:
+            raise UnsupportedCodec(
+                "KTX2 zstd supercompression requires the zstandard package") from e
+
+        payload = zstandard.ZstdDecompressor().decompress(payload, max_output_size=int(uncomp) or 1 << 30)"""
+_ZSTD_PORT = """        from .zstd import decompress
+
+        payload = decompress(payload, int(uncomp) or 1 << 30)"""
+DIFFERENCES = {("ops/dds.py", "decode_ktx2"): (_ZSTD_REF, _ZSTD_PORT)}
+
+
 @pytest.mark.parametrize("path", sorted(COPIES))
 def test_copied_codec_modules_match_the_originals(path):
     ref, port = COPIES[path]
     names = _own(ref)
     assert names and sorted(names) == sorted(_own(port)), path
     for n in names:
-        assert inspect.getsource(getattr(port, n)) == inspect.getsource(getattr(ref, n)), (path, n)
+        want = inspect.getsource(getattr(ref, n))
+        if (path, n) in DIFFERENCES:
+            old, new = DIFFERENCES[(path, n)]
+            assert want.count(old) == 1, (path, n)
+            want = want.replace(old, new)
+        assert inspect.getsource(getattr(port, n)) == want, (path, n)
 
 
 # ------------------------------------------------------------ the reference tests' inputs

@@ -48,6 +48,7 @@ from vk_gltf_renderer_tpu_torch.ops import hdr as thdr  # noqa: E402
 from vk_gltf_renderer_tpu_torch.scenes import (  # noqa: E402
     make_brainstem,
     make_helmet_standin,
+    png_file,
     write_large_glb,
     write_synthetic_hdr,
 )
@@ -374,12 +375,20 @@ def test_png_reader_decodes_the_pillow_checker(tmp_path):
 
 
 def test_png_reader_refuses_other_formats(tmp_path):
+    """Data that is not a PNG, and a PNG whose bit depth and colour type
+    Pillow has no mode for (16-bit palette), raise ValueError, as Pillow
+    refuses them; a 16-bit gray PNG, which Pillow reads, reads as its
+    convert("RGBA")."""
     with pytest.raises(ValueError):
         read_png(b"\xff\xd8\xff\xe0 not a png")
     p = tmp_path / "deep.png"
     Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(p)
+    assert np.array_equal(read_png(p.read_bytes()), np.asarray(Image.open(p).convert("RGBA")))
+    palette16 = png_file(np.arange(4).reshape(2, 2), 16, 3, palette=np.zeros((4, 3), np.uint8))
+    with pytest.raises(Exception):  # noqa: B017 - whatever Pillow raises
+        Image.open(io.BytesIO(palette16)).convert("RGBA")
     with pytest.raises(ValueError):
-        read_png(p.read_bytes())
+        read_png(palette16)
 
 
 def test_make_helmet_standin_equals_tools_version(tmp_path):

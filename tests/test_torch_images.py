@@ -1,22 +1,27 @@
 """The port's image codecs (ops/bmp.py, ops/tga.py, ops/gif.py, ops/tiff.py,
 ops/netpbm.py, ops/psd.py, ops/sgi.py, ops/pcx.py, ops/ico.py, ops/qoi.py,
-ops/sun.py over native/image_coders.cpp, and ops/imagemodes.py) against
+ops/sun.py, ops/blp.py, ops/ftex.py, ops/xbm.py, ops/xpm.py, ops/msp.py,
+ops/im.py over native/image_coders.cpp, and ops/imagemodes.py) against
 Pillow 12.1.0 and the JAX package, on the CPU.
 
 - Every committed fixture of tests/data/images decodes in the port's
   texture decode_image bit for bit as in the JAX package's (which reads
   through Pillow), and to the digest of Pillow's decode in digests.json;
   where Pillow refuses a file (EPS without Ghostscript among them), both
-  packages refuse it, and both texture pools make it 1x1 white. The TIFF
-  forms Pillow reads through libtiff that the port does not (ZSTD,
-  old-style JPEG, CIELab) are refused by the port (ROADMAP C).
+  packages refuse it, and both texture pools make it 1x1 white. The
+  fixtures cover the TIFF forms Pillow reads through libtiff's ZSTD and
+  old-style JPEG codecs, CIELab TIFF and Lab PSD, PNG beyond 8-bit gray
+  and colour, and BLP, FTEX, XBM, XPM, MSP and IM.
 - Identification follows Image.open, in its order: data that no reader
-  claims, TGA headers that fail Pillow's checks, and TGA headers that
-  PCX, CUR or ICO claim first are decoded or refused as Pillow does, and
-  the format the port names is Pillow's.
+  claims, TGA headers that fail Pillow's checks, TGA headers that PCX,
+  CUR or ICO claim first, data IM's header parser takes or passes on, and
+  the magic bytes of BLP, FTEX, MSP, XBM and XPM with headers Pillow's
+  open cannot parse are decoded or refused as Pillow does, and the format
+  the port names is Pillow's.
 - Pillow's mode conversions (convert("RGBA") from 1, L, I, I;16, F, P with
   short palettes and transparency, PA, LA, RGB with transparency, CMYK)
-  equal ops/imagemodes.to_rgba on seeded arrays.
+  equal ops/imagemodes.to_rgba on seeded arrays, and its LAB to RGB
+  (LittleCMS) equals ops/imagemodes.lab_to_rgb on all 2^24 LAB pixels.
 - write_image writes BMP, DIB, TGA, TIFF and Netpbm byte for byte as
   Image.fromarray(a).save(path), for every array shape it takes; its GIF
   decodes to Pillow's GIF's pixels for images of at most 256 colours, and
@@ -25,7 +30,8 @@ Pillow 12.1.0 and the JAX package, on the CPU.
 - edit_cli's render to an unknown suffix prints Pillow's error and keeps
   the shell alive, as the reference's shell does.
 - A glTF whose base colour is BMP, TGA, TIFF, GIF, PPM, PSD, SGI, PCX,
-  DCX, ICO, CUR, QOI, Sun raster or subsampled lossless JPEG renders 48x32
+  DCX, ICO, CUR, QOI, Sun raster, subsampled lossless JPEG, an Adam7
+  palette PNG, a DXT5 BLP or an old-style JPEG TIFF renders 48x32
   frames that agree with the JAX renderer's at tests/test_torch_frame.py's
   thresholds, and headless --output writes each suffix, read back equal to
   the PNG output.
@@ -56,7 +62,6 @@ from vk_gltf_renderer_tpu.renderer import GltfRenderer as JaxRenderer  # noqa: E
 from vk_gltf_renderer_tpu_torch import headless, native, scenes  # noqa: E402
 from vk_gltf_renderer_tpu_torch.models import Scene as TScene  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops import gif, textures as ttextures  # noqa: E402
-from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec  # noqa: E402
 from vk_gltf_renderer_tpu_torch.ops.imagemodes import to_rgba  # noqa: E402
 from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer  # noqa: E402
 from vk_gltf_renderer_tpu_torch.utils.image_io import WRITABLE, identify_and_read, read_image, write_image  # noqa: E402
@@ -87,6 +92,8 @@ def _rgba(img):
     """read_image's [H, W, C] as RGBA, as decode_image expands it."""
     if img.shape[2] == 1:
         return np.concatenate([img] * 3 + [np.full_like(img, 255)], axis=-1)
+    if img.shape[2] == 2:
+        return np.concatenate([img[..., :1]] * 3 + [img[..., 1:]], axis=-1)
     if img.shape[2] == 3:
         return np.concatenate([img, np.full_like(img[..., :1], 255)], axis=-1)
     return img
@@ -113,19 +120,8 @@ def test_fixture_decodes_as_the_jax_package(name):
     assert list(rgba.shape) == entry["shape"] and hashlib.sha256(rgba.tobytes()).hexdigest() == entry["sha256"]
 
 
-@pytest.mark.parametrize("name", sorted(DIGESTS["libtiff_only"]))
-def test_libtiff_only_tiffs_are_refused(name):
-    """Pillow decodes these through libtiff (ZSTD, old-style JPEG, CIELab
-    through LittleCMS); the port raises UnsupportedCodec, so the texture is
-    white (ROADMAP C)."""
-    data = (FIXTURES / name).read_bytes()
-    assert list(_pillow_rgba(data).shape) == DIGESTS["libtiff_only"][name]["shape"]
-    with pytest.raises(UnsupportedCodec):
-        read_image(data)
-
-
 @pytest.mark.parametrize("fmt", ["bmp", "tga", "gif", "tiff", "ppm", "psd", "sgi", "pcx", "ico", "cur", "qoi", "sun",
-                                 "eps"])
+                                 "eps", "png", "blp", "ftex", "xbm", "xpm", "msp", "im"])
 def test_refused_fixtures_load_white_in_both_packages(fmt, tmp_path):
     names = sorted(n for n, e in DIGESTS["files"].items() if n.startswith(fmt + "_") and "refused" in e)
     assert names
@@ -175,6 +171,23 @@ IDENTIFY = {
     "sun_depth_16": (0x59A66A95).to_bytes(4, "big") + struct.pack(">7I", 2, 2, 16, 8, 1, 0, 0) + bytes(8),
     "sgi_short_header": (474).to_bytes(2, "big") + bytes(20),
     "eps_header": b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 2 2\n",
+    "blp_short_header": b"BLP2\x01\x00\x00\x00\x02",
+    "blp1_zero_width": b"BLP1" + struct.pack("<iIIIiI", 1, 0, 0, 4, 5, 0) + bytes(200),
+    "ftex_short_header": b"FTEX" + struct.pack("<3i", 1, 4, 4),
+    "ftex_zero_height": b"FTEX" + struct.pack("<5i", 1, 4, 0, 1, 1) + struct.pack("<3i", 1, 32, 0),
+    "msp_short": b"DanM" + bytes(10),
+    "msp_bad_checksum": b"LinS" + struct.pack("<14H", 4, 4, 1, 1, 1, 1, 4, 4, 0, 0, 7, 0, 0, 0) + bytes(16),
+    "xbm_no_bits_line": b"#define a_width 8\n#define a_height 2\nstatic char a[] = { 0x01, 0x02 };\n",
+    "xbm_ten_spaces_first": b" " * 10 + b"#define a_width 8\n#define a_height 1\nstatic char a_bits[] = { 0x01 };\n",
+    "xpm_no_header_line": b"/* XPM */\nstatic char *x[] = {\n};\n",
+    "xpm_empty_field": b'/* XPM */\n"2  1 1",\n". c #000000",\n"..",\n',
+    "im_header": b"Image type: L image\r\nImage size (x*y): 2*2\r\n\x00\x1a" + bytes(range(4)),
+    "im_no_known_key": b"Foo: bar\n\x1a" + bytes(4),
+    "im_line_over_100": b"Comment: " + b"x" * 120 + b"\n\x1a" + bytes(4),
+    "im_no_ctrl_z": b"Image type: L image\nImage size (x*y): 2*2\n\x00" + bytes(8),
+    "im_size_one_number": b"Image size (x*y): 4\n\x1a" + bytes(16),
+    "im_lut_cut_short": b"Image type: L image\nImage size (x*y): 2*2\nLut: 1\n\x1a" + bytes(100),
+    "im_colon_in_binary": b"A:\x80\x81\n\x00" + bytes(8),
     # sizes refused before anything is allocated: past Pillow's decompression-bomb limit, or coded data too short
     "qoi_past_bomb_limit": b"qoif" + struct.pack(">IIBB", 20000, 20000, 4, 0) + bytes(10),
     "sun_rle_past_bomb_limit": (0x59A66A95).to_bytes(4, "big") + struct.pack(">7I", 30000, 30000, 8, 8, 2, 0, 0)
@@ -207,18 +220,16 @@ def _pillow_format(data):
         return None
 
 
-@pytest.mark.parametrize("name", sorted(DIGESTS["files"]) + sorted(DIGESTS["libtiff_only"]) + sorted(IDENTIFY))
+@pytest.mark.parametrize("name", sorted(DIGESTS["files"]) + sorted(IDENTIFY))
 def test_read_image_names_pillows_format(name):
     """Where the port decodes the data, the format it names is the one
     Image.open names; where the port refuses the data, Pillow's open or
-    load refuses it too, or it is a listed libtiff-only TIFF."""
+    load refuses it too."""
     data = IDENTIFY[name] if name in IDENTIFY else (FIXTURES / name).read_bytes()
     fmt = _pillow_format(data)
     try:
         got, _ = identify_and_read(data)
     except ValueError:
-        if name in DIGESTS["libtiff_only"]:
-            return
         try:
             _pillow_rgba(data)
         except Exception:  # noqa: BLE001 - any refusal
@@ -298,6 +309,23 @@ def test_mode_conversions_match_pillow(case):
             im.info["transparency"] = trns
     ref = np.asarray(im.convert("RGBA"))
     assert np.array_equal(to_rgba(mode, px if mode != "1" else np.asarray(im, np.uint8) * 255, palette, trns), ref)
+
+
+def test_lab_conversion_matches_pillow_on_every_pixel():
+    """All 2^24 LAB pixels in one 4096x4096 image: Pillow's convert("RGB")
+    (LittleCMS's Lab to sRGB transform) and ops/imagemodes.lab_to_rgb agree
+    bit for bit."""
+    from vk_gltf_renderer_tpu_torch.ops.imagemodes import lab_to_rgb
+
+    v = np.arange(1 << 24, dtype=np.uint32)
+    raw = np.stack([v >> 16, (v >> 8) & 255, v & 255], axis=-1).astype(np.uint8)
+    del v
+    im = PIL_Image.frombytes("LAB", (4096, 4096), raw.tobytes(), "raw", "LAB")  # a* and b* signed
+    ref = np.asarray(im.convert("RGB")).reshape(-1, 3)
+    del im
+    raw[:, 1:] ^= 128  # Pillow's storage: a* and b* plus 128
+    got = lab_to_rgb(raw)
+    assert got.shape == ref.shape and np.array_equal(got, ref)
 
 
 # ------------------------------------------------------------ writers
@@ -394,7 +422,8 @@ FRAME_FIXTURES = ["bmp_palette8.bmp", "tga_rgb24_rle.tga", "tiff_tiles_lzw.tif",
                   "ppm_p6_maxval_1023.ppm", "psd_rgb_layers_resources.psd", "sgi_rgb_rle.rgb", "pcx_planes4.pcx",
                   "dcx_one_page.dcx", "ico_bmp24_mask.ico", "cur_bmp8.cur", "qoi_rgb_runs.qoi", "sun_rle_bgr24.ras",
                   "tiff_lzma_rgb.tif", "tiff_group4_300x200.tif", "tiff_ycbcr_22_8.tif",
-                  "jpeg_lossless_2x2_interleaved.jpg"]
+                  "jpeg_lossless_2x2_interleaved.jpg", "png_palette8_adam7.png", "blp2_dxt5.blp",
+                  "tiff_libtiff_old_jpeg.tif"]
 W, H, DEPTH = 48, 32, 5
 
 

@@ -15,13 +15,14 @@ edit_cli and a scripted viewer (grid, gizmo, an edit verb), renders the
 helmet with a JPEG, a KTX2 BasisLZ and a lossless and a lossy WebP base
 colour (the port's own decoders), writes a JPEG and a WebP, renders the
 helmet with BMP, TGA, TIFF, GIF, PPM, arithmetic-coded JPEG, PSD, SGI, PCX,
-DCX, ICO, CUR, QOI, Sun raster, CCITT, LZMA and ThunderScan TIFF and
-subsampled lossless JPEG base colours and writes a frame in every suffix
+DCX, ICO, CUR, QOI, Sun raster, CCITT, LZMA and ThunderScan TIFF,
+subsampled lossless JPEG, palette/Adam7 and 16-bit PNG, ZSTD, old-style
+JPEG and CIELab TIFF, Lab PSD, BLP, FTEX, XBM, XPM, MSP and IM base colours and writes a frame in every suffix
 image_io writes, renders
 seeded and batched frames on the SBVH, and renders a frame split over two shards
 (parallel.render_mesh); and no
 source file of the port, chip_smoke.py, bvh4_tuning.py or frame_ab.py imports any
-of them, or the reference's tools/."""
+of them (zstandard included), or the reference's tools/."""
 
 import os
 import re
@@ -36,6 +37,7 @@ import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["vk_gltf_renderer_tpu"] = None  # and so does the JAX package
 sys.modules["PIL"] = None  # and Pillow, which the card's machine lacks
+sys.modules["zstandard"] = None  # and zstandard (the port has its own Zstandard decoder)
 import numpy as np
 import torch
 torch.set_num_threads(1)  # tiny tensors: a thread pool only adds contention beside other workers
@@ -81,7 +83,10 @@ with tempfile.TemporaryDirectory() as d:
                  "ppm_p6_maxval_1023.ppm", "jpeg_arith_progressive.jpg", "psd_cmyk_packbits.psd",
                  "sgi_rgba16_rle.sgi", "pcx_palette.pcx", "dcx_two_pages.dcx", "ico_bmp32_alpha.ico",
                  "cur_bmp24.cur", "qoi_hand_ops.qoi", "sun_rle_palette8_0x80.ras", "tiff_group3_2d.tif",
-                 "tiff_libtiff_lzma.tif", "tiff_thunderscan.tif", "jpeg_lossless_1x2_scans.jpg"):
+                 "tiff_libtiff_lzma.tif", "tiff_thunderscan.tif", "jpeg_lossless_1x2_scans.jpg",
+                 "png_palette8_adam7.png", "png_rgb16.png", "tiff_zstd_rgba_level19.tif", "tiff_libtiff_old_jpeg.tif",
+                 "tiff_libtiff_cielab.tif", "psd_lab_raw.psd", "blp2_dxt5.blp", "blp1_jpeg_alpha0.blp",
+                 "ftex_dxt1.ftc", "xbm_pillow.xbm", "xpm_one_char.xpm", "msp_v2_rle.msp", "im_pillow_p.im"):
         with open(os.path.join("tests", "data", "images", name), "rb") as f:
             data = f.read()
         r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")
@@ -213,7 +218,7 @@ with tempfile.TemporaryDirectory() as d:
     for png in ("edit.png", "viewer.png"):
         with open(f"{d}/{png}", "rb") as f:
             assert read_png(f.read()).mean() > 2
-blocked = ("jax", "vk_gltf_renderer_tpu", "PIL")
+blocked = ("jax", "vk_gltf_renderer_tpu", "PIL", "zstandard")
 assert not any(m.split(".")[0] in blocked for m, v in sys.modules.items() if v is not None)
 print("NOJAX_OK")
 """
@@ -231,16 +236,17 @@ def test_port_renders_with_jax_blocked():
 
 
 def test_no_port_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu|tools|PIL)\b(?!_torch)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|vk_gltf_renderer_tpu|tools|PIL|zstandard)\b(?!_torch)", re.M)
     files = list((ROOT / "vk_gltf_renderer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                          ROOT / "bvh4_tuning.py",
                                                                          ROOT / "frame_ab.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
     # the image readers are among the files scanned
-    assert {"psd.py", "sgi.py", "pcx.py", "ico.py", "qoi.py", "sun.py", "tiff.py", "jpeg.py", "image_io.py"} <= {
-        p.name for p in files}
+    assert {"psd.py", "sgi.py", "pcx.py", "ico.py", "qoi.py", "sun.py", "tiff.py", "jpeg.py", "image_io.py", "png.py",
+            "zstd.py", "blp.py", "ftex.py", "xbm.py", "xpm.py", "msp.py", "im.py"} <= {p.name for p in files}
     # the scan itself sees both kinds of import
     assert pattern.search("import jax.numpy as jnp") and pattern.search(
         "    from vk_gltf_renderer_tpu.models import Scene") and pattern.search("        from PIL import Image")
+    assert pattern.search("    import zstandard") and pattern.search("from zstandard import ZstdDecompressor")
     assert not pattern.search("from vk_gltf_renderer_tpu_torch.models import Scene")

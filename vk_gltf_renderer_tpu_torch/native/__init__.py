@@ -4,15 +4,17 @@ The port's own copy of vk_gltf_renderer_tpu/native (binned SAH and the
 Morton radix tree over world triangles, bvh_builder.cpp), so the port
 imports nothing of the JAX package, the JPEG entropy coder of
 ops/jpeg.py (jpeg_entropy.cpp), the WebP pixel codec of ops/webp.py
-(webp_decode.cpp) and the LZW, PackBits and RLE coders of the BMP, TGA,
-GIF and TIFF readers and the GIF writer (image_coders.cpp). Each library is built by g++ at first use
+(webp_decode.cpp), the LZW, PackBits and RLE coders of the BMP, TGA,
+GIF and TIFF readers, the GIF writer and the PNG unfilter
+(image_coders.cpp), and the Zstandard decoder of the TIFF reader
+(zstd_decode.cpp). Each library is built by g++ at first use
 into ``build/native/`` at the repository root (listed in .gitignore),
 named by a hash of its source, and renamed into place once complete, so
 that concurrent builders never load half a file. The BVH functions return
 None when their library cannot be built; ops/bvh_flatten.py then takes its
 numpy oracle, and refuses scenes too large for it rather than waiting on a
-Python loop. The image coders have no such oracle: jpeg_lib, webp_lib
-and image_lib raise when their build fails.
+Python loop. The image coders have no such oracle: jpeg_lib, webp_lib,
+image_lib and zstd_lib raise when their build fails.
 """
 
 from __future__ import annotations
@@ -30,12 +32,14 @@ _SRC = Path(__file__).parent / "bvh_builder.cpp"
 _JPEG_SRC = Path(__file__).parent / "jpeg_entropy.cpp"
 _WEBP_SRC = Path(__file__).parent / "webp_decode.cpp"
 _IMAGE_SRC = Path(__file__).parent / "image_coders.cpp"
+_ZSTD_SRC = Path(__file__).parent / "zstd_decode.cpp"
 _CACHE = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 _lib = None
 _lib_failed = False
 _jpeg = None
 _webp = None
 _image = None
+_zstd = None
 
 
 def _compile(src_path: Path, defines: tuple = ()) -> Path:
@@ -122,7 +126,7 @@ def webp_lib():
 
 
 def image_lib():
-    """The LZW, PackBits, RLE, QOI and CCITT coders (image_coders.cpp), built at first
+    """The LZW, PackBits, RLE, QOI and CCITT coders and the PNG unfilter (image_coders.cpp), built at first
     use (_load_coder: RuntimeError when it cannot be built or loaded)."""
     global _image
     if _image is None:
@@ -139,8 +143,20 @@ def image_lib():
             "vkgr_sun_rle": [_VP, _I64, _VP, _I64],
             "vkgr_qoi_decode": [_VP, _I64, _I64, _I32, _VP],
             "vkgr_ccitt": [_VP, _I64, _I32, _I32, _I32, _I32, _VP],
-            "vkgr_thunderscan": [_VP, _I64, _I32, _I32, _VP]})
+            "vkgr_thunderscan": [_VP, _I64, _I32, _I32, _VP],
+            "vkgr_png_unfilter": [_VP, _I64, _I64, _I64, _I32, _VP],
+            "vkgr_lab_to_rgb": [_VP, _I32, _VP, _I64, _VP],
+            "vkgr_msp_rle": [_VP, _I64, _VP, _I32, _I32, _VP, _I64, _VP]})
     return _image
+
+
+def zstd_lib():
+    """The Zstandard decoder (zstd_decode.cpp), built at first use
+    (_load_coder: RuntimeError when it cannot be built or loaded)."""
+    global _zstd
+    if _zstd is None:
+        _zstd = _load_coder(_ZSTD_SRC, {"vkgr_zstd_decode": [_VP, _I64, _VP, _I64, _VP]})
+    return _zstd
 
 
 def get_lib():

@@ -26,7 +26,14 @@
 //   vkgr_ccitt          libtiff's tif_fax3.c: CCITT modified Huffman (TIFF
 //                       compression 2), T.4 one- and two-dimensional
 //                       (Group 3) and T.6 (Group 4),
-//   vkgr_thunderscan    libtiff's tif_thunder.c.
+//   vkgr_thunderscan    libtiff's tif_thunder.c,
+//   vkgr_png_unfilter   Pillow's ZipDecode.c: PNG's five scanline filters
+//                       undone, one interlace pass (or the whole image) a
+//                       call,
+//   vkgr_lab_to_rgb     LittleCMS's TetrahedralInterp16 in the 16-bit
+//                       table of ops/imagemodes.lab_table (Pillow's LAB to
+//                       RGB),
+//   vkgr_msp_rle        Pillow's MspDecoder (version 2 Windows Paint rows).
 //
 // Exported C ABI: every function returns 0 on success and < 0 on corrupt
 // or short data (the Python side raises ValueError).
@@ -34,6 +41,7 @@
 // Build: g++ -O2 -shared -fPIC -std=c++17
 
 #include <algorithm>
+#include <cstdlib>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -955,6 +963,148 @@ int vkgr_thunderscan(const uint8_t* src, int64_t n, int32_t w, int32_t rows, uin
     }
     if (np != w) return -1;
   }
+  return 0;
+}
+
+// PNG scanline filters undone: `rows` rows of a filter byte and `stride`
+// bytes from src, into out (rows x stride); bpp is the byte distance to the
+// left neighbour (max(1, bits per pixel / 8)). The row above the first is
+// zeros. -1: src too short, -2: an unknown filter type (Pillow's decoder
+// fails the image then).
+int vkgr_png_unfilter(const uint8_t* src, int64_t n_src, int64_t rows, int64_t stride, int32_t bpp, uint8_t* out) {
+  if (rows < 0 || stride < 0 || bpp < 1 || n_src < rows * (stride + 1)) return -1;
+  std::vector<uint8_t> zero(size_t(stride), 0);
+  const uint8_t* prev = zero.data();
+  for (int64_t y = 0; y < rows; ++y) {
+    const uint8_t* in = src + y * (stride + 1);
+    const uint8_t ft = *in++;
+    uint8_t* cur = out + y * stride;
+    const int64_t lead = std::min<int64_t>(bpp, stride);
+    switch (ft) {
+      case 0:
+        std::memcpy(cur, in, size_t(stride));
+        break;
+      case 1:  // Sub
+        std::memcpy(cur, in, size_t(lead));
+        for (int64_t i = bpp; i < stride; ++i) cur[i] = uint8_t(in[i] + cur[i - bpp]);
+        break;
+      case 2:  // Up
+        for (int64_t i = 0; i < stride; ++i) cur[i] = uint8_t(in[i] + prev[i]);
+        break;
+      case 3:  // Average
+        for (int64_t i = 0; i < lead; ++i) cur[i] = uint8_t(in[i] + (prev[i] >> 1));
+        for (int64_t i = bpp; i < stride; ++i) cur[i] = uint8_t(in[i] + ((cur[i - bpp] + prev[i]) >> 1));
+        break;
+      case 4:  // Paeth
+        for (int64_t i = 0; i < lead; ++i) cur[i] = uint8_t(in[i] + prev[i]);
+        for (int64_t i = bpp; i < stride; ++i) {
+          const int a = cur[i - bpp], b = prev[i], c = prev[i - bpp];
+          const int pa = std::abs(b - c), pb = std::abs(a - c), pc = std::abs(a + b - 2 * c);
+          cur[i] = uint8_t(in[i] + ((pa <= pb && pa <= pc) ? a : (pb <= pc) ? b : c));
+        }
+        break;
+      default:
+        return -2;
+    }
+    prev = cur;
+  }
+  return 0;
+}
+
+// Pillow's LAB -> RGB as LittleCMS runs its optimised transform: each byte
+// to 16 bits (x * 257), TetrahedralInterp16 in an n^3 table of 16-bit RGB
+// ([L][a][b][3], from ops/imagemodes.lab_table), then FROM_16_TO_8.
+int vkgr_lab_to_rgb(const uint16_t* table, int32_t n, const uint8_t* src, int64_t count, uint8_t* dst) {
+  if (n < 2) return -1;
+  const int32_t oz = 3, oy = 3 * n, ox = 3 * n * n, dom = n - 1;
+  for (int64_t i = 0; i < count; ++i) {
+    int32_t x0[3], r[3], d1[3];
+    const int32_t off[3] = {ox, oy, oz};
+    for (int c = 0; c < 3; ++c) {
+      const int32_t in = src[3 * i + c] * 257;
+      const int32_t fx = in * dom;
+      const int32_t f = fx + (fx + 0x7FFF) / 0xFFFF;  // _cmsToFixedDomain
+      x0[c] = (f >> 16) * off[c];
+      r[c] = f & 0xFFFF;
+      d1[c] = in == 0xFFFF ? 0 : off[c];
+    }
+    const uint16_t* t = table + x0[0] + x0[1] + x0[2];
+    const int32_t rx = r[0], ry = r[1], rz = r[2];
+    int32_t X1 = d1[0], Y1 = d1[1], Z1 = d1[2];
+    for (int o = 0; o < 3; ++o) {
+      int32_t c0 = t[o], c1, c2, c3;
+      if (rx >= ry) {
+        if (ry >= rz) {
+          c1 = t[X1 + o] - c0;
+          c2 = t[X1 + Y1 + o] - t[X1 + o];
+          c3 = t[X1 + Y1 + Z1 + o] - t[X1 + Y1 + o];
+        } else if (rz >= rx) {
+          c1 = t[X1 + Z1 + o] - t[Z1 + o];
+          c2 = t[X1 + Y1 + Z1 + o] - t[X1 + Z1 + o];
+          c3 = t[Z1 + o] - c0;
+        } else {
+          c1 = t[X1 + o] - c0;
+          c2 = t[X1 + Y1 + Z1 + o] - t[X1 + Z1 + o];
+          c3 = t[X1 + Z1 + o] - t[X1 + o];
+        }
+      } else if (rx >= rz) {
+        c1 = t[X1 + Y1 + o] - t[Y1 + o];
+        c2 = t[Y1 + o] - c0;
+        c3 = t[X1 + Y1 + Z1 + o] - t[X1 + Y1 + o];
+      } else if (ry >= rz) {
+        c1 = t[X1 + Y1 + Z1 + o] - t[Y1 + Z1 + o];
+        c2 = t[Y1 + o] - c0;
+        c3 = t[Y1 + Z1 + o] - t[Y1 + o];
+      } else {
+        c1 = t[X1 + Y1 + Z1 + o] - t[Y1 + Z1 + o];
+        c2 = t[Y1 + Z1 + o] - t[Z1 + o];
+        c3 = t[Z1 + o] - c0;
+      }
+      const int32_t rest = c1 * rx + c2 * ry + c3 * rz + 0x8001;
+      const uint32_t v16 = uint32_t(uint16_t(c0 + ((rest + (rest >> 16)) >> 16)));
+      dst[3 * i + o] = uint8_t((v16 * 65281u + 8388608u) >> 24);  // FROM_16_TO_8
+    }
+  }
+  return 0;
+}
+
+// Pillow's MspDecoder: `rows` rows of rowmap[y] bytes each, one after
+// another in src; a row's runs are (0, count, value) or (n, n literal bytes,
+// cut at the row's end); an empty row is `blank` bytes of 0xFF. The rows'
+// bytes are one stream: written into out up to cap, counted in *out_len.
+// -1: a row or a run header past the data (Pillow's "Truncated" and
+// "Corrupted MSP file").
+int vkgr_msp_rle(const uint8_t* src, int64_t n, const uint16_t* rowmap, int32_t rows, int32_t blank, uint8_t* out,
+                 int64_t cap, int64_t* out_len) {
+  int64_t pos = 0, o = 0;
+  auto put = [&](uint8_t v) {
+    if (o < cap) out[o] = v;
+    ++o;
+  };
+  for (int32_t y = 0; y < rows; ++y) {
+    const int64_t len = rowmap[y];
+    if (len == 0) {
+      for (int32_t i = 0; i < blank; ++i) put(0xFF);
+      continue;
+    }
+    if (pos + len > n) return -1;
+    const uint8_t* row = src + pos;
+    int64_t i = 0;
+    while (i < len) {
+      const int run = row[i++];
+      if (run == 0) {
+        if (i + 2 > len) return -1;
+        for (int k = 0; k < row[i]; ++k) put(row[i + 1]);
+        i += 2;
+      } else {
+        const int64_t end = std::min<int64_t>(i + run, len);
+        for (int64_t k = i; k < end; ++k) put(row[k]);
+        i += run;
+      }
+    }
+    pos += len;
+  }
+  *out_len = o;
   return 0;
 }
 

@@ -15,9 +15,11 @@ formats in pure numpy:
         ASTC 4x4 blocks, ops/astc.py) and plain ASTC LDR 4x4..12x12.
 
 Returned images are float32 RGBA [H,W,4] in [0,1], matching decode_image.
-A zstd payload needs the zstandard package; without it, it raises
-UnsupportedCodec. A truncated file raises struct.error, zlib.error or
-IndexError here; ops/textures.decode_image turns those into ValueError.
+A zstd payload goes through the port's own Zstandard decoder (ops/zstd.py;
+the JAX package's copy of this function uses the zstandard package). A
+truncated file raises struct.error, zlib.error or IndexError here, a
+corrupt zstd payload ValueError; ops/textures.decode_image turns those
+into ValueError.
 """
 
 from __future__ import annotations
@@ -206,13 +208,9 @@ def decode_ktx2(data: bytes) -> np.ndarray:
         img = transcode_etc1s_image(payload, glob["image_descs"][0], glob, w, h)
         return img.astype(np.float32) / 255.0
     elif scheme == 2:  # ZSTD supercompression
-        try:
-            import zstandard
-        except ImportError as e:
-            raise UnsupportedCodec(
-                "KTX2 zstd supercompression requires the zstandard package") from e
+        from .zstd import decompress
 
-        payload = zstandard.ZstdDecompressor().decompress(payload, max_output_size=int(uncomp) or 1 << 30)
+        payload = decompress(payload, int(uncomp) or 1 << 30)
     else:
         raise UnsupportedCodec(f"KTX2 supercompression scheme {scheme} not supported")
     VK_RGBA8_UNORM, VK_RGBA8_SRGB = 37, 43

@@ -281,7 +281,11 @@ def _scan_ends(arr: np.ndarray) -> np.ndarray:
 def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
     """JPEG bytes -> uint8 [H,W,3] RGB, or [H,W,1] for a gray file. color
     "ycc" or "raw" overrides libjpeg's guess of a three-component file's
-    colour space (what libtiff asks of libjpeg for a TIFF's JPEG strips)."""
+    colour space (what libtiff asks of libjpeg for a TIFF's JPEG strips);
+    "planes" gives libjpeg's raw data of a DCT file instead: a list of
+    (plane, h, v), each component's samples in whole MCU rows and columns,
+    not upsampled and not converted (what libtiff's old-style JPEG codec
+    reads)."""
     if not is_jpeg(data):
         raise ValueError("not a JPEG file")
     arr = np.frombuffer(data, np.uint8)
@@ -499,6 +503,9 @@ def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
         return np.stack(planes, axis=-1)
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
+    if color == "planes":  # libjpeg's raw data: whole iMCU rows, no upsampling, no colour conversion
+        return [(idct_islow(c.coef, c.qt).reshape(c.rows, c.cols, 8, 8).transpose(0, 2, 1, 3)
+                 .reshape(c.rows * 8, c.cols * 8).astype(np.uint8), c.h, c.v) for c in comps]
     planes = []
     for c in comps:
         blocks = idct_islow(c.coef, c.qt).reshape(c.rows, c.cols, 8, 8)

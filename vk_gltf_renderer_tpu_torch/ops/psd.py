@@ -5,8 +5,11 @@ The header's (colour mode, depth) picks Pillow's mode: bitmap 1-bit "1",
 gray, duotone and multichannel "L", indexed "P" (the 768-byte colour map,
 planar R, G, B, as the palette; another size leaves none), RGB (and "RGBA"
 when the file has exactly four channels), CMYK (each channel inverted, as
-the "C;I" raw modes read it). Any other pair (16 and 32-bit samples, Lab
-not converted here) is refused, as Pillow refuses it. The colour mode data,
+the "C;I" raw modes read it), Lab "LAB" (the L, a and b planes stored as
+they are, a and b plus 128, converted as Pillow converts LAB:
+ops/imagemodes.lab_to_rgb, with alpha 0, the fourth byte of Pillow's
+storage that no band fills). Any other pair (16 and 32-bit samples) is
+refused, as Pillow refuses it. The colour mode data,
 image resources and layer sections are passed over by their lengths. The
 merged image is raw (0) or PackBits row by row (1): Pillow reads the byte
 counts of the mode's channels only, so with more channels in the file its
@@ -27,7 +30,7 @@ from .dds import UnsupportedCodec
 from .imagemodes import PassOn, check_size, native_rc, to_rgba
 
 MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1), (3, 8): ("RGB", 3),
-         (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1)}
+         (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
 
 
 def is_psd(data: bytes) -> bool:
@@ -100,6 +103,8 @@ def read_psd(data: bytes):
         px = np.stack(planes, axis=-1)[..., :nch] if nch > 1 else planes[0]
         if mode == "CMYK":
             px = 255 - px
+        elif mode == "LAB":  # the bands are read one by one, so the storage's fourth byte (alpha) stays 0
+            px = np.concatenate([px, np.zeros_like(px[..., :1])], axis=-1)
     return mode, np.ascontiguousarray(px), palette
 
 

@@ -5,12 +5,12 @@ Port of vk_gltf_renderer_tpu/ops/textures.py. The pool layout is the
 reference's: row i of tex_quads holds the 4 bilinear taps anchored at
 texel i (REPEAT wrap baked in), so one bilinear fetch is one row gather.
 Sampling wraps with REPEAT only, as the reference does. decode_image
-tries DDS and KTX2 first (BC1-3, RGBA8, zlib, zstd with the zstandard
-package, BasisLZ/ETC1S, UASTC, ASTC, through ops/dds.py), as the
+tries DDS and KTX2 first (BC1-3, RGBA8, zlib, zstd through the port's own
+decoder, BasisLZ/ETC1S, UASTC, ASTC, through ops/dds.py), as the
 reference does, then identifies the data as Image.open does, in its order
-(utils/image_io.read_image): BMP/DIB, GIF, JPEG, Netpbm, PNG, CUR, PCX,
-DCX, ICO, TIFF, PSD, QOI, SGI, Sun raster, TGA (by its header checks) and
-WebP. Every decoder
+(utils/image_io.read_image): BMP/DIB, GIF, JPEG, Netpbm, PNG, BLP, CUR,
+PCX, DCX, FTEX, ICO, IM, TIFF, MSP, PSD, QOI, SGI, Sun raster, TGA (by
+its header checks), WebP, XBM and XPM. Every decoder
 raises ValueError (or its subclass UnsupportedCodec) for input it cannot
 read, data that no reader claims included, and build_texture_pool turns
 such an image into 1x1 white, as the reference does for any failed

@@ -22,15 +22,21 @@ reads through libtiff: CCITT modified Huffman (2), T.4 (3, one- and
 two-dimensional, T4Options) and T.6 (4), and ThunderScan through
 native/image_coders.cpp (black runs as set bits, as libtiff hands them to
 Pillow's "1" and "1;I" raw modes); LZMA (34925) through the standard
-library's lzma; the floating-point predictor (3); 12-bit gray (Pillow's "I;12" raw mode, MSB-first fields); YCbCr that JPEG
-did not code, as libtiff's TIFFRGBAImage converts it for Pillow (each data
-unit's chroma over its hs x vs pixels, TIFFYCbCrtoRGB's fixed-point tables
-from the coefficients and ReferenceBlackWhite). ZSTD (no zstd decoder
-without a package), old-style JPEG (libtiff's raw YCbCr planes), WebP
-(this Pillow's libtiff has no WebP codec, so the JAX package refuses it
-too), SGILog (no mode in Pillow's table) and CIELab (Pillow converts it
-through LittleCMS) raise UnsupportedCodec (ROADMAP C); uncompressed YCbCr,
-which Pillow reads with a four-byte raw mode, raises ValueError.
+library's lzma; ZSTD (50000) through the port's own Zstandard decoder
+(ops/zstd.py); the floating-point predictor (3); 12-bit gray (Pillow's
+"I;12" raw mode, MSB-first fields); YCbCr that JPEG did not code, as
+libtiff's TIFFRGBAImage converts it for Pillow (each data unit's chroma
+over its hs x vs pixels, TIFFYCbCrtoRGB's fixed-point tables from the
+coefficients and ReferenceBlackWhite); old-style JPEG (6), whose stream
+(the strip, or the JPEGInterchangeFormat bytes) libtiff's OJPEG codec
+decodes to raw, not upsampled YCbCr planes (ops/jpeg.py's "planes"), in
+data units of the JPEG's luma sampling, which then go through that same
+YCbCr conversion; CIELab (8), Pillow's "LAB" raw mode (a* and b* signed,
+stored plus 128) converted as Pillow converts LAB (ops/imagemodes.py's
+LittleCMS transform). WebP (this Pillow's libtiff has no WebP codec, so
+the JAX package refuses it too) and SGILog (no mode in Pillow's table)
+raise UnsupportedCodec; uncompressed YCbCr, which Pillow reads with a
+four-byte raw mode, raises ValueError.
 
 encode_tiff writes what Image.fromarray(a).save(path) writes: little
 endian, uncompressed, one strip (RowsPerStrip = height), Pillow's tags in
@@ -45,7 +51,7 @@ import zlib
 import numpy as np
 
 from .dds import UnsupportedCodec
-from .imagemodes import to_rgba
+from .imagemodes import check_size, to_rgba
 
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
 
@@ -55,7 +61,7 @@ COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4", 5: "tiff_lz
                 32946: "tiff_deflate", 34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                 50001: "webp"}
 DECODED = ("raw", "tiff_lzw", "packbits", "tiff_adobe_deflate", "tiff_deflate", "jpeg", "tiff_ccitt", "group3", "group4",
-           "lzma", "tiff_thunderscan")
+           "lzma", "tiff_thunderscan", "zstd", "tiff_jpeg")
 CCITT = {"tiff_ccitt": 2, "group3": 3, "group4": 4}
 
 # Pillow's OPEN_INFO: (byte orders, photometric, sample format, fill order, bits, extra samples) -> (mode,
@@ -248,6 +254,7 @@ def read_tiff(data: bytes):
     w, h = _scalar(tags, 256), _scalar(tags, 257)
     if not isinstance(w, int) or not isinstance(h, int) or w <= 0 or h <= 0:
         raise ValueError("TIFF: missing or bad dimensions")
+    check_size("TIFF", w, h)
     sfmt = tags.get(339, (1,))
     if len(sfmt) > 1 and max(sfmt) == min(sfmt) == 1:
         sfmt = (1,)
@@ -269,13 +276,14 @@ def read_tiff(data: bytes):
     mode, raw = OPEN_INFO[key]
     if comp not in DECODED:
         raise UnsupportedCodec(f"TIFF compression {comp} is not supported")
-    if mode == "LAB":
-        raise UnsupportedCodec("TIFF CIELab: Pillow converts it through LittleCMS, which is not ported")
     if fill == 2:  # the data are bit-reversed below, so the ";R" raw modes read as their plain forms
         if comp != "raw":
             mode, raw = OPEN_INFO[key[:3] + (1,) + key[4:]]
         elif raw.endswith("R"):
             raw = raw[:-1].rstrip(";")
+    if comp == "tiff_jpeg":
+        rgb = _old_jpeg(data, tags, w, h, planar, bps)
+        return mode, np.ascontiguousarray(_orient(rgb, _scalar(tags, 274, 1))), None
     # libtiff hands Pillow YCbCr that JPEG did not code as RGBA (TIFFRGBAImage)
     ycbcr = photo == 6 and comp not in ("raw", "jpeg")
     if photo == 6 and comp == "raw":  # Pillow reads it with its own "RGBX" raw mode: four bytes a pixel
@@ -361,6 +369,8 @@ def read_tiff(data: bytes):
                 else:
                     samples[y0 : y0 + sh, x0 : x0 + sw] = s
     px = _to_mode(samples, raw, mode)
+    if mode == "LAB":  # Pillow's LAB unpacker: a* and b* signed, stored plus 128
+        px = px ^ np.array([0, 128, 128], np.uint8)
     palette = None
     if mode in ("P", "PA"):
         cmap = tags.get(320)
@@ -392,8 +402,12 @@ def _segment_bytes(data, comp, off, count, expect, fill, tags=None, width=0, row
     if fill == 2:
         src = _REVERSE_BITS[src]
     src = np.ascontiguousarray(src)
-    if comp in ("tiff_adobe_deflate", "tiff_deflate", "lzma"):
-        if comp == "lzma":
+    if comp in ("tiff_adobe_deflate", "tiff_deflate", "lzma", "zstd"):
+        if comp == "zstd":
+            from .zstd import decompress
+
+            out = decompress(src.tobytes(), expect)
+        elif comp == "lzma":
             import lzma  # the standard library's; a Python built without it raises ImportError here
 
             try:
@@ -491,6 +505,36 @@ def _ycbcr_to_rgb(blocks: np.ndarray, width: int, rows: int, hs: int, vs: int, t
     g = yv + ((t[3][cb] + t[2][cr]) >> 16)
     b = yv + t[1][cb]
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255)[:rows, :width]
+
+
+def _old_jpeg(data, tags, w, h, planar, bps):
+    """An old-style JPEG TIFF (compression 6) -> RGB [h, w, 3], as Pillow
+    reads it through libtiff: the JPEG stream at JPEGInterchangeFormat, or
+    else the image's one strip, decoded to raw planes; each data unit of
+    the luma sampling (hs x vs luma samples and one Cb and Cr) converted as
+    TIFFRGBAImage converts YCbCr."""
+    from .jpeg import decode_jpeg
+
+    if planar == 2 or tuple(bps) != (8, 8, 8):
+        raise ValueError("TIFF: an old-style JPEG layout libtiff does not read")
+    if 513 in tags:
+        off, count = _scalar(tags, 513), _scalar(tags, 514, len(data))
+    elif 273 in tags and len(tags[273]) == 1 and 279 in tags:
+        off, count = tags[273][0], tags[279][0]
+    else:
+        raise UnsupportedCodec("TIFF: old-style JPEG in several strips without JPEGInterchangeFormat")
+    planes = decode_jpeg(data[off : off + count], color="planes")
+    if len(planes) != 3 or any((ph, pv) != (1, 1) for _, ph, pv in planes[1:]):
+        raise UnsupportedCodec("TIFF: old-style JPEG whose chroma libtiff upsamples inside libjpeg")
+    (y, hs, vs), (cb, _, _), (cr, _, _) = planes
+    if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+        raise ValueError("TIFF: a YCbCr sampling libtiff does not convert")
+    bx, by = -(-w // hs), -(-h // vs)
+    if y.shape[0] < by * vs or y.shape[1] < bx * hs or cb.shape[0] < by or cb.shape[1] < bx:
+        raise ValueError("TIFF: an old-style JPEG stream smaller than the image")
+    units = np.concatenate([y[: by * vs, : bx * hs].reshape(by, vs, bx, hs).transpose(0, 2, 1, 3).reshape(by, bx, -1),
+                            cb[:by, :bx, None], cr[:by, :bx, None]], axis=-1)
+    return _ycbcr_to_rgb(units.reshape(-1), w, h, hs, vs, tags).astype(np.uint8)
 
 
 def _undo_predictor(s: np.ndarray, bits: int, signed: bool) -> np.ndarray:

@@ -48,6 +48,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import zlib
 
 import numpy as np
 
@@ -874,6 +875,148 @@ def ktx2_astc(blocks: bytes, w, h, uastc=False) -> bytes:
 # glTF texture extension of each container's images
 _TEXTURE_EXTENSION = {".dds": "MSFT_texture_dds", ".ktx2": "KHR_texture_basisu",
                       ".webp": "EXT_texture_webp"}
+
+
+def _png_filter(rows: np.ndarray, bpp: int, ft: np.ndarray) -> np.ndarray:
+    """Raw rows [h, stride] uint8 -> filtered rows [h, 1 + stride], row y
+    with filter type ft[y] (0-4), each filter computed from the raw bytes
+    on the rows that use it, all at once."""
+    h, stride = rows.shape
+    out = np.empty((h, stride + 1), np.uint8)
+    out[:, 0] = ft
+    for f in range(5):
+        sel = np.flatnonzero(ft == f)
+        if not len(sel):
+            continue
+        x = rows[sel].astype(np.int16)
+        if f == 0:
+            out[sel, 1:] = rows[sel]
+            continue
+        a = np.zeros_like(x)
+        a[:, bpp:] = x[:, :-bpp]
+        b = rows[sel - 1].astype(np.int16) * (sel > 0)[:, None] if f != 1 else None
+        if f == 1:
+            pred = a
+        elif f == 2:
+            pred = b
+        elif f == 3:
+            pred = (a + b) >> 1
+        else:
+            c = np.zeros_like(x)
+            c[:, bpp:] = b[:, :-bpp]
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        out[sel, 1:] = (x - pred).astype(np.uint8)
+    return out
+
+
+def png_file(samples, bits: int, ctype: int, interlace: bool = False, palette=None, trns: bytes | None = None,
+             filters=0, level: int = 6, before_idat: bytes = b"") -> bytes:
+    """A PNG of any bit depth and colour type PNG allows: samples [h, w,
+    channels] (or [h, w]) of values below 2^bits; colour type 0 gray, 2
+    RGB, 3 palette (palette [n, 3] uint8, PLTE), 4 gray+alpha, 6 RGBA;
+    Adam7 when interlace; trns the tRNS chunk's bytes; filters one type
+    (0-4) or a sequence cycled over each pass's rows; before_idat chunks
+    (whole, with their CRCs) put before the image data."""
+    s = np.asarray(samples)
+    if s.ndim == 2:
+        s = s[..., None]
+    h, w, nsamp = s.shape
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+              (0, 1, 1, 2)) if interlace else ((0, 0, 1, 1),)
+    bpp = max(1, bits * nsamp // 8)
+    cycle = np.atleast_1d(np.asarray(filters, np.int64))
+    data = []
+    for x0, y0, dx, dy in passes:
+        sub = s[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        ph, pw = sub.shape[:2]
+        if bits == 16:
+            rows = sub.astype(">u2").view(np.uint8).reshape(ph, -1)
+        elif bits == 8:
+            rows = sub.astype(np.uint8).reshape(ph, -1)
+        else:
+            fields = np.unpackbits(sub.astype(np.uint8).reshape(ph, pw, 1), axis=2)[..., 8 - bits:]
+            rows = np.packbits(fields.reshape(ph, -1), axis=1)
+        data.append(_png_filter(rows, bpp, cycle[np.arange(ph) % len(cycle)]))
+
+    def chunk(cid, body):
+        return struct.pack(">I", len(body)) + cid + body + struct.pack(">I", zlib.crc32(cid + body) & 0xFFFFFFFF)
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, ctype, 0, 0, int(interlace)))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
+    raw = b"".join(d.tobytes() for d in data)
+    return out + before_idat + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b"")
+
+
+def blp2_file(w, h, encoding, alpha_depth, alpha_encoding, palette: bytes, mip0: bytes, compression=1) -> bytes:
+    """A BLP2 file: the header, mip 0's offset and length, the 1024-byte
+    BGRA palette (present whatever the encoding), mip 0 (indices for
+    encoding 1, DXT blocks for encoding 2 with alpha encoding 0, 1 or 7)."""
+    off = 20 + 128 + len(palette)
+    return (b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha_depth, alpha_encoding, 0, w, h)
+            + struct.pack("<16I", off, *([0] * 15)) + struct.pack("<16I", len(mip0), *([0] * 15)) + palette + mip0)
+
+
+def ftex_file(w, h, fmt, payload: bytes, nformats=1) -> bytes:
+    """An FTEX file of one mip: format 0 (DXT1 blocks) or 1 (RGB bytes)."""
+    head = b"FTEX" + struct.pack("<5i", 1, w, h, 1, nformats) + struct.pack("<2i", fmt, 32)
+    return head + struct.pack("<i", len(payload)) + payload
+
+
+def msp_file(white) -> bytes:
+    """A version 2 ("LinS") Windows Paint file of a bool image [h, w]
+    (True white): each row in packets of up to 128 bytes, a run (0, n,
+    value) where the packet's bytes are equal, else a literal (n, bytes)."""
+    white = np.asarray(white, bool)
+    h, w = white.shape
+    rows = np.packbits(white, axis=1)
+    stride = rows.shape[1]
+    packets = []  # per packet column: (run?, literal bytes [h, n + 1], run bytes [h, 3])
+    for lo in range(0, stride, 128):
+        p = rows[:, lo : lo + 128]
+        n = p.shape[1]
+        lit = np.concatenate([np.full((h, 1), n, np.uint8), p], axis=1)
+        run = np.stack([np.zeros(h, np.uint8), np.full(h, n, np.uint8), p[:, 0]], axis=1)
+        packets.append(((p == p[:, :1]).all(axis=1), lit, run))
+    rowlen = sum(np.where(same, 3, lit.shape[1]) for same, lit, _ in packets)
+    body = b"".join((run[y] if same[y] else lit[y]).tobytes() for y in range(h) for same, lit, run in packets)
+    words = [*struct.unpack("<2H", b"LinS"), w, h, 1, 1, 1, 1, w, h, 0, 0, 0, 0, 0, 0]
+    check = 0
+    for v in words:
+        check ^= v
+    words[12] = check  # the header's words XOR to zero
+    return struct.pack("<16H", *words) + np.asarray(rowlen, "<u2").tobytes() + body
+
+
+def im_rgb_file(img) -> bytes:
+    """An IM file ("RGB image", line-interleaved: each row's R, G and B
+    runs, the bottom row first) of an RGB uint8 image, Pillow's header
+    padded to 512 bytes."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    head = b"Image type: RGB image\r\nImage size (x*y): %d*%d\r\nFile size (no of images): 1\r\n" % (w, h)
+    return head + b"\0" * (511 - len(head)) + b"\x1a" + img[::-1].transpose(0, 2, 1).tobytes()
+
+
+ZSTD_STRIP_BYTES = 196608  # a 2048 x 32, 512 x 128 or 256 x 256 RGB strip
+
+
+def zstd_strip_pattern() -> np.ndarray:
+    """The bytes of tests/data/images/zstd_strip.zst (a Zstandard frame the
+    zstandard package wrote at level 19, with its checksum): integer
+    bands, steps and a hashed texture, so that its literals, matches and
+    repeat offsets are all used, made the same on every machine."""
+    i = np.arange(ZSTD_STRIP_BYTES, dtype=np.int64)
+    x, y, c = (i // 3) % 2048, i // (3 * 2048), i % 3
+    hashed = np.where((x // 64) % 3 == 0, (i * 2654435761) >> 27, 0)
+    v = (x // 16 + y // 4) * 29 + c * 37 + ((x * 7) ^ (y * 13)) % 23 + hashed
+    return (v & 0xFF).astype(np.uint8)
 
 
 def helmet_with_texture(out_dir, data: bytes, filename: str) -> str:

@@ -18,15 +18,17 @@ suffix raises ValueError("unknown file extension"), as Pillow does.
 
 read_image identifies data the way Image.open does, in its order: the
 plugins Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then Image.ID's
-order (CUR, PCX, DCX, ICO, TIFF, PSD, QOI, SGI, SUN, TGA, WEBP, of those the
-port reads), each reader asked when its magic bytes or header checks
-accept the data (TGA has no magic: Pillow's TGA header checks). A reader
-whose header checks fail the way Image.open lets the next plugin try
+order (BLP, CUR, PCX, DCX, FTEX, ICO, IM, TIFF, MSP, PSD, QOI, SGI, SUN,
+TGA, WEBP, XBM, XPM, of those the port reads), each reader asked when its
+magic bytes or header checks accept the data (TGA has no magic: Pillow's
+TGA header checks; IM has no check at all, so every data that reaches it
+is parsed as an IM header, as Pillow parses it). A reader whose header
+checks fail the way Image.open lets the next plugin try
 (ops/imagemodes.PassOn) passes the data on; any other failure refuses it,
 as Image.open raises. Data that no reader claims raise UnsupportedCodec (a
-ValueError), where Image.open raises UnidentifiedImageError. EPS, JPEG 2000,
-AVIF and Pillow's other readers are not ported (ROADMAP A): such data are
-refused.
+ValueError), where Image.open raises UnidentifiedImageError. EPS, JPEG
+2000, AVIF and Pillow's other readers are not ported (ROADMAP A): such
+data are refused.
 """
 
 from __future__ import annotations
@@ -35,12 +37,16 @@ from pathlib import Path
 
 import numpy as np
 
+from ..ops.blp import decode_blp, is_blp
 from ..ops.bmp import decode_bmp, encode_bmp, is_bmp, is_dib
 from ..ops.dds import UnsupportedCodec
+from ..ops.ftex import decode_ftex, is_ftex
 from ..ops.gif import decode_gif, encode_gif, is_gif
 from ..ops.ico import decode_cur, decode_ico, is_cur, is_ico
+from ..ops.im import decode_im
 from ..ops.imagemodes import PassOn
 from ..ops.jpeg import decode_jpeg, encode_jpeg, is_jpeg
+from ..ops.msp import decode_msp, is_msp
 from ..ops.netpbm import decode_netpbm, encode_netpbm, is_netpbm
 from ..ops.pcx import decode_dcx, decode_pcx, is_dcx, is_pcx
 from ..ops.psd import decode_psd, is_psd
@@ -50,16 +56,20 @@ from ..ops.sun import decode_sun, is_sun
 from ..ops.tga import decode_tga, encode_tga, is_tga
 from ..ops.tiff import decode_tiff, encode_tiff, is_tiff
 from ..ops.webp import decode_webp, encode_webp, is_webp
+from ..ops.xbm import decode_xbm, is_xbm
+from ..ops.xpm import decode_xpm, is_xpm
 from .png import is_png, read_png, write_png
 
 # Image.open's order: (Pillow's format name, accept, decode)
 READERS = (
     ("BMP", is_bmp, decode_bmp), ("DIB", is_dib, lambda d: decode_bmp(d, dib=True)), ("GIF", is_gif, decode_gif),
     ("JPEG", is_jpeg, decode_jpeg), ("PPM", is_netpbm, decode_netpbm), ("PNG", is_png, read_png),
-    ("CUR", is_cur, decode_cur), ("PCX", is_pcx, decode_pcx), ("DCX", is_dcx, decode_dcx),
-    ("ICO", is_ico, decode_ico), ("TIFF", is_tiff, decode_tiff), ("PSD", is_psd, decode_psd),
-    ("QOI", is_qoi, decode_qoi), ("SGI", is_sgi, decode_sgi), ("SUN", is_sun, decode_sun), ("TGA", is_tga, decode_tga),
-    ("WEBP", is_webp, decode_webp),
+    ("BLP", is_blp, decode_blp), ("CUR", is_cur, decode_cur), ("PCX", is_pcx, decode_pcx),
+    ("DCX", is_dcx, decode_dcx), ("FTEX", is_ftex, decode_ftex), ("ICO", is_ico, decode_ico),
+    ("IM", lambda d: True, decode_im), ("TIFF", is_tiff, decode_tiff), ("MSP", is_msp, decode_msp),
+    ("PSD", is_psd, decode_psd), ("QOI", is_qoi, decode_qoi), ("SGI", is_sgi, decode_sgi), ("SUN", is_sun, decode_sun),
+    ("TGA", is_tga, decode_tga), ("WEBP", is_webp, decode_webp), ("XBM", is_xbm, decode_xbm),
+    ("XPM", is_xpm, decode_xpm),
 )
 
 _ENCODERS = {
