@@ -14,10 +14,13 @@ lossless (subsampled too) and CMYK/YCCK JPEG through
 tests/torch_test_helpers.py's encoders; PSD, SGI RLE, PCX bit planes, DCX,
 icons and cursors with DIB images, QOI ops, Sun raster; PNG at every
 depth, Adam7 and 16-bit RGB; ZSTD, old-style JPEG and CIELab TIFF, Lab
-PSD; BLP, FTEX, XBM, XPM, MSP and IM). Some are files
+PSD; BLP, FTEX, XBM, XPM, MSP and IM; IM's YCC, planar and bit-decoded
+types, BLP1 CMYK JPEG, IPTC, PIXAR, SPIDER, FITS, McIDAS, GBR, PhotoCD,
+FLI/FLC, XV thumbnails, IM Tools and ICNS). Some are files
 Pillow refuses, EPS among them (Pillow needs Ghostscript to load it). digests.json holds, for each file, the shape and
 sha256 of Pillow's decode (Image.open(f).convert("RGBA") as uint8 bytes),
-or that Pillow refuses it, so that the port can be held to Pillow where
+or that Pillow refuses it (and, under "divergences", the files Pillow
+decodes that the port does not read yet), so that the port can be held to Pillow where
 Pillow is absent (chip_smoke.py's phase 22); tests/test_torch_images.py
 holds it to Pillow itself.
 
@@ -1513,6 +1516,232 @@ def im() -> dict:
     return out
 
 
+def im_repaired() -> dict:
+    """IM types Pillow reads that the port refused before: YCC (Pillow's
+    YCbCr), the planar RGB3 and RYB3, "L*j" widths its bit decoder reads,
+    "L 32 F"; refused: bit-decoded data cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import im_bits, im_file
+
+    w, h = 19, 13
+    rng = np.random.default_rng(175)
+    ycc = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    rgb = smooth(w, h, 176)
+    out = {"im_ycc.im": im_file(b"YCC", w, h, ycc[::-1].transpose(0, 2, 1).tobytes())}
+    planes = np.stack([rgb[..., 1], rgb[..., 0], rgb[..., 2]])[:, ::-1]  # G, R, B, each bottom row first
+    out["im_rgb3.im"] = im_file(b"RGB3", w, h, planes.tobytes())
+    out["im_ryb3.im"] = im_file(b"RYB3", w, h, planes.tobytes())
+    for bits in (2, 4, 12, 27):
+        vals = rng.integers(0, 1 << bits, (h, w), dtype=np.uint64) if bits > 4 else indices(w, h, 1 << bits, 177 + bits)
+        out[f"im_bits{bits}.im"] = im_file(b"L*%d" % bits, w, h, im_bits(vals, bits))
+    out["im_l32_f.im"] = im_file(b"L 32 F", w, h, (rgb[..., 0].astype("<u4") * 3)[::-1].tobytes())
+    out["im_refused_bits_truncated.im"] = out["im_bits12.im"][:-30]
+    return out
+
+
+def blp_cmyk() -> dict:
+    """BLP1 JPEG in CMYK: Pillow decodes it with the jpeg mode "CMYK" (no
+    YCCK conversion, still inverted): a YCCK stream (Adobe transform 2) and
+    Pillow's own CMYK JPEG."""
+    w, h = 16, 8
+    out = {}
+    b = io.BytesIO()
+    Image.fromarray(smooth(w, h, 124, 4), "CMYK").save(b, "JPEG", quality=90)
+    ycck = jpeg()["jpeg_ycck_adobe2.jpg"]
+    for name, jp in (("blp1_jpeg_cmyk.blp", b.getvalue()), ("blp1_jpeg_ycck.blp", ycck)):
+        im = Image.open(io.BytesIO(jp))
+        sos = jp.index(b"\xff\xda")
+        body = struct.pack("<I", sos) + jp[:sos]
+        out[name] = blp1(im.size[0], im.size[1], 0, 0, 0, body + jp[sos:], 156 + len(body), len(jp) - sos)
+    return out
+
+
+def iptc() -> dict:
+    """IPTC records: raw gray, raw into band 2 of RGB and band 1 of CMYK,
+    gray JPEG, data in several (8, 10) fields; refused: an unknown
+    compression, a colour JPEG in a band, data cut short."""
+    from vk_gltf_renderer_tpu_torch.ops.jpeg import encode_jpeg
+    from vk_gltf_renderer_tpu_torch.scenes import iptc_file
+
+    w, h = 19, 13
+    g = smooth(w, h, 180)[..., 0]
+    out = {"iptc_raw_gray.iim": iptc_file(w, h, g.tobytes()),
+           "iptc_raw_rgb_band2.iim": iptc_file(w, h, g.tobytes(), 3, 1, 1, band=2),
+           "iptc_raw_cmyk_band1.iim": iptc_file(w, h, g.tobytes(), 4, 1, 1, band=1),
+           "iptc_raw_rgb_first_band.iim": iptc_file(w, h, g.tobytes(), 3, 1, 1),
+           "iptc_jpeg_gray.iim": iptc_file(w, h, encode_jpeg(g), 1, 0, 5)}
+    big = smooth(200, 180, 181)[..., 1]
+    out["iptc_raw_two_fields.iim"] = iptc_file(200, 180, big.tobytes())
+    out["iptc_refused_compression.iim"] = iptc_file(w, h, g.tobytes(), compression=3)
+    out["iptc_refused_colour_jpeg_band.iim"] = iptc_file(w, h, encode_jpeg(smooth(w, h, 182)), 3, 1, 5, band=1)
+    out["iptc_refused_truncated.iim"] = out["iptc_raw_gray.iim"][:-40]
+    return out
+
+
+def pixar_spider() -> dict:
+    """PIXAR (RGB, layout 14/2) and SPIDER (big- and little-endian, and
+    Pillow's own); refused: data cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import pixar_file, spider_file
+
+    w, h = 19, 13
+    out = {"pixar_rgb.pxr": pixar_file(smooth(w, h, 185))}
+    out["pixar_refused_truncated.pxr"] = out["pixar_rgb.pxr"][:-50]
+    f = (smooth(w, h, 186)[..., 0].astype(np.float32) * 1.7 - 60).astype(np.float32)
+    out["spider_big_endian.spi"] = spider_file(f)
+    out["spider_little_endian.spi"] = spider_file(f, big_endian=False)
+    out["spider_pillow.spi"] = pillow(Image.fromarray(f, "F"), "SPIDER")
+    out["spider_refused_truncated.spi"] = out["spider_big_endian.spi"][:-20]
+    return out
+
+
+def fits() -> dict:
+    """FITS: BITPIX 8, 16, 32, -32, -64 (big-endian, as the standard stores
+    them; Pillow reads them with its little-endian raw modes), one NAXIS,
+    tile-compressed GZIP_1 of 8, 16 and 32 bits; refused: GZIP_1 of float
+    samples, a header without an image, data cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import fits_file
+
+    w, h = 19, 13
+    g = smooth(w, h, 190)[..., 0].astype(np.int64)
+    out = {"fits_8.fits": fits_file(g, 8), "fits_16.fits": fits_file(g * 3 + 7, 16),
+           "fits_32.fits": fits_file(g * 5 - 100, 32), "fits_float32.fits": fits_file(g * 1.5 - 10, -32),
+           "fits_float64.fits": fits_file(g * 0.5, -64), "fits_naxis1.fits": fits_file(g[:1], 8)}
+    out["fits_naxis1.fits"] = out["fits_naxis1.fits"].replace(b"NAXIS   = 2", b"NAXIS   = 1")
+    for bits in (8, 16, 32):
+        out[f"fits_gzip_{bits}.fits"] = fits_file(g * (1 if bits == 8 else 300), bits, gzip_tile=True)
+    out["fits_refused_gzip_float.fits"] = fits_file(g, -32, gzip_tile=True)
+    out["fits_refused_no_image.fits"] = fits_file(g, 8, gzip_tile=True)[:2880]
+    out["fits_refused_truncated.fits"] = fits_file(g, 16)[: 2880 + 200]
+    return out
+
+
+def mcidas_gbr() -> dict:
+    """McIDAS areas of 1, 2 (with a row prefix) and 4 bytes a sample; GIMP
+    brushes v1 gray, v2 gray and RGBA; refused: a stride shorter than a
+    row, a brush cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import gbr_file, mcidas_file
+
+    w, h = 19, 13
+    g = smooth(w, h, 195)[..., 0].astype(np.int64)
+    out = {"mcidas_l.area": mcidas_file(g, 1), "mcidas_i16_prefix.area": mcidas_file(g * 257, 2, prefix=3),
+           "mcidas_i32.area": mcidas_file(g * 3 - 200, 4)}
+    bad = bytearray(out["mcidas_l.area"])
+    struct.pack_into(">i", bad, 4 * 14, -5)  # word 15: a negative prefix, the stride shorter than a row
+    out["mcidas_refused_stride.area"] = bytes(bad)
+    out["gbr_v1_gray.gbr"] = gbr_file(g.astype(np.uint8), 1)
+    out["gbr_v2_gray.gbr"] = gbr_file(g.astype(np.uint8), 2)
+    out["gbr_v2_rgba.gbr"] = gbr_file(smooth(w, h, 196, 4), 2)
+    out["gbr_refused_truncated.gbr"] = out["gbr_v2_rgba.gbr"][:-30]
+    return out
+
+
+def pcd() -> dict:
+    """PhotoCD base images turned 0, 90 and 270 degrees (smooth planes, so
+    that git stores them small); refused: data cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import pcd_file
+
+    y = smooth(768, 512, 200)[..., 0]
+    c = smooth(384, 256, 201, 2)
+    out = {f"pcd_{deg}.pcd": pcd_file(y, c[..., 0], c[..., 1], o) for deg, o in ((0, 0), (90, 1), (270, 3))}
+    out["pcd_refused_truncated.pcd"] = out["pcd_0.pcd"][:300000]
+    return out
+
+
+def fli_lc(rows: dict, y0: int, n: int) -> bytes:
+    """An LC chunk payload: lines y0 .. y0 + n - 1, each a list of packets
+    (skip, run value or literal bytes)."""
+    body = struct.pack("<HH", y0, n)
+    for y in range(y0, y0 + n):
+        packets = rows.get(y, [])
+        body += bytes([len(packets)])
+        for skip, v in packets:
+            body += bytes([skip]) + (bytes([256 - v[1], v[0]]) if isinstance(v, tuple) else bytes([len(v)]) + v)
+    return body
+
+
+def fli() -> dict:
+    """FLI (COLOR 11, BRUN) and FLC (COLOR 4; BRUN, COPY, BLACK and LC,
+    BRUN and SS2 with skipped lines, a last-byte word, word runs and
+    literals, PSTAMP); refused: an unknown chunk, a frame cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import fli_brun, fli_chunk, fli_file, fli_palette
+
+    w, h = 19, 13
+    rng = np.random.default_rng(205)
+    idx = indices(w, h, 200, 206)
+    pal = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    pal64 = rng.integers(0, 64, (256, 3), dtype=np.uint8) << 2
+    col = fli_chunk(4, fli_palette(pal))
+    out = {"fli_brun_color64.fli": fli_file(w, h, [fli_chunk(11, fli_palette(pal64, 2)), fli_chunk(15, fli_brun(idx))],
+                                            0xAF11),
+           "flc_brun.flc": fli_file(w, h, [col, fli_chunk(15, fli_brun(idx))]),
+           "flc_pstamp_copy.flc": fli_file(w, h, [col, fli_chunk(18, bytes(range(40))), fli_chunk(16, idx.tobytes())])}
+    lc = fli_lc({2: [(1, (7, 5)), (2, b"abcdefg")], 3: [(0, bytes(range(19)))], 6: [(4, (9, 15))],
+                 8: [(18, b"z")]}, 2, 8)
+    out["flc_black_lc.flc"] = fli_file(w, h, [col, fli_chunk(16, idx.tobytes()), fli_chunk(13, b""), fli_chunk(12, lc)])
+    ss2 = struct.pack("<H", 3)
+    ss2 += struct.pack("<HH", 0x10000 - 2, 0x8000 | 0x5A) + struct.pack("<H", 2) + bytes([1, 256 - 3, 0x11, 0x22])
+    ss2 += bytes([2, 2]) + b"wxyz"  # line 2: skip 2 lines, the last byte 0x5A, a run of 3 words, 2 literal words
+    ss2 += struct.pack("<H", 1) + bytes([0, 9]) + bytes(range(100, 118))  # line 3: 9 literal words
+    ss2 += struct.pack("<HH", 0x10000 - 4, 1) + bytes([5, 256 - 2, 0xAB, 0xCD])  # line 8: a run of 2 words after 5
+    out["flc_brun_ss2.flc"] = fli_file(w, h, [col, fli_chunk(15, fli_brun(idx)), fli_chunk(7, ss2)])
+    out["fli_refused_unknown_chunk.flc"] = fli_file(w, h, [col, fli_chunk(99, bytes(8))])
+    out["fli_refused_truncated.flc"] = out["flc_brun.flc"][:-40]
+    return out
+
+
+def xvthumb_imt() -> dict:
+    """XV thumbnails (3-3-2 indices, comment lines) and IM Tools gray;
+    refused: data cut short."""
+    from vk_gltf_renderer_tpu_torch.scenes import imt_file, xvthumb_file
+
+    w, h = 19, 13
+    out = {"xvthumb_332.xv": xvthumb_file(indices(w, h, 256, 210)), "imt_gray.imt": imt_file(smooth(w, h, 211)[..., 0])}
+    out["xvthumb_refused_truncated.xv"] = out["xvthumb_332.xv"][:-25]
+    out["imt_refused_truncated.imt"] = out["imt_gray.imt"][:-25]
+    return out
+
+
+def icns() -> dict:
+    """ICNS: is32 RLE with its s8mk mask beside il32 + l8mk (the larger
+    picked), it32 with its prefix and t8mk, raw ih32, an ic07 PNG entry
+    beside it32; refused: RLE that passes its channel; a JPEG 2000 entry
+    (an open divergence: Pillow decodes it, the port does not yet)."""
+    from vk_gltf_renderer_tpu_torch.scenes import icns_file, icns_rle, png_file
+
+    def rle(img):
+        return b"".join(icns_rle(img[..., k]) for k in range(3))
+
+    i16, i32, i48, i128 = smooth(16, 16, 215), smooth(32, 32, 216), smooth(48, 48, 217), smooth(128, 128, 218)
+    i16[:, 4:12] = 9  # runs
+    m16, m32 = smooth(16, 16, 219)[..., 0], smooth(32, 32, 220)[..., 0]
+    out = {"icns_is32_mask.icns": icns_file([(b"is32", rle(i16)), (b"s8mk", m16.tobytes())]),
+           "icns_il32_over_is32.icns": icns_file([(b"is32", rle(i16)), (b"s8mk", m16.tobytes()), (b"il32", rle(i32)),
+                                                  (b"l8mk", m32.tobytes())]),
+           "icns_it32_mask.icns": icns_file([(b"it32", bytes(4) + rle(i128)), (b"t8mk", i128[..., 1].tobytes())]),
+           "icns_ih32_raw.icns": icns_file([(b"ih32", i48.tobytes())]),
+           "icns_ic07_png.icns": icns_file([(b"it32", bytes(4) + rle(i128)),
+                                            (b"ic07", png_file(smooth(128, 128, 221, 4), 8, 6))])}
+    bad = bytearray(rle(i16))
+    bad[0] = 0xFF  # a run of 130 into a channel that holds fewer
+    out["icns_refused_bad_rle.icns"] = icns_file([(b"is32", bytes(bad))])
+    return out
+
+
+def icns_divergences() -> dict:
+    b = io.BytesIO()
+    Image.fromarray(smooth(32, 32, 222)).save(b, "JPEG2000")
+    from vk_gltf_renderer_tpu_torch.scenes import icns_file
+
+    return {"icns_jpeg2000.icns": icns_file([(b"ic11", b.getvalue())])}
+
+
+def stubs() -> dict:
+    """Formats Pillow identifies and cannot load: BUFR, GRIB and HDF5 (no
+    handler) and MPEG (no loader)."""
+    return {"bufr_refused.bufr": b"BUFR" + bytes(60), "grib_refused.grib": b"GRIB\0\0\0\x01" + bytes(60),
+            "hdf5_refused.h5": b"\x89HDF\r\n\x1a\n" + bytes(60),
+            "mpeg_refused.mpg": b"\x00\x00\x01\xb3\x01\x40\xf0\x13" + bytes(60)}
+
+
 def eps() -> dict:
     """EPS: Pillow opens it and needs Ghostscript to load it; without
     Ghostscript both packages refuse it."""
@@ -1523,17 +1752,20 @@ def eps() -> dict:
 def fixtures() -> dict:
     return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **libtiff(), **libtiff_lab_zstd_ojpeg(), **jpeg(), **psd(),
             **sgi(), **pcx(), **ico(), **qoi(), **sun(), **png(), **blp(), **ftex(), **xbm(), **xpm(), **msp(), **im(),
-            **eps()}
+            **eps(), **im_repaired(), **blp_cmyk(), **iptc(), **pixar_spider(), **fits(), **mcidas_gbr(), **pcd(),
+            **fli(), **xvthumb_imt(), **icns(), **stubs()}
 
 
 def main():
-    digests = {"pillow": Image.__version__, "files": {}}
+    digests = {"pillow": Image.__version__, "files": {}, "divergences": {}}
     for old in HERE.iterdir():
         if old.suffix in (".bmp", ".dib", ".tga", ".gif", ".tif", ".ppm", ".pgm", ".pbm", ".pfm", ".pam", ".jpg", ".psd",
                           ".sgi", ".rgb", ".bw", ".pcx", ".dcx", ".ico", ".cur", ".qoi", ".ras", ".eps", ".png", ".blp",
-                          ".ftc", ".ftu", ".xbm", ".xpm", ".msp", ".im"):
+                          ".ftc", ".ftu", ".xbm", ".xpm", ".msp", ".im", ".iim", ".pxr", ".spi", ".fits", ".area",
+                          ".gbr", ".pcd", ".fli", ".flc", ".xv", ".imt", ".icns", ".bufr", ".grib", ".h5", ".mpg"):
             old.unlink()
-    for group, files in (("files", fixtures()),):
+    # "divergences": files Pillow decodes and the port refuses until it reads their codec (ROADMAP C)
+    for group, files in (("files", fixtures()), ("divergences", icns_divergences())):
         for name, data in files.items():
             (HERE / name).write_bytes(data)
             try:

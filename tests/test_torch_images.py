@@ -1,8 +1,10 @@
 """The port's image codecs (ops/bmp.py, ops/tga.py, ops/gif.py, ops/tiff.py,
 ops/netpbm.py, ops/psd.py, ops/sgi.py, ops/pcx.py, ops/ico.py, ops/qoi.py,
 ops/sun.py, ops/blp.py, ops/ftex.py, ops/xbm.py, ops/xpm.py, ops/msp.py,
-ops/im.py over native/image_coders.cpp, and ops/imagemodes.py) against
-Pillow 12.1.0 and the JAX package, on the CPU.
+ops/im.py, ops/iptc.py, ops/pixar.py, ops/spider.py, ops/fits.py,
+ops/mcidas.py, ops/gbr.py, ops/pcd.py, ops/fli.py, ops/xvthumb.py,
+ops/imt.py, ops/icns.py, ops/stubs.py over native/image_coders.cpp, and
+ops/imagemodes.py) against Pillow 12.1.0 and the JAX package, on the CPU.
 
 - Every committed fixture of tests/data/images decodes in the port's
   texture decode_image bit for bit as in the JAX package's (which reads
@@ -11,7 +13,15 @@ Pillow 12.1.0 and the JAX package, on the CPU.
   packages refuse it, and both texture pools make it 1x1 white. The
   fixtures cover the TIFF forms Pillow reads through libtiff's ZSTD and
   old-style JPEG codecs, CIELab TIFF and Lab PSD, PNG beyond 8-bit gray
-  and colour, and BLP, FTEX, XBM, XPM, MSP and IM.
+  and colour, BLP (CMYK JPEG too), FTEX, XBM, XPM, MSP, IM (YCC, planar
+  and bit-decoded types too), IPTC, PIXAR, SPIDER, FITS, McIDAS, GBR,
+  PhotoCD, FLI/FLC, XV thumbnails, IM Tools and ICNS; BUFR, GRIB, HDF5 and
+  MPEG are white in both. ICNS's JPEG 2000 entry is the one open
+  divergence: Pillow decodes it, the port does not yet.
+- Every TIFF and JPEG fixture, cut at a quarter, a half and three
+  quarters, with a strip cut short, a tag past the end or its EOI
+  dropped, is white in both texture decoders or decodes to the same
+  pixels (libtiff's and libjpeg's recoveries).
 - Identification follows Image.open, in its order: data that no reader
   claims, TGA headers that fail Pillow's checks, TGA headers that PCX,
   CUR or ICO claim first, data IM's header parser takes or passes on, and
@@ -20,8 +30,10 @@ Pillow 12.1.0 and the JAX package, on the CPU.
   the port names is Pillow's.
 - Pillow's mode conversions (convert("RGBA") from 1, L, I, I;16, F, P with
   short palettes and transparency, PA, LA, RGB with transparency, CMYK)
-  equal ops/imagemodes.to_rgba on seeded arrays, and its LAB to RGB
-  (LittleCMS) equals ops/imagemodes.lab_to_rgb on all 2^24 LAB pixels.
+  equal ops/imagemodes.to_rgba on seeded arrays, its LAB to RGB
+  (LittleCMS) equals ops/imagemodes.lab_to_rgb on all 2^24 LAB pixels,
+  and its YCbCr to RGB ops/imagemodes.ycbcr_to_rgb on all 2^24 YCbCr
+  pixels.
 - write_image writes BMP, DIB, TGA, TIFF and Netpbm byte for byte as
   Image.fromarray(a).save(path), for every array shape it takes; its GIF
   decodes to Pillow's GIF's pixels for images of at most 256 colours, and
@@ -31,7 +43,8 @@ Pillow 12.1.0 and the JAX package, on the CPU.
   the shell alive, as the reference's shell does.
 - A glTF whose base colour is BMP, TGA, TIFF, GIF, PPM, PSD, SGI, PCX,
   DCX, ICO, CUR, QOI, Sun raster, subsampled lossless JPEG, an Adam7
-  palette PNG, a DXT5 BLP or an old-style JPEG TIFF renders 48x32
+  palette PNG, a DXT5 BLP, an old-style JPEG TIFF, FITS, FLC, PhotoCD
+  or ICNS renders 48x32
   frames that agree with the JAX renderer's at tests/test_torch_frame.py's
   thresholds, and headless --output writes each suffix, read back equal to
   the PNG output.
@@ -121,7 +134,9 @@ def test_fixture_decodes_as_the_jax_package(name):
 
 
 @pytest.mark.parametrize("fmt", ["bmp", "tga", "gif", "tiff", "ppm", "psd", "sgi", "pcx", "ico", "cur", "qoi", "sun",
-                                 "eps", "png", "blp", "ftex", "xbm", "xpm", "msp", "im"])
+                                 "eps", "png", "blp", "ftex", "xbm", "xpm", "msp", "im", "iptc", "pixar", "spider",
+                                 "fits", "mcidas", "gbr", "pcd", "fli", "xvthumb", "imt", "icns", "bufr", "grib", "hdf5",
+                                 "mpeg"])
 def test_refused_fixtures_load_white_in_both_packages(fmt, tmp_path):
     names = sorted(n for n, e in DIGESTS["files"].items() if n.startswith(fmt + "_") and "refused" in e)
     assert names
@@ -188,6 +203,26 @@ IDENTIFY = {
     "im_size_one_number": b"Image size (x*y): 4\n\x1a" + bytes(16),
     "im_lut_cut_short": b"Image type: L image\nImage size (x*y): 2*2\nLut: 1\n\x1a" + bytes(100),
     "im_colon_in_binary": b"A:\x80\x81\n\x00" + bytes(8),
+    # the readers Pillow registers without a magic check (IMT, IPTC, PCD, SPIDER) and the loose GBR accept: data
+    # their open cannot parse pass on, as Pillow's do
+    "gbr_loose_accept_zero_width": struct.pack(">5I", 28, 2, 0, 4, 1) + b"GIMP" + bytes(40),
+    "gbr_loose_accept_depth_3": struct.pack(">5I", 20, 1, 4, 4, 3) + bytes(48),
+    "gbr_v2_no_magic": struct.pack(">5I", 28, 2, 4, 4, 1) + b"PMIG" + bytes(40),
+    "spider_floats_not_a_header": np.arange(27, dtype=">f4").tobytes() + bytes(64),
+    "spider_header_not_2d": np.array([1, 2, 2, 0, 3, 0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 8, 8, 0, 0, 0, 0],
+                                     ">f4").tobytes() + bytes(64),
+    "imt_text_no_fields": b"hello\nworld\n" + bytes(20),
+    "imt_width_without_pixel": b"width 4\nheight 2\n\x0c" + bytes(8),
+    "iptc_bad_record": bytes([0x1C, 10, 5, 0, 2]) + bytes(10),
+    "iptc_no_layers": bytes([0x1C, 3, 20, 0, 2, 0, 4]) + bytes([0x1C, 8, 10, 0, 4]) + bytes(4),
+    "pcd_no_magic": bytes(4000),
+    "fli_reserved_bytes_set": struct.pack("<IHHHHHHI", 200, 0xAF12, 1, 4, 4, 8, 3, 5) + b"\x01" * 108 + bytes(72),
+    "xvthumb_eof_in_comments": b"P7 332\n#only a comment\n",
+    "fits_value_not_t": b"SIMPLE  =                    F".ljust(80) + bytes(2800),
+    "mcidas_short_directory": b"\x00\x00\x00\x00\x00\x00\x00\x04" + bytes(100),
+    "pixar_other_layout": b"\x80\xe8\x00\x00" + bytes(412) + struct.pack("<HHHHHH", 4, 4, 0, 0, 14, 3) + bytes(700),
+    "icns_bad_block_size": b"icns" + struct.pack(">I", 40) + b"is32" + struct.pack(">I", 0) + bytes(24),
+    "mpeg_zero_size": b"\x00\x00\x01\xb3\x00\x00\x00" + bytes(20),
     # sizes refused before anything is allocated: past Pillow's decompression-bomb limit, or coded data too short
     "qoi_past_bomb_limit": b"qoif" + struct.pack(">IIBB", 20000, 20000, 4, 0) + bytes(10),
     "sun_rle_past_bomb_limit": (0x59A66A95).to_bytes(4, "big") + struct.pack(">7I", 30000, 30000, 8, 8, 2, 0, 0)
@@ -311,6 +346,147 @@ def test_mode_conversions_match_pillow(case):
     assert np.array_equal(to_rgba(mode, px if mode != "1" else np.asarray(im, np.uint8) * 255, palette, trns), ref)
 
 
+def test_ycbcr_conversion_matches_pillow_on_every_pixel():
+    """All 2^24 YCbCr pixels in one 4096x4096 image: Pillow's
+    convert("RGB") (ConvertYCbCr.c's fixed-point tables) and
+    ops/imagemodes.ycbcr_to_rgb agree bit for bit."""
+    from vk_gltf_renderer_tpu_torch.ops.imagemodes import ycbcr_to_rgb
+
+    v = np.arange(1 << 24, dtype=np.uint32)
+    raw = np.stack([v >> 16, (v >> 8) & 255, v & 255], axis=-1).astype(np.uint8)
+    del v
+    ref = np.asarray(PIL_Image.frombytes("YCbCr", (4096, 4096), raw.tobytes()).convert("RGB")).reshape(-1, 3)
+    got = ycbcr_to_rgb(raw)
+    assert got.shape == ref.shape and np.array_equal(got, ref)
+
+
+def test_photo_ycc_matches_pillow():
+    """A PhotoCD base image of random luma and chroma: Pillow's PhotoYCC
+    unpacker and ops/pcd.py agree on every pixel (the fixtures' planes are
+    smooth)."""
+    rng = np.random.default_rng(23)
+    data = scenes.pcd_file(rng.integers(0, 256, (512, 768), dtype=np.uint8),
+                           rng.integers(0, 256, (256, 384), dtype=np.uint8),
+                           rng.integers(0, 256, (256, 384), dtype=np.uint8))
+    assert np.array_equal(_rgba(read_image(data)), _pillow_rgba(data))
+
+
+def test_icns_jpeg2000_entry_is_an_open_divergence():
+    """An ICNS whose only entry is JPEG 2000: Pillow (built with OpenJPEG)
+    decodes it to its digest, the port raises UnsupportedCodec until it
+    reads JPEG 2000 (ROADMAP C), so its texture is white in the port."""
+    from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec
+
+    for name, entry in DIGESTS["divergences"].items():
+        data = (FIXTURES / name).read_bytes()
+        ref = _pillow_rgba(data)
+        assert list(ref.shape) == entry["shape"] and hashlib.sha256(ref.tobytes()).hexdigest() == entry["sha256"]
+        with pytest.raises(UnsupportedCodec, match="JPEG 2000"):
+            read_image(data)
+
+
+# ------------------------------------------------------------ damaged TIFF and JPEG data
+
+
+def _ifd_entries(data):
+    """(entry position, tag, type, count) of a TIFF's first directory, and its byte order and BigTIFF flag."""
+    bo = "<" if data[:2] == b"II" else ">"
+    big = data[2:4] in (b"\x2b\x00", b"\x00\x2b")
+    off = struct.unpack_from(bo + ("Q" if big else "I"), data, 8 if big else 4)[0]
+    n = struct.unpack_from(bo + ("Q" if big else "H"), data, off)[0]
+    ent, size = off + (8 if big else 2), 20 if big else 12
+    return bo, big, [(ent + i * size, *struct.unpack_from(bo + "HH", data, ent + i * size),
+                      struct.unpack_from(bo + ("Q" if big else "I"), data, ent + i * size + 4)[0]) for i in range(n)]
+
+
+_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 16: 8, 17: 8, 18: 8}
+
+
+def _strip_cut_short(data):
+    """The first StripByteCounts (or TileByteCounts) value halved."""
+    bo, big, ents = _ifd_entries(data)
+    for e, tag, typ, count in ents:
+        if tag in (279, 325) and typ in (3, 4, 16):
+            fmt = bo + {3: "H", 4: "I", 16: "Q"}[typ]
+            at = e + (12 if big else 8)
+            if _TYPE_SIZE[typ] * count > (8 if big else 4):
+                at = struct.unpack_from(bo + ("Q" if big else "I"), data, at)[0]
+            out = bytearray(data)
+            struct.pack_into(fmt, out, at, struct.unpack_from(fmt, data, at)[0] // 2)
+            return bytes(out)
+    return None
+
+
+def _tag_past_end(data):
+    """The count of the directory's last out-of-line tag grown so that its values run past the end of the file."""
+    bo, big, ents = _ifd_entries(data)
+    last = [(e, typ, count) for e, tag, typ, count in ents
+            if _TYPE_SIZE.get(typ) and _TYPE_SIZE[typ] * count > (8 if big else 4)]
+    if not last:
+        return None
+    e, typ, count = last[-1]
+    out = bytearray(data)
+    struct.pack_into(bo + ("Q" if big else "I"), out, e + 4, count + len(data) // _TYPE_SIZE[typ] + 1)
+    return bytes(out)
+
+
+def _mutations(name, data):
+    """A fixed set of damaged copies: the file cut at 1/4, 1/2 and 3/4; a
+    TIFF's strip cut short and a tag whose values run past the end; a
+    JPEG's end-of-image marker dropped."""
+    out = {f"cut_{k}_4": data[: len(data) * k // 4] for k in (1, 2, 3)}
+    if name.startswith("tiff_"):
+        out["strip_cut_short"], out["tag_past_end"] = _strip_cut_short(data), _tag_past_end(data)
+    else:
+        out["no_eoi"] = data[:-2] if data.endswith(b"\xff\xd9") else None
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def _undamaged_rows(damaged, undamaged):
+    """The rows of Pillow's decode of a damaged CCITT strip before the
+    first row that differs from the undamaged file's decode: libtiff stops
+    there and leaves the strip's later rows unwritten (Pillow shows
+    whatever its buffer held, different from run to run)."""
+    differ = np.flatnonzero((damaged != undamaged).any(axis=(1, 2)))
+    return int(differ[0]) if len(differ) else damaged.shape[0]
+
+
+@pytest.mark.parametrize("name", sorted(n for n in DIGESTS["files"] if n.startswith(("tiff_", "jpeg_"))))
+def test_damaged_data_decodes_or_fails_as_the_jax_package(name):
+    """Every TIFF and JPEG fixture under the fixed mutations: the port's
+    texture decode and the JAX package's both fail (a white texel in both
+    pools), or give the same pixels: libtiff's recoveries (a JPEG strip
+    whose data end early reads as libjpeg reads a scan cut short, YCbCr
+    strips keep what LZW, PackBits or Deflate decoded, libtiff's own strip
+    tags when Pillow's directory reader stops at a tag past the end, a
+    CCITT strip cut short keeps its rows) included. A plain JPEG cut short
+    or without its EOI is refused by both."""
+    from vk_gltf_renderer_tpu.ops.textures import decode_image as jdecode
+    from vk_gltf_renderer_tpu_torch.ops.tiff import CCITT, COMPRESSIONS, _read_ifd
+
+    data = (FIXTURES / name).read_bytes()
+    ccitt = name.startswith("tiff_") and COMPRESSIONS.get(_read_ifd(data)[2].get(259, (1,))[0]) in CCITT
+    cases = _mutations(name, data)
+    assert cases
+    for kind, damaged in cases.items():
+        model = _model(damaged)
+        try:
+            ref = np.asarray(jdecode(model, {"bufferView": 0}))
+        except Exception:  # noqa: BLE001 - whatever Pillow raises, the reference's pool makes the texel white
+            ref = None
+        if ref is None:
+            with pytest.raises(ValueError):
+                ttextures.decode_image(model, {"bufferView": 0})
+            continue
+        got = ttextures.decode_image(model, {"bufferView": 0})
+        assert got.shape == ref.shape, (name, kind)
+        if ccitt and kind == "strip_cut_short":
+            k = _undamaged_rows(_pillow_rgba(damaged), _pillow_rgba(data))
+            assert k > 0 and np.array_equal(got[:k], ref[:k]), (name, kind, k)
+        else:
+            assert np.array_equal(got, ref), (name, kind)
+
+
 def test_lab_conversion_matches_pillow_on_every_pixel():
     """All 2^24 LAB pixels in one 4096x4096 image: Pillow's convert("RGB")
     (LittleCMS's Lab to sRGB transform) and ops/imagemodes.lab_to_rgb agree
@@ -423,7 +599,7 @@ FRAME_FIXTURES = ["bmp_palette8.bmp", "tga_rgb24_rle.tga", "tiff_tiles_lzw.tif",
                   "dcx_one_page.dcx", "ico_bmp24_mask.ico", "cur_bmp8.cur", "qoi_rgb_runs.qoi", "sun_rle_bgr24.ras",
                   "tiff_lzma_rgb.tif", "tiff_group4_300x200.tif", "tiff_ycbcr_22_8.tif",
                   "jpeg_lossless_2x2_interleaved.jpg", "png_palette8_adam7.png", "blp2_dxt5.blp",
-                  "tiff_libtiff_old_jpeg.tif"]
+                  "tiff_libtiff_old_jpeg.tif", "fits_8.fits", "flc_brun.flc", "pcd_90.pcd", "icns_it32_mask.icns"]
 W, H, DEPTH = 48, 32, 5
 
 

@@ -86,7 +86,10 @@ with tempfile.TemporaryDirectory() as d:
                  "tiff_libtiff_lzma.tif", "tiff_thunderscan.tif", "jpeg_lossless_1x2_scans.jpg",
                  "png_palette8_adam7.png", "png_rgb16.png", "tiff_zstd_rgba_level19.tif", "tiff_libtiff_old_jpeg.tif",
                  "tiff_libtiff_cielab.tif", "psd_lab_raw.psd", "blp2_dxt5.blp", "blp1_jpeg_alpha0.blp",
-                 "ftex_dxt1.ftc", "xbm_pillow.xbm", "xpm_one_char.xpm", "msp_v2_rle.msp", "im_pillow_p.im"):
+                 "ftex_dxt1.ftc", "xbm_pillow.xbm", "xpm_one_char.xpm", "msp_v2_rle.msp", "im_pillow_p.im",
+                 "im_ycc.im", "im_bits12.im", "blp1_jpeg_ycck.blp", "iptc_raw_rgb_band2.iim", "pixar_rgb.pxr",
+                 "spider_little_endian.spi", "fits_gzip_16.fits", "mcidas_i16_prefix.area", "gbr_v2_rgba.gbr",
+                 "pcd_270.pcd", "flc_brun_ss2.flc", "xvthumb_332.xv", "imt_gray.imt", "icns_ic07_png.icns"):
         with open(os.path.join("tests", "data", "images", name), "rb") as f:
             data = f.read()
         r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")

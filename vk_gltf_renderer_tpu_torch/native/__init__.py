@@ -126,7 +126,7 @@ def webp_lib():
 
 
 def image_lib():
-    """The LZW, PackBits, RLE, QOI and CCITT coders and the PNG unfilter (image_coders.cpp), built at first
+    """The LZW, PackBits, RLE, QOI, CCITT, bit and FLI coders and the PNG unfilter (image_coders.cpp), built at first
     use (_load_coder: RuntimeError when it cannot be built or loaded)."""
     global _image
     if _image is None:
@@ -146,7 +146,10 @@ def image_lib():
             "vkgr_thunderscan": [_VP, _I64, _I32, _I32, _VP],
             "vkgr_png_unfilter": [_VP, _I64, _I64, _I64, _I32, _VP],
             "vkgr_lab_to_rgb": [_VP, _I32, _VP, _I64, _VP],
-            "vkgr_msp_rle": [_VP, _I64, _VP, _I32, _I32, _VP, _I64, _VP]})
+            "vkgr_msp_rle": [_VP, _I64, _VP, _I32, _I32, _VP, _I64, _VP],
+            "vkgr_bit_decode": [_VP, _I64, _I32, _I32, _I32, _VP],
+            "vkgr_fli_frame": [_VP, _I64, _I32, _I32, _VP],
+            "vkgr_icns_rle": [_VP, _I64, _I64, _VP]})
     return _image
 
 

@@ -33,7 +33,10 @@
 //   vkgr_lab_to_rgb     LittleCMS's TetrahedralInterp16 in the 16-bit
 //                       table of ops/imagemodes.lab_table (Pillow's LAB to
 //                       RGB),
-//   vkgr_msp_rle        Pillow's MspDecoder (version 2 Windows Paint rows).
+//   vkgr_msp_rle        Pillow's MspDecoder (version 2 Windows Paint rows),
+//   vkgr_bit_decode     Pillow's BitDecode.c as IM's "L*j" types call it,
+//   vkgr_fli_frame      Pillow's FliDecode.c (one FLI/FLC frame's chunks),
+//   vkgr_icns_rle       IcnsImagePlugin.read_32's three RLE channels.
 //
 // Exported C ABI: every function returns 0 on success and < 0 on corrupt
 // or short data (the Python side raises ValueError).
@@ -329,7 +332,9 @@ int vkgr_tiff_lzw(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
 }
 
 // PackBits: decode src into exactly cap bytes (a run past the end is cut
-// short, as libtiff discards it). -1: the data end first.
+// short, as libtiff discards it). -1: the data end first; what was decoded
+// stays in dst, a literal the data cut short not copied (libtiff's
+// PackBitsDecode stops before it).
 int vkgr_packbits(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
   int64_t pos = 0, out = 0;
   while (out < cap) {
@@ -337,13 +342,8 @@ int vkgr_packbits(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
     int b = int8_t(src[pos++]);
     if (b >= 0) {
       int64_t cnt = b + 1;
-      if (pos + cnt > n) {
-        int64_t have = n - pos;
-        int64_t t = have < cap - out ? have : cap - out;
-        std::memcpy(dst + out, src + pos, t);
-        return -1;
-      }
       int64_t t = cnt < cap - out ? cnt : cap - out;
+      if (pos + t > n) return -1;
       std::memcpy(dst + out, src + pos, t);
       out += t;
       pos += cnt;
@@ -867,24 +867,36 @@ int vkgr_qoi_decode(const uint8_t* src, int64_t n, int64_t npix, int32_t bands, 
 // 2-D rows against the row before, the first against a white row). dst gets
 // h rows of (w + 7) / 8 bytes, black runs as 1 bits, as libtiff hands them
 // to Pillow. -1: a bad code, a code libtiff would refuse (uncompressed
-// mode), or the data end before the last row.
+// mode), or the data end in the strip's first row (in any row of modified
+// Huffman data). 1: the data end in a later row of T.4 or T.6 data, which
+// libtiff takes for a badly terminated strip: that row's
+// runs so far, white to its end (CLEANUP_RUNS), the rows after it zero
+// (libtiff does not write them).
 int vkgr_ccitt(const uint8_t* src, int64_t n, int32_t w, int32_t h, int32_t compression, int32_t t4options,
                uint8_t* dst) {
   if (w <= 0 || h <= 0) return -1;
   FaxBits br{src, n};
   std::vector<int> ref{w, w}, cur;
   const int64_t rowbytes = (w + 7) / 8;
+  std::memset(dst, 0, size_t(rowbytes) * h);
+  auto ended = [&](int y) {  // the data end in row y
+    if (y == 0 || compression == 2) return -1;  // Fax3DecodeRLE fails a strip cut short
+    if (cur.size() & 1) cur.push_back(cur.back());  // CLEANUP_RUNS: the rest of the row white
+    fax_fill(cur, w, dst + y * rowbytes);
+    return 1;
+  };
   for (int y = 0; y < h; ++y) {
     bool ok;
+    cur.clear();
     if (compression == 2) {
       ok = fax_row_1d(br, w, cur);
       br.pos = (br.pos + 7) & ~int64_t(7);
     } else if (compression == 3) {
-      if (!br.sync_eol()) return -1;
+      if (!br.sync_eol()) return ended(y);
       bool two_d = false;
       if (t4options & 1) {
         int b = br.bit();
-        if (b < 0) return -1;
+        if (b < 0) return ended(y);
         two_d = b == 0;
       }
       ok = two_d ? fax_row_2d(br, w, ref, cur) : fax_row_1d(br, w, cur);
@@ -893,7 +905,7 @@ int vkgr_ccitt(const uint8_t* src, int64_t n, int32_t w, int32_t h, int32_t comp
     } else {
       return -1;
     }
-    if (!ok) return -1;
+    if (!ok) return br.pos >= n * 8 ? ended(y) : -1;
     fax_fill(cur, w, dst + y * rowbytes);
     ref = cur;
     ref.push_back(w);
@@ -1105,6 +1117,223 @@ int vkgr_msp_rle(const uint8_t* src, int64_t n, const uint16_t* rowmap, int32_t 
     pos += len;
   }
   *out_len = o;
+  return 0;
+}
+
+// Pillow's BitDecode.c with IM's arguments (bits, pad 8, fill 3, unsigned,
+// ystep -1): bytes fill the bit buffer from its low end and each sample is
+// the buffer's low `bits` bits; at the end of a row the bit count restarts
+// (the byte's unread bits stay in the buffer and are ORed into the next
+// row's first bytes, as in Pillow). out gets h rows of w float32, the
+// bottom row first. -1: the data end before the last row (Pillow's
+// "image file is truncated").
+int vkgr_bit_decode(const uint8_t* src, int64_t n, int32_t bits, int32_t w, int32_t h, float* out) {
+  if (bits < 1 || bits >= 32 || w <= 0 || h <= 0) return -1;
+  const uint64_t mask = (uint64_t(1) << bits) - 1;
+  uint64_t buf = 0;
+  int cnt = 0;
+  int64_t y = h - 1, x = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const uint64_t byte = src[i];
+    buf |= byte << cnt;
+    cnt += 8;
+    while (cnt >= bits) {
+      const uint64_t v = buf & mask;
+      if (cnt > 32)
+        buf = byte >> (8 - (cnt - bits));
+      else
+        buf >>= bits;
+      cnt -= bits;
+      out[y * w + x] = float(v);
+      if (++x >= w) {
+        if (--y < 0) return 0;
+        x = 0;
+        cnt = 0;
+      }
+    }
+  }
+  return -1;
+}
+
+// One FLI/FLC frame as Pillow's FliDecode.c decodes it into a zeroed P
+// image (frame 0): buf holds the frame's bytes as Pillow hands them to the
+// decoder (at most the frame's size). The chunks: COLOR (4, 11) and PSTAMP
+// (18) skipped, SS2 (7, word delta lines with skip and last-byte words),
+// LC (12, byte delta lines from a first line), BLACK (13), BRUN (15,
+// byte runs a line), COPY (16). -1: Pillow's overrun, unknown-chunk and
+// broken errors; -2: not enough data for the frame (Pillow's "image file
+// is truncated").
+int vkgr_fli_frame(const uint8_t* buf, int64_t bytes, int32_t xsize, int32_t ysize, uint8_t* im) {
+  auto i16 = [](const uint8_t* p) { return int(p[0]) | (int(p[1]) << 8); };
+  auto i32 = [](const uint8_t* p) {
+    return int32_t(uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24));
+  };
+  if (bytes < 4) return -2;
+  const uint8_t* ptr = buf;
+  const int64_t framesize = i32(ptr);
+  if (bytes + (bytes % 2) < framesize) return -2;
+  if (bytes < 8) return -1;
+  if (i16(ptr + 4) != 0xF1FA) return -1;
+  const int chunks = i16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+  for (int c = 0; c < chunks; ++c) {
+    if (bytes < 10) return -1;
+    const uint8_t* data = ptr + 6;
+    auto oob = [&](int64_t off) { return data + off > ptr + bytes; };
+    int x = 0, y = 0, i = 0;
+    switch (i16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {  // SS2
+        const int lines = i16(data);
+        data += 2;
+        int l = 0;
+        for (y = 0; l < lines && y < ysize; ++l, ++y) {
+          uint8_t* row = im + int64_t(y) * xsize;
+          if (oob(2)) return -1;
+          int packets = i16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= ysize) return -1;
+              row = im + int64_t(y) * xsize;
+            } else {
+              row[xsize - 1] = uint8_t(packets);
+            }
+            if (oob(2)) return -1;
+            packets = i16(data);
+            data += 2;
+          }
+          int p = 0;
+          for (x = 0; p < packets; ++p) {
+            if (oob(2)) return -1;
+            x += data[0];
+            if (data[1] >= 128) {
+              if (oob(4)) return -1;
+              i = 256 - data[1];
+              if (x + i + i > xsize) break;
+              for (int j = 0; j < i; ++j) {
+                row[x++] = data[2];
+                row[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * int(data[1]);
+              if (x + i > xsize) break;
+              if (oob(2 + i)) return -1;
+              std::memcpy(row + x, data + 2, size_t(i));
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return -1;
+        break;
+      }
+      case 12: {  // LC
+        y = i16(data);
+        const int ymax = y + i16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ysize; ++y) {
+          uint8_t* row = im + int64_t(y) * xsize;
+          if (oob(1)) return -1;
+          const int packets = *data++;
+          int p = 0;
+          for (x = 0; p < packets; ++p, x += i) {
+            if (oob(2)) return -1;
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xsize) break;
+              if (oob(3)) return -1;
+              std::memset(row + x, data[2], size_t(i));
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xsize) break;
+              if (oob(2 + i)) return -1;
+              std::memcpy(row + x, data + 2, size_t(i));
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return -1;
+        break;
+      }
+      case 13:  // BLACK
+        std::memset(im, 0, size_t(xsize) * ysize);
+        break;
+      case 15:  // BRUN
+        for (y = 0; y < ysize; ++y) {
+          uint8_t* row = im + int64_t(y) * xsize;
+          data += 1;
+          for (x = 0; x < xsize; x += i) {
+            if (oob(2)) return -1;
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xsize) break;
+              if (oob(i + 1)) return -1;
+              std::memcpy(row + x, data + 1, size_t(i));
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xsize) break;
+              std::memset(row + x, data[1], size_t(i));
+              data += 2;
+            }
+          }
+          if (x != xsize) return -1;
+        }
+        break;
+      case 16:  // COPY
+        if (INT32_MAX / xsize < ysize) return -1;
+        if (data + int64_t(xsize) * ysize > ptr + bytes) return -2;
+        std::memcpy(im, data, size_t(xsize) * ysize);
+        break;
+      default:
+        return -1;
+    }
+    const int32_t advance = i32(ptr);
+    if (advance == 0 || advance < 0 || advance > bytes) return -1;
+    ptr += advance;
+    bytes -= advance;
+  }
+  return 0;
+}
+
+// IcnsImagePlugin.read_32's RLE: three channels of npix bytes one after
+// another from src (a byte with bit 7 set is a run of byte - 125 copies of
+// the next byte, any other a literal of byte + 1 bytes), into out [3][npix].
+// -1: a channel's blocks pass its size, or the data end first (Pillow's
+// SyntaxError, or its frombuffer's "not enough image data").
+int vkgr_icns_rle(const uint8_t* src, int64_t n, int64_t npix, uint8_t* out) {
+  int64_t pos = 0;
+  for (int band = 0; band < 3; ++band) {
+    uint8_t* d = out + band * npix;
+    int64_t left = npix;
+    while (left > 0) {
+      if (pos >= n) return -1;
+      const int b = src[pos++];
+      if (b & 0x80) {
+        const int64_t k = b - 125;
+        if (pos >= n || k > left) return -1;
+        std::memset(d + (npix - left), src[pos++], size_t(k));
+        left -= k;
+      } else {
+        const int64_t k = b + 1;
+        if (k > left || pos + k > n) return -1;
+        std::memcpy(d + (npix - left), src + pos, size_t(k));
+        pos += k;
+        left -= k;
+      }
+    }
+  }
   return 0;
 }
 

@@ -8,7 +8,9 @@
 // conversion are numpy in ops/jpeg.py. The bit reader, the Huffman decode
 // and the refinement logic follow libjpeg's jdhuff.c / jdphuff.c, so a
 // corrupt stream decodes as libjpeg decodes it (a bad code reads as 0, a
-// marker inside the data reads as zero bits).
+// marker inside the data reads as zero bits; once a read has taken such a
+// bit, the MCUs after the one being decoded are left as they are until a
+// restart marker, and a lossless scan's rows restart at 2^(P-Pt-1)).
 //
 // Encoding one scan: the blocks in coding order with their component's
 // tables; DC differences and AC run/size symbols (EOB and ZRL), byte
@@ -40,6 +42,7 @@
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <utility>
@@ -60,6 +63,8 @@ struct BitReader {
   uint64_t buf = 0;
   int nbits = 0;
   bool marker = false;
+  int fake = 0;               // the zero bits at the bottom of buf that stand in for data past a marker
+  bool insufficient = false;  // a read took such a bit: libjpeg's insufficient_data
 
   void fill() {
     while (nbits <= 56) {
@@ -76,29 +81,48 @@ struct BitReader {
         } else {
           ++p;
         }
+      } else {
+        marker = true;  // the end of the scan's data is the marker that ends it
       }
       buf = (buf << 8) | byte;
       nbits += 8;
+      if (marker) fake += 8;
     }
   }
   int peek(int n) {
     if (nbits < n) fill();
     return static_cast<int>((buf >> (nbits - n)) & ((1u << n) - 1));
   }
-  void skip(int n) { nbits -= n; }
+  void skip(int n) {
+    nbits -= n;
+    if (nbits < fake) {  // jpeg_fill_bit_buffer's "hit marker": the rest of the MCU reads zeros
+      insufficient = true;
+      fake = nbits;
+    }
+  }
   int get(int n) {
     if (n == 0) return 0;
     int v = peek(n);
-    nbits -= n;
+    skip(n);
     return v;
   }
-  // byte-align, then pass the next RSTn marker
+  // byte-align, then pass the next RSTn marker; the data past it are real again (process_restart resets
+  // insufficient_data only when the marker it reads is a restart marker)
   void restart() {
     buf = 0;
     nbits = 0;
+    fake = 0;
     marker = false;
-    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7)) ++p;
-    if (p + 1 < end) p += 2;
+    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7)) {
+      if (p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF) break;  // another marker (the EOI): resync stops there
+      ++p;
+    }
+    if (p + 1 < end && p[1] >= 0xD0 && p[1] <= 0xD7) {
+      p += 2;
+      insufficient = false;
+    } else {
+      marker = true;
+    }
   }
 };
 
@@ -672,7 +696,8 @@ int vkgr_jpeg_decode_scan(const uint8_t* data, int64_t len, int32_t ncomp, int16
     for (int by = 0; by < c.real_rows; ++by)
       for (int bx = 0; bx < c.real_cols; ++bx) {
         maybe_restart();
-        d.block(c, c.coef + (static_cast<int64_t>(by) * c.buf_cols + bx) * 64);
+        if (!d.br.insufficient)  // past the data's end libjpeg leaves the MCU as it is
+          d.block(c, c.coef + (static_cast<int64_t>(by) * c.buf_cols + bx) * 64);
         ++mcus_done;
       }
     return 0;
@@ -680,6 +705,10 @@ int vkgr_jpeg_decode_scan(const uint8_t* data, int64_t len, int32_t ncomp, int16
   for (int my = 0; my < mcuy; ++my)
     for (int mx = 0; mx < mcux; ++mx) {
       maybe_restart();
+      if (d.br.insufficient) {
+        ++mcus_done;
+        continue;
+      }
       for (int i = 0; i < ncomp; ++i) {
         ScanComp& c = comps[i];
         for (int y = 0; y < c.v; ++y)
@@ -824,12 +853,23 @@ int vkgr_jpeg_decode_lossless(const uint8_t* data, int64_t len, int32_t ncomp, u
     const bool last = im == imcu_rows - 1;
     const int mcu_rows = interleaved ? 1 : last ? rows[0] - im * vs[0] : vs[0];
     for (int yo = 0; yo < mcu_rows; ++yo) {
-      for (int mx = 0; mx < per_row; ++mx) {
-        if (restart_rows > 0 && rows_to_go == 0) {
-          br.restart();
-          rows_to_go = restart_rows;
-          for (int c = 0; c < ncomp; ++c) first_row[c] = true;
+      if (restart_rows > 0 && rows_to_go == 0) {
+        br.restart();
+        rows_to_go = restart_rows;
+        for (int c = 0; c < ncomp; ++c) first_row[c] = true;
+      }
+      if (br.insufficient) {  // jdlhuff.c: zero differences, and the undifferencer starts over (rows of 2^(P-Pt-1))
+        for (int c = 0; c < ncomp; ++c) {
+          if (interleaved)
+            std::fill(diff[c].begin(), diff[c].end(), 0);
+          else
+            std::fill(diff[c].begin() + size_t(yo) * pitch[c], diff[c].begin() + size_t(yo + 1) * pitch[c], 0);
+          first_row[c] = true;
         }
+        if (restart_rows > 0) --rows_to_go;
+        continue;
+      }
+      for (int mx = 0; mx < per_row; ++mx) {
         if (interleaved) {
           for (int c = 0; c < ncomp; ++c)
             for (int yy = 0; yy < vs[c]; ++yy)

@@ -124,7 +124,7 @@ def read_blp(data: bytes):
         header = _read(data, pos + 4, hsize)
         pos += 4 + hsize
         pos = max(pos, offsets[0])  # Pillow skips to mip 0 (never back)
-        rgb = decode_jpeg(header + _read(data, pos, lengths[0]))
+        rgb = decode_jpeg(header + _read(data, pos, lengths[0]), color="cmyk")
         check_size("BLP", rgb.shape[1], rgb.shape[0])
         if rgb.shape[2] == 1:
             rgb = np.repeat(rgb, 3, axis=-1)

@@ -15,12 +15,14 @@ Image types read: "0 1" / "L 1" / "B1" ("1"), "B2" / "B4" (2- and 4-bit
 "P" with a Lut that is not gray), "LA", "RGB", "RGBA", "RGBX", "CMYK"
 (each line-interleaved, a row of each band in turn), "X 24" (RGB
 pixels), "L 16", "L 16L", "L 16B", "L 32S", "L 32 S", "L 8", "L 8S",
-"L 16S", "L 32", "L 32F" and their "L*" forms (the float modes), "PA"
-with a Lut that is not gray, as Pillow's raw unpackers read them. "RLB",
-"RYB" and "PA" without such a Lut are refused, as Pillow refuses them (it
-has no unpacker for them); "YCC", the planar
-"RGB3" / "RYB3" and the "L*" widths other than 8, 16 and 32 are refused
-where Pillow reads them (ROADMAP C).
+"L 16S", "L 32", "L 32F", "L 32 F" and their "L*" forms (the float
+modes), "PA" with a Lut that is not gray, as Pillow's raw unpackers read
+them; "YCC" (Pillow's "YCbCr", converted by imagemodes.ycbcr_to_rgb), the
+planar "RGB3" / "RYB3" (a G, an R and a B plane, each bottom row first)
+and the "L*j" widths other than 8, 16 and 32, which Pillow's bit decoder
+reads (native/image_coders.cpp vkgr_bit_decode). "RLB", "RYB" and "PA"
+without such a Lut are refused, as Pillow refuses them (it has no unpacker
+for them).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import re
 import numpy as np
 
 from .dds import UnsupportedCodec
-from .imagemodes import PassOn, check_size, to_rgba
+from .imagemodes import PassOn, check_size, native_rc, to_rgba
 
 SIZE, MODE, FRAMES, SCALE, LUT = "Image size (x*y)", "Image type", "File size (no of images)", "Scale (x,y)", "Lut"
 TAGS = ("Comment", "Date", "Digitalization equipment", FRAMES, LUT, "Name", SCALE, SIZE, MODE)
@@ -42,16 +44,17 @@ OPEN = {"0 1 image": ("1", "1"), "L 1 image": ("1", "1"), "B1 image": ("1", "1")
         "L 32 S image": ("I", "I;32"), "LA image": ("LA", "LA;L"), "PA image": ("LA", "PA;L"),
         "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"),
         "RGBA image": ("RGBA", "RGBA;L"),
-        "RGBX image": ("RGB", "RGBX;L"), "CMYK image": ("CMYK", "CMYK;L"), "L 32F image": ("F", "F;32F")}
+        "RGBX image": ("RGB", "RGBX;L"), "CMYK image": ("CMYK", "CMYK;L"), "L 32 F image": ("F", "F;32"),
+        "RGB3 image": ("RGB", "RGB;T"), "RYB3 image": ("RGB", "RYB;T"), "YCC image": ("YCbCr", "YCbCr;L")}
 for _t in ("8", "8S", "16", "16S", "32", "32F"):
     OPEN[f"L {_t} image"] = OPEN[f"L*{_t} image"] = ("F", f"F;{_t}")
 for _t in ("16", "16L", "16B"):
     OPEN[f"L {_t} image"] = OPEN[f"L*{_t} image"] = (f"I;{_t}", f"I;{_t}")
 OPEN["L 32S image"] = OPEN["L*32S image"] = ("I", "I;32S")
-# types Pillow knows that are not read here: with no unpacker in Pillow ("RLB", "RYB": it refuses them too), or
-# read by Pillow and not here (YCC, the planar RGB3 / RYB3, the bit decoder's other sample widths: ROADMAP C)
-_OTHER = ("RLB image", "RYB image", "RGB3 image", "RYB3 image", "YCC image",
-          *(f"L*{j} image" for j in range(2, 33) if j not in (8, 16, 32)))
+for _j in range(2, 33):  # last, as in Pillow: "L*8", "L*16" and "L*32" are float too
+    OPEN[f"L*{_j} image"] = ("F", f"F;{_j}")
+# types Pillow knows and has no unpacker for: it refuses them
+_OTHER = ("RLB image", "RYB image")
 
 # raw mode -> (numpy type of a sample, bands, line-interleaved)
 _RAW = {"1": (None, 1, False), "P;2": (2, 1, False), "P;4": (4, 1, False), "L": ("u1", 1, False),
@@ -60,7 +63,7 @@ _RAW = {"1": (None, 1, False), "P;2": (2, 1, False), "P;4": (4, 1, False), "L": 
         "LA;L": ("u1", 2, True), "PA;L": ("u1", 2, True), "I;16": ("<u2", 1, False), "I;16L": ("<u2", 1, False),
         "I;16B": (">u2", 1, False), "I;32": ("<i4", 1, False), "I;32S": ("<i4", 1, False), "F;8": ("u1", 1, False),
         "F;8S": ("i1", 1, False), "F;16": ("<u2", 1, False), "F;16S": ("<i2", 1, False), "F;32": ("<u4", 1, False),
-        "F;32F": ("<f4", 1, False), "P": ("u1", 1, False)}
+        "F;32F": ("<f4", 1, False), "P": ("u1", 1, False), "YCbCr;L": ("u1", 3, True)}
 
 
 def _number(s: str):
@@ -137,10 +140,18 @@ def read_im(data: bytes):
         if mode in ("L", "LA", "P", "PA") and not gray:
             mode, raw = ("P", "P") if mode in ("L", "P") else ("PA", "PA;L")
             palette = p.T.copy()
-    if (raw is None or raw not in _RAW or (mode, raw) == ("LA", "PA;L")  # Pillow has no unpacker for that pair
-            or mode not in ("1", "L", "LA", "P", "PA", "RGB", "RGBA", "CMYK", "I", "F", "I;16", "I;16L", "I;16B")):
-        raise UnsupportedCodec(f"IM: image type {mode!r} is not supported")
     check_size("IM", w, h)
+    if raw in ("RGB;T", "RYB;T"):  # three planes, G, R and B (RYB3 too), each its bottom row first
+        if pos + 3 * w * h > len(data):
+            raise ValueError("IM: image file is truncated")
+        g, r, b = np.frombuffer(data, np.uint8, 3 * w * h, pos).reshape(3, h, w)[:, ::-1]
+        return mode, np.stack([r, g, b], axis=-1), None
+    if raw and raw.startswith("F;") and raw[2:].isdigit() and int(raw[2:]) not in (8, 16, 32):
+        return mode, _bits(data, pos, int(raw[2:]), w, h), None
+    if (raw is None or raw not in _RAW or (mode, raw) == ("LA", "PA;L")  # Pillow has no unpacker for that pair
+            or mode not in ("1", "L", "LA", "P", "PA", "RGB", "RGBA", "CMYK", "I", "F", "I;16", "I;16L", "I;16B",
+                            "YCbCr")):
+        raise UnsupportedCodec(f"IM: image type {mode!r} is not supported")
     dtype, bands, interleaved = _RAW[raw]
     if dtype is None or isinstance(dtype, int):  # bits MSB first: "1", or 2- and 4-bit indices
         stride = (w * (dtype or 1) + 7) // 8
@@ -161,8 +172,19 @@ def read_im(data: bytes):
         return mode, v[..., 0].astype(np.float32), None
     if mode in ("I", "I;16", "I;16L", "I;16B"):
         return ("I;16" if mode == "I;16L" else mode), v[..., 0].astype(np.int64), None
-    return mode, np.ascontiguousarray(v[..., :{"RGB": 3, "RGBA": 4, "CMYK": 4, "LA": 2, "PA": 2}.get(mode, 1)]
+    return mode, np.ascontiguousarray(v[..., :{"RGB": 3, "RGBA": 4, "CMYK": 4, "LA": 2, "PA": 2, "YCbCr": 3}.get(mode, 1)]
                                       if mode not in ("L", "P") else v[..., 0]), palette
+
+
+def _bits(data: bytes, pos: int, bits: int, w: int, h: int) -> np.ndarray:
+    """Pillow's bit decoder as IM calls it (bits, pad 8, fill 3, unsigned,
+    bottom row first): float32 [h, w]."""
+    from ..native import image_lib
+
+    src = np.frombuffer(data, np.uint8, len(data) - pos, pos)
+    out = np.empty((h, w), np.float32)
+    native_rc(image_lib().vkgr_bit_decode(src.ctypes.data, len(src), bits, w, h, out.ctypes.data), "IM")
+    return out
 
 
 def decode_im(data: bytes) -> np.ndarray:

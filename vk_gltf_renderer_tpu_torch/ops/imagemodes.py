@@ -11,7 +11,8 @@ does:
   * "P" and "PA" look up a palette of up to 256 entries (missing entries
     are black, alpha 255); "PA" takes its alpha from the image;
   * "CMYK" goes through Pillow's cmyk2rgb (k' = 255 - k, c' = k' - c*k'/255
-    rounded as MULDIV255);
+    rounded as MULDIV255), "YCbCr" through its fixed-point ConvertYCbCr.c
+    tables (ycbcr_to_rgb);
   * "LAB" (L, a + 128, b + 128 a pixel, Pillow's storage) goes where
     Pillow's convert sends it, LittleCMS's transform from its built-in v2
     Lab profile to its sRGB profile, perceptual intent: lab_to_rgb; the
@@ -144,6 +145,25 @@ def lab_to_rgb(lab: np.ndarray) -> np.ndarray:
     return out
 
 
+def _ycc_table(k: float) -> np.ndarray:
+    """One of ConvertYCbCr.c's tables: k * (i - 128) in 1/64ths, + 0.5 and
+    truncated toward zero, for i in 0..255."""
+    return np.trunc((np.arange(256) - 128) * k * 64 + 0.5).astype(np.int64)
+
+
+_YCC = {"r_cr": _ycc_table(1.402), "g_cb": _ycc_table(-0.34414), "g_cr": _ycc_table(-0.71414),
+        "b_cb": _ycc_table(1.772)}
+
+
+def ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
+    """Pillow's YCbCr pixels uint8 [..., 3] -> uint8 [..., 3] RGB, as
+    Image.convert("RGB") gives them (ImagingConvertYCbCr2RGB: y plus the
+    tables' sums shifted right by 6, clipped)."""
+    y, cb, cr = (ycc[..., i].astype(np.int64) for i in range(3))
+    rgb = (y + (_YCC["r_cr"][cr] >> 6), y + ((_YCC["g_cb"][cb] + _YCC["g_cr"][cr]) >> 6), y + (_YCC["b_cb"][cb] >> 6))
+    return np.clip(np.stack(rgb, axis=-1), 0, 255).astype(np.uint8)
+
+
 def gray_to_u8(mode: str, px: np.ndarray) -> np.ndarray:
     """Modes "1", "L", "I", "I;16", "I;16B" (any width) and "F" -> uint8 gray."""
     if mode == "F":
@@ -201,6 +221,9 @@ def to_rgba(mode: str, px: np.ndarray, palette=None, transparency=None) -> np.nd
         out[:] = px[..., :4]
     elif mode == "CMYK":
         out[..., :3] = cmyk_to_rgb(px)
+        out[..., 3] = 255
+    elif mode == "YCbCr":
+        out[..., :3] = ycbcr_to_rgb(px)
         out[..., 3] = 255
     elif mode == "LAB":  # Pillow copies the storage's fourth byte into alpha (pyCMScopyAux)
         out[..., :3] = lab_to_rgb(px[..., :3])

@@ -285,7 +285,9 @@ def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
     "planes" gives libjpeg's raw data of a DCT file instead: a list of
     (plane, h, v), each component's samples in whole MCU rows and columns,
     not upsampled and not converted (what libtiff's old-style JPEG codec
-    reads)."""
+    reads); "cmyk" takes a four-component file for CMYK whatever its Adobe
+    transform says (BLP1's JPEG, which Pillow decodes with the jpeg mode
+    "CMYK": no YCCK conversion, the samples still read inverted)."""
     if not is_jpeg(data):
         raise ValueError("not a JPEG file")
     arr = np.frombuffer(data, np.uint8)
@@ -519,12 +521,12 @@ def decode_jpeg(data: bytes, color: str | None = None) -> np.ndarray:
     if len(comps) == 4:
         # Adobe transform 0 (or none) is CMYK, anything else YCCK, which libjpeg turns into CMYK; Pillow reads
         # the samples inverted ("CMYK;I") and converts them to RGB with its cmyk2rgb
-        if adobe is not None and adobe != 0:
+        if adobe is not None and adobe != 0 and color != "cmyk":
             inv = np.concatenate([_ycc_to_rgb(*planes[:3]), (255 - planes[3]).astype(np.uint8)[..., None]], axis=-1)
         else:
             inv = 255 - np.stack(planes, axis=-1).astype(np.int32)
         return cmyk_to_rgb(inv.astype(np.uint8))
-    if color is not None:
+    if color in ("ycc", "raw"):
         ycc = color == "ycc"
     if not ycc:
         return np.stack(planes, axis=-1).astype(np.uint8)

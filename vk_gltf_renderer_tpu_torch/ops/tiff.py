@@ -139,8 +139,18 @@ def _lib():
     return image_lib()
 
 
+STRIP_TAGS = (273, 279, 324, 325)
+
+
 def _read_ifd(data: bytes):
-    """Page 0's tags: tag -> tuple of values (bytes for ASCII and UNDEFINED)."""
+    """Page 0's tags: tag -> tuple of values (bytes for ASCII and UNDEFINED),
+    as Pillow's directory reader reads them: a tag whose values lie past the
+    end of the file stops it, the tags before that one kept. Also the tags
+    libtiff reads from the whole directory, which decodes compressed data
+    (-> order, byte order, tags, libtiff's tags): it skips a tag whose values
+    run past the end, but of the strip or tile offsets and byte counts it
+    reads only as many as the image has strips (TIFFFetchStripThing), here
+    those that lie in the file."""
     bo = "<" if data[:2] == b"II" else ">"
     big = data[2:4] in (b"\x2b\x00", b"\x00\x2b")
     try:
@@ -152,7 +162,7 @@ def _read_ifd(data: bytes):
             off = struct.unpack_from(bo + "I", data, 4)[0]
             (n,) = struct.unpack_from(bo + "H", data, off)
             ent, esize, inline = off + 2, 12, 4
-        tags = {}
+        tags, full, cut = {}, {}, False
         for i in range(n):
             e = ent + i * esize
             tag, typ = struct.unpack_from(bo + "HH", data, e)
@@ -165,17 +175,22 @@ def _read_ifd(data: bytes):
             if size > inline:
                 voff = struct.unpack_from(bo + ("Q" if big else "I"), data, voff)[0]
             if voff + size > len(data):
-                raise ValueError("TIFF: a tag's values lie past the end of the file")
+                cut = True
+                if tag not in STRIP_TAGS:
+                    continue
+                count = max(len(data) - voff, 0) // struct.calcsize("=" + fmt)
             if typ in (2, 7):
-                tags[tag] = (data[voff : voff + count],)
+                vals = (data[voff : voff + count],)
             else:
                 vals = struct.unpack_from(bo + fmt * count, data, voff)
                 if typ in (5, 10):
                     vals = tuple(a / b if b else float("nan") for a, b in zip(vals[::2], vals[1::2]))
+            if not cut:
                 tags[tag] = vals
+            full[tag] = vals
     except struct.error as e:
         raise ValueError(f"TIFF: truncated directory ({e})") from e
-    return ("II" if bo == "<" else "MM"), bo, tags
+    return ("II" if bo == "<" else "MM"), bo, tags, full
 
 
 def _scalar(tags, tag, default=None):
@@ -239,7 +254,7 @@ def read_tiff(data: bytes):
     """TIFF bytes -> (mode, pixels, palette or None) of page 0."""
     if not is_tiff(data):
         raise UnsupportedCodec("not a TIFF file")
-    order, bo, tags = _read_ifd(data)
+    order, bo, tags, full = _read_ifd(data)
     if 0xBC01 in tags:
         raise UnsupportedCodec("Windows Media Photo in TIFF is not supported")
     ctag = _scalar(tags, 259, 1)
@@ -276,6 +291,9 @@ def read_tiff(data: bytes):
     mode, raw = OPEN_INFO[key]
     if comp not in DECODED:
         raise UnsupportedCodec(f"TIFF compression {comp} is not supported")
+    if comp != "raw":  # libtiff decodes compressed data with the tags it reads itself
+        tags = full
+        planar, fill = _scalar(tags, 284, 1), _scalar(tags, 266, 1)
     if fill == 2:  # the data are bit-reversed below, so the ";R" raw modes read as their plain forms
         if comp != "raw":
             mode, raw = OPEN_INFO[key[:3] + (1,) + key[4:]]
@@ -348,7 +366,7 @@ def read_tiff(data: bytes):
                     hs, vs = subsampling
                     nblocks = -(-tw // hs) * -(-seg_rows // vs)
                     blocks = _segment_bytes(data, comp, offsets[k], counts[k], nblocks * (hs * vs + 2), fill, tags,
-                                            tw, seg_rows)
+                                            tw, seg_rows, partial=True)
                     s = _ycbcr_to_rgb(blocks, tw, seg_rows, hs, vs, tags)[:sh, :sw]
                 else:
                     rows = _segment_bytes(data, comp, offsets[k], counts[k] if counts else None,
@@ -390,14 +408,21 @@ def _orient(px: np.ndarray, orientation) -> np.ndarray:
             8: lambda a: np.rot90(a)}.get(orientation, lambda a: a)(px)
 
 
-def _segment_bytes(data, comp, off, count, expect, fill, tags=None, width=0, rows=0):
+def _segment_bytes(data, comp, off, count, expect, fill, tags=None, width=0, rows=0, partial=False):
     """One strip or tile's bytes after decompression (expect bytes; CCITT
-    and ThunderScan decode `rows` rows of `width` pixels)."""
+    and ThunderScan decode `rows` rows of `width` pixels). A compressed
+    strip that runs past the end of the file is refused, as libtiff's
+    TIFFFillStrip refuses it. With `partial` (TIFFRGBAImage, which Pillow
+    asks not to stop on errors), LZW, PackBits and Deflate data that end
+    before the strip is full give what they decoded, the rest zero, as
+    libtiff's codecs leave the strip."""
     if comp == "raw":
         raw = np.frombuffer(data, np.uint8, count=min(expect, max(len(data) - off, 0)), offset=min(off, len(data)))
         if len(raw) < expect:
             raise ValueError("TIFF: truncated strip")
         return _REVERSE_BITS[raw] if fill == 2 else raw
+    if off + count > len(data):
+        raise ValueError("TIFF: a strip past the end of the file")
     src = np.frombuffer(data[off : off + count], np.uint8)
     if fill == 2:
         src = _REVERSE_BITS[src]
@@ -420,9 +445,11 @@ def _segment_bytes(data, comp, off, count, expect, fill, tags=None, width=0, row
             except zlib.error as e:
                 raise ValueError(f"TIFF: corrupt Deflate data ({e})") from e
         if len(out) < expect:
-            raise ValueError(f"TIFF: {comp} data end before the strip is full")
+            if not (partial and comp in ("tiff_adobe_deflate", "tiff_deflate")):
+                raise ValueError(f"TIFF: {comp} data end before the strip is full")
+            out += bytes(expect - len(out))
         return np.frombuffer(out, np.uint8)
-    out = np.empty(expect, np.uint8)
+    out = np.zeros(expect, np.uint8)
     if comp in CCITT:
         rc = _lib().vkgr_ccitt(src.ctypes.data, len(src), width, rows, CCITT[comp], int(_scalar(tags, 292, 0)),
                                out.ctypes.data)
@@ -431,7 +458,9 @@ def _segment_bytes(data, comp, off, count, expect, fill, tags=None, width=0, row
     else:
         fn = _lib().vkgr_tiff_lzw if comp == "tiff_lzw" else _lib().vkgr_packbits
         rc = fn(src.ctypes.data, len(src), out.ctypes.data, expect)
-    if rc != 0:
+    # kept: a T.4 or T.6 strip cut after its first row (1); with partial, LZW or PackBits data that end early (-1)
+    kept = rc == 1 if comp in CCITT else partial and rc == -1 and comp in ("tiff_lzw", "packbits")
+    if rc != 0 and not kept:
         raise ValueError(f"TIFF: corrupt or short {comp} data (rc {rc})")
     return out
 
@@ -523,7 +552,7 @@ def _old_jpeg(data, tags, w, h, planar, bps):
         off, count = tags[273][0], tags[279][0]
     else:
         raise UnsupportedCodec("TIFF: old-style JPEG in several strips without JPEGInterchangeFormat")
-    planes = decode_jpeg(data[off : off + count], color="planes")
+    planes = decode_jpeg(data[off : off + count] + _FAKE_EOI, color="planes")
     if len(planes) != 3 or any((ph, pv) != (1, 1) for _, ph, pv in planes[1:]):
         raise UnsupportedCodec("TIFF: old-style JPEG whose chroma libtiff upsamples inside libjpeg")
     (y, hs, vs), (cb, _, _), (cr, _, _) = planes
@@ -543,16 +572,23 @@ def _undo_predictor(s: np.ndarray, bits: int, signed: bool) -> np.ndarray:
     return np.where(v >= 1 << (bits - 1), v - (1 << bits), v) if signed else v
 
 
+# libtiff's JPEG source managers end a strip's data with an EOI marker (std_fill_input_buffer's fake EOI,
+# OJPEGWriteStreamEoi): a strip cut short decodes as libjpeg decodes a scan that runs into a marker
+_FAKE_EOI = b"\xff\xd9"
+
+
 def _jpeg_segment(data, off, count, tables, photo, fill):
     from .jpeg import decode_jpeg
 
+    if off + count > len(data):
+        raise ValueError("TIFF: a strip past the end of the file")
     seg = data[off : off + count]
     if fill == 2:
         seg = _REVERSE_BITS[np.frombuffer(seg, np.uint8)].tobytes()
     if tables and len(tables) > 4 and seg[:2] == b"\xff\xd8":
         seg = tables[:-2] + seg[2:]  # the tables' SOI .. DQT/DHT, then the strip after its SOI
     color = "ycc" if photo == 6 else "raw"
-    px = decode_jpeg(seg, color=color)
+    px = decode_jpeg(seg + _FAKE_EOI, color=color)
     return px.astype(np.int64)
 
 

@@ -1004,6 +1004,230 @@ def im_rgb_file(img) -> bytes:
     return head + b"\0" * (511 - len(head)) + b"\x1a" + img[::-1].transpose(0, 2, 1).tobytes()
 
 
+def im_file(image_type: bytes, w: int, h: int, body: bytes) -> bytes:
+    """An IM file of `image_type` ("YCC", "RGB3", "L*12", ...) whose pixel
+    bytes are `body`, Pillow's header padded to 512 bytes."""
+    head = b"Image type: %s image\r\nImage size (x*y): %d*%d\r\nFile size (no of images): 1\r\n" % (image_type, w, h)
+    return head + b"\0" * (511 - len(head)) + b"\x1a" + body
+
+
+def im_bits(values, bits: int) -> bytes:
+    """IM "L*j" rows: each row of `values` [h, w] (bottom row first) packed
+    LSB first into whole bytes, as Pillow's bit decoder reads them."""
+    v = np.asarray(values, np.uint64)[::-1]
+    h, w = v.shape
+    bitplanes = ((v[..., None] >> np.arange(bits, dtype=np.uint64)) & 1).astype(np.uint8).reshape(h, w * bits)
+    pad = -(w * bits) % 8
+    bitplanes = np.concatenate([bitplanes, np.zeros((h, pad), np.uint8)], axis=1)
+    return np.packbits(bitplanes, axis=1, bitorder="little").tobytes()
+
+
+def pixar_file(img) -> bytes:
+    """A PIXAR raster (the layout Pillow reads: 14, 2) of RGB uint8 [h, w, 3]."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, 14, 2)
+    return bytes(head) + img.tobytes()
+
+
+def spider_file(values, big_endian=True) -> bytes:
+    """A SPIDER 2D image of float32 [h, w], its header as Pillow's
+    makeSpiderHeader writes it (labrec records of 4w bytes)."""
+    v = np.asarray(values, np.float32)
+    h, w = v.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    hdr = np.zeros(max(labrec * lenbyt // 4, 27), np.float32)
+    for i, x in ((1, 1), (2, h), (3, h), (5, 1), (12, w), (13, labrec), (22, labrec * lenbyt), (23, lenbyt)):
+        hdr[i - 1] = x
+    bo = ">" if big_endian else "<"
+    return hdr[: labrec * lenbyt // 4].astype(bo + "f4").tobytes() + v.astype(bo + "f4").tobytes()
+
+
+def _fits_cards(cards) -> bytes:
+    out = b"".join((k.ljust(8) + ("= " + v if v is not None else "")).ljust(80).encode() for k, v in cards)
+    out += b"END".ljust(80)
+    return out + b" " * (-len(out) % 2880)
+
+
+def fits_file(values, bitpix: int, gzip_tile=False) -> bytes:
+    """A FITS image [h, w] (top row first in `values`, stored bottom row
+    first, big-endian, as the standard stores it) of BITPIX 8, 16, 32, -32
+    or -64; with gzip_tile a tile-compressed BINTABLE ('GZIP_1') of four
+    bytes a sample."""
+    import gzip
+
+    v = np.asarray(values)
+    h, w = v.shape
+    dtype = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    if not gzip_tile:
+        body = v[::-1].astype(dtype).tobytes()
+        return (_fits_cards([("SIMPLE", "T"), ("BITPIX", str(bitpix)), ("NAXIS", "2"), ("NAXIS1", str(w)),
+                             ("NAXIS2", str(h))]) + body + b"\0" * (-len(body) % 2880))
+    primary = _fits_cards([("SIMPLE", "T"), ("BITPIX", "8"), ("NAXIS", "0")])
+    table = _fits_cards([("XTENSION", "'BINTABLE'"), ("BITPIX", "8"), ("NAXIS", "2"), ("NAXIS1", "8"), ("NAXIS2", "1"),
+                         ("PCOUNT", "0"), ("GCOUNT", "1"), ("ZIMAGE", "T"), ("ZCMPTYPE", "'GZIP_1  '"),
+                         ("ZBITPIX", str(bitpix)), ("ZNAXIS", "2"), ("ZNAXIS1", str(w)), ("ZNAXIS2", str(h))])
+    samples = v[::-1].astype(">i4" if bitpix > 0 else ">f4").tobytes()  # Pillow reverses the rows
+    return primary + table + bytes(8) + gzip.compress(samples, 6, mtime=0)
+
+
+def mcidas_file(values, nbytes: int, prefix=0) -> bytes:
+    """A McIDAS area file of [h, w] samples of nbytes (1, 2 or 4) each,
+    big-endian, each row after `prefix` bytes."""
+    v = np.asarray(values)
+    h, w = v.shape
+    word = np.zeros(64, ">i4")
+    word[1] = 4
+    word[8], word[9], word[10], word[13], word[14], word[33] = h, w, nbytes, 1, prefix, 256
+    rows = v.astype({1: ">u1", 2: ">u2", 4: ">i4"}[nbytes]).view(np.uint8).reshape(h, w * nbytes)
+    return word.tobytes() + np.concatenate([np.zeros((h, prefix), np.uint8), rows], axis=1).tobytes()
+
+
+def gbr_file(img, version=2, comment=b"brush") -> bytes:
+    """A GIMP brush of uint8 [h, w] ("L") or [h, w, 4] ("RGBA")."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    depth = 1 if img.ndim == 2 else 4
+    comment = comment + b"\0"
+    if version == 1:
+        head = struct.pack(">5I", 20 + len(comment), 1, w, h, depth)
+    else:
+        head = struct.pack(">5I", 28 + len(comment), 2, w, h, depth) + b"GIMP" + struct.pack(">I", 25)
+    return head + comment + img.tobytes()
+
+
+def pcd_file(y, c1, c2, orientation=0) -> bytes:
+    """A Kodak PhotoCD base image: luma [512, 768], C1 and C2 [256, 384],
+    `orientation` the low bits of header byte 1538."""
+    head = bytearray(96 * 2048)
+    head[2048:2055] = b"PCD_IPI"
+    head[2048 + 1538] = orientation
+    groups = np.concatenate([np.asarray(y, np.uint8).reshape(256, 2 * 768), np.asarray(c1, np.uint8),
+                             np.asarray(c2, np.uint8)], axis=1)
+    return bytes(head) + groups.tobytes()
+
+
+def fli_chunk(kind: int, payload: bytes) -> bytes:
+    return struct.pack("<IH", 6 + len(payload), kind) + payload
+
+
+def fli_file(w, h, chunks, magic=0xAF12) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) animation of one frame made of
+    `chunks` (fli_chunk's bytes)."""
+    frame = b"".join(chunks)
+    frame = struct.pack("<IHH8x", 16 + len(frame), 0xF1FA, len(chunks)) + frame
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(frame), magic, 1, w, h, 8, 3, 5)
+    return bytes(head) + frame
+
+
+def fli_brun(idx) -> bytes:
+    """An FLI BRUN chunk's payload: each row of uint8 indices as literal
+    packets of up to 127 bytes (a negative count)."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    full, rest = divmod(w, 127)
+    row = np.empty((h, 1 + full * 128 + (rest + 1 if rest else 0)), np.uint8)
+    row[:, 0] = full + (1 if rest else 0)
+    body = row[:, 1 : 1 + full * 128].reshape(h, full, 128)
+    body[..., 0] = 256 - 127
+    body[..., 1:] = idx[:, : full * 127].reshape(h, full, 127)
+    if rest:
+        row[:, 1 + full * 128] = 256 - rest
+        row[:, 2 + full * 128 :] = idx[:, full * 127 :]
+    return row.tobytes()
+
+
+def fli_palette(palette, shift=0) -> bytes:
+    """A COLOR chunk's payload: one packet of 256 entries (values >> shift)."""
+    return struct.pack("<HBB", 1, 0, 0) + (np.asarray(palette, np.uint8) >> shift).astype(np.uint8).tobytes()
+
+
+XV_PALETTE_LEVELS = ((np.arange(8) * 255) // 7, (np.arange(8) * 255) // 7, (np.arange(4) * 255) // 3)
+
+
+def xvthumb_file(idx) -> bytes:
+    """An XV thumbnail of 3-3-2 indices uint8 [h, w]."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    return (b"P7 332\n#XVVERSION:Version 2.28  Rev: 9/26/92\n#IMGINFO:%dx%d RGB\n#END_OF_COMMENTS\n%d %d 255\n"
+            % (w, h, w, h)) + idx.tobytes()
+
+
+def imt_file(gray) -> bytes:
+    """An IM Tools image of uint8 [h, w]."""
+    gray = np.asarray(gray, np.uint8)
+    h, w = gray.shape
+    return b"* IM Tools\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h) + gray.tobytes()
+
+
+def iptc_field(record: int, tag: int, data: bytes) -> bytes:
+    """One IPTC field of fewer than 32768 bytes."""
+    return bytes([0x1C, record, tag]) + struct.pack(">H", len(data)) + data
+
+
+def iptc_file(w, h, payload: bytes, layers=1, component=0, compression=1, band=None) -> bytes:
+    """An IPTC record of a w x h image: (3, 60) layers and component, the
+    size, the compression (1 raw, 5 JPEG), an optional band, then the
+    payload in (8, 10) fields of up to 32767 bytes."""
+    out = iptc_field(3, 60, bytes([layers, component])) + iptc_field(3, 20, struct.pack(">H", w))
+    out += iptc_field(3, 30, struct.pack(">H", h)) + iptc_field(3, 120, bytes([compression]))
+    if band is not None:
+        out += iptc_field(3, 65, bytes([band]))
+    return out + b"".join(iptc_field(8, 10, payload[i : i + 32767]) for i in range(0, len(payload), 32767))
+
+
+def icns_rle(channel) -> bytes:
+    """Apple's icon RLE of one channel (uint8, flat): runs of 3 or more as
+    one count byte (0x80 + n - 3) and the value, the rest as literals of up
+    to 128 bytes."""
+    c = np.asarray(channel, np.uint8).reshape(-1)
+    out, i, n = bytearray(), 0, len(c)
+    change = np.flatnonzero(np.diff(c)) + 1
+    starts = np.concatenate([[0], change])
+    ends = np.concatenate([change, [n]])
+    lit = bytearray()
+
+    def flush():
+        for k in range(0, len(lit), 128):
+            out.extend(bytes([len(lit[k : k + 128]) - 1]) + lit[k : k + 128])
+        lit.clear()
+
+    for a, b in zip(starts.tolist(), ends.tolist()):
+        i = a
+        while b - i >= 3:
+            k = min(b - i, 130)
+            if k < 3:
+                break
+            flush()
+            out.extend(bytes([0x80 + k - 3, c[i]]))
+            i += k
+        lit.extend(c[i:b].tobytes())
+    flush()
+    return bytes(out)
+
+
+def icns_literal_rle(channel) -> bytes:
+    """Apple's icon RLE of one channel as literal packets of 128 (and one
+    short one): the decoder's slowest input per byte, made without a loop."""
+    c = np.asarray(channel, np.uint8).reshape(-1)
+    full, rest = divmod(len(c), 128)
+    body = np.empty((full, 129), np.uint8)
+    body[:, 0] = 127
+    body[:, 1:] = c[: full * 128].reshape(full, 128)
+    return body.tobytes() + (bytes([rest - 1]) + c[full * 128 :].tobytes() if rest else b"")
+
+
+def icns_file(blocks) -> bytes:
+    """An ICNS of (type, data) blocks."""
+    body = b"".join(t + struct.pack(">I", 8 + len(d)) + d for t, d in blocks)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
 ZSTD_STRIP_BYTES = 196608  # a 2048 x 32, 512 x 128 or 256 x 256 RGB strip
 
 

@@ -18,17 +18,20 @@ suffix raises ValueError("unknown file extension"), as Pillow does.
 
 read_image identifies data the way Image.open does, in its order: the
 plugins Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then Image.ID's
-order (BLP, CUR, PCX, DCX, FTEX, ICO, IM, TIFF, MSP, PSD, QOI, SGI, SUN,
-TGA, WEBP, XBM, XPM, of those the port reads), each reader asked when its
-magic bytes or header checks accept the data (TGA has no magic: Pillow's
-TGA header checks; IM has no check at all, so every data that reaches it
-is parsed as an IM header, as Pillow parses it). A reader whose header
-checks fail the way Image.open lets the next plugin try
-(ops/imagemodes.PassOn) passes the data on; any other failure refuses it,
-as Image.open raises. Data that no reader claims raise UnsupportedCodec (a
-ValueError), where Image.open raises UnidentifiedImageError. EPS, JPEG
-2000, AVIF and Pillow's other readers are not ported (ROADMAP A): such
-data are refused.
+order (BLP, BUFR, CUR, PCX, DCX, FITS, FLI, FTEX, GBR, GRIB, HDF5, ICNS,
+ICO, IM, IMT, IPTC, MCIDAS, MPEG, TIFF, MSP, PCD, PIXAR, PSD, QOI, SGI,
+SPIDER, SUN, TGA, WEBP, XBM, XPM, XVTHUMB, of those the port reads), each
+reader asked when its magic bytes or header checks accept the data (TGA
+has no magic: Pillow's TGA header checks; IM, IMT, IPTC, PCD and SPIDER
+have no check at all, so every data that reaches them is parsed as
+Pillow's open parses it). A reader whose header checks fail the way
+Image.open lets the next plugin try (ops/imagemodes.PassOn) passes the
+data on; any other failure refuses it, as Image.open raises. BUFR, GRIB,
+HDF5 and MPEG are claimed and refused (ops/stubs.py): Pillow identifies
+them and cannot load them. Data that no reader claims raise
+UnsupportedCodec (a ValueError), where Image.open raises
+UnidentifiedImageError. EPS, JPEG 2000, AVIF and WMF are not ported
+(ROADMAP A): such data are refused.
 """
 
 from __future__ import annotations
@@ -40,36 +43,54 @@ import numpy as np
 from ..ops.blp import decode_blp, is_blp
 from ..ops.bmp import decode_bmp, encode_bmp, is_bmp, is_dib
 from ..ops.dds import UnsupportedCodec
+from ..ops.fits import decode_fits, is_fits
+from ..ops.fli import decode_fli, is_fli
 from ..ops.ftex import decode_ftex, is_ftex
+from ..ops.gbr import decode_gbr, is_gbr
 from ..ops.gif import decode_gif, encode_gif, is_gif
+from ..ops.icns import decode_icns, is_icns
 from ..ops.ico import decode_cur, decode_ico, is_cur, is_ico
 from ..ops.im import decode_im
+from ..ops.imt import decode_imt
+from ..ops.iptc import decode_iptc
 from ..ops.imagemodes import PassOn
 from ..ops.jpeg import decode_jpeg, encode_jpeg, is_jpeg
+from ..ops.mcidas import decode_mcidas, is_mcidas
 from ..ops.msp import decode_msp, is_msp
 from ..ops.netpbm import decode_netpbm, encode_netpbm, is_netpbm
+from ..ops.pcd import decode_pcd
 from ..ops.pcx import decode_dcx, decode_pcx, is_dcx, is_pcx
+from ..ops.pixar import decode_pixar, is_pixar
 from ..ops.psd import decode_psd, is_psd
 from ..ops.qoi import decode_qoi, is_qoi
 from ..ops.sgi import decode_sgi, is_sgi
+from ..ops.spider import decode_spider
+from ..ops.stubs import decode_mpeg, is_bufr, is_grib, is_hdf5, is_mpeg, refuse_stub
 from ..ops.sun import decode_sun, is_sun
 from ..ops.tga import decode_tga, encode_tga, is_tga
 from ..ops.tiff import decode_tiff, encode_tiff, is_tiff
 from ..ops.webp import decode_webp, encode_webp, is_webp
 from ..ops.xbm import decode_xbm, is_xbm
 from ..ops.xpm import decode_xpm, is_xpm
+from ..ops.xvthumb import decode_xvthumb, is_xvthumb
 from .png import is_png, read_png, write_png
 
 # Image.open's order: (Pillow's format name, accept, decode)
+_ANY = lambda d: True  # noqa: E731 - a plugin Pillow registers without an accept function
 READERS = (
     ("BMP", is_bmp, decode_bmp), ("DIB", is_dib, lambda d: decode_bmp(d, dib=True)), ("GIF", is_gif, decode_gif),
     ("JPEG", is_jpeg, decode_jpeg), ("PPM", is_netpbm, decode_netpbm), ("PNG", is_png, read_png),
-    ("BLP", is_blp, decode_blp), ("CUR", is_cur, decode_cur), ("PCX", is_pcx, decode_pcx),
-    ("DCX", is_dcx, decode_dcx), ("FTEX", is_ftex, decode_ftex), ("ICO", is_ico, decode_ico),
-    ("IM", lambda d: True, decode_im), ("TIFF", is_tiff, decode_tiff), ("MSP", is_msp, decode_msp),
-    ("PSD", is_psd, decode_psd), ("QOI", is_qoi, decode_qoi), ("SGI", is_sgi, decode_sgi), ("SUN", is_sun, decode_sun),
-    ("TGA", is_tga, decode_tga), ("WEBP", is_webp, decode_webp), ("XBM", is_xbm, decode_xbm),
-    ("XPM", is_xpm, decode_xpm),
+    ("BLP", is_blp, decode_blp), ("BUFR", is_bufr, refuse_stub("BUFR")), ("CUR", is_cur, decode_cur),
+    ("PCX", is_pcx, decode_pcx), ("DCX", is_dcx, decode_dcx), ("FITS", is_fits, decode_fits),
+    ("FLI", is_fli, decode_fli), ("FTEX", is_ftex, decode_ftex), ("GBR", is_gbr, decode_gbr),
+    ("GRIB", is_grib, refuse_stub("GRIB")), ("HDF5", is_hdf5, refuse_stub("HDF5")), ("ICNS", is_icns, decode_icns),
+    ("ICO", is_ico, decode_ico), ("IM", _ANY, decode_im), ("IMT", _ANY, decode_imt), ("IPTC", _ANY, decode_iptc),
+    ("MCIDAS", is_mcidas, decode_mcidas), ("MPEG", is_mpeg, decode_mpeg), ("TIFF", is_tiff, decode_tiff),
+    ("MSP", is_msp, decode_msp), ("PCD", _ANY, decode_pcd), ("PIXAR", is_pixar, decode_pixar),
+    ("PSD", is_psd, decode_psd), ("QOI", is_qoi, decode_qoi), ("SGI", is_sgi, decode_sgi),
+    ("SPIDER", _ANY, decode_spider), ("SUN", is_sun, decode_sun), ("TGA", is_tga, decode_tga),
+    ("WEBP", is_webp, decode_webp), ("XBM", is_xbm, decode_xbm), ("XPM", is_xpm, decode_xpm),
+    ("XVThumb", is_xvthumb, decode_xvthumb),
 )
 
 _ENCODERS = {
