@@ -347,11 +347,11 @@ Phases (each raises on failure; nothing is caught):
      QOI, Sun raster, PNG in every form, BLP (CMYK JPEG too), FTEX, XBM,
      XPM, MSP, IM (YCC, planar and bit-decoded too), EPS, IPTC, PIXAR,
      SPIDER, FITS, McIDAS, GBR, PhotoCD, FLI/FLC, XV thumbnails, IM
-     Tools, ICNS, BUFR, GRIB, HDF5, MPEG, and the arithmetic, lossless,
+     Tools, ICNS (JPEG 2000 entries too), BUFR, GRIB, HDF5, MPEG, JPEG
+     2000 codestreams and JP2 files, and the arithmetic, lossless,
      subsampled lossless and CMYK/YCCK JPEGs) decoded on the host, equal
      to the digest of Pillow's decode in digests.json, refused where
-     Pillow refuses it (ICNS's JPEG 2000 entry refused where Pillow
-     decodes it, the open divergence); a 2048x2048 map of
+     Pillow refuses it; a 2048x2048 map of
      each format (ICO and CUR 256x256, an icon's largest size) made here
      (the port's writers; RLE, Deflate, PackBits, literal-code LZW,
      literal packets, one-byte runs, QOI_OP_RGB pixels, vertical stripes
@@ -374,8 +374,14 @@ Phases (each raises on failure; nothing is caught):
      headless --output in every new suffix
      at 1080p, read back by the port equal to the PNG output (the GIF, of
      more than 256 colours, within its median cut: the share of pixels
-     that differ and the largest channel error). `[formats]` lines, then
-     [time] lines.
+     that differ and the largest channel error); (d) JPEG 2000: a committed
+     2048x2048 lossy JP2 (about 0.5 bits a pixel) and a 512x512 lossless
+     codestream decoded on the host, equal to Pillow's digests, host
+     seconds each; the helmet at 1080p on the 2048x2048 map and on a PNG of
+     its decoded pixels, and on a 128x128 ICNS icon of a JPEG 2000 entry
+     and on a PNG of it: each pair equal bit for bit, with 10 traverse_bvh4
+     and 16 gather_channels launches. `[formats]` lines, then [time]
+     lines.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -4411,18 +4417,12 @@ def _formats_fixtures():
     """Phase 22a's fixtures: every committed file against Pillow's digests."""
     import hashlib
 
-    from vk_gltf_renderer_tpu_torch.native import image_lib, jpeg_lib, zstd_lib
-    from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec
+    from vk_gltf_renderer_tpu_torch.native import image_lib, j2k_lib, jpeg_lib, zstd_lib
     from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
 
-    image_lib(), jpeg_lib(), zstd_lib()  # built (or found) before the clock starts
+    image_lib(), jpeg_lib(), zstd_lib(), j2k_lib()  # built (or found) before the clock starts
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
-    for name in digests["divergences"]:  # decoded by Pillow, not yet by the port (ROADMAP C)
-        try:
-            read_image((IMAGE_FIXTURES / name).read_bytes())
-        except UnsupportedCodec:
-            continue
-        require(False, f"[formats] {name}: decoded, where the port does not read its codec yet")
+    require(not digests["divergences"], f"[formats] divergences listed: {sorted(digests['divergences'])}")
     counts = {"decoded": 0, "refused": 0}
     host_ms = {}
     for name, entry in sorted(digests["files"].items()):
@@ -4607,8 +4607,80 @@ def _formats_headless(device, tmp, hdr, smi):
     return res
 
 
+def _formats_jpeg2000(device, tmp, hdr, smi):
+    """Phase 22d: JPEG 2000. The committed maps that only this phase decodes
+    (a 2048x2048 lossy JP2, a 512x512 lossless codestream) equal to the
+    digests of Pillow's decode, host seconds each; then the helmet at 1080p
+    on the 2048x2048 map and on a PNG the port writes from the decoded
+    pixels, and on the ICNS icon whose ic07 entry is a JPEG 2000 codestream
+    and on a PNG of its pixels: each pair of frames equal bit for bit, with
+    10 traverse_bvh4 and 16 gather_channels launches a frame."""
+    import hashlib
+
+    from vk_gltf_renderer_tpu_torch.native import j2k_lib
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.image_io import identify_and_read
+
+    j2k_lib()  # built (or found) before the clock starts
+    digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
+    maps, pixels, raw = {}, {}, {}
+    for name, entry in sorted(digests["large"].items()):
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        t0 = time.perf_counter()
+        fmt, dec = identify_and_read(data)
+        secs = time.perf_counter() - t0
+        require(fmt == "JPEG2000" and list(dec.shape) == entry["shape"]
+                and hashlib.sha256(np.ascontiguousarray(dec).tobytes()).hexdigest() == entry["sha256"],
+                f"[formats] {name}: the decode differs from Pillow's digest")
+        h, w = dec.shape[:2]
+        maps[name] = dict(bytes=len(data), side=w, bits_per_pixel=8 * len(data) / (w * h), host_s=secs)
+        pixels[name], raw[name] = dec, data
+        log(f"[formats] (d) {name} {w}x{h}, {len(data)} bytes ({8 * len(data) / (w * h):.3f} bits a pixel): "
+            f"host decode {secs:.3f} s, equal to Pillow's digest; on {smi}")
+    icns = "icns_jpeg2000_ic07.icns"
+    icns_data = (IMAGE_FIXTURES / icns).read_bytes()
+    fmt, icns_px = identify_and_read(icns_data)
+    require(fmt == "ICNS" and hashlib.sha256(np.ascontiguousarray(icns_px).tobytes()).hexdigest()
+            == digests["files"][icns]["sha256"], f"[formats] {icns}: the decode differs from Pillow's digest")
+    lossy = "j2k_map_2048_lossy.jp2"
+    cases = [("png_jpeg2000_2048", encode_png(np.ascontiguousarray(pixels[lossy][..., :3])), "j2k_pixels.png", None),
+             ("jpeg2000_2048", raw[lossy], "base.jp2", "png_jpeg2000_2048"),
+             ("png_icns_jpeg2000", encode_png(np.ascontiguousarray(icns_px)), "icns_pixels.png", None),
+             ("icns_jpeg2000", icns_data, "base.icns", "png_icns_jpeg2000")]
+    d = os.path.join(tmp, "formats22d")
+    os.makedirs(d, exist_ok=True)
+    frames, firsts = {}, {}
+    for kind, data, name, ref in cases:
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(tscenes.helmet_with_texture(d, data, name))
+        r.create_hdr(hdr)
+        side, rows = r.dev_scene.tex_desc[0, 1:3].tolist()
+        want = pixels[lossy] if "2048" in kind else icns_px
+        require([rows, side] == list(want.shape[:2]), f"[formats] {kind}: the base colour did not decode")
+        tb4.COUNTER.launches = 0
+        tgather.COUNTER.launches = 0
+        times, _, first = _render_frames(r, 0, 1)
+        launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+        require(launches == {"traverse_bvh4": 10, "gather_channels": 16},
+                f"[formats] {kind}: launches a frame {launches}, not 10 and 16")
+        if ref is None:
+            firsts[kind] = first
+        else:
+            require(all(np.array_equal(a, b) for a, b in zip(first, firsts[ref])),
+                    f"[formats] the {kind} frame differs from the {ref} frame")
+        frames[kind] = dict(ms=1e3 * times[0], launches=launches, tex_side=side)
+        log(f"[formats] (d) helmet {FRAME_W}x{FRAME_H} with a {side}x{rows} {kind} base colour: "
+            f"{1e3 * times[0]:.2f} ms, traverse_bvh4 {launches['traverse_bvh4']} and gather_channels "
+            f"{launches['gather_channels']} launches" + (f"; equal to the {ref} frame bit for bit" if ref else "")
+            + f"; on {smi}")
+        del r
+    return dict(maps=maps, frames=frames)
+
+
 def phase_pillow_formats(device, tmp, hdr, smi):
-    """Phase 22: Pillow's other formats (the module docstring)."""
+    """Phase 22: Pillow's other formats and JPEG 2000 (the module docstring)."""
     t_phase = time.perf_counter()
     out = {"fixtures": _formats_fixtures()}
     out["maps"] = _formats_maps()
@@ -4616,6 +4688,9 @@ def phase_pillow_formats(device, tmp, hdr, smi):
     out["frames"] = _formats_frames(device, tmp, hdr, smi)
     log(f"[time] phase 22 (b) done at {time.perf_counter() - t_phase:.1f} s into the phase")
     out["headless"] = _formats_headless(device, tmp, hdr, smi)
+    j2k = _formats_jpeg2000(device, tmp, hdr, smi)
+    out["jpeg2000_maps"] = j2k["maps"]
+    out["frames"].update(j2k["frames"])
     out["launches_per_frame"] = out["frames"]["png"]["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[time] Pillow's other formats phase {out['seconds']:.1f} s")

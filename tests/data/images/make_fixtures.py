@@ -16,11 +16,15 @@ icons and cursors with DIB images, QOI ops, Sun raster; PNG at every
 depth, Adam7 and 16-bit RGB; ZSTD, old-style JPEG and CIELab TIFF, Lab
 PSD; BLP, FTEX, XBM, XPM, MSP and IM; IM's YCC, planar and bit-decoded
 types, BLP1 CMYK JPEG, IPTC, PIXAR, SPIDER, FITS, McIDAS, GBR, PhotoCD,
-FLI/FLC, XV thumbnails, IM Tools and ICNS). Some are files
+FLI/FLC, XV thumbnails, IM Tools and ICNS; JPEG 2000 codestreams and JP2
+files, from Pillow's encoder, with JP2 boxes written here, and from
+OpenJPEG's own encoder through openjpeg_encode.py for what Pillow's save
+cannot ask for). Some are files
 Pillow refuses, EPS among them (Pillow needs Ghostscript to load it). digests.json holds, for each file, the shape and
 sha256 of Pillow's decode (Image.open(f).convert("RGBA") as uint8 bytes),
 or that Pillow refuses it (and, under "divergences", the files Pillow
-decodes that the port does not read yet), so that the port can be held to Pillow where
+decodes where the port cannot match it; "large" the JPEG 2000 maps
+that only chip_smoke.py decodes), so that the port can be held to Pillow where
 Pillow is absent (chip_smoke.py's phase 22); tests/test_torch_images.py
 holds it to Pillow itself.
 
@@ -880,6 +884,10 @@ def jpeg() -> dict:
         "jpeg_ycck_adobe2.jpg": jpeg_from_planes(cmyk_to_ycck(cmyk), samp=[(2, 2), (1, 1), (1, 1), (2, 2)],
                                                  adobe=2, jfif=False),
         "jpeg_ycck_arith.jpg": jpeg_from_planes(cmyk_to_ycck(cmyk), adobe=2, jfif=False, arith=True),
+        "jpeg_arith_progressive_restart.jpg": jpeg_from_planes(ycc, samp=[(2, 2), (1, 1), (1, 1)], arith=True,
+                                                               progressive=True, restart=2),
+        "jpeg_ycck_arith_restart.jpg": jpeg_from_planes(cmyk_to_ycck(cmyk), adobe=2, jfif=False, arith=True,
+                                                        restart=2),
     }
     for hs, vs in ((2, 2), (2, 1), (1, 2)):
         cw, ch = -(-45 // hs), -(-37 // vs)
@@ -1703,8 +1711,8 @@ def xvthumb_imt() -> dict:
 def icns() -> dict:
     """ICNS: is32 RLE with its s8mk mask beside il32 + l8mk (the larger
     picked), it32 with its prefix and t8mk, raw ih32, an ic07 PNG entry
-    beside it32; refused: RLE that passes its channel; a JPEG 2000 entry
-    (an open divergence: Pillow decodes it, the port does not yet)."""
+    beside it32; refused: RLE that passes its channel (the JPEG 2000
+    entries: icns_jpeg2000)."""
     from vk_gltf_renderer_tpu_torch.scenes import icns_file, icns_rle, png_file
 
     def rle(img):
@@ -1726,12 +1734,225 @@ def icns() -> dict:
     return out
 
 
-def icns_divergences() -> dict:
-    b = io.BytesIO()
-    Image.fromarray(smooth(32, 32, 222)).save(b, "JPEG2000")
+def icns_jpeg2000() -> dict:
+    """ICNS JPEG 2000 entries: a JP2 file as ic11 (32x32), a raw codestream
+    with alpha as ic07 (128x128)."""
     from vk_gltf_renderer_tpu_torch.scenes import icns_file
 
-    return {"icns_jpeg2000.icns": icns_file([(b"ic11", b.getvalue())])}
+    return {"icns_jpeg2000.icns": icns_file([(b"ic11", pillow(Image.fromarray(smooth(32, 32, 222)), "JPEG2000"))]),
+            "icns_jpeg2000_ic07.icns": icns_file([(b"ic07", pillow(Image.fromarray(smooth(128, 128, 223, 4)),
+                                                                   "JPEG2000", no_jp2=True, irreversible=True))])}
+
+
+# ------------------------------------------------------------------ JPEG 2000
+
+
+def box(kind: bytes, body: bytes, xl=False, zero=False) -> bytes:
+    """A JP2 box: its length (XL when xl, 0 when zero: to the end of the file), type and body."""
+    if zero:
+        return struct.pack(">I", 0) + kind + body
+    if xl:
+        return struct.pack(">I", 1) + kind + struct.pack(">Q", 16 + len(body)) + body
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_file(cs: bytes, w: int, h: int, nc: int, bpc: int = 7, enumcs=16, extra=b"", xl=False, zero=False) -> bytes:
+    """A JP2 file around a codestream: signature, ftyp, jp2h (ihdr, colr of
+    enumerated space `enumcs`, then `extra` boxes), jp2c."""
+    ihdr = box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    colr = box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs))
+    return (box(b"jP  ", b"\x0d\x0a\x87\x0a") + box(b"ftyp", b"jp2 " + struct.pack(">I", 0) + b"jp2 ")
+            + box(b"jp2h", ihdr + colr + extra, xl=xl) + box(b"jp2c", cs, zero=zero))
+
+
+def jpeg2000() -> dict:
+    """JPEG 2000 written by Pillow's encoder (OpenJPEG): reversible and
+    irreversible, the multiple component transform on and off, all five
+    progressions with precincts and 16x16 code-blocks, one and six
+    resolutions with 64x64 code-blocks, tiles with image and tile offsets,
+    quality layers, PLT markers, odd sizes, L, LA, RGB, RGBA, 16-bit I;16
+    and signed samples, raw codestreams and JP2 files; JP2 boxes written
+    here around Pillow's codestreams (sYCC and CMYK colr, pclr + cmap for P
+    and PA, cdef with alpha first, an XL box length and a last box of
+    length 0); a CAP marker (Part 15) before COD, read past as OpenJPEG
+    does; refused: a header cut short, a bad SIZ, the colour space gray
+    for three components, and codestreams cut short (with and without
+    their EOC: OpenJPEG's strict mode fails them); a COD whose code-blocks
+    say HT (Part 15)."""
+    def j2k(img, mode=None, **kw):
+        return pillow(Image.fromarray(img, mode) if mode else Image.fromarray(img), "JPEG2000", **kw)
+
+    rgb, rgba, odd = smooth(61, 47, 601), smooth(40, 30, 602, 4), smooth(37, 45, 603)
+    gray = smooth(37, 45, 604, 1)[..., 0]
+    la = smooth(33, 20, 605, 2)
+    i16 = (smooth(37, 45, 606, 1)[..., 0].astype(np.uint16) * 257) ^ np.uint16(0x5A)
+    out = {}
+    for irr in (False, True):
+        t = "irr" if irr else "rev"
+        for prog in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+            out[f"j2k_{t}_{prog.lower()}_precincts.jp2"] = j2k(rgb, irreversible=irr, progression=prog,
+                                                              precinct_size=(32, 32), codeblock_size=(16, 16))
+        out[f"j2k_{t}_tiles_offsets_layers.j2k"] = j2k(smooth(70, 50, 607), irreversible=irr, no_jp2=True,
+                                                        tile_size=(32, 24), tile_offset=(3, 5), offset=(7, 9),
+                                                        quality_mode="rates", quality_layers=[30, 8, 2], plt=True)
+        out[f"j2k_{t}_mct_off.jp2"] = j2k(odd, irreversible=irr, mct=0)
+        out[f"j2k_{t}_one_resolution.j2k"] = j2k(gray, irreversible=irr, num_resolutions=1, no_jp2=True)
+        out[f"j2k_{t}_six_resolutions.jp2"] = j2k(smooth(100, 90, 608), irreversible=irr, num_resolutions=6,
+                                                  codeblock_size=(64, 64))
+        out[f"j2k_{t}_rgba.jp2"] = j2k(rgba, irreversible=irr)
+        out[f"j2k_{t}_la.j2k"] = j2k(la, "LA", irreversible=irr, no_jp2=True)
+        out[f"j2k_{t}_i16.jp2"] = j2k(i16, "I;16", irreversible=irr)
+        out[f"j2k_{t}_signed.j2k"] = j2k(gray, irreversible=irr, signed=True, no_jp2=True)
+    out["j2k_irr_dB_layer.jp2"] = j2k(odd, irreversible=True, quality_mode="dB", quality_layers=[38])
+    out["j2k_rev_l_odd.jp2"] = j2k(gray)
+    out["j2k_rev_one_row.jp2"] = j2k(smooth(9, 1, 609))
+    out["j2k_rev_comment.j2k"] = j2k(odd, no_jp2=True, comment="a comment segment")
+    # JP2 boxes written here around Pillow's codestreams
+    cs3 = j2k(odd, irreversible=True, mct=0, no_jp2=True)
+    out["j2k_box_sycc.jp2"] = jp2_file(cs3, 37, 45, 3, enumcs=18)
+    out["j2k_refused_gray_colr_rgb.jp2"] = jp2_file(cs3, 37, 45, 3, enumcs=17)
+    out["j2k_box_xl_and_zero_length.jp2"] = jp2_file(cs3, 37, 45, 3, xl=True, zero=True)
+    cs4 = j2k(rgba, mct=0, no_jp2=True)
+    out["j2k_box_cmyk.jp2"] = jp2_file(cs4, 40, 30, 4, enumcs=12)
+    cdef = box(b"cdef", struct.pack(">H", 4) + b"".join(struct.pack(">HHH", i, t, a) for i, t, a in
+                                                         ((0, 1, 0), (1, 0, 1), (2, 0, 2), (3, 0, 3))))
+    out["j2k_box_cdef_alpha_first.jp2"] = jp2_file(cs4, 40, 30, 4, extra=cdef)
+    idx = (smooth(37, 45, 610, 1)[..., 0] // 40).astype(np.uint8)  # 7 indices
+    pal = smooth(8, 1, 611)[0]
+    pal[5] = pal[2]  # a repeated entry: Pillow's getcolor keeps the first
+    pclr = box(b"pclr", struct.pack(">HB", 8, 3) + bytes([7, 7, 7]) + pal.tobytes())
+    cmap = box(b"cmap", struct.pack(">HBB", 0, 1, 0) + struct.pack(">HBB", 0, 1, 1) + struct.pack(">HBB", 0, 1, 2))
+    out["j2k_box_pclr.jp2"] = jp2_file(j2k(idx, no_jp2=True), 37, 45, 1, extra=pclr + cmap)
+    ia = np.stack([idx, smooth(37, 45, 612, 1)[..., 0]], -1)
+    out["j2k_box_pclr_alpha.jp2"] = jp2_file(j2k(ia, "LA", no_jp2=True), 37, 45, 2, extra=pclr + cmap)
+    # refused by Pillow
+    cs = j2k(odd, no_jp2=True)
+    out["j2k_refused_cut_in_siz.j2k"] = cs[:20]
+    bad = bytearray(cs)
+    bad[40:42] = b"\x00\x07"  # Csiz 7: no mode for it
+    out["j2k_refused_bad_siz.j2k"] = bytes(bad)
+    cod = cs.index(b"\xff\x52")
+    out["j2k_cap_marker.j2k"] = cs[:cod] + b"\xff\x50\x00\x08\x00\x02\x00\x00\x00\x00" + cs[cod:]
+    ht = bytearray(cs)
+    ht[cod + 12] |= 0x40  # Part 15's HT code-blocks: the port refuses them (ROADMAP A)
+    out["j2k_refused_ht_codeblocks.j2k"] = bytes(ht)
+    # cut short
+    big = j2k(smooth(64, 64, 613), irreversible=True, no_jp2=True)
+    out["j2k_refused_cut_half_no_eoc.j2k"] = big[: len(big) // 2]
+    out["j2k_refused_cut_half_eoc.j2k"] = big[: len(big) // 2] + b"\xff\xd9"
+    return out
+
+
+def packed_headers(cs: bytes, where: str) -> bytes:
+    """A one-tile-part codestream with SOP and EPH markers rewritten with
+    its packet headers packed into a PPM marker (where "ppm", in the main
+    header) or a PPT marker (where "ppt", in the tile-part header): each
+    packet's header runs from after its SOP to its EPH, included (bit
+    stuffing keeps FF 92 out of a header, the MQ coder out of a body)."""
+    sot = cs.index(b"\xff\x90")
+    sod = cs.index(b"\xff\x93", sot)
+    body = cs[sod + 2 : -2]
+    assert body[:2] == b"\xff\x91" and cs[-2:] == b"\xff\xd9" and b"\xff\x90" not in cs[sot + 2 :]
+    headers, data, at = bytearray(), bytearray(), 0
+    while at < len(body):
+        eph = body.index(b"\xff\x92", at) + 2
+        nxt = body.find(b"\xff\x91", eph)
+        nxt = len(body) if nxt < 0 else nxt
+        data += body[at : at + 6] + body[eph:nxt]
+        headers += body[at + 6 : eph]
+        at = nxt
+    if where == "ppm":
+        main = cs[:sot] + b"\xff\x60" + struct.pack(">HB", 7 + len(headers), 0) + struct.pack(">I", len(headers)) + headers
+        tph = cs[sot + 12 : sod]
+    else:
+        main = cs[:sot]
+        tph = cs[sot + 12 : sod] + b"\xff\x61" + struct.pack(">HB", 3 + len(headers), 0) + headers
+    psot = 12 + len(tph) + 2 + len(data)
+    return main + cs[sot : sot + 6] + struct.pack(">I", psot) + cs[sot + 10 : sot + 12] + tph + b"\xff\x93" + data + cs[-2:]
+
+
+def restated_headers(cs: bytes) -> bytes:
+    """A one-tile-part codestream of three components with its COD and QCD
+    restated: a COC and a QCC for component 1 in the main header, and the
+    COD and QCD again in the tile-part header (the same values: the
+    pixels stay, the markers are read)."""
+    def seg(marker):
+        at = cs.index(marker)
+        return cs[at : at + 2 + struct.unpack_from(">H", cs, at + 2)[0]]
+
+    cod, qcd = seg(b"\xff\x52"), seg(b"\xff\x5c")
+    coc = b"\xff\x53" + struct.pack(">H", 4 + len(cod) - 9) + b"\x01" + bytes([cod[4] & 1]) + cod[9:]
+    qcc = b"\xff\x5d" + struct.pack(">H", len(qcd) - 4 + 2 + 1) + b"\x01" + qcd[4:]
+    sot = cs.index(b"\xff\x90")
+    psot = struct.unpack_from(">I", cs, sot + 6)[0] + len(cod) + len(qcd)
+    return (cs[:sot] + coc + qcc + cs[sot : sot + 6] + struct.pack(">I", psot) + cs[sot + 10 : sot + 12] + cod + qcd
+            + cs[sot + 12 :])
+
+
+def jpeg2000_openjpeg() -> dict:
+    """JPEG 2000 codestreams that OpenJPEG's encoder writes when asked
+    through its own parameters (openjpeg_encode.py; Pillow's save has no
+    such options): each code-block style bit alone and all together,
+    reversible and irreversible (bypass, reset, termination on each pass,
+    vertically causal contexts, predictable termination, segmentation
+    symbols), SOP and EPH markers, packed packet headers (PPM, PPT:
+    packed_headers), COC, QCC and a tile-part header's COD and QCD
+    (restated_headers), a region of interest (maxshift),
+    progression order changes, per-resolution precincts, and 4:2:0 and
+    4:2:2 subsampled components at odd sizes (Pillow takes them for
+    sYCC)."""
+    from openjpeg_encode import encode
+
+    rgb = smooth(53, 41, 700)
+    planes = [rgb[..., c] for c in range(3)]
+    out = {}
+    for mode in (1, 2, 4, 8, 16, 32, 63):
+        for irr in (False, True):
+            out[f"j2k_opj_style_{mode}_{'irr' if irr else 'rev'}.j2k"] = encode(planes, mode=mode, irreversible=irr,
+                                                                               cblk=(16, 16), numres=4)
+    out["j2k_opj_sop_eph.j2k"] = encode(planes, sop=True, eph=True, cblk=(16, 16))
+    layered = encode(planes, sop=True, eph=True, rates=[40, 12, 4], irreversible=True, cblk=(16, 16))
+    out["j2k_opj_ppm.j2k"] = packed_headers(layered, "ppm")
+    out["j2k_opj_ppt.j2k"] = packed_headers(layered, "ppt")
+    out["j2k_opj_tile_parts_by_resolution.j2k"] = encode(planes, tiles=(32, 24), tile_parts="R", numres=3,
+                                                         cblk=(16, 16))
+    one = encode(planes, cblk=(16, 16))
+    sot = one.index(b"\xff\x90")
+    out["j2k_opj_psot_zero.j2k"] = one[: sot + 6] + bytes(4) + one[sot + 10 :]  # the last tile-part runs to EOC
+    out["j2k_opj_coc_qcc_tile_header.j2k"] = restated_headers(encode(planes, irreversible=True, rates=[12],
+                                                                     precincts=[(32, 32), (16, 16)], cblk=(16, 16)))
+    out["j2k_opj_eph_layers_irr.j2k"] = encode(planes, eph=True, rates=[30, 10, 3], irreversible=True)
+    out["j2k_opj_roi_rev.j2k"] = encode(planes, roi=(0, 6), cblk=(16, 16))
+    out["j2k_opj_roi_irr.j2k"] = encode(planes, roi=(1, 7), irreversible=True, rates=[20])
+    out["j2k_opj_poc.j2k"] = encode(planes, pocs=[(0, 0, 1, 2, 3, "RPCL"), (2, 0, 1, 6, 3, "CPRL")])
+    out["j2k_opj_precincts_rpcl.j2k"] = encode(planes, precincts=[(32, 32), (16, 16), (8, 8)], prog="RPCL",
+                                               cblk=(8, 8))
+    out["j2k_opj_ycc420_rev.j2k"] = encode([rgb[..., 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2]],
+                                           sub=[(1, 1), (2, 2), (2, 2)])
+    out["j2k_opj_ycc420_irr.j2k"] = encode([rgb[..., 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2]],
+                                           sub=[(1, 1), (2, 2), (2, 2)], irreversible=True)
+    out["j2k_opj_ycc422.j2k"] = encode([rgb[..., 0], rgb[:, ::2, 1], rgb[:, ::2, 2]], sub=[(1, 1), (2, 1), (2, 1)])
+    # precisions past 8 bits and below: Pillow's shifts to 8 bits (with its rounding offset), to 16 for I;16
+    wide = rgb.astype(np.int64) * 16 + smooth(53, 41, 701) % 16
+    out["j2k_opj_gray12.j2k"] = encode([wide[..., 0]], prec=12)
+    out["j2k_opj_rgb12_irr.j2k"] = encode([wide[..., c] for c in range(3)], prec=12, irreversible=True)
+    out["j2k_opj_rgb5_signed.j2k"] = encode([(rgb[..., c] >> 3).astype(np.int64) - 16 for c in range(3)], prec=5,
+                                            signed=True)
+    return out
+
+
+def jpeg2000_large() -> dict:
+    """The maps chip_smoke.py times (not in the CPU tests): a 2048x2048
+    lossy JP2 at about 0.5 bits a pixel and a 512x512 lossless codestream,
+    of scenes.texture_image."""
+    from vk_gltf_renderer_tpu_torch.scenes import texture_image
+
+    def j2k(img, **kw):
+        return pillow(Image.fromarray(img), "JPEG2000", **kw)
+
+    return {"j2k_map_2048_lossy.jp2": j2k(texture_image(2048, seed=7)[..., :3], irreversible=True,
+                                          quality_mode="rates", quality_layers=[48]),
+            "j2k_map_512_lossless.j2k": j2k(texture_image(512, seed=3)[..., :3], no_jp2=True)}
 
 
 def stubs() -> dict:
@@ -1753,19 +1974,21 @@ def fixtures() -> dict:
     return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **libtiff(), **libtiff_lab_zstd_ojpeg(), **jpeg(), **psd(),
             **sgi(), **pcx(), **ico(), **qoi(), **sun(), **png(), **blp(), **ftex(), **xbm(), **xpm(), **msp(), **im(),
             **eps(), **im_repaired(), **blp_cmyk(), **iptc(), **pixar_spider(), **fits(), **mcidas_gbr(), **pcd(),
-            **fli(), **xvthumb_imt(), **icns(), **stubs()}
+            **fli(), **xvthumb_imt(), **icns(), **stubs(), **icns_jpeg2000(), **jpeg2000(), **jpeg2000_openjpeg()}
 
 
 def main():
-    digests = {"pillow": Image.__version__, "files": {}, "divergences": {}}
+    digests = {"pillow": Image.__version__, "files": {}, "divergences": {}, "large": {}}
     for old in HERE.iterdir():
         if old.suffix in (".bmp", ".dib", ".tga", ".gif", ".tif", ".ppm", ".pgm", ".pbm", ".pfm", ".pam", ".jpg", ".psd",
                           ".sgi", ".rgb", ".bw", ".pcx", ".dcx", ".ico", ".cur", ".qoi", ".ras", ".eps", ".png", ".blp",
                           ".ftc", ".ftu", ".xbm", ".xpm", ".msp", ".im", ".iim", ".pxr", ".spi", ".fits", ".area",
-                          ".gbr", ".pcd", ".fli", ".flc", ".xv", ".imt", ".icns", ".bufr", ".grib", ".h5", ".mpg"):
+                          ".gbr", ".pcd", ".fli", ".flc", ".xv", ".imt", ".icns", ".bufr", ".grib", ".h5", ".mpg", ".jp2",
+                          ".j2k"):
             old.unlink()
-    # "divergences": files Pillow decodes and the port refuses until it reads their codec (ROADMAP C)
-    for group, files in (("files", fixtures()), ("divergences", icns_divergences())):
+    # "divergences": files Pillow decodes where the port cannot match it (ROADMAP C); "large": the maps only
+    # chip_smoke.py decodes
+    for group, files in (("files", fixtures()), ("large", jpeg2000_large())):
         for name, data in files.items():
             (HERE / name).write_bytes(data)
             try:

@@ -15,13 +15,15 @@ ops/imagemodes.py) against Pillow 12.1.0 and the JAX package, on the CPU.
   old-style JPEG codecs, CIELab TIFF and Lab PSD, PNG beyond 8-bit gray
   and colour, BLP (CMYK JPEG too), FTEX, XBM, XPM, MSP, IM (YCC, planar
   and bit-decoded types too), IPTC, PIXAR, SPIDER, FITS, McIDAS, GBR,
-  PhotoCD, FLI/FLC, XV thumbnails, IM Tools and ICNS; BUFR, GRIB, HDF5 and
-  MPEG are white in both. ICNS's JPEG 2000 entry is the one open
-  divergence: Pillow decodes it, the port does not yet.
+  PhotoCD, FLI/FLC, XV thumbnails, IM Tools, ICNS (its JPEG 2000 entries
+  too) and JPEG 2000 (tests/test_torch_jpeg2000.py has more); BUFR, GRIB,
+  HDF5 and MPEG are white in both.
 - Every TIFF and JPEG fixture, cut at a quarter, a half and three
   quarters, with a strip cut short, a tag past the end or its EOI
-  dropped, is white in both texture decoders or decodes to the same
-  pixels (libtiff's and libjpeg's recoveries).
+  dropped, and each arithmetic-coded JPEG with restart markers with the
+  second half of a scan dropped, is white in both texture decoders or
+  decodes to the same pixels (libtiff's and libjpeg's recoveries; a CCITT
+  strip up to the row where its data end, that row included).
 - Identification follows Image.open, in its order: data that no reader
   claims, TGA headers that fail Pillow's checks, TGA headers that PCX,
   CUR or ICO claim first, data IM's header parser takes or passes on, and
@@ -43,8 +45,8 @@ ops/imagemodes.py) against Pillow 12.1.0 and the JAX package, on the CPU.
   the shell alive, as the reference's shell does.
 - A glTF whose base colour is BMP, TGA, TIFF, GIF, PPM, PSD, SGI, PCX,
   DCX, ICO, CUR, QOI, Sun raster, subsampled lossless JPEG, an Adam7
-  palette PNG, a DXT5 BLP, an old-style JPEG TIFF, FITS, FLC, PhotoCD
-  or ICNS renders 48x32
+  palette PNG, a DXT5 BLP, an old-style JPEG TIFF, FITS, FLC, PhotoCD,
+  ICNS or JPEG 2000 (9/7) renders 48x32
   frames that agree with the JAX renderer's at tests/test_torch_frame.py's
   thresholds, and headless --output writes each suffix, read back equal to
   the PNG output.
@@ -136,7 +138,7 @@ def test_fixture_decodes_as_the_jax_package(name):
 @pytest.mark.parametrize("fmt", ["bmp", "tga", "gif", "tiff", "ppm", "psd", "sgi", "pcx", "ico", "cur", "qoi", "sun",
                                  "eps", "png", "blp", "ftex", "xbm", "xpm", "msp", "im", "iptc", "pixar", "spider",
                                  "fits", "mcidas", "gbr", "pcd", "fli", "xvthumb", "imt", "icns", "bufr", "grib", "hdf5",
-                                 "mpeg"])
+                                 "mpeg", "j2k"])
 def test_refused_fixtures_load_white_in_both_packages(fmt, tmp_path):
     names = sorted(n for n, e in DIGESTS["files"].items() if n.startswith(fmt + "_") and "refused" in e)
     assert names
@@ -372,17 +374,20 @@ def test_photo_ycc_matches_pillow():
 
 
 def test_icns_jpeg2000_entry_is_an_open_divergence():
-    """An ICNS whose only entry is JPEG 2000: Pillow (built with OpenJPEG)
-    decodes it to its digest, the port raises UnsupportedCodec until it
-    reads JPEG 2000 (ROADMAP C), so its texture is white in the port."""
-    from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec
-
-    for name, entry in DIGESTS["divergences"].items():
+    """ICNS icons whose only entry is JPEG 2000 (a JP2 file as ic11, a raw
+    codestream with alpha as ic07): Pillow (built with OpenJPEG) decodes
+    each to its digest, and so does the port (ops/jpeg2000.py); no fixture
+    is left under digests.json's "divergences" that the port does not
+    read."""
+    names = sorted(n for n in DIGESTS["files"] if n.startswith("icns_jpeg2000"))
+    assert len(names) == 2 and not DIGESTS["divergences"]
+    for name in names:
         data = (FIXTURES / name).read_bytes()
+        entry = DIGESTS["files"][name]
         ref = _pillow_rgba(data)
         assert list(ref.shape) == entry["shape"] and hashlib.sha256(ref.tobytes()).hexdigest() == entry["sha256"]
-        with pytest.raises(UnsupportedCodec, match="JPEG 2000"):
-            read_image(data)
+        fmt, got = identify_and_read(data)
+        assert fmt == "ICNS" and np.array_equal(_rgba(got), ref), name
 
 
 # ------------------------------------------------------------ damaged TIFF and JPEG data
@@ -430,23 +435,49 @@ def _tag_past_end(data):
     return bytes(out)
 
 
+def _scans(data):
+    """(start, end) of each JPEG scan's entropy-coded data."""
+    out, i = [], 2
+    while i + 4 <= len(data):
+        if data[i] != 0xFF or data[i + 1] in (0xD8, 0xD9):
+            break
+        length = (data[i + 2] << 8) | data[i + 3]
+        if data[i + 1] != 0xDA:
+            i += 2 + length
+            continue
+        start = end = i + 2 + length
+        while end + 1 < len(data) and not (data[end] == 0xFF and data[end + 1] != 0 and not 0xD0 <= data[end + 1] <= 0xD7):
+            end += 1
+        out.append((start, end))
+        i = end
+    return out
+
+
 def _mutations(name, data):
     """A fixed set of damaged copies: the file cut at 1/4, 1/2 and 3/4; a
     TIFF's strip cut short and a tag whose values run past the end; a
-    JPEG's end-of-image marker dropped."""
+    JPEG's end-of-image marker dropped; for an arithmetic-coded JPEG with
+    restart markers, each scan with the second half of its data dropped
+    (the markers after it kept: libjpeg's resync meets the next scan's
+    marker or the EOI where it wants an RSTn)."""
     out = {f"cut_{k}_4": data[: len(data) * k // 4] for k in (1, 2, 3)}
     if name.startswith("tiff_"):
         out["strip_cut_short"], out["tag_past_end"] = _strip_cut_short(data), _tag_past_end(data)
     else:
         out["no_eoi"] = data[:-2] if data.endswith(b"\xff\xd9") else None
+        if b"\xff\xdd" in data and (b"\xff\xc9" in data or b"\xff\xca" in data):
+            for k, (start, end) in enumerate(_scans(data)):
+                out[f"scan_{k}_half_dropped"] = data[: start + (end - start) // 2] + data[end:]
     return {k: v for k, v in out.items() if v is not None}
 
 
 def _undamaged_rows(damaged, undamaged):
     """The rows of Pillow's decode of a damaged CCITT strip before the
-    first row that differs from the undamaged file's decode: libtiff stops
-    there and leaves the strip's later rows unwritten (Pillow shows
-    whatever its buffer held, different from run to run)."""
+    first row that differs from the undamaged file's decode: the row where
+    the data end (libtiff fills it with the runs it decoded from the bits
+    left, padded with zeros); libtiff stops there and may leave the
+    strip's later rows unwritten (Pillow shows whatever its buffer held,
+    different from run to run)."""
     differ = np.flatnonzero((damaged != undamaged).any(axis=(1, 2)))
     return int(differ[0]) if len(differ) else damaged.shape[0]
 
@@ -482,7 +513,7 @@ def test_damaged_data_decodes_or_fails_as_the_jax_package(name):
         assert got.shape == ref.shape, (name, kind)
         if ccitt and kind == "strip_cut_short":
             k = _undamaged_rows(_pillow_rgba(damaged), _pillow_rgba(data))
-            assert k > 0 and np.array_equal(got[:k], ref[:k]), (name, kind, k)
+            assert k > 0 and np.array_equal(got[: k + 1], ref[: k + 1]), (name, kind, k)
         else:
             assert np.array_equal(got, ref), (name, kind)
 
@@ -599,7 +630,8 @@ FRAME_FIXTURES = ["bmp_palette8.bmp", "tga_rgb24_rle.tga", "tiff_tiles_lzw.tif",
                   "dcx_one_page.dcx", "ico_bmp24_mask.ico", "cur_bmp8.cur", "qoi_rgb_runs.qoi", "sun_rle_bgr24.ras",
                   "tiff_lzma_rgb.tif", "tiff_group4_300x200.tif", "tiff_ycbcr_22_8.tif",
                   "jpeg_lossless_2x2_interleaved.jpg", "png_palette8_adam7.png", "blp2_dxt5.blp",
-                  "tiff_libtiff_old_jpeg.tif", "fits_8.fits", "flc_brun.flc", "pcd_90.pcd", "icns_it32_mask.icns"]
+                  "tiff_libtiff_old_jpeg.tif", "fits_8.fits", "flc_brun.flc", "pcd_90.pcd", "icns_it32_mask.icns",
+                  "j2k_irr_six_resolutions.jp2"]
 W, H, DEPTH = 48, 32, 5
 
 

@@ -6,15 +6,16 @@ imports nothing of the JAX package, the JPEG entropy coder of
 ops/jpeg.py (jpeg_entropy.cpp), the WebP pixel codec of ops/webp.py
 (webp_decode.cpp), the LZW, PackBits and RLE coders of the BMP, TGA,
 GIF and TIFF readers, the GIF writer and the PNG unfilter
-(image_coders.cpp), and the Zstandard decoder of the TIFF reader
-(zstd_decode.cpp). Each library is built by g++ at first use
+(image_coders.cpp), the Zstandard decoder of the TIFF reader
+(zstd_decode.cpp), and the JPEG 2000 codestream decoder of ops/jpeg2000.py
+(j2k_decode.cpp). Each library is built by g++ at first use
 into ``build/native/`` at the repository root (listed in .gitignore),
 named by a hash of its source, and renamed into place once complete, so
 that concurrent builders never load half a file. The BVH functions return
 None when their library cannot be built; ops/bvh_flatten.py then takes its
 numpy oracle, and refuses scenes too large for it rather than waiting on a
 Python loop. The image coders have no such oracle: jpeg_lib, webp_lib,
-image_lib and zstd_lib raise when their build fails.
+image_lib, zstd_lib and j2k_lib raise when their build fails.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ _JPEG_SRC = Path(__file__).parent / "jpeg_entropy.cpp"
 _WEBP_SRC = Path(__file__).parent / "webp_decode.cpp"
 _IMAGE_SRC = Path(__file__).parent / "image_coders.cpp"
 _ZSTD_SRC = Path(__file__).parent / "zstd_decode.cpp"
+_J2K_SRC = Path(__file__).parent / "j2k_decode.cpp"
 _CACHE = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 _lib = None
 _lib_failed = False
@@ -40,6 +42,7 @@ _jpeg = None
 _webp = None
 _image = None
 _zstd = None
+_j2k = None
 
 
 def _compile(src_path: Path, defines: tuple = ()) -> Path:
@@ -160,6 +163,15 @@ def zstd_lib():
     if _zstd is None:
         _zstd = _load_coder(_ZSTD_SRC, {"vkgr_zstd_decode": [_VP, _I64, _VP, _I64, _VP]})
     return _zstd
+
+
+def j2k_lib():
+    """The JPEG 2000 codestream decoder (j2k_decode.cpp), built at first use
+    (_load_coder: RuntimeError when it cannot be built or loaded)."""
+    global _j2k
+    if _j2k is None:
+        _j2k = _load_coder(_J2K_SRC, {"vkgr_j2k_decode": [_VP, _I64, _VP, _I64, _VP]})
+    return _j2k
 
 
 def get_lib():

@@ -137,7 +137,38 @@ struct FaxTable {
 struct FaxBits {
   const uint8_t* p;
   int64_t n, pos = 0;  // pos in bits
+  int64_t loaded = -1;  // libtiff's bits loaded so far (BitsAvail + pos), padding included; -1: not started
   int bit() { return pos < n * 8 ? (p[pos >> 3] >> (7 - (pos++ & 7))) & 1 : -1; }
+  // a bit, zero past the end of the data (libtiff's zero padding)
+  int bitz() {
+    const int b = pos < n * 8 ? (p[pos >> 3] >> (7 - (pos & 7))) & 1 : 0;
+    ++pos;
+    return b;
+  }
+  int peekz(int k) const {
+    int v = 0;
+    for (int64_t q = pos; q < pos + k; ++q) v = (v << 1) | (q < n * 8 ? (p[q >> 3] >> (7 - (q & 7))) & 1 : 0);
+    return v;
+  }
+  // libtiff's NeedBits(k): false where no bit is left (its EOF), else
+  // pads the bits left with zeros up to k past the end of the data
+  bool need(int k) {
+    if (loaded < 0) loaded = n * 8;
+    if (pos + k <= loaded) return true;
+    if (pos >= loaded) return false;
+    loaded = pos + k;
+    return true;
+  }
+  // one code of `t` over zero-padded bits: its value or kNoCode
+  int code_z(const FaxTable& t) {
+    int c = 0;
+    for (int len = 1; len <= kFaxMaxLen; ++len) {
+      c = (c << 1) | bitz();
+      int16_t v = t.lut[(size_t(len) << kFaxMaxLen) | c];
+      if (v != kNoCode) return v;
+    }
+    return kNoCode;
+  }
   // one code of `t`: its value, kNoCode for bits no code has, -32767 at the end of the data
   int code(const FaxTable& t) {
     int c = 0;
@@ -253,6 +284,150 @@ void fax_fill(const std::vector<int>& cur, int w, uint8_t* row) {
     for (int x = x0; x < x1 && x < w; ++x) row[x >> 3] |= uint8_t(0x80 >> (x & 7));
   }
 }
+
+// One T.6 row as libtiff's EXPAND2D decodes it, in run lengths (white,
+// black, ... as libtiff keeps them) against the reference row's runs:
+// b1 walks the reference runs (CHECK_b1), a pass adds to a pending run,
+// the lookups pad the bits left with zeros past the end of the data
+// (NeedBits) and meet the end only when no bit is left. Returns 0 for a
+// whole row, 1 where the data end (eof2d: CLEANUP_RUNS, libtiff fills
+// the row and stops) or an EOL is read (the row's rest its colour at that
+// point), 2 for a code that is bad only in the zero padding (libtiff
+// fills the row and goes on), -1 for a bad code inside the data.
+int fax4_row(FaxBits& br, int w, const std::vector<int>& ref, std::vector<int>& runs) {
+  runs.clear();
+  const int64_t lastx = w;
+  int64_t a0 = 0, run_length = 0;
+  size_t pb = 0;
+  int64_t b1 = ref[pb++];
+  auto refrun = [&](size_t i) -> int64_t { return i < ref.size() ? ref[i] : 0; };
+  auto setvalue = [&](int64_t x) {
+    runs.push_back(int(run_length + x));
+    a0 += x;
+    run_length = 0;
+  };
+  auto check_b1 = [&]() {  // false past the reference runs (libtiff's "Buffer overflow")
+    if (!runs.empty())
+      while (b1 <= a0 && b1 < lastx) {
+        if (pb >= ref.size()) return false;
+        b1 += refrun(pb) + refrun(pb + 1);
+        pb += 2;
+      }
+    return true;
+  };
+  auto cleanup = [&]() {
+    if (run_length) setvalue(0);
+    if (a0 != lastx) {
+      while (a0 > lastx && !runs.empty()) {
+        a0 -= runs.back();
+        runs.pop_back();
+      }
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if (runs.size() & 1) setvalue(0);
+        setvalue(lastx - a0);
+      } else if (a0 > lastx) {
+        setvalue(lastx);
+        setvalue(0);
+      }
+    }
+  };
+  // a bad code: refused inside the data, libtiff's "unexpected" then CLEANUP_RUNS in the padding
+  auto bad = [&]() -> int {
+    if (br.pos <= br.n * 8) return -1;
+    cleanup();
+    return 2;
+  };
+  while (a0 < lastx) {
+    if (!br.need(7)) {
+      cleanup();
+      return 1;
+    }
+    const int peek = br.peekz(7);
+    if (peek == 0 || peek == 1) {  // S_EOL (seven zeros) or S_Ext (uncompressed mode)
+      br.pos += 7;
+      runs.push_back(int(lastx - a0));  // *pa++ = lastx - a0: a0 does not move
+      if (peek == 1) {
+        if (br.pos <= br.n * 8) return -1;
+        cleanup();
+        return 2;
+      }
+      if (br.need(4)) br.pos += 4;
+      cleanup();
+      return 1;
+    }
+    const int m = br.code_z(fax_table(2));
+    if (m == kPass) {
+      if (!check_b1()) return -1;
+      b1 += refrun(pb++);
+      run_length += b1 - a0;
+      a0 = b1;
+      b1 += refrun(pb++);
+    } else if (m == kHoriz) {
+      const int first = int(runs.size() & 1);  // black first after an odd number of runs
+      for (int half = 0; half < 2; ++half) {
+        const int col = first ^ half;
+        for (;;) {
+          if (!br.need(col ? 13 : 12)) {
+            cleanup();
+            return 1;
+          }
+          if (br.peekz(11) == 0) {  // an EOL where a run should be
+            br.pos += 11;
+            return bad();
+          }
+          const int v = br.code_z(fax_table(col));
+          if (v == kNoCode || v < 0) return bad();
+          if (v < 64) {
+            setvalue(v);
+            break;
+          }
+          a0 += v;
+          run_length += v;
+        }
+      }
+      if (!check_b1()) return -1;
+    } else if (m >= 0 && m <= 3) {  // V0, VR1-VR3
+      if (!check_b1()) return -1;
+      setvalue(b1 - a0 + m);
+      b1 += refrun(pb++);
+    } else if (m >= -3 && m < 0) {  // VL1-VL3
+      if (!check_b1()) return -1;
+      if (b1 < a0 - m) return bad();
+      setvalue(b1 - a0 + m);
+      b1 -= refrun(--pb);
+    } else {
+      return bad();
+    }
+  }
+  if (run_length) {
+    if (run_length + a0 < lastx) {  // expect a final V0
+      if (!br.need(1)) {
+        cleanup();
+        return 1;
+      }
+      if (!br.bitz()) return bad();
+    }
+    setvalue(0);
+  }
+  cleanup();
+  return 0;
+}
+
+// libtiff's _TIFFFax3fillruns: white and black runs from the left, each
+// cut at the row's end
+void fax_fill_runs(const std::vector<int>& runs, int w, uint8_t* row) {
+  std::memset(row, 0, size_t((w + 7) / 8));
+  int64_t x = 0;
+  for (size_t k = 0; k < runs.size(); ++k) {
+    int64_t run = uint32_t(runs[k]);
+    if (x + run > w || run > w) run = w - x;
+    if (k & 1)
+      for (int64_t i = x; i < x + run; ++i) row[i >> 3] |= uint8_t(0x80 >> (i & 7));
+    x += run;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -871,12 +1046,17 @@ int vkgr_qoi_decode(const uint8_t* src, int64_t n, int64_t npix, int32_t bands, 
 // Huffman data). 1: the data end in a later row of T.4 or T.6 data, which
 // libtiff takes for a badly terminated strip: that row's
 // runs so far, white to its end (CLEANUP_RUNS), the rows after it zero
-// (libtiff does not write them).
+// (libtiff does not write them). T.6 rows decode as libtiff's EXPAND2D
+// (fax4_row): where the data end, the bits left are read padded with
+// zeros, so the row libtiff fills may end in an EOL's colour, and a code
+// bad only in that padding completes the row and lets the next one meet
+// the end.
 int vkgr_ccitt(const uint8_t* src, int64_t n, int32_t w, int32_t h, int32_t compression, int32_t t4options,
                uint8_t* dst) {
   if (w <= 0 || h <= 0) return -1;
   FaxBits br{src, n};
   std::vector<int> ref{w, w}, cur;
+  std::vector<int> ref4{w, 0}, runs4;  // T.6: libtiff's run lengths, the first reference row white
   const int64_t rowbytes = (w + 7) / 8;
   std::memset(dst, 0, size_t(rowbytes) * h);
   auto ended = [&](int y) {  // the data end in row y
@@ -901,7 +1081,13 @@ int vkgr_ccitt(const uint8_t* src, int64_t n, int32_t w, int32_t h, int32_t comp
       }
       ok = two_d ? fax_row_2d(br, w, ref, cur) : fax_row_1d(br, w, cur);
     } else if (compression == 4) {
-      ok = fax_row_2d(br, w, ref, cur);
+      const int rc = fax4_row(br, w, ref4, runs4);
+      if (rc < 0) return -1;
+      fax_fill_runs(runs4, w, dst + y * rowbytes);
+      if (rc == 1) return y == 0 ? -1 : 1;  // libtiff fills the row where the data end and stops
+      runs4.push_back(0);  // the imaginary change of the reference
+      ref4.swap(runs4);
+      continue;
     } else {
       return -1;
     }

@@ -384,15 +384,52 @@ struct ArithDecoder {
     return d;
   }
 
-  // pass the RSTn marker that ends a restart interval (the one the data ran
-  // into, or the next one ahead), then start the coder over
-  void restart() {
-    if (!(marker && unread >= 0xD0 && unread <= 0xD7)) {
-      while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7)) ++p;
-      if (p + 1 < end) p += 2;
+  int want = 0;  // the number of the next RSTn (libjpeg's next_restart_num, 0 at each scan)
+
+  // jdmarker.c next_marker: skip to the next marker (past stuffed FF00s); the end of the scan's data is the
+  // marker that ends the scan, never a restart marker
+  int next_marker() {
+    for (;;) {
+      while (p < end && *p != 0xFF) ++p;
+      while (p < end && *p == 0xFF) ++p;
+      if (p >= end) return 0xD9;
+      int m = *p++;
+      if (m != 0) return m;
     }
-    marker = false;
-    unread = 0;
+  }
+
+  // read_restart_marker, with jpeg_resync_to_restart where the marker is not the RSTn expected: the marker
+  // the data ran into (or the next one ahead) is passed when it is the RSTn expected, one too far away, or
+  // skipped past when it is an earlier one (action 2); any other marker (the EOI of a cut scan, or one of
+  // the next two RSTn) stays unread (action 3), so the interval decodes from zero data. Then the coder
+  // starts over.
+  void restart() {
+    int m = marker ? unread : next_marker();
+    for (;;) {
+      int action;
+      if (m < 0xC0)
+        action = 2;
+      else if (m < 0xD0 || m > 0xD7)
+        action = 3;
+      else if (m == 0xD0 + ((want + 1) & 7) || m == 0xD0 + ((want + 2) & 7))
+        action = 3;
+      else if (m == 0xD0 + ((want - 1) & 7) || m == 0xD0 + ((want - 2) & 7))
+        action = 2;
+      else
+        action = 1;
+      if (action == 1) {
+        marker = false;
+        unread = 0;
+        break;
+      }
+      if (action == 3) {
+        marker = true;
+        unread = m;
+        break;
+      }
+      m = next_marker();
+    }
+    want = (want + 1) & 7;
     reset_coder();
   }
 

@@ -7,8 +7,8 @@ block (IcnsFile.bestsize); its entries in SIZES' order: PNG entries
 3 * w * h bytes and else three channels of Apple's RLE
 (native/image_coders.cpp vkgr_icns_rle); s8mk, l8mk, h8mk and t8mk the
 alpha. A block directory Pillow's open cannot parse passes the data on
-(PassOn); a JPEG 2000 entry raises UnsupportedCodec until the port reads
-JPEG 2000 (ROADMAP C: Pillow decodes it).
+(PassOn); a JPEG 2000 entry (a raw codestream or a JP2 file) decodes
+through ops/jpeg2000.py, converted to RGBA as Pillow converts it.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ import struct
 
 import numpy as np
 
-from .dds import UnsupportedCodec
 from .imagemodes import PassOn, check_size, native_rc
 
 # IcnsFile.SIZES: (width, height, scale) -> [(block type, kind)], kind "png", "rgb", "rgb32t" or "mask"
@@ -65,7 +64,12 @@ def _png_or_j2k(data: bytes, start: int, length: int):
     if sig.startswith(b"\x89PNG\r\n\x1a\n"):
         return read_png(data[start:])
     if sig.startswith(_J2K) or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
-        raise UnsupportedCodec("ICNS: a JPEG 2000 entry (JPEG 2000 is not ported yet)")
+        from .jpeg2000 import decode_jpeg2000
+
+        try:
+            return decode_jpeg2000(data[start : start + length])
+        except PassOn as e:  # Pillow opens the entry when it loads the icon: any failure refuses the file
+            raise ValueError(f"ICNS: bad JPEG 2000 entry ({e})") from e
     raise ValueError("Unsupported icon subimage format")
 
 

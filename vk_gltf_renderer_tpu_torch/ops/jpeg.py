@@ -16,7 +16,8 @@ does with its defaults, so that a texture reads the same in both packages:
     colour conversion vectorised in numpy over all blocks:
       - the accurate integer IDCT (libjpeg's jpeg_idct_islow: 13-bit
         constants, descale by 11 after the columns and by 18 after the
-        rows, the 10-bit range-limit wrap),
+        rows), with the 16-bit wraps and saturations of libjpeg-turbo's
+        SIMD version where huge coefficients overflow it,
       - "fancy" triangular chroma upsampling (h2v1, h1v2, h2v2, with the
         image edge replicated), box upsampling otherwise,
       - libjpeg's fixed-point YCbCr -> RGB tables, and libjpeg's guess of
@@ -136,63 +137,62 @@ def _descale(x, n):
     return (x + (1 << (n - 1))) >> n
 
 
-def _idct_1d(s0, s1, s2, s3, s4, s5, s6, s7, shift0):
-    """One jidctint pass over int64 arrays of the 8 inputs (frequency
-    order). shift0 is the left shift of the even part's s0 +- s4 term
-    (CONST_BITS). Returns the 8 undescaled outputs."""
-    z1 = (s2 + s6) * FIX_0_541196100
-    tmp2 = z1 + s6 * -FIX_1_847759065
-    tmp3 = z1 + s2 * FIX_0_765366865
-    tmp0 = (s0 + s4) << shift0
-    tmp1 = (s0 - s4) << shift0
+def _w16(x):
+    """int32 x wrapped to int16, as the SIMD IDCT's 16-bit lanes hold it."""
+    return x.astype(np.int16).astype(np.int32)
+
+
+def _idct_1d(s0, s1, s2, s3, s4, s5, s6, s7, descale):
+    """One pass of libjpeg-turbo's SIMD jsimd_idct_islow (jidctint-avx2.asm,
+    bit-identical to its SSE2 twin) over int32 arrays holding int16 inputs
+    (frequency order): sums of two inputs wrap to 16 bits (paddw), the
+    products are pairs summed into 32 bits (pmaddwd), every 32-bit sum
+    wraps as int32 arithmetic wraps, the outputs are descaled and saturated
+    to int16 (packssdw). Without overflow this is jidctint.c's
+    jpeg_idct_islow to the bit."""
+    tmp3 = s2 * (FIX_0_541196100 + FIX_0_765366865) + s6 * FIX_0_541196100
+    tmp2 = s2 * FIX_0_541196100 + s6 * (FIX_0_541196100 - FIX_1_847759065)
+    tmp0 = _w16(s0 + s4) << CONST_BITS
+    tmp1 = _w16(s0 - s4) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
 
-    t0, t1, t2, t3 = s7, s5, s3, s1
-    z1 = t0 + t3
-    z2 = t1 + t2
-    z3 = t0 + t2
-    z4 = t1 + t3
-    z5 = (z3 + z4) * FIX_1_175875602
-    t0 = t0 * FIX_0_298631336
-    t1 = t1 * FIX_2_053119869
-    t2 = t2 * FIX_3_072711026
-    t3 = t3 * FIX_1_501321110
-    z1 = z1 * -FIX_0_899976223
-    z2 = z2 * -FIX_2_562915447
-    z3 = z3 * -FIX_1_961570560 + z5
-    z4 = z4 * -FIX_0_390180644 + z5
-    t0 = t0 + z1 + z3
-    t1 = t1 + z2 + z4
-    t2 = t2 + z2 + z3
-    t3 = t3 + z1 + z4
-    return (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
-
-
-# the post-IDCT range limit (jdmaster.c prepare_range_limit_table), indexed by a value & 1023:
-# 0..127 -> 128..255, then 255 up to 511, 0 from 512, and 896..1023 -> 0..127
-_IDCT_LIMIT = np.clip(np.where(np.arange(1024) < 512, np.arange(1024), np.arange(1024) - 1024) + 128,
-                      0, 255).astype(np.uint8)
+    z3, z4 = _w16(s7 + s3), _w16(s5 + s1)
+    z3, z4 = (z3 * (FIX_1_175875602 - FIX_1_961570560) + z4 * FIX_1_175875602,
+              z3 * FIX_1_175875602 + z4 * (FIX_1_175875602 - FIX_0_390180644))
+    t0 = s7 * (FIX_0_298631336 - FIX_0_899976223) - s1 * FIX_0_899976223 + z3
+    t3 = s1 * (FIX_1_501321110 - FIX_0_899976223) - s7 * FIX_0_899976223 + z4
+    t1 = s5 * (FIX_2_053119869 - FIX_2_562915447) - s3 * FIX_2_562915447 + z4
+    t2 = s3 * (FIX_3_072711026 - FIX_2_562915447) - s5 * FIX_2_562915447 + z3
+    outs = (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0, tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
+    rnd = np.int32(1 << (descale - 1))
+    return [np.clip((o + rnd) >> descale, -32768, 32767) for o in outs]
 
 
 def idct_islow(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
-    """libjpeg's jpeg_idct_islow over blocks: coef [N, 64] natural-order
-    quantised coefficients (int16), qt [64] natural order -> uint8 samples
-    [N, 8, 8]. The zero-column and zero-row shortcuts of the C code give
-    the same values as the full passes, so every block takes the full
-    passes. The blocks run along the last axis ([8, 8, N]), so that each
-    pass reads whole planes."""
-    d = coef.T.reshape(8, 8, -1).astype(np.int64) * qt.reshape(8, 8, 1).astype(np.int64)
+    """libjpeg-turbo's accurate integer IDCT as Pillow's libjpeg-turbo runs
+    it on x86-64 (the SIMD jsimd_idct_islow) over blocks: coef [N, 64]
+    natural-order quantised coefficients (int16), qt [64] natural order ->
+    uint8 samples [N, 8, 8]. For coefficients that real encoders write it
+    is jidctint.c's result; where the products overflow (the huge
+    coefficients that an arithmetic decoder reads from the zero data past
+    a cut) it keeps the SIMD code's 16-bit dequantisation (pmullw), its
+    DC-only column shortcut (a 16-bit shift, taken when rows 1-7 of the
+    quantised block are zero), its saturations and its final clamp to
+    0..255, where the C code wraps through its range-limit table. The
+    blocks run along the last axis ([8, 8, N]), so that each pass reads
+    whole planes."""
+    raw = coef.T.reshape(8, 8, -1).astype(np.int32)
+    d = _w16(raw * qt.reshape(8, 8, 1).astype(np.int32))
     # pass 1: columns (the first axis is the vertical frequency)
-    ws = np.empty_like(d)
-    for k, c in enumerate(_idct_1d(*d, CONST_BITS)):
-        ws[k] = _descale(c, CONST_BITS - PASS1_BITS)
-    ws = ws.astype(np.int32).astype(np.int64)  # the C workspace is int
+    ws = np.stack(_idct_1d(*d, CONST_BITS - PASS1_BITS))
+    dc_only = ~raw[1:].any(axis=(0, 1))
+    if dc_only.any():
+        ws[:, :, dc_only] = _w16(d[0, :, dc_only].T << PASS1_BITS)[None]
     # pass 2: rows
     out = np.empty((8, 8, d.shape[2]), np.uint8)
-    for k, r in enumerate(_idct_1d(*(ws[:, j] for j in range(8)), CONST_BITS)):
-        out[:, k] = _IDCT_LIMIT[_descale(r, CONST_BITS + PASS1_BITS + 3) & 1023]
+    for k, r in enumerate(_idct_1d(*(ws[:, j] for j in range(8)), CONST_BITS + PASS1_BITS + 3)):
+        out[:, k] = np.clip(r, -128, 127) + 128
     return out.transpose(2, 0, 1)
 
 

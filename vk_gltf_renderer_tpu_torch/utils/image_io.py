@@ -18,20 +18,21 @@ suffix raises ValueError("unknown file extension"), as Pillow does.
 
 read_image identifies data the way Image.open does, in its order: the
 plugins Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then Image.ID's
-order (BLP, BUFR, CUR, PCX, DCX, FITS, FLI, FTEX, GBR, GRIB, HDF5, ICNS,
-ICO, IM, IMT, IPTC, MCIDAS, MPEG, TIFF, MSP, PCD, PIXAR, PSD, QOI, SGI,
-SPIDER, SUN, TGA, WEBP, XBM, XPM, XVTHUMB, of those the port reads), each
-reader asked when its magic bytes or header checks accept the data (TGA
-has no magic: Pillow's TGA header checks; IM, IMT, IPTC, PCD and SPIDER
-have no check at all, so every data that reaches them is parsed as
-Pillow's open parses it). A reader whose header checks fail the way
+order (BLP, BUFR, CUR, PCX, DCX, FITS, FLI, FTEX, GBR, GRIB, HDF5,
+JPEG2000, ICNS, ICO, IM, IMT, IPTC, MCIDAS, MPEG, TIFF, MSP, PCD, PIXAR,
+PSD, QOI, SGI, SPIDER, SUN, TGA, WEBP, XBM, XPM, XVTHUMB, of those the
+port reads), each reader asked when its magic bytes or header checks
+accept the data (TGA has no magic: Pillow's TGA header checks; IM, IMT,
+IPTC, PCD and SPIDER have no check at all, so every data that reaches
+them is parsed as Pillow's open parses it). A reader whose header checks fail the way
 Image.open lets the next plugin try (ops/imagemodes.PassOn) passes the
 data on; any other failure refuses it, as Image.open raises. BUFR, GRIB,
 HDF5 and MPEG are claimed and refused (ops/stubs.py): Pillow identifies
 them and cannot load them. Data that no reader claims raise
 UnsupportedCodec (a ValueError), where Image.open raises
-UnidentifiedImageError. EPS, JPEG 2000, AVIF and WMF are not ported
-(ROADMAP A): such data are refused.
+UnidentifiedImageError. JPEG 2000 (raw codestreams and JP2 files, Part 1)
+is read by ops/jpeg2000.py; EPS, AVIF, WMF and JPEG 2000's Part 15 (HT)
+code-blocks are not ported (ROADMAP A): such data are refused.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from ..ops.imt import decode_imt
 from ..ops.iptc import decode_iptc
 from ..ops.imagemodes import PassOn
 from ..ops.jpeg import decode_jpeg, encode_jpeg, is_jpeg
+from ..ops.jpeg2000 import decode_jpeg2000, is_jpeg2000
 from ..ops.mcidas import decode_mcidas, is_mcidas
 from ..ops.msp import decode_msp, is_msp
 from ..ops.netpbm import decode_netpbm, encode_netpbm, is_netpbm
@@ -83,7 +85,8 @@ READERS = (
     ("BLP", is_blp, decode_blp), ("BUFR", is_bufr, refuse_stub("BUFR")), ("CUR", is_cur, decode_cur),
     ("PCX", is_pcx, decode_pcx), ("DCX", is_dcx, decode_dcx), ("FITS", is_fits, decode_fits),
     ("FLI", is_fli, decode_fli), ("FTEX", is_ftex, decode_ftex), ("GBR", is_gbr, decode_gbr),
-    ("GRIB", is_grib, refuse_stub("GRIB")), ("HDF5", is_hdf5, refuse_stub("HDF5")), ("ICNS", is_icns, decode_icns),
+    ("GRIB", is_grib, refuse_stub("GRIB")), ("HDF5", is_hdf5, refuse_stub("HDF5")),
+    ("JPEG2000", is_jpeg2000, decode_jpeg2000), ("ICNS", is_icns, decode_icns),
     ("ICO", is_ico, decode_ico), ("IM", _ANY, decode_im), ("IMT", _ANY, decode_imt), ("IPTC", _ANY, decode_iptc),
     ("MCIDAS", is_mcidas, decode_mcidas), ("MPEG", is_mpeg, decode_mpeg), ("TIFF", is_tiff, decode_tiff),
     ("MSP", is_msp, decode_msp), ("PCD", _ANY, decode_pcd), ("PIXAR", is_pixar, decode_pixar),
