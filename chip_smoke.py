@@ -348,7 +348,7 @@ Phases (each raises on failure; nothing is caught):
      XPM, MSP, IM (YCC, planar and bit-decoded too), EPS, IPTC, PIXAR,
      SPIDER, FITS, McIDAS, GBR, PhotoCD, FLI/FLC, XV thumbnails, IM
      Tools, ICNS (JPEG 2000 entries too), BUFR, GRIB, HDF5, MPEG, JPEG
-     2000 codestreams and JP2 files, and the arithmetic, lossless,
+     2000 codestreams and JP2 files, lossless AVIF, and the arithmetic, lossless,
      subsampled lossless and CMYK/YCCK JPEGs) decoded on the host, equal
      to the digest of Pillow's decode in digests.json, refused where
      Pillow refuses it; a 2048x2048 map of
@@ -380,8 +380,13 @@ Phases (each raises on failure; nothing is caught):
      seconds each; the helmet at 1080p on the 2048x2048 map and on a PNG of
      its decoded pixels, and on a 128x128 ICNS icon of a JPEG 2000 entry
      and on a PNG of it: each pair equal bit for bit, with 10 traverse_bvh4
-     and 16 gather_channels launches. `[formats]` lines, then [time]
-     lines.
+     and 16 gather_channels launches; (e) AVIF: the committed 512x512
+     lossless map decoded on the host (the AV1 decoder of
+     native/av1_decode.cpp), equal to Pillow's digest, host seconds; the
+     helmet at 1080p on it and on a PNG of its pixels, equal bit for bit,
+     with 10 traverse_bvh4 and 16 gather_channels launches. (a) also holds
+     that every AVIF form the port does not read yet (digests.json's
+     "gaps") is refused. `[formats]` lines, then [time] lines.
 
 Bounds (the least time the card could take for the same work, the larger
 of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s, H100 SXM fp32 without tensor
@@ -4417,10 +4422,11 @@ def _formats_fixtures():
     """Phase 22a's fixtures: every committed file against Pillow's digests."""
     import hashlib
 
-    from vk_gltf_renderer_tpu_torch.native import image_lib, j2k_lib, jpeg_lib, zstd_lib
+    from vk_gltf_renderer_tpu_torch.native import av1_lib, image_lib, j2k_lib, jpeg_lib, zstd_lib
+    from vk_gltf_renderer_tpu_torch.ops.dds import UnsupportedCodec
     from vk_gltf_renderer_tpu_torch.utils.image_io import read_image
 
-    image_lib(), jpeg_lib(), zstd_lib(), j2k_lib()  # built (or found) before the clock starts
+    image_lib(), jpeg_lib(), zstd_lib(), j2k_lib(), av1_lib()  # built (or found) before the clock starts
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
     require(not digests["divergences"], f"[formats] divergences listed: {sorted(digests['divergences'])}")
     counts = {"decoded": 0, "refused": 0}
@@ -4446,8 +4452,16 @@ def _formats_fixtures():
         require(list(img.shape) == entry["shape"] and hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"],
                 f"[formats] {name}: the decode differs from Pillow's digest")
         counts["decoded"] += 1
+    for name in sorted(digests["gaps"]):
+        try:
+            read_image((IMAGE_FIXTURES / name).read_bytes())
+        except UnsupportedCodec:
+            counts["gaps"] = counts.get("gaps", 0) + 1
+            continue
+        require(False, f"[formats] {name}: a form the port does not read yet decoded")
     log(f"[formats] (a) {counts['decoded']} fixtures equal to Pillow's digests, {counts['refused']} refused as "
-        f"Pillow refuses them; host ms the slowest {max(host_ms.values()):.2f} ({max(host_ms, key=host_ms.get)})")
+        f"Pillow refuses them, {counts.get('gaps', 0)} not ported yet refused; host ms the slowest "
+        f"{max(host_ms.values()):.2f} ({max(host_ms, key=host_ms.get)})")
     return dict(counts=counts, host_ms=host_ms)
 
 
@@ -4627,6 +4641,8 @@ def _formats_jpeg2000(device, tmp, hdr, smi):
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
     maps, pixels, raw = {}, {}, {}
     for name, entry in sorted(digests["large"].items()):
+        if not name.startswith("j2k_"):
+            continue
         data = (IMAGE_FIXTURES / name).read_bytes()
         t0 = time.perf_counter()
         fmt, dec = identify_and_read(data)
@@ -4679,10 +4695,74 @@ def _formats_jpeg2000(device, tmp, hdr, smi):
     return dict(maps=maps, frames=frames)
 
 
+def _formats_avif(device, tmp, hdr, smi):
+    """Phase 22e: AVIF. The committed 512x512 lossless map (coded lossless
+    AV1, 4:4:4) equal to the digest of Pillow's decode, host seconds (the
+    best of three); then the helmet at 1080p on it and on a PNG the port
+    writes from its decoded pixels: the frames equal bit for bit, with 10
+    traverse_bvh4 and 16 gather_channels launches a frame."""
+    import hashlib
+
+    from vk_gltf_renderer_tpu_torch.native import av1_lib
+    from vk_gltf_renderer_tpu_torch.ops import gather as tgather
+    from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
+    from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
+    from vk_gltf_renderer_tpu_torch.utils.image_io import identify_and_read
+
+    av1_lib()  # built (or found) before the clock starts
+    digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
+    name = "avif_map_512_lossless.avif"
+    entry = digests["large"][name]
+    data = (IMAGE_FIXTURES / name).read_bytes()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fmt, dec = identify_and_read(data)
+        secs.append(time.perf_counter() - t0)
+    rgba = np.concatenate([dec, np.full(dec.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    require(fmt == "AVIF" and list(rgba.shape) == entry["shape"]
+            and hashlib.sha256(rgba.tobytes()).hexdigest() == entry["sha256"],
+            f"[formats] {name}: the decode differs from Pillow's digest")
+    h, w = dec.shape[:2]
+    log(f"[formats] (e) {name} {w}x{h}, {len(data)} bytes ({8 * len(data) / (w * h):.3f} bits a pixel): "
+        f"host decode {min(secs):.3f} s (best of 3; {', '.join(f'{x:.3f}' for x in secs)}), equal to Pillow's "
+        f"digest; on {smi}")
+    d = os.path.join(tmp, "formats22e")
+    os.makedirs(d, exist_ok=True)
+    frames, first_png = {}, None
+    for kind, blob, fname in (("png_avif_512", encode_png(np.ascontiguousarray(dec)), "avif_pixels.png"),
+                              ("avif_512", data, "base.avif")):
+        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+        r.create_scene(tscenes.helmet_with_texture(d, blob, fname))
+        r.create_hdr(hdr)
+        side, rows = r.dev_scene.tex_desc[0, 1:3].tolist()
+        require([rows, side] == [h, w], f"[formats] {kind}: the base colour did not decode")
+        tb4.COUNTER.launches = 0
+        tgather.COUNTER.launches = 0
+        times, _, first = _render_frames(r, 0, 1)
+        launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+        require(launches == {"traverse_bvh4": 10, "gather_channels": 16},
+                f"[formats] {kind}: launches a frame {launches}, not 10 and 16")
+        if first_png is None:
+            first_png = first
+        else:
+            require(all(np.array_equal(a, b) for a, b in zip(first, first_png)),
+                    f"[formats] the {kind} frame differs from the png_avif_512 frame")
+        frames[kind] = dict(ms=1e3 * times[0], launches=launches, tex_side=side)
+        log(f"[formats] (e) helmet {FRAME_W}x{FRAME_H} with a {side}x{rows} {kind} base colour: "
+            f"{1e3 * times[0]:.2f} ms, traverse_bvh4 {launches['traverse_bvh4']} and gather_channels "
+            f"{launches['gather_channels']} launches" + ("; equal to the png_avif_512 frame bit for bit"
+                                                         if kind == "avif_512" else "") + f"; on {smi}")
+        del r
+    return dict(map=dict(bytes=len(data), side=w, bits_per_pixel=8 * len(data) / (w * h), host_s=min(secs),
+                         host_s_runs=secs), frames=frames)
+
+
 def phase_pillow_formats(device, tmp, hdr, smi):
-    """Phase 22: Pillow's other formats and JPEG 2000 (the module docstring)."""
+    """Phase 22: Pillow's other formats, JPEG 2000 and AVIF (the module docstring)."""
     t_phase = time.perf_counter()
     out = {"fixtures": _formats_fixtures()}
+    log(f"[time] phase 22 (a) fixtures done at {time.perf_counter() - t_phase:.1f} s into the phase")
     out["maps"] = _formats_maps()
     log(f"[time] phase 22 (a) done at {time.perf_counter() - t_phase:.1f} s into the phase")
     out["frames"] = _formats_frames(device, tmp, hdr, smi)
@@ -4691,6 +4771,13 @@ def phase_pillow_formats(device, tmp, hdr, smi):
     j2k = _formats_jpeg2000(device, tmp, hdr, smi)
     out["jpeg2000_maps"] = j2k["maps"]
     out["frames"].update(j2k["frames"])
+    log(f"[time] phase 22 (d) done at {time.perf_counter() - t_phase:.1f} s into the phase")
+    t_avif = time.perf_counter()
+    avif = _formats_avif(device, tmp, hdr, smi)
+    out["avif_map"] = avif["map"]
+    out["frames"].update(avif["frames"])
+    out["avif_seconds"] = time.perf_counter() - t_avif
+    log(f"[time] phase 22 (e) AVIF {out['avif_seconds']:.1f} s")
     out["launches_per_frame"] = out["frames"]["png"]["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[time] Pillow's other formats phase {out['seconds']:.1f} s")

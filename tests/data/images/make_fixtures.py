@@ -19,12 +19,13 @@ types, BLP1 CMYK JPEG, IPTC, PIXAR, SPIDER, FITS, McIDAS, GBR, PhotoCD,
 FLI/FLC, XV thumbnails, IM Tools and ICNS; JPEG 2000 codestreams and JP2
 files, from Pillow's encoder, with JP2 boxes written here, and from
 OpenJPEG's own encoder through openjpeg_encode.py for what Pillow's save
-cannot ask for). Some are files
+cannot ask for; AVIF stills from Pillow's writer, with aom's options). Some are files
 Pillow refuses, EPS among them (Pillow needs Ghostscript to load it). digests.json holds, for each file, the shape and
 sha256 of Pillow's decode (Image.open(f).convert("RGBA") as uint8 bytes),
 or that Pillow refuses it (and, under "divergences", the files Pillow
-decodes where the port cannot match it; "large" the JPEG 2000 maps
-that only chip_smoke.py decodes), so that the port can be held to Pillow where
+decodes where the port cannot match it; "large" the JPEG 2000 and AVIF
+maps that only chip_smoke.py decodes; "gaps" the AVIF forms Pillow decodes
+and the port refuses until ROADMAP A ports them), so that the port can be held to Pillow where
 Pillow is absent (chip_smoke.py's phase 22); tests/test_torch_images.py
 holds it to Pillow itself.
 
@@ -1955,6 +1956,130 @@ def jpeg2000_large() -> dict:
             "j2k_map_512_lossless.j2k": j2k(texture_image(512, seed=3)[..., :3], no_jp2=True)}
 
 
+# ------------------------------------------------------------------ AVIF
+
+
+# aom's intra tools, each switched off on the ladder's first rung and on again one at a time
+AVIF_TOOLS = ("smooth-intra", "paeth-intra", "cfl-intra", "filter-intra", "angle-delta", "directional-intra",
+              "diagonal-intra", "intra-edge-filter")
+
+
+def avif_file(img, **kw) -> bytes:
+    """Pillow's AVIF writer, one thread (aom's output does not then depend on the machine), quality 100 (aom's
+    lossless mode) unless asked otherwise."""
+    kw.setdefault("quality", 100)
+    kw.setdefault("max_threads", 1)
+    return pillow(Image.fromarray(img), "AVIF", **kw)
+
+
+def avif() -> dict:
+    """AVIF stills from Pillow's writer (libavif over aom): coded lossless
+    AV1 (quality 100) at 4:4:4, 4:2:2 and 4:2:0, RGB and RGBA, limited
+    range, odd sizes and one-row images, uniform tiles, and a ladder of
+    aom's intra tools (DC prediction in square partitions first, then one
+    tool, partition shape or superblock size at a time, named in the file)."""
+    out = {}
+    rgb = smooth(45, 37, 800)
+    rgba = np.concatenate([rgb, smooth(45, 37, 801, 1)], axis=-1)
+    for sub in ("4:4:4", "4:2:2", "4:2:0"):
+        tag = sub.replace(":", "")
+        out[f"avif_q100_{tag}.avif"] = avif_file(rgb, subsampling=sub)
+        out[f"avif_q100_rgba_{tag}.avif"] = avif_file(rgba, subsampling=sub)
+        for w, h in ((1, 1), (33, 1), (1, 9), (7, 5), (66, 3)):
+            out[f"avif_q100_{tag}_{w}x{h}.avif"] = avif_file(smooth(w, h, 802 + w * h), subsampling=sub)
+    out["avif_q100_limited_range_420.avif"] = avif_file(rgb, subsampling="4:2:0", range="limited")
+    out["avif_q100_rgba_idat_420.avif"] = avif_in_idat(out["avif_q100_rgba_420.avif"])
+    # an Exif orientation becomes irot/imir; Pillow reads the pixels as stored and hands the orientation on in info
+    for orientation in (2, 6):
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        out[f"avif_q100_exif_orientation_{orientation}.avif"] = avif_file(rgb, subsampling="4:4:4", exif=exif.tobytes())
+    noise = np.random.default_rng(803).integers(0, 256, (40, 52, 3), np.uint8)
+    out["avif_q100_noise_444.avif"] = avif_file(noise, subsampling="4:4:4")
+    big = smooth(200, 150, 804)
+    out["avif_q100_tiles_2x2_420.avif"] = avif_file(big, subsampling="4:2:0", tile_rows=1, tile_cols=1)
+    out["avif_q100_tiles_1x4_444.avif"] = avif_file(big, subsampling="4:4:4", tile_cols=2)
+    # the ladder at aom's slowest speed, which tries every tool, partition shape and filter intra mode
+    off = [(f"enable-{t}", "0") for t in AVIF_TOOLS]
+    square = [("enable-rect-partitions", "0"), ("enable-ab-partitions", "0"), ("enable-1to4-partitions", "0")]
+    ladder = smooth(96, 80, 805)
+    out["avif_q100_ladder_dc_square.avif"] = avif_file(ladder, subsampling="4:2:0", speed=0, advanced=off + square)
+    for t in AVIF_TOOLS:
+        on = ("enable-diagonal-intra", "enable-directional-intra") if t == "diagonal-intra" else (f"enable-{t}",)
+        adv = [(k, "1" if k in on else v) for k, v in off] + square
+        out[f"avif_q100_ladder_{t}.avif"] = avif_file(ladder, subsampling="4:2:0", speed=0, advanced=adv)
+    for part, sub in (("rect", "4:2:0"), ("ab", "4:4:4"), ("1to4", "4:2:2")):
+        out[f"avif_q100_ladder_{part}_partitions.avif"] = avif_file(ladder, subsampling=sub, speed=0, advanced=[
+            (f"enable-{p}-partitions", "1" if p == part else "0") for p in ("rect", "ab", "1to4")])
+    out["avif_q100_ladder_all_tools_444.avif"] = avif_file(ladder, subsampling="4:4:4", speed=0)
+    out["avif_q100_ladder_all_tools_420.avif"] = avif_file(ladder, subsampling="4:2:0", speed=0)
+    out["avif_q100_ladder_sb128.avif"] = avif_file(big, subsampling="4:2:0", advanced=[("sb-size", "128")])
+    out["avif_q100_ladder_min_partition_4.avif"] = avif_file(ladder, subsampling="4:2:0", advanced=[
+        ("min-partition-size", "4"), ("max-partition-size", "16")])
+    # skipped blocks: a flat patch that DC prediction reproduces exactly
+    patch = smooth(64, 48, 806)
+    patch[8:40, 16:48] = (120, 60, 200)
+    out["avif_q100_flat_patch_420.avif"] = avif_file(patch, subsampling="4:2:0")
+    return out
+
+
+def avif_in_idat(data: bytes) -> bytes:
+    """The same AVIF with its items' data moved into the meta box's idat (iloc version 1, construction method
+    1) and no mdat: the layout libavif reads and Pillow's writer never makes."""
+    def boxes(buf, pos, end):
+        while pos < end:
+            size, typ = struct.unpack_from(">I4s", buf, pos)
+            yield typ, buf[pos + 8 : pos + size]
+            pos += size
+
+    def box(typ, body):
+        return struct.pack(">I4s", 8 + len(body), typ) + body
+
+    top = dict(boxes(data, 0, len(data)))
+    meta = list(boxes(top[b"meta"], 4, len(top[b"meta"])))
+    iloc = dict(meta)[b"iloc"]
+    assert iloc[:6] == b"\x00\x00\x00\x00\x44\x00"  # version 0, 4-byte offsets and lengths, no base offset
+    count = struct.unpack_from(">H", iloc, 6)[0]
+    entries, idat, pos = [], b"", 8
+    for _ in range(count):
+        iid, _, n = struct.unpack_from(">HHH", iloc, pos)
+        pos += 6
+        entry = struct.pack(">HHHH", iid, 1, 0, n)
+        for _ in range(n):
+            off, length = struct.unpack_from(">II", iloc, pos)
+            pos += 8
+            entry += struct.pack(">II", len(idat), length)
+            idat += data[off : off + length]
+        entries.append(entry)
+    new_iloc = b"\x01\x00\x00\x00\x44\x00" + struct.pack(">H", count) + b"".join(entries)
+    body = b"".join(box(t, new_iloc) + box(b"idat", idat) if t == b"iloc" else box(t, b) for t, b in meta)
+    return box(b"ftyp", top[b"ftyp"]) + box(b"meta", top[b"meta"][:4] + body)
+
+
+def avif_gaps() -> dict:
+    """AVIF stills Pillow reads and the port refuses (UnsupportedCodec, ROADMAP A): lossy AV1 (quality 75), an
+    image sequence (save_all, the avis brand) and an image aom codes with screen content tools."""
+    out = {}
+    rgb = smooth(45, 37, 800)
+    out["avif_refused_q75.avif"] = avif_file(rgb, quality=75)
+    out["avif_refused_sequence.avif"] = pillow(Image.fromarray(rgb), "AVIF", save_all=True, quality=100,
+                                               max_threads=1, append_images=[Image.fromarray(rgb[::-1].copy())])
+    # few colours in flat regions: aom's screen content detection turns the tools on
+    flat = np.zeros((48, 64, 3), np.uint8)
+    flat[:, :32] = (200, 30, 60)
+    flat[:24, 32:] = (10, 250, 90)
+    flat[30:40, 5:20] = smooth(15, 10, 807)
+    out["avif_refused_screen_content.avif"] = avif_file(flat, subsampling="4:2:0")
+    return out
+
+
+def avif_large() -> dict:
+    """The map chip_smoke.py decodes and times: a 512x512 lossless AVIF (4:4:4) of scenes.texture_image."""
+    from vk_gltf_renderer_tpu_torch.scenes import texture_image
+
+    return {"avif_map_512_lossless.avif": avif_file(texture_image(512, seed=3)[..., :3], subsampling="4:4:4")}
+
+
 def stubs() -> dict:
     """Formats Pillow identifies and cannot load: BUFR, GRIB and HDF5 (no
     handler) and MPEG (no loader)."""
@@ -1974,21 +2099,22 @@ def fixtures() -> dict:
     return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **libtiff(), **libtiff_lab_zstd_ojpeg(), **jpeg(), **psd(),
             **sgi(), **pcx(), **ico(), **qoi(), **sun(), **png(), **blp(), **ftex(), **xbm(), **xpm(), **msp(), **im(),
             **eps(), **im_repaired(), **blp_cmyk(), **iptc(), **pixar_spider(), **fits(), **mcidas_gbr(), **pcd(),
-            **fli(), **xvthumb_imt(), **icns(), **stubs(), **icns_jpeg2000(), **jpeg2000(), **jpeg2000_openjpeg()}
+            **fli(), **xvthumb_imt(), **icns(), **stubs(), **icns_jpeg2000(), **jpeg2000(), **jpeg2000_openjpeg(), **avif()}
 
 
 def main():
-    digests = {"pillow": Image.__version__, "files": {}, "divergences": {}, "large": {}}
+    digests = {"pillow": Image.__version__, "files": {}, "divergences": {}, "large": {}, "gaps": {}}
     for old in HERE.iterdir():
         if old.suffix in (".bmp", ".dib", ".tga", ".gif", ".tif", ".ppm", ".pgm", ".pbm", ".pfm", ".pam", ".jpg", ".psd",
                           ".sgi", ".rgb", ".bw", ".pcx", ".dcx", ".ico", ".cur", ".qoi", ".ras", ".eps", ".png", ".blp",
                           ".ftc", ".ftu", ".xbm", ".xpm", ".msp", ".im", ".iim", ".pxr", ".spi", ".fits", ".area",
                           ".gbr", ".pcd", ".fli", ".flc", ".xv", ".imt", ".icns", ".bufr", ".grib", ".h5", ".mpg", ".jp2",
-                          ".j2k"):
+                          ".j2k", ".avif"):
             old.unlink()
     # "divergences": files Pillow decodes where the port cannot match it (ROADMAP C); "large": the maps only
-    # chip_smoke.py decodes
-    for group, files in (("files", fixtures()), ("large", jpeg2000_large())):
+    # chip_smoke.py decodes; "gaps": files Pillow decodes in a form the port does not read yet (ROADMAP A)
+    for group, files in (("files", fixtures()), ("large", {**jpeg2000_large(), **avif_large()}),
+                         ("gaps", avif_gaps())):
         for name, data in files.items():
             (HERE / name).write_bytes(data)
             try:

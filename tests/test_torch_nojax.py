@@ -17,7 +17,8 @@ colour (the port's own decoders), writes a JPEG and a WebP, renders the
 helmet with BMP, TGA, TIFF, GIF, PPM, arithmetic-coded JPEG, PSD, SGI, PCX,
 DCX, ICO, CUR, QOI, Sun raster, CCITT, LZMA and ThunderScan TIFF,
 subsampled lossless JPEG, palette/Adam7 and 16-bit PNG, ZSTD, old-style
-JPEG and CIELab TIFF, Lab PSD, BLP, FTEX, XBM, XPM, MSP and IM base colours and writes a frame in every suffix
+JPEG and CIELab TIFF, Lab PSD, BLP, FTEX, XBM, XPM, MSP, IM and lossless AVIF (the port's AV1 decoder)
+base colours and writes a frame in every suffix
 image_io writes, renders
 seeded and batched frames on the SBVH, and renders a frame split over two shards
 (parallel.render_mesh); and no
@@ -89,7 +90,8 @@ with tempfile.TemporaryDirectory() as d:
                  "ftex_dxt1.ftc", "xbm_pillow.xbm", "xpm_one_char.xpm", "msp_v2_rle.msp", "im_pillow_p.im",
                  "im_ycc.im", "im_bits12.im", "blp1_jpeg_ycck.blp", "iptc_raw_rgb_band2.iim", "pixar_rgb.pxr",
                  "spider_little_endian.spi", "fits_gzip_16.fits", "mcidas_i16_prefix.area", "gbr_v2_rgba.gbr",
-                 "pcd_270.pcd", "flc_brun_ss2.flc", "xvthumb_332.xv", "imt_gray.imt", "icns_ic07_png.icns"):
+                 "pcd_270.pcd", "flc_brun_ss2.flc", "xvthumb_332.xv", "imt_gray.imt", "icns_ic07_png.icns",
+                 "avif_q100_rgba_420.avif"):
         with open(os.path.join("tests", "data", "images", name), "rb") as f:
             data = f.read()
         r = GltfRenderer(24, 16, spp=1, max_depth=2, device="cpu")

@@ -7,15 +7,15 @@ ops/jpeg.py (jpeg_entropy.cpp), the WebP pixel codec of ops/webp.py
 (webp_decode.cpp), the LZW, PackBits and RLE coders of the BMP, TGA,
 GIF and TIFF readers, the GIF writer and the PNG unfilter
 (image_coders.cpp), the Zstandard decoder of the TIFF reader
-(zstd_decode.cpp), and the JPEG 2000 codestream decoder of ops/jpeg2000.py
-(j2k_decode.cpp). Each library is built by g++ at first use
+(zstd_decode.cpp), the JPEG 2000 codestream decoder of ops/jpeg2000.py
+(j2k_decode.cpp), and the AV1 decoder of ops/avif.py (av1_decode.cpp). Each library is built by g++ at first use
 into ``build/native/`` at the repository root (listed in .gitignore),
 named by a hash of its source, and renamed into place once complete, so
 that concurrent builders never load half a file. The BVH functions return
 None when their library cannot be built; ops/bvh_flatten.py then takes its
 numpy oracle, and refuses scenes too large for it rather than waiting on a
 Python loop. The image coders have no such oracle: jpeg_lib, webp_lib,
-image_lib, zstd_lib and j2k_lib raise when their build fails.
+image_lib, zstd_lib, j2k_lib and av1_lib raise when their build fails.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ _WEBP_SRC = Path(__file__).parent / "webp_decode.cpp"
 _IMAGE_SRC = Path(__file__).parent / "image_coders.cpp"
 _ZSTD_SRC = Path(__file__).parent / "zstd_decode.cpp"
 _J2K_SRC = Path(__file__).parent / "j2k_decode.cpp"
+_AV1_SRC = Path(__file__).parent / "av1_decode.cpp"
 _CACHE = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 _lib = None
 _lib_failed = False
@@ -43,6 +44,7 @@ _webp = None
 _image = None
 _zstd = None
 _j2k = None
+_av1 = None
 
 
 def _compile(src_path: Path, defines: tuple = ()) -> Path:
@@ -172,6 +174,17 @@ def j2k_lib():
     if _j2k is None:
         _j2k = _load_coder(_J2K_SRC, {"vkgr_j2k_decode": [_VP, _I64, _VP, _I64, _VP]})
     return _j2k
+
+
+def av1_lib():
+    """The AV1 decoder of the coded lossless subset (av1_decode.cpp), built
+    at first use (_load_coder: RuntimeError when it cannot be built or
+    loaded)."""
+    global _av1
+    if _av1 is None:
+        _av1 = _load_coder(_AV1_SRC, {"vkgr_av1_info": [_VP, _I64, _VP],
+                                      "vkgr_av1_decode": [_VP, _I64, _VP, _VP, _I64]})
+    return _av1
 
 
 def get_lib():

@@ -159,14 +159,17 @@ struct FaxBits {
     loaded = pos + k;
     return true;
   }
-  // one code of `t` over zero-padded bits: its value or kNoCode
+  // one code of `t` over zero-padded bits: its value, or kNoCode with no bit
+  // taken (an empty entry of libtiff's state tables has width 0)
   int code_z(const FaxTable& t) {
+    const int64_t start = pos;
     int c = 0;
     for (int len = 1; len <= kFaxMaxLen; ++len) {
       c = (c << 1) | bitz();
       int16_t v = t.lut[(size_t(len) << kFaxMaxLen) | c];
       if (v != kNoCode) return v;
     }
+    pos = start;
     return kNoCode;
   }
   // one code of `t`: its value, kNoCode for bits no code has, -32767 at the end of the data
@@ -191,22 +194,25 @@ struct FaxBits {
       if (v < 64) return total;
     }
   }
-  // libtiff's SYNC_EOL: 11 zero bits (sliding a bit at a time), the zeros
-  // after them, and the 1 that ends the EOL; false at the end of the data
-  bool sync_eol() {
+  // libtiff's SYNC_EOL: unless an EOL was read at the end of the row before
+  // (eolcnt), 11 zero bits found sliding a bit at a time; then the zeros up
+  // to and including the 1 that ends the EOL; NeedBits pads the bits left
+  // with zeros. False where no bit is left.
+  bool sync_eol(bool eolcnt) {
+    if (!eolcnt)
+      for (;;) {
+        if (!need(11)) return false;
+        if (peekz(11) == 0) break;
+        ++pos;
+      }
     for (;;) {
-      if (pos + 11 > n * 8) return false;
-      bool zeros = true;
-      for (int k = 0; k < 11 && zeros; ++k) zeros = ((p[(pos + k) >> 3] >> (7 - ((pos + k) & 7))) & 1) == 0;
-      if (zeros) break;
-      ++pos;
+      if (!need(8)) return false;
+      if (peekz(8)) break;
+      pos += 8;
     }
-    pos += 11;
-    for (;;) {
-      int b = bit();
-      if (b < 0) return false;
-      if (b == 1) return true;
+    while (!bitz()) {
     }
+    return true;
   }
 };
 
@@ -239,44 +245,6 @@ bool fax_row_1d(FaxBits& br, int w, std::vector<int>& cur) {
   return true;
 }
 
-// One row coded two-dimensionally against the reference row's changing
-// elements `ref` (ended by w, w); false on a bad or unsupported code.
-bool fax_row_2d(FaxBits& br, int w, const std::vector<int>& ref, std::vector<int>& cur) {
-  cur.clear();
-  int a0 = -1, colour = 0;
-  size_t i = 0;  // the search for b1 moves forward only
-  while (a0 < w) {
-    // b1: the first changing element right of a0 whose colour is not a0's (even indices turn black)
-    while (i < ref.size() && (ref[i] <= a0 || int(i & 1) != colour)) ++i;
-    const int b1 = i < ref.size() ? ref[i] : w;
-    const int b2 = i + 1 < ref.size() ? ref[i + 1] : w;
-    int m = br.code(fax_table(2));
-    if (m == kPass) {
-      a0 = b2;
-    } else if (m == kHoriz) {
-      const int start = a0 < 0 ? 0 : a0;
-      int r1 = br.run(fax_table(colour));
-      if (r1 < 0) return false;
-      int r2 = br.run(fax_table(colour ^ 1));
-      if (r2 < 0) return false;
-      const int a1 = std::min(start + r1, w), a2 = std::min(a1 + r2, w);
-      cur.push_back(a1);
-      cur.push_back(a2);
-      a0 = a2;
-    } else if (m >= -3 && m <= 3) {
-      const int a1 = b1 + m;
-      if (a1 < 0 || a1 > w || a1 < a0) return false;
-      cur.push_back(a1);
-      a0 = a1;
-      colour ^= 1;
-    } else {
-      return false;  // uncompressed-mode extension, an EOL inside a row, bad bits, the end of the data
-    }
-    if (i > 0) --i;  // b1 may sit left of the next search's start only through i; step back one to re-check
-  }
-  return true;
-}
-
 void fax_fill(const std::vector<int>& cur, int w, uint8_t* row) {
   std::memset(row, 0, size_t((w + 7) / 8));
   for (size_t k = 0; k < cur.size(); k += 2) {
@@ -285,99 +253,110 @@ void fax_fill(const std::vector<int>& cur, int w, uint8_t* row) {
   }
 }
 
-// One T.6 row as libtiff's EXPAND2D decodes it, in run lengths (white,
-// black, ... as libtiff keeps them) against the reference row's runs:
+// libtiff's two run arrays of a T.4 or T.6 strip (Fax3SetupState): nruns
+// entries each (twice as many where rows refer to the row before), zeroed
+// once, swapped after every row and never cleared, so a reference read past
+// its row's runs meets the runs of an earlier row.
+struct FaxRuns {
+  size_t nruns;
+  std::vector<uint32_t> a, b;
+  uint32_t *cur, *ref;
+  size_t ncur = 0;  // the runs of the row in cur
+  FaxRuns(int w, bool ref_line) : nruns((ref_line ? 2 : 1) * ((size_t(w) + 1 + 31) / 32 * 32)), a(nruns), b(nruns) {
+    cur = a.data();
+    ref = b.data();
+    ref[0] = uint32_t(w);  // Fax3PreDecode: the first reference row white
+    ref[1] = 0;
+  }
+};
+
+// One T.6 row, or a two-dimensional T.4 row (t4), as libtiff's EXPAND2D
+// decodes it, in run lengths (white, black, ... as libtiff keeps them)
+// against the reference row's runs:
 // b1 walks the reference runs (CHECK_b1), a pass adds to a pending run,
 // the lookups pad the bits left with zeros past the end of the data
 // (NeedBits) and meet the end only when no bit is left. Returns 0 for a
 // whole row, 1 where the data end (eof2d: CLEANUP_RUNS, libtiff fills
-// the row and stops) or an EOL is read (the row's rest its colour at that
-// point), 2 for a code that is bad only in the zero padding (libtiff
-// fills the row and goes on), -1 for a bad code inside the data.
-int fax4_row(FaxBits& br, int w, const std::vector<int>& ref, std::vector<int>& runs) {
-  runs.clear();
+// the row and stops) or, in T.6 data, an EOL is read (the row's rest its
+// colour at that point; in T.4 data the row ends there, eol is set and the
+// next row's EOL search is skipped), 2 for a bad code (libtiff's
+// "unexpected": CLEANUP_RUNS, and the next row goes on from the bits after
+// it), -1 where a run array would overflow (libtiff fails the strip).
+int expand2d(FaxBits& br, int w, FaxRuns& fr, bool t4, bool& eol) {
   const int64_t lastx = w;
+  uint32_t* const runs = fr.cur;
+  const uint32_t* const ref = fr.ref;
+  size_t pa = 0, pb = 0;
   int64_t a0 = 0, run_length = 0;
-  size_t pb = 0;
   int64_t b1 = ref[pb++];
-  auto refrun = [&](size_t i) -> int64_t { return i < ref.size() ? ref[i] : 0; };
   auto setvalue = [&](int64_t x) {
-    runs.push_back(int(run_length + x));
+    runs[pa++] = uint32_t(run_length + x);
     a0 += x;
     run_length = 0;
   };
-  auto check_b1 = [&]() {  // false past the reference runs (libtiff's "Buffer overflow")
-    if (!runs.empty())
+  auto check_b1 = [&]() {  // false past the reference array (libtiff's "Buffer overflow")
+    if (pa != 0)
       while (b1 <= a0 && b1 < lastx) {
-        if (pb >= ref.size()) return false;
-        b1 += refrun(pb) + refrun(pb + 1);
+        if (pb + 1 >= fr.nruns) return false;
+        b1 += int64_t(ref[pb]) + ref[pb + 1];
         pb += 2;
       }
     return true;
   };
-  auto cleanup = [&]() {
+  auto cleanup = [&]() -> bool {  // CLEANUP_RUNS; false where it would overflow the array
+    if (pa + 3 > fr.nruns) return false;
     if (run_length) setvalue(0);
     if (a0 != lastx) {
-      while (a0 > lastx && !runs.empty()) {
-        a0 -= runs.back();
-        runs.pop_back();
-      }
+      while (a0 > lastx && pa > 0) a0 -= runs[--pa];
       if (a0 < lastx) {
         if (a0 < 0) a0 = 0;
-        if (runs.size() & 1) setvalue(0);
+        if (pa & 1) setvalue(0);
         setvalue(lastx - a0);
       } else if (a0 > lastx) {
         setvalue(lastx);
         setvalue(0);
       }
     }
+    return true;
   };
-  // a bad code: refused inside the data, libtiff's "unexpected" then CLEANUP_RUNS in the padding
-  auto bad = [&]() -> int {
-    if (br.pos <= br.n * 8) return -1;
-    cleanup();
-    return 2;
+  auto finish = [&](int rc) -> int {
+    if (!cleanup()) return -1;
+    fr.ncur = pa;
+    return rc;
   };
   while (a0 < lastx) {
-    if (!br.need(7)) {
-      cleanup();
-      return 1;
-    }
+    if (pa + 4 >= fr.nruns) return -1;
+    if (!br.need(7)) return finish(1);
     const int peek = br.peekz(7);
     if (peek == 0 || peek == 1) {  // S_EOL (seven zeros) or S_Ext (uncompressed mode)
       br.pos += 7;
-      runs.push_back(int(lastx - a0));  // *pa++ = lastx - a0: a0 does not move
-      if (peek == 1) {
-        if (br.pos <= br.n * 8) return -1;
-        cleanup();
-        return 2;
-      }
-      if (br.need(4)) br.pos += 4;
-      cleanup();
-      return 1;
+      runs[pa++] = uint32_t(lastx - a0);  // *pa++ = lastx - a0: a0 does not move
+      if (peek == 1) return finish(2);  // libtiff's "extension"
+      if (!br.need(4)) return finish(1);
+      br.pos += 4;
+      if (!t4) return finish(1);  // Fax4Decode stops at an EOL
+      eol = true;  // Fax3Decode2D goes on to the next row (EOLcnt)
+      return finish(0);
     }
     const int m = br.code_z(fax_table(2));
     if (m == kPass) {
-      if (!check_b1()) return -1;
-      b1 += refrun(pb++);
+      if (!check_b1() || pb + 1 >= fr.nruns) return -1;
+      b1 += ref[pb++];
       run_length += b1 - a0;
       a0 = b1;
-      b1 += refrun(pb++);
+      b1 += ref[pb++];
     } else if (m == kHoriz) {
-      const int first = int(runs.size() & 1);  // black first after an odd number of runs
+      const int first = int(pa & 1);  // black first after an odd number of runs
       for (int half = 0; half < 2; ++half) {
         const int col = first ^ half;
         for (;;) {
-          if (!br.need(col ? 13 : 12)) {
-            cleanup();
-            return 1;
-          }
+          if (!br.need(col ? 13 : 12)) return finish(1);
           if (br.peekz(11) == 0) {  // an EOL where a run should be
             br.pos += 11;
-            return bad();
+            return finish(2);
           }
           const int v = br.code_z(fax_table(col));
-          if (v == kNoCode || v < 0) return bad();
+          if (v == kNoCode || v < 0) return finish(2);
           if (v < 64) {
             setvalue(v);
             break;
@@ -390,41 +369,99 @@ int fax4_row(FaxBits& br, int w, const std::vector<int>& ref, std::vector<int>& 
     } else if (m >= 0 && m <= 3) {  // V0, VR1-VR3
       if (!check_b1()) return -1;
       setvalue(b1 - a0 + m);
-      b1 += refrun(pb++);
+      if (pb >= fr.nruns) return -1;
+      b1 += ref[pb++];
     } else if (m >= -3 && m < 0) {  // VL1-VL3
       if (!check_b1()) return -1;
-      if (b1 < a0 - m) return bad();
+      if (b1 < a0 - m) return finish(2);
       setvalue(b1 - a0 + m);
-      b1 -= refrun(--pb);
+      b1 -= ref[--pb];
     } else {
-      return bad();
+      return finish(2);
     }
   }
   if (run_length) {
     if (run_length + a0 < lastx) {  // expect a final V0
-      if (!br.need(1)) {
-        cleanup();
-        return 1;
-      }
-      if (!br.bitz()) return bad();
+      if (!br.need(1)) return finish(1);
+      if (!br.peekz(1)) return finish(2);  // libtiff leaves the bit unread
+      ++br.pos;
     }
     setvalue(0);
   }
-  cleanup();
-  return 0;
+  return finish(0);
+}
+
+// One one-dimensional T.4 row as libtiff's EXPAND1D decodes it, in run
+// lengths: make-up codes add to a pending run, a run that passes the row's
+// end is taken back by CLEANUP_RUNS (the rest of the row white), an EOL
+// code ends the row (eol set), a bad code ends it as CLEANUP_RUNS does
+// (libtiff's "unexpected"). Returns as expand2d.
+int expand1d(FaxBits& br, int w, FaxRuns& fr, bool& eol) {
+  const int64_t lastx = w;
+  uint32_t* const runs = fr.cur;
+  size_t pa = 0;
+  int64_t a0 = 0, run_length = 0;
+  auto finish = [&](int rc) -> int {  // CLEANUP_RUNS
+    if (pa + 3 > fr.nruns) return -1;
+    if (run_length) {
+      runs[pa++] = uint32_t(run_length);
+      run_length = 0;
+    }
+    if (a0 != lastx) {
+      while (a0 > lastx && pa > 0) a0 -= runs[--pa];
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if (pa & 1) runs[pa++] = 0;
+        runs[pa++] = uint32_t(lastx - a0);
+      } else if (a0 > lastx) {
+        runs[pa++] = uint32_t(lastx);
+        runs[pa++] = 0;
+      }
+    }
+    fr.ncur = pa;
+    return rc;
+  };
+  for (;;) {
+    for (int col = 0; col < 2; ++col) {
+      for (;;) {
+        if (!br.need(col ? 13 : 12)) return finish(1);
+        if (br.peekz(11) == 0) {  // S_EOL
+          br.pos += 11;
+          eol = true;
+          return finish(0);
+        }
+        const int v = br.code_z(fax_table(col));
+        if (v == kNoCode || v < 0) return finish(2);
+        if (pa + 4 >= fr.nruns) return -1;
+        if (v < 64) {
+          runs[pa++] = uint32_t(run_length + v);
+          a0 += v;
+          run_length = 0;
+          break;
+        }
+        a0 += v;
+        run_length += v;
+      }
+      if (a0 >= lastx) return finish(0);
+    }
+    if (runs[pa - 1] == 0 && runs[pa - 2] == 0) pa -= 2;
+  }
 }
 
 // libtiff's _TIFFFax3fillruns: white and black runs from the left, each
-// cut at the row's end
-void fax_fill_runs(const std::vector<int>& runs, int w, uint8_t* row) {
+// cut at the row's end. As libtiff's, it writes into the run array: a zero
+// run after an odd count, and each run it cuts (the later rows may read
+// them as stale reference runs).
+void fax_fill_runs(uint32_t* runs, size_t n, int w, uint8_t* row) {
   std::memset(row, 0, size_t((w + 7) / 8));
-  int64_t x = 0;
-  for (size_t k = 0; k < runs.size(); ++k) {
-    int64_t run = uint32_t(runs[k]);
-    if (x + run > w || run > w) run = w - x;
+  if (n & 1) runs[n++] = 0;
+  uint32_t x = 0;
+  const uint32_t lastx = uint32_t(w);
+  for (size_t k = 0; k < n; ++k) {
+    if (x + runs[k] > lastx || runs[k] > lastx) runs[k] = lastx - x;
     if (k & 1)
-      for (int64_t i = x; i < x + run; ++i) row[i >> 3] |= uint8_t(0x80 >> (i & 7));
-    x += run;
+      for (uint32_t i = x; i < x + runs[k]; ++i) row[i >> 3] |= uint8_t(0x80 >> (i & 7));
+    x += runs[k];
   }
 }
 
@@ -1041,61 +1078,50 @@ int vkgr_qoi_decode(const uint8_t* src, int64_t n, int64_t npix, int32_t bands, 
 // T4Options bit 0 a tag bit after it picks a 1-D or 2-D row) or 4 (T.6:
 // 2-D rows against the row before, the first against a white row). dst gets
 // h rows of (w + 7) / 8 bytes, black runs as 1 bits, as libtiff hands them
-// to Pillow. -1: a bad code, a code libtiff would refuse (uncompressed
-// mode), or the data end in the strip's first row (in any row of modified
-// Huffman data). 1: the data end in a later row of T.4 or T.6 data, which
-// libtiff takes for a badly terminated strip: that row's
-// runs so far, white to its end (CLEANUP_RUNS), the rows after it zero
-// (libtiff does not write them). T.6 rows decode as libtiff's EXPAND2D
-// (fax4_row): where the data end, the bits left are read padded with
-// zeros, so the row libtiff fills may end in an EOL's colour, and a code
-// bad only in that padding completes the row and lets the next one meet
-// the end.
+// to Pillow. T.4 and T.6 rows decode in libtiff's run arrays (expand1d,
+// expand2d): where the data end, the bits left are read padded with zeros;
+// a bad code completes its row as CLEANUP_RUNS does and the decoding goes
+// on (libtiff's "unexpected"). Returns 0, or -1: a code past the run
+// arrays, a bad code or the end of the data in modified Huffman data, or
+// the data end in the strip's first row; or k >= 1: the data end (or, in
+// T.6 data, an EOL is read) in row k - 1, which libtiff fills as
+// CLEANUP_RUNS left it and takes for a badly terminated strip, the rows
+// after it zero (libtiff does not write them).
 int vkgr_ccitt(const uint8_t* src, int64_t n, int32_t w, int32_t h, int32_t compression, int32_t t4options,
                uint8_t* dst) {
-  if (w <= 0 || h <= 0) return -1;
+  if (w <= 0 || h <= 0 || compression < 2 || compression > 4) return -1;
   FaxBits br{src, n};
-  std::vector<int> ref{w, w}, cur;
-  std::vector<int> ref4{w, 0}, runs4;  // T.6: libtiff's run lengths, the first reference row white
   const int64_t rowbytes = (w + 7) / 8;
   std::memset(dst, 0, size_t(rowbytes) * h);
-  auto ended = [&](int y) {  // the data end in row y
-    if (y == 0 || compression == 2) return -1;  // Fax3DecodeRLE fails a strip cut short
-    if (cur.size() & 1) cur.push_back(cur.back());  // CLEANUP_RUNS: the rest of the row white
-    fax_fill(cur, w, dst + y * rowbytes);
-    return 1;
-  };
-  for (int y = 0; y < h; ++y) {
-    bool ok;
-    cur.clear();
-    if (compression == 2) {
-      ok = fax_row_1d(br, w, cur);
+  if (compression == 2) {  // Fax3DecodeRLE fails a strip with a bad code or cut short
+    std::vector<int> cur;
+    for (int y = 0; y < h; ++y) {
+      if (!fax_row_1d(br, w, cur)) return -1;
       br.pos = (br.pos + 7) & ~int64_t(7);
-    } else if (compression == 3) {
-      if (!br.sync_eol()) return ended(y);
-      bool two_d = false;
-      if (t4options & 1) {
-        int b = br.bit();
-        if (b < 0) return ended(y);
-        two_d = b == 0;
-      }
-      ok = two_d ? fax_row_2d(br, w, ref, cur) : fax_row_1d(br, w, cur);
-    } else if (compression == 4) {
-      const int rc = fax4_row(br, w, ref4, runs4);
-      if (rc < 0) return -1;
-      fax_fill_runs(runs4, w, dst + y * rowbytes);
-      if (rc == 1) return y == 0 ? -1 : 1;  // libtiff fills the row where the data end and stops
-      runs4.push_back(0);  // the imaginary change of the reference
-      ref4.swap(runs4);
-      continue;
-    } else {
-      return -1;
+      fax_fill(cur, w, dst + y * rowbytes);
     }
-    if (!ok) return br.pos >= n * 8 ? ended(y) : -1;
-    fax_fill(cur, w, dst + y * rowbytes);
-    ref = cur;
-    ref.push_back(w);
-    ref.push_back(w);
+    return 0;
+  }
+  FaxRuns fr(w, compression == 4 || (t4options & 1));
+  bool eolcnt = false;  // T.4: an EOL read at the end of the row before
+  for (int y = 0; y < h; ++y) {
+    int rc = 1;
+    if (compression == 4) {
+      rc = expand2d(br, w, fr, false, eolcnt);
+    } else if (br.sync_eol(eolcnt) && (!(t4options & 1) || br.need(1))) {
+      // Fax3Decode1D / Fax3Decode2D: SYNC_EOL (no search after an EOL read in the row before), the tag bit
+      eolcnt = false;
+      const bool two_d = (t4options & 1) && !br.bitz();
+      rc = two_d ? expand2d(br, w, fr, true, eolcnt) : expand1d(br, w, fr, eolcnt);
+    } else {
+      fr.ncur = 0;
+      fr.cur[fr.ncur++] = uint32_t(w);  // the data end before the row: CLEANUP_RUNS of no run, white
+    }
+    if (rc < 0) return -1;
+    fax_fill_runs(fr.cur, fr.ncur, w, dst + y * rowbytes);
+    if (rc == 1) return y == 0 ? -1 : y + 1;
+    fr.cur[fr.ncur] = 0;  // the imaginary change of the reference (SETVALUE(0))
+    std::swap(fr.cur, fr.ref);
   }
   return 0;
 }

@@ -783,9 +783,9 @@ __attribute__((optimize("fp-contract=off"))) void idwt97_line(float* x, int len,
 // deinterleaved, [L | H] along a row and down a column; rows, then columns,
 // level by level
 template <typename T, typename Line>
-void idwt_2d(T* buf, int W, const TileComp& tc, Line line) {
+void idwt_2d(T* buf, int W, const TileComp& tc, int numres, Line line) {
   std::vector<T> lin;
-  for (int r = 1; r < tc.numres; ++r) {
+  for (int r = 1; r < numres; ++r) {
     const Resolution& prev = tc.res[r - 1];
     const Resolution& res = tc.res[r];
     const int rw = res.x1 - res.x0, rh = res.y1 - res.y0;
@@ -825,6 +825,8 @@ struct Decoder {
   std::vector<std::vector<uint8_t>> ppm_parts;  // PPM contents, by Zppm
   std::vector<uint8_t> ppm;  // the packet headers of every tile-part in turn, Nppm fields taken out
   bool has_ppm = false;
+  // OpenJPEG's resno_decoded: by component, the highest resolution of a packet read in any tile so far
+  std::vector<int> resno_decoded;
 
   // opj_j2k_merge_ppm: the PPM contents in Zppm order hold Nppm (4 bytes) and Nppm bytes of headers, in
   // turn, across the markers' ends; a length past the last one fails ("Corrupted PPM markers")
@@ -1362,7 +1364,9 @@ struct Decoder {
       const int64_t idx = layno * step_l + resno * step_r + compno * step_c + precno;
       if (idx >= total || include[idx]) return 1;
       include[idx] = 1;
-      return read_packet(tcs, tcp, compno, resno, precno, layno, cur, end, hdrbuf, hdrpos);
+      const int rc = read_packet(tcs, tcp, compno, resno, precno, layno, cur, end, hdrbuf, hdrpos);
+      if (rc >= 0) resno_decoded[compno] = std::max(resno_decoded[compno], resno);
+      return rc;
     };
     for (const Poc& poc : pocs) {
       const int lay1 = std::min(poc.layno1, tcp.numlayers);
@@ -1530,12 +1534,15 @@ struct Decoder {
             }
         }
       }
+      // the inverse DWT up to the highest resolution a packet reached (opj_tcd_dwt_decode)
+      const int nres = std::min(resno_decoded[c], tc.numres - 1) + 1;
       if (W > 0 && H > 0) {
         if (rev) {
           std::vector<int32_t> tmp;
-          idwt_2d(tc.idata.data(), W, tc, [&tmp](int32_t* x, int len, int cas) { idwt53_line(x, len, cas, tmp); });
+          idwt_2d(tc.idata.data(), W, tc, nres,
+                  [&tmp](int32_t* x, int len, int cas) { idwt53_line(x, len, cas, tmp); });
         } else {
-          idwt_2d(tc.fdata.data(), W, tc, [](float* x, int len, int cas) { idwt97_line(x, len, cas); });
+          idwt_2d(tc.fdata.data(), W, tc, nres, [](float* x, int len, int cas) { idwt97_line(x, len, cas); });
         }
       }
     }
@@ -1565,10 +1572,14 @@ struct Decoder {
     out[used++] = int32_t(ty0);
     out[used++] = int32_t(tx1);
     out[used++] = int32_t(ty1);
+    // of each component the resolution the inverse DWT reached, which OpenJPEG hands on as the tile
+    // (opj_tcd_update_tile_data): the top-left W x H samples of the full-size buffer of stride S
     for (int c = 0; c < nc; ++c) {
       TileComp& tc = tcs[c];
       const Comp& comp = img.comps[c];
-      const int W = tc.x1 - tc.x0, H = tc.y1 - tc.y0;
+      const int S = tc.x1 - tc.x0;
+      const Resolution& top = tc.res[std::min(resno_decoded[c], tc.numres - 1)];
+      const int W = top.x1 - top.x0, H = top.y1 - top.y0;
       if (used + 2 + int64_t(W) * H > cap) return kNoSpace;
       out[used++] = W;
       out[used++] = H;
@@ -1576,11 +1587,13 @@ struct Decoder {
       const int64_t hi = comp.sgnd ? (int64_t(1) << (comp.prec - 1)) - 1 : (int64_t(1) << comp.prec) - 1;
       const int64_t shift = comp.sgnd ? 0 : (int64_t(1) << (comp.prec - 1));
       const size_t cnt = size_t(W) * H;
+      auto at = [&](size_t i) { return (i / size_t(W)) * size_t(S) + i % size_t(W); };
       if (tcp.tccps[c].qmfbid == 1) {
-        for (size_t i = 0; i < cnt; ++i) out[used + int64_t(i)] = int32_t(std::clamp(tc.idata[i] + shift, lo, hi));
+        for (size_t i = 0; i < cnt; ++i)
+          out[used + int64_t(i)] = int32_t(std::clamp(tc.idata[at(i)] + shift, lo, hi));
       } else {
         for (size_t i = 0; i < cnt; ++i) {
-          const float v = tc.fdata[i];
+          const float v = tc.fdata[at(i)];
           int64_t q;
           if (v > float(INT32_MAX))
             q = hi;
@@ -1623,6 +1636,7 @@ int vkgr_j2k_decode(const uint8_t* cs, int64_t n, int32_t* out, int64_t cap, int
   *used = 0;
   int rc = d.parse();
   if (rc) return rc;
+  d.resno_decoded.assign(size_t(d.img.ncomp), 0);
   int64_t u = 0;
   for (int t : d.order) {
     rc = d.decode_tile(t, out, cap, u);

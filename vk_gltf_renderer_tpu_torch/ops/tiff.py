@@ -140,6 +140,13 @@ def _lib():
 
 
 STRIP_TAGS = (273, 279, 324, 325)
+# The tags Pillow's TiffImageFile._setup reads as numbers: an ASCII value there (a str in Pillow) fails its open.
+# Not among them: the photometric interpretation of old-style JPEG data (Pillow sets 6 in its place), and the
+# planar configuration of uncompressed data (a str is not 2: the samples read as contiguous)
+PILLOW_NUMERIC = (256, 257, 258, 259, 266, 273, 277, 278, 322, 323, 324, 338, 339)
+# The numeric tags this reader takes from libtiff's directory: libtiff skips one whose type is ASCII
+# ("Incompatible type"), keeping its default, and fails the directory when it is a strip or tile array
+LIBTIFF_NUMERIC = (*PILLOW_NUMERIC, 274, 279, 292, 317, 320, 325, 513, 514, 529, 530, 532)
 
 
 def _read_ifd(data: bytes):
@@ -187,10 +194,21 @@ def _read_ifd(data: bytes):
                     vals = tuple(a / b if b else float("nan") for a, b in zip(vals[::2], vals[1::2]))
             if not cut:
                 tags[tag] = vals
+            if typ == 2 and tag in LIBTIFF_NUMERIC:  # libtiff skips it, or fails on a strip or tile array
+                if tag in STRIP_TAGS:
+                    full[tag] = None
+                continue
             full[tag] = vals
     except struct.error as e:
         raise ValueError(f"TIFF: truncated directory ({e})") from e
     return ("II" if bo == "<" else "MM"), bo, tags, full
+
+
+def _byte_counts(tags, tag):
+    """The strip or tile byte counts; None where the tag is absent, or ASCII
+    (Pillow's reader of uncompressed data does not need them)."""
+    v = tags.get(tag)
+    return None if v is None or isinstance(v[0], bytes) else v
 
 
 def _scalar(tags, tag, default=None):
@@ -255,16 +273,23 @@ def read_tiff(data: bytes):
     if not is_tiff(data):
         raise UnsupportedCodec("not a TIFF file")
     order, bo, tags, full = _read_ifd(data)
+    if any(isinstance(tags.get(t, (0,))[0], bytes) for t in PILLOW_NUMERIC):
+        raise ValueError("TIFF: an ASCII value where Pillow reads a number")
+    ascii_planar = isinstance(_scalar(tags, 284), bytes)
+    if ascii_planar:
+        tags = {t: v for t, v in tags.items() if t != 284}
     if 0xBC01 in tags:
         raise UnsupportedCodec("Windows Media Photo in TIFF is not supported")
     ctag = _scalar(tags, 259, 1)
     if ctag not in COMPRESSIONS:
         raise UnsupportedCodec(f"TIFF compression {ctag} is unknown to Pillow")
     comp = COMPRESSIONS[ctag]
+    if ascii_planar and comp != "raw":
+        raise ValueError("TIFF: an ASCII planar configuration, which Pillow's libtiff path refuses")
     planar = _scalar(tags, 284, 1)
-    photo = _scalar(tags, 262, 0)
-    if comp == "tiff_jpeg":
-        photo = 6
+    photo = 6 if comp == "tiff_jpeg" else _scalar(tags, 262, 0)
+    if isinstance(photo, bytes):
+        raise ValueError("TIFF: an ASCII value where Pillow reads a number")
     fill = _scalar(tags, 266, 1)
     w, h = _scalar(tags, 256), _scalar(tags, 257)
     if not isinstance(w, int) or not isinstance(h, int) or w <= 0 or h <= 0:
@@ -293,6 +318,8 @@ def read_tiff(data: bytes):
         raise UnsupportedCodec(f"TIFF compression {comp} is not supported")
     if comp != "raw":  # libtiff decodes compressed data with the tags it reads itself
         tags = full
+        if any(tags.get(t, ()) is None for t in STRIP_TAGS):
+            raise ValueError("TIFF: libtiff refuses an ASCII strip or tile array")
         planar, fill = _scalar(tags, 284, 1), _scalar(tags, 266, 1)
     if fill == 2:  # the data are bit-reversed below, so the ";R" raw modes read as their plain forms
         if comp != "raw":
@@ -328,12 +355,12 @@ def read_tiff(data: bytes):
     tiled = 324 in tags
     if tiled:
         tw, tl = _scalar(tags, 322), _scalar(tags, 323)
-        offsets, counts = tags[324], tags.get(325)
+        offsets, counts = tags[324], _byte_counts(tags, 325)
         if not isinstance(tw, int) or not isinstance(tl, int) or tw <= 0 or tl <= 0:
             raise ValueError("TIFF: bad tile size")
     elif 273 in tags:
         tw, tl = w, min(_scalar(tags, 278, h), h)
-        offsets, counts = tags[273], tags.get(279)
+        offsets, counts = tags[273], _byte_counts(tags, 279)
     else:
         raise ValueError("TIFF: no strips or tiles")
     planes = spp if planar == 2 else 1
@@ -458,8 +485,9 @@ def _segment_bytes(data, comp, off, count, expect, fill, tags=None, width=0, row
     else:
         fn = _lib().vkgr_tiff_lzw if comp == "tiff_lzw" else _lib().vkgr_packbits
         rc = fn(src.ctypes.data, len(src), out.ctypes.data, expect)
-    # kept: a T.4 or T.6 strip cut after its first row (1); with partial, LZW or PackBits data that end early (-1)
-    kept = rc == 1 if comp in CCITT else partial and rc == -1 and comp in ("tiff_lzw", "packbits")
+    # kept: a T.4 or T.6 strip cut after its first row (the rows decoded, >= 1); with partial, LZW or PackBits data
+    # that end early (-1)
+    kept = rc >= 1 if comp in CCITT else partial and rc == -1 and comp in ("tiff_lzw", "packbits")
     if rc != 0 and not kept:
         raise ValueError(f"TIFF: corrupt or short {comp} data (rc {rc})")
     return out

@@ -18,7 +18,7 @@ suffix raises ValueError("unknown file extension"), as Pillow does.
 
 read_image identifies data the way Image.open does, in its order: the
 plugins Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then Image.ID's
-order (BLP, BUFR, CUR, PCX, DCX, FITS, FLI, FTEX, GBR, GRIB, HDF5,
+order (AVIF, BLP, BUFR, CUR, PCX, DCX, FITS, FLI, FTEX, GBR, GRIB, HDF5,
 JPEG2000, ICNS, ICO, IM, IMT, IPTC, MCIDAS, MPEG, TIFF, MSP, PCD, PIXAR,
 PSD, QOI, SGI, SPIDER, SUN, TGA, WEBP, XBM, XPM, XVTHUMB, of those the
 port reads), each reader asked when its magic bytes or header checks
@@ -31,8 +31,10 @@ HDF5 and MPEG are claimed and refused (ops/stubs.py): Pillow identifies
 them and cannot load them. Data that no reader claims raise
 UnsupportedCodec (a ValueError), where Image.open raises
 UnidentifiedImageError. JPEG 2000 (raw codestreams and JP2 files, Part 1)
-is read by ops/jpeg2000.py; EPS, AVIF, WMF and JPEG 2000's Part 15 (HT)
-code-blocks are not ported (ROADMAP A): such data are refused.
+is read by ops/jpeg2000.py; AVIF stills coded lossless (what Pillow writes
+at quality 100) by ops/avif.py. EPS, WMF, lossy AVIF (and AVIF sequences,
+grid items, screen content tools and more than 8 bits) and JPEG 2000's
+Part 15 (HT) code-blocks are not ported (ROADMAP A): such data are refused.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..ops.avif import decode_avif, is_avif
 from ..ops.blp import decode_blp, is_blp
 from ..ops.bmp import decode_bmp, encode_bmp, is_bmp, is_dib
 from ..ops.dds import UnsupportedCodec
@@ -82,7 +85,8 @@ _ANY = lambda d: True  # noqa: E731 - a plugin Pillow registers without an accep
 READERS = (
     ("BMP", is_bmp, decode_bmp), ("DIB", is_dib, lambda d: decode_bmp(d, dib=True)), ("GIF", is_gif, decode_gif),
     ("JPEG", is_jpeg, decode_jpeg), ("PPM", is_netpbm, decode_netpbm), ("PNG", is_png, read_png),
-    ("BLP", is_blp, decode_blp), ("BUFR", is_bufr, refuse_stub("BUFR")), ("CUR", is_cur, decode_cur),
+    ("AVIF", is_avif, decode_avif), ("BLP", is_blp, decode_blp), ("BUFR", is_bufr, refuse_stub("BUFR")),
+    ("CUR", is_cur, decode_cur),
     ("PCX", is_pcx, decode_pcx), ("DCX", is_dcx, decode_dcx), ("FITS", is_fits, decode_fits),
     ("FLI", is_fli, decode_fli), ("FTEX", is_ftex, decode_ftex), ("GBR", is_gbr, decode_gbr),
     ("GRIB", is_grib, refuse_stub("GRIB")), ("HDF5", is_hdf5, refuse_stub("HDF5")),
@@ -140,5 +144,6 @@ def identify_and_read(data: bytes) -> tuple:
 
 def read_image(data: bytes) -> np.ndarray:
     """Image bytes -> uint8 [H,W,C]: PNG, JPEG and WebP as their decoders
-    give them (WebP RGBA), the other formats as Pillow's convert("RGBA")."""
+    give them (WebP RGBA), AVIF as RGB or RGBA, the other formats as
+    Pillow's convert("RGBA")."""
     return identify_and_read(data)[1]
