@@ -381,10 +381,12 @@ Phases (each raises on failure; nothing is caught):
      its decoded pixels, and on a 128x128 ICNS icon of a JPEG 2000 entry
      and on a PNG of it: each pair equal bit for bit, with 10 traverse_bvh4
      and 16 gather_channels launches; (e) AVIF: the committed 512x512
-     lossless map decoded on the host (the AV1 decoder of
-     native/av1_decode.cpp), equal to Pillow's digest, host seconds; the
-     helmet at 1080p on it and on a PNG of its pixels, equal bit for bit,
-     with 10 traverse_bvh4 and 16 gather_channels launches. (a) also holds
+     lossless map and 2048x2048 lossy map (Pillow's defaults: quality 75,
+     speed 6, 4:2:0) decoded on the host (the AV1 decoder of
+     native/av1_decode.cpp), each equal to Pillow's digest, host seconds
+     (best of 3); the helmet at 1080p on each and on a PNG of its pixels,
+     equal bit for bit, with 10 traverse_bvh4 and 16 gather_channels
+     launches. (a) also holds
      that every AVIF form the port does not read yet (digests.json's
      "gaps") is refused. `[formats]` lines, then [time] lines.
 
@@ -4696,10 +4698,12 @@ def _formats_jpeg2000(device, tmp, hdr, smi):
 
 
 def _formats_avif(device, tmp, hdr, smi):
-    """Phase 22e: AVIF. The committed 512x512 lossless map (coded lossless
-    AV1, 4:4:4) equal to the digest of Pillow's decode, host seconds (the
-    best of three); then the helmet at 1080p on it and on a PNG the port
-    writes from its decoded pixels: the frames equal bit for bit, with 10
+    """Phase 22e: AVIF. The committed maps that only this phase decodes (a
+    512x512 coded lossless map at 4:4:4, a 2048x2048 lossy one at Pillow's
+    defaults: quality 75, speed 6, 4:2:0, the deblocking filter on) equal to
+    the digests of Pillow's decode, host seconds each (the best of three);
+    then the helmet at 1080p on each map and on a PNG the port writes from
+    its decoded pixels: each pair of frames equal bit for bit, with 10
     traverse_bvh4 and 16 gather_channels launches a frame."""
     import hashlib
 
@@ -4711,51 +4715,53 @@ def _formats_avif(device, tmp, hdr, smi):
 
     av1_lib()  # built (or found) before the clock starts
     digests = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
-    name = "avif_map_512_lossless.avif"
-    entry = digests["large"][name]
-    data = (IMAGE_FIXTURES / name).read_bytes()
-    secs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        fmt, dec = identify_and_read(data)
-        secs.append(time.perf_counter() - t0)
-    rgba = np.concatenate([dec, np.full(dec.shape[:2] + (1,), 255, np.uint8)], axis=-1)
-    require(fmt == "AVIF" and list(rgba.shape) == entry["shape"]
-            and hashlib.sha256(rgba.tobytes()).hexdigest() == entry["sha256"],
-            f"[formats] {name}: the decode differs from Pillow's digest")
-    h, w = dec.shape[:2]
-    log(f"[formats] (e) {name} {w}x{h}, {len(data)} bytes ({8 * len(data) / (w * h):.3f} bits a pixel): "
-        f"host decode {min(secs):.3f} s (best of 3; {', '.join(f'{x:.3f}' for x in secs)}), equal to Pillow's "
-        f"digest; on {smi}")
+    maps, frames = {}, {}
     d = os.path.join(tmp, "formats22e")
     os.makedirs(d, exist_ok=True)
-    frames, first_png = {}, None
-    for kind, blob, fname in (("png_avif_512", encode_png(np.ascontiguousarray(dec)), "avif_pixels.png"),
-                              ("avif_512", data, "base.avif")):
-        r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
-        r.create_scene(tscenes.helmet_with_texture(d, blob, fname))
-        r.create_hdr(hdr)
-        side, rows = r.dev_scene.tex_desc[0, 1:3].tolist()
-        require([rows, side] == [h, w], f"[formats] {kind}: the base colour did not decode")
-        tb4.COUNTER.launches = 0
-        tgather.COUNTER.launches = 0
-        times, _, first = _render_frames(r, 0, 1)
-        launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
-        require(launches == {"traverse_bvh4": 10, "gather_channels": 16},
-                f"[formats] {kind}: launches a frame {launches}, not 10 and 16")
-        if first_png is None:
-            first_png = first
-        else:
-            require(all(np.array_equal(a, b) for a, b in zip(first, first_png)),
-                    f"[formats] the {kind} frame differs from the png_avif_512 frame")
-        frames[kind] = dict(ms=1e3 * times[0], launches=launches, tex_side=side)
-        log(f"[formats] (e) helmet {FRAME_W}x{FRAME_H} with a {side}x{rows} {kind} base colour: "
-            f"{1e3 * times[0]:.2f} ms, traverse_bvh4 {launches['traverse_bvh4']} and gather_channels "
-            f"{launches['gather_channels']} launches" + ("; equal to the png_avif_512 frame bit for bit"
-                                                         if kind == "avif_512" else "") + f"; on {smi}")
-        del r
-    return dict(map=dict(bytes=len(data), side=w, bits_per_pixel=8 * len(data) / (w * h), host_s=min(secs),
-                         host_s_runs=secs), frames=frames)
+    for name, tag in (("avif_map_512_lossless.avif", "512"), ("avif_map_2048_lossy.avif", "2048_lossy")):
+        entry = digests["large"][name]
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fmt, dec = identify_and_read(data)
+            secs.append(time.perf_counter() - t0)
+        rgba = np.concatenate([dec, np.full(dec.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+        require(fmt == "AVIF" and list(rgba.shape) == entry["shape"]
+                and hashlib.sha256(rgba.tobytes()).hexdigest() == entry["sha256"],
+                f"[formats] {name}: the decode differs from Pillow's digest")
+        h, w = dec.shape[:2]
+        maps[name] = dict(bytes=len(data), side=w, bits_per_pixel=8 * len(data) / (w * h), host_s=min(secs),
+                          host_s_runs=secs)
+        log(f"[formats] (e) {name} {w}x{h}, {len(data)} bytes ({8 * len(data) / (w * h):.3f} bits a pixel): "
+            f"host decode {min(secs):.3f} s (best of 3; {', '.join(f'{x:.3f}' for x in secs)}), equal to "
+            f"Pillow's digest; on {smi}")
+        first_png = None
+        for kind, blob, fname in ((f"png_avif_{tag}", encode_png(np.ascontiguousarray(dec)), f"avif_{tag}.png"),
+                                  (f"avif_{tag}", data, f"base_{tag}.avif")):
+            r = GltfRenderer(FRAME_W, FRAME_H, spp=SPP, max_depth=DEPTH, device=device)
+            r.create_scene(tscenes.helmet_with_texture(d, blob, fname))
+            r.create_hdr(hdr)
+            side, rows = r.dev_scene.tex_desc[0, 1:3].tolist()
+            require([rows, side] == [h, w], f"[formats] {kind}: the base colour did not decode")
+            tb4.COUNTER.launches = 0
+            tgather.COUNTER.launches = 0
+            times, _, first = _render_frames(r, 0, 1)
+            launches = {"traverse_bvh4": tb4.COUNTER.launches, "gather_channels": tgather.COUNTER.launches}
+            require(launches == {"traverse_bvh4": 10, "gather_channels": 16},
+                    f"[formats] {kind}: launches a frame {launches}, not 10 and 16")
+            if first_png is None:
+                first_png = first
+            else:
+                require(all(np.array_equal(a, b) for a, b in zip(first, first_png)),
+                        f"[formats] the {kind} frame differs from the png_avif_{tag} frame")
+            frames[kind] = dict(ms=1e3 * times[0], launches=launches, tex_side=side)
+            log(f"[formats] (e) helmet {FRAME_W}x{FRAME_H} with a {side}x{rows} {kind} base colour: "
+                f"{1e3 * times[0]:.2f} ms, traverse_bvh4 {launches['traverse_bvh4']} and gather_channels "
+                f"{launches['gather_channels']} launches" + (f"; equal to the png_avif_{tag} frame bit for bit"
+                                                             if kind == f"avif_{tag}" else "") + f"; on {smi}")
+            del r
+    return dict(maps=maps, frames=frames)
 
 
 def phase_pillow_formats(device, tmp, hdr, smi):
@@ -4774,7 +4780,7 @@ def phase_pillow_formats(device, tmp, hdr, smi):
     log(f"[time] phase 22 (d) done at {time.perf_counter() - t_phase:.1f} s into the phase")
     t_avif = time.perf_counter()
     avif = _formats_avif(device, tmp, hdr, smi)
-    out["avif_map"] = avif["map"]
+    out["avif_maps"] = avif["maps"]
     out["frames"].update(avif["frames"])
     out["avif_seconds"] = time.perf_counter() - t_avif
     log(f"[time] phase 22 (e) AVIF {out['avif_seconds']:.1f} s")

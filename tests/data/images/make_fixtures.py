@@ -19,7 +19,7 @@ types, BLP1 CMYK JPEG, IPTC, PIXAR, SPIDER, FITS, McIDAS, GBR, PhotoCD,
 FLI/FLC, XV thumbnails, IM Tools and ICNS; JPEG 2000 codestreams and JP2
 files, from Pillow's encoder, with JP2 boxes written here, and from
 OpenJPEG's own encoder through openjpeg_encode.py for what Pillow's save
-cannot ask for; AVIF stills from Pillow's writer, with aom's options). Some are files
+cannot ask for; AVIF stills from Pillow's writer, lossless and lossy, with aom's options). Some are files
 Pillow refuses, EPS among them (Pillow needs Ghostscript to load it). digests.json holds, for each file, the shape and
 sha256 of Pillow's decode (Image.open(f).convert("RGBA") as uint8 bytes),
 or that Pillow refuses it (and, under "divergences", the files Pillow
@@ -2056,12 +2056,66 @@ def avif_in_idat(data: bytes) -> bytes:
     return box(b"ftyp", top[b"ftyp"]) + box(b"meta", top[b"meta"][:4] + body)
 
 
-def avif_gaps() -> dict:
-    """AVIF stills Pillow reads and the port refuses (UnsupportedCodec, ROADMAP A): lossy AV1 (quality 75), an
-    image sequence (save_all, the avis brand) and an image aom codes with screen content tools."""
+def avif_lossy_image(w, h, seed):
+    """A smooth image with a noise patch and a sharp-edged bar: large transforms, small ones and filtered edges."""
+    img = smooth(w, h, seed)
+    rng = np.random.default_rng(seed)
+    img[h // 4 : h // 2, w // 2 : w // 2 + w // 4] = rng.integers(0, 256, (h // 2 - h // 4, w // 4, 3), np.uint8)
+    img[h // 2 + 4 : h // 2 + 12, 4 : w - 4] = (230, 40, 90)
+    return img
+
+
+# aom's transform switches for the lossy ladder (libavif hands each to aom as a codec option)
+AVIF_TX_SWITCHES = (("enable-tx64", "0"), ("enable-rect-tx", "0"), ("reduced-tx-type-set", "1"),
+                    ("enable-flip-idtx", "0"), ("use-intra-dct-only", "1"), ("use-intra-default-tx-only", "1"))
+
+
+def avif_lossy() -> dict:
+    """Lossy AVIF stills from Pillow's writer at its defaults but for what the name says (quality 75, speed 6,
+    4:2:0): a quality ladder at 4:4:4, 4:2:2 and 4:2:0, RGBA with a lossy alpha item, the odd sizes of the
+    lossless set, 2x2 and 1x4 tiles, 64x64 and 128x128 superblocks, speeds 5-10, aom's transform switches one at a
+    time, the deblocking filter off, a sharpness, CDEF on with every strength 0, and speed 0 without loop
+    restoration (every intra tool aom tries). The deblocking filter is the only loop filter of each."""
     out = {}
     rgb = smooth(45, 37, 800)
-    out["avif_refused_q75.avif"] = avif_file(rgb, quality=75)
+    out["avif_refused_q75.avif"] = avif_file(rgb, quality=75)  # the name from when the port refused it
+    img = avif_lossy_image(128, 96, 900)
+    for sub in ("4:4:4", "4:2:2", "4:2:0"):
+        tag = sub.replace(":", "")
+        for q in (1, 10, 30, 50, 75, 90, 99):
+            out[f"avif_lossy_q{q}_{tag}.avif"] = avif_file(img, quality=q, subsampling=sub)
+        for w, h in ((1, 1), (33, 1), (1, 9), (7, 5), (66, 3)):
+            out[f"avif_lossy_{tag}_{w}x{h}.avif"] = avif_file(smooth(w, h, 902 + w * h), quality=50, subsampling=sub)
+    rgba = np.concatenate([img, smooth(128, 96, 901, 1)], axis=-1)
+    out["avif_lossy_rgba_420.avif"] = avif_file(rgba, quality=50)
+    big = avif_lossy_image(200, 150, 903)
+    out["avif_lossy_tiles_2x2_420.avif"] = avif_file(big, quality=60, tile_rows=1, tile_cols=1)
+    out["avif_lossy_tiles_1x4_444.avif"] = avif_file(big, quality=60, subsampling="4:4:4", tile_cols=2)
+    wide = avif_lossy_image(320, 192, 904)
+    for sb in ("64", "128"):
+        out[f"avif_lossy_sb{sb}.avif"] = avif_file(wide, quality=70, advanced=[("sb-size", sb)])
+    for speed in range(5, 11):
+        out[f"avif_lossy_speed{speed}.avif"] = avif_file(img, quality=60, speed=speed)
+    for key, value in AVIF_TX_SWITCHES:
+        out[f"avif_lossy_{key}_{value}.avif"] = avif_file(img, quality=60, advanced=[(key, value)])
+    out["avif_lossy_loopfilter_off.avif"] = avif_file(img, quality=60, advanced=[("loopfilter-control", "0")])
+    out["avif_lossy_sharpness_3.avif"] = avif_file(img, quality=60, advanced=[("sharpness", "3")])
+    out["avif_lossy_cdef_zero.avif"] = avif_file(smooth(160, 128, 905), quality=85, advanced=[("enable-cdef", "1")])
+    out["avif_lossy_speed0_444.avif"] = avif_file(img, quality=60, subsampling="4:4:4", speed=0,
+                                                  advanced=[("enable-restoration", "0")])
+    return out
+
+
+def avif_gaps() -> dict:
+    """AVIF stills Pillow reads and the port refuses (UnsupportedCodec, ROADMAP A): an image sequence (save_all,
+    the avis brand), an image aom codes with screen content tools, and the lossy tools the port does not decode:
+    loop restoration (speed 2), CDEF (a strength that is not 0) and quantiser matrices."""
+    out = {}
+    rgb = smooth(45, 37, 800)
+    img = avif_lossy_image(128, 96, 900)
+    out["avif_refused_loop_restoration.avif"] = avif_file(avif_lossy_image(200, 150, 903), quality=60, speed=2)
+    out["avif_refused_cdef.avif"] = avif_file(img, quality=60, advanced=[("enable-cdef", "1")])
+    out["avif_refused_qm.avif"] = avif_file(img, quality=60, advanced=[("enable-qm", "1")])
     out["avif_refused_sequence.avif"] = pillow(Image.fromarray(rgb), "AVIF", save_all=True, quality=100,
                                                max_threads=1, append_images=[Image.fromarray(rgb[::-1].copy())])
     # few colours in flat regions: aom's screen content detection turns the tools on
@@ -2074,10 +2128,12 @@ def avif_gaps() -> dict:
 
 
 def avif_large() -> dict:
-    """The map chip_smoke.py decodes and times: a 512x512 lossless AVIF (4:4:4) of scenes.texture_image."""
+    """The maps chip_smoke.py decodes and times: a 512x512 lossless AVIF (4:4:4) of scenes.texture_image, and a
+    2048x2048 one at Pillow's defaults (quality 75, speed 6, 4:2:0)."""
     from vk_gltf_renderer_tpu_torch.scenes import texture_image
 
-    return {"avif_map_512_lossless.avif": avif_file(texture_image(512, seed=3)[..., :3], subsampling="4:4:4")}
+    return {"avif_map_512_lossless.avif": avif_file(texture_image(512, seed=3)[..., :3], subsampling="4:4:4"),
+            "avif_map_2048_lossy.avif": avif_file(texture_image(2048, seed=3)[..., :3], quality=75)}
 
 
 def stubs() -> dict:
@@ -2099,7 +2155,8 @@ def fixtures() -> dict:
     return {**netpbm(), **bmp(), **tga(), **gif(), **tiff(), **libtiff(), **libtiff_lab_zstd_ojpeg(), **jpeg(), **psd(),
             **sgi(), **pcx(), **ico(), **qoi(), **sun(), **png(), **blp(), **ftex(), **xbm(), **xpm(), **msp(), **im(),
             **eps(), **im_repaired(), **blp_cmyk(), **iptc(), **pixar_spider(), **fits(), **mcidas_gbr(), **pcd(),
-            **fli(), **xvthumb_imt(), **icns(), **stubs(), **icns_jpeg2000(), **jpeg2000(), **jpeg2000_openjpeg(), **avif()}
+            **fli(), **xvthumb_imt(), **icns(), **stubs(), **icns_jpeg2000(), **jpeg2000(), **jpeg2000_openjpeg(), **avif(),
+            **avif_lossy()}
 
 
 def main():

@@ -10,15 +10,17 @@ the CPU.
   bit for bit, identified as "AVIF"; a header check holds that each one
   (its alpha item too) is coded lossless (base_q_idx 0), so that a fixture
   aom made lossy cannot pass as one.
-- The forms the port does not read yet (digests.json's "gaps": lossy AV1,
-  an image sequence, screen content tools) raise UnsupportedCodec, Pillow
-  decodes them to their digests, and the texture pool makes them white.
+- The forms the port does not read yet (digests.json's "gaps": loop
+  restoration, CDEF, quantiser matrices, an image sequence, screen content
+  tools) raise UnsupportedCodec naming what is not ported, Pillow decodes
+  them to their digests, and the texture pool makes them white.
 - 300 seeded mutations of the small fixtures (bits flipped, header bytes
   set, data bits flipped, the file cut) decode to Pillow's pixels or fail
   in both, but for the kinds of mutation that ROADMAP lists: AV1 that the
-  mutation turned lossy and a colr matrix outside libyuv's
-  (UnsupportedCodec; ROADMAP A), and an AV1 frame whose size is not its
-  ispe (ROADMAP C5).
+  mutation turned into a form the port does not decode and a colr matrix
+  outside libyuv's (UnsupportedCodec; ROADMAP A), and an AV1 frame whose
+  size is not its ispe (ROADMAP C5, a kept divergence).
+  tests/test_torch_avif_lossy.py holds the lossy fixtures the same way.
 - A glTF whose base colour is a lossless AVIF renders a 48x32 frame that
   agrees with the JAX renderer's at tests/test_torch_frame.py's thresholds.
 - The AV1 decoder that fails to build fails the scene load.
@@ -53,7 +55,7 @@ share_native_builder()
 FIXTURES = Path(__file__).resolve().parent / "data" / "images"
 DIGESTS = json.loads((FIXTURES / "digests.json").read_text())
 LOSSLESS = sorted(n for g in ("files", "large") for n in DIGESTS[g] if n.startswith("avif_q100_") or
-                  n.startswith("avif_map_"))
+                  (n.startswith("avif_map_") and "lossless" in n))
 GAPS = sorted(DIGESTS["gaps"])
 
 
@@ -103,11 +105,19 @@ def test_fixtures_cover_every_subsampling_alpha_and_tiles():
     assert sum(n.startswith("avif_q100_ladder_") for n in LOSSLESS) >= 12
 
 
+# what each gap's refusal names (the image sequence is refused before any AV1 is read)
+GAP_TOOLS = {"avif_refused_loop_restoration.avif": "loop restoration", "avif_refused_cdef.avif": "CDEF",
+             "avif_refused_qm.avif": "quantiser matrices", "avif_refused_screen_content.avif": "screen content tools",
+             "avif_refused_sequence.avif": "image sequences"}
+
+
 @pytest.mark.parametrize("name", GAPS)
 def test_forms_not_ported_are_refused_where_pillow_reads_them(name, tmp_path):
     data = (FIXTURES / name).read_bytes()
-    with pytest.raises(UnsupportedCodec):
+    with pytest.raises(UnsupportedCodec, match=GAP_TOOLS[name]):
         identify_and_read(data)
+    if name != "avif_refused_sequence.avif":
+        assert avif.av1_header(_av1_items(data)[0])["why"] == GAP_TOOLS[name]
     ref = np.asarray(PIL_Image.open(io.BytesIO(data)).convert("RGBA"))
     entry = DIGESTS["gaps"][name]
     assert list(ref.shape) == entry["shape"] and hashlib.sha256(ref.tobytes()).hexdigest() == entry["sha256"]
@@ -135,6 +145,7 @@ def test_files_without_an_avif_brand_pass_on_as_pillow_does():
 
 
 def _mutate(rng, data):
+    """One seeded mutation: bits flipped anywhere, a header byte set, a data bit flipped, or the file cut."""
     d = bytearray(data)
     kind = rng.choice(["flip", "head", "data", "cut"])
     if kind == "flip":
@@ -153,14 +164,20 @@ def _mutate(rng, data):
 def test_mutated_fixtures_decode_or_fail_as_pillow(seed):
     """75 seeded mutations a seed. The texture decoders agree (both white, or
     the same pixels), but where the mutation made the AV1 frame one the port
-    does not decode (lossy; UnsupportedCodec, a gap of ROADMAP A), set a colr
-    matrix libavif converts without libyuv (ROADMAP A), or made the frame's
-    size differ from its ispe (libavif then hands on an image of the ispe
-    size that is neither the frame nor a crop of it, ROADMAP C5); those are
-    counted, few, and each is checked to be what it claims."""
-    rng = random.Random(seed)
+    does not decode (UnsupportedCodec naming the tool, a gap of ROADMAP A),
+    set a colr matrix libavif converts without libyuv (ROADMAP A), or made
+    the frame's size differ from its ispe (libavif then scales the frame to
+    the ispe size, ROADMAP C5); those are counted, few, and each is checked
+    to be what it claims."""
     names = sorted(n for n in DIGESTS["files"] if n.startswith("avif_q100_") and "ladder" not in n
                    and "tiles" not in n)
+    mutation_outcomes(seed, names)
+
+
+def mutation_outcomes(seed, names):
+    """75 mutations of the fixtures `names` from random.Random(seed), held as
+    test_mutated_fixtures_decode_or_fail_as_pillow says."""
+    rng = random.Random(seed)
     outcomes = {"equal": 0, "both fail": 0, "not ported": 0, "ispe": 0}
     for i in range(75):
         name = rng.choice(names)
@@ -173,7 +190,7 @@ def test_mutated_fixtures_decode_or_fail_as_pillow(seed):
         try:
             got = ttextures.decode_image(model, {"bufferView": 0})
         except UnsupportedCodec as e:
-            if ref is not None and "coded lossless" in str(e):
+            if ref is not None and "which the port does not decode" in str(e):
                 assert any(avif.av1_header(o)["refused"] for o in _av1_items(d)), (name, kind, i)
                 outcomes["not ported"] += 1
                 continue
@@ -183,9 +200,11 @@ def test_mutated_fixtures_decode_or_fail_as_pillow(seed):
                 continue
             got = None
         except ValueError as e:
-            if ref is not None and "ispe" in str(e):
-                header = avif.av1_header(_av1_items(d)[0])
-                assert (header["h"], header["w"]) != ref.shape[:2], (name, kind, i)
+            if ref is not None and "ispe" in str(e):  # an item (the colour or the alpha) not of its ispe size
+                items, primary, _ = avif._parse(d)
+                ids = [primary] + [k for k, it in items.items() if it.get("auxl") == primary]
+                assert any((h["w"], h["h"]) != avif._prop(items[k], b"ispe")
+                           for k, h in zip(ids, map(avif.av1_header, _av1_items(d)))), (name, kind, i)
                 outcomes["ispe"] += 1
                 continue
             got = None

@@ -177,7 +177,7 @@ def j2k_lib():
 
 
 def av1_lib():
-    """The AV1 decoder of the coded lossless subset (av1_decode.cpp), built
+    """The AV1 intra decoder (av1_decode.cpp), built
     at first use (_load_coder: RuntimeError when it cannot be built or
     loaded)."""
     global _av1

@@ -17,10 +17,13 @@ the colour conversion).
     Exif orientation it hands on, which Image.open does not apply), and
     libavif does not crop to clap: the port does neither.
   * The AV1 data of the primary item (and of its alpha auxiliary item)
-    decode through native/av1_decode.cpp: the coded lossless subset of AV1
-    (what Pillow writes at quality 100). Lossy AV1, screen content tools,
-    more than 8 bits, image sequences (the avis brand without an image
-    item) and grid items raise UnsupportedCodec (ROADMAP A).
+    decode through native/av1_decode.cpp: AV1 key frames as Pillow writes
+    them with its default settings, lossless (quality 100) and lossy (the
+    deblocking filter its only loop filter). CDEF, loop restoration,
+    quantiser matrices, segmentation, delta q/lf, superres, film grain,
+    screen content tools, more than 8 bits, image sequences (the avis brand
+    without an image item) and grid items raise UnsupportedCodec naming what
+    is not ported (ROADMAP A).
   * YUV to RGB as libavif hands it to Pillow: libyuv's fixed-point
     I444/I422/I420/I400ToARGBMatrix rows (6-bit coefficients, the Y value
     scaled by 0x0101), with the matrix and range of the colr nclx box, or
@@ -160,8 +163,8 @@ def _props(data: bytes, start: int, end: int):
                 v = (r.uint(4), r.uint(4))
             elif typ == b"pixi":
                 n = r.uint(1)
-                if n > 4:
-                    _fail("a pixi box of more than four channels")
+                if n < 1 or n > 4:  # libavif's AVIF_RESULT_NOT_IMPLEMENTED: Pillow's open raises, tries no other plugin
+                    raise ValueError(f"AVIF: a pixi box of {n} channels")
                 v = tuple(r.uint(1) for _ in range(n))
             else:
                 v = r.cstring()
@@ -369,12 +372,19 @@ def _prop(item: dict, typ: bytes):
 
 
 # vkgr_av1_info's fields
-_INFO = ("w", "h", "depth", "mono", "ssx", "ssy", "cp", "tc", "mc", "full", "base_q_idx", "csp", "cicp")
+_INFO = ("w", "h", "depth", "mono", "ssx", "ssy", "cp", "tc", "mc", "full", "base_q_idx", "csp", "cicp",
+         "lf_y_v", "lf_y_h", "lf_u", "lf_v", "sharpness", "lf_deltas", "enable_cdef", "cdef_bits", "cdef_strength",
+         "lr_planes", "qm", "delta_q", "delta_lf", "segmentation", "tx_mode_select", "reduced_tx_set", "sb128",
+         "lossless", "why")
+# why the decoder refuses a frame (the info's last field)
+_WHY = {1: "a frame other than a shown key frame", 2: "superres", 3: "screen content tools",
+        4: "quantiser matrices", 5: "segmentation", 6: "delta q", 7: "delta lf", 8: "CDEF", 9: "loop restoration",
+        10: "film grain", 11: "more than 8 bits"}
 
 
 def _decode_av1(obus: bytes):
     """AV1 OBUs -> (info dict, [Y, U, V] uint8 planes, U and V None at 4:0:0)."""
-    info = np.zeros(13, np.int32)
+    info = np.zeros(len(_INFO), np.int32)
     src = np.frombuffer(obus, np.uint8)
     lib = _lib()
     rc = lib.vkgr_av1_info(src.ctypes.data, len(src), info.ctypes.data)
@@ -385,8 +395,8 @@ def _decode_av1(obus: bytes):
         out = np.zeros(w * h + (0 if mono else 2 * cw * ch), np.uint8)
         rc = lib.vkgr_av1_decode(src.ctypes.data, len(src), info.ctypes.data, out.ctypes.data, len(out))
     if rc == -2:
-        raise UnsupportedCodec(f"AVIF: AV1 outside the coded lossless subset (base_q_idx {int(info[10])}; "
-                               "ROADMAP A)")
+        why = _WHY.get(int(info[-1]), "tools")
+        raise UnsupportedCodec(f"AVIF: AV1 with {why}, which the port does not decode (ROADMAP A)")
     if rc != 0:
         raise ValueError(f"AVIF: corrupt AV1 data (rc {rc})")
     meta = {k: int(v) for k, v in zip(_INFO, info)}
@@ -399,13 +409,15 @@ def _decode_av1(obus: bytes):
 
 
 def av1_header(obus: bytes) -> dict:
-    """The first frame's sequence and frame header fields (base_q_idx among
+    """The first frame's sequence and frame header fields (base_q_idx, the
+    loop filter levels, CDEF, loop restoration and quantiser matrices among
     them), without decoding it; "refused" where the frame lies outside the
-    ported subset."""
-    info = np.zeros(13, np.int32)
+    ported subset, and "why" then names the tool that puts it there."""
+    info = np.zeros(len(_INFO), np.int32)
     src = np.frombuffer(obus, np.uint8)
     rc = _lib().vkgr_av1_info(src.ctypes.data, len(src), info.ctypes.data)
-    return {**{k: int(v) for k, v in zip(_INFO, info)}, "refused": rc == -2}
+    fields = {k: int(v) for k, v in zip(_INFO, info)}
+    return {**fields, "refused": rc == -2, "why": _WHY.get(fields["why"], "") if rc == -2 else ""}
 
 
 # libyuv's YuvConstants (row_common.cc) by (matrix, full range): UB, UG, VG, VR, YG, YB
@@ -545,6 +557,8 @@ def read_avif(data: bytes):
     if alpha is None:
         return "RGB", rgb
     ameta, aplanes = _decode_av1(_item_data(data, alpha, idat))
+    if (ameta["w"], ameta["h"]) != _prop(alpha, b"ispe"):  # libavif would scale it (ROADMAP C5)
+        raise ValueError("AVIF: the AV1 frame's size is not the ispe size")
     if (ameta["w"], ameta["h"]) != (meta["w"], meta["h"]):
         raise ValueError("AVIF: an alpha plane of another size")
     return "RGBA", np.concatenate([rgb, aplanes[0][..., None]], axis=-1)
