@@ -348,7 +348,8 @@ Phases (each raises on failure; nothing is caught):
      XPM, MSP, IM (YCC, planar and bit-decoded too), EPS, IPTC, PIXAR,
      SPIDER, FITS, McIDAS, GBR, PhotoCD, FLI/FLC, XV thumbnails, IM
      Tools, ICNS (JPEG 2000 entries too), BUFR, GRIB, HDF5, MPEG, JPEG
-     2000 codestreams and JP2 files, lossless AVIF, and the arithmetic, lossless,
+     2000 codestreams and JP2 files, AVIF (lossless, lossy, CDEF and loop
+     restoration), and the arithmetic, lossless,
      subsampled lossless and CMYK/YCCK JPEGs) decoded on the host, equal
      to the digest of Pillow's decode in digests.json, refused where
      Pillow refuses it; a 2048x2048 map of
@@ -381,8 +382,9 @@ Phases (each raises on failure; nothing is caught):
      its decoded pixels, and on a 128x128 ICNS icon of a JPEG 2000 entry
      and on a PNG of it: each pair equal bit for bit, with 10 traverse_bvh4
      and 16 gather_channels launches; (e) AVIF: the committed 512x512
-     lossless map and 2048x2048 lossy map (Pillow's defaults: quality 75,
-     speed 6, 4:2:0) decoded on the host (the AV1 decoder of
+     lossless map, 2048x2048 lossy map (Pillow's defaults: quality 75,
+     speed 6, 4:2:0) and 2048x2048 map of CDEF and loop restoration (speed
+     2, enable-cdef=1) decoded on the host (the AV1 decoder of
      native/av1_decode.cpp), each equal to Pillow's digest, host seconds
      (best of 3); the helmet at 1080p on each and on a PNG of its pixels,
      equal bit for bit, with 10 traverse_bvh4 and 16 gather_channels
@@ -4700,14 +4702,17 @@ def _formats_jpeg2000(device, tmp, hdr, smi):
 def _formats_avif(device, tmp, hdr, smi):
     """Phase 22e: AVIF. The committed maps that only this phase decodes (a
     512x512 coded lossless map at 4:4:4, a 2048x2048 lossy one at Pillow's
-    defaults: quality 75, speed 6, 4:2:0, the deblocking filter on) equal to
-    the digests of Pillow's decode, host seconds each (the best of three);
-    then the helmet at 1080p on each map and on a PNG the port writes from
-    its decoded pixels: each pair of frames equal bit for bit, with 10
-    traverse_bvh4 and 16 gather_channels launches a frame."""
+    defaults: quality 75, speed 6, 4:2:0, the deblocking filter on, and the
+    same image at speed 2 with enable-cdef=1: CDEF and loop restoration on,
+    which its header is held to) equal to the digests of Pillow's decode,
+    host seconds each (the best of three); then the helmet at 1080p on each
+    map and on a PNG the port writes from its decoded pixels: each pair of
+    frames equal bit for bit, with 10 traverse_bvh4 and 16 gather_channels
+    launches a frame."""
     import hashlib
 
     from vk_gltf_renderer_tpu_torch.native import av1_lib
+    from vk_gltf_renderer_tpu_torch.ops import avif as tavif
     from vk_gltf_renderer_tpu_torch.ops import gather as tgather
     from vk_gltf_renderer_tpu_torch.ops import traverse_bvh4 as tb4
     from vk_gltf_renderer_tpu_torch.renderer import GltfRenderer
@@ -4718,9 +4723,18 @@ def _formats_avif(device, tmp, hdr, smi):
     maps, frames = {}, {}
     d = os.path.join(tmp, "formats22e")
     os.makedirs(d, exist_ok=True)
-    for name, tag in (("avif_map_512_lossless.avif", "512"), ("avif_map_2048_lossy.avif", "2048_lossy")):
+    for name, tag in (("avif_map_512_lossless.avif", "512"), ("avif_map_2048_lossy.avif", "2048_lossy"),
+                      ("avif_map_2048_cdef_lr.avif", "2048_cdef_lr")):
         entry = digests["large"][name]
         data = (IMAGE_FIXTURES / name).read_bytes()
+        items, primary, idat = tavif._parse(data)
+        head = tavif.av1_header(tavif._item_data(data, items[primary], idat))
+        filters = {k: head[k] for k in ("cdef_bits", "cdef_y_strength", "cdef_uv_strength", "lr_unit_y",
+                                         "lr_uv_shift", "sb128")}
+        filters.update({k: tavif.LR_TYPES[head[k]] for k in ("lr_type_y", "lr_type_u", "lr_type_v")})
+        if "cdef_lr" in tag:
+            require(head["cdef_strength"] > 0 and head["lr_planes"] > 0 and not head["refused"],
+                    f"[formats] {name}: not a frame of CDEF and loop restoration ({filters})")
         secs = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -4732,10 +4746,10 @@ def _formats_avif(device, tmp, hdr, smi):
                 f"[formats] {name}: the decode differs from Pillow's digest")
         h, w = dec.shape[:2]
         maps[name] = dict(bytes=len(data), side=w, bits_per_pixel=8 * len(data) / (w * h), host_s=min(secs),
-                          host_s_runs=secs)
+                          host_s_runs=secs, filters=filters)
         log(f"[formats] (e) {name} {w}x{h}, {len(data)} bytes ({8 * len(data) / (w * h):.3f} bits a pixel): "
             f"host decode {min(secs):.3f} s (best of 3; {', '.join(f'{x:.3f}' for x in secs)}), equal to "
-            f"Pillow's digest; on {smi}")
+            f"Pillow's digest; {filters}; on {smi}")
         first_png = None
         for kind, blob, fname in ((f"png_avif_{tag}", encode_png(np.ascontiguousarray(dec)), f"avif_{tag}.png"),
                                   (f"avif_{tag}", data, f"base_{tag}.avif")):

@@ -2106,15 +2106,50 @@ def avif_lossy() -> dict:
     return out
 
 
+def avif_filters() -> dict:
+    """Lossy AVIF stills whose frames use CDEF and loop restoration: aom's speeds 0-2 (which search loop
+    restoration) with enable-cdef=1. A quality ladder at 4:4:4, 4:2:2 and 4:2:0, speeds 0 and 1, RGBA (the alpha
+    item filtered too), the odd sizes of the lossless set, 2x2 and 1x4 tiles, 64x64 and 128x128 superblocks, and
+    the two files of the gaps the port once refused (their names from then: CDEF at Pillow's default speed,
+    loop restoration at speed 2 without CDEF)."""
+    cdef = [("enable-cdef", "1")]
+    out = {}
+    img = avif_lossy_image(128, 96, 900)
+    out["avif_refused_loop_restoration.avif"] = avif_file(avif_lossy_image(200, 150, 903), quality=60, speed=2)
+    out["avif_refused_cdef.avif"] = avif_file(img, quality=60, advanced=cdef)
+    for sub in ("4:4:4", "4:2:2", "4:2:0"):
+        tag = sub.replace(":", "")
+        for q in (15, 30, 45, 60, 75):
+            out[f"avif_filters_q{q}_{tag}.avif"] = avif_file(img, quality=q, subsampling=sub, speed=2, advanced=cdef)
+        for speed in (0, 1):
+            out[f"avif_filters_speed{speed}_{tag}.avif"] = avif_file(img, quality=60 if speed else 85,
+                                                                     subsampling=sub, speed=speed, advanced=cdef)
+        # at quality 10 (30 for 1x9) aom's search finds a CDEF strength at every odd size but 1x1, whose one
+        # sample leaves CDEF nothing to smooth
+        for w, h in ((1, 1), (33, 1), (1, 9), (7, 5), (66, 3)):
+            out[f"avif_filters_{tag}_{w}x{h}.avif"] = avif_file(smooth(w, h, 1902 + w * h), quality=30 if h == 9 else 10,
+                                                                subsampling=sub, speed=2, advanced=cdef)
+    rgba = np.concatenate([img, smooth(128, 96, 901, 1)], axis=-1)
+    out["avif_filters_rgba_420.avif"] = avif_file(rgba, quality=50, speed=1, advanced=cdef)
+    big = avif_lossy_image(200, 150, 903)
+    out["avif_filters_tiles_2x2_420.avif"] = avif_file(big, quality=60, tile_rows=1, tile_cols=1, speed=0,
+                                                       advanced=cdef)
+    out["avif_filters_tiles_1x4_444.avif"] = avif_file(big, quality=60, subsampling="4:4:4", tile_cols=2, speed=0,
+                                                       advanced=cdef)
+    wide = avif_lossy_image(320, 192, 904)
+    for sb in ("64", "128"):
+        for speed in (0, 2):
+            out[f"avif_filters_sb{sb}_speed{speed}.avif"] = avif_file(wide, quality=70, speed=speed,
+                                                                      advanced=cdef + [("sb-size", sb)])
+    return out
+
+
 def avif_gaps() -> dict:
     """AVIF stills Pillow reads and the port refuses (UnsupportedCodec, ROADMAP A): an image sequence (save_all,
-    the avis brand), an image aom codes with screen content tools, and the lossy tools the port does not decode:
-    loop restoration (speed 2), CDEF (a strength that is not 0) and quantiser matrices."""
+    the avis brand), an image aom codes with screen content tools, and quantiser matrices."""
     out = {}
     rgb = smooth(45, 37, 800)
     img = avif_lossy_image(128, 96, 900)
-    out["avif_refused_loop_restoration.avif"] = avif_file(avif_lossy_image(200, 150, 903), quality=60, speed=2)
-    out["avif_refused_cdef.avif"] = avif_file(img, quality=60, advanced=[("enable-cdef", "1")])
     out["avif_refused_qm.avif"] = avif_file(img, quality=60, advanced=[("enable-qm", "1")])
     out["avif_refused_sequence.avif"] = pillow(Image.fromarray(rgb), "AVIF", save_all=True, quality=100,
                                                max_threads=1, append_images=[Image.fromarray(rgb[::-1].copy())])
@@ -2128,12 +2163,15 @@ def avif_gaps() -> dict:
 
 
 def avif_large() -> dict:
-    """The maps chip_smoke.py decodes and times: a 512x512 lossless AVIF (4:4:4) of scenes.texture_image, and a
-    2048x2048 one at Pillow's defaults (quality 75, speed 6, 4:2:0)."""
+    """The maps chip_smoke.py decodes and times: a 512x512 lossless AVIF (4:4:4) of scenes.texture_image, a
+    2048x2048 one at Pillow's defaults (quality 75, speed 6, 4:2:0), and the same image at speed 2 with
+    enable-cdef=1 (CDEF and loop restoration)."""
     from vk_gltf_renderer_tpu_torch.scenes import texture_image
 
+    tex = texture_image(2048, seed=3)[..., :3]
     return {"avif_map_512_lossless.avif": avif_file(texture_image(512, seed=3)[..., :3], subsampling="4:4:4"),
-            "avif_map_2048_lossy.avif": avif_file(texture_image(2048, seed=3)[..., :3], quality=75)}
+            "avif_map_2048_lossy.avif": avif_file(tex, quality=75),
+            "avif_map_2048_cdef_lr.avif": avif_file(tex, quality=75, speed=2, advanced=[("enable-cdef", "1")])}
 
 
 def stubs() -> dict:
@@ -2156,7 +2194,7 @@ def fixtures() -> dict:
             **sgi(), **pcx(), **ico(), **qoi(), **sun(), **png(), **blp(), **ftex(), **xbm(), **xpm(), **msp(), **im(),
             **eps(), **im_repaired(), **blp_cmyk(), **iptc(), **pixar_spider(), **fits(), **mcidas_gbr(), **pcd(),
             **fli(), **xvthumb_imt(), **icns(), **stubs(), **icns_jpeg2000(), **jpeg2000(), **jpeg2000_openjpeg(), **avif(),
-            **avif_lossy()}
+            **avif_lossy(), **avif_filters()}
 
 
 def main():

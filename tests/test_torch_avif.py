@@ -10,10 +10,10 @@ the CPU.
   bit for bit, identified as "AVIF"; a header check holds that each one
   (its alpha item too) is coded lossless (base_q_idx 0), so that a fixture
   aom made lossy cannot pass as one.
-- The forms the port does not read yet (digests.json's "gaps": loop
-  restoration, CDEF, quantiser matrices, an image sequence, screen content
-  tools) raise UnsupportedCodec naming what is not ported, Pillow decodes
-  them to their digests, and the texture pool makes them white.
+- The forms the port does not read yet (digests.json's "gaps": quantiser
+  matrices, an image sequence, screen content tools) raise UnsupportedCodec
+  naming what is not ported, Pillow decodes them to their digests, and the
+  texture pool makes them white.
 - 300 seeded mutations of the small fixtures (bits flipped, header bytes
   set, data bits flipped, the file cut) decode to Pillow's pixels or fail
   in both, but for the kinds of mutation that ROADMAP lists: AV1 that the
@@ -106,8 +106,7 @@ def test_fixtures_cover_every_subsampling_alpha_and_tiles():
 
 
 # what each gap's refusal names (the image sequence is refused before any AV1 is read)
-GAP_TOOLS = {"avif_refused_loop_restoration.avif": "loop restoration", "avif_refused_cdef.avif": "CDEF",
-             "avif_refused_qm.avif": "quantiser matrices", "avif_refused_screen_content.avif": "screen content tools",
+GAP_TOOLS = {"avif_refused_qm.avif": "quantiser matrices", "avif_refused_screen_content.avif": "screen content tools",
              "avif_refused_sequence.avif": "image sequences"}
 
 

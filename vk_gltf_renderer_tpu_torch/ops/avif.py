@@ -18,12 +18,13 @@ the colour conversion).
     libavif does not crop to clap: the port does neither.
   * The AV1 data of the primary item (and of its alpha auxiliary item)
     decode through native/av1_decode.cpp: AV1 key frames as Pillow writes
-    them with its default settings, lossless (quality 100) and lossy (the
-    deblocking filter its only loop filter). CDEF, loop restoration,
-    quantiser matrices, segmentation, delta q/lf, superres, film grain,
-    screen content tools, more than 8 bits, image sequences (the avis brand
-    without an image item) and grid items raise UnsupportedCodec naming what
-    is not ported (ROADMAP A).
+    them, lossless (quality 100) and lossy, with the three loop filters
+    aom's speeds and options turn on (deblocking, CDEF, and loop
+    restoration: Wiener, self-guided and switchable). Quantiser matrices,
+    segmentation, delta q/lf, superres, film grain, screen content tools,
+    more than 8 bits, image sequences (the avis brand without an image
+    item) and grid items raise UnsupportedCodec naming what is not ported
+    (ROADMAP A).
   * YUV to RGB as libavif hands it to Pillow: libyuv's fixed-point
     I444/I422/I420/I400ToARGBMatrix rows (6-bit coefficients, the Y value
     scaled by 0x0101), with the matrix and range of the colr nclx box, or
@@ -358,9 +359,7 @@ def _item_data(data: bytes, item: dict, idat: bytes) -> bytes:
     if "extents" not in item:
         raise ValueError("AVIF: an item without a location")
     parts = []
-    for off, length in item["extents"]:
-        if length == 0:
-            length = len(src) - off
+    for off, length in item["extents"]:  # libavif sums the lengths: an extent of length 0 adds no bytes
         if off + length > len(src):
             raise PassOn("AVIF: item data past the end of the file")
         parts.append(src[off : off + length])
@@ -375,11 +374,14 @@ def _prop(item: dict, typ: bytes):
 _INFO = ("w", "h", "depth", "mono", "ssx", "ssy", "cp", "tc", "mc", "full", "base_q_idx", "csp", "cicp",
          "lf_y_v", "lf_y_h", "lf_u", "lf_v", "sharpness", "lf_deltas", "enable_cdef", "cdef_bits", "cdef_strength",
          "lr_planes", "qm", "delta_q", "delta_lf", "segmentation", "tx_mode_select", "reduced_tx_set", "sb128",
-         "lossless", "why")
+         "lossless", "lr_type_y", "lr_type_u", "lr_type_v", "lr_unit_y", "lr_unit_uv", "lr_uv_shift", "cdef_damping",
+         "cdef_y_strength", "cdef_uv_strength", "tile_cols", "tile_rows", "why")
+# FrameRestorationType, as the lr_type_* fields hold it
+LR_TYPES = ("none", "wiener", "sgrproj", "switchable")
 # why the decoder refuses a frame (the info's last field)
 _WHY = {1: "a frame other than a shown key frame", 2: "superres", 3: "screen content tools",
-        4: "quantiser matrices", 5: "segmentation", 6: "delta q", 7: "delta lf", 8: "CDEF", 9: "loop restoration",
-        10: "film grain", 11: "more than 8 bits"}
+        4: "quantiser matrices", 5: "segmentation", 6: "delta q", 7: "delta lf", 10: "film grain",
+        11: "more than 8 bits"}
 
 
 def _decode_av1(obus: bytes):
@@ -411,8 +413,9 @@ def _decode_av1(obus: bytes):
 def av1_header(obus: bytes) -> dict:
     """The first frame's sequence and frame header fields (base_q_idx, the
     loop filter levels, CDEF, loop restoration and quantiser matrices among
-    them), without decoding it; "refused" where the frame lies outside the
-    ported subset, and "why" then names the tool that puts it there."""
+    them; lr_type_* index LR_TYPES), without decoding it; "refused" where
+    the frame lies outside the ported subset, and "why" then names the tool
+    that puts it there."""
     info = np.zeros(len(_INFO), np.int32)
     src = np.frombuffer(obus, np.uint8)
     rc = _lib().vkgr_av1_info(src.ctypes.data, len(src), info.ctypes.data)

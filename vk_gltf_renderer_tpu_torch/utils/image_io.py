@@ -31,10 +31,12 @@ HDF5 and MPEG are claimed and refused (ops/stubs.py): Pillow identifies
 them and cannot load them. Data that no reader claims raise
 UnsupportedCodec (a ValueError), where Image.open raises
 UnidentifiedImageError. JPEG 2000 (raw codestreams and JP2 files, Part 1)
-is read by ops/jpeg2000.py; AVIF stills coded lossless (what Pillow writes
-at quality 100) by ops/avif.py. EPS, WMF, lossy AVIF (and AVIF sequences,
-grid items, screen content tools and more than 8 bits) and JPEG 2000's
-Part 15 (HT) code-blocks are not ported (ROADMAP A): such data are refused.
+is read by ops/jpeg2000.py; AVIF stills, lossy and coded lossless, with
+the deblocking filter, CDEF and loop restoration, by ops/avif.py. EPS, WMF,
+AVIF's other tools (quantiser matrices, segmentation, delta q/lf, superres,
+film grain, screen content tools, more than 8 bits), AVIF sequences and
+grid items, and JPEG 2000's Part 15 (HT) code-blocks are not ported
+(ROADMAP A): such data are refused.
 """
 
 from __future__ import annotations
